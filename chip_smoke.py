@@ -12,11 +12,18 @@ at first use. Phases (each checks its results; any failure exits non-zero):
    versions at B=512, D=784, H=100, at rtol=atol=1e-4 and 1.4e-8, with
    CUDA-event times of both;
 3. one forward+backward of the training step at full width (rtol=atol=1e-5),
-   kernel path (``fused="step"``) against the plain path (``fused=False``):
+   step kernels (``fused="step"``) against the plain path (``fused=False``):
    identical NFE and accept sequence, relative gradient error <= 1e-3;
 4. three training steps of the flagship configuration (Tsit5 at
    rtol=atol=1.4e-8, max_steps=96, batch 512, CE + 100 * error_estimate,
-   InvDecay(1e-5) then Momentum(0.1, 0.9)), with the kernels' launch counts.
+   InvDecay(1e-5) then Momentum(0.1, 0.9)) on ``fused="step"``, with the
+   step kernels' launch counts;
+5. the whole-solve kernels K3/K4 against their plain versions at
+   512x784x100 on seeded random weights and inputs, with CUDA-event times
+   of the forward solve and the backward walk;
+6. phase 3 for the whole solve: ``fused=True`` against ``fused=False``;
+7. phase 4 on ``fused=True``: one forward and one backward launch per step,
+   no step-kernel launch.
 
 The last two lines of standard output are the kernels' JSON record and the
 device record ``{"ok": true, "device": {...}}``.
@@ -33,6 +40,7 @@ BATCH, DIM, HIDDEN = 512, 784, 100
 FLAGSHIP_TOL = 1.4e-8
 MAX_STEPS = 96
 FWD_BOUND, BWD_BOUND, GRAD_BOUND, REG_GRAD_BOUND = 1e-4, 1e-3, 1e-3, 5e-2
+WS_CTRL_BOUND = 1e-5
 REPS = 7  # timed runs per kernel (median), after two warm-up runs
 
 
@@ -190,7 +198,195 @@ def phase_kernels(device):
     }
 
 
-def phase_kernel_vs_plain_step(device, batch):
+def _teacher_forced_steps(rec, ns, args, parts):
+    """Holds each trial step of K3's record against the plain versions on
+    the record's own inputs (its stored t, dt, y, f0 rows): the norm sums
+    and the y_new/k7 rows against K1's plain version in float32 and in
+    float64, and the stored controller updates (the next step's t, dt,
+    qold; the telemetry; the accept flag) against ``ode._post`` on the
+    stored sums. Returns, per quantity, the worst relative errors
+    (kernel vs plain, kernel vs float64, plain vs float64); None where
+    there is no float64 side."""
+    import torch
+
+    from regneuralde_tpu_torch.ops import fused_mlp as fm
+    from regneuralde_tpu_torch.ops import ode
+    from regneuralde_tpu_torch.ops import whole_solve as ws
+
+    t0, t1, _, _, _, _, rtol, atol, ctrl, _ = args
+    st = rec.streams
+    tdir, span = torch.sign(t1 - t0), torch.abs(t1 - t0)
+    count = float(rec.y1.numel())
+    parts64 = [x.double() for x in parts]
+    worst = {}
+
+    def note(name, k_p, k_64=0.0, p_64=None):
+        old = worst.get(name, (0.0, 0.0, None if p_64 is None else 0.0))
+        worst[name] = (max(old[0], k_p), max(old[1], k_64),
+                       None if p_64 is None else max(old[2], p_64))
+
+    for i in range(ns):
+        t, dt, qold, e, n, d = st[:ws.ST_ACC, i]
+        remaining = t1 - t
+        is_last = (dt - remaining) * tdir >= 0
+        dt_eff = torch.where(is_last, remaining, dt)
+        p32 = fm._reference_normed_sweep(t, dt_eff, rec.hy[i], rec.hf[i], parts, rtol, atol)
+        p64 = fm._reference_normed_sweep(t.double(), dt_eff.double(), rec.hy[i].double(),
+                                         rec.hf[i].double(), parts64, rtol, atol)
+        for name, k, a, b in zip(["err_ssq", "num_ssq", "den_ssq"], (e, n, d),
+                                 p32[2:], p64[2:]):
+            note(name, _rel(k, a), _rel(k, b), _rel(a, b))
+        acc = bool(st[ws.ST_ACC, i] > 0.5)
+        if acc:  # an accepted step's y_new, k7 start the next step
+            note("y_new", _rel(rec.hy[i + 1], p32[0]), _rel(rec.hy[i + 1], p64[0]),
+                 _rel(p32[0], p64[0]))
+            if i + 1 < ns:  # hf[ns] is not part of the record
+                note("k7", _rel(rec.hf[i + 1], p32[1]), _rel(rec.hf[i + 1], p64[1]),
+                     _rel(p32[1], p64[1]))
+        post = ode._post(ctrl, count, t, dt_eff, qold, e, n, d, t1, span, is_last)
+        _check(acc == bool(post[4] <= 1.0), f"K3 step {i}: accept flag")
+        for name, j, want in (("tel_t_end", ws.TEL_T, post[3]), ("tel_dt", ws.TEL_DT, dt_eff),
+                              ("tel_eest", ws.TEL_EEST, post[4]),
+                              ("tel_eigen", ws.TEL_EIGEN, post[5])):
+            note(name, _rel(st[j, i], want))
+        if i + 1 < ns:
+            for name, j, want in (("t_next", ws.ST_T, post[0]), ("dt_next", ws.ST_DT, post[1]),
+                                  ("qold_next", ws.ST_QOLD, post[2])):
+                note(name, _rel(st[j, i + 1], want))
+    return worst
+
+
+def phase_whole_solve_kernels(device):
+    """K3/K4 against their plain versions on seeded random weights and
+    inputs, at rtol=atol=1e-4. The forward against the plain solve: the
+    same step counts and accept sequence, y1 within FWD_BOUND. The first
+    steps' embedded error sits near its float32 rounding floor, so the two
+    solves' step sizes drift apart by about 1% (measured on the H100); each
+    stored trial step is therefore also held against the plain versions on
+    its own stored inputs (``_teacher_forced_steps``): the norm sums and
+    rows within 3 times the float32 plain version's distance from float64,
+    plus 1e-6, and the controller within WS_CTRL_BOUND (powf against
+    ATen's pow).
+
+    K4, its float32 plain version and a float64 plain walk run over the
+    same record (K3's). Seeded with a random cotangent of y1, K4 agrees
+    with its plain version within BWD_BOUND on the well-conditioned
+    outputs (the time scalars as one vector, ct_y0 and the weights).
+    Seeded with random telemetry cotangents too, the seeds pass through
+    1/(atol + |y| rtol) and the error estimate's rounding floor, so
+    float32 itself drifts from float64: every output of K4 is held to 3
+    times the float32 plain version's distance from float64, plus 1e-5.
+    Times at the flagship tolerance."""
+    import torch
+
+    from regneuralde_tpu_torch.ops import fused_mlp as fm
+    from regneuralde_tpu_torch.ops import ode
+    from regneuralde_tpu_torch.ops import whole_solve as ws
+    from regneuralde_tpu_torch.ops.controller import PIController
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(device)
+
+    leaves = [rnd(HIDDEN, DIM + 1, scale=(DIM + 1) ** -0.5), rnd(HIDDEN, scale=0.1),
+              rnd(DIM, HIDDEN + 1, scale=(HIDDEN + 1) ** -0.5), rnd(DIM, scale=0.1)]
+    y0 = torch.rand(BATCH, DIM, generator=gen).to(device)
+    parts = fm._split_params(*leaves)
+    ctrl = PIController.for_order(5)
+    func = lambda t, y, _: fm._mlp_k(y, t, parts)[0]
+
+    def inputs(tol):
+        t0, t1, f0, dt0 = ode.solve_prologue(func, y0, 0.0, 1.0, (), tol, tol)
+        return t0, t1, dt0, y0, f0, leaves, tol, tol, ctrl, MAX_STEPS
+
+    args = inputs(1e-4)
+    rk = ws.whole_solve_fwd(*args)
+    rp = ws.plain_whole_solve_fwd(*args)
+    torch.cuda.synchronize()
+    counts_k, counts_p = rk.final[3:].tolist(), rp.final[3:].tolist()
+    ns = int(counts_k[0] + counts_k[1])
+    print(f"[whole] tol=1e-4 (naccept, nreject, done) kernel={counts_k} plain={counts_p}")
+    _check(counts_k == counts_p, "K3: the same step counts as its plain version")
+    _check(counts_k[2] == 1.0, "K3: the solve reached t1")
+    _check(torch.equal(rk.streams[ws.ST_ACC], rp.streams[ws.ST_ACC]),
+           "K3: the same accept sequence")
+    names = ["t", "dt", "qold", "err_ssq", "num_ssq", "den_ssq", "accepted",
+             "tel_t", "tel_dt", "tel_eest", "tel_eigen"]
+    drift = {n: _rel(rk.streams[j, :ns], rp.streams[j, :ns]) for j, n in enumerate(names)}
+    print(f"[whole] K3 y1 rel err {_rel(rk.y1, rp.y1)!r}; free-running record against "
+          "the plain solve's (rounding drift, not checked) " + json.dumps(drift))
+    _check(_rel(rk.y1, rp.y1) <= FWD_BOUND, "K3 y1")
+    errs = _teacher_forced_steps(rk, ns, args, parts)
+    print("[whole] K3 per trial step, on its own stored inputs: rel err (kernel vs "
+          "plain, kernel vs float64, plain vs float64), worst over the steps "
+          + json.dumps(errs))
+    for n, (k_p, k_64, p_64) in errs.items():
+        _check(k_p == k_p and k_64 == k_64, f"K3 {n}: no NaN")
+        if p_64 is None:  # the controller: the same formula in float32
+            _check(k_p <= WS_CTRL_BOUND, f"K3 {n}: {errs[n]}")
+        else:
+            _check(k_64 <= 3 * p_64 + 1e-6, f"K3 {n}: {errs[n]}")
+    abs_f = (rk.y1 - rp.y1).abs().max().item()
+
+    t0, t1 = args[0], args[1]
+    ct_y1 = rnd(BATCH, DIM)
+    ct_tel = rnd(4, MAX_STEPS, scale=0.1).contiguous()
+    groups = ["ct_t0|ct_t1|ct_dt0", "ct_y0", "ct_f0", "cW1", "cb1", "cW2", "cb2"]
+    as_groups = lambda g: [torch.stack(g[:3]), *g[3:]]
+    d = lambda x: x.double()
+    rec64 = ws.SolveRecord(*map(d, rk))
+    for seeds in ("y1", "y1+telemetry"):
+        tel = ct_tel if seeds == "y1+telemetry" else torch.zeros_like(ct_tel)
+        gk = ws.whole_solve_bwd(rk, ns, ct_y1, tel, t0, t1, leaves, 1e-4, 1e-4, ctrl)
+        gp = ws.plain_whole_solve_bwd(rk, ns, ct_y1, tel, t0, t1, leaves, 1e-4, 1e-4,
+                                      ctrl)
+        g64 = ws.plain_whole_solve_bwd(rec64, ns, d(ct_y1), d(tel), d(t0), d(t1),
+                                       [d(x) for x in leaves], 1e-4, 1e-4, ctrl)
+        torch.cuda.synchronize()
+        errs = {n: (_rel(a, b), _rel(a, c), _rel(b, c)) for n, a, b, c in zip(
+            groups, *map(as_groups, (gk, gp, g64)))}
+        print(f"[whole] K4 cotangents of {seeds}: rel err (kernel vs plain, kernel vs "
+              f"float64, plain vs float64) " + json.dumps(errs))
+        for n, (k_p, k_64, p_64) in errs.items():
+            _check(k_p == k_p and k_64 == k_64, f"K4 {n}: no NaN")
+            _check(k_64 <= 3 * p_64 + 1e-5, f"K4 {n}: {errs[n]}")
+            if seeds == "y1" and n != "ct_f0":
+                _check(k_p <= BWD_BOUND, f"K4 {n}: {errs[n]}")
+        if seeds == "y1":
+            abs_b = max((a - b).abs().max().item() for a, b in zip(gk[3:], gp[3:]))
+    again = ws.whole_solve_bwd(rk, ns, ct_y1, ct_tel, t0, t1, leaves, 1e-4, 1e-4, ctrl)
+    first = ws.whole_solve_bwd(rk, ns, ct_y1, ct_tel, t0, t1, leaves, 1e-4, 1e-4, ctrl)
+    rk2 = ws.whole_solve_fwd(*args)
+    _check(all(torch.equal(a, b) for a, b in zip(again, first)), "K4 is deterministic")
+    _check(torch.equal(rk.streams, rk2.streams) and torch.equal(rk.y1, rk2.y1),
+           "K3 is deterministic")
+    print(f"[whole] max abs err: K3 y1 {abs_f!r}, K4 (cotangent of y1 only) {abs_b!r}")
+
+    args = inputs(FLAGSHIP_TOL)
+    rec = ws.whole_solve_fwd(*args)
+    ns = int(rec.final[3:5].sum().item())
+    t0, t1 = args[0], args[1]
+    bwd_args = (ns, ct_y1, ct_tel, t0, t1, leaves, FLAGSHIP_TOL, FLAGSHIP_TOL, ctrl)
+    times = {
+        "fwd_kernel": _time_ms(lambda: ws.whole_solve_fwd(*args)),
+        "fwd_plain": _time_ms(lambda: ws.plain_whole_solve_fwd(*args)),
+        "bwd_kernel": _time_ms(lambda: ws.whole_solve_bwd(rec, *bwd_args)),
+        "bwd_plain": _time_ms(lambda: ws.plain_whole_solve_bwd(rec, *bwd_args)),
+    }
+    print("[whole] median ms over %d runs at %dx%dx%d, tol %g, %d trial steps: %s"
+          % (REPS, BATCH, DIM, HIDDEN, FLAGSHIP_TOL, ns, json.dumps(times)))
+    return {
+        "whole_solve_fwd": dict(
+            replaces="regneuralde_tpu/ops/pallas_solve.py:357",
+            max_abs_err=abs_f, ms=times["fwd_kernel"], plain_ms=times["fwd_plain"]),
+        "whole_solve_bwd": dict(
+            replaces="regneuralde_tpu/ops/pallas_solve.py:559",
+            max_abs_err=abs_b, ms=times["bwd_kernel"], plain_ms=times["bwd_plain"]),
+    }
+
+
+def phase_kernel_vs_plain_step(device, batch, fused):
     """One forward+backward of the training step: kernels against plain.
 
     The cross-entropy gradient is held to GRAD_BOUND. The full gradient adds
@@ -202,7 +398,7 @@ def phase_kernel_vs_plain_step(device, batch):
 
     x, y = batch
     tol = 1e-5
-    kern, gen = build_classifier(tol, "step", device)
+    kern, gen = build_classifier(tol, fused, device)
     kern.init(x, generator=gen)
     plain, _ = build_classifier(tol, False, device)
     plain.init(x)
@@ -223,7 +419,7 @@ def phase_kernel_vs_plain_step(device, batch):
     for reg_weight, bound in ((0.0, GRAD_BOUND), (100.0, REG_GRAD_BOUND)):
         k, p = results["kernel", reg_weight], results["plain", reg_weight]
         g_err = _rel(k["grad"], p["grad"])
-        print(f"[step] rtol=atol={tol:g} reg_weight={reg_weight:g} "
+        print(f"[step] fused={fused!r} rtol=atol={tol:g} reg_weight={reg_weight:g} "
               f"nfe kernel={k['nfe']} plain={p['nfe']} "
               f"loss kernel={k['loss']!r} plain={p['loss']!r} "
               f"logits rel err={_rel(k['logits'], p['logits']):.3e} "
@@ -236,18 +432,22 @@ def phase_kernel_vs_plain_step(device, batch):
         _check(g_err <= bound, f"gradient rel err {g_err} > {bound}")
 
 
-def phase_slice(device, batches):
-    """Three training steps of the flagship configuration."""
+def phase_slice(device, batches, fused):
+    """Three training steps of the flagship configuration on ``fused``.
+    Returns the launch counts of the four kernels in those steps: each
+    step kernel once per trial step on ``"step"``; each whole-solve
+    kernel once per training step on ``True``, and no step kernel."""
     import torch
 
     from regneuralde_tpu_torch.ops import fused_mlp as fm
+    from regneuralde_tpu_torch.ops import whole_solve as ws
     from regneuralde_tpu_torch.training import (
         create_train_state,
         make_train_step,
         mnist_node_optimizer,
     )
 
-    clf, gen = build_classifier(FLAGSHIP_TOL, "step", device)
+    clf, gen = build_classifier(FLAGSHIP_TOL, fused, device)
     clf.init(batches[0][0], generator=gen)
     optimizer = mnist_node_optimizer()
     state = create_train_state(clf, optimizer)
@@ -255,7 +455,9 @@ def phase_slice(device, batches):
     before = [p.detach().clone() for p in clf.parameters()]
 
     torch.cuda.synchronize()
-    fm.reset_launches()  # count only the main path's launches
+    fm.reset_launches()  # count only this path's launches
+    ws.reset_launches()
+    launches = {**fm.LAUNCHES, **ws.LAUNCHES}
     trial_steps = 0
     for i, (x, y) in enumerate(batches):
         start = time.perf_counter()
@@ -266,22 +468,26 @@ def phase_slice(device, batches):
         naccept = int(sol.accepted.sum().item())
         nlive = int(sol.live.sum().item())
         trial_steps += nlive
-        print(f"[slice] step {i}: loss={loss.item()!r} nfe={out.nfe} "
+        launches = {**fm.LAUNCHES, **ws.LAUNCHES}
+        print(f"[slice] fused={fused!r} step {i}: loss={loss.item()!r} nfe={out.nfe} "
               f"naccept={naccept} nreject={nlive - naccept} "
               f"success={out.success} wall_s={wall!r} "
-              f"launches={json.dumps(fm.LAUNCHES)}")
+              f"launches={json.dumps(launches)}")
         _check(torch.isfinite(loss).item(), f"finite loss, got {loss.item()}")
         _check(out.success, "the solve reached t1")
         _check(out.nfe == 2 + 6 * nlive, "NFE = 2 + 6 * trial steps")
         _check(torch.isfinite(out.logits).all().item(), "finite logits")
-    launches = dict(fm.LAUNCHES)
     moved = max((p.detach() - b).abs().max().item()
                 for p, b in zip(clf.parameters(), before))
-    print(f"[slice] trial steps={trial_steps} launches={json.dumps(launches)} "
-          f"max parameter change={moved!r}")
+    print(f"[slice] fused={fused!r} trial steps={trial_steps} "
+          f"launches={json.dumps(launches)} max parameter change={moved!r}")
     _check(moved > 0.0, "the parameters moved")
-    for name, n in launches.items():
-        _check(n == trial_steps, f"{name}: {n} launches for {trial_steps} trial steps")
+    per_step = {"step": dict(normed_tsit5_fwd=trial_steps, normed_tsit5_bwd=trial_steps,
+                             whole_solve_fwd=0, whole_solve_bwd=0),
+                True: dict(normed_tsit5_fwd=0, normed_tsit5_bwd=0,
+                           whole_solve_fwd=len(batches), whole_solve_bwd=len(batches))}
+    _check(launches == per_step[fused],
+           f"fused={fused!r}: launches {launches}, expected {per_step[fused]}")
     return launches
 
 
@@ -308,12 +514,18 @@ def main():
 
     batches = synthetic_batches(3, device)
     kernels = phase_kernels(device)
-    phase_kernel_vs_plain_step(device, batches[0])
-    launches = phase_slice(device, batches)
+    phase_kernel_vs_plain_step(device, batches[0], "step")
+    launches = phase_slice(device, batches, "step")
+    kernels.update(phase_whole_solve_kernels(device))
+    phase_kernel_vs_plain_step(device, batches[0], True)
+    whole = phase_slice(device, batches, True)
+    launches.update({k: whole[k] for k in ("whole_solve_fwd", "whole_solve_bwd")})
 
+    sources = {"normed_tsit5_fwd": "normed_tsit5.cu", "normed_tsit5_bwd": "normed_tsit5.cu",
+               "whole_solve_fwd": "whole_solve.cu", "whole_solve_bwd": "whole_solve.cu"}
     record = {"kernels": [
         {"name": name, "route": "cuda",
-         "source": "regneuralde_tpu_torch/csrc/normed_tsit5.cu",
+         "source": "regneuralde_tpu_torch/csrc/" + sources[name],
          "replaces": info["replaces"], "launches": launches[name],
          "max_abs_err": info["max_abs_err"], "ms": info["ms"],
          "plain_ms": info["plain_ms"]}

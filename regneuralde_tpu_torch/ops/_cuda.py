@@ -1,10 +1,11 @@
 """Builds the port's CUDA kernels at first use and binds them with ctypes.
 
-``nvcc`` compiles ``regneuralde_tpu_torch/csrc/*.cu`` for ``sm_90a`` into a
-shared library with a plain C interface under ``build/kernels/`` (listed in
-``.gitignore``); the library's name carries a hash of the sources, so an
-edited source is rebuilt. Nothing here runs at import time: the CPU tests
-import every module, and this machine has no ``nvcc``.
+``nvcc`` compiles each ``regneuralde_tpu_torch/csrc/*.cu`` for ``sm_90a``,
+all at once in parallel, and links them into a shared library with a
+plain C interface under ``build/kernels/`` (listed in ``.gitignore``); the
+library's name carries a hash of the sources and headers, so an edited
+source is rebuilt. Nothing here runs at import time: the CPU tests import
+every module, and a machine without a card has no ``nvcc``.
 """
 
 from __future__ import annotations
@@ -32,7 +33,11 @@ _SIGNATURES = {
     "regnde_bwd_rows": [],
     "regnde_normed_fwd": [_P] * 12 + [_I, _I, _I, _F, _F, _P],
     "regnde_normed_bwd": [_P] * 23 + [_I, _I, _I, _F, _F, _P],
+    "regnde_whole_solve_fwd": [_P] * 13 + [_I] * 4 + [_F] * 9 + [_P],
+    "regnde_whole_solve_bwd": [_P] * 21 + [_I] * 5 + [_F] * 9 + [_P],
 }
+_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+          "-Xcompiler", "-fPIC"]
 
 
 def _nvcc() -> str:
@@ -48,20 +53,34 @@ def library():
     if _lib is not None:
         return _lib
     sources = sorted(_CSRC.glob("*.cu"))
-    digest = hashlib.sha256(b"".join(p.read_bytes() for p in sources)).hexdigest()[:16]
+    hashed = sources + sorted(_CSRC.glob("*.cuh"))
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in hashed)).hexdigest()[:16]
     so = BUILD_DIR / f"libregnde_kernels_{digest}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-               "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-               "-o", str(tmp), *map(str, sources)]
+        tag = f"{digest}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
         start = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        nvcc = _nvcc()
+        procs = [subprocess.Popen(
+            [nvcc, *_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for src, obj in zip(sources, objs)]
+        reports = []
+        for src, proc in zip(sources, procs):
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {src.name} ({proc.returncode}):\n{err}")
+            reports.append(err)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([nvcc, *_FLAGS, "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        (BUILD_DIR / f"ptxas_{digest}.txt").write_text(proc.stderr)
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr}")
+        (BUILD_DIR / f"ptxas_{digest}.txt").write_text("".join(reports))
         os.replace(tmp, so)
+        for obj in objs:
+            obj.unlink()
         build_seconds = time.perf_counter() - start
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

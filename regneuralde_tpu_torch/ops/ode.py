@@ -11,7 +11,9 @@ done flags back, one host sync per trial step. The forward stores, per
 trial step, ``t, dt, qold``, the three norm sums and the ``y, f0`` rows, so
 the backward runs one sweep backward per step (the K2 kernel on the card)
 and no forward replay. The scalar chain (controller, time update,
-telemetry) is differentiated with ``torch.autograd.grad`` on 0-d tensors.
+telemetry; ``_post``) is differentiated with ``torch.autograd.grad`` on 0-d
+tensors. ``post_bwd`` is its hand pullback, and ``adjoint_step`` the rest
+of one reverse step, both shared with ``ops.whole_solve``.
 
 Every solver decision matches the JAX package: the PI controller with its
 deadband, the ``span`` clamp, the ``is_last`` step to ``t1``, telemetry
@@ -25,7 +27,7 @@ from typing import Callable, NamedTuple, Optional
 
 import torch
 
-from regneuralde_tpu_torch.ops.controller import PIController, initial_step_size
+from regneuralde_tpu_torch.ops.controller import _EEST_FLOOR, PIController, initial_step_size
 from regneuralde_tpu_torch.ops.tableaus import TSIT5
 
 
@@ -130,6 +132,109 @@ def plain_normed_sweep_bwd(func, t, dt, y, k1, args, cts, rtol, atol):
 # ---------------------------------------------------------------------------
 
 
+def _post(ctrl, count, t, dt_eff, qold, e, n, d, t1, span, is_last):
+    """The scalar chain of one trial step after its norm sums (the
+    ``post`` of ``regneuralde_tpu/ops/pallas_solve.py``): ``(t_new,
+    dt_next, qold_next, t_end, eest, eigen_est)``."""
+    eest, eigen = _normed_scalars(e, n, d, count)
+    accept = eest <= 1.0
+    dt_next, qold_next = ctrl.propose(dt_eff, eest, qold, accept)
+    dt_next = torch.sign(dt_next) * torch.minimum(torch.abs(dt_next), span)
+    t_end = torch.where(is_last, t1, t + dt_eff)
+    t_new = torch.where(accept, t_end, t)
+    return t_new, dt_next, qold_next, t_end, eest, eigen
+
+
+def _max_grad(a, b, g):
+    """Autograd's ``torch.maximum(a, b)`` pullback to ``a``: all of ``g``
+    where ``a`` wins, half of it on a tie."""
+    return torch.where(a > b, g, torch.where(a == b, g / 2, torch.zeros_like(g)))
+
+
+def _min_grad(a, b, g):
+    """Autograd's ``torch.minimum(a, b)`` pullback to ``a``."""
+    return torch.where(a < b, g, torch.where(a == b, g / 2, torch.zeros_like(g)))
+
+
+def post_bwd(ctrl, count, t, dt_eff, qold, e, n, d, t1, span, is_last, accept,
+             cts):
+    """Hand pullback of ``_post``: ``cts`` are the cotangents of its six
+    outputs; returns those of ``(t, dt_eff, qold, e, n, d, t1, span)``.
+
+    The tie conventions are autograd's (``maximum``/``minimum`` split a
+    tie in half, ``sign`` has a zero derivative, ``abs`` at 0 too), so it
+    matches ``torch.autograd`` of ``_post``. ``accept`` is the stored
+    flag. ``csrc/whole_solve.cu`` (``post_bwd``) runs the same algebra."""
+    c_tnew, c_dtn, c_qn, c_tend, c_eest, c_eig = cts
+    zero = torch.zeros_like(e)
+    one = torch.ones_like(e)
+    # forward recompute
+    pe, pn, pd = e > 0, n > 0, d > 0
+    eest = torch.where(pe, torch.sqrt(torch.where(pe, e, one) / count), zero)
+    eig_num = torch.where(pn, torch.sqrt(torch.where(pn, n, one)), zero)
+    eig_den = torch.where(pd, torch.sqrt(torch.where(pd, d, one)), zero)
+    tiny = one * 1e-30
+    mden = torch.maximum(eig_den, tiny)
+    floor = one * _EEST_FLOOR
+    es = torch.maximum(eest, floor)
+    q11 = es ** ctrl.beta1
+    qb = qold ** ctrl.beta2
+    q = q11 / qb
+    qg = q / ctrl.gamma
+    lo, hi = one / ctrl.qmax, one / ctrl.qmin
+    mx = torch.maximum(qg, lo)
+    qa0 = torch.minimum(mx, hi)
+    if ctrl.qsteady_max > 1.0:
+        in_band = (qa0 >= 1.0) & (qa0 <= ctrl.qsteady_max)
+        qa = torch.where(in_band, one, qa0)
+    else:
+        in_band = torch.zeros_like(accept)
+        qa = qa0
+    r = q11 / ctrl.gamma
+    q_rej = torch.minimum(hi, r)
+    dt0 = torch.where(accept, dt_eff / qa, dt_eff / q_rej)
+    s = torch.sign(dt0)
+    a = torch.abs(dt0)
+
+    # t_new = where(accept, t_end, t); t_end = where(is_last, t1, t + dt_eff)
+    g_tend = c_tend + torch.where(accept, c_tnew, zero)
+    g_t = torch.where(accept, zero, c_tnew)
+    g_t1 = torch.where(is_last, g_tend, zero)
+    g_lin = torch.where(is_last, zero, g_tend)
+    g_t = g_t + g_lin
+    g_dteff = g_lin
+    # dt_next = sign(dt0) * minimum(|dt0|, span)
+    g_m = c_dtn * s
+    g_dt0 = _min_grad(a, span, g_m) * s
+    g_span = _min_grad(span, a, g_m)
+    # qold_next = where(accept, maximum(eest, qoldinit), qold)
+    g_qold = torch.where(accept, zero, c_qn)
+    g_eest = c_eest + _max_grad(eest, one * ctrl.qoldinit,
+                                torch.where(accept, c_qn, zero))
+    # dt0 = where(accept, dt_eff / qa, dt_eff / q_rej)
+    g_acc = torch.where(accept, g_dt0, zero)
+    g_rej = torch.where(accept, zero, g_dt0)
+    g_dteff = g_dteff + g_acc / qa + g_rej / q_rej
+    g_qa = -g_acc * ((dt_eff / qa) / qa)
+    g_qrej = -g_rej * ((dt_eff / q_rej) / q_rej)
+    g_q11 = _min_grad(r, hi, g_qrej) / ctrl.gamma
+    g_qa0 = torch.where(in_band, zero, g_qa)
+    g_q = _max_grad(qg, lo, _min_grad(mx, hi, g_qa0)) / ctrl.gamma
+    g_q11 = g_q11 + g_q / qb
+    g_qb = -g_q * ((q11 / qb) / qb)
+    g_qold = g_qold + g_qb * (ctrl.beta2 * qold ** (ctrl.beta2 - 1))
+    g_es = g_q11 * (ctrl.beta1 * es ** (ctrl.beta1 - 1))
+    g_eest = g_eest + _max_grad(eest, floor, g_es)
+    # eigen = where(eig_den > 0, eig_num / maximum(eig_den, 1e-30), 0)
+    g_ratio = torch.where(eig_den > 0, c_eig, zero)
+    g_num = g_ratio / mden
+    g_den = _max_grad(eig_den, tiny, -g_ratio * ((eig_num / mden) / mden))
+    g_e = torch.where(pe, (g_eest / (2 * eest)) / count, zero)
+    g_n = torch.where(pn, g_num / (2 * eig_num), zero)
+    g_d = torch.where(pd, g_den / (2 * eig_den), zero)
+    return g_t, g_dteff, g_qold, g_e, g_n, g_d, g_t1, g_span
+
+
 def _solve_forward(sweep, ctrl, max_steps, t0, t1, dt_init, y0, f0, args,
                    keep_history):
     """The trial-step loop of ``_make_fast_adjoint_solve._forward``."""
@@ -149,19 +254,16 @@ def _solve_forward(sweep, ctrl, max_steps, t0, t1, dt_init, y0, f0, args,
         res = sweep(t, dt_eff, y, f0, args)
         e, n, d = (res.err_ssq.to(t.dtype), res.eig_num_ssq.to(t.dtype),
                    res.eig_den_ssq.to(t.dtype))
-        eest, eigen_est = _normed_scalars(e, n, d, count)
-        accept = eest <= 1.0
-        dt_next, qold_next = ctrl.propose(dt_eff, eest, qold, accept)
-        dt_next = torch.sign(dt_next) * torch.minimum(torch.abs(dt_next), span)
-        t_end = torch.where(is_last, t1, t + dt_eff)
+        t_new, dt_next, qold_next, t_end, eest, eigen_est = _post(
+            ctrl, count, t, dt_eff, qold, e, n, d, t1, span, is_last)
         if keep_history:
             hist.append((t, dt, qold, e, n, d, y, f0))
         rows.append((t_end, dt_eff, eest, eigen_est))
         # the one host sync of the trial step
-        acc_flag, last_flag = torch.stack((accept, is_last)).tolist()
+        acc_flag, last_flag = torch.stack((eest <= 1.0, is_last)).tolist()
         accepted.append(acc_flag)
         if acc_flag:
-            t, y, f0 = t_end, res.y_new, res.k_last
+            t, y, f0 = t_new, res.y_new, res.k_last
         dt, qold = dt_next, qold_next
         done = acc_flag and last_flag
     return y, rows, accepted, done, hist
@@ -180,6 +282,57 @@ def _telemetry(rows, accepted, max_steps, like):
     live = torch.zeros(max_steps, dtype=torch.bool, device=like.device)
     live[:n] = True
     return StepTelemetry(*cols, accepted=acc, live=live)
+
+
+class AdjointCarry(NamedTuple):
+    """The running cotangents of the reverse walk over the trial steps."""
+
+    ct_t: torch.Tensor
+    ct_dt: torch.Tensor
+    ct_qold: torch.Tensor
+    ct_y: torch.Tensor
+    ct_f0: torch.Tensor
+    ct_leaves: list
+    ct_t1x: torch.Tensor  # direct cotangent of t1
+    ct_spanx: torch.Tensor  # cotangent of span = |t1 - t0|
+
+    def finish(self, tdir):
+        """``(ct_t0, ct_t1, ct_dt_init, ct_y0, ct_f0_init, *ct_leaves)``."""
+        return (self.ct_t - tdir * self.ct_spanx, self.ct_t1x + tdir * self.ct_spanx,
+                self.ct_dt, self.ct_y, self.ct_f0, *self.ct_leaves)
+
+
+def adjoint_step(sweep_bwd, leaves, primals, acc, is_last, dp, ct_tel_dt, carry):
+    """One trial step of the reverse walk, after the scalar chain's
+    pullback ``dp = (t, dt_eff, qold, e, n, d, t1, span)``: route the carry
+    by the accept flag (``y_out = where(acc, y_new, y)``, ``f0_out``
+    likewise), run the sweep's backward, and pull ``dt_eff = where(is_last,
+    t1 - t, dt)`` back. ``primals = (t, dt_eff, y, f0)``."""
+    t_i, dt_eff, y_i, f0_i = primals
+    dp_t, dp_dteff, dp_qold, ct_e, ct_n, ct_d, dp_t1, dp_span = dp
+    zero = torch.zeros_like(dp_t)
+    ct_y, ct_f0 = carry.ct_y, carry.ct_f0
+    if acc:
+        ct_ynew, ct_y_pass = ct_y, torch.zeros_like(ct_y)
+        ct_k7, ct_f0_pass = ct_f0, torch.zeros_like(ct_f0)
+    else:
+        ct_ynew, ct_y_pass = torch.zeros_like(ct_y), ct_y
+        ct_k7, ct_f0_pass = torch.zeros_like(ct_f0), ct_f0
+
+    # ONE sweep backward; the history holds every primal
+    k_ct_t, k_ct_dteff, ct_y_k, ct_k1, ct_args_i = sweep_bwd(
+        t_i, dt_eff, y_i, f0_i, tuple(leaves), (ct_ynew, ct_k7, ct_e, ct_n, ct_d))
+
+    ct_dteff = dp_dteff + k_ct_dteff.to(zero.dtype) + ct_tel_dt
+    return AdjointCarry(
+        ct_t=dp_t + k_ct_t.to(zero.dtype) + torch.where(is_last, -ct_dteff, zero),
+        ct_dt=torch.where(is_last, zero, ct_dteff),
+        ct_qold=dp_qold,
+        ct_y=ct_y_pass + ct_y_k,
+        ct_f0=ct_f0_pass + ct_k1,
+        ct_leaves=[a + b for a, b in zip(carry.ct_leaves, ct_args_i)],
+        ct_t1x=carry.ct_t1x + dp_t1 + torch.where(is_last, ct_dteff, zero),
+        ct_spanx=carry.ct_spanx + dp_span)
 
 
 class FastAdjointSolve(torch.autograd.Function):
@@ -221,74 +374,53 @@ class FastAdjointSolve(torch.autograd.Function):
         def tel_ct(j, i):
             return ct_tel[j][i]
 
-        ct_t, ct_dt, ct_qold = zero, zero, zero
-        ct_y = torch.zeros_like(y0) if ct_y1 is None else ct_y1
-        ct_f0 = torch.zeros_like(f0_init)
-        ct_leaves = [torch.zeros_like(x) for x in leaves]
-        ct_t1x, ct_spanx = zero, zero
-
-        def post(t, dt_eff, qold, e, n, d, t1_, span_, is_last):
-            eest, eigen = _normed_scalars(e, n, d, count)
-            accept = eest <= 1.0
-            dt_next, qold_next = ctrl.propose(dt_eff, eest, qold, accept)
-            dt_next = torch.sign(dt_next) * torch.minimum(torch.abs(dt_next), span_)
-            t_end = torch.where(is_last, t1_, t + dt_eff)
-            t_new = torch.where(accept, t_end, t)
-            return t_new, dt_next, qold_next, t_end, eest, eigen
+        carry = AdjointCarry(
+            zero, zero, zero, torch.zeros_like(y0) if ct_y1 is None else ct_y1,
+            torch.zeros_like(f0_init), [torch.zeros_like(x) for x in leaves],
+            zero, zero)
 
         for i in range(len(ctx.hist) - 1, -1, -1):
             t_i, dt_i, qold_i, e_i, n_i, d_i, y_i, f0_i = ctx.hist[i]
-            acc = ctx.accepted[i]
             remaining = t1 - t_i
             is_last = (dt_i - remaining) * tdir >= 0
             dt_eff = torch.where(is_last, remaining, dt_i)
-
-            # y_out = where(acc, y_new, y); f0_out likewise
-            if acc:
-                ct_ynew, ct_y_pass = ct_y, torch.zeros_like(ct_y)
-                ct_k7, ct_f0_pass = ct_f0, torch.zeros_like(ct_f0)
-            else:
-                ct_ynew, ct_y_pass = torch.zeros_like(ct_y), ct_y
-                ct_k7, ct_f0_pass = torch.zeros_like(ct_f0), ct_f0
 
             # scalar chain (controller, time update, telemetry)
             prim = [x.detach().requires_grad_(True)
                     for x in (t_i, dt_eff, qold_i, e_i, n_i, d_i, t1, span)]
             with torch.enable_grad():
-                outs = post(*prim, is_last)
+                outs = _post(ctrl, count, *prim, is_last)
                 grads = torch.autograd.grad(
                     outs, prim,
-                    grad_outputs=(ct_t, ct_dt, ct_qold, tel_ct(0, i),
-                                  tel_ct(2, i), tel_ct(3, i)),
+                    grad_outputs=(carry.ct_t, carry.ct_dt, carry.ct_qold,
+                                  tel_ct(0, i), tel_ct(2, i), tel_ct(3, i)),
                     allow_unused=True)
-            (dp_t, dp_dteff, dp_qold, ct_e, ct_n, ct_d, dp_t1, dp_span) = [
-                zero if g is None else g for g in grads]
-
-            # ONE sweep backward; the history holds every primal
-            k_ct_t, k_ct_dteff, ct_y_k, ct_k1, ct_args_i = ctx.sweep_bwd(
-                t_i, dt_eff, y_i, f0_i, tuple(leaves),
-                (ct_ynew, ct_k7, ct_e, ct_n, ct_d))
-
-            # dt_eff = where(is_last, t1 - t, dt)
-            ct_dteff = dp_dteff + k_ct_dteff.to(zero.dtype) + tel_ct(1, i)
-            d_t_pre = torch.where(is_last, -ct_dteff, zero)
-            d_dt_pre = torch.where(is_last, zero, ct_dteff)
-            d_t1_pre = torch.where(is_last, ct_dteff, zero)
-
-            ct_t = dp_t + k_ct_t.to(zero.dtype) + d_t_pre
-            ct_dt = d_dt_pre
-            ct_qold = dp_qold
-            ct_y = ct_y_pass + ct_y_k
-            ct_f0 = ct_f0_pass + ct_k1
-            ct_leaves = [a + b for a, b in zip(ct_leaves, ct_args_i)]
-            ct_t1x = ct_t1x + dp_t1 + d_t1_pre
-            ct_spanx = ct_spanx + dp_span
+            dp = [zero if g is None else g for g in grads]
+            carry = adjoint_step(
+                ctx.sweep_bwd, leaves, (t_i, dt_eff, y_i, f0_i),
+                ctx.accepted[i], is_last, dp, tel_ct(1, i), carry)
 
         ctx.hist = None
-        ct_t1 = ct_t1x + tdir * ct_spanx
-        ct_t0 = ct_t - tdir * ct_spanx
-        return (None, None, None, None, ct_t0, ct_t1, ct_dt, ct_y, ct_f0,
-                *ct_leaves)
+        return (None, None, None, None, *carry.finish(tdir))
+
+
+def solve_prologue(func, y0, t0, t1, args, rtol, atol):
+    """``odeint``'s prologue: the time scalars as tensors (float32 at
+    least), ``f(t0, y0)`` and Hairer's initial step (one more evaluation):
+    ``(t0, t1, f_init, dt_init)``."""
+    time_dtype = torch.promote_types(y0.dtype, torch.float32)
+    t0 = torch.as_tensor(t0, dtype=time_dtype, device=y0.device)
+    t1 = torch.as_tensor(t1, dtype=time_dtype, device=y0.device)
+    f_init = func(t0, y0, args)
+    dt_init, _ = initial_step_size(func, t0, y0, f_init, args, TSIT5.order,
+                                   rtol, atol, t1)
+    return t0, t1, f_init, dt_init.to(time_dtype)
+
+
+def solve_stats(naccept, nreject, done) -> ODEStats:
+    """NFE: the prologue's two evaluations and six per trial step."""
+    return ODEStats(nfe=2 + (TSIT5.num_stages - 1) * (naccept + nreject),
+                    naccept=naccept, nreject=nreject, success=bool(done))
 
 
 def odeint(
@@ -334,14 +466,7 @@ def odeint(
             func, t, dt, y, k1, a, cts, rtol, atol)
     ctrl = controller or PIController.for_order(TSIT5.order)
     args = tuple(args)
-
-    time_dtype = torch.promote_types(y0.dtype, torch.float32)
-    t0 = torch.as_tensor(t0, dtype=time_dtype, device=y0.device)
-    t1 = torch.as_tensor(t1, dtype=time_dtype, device=y0.device)
-    f_init = func(t0, y0, args)
-    dt_init, _ = initial_step_size(func, t0, y0, f_init, args, TSIT5.order,
-                                   rtol, atol, t1)
-    dt_init = dt_init.to(time_dtype)
+    t0, t1, f_init, dt_init = solve_prologue(func, y0, t0, t1, args, rtol, atol)
 
     if mode == "while":
         with torch.no_grad():
@@ -357,6 +482,5 @@ def odeint(
             y0, f_init, *args)
         tel = StepTelemetry(tel_t, tel_dt, tel_e, tel_g, acc, live)
         naccept, nreject, done = counts.tolist()
-    stats = ODEStats(nfe=2 + (TSIT5.num_stages - 1) * (naccept + nreject),
-                     naccept=naccept, nreject=nreject, success=bool(done))
-    return ODESolution(y1=y1, stats=stats, telemetry=tel)
+    return ODESolution(y1=y1, stats=solve_stats(naccept, nreject, done),
+                       telemetry=tel)

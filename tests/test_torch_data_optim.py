@@ -135,10 +135,17 @@ def test_mlp_dynamics_matches_flax():
                                atol=5e-7)
 
 
+class _OtherDynamics(torch.nn.Module):
+    def forward(self, y, t):
+        return -y
+
+
 @pytest.mark.parametrize("fused", [True, "solve", "tiled"])
 def test_unported_fused_routes_raise_not_implemented(fused):
+    """The whole-solve routes run MLPDynamics; the whole solve of other
+    dynamics (K7/K8) is a later slice."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NeuralODE(MLPDynamics(8, 4), fused=fused)
+        NeuralODE(_OtherDynamics(), fused=fused)
 
 
 @pytest.mark.parametrize("kwargs", [

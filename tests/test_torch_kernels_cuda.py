@@ -1,4 +1,5 @@
-"""The port's CUDA kernels K1/K2 against their plain PyTorch versions.
+"""The port's CUDA kernels (K1/K2 step pair, K3/K4 whole solve) against
+their plain PyTorch versions.
 
 These tests need a CUDA device and ``nvcc`` (the kernels have no CPU mode)
 and skip without one. This file imports no JAX, so it runs on a machine
@@ -12,8 +13,12 @@ import pytest
 import torch
 
 from regneuralde_tpu_torch.ops import fused_mlp as fm
+from regneuralde_tpu_torch.ops import ode
+from regneuralde_tpu_torch.ops import whole_solve as ws
+from regneuralde_tpu_torch.ops.controller import PIController
 
 T, DT = 0.07, 0.11
+CTRL = PIController.for_order(5)
 
 
 def _inputs(batch, dim, hidden, device, seed=0):
@@ -32,7 +37,8 @@ def _inputs(batch, dim, hidden, device, seed=0):
 
 def _rel(a, b):
     a, b = a.double(), b.double()
-    return (torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b)).item()
+    return (torch.linalg.vector_norm(a - b)
+            / torch.linalg.vector_norm(b).clamp_min(1e-300)).item()
 
 
 @pytest.fixture
@@ -87,3 +93,182 @@ def test_wrappers_refuse_bad_inputs(cuda):
         fm.normed_sweep_fwd(t, dt, y.t(), k1, leaves, 1e-4, 1e-4)
     with pytest.raises(ValueError):
         fm.normed_sweep_fwd(t, dt, y, k1.cpu(), leaves, 1e-4, 1e-4)
+
+
+def _solve_args(batch, dim, hidden, device, tol=1e-4, max_steps=96, seed=0):
+    """Seeded weights and initial state, and odeint's prologue over the
+    plain MLP: the arguments of ``whole_solve_fwd``."""
+    y0, _, leaves, _ = _inputs(batch, dim, hidden, device, seed)
+    parts = fm._split_params(*leaves)
+    func = lambda t, y, _: fm._mlp_k(y, t, parts)[0]
+    t0, t1, f0, dt0 = ode.solve_prologue(func, y0, 0.0, 1.0, (), tol, tol)
+    return (t0, t1, dt0, y0, f0, leaves, tol, tol, CTRL, max_steps)
+
+
+def _bwd_seeds(batch, dim, device, max_steps=96, seed=1):
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    return f32(rng.normal(size=(batch, dim))), f32(rng.normal(size=(4, max_steps)) * 0.1)
+
+
+def _grad_groups(grads):
+    """K4's outputs as compared: the three time scalars as one vector (one
+    of them alone can be a cancellation of the others' size), ct_y0, ct_f0
+    and the four weight cotangents."""
+    return [torch.stack(grads[:3]), *grads[3:]]
+
+
+GROUPS = ["ct_t0|ct_t1|ct_dt0", "ct_y0", "ct_f0", "cW1", "cb1", "cW2", "cb2"]
+
+
+def _assert_k4_matches(rec, ns, ct_y1, ct_tel, args, hard_bound):
+    """K4, its float32 plain version and a float64 plain walk over the same
+    record: every output of K4 within 3 times the float32 plain version's
+    distance from float64, plus 1e-5; with ``hard_bound``, also within
+    1e-3 of the plain version on the well-conditioned outputs (all but
+    ct_f0)."""
+    t0, t1, leaves = args[0], args[1], args[5]
+    d = lambda x: x.double()
+    gk = ws.whole_solve_bwd(rec, ns, ct_y1, ct_tel, t0, t1, leaves, 1e-4, 1e-4, CTRL)
+    gp = ws.plain_whole_solve_bwd(rec, ns, ct_y1, ct_tel, t0, t1, leaves, 1e-4, 1e-4,
+                                  CTRL)
+    g64 = ws.plain_whole_solve_bwd(ws.SolveRecord(*map(d, rec)), ns, d(ct_y1),
+                                   d(ct_tel), d(t0), d(t1), [d(x) for x in leaves],
+                                   1e-4, 1e-4, CTRL)
+    for name, a, b, c in zip(GROUPS, *map(_grad_groups, (gk, gp, g64))):
+        if hard_bound and name != "ct_f0":
+            assert _rel(a, b) <= 1e-3, name
+        assert _rel(a, c) <= 3 * _rel(b, c) + 1e-5, (name, _rel(a, b), _rel(a, c),
+                                                      _rel(b, c))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(512, 784, 100), (13, 40, 24), (1040, 64, 32)])
+def test_whole_solve_kernels_match_plain_versions(cuda, shape):
+    """K3 against its plain version at rtol=atol=1e-4: the same step
+    counts and accept sequence, y1 within 1e-4 (relative Frobenius).
+
+    K4, its float32 plain version and a float64 plain walk run over the
+    same record (K3's). Seeded with a cotangent of y1 alone, K4 is held to
+    its plain version within 1e-3 on the well-conditioned outputs (the
+    time scalars, ct_y0 and the weights). Seeded with the telemetry too,
+    the cotangents pass through 1/(atol + |y| rtol) and the error
+    estimate's rounding floor, and float32 itself drifts from float64 by
+    up to several hundred percent at the small shape (measured on the
+    H100): every output of K4 is then held to within 3 times the float32
+    plain version's distance from float64, plus 1e-5. Batch 13 leaves a
+    ragged tile; at 1040 every block walks several tiles."""
+    args = _solve_args(*shape, cuda)
+    ws.reset_launches()
+    rk = ws.whole_solve_fwd(*args)
+    rp = ws.plain_whole_solve_fwd(*args)
+    assert rk.final[3:].tolist() == rp.final[3:].tolist()
+    assert rk.final[5].item() == 1.0
+    assert torch.equal(rk.streams[ws.ST_ACC], rp.streams[ws.ST_ACC])
+    assert _rel(rk.y1, rp.y1) <= 1e-4
+    ns = int(rk.final[3:5].sum().item())
+    ct_y1, ct_tel = _bwd_seeds(shape[0], shape[1], cuda)
+    t0, t1, leaves = args[0], args[1], args[5]
+    for tel in (torch.zeros_like(ct_tel), ct_tel):
+        _assert_k4_matches(rk, ns, ct_y1, tel, args, hard_bound=not tel.any())
+    assert ws.LAUNCHES == {"whole_solve_fwd": 1, "whole_solve_bwd": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t1, max_steps", [(1.0, 2), (0.0, 96)])
+def test_whole_solve_kernels_edge_cases(cuda, t1, max_steps):
+    """A solve cut short by max_steps (not done) and one over an empty
+    span (no trial step, an empty weight-row buffer): the same counts as
+    the plain versions; y1 of the empty span is y0. Two solves cut short
+    stop at times that differ by their dt drift (the error sums near their
+    float32 floor move dt by ~1%), so there y1 is held to K1's plain
+    version on the last stored step (rtol 1e-4, as K1). Cut short, y1
+    depends on the step sizes at first order, so its cotangent reaches
+    the error sums through the controller at small eest, where float32 is
+    ill-conditioned: K4 is held to a float64 walk of the same record as
+    closely as its float32 plain version is (``_assert_k4_matches``)."""
+    args = list(_solve_args(64, 40, 24, cuda, max_steps=max_steps))
+    args[1] = torch.tensor(t1, device=cuda)
+    rk, rp = ws.whole_solve_fwd(*args), ws.plain_whole_solve_fwd(*args)
+    assert rk.final[3:].tolist() == rp.final[3:].tolist()
+    ns = int(rk.final[3:5].sum().item())
+    if t1 == 0.0:
+        assert rk.final[5].item() == 1.0 and ns == 0 and torch.equal(rk.y1, args[3])
+    else:
+        assert rk.final[5].item() == 0.0 and ns == max_steps
+        st, i = rk.streams, ns - 1
+        if st[ws.ST_ACC, i] > 0.5:
+            want = fm._reference_normed_sweep(st[ws.ST_T, i], st[ws.TEL_DT, i], rk.hy[i],
+                                              rk.hf[i], fm._split_params(*args[5]),
+                                              1e-4, 1e-4)[0]
+        else:
+            want = rk.hy[i]
+        assert _rel(rk.y1, want) <= 1e-4
+    ct_y1, ct_tel = _bwd_seeds(64, 40, cuda, max_steps)
+    _assert_k4_matches(rk, ns, ct_y1, torch.zeros_like(ct_tel), args,
+                       hard_bound=t1 == 0.0)
+
+
+@pytest.mark.cuda
+def test_whole_solve_kernels_are_deterministic(cuda):
+    """Fixed-order sums, no atomics: two runs are bitwise equal, with
+    several tiles per block (batch 1040)."""
+    args = _solve_args(1040, 64, 32, cuda)
+    a, b = ws.whole_solve_fwd(*args), ws.whole_solve_fwd(*args)
+    ns = int(a.final[3:5].sum().item())
+    assert torch.equal(a.final, b.final) and torch.equal(a.streams, b.streams)
+    assert torch.equal(a.hy[:ns + 1], b.hy[:ns + 1]) and torch.equal(a.y1, b.y1)
+    ct_y1, ct_tel = _bwd_seeds(1040, 64, cuda)
+    rest = (ct_y1, ct_tel, args[0], args[1], args[5], 1e-4, 1e-4, CTRL)
+    ga, gb = ws.whole_solve_bwd(a, ns, *rest), ws.whole_solve_bwd(a, ns, *rest)
+    assert all(torch.equal(u, v) for u, v in zip(ga, gb))
+
+
+@pytest.mark.cuda
+def test_whole_solve_wrappers_refuse_bad_inputs(cuda):
+    args = list(_solve_args(8, 16, 12, cuda))
+    y0 = args[3]
+    for bad, err in ((y0.double(), TypeError), (y0.t().contiguous().t(), ValueError),
+                     (y0.cpu(), ValueError)):
+        with pytest.raises(err):
+            ws.whole_solve_fwd(*args[:4], bad, *args[5:])
+    rec = ws.whole_solve_fwd(*args)
+    ns = int(rec.final[3:5].sum().item())
+    ct_y1, ct_tel = _bwd_seeds(8, 16, cuda)
+    rest = (args[0], args[1], args[5], 1e-4, 1e-4, CTRL)
+    with pytest.raises(ValueError):
+        ws.whole_solve_bwd(rec, ns, ct_y1, ct_tel.t().contiguous().t(), *rest)
+    with pytest.raises(ValueError):
+        ws.whole_solve_bwd(rec, ns, ct_y1, ct_tel.cpu(), *rest)
+    with pytest.raises(TypeError):
+        ws.whole_solve_bwd(rec, ns, ct_y1.double(), ct_tel, *rest)
+
+
+@pytest.mark.cuda
+def test_fused_true_trains_through_the_whole_solve_kernels(cuda):
+    """``NeuralODE(fused=True)`` against ``fused=False`` on the card, at
+    rtol=atol=1e-4: the same NFE and accept sequence, y1 within 1e-4 and
+    the gradients of sum(y1^2) within 1e-3 (relative); one launch per
+    direction and no step kernel. (The error estimate's gradient sits at
+    its float32 rounding floor at this size; chip_smoke.py phase 6 holds
+    the regularized gradient at full width.)"""
+    from regneuralde_tpu_torch.models import MLPDynamics, NeuralODE
+
+    outs = {}
+    for fused in (True, False):
+        gen = torch.Generator().manual_seed(0)
+        node = NeuralODE(MLPDynamics(40, 24, device=cuda, generator=gen), rtol=1e-4,
+                         atol=1e-4, max_steps=96, fused=fused)
+        x = torch.rand(13, 40, generator=gen).to(cuda)
+        ws.reset_launches()
+        fm.reset_launches()
+        out = node(x)
+        grads = torch.autograd.grad(out.value.square().sum(), list(node.parameters()))
+        outs[fused] = (out, grads, {**ws.LAUNCHES, **fm.LAUNCHES})
+    (a, ga, la), (b, gb, _) = outs[True], outs[False]
+    assert la == {"whole_solve_fwd": 1, "whole_solve_bwd": 1, "normed_tsit5_fwd": 0,
+                  "normed_tsit5_bwd": 0}
+    assert a.nfe == b.nfe and torch.equal(a.telemetry.accepted, b.telemetry.accepted)
+    assert _rel(a.value, b.value) <= 1e-4
+    for u, v in zip(ga, gb):
+        assert _rel(u, v) <= 1e-3

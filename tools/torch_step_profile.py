@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
 """Profile the PyTorch/CUDA port's flagship MNIST training step on one GPU.
 
-    python3 tools/torch_step_profile.py [--steps 3] [--tol 1.4e-8] [--out DIR]
+    python3 tools/torch_step_profile.py [--fused step|true] [--steps 3]
+                                        [--tol 1.4e-8] [--out DIR]
 
 Builds the flagship classifier of ``chip_smoke.py`` (MLPDynamics(784, 100),
-Tsit5, max_steps=96, batch 512, fused="step"), runs one warm-up step, then:
+Tsit5, max_steps=96, batch 512) on the step kernels (``--fused step``,
+the default) or the whole-solve kernels (``--fused true``), runs one
+warm-up step, then:
 
 * times ``--steps`` training steps on the host clock (each ends in a
   synchronize) and reports ms per step, NFE per step and trial steps;
@@ -28,6 +31,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--fused", choices=["step", "true"], default="step")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--tol", type=float, default=1.4e-8)
     ap.add_argument("--out", default="build/profile")
@@ -42,6 +46,7 @@ def main():
         return 1
     import chip_smoke as cs
     from regneuralde_tpu_torch.ops import fused_mlp as fm
+    from regneuralde_tpu_torch.ops import whole_solve as ws
     from regneuralde_tpu_torch.training import (
         create_train_state,
         make_train_step,
@@ -50,7 +55,8 @@ def main():
 
     device = torch.device("cuda", 0)
     batches = cs.synthetic_batches(args.steps + 2, device)
-    clf, gen = cs.build_classifier(args.tol, "step", device)
+    fused = True if args.fused == "true" else "step"
+    clf, gen = cs.build_classifier(args.tol, fused, device)
     clf.init(batches[0][0], generator=gen)
     optimizer = mnist_node_optimizer()
     state = create_train_state(clf, optimizer)
@@ -62,15 +68,16 @@ def main():
     rows = []
     for x, y in batches[1:1 + args.steps]:
         fm.reset_launches()
+        ws.reset_launches()
         start = time.perf_counter()
         state, loss, out = step(state, x, y)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
         rows.append(dict(ms=wall * 1e3, nfe=out.nfe,
                          trial_steps=int(out.telemetry.live.sum().item()),
-                         loss=loss.item(), launches=dict(fm.LAUNCHES)))
+                         loss=loss.item(), launches={**fm.LAUNCHES, **ws.LAUNCHES}))
     for r in rows:
-        print("[step] " + json.dumps(r))
+        print(f"[step] fused={fused!r} " + json.dumps(r))
 
     x, y = batches[-1]
     torch.cuda.set_sync_debug_mode("warn")
@@ -103,7 +110,7 @@ def main():
         print(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d} calls  {e.key[:90]}")
     os.makedirs(args.out, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(args.out, "train_step_trace.json"))
+    prof.export_chrome_trace(os.path.join(args.out, f"train_step_trace_{args.fused}.json"))
     return 0
 
 
