@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's MNIST Neural-ODE training step on one GPU.
+"""Drive the PyTorch/CUDA port's MNIST Neural-ODE and latent-ODE training
+steps on one GPU.
 
     python3 chip_smoke.py
 
@@ -23,7 +24,19 @@ at first use. Phases (each checks its results; any failure exits non-zero):
    of the forward solve and the backward walk;
 6. phase 3 for the whole solve: ``fused=True`` against ``fused=False``;
 7. phase 4 on ``fused=True``: one forward and one backward launch per step,
-   no step-kernel launch.
+   no step-kernel launch;
+8. K7 and K8 (the AlternatingMLP trial-step kernels) against their plain
+   versions at B=256, D=20, H=50, depth 4, at rtol=atol=1e-4 and 1.4e-8,
+   bitwise determinism, and CUDA-event times of both;
+9. one forward+backward of the latent-ODE training step at full width
+   (rtol=atol=1e-5), ``fused="step"`` against ``fused=False``: identical NFE
+   and accept sequence, gradient bounds as in phase 3;
+10. three training steps of the latent ODE of ``bench.py:139-210``
+   (``LatentGRU(37, 40, 50)``, ``MLP((50, 40))``, ``AlternatingMLP(20, 50,
+   4)``, ``Dense(37)``, batch 256, 49 ``saveat`` stamps, Tsit5 at
+   rtol=atol=1.4e-8, max_steps=256, masked Gaussian log-likelihood + KL +
+   1e3 * error_estimate, InvDecay(1e-5) then AdaMax(0.01)) on
+   ``fused="step"``: one K7 and one K8 launch per trial step.
 
 The last two lines of standard output are the kernels' JSON record and the
 device record ``{"ok": true, "device": {...}}``.
@@ -39,6 +52,9 @@ SEED = 0
 BATCH, DIM, HIDDEN = 512, 784, 100
 FLAGSHIP_TOL = 1.4e-8
 MAX_STEPS = 96
+LATENT_BATCH, LATENT_OBS, LATENT_DIM, LATENT_HIDDEN, LATENT_DEPTH = 256, 37, 20, 50, 4
+LATENT_MAX_STEPS = 256
+LATENT_SIGMA, LATENT_REG = 0.01, 1e3
 FWD_BOUND, BWD_BOUND, GRAD_BOUND, REG_GRAD_BOUND = 1e-4, 1e-3, 1e-3, 5e-2
 WS_CTRL_BOUND = 1e-5
 REPS = 7  # timed runs per kernel (median), after two warm-up runs
@@ -439,6 +455,7 @@ def phase_slice(device, batches, fused):
     kernel once per training step on ``True``, and no step kernel."""
     import torch
 
+    from regneuralde_tpu_torch.ops import fused_generic as fg
     from regneuralde_tpu_torch.ops import fused_mlp as fm
     from regneuralde_tpu_torch.ops import whole_solve as ws
     from regneuralde_tpu_torch.training import (
@@ -455,9 +472,9 @@ def phase_slice(device, batches, fused):
     before = [p.detach().clone() for p in clf.parameters()]
 
     torch.cuda.synchronize()
-    fm.reset_launches()  # count only this path's launches
-    ws.reset_launches()
-    launches = {**fm.LAUNCHES, **ws.LAUNCHES}
+    for mod in (fg, fm, ws):  # count only this path's launches
+        mod.reset_launches()
+    launches = {**fm.LAUNCHES, **ws.LAUNCHES, **fg.LAUNCHES}
     trial_steps = 0
     for i, (x, y) in enumerate(batches):
         start = time.perf_counter()
@@ -468,7 +485,7 @@ def phase_slice(device, batches, fused):
         naccept = int(sol.accepted.sum().item())
         nlive = int(sol.live.sum().item())
         trial_steps += nlive
-        launches = {**fm.LAUNCHES, **ws.LAUNCHES}
+        launches = {**fm.LAUNCHES, **ws.LAUNCHES, **fg.LAUNCHES}
         print(f"[slice] fused={fused!r} step {i}: loss={loss.item()!r} nfe={out.nfe} "
               f"naccept={naccept} nreject={nlive - naccept} "
               f"success={out.success} wall_s={wall!r} "
@@ -482,12 +499,273 @@ def phase_slice(device, batches, fused):
     print(f"[slice] fused={fused!r} trial steps={trial_steps} "
           f"launches={json.dumps(launches)} max parameter change={moved!r}")
     _check(moved > 0.0, "the parameters moved")
+    none = dict(altmlp_tsit5_fwd=0, altmlp_tsit5_bwd=0)
     per_step = {"step": dict(normed_tsit5_fwd=trial_steps, normed_tsit5_bwd=trial_steps,
-                             whole_solve_fwd=0, whole_solve_bwd=0),
+                             whole_solve_fwd=0, whole_solve_bwd=0, **none),
                 True: dict(normed_tsit5_fwd=0, normed_tsit5_bwd=0,
-                           whole_solve_fwd=len(batches), whole_solve_bwd=len(batches))}
+                           whole_solve_fwd=len(batches), whole_solve_bwd=len(batches),
+                           **none)}
     _check(launches == per_step[fused],
            f"fused={fused!r}: launches {launches}, expected {per_step[fused]}")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# The latent ODE (phases 8-10).
+# ---------------------------------------------------------------------------
+
+
+def build_latent(tol, fused, device, saveat, seed=SEED):
+    """The latent ODE of ``bench.py:139-210`` at full width, weights from
+    ``torch.Generator(seed)``; the decoder is sized by ``init``."""
+    import torch
+
+    from regneuralde_tpu_torch.models import (
+        MLP,
+        AlternatingMLP,
+        LatentGRU,
+        LatentTimeSeriesModel,
+        NeuralODE,
+    )
+
+    gen = torch.Generator().manual_seed(seed)
+    node = NeuralODE(AlternatingMLP(LATENT_DIM, LATENT_HIDDEN, LATENT_DEPTH, device=device,
+                                    generator=gen),
+                     time_dep=False, rtol=tol, atol=tol, max_steps=LATENT_MAX_STEPS,
+                     saveat=saveat, fused=fused)
+    model = LatentTimeSeriesModel(
+        rnn=LatentGRU(LATENT_OBS, 40, 50, device=device, generator=gen),
+        enc=MLP(100, (50, 2 * LATENT_DIM), device=device, generator=gen), node=node,
+        dec=torch.nn.LazyLinear(LATENT_OBS, device=device))
+    return model, gen
+
+
+def latent_inputs(d, m, tp):
+    """``[data, mask, delta_t]`` per stamp, as ``bench.py`` builds it."""
+    import torch
+
+    dt = torch.cat([tp[:, 1:] - tp[:, :-1], torch.zeros_like(tp[:, :1])], 1)
+    return torch.cat([d, m, dt[..., None]], dim=-1)
+
+
+def latent_loss(model, d, m, tp, eps, reg_weight=LATENT_REG):
+    """``bench.py:186-194``: the masked Gaussian log-likelihood (sigma 0.01)
+    and KL, plus reg_weight * error_estimate(mean)."""
+    import torch
+
+    from regneuralde_tpu_torch import reg
+
+    out = model(latent_inputs(d, m, tp), eps=eps)
+    err = (out.result - d) * m
+    ll = torch.sum(-torch.square(err) / (2 * LATENT_SIGMA ** 2), dim=(1, 2))
+    ll = ll / torch.clamp(torch.sum(m, dim=(1, 2)), min=1.0)
+    kl = torch.mean(torch.exp(out.logvar) + torch.square(out.mu0) - 1 - out.logvar,
+                    dim=-1) / 2
+    return -torch.mean(ll - kl) + reg_weight * reg.error_estimate(out.telemetry, "mean"), out
+
+
+def latent_batches(n, device):
+    """``n`` full batches ``(d, m, tp, eps)`` of the physionet surrogate
+    (``load_physionet`` without data files), the reparameterization noise
+    drawn from a seeded generator; and the saveat grid of ``bench.py``, the
+    sorted stamps of the first batch."""
+    import torch
+
+    from regneuralde_tpu_torch.data import load_physionet
+
+    train, _ = load_physionet(LATENT_BATCH, seed=SEED)
+    gen = torch.Generator().manual_seed(SEED + 9)
+    out = []
+    for b in train:
+        d, m, tp = (torch.as_tensor(b[i], device=device) for i in (0, 1, 4))
+        eps = torch.randn(LATENT_BATCH, LATENT_DIM, generator=gen).to(device)
+        out.append((d, m, tp, eps))
+        if len(out) == n:
+            return out, torch.sort(out[0][2][0]).values
+    raise AssertionError(f"the loader gave fewer than {n} full batches")
+
+
+def phase_altmlp_kernels(device):
+    """K7/K8 against their plain versions on seeded random inputs at the
+    latent shape (random k1 keeps the embedded error far above float32
+    rounding), at rtol=atol=1e-4 and 1.4e-8; bitwise determinism; times."""
+    import torch
+
+    from regneuralde_tpu_torch.ops import fused_generic as fg
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(device)
+
+    B, D, H = LATENT_BATCH, LATENT_DIM, LATENT_HIDDEN
+    leaves = []
+    for _ in range(LATENT_DEPTH):
+        leaves += [rnd(H, D, scale=D ** -0.5), rnd(H, scale=0.1),
+                   rnd(D, H, scale=H ** -0.5), rnd(D, scale=0.1)]
+    y, k1 = rnd(B, D, scale=0.5), rnd(B, D, scale=0.3)
+    t = torch.tensor(0.07, device=device)
+    dt = torch.tensor(0.11, device=device)
+    cts = [rnd(B, D), rnd(B, D), torch.tensor(0.7, device=device),
+           torch.tensor(1.3, device=device), torch.tensor(-0.4, device=device)]
+    names_f = ["y_new", "k7", "err_ssq", "num_ssq", "den_ssq"]
+    names_b = ["ct_dt", "ct_y", "ct_k1"] + [f"c_leaf{j}" for j in range(len(leaves))]
+    flat_b = lambda g: [*g[1:4], *g[4]]
+    for tol in (1e-4, FLAGSHIP_TOL):
+        kf = fg.altmlp_normed_sweep(t, dt, y, k1, leaves, tol, tol)
+        pf = fg.plain_altmlp_normed_sweep(t, dt, y, k1, leaves, tol, tol)
+        kb = fg.altmlp_normed_sweep_bwd(t, dt, y, k1, leaves, cts, tol, tol)
+        pb = fg._altmlp_bwd_math(t, dt, y, k1, leaves, cts, tol, tol)
+        torch.cuda.synchronize()
+        errs_f = {n: _rel(a, b) for n, a, b in zip(names_f, kf, pf)}
+        errs_b = {n: _rel(a, b) for n, a, b in zip(names_b, flat_b(kb), flat_b(pb))}
+        print(f"[altmlp] tol={tol:g} K7 rel err " + json.dumps(errs_f))
+        print(f"[altmlp] tol={tol:g} K8 rel err " + json.dumps(errs_b))
+        for n, v in {**errs_f, **errs_b}.items():
+            _check(v == v, f"{n}: NaN relative error at tol {tol}")
+        _check(max(errs_f.values()) <= FWD_BOUND, f"K7 at tol {tol}: {errs_f}")
+        _check(max(errs_b.values()) <= BWD_BOUND, f"K8 at tol {tol}: {errs_b}")
+        _check(kb[0].item() == 0.0, "K8: ct_t is exactly zero")
+
+    tol = FLAGSHIP_TOL
+    again_f = fg.altmlp_normed_sweep(t, dt, y, k1, leaves, tol, tol)
+    again_b = fg.altmlp_normed_sweep_bwd(t, dt, y, k1, leaves, cts, tol, tol)
+    _check(all(torch.equal(a, b) for a, b in zip(kf, again_f)), "K7 is deterministic")
+    _check(all(torch.equal(a, b) for a, b in zip(flat_b(kb), flat_b(again_b))),
+           "K8 is deterministic")
+    # max_abs_err of the record: K7 over its row outputs, K8 with only the
+    # row cotangents seeded (as phase 2)
+    row_cts = [cts[0], cts[1], *(torch.zeros((), device=device) for _ in range(3))]
+    kb = fg.altmlp_normed_sweep_bwd(t, dt, y, k1, leaves, row_cts, tol, tol)
+    pb = fg._altmlp_bwd_math(t, dt, y, k1, leaves, row_cts, tol, tol)
+    torch.cuda.synchronize()
+    abs_f = max((a - b).abs().max().item() for a, b in zip(kf[:2], pf[:2]))
+    abs_b = max((a - b).abs().max().item() for a, b in zip(flat_b(kb), flat_b(pb)))
+    print(f"[altmlp] max abs err: K7 (y_new, k7) {abs_f!r}, K8 (row cotangents) {abs_b!r}")
+
+    times = {
+        "fwd_kernel": _time_ms(lambda: fg.altmlp_normed_sweep(t, dt, y, k1, leaves, tol, tol)),
+        "fwd_plain": _time_ms(lambda: fg.plain_altmlp_normed_sweep(t, dt, y, k1, leaves,
+                                                                   tol, tol)),
+        "bwd_kernel": _time_ms(lambda: fg.altmlp_normed_sweep_bwd(t, dt, y, k1, leaves, cts,
+                                                                  tol, tol)),
+        "bwd_plain": _time_ms(lambda: fg._altmlp_bwd_math(t, dt, y, k1, leaves, cts, tol,
+                                                          tol)),
+    }
+    print("[altmlp] median ms over %d runs at %dx%dx%dx%d: %s"
+          % (REPS, B, D, H, LATENT_DEPTH, json.dumps(times)))
+    return {
+        "altmlp_tsit5_fwd": dict(
+            replaces="regneuralde_tpu/ops/pallas_generic.py:208",
+            max_abs_err=abs_f, ms=times["fwd_kernel"], plain_ms=times["fwd_plain"]),
+        "altmlp_tsit5_bwd": dict(
+            replaces="regneuralde_tpu/ops/pallas_generic.py:278",
+            max_abs_err=abs_b, ms=times["bwd_kernel"], plain_ms=times["bwd_plain"]),
+    }
+
+
+def phase_latent_kernel_vs_plain_step(device, batch, saveat):
+    """One forward+backward of the latent training step at rtol=atol=1e-5:
+    K7/K8 (``fused="step"``) against their plain versions (``fused=False``)
+    on the same weights and noise. The loss without the regularizer is held
+    to GRAD_BOUND; with 1e3 * error_estimate, whose gradient sits at the
+    error estimate's float32 rounding floor, to REG_GRAD_BOUND (phase 3's
+    bounds)."""
+    import torch
+
+    d, m, tp, eps = batch
+    tol = 1e-5
+    x = latent_inputs(d, m, tp)
+    kern, gen = build_latent(tol, "step", device, saveat)
+    kern.init(x, generator=gen)
+    plain, _ = build_latent(tol, False, device, saveat)
+    plain.init(x)
+    plain.load_state_dict(kern.state_dict())
+    results = {}
+    for name, model in (("kernel", kern), ("plain", plain)):
+        for reg_weight in (0.0, LATENT_REG):
+            model.zero_grad(set_to_none=True)
+            loss, out = latent_loss(model, d, m, tp, eps, reg_weight)
+            loss.backward()
+            torch.cuda.synchronize()
+            tel = out.telemetry
+            results[name, reg_weight] = dict(
+                loss=loss.item(), nfe=out.nfe, success=out.success,
+                accepted=tel.accepted[tel.live].tolist(),
+                grad=torch.cat([p.grad.flatten() for p in model.parameters()]),
+                result=out.result.detach())
+    for reg_weight, bound in ((0.0, GRAD_BOUND), (LATENT_REG, REG_GRAD_BOUND)):
+        k, p = results["kernel", reg_weight], results["plain", reg_weight]
+        g_err = _rel(k["grad"], p["grad"])
+        print(f"[latent-step] rtol=atol={tol:g} reg_weight={reg_weight:g} "
+              f"nfe kernel={k['nfe']} plain={p['nfe']} "
+              f"loss kernel={k['loss']!r} plain={p['loss']!r} "
+              f"result rel err={_rel(k['result'], p['result']):.3e} "
+              f"grad rel err={g_err:.3e} (bound {bound:g})")
+        _check(k["success"] and p["success"], "both solves reached t1")
+        _check(k["nfe"] == p["nfe"], f"NFE kernel {k['nfe']} plain {p['nfe']}")
+        _check(k["accepted"] == p["accepted"], "same accept sequence")
+        _check(tuple(k["result"].shape) == (LATENT_BATCH, saveat.shape[0], LATENT_OBS),
+               "result shape")
+        _check(torch.isfinite(k["grad"]).all().item(), "finite gradients")
+        _check(g_err <= bound, f"gradient rel err {g_err} > {bound}")
+
+
+def phase_latent_slice(device, batches, saveat):
+    """Three training steps of the latent ODE at full width on
+    ``fused="step"``. Returns the launch counts of that run: K7 and K8
+    once per trial step, no other kernel."""
+    import torch
+
+    from regneuralde_tpu_torch.ops import fused_generic as fg
+    from regneuralde_tpu_torch.ops import fused_mlp as fm
+    from regneuralde_tpu_torch.ops import whole_solve as ws
+    from regneuralde_tpu_torch.training import (
+        create_train_state,
+        latent_ode_optimizer,
+        make_train_step,
+    )
+
+    model, gen = build_latent(FLAGSHIP_TOL, "step", device, saveat)
+    model.init(latent_inputs(*batches[0][:3]), generator=gen)
+    optimizer = latent_ode_optimizer()
+    state = create_train_state(model, optimizer)
+    step = make_train_step(latent_loss, optimizer)
+    before = [p.detach().clone() for p in model.parameters()]
+
+    torch.cuda.synchronize()
+    counters = (fg, fm, ws)
+    for mod in counters:  # count only this path's launches
+        mod.reset_launches()
+    trial_steps = 0
+    for i, batch in enumerate(batches):
+        start = time.perf_counter()
+        state, loss, out = step(state, *batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        tel = out.telemetry
+        naccept = int(tel.accepted.sum().item())
+        nlive = int(tel.live.sum().item())
+        trial_steps += nlive
+        launches = {k: v for mod in counters for k, v in mod.LAUNCHES.items()}
+        print(f"[latent] step {i}: loss={loss.item()!r} nfe={out.nfe} "
+              f"naccept={naccept} nreject={nlive - naccept} success={out.success} "
+              f"wall_s={wall!r} launches={json.dumps(launches)}")
+        _check(torch.isfinite(loss).item(), f"finite loss, got {loss.item()}")
+        _check(out.success, f"the solve reached t1 within {LATENT_MAX_STEPS} trial steps")
+        _check(out.nfe == 2 + 6 * nlive, "NFE = 2 + 6 * trial steps")
+        _check(tuple(out.result.shape) == (LATENT_BATCH, saveat.shape[0], LATENT_OBS),
+               "result shape")
+        _check(torch.isfinite(out.result).all().item(), "finite result")
+    moved = max((p.detach() - b).abs().max().item()
+                for p, b in zip(model.parameters(), before))
+    print(f"[latent] trial steps={trial_steps} launches={json.dumps(launches)} "
+          f"max parameter change={moved!r}")
+    _check(moved > 0.0, "the parameters moved")
+    want = dict(altmlp_tsit5_fwd=trial_steps, altmlp_tsit5_bwd=trial_steps,
+                normed_tsit5_fwd=0, normed_tsit5_bwd=0, whole_solve_fwd=0,
+                whole_solve_bwd=0)
+    _check(launches == want, f"latent launches {launches}, expected {want}")
     return launches
 
 
@@ -521,8 +799,15 @@ def main():
     whole = phase_slice(device, batches, True)
     launches.update({k: whole[k] for k in ("whole_solve_fwd", "whole_solve_bwd")})
 
+    kernels.update(phase_altmlp_kernels(device))
+    lbatches, saveat = latent_batches(3, device)
+    phase_latent_kernel_vs_plain_step(device, lbatches[0], saveat)
+    latent = phase_latent_slice(device, lbatches, saveat)
+    launches.update({k: latent[k] for k in ("altmlp_tsit5_fwd", "altmlp_tsit5_bwd")})
+
     sources = {"normed_tsit5_fwd": "normed_tsit5.cu", "normed_tsit5_bwd": "normed_tsit5.cu",
-               "whole_solve_fwd": "whole_solve.cu", "whole_solve_bwd": "whole_solve.cu"}
+               "whole_solve_fwd": "whole_solve.cu", "whole_solve_bwd": "whole_solve.cu",
+               "altmlp_tsit5_fwd": "altmlp_tsit5.cu", "altmlp_tsit5_bwd": "altmlp_tsit5.cu"}
     record = {"kernels": [
         {"name": name, "route": "cuda",
          "source": "regneuralde_tpu_torch/csrc/" + sources[name],

@@ -1,9 +1,10 @@
 """JAX parameters -> the port's ``state_dict``.
 
-Takes the parameter tree of the JAX package's ``ClassifierNODE`` (no
-pre-net, ``MLPDynamics`` node, ``Dense`` post-net) as nested dicts of
-numpy arrays and returns the ``state_dict`` of the port's
-``ClassifierNODE``. Flax ``Dense`` kernels are ``(in, out)`` and become
+Takes the parameter tree of one of the JAX package's models as nested
+dicts of numpy arrays and returns the ``state_dict`` of the port's model:
+``ClassifierNODE`` (no pre-net, ``MLPDynamics`` node, ``Dense`` post-net)
+and the latent ODE's ``LatentTimeSeriesModel`` (``LatentGRU``, ``MLP``,
+``AlternatingMLP`` node, ``Dense`` decoder). Flax ``Dense`` kernels are ``(in, out)`` and become
 ``nn.Linear`` weights ``(out, in)``; biases carry over as they are, and the
 time row (last row of a flax kernel) becomes the last weight column.
 """
@@ -34,4 +35,30 @@ def classifier_node_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Ten
     out.update(_dense(de["dense_1"], "node.dynamics.dense_1"))
     out.update(_dense(de["dense_2"], "node.dynamics.dense_2"))
     out.update(_dense(params["post"]["params"], "post"))
+    return out
+
+
+def _dense_tree(tree: Mapping[str, Any], prefix: str) -> Dict[str, torch.Tensor]:
+    """Every ``Dense`` under ``tree`` (a dict of flax layer names), keys
+    joined with dots."""
+    out = {}
+    for name, sub in tree.items():
+        if "kernel" in sub:
+            out.update(_dense(sub, f"{prefix}.{name}"))
+        else:
+            out.update(_dense_tree(sub, f"{prefix}.{name}"))
+    return out
+
+
+def latent_ode_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``{"rnn", "enc", "de", "dec"}`` of the JAX ``LatentTimeSeriesModel``
+    -> ``state_dict`` keys ``rnn.cell.{update_gate,reset_gate,new_state}.
+    dense_i.*`` (flax's ``nn.scan`` keeps the cell's parameters under
+    ``rnn/params/cell``), ``enc.dense_i.*``, ``node.dynamics.{up,down}_i.*``
+    and ``dec.*``."""
+    out = {}
+    out.update(_dense_tree(params["rnn"]["params"], "rnn"))
+    out.update(_dense_tree(params["enc"]["params"], "enc"))
+    out.update(_dense_tree(params["de"]["params"], "node.dynamics"))
+    out.update(_dense(params["dec"]["params"], "dec"))
     return out

@@ -1,9 +1,10 @@
-"""MNIST, file-backed when available, synthetic otherwise.
+"""MNIST and physionet, file-backed when available, synthetic otherwise.
 
-Counterpart of ``load_mnist`` in ``regneuralde_tpu/data/datasets.py``,
-numpy route only: ``mnist.npz`` or the IDX files are searched in
+Counterpart of ``load_mnist`` and ``load_physionet`` in
+``regneuralde_tpu/data/datasets.py``, numpy route only: the files
+(``mnist.npz`` or the IDX files; ``physionet.npz``) are searched in
 ``data_dir``, ``$REGNDE_DATA_DIR`` and ``./data``; without them a
-deterministic procedural stand-in with MNIST's shapes is generated, the
+deterministic procedural stand-in with the data's shapes is generated, the
 same arrays as the JAX package's from the same seed.
 """
 
@@ -110,4 +111,79 @@ def load_mnist(batch_size: int, data_dir: Optional[str] = None,
                        shuffle=True, seed=seed, source=source)
     test = DataLoader((xte, _one_hot(np.asarray(yte), 10)), batch_size,
                       shuffle=False, source=source)
+    return train, test
+
+
+def _synthetic_physionet(n=4096, feats=37, steps=49, seed=0):
+    """Irregular multivariate series with observation masks, in the
+    physionet bundle's schema: one shared irregular grid of ``steps``
+    stamps in [0, 1] starting at 0.0, four latent oscillators lifted to
+    ``feats`` channels, about 35% of the values observed.
+
+    ``REGNDE_SURROGATE_FREQ="lo,hi"`` overrides the oscillators' frequency
+    band (default 1..6), as in the JAX package."""
+    rng = np.random.default_rng(seed)
+    freq = os.environ.get("REGNDE_SURROGATE_FREQ", "1.0,6.0").split(",")
+    f_lo, f_hi = float(freq[0]), float(freq[1])
+    grid = np.sort(rng.uniform(0, 1, size=(steps,)).astype(np.float32))
+    grid[0] = 0.0
+    tp = np.tile(grid, (n, 1))
+    z = rng.standard_normal((n, 4)).astype(np.float32)
+    w = rng.uniform(f_lo, f_hi, size=(4,)).astype(np.float32)
+    lift = rng.standard_normal((4, feats)).astype(np.float32) * 0.7
+    phase = tp[..., None] * w  # (n, steps, 4)
+    latent = np.sin(2 * np.pi * phase + z[:, None, :])
+    data = np.tanh(latent @ lift).astype(np.float32)  # (n, steps, feats)
+    mask = (rng.uniform(size=data.shape) < 0.35).astype(np.float32)
+    data = data * mask
+    return {
+        "observed_data": data,
+        "observed_mask": mask,
+        "data_to_predict": data.copy(),
+        "mask_predicted_data": mask.copy(),
+        "observed_tp": tp,
+        "tp_to_predict": tp.copy(),
+    }
+
+
+_PHYSIONET_KEYS = ("observed_data", "observed_mask", "data_to_predict",
+                   "mask_predicted_data", "observed_tp", "tp_to_predict")
+
+
+def load_physionet(batch_size: int, path: Optional[str] = None,
+                   train_split: float = 0.8, seed: int = 0
+                   ) -> Tuple[DataLoader, DataLoader]:
+    """Six arrays a batch, batch-major: ``(observed_data, observed_mask,
+    data_to_predict, mask_predicted_data, observed_tp, tp_to_predict)``,
+    data ``(B, 49, 37)`` and stamps ``(B, 49)``. The same split, shuffles
+    and dropped partial batches as the JAX package (both loaders shuffle
+    and drop the last partial batch, as the reference does).
+
+    Reads the converted ``physionet.npz``; the reference's raw
+    ``physionet.bson`` is not read by the port."""
+    found = _search_file([path] if path else ["physionet.npz", "physionet.bson"], None)
+    if path and Path(path).exists():
+        found = Path(path)
+    if found is not None and found.suffix == ".bson":
+        raise NotImplementedError(
+            f"{found}: the port reads no BSON (the reference's physionet.bson); "
+            "convert it with tools/convert_physionet.py (ROADMAP.md queue 1 "
+            "item 7, the bson route)")
+    if found is not None:
+        with np.load(found) as d:
+            bundle = {k: d[k] for k in d.files}
+        source = str(found)
+    else:
+        bundle = _synthetic_physionet(seed=seed)
+        source = "synthetic"
+
+    n = bundle["observed_data"].shape[0]
+    idx = np.random.default_rng(seed).permutation(n)
+    n_train = int(n * train_split)
+    train = DataLoader([bundle[k][idx[:n_train]] for k in _PHYSIONET_KEYS],
+                       batch_size, shuffle=True, drop_last=True, seed=seed,
+                       source=source)
+    test = DataLoader([bundle[k][idx[n_train:]] for k in _PHYSIONET_KEYS],
+                      batch_size, shuffle=True, drop_last=True, seed=seed + 1,
+                      source=source)
     return train, test

@@ -1,9 +1,16 @@
-"""Dynamics networks (counterpart of ``regneuralde_tpu/models/basic.py``)."""
+"""Dynamics networks and small building blocks (counterpart of
+``regneuralde_tpu/models/basic.py``).
+
+Layers carry flax's names (``dense_i``, ``up_i``/``down_i``,
+``update_gate``/``reset_gate``/``new_state``), so ``convert.py`` maps a
+JAX parameter tree onto the ``state_dict`` name for name. Weights are drawn
+from an explicit ``torch.Generator``.
+"""
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional, Sequence
 
 import torch
 from torch import nn
@@ -49,3 +56,112 @@ class MLPDynamics(nn.Module):
     def forward(self, x: torch.Tensor, t) -> torch.Tensor:
         h = tanh(self.dense_1(torch.cat([x, _t_col(x, t)], dim=-1)))
         return tanh(self.dense_2(torch.cat([h, _t_col(h, t)], dim=-1)))
+
+
+class MLP(nn.Module):
+    """Plain Dense chain (no time input): ``activation`` between layers, the
+    output layer linear unless ``final_activation`` is set. flax infers
+    the input width; here it is ``in_features``."""
+
+    def __init__(self, in_features: int, features: Sequence[int],
+                 activation: Callable = torch.tanh,
+                 final_activation: Optional[Callable] = None, *,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.activation, self.final_activation = activation, final_activation
+        self.n_layers = len(features)
+        width = in_features
+        for i, f in enumerate(features):
+            layer = nn.Linear(width, f)
+            init_linear(layer, generator)
+            setattr(self, f"dense_{i}", layer)
+            width = f
+        self.to(device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x
+        for i in range(self.n_layers):
+            h = getattr(self, f"dense_{i}")(h)
+            if i < self.n_layers - 1:
+                h = self.activation(h)
+        if self.final_activation is not None:
+            h = self.final_activation(h)
+        return h
+
+
+class AlternatingMLP(nn.Module):
+    """tanh -> (Dense(d, h) tanh -> Dense(h, d) tanh) * depth: the latent-ODE
+    generative dynamics. ``parameters()`` yields ``up_0.weight, up_0.bias,
+    down_0.weight, down_0.bias, up_1.weight, ...``, the leaves the fused
+    trial-step kernels take (``ops.fused_generic``). The tanh is
+    ``torch.tanh``, the counterpart of the JAX module's ``jnp.tanh``."""
+
+    def __init__(self, dim: int = 20, hidden: int = 50, depth: int = 4, *,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dim, self.hidden, self.depth = dim, hidden, depth
+        for i in range(depth):
+            up, down = nn.Linear(dim, hidden), nn.Linear(hidden, dim)
+            init_linear(up, generator)
+            init_linear(down, generator)
+            setattr(self, f"up_{i}", up)
+            setattr(self, f"down_{i}", down)
+        self.to(device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = torch.tanh(x)
+        for i in range(self.depth):
+            h = torch.tanh(getattr(self, f"up_{i}")(h))
+            h = torch.tanh(getattr(self, f"down_{i}")(h))
+        return h
+
+
+class _LatentGRUCell(nn.Module):
+    """One masked GRU-Bayes update over ``x = [data, mask, delta_t]``."""
+
+    def __init__(self, in_dim: int, hidden: int, latent_dim: int, *,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.in_dim, self.latent_dim = in_dim, latent_dim
+        width = 2 * latent_dim + 2 * in_dim + 1
+        self.update_gate = MLP(width, [hidden, latent_dim], torch.tanh, torch.sigmoid,
+                               generator=generator)
+        self.reset_gate = MLP(width, [hidden, latent_dim], torch.tanh, torch.sigmoid,
+                              generator=generator)
+        self.new_state = MLP(width, [hidden, 2 * latent_dim], torch.tanh,
+                             generator=generator)
+
+    def forward(self, y_mean, y_std, x):
+        y_concat = torch.cat([y_mean, y_std, x], dim=-1)
+        u = self.update_gate(y_concat)
+        r = self.reset_gate(y_concat)
+        ns = self.new_state(torch.cat([y_mean * r, y_std * r, x], dim=-1))
+        n_mean, n_std = ns[:, :self.latent_dim], ns[:, self.latent_dim:]
+        ym = (1 - u) * n_mean + u * y_mean
+        ys = (1 - u) * n_std + u * y_std
+        # an unobserved step (its mask block all zero) freezes the state
+        mask = (torch.sum(x[:, self.in_dim:2 * self.in_dim], dim=-1, keepdim=True)
+                > 0).to(x.dtype)
+        return mask * ym + (1 - mask) * y_mean, mask * ys + (1 - mask) * y_std
+
+
+class LatentGRU(nn.Module):
+    """Masked GRU-Bayes cell over irregular series, run backwards in time.
+
+    ``xs`` is ``(batch, time, 2 * in_dim + 1)``, each step ``[data, mask,
+    delta_t]``; returns ``cat([y_mean, y_std])``, ``(batch, 2 *
+    latent_dim)``. The JAX module scans the cell (``nn.scan``); here a
+    Python loop over the reversed time axis runs it."""
+
+    def __init__(self, in_dim: int, hidden: int, latent_dim: int, *,
+                 device=None, generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.latent_dim = latent_dim
+        self.cell = _LatentGRUCell(in_dim, hidden, latent_dim, generator=generator)
+        self.to(device)
+
+    def forward(self, xs: torch.Tensor) -> torch.Tensor:
+        y_mean = y_std = xs.new_zeros((xs.shape[0], self.latent_dim))
+        for i in range(xs.shape[1] - 1, -1, -1):
+            y_mean, y_std = self.cell(y_mean, y_std, xs[:, i])
+        return torch.cat([y_mean, y_std], dim=-1)

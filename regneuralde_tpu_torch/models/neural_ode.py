@@ -1,24 +1,29 @@
 """NeuralODE layer (counterpart of ``regneuralde_tpu/models/neural_ode.py``).
 
-The port routes the JAX layer's fused options for ``MLPDynamics``:
+The port routes the JAX layer's fused options for ``MLPDynamics`` and
+``AlternatingMLP``:
 
 * ``fused=True``, ``"solve"`` and ``"tiled"`` with ``mode="adjoint"``: the
   whole solve, one kernel per direction (``ops.whole_solve``, K3/K4; the
   Hopper kernels stand for both TPU engines, the monolithic K3/K4 and the
-  tiled K5/K6, so the three options take the same route);
+  tiled K5/K6, so the three options take the same route), for
+  ``MLPDynamics`` final-state solves;
 * ``fused="step"``, and the whole-solve options in ``mode="while"`` (as in
-  JAX): one normed Tsit5 trial-step kernel pair per trial step
-  (``ops.fused_mlp``, K1/K2) under the fast adjoint solve;
-* ``fused=False``: the same fast adjoint solve with no kernel: for
-  ``MLPDynamics`` the kernels' plain PyTorch versions (the same trial-step
+  JAX): one normed Tsit5 trial-step kernel pair per trial step under the
+  fast adjoint solve, K1/K2 for ``MLPDynamics`` (``ops.fused_mlp``), K7/K8
+  for ``AlternatingMLP`` (``ops.fused_generic``);
+* ``fused=False``: the same fast adjoint solve with no kernel: for those
+  two dynamics the kernels' plain PyTorch versions (the same trial-step
   algebra, so the paths differ only by rounding), for any other dynamics
   the plain normed sweep over the module with its autograd reverse.
+
+``saveat`` gives the trajectory at the stamps, ``(batch, time, feat)``.
 
 The Hopper kernels mask a ragged row tile, so every batch size takes the
 kernel path: there is no ``fused_tiling_ok`` gate, and ``"tiled"`` has no
 ``batch % tile_rows`` limit. Not ported yet, each raising
 ``NotImplementedError`` and never remapped to another route: per-sample
-stepping, ``saveat``, and whole-solve routes for other dynamics.
+stepping, and on the whole-solve routes ``saveat`` and ``AlternatingMLP``.
 """
 
 from __future__ import annotations
@@ -28,12 +33,14 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from regneuralde_tpu_torch.models.basic import MLPDynamics
+from regneuralde_tpu_torch.models.basic import AlternatingMLP, MLPDynamics
 from regneuralde_tpu_torch.ops.ode import ODESolution, StepTelemetry, odeint
+
+_WHOLE_SOLVE = (True, "solve", "tiled")
 
 
 class NeuralDEOutput(NamedTuple):
-    value: torch.Tensor  # the final state
+    value: torch.Tensor  # the final state, or (batch, time, feat) at saveat
     nfe: int
     telemetry: StepTelemetry
     solution: ODESolution
@@ -51,6 +58,7 @@ class NeuralODE(nn.Module):
         rtol: float = 1.4e-8,
         atol: float = 1.4e-8,
         max_steps: int = 256,
+        saveat=None,
         fused=False,
         per_sample=False,
         compensated_eest: bool = False,
@@ -64,14 +72,16 @@ class NeuralODE(nn.Module):
                              f"got {per_sample!r}")
         if fused not in (False, True, "step", "solve", "tiled"):
             raise ValueError("fused must be False, True, 'step', 'solve' or 'tiled'")
-        if fused in (True, "solve", "tiled") and solver == "tsit5" and not isinstance(
-                dynamics, MLPDynamics):
+        fusable = (MLPDynamics, AlternatingMLP)
+        if fused in _WHOLE_SOLVE and solver == "tsit5" and not isinstance(
+                dynamics, fusable):
             raise NotImplementedError(
-                f"fused={fused!r} for {type(dynamics).__name__}: the whole solve "
-                "of other dynamics (AlternatingMLP, K7/K8) is not ported yet "
-                "(ROADMAP.md queue 1 slice 2)")
-        if fused and not (solver == "tsit5" and isinstance(dynamics, MLPDynamics)):
-            raise ValueError("fused requires solver='tsit5' and MLPDynamics dynamics")
+                f"fused={fused!r} for {type(dynamics).__name__}: the port's fused "
+                "routes run MLPDynamics and AlternatingMLP only; other dynamics "
+                "(FFJORD's CSL on K7/K8) are ROADMAP.md queue 1 slice 3")
+        if fused and not (solver == "tsit5" and isinstance(dynamics, fusable)):
+            raise ValueError("fused requires solver='tsit5' and MLPDynamics or "
+                             "AlternatingMLP dynamics")
         if per_sample:
             raise NotImplementedError(
                 f"per_sample={per_sample!r}: per-sample stepping (K11-K12) is "
@@ -86,6 +96,7 @@ class NeuralODE(nn.Module):
         self.rtol = rtol
         self.atol = atol
         self.max_steps = max_steps
+        self.saveat = saveat
         self.fused = fused
         self._names = [name for name, _ in dynamics.named_parameters()]
 
@@ -96,38 +107,64 @@ class NeuralODE(nn.Module):
         inputs = (y, t) if self.time_dep else (y,)
         return torch.func.functional_call(self.dynamics, params, inputs)
 
+    def _step_sweeps(self):
+        """The normed trial-step pair for ``odeint``: the kernels on
+        ``fused``, their plain versions otherwise; None for dynamics
+        without a hand-written step (the plain sweep over ``_func``)."""
+        rtol, atol = self.rtol, self.atol
+        if isinstance(self.dynamics, AlternatingMLP):
+            from regneuralde_tpu_torch.ops import fused_generic as fg
+
+            make = (fg.make_alternating_mlp_sweep if self.fused
+                    else fg.make_plain_alternating_mlp_sweep)
+            return make(rtol, atol)
+        if isinstance(self.dynamics, MLPDynamics):
+            from regneuralde_tpu_torch.ops import fused_mlp as fm
+
+            fwd, bwd = ((fm.mlp_dynamics_normed_sweep, fm.mlp_dynamics_normed_sweep_bwd)
+                        if self.fused else
+                        (fm.plain_mlp_normed_sweep, fm.plain_mlp_normed_sweep_bwd))
+            return (lambda t, dt, y, f0, p: fwd(t, dt, y, f0, p, rtol, atol),
+                    lambda t, dt, y, k1, p, cts: bwd(t, dt, y, k1, p, cts, rtol, atol))
+        return None, None
+
     def forward(self, x: torch.Tensor, *, tspan: Optional[Tuple] = None,
                 saveat=None, mode: str = "adjoint") -> NeuralDEOutput:
-        if saveat is not None:
-            raise NotImplementedError(
-                "saveat (Hermite output on the fast and whole-solve engines, "
-                "K3's save cursor) is not ported yet (ROADMAP.md queue 1 slice 2)")
         t0, t1 = tspan if tspan is not None else self.tspan
+        saveat = saveat if saveat is not None else self.saveat
         leaves = tuple(self.dynamics.parameters())
-        if self.fused in (True, "solve", "tiled") and mode == "adjoint":
+        # the kernels take contiguous rows; a caller may hand in a column
+        # slice (the latent model's mu0)
+        x = x.contiguous()
+        if self.fused in _WHOLE_SOLVE and mode == "adjoint":
+            if not isinstance(self.dynamics, MLPDynamics):
+                raise NotImplementedError(
+                    f"fused={self.fused!r} in mode='adjoint' for "
+                    f"{type(self.dynamics).__name__}: the whole solve with "
+                    "AlternatingMLP's stage and the Hermite saveat cursor (K3/K4) "
+                    "is the next item of ROADMAP.md queue 1 slice 2; use "
+                    "fused='step'")
+            if saveat is not None:
+                raise NotImplementedError(
+                    "saveat on the whole solve (K3's Hermite save cursor, K4's "
+                    "pullback) is the next item of ROADMAP.md queue 1 slice 2; "
+                    "use fused='step'")
             from regneuralde_tpu_torch.ops.whole_solve import whole_solve_odeint
 
             sol = whole_solve_odeint(self._func, x, t0, t1, leaves, rtol=self.rtol,
                                      atol=self.atol, max_steps=self.max_steps)
             return NeuralDEOutput(value=sol.y1, nfe=sol.stats.nfe,
                                   telemetry=sol.telemetry, solution=sol)
-        stage_sweep = stage_sweep_bwd = None
-        if isinstance(self.dynamics, MLPDynamics) and self.solver == "tsit5":
-            from regneuralde_tpu_torch.ops import fused_mlp as fm
-
-            fwd, bwd = ((fm.mlp_dynamics_normed_sweep,
-                         fm.mlp_dynamics_normed_sweep_bwd)
-                        if self.fused else
-                        (fm.plain_mlp_normed_sweep, fm.plain_mlp_normed_sweep_bwd))
-            rtol, atol = self.rtol, self.atol
-            stage_sweep = lambda t, dt, y, f0, p: fwd(t, dt, y, f0, p, rtol, atol)
-            stage_sweep_bwd = lambda t, dt, y, k1, p, cts: bwd(
-                t, dt, y, k1, p, cts, rtol, atol)
+        stage_sweep, stage_sweep_bwd = (self._step_sweeps() if self.solver == "tsit5"
+                                        else (None, None))
         sol = odeint(
             self._func, x, t0, t1, leaves,
             solver=self.solver,
             rtol=self.rtol, atol=self.atol, max_steps=self.max_steps,
             mode=mode, stage_sweep=stage_sweep, stage_sweep_bwd=stage_sweep_bwd,
+            saveat=saveat,
         )
-        return NeuralDEOutput(value=sol.y1, nfe=sol.stats.nfe,
+        # (time, batch, feat) -> (batch, time, feat)
+        value = sol.y1 if saveat is None else sol.ys.transpose(0, 1)
+        return NeuralDEOutput(value=value, nfe=sol.stats.nfe,
                               telemetry=sol.telemetry, solution=sol)

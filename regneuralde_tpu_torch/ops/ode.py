@@ -1,16 +1,20 @@
 """Adaptive Tsit5 integration with telemetry and a fast adjoint.
 
 Counterpart of ``regneuralde_tpu/ops/ode.py``, restricted to what the MNIST
-Neural-ODE training step runs: Tsit5 with a *normed* stage sweep (the
-error and stiffness norms arrive as three sums of squares, see
+Neural-ODE and latent-ODE training steps run: Tsit5 with a *normed* stage
+sweep (the error and stiffness norms arrive as three sums of squares, see
 ``NormedSweep``), the fast adjoint solve (``_make_fast_adjoint_solve``
-there, ``FastAdjointSolve`` here), and a forward-only ``"while"`` mode.
+there, ``FastAdjointSolve`` here), a forward-only ``"while"`` mode, and
+dense output at ``saveat`` stamps by cubic Hermite interpolation on each
+accepted step (``_hermite_eval``).
 
 The adaptive loop runs on the host: each trial step reads its accept and
 done flags back, one host sync per trial step. The forward stores, per
 trial step, ``t, dt, qold``, the three norm sums and the ``y, f0`` rows, so
 the backward runs one sweep backward per step (the K2 kernel on the card)
-and no forward replay. The scalar chain (controller, time update,
+and no forward replay. A ``saveat`` solve also keeps each accepted step's
+``y_new, k_last`` (the Hermite primals), and the backward pulls the
+interpolation back from them. The scalar chain (controller, time update,
 telemetry; ``_post``) is differentiated with ``torch.autograd.grad`` on 0-d
 tensors. ``post_bwd`` is its hand pullback, and ``adjoint_step`` the rest
 of one reverse step, both shared with ``ops.whole_solve``.
@@ -53,6 +57,8 @@ class ODESolution(NamedTuple):
     y1: torch.Tensor
     stats: ODEStats
     telemetry: StepTelemetry
+    ys: Optional[torch.Tensor] = None  # states at ``ts``, (len(ts),) + y1.shape
+    ts: Optional[torch.Tensor] = None  # the saveat stamps
 
 
 class NormedSweep(NamedTuple):
@@ -80,6 +86,59 @@ def _normed_scalars(err_ssq, num_ssq, den_ssq, count):
     eigen_est = torch.where(eig_den > 0,
                             eig_num / torch.maximum(eig_den, one * 1e-30), zero)
     return eest, eigen_est
+
+
+# ---------------------------------------------------------------------------
+# Dense output at ``saveat``.
+# ---------------------------------------------------------------------------
+
+
+def _hermite_eval(theta, h, y0, y1, f0, f1):
+    """Cubic Hermite interpolation on one step; ``theta`` has shape (S,)
+    and the result ``(S,) + y0.shape``."""
+    th = theta.to(y0.dtype).reshape((-1,) + (1,) * y0.dim())
+    hh = h.to(y0.dtype)
+    dy = y1 - y0
+    return ((1 - th) * y0 + th * y1
+            + th * (th - 1) * ((1 - 2 * th) * dy + (th - 1) * hh * f0 + th * hh * f1))
+
+
+def _interp(saveat, t, dt_eff, y, y_new, f0, k_last):
+    theta = (saveat - t) / torch.where(dt_eff == 0, torch.ones_like(dt_eff), dt_eff)
+    return _hermite_eval(theta, dt_eff, y, y_new, f0, k_last)
+
+
+def _interp_bwd(saveat, primals, ct):
+    """Autograd of ``_interp`` over ``primals = (t, dt_eff, y, y_new, f0,
+    k_last)``: their cotangents for the rows' cotangent ``ct``."""
+    prim = [x.detach().requires_grad_(True) for x in primals]
+    with torch.enable_grad():
+        return torch.autograd.grad(_interp(saveat, *prim), prim, grad_outputs=ct)
+
+
+def _save_window(saveat, t, t_end, tdir, like):
+    """The stamps an accepted step from ``t`` to ``t_end`` writes, shaped
+    to broadcast against ``(S,) + like.shape``."""
+    win = ((saveat - t) * tdir > 0) & ((saveat - t_end) * tdir <= 0)
+    return win.reshape((-1,) + (1,) * like.dim())
+
+
+class _HermiteSaver:
+    """The ``saveat`` rows of one solve. Each accepted trial step writes
+    the stamps in its window ``(t, t_end]`` by Hermite interpolation; rows
+    at or before ``t0`` keep ``ys_init`` (``y0``). With ``keep`` it also
+    records each accepted step's ``(y_new, k_last)`` for the backward."""
+
+    def __init__(self, saveat, tdir, ys_init, keep):
+        self.saveat, self.tdir, self.ys = saveat, tdir, ys_init
+        self.primals = {} if keep else None
+
+    def __call__(self, i, t, dt_eff, t_end, y, f0, res):
+        win = _save_window(self.saveat, t, t_end, self.tdir, y)
+        y_interp = _interp(self.saveat, t, dt_eff, y, res.y_new, f0, res.k_last)
+        self.ys = torch.where(win, y_interp, self.ys)
+        if self.primals is not None:
+            self.primals[i] = (res.y_new, res.k_last)
 
 
 # ---------------------------------------------------------------------------
@@ -236,8 +295,10 @@ def post_bwd(ctrl, count, t, dt_eff, qold, e, n, d, t1, span, is_last, accept,
 
 
 def _solve_forward(sweep, ctrl, max_steps, t0, t1, dt_init, y0, f0, args,
-                   keep_history):
-    """The trial-step loop of ``_make_fast_adjoint_solve._forward``."""
+                   keep_history, on_accept=None):
+    """The trial-step loop of ``_make_fast_adjoint_solve._forward``.
+    ``on_accept(i, t, dt_eff, t_end, y, f0, res)`` sees each accepted trial
+    step ``i`` before the carry moves on (the ``saveat`` writer)."""
     tdir = torch.sign(t1 - t0)
     span = torch.abs(t1 - t0)
     count = float(y0.numel())
@@ -263,6 +324,8 @@ def _solve_forward(sweep, ctrl, max_steps, t0, t1, dt_init, y0, f0, args,
         acc_flag, last_flag = torch.stack((eest <= 1.0, is_last)).tolist()
         accepted.append(acc_flag)
         if acc_flag:
+            if on_accept is not None:
+                on_accept(len(accepted) - 1, t, dt_eff, t_end, y, f0, res)
             t, y, f0 = t_new, res.y_new, res.k_last
         dt, qold = dt_next, qold_next
         done = acc_flag and last_flag
@@ -302,12 +365,15 @@ class AdjointCarry(NamedTuple):
                 self.ct_dt, self.ct_y, self.ct_f0, *self.ct_leaves)
 
 
-def adjoint_step(sweep_bwd, leaves, primals, acc, is_last, dp, ct_tel_dt, carry):
+def adjoint_step(sweep_bwd, leaves, primals, acc, is_last, dp, ct_tel_dt, carry,
+                 interp=None):
     """One trial step of the reverse walk, after the scalar chain's
     pullback ``dp = (t, dt_eff, qold, e, n, d, t1, span)``: route the carry
     by the accept flag (``y_out = where(acc, y_new, y)``, ``f0_out``
     likewise), run the sweep's backward, and pull ``dt_eff = where(is_last,
-    t1 - t, dt)`` back. ``primals = (t, dt_eff, y, f0)``."""
+    t1 - t, dt)`` back. ``primals = (t, dt_eff, y, f0)``. ``interp`` holds
+    the cotangents of the step's Hermite interpolation inputs ``(t,
+    dt_eff, y, y_new, f0, k_last)`` in a ``saveat`` solve."""
     t_i, dt_eff, y_i, f0_i = primals
     dp_t, dp_dteff, dp_qold, ct_e, ct_n, ct_d, dp_t1, dp_span = dp
     zero = torch.zeros_like(dp_t)
@@ -318,6 +384,14 @@ def adjoint_step(sweep_bwd, leaves, primals, acc, is_last, dp, ct_tel_dt, carry)
     else:
         ct_ynew, ct_y_pass = torch.zeros_like(ct_y), ct_y
         ct_k7, ct_f0_pass = torch.zeros_like(ct_f0), ct_f0
+    if interp is not None:
+        di_t, di_dteff, di_y, di_ynew, di_f0, di_klast = interp
+        ct_ynew = ct_ynew + di_ynew
+        ct_k7 = ct_k7 + di_klast
+        ct_y_pass = ct_y_pass + di_y
+        ct_f0_pass = ct_f0_pass + di_f0
+        dp_t = dp_t + di_t
+        dp_dteff = dp_dteff + di_dteff
 
     # ONE sweep backward; the history holds every primal
     k_ct_t, k_ct_dteff, ct_y_k, ct_k1, ct_args_i = sweep_bwd(
@@ -338,31 +412,41 @@ def adjoint_step(sweep_bwd, leaves, primals, acc, is_last, dp, ct_tel_dt, carry)
 class FastAdjointSolve(torch.autograd.Function):
     """The fast adjoint solve (``ops/ode.py:_make_fast_adjoint_solve``).
 
-    Inputs ``t0, t1, dt_init, y0, f0_init`` and the dynamics' leaves, so
-    that autograd routes every cotangent to them. Outputs ``y1`` and the
-    telemetry streams ``t, dt, eest, eigen_est``, and, not differentiable,
-    the accept and live masks and ``(naccept, nreject, done)``.
+    Inputs ``t0, t1, dt_init, y0, f0_init``, the ``saveat`` rows' initial
+    values ``ys_init`` (``y0`` at stamps at or before ``t0``, so that their
+    cotangent reaches ``y0``; empty without ``saveat``) and the dynamics'
+    leaves, so that autograd routes every cotangent to them. Outputs
+    ``y1``, the ``saveat`` rows ``ys`` and the telemetry streams ``t, dt,
+    eest, eigen_est``, and, not differentiable, the accept and live masks
+    and ``(naccept, nreject, done)``.
     """
 
     @staticmethod
-    def forward(ctx, sweep, sweep_bwd, ctrl, max_steps, t0, t1, dt_init, y0,
-                f0_init, *leaves):
+    def forward(ctx, sweep, sweep_bwd, ctrl, max_steps, saveat, t0, t1, dt_init,
+                y0, f0_init, ys_init, *leaves):
+        saver = None
+        if saveat is not None:
+            saver = _HermiteSaver(saveat, torch.sign(t1 - t0), ys_init, keep=True)
         y1, rows, accepted, done, hist = _solve_forward(
             sweep, ctrl, max_steps, t0, t1, dt_init, y0, f0_init, leaves,
-            keep_history=True)
+            keep_history=True, on_accept=saver)
         tel = _telemetry(rows, accepted, max_steps, t0)
         counts = torch.tensor([sum(accepted), len(accepted) - sum(accepted),
                                int(done)])
+        ys = ys_init.clone() if saver is None or saver.ys is ys_init else saver.ys
         ctx.mark_non_differentiable(tel.accepted, tel.live, counts)
         ctx.sweep_bwd, ctx.ctrl, ctx.max_steps = sweep_bwd, ctrl, max_steps
-        ctx.hist, ctx.accepted = hist, accepted
+        ctx.hist, ctx.accepted, ctx.saver = hist, accepted, saver
         ctx.save_for_backward(t0, t1, y0, f0_init, *leaves)
-        return (y1, tel.t, tel.dt, tel.eest, tel.eigen_est, tel.accepted,
+        return (y1, ys, tel.t, tel.dt, tel.eest, tel.eigen_est, tel.accepted,
                 tel.live, counts)
 
     @staticmethod
-    def backward(ctx, ct_y1, ct_tel_t, ct_tel_dt, ct_tel_e, ct_tel_g, *_):
+    def backward(ctx, ct_y1, ct_ys, ct_tel_t, ct_tel_dt, ct_tel_e, ct_tel_g, *_):
         t0, t1, y0, f0_init, *leaves = ctx.saved_tensors
+        saver = ctx.saver
+        if saver is not None and ct_ys is None:
+            ct_ys = torch.zeros_like(saver.ys)
         ctrl = ctx.ctrl
         tdir = torch.sign(t1 - t0)
         span = torch.abs(t1 - t0)
@@ -396,12 +480,26 @@ class FastAdjointSolve(torch.autograd.Function):
                                   tel_ct(0, i), tel_ct(2, i), tel_ct(3, i)),
                     allow_unused=True)
             dp = [zero if g is None else g for g in grads]
+            interp = None
+            if saver is not None and ctx.accepted[i]:
+                # the Hermite pullback from the stored primals; the window
+                # mask hands each row's cotangent to the one step that
+                # wrote it (a rejected step writes none)
+                t_end = torch.where(is_last, t1, t_i + dt_eff)
+                win = _save_window(saver.saveat, t_i, t_end, tdir, y_i)
+                ct_interp = torch.where(win, ct_ys, torch.zeros_like(ct_ys))
+                ct_ys = torch.where(win, torch.zeros_like(ct_ys), ct_ys)
+                y_new_i, k_last_i = saver.primals[i]
+                interp = _interp_bwd(saver.saveat, (t_i, dt_eff, y_i, y_new_i, f0_i,
+                                                    k_last_i), ct_interp)
             carry = adjoint_step(
                 ctx.sweep_bwd, leaves, (t_i, dt_eff, y_i, f0_i),
-                ctx.accepted[i], is_last, dp, tel_ct(1, i), carry)
+                ctx.accepted[i], is_last, dp, tel_ct(1, i), carry, interp)
 
-        ctx.hist = None
-        return (None, None, None, None, *carry.finish(tdir))
+        ctx.hist = ctx.saver = None
+        ct_t0, ct_t1, ct_dt, ct_y0, ct_f0, *ct_leaves = carry.finish(tdir)
+        return (None, None, None, None, None, ct_t0, ct_t1, ct_dt, ct_y0, ct_f0,
+                ct_ys, *ct_leaves)
 
 
 def solve_prologue(func, y0, t0, t1, args, rtol, atol):
@@ -438,6 +536,7 @@ def odeint(
     mode: str = "adjoint",
     stage_sweep: Optional[Callable] = None,
     stage_sweep_bwd: Optional[Callable] = None,
+    saveat=None,
 ) -> ODESolution:
     """Integrate ``dy/dt = func(t, y, args)`` from ``t0`` to ``t1``.
 
@@ -448,6 +547,8 @@ def odeint(
     them the plain normed sweep over ``func`` and its autograd reverse run.
     ``mode="adjoint"`` is differentiable (the fast adjoint); ``"while"``
     runs the same forward without recording anything for a backward.
+    ``saveat``: 1-D stamps at which the solution also holds the
+    interpolated states ``ys`` (stamps at or before ``t0`` hold ``y0``).
     """
     if solver != "tsit5":
         raise NotImplementedError(
@@ -467,20 +568,34 @@ def odeint(
     ctrl = controller or PIController.for_order(TSIT5.order)
     args = tuple(args)
     t0, t1, f_init, dt_init = solve_prologue(func, y0, t0, t1, args, rtol, atol)
+    ys_init = y0.new_zeros((0,) + tuple(y0.shape))
+    if saveat is not None:
+        saveat = torch.as_tensor(saveat, dtype=t0.dtype, device=y0.device)
+        # stamps at or before t0 hold the initial state (OrdinaryDiffEq
+        # saves u0 when saveat contains t0)
+        at_start = ((saveat - t0) * torch.sign(t1 - t0) <= 0).reshape(
+            (-1,) + (1,) * y0.dim())
+        ys_init = torch.where(at_start, y0.unsqueeze(0),
+                              y0.new_zeros((saveat.shape[0],) + tuple(y0.shape)))
 
     if mode == "while":
+        saver = None
+        if saveat is not None:
+            saver = _HermiteSaver(saveat, torch.sign(t1 - t0), ys_init, keep=False)
         with torch.no_grad():
             y1, rows, accepted, done, _ = _solve_forward(
                 stage_sweep, ctrl, max_steps, t0, t1, dt_init, y0, f_init,
-                args, keep_history=False)
+                args, keep_history=False, on_accept=saver)
         tel = _telemetry(rows, accepted, max_steps, t0)
         naccept, nreject = sum(accepted), len(accepted) - sum(accepted)
+        ys = None if saver is None else saver.ys
     else:
-        (y1, tel_t, tel_dt, tel_e, tel_g, acc, live,
+        (y1, ys, tel_t, tel_dt, tel_e, tel_g, acc, live,
          counts) = FastAdjointSolve.apply(
-            stage_sweep, stage_sweep_bwd, ctrl, max_steps, t0, t1, dt_init,
-            y0, f_init, *args)
+            stage_sweep, stage_sweep_bwd, ctrl, max_steps, saveat, t0, t1,
+            dt_init, y0, f_init, ys_init, *args)
         tel = StepTelemetry(tel_t, tel_dt, tel_e, tel_g, acc, live)
         naccept, nreject, done = counts.tolist()
     return ODESolution(y1=y1, stats=solve_stats(naccept, nreject, done),
-                       telemetry=tel)
+                       telemetry=tel, ys=None if saveat is None else ys,
+                       ts=saveat)

@@ -13,10 +13,12 @@ import torch
 from torch import nn
 
 from regneuralde_tpu_torch.training.optimizers import (
+    AdaMax,
     Chain,
     InvDecay,
     Momentum,
     apply_updates,
+    latent_ode_optimizer,
     mnist_node_optimizer,
 )
 
@@ -50,5 +52,6 @@ def make_train_step(loss_fn: Callable, optimizer) -> Callable:
     return step
 
 
-__all__ = ["Chain", "InvDecay", "Momentum", "TrainState", "apply_updates",
-           "create_train_state", "make_train_step", "mnist_node_optimizer"]
+__all__ = ["AdaMax", "Chain", "InvDecay", "Momentum", "TrainState", "apply_updates",
+           "create_train_state", "latent_ode_optimizer", "make_train_step",
+           "mnist_node_optimizer"]

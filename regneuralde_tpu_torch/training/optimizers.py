@@ -28,8 +28,10 @@ class InvDecay:
         return torch.zeros((), dtype=torch.int64)
 
     def update(self, grads: Tensors, count) -> Tuple[Tensors, torch.Tensor]:
-        scale = 1.0 / (1.0 + self.gamma * count.to(torch.float32))
-        return [g * scale.to(g.device) for g in grads], count + 1
+        # float32 on the host (the count lives there), handed to the
+        # products as a Python float: no copy to the device per parameter
+        scale = (1.0 / (1.0 + self.gamma * count.to(torch.float32))).item()
+        return [g * scale for g in grads], count + 1
 
 
 class Momentum:
@@ -44,6 +46,33 @@ class Momentum:
     def update(self, grads: Tensors, velocity: Tensors) -> Tuple[Tensors, Tensors]:
         velocity = [self.rho * v + self.lr * g for v, g in zip(velocity, grads)]
         return [-v for v in velocity], velocity
+
+
+class AdaMax:
+    """optax's ``adamax(lr)`` (the latent ODE's ``AdaMax(0.01)``; Flux's
+    differs in where eps goes, and the JAX package trains with optax's):
+    ``mu = (1 - b1) g + b1 mu``, ``nu = max(|g| + eps, b2 nu)``, and the
+    update ``-lr * (mu / (1 - b1^n)) / nu`` with n counting steps from 1."""
+
+    def __init__(self, lr: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8):
+        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+
+    def init(self, params: Sequence[torch.Tensor]):
+        return (torch.zeros((), dtype=torch.int32),
+                [torch.zeros_like(p) for p in params],
+                [torch.zeros_like(p) for p in params])
+
+    def update(self, grads: Tensors, state) -> Tuple[Tensors, tuple]:
+        count, mu, nu = state
+        count = count + 1
+        mu = [(1 - self.b1) * g + self.b1 * m for g, m in zip(grads, mu)]
+        nu = [torch.maximum(torch.abs(g) + self.eps, self.b2 * v)
+              for g, v in zip(grads, nu)]
+        # the bias correction in float32 as optax computes it, on the host
+        correction = (1 - torch.tensor(self.b1, dtype=torch.float32) ** count).item()
+        updates = [-self.lr * ((m / correction) / v) for m, v in zip(mu, nu)]
+        return updates, (count, mu, nu)
 
 
 class Chain:
@@ -74,3 +103,8 @@ def apply_updates(params: Sequence[torch.Tensor], updates: Tensors) -> None:
 def mnist_node_optimizer() -> Chain:
     """InvDecay(1e-5) then Momentum(0.1, 0.9) (experiments/mnist_node.jl:130)."""
     return Chain(InvDecay(1e-5), Momentum(0.1, 0.9))
+
+
+def latent_ode_optimizer() -> Chain:
+    """InvDecay(1e-5) then AdaMax(0.01) (experiments/latent_ode.jl:108)."""
+    return Chain(InvDecay(1e-5), AdaMax(0.01))

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (K1/K2 step pair, K3/K4 whole solve) against
-their plain PyTorch versions.
+"""The port's CUDA kernels (K1/K2 step pair, K3/K4 whole solve, K7/K8
+AlternatingMLP step pair) against their plain PyTorch versions.
 
 These tests need a CUDA device and ``nvcc`` (the kernels have no CPU mode)
 and skip without one. This file imports no JAX, so it runs on a machine
@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from regneuralde_tpu_torch.ops import fused_generic as fg
 from regneuralde_tpu_torch.ops import fused_mlp as fm
 from regneuralde_tpu_torch.ops import ode
 from regneuralde_tpu_torch.ops import whole_solve as ws
@@ -269,6 +270,116 @@ def test_fused_true_trains_through_the_whole_solve_kernels(cuda):
     assert la == {"whole_solve_fwd": 1, "whole_solve_bwd": 1, "normed_tsit5_fwd": 0,
                   "normed_tsit5_bwd": 0}
     assert a.nfe == b.nfe and torch.equal(a.telemetry.accepted, b.telemetry.accepted)
+    assert _rel(a.value, b.value) <= 1e-4
+    for u, v in zip(ga, gb):
+        assert _rel(u, v) <= 1e-3
+
+
+def _alt_inputs(batch, dim, hidden, depth, device, seed=0):
+    """AlternatingMLP leaves (nn.Linear layout), y, a random k1 (keeps the
+    embedded error far above its rounding floor) and the cotangents."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    leaves = []
+    for _ in range(depth):
+        leaves += [f32(rng.normal(size=(hidden, dim)) / np.sqrt(dim)),
+                   f32(rng.normal(size=hidden) * 0.1),
+                   f32(rng.normal(size=(dim, hidden)) / np.sqrt(hidden)),
+                   f32(rng.normal(size=dim) * 0.1)]
+    y = f32(rng.normal(size=(batch, dim)) * 0.5)
+    k1 = f32(rng.normal(size=(batch, dim)) * 0.3)
+    cts = [f32(rng.normal(size=(batch, dim))), f32(rng.normal(size=(batch, dim))),
+           f32(0.7), f32(1.3), f32(-0.4)]
+    return y, k1, leaves, cts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tol", [1e-4, 1.4e-8])
+@pytest.mark.parametrize("shape", [(256, 20, 50, 4), (13, 20, 50, 4), (7, 6, 10, 2)])
+def test_altmlp_kernels_match_plain_versions(cuda, shape, tol):
+    """K7/K8 against their plain versions at the latent shape, a ragged
+    batch (13 rows: the last tile half empty) and a small one. Forward by
+    relative Frobenius error <= 1e-4; backward <= 1e-3 (its seeds multiply
+    by 1/(atol + |y| rtol) and amplify float32 rounding); ct_t exactly 0."""
+    y, k1, leaves, cts = _alt_inputs(*shape, cuda)
+    t, dt = torch.tensor(T, device=cuda), torch.tensor(DT, device=cuda)
+    fg.reset_launches()
+    kern = fg.altmlp_normed_sweep(t, dt, y, k1, leaves, tol, tol)
+    plain = fg.plain_altmlp_normed_sweep(t, dt, y, k1, leaves, tol, tol)
+    for a, b in zip(kern, plain):
+        assert _rel(a, b) <= 1e-4
+    kern_b = fg.altmlp_normed_sweep_bwd(t, dt, y, k1, leaves, cts, tol, tol)
+    plain_b = fg._altmlp_bwd_math(t, dt, y, k1, leaves, cts, tol, tol)
+    assert kern_b[0].item() == 0.0
+    for a, b in zip([*kern_b[1:4], *kern_b[4]], [*plain_b[1:4], *plain_b[4]]):
+        assert _rel(a, b) <= 1e-3
+    assert fg.LAUNCHES == {"altmlp_tsit5_fwd": 1, "altmlp_tsit5_bwd": 1}
+
+
+@pytest.mark.cuda
+def test_altmlp_kernels_are_deterministic(cuda):
+    """Fixed-order sums and per-block weight-cotangent slots, no atomics:
+    two launches give bitwise-equal results."""
+    y, k1, leaves, cts = _alt_inputs(256, 20, 50, 4, cuda)
+    t, dt = torch.tensor(T, device=cuda), torch.tensor(DT, device=cuda)
+    a = fg.altmlp_normed_sweep(t, dt, y, k1, leaves, 1e-6, 1e-6)
+    b = fg.altmlp_normed_sweep(t, dt, y, k1, leaves, 1e-6, 1e-6)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    ga = fg.altmlp_normed_sweep_bwd(t, dt, y, k1, leaves, cts, 1e-6, 1e-6)
+    gb = fg.altmlp_normed_sweep_bwd(t, dt, y, k1, leaves, cts, 1e-6, 1e-6)
+    assert all(torch.equal(u, v) for u, v in zip([*ga[:4], *ga[4]], [*gb[:4], *gb[4]]))
+
+
+@pytest.mark.cuda
+def test_altmlp_wrappers_refuse_bad_inputs(cuda):
+    y, k1, leaves, cts = _alt_inputs(8, 20, 50, 4, cuda)
+    t, dt = torch.tensor(T, device=cuda), torch.tensor(DT, device=cuda)
+    with pytest.raises(TypeError):
+        fg.altmlp_normed_sweep(t, dt, y.double(), k1, leaves, 1e-4, 1e-4)
+    with pytest.raises(ValueError):
+        fg.altmlp_normed_sweep(t, dt, y, k1.t().contiguous().t(), leaves, 1e-4, 1e-4)
+    with pytest.raises(ValueError):
+        fg.altmlp_normed_sweep(t, dt, y, k1.cpu(), leaves, 1e-4, 1e-4)
+    bad = list(leaves)
+    bad[2] = bad[2].t().contiguous().t()  # down_0.weight, strided
+    with pytest.raises(ValueError):
+        fg.altmlp_normed_sweep(t, dt, y, k1, bad, 1e-4, 1e-4)
+    with pytest.raises(ValueError):
+        fg.altmlp_normed_sweep_bwd(t, dt, y, k1, leaves, [cts[0].cpu(), *cts[1:]],
+                                   1e-4, 1e-4)
+    with pytest.raises(TypeError):
+        fg.altmlp_normed_sweep_bwd(t, dt, y, k1, leaves, [cts[0], cts[1].double(),
+                                                          *cts[2:]], 1e-4, 1e-4)
+
+
+@pytest.mark.cuda
+def test_fused_step_trains_the_latent_node_through_k7_k8(cuda):
+    """``NeuralODE(AlternatingMLP, fused="step", saveat=...)`` against
+    ``fused=False`` on the card at rtol=atol=1e-5: the same NFE and accept
+    sequence, the trajectory within 1e-4 and the gradients of its weighted
+    square within 1e-3 (relative); one K7 and one K8 launch per trial step."""
+    from regneuralde_tpu_torch.models import AlternatingMLP, NeuralODE
+
+    sa = torch.tensor([0.0, 0.1, 0.35, 0.6, 0.9, 1.0], device=cuda)
+    outs = {}
+    for fused in ("step", False):
+        gen = torch.Generator().manual_seed(0)
+        node = NeuralODE(AlternatingMLP(20, 50, 4, device=cuda, generator=gen),
+                         time_dep=False, rtol=1e-5, atol=1e-5, max_steps=256,
+                         saveat=sa, fused=fused)
+        x = torch.randn(37, 20, generator=gen).to(cuda)
+        fg.reset_launches()
+        out = node(x)
+        w = torch.arange(1.0, 7.0, device=cuda)[None, :, None]
+        grads = torch.autograd.grad((w * out.value.square()).sum(),
+                                    list(node.parameters()))
+        outs[fused] = (out, grads, dict(fg.LAUNCHES))
+    (a, ga, la), (b, gb, lb) = outs["step"], outs[False]
+    n = int(a.telemetry.live.sum())
+    assert la == {"altmlp_tsit5_fwd": n, "altmlp_tsit5_bwd": n}
+    assert lb == {"altmlp_tsit5_fwd": 0, "altmlp_tsit5_bwd": 0}
+    assert a.nfe == b.nfe and torch.equal(a.telemetry.accepted, b.telemetry.accepted)
+    assert a.value.shape == (37, 6, 20) and torch.equal(a.value[:, 0], b.value[:, 0])
     assert _rel(a.value, b.value) <= 1e-4
     for u, v in zip(ga, gb):
         assert _rel(u, v) <= 1e-3

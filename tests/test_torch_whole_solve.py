@@ -337,6 +337,15 @@ def test_tiled_takes_any_batch():
 
 @pytest.mark.parametrize("fused", [False, "step", True, "solve", "tiled"])
 def test_saveat_raises_not_implemented(fused):
+    """``saveat`` runs on the step routes (the trajectory, ``(batch, time,
+    feat)``, ending in y1) and raises on the whole-solve routes, whose
+    Hermite save cursor is the next item of ROADMAP slice 2; it is never
+    remapped to the step route."""
     node = NeuralODE(MLPDynamics(DIM, HIDDEN), fused=fused)
+    if fused in (False, "step"):
+        out = node(torch.zeros(2, DIM), saveat=torch.tensor([0.5, 1.0]))
+        assert out.value.shape == (2, 2, DIM) and out.solution.stats.success
+        assert torch.equal(out.value[:, -1], out.solution.y1)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         node(torch.zeros(2, DIM), saveat=torch.tensor([0.5, 1.0]))
