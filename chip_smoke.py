@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's MNIST Neural-ODE and latent-ODE training
-steps on one GPU.
+steps on one GPU, on the step kernels and on the whole solve.
 
     python3 chip_smoke.py
 
@@ -36,10 +36,28 @@ at first use. Phases (each checks its results; any failure exits non-zero):
    4)``, ``Dense(37)``, batch 256, 49 ``saveat`` stamps, Tsit5 at
    rtol=atol=1.4e-8, max_steps=256, masked Gaussian log-likelihood + KL +
    1e3 * error_estimate, InvDecay(1e-5) then AdaMax(0.01)) on
-   ``fused="step"``: one K7 and one K8 launch per trial step.
+   ``fused="step"``: one K7 and one K8 launch per trial step;
+11. the whole-solve kernels K3/K4 for AlternatingMLP with the 49 saves
+   against their plain versions at 256x20x50x4, at rtol=atol=1e-5 and
+   1.4e-8: the same steps and save cursors, y1 and the saves within 1e-6,
+   every stored trial step's norm sums and rows bitwise equal to K7's and
+   its controller bitwise equal to ``ode._post`` on the card, K4 within
+   BWD_BOUND (TEL_BWD_BOUND with the telemetry's cotangents) of its plain
+   version and within 3 times the plain version's distance from a
+   float64 walk, bitwise determinism, CUDA-event times of both;
+12. the MLPDynamics whole solve with 5 saves against its plain version at
+   64x40x24 (the save cursor on the other instantiation);
+13. phase 9 on the whole solve: ``fused=True`` against ``fused=False``;
+14. phase 10 on ``fused=True``: one launch of each whole-solve kernel per
+   step and no step kernel; each step's NFE and accept sequence equal to
+   ``fused="step"``'s from the same weights and batch.
 
-The last two lines of standard output are the kernels' JSON record and the
-device record ``{"ok": true, "device": {...}}``.
+Each line of the kernels' JSON record gives the kernel's launches on its
+main path (phases 4, 7, 10 and 14), its time and its plain version's (CUDA
+events, median of 7), and its bound: the larger of its float32 operations
+over the card's f32 rate and its bytes over the memory rate. The last two
+lines of standard output are the kernels' JSON record and the device
+record ``{"ok": true, "device": {...}}``.
 """
 
 import json
@@ -56,8 +74,43 @@ LATENT_BATCH, LATENT_OBS, LATENT_DIM, LATENT_HIDDEN, LATENT_DEPTH = 256, 37, 20,
 LATENT_MAX_STEPS = 256
 LATENT_SIGMA, LATENT_REG = 0.01, 1e3
 FWD_BOUND, BWD_BOUND, GRAD_BOUND, REG_GRAD_BOUND = 1e-4, 1e-3, 1e-3, 5e-2
+# K4 against its plain version with the telemetry's cotangents seeded, on
+# every output but ct_f0: about 9 times the worst reading on the H100
+# (1.1e-3, the time scalars of phase 11 at 1.4e-8 and cb1 of phase 5).
+TEL_BWD_BOUND = 1e-2
 WS_CTRL_BOUND = 1e-5
 REPS = 7  # timed runs per kernel (median), after two warm-up runs
+# NVIDIA H100 SXM data sheet: dense f32 rate outside the tensor cores, HBM
+# bandwidth. A kernel's bound is the larger of its f32 operations over the
+# rate and its bytes (each input read once, each output written once) over
+# the bandwidth.
+F32_FLOPS, HBM_BYTES = 67e12, 3.35e12
+
+
+def _bound(nbytes, flops):
+    """The least time the card could take, in ms, and what bounds it."""
+    t_ops = flops / F32_FLOPS
+    t_bytes = nbytes / HBM_BYTES
+    return dict(bound_ms=1e3 * max(t_ops, t_bytes),
+                bound_by="operations" if t_ops >= t_bytes else "bytes")
+
+
+def _mlp_work(B, D, H):
+    """K1's and K2's f32 operations and the leaves' floats at B x D x H:
+    six stages of two (B x D x H) products forward; backward the recompute
+    and, per stage, the two input cotangents and two weight cotangents."""
+    leaf = H * (D + 1) + H + D * (H + 1) + D
+    return 6 * 4 * B * D * H, 72 * B * D * H, leaf
+
+
+def _altmlp_work(B, D, H, depth):
+    """K7's and K8's operations at B x D x H x depth and the leaves' floats:
+    six stages of 2 * depth (B x D x H) products forward; backward the
+    recompute and, per layer, the input and the weight cotangents. The
+    function is float32 (the TPU kernels'); that the port sums each affine
+    map in float64 is its own choice and does not enter the bound."""
+    fwd = 6 * 4 * depth * B * D * H
+    return fwd, 3 * fwd, depth * (2 * H * D + H + D)
 
 
 def _check(ok, what):
@@ -202,15 +255,17 @@ def phase_kernels(device):
     }
     print("[kernels] median ms over %d runs at %dx%dx%d: %s"
           % (REPS, BATCH, DIM, HIDDEN, json.dumps(times)))
+    f_ops, b_ops, leaf = _mlp_work(BATCH, DIM, HIDDEN)
+    BD = BATCH * DIM
     return {
         "normed_tsit5_fwd": dict(
             replaces="regneuralde_tpu/ops/pallas_mlp.py:1290",
             max_abs_err=abs_f, ms=times["fwd_kernel"],
-            plain_ms=times["fwd_plain"]),
+            plain_ms=times["fwd_plain"], **_bound(4 * (4 * BD + leaf), f_ops)),
         "normed_tsit5_bwd": dict(
             replaces="regneuralde_tpu/ops/pallas_mlp.py:1334",
             max_abs_err=abs_b, ms=times["bwd_kernel"],
-            plain_ms=times["bwd_plain"]),
+            plain_ms=times["bwd_plain"], **_bound(4 * (6 * BD + 2 * leaf), b_ops)),
     }
 
 
@@ -272,27 +327,37 @@ def _teacher_forced_steps(rec, ns, args, parts):
     return worst
 
 
-def phase_whole_solve_kernels(device):
-    """K3/K4 against their plain versions on seeded random weights and
-    inputs, at rtol=atol=1e-4. The forward against the plain solve: the
-    same step counts and accept sequence, y1 within FWD_BOUND. The first
-    steps' embedded error sits near its float32 rounding floor, so the two
-    solves' step sizes drift apart by about 1% (measured on the H100); each
-    stored trial step is therefore also held against the plain versions on
-    its own stored inputs (``_teacher_forced_steps``): the norm sums and
-    rows within 3 times the float32 plain version's distance from float64,
-    plus 1e-6, and the controller within WS_CTRL_BOUND (powf against
-    ATen's pow).
+def _check_steps_teacher_forced(tag, rec, ns, args):
+    """Each of K3's stored trial steps (MLPDynamics) against the plain
+    versions on its own stored inputs (``_teacher_forced_steps``): the norm
+    sums and rows within 3 times the float32 plain version's distance from
+    float64, plus 1e-6, and the controller within WS_CTRL_BOUND."""
+    from regneuralde_tpu_torch.ops import fused_mlp as fm
 
-    K4, its float32 plain version and a float64 plain walk run over the
-    same record (K3's). Seeded with a random cotangent of y1, K4 agrees
-    with its plain version within BWD_BOUND on the well-conditioned
-    outputs (the time scalars as one vector, ct_y0 and the weights).
-    Seeded with random telemetry cotangents too, the seeds pass through
-    1/(atol + |y| rtol) and the error estimate's rounding floor, so
-    float32 itself drifts from float64: every output of K4 is held to 3
-    times the float32 plain version's distance from float64, plus 1e-5.
-    Times at the flagship tolerance."""
+    errs = _teacher_forced_steps(rec, ns, args, fm._split_params(*args[5]))
+    print(f"[{tag}] K3 per trial step, on its own stored inputs: rel err (kernel vs "
+          "plain, kernel vs float64, plain vs float64), worst over the steps "
+          + json.dumps(errs))
+    for n, (k_p, k_64, p_64) in errs.items():
+        _check(k_p == k_p and k_64 == k_64, f"{tag} K3 {n}: no NaN")
+        if p_64 is None:  # the controller: the same formula in float32
+            _check(k_p <= WS_CTRL_BOUND, f"{tag} K3 {n}: {errs[n]}")
+        else:
+            _check(k_64 <= 3 * p_64 + 1e-6, f"{tag} K3 {n}: {errs[n]}")
+
+
+def phase_whole_solve_kernels(device):
+    """K3/K4 for MLPDynamics against their plain versions on seeded random
+    weights and inputs at 512x784x100, rtol=atol=1e-4, without saveat
+    (``_whole_solve_vs_plain``): y1 within FWD_BOUND. The first steps'
+    embedded error sits near its float32 rounding floor, so the two solves'
+    step sizes drift apart by about 1% (measured on the H100); each stored
+    trial step is therefore held against the plain versions on its own
+    stored inputs (``_check_steps_teacher_forced``). K4 with the cotangent
+    of y1 within BWD_BOUND of its plain version, with the telemetry's too
+    within TEL_BWD_BOUND (every output but ct_f0), and every output,
+    ct_f0 included, within 3 times the float32 plain version's distance
+    from float64, plus 1e-5. Times at the flagship tolerance."""
     import torch
 
     from regneuralde_tpu_torch.ops import fused_mlp as fm
@@ -309,80 +374,17 @@ def phase_whole_solve_kernels(device):
               rnd(DIM, HIDDEN + 1, scale=(HIDDEN + 1) ** -0.5), rnd(DIM, scale=0.1)]
     y0 = torch.rand(BATCH, DIM, generator=gen).to(device)
     parts = fm._split_params(*leaves)
-    ctrl = PIController.for_order(5)
     func = lambda t, y, _: fm._mlp_k(y, t, parts)[0]
+    _, _, abs_f, abs_b, _, _, (ct_y1, _, ct_tel) = _whole_solve_vs_plain(
+        "whole", "mlp", leaves, y0, func, None, 1e-4, MAX_STEPS, gen=gen,
+        fwd_bound=FWD_BOUND, n_leaf_groups=4, check_steps=_check_steps_teacher_forced,
+        k4_plain={"y1": BWD_BOUND, "y1+telemetry": TEL_BWD_BOUND})
 
-    def inputs(tol):
-        t0, t1, f0, dt0 = ode.solve_prologue(func, y0, 0.0, 1.0, (), tol, tol)
-        return t0, t1, dt0, y0, f0, leaves, tol, tol, ctrl, MAX_STEPS
-
-    args = inputs(1e-4)
-    rk = ws.whole_solve_fwd(*args)
-    rp = ws.plain_whole_solve_fwd(*args)
-    torch.cuda.synchronize()
-    counts_k, counts_p = rk.final[3:].tolist(), rp.final[3:].tolist()
-    ns = int(counts_k[0] + counts_k[1])
-    print(f"[whole] tol=1e-4 (naccept, nreject, done) kernel={counts_k} plain={counts_p}")
-    _check(counts_k == counts_p, "K3: the same step counts as its plain version")
-    _check(counts_k[2] == 1.0, "K3: the solve reached t1")
-    _check(torch.equal(rk.streams[ws.ST_ACC], rp.streams[ws.ST_ACC]),
-           "K3: the same accept sequence")
-    names = ["t", "dt", "qold", "err_ssq", "num_ssq", "den_ssq", "accepted",
-             "tel_t", "tel_dt", "tel_eest", "tel_eigen"]
-    drift = {n: _rel(rk.streams[j, :ns], rp.streams[j, :ns]) for j, n in enumerate(names)}
-    print(f"[whole] K3 y1 rel err {_rel(rk.y1, rp.y1)!r}; free-running record against "
-          "the plain solve's (rounding drift, not checked) " + json.dumps(drift))
-    _check(_rel(rk.y1, rp.y1) <= FWD_BOUND, "K3 y1")
-    errs = _teacher_forced_steps(rk, ns, args, parts)
-    print("[whole] K3 per trial step, on its own stored inputs: rel err (kernel vs "
-          "plain, kernel vs float64, plain vs float64), worst over the steps "
-          + json.dumps(errs))
-    for n, (k_p, k_64, p_64) in errs.items():
-        _check(k_p == k_p and k_64 == k_64, f"K3 {n}: no NaN")
-        if p_64 is None:  # the controller: the same formula in float32
-            _check(k_p <= WS_CTRL_BOUND, f"K3 {n}: {errs[n]}")
-        else:
-            _check(k_64 <= 3 * p_64 + 1e-6, f"K3 {n}: {errs[n]}")
-    abs_f = (rk.y1 - rp.y1).abs().max().item()
-
-    t0, t1 = args[0], args[1]
-    ct_y1 = rnd(BATCH, DIM)
-    ct_tel = rnd(4, MAX_STEPS, scale=0.1).contiguous()
-    groups = ["ct_t0|ct_t1|ct_dt0", "ct_y0", "ct_f0", "cW1", "cb1", "cW2", "cb2"]
-    as_groups = lambda g: [torch.stack(g[:3]), *g[3:]]
-    d = lambda x: x.double()
-    rec64 = ws.SolveRecord(*map(d, rk))
-    for seeds in ("y1", "y1+telemetry"):
-        tel = ct_tel if seeds == "y1+telemetry" else torch.zeros_like(ct_tel)
-        gk = ws.whole_solve_bwd(rk, ns, ct_y1, tel, t0, t1, leaves, 1e-4, 1e-4, ctrl)
-        gp = ws.plain_whole_solve_bwd(rk, ns, ct_y1, tel, t0, t1, leaves, 1e-4, 1e-4,
-                                      ctrl)
-        g64 = ws.plain_whole_solve_bwd(rec64, ns, d(ct_y1), d(tel), d(t0), d(t1),
-                                       [d(x) for x in leaves], 1e-4, 1e-4, ctrl)
-        torch.cuda.synchronize()
-        errs = {n: (_rel(a, b), _rel(a, c), _rel(b, c)) for n, a, b, c in zip(
-            groups, *map(as_groups, (gk, gp, g64)))}
-        print(f"[whole] K4 cotangents of {seeds}: rel err (kernel vs plain, kernel vs "
-              f"float64, plain vs float64) " + json.dumps(errs))
-        for n, (k_p, k_64, p_64) in errs.items():
-            _check(k_p == k_p and k_64 == k_64, f"K4 {n}: no NaN")
-            _check(k_64 <= 3 * p_64 + 1e-5, f"K4 {n}: {errs[n]}")
-            if seeds == "y1" and n != "ct_f0":
-                _check(k_p <= BWD_BOUND, f"K4 {n}: {errs[n]}")
-        if seeds == "y1":
-            abs_b = max((a - b).abs().max().item() for a, b in zip(gk[3:], gp[3:]))
-    again = ws.whole_solve_bwd(rk, ns, ct_y1, ct_tel, t0, t1, leaves, 1e-4, 1e-4, ctrl)
-    first = ws.whole_solve_bwd(rk, ns, ct_y1, ct_tel, t0, t1, leaves, 1e-4, 1e-4, ctrl)
-    rk2 = ws.whole_solve_fwd(*args)
-    _check(all(torch.equal(a, b) for a, b in zip(again, first)), "K4 is deterministic")
-    _check(torch.equal(rk.streams, rk2.streams) and torch.equal(rk.y1, rk2.y1),
-           "K3 is deterministic")
-    print(f"[whole] max abs err: K3 y1 {abs_f!r}, K4 (cotangent of y1 only) {abs_b!r}")
-
-    args = inputs(FLAGSHIP_TOL)
+    ctrl = PIController.for_order(5)
+    t0, t1, f0, dt0 = ode.solve_prologue(func, y0, 0.0, 1.0, (), FLAGSHIP_TOL, FLAGSHIP_TOL)
+    args = (t0, t1, dt0, y0, f0, leaves, FLAGSHIP_TOL, FLAGSHIP_TOL, ctrl, MAX_STEPS)
     rec = ws.whole_solve_fwd(*args)
     ns = int(rec.final[3:5].sum().item())
-    t0, t1 = args[0], args[1]
     bwd_args = (ns, ct_y1, ct_tel, t0, t1, leaves, FLAGSHIP_TOL, FLAGSHIP_TOL, ctrl)
     times = {
         "fwd_kernel": _time_ms(lambda: ws.whole_solve_fwd(*args)),
@@ -392,14 +394,29 @@ def phase_whole_solve_kernels(device):
     }
     print("[whole] median ms over %d runs at %dx%dx%d, tol %g, %d trial steps: %s"
           % (REPS, BATCH, DIM, HIDDEN, FLAGSHIP_TOL, ns, json.dumps(times)))
+    f_ops, b_ops, leaf = _mlp_work(BATCH, DIM, HIDDEN)
     return {
         "whole_solve_fwd": dict(
             replaces="regneuralde_tpu/ops/pallas_solve.py:357",
-            max_abs_err=abs_f, ms=times["fwd_kernel"], plain_ms=times["fwd_plain"]),
+            max_abs_err=abs_f, ms=times["fwd_kernel"], plain_ms=times["fwd_plain"],
+            **_bound(_solve_bytes(BATCH * DIM, leaf, ns, 0, MAX_STEPS)[0], ns * f_ops)),
         "whole_solve_bwd": dict(
             replaces="regneuralde_tpu/ops/pallas_solve.py:559",
-            max_abs_err=abs_b, ms=times["bwd_kernel"], plain_ms=times["bwd_plain"]),
+            max_abs_err=abs_b, ms=times["bwd_kernel"], plain_ms=times["bwd_plain"],
+            **_bound(_solve_bytes(BATCH * DIM, leaf, ns, 0, MAX_STEPS)[1], ns * b_ops)),
     }
+
+
+def _solve_bytes(BD, leaf, ns, n_save, S):
+    """Bytes K3 and K4 must move over a solve of ns trial steps: K3 reads
+    y0, f0, the leaves and ys_init and writes y1, ys, the history (ns + 1
+    rows of y and f) and the streams; K4 reads the history, the streams,
+    the leaves and the cotangents of y1, ys and the telemetry, and writes
+    those of y0, f0, ys_init and the leaves."""
+    hist = 2 * (ns + 1) * BD
+    fwd = 3 * BD + leaf + 2 * n_save * BD + hist + 11 * S
+    bwd = hist + 11 * S + leaf + BD + 2 * n_save * BD + 4 * S + 2 * BD + leaf
+    return 4 * fwd, 4 * bwd
 
 
 def phase_kernel_vs_plain_step(device, batch, fused):
@@ -499,7 +516,8 @@ def phase_slice(device, batches, fused):
     print(f"[slice] fused={fused!r} trial steps={trial_steps} "
           f"launches={json.dumps(launches)} max parameter change={moved!r}")
     _check(moved > 0.0, "the parameters moved")
-    none = dict(altmlp_tsit5_fwd=0, altmlp_tsit5_bwd=0)
+    none = dict(altmlp_tsit5_fwd=0, altmlp_tsit5_bwd=0, whole_solve_altmlp_fwd=0,
+                whole_solve_altmlp_bwd=0)
     per_step = {"step": dict(normed_tsit5_fwd=trial_steps, normed_tsit5_bwd=trial_steps,
                              whole_solve_fwd=0, whole_solve_bwd=0, **none),
                 True: dict(normed_tsit5_fwd=0, normed_tsit5_bwd=0,
@@ -654,29 +672,33 @@ def phase_altmlp_kernels(device):
     }
     print("[altmlp] median ms over %d runs at %dx%dx%dx%d: %s"
           % (REPS, B, D, H, LATENT_DEPTH, json.dumps(times)))
+    f_ops, b_ops, leaf = _altmlp_work(B, D, H, LATENT_DEPTH)
     return {
         "altmlp_tsit5_fwd": dict(
             replaces="regneuralde_tpu/ops/pallas_generic.py:208",
-            max_abs_err=abs_f, ms=times["fwd_kernel"], plain_ms=times["fwd_plain"]),
+            max_abs_err=abs_f, ms=times["fwd_kernel"], plain_ms=times["fwd_plain"],
+            **_bound(4 * (4 * B * D + leaf), f_ops)),
         "altmlp_tsit5_bwd": dict(
             replaces="regneuralde_tpu/ops/pallas_generic.py:278",
-            max_abs_err=abs_b, ms=times["bwd_kernel"], plain_ms=times["bwd_plain"]),
+            max_abs_err=abs_b, ms=times["bwd_kernel"], plain_ms=times["bwd_plain"],
+            **_bound(4 * (6 * B * D + 2 * leaf), b_ops)),
     }
 
 
-def phase_latent_kernel_vs_plain_step(device, batch, saveat):
+def phase_latent_kernel_vs_plain_step(device, batch, saveat, fused):
     """One forward+backward of the latent training step at rtol=atol=1e-5:
-    K7/K8 (``fused="step"``) against their plain versions (``fused=False``)
-    on the same weights and noise. The loss without the regularizer is held
-    to GRAD_BOUND; with 1e3 * error_estimate, whose gradient sits at the
-    error estimate's float32 rounding floor, to REG_GRAD_BOUND (phase 3's
+    the kernels (K7/K8 on ``fused="step"``, the whole solve K3/K4 on
+    ``fused=True``) against their plain versions (``fused=False``) on the
+    same weights and noise. The loss without the regularizer is held to
+    GRAD_BOUND; with 1e3 * error_estimate, whose gradient sits at the error
+    estimate's float32 rounding floor, to REG_GRAD_BOUND (phase 3's
     bounds)."""
     import torch
 
     d, m, tp, eps = batch
     tol = 1e-5
     x = latent_inputs(d, m, tp)
-    kern, gen = build_latent(tol, "step", device, saveat)
+    kern, gen = build_latent(tol, fused, device, saveat)
     kern.init(x, generator=gen)
     plain, _ = build_latent(tol, False, device, saveat)
     plain.init(x)
@@ -697,7 +719,7 @@ def phase_latent_kernel_vs_plain_step(device, batch, saveat):
     for reg_weight, bound in ((0.0, GRAD_BOUND), (LATENT_REG, REG_GRAD_BOUND)):
         k, p = results["kernel", reg_weight], results["plain", reg_weight]
         g_err = _rel(k["grad"], p["grad"])
-        print(f"[latent-step] rtol=atol={tol:g} reg_weight={reg_weight:g} "
+        print(f"[latent-step] fused={fused!r} rtol=atol={tol:g} reg_weight={reg_weight:g} "
               f"nfe kernel={k['nfe']} plain={p['nfe']} "
               f"loss kernel={k['loss']!r} plain={p['loss']!r} "
               f"result rel err={_rel(k['result'], p['result']):.3e} "
@@ -711,10 +733,12 @@ def phase_latent_kernel_vs_plain_step(device, batch, saveat):
         _check(g_err <= bound, f"gradient rel err {g_err} > {bound}")
 
 
-def phase_latent_slice(device, batches, saveat):
-    """Three training steps of the latent ODE at full width on
-    ``fused="step"``. Returns the launch counts of that run: K7 and K8
-    once per trial step, no other kernel."""
+def phase_latent_slice(device, batches, saveat, fused):
+    """Three training steps of the latent ODE at full width on ``fused``.
+    Returns the launch counts of that run (on ``"step"`` K7 and K8 once per
+    trial step, on ``True`` each whole-solve kernel once per training step,
+    no other kernel) and per step the weights it started from, its NFE and
+    its accept sequence."""
     import torch
 
     from regneuralde_tpu_torch.ops import fused_generic as fg
@@ -726,7 +750,7 @@ def phase_latent_slice(device, batches, saveat):
         make_train_step,
     )
 
-    model, gen = build_latent(FLAGSHIP_TOL, "step", device, saveat)
+    model, gen = build_latent(FLAGSHIP_TOL, fused, device, saveat)
     model.init(latent_inputs(*batches[0][:3]), generator=gen)
     optimizer = latent_ode_optimizer()
     state = create_train_state(model, optimizer)
@@ -738,7 +762,9 @@ def phase_latent_slice(device, batches, saveat):
     for mod in counters:  # count only this path's launches
         mod.reset_launches()
     trial_steps = 0
+    steps = []
     for i, batch in enumerate(batches):
+        weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
         start = time.perf_counter()
         state, loss, out = step(state, *batch)
         torch.cuda.synchronize()
@@ -747,8 +773,10 @@ def phase_latent_slice(device, batches, saveat):
         naccept = int(tel.accepted.sum().item())
         nlive = int(tel.live.sum().item())
         trial_steps += nlive
+        steps.append(dict(weights=weights, nfe=out.nfe,
+                          accepted=tel.accepted[tel.live].tolist()))
         launches = {k: v for mod in counters for k, v in mod.LAUNCHES.items()}
-        print(f"[latent] step {i}: loss={loss.item()!r} nfe={out.nfe} "
+        print(f"[latent] fused={fused!r} step {i}: loss={loss.item()!r} nfe={out.nfe} "
               f"naccept={naccept} nreject={nlive - naccept} success={out.success} "
               f"wall_s={wall!r} launches={json.dumps(launches)}")
         _check(torch.isfinite(loss).item(), f"finite loss, got {loss.item()}")
@@ -759,14 +787,313 @@ def phase_latent_slice(device, batches, saveat):
         _check(torch.isfinite(out.result).all().item(), "finite result")
     moved = max((p.detach() - b).abs().max().item()
                 for p, b in zip(model.parameters(), before))
-    print(f"[latent] trial steps={trial_steps} launches={json.dumps(launches)} "
-          f"max parameter change={moved!r}")
+    print(f"[latent] fused={fused!r} trial steps={trial_steps} "
+          f"launches={json.dumps(launches)} max parameter change={moved!r}")
     _check(moved > 0.0, "the parameters moved")
-    want = dict(altmlp_tsit5_fwd=trial_steps, altmlp_tsit5_bwd=trial_steps,
-                normed_tsit5_fwd=0, normed_tsit5_bwd=0, whole_solve_fwd=0,
-                whole_solve_bwd=0)
+    want = {k: 0 for k in launches}
+    if fused == "step":
+        want.update(altmlp_tsit5_fwd=trial_steps, altmlp_tsit5_bwd=trial_steps)
+    else:
+        want.update(whole_solve_altmlp_fwd=len(batches), whole_solve_altmlp_bwd=len(batches))
     _check(launches == want, f"latent launches {launches}, expected {want}")
-    return launches
+    return launches, steps
+
+
+# ---------------------------------------------------------------------------
+# The latent ODE on the whole solve (phases 11-14).
+# ---------------------------------------------------------------------------
+
+
+def _k4_groups(g, n_leaf_groups, saves):
+    """K4's outputs as compared: the time scalars as one vector, ct_y0,
+    ct_f0, ct_ys_init (with ``saves``), and the leaves in ``n_leaf_groups``
+    groups (all leaves as one vector when 1)."""
+    import torch
+
+    head = [torch.stack(g[:3]), g[3], g[4]] + ([g[5]] if saves else [])
+    leaves = list(g[6:])
+    if n_leaf_groups == 1:
+        return head + [torch.cat([x.flatten() for x in leaves])]
+    return head + leaves
+
+
+def _check_steps_against_k7(tag, rec, ns, args):
+    """Each of K3's stored trial steps (AlternatingMLP) against K7 on its
+    own stored inputs: the norm sums and rows bitwise equal, and the stored
+    controller updates bitwise equal to ``ode._post`` on the card."""
+    import torch
+
+    from regneuralde_tpu_torch.ops import fused_generic as fg
+    from regneuralde_tpu_torch.ops import ode
+    from regneuralde_tpu_torch.ops import whole_solve as ws
+
+    t0, t1, _, y0, _, leaves, tol, _, ctrl, _ = args
+    st = rec.streams
+    tdir, span = torch.sign(t1 - t0), torch.abs(t1 - t0)
+    count = float(y0.numel())
+    same = ctrl_same = True
+    for i in range(ns):
+        t, dt, qold = st[ws.ST_T, i], st[ws.ST_DT, i], st[ws.ST_QOLD, i]
+        remaining = t1 - t
+        is_last = (dt - remaining) * tdir >= 0
+        dt_eff = torch.where(is_last, remaining, dt)
+        res = fg.altmlp_normed_sweep(t, dt_eff, rec.hy[i], rec.hf[i], leaves, tol, tol)
+        sums = torch.stack(res[2:])
+        same &= torch.equal(sums, st[ws.ST_E:ws.ST_ACC, i])
+        if st[ws.ST_ACC, i] > 0.5:
+            same &= torch.equal(res.y_new, rec.hy[i + 1])
+            same &= torch.equal(res.k_last, rec.hf[i + 1])
+        post = ode._post(ctrl, count, t, dt_eff, qold, *sums, t1, span, is_last)
+        want = [post[3], dt_eff, post[4], post[5]]
+        got = [st[j, i] for j in (ws.TEL_T, ws.TEL_DT, ws.TEL_EEST, ws.TEL_EIGEN)]
+        if i + 1 < ns:
+            want += list(post[:3])
+            got += [st[ws.ST_T, i + 1], st[ws.ST_DT, i + 1], st[ws.ST_QOLD, i + 1]]
+        ctrl_same &= all(torch.equal(a.reshape(()), b.reshape(())) for a, b in zip(got, want))
+    print(f"[{tag}] {ns} stored trial steps against K7 on their inputs: norm sums and "
+          f"rows bitwise equal {same}; controller bitwise equal to ode._post {ctrl_same}")
+    _check(same, f"{tag}: K3's norm sums and rows equal K7's")
+    _check(ctrl_same, f"{tag}: K3's controller equals ode._post on the card")
+
+
+def _whole_solve_vs_plain(tag, dynamics, leaves, y0, func, saveat, tol, max_steps, *,
+                          gen, fwd_bound, n_leaf_groups, check_steps, k4_plain,
+                          f0_plain=()):
+    """K3/K4 of ``dynamics`` (with ``saveat``, or None) against their plain
+    versions at rtol=atol=``tol``; the cotangents drawn from ``gen``.
+
+    The forward: the same step counts, accept sequence and save cursors,
+    y1 and ys within ``fwd_bound`` (relative), and ``check_steps(tag,
+    record, trial steps, arguments)`` on the stored trial steps.
+
+    The backward, over K3's record, against its float32 plain version and
+    a float64 plain walk, seeded with a cotangent of y1, then of y1 and ys,
+    then of these and the telemetry. Every output is held to 3 times the
+    float32 plain version's distance from float64, plus 1e-5, and every
+    output but ct_f0 to ``k4_plain[seeds]`` of the plain version. With the
+    seeds in ``f0_plain``, ct_f0 is held to BWD_BOUND of the plain version
+    instead of to float64. There ct_f0 carries the error estimate's
+    cotangent, the controller's pullback of the cotangent of dt that
+    reaches it; that cotangent is the residual of the cotangents of t and
+    of a step's dt_eff (about -38.39 and +38.39 at phase 11's solve), a few
+    float32 ulps. Two float32 walks sum them in different orders, so their
+    ct_f0 lie from float64 by amounts that are a matter of rounding: 2.5e-6
+    and 3.1e-4 for the plain version and K4 on the H100, 5.7e-4 for the
+    plain version on the CPU, for phase 11 at 1e-5
+    (``tools/torch_k4_trace.py``).
+    Both kernels bitwise deterministic. Returns the record, its trial
+    steps, the max abs errors of K3 over y1 and ys and of K4 with the row
+    cotangents only, the arguments and keywords of the solve, and the
+    cotangents ``(ct_y1, ct_ys, ct_tel)``."""
+    import torch
+
+    from regneuralde_tpu_torch.ops import ode
+    from regneuralde_tpu_torch.ops import whole_solve as ws
+    from regneuralde_tpu_torch.ops.controller import PIController
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(y0.device)
+
+    saves = saveat is not None
+    ctrl = PIController.for_order(5)
+    t0, t1, f0, dt0 = ode.solve_prologue(func, y0, 0.0, 1.0, tuple(leaves), tol, tol)
+    args = (t0, t1, dt0, y0, f0, leaves, tol, tol, ctrl, max_steps)
+    kw = dict(dynamics=dynamics)
+    if saves:
+        sa, ys_init = ode.saveat_rows(saveat, t0, t1, y0)
+        kw.update(saveat=sa, ys_init=ys_init)
+    rk = ws.whole_solve_fwd(*args, **kw)
+    rp = ws.plain_whole_solve_fwd(*args, **kw)
+    torch.cuda.synchronize()
+    counts_k, counts_p = rk.final[3:].tolist(), rp.final[3:].tolist()
+    ns = int(counts_k[0] + counts_k[1])
+    errs = {"y1": _rel(rk.y1, rp.y1), **({"ys": _rel(rk.ys, rp.ys)} if saves else {})}
+    cursors = (f"cursors kernel={rk.cursors.tolist()} plain={rp.cursors.tolist()}; "
+               if saves else "")
+    print(f"[{tag}] tol={tol:g} (naccept, nreject, done) kernel={counts_k} plain={counts_p}; "
+          f"{cursors}rel err {json.dumps(errs)}")
+    _check(counts_k == counts_p, f"{tag}: K3 takes the plain version's step counts")
+    _check(counts_k[2] == 1.0, f"{tag}: the solve reached t1")
+    _check(torch.equal(rk.streams[ws.ST_ACC], rp.streams[ws.ST_ACC]),
+           f"{tag}: the same accept sequence")
+    _check(all(v <= fwd_bound for v in errs.values()), f"{tag}: K3 y1, ys {errs}")
+    cur0 = curf = 0
+    if saves:
+        _check(torch.equal(rk.cursors, rp.cursors), f"{tag}: the same save cursors")
+        cur0, curf = rk.cursors.tolist()
+        _check(curf == sa.shape[0], f"{tag}: every save row was written")
+        _check(torch.equal(rk.ys[:cur0], ys_init[:cur0]), f"{tag}: rows at t0 keep y0")
+    abs_f = max((a - b).abs().max().item()
+                for a, b in ((rk.y1, rp.y1), (rk.ys, rp.ys)) if a.numel())
+    if check_steps is not None:
+        check_steps(tag, rk, ns, args)
+
+    ct_y1 = rnd(*y0.shape)
+    ct_ys = rnd(*rk.ys.shape) if saves else None
+    ct_tel = rnd(4, max_steps, scale=0.1).contiguous()
+    d = lambda x: x.double()
+    rec64 = ws.SolveRecord(*map(d, rk))
+    names = ["ct_t0|ct_t1|ct_dt0", "ct_y0", "ct_f0"] + (["ct_ys_init"] if saves else []) + (
+        ["leaves"] if n_leaf_groups == 1 else [f"c_leaf{j}" for j in range(len(leaves))])
+    bkw = dict(dynamics=dynamics, saveat=kw.get("saveat"))
+    bkw64 = dict(dynamics=dynamics, saveat=d(sa) if saves else None)
+    seed_sets = ("y1", "y1+ys", "y1+ys+telemetry") if saves else ("y1", "y1+telemetry")
+    for seeds in seed_sets:
+        tel = ct_tel if seeds.endswith("telemetry") else torch.zeros_like(ct_tel)
+        cys = None if not saves else (ct_ys if "ys" in seeds else torch.zeros_like(ct_ys))
+        gk = ws.whole_solve_bwd(rk, ns, ct_y1, tel, t0, t1, leaves, tol, tol, ctrl,
+                                ct_ys=cys, **bkw)
+        gp = ws.plain_whole_solve_bwd(rk, ns, ct_y1, tel, t0, t1, leaves, tol, tol, ctrl,
+                                      ct_ys=cys, **bkw)
+        g64 = ws.plain_whole_solve_bwd(rec64, ns, d(ct_y1), d(tel), d(t0), d(t1),
+                                       [d(x) for x in leaves], tol, tol, ctrl,
+                                       ct_ys=None if cys is None else d(cys), **bkw64)
+        torch.cuda.synchronize()
+        groups = [_k4_groups(g, n_leaf_groups, saves) for g in (gk, gp, g64)]
+        errs = {n: (_rel(a, b), _rel(a, c), _rel(b, c)) for n, a, b, c in zip(names, *groups)}
+        print(f"[{tag}] K4 cotangents of {seeds}: rel err (kernel vs plain, kernel vs "
+              f"float64, plain vs float64) " + json.dumps(errs))
+        for n, (k_p, k_64, p_64) in errs.items():
+            _check(k_p == k_p and k_64 == k_64, f"{tag} K4 {n}: no NaN")
+            if n == "ct_f0" and seeds in f0_plain:
+                _check(k_p <= BWD_BOUND, f"{tag} K4 {n} of {seeds}: {errs[n]}")
+            else:
+                _check(k_64 <= 3 * p_64 + 1e-5, f"{tag} K4 {n} of {seeds}: {errs[n]}")
+            if n != "ct_f0":
+                _check(k_p <= k4_plain[seeds], f"{tag} K4 {n} of {seeds}: {errs[n]}")
+        if saves:
+            _check(torch.equal(gk[5][cur0:curf], torch.zeros_like(gk[5][cur0:curf]))
+                   and torch.equal(gk[5][:cur0], cys[:cur0]),
+                   f"{tag} K4: the written rows' cotangent is consumed, the others pass")
+        if not seeds.endswith("telemetry"):  # the last seeds of rows only
+            abs_b = max((a - b).abs().max().item() for a, b in zip(groups[0][1:], groups[1][1:]))
+    again = ws.whole_solve_bwd(rk, ns, ct_y1, ct_tel, t0, t1, leaves, tol, tol, ctrl,
+                               ct_ys=ct_ys, **bkw)
+    first = ws.whole_solve_bwd(rk, ns, ct_y1, ct_tel, t0, t1, leaves, tol, tol, ctrl,
+                               ct_ys=ct_ys, **bkw)
+    rk2 = ws.whole_solve_fwd(*args, **kw)
+    _check(all(torch.equal(a, b) for a, b in zip(again, first)), f"{tag}: K4 is deterministic")
+    _check(all(torch.equal(getattr(rk, n), getattr(rk2, n))
+               for n in ("y1", "streams", "final", "ys", "cursors"))
+           and torch.equal(rk.hy[:ns + 1], rk2.hy[:ns + 1])
+           and torch.equal(rk.hf[:ns + 1], rk2.hf[:ns + 1]), f"{tag}: K3 is deterministic")
+    print(f"[{tag}] max abs err: K3 (y1, ys) {abs_f!r}, K4 (row cotangents) {abs_b!r}")
+    return rk, ns, abs_f, abs_b, args, kw, (ct_y1, ct_ys, ct_tel)
+
+
+def phase_whole_solve_altmlp_kernels(device, saveat):
+    """K3/K4 for AlternatingMLP with the latent cell's 49 saves against
+    their plain versions at 256x20x50x4, seeded random weights and y0, at
+    rtol=atol=1e-5 and 1.4e-8 (``_whole_solve_vs_plain``): y1 and ys within
+    1e-6, K3's steps against K7 (``_check_steps_against_k7``), K4 within
+    BWD_BOUND of its plain version with the rows' cotangents and within
+    TEL_BWD_BOUND with the telemetry's (every output but ct_f0); ct_f0
+    with the cotangent of y1 alone within BWD_BOUND of the plain version.
+    CUDA-event times of both kernels at 1.4e-8."""
+    import torch
+
+    from regneuralde_tpu_torch.ops import fused_generic as fg
+    from regneuralde_tpu_torch.ops import whole_solve as ws
+
+    gen = torch.Generator().manual_seed(SEED + 4)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(device)
+
+    B, D, H = LATENT_BATCH, LATENT_DIM, LATENT_HIDDEN
+    leaves = []
+    for _ in range(LATENT_DEPTH):
+        leaves += [rnd(H, D, scale=D ** -0.5), rnd(H, scale=0.1),
+                   rnd(D, H, scale=H ** -0.5), rnd(D, scale=0.1)]
+    y0 = rnd(B, D, scale=0.8)
+    func = fg.alternating_mlp_apply(LATENT_DEPTH)
+    for tol in (1e-5, FLAGSHIP_TOL):
+        rec, ns, abs_f, abs_b, args, kw, (ct_y1, ct_ys, ct_tel) = _whole_solve_vs_plain(
+            "whole-altmlp", "altmlp", leaves, y0, func, saveat, tol, LATENT_MAX_STEPS,
+            gen=torch.Generator().manual_seed(SEED + 5), fwd_bound=1e-6, n_leaf_groups=1,
+            check_steps=_check_steps_against_k7,
+            k4_plain={"y1": BWD_BOUND, "y1+ys": BWD_BOUND, "y1+ys+telemetry": TEL_BWD_BOUND},
+            f0_plain=("y1",))
+    sa = kw["saveat"]
+    bwd = (rec, ns, ct_y1, ct_tel, args[0], args[1], leaves, FLAGSHIP_TOL, FLAGSHIP_TOL,
+           args[8])
+    bkw = dict(dynamics="altmlp", saveat=sa, ct_ys=ct_ys)
+    times = {
+        "fwd_kernel": _time_ms(lambda: ws.whole_solve_fwd(*args, **kw)),
+        "fwd_plain": _time_ms(lambda: ws.plain_whole_solve_fwd(*args, **kw)),
+        "bwd_kernel": _time_ms(lambda: ws.whole_solve_bwd(*bwd, **bkw)),
+        "bwd_plain": _time_ms(lambda: ws.plain_whole_solve_bwd(*bwd, **bkw)),
+    }
+    print("[whole-altmlp] median ms over %d runs at %dx%dx%dx%d, %d saves, tol %g, "
+          "%d trial steps: %s" % (REPS, B, D, H, LATENT_DEPTH, sa.shape[0], FLAGSHIP_TOL,
+                                  ns, json.dumps(times)))
+    f_ops, b_ops, leaf = _altmlp_work(B, D, H, LATENT_DEPTH)
+    nbytes = _solve_bytes(B * D, leaf, ns, sa.shape[0], LATENT_MAX_STEPS)
+    return {
+        "whole_solve_altmlp_fwd": dict(
+            replaces="regneuralde_tpu/ops/pallas_solve.py:357",
+            max_abs_err=abs_f, ms=times["fwd_kernel"], plain_ms=times["fwd_plain"],
+            **_bound(nbytes[0], ns * f_ops)),
+        "whole_solve_altmlp_bwd": dict(
+            replaces="regneuralde_tpu/ops/pallas_solve.py:559",
+            max_abs_err=abs_b, ms=times["bwd_kernel"], plain_ms=times["bwd_plain"],
+            **_bound(nbytes[1], ns * b_ops)),
+    }
+
+
+def phase_whole_solve_mlp_saveat(device):
+    """The MLPDynamics whole solve with 5 saves (t0 among them) against its
+    plain version at 64x40x24, rtol=atol=1e-4: the save cursor on the other
+    instantiation (``_whole_solve_vs_plain``, y1 and ys within FWD_BOUND,
+    each leaf compared on its own). The weights are drawn at three times
+    LeCun's scale, which lifts the error estimate (5e-3 to 4e-2 a step)
+    well above its float32 rounding floor: the saves' and the telemetry's
+    cotangents reach it through the controller, and at LeCun's scale the
+    float32 plain version itself then lies 1e-3 to 3 from float64. So K4 is
+    held to BWD_BOUND of its plain version with every seed, and ct_f0 to
+    float64 with every seed."""
+    import torch
+
+    from regneuralde_tpu_torch.ops import fused_mlp as fm
+
+    gen = torch.Generator().manual_seed(SEED + 6)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(device)
+
+    B, D, H = 64, 40, 24
+    leaves = [rnd(H, D + 1, scale=3 * (D + 1) ** -0.5), rnd(H, scale=0.1),
+              rnd(D, H + 1, scale=3 * (H + 1) ** -0.5), rnd(D, scale=0.1)]
+    y0 = torch.rand(B, D, generator=gen).to(device)
+    parts = fm._split_params(*leaves)
+    func = lambda t, y, _: fm._mlp_k(y, t, parts)[0]
+    saveat = torch.tensor([0.0, 0.25, 0.5, 0.75, 1.0], device=device)
+    _whole_solve_vs_plain("whole-mlp-saveat", "mlp", leaves, y0, func, saveat, 1e-4,
+                          MAX_STEPS, gen=torch.Generator().manual_seed(SEED + 5),
+                          fwd_bound=FWD_BOUND, n_leaf_groups=4, check_steps=None,
+                          k4_plain=dict.fromkeys(("y1", "y1+ys", "y1+ys+telemetry"),
+                                                 BWD_BOUND))
+
+
+def phase_same_steps_as_step_route(device, batches, saveat, steps):
+    """The fused=True run's three steps against fused="step" on the same
+    weights and batches: each step's forward on the step kernels (``"while"``
+    mode, K7 only) takes the same NFE and accept sequence."""
+    import torch
+
+    for i, (batch, rec) in enumerate(zip(batches, steps)):
+        model, _ = build_latent(FLAGSHIP_TOL, "step", device, saveat)
+        model.init(latent_inputs(*batch[:3]))
+        model.load_state_dict(rec["weights"])
+        d, m, tp, eps = batch
+        with torch.no_grad():
+            out = model(latent_inputs(d, m, tp), eps=eps, mode="while")
+        tel = out.telemetry
+        acc = tel.accepted[tel.live].tolist()
+        print(f"[latent-same-steps] step {i}: nfe fused=True {rec['nfe']}, "
+              f"fused='step' {out.nfe}; accept sequences equal {acc == rec['accepted']}")
+        _check(out.nfe == rec["nfe"] and acc == rec["accepted"],
+               f"step {i}: fused=True and fused='step' take the same steps")
 
 
 def main():
@@ -801,19 +1128,31 @@ def main():
 
     kernels.update(phase_altmlp_kernels(device))
     lbatches, saveat = latent_batches(3, device)
-    phase_latent_kernel_vs_plain_step(device, lbatches[0], saveat)
-    latent = phase_latent_slice(device, lbatches, saveat)
+    phase_latent_kernel_vs_plain_step(device, lbatches[0], saveat, "step")
+    latent, step_route = phase_latent_slice(device, lbatches, saveat, "step")
     launches.update({k: latent[k] for k in ("altmlp_tsit5_fwd", "altmlp_tsit5_bwd")})
 
+    kernels.update(phase_whole_solve_altmlp_kernels(device, saveat))
+    phase_whole_solve_mlp_saveat(device)
+    phase_latent_kernel_vs_plain_step(device, lbatches[0], saveat, True)
+    latent, whole_route = phase_latent_slice(device, lbatches, saveat, True)
+    launches.update({k: latent[k] for k in ("whole_solve_altmlp_fwd",
+                                            "whole_solve_altmlp_bwd")})
+    phase_same_steps_as_step_route(device, lbatches, saveat, whole_route)
+    print("[latent] NFE of the three training steps: fused='step' %s, fused=True %s"
+          % ([r["nfe"] for r in step_route], [r["nfe"] for r in whole_route]))
+
     sources = {"normed_tsit5_fwd": "normed_tsit5.cu", "normed_tsit5_bwd": "normed_tsit5.cu",
-               "whole_solve_fwd": "whole_solve.cu", "whole_solve_bwd": "whole_solve.cu",
                "altmlp_tsit5_fwd": "altmlp_tsit5.cu", "altmlp_tsit5_bwd": "altmlp_tsit5.cu"}
     record = {"kernels": [
         {"name": name, "route": "cuda",
-         "source": "regneuralde_tpu_torch/csrc/" + sources[name],
+         "source": "regneuralde_tpu_torch/csrc/" + sources.get(name, "whole_solve.cu"),
          "replaces": info["replaces"], "launches": launches[name],
          "max_abs_err": info["max_abs_err"], "ms": info["ms"],
-         "plain_ms": info["plain_ms"]}
+         "plain_ms": info["plain_ms"], "bound_ms": info["bound_ms"],
+         "bound_by": info["bound_by"],
+         # no single PyTorch call computes a Tsit5 trial step or a whole solve
+         "library_ms": None}
         for name, info in kernels.items()]}
     print(smi)
     print(json.dumps(record))

@@ -1,5 +1,7 @@
-// The whole adaptive Tsit5 solve of MLPDynamics on Hopper: one persistent
-// cooperative kernel for the forward (K3) and one for the reverse walk (K4).
+// The whole adaptive Tsit5 solve on Hopper: one persistent cooperative
+// kernel for the forward (K3) and one for the reverse walk (K4), generic
+// over the dynamics' per-tile trial-step body: MLPDynamics (K1's and K2's,
+// normed_tsit5.cuh) or AlternatingMLP (K7's and K8's, altmlp_tsit5.cuh).
 //
 // Replaces the TPU kernels
 //   K3: regneuralde_tpu/ops/pallas_solve.py  make_whole_solve.make_fwd_kernel
@@ -9,39 +11,51 @@
 // The TPU has two engines because its monolithic one keeps the whole
 // batch's stage stacks in VMEM and the tiled one does not. Here the batch
 // is always tiled across blocks, so one pair serves fused=True, "solve"
-// and "tiled".
+// and "tiled", with or without saveat.
 //
-// What bounds it on this card. Each trial step is K1's (forward) or K2's
-// (backward) work, latency-bound (see normed_tsit5.cu), plus one
-// grid-wide decision: the accept flag and the next dt hang on three norm
-// sums over the whole batch. What the solve saves against one launch per
-// trial step is the host: no launch, no flag read back, no scalar chain on
-// the host between trial steps.
+// What bounds it on this card. Each trial step is the step kernel's
+// (forward) or its reverse's (backward) work, latency-bound (see
+// normed_tsit5.cu and altmlp_tsit5.cu), plus one grid-wide decision: the
+// accept flag and the next dt hang on three norm sums over the whole
+// batch. What the solve saves against one launch per trial step is the
+// host: no launch, no flag read back, no scalar chain and no Hermite
+// write or pullback on the host between trial steps.
 //
 // What the design does about it.
 //   * Each block owns the same row tiles (tile = blockIdx.x + k*gridDim.x)
-//     for the whole solve and runs K1's/K2's per-tile body on them. The
+//     for the whole solve and runs the dynamics' per-tile body on them. The
 //     carry lives in global memory, in the history itself: hy[i], hf[i] is
 //     the state at the start of trial step i, the tile body writes its
 //     y_new, k7 into hy[i+1], hf[i+1], and a rejected step copies row i
 //     over them. Only a tile's owner touches its rows.
 //   * Per trial step each tile writes its partial sums to a per-tile slot,
 //     then grid.sync(). Every block then sums the slots in tile order (one
-//     warp, lane-strided, shuffle tree) and runs the controller in one
-//     thread, redundantly: every block takes the same decision with no
-//     second barrier. The slots are double-buffered by step parity, so a
-//     fast block's step i+1 never overwrites slots a slow block still reads.
+//     warp, lane-strided, shuffle tree: the order of the step kernels'
+//     sum_slots_warp_kernel, so the sums equal the step route's bitwise)
+//     and runs the controller in one thread, redundantly: every block
+//     takes the same decision with no second barrier. The controller
+//     rounds as ops/ode.py _post does on the card. The slots are double-
+//     buffered by step parity, so a fast block's step i+1 never overwrites
+//     slots a slow block still reads.
+//   * saveat: every block keeps the save cursor in shared memory,
+//     redundantly. An accepted step writes each save time in (t, t_end]
+//     by cubic Hermite interpolation, each tile its own rows, each multiply
+//     and add rounded as the ATen ops of ops/ode.py _interp. The reverse
+//     walk hands each row's cotangent to the step that wrote it.
 //   * The backward reads the stored accept flags and norm sums, and pulls
 //     cotangents back through the scalar chain with post_bwd, the hand
-//     pullback of ops/ode.py post_bwd. Each trial step's weight-cotangent
-//     rows are stored (about 22 MB a step at 512x784x100) and summed after
-//     the walk by one fixed-order contraction over all 6*B*ns rows.
+//     pullback of ops/ode.py post_bwd. Scalar cotangents are per-tile slots
+//     summed in tile order. MLPDynamics' weight-cotangent rows of each trial
+//     step are stored (about 22 MB a step at 512x784x100) and summed after
+//     the walk by one fixed-order contraction; AlternatingMLP's block keeps
+//     its tiles' weight cotangents in shared memory for the whole walk, and
+//     one pass sums the blocks' slots in block order.
 // No floating-point atomics, no TF32, no fast math: runs are bitwise
 // reproducible. powf is the libdevice powf, as ATen's float pow.
 
 #include <cooperative_groups.h>
 
-#include "normed_tsit5.cuh"
+#include "altmlp_tsit5.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -62,25 +76,32 @@ struct Post {
   bool accept;
 };
 
-// The scalar chain of one trial step (ops/ode.py _post).
+// The scalar chain of one trial step (ops/ode.py _post), rounded as ATen
+// runs it on 0-d CUDA tensors: a tensor divided by a Python float is
+// multiplied by the float reciprocal (e / count, q / gamma), a tensor by a
+// tensor divided; pow is powf.
 __device__ Post post_fwd(const Ctrl& c, float count, float t, float dt_eff,
                          float qold, float e, float n, float d, float t1,
                          float span, bool is_last) {
   Post p;
-  p.eest = e > 0.0f ? sqrtf(e / count) : 0.0f;
+  const float inv_count = __fdiv_rn(1.0f, count);
+  const float inv_gamma = __fdiv_rn(1.0f, c.gamma);
+  p.eest = e > 0.0f ? sqrtf(__fmul_rn(e, inv_count)) : 0.0f;
   const float num = n > 0.0f ? sqrtf(n) : 0.0f;
   const float den = d > 0.0f ? sqrtf(d) : 0.0f;
-  p.eigen = den > 0.0f ? num / fmaxf(den, 1e-30f) : 0.0f;
+  p.eigen = den > 0.0f ? __fdiv_rn(num, fmaxf(den, 1e-30f)) : 0.0f;
   p.accept = p.eest <= 1.0f;
   const float q11 = powf(fmaxf(p.eest, kEestFloor), c.beta1);
-  const float q = q11 / powf(qold, c.beta2);
-  float qa = fminf(fmaxf(q / c.gamma, 1.0f / c.qmax), 1.0f / c.qmin);
+  const float q = __fdiv_rn(q11, powf(qold, c.beta2));
+  float qa = fminf(fmaxf(__fmul_rn(q, inv_gamma), __fdiv_rn(1.0f, c.qmax)),
+                   __fdiv_rn(1.0f, c.qmin));
   if (c.qsteady_max > 1.0f && qa >= 1.0f && qa <= c.qsteady_max) qa = 1.0f;
-  const float dt0 = p.accept ? dt_eff / qa
-                             : dt_eff / fminf(1.0f / c.qmin, q11 / c.gamma);
+  const float dt0 = p.accept
+      ? __fdiv_rn(dt_eff, qa)
+      : __fdiv_rn(dt_eff, fminf(__fdiv_rn(1.0f, c.qmin), __fmul_rn(q11, inv_gamma)));
   p.qold_next = p.accept ? fmaxf(p.eest, c.qoldinit) : qold;
-  p.dt_next = sign_of(dt0) * fminf(fabsf(dt0), span);
-  p.t_end = is_last ? t1 : t + dt_eff;
+  p.dt_next = __fmul_rn(sign_of(dt0), fminf(fabsf(dt0), span));
+  p.t_end = is_last ? t1 : __fadd_rn(t, dt_eff);
   p.t_new = p.accept ? p.t_end : t;
   return p;
 }
@@ -190,38 +211,204 @@ __device__ void copy_rows(const float* src, float* dst, int row0, int rows,
   }
 }
 
+// The saveat rows of a solve: n save times sa, monotone in the direction
+// of time; cursors[0] rows lie at or before t0 and hold y0 already (the
+// caller's ys_init), the forward writes cursors[1], the first row it did
+// not reach.
+struct Saves {
+  const float* sa;
+  int* cursors;
+  float* ys;  // (n, B, D)
+  int n;
+};
+
+// The rows [lo, hi) of ys for batch rows [row0, row0 + rows): cubic
+// Hermite interpolation on the accepted step from (t, yi, fi) over dt_eff
+// to (yn, kn), each multiply and add rounded as the ATen ops of
+// ops/ode.py _interp and _hermite_eval (the step route's writer).
+__device__ void hermite_rows(const Saves& sv, int lo, int hi, float t,
+                             float dt_eff, const float* yi, const float* fi,
+                             const float* yn, const float* kn, int row0,
+                             int rows, int D, size_t BD) {
+  const float hd = dt_eff == 0.0f ? 1.0f : dt_eff;
+  for (int r = lo; r < hi; ++r) {
+    const float th = __fdiv_rn(__fsub_rn(sv.sa[r], t), hd);
+    const float a0 = __fsub_rn(1.0f, th);
+    const float thm1 = __fsub_rn(th, 1.0f);
+    const float P = __fmul_rn(th, thm1);
+    const float c = __fsub_rn(1.0f, __fmul_rn(2.0f, th));
+    const float thm1_h = __fmul_rn(thm1, dt_eff);
+    const float th_h = __fmul_rn(th, dt_eff);
+    float* out = sv.ys + (size_t)r * BD;
+    for (int idx = threadIdx.x; idx < rows * D; idx += kThreads) {
+      const size_t g = (size_t)row0 * D + idx;
+      const float y0 = __ldcg(yi + g), y1 = __ldcg(yn + g);
+      const float f0 = __ldcg(fi + g), f1 = __ldcg(kn + g);
+      const float dy = __fsub_rn(y1, y0);
+      const float lin = __fadd_rn(__fmul_rn(a0, y0), __fmul_rn(th, y1));
+      const float q = __fadd_rn(__fadd_rn(__fmul_rn(c, dy), __fmul_rn(thm1_h, f0)),
+                                __fmul_rn(th_h, f1));
+      out[g] = __fadd_rn(lin, __fmul_rn(P, q));
+    }
+  }
+}
+
+// The pullback of hermite_rows for rows [lo, hi) with their cotangents
+// ct_ys: per element the cotangents of y_i and f0_i (written to hdy, hdf)
+// and of y_new and k7 (added to ct_y, ct_f, where the trial step's
+// pullback takes them as seeds); the tile's sums of the cotangents of t
+// and dt_eff to part_out. red: 2 * kWarps floats of shared memory.
+__device__ void hermite_pullback(const float* sa, const float* ct_ys, int lo,
+                                 int hi, float t, float dt_eff, const float* yi,
+                                 const float* fi, const float* yn,
+                                 const float* kn, float* ct_y, float* ct_f,
+                                 float* hdy, float* hdf, float* part_out,
+                                 float* red, int row0, int rows, int D,
+                                 size_t BD) {
+  const bool h0 = dt_eff == 0.0f;
+  const float hd = h0 ? 1.0f : dt_eff;
+  float part[2] = {0.0f, 0.0f};  // ct_t, ct_dt_eff
+  for (int idx = threadIdx.x; idx < rows * D; idx += kThreads) {
+    const size_t g = (size_t)row0 * D + idx;
+    const float y0 = __ldcg(yi + g), y1 = __ldcg(yn + g);
+    const float f0 = __ldcg(fi + g), f1 = __ldcg(kn + g);
+    const float dy = y1 - y0;
+    float c_y0 = 0.0f, c_y1 = 0.0f, c_f0 = 0.0f, c_f1 = 0.0f;
+    for (int r = lo; r < hi; ++r) {
+      const float th = (sa[r] - t) / hd;
+      const float P = th * (th - 1.0f);
+      const float c = 1.0f - 2.0f * th;
+      const float gr = __ldcg(ct_ys + (size_t)r * BD + g);
+      c_y0 += gr * ((1.0f - th) - P * c);
+      c_y1 += gr * (th + P * c);
+      c_f0 += gr * (P * (th - 1.0f) * dt_eff);
+      c_f1 += gr * (P * th * dt_eff);
+      const float q = c * dy + (th - 1.0f) * dt_eff * f0 + th * dt_eff * f1;
+      const float dth = dy + (2.0f * th - 1.0f) * q + P * (dt_eff * (f0 + f1) - 2.0f * dy);
+      const float ct_th = gr * dth;
+      // theta = (sa - t) / dt_eff (over 1 where dt_eff is 0)
+      part[0] -= ct_th / hd;
+      part[1] += gr * P * ((th - 1.0f) * f0 + th * f1) - (h0 ? 0.0f : ct_th * th / hd);
+    }
+    ct_y[g] = __ldcg(ct_y + g) + c_y1;
+    ct_f[g] = __ldcg(ct_f + g) + c_f1;
+    hdy[g] = c_y0;
+    hdf[g] = c_f0;
+  }
+  block_sum_to<2>(part, red, part_out);
+}
+
+// MLPDynamics: K1's and K2's tile bodies over the leaves (W1, b1, W2, b2),
+// read through L2. The backward stores each trial step's weight-cotangent
+// rows (cp2, he, cp1, ye; 6 B rows a step) for one contraction after the
+// walk.
+struct MlpDyn {
+  static constexpr int kFwdR = kFwdRows, kBwdR = kBwdRows;
+  const float *W1, *b1, *W2, *b2;
+  float *cp2, *he, *cp1, *ye;
+  int H;
+
+  __device__ void setup_fwd(float*, int) const {}
+  __device__ void fwd(const float* y, const float* k1, int row0, int rows,
+                      float t, float dt, float* yn, float* kn, float* sums,
+                      int D, float rtol, float atol, float* smem) const {
+    normed_fwd_tile(y, k1, row0, rows, t, dt, W1, b1, W2, b2, yn, kn, sums, D,
+                    H, rtol, atol, smem);
+  }
+  __device__ void setup_bwd(float*, int) const {}
+  __device__ void bwd(const float* y, const float* k1, int row0, int rows,
+                      int i, int B, float t, float dt, const float* ct_ynew,
+                      const float* ct_k7, const float* pass_y,
+                      const float* pass_k1, float c_err, float c_num,
+                      float c_den, float* ct_y, float* ct_k1, float* part,
+                      int D, float rtol, float atol, float* smem) const {
+    const size_t base = (size_t)i * 6 * B;  // this step's weight rows
+    normed_bwd_tile(y, k1, row0, rows, B, t, dt, W1, b1, W2, b2, ct_ynew,
+                    ct_k7, pass_y, pass_k1, c_err, c_num, c_den, ct_y, ct_k1,
+                    part, cp2 + base * D, he + base * (H + 2),
+                    cp1 + base * H, ye + base * (D + 2), D, H, rtol, atol,
+                    smem);
+  }
+  __device__ void finish_bwd(float*, int) const {}
+};
+
+// AlternatingMLP: K7's and K8's tile bodies, the padded leaves in shared
+// memory for the whole solve. The backward accumulates its tiles' weight
+// cotangents in shared memory over the whole walk and writes them to
+// slots[blockIdx.x] at the end.
+struct AltDyn {
+  static constexpr int kFwdR = kAltRows, kBwdR = kAltRows;
+  AltLeaves lv;
+  float* slots;  // (grid, leaf_floats)
+  int depth, H;
+
+  __device__ void setup_fwd(float* smem, int D) const {
+    load_weights(lv, depth, D, H, smem);
+  }
+  __device__ void fwd(const float* y, const float* k1, int row0, int rows,
+                      float, float dt, float* yn, float* kn, float* sums,
+                      int D, float rtol, float atol, float* smem) const {
+    altmlp_fwd_tile(y, k1, row0, rows, dt, smem, depth, yn, kn, sums, D, H,
+                    rtol, atol, smem + padded_weight_floats(depth, D, H));
+  }
+  __device__ void setup_bwd(float* smem, int D) const {
+    load_weights(lv, depth, D, H, smem);
+    float* cw = smem + padded_weight_floats(depth, D, H);
+    for (int e = threadIdx.x; e < leaf_floats(depth, D, H); e += kThreads) cw[e] = 0.0f;
+  }
+  __device__ void bwd(const float* y, const float* k1, int row0, int rows, int,
+                      int, float, float dt, const float* ct_ynew,
+                      const float* ct_k7, const float* pass_y,
+                      const float* pass_k1, float c_err, float c_num,
+                      float c_den, float* ct_y, float* ct_k1, float* part,
+                      int D, float rtol, float atol, float* smem) const {
+    float* cw = smem + padded_weight_floats(depth, D, H);
+    altmlp_bwd_tile(y, k1, row0, rows, dt, smem, depth, cw, ct_ynew, ct_k7,
+                    pass_y, pass_k1, c_err, c_num, c_den, ct_y, ct_k1, part, D,
+                    H, rtol, atol, cw + leaf_floats(depth, D, H));
+  }
+  __device__ void finish_bwd(float* smem, int D) const {
+    const int nleaf = leaf_floats(depth, D, H);
+    const float* cw = smem + padded_weight_floats(depth, D, H);
+    float* slot = slots + (size_t)blockIdx.x * nleaf;
+    __syncthreads();
+    for (int e = threadIdx.x; e < nleaf; e += kThreads) slot[e] = cw[e];
+  }
+};
+
+template <class Dyn>
 struct FwdArgs {
   const float* scalars;  // t0, t1, dt0
   const float* y0;
   const float* f0;
-  const float* W1;
-  const float* b1;
-  const float* W2;
-  const float* b2;
+  Dyn dyn;
+  Saves sv;
   float* y1;
   float* hy;  // (S+1, B, D)
   float* hf;
   float* streams;  // (11, S), zero on entry
   float* final_;   // t, dt, qold, naccept, nreject, done
   float* partials;  // (2, ntiles, 3)
-  int B, D, H, S;
+  int B, D, S;
   float rtol, atol;
   Ctrl ctrl;
 };
 
 // K3: the whole forward solve.
-__global__ void __launch_bounds__(kThreads) whole_solve_fwd_kernel(FwdArgs a) {
+template <class Dyn>
+__global__ void __launch_bounds__(kThreads) whole_solve_fwd_kernel(FwdArgs<Dyn> a) {
   extern __shared__ float smem[];
   __shared__ float s_t, s_dt, s_qold;
-  __shared__ int s_na, s_nr, s_done, s_acc;
+  __shared__ int s_na, s_nr, s_done, s_acc, s_cur, s_lo, s_hi;
   cg::grid_group grid = cg::this_grid();
-  constexpr int R = kFwdRows;
+  constexpr int R = Dyn::kFwdR;
   const int ntiles = (a.B + R - 1) / R;
   const size_t BD = (size_t)a.B * a.D;
   const float t0 = a.scalars[0], t1 = a.scalars[1];
   const float tdir = sign_of(t1 - t0), span = fabsf(t1 - t0);
   const float count = (float)BD;
 
+  a.dyn.setup_fwd(smem, a.D);
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const int row0 = tile * R, rows = min(R, a.B - row0);
     copy_rows(a.y0, a.hy, row0, rows, a.D);
@@ -233,6 +420,8 @@ __global__ void __launch_bounds__(kThreads) whole_solve_fwd_kernel(FwdArgs a) {
     s_qold = a.ctrl.qoldinit;
     s_na = s_nr = 0;
     s_done = span == 0.0f;
+    s_cur = a.sv.n ? a.sv.cursors[0] : 0;
+    s_lo = s_hi = 0;
   }
   __syncthreads();
 
@@ -249,9 +438,8 @@ __global__ void __launch_bounds__(kThreads) whole_solve_fwd_kernel(FwdArgs a) {
     float* kn = a.hf + (size_t)(i + 1) * BD;
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
       const int row0 = tile * R;
-      normed_fwd_tile(yi, fi, row0, min(R, a.B - row0), t, dt_eff, a.W1, a.b1,
-                      a.W2, a.b2, yn, kn, part + 3 * tile, a.D, a.H, a.rtol,
-                      a.atol, smem);
+      a.dyn.fwd(yi, fi, row0, min(R, a.B - row0), t, dt_eff, yn, kn,
+                part + 3 * tile, a.D, a.rtol, a.atol, smem);
     }
     grid.sync();
     if (threadIdx.x < 32) {
@@ -275,6 +463,13 @@ __global__ void __launch_bounds__(kThreads) whole_solve_fwd_kernel(FwdArgs a) {
           st[TEL_EEST * S + i] = p.eest;
           st[TEL_EIGEN * S + i] = p.eigen;
         }
+        // the save cursor consumes every save time in (t, t_end]
+        int hi = s_cur;
+        if (p.accept)
+          while (hi < a.sv.n && (a.sv.sa[hi] - p.t_end) * tdir <= 0.0f) ++hi;
+        s_lo = s_cur;
+        s_hi = hi;
+        s_cur = hi;
         s_acc = p.accept;
         s_t = p.t_new;
         s_dt = p.dt_next;
@@ -284,11 +479,14 @@ __global__ void __launch_bounds__(kThreads) whole_solve_fwd_kernel(FwdArgs a) {
       }
     }
     __syncthreads();
-    if (!s_acc) {  // a rejected step keeps its start state
-      for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-        const int row0 = tile * R, rows = min(R, a.B - row0);
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const int row0 = tile * R, rows = min(R, a.B - row0);
+      if (!s_acc) {  // a rejected step keeps its start state
         copy_rows(yi, yn, row0, rows, a.D);
         copy_rows(fi, kn, row0, rows, a.D);
+      } else {
+        hermite_rows(a.sv, s_lo, s_hi, t, dt_eff, yi, fi, yn, kn, row0, rows,
+                     a.D, BD);
       }
     }
     __syncthreads();
@@ -306,49 +504,52 @@ __global__ void __launch_bounds__(kThreads) whole_solve_fwd_kernel(FwdArgs a) {
     a.final_[3] = (float)s_na;
     a.final_[4] = (float)s_nr;
     a.final_[5] = (float)s_done;
+    if (a.sv.n) a.sv.cursors[1] = s_cur;
   }
 }
 
+template <class Dyn>
 struct BwdArgs {
   const float* scalars;  // t0, t1
   const float* streams;  // (11, S), the forward's
   const float* hy;
   const float* hf;
-  const float* W1;
-  const float* b1;
-  const float* W2;
-  const float* b2;
+  Dyn dyn;
+  Saves sv;  // ys: in ct_ys, out the cotangent of ys_init
   const float* ct_tel;  // (4, S): t, dt, eest, eigen_est
   float* ct_y;  // in: ct_y1, out: ct_y0
   float* ct_f;  // in: 0, out: ct_f0
   float* ct_scalars;  // out: ct_t0, ct_t1, ct_dt0
-  float* partials;  // (2, ntiles, 2)
-  float* cp2;  // (6 B ns, D)
-  float* he;   // (6 B ns, H + 2)
-  float* cp1;  // (6 B ns, H)
-  float* ye;   // (6 B ns, D + 2)
-  int ns, B, D, H, S;
+  float* partials;  // (2, ntiles, 4): the trial step's, the pullback's (ct_t, ct_dt)
+  float* hdy;  // (B, D): the Hermite pullback's cotangents of y_i, f0_i
+  float* hdf;
+  int ns, B, D, S;
   float rtol, atol;
   Ctrl ctrl;
 };
 
 // K4: the reverse walk over the forward's ns trial steps.
-__global__ void __launch_bounds__(kThreads) whole_solve_bwd_kernel(BwdArgs a) {
+template <class Dyn>
+__global__ void __launch_bounds__(kThreads) whole_solve_bwd_kernel(BwdArgs<Dyn> a) {
   extern __shared__ float smem[];
   // running cotangents ct_t, ct_dt, ct_qold, of t1 and of span
   __shared__ float s_ct[5];
   __shared__ float s_ti, s_dteff;
-  __shared__ int s_last, s_acc;
+  __shared__ int s_last, s_acc, s_lo, s_hi, s_rcur;
   __shared__ PostGrads s_g;
+  __shared__ float s_red[2 * kWarps];
   cg::grid_group grid = cg::this_grid();
-  constexpr int R = kBwdRows;
+  constexpr int R = Dyn::kBwdR;
   const int ntiles = (a.B + R - 1) / R;
   const size_t BD = (size_t)a.B * a.D;
   const float t0 = a.scalars[0], t1 = a.scalars[1];
   const float tdir = sign_of(t1 - t0), span = fabsf(t1 - t0);
   const float count = (float)BD;
   const int S = a.S;
+  const int cur0 = a.sv.n ? a.sv.cursors[0] : 0;
+  a.dyn.setup_bwd(smem, a.D);
   if (threadIdx.x < 5) s_ct[threadIdx.x] = 0.0f;
+  if (threadIdx.x == 0) s_rcur = a.sv.n ? a.sv.cursors[1] : 0;
   __syncthreads();
 
   for (int j = 0; j < a.ns; ++j) {
@@ -369,31 +570,47 @@ __global__ void __launch_bounds__(kThreads) whole_solve_bwd_kernel(BwdArgs a) {
       s_dteff = dt_eff;
       s_last = is_last;
       s_acc = acc;
+      // the reverse cursor: an accepted step owns the rows before it whose
+      // save time lies after its start
+      int lo = s_rcur;
+      if (acc)
+        while (lo > cur0 && (a.sv.sa[lo - 1] - t_i) * tdir > 0.0f) --lo;
+      s_lo = lo;
+      s_hi = s_rcur;
+      s_rcur = lo;
     }
     __syncthreads();
-    const bool acc = s_acc;
-    float* part = a.partials + (size_t)(j & 1) * ntiles * 2;
-    const size_t base = (size_t)i * 6 * a.B;  // this step's weight rows
+    const bool acc = s_acc, saves = s_hi > s_lo;
+    float* part = a.partials + (size_t)(j & 1) * ntiles * 4;
+    const float* yi = a.hy + (size_t)i * BD;
+    const float* fi = a.hf + (size_t)i * BD;
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
-      const int row0 = tile * R;
+      const int row0 = tile * R, rows = min(R, a.B - row0);
+      if (saves) {
+        hermite_pullback(a.sv.sa, a.sv.ys, s_lo, s_hi, s_ti, s_dteff, yi, fi,
+                         a.hy + (size_t)(i + 1) * BD, a.hf + (size_t)(i + 1) * BD,
+                         a.ct_y, a.ct_f, a.hdy, a.hdf, part + 4 * tile + 2,
+                         s_red, row0, rows, a.D, BD);
+        __syncthreads();
+      } else if (threadIdx.x == 0) {
+        part[4 * tile + 2] = 0.0f;
+        part[4 * tile + 3] = 0.0f;
+      }
       // y_out = where(acc, y_new, y), f0_out likewise: route the carry
-      normed_bwd_tile(a.hy + (size_t)i * BD, a.hf + (size_t)i * BD, row0,
-                      min(R, a.B - row0), a.B, s_ti, s_dteff, a.W1, a.b1, a.W2,
-                      a.b2, acc ? a.ct_y : nullptr, acc ? a.ct_f : nullptr,
-                      acc ? nullptr : a.ct_y, acc ? nullptr : a.ct_f, s_g.e,
-                      s_g.n, s_g.d, a.ct_y, a.ct_f, part + 2 * tile,
-                      a.cp2 + base * a.D, a.he + base * (a.H + 2),
-                      a.cp1 + base * a.H, a.ye + base * (a.D + 2), a.D, a.H,
-                      a.rtol, a.atol, smem);
+      a.dyn.bwd(yi, fi, row0, rows, i, a.B, s_ti, s_dteff,
+                acc ? a.ct_y : nullptr, acc ? a.ct_f : nullptr,
+                acc ? (saves ? a.hdy : nullptr) : a.ct_y,
+                acc ? (saves ? a.hdf : nullptr) : a.ct_f, s_g.e, s_g.n, s_g.d,
+                a.ct_y, a.ct_f, part + 4 * tile, a.D, a.rtol, a.atol, smem);
     }
     grid.sync();
     if (threadIdx.x < 32) {
-      float k[2];  // the trial step's ct_t, ct_dt_eff
-      sum_tiles<2>(part, ntiles, k);
+      float k[4];  // the trial step's ct_t, ct_dt_eff; the pullback's
+      sum_tiles<4>(part, ntiles, k);
       if (threadIdx.x == 0) {
         // dt_eff = where(is_last, t1 - t, dt)
-        const float ct_dteff = s_g.dt_eff + k[1] + a.ct_tel[1 * S + i];
-        s_ct[0] = s_g.t + k[0] + (s_last ? -ct_dteff : 0.0f);
+        const float ct_dteff = s_g.dt_eff + k[1] + k[3] + a.ct_tel[1 * S + i];
+        s_ct[0] = s_g.t + k[0] + k[2] + (s_last ? -ct_dteff : 0.0f);
         s_ct[1] = s_last ? 0.0f : ct_dteff;
         s_ct[2] = s_g.qold;
         s_ct[3] = s_ct[3] + s_g.t1 + (s_last ? ct_dteff : 0.0f);
@@ -402,6 +619,17 @@ __global__ void __launch_bounds__(kThreads) whole_solve_bwd_kernel(BwdArgs a) {
     }
     __syncthreads();
   }
+  // the rows the forward wrote pass no cotangent on to ys_init
+  if (a.sv.n) {
+    const int curf = a.sv.cursors[1];
+    for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+      const int row0 = tile * R, rows = min(R, a.B - row0);
+      for (int r = cur0; r < curf; ++r)
+        for (int idx = threadIdx.x; idx < rows * a.D; idx += kThreads)
+          a.sv.ys[(size_t)r * BD + (size_t)row0 * a.D + idx] = 0.0f;
+    }
+  }
+  a.dyn.finish_bwd(smem, a.D);
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     a.ct_scalars[0] = s_ct[0] - tdir * s_ct[4];
     a.ct_scalars[1] = s_ct[3] + tdir * s_ct[4];
@@ -411,8 +639,9 @@ __global__ void __launch_bounds__(kThreads) whole_solve_bwd_kernel(BwdArgs a) {
 
 // Launches a cooperative kernel with one block per tile, at most as many
 // blocks as fit on the card at once (grid.sync() needs them all resident).
+// The grid's size goes to *grid_out where that is given.
 cudaError_t launch_cooperative(const void* kernel, void* args, size_t smem,
-                               int ntiles, cudaStream_t s) {
+                               int ntiles, cudaStream_t s, int* grid_out) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -427,60 +656,138 @@ cudaError_t launch_cooperative(const void* kernel, void* args, size_t smem,
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
   const int grid = min(per_sm * sms, ntiles);
+  if (grid_out) *grid_out = grid;
   void* params[] = {args};
   e = cudaLaunchCooperativeKernel(kernel, grid, kThreads, params, smem, s);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
+Ctrl make_ctrl(float beta1, float beta2, float qmin, float qmax, float gamma,
+               float qoldinit, float qsteady_max) {
+  return Ctrl{beta1, beta2, qmin, qmax, gamma, qoldinit, qsteady_max};
+}
+
 }  // namespace
 
 extern "C" {
 
-// K3. scalars: (3,) t0, t1, dt0. hy, hf: (S+1, B, D). streams: (11, S),
-// zeroed by the caller. final: (6,). partials: (2, ceil(B/4), 3) scratch.
+// K3 for MLPDynamics. scalars: (3,) t0, t1, dt0. saveat: (n_save,) save
+// times, monotone in the direction of time; cursors: (2,) int, [0] the
+// rows at or before t0 (in), [1] the rows written (out); ys: (n_save, B, D),
+// ys_init in, the saved states out (all three null when n_save is 0). hy,
+// hf: (S+1, B, D). streams: (11, S), zeroed by the caller. final: (6,).
+// partials: (2, ceil(B/4), 3) scratch.
 int regnde_whole_solve_fwd(const float* scalars, const float* y0,
                            const float* f0, const float* W1, const float* b1,
-                           const float* W2, const float* b2, float* y1,
-                           float* hy, float* hf, float* streams, float* final_,
-                           float* partials, int B, int D, int H, int S,
-                           float rtol, float atol, float beta1, float beta2,
-                           float qmin, float qmax, float gamma, float qoldinit,
-                           float qsteady_max, void* stream) {
-  FwdArgs a{scalars, y0, f0, W1, b1, W2, b2, y1, hy, hf, streams, final_,
-            partials, B, D, H, S, rtol, atol,
-            Ctrl{beta1, beta2, qmin, qmax, gamma, qoldinit, qsteady_max}};
-  return (int)launch_cooperative((const void*)whole_solve_fwd_kernel, &a,
-                                 fwd_smem_bytes(D, H), (B + kFwdRows - 1) / kFwdRows,
-                                 static_cast<cudaStream_t>(stream));
-}
-
-// K4, then the weight cotangents from its stored rows. scalars: (2,) t0,
-// t1. ct_tel: (4, S). ct_y: ct_y1 in, ct_y0 out; ct_f: zeros in, ct_f0
-// out. ct_scalars: (3,) ct_t0, ct_t1, ct_dt0 out. Weight cotangents in
-// nn.Linear layout. Scratch: partials (2, ceil(B/2), 2), cp2 (6 B ns, D),
-// he (6 B ns, H+2), cp1 (6 B ns, H), ye (6 B ns, D+2).
-int regnde_whole_solve_bwd(const float* scalars, const float* streams,
-                           const float* hy, const float* hf, const float* W1,
-                           const float* b1, const float* W2, const float* b2,
-                           const float* ct_tel, float* ct_y, float* ct_f,
-                           float* cW1, float* cb1, float* cW2, float* cb2,
-                           float* ct_scalars, float* partials, float* cp2,
-                           float* he, float* cp1, float* ye, int ns, int B,
-                           int D, int H, int S, float rtol, float atol,
+                           const float* W2, const float* b2,
+                           const float* saveat, int* cursors, float* ys,
+                           float* y1, float* hy, float* hf, float* streams,
+                           float* final_, float* partials, int B, int D, int H,
+                           int S, int n_save, float rtol, float atol,
                            float beta1, float beta2, float qmin, float qmax,
                            float gamma, float qoldinit, float qsteady_max,
                            void* stream) {
+  FwdArgs<MlpDyn> a{scalars, y0, f0,
+                    MlpDyn{W1, b1, W2, b2, nullptr, nullptr, nullptr, nullptr, H},
+                    Saves{saveat, cursors, ys, n_save}, y1, hy, hf, streams,
+                    final_, partials, B, D, S, rtol, atol,
+                    make_ctrl(beta1, beta2, qmin, qmax, gamma, qoldinit, qsteady_max)};
+  return (int)launch_cooperative((const void*)whole_solve_fwd_kernel<MlpDyn>, &a,
+                                 fwd_smem_bytes(D, H), (B + kFwdRows - 1) / kFwdRows,
+                                 static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// K3 for AlternatingMLP: as regnde_whole_solve_fwd with the leaves as a
+// host array of 4 * depth device pointers (up_0.weight, up_0.bias,
+// down_0.weight, down_0.bias, ...). partials: (2, ceil(B/2), 3).
+int regnde_whole_solve_altmlp_fwd(const float* scalars, const float* y0,
+                                  const float* f0, const float* const* leaves,
+                                  int depth, const float* saveat, int* cursors,
+                                  float* ys, float* y1, float* hy, float* hf,
+                                  float* streams, float* final_,
+                                  float* partials, int B, int D, int H, int S,
+                                  int n_save, float rtol, float atol,
+                                  float beta1, float beta2, float qmin,
+                                  float qmax, float gamma, float qoldinit,
+                                  float qsteady_max, void* stream) {
+  if (depth < 1 || 4 * depth > kMaxLeaves) return (int)cudaErrorInvalidValue;
+  FwdArgs<AltDyn> a{scalars, y0, f0, AltDyn{pack_leaves(leaves, depth), nullptr, depth, H},
+                    Saves{saveat, cursors, ys, n_save}, y1, hy, hf, streams,
+                    final_, partials, B, D, S, rtol, atol,
+                    make_ctrl(beta1, beta2, qmin, qmax, gamma, qoldinit, qsteady_max)};
+  return (int)launch_cooperative((const void*)whole_solve_fwd_kernel<AltDyn>, &a,
+                                 altmlp_fwd_smem_bytes(depth, D, H),
+                                 (B + kAltRows - 1) / kAltRows,
+                                 static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// K4 for MLPDynamics, then the weight cotangents from its stored rows.
+// scalars: (2,) t0, t1. saveat, cursors: the forward's; ct_ys: (n_save, B,
+// D), the cotangent of ys in, of ys_init out. ct_tel: (4, S). ct_y: ct_y1
+// in, ct_y0 out; ct_f: zeros in, ct_f0 out. ct_scalars: (3,) ct_t0, ct_t1,
+// ct_dt0 out. Weight cotangents in nn.Linear layout. Scratch: partials (2,
+// ceil(B/2), 4), hdy, hdf (B, D; null without saveat), cp2 (6 B ns, D), he
+// (6 B ns, H+2), cp1 (6 B ns, H), ye (6 B ns, D+2).
+int regnde_whole_solve_bwd(const float* scalars, const float* streams,
+                           const float* hy, const float* hf, const float* W1,
+                           const float* b1, const float* W2, const float* b2,
+                           const float* saveat, int* cursors, float* ct_ys,
+                           const float* ct_tel, float* ct_y, float* ct_f,
+                           float* cW1, float* cb1, float* cW2, float* cb2,
+                           float* ct_scalars, float* partials, float* hdy,
+                           float* hdf, float* cp2, float* he, float* cp1,
+                           float* ye, int ns, int B, int D, int H, int S,
+                           int n_save, float rtol, float atol, float beta1,
+                           float beta2, float qmin, float qmax, float gamma,
+                           float qoldinit, float qsteady_max, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  BwdArgs a{scalars, streams, hy, hf, W1, b1, W2, b2, ct_tel, ct_y, ct_f,
-            ct_scalars, partials, cp2, he, cp1, ye, ns, B, D, H, S, rtol, atol,
-            Ctrl{beta1, beta2, qmin, qmax, gamma, qoldinit, qsteady_max}};
-  cudaError_t e = launch_cooperative((const void*)whole_solve_bwd_kernel, &a,
+  BwdArgs<MlpDyn> a{scalars, streams, hy, hf,
+                    MlpDyn{W1, b1, W2, b2, cp2, he, cp1, ye, H},
+                    Saves{saveat, cursors, ct_ys, n_save}, ct_tel, ct_y, ct_f,
+                    ct_scalars, partials, hdy, hdf, ns, B, D, S, rtol, atol,
+                    make_ctrl(beta1, beta2, qmin, qmax, gamma, qoldinit, qsteady_max)};
+  cudaError_t e = launch_cooperative((const void*)whole_solve_bwd_kernel<MlpDyn>, &a,
                                      bwd_smem_bytes(D, H),
-                                     (B + kBwdRows - 1) / kBwdRows, s);
+                                     (B + kBwdRows - 1) / kBwdRows, s, nullptr);
   if (e != cudaSuccess) return (int)e;
   return (int)launch_weight_cotangents(cp2, he, cp1, ye, cW1, cb1, cW2, cb2,
                                        6 * B * ns, D, H, s);
+}
+
+// K4 for AlternatingMLP, then the sum of its blocks' weight-cotangent
+// slots in block order. Arguments as regnde_whole_solve_bwd; out:
+// (leaf_floats,) the leaves' cotangents in order (nn.Linear layout);
+// slots: (ceil(B/2), leaf_floats) scratch.
+int regnde_whole_solve_altmlp_bwd(const float* scalars, const float* streams,
+                                  const float* hy, const float* hf,
+                                  const float* const* leaves, int depth,
+                                  const float* saveat, int* cursors,
+                                  float* ct_ys, const float* ct_tel,
+                                  float* ct_y, float* ct_f, float* out,
+                                  float* ct_scalars, float* partials,
+                                  float* hdy, float* hdf, float* slots, int ns,
+                                  int B, int D, int H, int S, int n_save,
+                                  float rtol, float atol, float beta1,
+                                  float beta2, float qmin, float qmax,
+                                  float gamma, float qoldinit,
+                                  float qsteady_max, void* stream) {
+  if (depth < 1 || 4 * depth > kMaxLeaves) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  BwdArgs<AltDyn> a{scalars, streams, hy, hf,
+                    AltDyn{pack_leaves(leaves, depth), slots, depth, H},
+                    Saves{saveat, cursors, ct_ys, n_save}, ct_tel, ct_y, ct_f,
+                    ct_scalars, partials, hdy, hdf, ns, B, D, S, rtol, atol,
+                    make_ctrl(beta1, beta2, qmin, qmax, gamma, qoldinit, qsteady_max)};
+  int grid = 0;
+  cudaError_t e = launch_cooperative((const void*)whole_solve_bwd_kernel<AltDyn>, &a,
+                                     altmlp_bwd_smem_bytes(depth, D, H),
+                                     (B + kAltRows - 1) / kAltRows, s, &grid);
+  if (e != cudaSuccess) return (int)e;
+  const int width = leaf_floats(depth, D, H);
+  sum_slots_kernel<<<(width + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      slots, grid, width, out);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -4,7 +4,9 @@
 Layers carry flax's names (``dense_i``, ``up_i``/``down_i``,
 ``update_gate``/``reset_gate``/``new_state``), so ``convert.py`` maps a
 JAX parameter tree onto the ``state_dict`` name for name. Weights are drawn
-from an explicit ``torch.Generator``.
+from an explicit ``torch.Generator``. Every module is placed on the card
+(``device="cuda"``) unless the caller asks for the CPU with
+``device="cpu"``; without a CUDA device the default raises.
 """
 
 from __future__ import annotations
@@ -28,6 +30,16 @@ def init_linear(layer: nn.Linear, generator: Optional[torch.Generator]) -> None:
         layer.bias.zero_()
 
 
+def place(module: nn.Module, device) -> None:
+    """Moves ``module`` to ``device``; a CUDA device that is missing raises
+    rather than leaving the module on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to build the model "
+                           "on the CPU")
+    module.to(device)
+
+
 def _t_col(x: torch.Tensor, t) -> torch.Tensor:
     t = torch.as_tensor(t, dtype=x.dtype, device=x.device)
     return t.reshape(1, 1).expand(x.shape[0], 1)
@@ -44,14 +56,14 @@ class MLPDynamics(nn.Module):
     """
 
     def __init__(self, dim: int = 784, hidden: int = 100, *,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None):
         super().__init__()
         self.dim, self.hidden = dim, hidden
         self.dense_1 = nn.Linear(dim + 1, hidden)
         self.dense_2 = nn.Linear(hidden + 1, dim)
         init_linear(self.dense_1, generator)
         init_linear(self.dense_2, generator)
-        self.to(device)
+        place(self, device)
 
     def forward(self, x: torch.Tensor, t) -> torch.Tensor:
         h = tanh(self.dense_1(torch.cat([x, _t_col(x, t)], dim=-1)))
@@ -66,7 +78,7 @@ class MLP(nn.Module):
     def __init__(self, in_features: int, features: Sequence[int],
                  activation: Callable = torch.tanh,
                  final_activation: Optional[Callable] = None, *,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None):
         super().__init__()
         self.activation, self.final_activation = activation, final_activation
         self.n_layers = len(features)
@@ -76,7 +88,7 @@ class MLP(nn.Module):
             init_linear(layer, generator)
             setattr(self, f"dense_{i}", layer)
             width = f
-        self.to(device)
+        place(self, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = x
@@ -97,7 +109,7 @@ class AlternatingMLP(nn.Module):
     ``torch.tanh``, the counterpart of the JAX module's ``jnp.tanh``."""
 
     def __init__(self, dim: int = 20, hidden: int = 50, depth: int = 4, *,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None):
         super().__init__()
         self.dim, self.hidden, self.depth = dim, hidden, depth
         for i in range(depth):
@@ -106,7 +118,7 @@ class AlternatingMLP(nn.Module):
             init_linear(down, generator)
             setattr(self, f"up_{i}", up)
             setattr(self, f"down_{i}", down)
-        self.to(device)
+        place(self, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = torch.tanh(x)
@@ -119,17 +131,17 @@ class AlternatingMLP(nn.Module):
 class _LatentGRUCell(nn.Module):
     """One masked GRU-Bayes update over ``x = [data, mask, delta_t]``."""
 
-    def __init__(self, in_dim: int, hidden: int, latent_dim: int, *,
+    def __init__(self, in_dim: int, hidden: int, latent_dim: int, *, device,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.in_dim, self.latent_dim = in_dim, latent_dim
         width = 2 * latent_dim + 2 * in_dim + 1
         self.update_gate = MLP(width, [hidden, latent_dim], torch.tanh, torch.sigmoid,
-                               generator=generator)
+                               device=device, generator=generator)
         self.reset_gate = MLP(width, [hidden, latent_dim], torch.tanh, torch.sigmoid,
-                              generator=generator)
+                              device=device, generator=generator)
         self.new_state = MLP(width, [hidden, 2 * latent_dim], torch.tanh,
-                             generator=generator)
+                             device=device, generator=generator)
 
     def forward(self, y_mean, y_std, x):
         y_concat = torch.cat([y_mean, y_std, x], dim=-1)
@@ -154,11 +166,11 @@ class LatentGRU(nn.Module):
     Python loop over the reversed time axis runs it."""
 
     def __init__(self, in_dim: int, hidden: int, latent_dim: int, *,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device="cuda", generator: Optional[torch.Generator] = None):
         super().__init__()
         self.latent_dim = latent_dim
-        self.cell = _LatentGRUCell(in_dim, hidden, latent_dim, generator=generator)
-        self.to(device)
+        self.cell = _LatentGRUCell(in_dim, hidden, latent_dim, device=device,
+                                   generator=generator)
 
     def forward(self, xs: torch.Tensor) -> torch.Tensor:
         y_mean = y_std = xs.new_zeros((xs.shape[0], self.latent_dim))

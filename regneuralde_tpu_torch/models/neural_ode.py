@@ -7,7 +7,8 @@ The port routes the JAX layer's fused options for ``MLPDynamics`` and
   whole solve, one kernel per direction (``ops.whole_solve``, K3/K4; the
   Hopper kernels stand for both TPU engines, the monolithic K3/K4 and the
   tiled K5/K6, so the three options take the same route), for
-  ``MLPDynamics`` final-state solves;
+  ``MLPDynamics`` and ``AlternatingMLP``, with or without ``saveat``;
+  ``"tiled"`` with ``saveat`` raises ``ValueError``, as in JAX;
 * ``fused="step"``, and the whole-solve options in ``mode="while"`` (as in
   JAX): one normed Tsit5 trial-step kernel pair per trial step under the
   fast adjoint solve, K1/K2 for ``MLPDynamics`` (``ops.fused_mlp``), K7/K8
@@ -19,11 +20,15 @@ The port routes the JAX layer's fused options for ``MLPDynamics`` and
 
 ``saveat`` gives the trajectory at the stamps, ``(batch, time, feat)``.
 
-The Hopper kernels mask a ragged row tile, so every batch size takes the
-kernel path: there is no ``fused_tiling_ok`` gate, and ``"tiled"`` has no
-``batch % tile_rows`` limit. Not ported yet, each raising
+The Hopper kernels mask a ragged row tile and keep the batch in global
+memory, so every batch size takes the kernel path: there is no
+``fused_tiling_ok`` gate and no VMEM gate, and ``"tiled"`` has no
+``batch % tile_rows`` limit. One difference from JAX follows: JAX sends
+``fused=True`` past its VMEM estimate to the tiled engine or, with
+``saveat``, to the step kernels (MLPDynamics at 512x784 with many saves);
+the port runs the whole solve at every size. Not ported yet, raising
 ``NotImplementedError`` and never remapped to another route: per-sample
-stepping, and on the whole-solve routes ``saveat`` and ``AlternatingMLP``.
+stepping.
 """
 
 from __future__ import annotations
@@ -137,33 +142,26 @@ class NeuralODE(nn.Module):
         # slice (the latent model's mu0)
         x = x.contiguous()
         if self.fused in _WHOLE_SOLVE and mode == "adjoint":
-            if not isinstance(self.dynamics, MLPDynamics):
-                raise NotImplementedError(
-                    f"fused={self.fused!r} in mode='adjoint' for "
-                    f"{type(self.dynamics).__name__}: the whole solve with "
-                    "AlternatingMLP's stage and the Hermite saveat cursor (K3/K4) "
-                    "is the next item of ROADMAP.md queue 1 slice 2; use "
-                    "fused='step'")
-            if saveat is not None:
-                raise NotImplementedError(
-                    "saveat on the whole solve (K3's Hermite save cursor, K4's "
-                    "pullback) is the next item of ROADMAP.md queue 1 slice 2; "
-                    "use fused='step'")
+            if self.fused == "tiled" and saveat is not None:
+                raise ValueError(
+                    "fused='tiled' supports final-state solves only "
+                    "(saveat must be None); use fused=True or 'solve'")
             from regneuralde_tpu_torch.ops.whole_solve import whole_solve_odeint
 
-            sol = whole_solve_odeint(self._func, x, t0, t1, leaves, rtol=self.rtol,
-                                     atol=self.atol, max_steps=self.max_steps)
-            return NeuralDEOutput(value=sol.y1, nfe=sol.stats.nfe,
-                                  telemetry=sol.telemetry, solution=sol)
-        stage_sweep, stage_sweep_bwd = (self._step_sweeps() if self.solver == "tsit5"
-                                        else (None, None))
-        sol = odeint(
-            self._func, x, t0, t1, leaves,
-            solver=self.solver,
-            rtol=self.rtol, atol=self.atol, max_steps=self.max_steps,
-            mode=mode, stage_sweep=stage_sweep, stage_sweep_bwd=stage_sweep_bwd,
-            saveat=saveat,
-        )
+            sol = whole_solve_odeint(
+                self._func, x, t0, t1, leaves, rtol=self.rtol, atol=self.atol,
+                max_steps=self.max_steps, saveat=saveat,
+                dynamics="mlp" if isinstance(self.dynamics, MLPDynamics) else "altmlp")
+        else:
+            stage_sweep, stage_sweep_bwd = (self._step_sweeps() if self.solver == "tsit5"
+                                            else (None, None))
+            sol = odeint(
+                self._func, x, t0, t1, leaves,
+                solver=self.solver,
+                rtol=self.rtol, atol=self.atol, max_steps=self.max_steps,
+                mode=mode, stage_sweep=stage_sweep, stage_sweep_bwd=stage_sweep_bwd,
+                saveat=saveat,
+            )
         # (time, batch, feat) -> (batch, time, feat)
         value = sol.y1 if saveat is None else sol.ys.transpose(0, 1)
         return NeuralDEOutput(value=value, nfe=sol.stats.nfe,

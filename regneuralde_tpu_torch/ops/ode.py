@@ -14,10 +14,11 @@ trial step, ``t, dt, qold``, the three norm sums and the ``y, f0`` rows, so
 the backward runs one sweep backward per step (the K2 kernel on the card)
 and no forward replay. A ``saveat`` solve also keeps each accepted step's
 ``y_new, k_last`` (the Hermite primals), and the backward pulls the
-interpolation back from them. The scalar chain (controller, time update,
-telemetry; ``_post``) is differentiated with ``torch.autograd.grad`` on 0-d
-tensors. ``post_bwd`` is its hand pullback, and ``adjoint_step`` the rest
-of one reverse step, both shared with ``ops.whole_solve``.
+interpolation back from them (``hermite_pullback``). The scalar chain
+(controller, time update, telemetry; ``_post``) is differentiated with
+``torch.autograd.grad`` on 0-d tensors. ``post_bwd`` is its hand pullback,
+and ``adjoint_step`` the rest of one reverse step; they, the saver and the
+Hermite pullback are shared with ``ops.whole_solve``.
 
 Every solver decision matches the JAX package: the PI controller with its
 deadband, the ``span`` clamp, the ``is_last`` step to ``t1``, telemetry
@@ -121,6 +122,34 @@ def _save_window(saveat, t, t_end, tdir, like):
     to broadcast against ``(S,) + like.shape``."""
     win = ((saveat - t) * tdir > 0) & ((saveat - t_end) * tdir <= 0)
     return win.reshape((-1,) + (1,) * like.dim())
+
+
+def hermite_pullback(saveat, tdir, t1, is_last, primals, ct_ys):
+    """The pullback of one accepted step's ``saveat`` writes from its
+    primals ``(t, dt_eff, y, y_new, f0, k_last)``: the window mask hands
+    each row's cotangent to the one step that wrote it (a rejected step
+    writes none), and autograd of ``_interp`` pulls it back. Returns the
+    primals' cotangents and ``ct_ys`` with the step's rows zeroed."""
+    t, dt_eff, y = primals[:3]
+    t_end = torch.where(is_last, t1, t + dt_eff)
+    win = _save_window(saveat, t, t_end, tdir, y)
+    zero = torch.zeros_like(ct_ys)
+    interp = _interp_bwd(saveat, primals, torch.where(win, ct_ys, zero))
+    return interp, torch.where(win, zero, ct_ys)
+
+
+def saveat_rows(saveat, t0, t1, y0):
+    """``saveat`` as a tensor of the time type, and the rows' initial
+    values ``ys_init``: ``y0`` at stamps at or before ``t0`` (OrdinaryDiffEq
+    saves u0 when saveat contains t0), zero elsewhere; without ``saveat``
+    ``(None, an empty (0,) + y0.shape tensor)``."""
+    if saveat is None:
+        return None, y0.new_zeros((0,) + tuple(y0.shape))
+    saveat = torch.as_tensor(saveat, dtype=t0.dtype, device=y0.device)
+    at_start = ((saveat - t0) * torch.sign(t1 - t0) <= 0).reshape(
+        (-1,) + (1,) * y0.dim())
+    return saveat, torch.where(at_start, y0.unsqueeze(0),
+                               y0.new_zeros((saveat.shape[0],) + tuple(y0.shape)))
 
 
 class _HermiteSaver:
@@ -482,16 +511,10 @@ class FastAdjointSolve(torch.autograd.Function):
             dp = [zero if g is None else g for g in grads]
             interp = None
             if saver is not None and ctx.accepted[i]:
-                # the Hermite pullback from the stored primals; the window
-                # mask hands each row's cotangent to the one step that
-                # wrote it (a rejected step writes none)
-                t_end = torch.where(is_last, t1, t_i + dt_eff)
-                win = _save_window(saver.saveat, t_i, t_end, tdir, y_i)
-                ct_interp = torch.where(win, ct_ys, torch.zeros_like(ct_ys))
-                ct_ys = torch.where(win, torch.zeros_like(ct_ys), ct_ys)
                 y_new_i, k_last_i = saver.primals[i]
-                interp = _interp_bwd(saver.saveat, (t_i, dt_eff, y_i, y_new_i, f0_i,
-                                                    k_last_i), ct_interp)
+                interp, ct_ys = hermite_pullback(
+                    saver.saveat, tdir, t1, is_last,
+                    (t_i, dt_eff, y_i, y_new_i, f0_i, k_last_i), ct_ys)
             carry = adjoint_step(
                 ctx.sweep_bwd, leaves, (t_i, dt_eff, y_i, f0_i),
                 ctx.accepted[i], is_last, dp, tel_ct(1, i), carry, interp)
@@ -568,15 +591,7 @@ def odeint(
     ctrl = controller or PIController.for_order(TSIT5.order)
     args = tuple(args)
     t0, t1, f_init, dt_init = solve_prologue(func, y0, t0, t1, args, rtol, atol)
-    ys_init = y0.new_zeros((0,) + tuple(y0.shape))
-    if saveat is not None:
-        saveat = torch.as_tensor(saveat, dtype=t0.dtype, device=y0.device)
-        # stamps at or before t0 hold the initial state (OrdinaryDiffEq
-        # saves u0 when saveat contains t0)
-        at_start = ((saveat - t0) * torch.sign(t1 - t0) <= 0).reshape(
-            (-1,) + (1,) * y0.dim())
-        ys_init = torch.where(at_start, y0.unsqueeze(0),
-                              y0.new_zeros((saveat.shape[0],) + tuple(y0.shape)))
+    saveat, ys_init = saveat_rows(saveat, t0, t1, y0)
 
     if mode == "while":
         saver = None

@@ -1,27 +1,34 @@
-"""Whole adaptive Tsit5 solve of ``MLPDynamics``: one kernel per direction.
+"""Whole adaptive Tsit5 solve: one kernel per direction.
 
 Counterpart of ``regneuralde_tpu/ops/pallas_solve.py``: ``whole_solve_odeint``
 (the monolithic engine, K3/K4) and ``whole_solve_odeint_tiled`` (the tiled
 engine, K5/K6) become one pair of persistent CUDA kernels
-(``csrc/whole_solve.cu``). The forward runs every trial step of the
-adaptive loop on the device; the backward walks its history in reverse.
-Neither returns to the host between trial steps.
+(``csrc/whole_solve.cu``), generic over the dynamics' trial step:
+``dynamics="mlp"`` (``MLPDynamics``, K1/K2's tile bodies) or ``"altmlp"``
+(``AlternatingMLP``, K7/K8's). The forward runs every trial step of the
+adaptive loop on the device, with the Hermite ``saveat`` writes; the
+backward walks its history in reverse, with their pullback. Neither returns
+to the host between trial steps.
 
 The forward's record (``SolveRecord``) is what the backward reads: per
 trial step its start state ``t, dt, qold``, the three norm sums, the
-accept flag and the rows ``y, f0``. The backward takes the stored accept
-flags and norm sums (the tiled engine's choice, ``pallas_solve.py``
-``make_whole_solve_tiled``) and re-runs the scalar chain only to pull
-cotangents back through it, with the hand pullback ``ode.post_bwd``.
+accept flag and the rows ``y, f0``; the ``saveat`` rows and the save
+cursors. The backward takes the stored accept flags and norm sums (the
+tiled engine's choice, ``pallas_solve.py`` ``make_whole_solve_tiled``) and
+re-runs the scalar chain only to pull cotangents back through it, with the
+hand pullback ``ode.post_bwd``.
 
 Each kernel has a plain version with the same algebra and the same output
-buffers: ``plain_whole_solve_fwd`` (the trial-step loop of
-``ode._solve_forward`` over K1's plain version) and
-``plain_whole_solve_bwd`` (the reverse walk of ``ode.FastAdjointSolve``
-with ``post_bwd`` in place of autograd, over K2's plain version). The
+buffers, over the dynamics' plain trial-step pair (``plain_steps``):
+``plain_whole_solve_fwd`` (the trial-step loop of ``ode._solve_forward``
+with ``ode._HermiteSaver``) and ``plain_whole_solve_bwd`` (the reverse walk
+of ``ode.FastAdjointSolve`` with ``post_bwd`` in place of autograd). The
 wrappers ``whole_solve_fwd`` and ``whole_solve_bwd`` take the plain version
 for tensors on the CPU, launch the kernel for tensors on a CUDA device,
 and raise otherwise.
+
+``saveat`` must be monotone in the direction of integration: the kernels
+consume it with a cursor (``pallas_solve.py``'s), not a window mask.
 """
 
 from __future__ import annotations
@@ -31,24 +38,31 @@ from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
+from regneuralde_tpu_torch.ops import fused_generic as fg
 from regneuralde_tpu_torch.ops import fused_mlp as fm
 from regneuralde_tpu_torch.ops.controller import PIController
 from regneuralde_tpu_torch.ops.ode import (
     AdjointCarry,
-    NormedSweep,
     ODESolution,
     StepTelemetry,
+    _HermiteSaver,
     _post,
     _solve_forward,
     adjoint_step,
+    hermite_pullback,
     post_bwd,
+    saveat_rows,
     solve_prologue,
     solve_stats,
 )
 from regneuralde_tpu_torch.ops.tableaus import TSIT5
 
-# Launches of each kernel, counted by its wrapper where it launches.
-LAUNCHES = {"whole_solve_fwd": 0, "whole_solve_bwd": 0}
+# Launches of each kernel, counted by its wrapper where it launches: K3 and
+# K4 for MLPDynamics and for AlternatingMLP.
+LAUNCHES = {"whole_solve_fwd": 0, "whole_solve_bwd": 0,
+            "whole_solve_altmlp_fwd": 0, "whole_solve_altmlp_bwd": 0}
+
+DYNAMICS = ("mlp", "altmlp")
 
 
 def reset_launches() -> None:
@@ -66,18 +80,45 @@ class SolveRecord(NamedTuple):
     """What the forward solve writes (``S = max_steps``, ``ns`` trial steps).
 
     ``hy[i]``/``hf[i]`` hold the state and FSAL derivative at the start of
-    trial step ``i`` for ``i <= ns`` (``hy[ns]`` is ``y1``; ``hf[ns]`` is
-    not part of the result); later rows are undefined. ``streams`` is
-    ``(11, S)``: per trial step its start ``t, dt, qold``, the norm sums
-    ``err_ssq, num_ssq, den_ssq``, the accept flag (1.0 or 0.0), and the
-    telemetry ``t_end, dt_eff, eest, eigen_est``; zero past step ``ns``.
-    ``final`` is ``(t, dt, qold, naccept, nreject, done)``."""
+    trial step ``i`` for ``i <= ns`` (``hy[ns]`` is ``y1``, ``hf[ns]`` its
+    derivative; an accepted step's ``y_new, k7`` are the next rows); later
+    rows are undefined. ``streams`` is ``(11, S)``: per trial step its start
+    ``t, dt, qold``, the norm sums ``err_ssq, num_ssq, den_ssq``, the accept
+    flag (1.0 or 0.0), and the telemetry ``t_end, dt_eff, eest,
+    eigen_est``; zero past step ``ns``. ``final`` is ``(t, dt, qold,
+    naccept, nreject, done)``. ``ys`` holds the ``saveat`` rows (empty
+    without ``saveat``) and ``cursors`` (int32) the save cursors ``(cur0,
+    curf)``: rows ``[0, cur0)`` lie at or before ``t0`` and keep
+    ``ys_init``, rows ``[cur0, curf)`` were written, later rows were not
+    reached and keep ``ys_init``."""
 
     y1: torch.Tensor
     hy: torch.Tensor
     hf: torch.Tensor
     streams: torch.Tensor
     final: torch.Tensor
+    ys: torch.Tensor
+    cursors: torch.Tensor
+
+
+def plain_steps(dynamics: str, rtol, atol):
+    """The plain trial-step pair ``(sweep, sweep_bwd)`` over the leaves:
+    K1/K2's plain versions for ``"mlp"``, K7/K8's for ``"altmlp"``."""
+    rtol, atol = float(rtol), float(atol)
+    if dynamics == "mlp":
+        return (lambda t, dt, y, k1, lv: fm.plain_mlp_normed_sweep(t, dt, y, k1, lv, rtol,
+                                                                    atol),
+                lambda t, dt, y, k1, lv, cts: fm.plain_mlp_normed_sweep_bwd(
+                    t, dt, y, k1, lv, cts, rtol, atol))
+    if dynamics == "altmlp":
+        return fg.make_plain_alternating_mlp_sweep(rtol, atol)
+    raise ValueError(f"dynamics must be one of {DYNAMICS}, got {dynamics!r}")
+
+
+def _rows_through(saveat, t, tdir):
+    """The save times at or before ``t`` in the direction ``tdir`` (int32,
+    0-d), on ``saveat``'s device."""
+    return ((saveat - t) * tdir <= 0).sum().to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -86,16 +127,24 @@ class SolveRecord(NamedTuple):
 
 
 def plain_whole_solve_fwd(t0, t1, dt0, y0, f0, leaves, rtol, atol,
-                          ctrl: PIController, max_steps: int) -> SolveRecord:
-    """Plain version of K3: the trial-step loop over K1's plain version."""
-    parts = fm._split_params(*leaves)
+                          ctrl: PIController, max_steps: int, *, dynamics="mlp",
+                          saveat=None, ys_init=None) -> SolveRecord:
+    """Plain version of K3: the trial-step loop over the dynamics' plain
+    trial step, with the Hermite writes of ``ode._HermiteSaver``."""
+    sweep, _ = plain_steps(dynamics, rtol, atol)
+    k_last = {}
+    saver = None
+    if saveat is not None:
+        saver = _HermiteSaver(saveat, torch.sign(t1 - t0), ys_init, keep=False)
 
-    def sweep(t, dt, y, k1, _):
-        return NormedSweep(*fm._reference_normed_sweep(t, dt, y, k1, parts,
-                                                       rtol, atol))
+    def on_accept(i, t, dt_eff, t_end, y, f, res):
+        k_last[i] = res.k_last
+        if saver is not None:
+            saver(i, t, dt_eff, t_end, y, f, res)
 
     y1, rows, accepted, done, hist = _solve_forward(
-        sweep, ctrl, max_steps, t0, t1, dt0, y0, f0, (), keep_history=True)
+        sweep, ctrl, max_steps, t0, t1, dt0, y0, f0, tuple(leaves), keep_history=True,
+        on_accept=on_accept)
     ns = len(hist)
     hy = y0.new_zeros((max_steps + 1,) + tuple(y0.shape))
     hf = torch.zeros_like(hy)
@@ -107,6 +156,7 @@ def plain_whole_solve_fwd(t0, t1, dt0, y0, f0, leaves, rtol, atol,
         streams[TEL_T:, i] = torch.stack(rows[i])
     hy[ns] = y1
     if ns:
+        hf[ns] = k_last[ns - 1] if accepted[-1] else hf[ns - 1]
         # the loop's final (t, dt, qold): the last step's scalar chain again
         t, dt, qold, e, n, d = hist[-1][:6]
         tdir = torch.sign(t1 - t0)
@@ -115,31 +165,40 @@ def plain_whole_solve_fwd(t0, t1, dt0, y0, f0, leaves, rtol, atol,
         t, dt, qold = _post(ctrl, float(y0.numel()), t, torch.where(is_last, remaining, dt),
                             qold, e, n, d, t1, torch.abs(t1 - t0), is_last)[:3]
     else:
+        hf[0] = f0
         t, dt, qold = t0, dt0, torch.full_like(t0, ctrl.qoldinit)
     na = sum(accepted)
     final = torch.stack((t, dt, qold)).to(streams.dtype)
     final = torch.cat([final, final.new_tensor([na, ns - na, float(done)])])
-    return SolveRecord(y1, hy, hf, streams, final)
+    if saveat is None:
+        ys = y0.new_zeros((0,) + tuple(y0.shape))
+        cursors = torch.zeros(2, dtype=torch.int32)
+    else:
+        ys = saver.ys if saver.ys is not ys_init else ys_init.clone()
+        tdir = torch.sign(t1 - t0)
+        cursors = torch.stack((_rows_through(saveat, t0, tdir),
+                               _rows_through(saveat, t, tdir)))
+    return SolveRecord(y1, hy, hf, streams, final, ys, cursors.to(y0.device))
 
 
 def plain_whole_solve_bwd(rec: SolveRecord, ns: int, ct_y1, ct_tel, t0, t1,
-                          leaves, rtol, atol, ctrl: PIController):
+                          leaves, rtol, atol, ctrl: PIController, *,
+                          dynamics="mlp", saveat=None, ct_ys=None):
     """Plain version of K4: the reverse walk over ``rec``'s ``ns`` trial
-    steps, ``post_bwd`` for the scalar chain and K2's plain version for
-    the trial step. ``ct_tel`` is ``(4, S)``, the cotangents of the
-    telemetry streams ``t, dt, eest, eigen_est``. Returns ``(ct_t0, ct_t1,
-    ct_dt0, ct_y0, ct_f0, *ct_leaves)``."""
-    parts = fm._split_params(*leaves)
-
-    def sweep_bwd(t, dt, y, k1, _, cts):
-        return fm._normed_bwd_math(t, dt, y, k1, parts, cts, rtol, atol)
-
+    steps, ``post_bwd`` for the scalar chain, ``ode.hermite_pullback`` for
+    the ``saveat`` rows (cotangent ``ct_ys``) and the dynamics' plain
+    reverse for the trial step. ``ct_tel`` is ``(4, S)``, the cotangents of
+    the telemetry streams ``t, dt, eest, eigen_est``. Returns ``(ct_t0,
+    ct_t1, ct_dt0, ct_y0, ct_f0, ct_ys_init, *ct_leaves)``."""
+    _, sweep_bwd = plain_steps(dynamics, rtol, atol)
     tdir = torch.sign(t1 - t0)
     span = torch.abs(t1 - t0)
     count = float(rec.y1.numel())
     zero = torch.zeros_like(t0)
     carry = AdjointCarry(zero, zero, zero, ct_y1, torch.zeros_like(ct_y1),
                          [torch.zeros_like(x) for x in leaves], zero, zero)
+    if saveat is None:
+        ct_ys = torch.zeros_like(rec.ys)
     st = rec.streams
     accepted = (st[ST_ACC, :ns] > 0.5).tolist()
     for i in range(ns - 1, -1, -1):
@@ -151,9 +210,15 @@ def plain_whole_solve_bwd(rec: SolveRecord, ns: int, ct_y1, ct_tel, t0, t1,
         dp = post_bwd(ctrl, count, t_i, dt_eff, qold_i, e_i, n_i, d_i, t1, span,
                       is_last, acc, (carry.ct_t, carry.ct_dt, carry.ct_qold,
                                      ct_tel[0, i], ct_tel[2, i], ct_tel[3, i]))
+        interp = None
+        if saveat is not None and accepted[i]:
+            interp, ct_ys = hermite_pullback(
+                saveat, tdir, t1, is_last,
+                (t_i, dt_eff, rec.hy[i], rec.hy[i + 1], rec.hf[i], rec.hf[i + 1]), ct_ys)
         carry = adjoint_step(sweep_bwd, leaves, (t_i, dt_eff, rec.hy[i], rec.hf[i]),
-                             accepted[i], is_last, dp, ct_tel[1, i], carry)
-    return carry.finish(tdir)
+                             accepted[i], is_last, dp, ct_tel[1, i], carry, interp)
+    out = carry.finish(tdir)
+    return (*out[:5], ct_ys, *out[5:])
 
 
 # ---------------------------------------------------------------------------
@@ -166,104 +231,179 @@ def _ctrl_args(ctrl: PIController):
                                ctrl.gamma, ctrl.qoldinit, ctrl.qsteady_max)]
 
 
+def _check_dims(dynamics, y, k1, leaves):
+    """``(B, D, H, depth)`` after the step kernels' checks of the rows and
+    leaves (device, float32, shape, contiguity); depth is 1 for MLPDynamics."""
+    if dynamics == "mlp":
+        return (*fm._check_cuda_args(y, k1, leaves), 1)
+    if dynamics == "altmlp":
+        B, D, H, depth = fg._check_cuda_args(y, k1, leaves)
+        fg._library(depth)
+        return B, D, H, depth
+    raise ValueError(f"dynamics must be one of {DYNAMICS}, got {dynamics!r}")
+
+
+def _check_tensor(name, x, shape, like, dtype=torch.float32):
+    if (x.device != like.device or x.dtype != dtype or tuple(x.shape) != tuple(shape)
+            or not x.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous {dtype} {tuple(shape)} "
+                         f"tensor on {like.device}")
+
+
+def _opt_ptr(x):
+    return None if x is None else fm._ptr(x)
+
+
+def _tile_rows(lib, dynamics, direction):
+    if dynamics == "altmlp":
+        return lib.regnde_altmlp_rows()
+    return lib.regnde_fwd_rows() if direction == "fwd" else lib.regnde_bwd_rows()
+
+
 def _cuda_whole_solve_fwd(t0, t1, dt0, y0, f0, leaves, rtol, atol, ctrl,
-                          max_steps):
+                          max_steps, dynamics, saveat, ys_init):
     from regneuralde_tpu_torch.ops import _cuda
 
-    B, D, H = fm._check_cuda_args(y0, f0, leaves)
+    B, D, H, depth = _check_dims(dynamics, y0, f0, leaves)
     if max_steps < 1:
         raise ValueError(f"max_steps must be positive, got {max_steps}")
+    n_save = 0 if saveat is None else saveat.shape[0]
+    dev = y0.device
+    if n_save:
+        _check_tensor("saveat", saveat, (n_save,), y0)
+        _check_tensor("ys_init", ys_init, (n_save, B, D), y0)
+        ys = ys_init.clone()
+        cursors = torch.stack((_rows_through(saveat, t0, torch.sign(t1 - t0)),
+                               torch.zeros((), dtype=torch.int32, device=dev)))
+    else:
+        ys = y0.new_zeros((0, B, D))
+        cursors = torch.zeros(2, dtype=torch.int32, device=dev)
+    save_ptrs = tuple(map(fm._ptr, (saveat, cursors, ys))) if n_save else (None,) * 3
     lib = _cuda.library()
     ptr = fm._ptr
     scalars = torch.stack([fm._scalar_f32(x, y0) for x in (t0, t1, dt0)])
-    dev = y0.device
     y1 = torch.empty_like(y0)
     hy = torch.empty((max_steps + 1, B, D), device=dev)
     hf = torch.empty_like(hy)
     streams = torch.zeros((N_STREAMS, max_steps), device=dev)
     final = torch.empty(6, device=dev)
-    rows = lib.regnde_fwd_rows()
+    rows = _tile_rows(lib, dynamics, "fwd")
     partials = torch.empty((2, (B + rows - 1) // rows, 3), device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = lib.regnde_whole_solve_fwd(
-        ptr(scalars), ptr(y0), ptr(f0), *map(ptr, leaves), ptr(y1), ptr(hy),
-        ptr(hf), ptr(streams), ptr(final), ptr(partials), B, D, H, max_steps,
-        float(rtol), float(atol), *_ctrl_args(ctrl), ctypes.c_void_p(stream))
+    tail = (ptr(y1), ptr(hy), ptr(hf), ptr(streams), ptr(final), ptr(partials), B, D,
+            H, max_steps, n_save, float(rtol), float(atol), *_ctrl_args(ctrl),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if dynamics == "mlp":
+        code = lib.regnde_whole_solve_fwd(ptr(scalars), ptr(y0), ptr(f0),
+                                          *map(ptr, leaves), *save_ptrs, *tail)
+        name = "whole_solve_fwd"
+    else:
+        lptrs = fg._leaf_pointers(leaves)
+        code = lib.regnde_whole_solve_altmlp_fwd(
+            ptr(scalars), ptr(y0), ptr(f0), ctypes.cast(lptrs, ctypes.c_void_p), depth,
+            *save_ptrs, *tail)
+        name = "whole_solve_altmlp_fwd"
     _cuda.check(code, "whole-solve forward kernel")
-    LAUNCHES["whole_solve_fwd"] += 1
-    return SolveRecord(y1, hy, hf, streams, final)
+    LAUNCHES[name] += 1
+    return SolveRecord(y1, hy, hf, streams, final, ys, cursors)
 
 
 def _cuda_whole_solve_bwd(rec, ns, ct_y1, ct_tel, t0, t1, leaves, rtol, atol,
-                          ctrl):
+                          ctrl, dynamics, saveat, ct_ys):
     from regneuralde_tpu_torch.ops import _cuda
 
     y1 = rec.y1
-    B, D, H = fm._check_cuda_args(y1, ct_y1, leaves)
+    B, D, H, depth = _check_dims(dynamics, y1, ct_y1, leaves)
     S = rec.streams.shape[1]
+    n_save = 0 if saveat is None else saveat.shape[0]
     for name, x, shape in (("ct_tel", ct_tel, (4, S)), ("hy", rec.hy, (S + 1, B, D)),
                            ("hf", rec.hf, (S + 1, B, D)),
                            ("streams", rec.streams, (N_STREAMS, S))):
-        if (x.device != y1.device or x.dtype != torch.float32
-                or tuple(x.shape) != shape or not x.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous float32 {shape} "
-                             f"tensor on {y1.device}")
+        _check_tensor(name, x, shape, y1)
     if not 0 <= ns <= S:
         raise ValueError(f"ns must lie in [0, {S}], got {ns}")
+    dev = y1.device
+    hdy = hdf = None
+    if n_save:
+        _check_tensor("saveat", saveat, (n_save,), y1)
+        _check_tensor("ct_ys", ct_ys, (n_save, B, D), y1)
+        _check_tensor("cursors", rec.cursors, (2,), y1, torch.int32)
+        ct_ys = ct_ys.clone()
+        hdy, hdf = torch.empty_like(y1), torch.empty_like(y1)
+    else:
+        ct_ys = y1.new_zeros((0, B, D))
+    save_ptrs = (tuple(map(fm._ptr, (saveat, rec.cursors, ct_ys))) if n_save
+                 else (None,) * 3)
     lib = _cuda.library()
     ptr = fm._ptr
-    dev = y1.device
     scalars = torch.stack([fm._scalar_f32(x, y1) for x in (t0, t1)])
     ct_y = ct_y1.clone()
     ct_f = torch.zeros_like(ct_y)
-    W1, b1, W2, b2 = leaves
-    cW1, cb1 = torch.empty_like(W1), torch.empty_like(b1)
-    cW2, cb2 = torch.empty_like(W2), torch.empty_like(b2)
     ct_scalars = torch.empty(3, device=dev)
-    rows = lib.regnde_bwd_rows()
-    partials = torch.empty((2, (B + rows - 1) // rows, 2), device=dev)
-    # the weight-cotangent rows of every trial step, summed after the walk
-    K = 6 * B * ns
-    cp2 = torch.empty((K, D), device=dev)
-    he = torch.empty((K, H + 2), device=dev)
-    cp1 = torch.empty((K, H), device=dev)
-    ye = torch.empty((K, D + 2), device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    code = lib.regnde_whole_solve_bwd(
-        ptr(scalars), ptr(rec.streams), ptr(rec.hy), ptr(rec.hf),
-        *map(ptr, leaves), ptr(ct_tel), ptr(ct_y), ptr(ct_f), ptr(cW1),
-        ptr(cb1), ptr(cW2), ptr(cb2), ptr(ct_scalars), ptr(partials), ptr(cp2),
-        ptr(he), ptr(cp1), ptr(ye), ns, B, D, H, S, float(rtol), float(atol),
-        *_ctrl_args(ctrl), ctypes.c_void_p(stream))
+    rows = _tile_rows(lib, dynamics, "bwd")
+    ntiles = (B + rows - 1) // rows
+    partials = torch.empty((2, ntiles, 4), device=dev)
+    head = (ptr(scalars), ptr(rec.streams), ptr(rec.hy), ptr(rec.hf))
+    mid = (ptr(ct_tel), ptr(ct_y), ptr(ct_f))
+    tail = (ns, B, D, H, S, n_save, float(rtol), float(atol), *_ctrl_args(ctrl),
+            ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if dynamics == "mlp":
+        ct_leaves = [torch.empty_like(x) for x in leaves]
+        # the weight-cotangent rows of every trial step, summed after the walk
+        K = 6 * B * ns
+        wrows = [torch.empty((K, w), device=dev) for w in (D, H + 2, H, D + 2)]
+        code = lib.regnde_whole_solve_bwd(
+            *head, *map(ptr, leaves), *save_ptrs, *mid, *map(ptr, ct_leaves),
+            ptr(ct_scalars), ptr(partials), _opt_ptr(hdy), _opt_ptr(hdf),
+            *map(ptr, wrows), *tail)
+        name = "whole_solve_bwd"
+    else:
+        n_leaf = sum(x.numel() for x in leaves)
+        out = torch.empty(n_leaf, device=dev)
+        slots = torch.empty((ntiles, n_leaf), device=dev)
+        lptrs = fg._leaf_pointers(leaves)
+        code = lib.regnde_whole_solve_altmlp_bwd(
+            *head, ctypes.cast(lptrs, ctypes.c_void_p), depth, *save_ptrs, *mid,
+            ptr(out), ptr(ct_scalars), ptr(partials), _opt_ptr(hdy), _opt_ptr(hdf),
+            ptr(slots), *tail)
+        ct_leaves, off = [], 0
+        for x in leaves:
+            ct_leaves.append(out[off:off + x.numel()].view(x.shape))
+            off += x.numel()
+        name = "whole_solve_altmlp_bwd"
     _cuda.check(code, "whole-solve backward kernel")
-    LAUNCHES["whole_solve_bwd"] += 1
-    return (ct_scalars[0], ct_scalars[1], ct_scalars[2], ct_y, ct_f,
-            cW1, cb1, cW2, cb2)
+    LAUNCHES[name] += 1
+    return (ct_scalars[0], ct_scalars[1], ct_scalars[2], ct_y, ct_f, ct_ys, *ct_leaves)
 
 
 def whole_solve_fwd(t0, t1, dt0, y0, f0, leaves: Sequence[torch.Tensor], rtol,
-                    atol, ctrl: PIController, max_steps: int) -> SolveRecord:
-    """K3 or its plain version: the whole forward solve."""
+                    atol, ctrl: PIController, max_steps: int, *, dynamics="mlp",
+                    saveat=None, ys_init=None) -> SolveRecord:
+    """K3 or its plain version: the whole forward solve of ``dynamics``
+    (``"mlp"`` or ``"altmlp"``), writing the ``saveat`` rows over
+    ``ys_init`` (by default ``ode.saveat_rows``'s)."""
+    if saveat is not None and ys_init is None:
+        saveat, ys_init = saveat_rows(saveat, t0, t1, y0)
+    args = (t0, t1, dt0, y0, f0, tuple(leaves), rtol, atol, ctrl, max_steps)
     if y0.device.type == "cuda":
-        return _cuda_whole_solve_fwd(t0, t1, dt0, y0, f0, tuple(leaves), rtol,
-                                     atol, ctrl, max_steps)
+        return _cuda_whole_solve_fwd(*args, dynamics, saveat, ys_init)
     if y0.device.type == "cpu":
-        return plain_whole_solve_fwd(t0, t1, dt0, y0, f0, tuple(leaves), rtol,
-                                     atol, ctrl, max_steps)
+        return plain_whole_solve_fwd(*args, dynamics=dynamics, saveat=saveat,
+                                     ys_init=ys_init)
     raise RuntimeError(f"no whole-solve forward for device {y0.device}")
 
 
 def whole_solve_bwd(rec: SolveRecord, ns: int, ct_y1, ct_tel, t0, t1,
                     leaves: Sequence[torch.Tensor], rtol, atol,
-                    ctrl: PIController):
+                    ctrl: PIController, *, dynamics="mlp", saveat=None, ct_ys=None):
     """K4 or its plain version: ``(ct_t0, ct_t1, ct_dt0, ct_y0, ct_f0,
-    *ct_leaves)``."""
+    ct_ys_init, *ct_leaves)``; ``ct_ys`` is the cotangent of the
+    ``saveat`` rows."""
+    args = (rec, ns, ct_y1, ct_tel, t0, t1, tuple(leaves), rtol, atol, ctrl)
     if ct_y1.device.type == "cuda":
-        return _cuda_whole_solve_bwd(rec, ns, ct_y1, ct_tel, t0, t1,
-                                     tuple(leaves), rtol, atol, ctrl)
+        return _cuda_whole_solve_bwd(*args, dynamics, saveat, ct_ys)
     if ct_y1.device.type == "cpu":
-        return plain_whole_solve_bwd(rec, ns, ct_y1, ct_tel, t0, t1,
-                                     tuple(leaves), rtol, atol, ctrl)
+        return plain_whole_solve_bwd(*args, dynamics=dynamics, saveat=saveat,
+                                     ct_ys=ct_ys)
     raise RuntimeError(f"no whole-solve backward for device {ct_y1.device}")
 
 
@@ -274,64 +414,83 @@ def whole_solve_bwd(rec: SolveRecord, ns: int, ct_y1, ct_tel, t0, t1,
 
 class WholeSolveFn(torch.autograd.Function):
     """The whole solve with K4 as its gradient. Inputs ``t0, t1, dt_init,
-    y0, f0_init`` and the leaves ``(W1, b1, W2, b2)``; outputs those of
-    ``ode.FastAdjointSolve``: ``y1``, the telemetry streams ``t, dt, eest,
+    y0, f0_init``, the ``saveat`` rows' initial values ``ys_init`` and the
+    leaves; outputs those of ``ode.FastAdjointSolve``: ``y1``, the
+    ``saveat`` rows ``ys``, the telemetry streams ``t, dt, eest,
     eigen_est``, and, not differentiable, the accept and live masks and
     ``(naccept, nreject, done)``."""
 
     @staticmethod
-    def forward(ctx, ctrl, max_steps, rtol, atol, t0, t1, dt_init, y0, f0_init,
-                *leaves):
+    def forward(ctx, dynamics, ctrl, max_steps, rtol, atol, saveat, t0, t1,
+                dt_init, y0, f0_init, ys_init, *leaves):
+        unsorted = None
+        if saveat is not None:
+            unsorted = ((saveat[1:] - saveat[:-1]) * torch.sign(t1 - t0) < 0).any()
         rec = whole_solve_fwd(t0, t1, dt_init, y0, f0_init, leaves, rtol, atol,
-                              ctrl, max_steps)
+                              ctrl, max_steps, dynamics=dynamics, saveat=saveat,
+                              ys_init=ys_init)
         # the one host sync of the solve: the step counts size the backward
-        na, nr, done = (int(v) for v in rec.final[3:].tolist())
+        flags = rec.final[3:]
+        if unsorted is not None:
+            flags = torch.cat([flags, unsorted.to(flags.dtype).reshape(1)])
+        na, nr, done, *bad = (int(v) for v in flags.tolist())
+        if any(bad):
+            raise ValueError("the whole solve takes saveat monotone in the "
+                             "direction of integration; sort it or use fused='step'")
         st = rec.streams
         accepted = st[ST_ACC] > 0.5
         live = torch.arange(max_steps, device=st.device) < na + nr
         counts = torch.tensor([na, nr, done])
         ctx.mark_non_differentiable(accepted, live, counts)
         ctx.rec, ctx.ns = rec, na + nr
-        ctx.args = (ctrl, rtol, atol)
+        ctx.args = (dynamics, ctrl, rtol, atol, saveat)
         ctx.save_for_backward(t0, t1, *leaves)
-        return (rec.y1, st[TEL_T].clone(), st[TEL_DT].clone(),
-                st[TEL_EEST].clone(), st[TEL_EIGEN].clone(), accepted, live,
-                counts)
+        return (rec.y1, rec.ys, st[TEL_T].clone(), st[TEL_DT].clone(),
+                st[TEL_EEST].clone(), st[TEL_EIGEN].clone(), accepted, live, counts)
 
     @staticmethod
-    def backward(ctx, ct_y1, ct_tel_t, ct_tel_dt, ct_tel_e, ct_tel_g, *_):
+    def backward(ctx, ct_y1, ct_ys, ct_tel_t, ct_tel_dt, ct_tel_e, ct_tel_g, *_):
         t0, t1, *leaves = ctx.saved_tensors
-        ctrl, rtol, atol = ctx.args
+        dynamics, ctrl, rtol, atol, saveat = ctx.args
         rec = ctx.rec
         S = rec.streams.shape[1]
         ct_tel = torch.stack([
             rec.streams.new_zeros(S) if c is None else c.to(rec.streams.dtype)
             for c in (ct_tel_t, ct_tel_dt, ct_tel_e, ct_tel_g)])
         ct_y1 = torch.zeros_like(rec.y1) if ct_y1 is None else ct_y1.contiguous()
+        ct_ys = torch.zeros_like(rec.ys) if ct_ys is None else ct_ys.contiguous()
         grads = whole_solve_bwd(rec, ctx.ns, ct_y1, ct_tel, t0, t1, leaves, rtol,
-                                atol, ctrl)
+                                atol, ctrl, dynamics=dynamics, saveat=saveat,
+                                ct_ys=ct_ys)
         ctx.rec = None
         ct_t0, ct_t1, ct_dt0 = (g.to(t0.dtype).reshape(t0.shape) for g in grads[:3])
-        return (None, None, None, None, ct_t0, ct_t1, ct_dt0, *grads[3:])
+        return (None,) * 6 + (ct_t0, ct_t1, ct_dt0, *grads[3:])
 
 
 def whole_solve_odeint(func: Callable, y0: torch.Tensor, t0, t1, leaves, *,
-                       rtol: float, atol: float, max_steps: int,
-                       controller: Optional[PIController] = None) -> ODESolution:
-    """Integrate ``MLPDynamics`` with leaves ``(W1, b1, W2, b2)`` from ``t0``
-    to ``t1`` in one forward launch and one backward launch.
+                       rtol: float, atol: float, max_steps: int, dynamics: str = "mlp",
+                       saveat=None, controller: Optional[PIController] = None
+                       ) -> ODESolution:
+    """Integrate ``dynamics`` (``"mlp"``: ``MLPDynamics`` with leaves ``(W1,
+    b1, W2, b2)``; ``"altmlp"``: ``AlternatingMLP`` with its
+    ``parameters()``) from ``t0`` to ``t1`` in one forward launch and one
+    backward launch.
 
     ``func(t, y, leaves)`` is the model-level dynamics, used for
     ``odeint``'s prologue (``f(t0, y0)`` and the initial step), so the
-    solution, its NFE (``2 + 6 * trial steps``) and its telemetry are those
-    ``ops.ode.odeint`` returns."""
+    solution, its NFE (``2 + 6 * trial steps``), its telemetry and its
+    ``saveat`` rows ``ys`` (stamps at or before ``t0`` hold ``y0``) are
+    those ``ops.ode.odeint`` returns."""
+    if dynamics not in DYNAMICS:
+        raise ValueError(f"dynamics must be one of {DYNAMICS}, got {dynamics!r}")
     ctrl = controller or PIController.for_order(TSIT5.order)
     leaves = tuple(leaves)
     t0, t1, f_init, dt_init = solve_prologue(func, y0, t0, t1, leaves, rtol, atol)
-    (y1, tel_t, tel_dt, tel_e, tel_g, acc, live, counts) = WholeSolveFn.apply(
-        ctrl, max_steps, float(rtol), float(atol), t0, t1, dt_init, y0, f_init,
-        *leaves)
+    saveat, ys_init = saveat_rows(saveat, t0, t1, y0)
+    (y1, ys, tel_t, tel_dt, tel_e, tel_g, acc, live, counts) = WholeSolveFn.apply(
+        dynamics, ctrl, max_steps, float(rtol), float(atol), saveat, t0, t1, dt_init,
+        y0, f_init, ys_init, *leaves)
     naccept, nreject, done = counts.tolist()
     return ODESolution(y1=y1, stats=solve_stats(naccept, nreject, done),
-                       telemetry=StepTelemetry(tel_t, tel_dt, tel_e, tel_g, acc,
-                                               live))
+                       telemetry=StepTelemetry(tel_t, tel_dt, tel_e, tel_g, acc, live),
+                       ys=None if saveat is None else ys, ts=saveat)

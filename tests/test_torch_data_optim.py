@@ -110,7 +110,7 @@ def test_convert_round_trips_shapes_and_values():
     np.testing.assert_array_equal(sd["node.dynamics.dense_2.bias"].numpy(),
                                   de["dense_2"]["bias"])
     np.testing.assert_array_equal(sd["post.weight"].numpy().T, post["kernel"])
-    clf = ClassifierNODE(None, NeuralODE(MLPDynamics(16, 12)), torch.nn.Linear(16, 10))
+    clf = ClassifierNODE(None, NeuralODE(MLPDynamics(16, 12, device="cpu")), torch.nn.Linear(16, 10))
     clf.load_state_dict(sd)  # strict: every key and shape matches
     assert {k: tuple(v.shape) for k, v in clf.state_dict().items()} == {
         "node.dynamics.dense_1.weight": (12, 17), "node.dynamics.dense_1.bias": (12,),
@@ -122,7 +122,7 @@ def test_convert_round_trips_shapes_and_values():
 
 def test_mlp_dynamics_matches_flax():
     params = _jax_params()["de"]
-    m = MLPDynamics(16, 12)
+    m = MLPDynamics(16, 12, device="cpu")
     m.load_state_dict({k.replace("node.dynamics.", ""): v for k, v in
                        classifier_node_state_dict({"de": params, "post": {"params": {
                            "kernel": np.zeros((16, 10), np.float32),
@@ -142,8 +142,8 @@ class _OtherDynamics(torch.nn.Module):
 
 @pytest.mark.parametrize("fused", [True, "solve", "tiled"])
 def test_unported_fused_routes_raise_not_implemented(fused):
-    """The whole-solve routes run MLPDynamics; the whole solve of other
-    dynamics (K7/K8) is a later slice."""
+    """The whole-solve routes run MLPDynamics and AlternatingMLP; the
+    whole solve of other dynamics (FFJORD's CSL) is a later slice."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         NeuralODE(_OtherDynamics(), fused=fused)
 
@@ -153,7 +153,7 @@ def test_unported_fused_routes_raise_not_implemented(fused):
     dict(fused=True, compensated_eest=True)])
 def test_bad_options_raise_value_error(kwargs):
     with pytest.raises(ValueError):
-        NeuralODE(MLPDynamics(8, 4), **kwargs)
+        NeuralODE(MLPDynamics(8, 4, device="cpu"), **kwargs)
 
 
 def test_fused_requires_mlp_dynamics():
@@ -164,4 +164,4 @@ def test_fused_requires_mlp_dynamics():
 @pytest.mark.parametrize("per_sample", [True, "batched"])
 def test_per_sample_raises_not_implemented(per_sample):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NeuralODE(MLPDynamics(8, 4), per_sample=per_sample)
+        NeuralODE(MLPDynamics(8, 4, device="cpu"), per_sample=per_sample)

@@ -209,7 +209,7 @@ def test_module_apply_and_leaves_match_flax():
     from regneuralde_tpu.models import AlternatingMLP as JAltMLP
 
     c = _case(5, 6, 10, 2)
-    m = AlternatingMLP(6, 10, 2)
+    m = AlternatingMLP(6, 10, 2, device="cpu")
     with torch.no_grad():
         for x, a in zip(m.parameters(), c["leaves"]):
             x.copy_(torch.from_numpy(a))

@@ -7,7 +7,8 @@ hidden 7, latent 8)``, ``MLP((8, 12))`` to a latent of 6, dynamics
 ``AlternatingMLP(6, 10, depth 2)``, Tsit5 at rtol=atol=1e-4. The JAX
 model runs ``fused=False`` (its generic XLA sweep, the same math as its
 K7/K8); the port runs ``fused="step"`` (on the CPU the wrappers take the
-plain versions of K7/K8) and ``fused=False``. Both packages get the same
+plain versions of K7/K8), ``fused=False`` and, for the training step,
+``fused=True`` (the plain versions of the whole solve K3/K4). Both packages get the same
 numpy arrays; parameters cross with ``convert.latent_ode_state_dict``, and
 the reparameterization noise is JAX's own draw fed to the port (``eps``).
 """
@@ -298,12 +299,12 @@ def _jax_model(saveat):
 
 
 def _torch_model(jparams, saveat, fused):
-    node = NeuralODE(AlternatingMLP(LATENT, HIDDEN, DEPTH), time_dep=False, rtol=TOL,
+    node = NeuralODE(AlternatingMLP(LATENT, HIDDEN, DEPTH, device="cpu"), time_dep=False, rtol=TOL,
                      atol=TOL, max_steps=MAX_STEPS, saveat=torch.tensor(saveat),
                      fused=fused)
     model = LatentTimeSeriesModel(
-        rnn=LatentGRU(FEATS, GRU_HIDDEN, GRU_LATENT),
-        enc=MLP(2 * GRU_LATENT, (GRU_LATENT, 2 * LATENT)), node=node,
+        rnn=LatentGRU(FEATS, GRU_HIDDEN, GRU_LATENT, device="cpu"),
+        enc=MLP(2 * GRU_LATENT, (GRU_LATENT, 2 * LATENT), device="cpu"), node=node,
         dec=torch.nn.Linear(LATENT, FEATS))
     model.load_state_dict(latent_ode_state_dict(
         jax.tree_util.tree_map(np.asarray, jparams)))
@@ -330,18 +331,18 @@ def test_modules_match_flax(setup):
     x[:, 2, FEATS:2 * FEATS] = 0.0
     sd = latent_ode_state_dict(jax.tree_util.tree_map(np.asarray, p))
     sub = lambda prefix: {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
-    gru = LatentGRU(FEATS, GRU_HIDDEN, GRU_LATENT)
+    gru = LatentGRU(FEATS, GRU_HIDDEN, GRU_LATENT, device="cpu")
     gru.load_state_dict(sub("rnn."))
     h_j = JGRU(in_dim=FEATS, hidden=GRU_HIDDEN, latent_dim=GRU_LATENT).apply(
         p["rnn"], jnp.asarray(x))
     h_t = gru(torch.from_numpy(x))
     np.testing.assert_allclose(h_t.detach().numpy(), np.asarray(h_j), rtol=2e-5, atol=1e-6)
-    enc = MLP(2 * GRU_LATENT, (GRU_LATENT, 2 * LATENT))
+    enc = MLP(2 * GRU_LATENT, (GRU_LATENT, 2 * LATENT), device="cpu")
     enc.load_state_dict(sub("enc."))
     e_j = JMLP(features=(GRU_LATENT, 2 * LATENT)).apply(p["enc"], h_j)
     np.testing.assert_allclose(enc(torch.from_numpy(np.array(h_j))).detach().numpy(),
                                np.asarray(e_j), rtol=2e-5, atol=1e-6)
-    dyn = AlternatingMLP(LATENT, HIDDEN, DEPTH)
+    dyn = AlternatingMLP(LATENT, HIDDEN, DEPTH, device="cpu")
     dyn.load_state_dict(sub("node.dynamics."))
     z = np.array(e_j)[:, :LATENT]
     f_j = JAltMLP(dim=LATENT, hidden=HIDDEN, depth=DEPTH).apply(p["de"], jnp.asarray(z))
@@ -532,7 +533,7 @@ def jax_train(setup):
 GRAD_BOUND = 2e-3
 
 
-@pytest.mark.parametrize("fused", ["step", False])
+@pytest.mark.parametrize("fused", ["step", False, True])
 def test_latent_training_steps_match_jax(setup, jax_train, fused):
     """One and three training steps (``bench.py``'s loss, InvDecay(1e-5)
     then AdaMax(0.01)): every step the same NFE and accept sequence and
@@ -574,21 +575,40 @@ def test_latent_training_steps_match_jax(setup, jax_train, fused):
 
 @pytest.mark.parametrize("fused", [True, "solve", "tiled"])
 def test_whole_solve_options_with_altmlp(fused, monkeypatch):
-    """``mode="adjoint"`` raises ``NotImplementedError`` naming ROADMAP (the
-    whole solve of AlternatingMLP is the next slice; never remapped);
-    ``mode="while"`` takes the step route (K7 on the card), as in JAX."""
-    node = NeuralODE(AlternatingMLP(LATENT, HIDDEN, DEPTH), time_dep=False, rtol=TOL,
-                     atol=TOL, max_steps=MAX_STEPS, fused=fused)
-    x = torch.from_numpy(_dyn_case(0)[1])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        node(x)
+    """``mode="adjoint"`` runs the whole-solve wrappers for AlternatingMLP
+    (``dynamics="altmlp"``), one forward and one backward call: with
+    ``saveat`` on ``True``/``"solve"``, final-state on ``"tiled"``, whose
+    ``saveat`` raises ``ValueError`` as in JAX; ``mode="while"`` takes the
+    step route (K7 on the card), as in JAX."""
+    from regneuralde_tpu_torch.ops import whole_solve as ws
+
     calls = []
+    for name in ("whole_solve_fwd", "whole_solve_bwd"):
+        real = getattr(ws, name)
+        monkeypatch.setattr(ws, name, lambda *a, _n=name, _r=real, **k:
+                            calls.append((_n, k["dynamics"], k["saveat"] is not None))
+                            or _r(*a, **k))
+    node = NeuralODE(AlternatingMLP(LATENT, HIDDEN, DEPTH, device="cpu"), time_dep=False,
+                     rtol=TOL, atol=TOL, max_steps=MAX_STEPS, fused=fused)
+    x = torch.from_numpy(_dyn_case(0)[1])
+    sa = torch.tensor(SAVEAT[1.0])
+    saves = fused != "tiled"
+    if not saves:
+        with pytest.raises(ValueError, match="final-state solves only"):
+            node(x, saveat=sa)
+    out = node(x, saveat=sa if saves else None)
+    assert out.solution.stats.success
+    assert out.value.shape == ((BATCH, 5, LATENT) if saves else (BATCH, LATENT))
+    out.value.square().sum().backward()
+    assert calls == [("whole_solve_fwd", "altmlp", saves), ("whole_solve_bwd", "altmlp", saves)]
+    calls.clear()
+    steps = []
     real = fg.altmlp_normed_sweep
     monkeypatch.setattr(fg, "altmlp_normed_sweep",
-                        lambda *a: calls.append(1) or real(*a))
-    out = node(x, mode="while", saveat=torch.tensor(SAVEAT[1.0]))
+                        lambda *a: steps.append(1) or real(*a))
+    out = node(x, mode="while", saveat=sa)
     assert out.solution.stats.success and out.value.shape == (BATCH, 5, LATENT)
-    assert len(calls) == int(out.telemetry.live.sum())
+    assert len(steps) == int(out.telemetry.live.sum()) and not calls
 
 
 @pytest.mark.parametrize("fused", ["step", False])
@@ -606,7 +626,7 @@ def test_step_routes_take_the_altmlp_sweeps(fused, monkeypatch):
 
     monkeypatch.setattr(fg, "altmlp_normed_sweep", count("fwd", real_f))
     monkeypatch.setattr(fg, "altmlp_normed_sweep_bwd", count("bwd", real_b))
-    node = NeuralODE(AlternatingMLP(LATENT, HIDDEN, DEPTH), time_dep=False, rtol=TOL,
+    node = NeuralODE(AlternatingMLP(LATENT, HIDDEN, DEPTH, device="cpu"), time_dep=False, rtol=TOL,
                      atol=TOL, max_steps=MAX_STEPS, fused=fused,
                      saveat=torch.tensor(SAVEAT[1.0]))
     fm.reset_launches()

@@ -69,7 +69,7 @@ def _torch_loss(reg_weight):
 
 
 def _torch_model(jparams):
-    node = NeuralODE(MLPDynamics(DIM, HIDDEN), rtol=TOL, atol=TOL,
+    node = NeuralODE(MLPDynamics(DIM, HIDDEN, device="cpu"), rtol=TOL, atol=TOL,
                      max_steps=MAX_STEPS, fused="step")
     clf = ClassifierNODE(None, node, torch.nn.Linear(DIM, 10))
     numpy_tree = jax.tree_util.tree_map(np.asarray, jparams)
@@ -193,7 +193,7 @@ def test_init_sizes_the_post_net_and_counts_no_launch():
     from regneuralde_tpu_torch.ops import fused_mlp as fm
 
     gen = torch.Generator().manual_seed(0)
-    node = NeuralODE(MLPDynamics(DIM, HIDDEN, generator=gen), rtol=TOL,
+    node = NeuralODE(MLPDynamics(DIM, HIDDEN, generator=gen, device="cpu"), rtol=TOL,
                      atol=TOL, max_steps=MAX_STEPS, fused="step")
     clf = ClassifierNODE(None, node, torch.nn.LazyLinear(10))
     fm.reset_launches()

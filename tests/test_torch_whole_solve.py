@@ -174,7 +174,7 @@ def test_whole_solve_matches_jax_engine(jax_runs, fused, reg_weight):
     CE + 100 * error_estimate: loss at rtol 5e-4, each gradient leaf
     within NOISE_FLOOR (relative Frobenius)."""
     run = jax_runs[fused, reg_weight]
-    node = NeuralODE(MLPDynamics(DIM, HIDDEN), rtol=TOL, atol=TOL,
+    node = NeuralODE(MLPDynamics(DIM, HIDDEN, device="cpu"), rtol=TOL, atol=TOL,
                      max_steps=MAX_STEPS, fused=fused)
     clf = ClassifierNODE(None, node, torch.nn.Linear(DIM, 10))
     clf.load_state_dict(classifier_node_state_dict(run["params"]))
@@ -182,7 +182,7 @@ def test_whole_solve_matches_jax_engine(jax_runs, fused, reg_weight):
     ws.reset_launches()
     loss, out = _torch_loss(clf, x, y, reg_weight)
     loss.backward()
-    assert ws.LAUNCHES == {"whole_solve_fwd": 0, "whole_solve_bwd": 0}
+    assert ws.LAUNCHES == {k: 0 for k in ws.LAUNCHES} and len(ws.LAUNCHES) == 4
     assert out.success
     assert out.nfe == run["nfe"]
     tel = out.telemetry
@@ -220,7 +220,7 @@ def test_whole_solve_matches_jax_engine(jax_runs, fused, reg_weight):
 
 def _node_run(fused, tspan, batch=8, dtype=torch.float64, seed=0, max_steps=MAX_STEPS):
     gen = torch.Generator().manual_seed(seed)
-    node = NeuralODE(MLPDynamics(DIM, HIDDEN, generator=gen), rtol=TOL, atol=TOL,
+    node = NeuralODE(MLPDynamics(DIM, HIDDEN, generator=gen, device="cpu"), rtol=TOL, atol=TOL,
                      max_steps=max_steps, fused=fused).to(dtype)
     with torch.no_grad():  # biases off zero, so every leaf matters
         for p in node.parameters():
@@ -271,7 +271,7 @@ def test_plain_whole_solve_record():
     history holds each step's start state, and ``final`` the step counts
     and the loop's last (t, dt, qold)."""
     gen = torch.Generator().manual_seed(0)
-    leaves = [p.detach() for p in MLPDynamics(DIM, HIDDEN, generator=gen).parameters()]
+    leaves = [p.detach() for p in MLPDynamics(DIM, HIDDEN, generator=gen, device="cpu").parameters()]
     y0 = torch.from_numpy(_batch(4)[0])
     f0 = torch.zeros_like(y0)
     t0, t1, dt0 = torch.tensor(0.0), torch.tensor(1.0), torch.tensor(0.05)
@@ -308,7 +308,7 @@ def test_whole_solve_options_route_to_whole_solve(fused, monkeypatch):
                         lambda *a, **k: calls.append("whole") or real_ws(*a, **k))
     monkeypatch.setattr(fm, "mlp_dynamics_normed_sweep",
                         lambda *a, **k: calls.append("step") or real_step(*a, **k))
-    node = NeuralODE(MLPDynamics(DIM, HIDDEN), rtol=TOL, atol=TOL,
+    node = NeuralODE(MLPDynamics(DIM, HIDDEN, device="cpu"), rtol=TOL, atol=TOL,
                      max_steps=MAX_STEPS, fused=fused)
     x = torch.from_numpy(_batch(8)[0])
     ws.reset_launches()
@@ -319,7 +319,7 @@ def test_whole_solve_options_route_to_whole_solve(fused, monkeypatch):
     out = node(x, mode="while")
     assert out.solution.stats.success
     assert set(calls) == {"step"}
-    assert ws.LAUNCHES == {"whole_solve_fwd": 0, "whole_solve_bwd": 0}
+    assert ws.LAUNCHES == {k: 0 for k in ws.LAUNCHES} and len(ws.LAUNCHES) == 4
     assert fm.LAUNCHES == {"normed_tsit5_fwd": 0, "normed_tsit5_bwd": 0}
 
 
@@ -336,16 +336,27 @@ def test_tiled_takes_any_batch():
 
 
 @pytest.mark.parametrize("fused", [False, "step", True, "solve", "tiled"])
-def test_saveat_raises_not_implemented(fused):
-    """``saveat`` runs on the step routes (the trajectory, ``(batch, time,
-    feat)``, ending in y1) and raises on the whole-solve routes, whose
-    Hermite save cursor is the next item of ROADMAP slice 2; it is never
-    remapped to the step route."""
-    node = NeuralODE(MLPDynamics(DIM, HIDDEN), fused=fused)
-    if fused in (False, "step"):
-        out = node(torch.zeros(2, DIM), saveat=torch.tensor([0.5, 1.0]))
-        assert out.value.shape == (2, 2, DIM) and out.solution.stats.success
-        assert torch.equal(out.value[:, -1], out.solution.y1)
+def test_saveat_raises_not_implemented(fused, monkeypatch):
+    """``saveat`` gives the trajectory, ``(batch, time, feat)``, ending in
+    y1: on the step routes, and on ``fused=True``/``"solve"`` through the
+    whole-solve wrappers (K3's save cursor, K4's Hermite pullback), in one
+    forward and one backward call. ``fused="tiled"`` with ``saveat``
+    raises ``ValueError`` with JAX's message; no option raises
+    ``NotImplementedError`` or is remapped to another route."""
+    calls = []
+    for name in ("whole_solve_fwd", "whole_solve_bwd"):
+        real = getattr(ws, name)
+        monkeypatch.setattr(ws, name, lambda *a, _n=name, _r=real, **k:
+                            calls.append(_n) or _r(*a, **k))
+    node = NeuralODE(MLPDynamics(DIM, HIDDEN, device="cpu"), fused=fused)
+    x = torch.zeros(2, DIM, requires_grad=True)
+    if fused == "tiled":
+        with pytest.raises(ValueError, match="final-state solves only"):
+            node(x, saveat=torch.tensor([0.5, 1.0]))
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        node(torch.zeros(2, DIM), saveat=torch.tensor([0.5, 1.0]))
+    out = node(x, saveat=torch.tensor([0.5, 1.0]))
+    assert out.value.shape == (2, 2, DIM) and out.solution.stats.success
+    assert torch.equal(out.value[:, -1], out.solution.y1)
+    out.value.sum().backward()
+    whole = fused in (True, "solve")
+    assert calls == (["whole_solve_fwd", "whole_solve_bwd"] if whole else [])

@@ -6,12 +6,11 @@
                                         [--tol 1.4e-8] [--out DIR]
 
 ``--model mnist`` (the default) builds the flagship classifier of
-``chip_smoke.py`` (MLPDynamics(784, 100), Tsit5, max_steps=96, batch 512)
-on the step kernels (``--fused step``, the default) or the whole-solve
-kernels (``--fused true``); ``--model latent`` the latent ODE of
-``chip_smoke.py`` (batch 256, 49 saveat stamps, max_steps=256) on the
-AlternatingMLP step kernels K7/K8 (``--fused step`` only: its whole solve
-is not ported). It runs one warm-up step, then:
+``chip_smoke.py`` (MLPDynamics(784, 100), Tsit5, max_steps=96, batch 512),
+``--model latent`` the latent ODE of ``chip_smoke.py`` (batch 256, 49
+saveat stamps, max_steps=256), on the step kernels (``--fused step``, the
+default: K1/K2 or K7/K8 on every trial step) or the whole-solve kernels
+(``--fused true``: K3/K4 once per solve). It runs one warm-up step, then:
 
 * times ``--steps`` training steps on the host clock (each ends in a
   synchronize) and reports ms per step, NFE per step and trial steps;
@@ -19,7 +18,12 @@ is not ported). It runs one warm-up step, then:
   mode, one warning per synchronising call);
 * traces one step with ``torch.profiler`` and prints device time by kernel,
   the device-busy share of the step's wall time, and writes the chrome trace
-  to ``--out``.
+  to ``--out``;
+* for the latent model, splits that step's host and device time between
+  its parts: ``record_function`` ranges around the encoder's GRU loop and
+  MLP, the node (the solve) and the decoder in the forward, and in the
+  backward the solve's autograd function against everything else (the
+  GRU's, encoder's, decoder's and loss's autograd nodes).
 """
 
 import argparse
@@ -33,6 +37,49 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 
+def _annotate(module, label, record_function):
+    """A ``record_function`` range around each forward call of ``module``."""
+    open_ranges = []
+    module.register_forward_pre_hook(
+        lambda m, a: open_ranges.append(record_function(label).__enter__()))
+    module.register_forward_hook(
+        lambda m, a, out: open_ranges.pop().__exit__(None, None, None))
+
+
+def _print_split(events, wall_ms):
+    """Host (CPU) and device time of the latent step's parts: the forward
+    ranges of ``_annotate`` and, in the backward, the solve's autograd
+    function against the other autograd nodes (those the solve's backward
+    runs itself, the step route's autograd of its scalar chain, count as
+    the solve's). Host-side events only: each range also has a device-side
+    twin that spans its kernels."""
+    from torch.autograd import DeviceType
+
+    events = [e for e in events if e.device_type == DeviceType.CPU]
+    solve_bwd = ("WholeSolveFnBackward", "FastAdjointSolveBackward")
+    engine = "autograd::engine::evaluate_function:"
+    solves = [e.time_range for e in events
+              if e.name.startswith(engine) and any(k in e.name for k in solve_bwd)]
+    rows = {}
+
+    def add(name, e):
+        host, dev = rows.get(name, (0.0, 0.0))
+        rows[name] = (host + e.cpu_time_total, dev + e.device_time_total)
+
+    for e in events:
+        if e.name.startswith("[part]"):
+            add(e.name[7:], e)
+        elif e.name.startswith(engine):
+            if any(k in e.name for k in solve_bwd):
+                add("backward: the solve", e)
+            elif not any(r.start <= e.time_range.start and e.time_range.end <= r.end
+                         for r in solves):
+                add("backward: the rest (GRU, encoder, decoder, loss)", e)
+    for name, (host, dev) in rows.items():
+        print(f"[split] {name}: host {host / 1e3:.3f} ms, device {dev / 1e3:.3f} ms "
+              f"(traced step wall {wall_ms:.3f} ms)")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", choices=["mnist", "latent"], default="mnist")
@@ -44,7 +91,7 @@ def main():
 
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     if not torch.cuda.is_available():
         print("torch_step_profile: no CUDA device", file=sys.stderr)
@@ -63,13 +110,15 @@ def main():
     device = torch.device("cuda", 0)
     fused = True if args.fused == "true" else "step"
     if args.model == "latent":
-        if fused != "step":
-            ap.error("--model latent runs --fused step (its whole solve is not ported)")
         batches, saveat = cs.latent_batches(args.steps + 2, device)
         model, gen = cs.build_latent(args.tol, fused, device, saveat)
         model.init(cs.latent_inputs(*batches[0][:3]), generator=gen)
         optimizer = latent_ode_optimizer()
         loss_fn = cs.latent_loss
+        ranges = {"rnn": "[part] encoder: GRU loop", "enc": "[part] encoder: MLP",
+                  "node": "[part] node: the solve", "dec": "[part] decoder"}
+        for attr, label in ranges.items():
+            _annotate(getattr(model, attr), label, record_function)
     else:
         batches = cs.synthetic_batches(args.steps + 2, device)
         model, gen = cs.build_classifier(args.tol, fused, device)
@@ -113,10 +162,12 @@ def main():
         state, loss, out = step(state, *batches[0])
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
-    # Device-side events only: a CPU op that launched a kernel through
-    # ctypes also reports that kernel's time as its own.
+    # Device-side kernels only: a CPU op that launched a kernel through
+    # ctypes also reports that kernel's time as its own, and a [part] range
+    # has a device-side twin that spans the kernels inside it.
     events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+              and not e.key.startswith("[part]")]
     device_us = sum(e.self_device_time_total for e in events)
     median_ms = sorted(r["ms"] for r in rows)[len(rows) // 2]
     print(f"[profile] traced step wall {wall * 1e3:.3f} ms, device busy "
@@ -127,6 +178,8 @@ def main():
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d} calls  {e.key[:90]}")
+    if args.model == "latent":
+        _print_split(prof.events(), wall * 1e3)
     os.makedirs(args.out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(
         args.out, f"train_step_trace_{args.model}_{args.fused}.json"))
