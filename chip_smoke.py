@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's MNIST Neural-ODE and latent-ODE training
-steps on one GPU, on the step kernels and on the whole solve.
+"""Drive the PyTorch/CUDA port's MNIST Neural-ODE, latent-ODE and FFJORD
+training steps on one GPU, on the step kernels and on the whole solve.
 
     python3 chip_smoke.py
 
@@ -50,10 +50,27 @@ at first use. Phases (each checks its results; any failure exits non-zero):
 13. phase 9 on the whole solve: ``fused=True`` against ``fused=False``;
 14. phase 10 on ``fused=True``: one launch of each whole-solve kernel per
    step and no step kernel; each step's NFE and accept sequence equal to
-   ``fused="step"``'s from the same weights and batch.
+   ``fused="step"``'s from the same weights and batch;
+15. K7-CSL and K8-CSL (FFJORD's CSL trial-step kernels) against their plain
+   versions at 1024x44x100 (and 1024x46 with the kinetic terms), at
+   rtol=atol=1e-5 and 1.4e-8: K7-CSL's rows bitwise equal and its norm sums
+   bitwise equal to the plain terms summed in the kernel's order, K8-CSL
+   within BWD_BOUND, bitwise determinism, CUDA-event times;
+16. K3/K4 with the CSL tile bodies against their plain versions on a
+   MiniBooNE batch and its probe, as phase 11 (every stored trial step
+   bitwise K7-CSL's, K4 against the plain version and a float64 walk);
+17. one forward+backward of FFJORD's training step at rtol=atol=1e-5 on
+   ``fused="step"`` and on ``fused=True``, each against ``fused=False``;
+18. three training steps of FFJORD's tabular configuration
+   (``CSLDynamics(43, 100)``, batch 1024 of the MiniBooNE surrogate, Tsit5
+   at rtol=atol=1.4e-8, max_steps=128, -mean(logpx) + 5e3 *
+   error_estimate, WeightDecay(1e-5) then Adam(1e-2)) on ``fused="step"``
+   and on ``fused=True`` (one K3-CSL and one K4-CSL launch a step, no other
+   kernel), each ``fused=True`` step with the NFE and accept sequence of
+   ``fused="step"`` from the same weights, and the ms a step of both.
 
 Each line of the kernels' JSON record gives the kernel's launches on its
-main path (phases 4, 7, 10 and 14), its time and its plain version's (CUDA
+main path (phases 4, 7, 10, 14 and 18), its time and its plain version's (CUDA
 events, median of 7), and its bound: the larger of its float32 operations
 over the card's f32 rate and its bytes over the memory rate. The last two
 lines of standard output are the kernels' JSON record and the device
@@ -73,11 +90,21 @@ MAX_STEPS = 96
 LATENT_BATCH, LATENT_OBS, LATENT_DIM, LATENT_HIDDEN, LATENT_DEPTH = 256, 37, 20, 50, 4
 LATENT_MAX_STEPS = 256
 LATENT_SIGMA, LATENT_REG = 0.01, 1e3
+FFJORD_BATCH, FFJORD_DIM, FFJORD_HIDDEN = 1024, 43, 100
+FFJORD_MAX_STEPS = 128
+FFJORD_DATA_SEED = 3021  # experiments/configs/ffjord_tabular.yml
+FFJORD_REG = 5e3  # reg.exp_decay_schedule(5e3, 1e3, 500)(0), checked in main
 FWD_BOUND, BWD_BOUND, GRAD_BOUND, REG_GRAD_BOUND = 1e-4, 1e-3, 1e-3, 5e-2
 # K4 against its plain version with the telemetry's cotangents seeded, on
 # every output but ct_f0: about 9 times the worst reading on the H100
 # (1.1e-3, the time scalars of phase 11 at 1.4e-8 and cb1 of phase 5).
 TEL_BWD_BOUND = 1e-2
+# The same for K4-CSL at rtol=atol=1.4e-8 (phase 16; TEL_BWD_BOUND at
+# 1e-5), where FFJORD's error estimate sits at its float32 floor: the sound
+# kernel reads 7.4e-2 there (the time scalars; 4.6e-3 at 1e-5), a planted
+# fault that drops the error norm's share of ct_dt 1.79 (6.9e-2 at 1e-5), on
+# the H100 (tools/torch_csl_fault_probe.py).
+CSL_TEL_BWD_BOUND = 0.15
 WS_CTRL_BOUND = 1e-5
 REPS = 7  # timed runs per kernel (median), after two warm-up runs
 # NVIDIA H100 SXM data sheet: dense f32 rate outside the tensor cores, HBM
@@ -472,6 +499,7 @@ def phase_slice(device, batches, fused):
     kernel once per training step on ``True``, and no step kernel."""
     import torch
 
+    from regneuralde_tpu_torch.ops import fused_csl as fc
     from regneuralde_tpu_torch.ops import fused_generic as fg
     from regneuralde_tpu_torch.ops import fused_mlp as fm
     from regneuralde_tpu_torch.ops import whole_solve as ws
@@ -489,9 +517,9 @@ def phase_slice(device, batches, fused):
     before = [p.detach().clone() for p in clf.parameters()]
 
     torch.cuda.synchronize()
-    for mod in (fg, fm, ws):  # count only this path's launches
+    counters = (fg, fm, ws, fc)
+    for mod in counters:  # count only this path's launches
         mod.reset_launches()
-    launches = {**fm.LAUNCHES, **ws.LAUNCHES, **fg.LAUNCHES}
     trial_steps = 0
     for i, (x, y) in enumerate(batches):
         start = time.perf_counter()
@@ -502,7 +530,7 @@ def phase_slice(device, batches, fused):
         naccept = int(sol.accepted.sum().item())
         nlive = int(sol.live.sum().item())
         trial_steps += nlive
-        launches = {**fm.LAUNCHES, **ws.LAUNCHES, **fg.LAUNCHES}
+        launches = {k: v for mod in counters for k, v in mod.LAUNCHES.items()}
         print(f"[slice] fused={fused!r} step {i}: loss={loss.item()!r} nfe={out.nfe} "
               f"naccept={naccept} nreject={nlive - naccept} "
               f"success={out.success} wall_s={wall!r} "
@@ -516,15 +544,12 @@ def phase_slice(device, batches, fused):
     print(f"[slice] fused={fused!r} trial steps={trial_steps} "
           f"launches={json.dumps(launches)} max parameter change={moved!r}")
     _check(moved > 0.0, "the parameters moved")
-    none = dict(altmlp_tsit5_fwd=0, altmlp_tsit5_bwd=0, whole_solve_altmlp_fwd=0,
-                whole_solve_altmlp_bwd=0)
-    per_step = {"step": dict(normed_tsit5_fwd=trial_steps, normed_tsit5_bwd=trial_steps,
-                             whole_solve_fwd=0, whole_solve_bwd=0, **none),
-                True: dict(normed_tsit5_fwd=0, normed_tsit5_bwd=0,
-                           whole_solve_fwd=len(batches), whole_solve_bwd=len(batches),
-                           **none)}
-    _check(launches == per_step[fused],
-           f"fused={fused!r}: launches {launches}, expected {per_step[fused]}")
+    want = {k: 0 for k in launches}
+    if fused == "step":
+        want.update(normed_tsit5_fwd=trial_steps, normed_tsit5_bwd=trial_steps)
+    else:
+        want.update(whole_solve_fwd=len(batches), whole_solve_bwd=len(batches))
+    _check(launches == want, f"fused={fused!r}: launches {launches}, expected {want}")
     return launches
 
 
@@ -741,6 +766,7 @@ def phase_latent_slice(device, batches, saveat, fused):
     its accept sequence."""
     import torch
 
+    from regneuralde_tpu_torch.ops import fused_csl as fc
     from regneuralde_tpu_torch.ops import fused_generic as fg
     from regneuralde_tpu_torch.ops import fused_mlp as fm
     from regneuralde_tpu_torch.ops import whole_solve as ws
@@ -758,7 +784,7 @@ def phase_latent_slice(device, batches, saveat, fused):
     before = [p.detach().clone() for p in model.parameters()]
 
     torch.cuda.synchronize()
-    counters = (fg, fm, ws)
+    counters = (fg, fm, ws, fc)
     for mod in counters:  # count only this path's launches
         mod.reset_launches()
     trial_steps = 0
@@ -817,16 +843,18 @@ def _k4_groups(g, n_leaf_groups, saves):
     return head + leaves
 
 
-def _check_steps_against_k7(tag, rec, ns, args):
-    """Each of K3's stored trial steps (AlternatingMLP) against K7 on its
-    own stored inputs: the norm sums and rows bitwise equal, and the stored
-    controller updates bitwise equal to ``ode._post`` on the card."""
+def _check_steps_against_k7(tag, rec, ns, args, sweep=None):
+    """Each of K3's stored trial steps against its step kernel (``sweep``:
+    K7 for AlternatingMLP, the default, or K7-CSL) on its own stored
+    inputs: the norm sums and rows bitwise equal, and the stored controller
+    updates bitwise equal to ``ode._post`` on the card."""
     import torch
 
     from regneuralde_tpu_torch.ops import fused_generic as fg
     from regneuralde_tpu_torch.ops import ode
     from regneuralde_tpu_torch.ops import whole_solve as ws
 
+    sweep = sweep or fg.altmlp_normed_sweep
     t0, t1, _, y0, _, leaves, tol, _, ctrl, _ = args
     st = rec.streams
     tdir, span = torch.sign(t1 - t0), torch.abs(t1 - t0)
@@ -837,7 +865,7 @@ def _check_steps_against_k7(tag, rec, ns, args):
         remaining = t1 - t
         is_last = (dt - remaining) * tdir >= 0
         dt_eff = torch.where(is_last, remaining, dt)
-        res = fg.altmlp_normed_sweep(t, dt_eff, rec.hy[i], rec.hf[i], leaves, tol, tol)
+        res = sweep(t, dt_eff, rec.hy[i], rec.hf[i], leaves, tol, tol)
         sums = torch.stack(res[2:])
         same &= torch.equal(sums, st[ws.ST_E:ws.ST_ACC, i])
         if st[ws.ST_ACC, i] > 0.5:
@@ -850,7 +878,8 @@ def _check_steps_against_k7(tag, rec, ns, args):
             want += list(post[:3])
             got += [st[ws.ST_T, i + 1], st[ws.ST_DT, i + 1], st[ws.ST_QOLD, i + 1]]
         ctrl_same &= all(torch.equal(a.reshape(()), b.reshape(())) for a, b in zip(got, want))
-    print(f"[{tag}] {ns} stored trial steps against K7 on their inputs: norm sums and "
+    print(f"[{tag}] {ns} stored trial steps against the step kernel on their inputs: "
+          f"norm sums and "
           f"rows bitwise equal {same}; controller bitwise equal to ode._post {ctrl_same}")
     _check(same, f"{tag}: K3's norm sums and rows equal K7's")
     _check(ctrl_same, f"{tag}: K3's controller equals ode._post on the card")
@@ -864,7 +893,8 @@ def _whole_solve_vs_plain(tag, dynamics, leaves, y0, func, saveat, tol, max_step
 
     The forward: the same step counts, accept sequence and save cursors,
     y1 and ys within ``fwd_bound`` (relative), and ``check_steps(tag,
-    record, trial steps, arguments)`` on the stored trial steps.
+    record, trial steps, arguments)`` on the stored trial steps; the solve
+    must reach t1 within ``max_steps``.
 
     The backward, over K3's record, against its float32 plain version and
     a float64 plain walk, seeded with a cotangent of y1, then of y1 and ys,
@@ -1096,6 +1126,410 @@ def phase_same_steps_as_step_route(device, batches, saveat, steps):
                f"step {i}: fused=True and fused='step' take the same steps")
 
 
+# ---------------------------------------------------------------------------
+# FFJORD (phases 15-18).
+# ---------------------------------------------------------------------------
+
+
+def _csl_work(B, D, H):
+    """K7-CSL's and K8-CSL's f32 operations at B x D x H and the parameters'
+    floats. Forward, per row and stage: the three affine maps (D H, H^2, H
+    D multiply-adds) and the three hops of the e^T J chain (the same), so 6
+    stages x 4 B (2 D H + H^2). Backward: the recompute (the forward's), and
+    per stage the three hops' and three layers' input cotangents (the
+    forward's products again) and each weight's two outer products (twice
+    them): three times the forward."""
+    fwd = 6 * 4 * B * (2 * D * H + H * H)
+    return fwd, 3 * fwd, 2 * D * H + H * H + 4 * (2 * H + D)
+
+
+def _kernel_order_sums(terms, rows):
+    """The three norm sums of per-element terms (each ``(B, A)``) in the
+    order of the step kernels: per tile of ``rows`` rows one thread an
+    element, a shuffle butterfly in each warp, the warps in order, then
+    the tiles lane-strided over one warp and a butterfly
+    (``normed_tile_out``, ``sum_slots_warp_kernel``). float32 throughout,
+    so the sums equal the kernel's bitwise when the terms do."""
+    import torch
+
+    def butterfly(v):  # over the last axis (32 lanes)
+        for off in (16, 8, 4, 2, 1):
+            v = v + v[..., torch.arange(32, device=v.device) ^ off]
+        return v[..., 0]
+
+    out = []
+    for x in terms:
+        B, A = x.shape
+        ntiles = (B + rows - 1) // rows
+        per = torch.zeros(ntiles * rows * A, dtype=x.dtype, device=x.device)
+        per[:B * A] = x.reshape(-1)
+        per = per.reshape(ntiles, rows * A)
+        lanes = torch.zeros((ntiles, 256), dtype=x.dtype, device=x.device)
+        lanes[:, :rows * A] = per  # one element a thread (rows * A <= 256)
+        warps = butterfly(lanes.reshape(ntiles, 8, 32))
+        tile = torch.zeros(ntiles, dtype=x.dtype, device=x.device)
+        for w in range(8):
+            tile = tile + warps[:, w]
+        npad = (ntiles + 31) // 32 * 32
+        strided = torch.zeros(npad, dtype=x.dtype, device=x.device)
+        strided[:ntiles] = tile
+        strided = strided.reshape(-1, 32)
+        lane_sums = torch.zeros(32, dtype=x.dtype, device=x.device)
+        for j in range(strided.shape[0]):
+            lane_sums = lane_sums + strided[j]
+        out.append(butterfly(lane_sums))
+    return out
+
+
+def _csl_inputs(gen, B, D, H, kinetic, device):
+    """Seeded CSL leaves (LeCun-scaled weights, biases and time weights at
+    0.1 to 1), the probe, and a state ``y`` and random ``k1`` of width D + 1
+    or D + 3."""
+    import torch
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(device)
+
+    leaves = []
+    for n_in, n_out in ((D, H), (H, H), (H, D)):
+        leaves += [rnd(n_out, n_in, scale=n_in ** -0.5), rnd(n_out, scale=0.1),
+                   rnd(n_out, 1), rnd(n_out, 1), rnd(n_out, scale=0.1)]
+    A = D + (3 if kinetic else 1)
+    leaves.append(rnd(B, D))
+    return leaves, rnd(B, A, scale=0.5), rnd(B, A, scale=0.3)
+
+
+def phase_csl_kernels(device):
+    """K7-CSL/K8-CSL against their plain versions at the FFJORD width
+    (1024 x 44 x 100, and 1024 x 46 with the kinetic terms) on seeded random
+    inputs (random k1 keeps the embedded error far above float32 rounding),
+    at rtol=atol=1e-5 and 1.4e-8: K7-CSL's rows bitwise equal to its plain
+    version's and its sums bitwise equal to the plain version's terms summed
+    in the kernel's order (``_kernel_order_sums``); K8-CSL within BWD_BOUND;
+    both bitwise deterministic; CUDA-event times at 1.4e-8, without the
+    kinetic terms (the main path's shape)."""
+    import torch
+
+    from regneuralde_tpu_torch.ops import fused_csl as fc
+    from regneuralde_tpu_torch.ops import ode
+
+    B, D, H = FFJORD_BATCH, FFJORD_DIM, FFJORD_HIDDEN
+    t = torch.tensor(0.07, device=device)
+    dt = torch.tensor(0.11, device=device)
+    names_b = ["ct_t|ct_dt", "ct_y", "ct_k1", "params"]
+    groups = lambda g: [torch.stack(g[:2]), g[2], g[3],
+                        torch.cat([x.flatten() for x in g[4][:fc.N_PARAMS]])]
+    for kinetic in (False, True):
+        gen = torch.Generator().manual_seed(SEED + 12)
+        leaves, y, k1 = _csl_inputs(gen, B, D, H, kinetic, device)
+        cts = [torch.randn(y.shape, generator=gen).to(device),
+               torch.randn(y.shape, generator=gen).to(device),
+               torch.tensor(0.7, device=device), torch.tensor(1.3, device=device),
+               torch.tensor(-0.4, device=device)]
+        for tol in (1e-5, FLAGSHIP_TOL):
+            kf = fc.csl_normed_sweep(t, dt, y, k1, leaves, tol, tol)
+            terms = ode.normed_terms(fc.csl_aug_apply(D, kinetic), t, dt, y, k1,
+                                     tuple(leaves), tol, tol)
+            want_sums = _kernel_order_sums(terms[2:], 2)
+            kb = fc.csl_normed_sweep_bwd(t, dt, y, k1, leaves, cts, tol, tol)
+            pb = fc._csl_bwd_math(t, dt, y, k1, leaves, cts, tol, tol)
+            torch.cuda.synchronize()
+            rows_eq = torch.equal(kf.y_new, terms[0]) and torch.equal(kf.k_last, terms[1])
+            sums_eq = all(torch.equal(a, b) for a, b in zip(kf[2:], want_sums))
+            plain_sums = fc.plain_csl_normed_sweep(t, dt, y, k1, leaves, tol, tol)[2:]
+            sums_rel = max(_rel(a, b) for a, b in zip(kf[2:], plain_sums))
+            errs_b = {n: _rel(a, b) for n, a, b in zip(names_b, groups(kb), groups(pb))}
+            print(f"[csl] kinetic={kinetic} tol={tol:g} K7-CSL rows bitwise {rows_eq}, "
+                  f"sums bitwise (kernel order) {sums_eq}, sums rel err against "
+                  f"torch.sum {sums_rel:.3e}; K8-CSL rel err " + json.dumps(errs_b))
+            _check(rows_eq, f"K7-CSL rows at kinetic={kinetic}, tol {tol}")
+            _check(sums_eq, f"K7-CSL sums at kinetic={kinetic}, tol {tol}")
+            _check(all(v == v and v <= BWD_BOUND for v in errs_b.values()),
+                   f"K8-CSL at kinetic={kinetic}, tol {tol}: {errs_b}")
+            again_f = fc.csl_normed_sweep(t, dt, y, k1, leaves, tol, tol)
+            again_b = fc.csl_normed_sweep_bwd(t, dt, y, k1, leaves, cts, tol, tol)
+            _check(all(torch.equal(a, b) for a, b in zip(kf, again_f)),
+                   "K7-CSL is deterministic")
+            _check(all(torch.equal(a, b) for a, b in zip(groups(kb), groups(again_b))),
+                   "K8-CSL is deterministic")
+        if not kinetic:
+            main = (leaves, y, k1, cts)
+
+    # max_abs_err of the record at the flagship tolerance, without the
+    # kinetic terms: K7-CSL over its rows, K8-CSL with only the row
+    # cotangents seeded (as phase 2)
+    leaves, y, k1, cts = main
+    tol = FLAGSHIP_TOL
+    kf = fc.csl_normed_sweep(t, dt, y, k1, leaves, tol, tol)
+    pf = fc.plain_csl_normed_sweep(t, dt, y, k1, leaves, tol, tol)
+    row_cts = [cts[0], cts[1], *(torch.zeros((), device=device) for _ in range(3))]
+    kb = fc.csl_normed_sweep_bwd(t, dt, y, k1, leaves, row_cts, tol, tol)
+    pb = fc._csl_bwd_math(t, dt, y, k1, leaves, row_cts, tol, tol)
+    torch.cuda.synchronize()
+    abs_f = max((a - b).abs().max().item() for a, b in zip(kf[:2], pf[:2]))
+    abs_b = max((a - b).abs().max().item() for a, b in zip(groups(kb), groups(pb)))
+    print(f"[csl] max abs err: K7-CSL (y_new, k7) {abs_f!r}, K8-CSL (row cotangents) "
+          f"{abs_b!r}")
+    times = {
+        "fwd_kernel": _time_ms(lambda: fc.csl_normed_sweep(t, dt, y, k1, leaves, tol, tol)),
+        "fwd_plain": _time_ms(lambda: fc.plain_csl_normed_sweep(t, dt, y, k1, leaves, tol,
+                                                                tol)),
+        "bwd_kernel": _time_ms(lambda: fc.csl_normed_sweep_bwd(t, dt, y, k1, leaves, cts,
+                                                               tol, tol)),
+        "bwd_plain": _time_ms(lambda: fc._csl_bwd_math(t, dt, y, k1, leaves, cts, tol, tol)),
+    }
+    print("[csl] median ms over %d runs at %dx%dx%d: %s"
+          % (REPS, B, D + 1, H, json.dumps(times)))
+    f_ops, b_ops, leaf = _csl_work(B, D, H)
+    BA, BD = B * (D + 1), B * D
+    return {
+        "csl_tsit5_fwd": dict(
+            replaces="regneuralde_tpu/ops/pallas_generic.py:208",
+            max_abs_err=abs_f, ms=times["fwd_kernel"], plain_ms=times["fwd_plain"],
+            **_bound(4 * (4 * BA + BD + leaf), f_ops)),
+        "csl_tsit5_bwd": dict(
+            replaces="regneuralde_tpu/ops/pallas_generic.py:278",
+            max_abs_err=abs_b, ms=times["bwd_kernel"], plain_ms=times["bwd_plain"],
+            **_bound(4 * (6 * BA + BD + 2 * leaf), b_ops)),
+    }
+
+
+def ffjord_batches(n, device):
+    """``n`` batches of the MiniBooNE surrogate (``load_miniboone`` without
+    data files, the experiment's seed) and a Hutchinson probe for each,
+    drawn from a seeded generator."""
+    import torch
+
+    from regneuralde_tpu_torch.data import load_miniboone
+
+    train, _ = load_miniboone(FFJORD_BATCH, seed=FFJORD_DATA_SEED)
+    gen = torch.Generator().manual_seed(SEED + 11)
+    out = []
+    for x in train:
+        out.append((torch.as_tensor(x, device=device),
+                    torch.randn(x.shape, generator=gen).to(device)))
+        if len(out) == n:
+            return out
+    raise AssertionError(f"the loader gave fewer than {n} batches")
+
+
+def build_ffjord(tol, fused, device, seed=SEED):
+    """``FFJORD(CSLDynamics(43, 100))`` of ``experiments/ffjord_tabular.py``
+    at full width, Tsit5, max_steps=128, weights from
+    ``torch.Generator(seed)``."""
+    import torch
+
+    from regneuralde_tpu_torch.models import FFJORD, CSLDynamics
+
+    gen = torch.Generator().manual_seed(seed)
+    return FFJORD(CSLDynamics(FFJORD_DIM, FFJORD_HIDDEN, device=device, generator=gen),
+                  input_dim=FFJORD_DIM, rtol=tol, atol=tol, max_steps=FFJORD_MAX_STEPS,
+                  fused=fused)
+
+
+def ffjord_loss(model, x, e, reg_weight=None):
+    """``experiments/ffjord_common.py``'s objective with ``regularize``:
+    -mean(logpx) + lambda * error_estimate(mean), lambda the annealing
+    schedule's first value (5e3)."""
+    import torch
+
+    from regneuralde_tpu_torch import reg
+
+    out = model(x, e=e)
+    lam = FFJORD_REG if reg_weight is None else reg_weight
+    return -torch.mean(out.logpx) + lam * reg.error_estimate(out.telemetry, "mean"), out
+
+
+def phase_whole_solve_csl_kernels(device, batch):
+    """K3/K4-CSL against their plain versions at the FFJORD width on seeded
+    random weights, the state a MiniBooNE batch and its probe, at
+    rtol=atol=1e-5 and 1.4e-8 (``_whole_solve_vs_plain``): the same steps,
+    the solve reaching t1, y1 within 1e-6, every stored trial step bitwise
+    K7-CSL's and its controller bitwise ``ode._post``'s, K4 within
+    BWD_BOUND of its plain version on every output but ct_f0, and every
+    output, ct_f0 included, within 3 times the plain version's distance
+    from a float64 walk. With the telemetry's cotangents K4 is held to its
+    plain version within TEL_BWD_BOUND at 1e-5 and CSL_TEL_BWD_BOUND at
+    1.4e-8, where the error estimate sits at its float32 floor and both
+    float32 walks lie far from float64 (the time scalars 0.30, the leaves
+    0.054, on the H100). (ct_f0 with y1's cotangent alone is rounding in
+    any float32 walk, as in phase 11: at 1.4e-8 K4 lay 1.8e-3 from its
+    plain version and 1.2e-3 from float64, the plain version 6.4e-4, on
+    the H100.) Bitwise determinism; CUDA-event times at 1.4e-8."""
+    import torch
+
+    from regneuralde_tpu_torch.ops import fused_csl as fc
+    from regneuralde_tpu_torch.ops import whole_solve as ws
+
+    x, e = batch
+    B, D, H = FFJORD_BATCH, FFJORD_DIM, FFJORD_HIDDEN
+    leaves, _, _ = _csl_inputs(torch.Generator().manual_seed(SEED + 13), B, D, H, False,
+                               device)
+    leaves[-1] = e
+    y0 = torch.cat([x, torch.zeros(B, 1, device=device)], dim=1)
+    func = fc.csl_aug_apply(D, False)
+    check = lambda tag, rec, ns, args: _check_steps_against_k7(tag, rec, ns, args,
+                                                               fc.csl_normed_sweep)
+    for tol in (1e-5, FLAGSHIP_TOL):
+        rec, ns, abs_f, abs_b, args, kw, (ct_y1, _, ct_tel) = _whole_solve_vs_plain(
+            "whole-csl", "csl", leaves, y0, func, None, tol, FFJORD_MAX_STEPS,
+            gen=torch.Generator().manual_seed(SEED + 5), fwd_bound=1e-6, n_leaf_groups=1,
+            check_steps=check, k4_plain={
+                "y1": BWD_BOUND,
+                "y1+telemetry": TEL_BWD_BOUND if tol == 1e-5 else CSL_TEL_BWD_BOUND})
+    bwd = (rec, ns, ct_y1, ct_tel, args[0], args[1], leaves, FLAGSHIP_TOL, FLAGSHIP_TOL,
+           args[8])
+    times = {
+        "fwd_kernel": _time_ms(lambda: ws.whole_solve_fwd(*args, **kw)),
+        "fwd_plain": _time_ms(lambda: ws.plain_whole_solve_fwd(*args, **kw)),
+        "bwd_kernel": _time_ms(lambda: ws.whole_solve_bwd(*bwd, dynamics="csl")),
+        "bwd_plain": _time_ms(lambda: ws.plain_whole_solve_bwd(*bwd, dynamics="csl")),
+    }
+    print("[whole-csl] median ms over %d runs at %dx%dx%d, tol %g, %d trial steps: %s"
+          % (REPS, B, D + 1, H, FLAGSHIP_TOL, ns, json.dumps(times)))
+    f_ops, b_ops, leaf = _csl_work(B, D, H)
+    # the probe is read like a leaf
+    nbytes = _solve_bytes(B * (D + 1), leaf + B * D, ns, 0, FFJORD_MAX_STEPS)
+    return {
+        "whole_solve_csl_fwd": dict(
+            replaces="regneuralde_tpu/ops/pallas_solve.py:357",
+            max_abs_err=abs_f, ms=times["fwd_kernel"], plain_ms=times["fwd_plain"],
+            **_bound(nbytes[0], ns * f_ops)),
+        "whole_solve_csl_bwd": dict(
+            replaces="regneuralde_tpu/ops/pallas_solve.py:559",
+            max_abs_err=abs_b, ms=times["bwd_kernel"], plain_ms=times["bwd_plain"],
+            **_bound(nbytes[1], ns * b_ops)),
+    }
+
+
+def phase_ffjord_kernel_vs_plain_step(device, batch, fused):
+    """One forward+backward of the FFJORD training step at rtol=atol=1e-5 on
+    ``fused`` (K7/K8-CSL on ``"step"``, K3/K4-CSL on ``True``) against
+    ``fused=False`` (their plain versions) on the same weights and probe:
+    the same NFE and accept sequence, the gradient of -mean(logpx) within
+    GRAD_BOUND and of the regularized loss within REG_GRAD_BOUND."""
+    import torch
+
+    x, e = batch
+    tol = 1e-5
+    results = {}
+    for name, f in (("kernel", fused), ("plain", False)):
+        model = build_ffjord(tol, f, device)
+        for reg_weight in (0.0, FFJORD_REG):
+            model.zero_grad(set_to_none=True)
+            loss, out = ffjord_loss(model, x, e, reg_weight)
+            loss.backward()
+            torch.cuda.synchronize()
+            tel = out.telemetry
+            results[name, reg_weight] = dict(
+                loss=loss.item(), nfe=out.nfe, success=out.solution.stats.success,
+                accepted=tel.accepted[tel.live].tolist(),
+                grad=torch.cat([p.grad.flatten() for p in model.parameters()]),
+                logpx=out.logpx.detach())
+    for reg_weight, bound in ((0.0, GRAD_BOUND), (FFJORD_REG, REG_GRAD_BOUND)):
+        k, p = results["kernel", reg_weight], results["plain", reg_weight]
+        g_err = _rel(k["grad"], p["grad"])
+        print(f"[ffjord-step] fused={fused!r} rtol=atol={tol:g} reg_weight={reg_weight:g} "
+              f"nfe kernel={k['nfe']} plain={p['nfe']} success={k['success']} "
+              f"loss kernel={k['loss']!r} plain={p['loss']!r} "
+              f"logpx rel err={_rel(k['logpx'], p['logpx']):.3e} "
+              f"grad rel err={g_err:.3e} (bound {bound:g})")
+        _check(k["success"] and p["success"], "both solves reached t1")
+        _check(k["nfe"] == p["nfe"], f"NFE kernel {k['nfe']} plain {p['nfe']}")
+        _check(k["accepted"] == p["accepted"], "same accept sequence")
+        _check(tuple(k["logpx"].shape) == (FFJORD_BATCH,), "logpx shape")
+        _check(torch.isfinite(k["grad"]).all().item(), "finite gradients")
+        _check(g_err <= bound, f"gradient rel err {g_err} > {bound}")
+
+
+def phase_ffjord_slice(device, batches, fused):
+    """Three training steps of the FFJORD configuration on ``fused``
+    (WeightDecay(1e-5) then Adam(1e-2)). Returns the launch counts of that
+    run (on ``"step"`` K7-CSL and K8-CSL once per trial step, on ``True``
+    each CSL whole-solve kernel once per training step, no other kernel),
+    per step the weights it started from, its NFE and accept sequence, and
+    the steps' wall ms. A solve that misses t1 within 128 trial steps is
+    printed, not refused."""
+    import torch
+
+    from regneuralde_tpu_torch.ops import fused_csl as fc
+    from regneuralde_tpu_torch.ops import fused_generic as fg
+    from regneuralde_tpu_torch.ops import fused_mlp as fm
+    from regneuralde_tpu_torch.ops import whole_solve as ws
+    from regneuralde_tpu_torch.training import (
+        create_train_state,
+        ffjord_optimizer,
+        make_train_step,
+    )
+
+    model = build_ffjord(FLAGSHIP_TOL, fused, device)
+    optimizer = ffjord_optimizer(1e-2)
+    state = create_train_state(model, optimizer)
+    step = make_train_step(ffjord_loss, optimizer)
+    before = [p.detach().clone() for p in model.parameters()]
+
+    torch.cuda.synchronize()
+    counters = (fg, fm, ws, fc)
+    for mod in counters:  # count only this path's launches
+        mod.reset_launches()
+    trial_steps = 0
+    steps, walls = [], []
+    for i, batch in enumerate(batches):
+        weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
+        start = time.perf_counter()
+        state, loss, out = step(state, *batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        walls.append(wall * 1e3)
+        tel = out.telemetry
+        naccept = int(tel.accepted.sum().item())
+        nlive = int(tel.live.sum().item())
+        trial_steps += nlive
+        steps.append(dict(weights=weights, nfe=out.nfe,
+                          accepted=tel.accepted[tel.live].tolist()))
+        launches = {k: v for mod in counters for k, v in mod.LAUNCHES.items()}
+        print(f"[ffjord] fused={fused!r} step {i}: loss={loss.item()!r} nfe={out.nfe} "
+              f"naccept={naccept} nreject={nlive - naccept} "
+              f"success={out.solution.stats.success} ms={wall * 1e3!r} "
+              f"launches={json.dumps(launches)}")
+        _check(torch.isfinite(loss).item(), f"finite loss, got {loss.item()}")
+        _check(out.nfe == 2 + 6 * nlive, "NFE = 2 + 6 * trial steps")
+        _check(tuple(out.logpx.shape) == (FFJORD_BATCH,), "logpx shape")
+        _check(torch.isfinite(out.logpx).all().item(), "finite logpx")
+    moved = max((p.detach() - b).abs().max().item()
+                for p, b in zip(model.parameters(), before))
+    print(f"[ffjord] fused={fused!r} trial steps={trial_steps} "
+          f"launches={json.dumps(launches)} max parameter change={moved!r}")
+    _check(moved > 0.0, "the parameters moved")
+    want = {k: 0 for k in launches}
+    if fused == "step":
+        want.update(csl_tsit5_fwd=trial_steps, csl_tsit5_bwd=trial_steps)
+    else:
+        want.update(whole_solve_csl_fwd=len(batches), whole_solve_csl_bwd=len(batches))
+    _check(launches == want, f"FFJORD launches {launches}, expected {want}")
+    return launches, steps, walls
+
+
+def phase_ffjord_same_steps(device, batches, steps):
+    """The fused=True run's three steps against fused="step" on the same
+    weights, batches and probes: each step's forward on K7-CSL (``"while"``
+    mode) takes the same NFE and accept sequence."""
+    import torch
+
+    for i, (batch, rec) in enumerate(zip(batches, steps)):
+        model = build_ffjord(FLAGSHIP_TOL, "step", device)
+        model.load_state_dict(rec["weights"])
+        x, e = batch
+        with torch.no_grad():
+            out = model(x, e=e, mode="while")
+        tel = out.telemetry
+        acc = tel.accepted[tel.live].tolist()
+        print(f"[ffjord-same-steps] step {i}: nfe fused=True {rec['nfe']}, "
+              f"fused='step' {out.nfe}; accept sequences equal {acc == rec['accepted']}")
+        _check(out.nfe == rec["nfe"] and acc == rec["accepted"],
+               f"step {i}: fused=True and fused='step' take the same steps")
+
+
 def main():
     import torch
 
@@ -1142,8 +1576,28 @@ def main():
     print("[latent] NFE of the three training steps: fused='step' %s, fused=True %s"
           % ([r["nfe"] for r in step_route], [r["nfe"] for r in whole_route]))
 
+    from regneuralde_tpu_torch import reg
+
+    _check(float(reg.exp_decay_schedule(5e3, 1e3, 500)(0)) == FFJORD_REG,
+           "FFJORD's regularization weight is the schedule's first value")
+    kernels.update(phase_csl_kernels(device))
+    fbatches = ffjord_batches(3, device)
+    kernels.update(phase_whole_solve_csl_kernels(device, fbatches[0]))
+    phase_ffjord_kernel_vs_plain_step(device, fbatches[0], "step")
+    phase_ffjord_kernel_vs_plain_step(device, fbatches[0], True)
+    ffjord, step_route, step_ms = phase_ffjord_slice(device, fbatches, "step")
+    launches.update({k: ffjord[k] for k in ("csl_tsit5_fwd", "csl_tsit5_bwd")})
+    ffjord, whole_route, whole_ms = phase_ffjord_slice(device, fbatches, True)
+    launches.update({k: ffjord[k] for k in ("whole_solve_csl_fwd", "whole_solve_csl_bwd")})
+    phase_ffjord_same_steps(device, fbatches, whole_route)
+    print("[ffjord] three training steps: NFE fused='step' %s, fused=True %s; ms a step "
+          "fused='step' %s, fused=True %s"
+          % ([r["nfe"] for r in step_route], [r["nfe"] for r in whole_route], step_ms,
+             whole_ms))
+
     sources = {"normed_tsit5_fwd": "normed_tsit5.cu", "normed_tsit5_bwd": "normed_tsit5.cu",
-               "altmlp_tsit5_fwd": "altmlp_tsit5.cu", "altmlp_tsit5_bwd": "altmlp_tsit5.cu"}
+               "altmlp_tsit5_fwd": "altmlp_tsit5.cu", "altmlp_tsit5_bwd": "altmlp_tsit5.cu",
+               "csl_tsit5_fwd": "csl_tsit5.cu", "csl_tsit5_bwd": "csl_tsit5.cu"}
     record = {"kernels": [
         {"name": name, "route": "cuda",
          "source": "regneuralde_tpu_torch/csrc/" + sources.get(name, "whole_solve.cu"),

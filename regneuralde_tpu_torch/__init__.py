@@ -1,4 +1,4 @@
-"""regneuralde_tpu_torch: the MNIST Neural-ODE training step in PyTorch and CUDA.
+"""regneuralde_tpu_torch: regularized neural-ODE training steps in PyTorch and CUDA.
 
 The port of ``regneuralde_tpu`` (JAX, XLA and Pallas for TPU) to PyTorch on
 an NVIDIA H100. It mirrors that package's layout (``ops``, ``models``,
@@ -16,6 +16,6 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 torch.set_float32_matmul_precision("highest")
 
-from regneuralde_tpu_torch import data, models, ops, reg, training  # noqa: E402
+from regneuralde_tpu_torch import data, models, ops, reg, training, utils  # noqa: E402
 
-__all__ = ["data", "models", "ops", "reg", "training"]
+__all__ = ["data", "models", "ops", "reg", "training", "utils"]

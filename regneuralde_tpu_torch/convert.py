@@ -2,9 +2,10 @@
 
 Takes the parameter tree of one of the JAX package's models as nested
 dicts of numpy arrays and returns the ``state_dict`` of the port's model:
-``ClassifierNODE`` (no pre-net, ``MLPDynamics`` node, ``Dense`` post-net)
-and the latent ODE's ``LatentTimeSeriesModel`` (``LatentGRU``, ``MLP``,
-``AlternatingMLP`` node, ``Dense`` decoder). Flax ``Dense`` kernels are ``(in, out)`` and become
+``ClassifierNODE`` (no pre-net, ``MLPDynamics`` node, ``Dense`` post-net),
+the latent ODE's ``LatentTimeSeriesModel`` (``LatentGRU``, ``MLP``,
+``AlternatingMLP`` node, ``Dense`` decoder) and ``FFJORD`` over
+``CSLDynamics``. Flax ``Dense`` kernels are ``(in, out)`` and become
 ``nn.Linear`` weights ``(out, in)``; biases carry over as they are, and the
 time row (last row of a flax kernel) becomes the last weight column.
 """
@@ -61,4 +62,20 @@ def latent_ode_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     out.update(_dense_tree(params["enc"]["params"], "enc"))
     out.update(_dense_tree(params["de"]["params"], "node.dynamics"))
     out.update(_dense(params["dec"]["params"], "dec"))
+    return out
+
+
+def ffjord_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``{"params": {"csl1", "csl2", "csl3"}}`` of the JAX ``FFJORD`` (its
+    ``CSLDynamics``, each layer's ``layer``, ``gate`` and ``bias`` Dense)
+    -> ``state_dict`` keys ``dynamics.csl{1,2,3}.{layer,gate,bias}.*``; the
+    time Dense layers' ``(1, out)`` kernels become ``(out, 1)`` weights."""
+    out = {}
+    for name in ("csl1", "csl2", "csl3"):
+        layer = params["params"][name]
+        prefix = f"dynamics.{name}"
+        out.update(_dense(layer["layer"], f"{prefix}.layer"))
+        out.update(_dense(layer["bias"], f"{prefix}.bias"))
+        gate = np.asarray(layer["gate"]["kernel"], np.float32)
+        out[f"{prefix}.gate.weight"] = torch.from_numpy(np.ascontiguousarray(gate.T))
     return out

@@ -100,19 +100,6 @@ altmlp_bwd_kernel(const float* __restrict__ dt_p, const float* __restrict__ y,
   for (int e = threadIdx.x; e < nleaf; e += kThreads) slot[e] = cw[e];
 }
 
-// out[c] = the slots' column c summed by one warp in a fixed order (lane
-// partials over s = lane, lane + 32, ..., then a butterfly): the norm sums.
-__global__ void sum_slots_warp_kernel(const float* __restrict__ slots, int nslots,
-                                      int width, float* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int c = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  if (c >= width) return;
-  float s = 0.0f;
-  for (int b = lane; b < nslots; b += 32) s += slots[(size_t)b * width + c];
-  s = warp_sum(s);
-  if (lane == 0) out[c] = s;
-}
-
 }  // namespace
 
 extern "C" {

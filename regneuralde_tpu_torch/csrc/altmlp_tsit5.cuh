@@ -374,6 +374,20 @@ __global__ void sum_slots_kernel(const float* __restrict__ slots, int nslots,
   out[c] = s;
 }
 
+// out[c] = the slots' column c summed by one warp in a fixed order (lane
+// partials over s = lane, lane + 32, ..., then a butterfly): the step
+// kernels' norm sums, in the order of the whole solve's sum_tiles.
+__global__ void sum_slots_warp_kernel(const float* __restrict__ slots, int nslots,
+                                      int width, float* __restrict__ out) {
+  const int lane = threadIdx.x & 31;
+  const int c = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (c >= width) return;
+  float s = 0.0f;
+  for (int b = lane; b < nslots; b += 32) s += slots[(size_t)b * width + c];
+  s = warp_sum(s);
+  if (lane == 0) out[c] = s;
+}
+
 AltLeaves pack_leaves(const float* const* leaves, int depth) {
   AltLeaves lv{};
   for (int j = 0; j < 4 * depth; ++j) lv.p[j] = leaves[j];

@@ -1,7 +1,8 @@
 // The whole adaptive Tsit5 solve on Hopper: one persistent cooperative
 // kernel for the forward (K3) and one for the reverse walk (K4), generic
 // over the dynamics' per-tile trial-step body: MLPDynamics (K1's and K2's,
-// normed_tsit5.cuh) or AlternatingMLP (K7's and K8's, altmlp_tsit5.cuh).
+// normed_tsit5.cuh), AlternatingMLP (K7's and K8's, altmlp_tsit5.cuh) or
+// FFJORD's augmented CSL dynamics (K7-CSL's and K8-CSL's, csl_tsit5.cuh).
 //
 // Replaces the TPU kernels
 //   K3: regneuralde_tpu/ops/pallas_solve.py  make_whole_solve.make_fwd_kernel
@@ -47,15 +48,15 @@
 //     pullback of ops/ode.py post_bwd. Scalar cotangents are per-tile slots
 //     summed in tile order. MLPDynamics' weight-cotangent rows of each trial
 //     step are stored (about 22 MB a step at 512x784x100) and summed after
-//     the walk by one fixed-order contraction; AlternatingMLP's block keeps
-//     its tiles' weight cotangents in shared memory for the whole walk, and
-//     one pass sums the blocks' slots in block order.
+//     the walk by one fixed-order contraction; AlternatingMLP's and CSL's
+//     block keeps its tiles' weight cotangents in shared memory for the
+//     whole walk, and one pass sums the blocks' slots in block order.
 // No floating-point atomics, no TF32, no fast math: runs are bitwise
 // reproducible. powf is the libdevice powf, as ATen's float pow.
 
 #include <cooperative_groups.h>
 
-#include "altmlp_tsit5.cuh"
+#include "csl_tsit5.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -370,6 +371,50 @@ struct AltDyn {
   __device__ void finish_bwd(float* smem, int D) const {
     const int nleaf = leaf_floats(depth, D, H);
     const float* cw = smem + padded_weight_floats(depth, D, H);
+    float* slot = slots + (size_t)blockIdx.x * nleaf;
+    __syncthreads();
+    for (int e = threadIdx.x; e < nleaf; e += kThreads) slot[e] = cw[e];
+  }
+};
+
+// FFJORD's CSL dynamics: K7-CSL's and K8-CSL's tile bodies, the padded
+// parameters in shared memory for the whole solve (the probe e is read by
+// row). The backward accumulates its tiles' parameter cotangents in shared
+// memory over the whole walk and writes them to slots[blockIdx.x] at the
+// end. The template's row width is the augmented state's, A = dim + 1 or
+// dim + 3 (kinetic).
+struct CslDyn {
+  static constexpr int kFwdR = kCslRows, kBwdR = kCslRows;
+  CslLeaves lv;
+  float* slots;  // (grid, csl_leaf_floats)
+  int dim, H, kinetic;
+
+  __device__ void setup_fwd(float* smem, int) const { csl_load_weights(lv, dim, H, smem); }
+  __device__ void fwd(const float* y, const float* k1, int row0, int rows,
+                      float t, float dt, float* yn, float* kn, float* sums,
+                      int A, float rtol, float atol, float* smem) const {
+    csl_fwd_tile(y, k1, lv.p[kCslParams], row0, rows, t, dt, smem, yn, kn, sums, A,
+                 dim, H, kinetic, rtol, atol, smem + csl_pad_floats(dim, H));
+  }
+  __device__ void setup_bwd(float* smem, int) const {
+    csl_load_weights(lv, dim, H, smem);
+    float* cw = smem + csl_pad_floats(dim, H);
+    for (int e = threadIdx.x; e < csl_leaf_floats(dim, H); e += kThreads) cw[e] = 0.0f;
+  }
+  __device__ void bwd(const float* y, const float* k1, int row0, int rows, int,
+                      int, float t, float dt, const float* ct_ynew,
+                      const float* ct_k7, const float* pass_y,
+                      const float* pass_k1, float c_err, float c_num,
+                      float c_den, float* ct_y, float* ct_k1, float* part,
+                      int A, float rtol, float atol, float* smem) const {
+    float* cw = smem + csl_pad_floats(dim, H);
+    csl_bwd_tile(y, k1, lv.p[kCslParams], row0, rows, t, dt, smem, cw, ct_ynew,
+                 ct_k7, pass_y, pass_k1, c_err, c_num, c_den, ct_y, ct_k1, part, A,
+                 dim, H, kinetic, rtol, atol, cw + csl_leaf_floats(dim, H));
+  }
+  __device__ void finish_bwd(float* smem, int) const {
+    const int nleaf = csl_leaf_floats(dim, H);
+    const float* cw = smem + csl_pad_floats(dim, H);
     float* slot = slots + (size_t)blockIdx.x * nleaf;
     __syncthreads();
     for (int e = threadIdx.x; e < nleaf; e += kThreads) slot[e] = cw[e];
@@ -785,6 +830,64 @@ int regnde_whole_solve_altmlp_bwd(const float* scalars, const float* streams,
                                      (B + kAltRows - 1) / kAltRows, s, &grid);
   if (e != cudaSuccess) return (int)e;
   const int width = leaf_floats(depth, D, H);
+  sum_slots_kernel<<<(width + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      slots, grid, width, out);
+  return (int)cudaGetLastError();
+}
+
+// K3 for FFJORD's CSL dynamics: as regnde_whole_solve_altmlp_fwd with the
+// leaves as a host array of 16 device pointers (the 15 parameters of
+// CSLDynamics, then the probe e, B x dim) and the kinetic flag; A is the
+// augmented state's width, dim + 1 or dim + 3. partials: (2, ceil(B/2), 3).
+int regnde_whole_solve_csl_fwd(const float* scalars, const float* y0,
+                               const float* f0, const float* const* leaves,
+                               int kinetic, const float* saveat, int* cursors,
+                               float* ys, float* y1, float* hy, float* hf,
+                               float* streams, float* final_, float* partials,
+                               int B, int A, int H, int S, int n_save, float rtol,
+                               float atol, float beta1, float beta2, float qmin,
+                               float qmax, float gamma, float qoldinit,
+                               float qsteady_max, void* stream) {
+  const int dim = A - 1 - 2 * kinetic;
+  FwdArgs<CslDyn> a{scalars, y0, f0, CslDyn{pack_csl_leaves(leaves), nullptr, dim, H, kinetic},
+                    Saves{saveat, cursors, ys, n_save}, y1, hy, hf, streams,
+                    final_, partials, B, A, S, rtol, atol,
+                    make_ctrl(beta1, beta2, qmin, qmax, gamma, qoldinit, qsteady_max)};
+  return (int)launch_cooperative((const void*)whole_solve_fwd_kernel<CslDyn>, &a,
+                                 csl_fwd_smem_bytes(A, dim, H),
+                                 (B + kCslRows - 1) / kCslRows,
+                                 static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// K4 for FFJORD's CSL dynamics, then the sum of its blocks' parameter-
+// cotangent slots in block order. Arguments as regnde_whole_solve_altmlp_bwd
+// with the leaves and kinetic flag of regnde_whole_solve_csl_fwd; out:
+// (csl_leaf_floats,) the parameters' cotangents in order (the probe has
+// none); slots: (ceil(B/2), csl_leaf_floats) scratch.
+int regnde_whole_solve_csl_bwd(const float* scalars, const float* streams,
+                               const float* hy, const float* hf,
+                               const float* const* leaves, int kinetic,
+                               const float* saveat, int* cursors, float* ct_ys,
+                               const float* ct_tel, float* ct_y, float* ct_f,
+                               float* out, float* ct_scalars, float* partials,
+                               float* hdy, float* hdf, float* slots, int ns, int B,
+                               int A, int H, int S, int n_save, float rtol,
+                               float atol, float beta1, float beta2, float qmin,
+                               float qmax, float gamma, float qoldinit,
+                               float qsteady_max, void* stream) {
+  const int dim = A - 1 - 2 * kinetic;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  BwdArgs<CslDyn> a{scalars, streams, hy, hf,
+                    CslDyn{pack_csl_leaves(leaves), slots, dim, H, kinetic},
+                    Saves{saveat, cursors, ct_ys, n_save}, ct_tel, ct_y, ct_f,
+                    ct_scalars, partials, hdy, hdf, ns, B, A, S, rtol, atol,
+                    make_ctrl(beta1, beta2, qmin, qmax, gamma, qoldinit, qsteady_max)};
+  int grid = 0;
+  cudaError_t e = launch_cooperative((const void*)whole_solve_bwd_kernel<CslDyn>, &a,
+                                     csl_bwd_smem_bytes(A, dim, H),
+                                     (B + kCslRows - 1) / kCslRows, s, &grid);
+  if (e != cudaSuccess) return (int)e;
+  const int width = csl_leaf_floats(dim, H);
   sum_slots_kernel<<<(width + kThreads - 1) / kThreads, kThreads, 0, s>>>(
       slots, grid, width, out);
   return (int)cudaGetLastError();

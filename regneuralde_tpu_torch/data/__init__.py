@@ -1,6 +1,6 @@
-"""Data: the numpy minibatch loader, MNIST and physionet (numpy routes only)."""
+"""Data: the numpy minibatch loader, MNIST, physionet and MiniBooNE (numpy routes only)."""
 
-from regneuralde_tpu_torch.data.datasets import load_mnist, load_physionet
+from regneuralde_tpu_torch.data.datasets import load_miniboone, load_mnist, load_physionet
 from regneuralde_tpu_torch.data.loader import DataLoader
 
-__all__ = ["DataLoader", "load_mnist", "load_physionet"]
+__all__ = ["DataLoader", "load_miniboone", "load_mnist", "load_physionet"]

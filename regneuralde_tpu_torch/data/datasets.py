@@ -1,8 +1,8 @@
-"""MNIST and physionet, file-backed when available, synthetic otherwise.
+"""MNIST, physionet and MiniBooNE, file-backed when available, synthetic otherwise.
 
-Counterpart of ``load_mnist`` and ``load_physionet`` in
+Counterpart of ``load_mnist``, ``load_physionet`` and ``load_miniboone`` in
 ``regneuralde_tpu/data/datasets.py``, numpy route only: the files
-(``mnist.npz`` or the IDX files; ``physionet.npz``) are searched in
+(``mnist.npz`` or the IDX files; ``physionet.npz``; ``miniboone.npy``) are searched in
 ``data_dir``, ``$REGNDE_DATA_DIR`` and ``./data``; without them a
 deterministic procedural stand-in with the data's shapes is generated, the
 same arrays as the JAX package's from the same seed.
@@ -186,4 +186,37 @@ def load_physionet(batch_size: int, path: Optional[str] = None,
     test = DataLoader([bundle[k][idx[n_train:]] for k in _PHYSIONET_KEYS],
                       batch_size, shuffle=True, drop_last=True, seed=seed + 1,
                       source=source)
+    return train, test
+
+
+def load_miniboone(batch_size: int, path: Optional[str] = None,
+                   train_split: float = 0.8, seed: int = 0
+                   ) -> Tuple[DataLoader, DataLoader]:
+    """MiniBooNE's 43 features, standardized per feature; ``(train, test)``
+    loaders of ``x`` batches (the train loader shuffles). Reads
+    ``miniboone.npy`` in either orientation (a feature-major file is
+    transposed); without it a surrogate of 8192 rows around four centers,
+    the same arrays as the JAX package's from the same seed. Reference:
+    src/dataset.jl:33-56."""
+    found = Path(path) if path and Path(path).exists() else _search_file(
+        ["miniboone.npy"], None)
+    if found is not None:
+        data = np.load(found).astype(np.float32)
+        if data.shape[0] == 43 and data.shape[1] != 43:
+            data = data.T  # feature-major file -> sample-major
+        source = str(found)
+    else:
+        rng = np.random.default_rng(seed)
+        n = 8192
+        centers = rng.standard_normal((4, 43)).astype(np.float32) * 2.0
+        assign = rng.integers(0, 4, size=n)
+        data = centers[assign] + rng.standard_normal((n, 43)).astype(np.float32)
+        source = "synthetic"
+
+    data = (data - data.mean(0, keepdims=True)) / (data.std(0, keepdims=True) + 1e-8)
+    idx = np.random.default_rng(seed).permutation(data.shape[0])
+    n_train = int(data.shape[0] * train_split)
+    train = DataLoader((data[idx[:n_train]],), batch_size, shuffle=True, seed=seed,
+                       source=source)
+    test = DataLoader((data[idx[n_train:]],), batch_size, shuffle=False, source=source)
     return train, test

@@ -1,7 +1,15 @@
-"""Models: the dynamics, NeuralODE, ClassifierNODE and the latent ODE."""
+"""Models: the dynamics, NeuralODE, ClassifierNODE, the latent ODE and FFJORD."""
 
-from regneuralde_tpu_torch.models.basic import MLP, AlternatingMLP, LatentGRU, MLPDynamics
+from regneuralde_tpu_torch.models.basic import (
+    MLP,
+    AlternatingMLP,
+    ConcatSquashLinear,
+    CSLDynamics,
+    LatentGRU,
+    MLPDynamics,
+)
 from regneuralde_tpu_torch.models.classifiers import ClassifierNODE, ClassifierNODEOutput
+from regneuralde_tpu_torch.models.ffjord import FFJORD, FFJORDOutput
 from regneuralde_tpu_torch.models.neural_ode import NeuralDEOutput, NeuralODE
 from regneuralde_tpu_torch.models.time_series import (
     LatentTimeSeriesModel,
@@ -9,5 +17,6 @@ from regneuralde_tpu_torch.models.time_series import (
 )
 
 __all__ = ["MLP", "AlternatingMLP", "ClassifierNODE", "ClassifierNODEOutput",
-           "LatentGRU", "LatentTimeSeriesModel", "LatentTimeSeriesOutput",
-           "MLPDynamics", "NeuralDEOutput", "NeuralODE"]
+           "ConcatSquashLinear", "CSLDynamics", "FFJORD", "FFJORDOutput", "LatentGRU",
+           "LatentTimeSeriesModel", "LatentTimeSeriesOutput", "MLPDynamics",
+           "NeuralDEOutput", "NeuralODE"]

@@ -17,7 +17,7 @@ from typing import Callable, Optional, Sequence
 import torch
 from torch import nn
 
-from regneuralde_tpu_torch.ops.math import tanh
+from regneuralde_tpu_torch.ops.math import sigmoid, softplus, tanh
 
 
 def init_linear(layer: nn.Linear, generator: Optional[torch.Generator]) -> None:
@@ -126,6 +126,63 @@ class AlternatingMLP(nn.Module):
             h = torch.tanh(getattr(self, f"up_{i}")(h))
             h = torch.tanh(getattr(self, f"down_{i}")(h))
         return h
+
+
+class ConcatSquashLinear(nn.Module):
+    """``(x W^T + b) * sigmoid(t w_g) + (t w_b + b_b)``: FFJORD's CSL layer.
+
+    ``layer`` is ``nn.Linear(in, out)``, ``gate`` ``nn.Linear(1, out,
+    bias=False)`` and ``bias`` ``nn.Linear(1, out)``, each over the scalar
+    time, as flax's ``layer``, ``gate`` and ``bias`` Dense layers."""
+
+    def __init__(self, in_features: int, features: int, *, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.layer = nn.Linear(in_features, features)
+        self.gate = nn.Linear(1, features, bias=False)
+        self.bias = nn.Linear(1, features)
+        init_linear(self.layer, generator)
+        init_linear(self.bias, generator)
+        with torch.no_grad():  # LeCun-normal at fan_in 1
+            self.gate.weight.copy_(torch.randn(self.gate.weight.shape, generator=generator))
+        place(self, device)
+
+    def forward(self, x: torch.Tensor, t) -> torch.Tensor:
+        t = torch.as_tensor(t, dtype=x.dtype, device=x.device).reshape(1, 1)
+        return self.layer(x) * sigmoid(self.gate(t)) + self.bias(t)
+
+
+class CSLDynamics(nn.Module):
+    """Three CSL layers (dim -> hidden -> hidden -> dim) with softplus
+    between them: the FFJORD dynamics of the tabular and gaussian
+    experiments. ``parameters()`` yields per layer ``layer.weight,
+    layer.bias, gate.weight, bias.weight, bias.bias``, the leaves the CSL
+    kernels take (``ops.fused_csl``). softplus and sigmoid are the
+    ``ops.math`` forms, JAX's functions."""
+
+    def __init__(self, dim: int, hidden: int = 100, *, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dim, self.hidden = dim, hidden
+        self.csl1 = ConcatSquashLinear(dim, hidden, device=device, generator=generator)
+        self.csl2 = ConcatSquashLinear(hidden, hidden, device=device, generator=generator)
+        self.csl3 = ConcatSquashLinear(hidden, dim, device=device, generator=generator)
+        place(self, device)
+
+    def forward(self, x: torch.Tensor, t) -> torch.Tensor:
+        h = softplus(self.csl1(x, t))
+        h = softplus(self.csl2(h, t))
+        return self.csl3(h, t)
+
+    def forw_n_back(self, x: torch.Tensor, t, e: torch.Tensor):
+        """``(f(x, t), eJ)``: the forward value and the analytic ``e^T J``
+        through the chain ``v -> v (W * gate)`` with ``sigmoid(o)`` (the
+        softplus derivative) between the hops (``ops.fused_csl``, the
+        kernels' algebra)."""
+        from regneuralde_tpu_torch.ops.fused_csl import csl_forw_n_back
+
+        t = torch.as_tensor(t, dtype=x.dtype, device=x.device)
+        return csl_forw_n_back(t, x, tuple(self.parameters()), e)
 
 
 class _LatentGRUCell(nn.Module):

@@ -41,6 +41,11 @@ _SIGNATURES = {
     "regnde_altmlp_max_depth": [],
     "regnde_altmlp_fwd": [_P] * 5 + [_I] + [_P] * 4 + [_I] * 3 + [_F] * 2 + [_P],
     "regnde_altmlp_bwd": [_P] * 4 + [_I] + [_P] * 7 + [_I] * 3 + [_F] * 2 + [_P],
+    "regnde_csl_rows": [],
+    "regnde_csl_fwd": [_P] * 5 + [_I] + [_P] * 4 + [_I] * 3 + [_F] * 2 + [_P],
+    "regnde_csl_bwd": [_P] * 5 + [_I] + [_P] * 7 + [_I] * 3 + [_F] * 2 + [_P],
+    "regnde_whole_solve_csl_fwd": [_P] * 4 + [_I] + [_P] * 9 + [_I] * 5 + [_F] * 9 + [_P],
+    "regnde_whole_solve_csl_bwd": [_P] * 5 + [_I] + [_P] * 12 + [_I] * 6 + [_F] * 9 + [_P],
 }
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
           "-Xcompiler", "-fPIC"]

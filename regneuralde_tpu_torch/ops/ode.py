@@ -177,6 +177,14 @@ class _HermiteSaver:
 
 def plain_normed_sweep(func, t, dt, y, k1, args, rtol, atol) -> NormedSweep:
     """Normed Tsit5 trial step of ``func(t, y, args)`` in plain torch ops."""
+    y_new, k_last, err2, num2, den2 = normed_terms(func, t, dt, y, k1, args, rtol, atol)
+    return NormedSweep(y_new, k_last, torch.sum(err2), torch.sum(num2), torch.sum(den2))
+
+
+def normed_terms(func, t, dt, y, k1, args, rtol, atol):
+    """``plain_normed_sweep`` before its three sums: ``(y_new, k_last)`` and
+    the per-element squares ``(err / denom)^2``, ``(k_last - k_prev)^2``,
+    ``(y_new - g_prev)^2``."""
     tab = TSIT5
     ks = [k1]
     y_stage = y
@@ -198,8 +206,7 @@ def plain_normed_sweep(func, t, dt, y, k1, args, rtol, atol) -> NormedSweep:
     scaled = err / denom
     dk = ks[-1] - ks[-2]
     dg = y_stage - g_prev
-    return NormedSweep(y_stage, ks[-1], torch.sum(scaled * scaled),
-                       torch.sum(dk * dk), torch.sum(dg * dg))
+    return y_stage, ks[-1], scaled * scaled, dk * dk, dg * dg
 
 
 def plain_normed_sweep_bwd(func, t, dt, y, k1, args, cts, rtol, atol):

@@ -4,8 +4,10 @@ Counterpart of ``regneuralde_tpu/ops/pallas_solve.py``: ``whole_solve_odeint``
 (the monolithic engine, K3/K4) and ``whole_solve_odeint_tiled`` (the tiled
 engine, K5/K6) become one pair of persistent CUDA kernels
 (``csrc/whole_solve.cu``), generic over the dynamics' trial step:
-``dynamics="mlp"`` (``MLPDynamics``, K1/K2's tile bodies) or ``"altmlp"``
-(``AlternatingMLP``, K7/K8's). The forward runs every trial step of the
+``dynamics="mlp"`` (``MLPDynamics``, K1/K2's tile bodies), ``"altmlp"``
+(``AlternatingMLP``, K7/K8's) or ``"csl"`` (FFJORD's augmented
+``CSLDynamics`` with the Hutchinson probe as its last leaf, K7/K8-CSL's;
+its probe's cotangent is zeros). The forward runs every trial step of the
 adaptive loop on the device, with the Hermite ``saveat`` writes; the
 backward walks its history in reverse, with their pullback. Neither returns
 to the host between trial steps.
@@ -38,6 +40,7 @@ from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
+from regneuralde_tpu_torch.ops import fused_csl as fc
 from regneuralde_tpu_torch.ops import fused_generic as fg
 from regneuralde_tpu_torch.ops import fused_mlp as fm
 from regneuralde_tpu_torch.ops.controller import PIController
@@ -58,11 +61,12 @@ from regneuralde_tpu_torch.ops.ode import (
 from regneuralde_tpu_torch.ops.tableaus import TSIT5
 
 # Launches of each kernel, counted by its wrapper where it launches: K3 and
-# K4 for MLPDynamics and for AlternatingMLP.
+# K4 for MLPDynamics, for AlternatingMLP and for FFJORD's CSL dynamics.
 LAUNCHES = {"whole_solve_fwd": 0, "whole_solve_bwd": 0,
-            "whole_solve_altmlp_fwd": 0, "whole_solve_altmlp_bwd": 0}
+            "whole_solve_altmlp_fwd": 0, "whole_solve_altmlp_bwd": 0,
+            "whole_solve_csl_fwd": 0, "whole_solve_csl_bwd": 0}
 
-DYNAMICS = ("mlp", "altmlp")
+DYNAMICS = ("mlp", "altmlp", "csl")
 
 
 def reset_launches() -> None:
@@ -103,7 +107,8 @@ class SolveRecord(NamedTuple):
 
 def plain_steps(dynamics: str, rtol, atol):
     """The plain trial-step pair ``(sweep, sweep_bwd)`` over the leaves:
-    K1/K2's plain versions for ``"mlp"``, K7/K8's for ``"altmlp"``."""
+    K1/K2's plain versions for ``"mlp"``, K7/K8's for ``"altmlp"`` and
+    K7/K8-CSL's for ``"csl"``."""
     rtol, atol = float(rtol), float(atol)
     if dynamics == "mlp":
         return (lambda t, dt, y, k1, lv: fm.plain_mlp_normed_sweep(t, dt, y, k1, lv, rtol,
@@ -112,6 +117,8 @@ def plain_steps(dynamics: str, rtol, atol):
                     t, dt, y, k1, lv, cts, rtol, atol))
     if dynamics == "altmlp":
         return fg.make_plain_alternating_mlp_sweep(rtol, atol)
+    if dynamics == "csl":
+        return fc.make_plain_csl_sweep(rtol, atol)
     raise ValueError(f"dynamics must be one of {DYNAMICS}, got {dynamics!r}")
 
 
@@ -232,14 +239,19 @@ def _ctrl_args(ctrl: PIController):
 
 
 def _check_dims(dynamics, y, k1, leaves):
-    """``(B, D, H, depth)`` after the step kernels' checks of the rows and
-    leaves (device, float32, shape, contiguity); depth is 1 for MLPDynamics."""
+    """``(B, D, H, depth, kinetic)`` after the step kernels' checks of the
+    rows and leaves (device, float32, shape, contiguity): depth is
+    AlternatingMLP's (1 for the others), kinetic CSL's flag (0 for the
+    others), and for CSL ``D`` is the augmented state's width."""
     if dynamics == "mlp":
-        return (*fm._check_cuda_args(y, k1, leaves), 1)
+        return (*fm._check_cuda_args(y, k1, leaves), 1, 0)
     if dynamics == "altmlp":
         B, D, H, depth = fg._check_cuda_args(y, k1, leaves)
         fg._library(depth)
-        return B, D, H, depth
+        return B, D, H, depth, 0
+    if dynamics == "csl":
+        B, A, H, kinetic = fc._check_cuda_args(y, k1, leaves)
+        return B, A, H, 1, kinetic
     raise ValueError(f"dynamics must be one of {DYNAMICS}, got {dynamics!r}")
 
 
@@ -257,6 +269,8 @@ def _opt_ptr(x):
 def _tile_rows(lib, dynamics, direction):
     if dynamics == "altmlp":
         return lib.regnde_altmlp_rows()
+    if dynamics == "csl":
+        return lib.regnde_csl_rows()
     return lib.regnde_fwd_rows() if direction == "fwd" else lib.regnde_bwd_rows()
 
 
@@ -264,7 +278,7 @@ def _cuda_whole_solve_fwd(t0, t1, dt0, y0, f0, leaves, rtol, atol, ctrl,
                           max_steps, dynamics, saveat, ys_init):
     from regneuralde_tpu_torch.ops import _cuda
 
-    B, D, H, depth = _check_dims(dynamics, y0, f0, leaves)
+    B, D, H, depth, kinetic = _check_dims(dynamics, y0, f0, leaves)
     if max_steps < 1:
         raise ValueError(f"max_steps must be positive, got {max_steps}")
     n_save = 0 if saveat is None else saveat.shape[0]
@@ -297,11 +311,13 @@ def _cuda_whole_solve_fwd(t0, t1, dt0, y0, f0, leaves, rtol, atol, ctrl,
                                           *map(ptr, leaves), *save_ptrs, *tail)
         name = "whole_solve_fwd"
     else:
-        lptrs = fg._leaf_pointers(leaves)
-        code = lib.regnde_whole_solve_altmlp_fwd(
-            ptr(scalars), ptr(y0), ptr(f0), ctypes.cast(lptrs, ctypes.c_void_p), depth,
-            *save_ptrs, *tail)
-        name = "whole_solve_altmlp_fwd"
+        head = (ptr(scalars), ptr(y0), ptr(f0),
+                ctypes.cast(fg._leaf_pointers(leaves), ctypes.c_void_p))
+        if dynamics == "altmlp":
+            code = lib.regnde_whole_solve_altmlp_fwd(*head, depth, *save_ptrs, *tail)
+        else:
+            code = lib.regnde_whole_solve_csl_fwd(*head, kinetic, *save_ptrs, *tail)
+        name = f"whole_solve_{dynamics}_fwd"
     _cuda.check(code, "whole-solve forward kernel")
     LAUNCHES[name] += 1
     return SolveRecord(y1, hy, hf, streams, final, ys, cursors)
@@ -312,7 +328,7 @@ def _cuda_whole_solve_bwd(rec, ns, ct_y1, ct_tel, t0, t1, leaves, rtol, atol,
     from regneuralde_tpu_torch.ops import _cuda
 
     y1 = rec.y1
-    B, D, H, depth = _check_dims(dynamics, y1, ct_y1, leaves)
+    B, D, H, depth, kinetic = _check_dims(dynamics, y1, ct_y1, leaves)
     S = rec.streams.shape[1]
     n_save = 0 if saveat is None else saveat.shape[0]
     for name, x, shape in (("ct_tel", ct_tel, (4, S)), ("hy", rec.hy, (S + 1, B, D)),
@@ -357,19 +373,24 @@ def _cuda_whole_solve_bwd(rec, ns, ct_y1, ct_tel, t0, t1, leaves, rtol, atol,
             *map(ptr, wrows), *tail)
         name = "whole_solve_bwd"
     else:
-        n_leaf = sum(x.numel() for x in leaves)
+        # the leaves with a cotangent: CSL's probe has none
+        params = leaves if dynamics == "altmlp" else leaves[:fc.N_PARAMS]
+        n_leaf = sum(x.numel() for x in params)
         out = torch.empty(n_leaf, device=dev)
         slots = torch.empty((ntiles, n_leaf), device=dev)
-        lptrs = fg._leaf_pointers(leaves)
-        code = lib.regnde_whole_solve_altmlp_bwd(
-            *head, ctypes.cast(lptrs, ctypes.c_void_p), depth, *save_ptrs, *mid,
-            ptr(out), ptr(ct_scalars), ptr(partials), _opt_ptr(hdy), _opt_ptr(hdf),
-            ptr(slots), *tail)
+        lptrs = ctypes.cast(fg._leaf_pointers(leaves), ctypes.c_void_p)
+        rest = (*save_ptrs, *mid, ptr(out), ptr(ct_scalars), ptr(partials),
+                _opt_ptr(hdy), _opt_ptr(hdf), ptr(slots), *tail)
+        if dynamics == "altmlp":
+            code = lib.regnde_whole_solve_altmlp_bwd(*head, lptrs, depth, *rest)
+        else:
+            code = lib.regnde_whole_solve_csl_bwd(*head, lptrs, kinetic, *rest)
         ct_leaves, off = [], 0
-        for x in leaves:
+        for x in params:
             ct_leaves.append(out[off:off + x.numel()].view(x.shape))
             off += x.numel()
-        name = "whole_solve_altmlp_bwd"
+        ct_leaves += [torch.zeros_like(x) for x in leaves[len(params):]]
+        name = f"whole_solve_{dynamics}_bwd"
     _cuda.check(code, "whole-solve backward kernel")
     LAUNCHES[name] += 1
     return (ct_scalars[0], ct_scalars[1], ct_scalars[2], ct_y, ct_f, ct_ys, *ct_leaves)
@@ -379,7 +400,7 @@ def whole_solve_fwd(t0, t1, dt0, y0, f0, leaves: Sequence[torch.Tensor], rtol,
                     atol, ctrl: PIController, max_steps: int, *, dynamics="mlp",
                     saveat=None, ys_init=None) -> SolveRecord:
     """K3 or its plain version: the whole forward solve of ``dynamics``
-    (``"mlp"`` or ``"altmlp"``), writing the ``saveat`` rows over
+    (``"mlp"``, ``"altmlp"`` or ``"csl"``), writing the ``saveat`` rows over
     ``ys_init`` (by default ``ode.saveat_rows``'s)."""
     if saveat is not None and ys_init is None:
         saveat, ys_init = saveat_rows(saveat, t0, t1, y0)
@@ -473,7 +494,8 @@ def whole_solve_odeint(func: Callable, y0: torch.Tensor, t0, t1, leaves, *,
                        ) -> ODESolution:
     """Integrate ``dynamics`` (``"mlp"``: ``MLPDynamics`` with leaves ``(W1,
     b1, W2, b2)``; ``"altmlp"``: ``AlternatingMLP`` with its
-    ``parameters()``) from ``t0`` to ``t1`` in one forward launch and one
+    ``parameters()``; ``"csl"``: FFJORD's augmented ``CSLDynamics``, its
+    ``parameters()`` and the probe) from ``t0`` to ``t1`` in one forward launch and one
     backward launch.
 
     ``func(t, y, leaves)`` is the model-level dynamics, used for

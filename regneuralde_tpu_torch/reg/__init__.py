@@ -7,12 +7,14 @@ per-step value over the accepted steps, differentiably.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from regneuralde_tpu_torch.ops.ode import StepTelemetry
 
 __all__ = ["masked_mean", "masked_max", "masked_sum", "aggregate",
-           "error_estimate", "stiffness_estimate"]
+           "error_estimate", "stiffness_estimate", "exp_decay_schedule"]
 
 
 def masked_mean(values: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -57,3 +59,14 @@ def stiffness_estimate(tel: StepTelemetry, stability_size: float,
     """SRNODE regularizer: ``agg`` of ``|eigen_est| / stability_size``."""
     vals = _sanitize(torch.abs(tel.eigen_est)) / stability_size
     return aggregate(vals, tel.accepted, agg)
+
+
+def exp_decay_schedule(lambda0: float, lambda1: float, epochs: int):
+    """``lambda(t) = lambda0 * exp(-k t)`` with ``k = log(lambda0 / lambda1) /
+    epochs``, in float32 as the JAX package computes it (a 0-d tensor)."""
+    k = math.log(lambda0 / lambda1) / epochs
+
+    def schedule(epoch) -> torch.Tensor:
+        return lambda0 * torch.exp(-k * torch.as_tensor(epoch, dtype=torch.float32))
+
+    return schedule

@@ -14,10 +14,13 @@ from torch import nn
 
 from regneuralde_tpu_torch.training.optimizers import (
     AdaMax,
+    Adam,
     Chain,
     InvDecay,
     Momentum,
+    WeightDecay,
     apply_updates,
+    ffjord_optimizer,
     latent_ode_optimizer,
     mnist_node_optimizer,
 )
@@ -45,13 +48,13 @@ def make_train_step(loss_fn: Callable, optimizer) -> Callable:
         loss, aux = loss_fn(state.model, *batch)
         loss.backward()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-        updates, opt_state = optimizer.update(grads, state.opt_state)
+        updates, opt_state = optimizer.update(grads, state.opt_state, params)
         apply_updates(params, updates)
         return TrainState(state.model, opt_state, state.step + 1), loss.detach(), aux
 
     return step
 
 
-__all__ = ["AdaMax", "Chain", "InvDecay", "Momentum", "TrainState", "apply_updates",
-           "create_train_state", "latent_ode_optimizer", "make_train_step",
-           "mnist_node_optimizer"]
+__all__ = ["AdaMax", "Adam", "Chain", "InvDecay", "Momentum", "TrainState",
+           "WeightDecay", "apply_updates", "create_train_state", "ffjord_optimizer",
+           "latent_ode_optimizer", "make_train_step", "mnist_node_optimizer"]

@@ -6,7 +6,8 @@ rho))`` first scales the gradient by ``1 / (1 + g n)``, with n counting
 steps from 0, then applies momentum ``v = rho v + lr g; p -= v``. That is
 not ``torch.optim.SGD`` (which folds lr in after the momentum), so the
 chain is written by hand, with the optax-style ``init``/``update`` pair
-the JAX package uses.
+the JAX package uses; ``update(grads, state, params)`` takes the
+parameters as optax's does (``WeightDecay`` reads them).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ class InvDecay:
     def init(self, params: Sequence[torch.Tensor]):
         return torch.zeros((), dtype=torch.int64)
 
-    def update(self, grads: Tensors, count) -> Tuple[Tensors, torch.Tensor]:
+    def update(self, grads: Tensors, count, params=None) -> Tuple[Tensors, torch.Tensor]:
         # float32 on the host (the count lives there), handed to the
         # products as a Python float: no copy to the device per parameter
         scale = (1.0 / (1.0 + self.gamma * count.to(torch.float32))).item()
@@ -43,7 +44,8 @@ class Momentum:
     def init(self, params: Sequence[torch.Tensor]):
         return [torch.zeros_like(p) for p in params]
 
-    def update(self, grads: Tensors, velocity: Tensors) -> Tuple[Tensors, Tensors]:
+    def update(self, grads: Tensors, velocity: Tensors, params=None
+               ) -> Tuple[Tensors, Tensors]:
         velocity = [self.rho * v + self.lr * g for v, g in zip(velocity, grads)]
         return [-v for v in velocity], velocity
 
@@ -63,7 +65,7 @@ class AdaMax:
                 [torch.zeros_like(p) for p in params],
                 [torch.zeros_like(p) for p in params])
 
-    def update(self, grads: Tensors, state) -> Tuple[Tensors, tuple]:
+    def update(self, grads: Tensors, state, params=None) -> Tuple[Tensors, tuple]:
         count, mu, nu = state
         count = count + 1
         mu = [(1 - self.b1) * g + self.b1 * m for g, m in zip(grads, mu)]
@@ -75,6 +77,48 @@ class AdaMax:
         return updates, (count, mu, nu)
 
 
+class Adam:
+    """optax's ``adam(lr)`` (FFJORD's ``ADAM``): ``mu = (1 - b1) g + b1 mu``,
+    ``nu = (1 - b2) g^2 + b2 nu``, and the update ``-lr * mu_hat /
+    (sqrt(nu_hat) + eps)`` with the bias corrections ``mu_hat = mu / (1 -
+    b1^n)``, ``nu_hat = nu / (1 - b2^n)``, n counting steps from 1."""
+
+    def __init__(self, lr: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8):
+        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+
+    def init(self, params: Sequence[torch.Tensor]):
+        return (torch.zeros((), dtype=torch.int32),
+                [torch.zeros_like(p) for p in params],
+                [torch.zeros_like(p) for p in params])
+
+    def update(self, grads: Tensors, state, params=None) -> Tuple[Tensors, tuple]:
+        count, mu, nu = state
+        count = count + 1
+        mu = [(1 - self.b1) * g + self.b1 * m for g, m in zip(grads, mu)]
+        nu = [(1 - self.b2) * torch.square(g) + self.b2 * v for g, v in zip(grads, nu)]
+        # the bias corrections in float32 as optax computes them, on the host
+        c1, c2 = ((1 - torch.tensor(b, dtype=torch.float32) ** count).item()
+                  for b in (self.b1, self.b2))
+        updates = [-self.lr * ((m / c1) / (torch.sqrt(v / c2) + self.eps))
+                   for m, v in zip(mu, nu)]
+        return updates, (count, mu, nu)
+
+
+class WeightDecay:
+    """optax's ``add_decayed_weights(wd)`` (Flux's ``WeightDecay``): adds
+    ``wd * p`` to the update of each parameter ``p``."""
+
+    def __init__(self, weight_decay: float):
+        self.weight_decay = weight_decay
+
+    def init(self, params: Sequence[torch.Tensor]):
+        return ()
+
+    def update(self, grads: Tensors, state, params) -> Tuple[Tensors, tuple]:
+        return [g + self.weight_decay * p.detach() for g, p in zip(grads, params)], state
+
+
 class Chain:
     """Apply transformations left to right."""
 
@@ -84,10 +128,10 @@ class Chain:
     def init(self, params: Sequence[torch.Tensor]):
         return tuple(p.init(params) for p in self.parts)
 
-    def update(self, grads: Tensors, state):
+    def update(self, grads: Tensors, state, params=None):
         new_state = []
         for part, s in zip(self.parts, state):
-            grads, s = part.update(grads, s)
+            grads, s = part.update(grads, s, params)
             new_state.append(s)
         return grads, tuple(new_state)
 
@@ -108,3 +152,8 @@ def mnist_node_optimizer() -> Chain:
 def latent_ode_optimizer() -> Chain:
     """InvDecay(1e-5) then AdaMax(0.01) (experiments/latent_ode.jl:108)."""
     return Chain(InvDecay(1e-5), AdaMax(0.01))
+
+
+def ffjord_optimizer(lr: float = 1e-2) -> Chain:
+    """WeightDecay(1e-5) then ADAM(lr) (experiments/ffjord_tabular.jl:133)."""
+    return Chain(WeightDecay(1e-5), Adam(lr))

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (K1/K2 step pair, K3/K4 whole solve for
-MLPDynamics and AlternatingMLP, K7/K8 AlternatingMLP step pair) against
-their plain PyTorch versions.
+MLPDynamics, AlternatingMLP and FFJORD's CSL dynamics, K7/K8 step pairs for
+AlternatingMLP and CSL) against their plain PyTorch versions.
 
 These tests need a CUDA device and ``nvcc`` (the kernels have no CPU mode)
 and skip without one. This file imports no JAX, so it runs on a machine
@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from regneuralde_tpu_torch.ops import fused_csl as fc
 from regneuralde_tpu_torch.ops import fused_generic as fg
 from regneuralde_tpu_torch.ops import fused_mlp as fm
 from regneuralde_tpu_torch.ops import ode
@@ -187,7 +188,8 @@ def test_whole_solve_kernels_match_plain_versions(cuda, shape):
     for tel in (torch.zeros_like(ct_tel), ct_tel):
         _assert_k4_matches(rk, ns, ct_y1, tel, args, hard_bound=not tel.any())
     assert ws.LAUNCHES == {"whole_solve_fwd": 1, "whole_solve_bwd": 2,
-                           "whole_solve_altmlp_fwd": 0, "whole_solve_altmlp_bwd": 0}
+                           "whole_solve_altmlp_fwd": 0, "whole_solve_altmlp_bwd": 0,
+                           "whole_solve_csl_fwd": 0, "whole_solve_csl_bwd": 0}
 
 
 @pytest.mark.cuda
@@ -284,7 +286,8 @@ def test_fused_true_trains_through_the_whole_solve_kernels(cuda):
     (a, ga, la), (b, gb, _) = outs[True], outs[False]
     assert la == {"whole_solve_fwd": 1, "whole_solve_bwd": 1, "normed_tsit5_fwd": 0,
                   "normed_tsit5_bwd": 0, "whole_solve_altmlp_fwd": 0,
-                  "whole_solve_altmlp_bwd": 0}
+                  "whole_solve_altmlp_bwd": 0, "whole_solve_csl_fwd": 0,
+                  "whole_solve_csl_bwd": 0}
     assert a.nfe == b.nfe and torch.equal(a.telemetry.accepted, b.telemetry.accepted)
     assert _rel(a.value, b.value) <= 1e-4
     for u, v in zip(ga, gb):
@@ -470,7 +473,8 @@ def test_whole_solve_altmlp_kernels_match_plain_versions(cuda, batch):
                 assert _rel(a, c) <= 3 * _rel(b, c) + 1e-5, (name, _rel(a, b), _rel(a, c))
         assert not gk[5][1:].any() and torch.equal(gk[5][0], ct_ys[0])
     assert ws.LAUNCHES == {"whole_solve_fwd": 0, "whole_solve_bwd": 0,
-                           "whole_solve_altmlp_fwd": 1, "whole_solve_altmlp_bwd": 2}
+                           "whole_solve_altmlp_fwd": 1, "whole_solve_altmlp_bwd": 2,
+                           "whole_solve_csl_fwd": 0, "whole_solve_csl_bwd": 0}
 
 
 @pytest.mark.cuda
@@ -567,9 +571,213 @@ def test_fused_true_trains_the_latent_node_through_k3_k4(cuda):
         outs[fused] = (out, grads, {**ws.LAUNCHES, **fg.LAUNCHES})
     (a, ga, la), (b, gb, _) = outs[True], outs[False]
     assert la == {"whole_solve_fwd": 0, "whole_solve_bwd": 0, "whole_solve_altmlp_fwd": 1,
-                  "whole_solve_altmlp_bwd": 1, "altmlp_tsit5_fwd": 0, "altmlp_tsit5_bwd": 0}
+                  "whole_solve_altmlp_bwd": 1, "whole_solve_csl_fwd": 0,
+                  "whole_solve_csl_bwd": 0, "altmlp_tsit5_fwd": 0, "altmlp_tsit5_bwd": 0}
     assert a.nfe == b.nfe and torch.equal(a.telemetry.accepted, b.telemetry.accepted)
     assert a.value.shape == (37, 6, 20) and torch.equal(a.value[:, 0], b.value[:, 0])
     assert _rel(a.value, b.value) <= 1e-4
+    for u, v in zip(ga, gb):
+        assert _rel(u, v) <= 1e-3
+
+
+def _csl_inputs(batch, dim, hidden, kinetic, device, seed=0):
+    """CSLDynamics leaves (nn.Linear layout; weights at LeCun's scale, time
+    weights standard normal) and the probe, a state of width dim + 1 (dim +
+    3 with the kinetic terms), a random k1 and the cotangents."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    leaves = []
+    for n_in, n_out in ((dim, hidden), (hidden, hidden), (hidden, dim)):
+        leaves += [f32(rng.normal(size=(n_out, n_in)) / np.sqrt(n_in)),
+                   f32(rng.normal(size=n_out) * 0.1), f32(rng.normal(size=(n_out, 1))),
+                   f32(rng.normal(size=(n_out, 1))), f32(rng.normal(size=n_out) * 0.1)]
+    leaves.append(f32(rng.normal(size=(batch, dim))))
+    width = dim + (3 if kinetic else 1)
+    y = f32(rng.normal(size=(batch, width)) * 0.5)
+    k1 = f32(rng.normal(size=(batch, width)) * 0.3)
+    cts = [f32(rng.normal(size=(batch, width))), f32(rng.normal(size=(batch, width))),
+           f32(0.7), f32(1.3), f32(-0.4)]
+    return y, k1, leaves, cts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tol", [1e-5, 1.4e-8])
+@pytest.mark.parametrize("kinetic", [False, True])
+@pytest.mark.parametrize("shape", [(1024, 43, 100), (13, 5, 8), (7, 3, 6)])
+def test_csl_kernels_match_plain_versions(cuda, shape, kinetic, tol):
+    """K7-CSL/K8-CSL against their plain versions at the FFJORD width, a
+    ragged batch (13 rows: the last tile half empty) and a small one, with
+    and without the kinetic terms. K7-CSL's rows bitwise equal (each affine
+    map, hop and row sum rounded once from float64), its norm sums within
+    1e-6 (relative; only the summation order differs); K8-CSL within 1e-3
+    (relative Frobenius: its seeds multiply by 1/(atol + |y| rtol)); the
+    probe's cotangent zero."""
+    y, k1, leaves, cts = _csl_inputs(*shape, kinetic, cuda)
+    t, dt = torch.tensor(T, device=cuda), torch.tensor(DT, device=cuda)
+    fc.reset_launches()
+    kern = fc.csl_normed_sweep(t, dt, y, k1, leaves, tol, tol)
+    plain = fc.plain_csl_normed_sweep(t, dt, y, k1, leaves, tol, tol)
+    assert torch.equal(kern.y_new, plain.y_new) and torch.equal(kern.k_last, plain.k_last)
+    for a, b in zip(kern[2:], plain[2:]):
+        assert _rel(a, b) <= 1e-6
+    kern_b = fc.csl_normed_sweep_bwd(t, dt, y, k1, leaves, cts, tol, tol)
+    plain_b = fc._csl_bwd_math(t, dt, y, k1, leaves, cts, tol, tol)
+    assert _rel(torch.stack(kern_b[:2]), torch.stack(plain_b[:2])) <= 1e-3
+    for a, b in zip([*kern_b[2:4], *kern_b[4][:fc.N_PARAMS]],
+                    [*plain_b[2:4], *plain_b[4][:fc.N_PARAMS]]):
+        assert _rel(a, b) <= 1e-3
+    assert not kern_b[4][fc.N_PARAMS].any()
+    assert fc.LAUNCHES == {"csl_tsit5_fwd": 1, "csl_tsit5_bwd": 1}
+
+
+@pytest.mark.cuda
+def test_csl_kernels_are_deterministic(cuda):
+    """Per-tile norm-sum slots and per-block parameter-cotangent slots
+    summed in order, no atomics: two launches are bitwise equal."""
+    y, k1, leaves, cts = _csl_inputs(1024, 43, 100, True, cuda)
+    t, dt = torch.tensor(T, device=cuda), torch.tensor(DT, device=cuda)
+    a = fc.csl_normed_sweep(t, dt, y, k1, leaves, 1e-6, 1e-6)
+    b = fc.csl_normed_sweep(t, dt, y, k1, leaves, 1e-6, 1e-6)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    ga = fc.csl_normed_sweep_bwd(t, dt, y, k1, leaves, cts, 1e-6, 1e-6)
+    gb = fc.csl_normed_sweep_bwd(t, dt, y, k1, leaves, cts, 1e-6, 1e-6)
+    assert all(torch.equal(u, v) for u, v in zip([*ga[:4], *ga[4]], [*gb[:4], *gb[4]]))
+
+
+@pytest.mark.cuda
+def test_csl_wrappers_refuse_bad_inputs(cuda):
+    y, k1, leaves, cts = _csl_inputs(8, 5, 8, False, cuda)
+    t, dt = torch.tensor(T, device=cuda), torch.tensor(DT, device=cuda)
+    with pytest.raises(TypeError):
+        fc.csl_normed_sweep(t, dt, y.double(), k1, leaves, 1e-4, 1e-4)
+    with pytest.raises(ValueError):
+        fc.csl_normed_sweep(t, dt, y, k1.cpu(), leaves, 1e-4, 1e-4)
+    with pytest.raises(ValueError):  # neither dim + 1 nor dim + 3 wide
+        fc.csl_normed_sweep(t, dt, y[:, :5].contiguous(), k1[:, :5].contiguous(), leaves,
+                            1e-4, 1e-4)
+    bad = list(leaves)
+    bad[5] = bad[5].t().contiguous().t()  # csl2.layer.weight, strided
+    with pytest.raises(ValueError):
+        fc.csl_normed_sweep(t, dt, y, k1, bad, 1e-4, 1e-4)
+    with pytest.raises(ValueError):  # the probe's rows are the batch's
+        fc.csl_normed_sweep(t, dt, y, k1, [*leaves[:-1], leaves[-1][:4]], 1e-4, 1e-4)
+    with pytest.raises(ValueError):
+        fc.csl_normed_sweep_bwd(t, dt, y, k1, leaves, [cts[0].cpu(), *cts[1:]], 1e-4, 1e-4)
+
+
+def _csl_solve_args(batch, dim, hidden, kinetic, device, tol=1e-5, max_steps=128, seed=0):
+    """Seeded CSL leaves and probe, y0 = [x; 0] (and the kinetic zeros), and
+    odeint's prologue: the arguments and keywords of ``whole_solve_fwd``."""
+    _, _, leaves, _ = _csl_inputs(batch, dim, hidden, kinetic, device, seed)
+    rng = np.random.default_rng(seed + 5)
+    x = torch.tensor(rng.normal(size=(batch, dim)), dtype=torch.float32, device=device)
+    y0 = torch.cat([x, torch.zeros(batch, 3 if kinetic else 1, device=device)], dim=1)
+    func = fc.csl_aug_apply(dim, kinetic)
+    t0, t1, f0, dt0 = ode.solve_prologue(func, y0, 0.0, 1.0, tuple(leaves), tol, tol)
+    return (t0, t1, dt0, y0, f0, leaves, tol, tol, CTRL, max_steps), dict(dynamics="csl")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch, kinetic", [(1024, False), (13, False), (13, True)])
+def test_whole_solve_csl_kernels_match_plain_versions(cuda, batch, kinetic):
+    """K3/K4 with the CSL tile bodies at the FFJORD width (dim 43, hidden
+    100) against their plain versions at rtol=atol=1e-5: the same step
+    counts and accept sequence, y1 within 1e-6, every stored trial step's
+    norm sums and rows bitwise equal to K7-CSL's on its inputs. K4 over
+    K3's record: seeded with a cotangent of y1, within 1e-3 of its plain
+    version on all but ct_f0 (``_assert_k4_matches`` says why not ct_f0);
+    with the telemetry too, every output within 3 times the float32 plain
+    version's distance from a float64 walk, plus 1e-5. The probe takes no
+    cotangent."""
+    args, kw = _csl_solve_args(batch, 43, 100, kinetic, cuda)
+    ws.reset_launches()
+    rk = ws.whole_solve_fwd(*args, **kw)
+    rp = ws.plain_whole_solve_fwd(*args, **kw)
+    assert rk.final[3:].tolist() == rp.final[3:].tolist() and rk.final[5].item() == 1.0
+    assert torch.equal(rk.streams[ws.ST_ACC], rp.streams[ws.ST_ACC])
+    assert _rel(rk.y1, rp.y1) <= 1e-6
+    ns = int(rk.final[3:5].sum().item())
+    t0, t1, leaves = args[0], args[1], args[5]
+    for i in range(ns):
+        t, dt = rk.streams[ws.ST_T, i], rk.streams[ws.ST_DT, i]
+        dt_eff = torch.where(dt - (t1 - t) >= 0, t1 - t, dt)
+        res = fc.csl_normed_sweep(t, dt_eff, rk.hy[i], rk.hf[i], leaves, 1e-5, 1e-5)
+        assert torch.equal(torch.stack(res[2:]), rk.streams[ws.ST_E:ws.ST_ACC, i])
+        assert torch.equal(res.y_new, rk.hy[i + 1]) and torch.equal(res.k_last, rk.hf[i + 1])
+    rng = np.random.default_rng(3)
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=cuda)
+    ct_y1, ct_tel = f32(rng.normal(size=tuple(args[3].shape))), f32(rng.normal(size=(4, 128)) * 0.1)
+    d = lambda x: x.double()
+    names = ["ct_t0|ct_t1|ct_dt0", "ct_y0", "ct_f0", "leaves"]
+    group = lambda g: [torch.stack(g[:3]), *g[3:5],
+                       torch.cat([x.flatten() for x in g[6:6 + fc.N_PARAMS]])]
+    for tel in (torch.zeros_like(ct_tel), ct_tel):
+        gk = ws.whole_solve_bwd(rk, ns, ct_y1, tel, t0, t1, leaves, 1e-5, 1e-5, CTRL, **kw)
+        gp = ws.plain_whole_solve_bwd(rk, ns, ct_y1, tel, t0, t1, leaves, 1e-5, 1e-5, CTRL,
+                                      **kw)
+        g64 = ws.plain_whole_solve_bwd(
+            ws.SolveRecord(*map(d, rk)), ns, d(ct_y1), d(tel), d(t0), d(t1),
+            [d(x) for x in leaves], 1e-5, 1e-5, CTRL, **kw)
+        for name, a, b, c in zip(names, group(gk), group(gp), group(g64)):
+            if not tel.any() and name != "ct_f0":
+                assert _rel(a, b) <= 1e-3, name
+            if tel.any():
+                assert _rel(a, c) <= 3 * _rel(b, c) + 1e-5, (name, _rel(a, b), _rel(a, c))
+        assert not gk[6 + fc.N_PARAMS].any()
+    assert ws.LAUNCHES == {"whole_solve_fwd": 0, "whole_solve_bwd": 0,
+                           "whole_solve_altmlp_fwd": 0, "whole_solve_altmlp_bwd": 0,
+                           "whole_solve_csl_fwd": 1, "whole_solve_csl_bwd": 2}
+
+
+@pytest.mark.cuda
+def test_whole_solve_csl_kernels_are_deterministic(cuda):
+    """Per-tile slots summed in tile order, per-block parameter-cotangent
+    slots summed in block order, no atomics: two runs are bitwise equal."""
+    args, kw = _csl_solve_args(1024, 43, 100, False, cuda)
+    a, b = ws.whole_solve_fwd(*args, **kw), ws.whole_solve_fwd(*args, **kw)
+    ns = int(a.final[3:5].sum().item())
+    for x, y in ((a.final, b.final), (a.streams, b.streams), (a.y1, b.y1),
+                 (a.hy[:ns + 1], b.hy[:ns + 1]), (a.hf[:ns + 1], b.hf[:ns + 1])):
+        assert torch.equal(x, y)
+    rng = np.random.default_rng(4)
+    ct_y1 = torch.tensor(rng.normal(size=(1024, 44)), dtype=torch.float32, device=cuda)
+    ct_tel = torch.tensor(rng.normal(size=(4, 128)) * 0.1, dtype=torch.float32, device=cuda)
+    rest = (ct_y1, ct_tel, args[0], args[1], args[5], 1e-5, 1e-5, CTRL)
+    ga, gb = ws.whole_solve_bwd(a, ns, *rest, **kw), ws.whole_solve_bwd(a, ns, *rest, **kw)
+    assert all(torch.equal(u, v) for u, v in zip(ga, gb))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", ["step", True])
+def test_ffjord_trains_through_the_csl_kernels(cuda, fused):
+    """``FFJORD(CSLDynamics(5, 16))`` on ``fused`` (K7/K8-CSL on
+    ``"step"``, K3/K4-CSL on ``True``) against ``fused=False`` on the card
+    at rtol=atol=1e-5, batch 37, the same probe: the same NFE and accept
+    sequence, logpx within 1e-6 and the gradients of -mean(logpx) within
+    1e-3 (relative); the launches of the route's kernels only."""
+    from regneuralde_tpu_torch.models import FFJORD, CSLDynamics
+
+    outs = {}
+    for route in (fused, False):
+        gen = torch.Generator().manual_seed(0)
+        ff = FFJORD(CSLDynamics(5, 16, device=cuda, generator=gen), 5, rtol=1e-5,
+                    atol=1e-5, max_steps=128, fused=route)
+        x = torch.randn(37, 5, generator=gen).to(cuda)
+        ws.reset_launches()
+        fc.reset_launches()
+        out = ff(x, generator=gen)
+        grads = torch.autograd.grad(-out.logpx.mean(), list(ff.parameters()))
+        outs[route] = (out, grads, {**ws.LAUNCHES, **fc.LAUNCHES})
+    (a, ga, la), (b, gb, lb) = outs[fused], outs[False]
+    n = int(a.telemetry.live.sum())
+    want = {k: 0 for k in la}
+    if fused == "step":
+        want.update(csl_tsit5_fwd=n, csl_tsit5_bwd=n)
+    else:
+        want.update(whole_solve_csl_fwd=1, whole_solve_csl_bwd=1)
+    assert la == want and not any(lb.values())
+    assert a.nfe == b.nfe and torch.equal(a.telemetry.accepted, b.telemetry.accepted)
+    assert a.solution.stats.success and a.logpx.shape == (37,)
+    assert _rel(a.logpx, b.logpx) <= 1e-6
     for u, v in zip(ga, gb):
         assert _rel(u, v) <= 1e-3

@@ -182,7 +182,7 @@ def test_whole_solve_matches_jax_engine(jax_runs, fused, reg_weight):
     ws.reset_launches()
     loss, out = _torch_loss(clf, x, y, reg_weight)
     loss.backward()
-    assert ws.LAUNCHES == {k: 0 for k in ws.LAUNCHES} and len(ws.LAUNCHES) == 4
+    assert ws.LAUNCHES == {k: 0 for k in ws.LAUNCHES} and len(ws.LAUNCHES) == 6
     assert out.success
     assert out.nfe == run["nfe"]
     tel = out.telemetry
@@ -319,7 +319,7 @@ def test_whole_solve_options_route_to_whole_solve(fused, monkeypatch):
     out = node(x, mode="while")
     assert out.solution.stats.success
     assert set(calls) == {"step"}
-    assert ws.LAUNCHES == {k: 0 for k in ws.LAUNCHES} and len(ws.LAUNCHES) == 4
+    assert ws.LAUNCHES == {k: 0 for k in ws.LAUNCHES} and len(ws.LAUNCHES) == 6
     assert fm.LAUNCHES == {"normed_tsit5_fwd": 0, "normed_tsit5_bwd": 0}
 
 

@@ -1,0 +1,107 @@
+#!/usr/bin/env python3
+"""Time the port's step and whole-solve kernels in two source trees on one
+GPU, in the order A, B, B, A (``--rounds`` times), one process each.
+
+    python3 tools/torch_kernel_ab.py --a DIR [--b .] [--phases altmlp,csl] [--rounds N]
+
+``DIR`` is an unpacked checkout of another commit (for example ``git
+archive <commit> | tar -x -C build/parent``). Each run imports that tree's
+``chip_smoke.py``, builds its kernels into the tree's own ``build/``, runs
+the named phases' kernel checks (``altmlp``: K7/K8 and K3/K4 for
+AlternatingMLP, ``csl``: K7/K8-CSL and K3/K4-CSL, ``mlp``: K1/K2 and K3/K4
+for MLPDynamics; a phase the tree lacks is skipped) and prints, per
+kernel, the median of ``chip_smoke``'s CUDA-event times and what ``ptxas``
+reported for it (registers, stack, spills). Last it says, for every kernel
+of either library, whether the two trees' SASS (``cuobjdump -sass``) is
+the same instruction for instruction.
+"""
+
+import argparse
+import json
+import subprocess
+import sys
+
+_RUN = r'''
+import contextlib, hashlib, io, json, re, shutil, subprocess, sys
+sys.path.insert(0, ".")
+import torch
+import chip_smoke as cs
+from regneuralde_tpu_torch.ops import _cuda
+
+phases = sys.argv[1].split(",")
+lib = _cuda.library()
+dev = torch.device("cuda", 0)
+ms = {}
+with contextlib.redirect_stdout(io.StringIO()):
+    if "mlp" in phases:
+        ms.update(cs.phase_kernels(dev))
+        ms.update(cs.phase_whole_solve_kernels(dev))
+    if "altmlp" in phases:
+        ms.update(cs.phase_altmlp_kernels(dev))
+        _, saveat = cs.latent_batches(1, dev)
+        ms.update(cs.phase_whole_solve_altmlp_kernels(dev, saveat))
+    if "csl" in phases and hasattr(cs, "phase_csl_kernels"):
+        ms.update(cs.phase_csl_kernels(dev))
+        ms.update(cs.phase_whole_solve_csl_kernels(dev, cs.ffjord_batches(1, dev)[0]))
+ptxas, name = {}, None
+for line in _cuda.ptxas_report().splitlines():
+    m = re.search(r"Compiling entry function '(\S+)'", line)
+    if m:
+        name = m.group(1)
+    elif name and ("registers" in line or "stack frame" in line):
+        ptxas.setdefault(name, []).append(line.split(":", 1)[-1].strip())
+# each kernel's SASS, hashed, under its name with the tree's anonymous-
+# namespace tag taken out; cuobjdump numbers branch labels and pads columns
+# across the whole library, so labels are numbered from 0 within the kernel
+# and runs of blanks count as one
+cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+dump = subprocess.run([cuobjdump, "-sass", lib._name], capture_output=True, text=True,
+                      check=True).stdout
+sass, name = {}, None
+for line in dump.splitlines():
+    m = re.match(r"\s*Function : (\S+)", line)
+    if m:
+        name = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", m.group(1))
+        sass[name], labels = hashlib.sha256(), {}
+    elif name and line.strip().startswith(("/*", ".L_x_")):  # instructions, labels
+        line = re.sub(r"\.L_x_\d+",
+                      lambda l: "L%d" % labels.setdefault(l.group(0), len(labels)), line)
+        sass[name].update(" ".join(line.split()).encode())
+print(json.dumps({"ms": {k: v["ms"] for k, v in ms.items()}, "ptxas": ptxas,
+                  "sass": {k: h.hexdigest() for k, h in sass.items()}}))
+'''
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--a", required=True, help="the other tree")
+    ap.add_argument("--b", default=".", help="this tree (default: the current directory)")
+    ap.add_argument("--phases", default="altmlp,csl")
+    ap.add_argument("--rounds", type=int, default=1, help="A, B, B, A this many times")
+    args = ap.parse_args()
+    results = []
+    for tag, tree in (("A", args.a), ("B", args.b), ("B", args.b), ("A", args.a)) * args.rounds:
+        out = subprocess.run([sys.executable, "-c", _RUN, args.phases], cwd=tree,
+                             capture_output=True, text=True)
+        if out.returncode != 0:
+            print(f"[ab] {tag} ({tree}) failed:\n{out.stderr[-3000:]}", file=sys.stderr)
+            return 1
+        res = json.loads(out.stdout.strip().splitlines()[-1])
+        results.append((tag, res))
+        print(f"[ab] {tag} ({tree}) ms " + json.dumps(res["ms"]))
+    for tag, tree in (("A", args.a), ("B", args.b)):
+        ptxas = next(r["ptxas"] for t, r in results if t == tag)
+        for name, lines in sorted(ptxas.items()):
+            print(f"[ptxas] {tag} {name[:90]}: " + "; ".join(lines))
+    sass_a = next(r["sass"] for t, r in results if t == "A")
+    sass_b = next(r["sass"] for t, r in results if t == "B")
+    for name in sorted(set(sass_a) | set(sass_b)):
+        a, b = sass_a.get(name), sass_b.get(name)
+        verdict = ("same" if a == b else "differs") if a and b else (
+            "only in A" if a else "only in B")
+        print(f"[sass] {name[:90]}: {verdict}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

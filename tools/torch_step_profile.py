@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Profile the PyTorch/CUDA port's training steps on one GPU.
 
-    python3 tools/torch_step_profile.py [--model mnist|latent]
+    python3 tools/torch_step_profile.py [--model mnist|latent|ffjord]
                                         [--fused step|true] [--steps 3]
                                         [--tol 1.4e-8] [--out DIR]
 
 ``--model mnist`` (the default) builds the flagship classifier of
 ``chip_smoke.py`` (MLPDynamics(784, 100), Tsit5, max_steps=96, batch 512),
 ``--model latent`` the latent ODE of ``chip_smoke.py`` (batch 256, 49
-saveat stamps, max_steps=256), on the step kernels (``--fused step``, the
-default: K1/K2 or K7/K8 on every trial step) or the whole-solve kernels
-(``--fused true``: K3/K4 once per solve). It runs one warm-up step, then:
+saveat stamps, max_steps=256), ``--model ffjord`` FFJORD's tabular
+configuration of ``chip_smoke.py`` (CSLDynamics(43, 100), batch 1024,
+max_steps=128, -mean(logpx) + 5e3 * error_estimate, WeightDecay(1e-5) then
+Adam(1e-2)), on the step kernels (``--fused step``, the default: K1/K2, K7/K8
+or K7/K8-CSL on every trial step) or the whole-solve kernels (``--fused
+true``: K3/K4 once per solve). It runs one warm-up step, then:
 
 * times ``--steps`` training steps on the host clock (each ends in a
   synchronize) and reports ms per step, NFE per step and trial steps;
@@ -19,9 +22,10 @@ default: K1/K2 or K7/K8 on every trial step) or the whole-solve kernels
 * traces one step with ``torch.profiler`` and prints device time by kernel,
   the device-busy share of the step's wall time, and writes the chrome trace
   to ``--out``;
-* for the latent model, splits that step's host and device time between
-  its parts: ``record_function`` ranges around the encoder's GRU loop and
-  MLP, the node (the solve) and the decoder in the forward, and in the
+* for the latent model and FFJORD, splits that step's host and device
+  time between its parts: ``record_function`` ranges around the encoder's
+  GRU loop and MLP, the node (the solve) and the decoder (FFJORD: the
+  model's whole forward, the solve and logpz) in the forward, and in the
   backward the solve's autograd function against everything else (the
   GRU's, encoder's, decoder's and loss's autograd nodes).
 """
@@ -74,7 +78,7 @@ def _print_split(events, wall_ms):
                 add("backward: the solve", e)
             elif not any(r.start <= e.time_range.start and e.time_range.end <= r.end
                          for r in solves):
-                add("backward: the rest (GRU, encoder, decoder, loss)", e)
+                add("backward: the rest (every other autograd node)", e)
     for name, (host, dev) in rows.items():
         print(f"[split] {name}: host {host / 1e3:.3f} ms, device {dev / 1e3:.3f} ms "
               f"(traced step wall {wall_ms:.3f} ms)")
@@ -82,7 +86,7 @@ def _print_split(events, wall_ms):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=["mnist", "latent"], default="mnist")
+    ap.add_argument("--model", choices=["mnist", "latent", "ffjord"], default="mnist")
     ap.add_argument("--fused", choices=["step", "true"], default="step")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--tol", type=float, default=1.4e-8)
@@ -97,11 +101,13 @@ def main():
         print("torch_step_profile: no CUDA device", file=sys.stderr)
         return 1
     import chip_smoke as cs
+    from regneuralde_tpu_torch.ops import fused_csl as fc
     from regneuralde_tpu_torch.ops import fused_generic as fg
     from regneuralde_tpu_torch.ops import fused_mlp as fm
     from regneuralde_tpu_torch.ops import whole_solve as ws
     from regneuralde_tpu_torch.training import (
         create_train_state,
+        ffjord_optimizer,
         latent_ode_optimizer,
         make_train_step,
         mnist_node_optimizer,
@@ -119,6 +125,12 @@ def main():
                   "node": "[part] node: the solve", "dec": "[part] decoder"}
         for attr, label in ranges.items():
             _annotate(getattr(model, attr), label, record_function)
+    elif args.model == "ffjord":
+        batches = cs.ffjord_batches(args.steps + 2, device)
+        model = cs.build_ffjord(args.tol, fused, device)
+        optimizer = ffjord_optimizer(1e-2)
+        loss_fn = cs.ffjord_loss
+        _annotate(model, "[part] forward: the solve and logpz", record_function)
     else:
         batches = cs.synthetic_batches(args.steps + 2, device)
         model, gen = cs.build_classifier(args.tol, fused, device)
@@ -127,7 +139,7 @@ def main():
         loss_fn = cs.mnist_loss
     state = create_train_state(model, optimizer)
     step = make_train_step(loss_fn, optimizer)
-    counters = (fm, ws, fg)
+    counters = (fm, ws, fg, fc)
 
     state, _, _ = step(state, *batches[0])  # warm-up (allocator, build)
     torch.cuda.synchronize()
@@ -178,7 +190,7 @@ def main():
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d} calls  {e.key[:90]}")
-    if args.model == "latent":
+    if args.model in ("latent", "ffjord"):
         _print_split(prof.events(), wall * 1e3)
     os.makedirs(args.out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(
