@@ -4,8 +4,9 @@ Takes the parameter tree of one of the JAX package's models as nested
 dicts of numpy arrays and returns the ``state_dict`` of the port's model:
 ``ClassifierNODE`` (no pre-net, ``MLPDynamics`` node, ``Dense`` post-net),
 the latent ODE's ``LatentTimeSeriesModel`` (``LatentGRU``, ``MLP``,
-``AlternatingMLP`` node, ``Dense`` decoder) and ``FFJORD`` over
-``CSLDynamics``. Flax ``Dense`` kernels are ``(in, out)`` and become
+``AlternatingMLP`` node, ``Dense`` decoder), ``FFJORD`` over
+``CSLDynamics`` and ``ClassifierNSDE`` (``Dense`` pre-net, ``MLP`` drift and
+diffusion, ``Dense`` post-net). Flax ``Dense`` kernels are ``(in, out)`` and become
 ``nn.Linear`` weights ``(out, in)``; biases carry over as they are, and the
 time row (last row of a flax kernel) becomes the last weight column.
 """
@@ -78,4 +79,17 @@ def ffjord_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
         out.update(_dense(layer["bias"], f"{prefix}.bias"))
         gate = np.asarray(layer["gate"]["kernel"], np.float32)
         out[f"{prefix}.gate.weight"] = torch.from_numpy(np.ascontiguousarray(gate.T))
+    return out
+
+
+def classifier_nsde_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``{"pre", "de": {"drift", "diffusion"}, "post"}`` of the JAX
+    ``ClassifierNSDE`` (each a flax ``{"params": ...}`` tree) -> ``state_dict``
+    keys ``pre.*``, ``nsde.drift.dense_i.*``, ``nsde.diffusion.dense_i.*`` and
+    ``post.*``."""
+    out = {}
+    out.update(_dense(params["pre"]["params"], "pre"))
+    for net in ("drift", "diffusion"):
+        out.update(_dense_tree(params["de"][net]["params"], f"nsde.{net}"))
+    out.update(_dense(params["post"]["params"], "post"))
     return out

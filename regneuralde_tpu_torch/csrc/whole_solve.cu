@@ -56,6 +56,7 @@
 
 #include <cooperative_groups.h>
 
+#include "coop.cuh"
 #include "csl_tsit5.cuh"
 
 namespace cg = cooperative_groups;
@@ -188,19 +189,6 @@ __device__ PostGrads post_bwd(const Ctrl& c, float count, float t, float dt_eff,
   g.n = pn ? g_num / (2.0f * num) : 0.0f;
   g.d = pd ? g_den / (2.0f * den) : 0.0f;
   return g;
-}
-
-// Sums q quantities over the per-tile slots part[tile * nq + q] in tile
-// order (lanes strided over tiles, then a shuffle tree); call from warp 0,
-// every lane gets the sums.
-template <int NQ>
-__device__ void sum_tiles(const float* part, int ntiles, float (&out)[NQ]) {
-#pragma unroll
-  for (int q = 0; q < NQ; ++q) {
-    float s = 0.0f;
-    for (int k = threadIdx.x; k < ntiles; k += 32) s += __ldcg(part + k * NQ + q);
-    out[q] = warp_sum(s);
-  }
 }
 
 // Copies rows [row0, row0 + rows) of src to dst (B x D row-major).
@@ -680,32 +668,6 @@ __global__ void __launch_bounds__(kThreads) whole_solve_bwd_kernel(BwdArgs<Dyn> 
     a.ct_scalars[1] = s_ct[3] + tdir * s_ct[4];
     a.ct_scalars[2] = s_ct[1];
   }
-}
-
-// Launches a cooperative kernel with one block per tile, at most as many
-// blocks as fit on the card at once (grid.sync() needs them all resident).
-// The grid's size goes to *grid_out where that is given.
-cudaError_t launch_cooperative(const void* kernel, void* args, size_t smem,
-                               int ntiles, cudaStream_t s, int* grid_out) {
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return e;
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
-  if ((e = cudaGetDevice(&dev)) != cudaSuccess) return e;
-  if ((e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev)) != cudaSuccess)
-    return e;
-  if (!coop) return cudaErrorNotSupported;
-  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return e;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  if (e != cudaSuccess) return e;
-  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const int grid = min(per_sm * sms, ntiles);
-  if (grid_out) *grid_out = grid;
-  void* params[] = {args};
-  e = cudaLaunchCooperativeKernel(kernel, grid, kThreads, params, smem, s);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
 }
 
 Ctrl make_ctrl(float beta1, float beta2, float qmin, float qmax, float gamma,

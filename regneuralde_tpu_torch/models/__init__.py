@@ -1,4 +1,5 @@
-"""Models: the dynamics, NeuralODE, ClassifierNODE, the latent ODE and FFJORD."""
+"""Models: the dynamics, NeuralODE, ClassifierNODE, the latent ODE, FFJORD,
+NeuralSDE and ClassifierNSDE."""
 
 from regneuralde_tpu_torch.models.basic import (
     MLP,
@@ -8,15 +9,22 @@ from regneuralde_tpu_torch.models.basic import (
     LatentGRU,
     MLPDynamics,
 )
-from regneuralde_tpu_torch.models.classifiers import ClassifierNODE, ClassifierNODEOutput
+from regneuralde_tpu_torch.models.classifiers import (
+    ClassifierNODE,
+    ClassifierNODEOutput,
+    ClassifierNSDE,
+    ClassifierNSDEOutput,
+)
 from regneuralde_tpu_torch.models.ffjord import FFJORD, FFJORDOutput
 from regneuralde_tpu_torch.models.neural_ode import NeuralDEOutput, NeuralODE
+from regneuralde_tpu_torch.models.neural_sde import NeuralSDE, NeuralSDEOutput
 from regneuralde_tpu_torch.models.time_series import (
     LatentTimeSeriesModel,
     LatentTimeSeriesOutput,
 )
 
-__all__ = ["MLP", "AlternatingMLP", "ClassifierNODE", "ClassifierNODEOutput",
+__all__ = ["MLP", "AlternatingMLP", "ClassifierNODE", "ClassifierNODEOutput", "ClassifierNSDE",
+           "ClassifierNSDEOutput",
            "ConcatSquashLinear", "CSLDynamics", "FFJORD", "FFJORDOutput", "LatentGRU",
            "LatentTimeSeriesModel", "LatentTimeSeriesOutput", "MLPDynamics",
-           "NeuralDEOutput", "NeuralODE"]
+           "NeuralDEOutput", "NeuralODE", "NeuralSDE", "NeuralSDEOutput"]

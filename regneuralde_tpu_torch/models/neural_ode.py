@@ -78,12 +78,6 @@ class NeuralODE(nn.Module):
         if fused not in (False, True, "step", "solve", "tiled"):
             raise ValueError("fused must be False, True, 'step', 'solve' or 'tiled'")
         fusable = (MLPDynamics, AlternatingMLP)
-        if fused in _WHOLE_SOLVE and solver == "tsit5" and not isinstance(
-                dynamics, fusable):
-            raise NotImplementedError(
-                f"fused={fused!r} for {type(dynamics).__name__}: the port's fused "
-                "routes run MLPDynamics and AlternatingMLP only; other dynamics "
-                "(FFJORD's CSL on K7/K8) are ROADMAP.md queue 1 slice 3")
         if fused and not (solver == "tsit5" and isinstance(dynamics, fusable)):
             raise ValueError("fused requires solver='tsit5' and MLPDynamics or "
                              "AlternatingMLP dynamics")

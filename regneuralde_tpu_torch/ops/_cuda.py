@@ -46,9 +46,15 @@ _SIGNATURES = {
     "regnde_csl_bwd": [_P] * 5 + [_I] + [_P] * 7 + [_I] * 3 + [_F] * 2 + [_P],
     "regnde_whole_solve_csl_fwd": [_P] * 4 + [_I] + [_P] * 9 + [_I] * 5 + [_F] * 9 + [_P],
     "regnde_whole_solve_csl_bwd": [_P] * 5 + [_I] + [_P] * 12 + [_I] * 6 + [_F] * 9 + [_P],
+    "regnde_sde_rows": [],
+    "regnde_sde_whole_solve_fwd": [_P] * 18 + [_I] * 4 + [_F] * 9 + [_P],
+    "regnde_sde_whole_solve_bwd": [_P] * 22 + [_I] * 5 + [_F] * 9 + [_P],
 }
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
           "-Xcompiler", "-fPIC"]
+# Per-source flags: the SDE whole solve rounds each multiply and add of its
+# step's algebra on its own, as the plain version's separate ATen ops do.
+_SOURCE_FLAGS = {"sde_whole_solve.cu": ["-fmad=false"]}
 
 
 def _nvcc() -> str:
@@ -74,7 +80,8 @@ def library():
         start = time.perf_counter()
         nvcc = _nvcc()
         procs = [subprocess.Popen(
-            [nvcc, *_FLAGS, "-Xptxas", "-v", "-c", "-o", str(obj), str(src)],
+            [nvcc, *_FLAGS, *_SOURCE_FLAGS.get(src.name, []), "-Xptxas", "-v", "-c", "-o",
+             str(obj), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             for src, obj in zip(sources, objs)]
         reports = []

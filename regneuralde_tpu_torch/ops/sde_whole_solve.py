@@ -1,0 +1,826 @@
+"""The whole adaptive SRI solve: one kernel per direction (K9/K10).
+
+Counterpart of ``regneuralde_tpu/ops/pallas_sde.py``: ``whole_solve_sdeint``
+runs the whole adaptive SDE solve of an MLP drift and an MLP diffusion
+(``models.MLP``, tanh between layers, linear out, no time input; the MNIST
+Neural SDE's pair) in one forward launch (K9, ``sde_whole_solve_fwd_kernel``
+in ``csrc/sde_whole_solve.cu``) and one backward launch (K10, the reverse
+walk of K9's history). The tile body is ``csrc/sri_mlp.cuh``'s ``MlpPair``.
+
+The forward's record (``SDERecord``) is what the backward reads: per trial
+step its start ``t, dt, qold, tail_h``, the three sums of squares (scaled
+error, ``f_b - f_a``, ``H0_b - H0_a``), the accept flag and the telemetry;
+the rows ``y, tail_w, tail_z`` at the start of each trial step; the
+``saveat`` rows and the save cursors. The backward takes the stored accept
+flags and sums, pulls the scalar chain back by hand (``sde_post_bwd``) and
+recomputes each step's stages from its rows and draws for the row pullback
+(``_sde_rows_bwd``); the draws get no cotangent.
+
+Each kernel has a plain version with the same algebra and the same output
+buffers: ``plain_sde_whole_solve_fwd`` (``ops.sde``'s trial step over the
+MLP pair, the affine maps summed in float64 and rounded once, as the
+kernels do) and ``plain_sde_whole_solve_bwd`` (its reverse walk through
+``_sde_step_bwd_math``, the hand pullback of one trial step). The wrappers
+take the plain versions for CPU tensors, launch the kernels for CUDA
+tensors and raise otherwise. ``saveat`` must be sorted: the kernels consume
+it with a cursor (``pallas_sde.py``'s). No batch padding: the kernels mask
+a ragged row tile.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import NamedTuple, Optional, Sequence
+
+import torch
+
+from regneuralde_tpu_torch.ops import sde as sde_ops
+from regneuralde_tpu_torch.ops.fused_generic import _leaf_pointers
+from regneuralde_tpu_torch.ops.fused_mlp import _scalar_f32
+from regneuralde_tpu_torch.ops.controller import _EEST_FLOOR, PIController
+from regneuralde_tpu_torch.ops.ode import StepTelemetry, _max_grad, _min_grad
+from regneuralde_tpu_torch.ops.sri import SRITableau, analyze, eigen_stages, get_tableau
+from regneuralde_tpu_torch.ops.whole_solve import _check_tensor, _ctrl_args, _rows_through
+from regneuralde_tpu_torch.ops.whole_solve import _opt_ptr as _ptr
+
+LAUNCHES = {"sde_whole_solve_fwd": 0, "sde_whole_solve_bwd": 0}
+
+MAX_LAYERS = 4  # per network of the pair (the kernels' limit)
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# Rows of ``SDERecord.streams``.
+(ST_T, ST_DT, ST_QOLD, ST_H, ST_E, ST_N, ST_D, ST_ACC,
+ TEL_T, TEL_DT, TEL_EEST, TEL_EIGEN) = range(12)
+N_STREAMS = 12
+
+
+class SDERecord(NamedTuple):
+    """What the forward solve writes (``S = max_steps``, ``ns`` trial steps).
+
+    ``hy[i], hw[i], hz[i]`` hold the state and the Brownian tail's rows at
+    the start of trial step ``i`` for ``i <= ns`` (row ``ns`` is the end of
+    the solve); later rows are undefined. ``streams`` is ``(12, S)``: per
+    trial step its start ``t, dt, qold, tail_h``, the sums ``err_ssq,
+    num_ssq, den_ssq``, the accept flag (1.0 or 0.0) and the telemetry
+    ``t_end, dt_eff, eest, eigen_est``; zero past step ``ns``. ``final`` is
+    ``(t, dt, qold, naccept, nreject, done)``. ``ys`` holds the ``saveat``
+    rows (empty without) and ``cursors`` (int32) ``(cur0, curf)``: rows
+    ``[0, cur0)`` lie at or before ``t0``, rows ``[cur0, curf)`` were
+    written."""
+
+    y1: torch.Tensor
+    hy: torch.Tensor
+    hw: torch.Tensor
+    hz: torch.Tensor
+    streams: torch.Tensor
+    final: torch.Tensor
+    ys: torch.Tensor
+    cursors: torch.Tensor
+
+
+# ---------------------------------------------------------------------------
+# The MLP pair.
+# ---------------------------------------------------------------------------
+
+
+def _affine(x, W, b):
+    """``x W^T + b`` summed in float64 and rounded once to ``x``'s type (the
+    kernels' sums)."""
+    return torch.addmm(b.double(), x.double(), W.double().t()).to(x.dtype)
+
+
+def mlp_apply(x, layers):
+    """An MLP over ``layers = [(W, b), ...]`` (``nn.Linear`` layout): tanh
+    between layers, the last one linear."""
+    return _mlp_fwd(x, layers)[-1]
+
+
+def split_pair(leaves, n_drift):
+    """The drift's and the diffusion's layers from the flat leaves (the
+    drift's ``parameters()``, then the diffusion's)."""
+    pairs = [(leaves[2 * l], leaves[2 * l + 1]) for l in range(len(leaves) // 2)]
+    return pairs[:n_drift], pairs[n_drift:]
+
+
+def pair_functions(n_drift):
+    """``(drift, diffusion)`` callables ``f(t, y, leaves)`` over the flat
+    leaves."""
+    return (lambda t, y, lv: mlp_apply(y, split_pair(lv, n_drift)[0]),
+            lambda t, y, lv: mlp_apply(y, split_pair(lv, n_drift)[1]))
+
+
+# ---------------------------------------------------------------------------
+# One trial step and its hand pullback.
+# ---------------------------------------------------------------------------
+
+
+def plain_sde_trial_step(tab, ctrl, rtol, atol, t, dt, qold, tail_h, y, tail_w, tail_z,
+                         xi_w, xi_z, t1, span, leaves, n_drift) -> sde_ops.StepOut:
+    """One SRI trial step over the MLP pair (``ops.sde.make_step``, without
+    ``saveat``): the trial step of JAX's ``pallas_sde.trial_step`` on
+    tensors. The controller's step is clamped as ``min(dt_next, span)``."""
+    drift, diffusion = pair_functions(n_drift)
+    step = sde_ops.make_step(tab, drift, diffusion, ctrl, rtol, atol,
+                             torch.promote_types(y.dtype, torch.float32))
+    return step(t, dt, qold, y, sde_ops.Tail(tail_h, tail_w, tail_z), None, t1, span, None,
+                tuple(leaves), xi_w, xi_z)
+
+
+def sde_post_bwd(ctrl, count, t, dt_eff, qold, e, n, d, t1, span, is_last, accept, cts):
+    """Hand pullback of ``ops.sde.sde_post``: ``cts`` are the cotangents of
+    ``(t_new, dt_next, qold_next, t_end, eest, eigen_est)``; returns those
+    of ``(t, dt_eff, qold, e, n, d, t1, span)``. Autograd's tie rules;
+    ``accept`` is the stored flag. ``csrc/sde_whole_solve.cu`` runs the same
+    algebra."""
+    c_tnew, c_dtn, c_qn, c_tend, c_eest, c_eig = cts
+    zero, one = torch.zeros_like(e), torch.ones_like(e)
+    pe, pn, pd = e > 0, n > 0, d > 0
+    rms = lambda s, p: torch.where(p, torch.sqrt(torch.where(p, s, one) / count), zero)
+    eest, num, den = rms(e, pe), rms(n, pn), rms(d, pd)
+    tiny = one * 1e-30
+    mden = torch.maximum(den, tiny)
+    floor = one * _EEST_FLOOR
+    es = torch.maximum(eest, floor)
+    q11 = es ** ctrl.beta1
+    qb = qold ** ctrl.beta2
+    q = q11 / qb
+    qg = q / ctrl.gamma
+    lo, hi = one / ctrl.qmax, one / ctrl.qmin
+    mx = torch.maximum(qg, lo)
+    qa0 = torch.minimum(mx, hi)
+    if ctrl.qsteady_max > 1.0:
+        in_band = (qa0 >= 1.0) & (qa0 <= ctrl.qsteady_max)
+        qa = torch.where(in_band, one, qa0)
+    else:
+        in_band = torch.zeros_like(pe)
+        qa = qa0
+    r = q11 / ctrl.gamma
+    q_rej = torch.minimum(hi, r)
+    dt0 = torch.where(accept, dt_eff / qa, dt_eff / q_rej)
+
+    # t_new = where(accept, t_end, t); t_end = where(is_last, t1, t + dt_eff)
+    g_tend = c_tend + torch.where(accept, c_tnew, zero)
+    g_t = torch.where(accept, zero, c_tnew)
+    g_t1 = torch.where(is_last, g_tend, zero)
+    g_lin = torch.where(is_last, zero, g_tend)
+    g_t = g_t + g_lin
+    g_dteff = g_lin
+    # dt_next = minimum(dt0, span)
+    g_dt0 = _min_grad(dt0, span, c_dtn)
+    g_span = _min_grad(span, dt0, c_dtn)
+    # qold_next = where(accept, maximum(eest, qoldinit), qold)
+    g_qold = torch.where(accept, zero, c_qn)
+    g_eest = c_eest + _max_grad(eest, one * ctrl.qoldinit, torch.where(accept, c_qn, zero))
+    # dt0 = where(accept, dt_eff / qa, dt_eff / q_rej)
+    g_acc = torch.where(accept, g_dt0, zero)
+    g_rej = torch.where(accept, zero, g_dt0)
+    g_dteff = g_dteff + g_acc / qa + g_rej / q_rej
+    g_qa = -g_acc * ((dt_eff / qa) / qa)
+    g_qrej = -g_rej * ((dt_eff / q_rej) / q_rej)
+    g_q11 = _min_grad(r, hi, g_qrej) / ctrl.gamma
+    g_qa0 = torch.where(in_band, zero, g_qa)
+    g_q = _max_grad(qg, lo, _min_grad(mx, hi, g_qa0)) / ctrl.gamma
+    g_q11 = g_q11 + g_q / qb
+    g_qb = -g_q * ((q11 / qb) / qb)
+    g_qold = g_qold + g_qb * (ctrl.beta2 * qold ** (ctrl.beta2 - 1))
+    g_es = g_q11 * (ctrl.beta1 * es ** (ctrl.beta1 - 1))
+    g_eest = g_eest + _max_grad(eest, floor, g_es)
+    # eigen = where(den > 0, num / maximum(den, 1e-30), 0)
+    g_ratio = torch.where(den > 0, c_eig, zero)
+    g_num = g_ratio / mden
+    g_den = _max_grad(den, tiny, -g_ratio * ((num / mden) / mden))
+    g_e = torch.where(pe, (g_eest / (2 * eest)) / count, zero)
+    g_n = torch.where(pn, (g_num / (2 * num)) / count, zero)
+    g_d = torch.where(pd, (g_den / (2 * den)) / count, zero)
+    return g_t, g_dteff, g_qold, g_e, g_n, g_d, g_t1, g_span
+
+
+def bridge_scalars_bwd(dt_eff, h, br: sde_ops.Bridge, g_frac, g_std):
+    """Pullback of ``ops.sde.bridge_scalars`` to ``(dt_eff, h)`` for the cotangents
+    of ``frac`` and ``std``."""
+    zero = torch.zeros_like(h)
+    inside = br.inside
+    g_dteff = torch.where(inside, g_frac / br.safe_h, zero)
+    g_safe = torch.where(inside, -g_frac * ((dt_eff / br.safe_h) / br.safe_h), zero)
+    pos = br.var > 0
+    g_var = torch.where(pos, g_std / (2 * br.std), zero)
+    g_var0 = _max_grad(br.var0, zero, g_var)
+    # inside: var0 = dt_eff * (h - dt_eff) / safe_h
+    g_p = torch.where(inside, g_var0 / br.safe_h, zero)
+    p = dt_eff * (h - dt_eff)
+    g_safe = g_safe - torch.where(inside, g_var0 * ((p / br.safe_h) / br.safe_h), zero)
+    g_dteff = g_dteff + g_p * (h - dt_eff) - g_p * dt_eff
+    g_h = g_p * dt_eff
+    # outside: var0 = maximum(dt_eff - h, 0)
+    g_m = _max_grad(dt_eff - h, zero, torch.where(inside, zero, g_var0))
+    g_dteff = g_dteff + g_m
+    g_h = g_h - g_m + _max_grad(h, torch.ones_like(h) * 1e-30, g_safe)
+    return g_dteff, g_h
+
+
+def _mlp_fwd(x, layers):
+    """The activations ``[x, h_1, ..., out]`` of ``mlp_apply``."""
+    acts = [x]
+    for l, (W, b) in enumerate(layers):
+        h = _affine(acts[-1], W, b)
+        acts.append(torch.tanh(h) if l < len(layers) - 1 else h)
+    return acts
+
+
+def _mlp_bwd(acts, layers, c_out, c_layers):
+    """Pullback of ``mlp_apply`` from its activations: adds the layers'
+    cotangents to ``c_layers`` and returns the input's."""
+    g = c_out
+    for l in range(len(layers) - 1, -1, -1):
+        W = layers[l][0]
+        if l < len(layers) - 1:
+            h = acts[l + 1]
+            g = g * (1 - h * h)
+        c_layers[l][0].add_(g.t() @ acts[l])
+        c_layers[l][1].add_(g.sum(0))
+        g = g @ W
+    return g
+
+
+def _sde_rows_bwd(tab, rtol, atol, dt_eff, br: sde_ops.Bridge, accept, y, tw, tz, xw, xz, layers_f,
+                  layers_g, g_e, g_n, g_d, c_yout, c_two, c_tzo, c_y_save=None,
+                  c_ynew_save=None):
+    """The row part of one trial step's pullback (K10's tile body):
+    recomputes the bridge's increments, the Itô coefficients and the SRI
+    stages, and pulls back the outputs ``y_out, tail_w_out, tail_z_out``
+    and the three sums (cotangents ``g_e, g_n, g_d``), plus the ``saveat``
+    rows' cotangents of ``y`` and ``y_new``. Returns ``(ct_y, ct_tw, ct_tz,
+    c_layers_f, c_layers_g, (p_dteff, p_sqdt, p_frac, p_std))``: the
+    partials are the cotangents of ``dt_eff`` (its direct uses), of
+    ``sqrt(dt_eff)`` and of the bridge's ``frac`` and ``std``."""
+    an = analyze(tab)
+    s = tab.stages
+    inside = br.inside
+    zeros = torch.zeros_like(y)
+    # ---- forward recompute ----
+    dw = br.frac * tw + br.std * xw
+    dz = br.frac * tz + br.std * xz
+    sqdt = torch.sqrt(dt_eff)
+    i11 = 0.5 * (dw * dw - dt_eff) / sqdt
+    i10 = 0.5 * (dw + dz / math.sqrt(3.0))
+    i111 = (dw * dw * dw - 3.0 * dt_eff * dw) / (6.0 * dt_eff)
+    fs, gs, h0s, acts_f, acts_g = [None] * s, [None] * s, [None] * s, [None] * s, [None] * s
+    for i in range(s):
+        if an.f_used[i]:
+            if an.f_alias[i] is not None:
+                fs[i], h0s[i] = fs[an.f_alias[i]], h0s[an.f_alias[i]]
+            else:
+                h0 = y
+                for j in range(i):
+                    if tab.A0[i][j] != 0.0:
+                        h0 = h0 + (tab.A0[i][j] * dt_eff) * fs[j]
+                    if tab.B0[i][j] != 0.0:
+                        h0 = h0 + (tab.B0[i][j] * i10) * gs[j]
+                acts_f[i] = _mlp_fwd(h0, layers_f)
+                fs[i], h0s[i] = acts_f[i][-1], h0
+        if an.g_used[i]:
+            if an.g_alias[i] is not None:
+                gs[i] = gs[an.g_alias[i]]
+            else:
+                h1 = y
+                for j in range(i):
+                    if tab.A1[i][j] != 0.0:
+                        h1 = h1 + (tab.A1[i][j] * dt_eff) * fs[j]
+                    if tab.B1[i][j] != 0.0:
+                        h1 = h1 + (tab.B1[i][j] * sqdt) * gs[j]
+                acts_g[i] = _mlp_fwd(h1, layers_g)
+                gs[i] = acts_g[i][-1]
+    coefs = [None] * s
+    y_new = y
+    for i in range(s):
+        if tab.alpha[i] != 0.0:
+            y_new = y_new + (tab.alpha[i] * dt_eff) * fs[i]
+    for i in range(s):
+        if an.g_used[i] and (tab.beta1[i], tab.beta2[i], tab.beta3[i], tab.beta4[i]) != (0.0,) * 4:
+            coefs[i] = (tab.beta1[i] * dw + tab.beta2[i] * i11 + tab.beta3[i] * i10
+                        + tab.beta4[i] * i111)
+            y_new = y_new + coefs[i] * gs[i]
+    err = zeros
+    for i in range(s):
+        if tab.e_drift[i] != 0.0:
+            err = err + ((tab.delta * tab.e_drift[i]) * dt_eff) * fs[i]
+    for i in range(s):
+        if tab.e_noise[i] != 0.0:
+            err = err + (tab.e_noise[i] * i10) * gs[i]
+    ay, an_ = torch.abs(y), torch.abs(y_new)
+    denom = atol + torch.maximum(ay, an_) * rtol
+    scaled = err / denom
+
+    # ---- seeds ----
+    c_ynew = c_yout if accept else zeros
+    ct_y = zeros if accept else c_yout
+    if c_ynew_save is not None:
+        c_ynew = c_ynew + c_ynew_save
+        ct_y = ct_y + c_y_save
+    # tail_out = where(accept, where(inside, tail - d, 0), d), d = frac tail + std xi
+    if accept:
+        c_dw, c_dz = torch.where(inside, -c_two, zeros), torch.where(inside, -c_tzo, zeros)
+        ct_tw, ct_tz = torch.where(inside, c_two, zeros), torch.where(inside, c_tzo, zeros)
+    else:
+        c_dw, c_dz, ct_tw, ct_tz = c_two, c_tzo, zeros, zeros
+    c_s = g_e * 2 * scaled
+    c_err = c_s / denom
+    c_m = -c_s * scaled / denom * rtol
+    half = 0.5 * c_m
+    ct_y = ct_y + torch.where(ay > an_, c_m, torch.where(ay == an_, half, zeros)) * torch.sign(y)
+    c_ynew = c_ynew + torch.where(an_ > ay, c_m, torch.where(ay == an_, half, zeros)) * torch.sign(
+        y_new)
+    ct_y = ct_y + c_ynew  # y_new = y + ...
+    c_f = [zeros] * s
+    c_g = [zeros] * s
+    c_h0 = [zeros] * s
+    ia, ib = eigen_stages(tab)
+    if ia != ib:
+        d_f = g_n * 2 * (fs[ib] - fs[ia])
+        d_h = g_d * 2 * (h0s[ib] - h0s[ia])
+        c_f[ib], c_f[ia] = c_f[ib] + d_f, c_f[ia] - d_f
+        c_h0[ib], c_h0[ia] = c_h0[ib] + d_h, c_h0[ia] - d_h
+    p_dteff = torch.zeros_like(dt_eff)
+    p_sqdt = torch.zeros_like(dt_eff)
+    c_w, c_i11, c_i10, c_i111 = zeros, zeros, zeros, zeros
+    for i in range(s):
+        if tab.alpha[i] != 0.0:
+            c_f[i] = c_f[i] + (tab.alpha[i] * dt_eff) * c_ynew
+            p_dteff = p_dteff + tab.alpha[i] * torch.sum(fs[i] * c_ynew)
+        if tab.e_drift[i] != 0.0:
+            c_f[i] = c_f[i] + ((tab.delta * tab.e_drift[i]) * dt_eff) * c_err
+            p_dteff = p_dteff + (tab.delta * tab.e_drift[i]) * torch.sum(fs[i] * c_err)
+        if coefs[i] is not None:
+            c_g[i] = c_g[i] + coefs[i] * c_ynew
+            c_coef = gs[i] * c_ynew
+            c_w = c_w + tab.beta1[i] * c_coef
+            c_i11 = c_i11 + tab.beta2[i] * c_coef
+            c_i10 = c_i10 + tab.beta3[i] * c_coef
+            c_i111 = c_i111 + tab.beta4[i] * c_coef
+        if tab.e_noise[i] != 0.0:
+            c_g[i] = c_g[i] + (tab.e_noise[i] * i10) * c_err
+            c_i10 = c_i10 + tab.e_noise[i] * gs[i] * c_err
+
+    # ---- reverse over the stages ----
+    c_lf = [[torch.zeros_like(W), torch.zeros_like(b)] for W, b in layers_f]
+    c_lg = [[torch.zeros_like(W), torch.zeros_like(b)] for W, b in layers_g]
+    for i in range(s - 1, -1, -1):
+        if an.g_used[i]:
+            k = an.g_alias[i]
+            if k is not None:
+                c_g[k] = c_g[k] + c_g[i]
+            else:
+                c_h1 = _mlp_bwd(acts_g[i], layers_g, c_g[i], c_lg)
+                ct_y = ct_y + c_h1
+                for j in range(i):
+                    if tab.A1[i][j] != 0.0:
+                        c_f[j] = c_f[j] + (tab.A1[i][j] * dt_eff) * c_h1
+                        p_dteff = p_dteff + tab.A1[i][j] * torch.sum(fs[j] * c_h1)
+                    if tab.B1[i][j] != 0.0:
+                        c_g[j] = c_g[j] + (tab.B1[i][j] * sqdt) * c_h1
+                        p_sqdt = p_sqdt + tab.B1[i][j] * torch.sum(gs[j] * c_h1)
+        if an.f_used[i]:
+            k = an.f_alias[i]
+            if k is not None:
+                c_f[k] = c_f[k] + c_f[i]
+                c_h0[k] = c_h0[k] + c_h0[i]
+            else:
+                c_x = _mlp_bwd(acts_f[i], layers_f, c_f[i], c_lf) + c_h0[i]
+                ct_y = ct_y + c_x
+                for j in range(i):
+                    if tab.A0[i][j] != 0.0:
+                        c_f[j] = c_f[j] + (tab.A0[i][j] * dt_eff) * c_x
+                        p_dteff = p_dteff + tab.A0[i][j] * torch.sum(fs[j] * c_x)
+                    if tab.B0[i][j] != 0.0:
+                        c_g[j] = c_g[j] + (tab.B0[i][j] * i10) * c_x
+                        c_i10 = c_i10 + tab.B0[i][j] * gs[j] * c_x
+
+    # ---- the Itô coefficients and the bridge ----
+    c_dw = c_dw + c_w + c_i11 * (dw / sqdt) + 0.5 * c_i10 + c_i111 * (
+        (3.0 * dw * dw - 3.0 * dt_eff) / (6.0 * dt_eff))
+    c_dz = c_dz + (0.5 / math.sqrt(3.0)) * c_i10
+    p_dteff = p_dteff - torch.sum(c_i11) * (0.5 / sqdt) + torch.sum(
+        c_i111 * (-3.0 * dw / (6.0 * dt_eff) - i111 / dt_eff))
+    p_sqdt = p_sqdt - torch.sum(c_i11 * i11) / sqdt
+    ct_tw = ct_tw + br.frac * c_dw
+    ct_tz = ct_tz + br.frac * c_dz
+    p_frac = torch.sum(tw * c_dw) + torch.sum(tz * c_dz)
+    p_std = torch.sum(xw * c_dw) + torch.sum(xz * c_dz)
+    return ct_y, ct_tw, ct_tz, c_lf, c_lg, (p_dteff, p_sqdt, p_frac, p_std)
+
+
+def _sde_step_bwd_math(tab, ctrl, rtol, atol, prim, leaves, n_drift, accept, sums, cts,
+                       save=None):
+    """Hand pullback of one trial step (``plain_sde_trial_step``): what K10
+    computes, in PyTorch. ``prim = (t, dt, qold, tail_h, y, tail_w, tail_z,
+    xi_w, xi_z, t1, span)``; ``accept`` and ``sums = (err_ssq, num_ssq,
+    den_ssq)`` are the forward's; ``cts`` the cotangents of ``(t_new,
+    dt_next, qold_next, y_out, tail_h_out, tail_w_out, tail_z_out, t_end,
+    dt_eff, eest, eigen_est)``; ``save``, in a ``saveat`` solve, the
+    cotangents ``(t, dt_eff, y, y_new)`` of the step's save rows. Returns
+    the cotangents of ``(t, dt, qold, tail_h, y, tail_w, tail_z, t1, span)``
+    and of the leaves. The draws get none."""
+    t, dt, qold, h, y, tw, tz, xw, xz, t1, span = prim
+    (c_tnew, c_dtn, c_qn, c_yout, c_tho, c_two, c_tzo, c_tend, c_teldt, c_eest,
+     c_eig) = cts
+    remaining = t1 - t
+    is_last = dt >= remaining
+    dt_eff = torch.where(is_last, remaining, dt)
+    e, n, d = sums
+    g_t, g_dteff, g_qold, g_e, g_n, g_d, g_t1, g_span = sde_post_bwd(
+        ctrl, float(y.numel()), t, dt_eff, qold, e, n, d, t1, span, is_last,
+        torch.as_tensor(accept, device=y.device), (c_tnew, c_dtn, c_qn, c_tend, c_eest, c_eig))
+    br = sde_ops.bridge_scalars(dt_eff, h)
+    layers_f, layers_g = split_pair(leaves, n_drift)
+    c_ts, c_dts, c_ys, c_yns = save if save is not None else (0.0, 0.0, None, None)
+    ct_y, ct_tw, ct_tz, c_lf, c_lg, (p_dteff, p_sqdt, p_frac, p_std) = _sde_rows_bwd(
+        tab, rtol, atol, dt_eff, br, accept, y, tw, tz, xw, xz, layers_f, layers_g, g_e, g_n,
+        g_d, c_yout, c_two, c_tzo, c_ys, c_yns)
+    # tail_h_out = where(accept, where(inside, h - dt_eff, 0), dt_eff)
+    zero = torch.zeros_like(h)
+    g_h = torch.where(br.inside, c_tho, zero) if accept else zero
+    g_dteff = g_dteff + (torch.where(br.inside, -c_tho, zero) if accept else c_tho)
+    b_dteff, b_h = bridge_scalars_bwd(dt_eff, h, br, p_frac, p_std)
+    g_dteff = (g_dteff + c_teldt + c_dts + p_dteff + p_sqdt / (2 * torch.sqrt(dt_eff))
+               + b_dteff)
+    g_h = g_h + b_h
+    ct_t = g_t + c_ts + torch.where(is_last, -g_dteff, zero)
+    ct_dt = torch.where(is_last, zero, g_dteff)
+    ct_t1 = g_t1 + torch.where(is_last, g_dteff, zero)
+    ct_leaves = [c for pair in (*c_lf, *c_lg) for c in pair]
+    return (ct_t, ct_dt, g_qold, g_h, ct_y, ct_tw, ct_tz, ct_t1, g_span), ct_leaves
+
+
+# ---------------------------------------------------------------------------
+# Plain versions of K9 and K10.
+# ---------------------------------------------------------------------------
+
+
+def plain_sde_whole_solve_fwd(t0, t1, dt0, y0, leaves, rtol, atol, ctrl: PIController,
+                              max_steps: int, xi_w, xi_z, *, n_drift: int, solver="sosri",
+                              saveat=None, ys_init=None) -> SDERecord:
+    """Plain version of K9: the trial-step loop of ``ops.sde`` over the MLP
+    pair, with the linear ``saveat`` writes, recording ``SDERecord``."""
+    tab = get_tableau(solver)
+    drift, diffusion = pair_functions(n_drift)
+    step = sde_ops.make_step(tab, drift, diffusion, ctrl, rtol, atol,
+                             torch.promote_types(y0.dtype, torch.float32))
+    S = max_steps
+    hy = y0.new_zeros((S + 1,) + tuple(y0.shape))
+    hw, hz = torch.zeros_like(hy), torch.zeros_like(hy)
+    streams = t0.new_zeros((N_STREAMS, S))
+    span = t1 - t0
+    t, dt, qold = t0, dt0, torch.full_like(t0, ctrl.qoldinit)
+    tail = sde_ops.Tail(torch.zeros_like(t0), torch.zeros_like(y0), torch.zeros_like(y0))
+    y, ys = y0, (ys_init if saveat is not None else None)
+    na = i = 0
+    done = bool(span == 0)
+    while not done and i < S:
+        hy[i], hw[i], hz[i] = y, tail.w, tail.z
+        out = step(t, dt, qold, y, tail, ys, t1, span, saveat, tuple(leaves), xi_w[i], xi_z[i])
+        streams[:, i] = torch.stack([t, dt, qold, tail.h, *out.sums,
+                                     out.accept.to(t0.dtype), out.tel_t, out.dt_eff, out.eest,
+                                     out.eigen_est]).to(streams.dtype)
+        acc, last = torch.stack((out.accept, out.is_last)).tolist()
+        na += acc
+        t, dt, qold, y, tail, ys = out.t, out.dt, out.qold, out.y, out.tail, out.ys
+        done = acc and last
+        i += 1
+    hy[i], hw[i], hz[i] = y, tail.w, tail.z
+    final = torch.stack((t, dt, qold)).to(streams.dtype)
+    final = torch.cat([final, final.new_tensor([na, i - na, float(done)])])
+    if saveat is None:
+        ys = y0.new_zeros((0,) + tuple(y0.shape))
+        cursors = torch.zeros(2, dtype=torch.int32, device=y0.device)
+    else:
+        ys = ys.clone() if ys is ys_init else ys
+        cursors = torch.stack((_rows_through(saveat, t0, 1.0), _rows_through(saveat, t, 1.0)))
+    return SDERecord(y, hy, hw, hz, streams, final, ys, cursors)
+
+
+def plain_sde_whole_solve_bwd(rec: SDERecord, ns: int, ct_y1, ct_tel, t0, t1, leaves, rtol,
+                              atol, ctrl: PIController, xi_w, xi_z, *, n_drift: int,
+                              solver="sosri", saveat=None, ct_ys=None):
+    """Plain version of K10: the reverse walk over ``rec``'s ``ns`` trial
+    steps through ``_sde_step_bwd_math``, with the pullback of the linear
+    saves (each row's cotangent to the accepted step that wrote it). ``ct_tel``
+    is ``(4, S)``, the cotangents of the telemetry streams ``t, dt, eest,
+    eigen_est``. Returns ``(ct_t0, ct_t1, ct_dt0, ct_y0, ct_ys_init,
+    *ct_leaves)``."""
+    tab = get_tableau(solver)
+    span = t1 - t0
+    zero = torch.zeros_like(t0)
+    ct_t = ct_dt = ct_qold = ct_th = ct_t1x = ct_spanx = zero
+    ct_y, ct_tw, ct_tz = ct_y1, torch.zeros_like(ct_y1), torch.zeros_like(ct_y1)
+    ct_leaves = [torch.zeros_like(x) for x in leaves]
+    ct_ys = torch.zeros_like(rec.ys) if ct_ys is None else ct_ys.clone()
+    st = rec.streams
+    cur0, rcur = (int(v) for v in rec.cursors.tolist())
+    for i in range(ns - 1, -1, -1):
+        t_i, dt_i, qold_i, h_i, e, n, d, acc_f = st[:TEL_T, i]
+        acc = bool(acc_f > 0.5)
+        save = None
+        if saveat is not None and acc:
+            lo = rcur
+            while lo > cur0 and bool(saveat[lo - 1] - t_i > 0):
+                lo -= 1
+            if lo < rcur:
+                is_last = dt_i >= t1 - t_i
+                dt_eff = torch.where(is_last, t1 - t_i, dt_i)
+                hd = torch.where(dt_eff == 0, torch.ones_like(dt_eff), dt_eff)
+                th = ((saveat[lo:rcur] - t_i) / hd).reshape((-1,) + (1,) * ct_y1.dim())
+                rows = ct_ys[lo:rcur]
+                c_th = (rows * (rec.hy[i + 1] - rec.hy[i])).flatten(1).sum(1)
+                th1 = th.flatten()
+                save = (-(c_th / hd).sum(),
+                        torch.where(dt_eff == 0, zero, -(c_th * th1 / hd).sum()),
+                        ((1 - th) * rows).sum(0), (th * rows).sum(0))
+                ct_ys[lo:rcur] = 0
+            rcur = lo
+        prim = (t_i, dt_i, qold_i, h_i, rec.hy[i], rec.hw[i], rec.hz[i], xi_w[i], xi_z[i], t1,
+                span)
+        cts = (ct_t, ct_dt, ct_qold, ct_y, ct_th, ct_tw, ct_tz, ct_tel[0, i], ct_tel[1, i],
+               ct_tel[2, i], ct_tel[3, i])
+        (ct_t, ct_dt, ct_qold, ct_th, ct_y, ct_tw, ct_tz, d_t1, d_span), d_leaves = (
+            _sde_step_bwd_math(tab, ctrl, rtol, atol, prim, leaves, n_drift, acc, (e, n, d),
+                               cts, save))
+        ct_t1x, ct_spanx = ct_t1x + d_t1, ct_spanx + d_span
+        ct_leaves = [a + b for a, b in zip(ct_leaves, d_leaves)]
+    return (ct_t - ct_spanx, ct_t1x + ct_spanx, ct_dt, ct_y, ct_ys, *ct_leaves)
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: plain version for CPU tensors, kernel for CUDA tensors.
+# ---------------------------------------------------------------------------
+
+
+def _tableau_arrays(tab: SRITableau):
+    """The tableau as the kernels read it (``csrc/sde_whole_solve.cu``
+    ``pack_tab``): float32 coefficients (``delta * e_drift`` multiplied in
+    double first) and the stage analysis."""
+    an = analyze(tab)
+    s = tab.stages
+    if s != 4:
+        raise ValueError(f"the SDE kernels take 4-stage tableaus, got {tab.name} ({s})")
+    f = [x for m in (tab.A0, tab.A1, tab.B0, tab.B1) for row in m for x in row]
+    f += list(tab.alpha)
+    f += [b[i] for i in range(s) for b in (tab.beta1, tab.beta2, tab.beta3, tab.beta4)]
+    f += [tab.delta * e for e in tab.e_drift] + list(tab.e_noise)
+    src = lambda used, alias: [(-1 if not used[i] else (i if alias[i] is None else alias[i]))
+                               for i in range(s)]
+    coef = [int(an.g_used[i] and (tab.beta1[i], tab.beta2[i], tab.beta3[i], tab.beta4[i])
+                != (0.0,) * 4) for i in range(s)]
+    ints = src(an.f_used, an.f_alias) + src(an.g_used, an.g_alias) + coef + [0] * (3 * s)
+    ints += list(eigen_stages(tab))
+    return (ctypes.c_float * len(f))(*f), (ctypes.c_int * len(ints))(*ints)
+
+
+def _pair_widths(leaves, n_drift, D):
+    """``[nf, ng, drift widths, diffusion widths]`` from the leaves' shapes,
+    after checking them (2-D weights, 1-D biases, chained widths, D at both
+    ends, at most MAX_LAYERS layers each)."""
+    layers_f, layers_g = split_pair(leaves, n_drift)
+    widths = [len(layers_f), len(layers_g)]
+    for layers in (layers_f, layers_g):
+        if not 1 <= len(layers) <= MAX_LAYERS:
+            raise ValueError(f"each network takes 1 to {MAX_LAYERS} layers")
+        w = [D]
+        for W, b in layers:
+            if W.dim() != 2 or W.shape[1] != w[-1] or tuple(b.shape) != (W.shape[0],):
+                raise ValueError("the leaves must chain as nn.Linear layers from width "
+                                 f"{D}: got {tuple(W.shape)} and {tuple(b.shape)}")
+            w.append(W.shape[0])
+        if w[-1] != D:
+            raise ValueError(f"each network must end at the state's width {D}")
+        widths += w
+    return (ctypes.c_int * len(widths))(*widths)
+
+
+def _check_cuda_args(y, leaves, n_drift, xi_w, xi_z, max_steps):
+    if y.dim() != 2:
+        raise ValueError(f"the state must be (batch, dim), got {tuple(y.shape)}")
+    B, D = y.shape
+    _check_tensor("the state", y, (B, D), y)
+    for j, x in enumerate(leaves):
+        _check_tensor(f"leaf {j}", x, tuple(x.shape), y)
+    for name, x in (("xi_w", xi_w), ("xi_z", xi_z)):
+        _check_tensor(name, x, (max_steps, B, D), y)
+    return B, D, _pair_widths(leaves, n_drift, D)
+
+
+def _cuda_sde_fwd(t0, t1, dt0, y0, leaves, rtol, atol, ctrl, max_steps, xi_w, xi_z, n_drift,
+                  solver, saveat, ys_init):
+    from regneuralde_tpu_torch.ops import _cuda
+
+    if max_steps < 1:
+        raise ValueError(f"max_steps must be positive, got {max_steps}")
+    B, D, widths = _check_cuda_args(y0, leaves, n_drift, xi_w, xi_z, max_steps)
+    tab_f, tab_i = _tableau_arrays(get_tableau(solver))
+    n_save = 0 if saveat is None else saveat.shape[0]
+    dev = y0.device
+    if n_save:
+        _check_tensor("saveat", saveat, (n_save,), y0)
+        _check_tensor("ys_init", ys_init, (n_save, B, D), y0)
+        ys = ys_init.clone()
+        cursors = torch.stack((_rows_through(saveat, t0.to(saveat.dtype), 1.0),
+                               torch.zeros((), dtype=torch.int32, device=dev)))
+    else:
+        ys = y0.new_zeros((0, B, D))
+        cursors = torch.zeros(2, dtype=torch.int32, device=dev)
+    lib = _cuda.library()
+    y1 = torch.empty_like(y0)
+    hy = torch.empty((max_steps + 1, B, D), device=dev)
+    hw, hz = torch.empty_like(hy), torch.empty_like(hy)
+    streams = torch.zeros((N_STREAMS, max_steps), device=dev)
+    final = torch.empty(6, device=dev)
+    rows = lib.regnde_sde_rows()
+    partials = torch.empty((2, (B + rows - 1) // rows, 3), device=dev)
+    save = (_ptr(saveat), _ptr(cursors), _ptr(ys)) if n_save else (None,) * 3
+    scalars = torch.stack([_scalar_f32(x, y0) for x in (t0, t1, dt0)])
+    code = lib.regnde_sde_whole_solve_fwd(
+        _ptr(scalars), _ptr(y0),
+        ctypes.cast(_leaf_pointers(leaves), ctypes.c_void_p), ctypes.cast(widths, ctypes.c_void_p),
+        ctypes.cast(tab_f, ctypes.c_void_p), ctypes.cast(tab_i, ctypes.c_void_p), _ptr(xi_w),
+        _ptr(xi_z), *save, _ptr(y1), _ptr(hy), _ptr(hw), _ptr(hz), _ptr(streams), _ptr(final),
+        _ptr(partials), B, D, max_steps, n_save, float(rtol), float(atol), *_ctrl_args(ctrl),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _cuda.check(code, "SDE whole-solve forward kernel")
+    LAUNCHES["sde_whole_solve_fwd"] += 1
+    return SDERecord(y1, hy, hw, hz, streams, final, ys, cursors)
+
+
+def _cuda_sde_bwd(rec, ns, ct_y1, ct_tel, t0, t1, leaves, rtol, atol, ctrl, xi_w, xi_z,
+                  n_drift, solver, saveat, ct_ys):
+    from regneuralde_tpu_torch.ops import _cuda
+
+    S = rec.streams.shape[1]
+    B, D, widths = _check_cuda_args(rec.y1, leaves, n_drift, xi_w, xi_z, S)
+    tab_f, tab_i = _tableau_arrays(get_tableau(solver))
+    for name, x, shape in (("ct_y1", ct_y1, (B, D)), ("ct_tel", ct_tel, (4, S)),
+                           ("hy", rec.hy, (S + 1, B, D)), ("hw", rec.hw, (S + 1, B, D)),
+                           ("hz", rec.hz, (S + 1, B, D)),
+                           ("streams", rec.streams, (N_STREAMS, S))):
+        _check_tensor(name, x, shape, rec.y1)
+    if not 0 <= ns <= S:
+        raise ValueError(f"ns must lie in [0, {S}], got {ns}")
+    n_save = 0 if saveat is None else saveat.shape[0]
+    dev = rec.y1.device
+    if n_save:
+        _check_tensor("saveat", saveat, (n_save,), rec.y1)
+        _check_tensor("ct_ys", ct_ys, (n_save, B, D), rec.y1)
+        _check_tensor("cursors", rec.cursors, (2,), rec.y1, torch.int32)
+        ct_ys = ct_ys.clone()
+    else:
+        ct_ys = rec.y1.new_zeros((0, B, D))
+    lib = _cuda.library()
+    ct_y = ct_y1.clone()
+    ct_tw, ct_tz = torch.zeros_like(ct_y), torch.zeros_like(ct_y)
+    ct_scalars = torch.empty(3, device=dev)
+    rows = lib.regnde_sde_rows()
+    ntiles = (B + rows - 1) // rows
+    partials = torch.empty((2, ntiles, 5), device=dev)
+    n_leaf = sum(x.numel() for x in leaves)
+    out = torch.empty(n_leaf, device=dev)
+    slots = torch.empty((ntiles, n_leaf), device=dev)
+    save = (_ptr(saveat), _ptr(rec.cursors), _ptr(ct_ys)) if n_save else (None,) * 3
+    scalars = torch.stack([_scalar_f32(x, rec.y1) for x in (t0, t1)])
+    code = lib.regnde_sde_whole_solve_bwd(
+        _ptr(scalars), _ptr(rec.streams), _ptr(rec.hy), _ptr(rec.hw), _ptr(rec.hz), ctypes.cast(_leaf_pointers(leaves), ctypes.c_void_p),
+        ctypes.cast(widths, ctypes.c_void_p), ctypes.cast(tab_f, ctypes.c_void_p),
+        ctypes.cast(tab_i, ctypes.c_void_p), _ptr(xi_w), _ptr(xi_z), *save, _ptr(ct_tel),
+        _ptr(ct_y), _ptr(ct_tw), _ptr(ct_tz), _ptr(out), _ptr(ct_scalars), _ptr(partials),
+        _ptr(slots), ns, B, D, S, n_save, float(rtol), float(atol), *_ctrl_args(ctrl),
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _cuda.check(code, "SDE whole-solve backward kernel")
+    LAUNCHES["sde_whole_solve_bwd"] += 1
+    ct_leaves, off = [], 0
+    for x in leaves:
+        ct_leaves.append(out[off:off + x.numel()].view(x.shape))
+        off += x.numel()
+    return (ct_scalars[0], ct_scalars[1], ct_scalars[2], ct_y, ct_ys, *ct_leaves)
+
+
+def sde_whole_solve_fwd(t0, t1, dt0, y0, leaves: Sequence[torch.Tensor], rtol, atol,
+                        ctrl: PIController, max_steps: int, xi_w, xi_z, *, n_drift: int,
+                        solver="sosri", saveat=None, ys_init=None) -> SDERecord:
+    """K9 or its plain version: the whole forward solve of the MLP pair
+    (``leaves``: the drift's ``n_drift`` layers' ``(W, b)``, then the
+    diffusion's), writing the ``saveat`` rows over ``ys_init`` (by default
+    ``y0`` at the stamps at or before ``t0``)."""
+    if saveat is not None and ys_init is None:
+        saveat, ys_init = sde_ops.save_rows_at_start(saveat, t0, y0)
+    args = (t0, t1, dt0, y0, tuple(leaves), rtol, atol, ctrl, max_steps, xi_w, xi_z)
+    if y0.device.type == "cuda":
+        return _cuda_sde_fwd(*args, n_drift, solver, saveat, ys_init)
+    if y0.device.type == "cpu":
+        return plain_sde_whole_solve_fwd(*args, n_drift=n_drift, solver=solver, saveat=saveat,
+                                         ys_init=ys_init)
+    raise RuntimeError(f"no SDE whole-solve forward for device {y0.device}")
+
+
+def sde_whole_solve_bwd(rec: SDERecord, ns: int, ct_y1, ct_tel, t0, t1,
+                        leaves: Sequence[torch.Tensor], rtol, atol, ctrl: PIController, xi_w,
+                        xi_z, *, n_drift: int, solver="sosri", saveat=None, ct_ys=None):
+    """K10 or its plain version: ``(ct_t0, ct_t1, ct_dt0, ct_y0, ct_ys_init,
+    *ct_leaves)``."""
+    args = (rec, ns, ct_y1, ct_tel, t0, t1, tuple(leaves), rtol, atol, ctrl, xi_w, xi_z)
+    if ct_y1.device.type == "cuda":
+        return _cuda_sde_bwd(*args, n_drift, solver, saveat, ct_ys)
+    if ct_y1.device.type == "cpu":
+        return plain_sde_whole_solve_bwd(*args, n_drift=n_drift, solver=solver,
+                                         saveat=saveat, ct_ys=ct_ys)
+    raise RuntimeError(f"no SDE whole-solve backward for device {ct_y1.device}")
+
+
+# ---------------------------------------------------------------------------
+# The differentiable solve and its sdeint-compatible front end.
+# ---------------------------------------------------------------------------
+
+
+class SDEWholeSolveFn(torch.autograd.Function):
+    """The whole SDE solve with K10 as its gradient. Inputs ``t0, t1,
+    dt_init, y0``, the ``saveat`` rows' initial values ``ys_init`` and the
+    leaves; outputs those of ``ops.sde.SDEAdjointSolve``."""
+
+    @staticmethod
+    def forward(ctx, cfg, saveat, xi_w, xi_z, t0, t1, dt_init, y0, ys_init, *leaves):
+        solver, n_drift, ctrl, max_steps, rtol, atol = cfg
+        unsorted = None
+        if saveat is not None:
+            unsorted = (saveat[1:] < saveat[:-1]).any()
+        rec = sde_whole_solve_fwd(t0, t1, dt_init, y0, leaves, rtol, atol, ctrl, max_steps,
+                                  xi_w, xi_z, n_drift=n_drift, solver=solver, saveat=saveat,
+                                  ys_init=ys_init if saveat is not None else None)
+        # the one host sync of the solve: the step counts size the backward
+        flags = rec.final[3:]
+        if unsorted is not None:
+            flags = torch.cat([flags, unsorted.to(flags.dtype).reshape(1)])
+        na, nr, done, *bad = (int(v) for v in flags.tolist())
+        if any(bad):
+            raise ValueError("the SDE whole solve takes saveat sorted; sort it or use "
+                             "fused=False")
+        st = rec.streams
+        accepted = st[ST_ACC] > 0.5
+        live = torch.arange(max_steps, device=st.device) < na + nr
+        counts = torch.tensor([na, nr, done])
+        ctx.mark_non_differentiable(accepted, live, counts)
+        ctx.rec, ctx.ns, ctx.cfg, ctx.saveat = rec, na + nr, cfg, saveat
+        ctx.save_for_backward(t0, t1, xi_w, xi_z, *leaves)
+        return (rec.y1, rec.ys, st[TEL_T].clone(), st[TEL_DT].clone(), st[TEL_EEST].clone(),
+                st[TEL_EIGEN].clone(), accepted, live, counts)
+
+    @staticmethod
+    def backward(ctx, ct_y1, ct_ys, ct_tel_t, ct_tel_dt, ct_tel_e, ct_tel_g, *_):
+        t0, t1, xi_w, xi_z, *leaves = ctx.saved_tensors
+        solver, n_drift, ctrl, max_steps, rtol, atol = ctx.cfg
+        rec = ctx.rec
+        S = rec.streams.shape[1]
+        ct_tel = torch.stack([rec.streams.new_zeros(S) if c is None else c.to(rec.streams.dtype)
+                              for c in (ct_tel_t, ct_tel_dt, ct_tel_e, ct_tel_g)])
+        ct_y1 = torch.zeros_like(rec.y1) if ct_y1 is None else ct_y1.contiguous()
+        ct_ys = torch.zeros_like(rec.ys) if ct_ys is None else ct_ys.contiguous()
+        grads = sde_whole_solve_bwd(rec, ctx.ns, ct_y1, ct_tel, t0, t1, leaves, rtol, atol,
+                                    ctrl, xi_w, xi_z, n_drift=n_drift, solver=solver,
+                                    saveat=ctx.saveat, ct_ys=ct_ys)
+        ctx.rec = None
+        ct_t0, ct_t1, ct_dt0 = (g.to(t0.dtype).reshape(t0.shape) for g in grads[:3])
+        ct_ys_init = grads[4] if ctx.saveat is not None else None
+        return (None,) * 4 + (ct_t0, ct_t1, ct_dt0, grads[3], ct_ys_init, *grads[5:])
+
+
+def whole_solve_sdeint(y0: torch.Tensor, t0, t1, leaves, *, n_drift: int, noise=None,
+                       generator: Optional[torch.Generator] = None, solver: str = "sosri",
+                       rtol: float = 1e-2, atol: float = 1e-2, dt0: Optional[float] = None,
+                       max_steps: int = 256, saveat=None,
+                       controller: Optional[PIController] = None) -> sde_ops.SDESolution:
+    """Integrate the MLP pair's SDE (``leaves``: the drift's ``n_drift``
+    layers, then the diffusion's) from ``t0`` to ``t1`` in one forward and
+    one backward launch, with ``ops.sde.sdeint``'s prologue (the draws from
+    ``noise`` or ``generator``, ``dt0 = min(0.01, span)``): the solution,
+    its NFE, telemetry and ``saveat`` rows are those ``sdeint`` returns on
+    the same draws."""
+    sde_ops.check_options(solver, "adjoint", "collapse")
+    tab = get_tableau(solver)
+    ctrl = controller or PIController(beta1=0.5, beta2=0.0)
+    leaves = tuple(leaves)
+    t0, t1, dt_init = sde_ops.sde_prologue(y0, t0, t1, dt0)
+    xi_w, xi_z = sde_ops.resolve_noise(noise, generator, y0, max_steps)
+    xi_w, xi_z = xi_w[:max_steps].contiguous(), xi_z[:max_steps].contiguous()
+    if saveat is not None:
+        saveat, ys_init = sde_ops.save_rows_at_start(saveat, t0, y0)
+    else:
+        ys_init = y0.new_zeros((0,) + tuple(y0.shape))
+    (y1, ys, tel_t, tel_dt, tel_e, tel_g, acc, live, counts) = SDEWholeSolveFn.apply(
+        (solver, n_drift, ctrl, max_steps, float(rtol), float(atol)), saveat, xi_w, xi_z, t0,
+        t1, dt_init, y0, ys_init, *leaves)
+    naccept, nreject, done = counts.tolist()
+    return sde_ops.SDESolution(
+        y1=y1, ys=ys if saveat is not None else None, ts=saveat,
+        stats=sde_ops.sde_stats(tab, naccept, nreject, done),
+        telemetry=StepTelemetry(tel_t, tel_dt, tel_e, tel_g, acc, live))

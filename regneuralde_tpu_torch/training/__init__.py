@@ -23,6 +23,7 @@ from regneuralde_tpu_torch.training.optimizers import (
     ffjord_optimizer,
     latent_ode_optimizer,
     mnist_node_optimizer,
+    mnist_nsde_optimizer,
 )
 
 
@@ -57,4 +58,5 @@ def make_train_step(loss_fn: Callable, optimizer) -> Callable:
 
 __all__ = ["AdaMax", "Adam", "Chain", "InvDecay", "Momentum", "TrainState",
            "WeightDecay", "apply_updates", "create_train_state", "ffjord_optimizer",
-           "latent_ode_optimizer", "make_train_step", "mnist_node_optimizer"]
+           "latent_ode_optimizer", "make_train_step", "mnist_node_optimizer",
+           "mnist_nsde_optimizer"]

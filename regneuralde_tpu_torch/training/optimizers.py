@@ -154,6 +154,11 @@ def latent_ode_optimizer() -> Chain:
     return Chain(InvDecay(1e-5), AdaMax(0.01))
 
 
+def mnist_nsde_optimizer() -> Chain:
+    """InvDecay(1e-5) then ADAM(0.01) (experiments/mnist_nsde.jl)."""
+    return Chain(InvDecay(1e-5), Adam(0.01))
+
+
 def ffjord_optimizer(lr: float = 1e-2) -> Chain:
     """WeightDecay(1e-5) then ADAM(lr) (experiments/ffjord_tabular.jl:133)."""
     return Chain(WeightDecay(1e-5), Adam(lr))

@@ -142,9 +142,10 @@ class _OtherDynamics(torch.nn.Module):
 
 @pytest.mark.parametrize("fused", [True, "solve", "tiled"])
 def test_unported_fused_routes_raise_not_implemented(fused):
-    """The whole-solve routes run MLPDynamics and AlternatingMLP; the
-    whole solve of other dynamics (FFJORD's CSL) is a later slice."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The whole-solve routes run MLPDynamics and AlternatingMLP; other
+    dynamics raise JAX's ValueError (FFJORD's CSL runs through
+    ``models.FFJORD``, never through ``NeuralODE``)."""
+    with pytest.raises(ValueError, match="MLPDynamics or AlternatingMLP"):
         NeuralODE(_OtherDynamics(), fused=fused)
 
 

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (K1/K2 step pair, K3/K4 whole solve for
 MLPDynamics, AlternatingMLP and FFJORD's CSL dynamics, K7/K8 step pairs for
-AlternatingMLP and CSL) against their plain PyTorch versions.
+AlternatingMLP and CSL, K9/K10 the SDE whole solve of an MLP pair) against
+their plain PyTorch versions.
 
 These tests need a CUDA device and ``nvcc`` (the kernels have no CPU mode)
 and skip without one. This file imports no JAX, so it runs on a machine
@@ -17,6 +18,8 @@ from regneuralde_tpu_torch.ops import fused_csl as fc
 from regneuralde_tpu_torch.ops import fused_generic as fg
 from regneuralde_tpu_torch.ops import fused_mlp as fm
 from regneuralde_tpu_torch.ops import ode
+from regneuralde_tpu_torch.ops import sde as sde_ops
+from regneuralde_tpu_torch.ops import sde_whole_solve as sw
 from regneuralde_tpu_torch.ops import whole_solve as ws
 from regneuralde_tpu_torch.ops.controller import PIController
 
@@ -779,5 +782,137 @@ def test_ffjord_trains_through_the_csl_kernels(cuda, fused):
     assert a.nfe == b.nfe and torch.equal(a.telemetry.accepted, b.telemetry.accepted)
     assert a.solution.stats.success and a.logpx.shape == (37,)
     assert _rel(a.logpx, b.logpx) <= 1e-6
+    for u, v in zip(ga, gb):
+        assert _rel(u, v) <= 1e-3
+
+
+def _sde_args(batch, dim, hidden, device, tol, max_steps, saveat=None, seed=0):
+    """Seeded MLP-pair leaves (drift dim -> hidden -> dim, diffusion dim ->
+    dim), y0 and draws, and the whole solve's arguments."""
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s, sc=1.0: (torch.randn(s, generator=g) * sc).to(device)
+    leaves = [r(hidden, dim, sc=dim ** -0.5), r(hidden, sc=0.1), r(dim, hidden, sc=hidden ** -0.5),
+              r(dim, sc=0.1), r(dim, dim, sc=dim ** -0.5), r(dim, sc=0.1)]
+    y0 = r(batch, dim, sc=0.5)
+    xi = tuple(r(max_steps, batch, dim) for _ in range(2))
+    t0, t1 = torch.tensor(0.0, device=device), torch.tensor(1.0, device=device)
+    args = (t0, t1, torch.tensor(0.01, device=device), y0, leaves, tol, tol,
+            PIController(beta1=0.5, beta2=0.0), max_steps, *xi)
+    kw = dict(n_drift=2, solver="sosri2")
+    if saveat is not None:
+        sa, ys_init = sde_ops.save_rows_at_start(torch.tensor(saveat, device=device), t0, y0)
+        kw.update(saveat=sa, ys_init=ys_init)
+    return args, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch, dim, hidden, tol, saveat", [
+    (512, 32, 64, 1.4e-1, None), (13, 5, 8, 1e-2, None),
+    (512, 32, 64, 1.4e-2, [0.0, 0.25, 0.5, 0.75, 1.0])])
+def test_sde_whole_solve_kernels_match_plain_versions(cuda, batch, dim, hidden, tol, saveat):
+    """K9 takes the plain version's steps and save cursors, y1 and the saves
+    within 1e-5 (relative); K10, seeded with the cotangents of y1, the
+    saves and the telemetry, within 1e-3 of the plain version on every
+    output and within 3 times the plain version's distance from a float64
+    walk, plus 1e-5."""
+    S = 256
+    args, kw = _sde_args(batch, dim, hidden, cuda, tol, S, saveat)
+    rk = sw.sde_whole_solve_fwd(*args, **kw)
+    rp = sw.plain_sde_whole_solve_fwd(*args, **kw)
+    assert rk.final[3:].tolist() == rp.final[3:].tolist() and rk.final[5] == 1.0
+    assert torch.equal(rk.streams[sw.ST_ACC], rp.streams[sw.ST_ACC])
+    assert torch.equal(rk.cursors, rp.cursors)
+    assert _rel(rk.y1, rp.y1) <= 1e-5
+    if saveat is not None:
+        assert _rel(rk.ys, rp.ys) <= 1e-5
+    ns = int(rk.final[3:5].sum())
+    g = torch.Generator().manual_seed(7)
+    ct_y1 = torch.randn(batch, dim, generator=g).to(cuda)
+    ct_tel = (0.1 * torch.randn(4, S, generator=g)).to(cuda)
+    ct_ys = None if saveat is None else torch.randn(len(saveat), batch, dim, generator=g).to(cuda)
+    t0, t1, _, _, leaves, _, _, ctrl = args[:8]
+    bargs = (ns, ct_y1, ct_tel, t0, t1, leaves, tol, tol, ctrl, *args[9:])
+    bkw = dict(n_drift=2, solver="sosri2", saveat=kw.get("saveat"), ct_ys=ct_ys)
+    gk = sw.sde_whole_solve_bwd(rk, *bargs, **bkw)
+    gp = sw.plain_sde_whole_solve_bwd(rk, *bargs, **bkw)
+    d = lambda x: None if x is None else x.double()
+    g64 = sw.plain_sde_whole_solve_bwd(
+        sw.SDERecord(*map(d, rk)), ns, d(ct_y1), d(ct_tel), d(t0), d(t1), [d(x) for x in leaves],
+        tol, tol, ctrl, d(args[9]), d(args[10]), n_drift=2, solver="sosri2",
+        saveat=d(kw.get("saveat")), ct_ys=d(ct_ys))
+    groups = lambda g: [torch.stack(g[:3]), *g[3:]]
+    for a, b, c in zip(groups(gk), groups(gp), groups(g64)):
+        if b.numel():
+            assert _rel(a, b) <= 1e-3
+            assert _rel(a, c) <= 3 * _rel(b, c) + 1e-5
+
+
+@pytest.mark.cuda
+def test_sde_whole_solve_kernels_are_deterministic(cuda):
+    args, kw = _sde_args(512, 32, 64, cuda, 1.4e-2, 256, [0.0, 0.5, 1.0])
+    a, b = sw.sde_whole_solve_fwd(*args, **kw), sw.sde_whole_solve_fwd(*args, **kw)
+    ns = int(a.final[3:5].sum())
+    # the history's rows past the last trial step are undefined
+    assert all(torch.equal(getattr(a, n), getattr(b, n))
+               for n in ("y1", "streams", "final", "ys", "cursors"))
+    assert all(torch.equal(getattr(a, n)[:ns + 1], getattr(b, n)[:ns + 1])
+               for n in ("hy", "hw", "hz"))
+    bargs = (ns, torch.ones_like(a.y1), torch.full((4, 256), 0.1, device=cuda), args[0], args[1],
+             args[4], 1.4e-2, 1.4e-2, args[7], *args[9:])
+    bkw = dict(n_drift=2, solver="sosri2", saveat=kw["saveat"], ct_ys=torch.ones_like(a.ys))
+    u, v = sw.sde_whole_solve_bwd(a, *bargs, **bkw), sw.sde_whole_solve_bwd(a, *bargs, **bkw)
+    assert all(torch.equal(x, y) for x, y in zip(u, v))
+
+
+@pytest.mark.cuda
+def test_sde_wrappers_refuse_bad_inputs(cuda):
+    args, kw = _sde_args(16, 4, 8, cuda, 1e-2, 32)
+    t0, t1, dt0, y0, leaves = args[:5]
+    rest = args[5:9]
+    xi = args[9:]
+    with pytest.raises(ValueError, match="float32"):
+        sw.sde_whole_solve_fwd(t0, t1, dt0, y0.double(), leaves, *rest, *xi, **kw)
+    with pytest.raises(ValueError, match="xi_w"):
+        sw.sde_whole_solve_fwd(t0, t1, dt0, y0, leaves, *rest, xi[0][:8], xi[1], **kw)
+    with pytest.raises(ValueError, match="chain"):
+        sw.sde_whole_solve_fwd(t0, t1, dt0, y0, [leaves[0].t().contiguous(), *leaves[1:]], *rest,
+                               *xi, **kw)
+    with pytest.raises(ValueError, match="1 to 4 layers"):
+        sw.sde_whole_solve_fwd(t0, t1, dt0, y0, leaves, *rest, *xi, n_drift=3, solver="sosri2")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("saveat", [None, [0.0, 0.5, 1.0]])
+def test_nsde_trains_through_k9_k10(cuda, saveat):
+    """``NeuralSDE(MLP(8, (12, 8)), MLP(8, (8,)))`` on ``fused=True``
+    against ``fused=False`` on the card at rtol=atol=1e-2, batch 37, the
+    same draws: the same NFE and accept sequence, the value within 1e-5 and
+    the gradients of ``sum(v^2) + 10 * error_estimate`` within 1e-3
+    (relative); one K9 and one K10 launch, no other kernel."""
+    from regneuralde_tpu_torch import reg
+    from regneuralde_tpu_torch.models import MLP, NeuralSDE
+
+    outs = {}
+    for route in (True, False):
+        gen = torch.Generator().manual_seed(0)
+        m = NeuralSDE(MLP(8, (12, 8), device=cuda, generator=gen),
+                      MLP(8, (8,), device=cuda, generator=gen), solver="sosri2", rtol=1e-2,
+                      atol=1e-2, max_steps=128, fused=route)
+        x = torch.randn(37, 8, generator=gen).to(cuda)
+        noise = sde_ops.presample_noise(torch.Generator(device=cuda).manual_seed(1), x.shape, 128)
+        for mod in (ws, fm, fg, fc, sw):
+            mod.reset_launches()
+        out = m(x, noise=noise, saveat=None if saveat is None else torch.tensor(saveat))
+        loss = out.value.square().sum() + 10 * reg.error_estimate(out.telemetry, "mean")
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        outs[route] = (out, grads, {k: v for mod in (ws, fm, fg, fc, sw)
+                                    for k, v in mod.LAUNCHES.items()})
+    (a, ga, la), (b, gb, lb) = outs[True], outs[False]
+    want = {k: 0 for k in la}
+    want.update(sde_whole_solve_fwd=1, sde_whole_solve_bwd=1)
+    assert la == want and not any(lb.values())
+    assert a.nfe1 == b.nfe1 and torch.equal(a.telemetry.accepted, b.telemetry.accepted)
+    assert a.solution.stats.success
+    assert _rel(a.value, b.value) <= 1e-5
     for u, v in zip(ga, gb):
         assert _rel(u, v) <= 1e-3

@@ -4,7 +4,8 @@ on this tree and on copies of it with one planted fault each in the CSL
 reverse (``csrc/csl_tsit5.cuh``): the readings that ``chip_smoke.py``'s
 ``CSL_TEL_BWD_BOUND`` lies between.
 
-    python3 tools/torch_csl_fault_probe.py
+    python3 tools/torch_csl_fault_probe.py [--tols 1e-3,1e-2,1e-1]
+                                           [--faults no_ynew_max,no_err_dt]
 
 Needs one GPU and ``nvcc``. The copies are made in a temporary directory and
 removed at the end; their kernels are built there, all at once. The faults:
@@ -12,9 +13,12 @@ removed at the end; their kernels are built there, all at once. The faults:
 y_new side of the norm's max(|y|, |y_new|), ``no_gate_t`` the gates'
 dependence on the stage time, ``no_stage_dt`` the stage time's share of
 ct_dt. For each tree it prints the lines of phase 16's K4 comparison and
-the checks that failed.
+the checks that failed. ``--tols`` runs phase 16 at these tolerances
+instead of ``chip_smoke.CSL_K4_CASES``' (with no limit on K4 against its
+plain version; those of 1e-3 and above also with the eest telemetry's
+cotangent alone seeded), ``--faults`` plants only these faults.
 """
-import shutil, subprocess, sys, tempfile
+import argparse, shutil, subprocess, sys, tempfile
 from pathlib import Path
 
 MUTANTS = {
@@ -32,6 +36,8 @@ import torch, chip_smoke as cs
 fails = []
 cs._check = lambda ok, msg: ok or fails.append(msg)
 cs._time_ms = lambda fn: 0.0
+if TOLS:
+    cs.CSL_K4_CASES = {t: float("inf") for t in TOLS}
 dev = torch.device("cuda", 0)
 buf = io.StringIO()
 with contextlib.redirect_stdout(buf):
@@ -43,6 +49,15 @@ print("FAILED CHECKS:", fails)
 '''
 BUILD = ("import sys; sys.path.insert(0, '.'); from regneuralde_tpu_torch.ops import _cuda; "
          "_cuda.library()")
+ap = argparse.ArgumentParser()
+ap.add_argument("--tols", default="")
+ap.add_argument("--faults", default="")
+cli = ap.parse_args()
+tols = [float(t) for t in cli.tols.split(",") if t]
+RUN = f"TOLS = {tols!r}\n" + RUN
+if cli.faults:
+    keep = set(cli.faults.split(","))
+    MUTANTS = {n: m for n, m in MUTANTS.items() if m is None or n in keep}
 root = Path(".").resolve()
 tmp = Path(tempfile.mkdtemp())
 trees = {}

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Profile the PyTorch/CUDA port's training steps on one GPU.
 
-    python3 tools/torch_step_profile.py [--model mnist|latent|ffjord]
-                                        [--fused step|true] [--steps 3]
+    python3 tools/torch_step_profile.py [--model mnist|latent|ffjord|nsde]
+                                        [--fused step|true|false] [--steps 3]
                                         [--tol 1.4e-8] [--out DIR]
 
 ``--model mnist`` (the default) builds the flagship classifier of
@@ -11,9 +11,15 @@
 saveat stamps, max_steps=256), ``--model ffjord`` FFJORD's tabular
 configuration of ``chip_smoke.py`` (CSLDynamics(43, 100), batch 1024,
 max_steps=128, -mean(logpx) + 5e3 * error_estimate, WeightDecay(1e-5) then
-Adam(1e-2)), on the step kernels (``--fused step``, the default: K1/K2, K7/K8
-or K7/K8-CSL on every trial step) or the whole-solve kernels (``--fused
-true``: K3/K4 once per solve). It runs one warm-up step, then:
+Adam(1e-2)), ``--model nsde`` the MNIST Neural SDE of ``chip_smoke.py``
+(ClassifierNSDE at 784 -> 32, drift 32-64-32, diffusion 32-32, SOSRI2 at
+rtol=atol=1.4e-1, max_steps=128, batch 512, CE + 0.1 * stiffness_estimate,
+InvDecay(1e-5) then Adam(0.01), fresh draws each step; ``--tol`` does not
+apply), on the step kernels (``--fused step``, the default: K1/K2, K7/K8
+or K7/K8-CSL on every trial step; the NSDE has no step route), the
+whole-solve kernels (``--fused true``: K3/K4 or K9/K10 once per solve) or
+no kernel (``--fused false``, the plain PyTorch route). It runs one warm-up
+step, then:
 
 * times ``--steps`` training steps on the host clock (each ends in a
   synchronize) and reports ms per step, NFE per step and trial steps;
@@ -22,10 +28,11 @@ true``: K3/K4 once per solve). It runs one warm-up step, then:
 * traces one step with ``torch.profiler`` and prints device time by kernel,
   the device-busy share of the step's wall time, and writes the chrome trace
   to ``--out``;
-* for the latent model and FFJORD, splits that step's host and device
-  time between its parts: ``record_function`` ranges around the encoder's
+* for the latent model, FFJORD and the NSDE, splits that step's host and
+  device time between its parts: ``record_function`` ranges around the encoder's
   GRU loop and MLP, the node (the solve) and the decoder (FFJORD: the
-  model's whole forward, the solve and logpz) in the forward, and in the
+  model's whole forward, the solve and logpz; the NSDE: the solve) in the
+  forward, and in the
   backward the solve's autograd function against everything else (the
   GRU's, encoder's, decoder's and loss's autograd nodes).
 """
@@ -60,7 +67,8 @@ def _print_split(events, wall_ms):
     from torch.autograd import DeviceType
 
     events = [e for e in events if e.device_type == DeviceType.CPU]
-    solve_bwd = ("WholeSolveFnBackward", "FastAdjointSolveBackward")
+    solve_bwd = ("WholeSolveFnBackward", "FastAdjointSolveBackward",
+                 "SDEWholeSolveFnBackward", "SDEAdjointSolveBackward")
     engine = "autograd::engine::evaluate_function:"
     solves = [e.time_range for e in events
               if e.name.startswith(engine) and any(k in e.name for k in solve_bwd)]
@@ -86,8 +94,8 @@ def _print_split(events, wall_ms):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=["mnist", "latent", "ffjord"], default="mnist")
-    ap.add_argument("--fused", choices=["step", "true"], default="step")
+    ap.add_argument("--model", choices=["mnist", "latent", "ffjord", "nsde"], default="mnist")
+    ap.add_argument("--fused", choices=["step", "true", "false"], default="step")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--tol", type=float, default=1.4e-8)
     ap.add_argument("--out", default="build/profile")
@@ -101,21 +109,27 @@ def main():
         print("torch_step_profile: no CUDA device", file=sys.stderr)
         return 1
     import chip_smoke as cs
-    from regneuralde_tpu_torch.ops import fused_csl as fc
-    from regneuralde_tpu_torch.ops import fused_generic as fg
-    from regneuralde_tpu_torch.ops import fused_mlp as fm
-    from regneuralde_tpu_torch.ops import whole_solve as ws
     from regneuralde_tpu_torch.training import (
         create_train_state,
         ffjord_optimizer,
         latent_ode_optimizer,
         make_train_step,
         mnist_node_optimizer,
+        mnist_nsde_optimizer,
     )
 
     device = torch.device("cuda", 0)
-    fused = True if args.fused == "true" else "step"
-    if args.model == "latent":
+    fused = {"true": True, "false": False, "step": "step"}[args.fused]
+    if args.model == "nsde":
+        if fused == "step":
+            ap.error("the NSDE has no step route: use --fused true or false")
+        xy = cs.synthetic_batches(args.steps + 2, device)
+        batches = [(x, y, cs.nsde_noise(i, device)) for i, (x, y) in enumerate(xy)]
+        model = cs.build_nsde("sosri2", fused, device)
+        optimizer = mnist_nsde_optimizer()
+        loss_fn = cs.nsde_loss
+        _annotate(model.nsde, "[part] forward: the solve", record_function)
+    elif args.model == "latent":
         batches, saveat = cs.latent_batches(args.steps + 2, device)
         model, gen = cs.build_latent(args.tol, fused, device, saveat)
         model.init(cs.latent_inputs(*batches[0][:3]), generator=gen)
@@ -139,7 +153,7 @@ def main():
         loss_fn = cs.mnist_loss
     state = create_train_state(model, optimizer)
     step = make_train_step(loss_fn, optimizer)
-    counters = (fm, ws, fg, fc)
+    counters = cs._counters()
 
     state, _, _ = step(state, *batches[0])  # warm-up (allocator, build)
     torch.cuda.synchronize()
@@ -152,7 +166,8 @@ def main():
         state, loss, out = step(state, *batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
-        rows.append(dict(ms=wall * 1e3, nfe=out.nfe,
+        nfe = out.nfe if args.model != "nsde" else [out.nfe1, out.nfe2]
+        rows.append(dict(ms=wall * 1e3, nfe=nfe,
                          trial_steps=int(out.telemetry.live.sum().item()),
                          loss=loss.item(),
                          launches={k: v for m in counters for k, v in m.LAUNCHES.items()}))
@@ -190,7 +205,7 @@ def main():
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d} calls  {e.key[:90]}")
-    if args.model in ("latent", "ffjord"):
+    if args.model in ("latent", "ffjord", "nsde"):
         _print_split(prof.events(), wall * 1e3)
     os.makedirs(args.out, exist_ok=True)
     prof.export_chrome_trace(os.path.join(
