@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's MNIST Neural-ODE, latent-ODE, FFJORD and MNIST
 Neural-SDE training steps on one GPU, on the step kernels and on the whole
-solve.
+solve, and the MNIST Neural ODE with per-sample adaptive stepping.
 
     python3 chip_smoke.py
 
@@ -85,10 +85,24 @@ at first use. Phases (each checks its results; any failure exits non-zero):
    (``experiments/mnist_nsde.py``: batch 512, SOSRI2 at rtol=atol=1.4e-1,
    max_steps 128, CE + 0.1 * stiffness_estimate, InvDecay(1e-5) then
    Adam(0.01)) on ``fused=True``: one K9 and one K10 launch a step and no
-   other kernel, NFE, accepts and ms a step.
+   other kernel, NFE, accepts and ms a step;
+22. K11 and K12 (the lane-wise Tsit5 step of the per-sample engine) against
+   their plain versions at 512x784x100 with per-lane (t, dt) and finished
+   lanes: K11 within FWD_BOUND (bitwise where it rounds as its plain
+   version), K12 within BWD_BOUND and against a float64 walk, bitwise
+   determinism, CUDA-event times;
+23. one forward+backward of the per-sample flagship step
+   (``per_sample="batched"``) at rtol=atol=1e-5, ``fused=True`` against
+   ``fused=False``, with a scalar t1 and with a per-lane STEER t1: identical
+   per-lane NFE and accept sequences, gradients as in phase 3;
+24. three training steps of the per-sample flagship at rtol=atol=1.4e-8 on
+   ``fused=True``: one K11 and one K12 launch an engine iteration and no
+   other kernel; per-lane NFE, success fraction and ms a step; then the
+   lanes whose NFE or accepts differ between ``fused=True`` and ``False``
+   in a forward from the trained weights (reported).
 
 Each line of the kernels' JSON record gives the kernel's launches on its
-main path (phases 4, 7, 10, 14, 18 and 21), its time and its plain version's (CUDA
+main path (phases 4, 7, 10, 14, 18, 21 and 24), its time and its plain version's (CUDA
 events, median of 7), and its bound: the larger of its float32 operations
 over the card's f32 rate and its bytes over the memory rate. The last two
 lines of standard output are the kernels' JSON record and the device
@@ -181,10 +195,11 @@ def _counters():
     from regneuralde_tpu_torch.ops import fused_csl as fc
     from regneuralde_tpu_torch.ops import fused_generic as fg
     from regneuralde_tpu_torch.ops import fused_mlp as fm
+    from regneuralde_tpu_torch.ops import fused_mlp_lanes as fl
     from regneuralde_tpu_torch.ops import sde_whole_solve as sw
     from regneuralde_tpu_torch.ops import whole_solve as ws
 
-    return fg, fm, ws, fc, sw
+    return fg, fm, ws, fc, sw, fl
 
 
 def _check(ok, what):
@@ -219,7 +234,7 @@ def _time_ms(fn):
     return statistics.median(times)
 
 
-def build_classifier(tol, fused, device, seed=SEED, max_steps=MAX_STEPS):
+def build_classifier(tol, fused, device, seed=SEED, max_steps=MAX_STEPS, per_sample=False):
     import torch
 
     from regneuralde_tpu_torch.models import ClassifierNODE, MLPDynamics, NeuralODE
@@ -227,18 +242,19 @@ def build_classifier(tol, fused, device, seed=SEED, max_steps=MAX_STEPS):
     gen = torch.Generator().manual_seed(seed)
     node = NeuralODE(MLPDynamics(DIM, HIDDEN, device=device, generator=gen),
                      tspan=(0.0, 1.0), rtol=tol, atol=tol,
-                     max_steps=max_steps, fused=fused)
+                     max_steps=max_steps, fused=fused, per_sample=per_sample)
     return ClassifierNODE(None, node, torch.nn.LazyLinear(10, device=device)), gen
 
 
-def mnist_loss(clf, x, y, reg_weight=100.0):
+def mnist_loss(clf, x, y, reg_weight=100.0, **node_kwargs):
     """CE + reg_weight * error_estimate(mean), the regularized MNIST
-    objective (reg_weight 100 in training)."""
+    objective (reg_weight 100 in training); ``node_kwargs`` go to the node
+    (a per-lane ``tspan``)."""
     import torch
 
     from regneuralde_tpu_torch import reg
 
-    out = clf(x)
+    out = clf(x, **node_kwargs)
     ce = -(y * torch.log_softmax(out.logits, dim=-1)).sum(-1).mean()
     return ce + reg_weight * reg.error_estimate(out.telemetry, "mean"), out
 
@@ -1873,6 +1889,233 @@ def phase_nsde_slice(device, batches):
 
 
 
+# ---------------------------------------------------------------------------
+# Per-sample adaptive stepping: the lane-wise kernels K11/K12 (phases 22-24).
+# ---------------------------------------------------------------------------
+
+
+def _lane_inputs(device, B=BATCH, D=DIM, H=HIDDEN, seed=SEED + 31):
+    """Seeded MLPDynamics leaves at LeCun's scale, y, a random k1 (the
+    embedded error far above rounding), per-lane (t, dt) spread over [0, 1]
+    x [1e-3, 0.1] (the flagship's step sizes), every 16th lane finished
+    (dt = 0), and the five row cotangents."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(device)
+
+    leaves = [rnd(H, D + 1, scale=(D + 1) ** -0.5), rnd(H, scale=0.1),
+              rnd(D, H + 1, scale=(H + 1) ** -0.5), rnd(D, scale=0.1)]
+    y, k1 = rnd(B, D, scale=0.5), rnd(B, D, scale=0.3)
+    t = torch.rand(B, generator=gen).to(device)
+    dt = (1e-3 + 0.099 * torch.rand(B, generator=gen)).to(device)
+    dt[::16] = 0.0
+    cts = [rnd(B, D) for _ in range(5)]
+    return leaves, y, k1, t, dt, cts
+
+
+def phase_lanes_kernels(device):
+    """K11/K12 (the lane-wise Tsit5 step) against their plain versions at
+    512x784x100 with per-lane (t, dt) and finished lanes: K11's five outputs
+    within FWD_BOUND (and how many bitwise), the finished lanes' y_new equal
+    to y and err exactly zero; K12 within BWD_BOUND of its plain version and
+    within 3 times the plain version's distance from a float64 walk, plus
+    1e-6; both bitwise deterministic; CUDA-event times."""
+    import torch
+
+    from regneuralde_tpu_torch.ops import fused_mlp as fm
+    from regneuralde_tpu_torch.ops import fused_mlp_lanes as fl
+
+    leaves, y, k1, t, dt, cts = _lane_inputs(device)
+    parts = fm._split_params(*leaves)
+    kf = fl.sweep_lanes_fwd(t, dt, y, k1, leaves)
+    pf = fl._reference_sweep_lanes(t[:, None], dt[:, None], y, k1, parts)
+    torch.cuda.synchronize()
+    names_f = ["y_new", "k7", "err", "k6", "g6"]
+    errs_f = {n: _rel(a, b) for n, a, b in zip(names_f, kf, pf)}
+    bitwise = {n: torch.equal(a, b) for n, a, b in zip(names_f, kf, pf)}
+    print("[lanes] K11 rel err " + json.dumps(errs_f) + " bitwise " + json.dumps(bitwise))
+    _check(all(v == v and v <= FWD_BOUND for v in errs_f.values()), f"K11: {errs_f}")
+    done = dt == 0
+    _check(torch.equal(kf[0][done], y[done]) and not kf[2][done].any().item(),
+           "K11: a finished lane keeps y and has zero error")
+    _check(all(torch.isfinite(o).all().item() for o in kf), "K11: finite outputs")
+
+    names_b = ["ct_t", "ct_dt", "ct_y", "ct_k1", "cW1", "cb1", "cW2", "cb2"]
+    flat = lambda g: [*g[:4], *g[4]]
+    kb = flat(fl.sweep_lanes_bwd(t, dt, y, k1, leaves, cts))
+    pb = flat(fl._lanes_bwd_math(t[:, None], dt[:, None], y, k1, parts, cts))
+    d = lambda x: x.double()
+    pb64 = flat(fl._lanes_bwd_math(d(t)[:, None], d(dt)[:, None], d(y), d(k1),
+                                   [d(x) for x in parts], [d(c) for c in cts]))
+    torch.cuda.synchronize()
+    errs_b = {n: (_rel(a, b), _rel(a, c), _rel(b, c)) for n, a, b, c in zip(names_b, kb, pb, pb64)}
+    print("[lanes] K12 rel err (kernel vs plain, kernel vs float64, plain vs float64) "
+          + json.dumps(errs_b))
+    for n, (k_p, k_64, p_64) in errs_b.items():
+        _check(k_p == k_p and k_64 == k_64, f"K12 {n}: no NaN")
+        _check(k_p <= BWD_BOUND, f"K12 {n}: {errs_b[n]}")
+        _check(k_64 <= 3 * p_64 + 1e-6, f"K12 {n}: {errs_b[n]}")
+    again_f = fl.sweep_lanes_fwd(t, dt, y, k1, leaves)
+    again_b = flat(fl.sweep_lanes_bwd(t, dt, y, k1, leaves, cts))
+    _check(all(torch.equal(a, b) for a, b in zip(kf, again_f)), "K11 is deterministic")
+    _check(all(torch.equal(a, b) for a, b in zip(kb, again_b)), "K12 is deterministic")
+    abs_f = max((a - b).abs().max().item() for a, b in zip(kf, pf))
+    abs_b = max((a - b).abs().max().item() for a, b in zip(kb, pb))
+    print(f"[lanes] max abs err: K11 {abs_f!r}, K12 {abs_b!r}")
+
+    times = {
+        "fwd_kernel": _time_ms(lambda: fl.sweep_lanes_fwd(t, dt, y, k1, leaves)),
+        "fwd_plain": _time_ms(lambda: fl._reference_sweep_lanes(t[:, None], dt[:, None], y, k1,
+                                                                parts)),
+        "bwd_kernel": _time_ms(lambda: fl.sweep_lanes_bwd(t, dt, y, k1, leaves, cts)),
+        "bwd_plain": _time_ms(lambda: fl._lanes_bwd_math(t[:, None], dt[:, None], y, k1, parts,
+                                                         cts)),
+    }
+    print("[lanes] median ms over %d runs at %dx%dx%d: %s"
+          % (REPS, BATCH, DIM, HIDDEN, json.dumps(times)))
+    f_ops, b_ops, leaf = _mlp_work(BATCH, DIM, HIDDEN)
+    BD = BATCH * DIM
+    # K11 reads t, dt, y, k1 and the leaves and writes five rows; K12 reads
+    # those inputs and five row cotangents and writes two rows, two lane
+    # columns and the leaves' cotangents
+    return {
+        "mlp_lanes_tsit5_fwd": dict(
+            replaces="regneuralde_tpu/ops/pallas_mlp.py:634",
+            max_abs_err=abs_f, ms=times["fwd_kernel"], plain_ms=times["fwd_plain"],
+            **_bound(4 * (2 * BATCH + 7 * BD + leaf), f_ops)),
+        "mlp_lanes_tsit5_bwd": dict(
+            replaces="regneuralde_tpu/ops/pallas_mlp.py:824",
+            max_abs_err=abs_b, ms=times["bwd_kernel"], plain_ms=times["bwd_plain"],
+            **_bound(4 * (4 * BATCH + 9 * BD + 2 * leaf), b_ops)),
+    }
+
+
+def phase_per_sample_kernel_vs_plain_step(device, batch):
+    """One forward+backward of the per-sample flagship step
+    (``per_sample="batched"``) at rtol=atol=1e-5, ``fused=True`` (K11/K12)
+    against ``fused=False`` (their plain versions), with a scalar t1 and with
+    a per-lane STEER t1 (``reg.steer_tspan_per_sample``): identical per-lane
+    NFE and accept sequences, the cross-entropy's gradient within GRAD_BOUND
+    and the regularized one within REG_GRAD_BOUND."""
+    import torch
+
+    from regneuralde_tpu_torch import reg
+
+    x, y = batch
+    tol = 1e-5
+    _, t1_lanes = reg.steer_tspan_per_sample(
+        torch.Generator(device=device).manual_seed(SEED + 32), BATCH)
+    for t1_kind, tspan in (("scalar", None), ("steer", (0.0, t1_lanes))):
+        kw = {} if tspan is None else dict(tspan=tspan)
+        kern, gen = build_classifier(tol, True, device, per_sample="batched")
+        kern.init(x, generator=gen)
+        plain, _ = build_classifier(tol, False, device, per_sample="batched")
+        plain.init(x)
+        plain.load_state_dict(kern.state_dict())
+        results = {}
+        for name, clf in (("kernel", kern), ("plain", plain)):
+            for reg_weight in (0.0, 100.0):
+                clf.zero_grad(set_to_none=True)
+                loss, out = mnist_loss(clf, x, y, reg_weight, **kw)
+                loss.backward()
+                torch.cuda.synchronize()
+                results[name, reg_weight] = dict(
+                    loss=loss.item(), nfe=out.nfe.tolist(), success=bool(out.success.all()),
+                    accepted=out.telemetry.accepted.clone(),
+                    grad=torch.cat([p.grad.flatten() for p in clf.parameters()]),
+                    logits=out.logits.detach())
+        for reg_weight, bound in ((0.0, GRAD_BOUND), (100.0, REG_GRAD_BOUND)):
+            k, p = results["kernel", reg_weight], results["plain", reg_weight]
+            g_err = _rel(k["grad"], p["grad"])
+            nfe = torch.tensor(k["nfe"], dtype=torch.float64)
+            print(f"[ps-step] t1={t1_kind} rtol=atol={tol:g} reg_weight={reg_weight:g} "
+                  f"per-lane NFE min/mean/max {nfe.min().item():g}/{nfe.mean().item():g}/"
+                  f"{nfe.max().item():g}; lanes with other NFE "
+                  f"{sum(a != b for a, b in zip(k['nfe'], p['nfe']))}; "
+                  f"loss kernel={k['loss']!r} plain={p['loss']!r} "
+                  f"logits rel err={_rel(k['logits'], p['logits']):.3e} "
+                  f"grad rel err={g_err:.3e} (bound {bound:g})")
+            _check(k["success"] and p["success"], "every lane reached its t1")
+            _check(k["nfe"] == p["nfe"], "the same per-lane NFE")
+            _check(torch.equal(k["accepted"], p["accepted"]), "the same accept sequences")
+            _check(tuple(k["logits"].shape) == (BATCH, 10), "logits shape")
+            _check(torch.isfinite(k["grad"]).all().item(), "finite gradients")
+            _check(g_err <= bound, f"gradient rel err {g_err} > {bound}")
+
+
+def phase_per_sample_slice(device, batches):
+    """Three training steps of the per-sample flagship (the flagship of
+    phase 4 with ``per_sample="batched"``, ``fused=True``) at rtol=atol=
+    1.4e-8: each step launches K11 and K12 once an engine iteration (the
+    slowest lane's trial steps) and no other kernel; per-lane NFE (mean,
+    p50, max), the success fraction and the ms of each step."""
+    import torch
+
+    from regneuralde_tpu_torch.training import (
+        create_train_state,
+        make_train_step,
+        mnist_node_optimizer,
+    )
+
+    clf, gen = build_classifier(FLAGSHIP_TOL, True, device, per_sample="batched")
+    clf.init(batches[0][0], generator=gen)
+    optimizer = mnist_node_optimizer()
+    state = create_train_state(clf, optimizer)
+    step = make_train_step(lambda m, x, y: mnist_loss(m, x, y), optimizer)
+    before = [p.detach().clone() for p in clf.parameters()]
+
+    torch.cuda.synchronize()
+    counters = _counters()
+    for mod in counters:  # count only this path's launches
+        mod.reset_launches()
+    walls, iters = [], 0
+    for i, (x, y) in enumerate(batches):
+        start = time.perf_counter()
+        state, loss, out = step(state, x, y)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - start) * 1e3)
+        tel = out.telemetry
+        iters += int(tel.live.any(0).sum().item())
+        nfe = out.nfe.double()
+        launches = {k: v for mod in counters for k, v in mod.LAUNCHES.items()}
+        print(f"[ps] fused=True step {i}: loss={loss.item()!r} per-lane NFE mean "
+              f"{nfe.mean().item():g} p50 {nfe.median().item():g} max {nfe.max().item():g} "
+              f"min {nfe.min().item():g}; iterations {int(tel.live.any(0).sum().item())}; "
+              f"rejects {int((tel.live & ~tel.accepted).sum().item())}; success fraction "
+              f"{out.success.double().mean().item():g}; ms={walls[-1]!r} "
+              f"launches={json.dumps(launches)}")
+        _check(torch.isfinite(loss).item(), f"finite loss, got {loss.item()}")
+        _check(out.success.all().item(), f"every lane reached t1 within {MAX_STEPS} trial steps")
+        _check(torch.equal(out.nfe, 2 + 6 * tel.live.sum(1)), "NFE = 2 + 6 * trial steps a lane")
+        _check(torch.isfinite(out.logits).all().item(), "finite logits")
+        want = {k: 0 for k in launches}
+        want.update(mlp_lanes_tsit5_fwd=iters, mlp_lanes_tsit5_bwd=iters)
+        _check(launches == want, f"per-sample launches after step {i}: {launches}, "
+               f"expected {want}")
+    moved = max((p.detach() - b).abs().max().item()
+                for p, b in zip(clf.parameters(), before))
+    print(f"[ps] fused=True three training steps: ms a step {walls}, engine iterations "
+          f"{iters}, max parameter change={moved!r}")
+    _check(moved > 0.0, "the parameters moved")
+    # at 1.4e-8 each lane's error estimate sits near its float32 floor: the
+    # forward of both routes from the trained weights, lane by lane (reported)
+    x0 = batches[0][0]
+    plain, _ = build_classifier(FLAGSHIP_TOL, False, device, per_sample="batched")
+    plain.init(x0)
+    plain.load_state_dict(clf.state_dict())
+    with torch.no_grad():
+        a, b = clf(x0, mode="while"), plain(x0, mode="while")
+    differ = int((a.nfe != b.nfe).sum().item())
+    acc_differ = int((a.telemetry.accepted != b.telemetry.accepted).any(1).sum().item())
+    print(f"[ps] rtol=atol=1.4e-8, forward from the trained weights: lanes whose NFE differs "
+          f"between fused=True and False {differ} of {BATCH}, whose accept sequence differs "
+          f"{acc_differ}")
+    return launches, walls
+
+
 def main():
     import torch
 
@@ -1943,11 +2186,18 @@ def main():
     nsde, _ = phase_nsde_slice(device, batches)
     launches.update({k: nsde[k] for k in ("sde_whole_solve_fwd", "sde_whole_solve_bwd")})
 
+    kernels.update(phase_lanes_kernels(device))
+    phase_per_sample_kernel_vs_plain_step(device, batches[0])
+    lanes, _ = phase_per_sample_slice(device, batches)
+    launches.update({k: lanes[k] for k in ("mlp_lanes_tsit5_fwd", "mlp_lanes_tsit5_bwd")})
+
     sources = {"normed_tsit5_fwd": "normed_tsit5.cu", "normed_tsit5_bwd": "normed_tsit5.cu",
                "altmlp_tsit5_fwd": "altmlp_tsit5.cu", "altmlp_tsit5_bwd": "altmlp_tsit5.cu",
                "csl_tsit5_fwd": "csl_tsit5.cu", "csl_tsit5_bwd": "csl_tsit5.cu",
                "sde_whole_solve_fwd": "sde_whole_solve.cu",
-               "sde_whole_solve_bwd": "sde_whole_solve.cu"}
+               "sde_whole_solve_bwd": "sde_whole_solve.cu",
+               "mlp_lanes_tsit5_fwd": "mlp_lanes_tsit5.cu",
+               "mlp_lanes_tsit5_bwd": "mlp_lanes_tsit5.cu"}
     record = {"kernels": [
         {"name": name, "route": "cuda",
          "source": "regneuralde_tpu_torch/csrc/" + sources.get(name, "whole_solve.cu"),

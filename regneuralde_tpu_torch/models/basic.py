@@ -41,7 +41,12 @@ def place(module: nn.Module, device) -> None:
 
 
 def _t_col(x: torch.Tensor, t) -> torch.Tensor:
+    """The solve time as a ``(batch, 1)`` column for concatenation: a
+    scalar is broadcast to every row, a ``(batch,)`` vector (the per-sample
+    engine advances every row at its own time) gives one entry a row."""
     t = torch.as_tensor(t, dtype=x.dtype, device=x.device)
+    if t.dim() == 1:
+        return t[:, None].expand(x.shape[0], 1)
     return t.reshape(1, 1).expand(x.shape[0], 1)
 
 

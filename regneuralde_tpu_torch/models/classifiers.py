@@ -2,7 +2,7 @@
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 from torch import nn
@@ -15,9 +15,9 @@ from regneuralde_tpu_torch.ops.ode import StepTelemetry
 
 class ClassifierNODEOutput(NamedTuple):
     logits: torch.Tensor
-    nfe: int
+    nfe: Union[int, torch.Tensor]  # (batch,) with per-sample stepping
     telemetry: StepTelemetry
-    success: bool  # the solver reached t1 within max_steps
+    success: Union[bool, torch.Tensor]  # the solver reached t1 within max_steps
 
 
 class ClassifierNODE(nn.Module):
@@ -44,6 +44,9 @@ class ClassifierNODE(nn.Module):
         return self
 
     def forward(self, x: torch.Tensor, **node_kwargs) -> ClassifierNODEOutput:
+        """``node_kwargs`` go to ``NeuralODE.forward`` (``tspan``, whose
+        ``t1`` may be a ``(batch,)`` vector on a per-sample node; ``mode``).
+        With per-sample stepping ``nfe`` and ``success`` are ``(batch,)``."""
         h = self.pre(x) if self.pre is not None else x
         out = self.node(h, **node_kwargs)
         return ClassifierNODEOutput(

@@ -26,14 +26,26 @@ memory, so every batch size takes the kernel path: there is no
 ``batch % tile_rows`` limit. One difference from JAX follows: JAX sends
 ``fused=True`` past its VMEM estimate to the tiled engine or, with
 ``saveat``, to the step kernels (MLPDynamics at 512x784 with many saves);
-the port runs the whole solve at every size. Not ported yet, raising
-``NotImplementedError`` and never remapped to another route: per-sample
-stepping.
+the port runs the whole solve at every size.
+
+``per_sample="batched"`` gives every batch row its own controller
+(``ops.per_sample``'s batched engine, ``ops.per_sample_batched``); ``nfe``
+and the solution's stats are then ``(batch,)`` tensors and the telemetry
+``(batch, max_steps)``. With ``MLPDynamics``, ``fused=True`` or ``"step"``
+runs the lane-wise trial-step kernels K11/K12 (``ops.fused_mlp_lanes``) and
+``fused=False`` their plain versions (the same algebra, so the routes differ
+only by rounding); other dynamics take the traced per-lane sweep over the
+module. One difference from JAX, deliberate: JAX accepts any truthy
+``fused`` with ``per_sample`` (``"solve"``/``"tiled"`` included, though no
+whole solve has per-lane control); the port raises ``ValueError`` for
+``"solve"`` and ``"tiled"``. Not ported yet, raising
+``NotImplementedError`` and never remapped to another route:
+``per_sample=True`` (the vmap engine).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -46,7 +58,7 @@ _WHOLE_SOLVE = (True, "solve", "tiled")
 
 class NeuralDEOutput(NamedTuple):
     value: torch.Tensor  # the final state, or (batch, time, feat) at saveat
-    nfe: int
+    nfe: Union[int, torch.Tensor]  # (batch,) with per-sample stepping
     telemetry: StepTelemetry
     solution: ODESolution
 
@@ -81,10 +93,20 @@ class NeuralODE(nn.Module):
         if fused and not (solver == "tsit5" and isinstance(dynamics, fusable)):
             raise ValueError("fused requires solver='tsit5' and MLPDynamics or "
                              "AlternatingMLP dynamics")
-        if per_sample:
+        if per_sample and fused:
+            if not (per_sample == "batched" and isinstance(dynamics, MLPDynamics)):
+                raise ValueError(
+                    "fused per-sample stepping requires per_sample='batched' and "
+                    "MLPDynamics dynamics (lane-wise fused sweep); construct with "
+                    "fused=False otherwise")
+            if fused not in (True, "step"):
+                raise ValueError(
+                    f"fused={fused!r} with per_sample: the per-sample engine runs the "
+                    "lane-wise trial-step kernels; use fused=True or 'step'")
+        if per_sample is True:
             raise NotImplementedError(
-                f"per_sample={per_sample!r}: per-sample stepping (K11-K12) is "
-                "not ported yet (ROADMAP.md queue 1 slice 5)")
+                "per_sample=True (the vmap engine) is not ported yet (ROADMAP.md queue 1 "
+                "item 3); use per_sample='batched'")
         if compensated_eest:
             raise NotImplementedError("compensated_eest is not ported yet "
                                       "(ROADMAP.md queue 1 slice 6)")
@@ -97,6 +119,7 @@ class NeuralODE(nn.Module):
         self.max_steps = max_steps
         self.saveat = saveat
         self.fused = fused
+        self.per_sample = per_sample
         self._names = [name for name, _ in dynamics.named_parameters()]
 
     def _func(self, t, y, leaves):
@@ -127,15 +150,37 @@ class NeuralODE(nn.Module):
                     lambda t, dt, y, k1, p, cts: bwd(t, dt, y, k1, p, cts, rtol, atol))
         return None, None
 
+    def _lane_sweeps(self):
+        """The lane-wise trial-step pair of the per-sample engine: K11/K12 on
+        ``fused``, their plain versions otherwise, for MLPDynamics; None
+        (the traced sweep over ``_func``) for other dynamics."""
+        if not isinstance(self.dynamics, MLPDynamics):
+            return None, None
+        from regneuralde_tpu_torch.ops import fused_mlp_lanes as fl
+
+        if self.fused:
+            return fl.mlp_dynamics_sweep_lanes, fl.mlp_dynamics_sweep_lanes_bwd
+        return fl.plain_mlp_sweep_lanes, fl.plain_mlp_sweep_lanes_bwd
+
     def forward(self, x: torch.Tensor, *, tspan: Optional[Tuple] = None,
                 saveat=None, mode: str = "adjoint") -> NeuralDEOutput:
+        """``tspan``'s ``t0``/``t1`` may be ``(batch,)`` vectors on a
+        per-sample node (per-sample STEER)."""
         t0, t1 = tspan if tspan is not None else self.tspan
         saveat = saveat if saveat is not None else self.saveat
         leaves = tuple(self.dynamics.parameters())
         # the kernels take contiguous rows; a caller may hand in a column
         # slice (the latent model's mu0)
         x = x.contiguous()
-        if self.fused in _WHOLE_SOLVE and mode == "adjoint":
+        if self.per_sample:
+            from regneuralde_tpu_torch.ops.per_sample import odeint_per_sample
+
+            sweep, sweep_bwd = self._lane_sweeps()
+            sol = odeint_per_sample(
+                self._func, x, t0, t1, leaves, engine="batched", solver=self.solver,
+                rtol=self.rtol, atol=self.atol, max_steps=self.max_steps, saveat=saveat,
+                mode=mode, stage_sweep_lanes=sweep, stage_sweep_lanes_bwd=sweep_bwd)
+        elif self.fused in _WHOLE_SOLVE and mode == "adjoint":
             if self.fused == "tiled" and saveat is not None:
                 raise ValueError(
                     "fused='tiled' supports final-state solves only "

@@ -28,7 +28,7 @@ and ``nfe = 2 + 6 * (naccept + nreject)``.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Union
 
 import torch
 
@@ -37,7 +37,8 @@ from regneuralde_tpu_torch.ops.tableaus import TSIT5
 
 
 class StepTelemetry(NamedTuple):
-    """Per-trial-step solver internals, each of shape ``(max_steps,)``."""
+    """Per-trial-step solver internals, each of shape ``(max_steps,)``, or
+    ``(batch, max_steps)`` per sample."""
 
     t: torch.Tensor  # endpoint of the trial step
     dt: torch.Tensor  # dt used for the trial step
@@ -48,10 +49,13 @@ class StepTelemetry(NamedTuple):
 
 
 class ODEStats(NamedTuple):
-    nfe: int
-    naccept: int
-    nreject: int
-    success: bool  # reached t1 within max_steps
+    """Solver counts: Python numbers for the whole batch, or ``(batch,)``
+    tensors per sample (``ops.per_sample``)."""
+
+    nfe: Union[int, torch.Tensor]
+    naccept: Union[int, torch.Tensor]
+    nreject: Union[int, torch.Tensor]
+    success: Union[bool, torch.Tensor]  # reached t1 within max_steps
 
 
 class ODESolution(NamedTuple):

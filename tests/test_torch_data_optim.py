@@ -164,5 +164,8 @@ def test_fused_requires_mlp_dynamics():
 
 @pytest.mark.parametrize("per_sample", [True, "batched"])
 def test_per_sample_raises_not_implemented(per_sample):
+    """``per_sample=True`` (the vmap engine) is not ported; ``"batched"``
+    is, but not its ``mode="scan"``: both raise naming ROADMAP."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NeuralODE(MLPDynamics(8, 4, device="cpu"), per_sample=per_sample)
+        node = NeuralODE(MLPDynamics(8, 4, device="cpu"), per_sample=per_sample)
+        node(torch.zeros(2, 8), mode="scan")

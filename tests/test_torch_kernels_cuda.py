@@ -1,7 +1,8 @@
 """The port's CUDA kernels (K1/K2 step pair, K3/K4 whole solve for
 MLPDynamics, AlternatingMLP and FFJORD's CSL dynamics, K7/K8 step pairs for
-AlternatingMLP and CSL, K9/K10 the SDE whole solve of an MLP pair) against
-their plain PyTorch versions.
+AlternatingMLP and CSL, K9/K10 the SDE whole solve of an MLP pair, K11/K12
+the lane-wise step of the per-sample engine) against their plain PyTorch
+versions.
 
 These tests need a CUDA device and ``nvcc`` (the kernels have no CPU mode)
 and skip without one. This file imports no JAX, so it runs on a machine
@@ -17,6 +18,7 @@ import torch
 from regneuralde_tpu_torch.ops import fused_csl as fc
 from regneuralde_tpu_torch.ops import fused_generic as fg
 from regneuralde_tpu_torch.ops import fused_mlp as fm
+from regneuralde_tpu_torch.ops import fused_mlp_lanes as fl
 from regneuralde_tpu_torch.ops import ode
 from regneuralde_tpu_torch.ops import sde as sde_ops
 from regneuralde_tpu_torch.ops import sde_whole_solve as sw
@@ -914,5 +916,95 @@ def test_nsde_trains_through_k9_k10(cuda, saveat):
     assert a.nfe1 == b.nfe1 and torch.equal(a.telemetry.accepted, b.telemetry.accepted)
     assert a.solution.stats.success
     assert _rel(a.value, b.value) <= 1e-5
+    for u, v in zip(ga, gb):
+        assert _rel(u, v) <= 1e-3
+
+
+def _lane_times(batch, device, seed=0):
+    """Per-lane (t, dt) spread over [0, 1] x [1e-3, 0.1], every fourth lane
+    finished (dt = 0)."""
+    rng = np.random.default_rng(seed + 20)
+    t = torch.tensor(rng.uniform(0.0, 1.0, batch), dtype=torch.float32, device=device)
+    dt = torch.tensor(rng.uniform(1e-3, 0.1, batch), dtype=torch.float32, device=device)
+    dt[::4] = 0.0
+    return t, dt
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(512, 784, 100), (13, 40, 24), (5, 8, 5)])
+def test_lane_kernels_match_plain_versions(cuda, shape):
+    """K11/K12 against their plain versions, ragged row tiles included (13
+    and 5 rows). K11's five outputs bitwise equal (each affine map rounded
+    once from float64, each lincomb op rounded as ATen's); a finished lane
+    keeps y and has zero error. K12 within 1e-3 (relative Frobenius) of its
+    plain version on every output; both bitwise deterministic."""
+    y, k1, leaves, _ = _inputs(*shape, cuda)
+    t, dt = _lane_times(shape[0], cuda)
+    rng = np.random.default_rng(9)
+    cts = [torch.tensor(rng.normal(size=tuple(y.shape)), dtype=torch.float32, device=cuda)
+           for _ in range(5)]
+    parts = fm._split_params(*leaves)
+    fl.reset_launches()
+    kern = fl.sweep_lanes_fwd(t, dt, y, k1, leaves)
+    plain = fl._reference_sweep_lanes(t[:, None], dt[:, None], y, k1, parts)
+    for a, b in zip(kern, plain):
+        assert torch.equal(a, b)
+    done = dt == 0
+    assert torch.equal(kern[0][done], y[done]) and not kern[2][done].any()
+    flat = lambda g: [*g[:4], *g[4]]
+    kern_b = flat(fl.sweep_lanes_bwd(t, dt, y, k1, leaves, cts))
+    plain_b = flat(fl._lanes_bwd_math(t[:, None], dt[:, None], y, k1, parts, cts))
+    for a, b in zip(kern_b, plain_b):
+        assert a.shape == b.shape and _rel(a, b) <= 1e-3
+    assert all(torch.equal(a, b) for a, b in zip(kern, fl.sweep_lanes_fwd(t, dt, y, k1, leaves)))
+    assert all(torch.equal(a, b)
+               for a, b in zip(kern_b, flat(fl.sweep_lanes_bwd(t, dt, y, k1, leaves, cts))))
+    assert fl.LAUNCHES == {"mlp_lanes_tsit5_fwd": 2, "mlp_lanes_tsit5_bwd": 2}
+
+
+@pytest.mark.cuda
+def test_lane_wrappers_refuse_bad_inputs(cuda):
+    y, k1, leaves, _ = _inputs(8, 16, 12, cuda)
+    t, dt = _lane_times(8, cuda)
+    cts = [torch.zeros_like(y)] * 5
+    with pytest.raises(TypeError):
+        fl.sweep_lanes_fwd(t.double(), dt, y, k1, leaves)
+    with pytest.raises(ValueError):
+        fl.sweep_lanes_fwd(t[:4], dt, y, k1, leaves)
+    with pytest.raises(ValueError):
+        fl.sweep_lanes_fwd(t, dt.cpu(), y, k1, leaves)
+    with pytest.raises(ValueError):
+        fl.sweep_lanes_bwd(t, dt, y, k1, leaves, [cts[0].cpu(), *cts[1:]])
+
+
+@pytest.mark.cuda
+def test_per_sample_node_trains_through_k11_k12(cuda):
+    """``NeuralODE(MLPDynamics, per_sample="batched", fused=True)`` against
+    ``fused=False`` on the card at rtol=atol=1e-4, batch 13, a per-lane t1:
+    the same per-lane NFE and accept sequences, y1 within 1e-6 and the
+    gradients of sum(y1^2) within 1e-3 (relative); one K11 and one K12
+    launch an engine iteration and no other kernel."""
+    from regneuralde_tpu_torch.models import MLPDynamics, NeuralODE
+
+    outs = {}
+    for fused in (True, False):
+        gen = torch.Generator().manual_seed(0)
+        node = NeuralODE(MLPDynamics(40, 24, device=cuda, generator=gen), rtol=1e-4,
+                         atol=1e-4, max_steps=96, per_sample="batched", fused=fused)
+        x = torch.rand(13, 40, generator=gen).to(cuda)
+        t1 = (0.5 + torch.rand(13, generator=gen)).to(cuda)
+        for mod in (ws, fm, fl):
+            mod.reset_launches()
+        out = node(x, tspan=(0.0, t1))
+        grads = torch.autograd.grad(out.value.square().sum(), list(node.parameters()))
+        outs[fused] = (out, grads, {k: v for mod in (ws, fm, fl) for k, v in mod.LAUNCHES.items()})
+    (a, ga, la), (b, gb, lb) = outs[True], outs[False]
+    iters = int(a.telemetry.live.any(0).sum())
+    want = {k: 0 for k in la}
+    want.update(mlp_lanes_tsit5_fwd=iters, mlp_lanes_tsit5_bwd=iters)
+    assert la == want and not any(lb.values())
+    assert a.solution.stats.success.all()
+    assert torch.equal(a.nfe, b.nfe) and torch.equal(a.telemetry.accepted, b.telemetry.accepted)
+    assert _rel(a.value, b.value) <= 1e-6
     for u, v in zip(ga, gb):
         assert _rel(u, v) <= 1e-3

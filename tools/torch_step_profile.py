@@ -3,7 +3,7 @@
 
     python3 tools/torch_step_profile.py [--model mnist|latent|ffjord|nsde]
                                         [--fused step|true|false] [--steps 3]
-                                        [--tol 1.4e-8] [--out DIR]
+                                        [--tol 1.4e-8] [--per-sample] [--out DIR]
 
 ``--model mnist`` (the default) builds the flagship classifier of
 ``chip_smoke.py`` (MLPDynamics(784, 100), Tsit5, max_steps=96, batch 512),
@@ -18,7 +18,10 @@ InvDecay(1e-5) then Adam(0.01), fresh draws each step; ``--tol`` does not
 apply), on the step kernels (``--fused step``, the default: K1/K2, K7/K8
 or K7/K8-CSL on every trial step; the NSDE has no step route), the
 whole-solve kernels (``--fused true``: K3/K4 or K9/K10 once per solve) or
-no kernel (``--fused false``, the plain PyTorch route). It runs one warm-up
+no kernel (``--fused false``, the plain PyTorch route). ``--per-sample``
+(MNIST only) gives the classifier's node ``per_sample="batched"``: every
+row under its own controller, on the lane-wise kernels K11/K12 (``--fused
+step`` or ``true``) or their plain versions (``false``). It runs one warm-up
 step, then:
 
 * times ``--steps`` training steps on the host clock (each ends in a
@@ -34,7 +37,11 @@ step, then:
   model's whole forward, the solve and logpz; the NSDE: the solve) in the
   forward, and in the
   backward the solve's autograd function against everything else (the
-  GRU's, encoder's, decoder's and loss's autograd nodes).
+  GRU's, encoder's, decoder's and loss's autograd nodes); with
+  ``--per-sample``, the engine's parts: its forward iteration loop, the
+  sweep (K11 or its plain version), the per-lane chain after it, the
+  reverse walk, the sweep's backward (K12 or its plain version) and the
+  walk's recompute and autograd of the chain.
 """
 
 import argparse
@@ -57,6 +64,45 @@ def _annotate(module, label, record_function):
         lambda m, a, out: open_ranges.pop().__exit__(None, None, None))
 
 
+def _wrap(module, name, label, record_function):
+    """Replace ``module.name`` by the same function inside a
+    ``record_function`` range (looked up at call time by its callers)."""
+    fn = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        with record_function(label):
+            return fn(*args, **kwargs)
+
+    setattr(module, name, wrapped)
+
+
+def _annotate_per_sample(record_function):
+    """Ranges around the per-sample engine's parts. The per-lane chain runs
+    without autograd in the forward loop and under it in the reverse walk,
+    which recomputes it for ``torch.autograd.grad``."""
+    import torch
+
+    from regneuralde_tpu_torch.ops import fused_mlp_lanes as fl
+    from regneuralde_tpu_torch.ops import per_sample_batched as psb
+
+    _wrap(psb, "_solve_forward", "[part] forward: the engine's iteration loop", record_function)
+    _wrap(psb, "_adjoint_walk", "[part] backward: the reverse walk", record_function)
+    for name in ("mlp_dynamics_sweep_lanes", "plain_mlp_sweep_lanes"):
+        _wrap(fl, name, "[part] forward: the sweep (K11 or its plain version)", record_function)
+    for name in ("mlp_dynamics_sweep_lanes_bwd", "plain_mlp_sweep_lanes_bwd"):
+        _wrap(fl, name, "[part] backward: the sweep's backward (K12 or its plain version)",
+              record_function)
+    chain = psb._chain
+
+    def labelled_chain(*args, **kwargs):
+        label = ("[part] backward: the chain's recompute in the walk" if torch.is_grad_enabled()
+                 else "[part] forward: the per-lane chain after the sweep")
+        with record_function(label):
+            return chain(*args, **kwargs)
+
+    psb._chain = labelled_chain
+
+
 def _print_split(events, wall_ms):
     """Host (CPU) and device time of the latent step's parts: the forward
     ranges of ``_annotate`` and, in the backward, the solve's autograd
@@ -68,7 +114,8 @@ def _print_split(events, wall_ms):
 
     events = [e for e in events if e.device_type == DeviceType.CPU]
     solve_bwd = ("WholeSolveFnBackward", "FastAdjointSolveBackward",
-                 "SDEWholeSolveFnBackward", "SDEAdjointSolveBackward")
+                 "SDEWholeSolveFnBackward", "SDEAdjointSolveBackward",
+                 "PerSampleAdjointSolveBackward")
     engine = "autograd::engine::evaluate_function:"
     solves = [e.time_range for e in events
               if e.name.startswith(engine) and any(k in e.name for k in solve_bwd)]
@@ -98,8 +145,12 @@ def main():
     ap.add_argument("--fused", choices=["step", "true", "false"], default="step")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--tol", type=float, default=1.4e-8)
+    ap.add_argument("--per-sample", action="store_true",
+                    help="MNIST with per_sample='batched' (K11/K12)")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args()
+    if args.per_sample and args.model != "mnist":
+        ap.error("--per-sample applies to --model mnist")
 
     import torch
     from torch.autograd import DeviceType
@@ -147,10 +198,13 @@ def main():
         _annotate(model, "[part] forward: the solve and logpz", record_function)
     else:
         batches = cs.synthetic_batches(args.steps + 2, device)
-        model, gen = cs.build_classifier(args.tol, fused, device)
+        model, gen = cs.build_classifier(args.tol, fused, device,
+                                         per_sample="batched" if args.per_sample else False)
         model.init(batches[0][0], generator=gen)
         optimizer = mnist_node_optimizer()
         loss_fn = cs.mnist_loss
+        if args.per_sample:
+            _annotate_per_sample(record_function)
     state = create_train_state(model, optimizer)
     step = make_train_step(loss_fn, optimizer)
     counters = cs._counters()
@@ -167,12 +221,17 @@ def main():
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
         nfe = out.nfe if args.model != "nsde" else [out.nfe1, out.nfe2]
+        extra = {}
+        if args.per_sample:  # per-lane NFE; an engine iteration is a trial step of each live lane
+            nfe = {k: getattr(out.nfe.double(), k)().item() for k in ("min", "mean", "max")}
+            extra["iterations"] = int(out.telemetry.live.any(0).sum().item())
         rows.append(dict(ms=wall * 1e3, nfe=nfe,
                          trial_steps=int(out.telemetry.live.sum().item()),
-                         loss=loss.item(),
+                         loss=loss.item(), **extra,
                          launches={k: v for m in counters for k, v in m.LAUNCHES.items()}))
     for r in rows:
-        print(f"[step] model={args.model} fused={fused!r} " + json.dumps(r))
+        print(f"[step] model={args.model} fused={fused!r} per_sample={args.per_sample} "
+              + json.dumps(r))
 
     torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as caught:
@@ -205,11 +264,12 @@ def main():
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d} calls  {e.key[:90]}")
-    if args.model in ("latent", "ffjord", "nsde"):
+    if args.model in ("latent", "ffjord", "nsde") or args.per_sample:
         _print_split(prof.events(), wall * 1e3)
     os.makedirs(args.out, exist_ok=True)
+    tag = "_per_sample" if args.per_sample else ""
     prof.export_chrome_trace(os.path.join(
-        args.out, f"train_step_trace_{args.model}_{args.fused}.json"))
+        args.out, f"train_step_trace_{args.model}{tag}_{args.fused}.json"))
     return 0
 
 
