@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's MNIST Neural-ODE, latent-ODE, FFJORD and MNIST
 Neural-SDE training steps on one GPU, on the step kernels and on the whole
-solve, and the MNIST Neural ODE with per-sample adaptive stepping.
+solve, the MNIST Neural ODE with per-sample adaptive stepping, and on
+``odeint``'s generic engine with the tuple trial step.
 
     python3 chip_smoke.py
 
@@ -99,10 +100,28 @@ at first use. Phases (each checks its results; any failure exits non-zero):
    ``fused=True``: one K11 and one K12 launch an engine iteration and no
    other kernel; per-lane NFE, success fraction and ms a step; then the
    lanes whose NFE or accepts differ between ``fused=True`` and ``False``
-   in a forward from the trained weights (reported).
+   in a forward from the trained weights (reported);
+25. K13 and K14 (the tuple Tsit5 step of ``odeint``'s generic engine,
+   ``csrc/mlp_tsit5.cu``) against their plain versions at 512x784x100, t =
+   0.3 and dt in {0.05, 0.3}: K13's rows within FWD_BOUND (the error row,
+   a cancellation, within TUPLE_ERR_BOUND) and K14 within BWD_BOUND, both
+   also against a float64 walk, bitwise determinism, CUDA-event times;
+26. one forward+backward of the flagship step at rtol=atol=1e-5 with the
+   solve through ``odeint(clf.node._func, x, 0, 1, leaves,
+   stage_sweep=mlp_dynamics_stage_sweep)``, in ``mode="adjoint"`` (the
+   replay adjoint) and ``"scan"``, each against the plain version of K13:
+   identical NFE and accepts, gradients as in phase 3, the scan's forward
+   bitwise the adjoint's; the NFE of ``fused="step"`` on the same weights
+   (reported); one forward+backward of ``NeuralODE(solver="dopri5")`` and
+   ``"bosh3"`` (success, finite gradients, NFE);
+27. three flagship training steps at 1.4e-8 with the solve through K13
+   under the replay adjoint: K13 launched twice a trial step (forward and
+   replay), K14 once, no other kernel; NFE and ms a step; then one step on
+   ``mode="scan"`` (K13 twice a trial step with the checkpoint's
+   recompute, K14 once).
 
 Each line of the kernels' JSON record gives the kernel's launches on its
-main path (phases 4, 7, 10, 14, 18, 21 and 24), its time and its plain version's (CUDA
+main path (phases 4, 7, 10, 14, 18, 21, 24 and 27), its time and its plain version's (CUDA
 events, median of 7), and its bound: the larger of its float32 operations
 over the card's f32 rate and its bytes over the memory rate. The last two
 lines of standard output are the kernels' JSON record and the device
@@ -133,6 +152,11 @@ NSDE_TIGHT_TOL = 1.4e-2  # tens of trial steps, with rejections (phase 19)
 NSDE_REGS = {"stiff_est": ("sosri2", 0.1), "error_est": ("sosri", 10.0)}
 NSDE_FWD_BOUND = 1e-5
 FWD_BOUND, BWD_BOUND, GRAD_BOUND, REG_GRAD_BOUND = 1e-4, 1e-3, 1e-3, 5e-2
+# K13's error row against its plain version (phase 25): the row is the
+# cancellation dt * sum(btilde_i (k_i - k1)), so the stages' rounding
+# differences come out relatively larger than FWD_BOUND allows; about 3
+# times the worst reading on the H100 (1.04e-4 at dt = 0.05).
+TUPLE_ERR_BOUND = 3e-4
 # K4 against its plain version with the telemetry's cotangents seeded, on
 # every output but ct_f0: about 9 times the worst reading on the H100
 # (1.1e-3, the time scalars of phase 11 at 1.4e-8 and cb1 of phase 5).
@@ -2116,6 +2140,266 @@ def phase_per_sample_slice(device, batches):
     return launches, walls
 
 
+# ---------------------------------------------------------------------------
+# The generic solve engine with the tuple trial step, K13/K14 (phases 25-27).
+# ---------------------------------------------------------------------------
+
+
+def tuple_loss(clf, x, y, mode="adjoint", sweep=None, reg_weight=100.0):
+    """``mnist_loss`` with the node's solve through ``odeint``'s generic
+    engine on the tuple trial step: ``odeint(clf.node._func, x, 0, 1,
+    leaves, stage_sweep=mlp_dynamics_stage_sweep)`` (K13/K14), or ``sweep``
+    (its plain version), under the replay adjoint (``"adjoint"``) or the
+    checkpointed scan (``"scan"``)."""
+    import torch
+
+    from regneuralde_tpu_torch import reg
+    from regneuralde_tpu_torch.models.classifiers import ClassifierNODEOutput
+    from regneuralde_tpu_torch.ops import fused_mlp as fm
+    from regneuralde_tpu_torch.ops import ode
+
+    node = clf.node
+    sol = ode.odeint(node._func, x.contiguous(), 0.0, 1.0, tuple(node.dynamics.parameters()),
+                     rtol=node.rtol, atol=node.atol, max_steps=node.max_steps, mode=mode,
+                     stage_sweep=sweep or fm.mlp_dynamics_stage_sweep)
+    out = ClassifierNODEOutput(logits=clf.post(sol.y1), nfe=sol.stats.nfe,
+                               telemetry=sol.telemetry, success=sol.stats.success)
+    ce = -(y * torch.log_softmax(out.logits, dim=-1)).sum(-1).mean()
+    return ce + reg_weight * reg.error_estimate(out.telemetry, "mean"), out
+
+
+def phase_tuple_kernels(device):
+    """K13/K14 (the tuple Tsit5 step) against their plain versions at
+    512x784x100 on seeded LeCun-scale weights and inputs, t = 0.3, dt in
+    {0.05, 0.3}: K13's rows within FWD_BOUND of its plain version (the
+    error row within TUPLE_ERR_BOUND) and within 3 times the plain version's
+    distance from a float64 walk, plus 1e-7; K14 within BWD_BOUND of its
+    plain version and within 3 times the plain version's distance from a
+    float64 walk, plus 1e-6; both bitwise deterministic; CUDA-event times of
+    both and of their plain versions."""
+    import torch
+
+    from regneuralde_tpu_torch.ops import fused_mlp as fm
+
+    gen = torch.Generator().manual_seed(SEED + 41)
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(device)
+
+    leaves = [rnd(HIDDEN, DIM + 1, scale=(DIM + 1) ** -0.5), rnd(HIDDEN, scale=0.1),
+              rnd(DIM, HIDDEN + 1, scale=(HIDDEN + 1) ** -0.5), rnd(DIM, scale=0.1)]
+    y, k1 = rnd(BATCH, DIM, scale=0.5), rnd(BATCH, DIM, scale=0.3)
+    cts = [rnd(BATCH, DIM) for _ in range(5)]
+    parts = fm._split_params(*leaves)
+    d = lambda x: x.double()
+    parts64 = [d(x) for x in parts]
+    flat = lambda g: [*g[:4], *g[4]]
+    names_f = ["y_new", "k7", "err", "k6", "g6"]
+    names_b = ["ct_t", "ct_dt", "ct_y", "ct_k1", "cW1", "cb1", "cW2", "cb2"]
+    t = torch.tensor(0.3, device=device)
+    abs_f = abs_b = 0.0
+    for dt_val in (0.05, 0.3):
+        dt = torch.tensor(dt_val, device=device)
+        kf = fm.stage_sweep_fwd(t, dt, y, k1, leaves)
+        pf = fm._reference_sweep(t, dt, y, k1, parts)
+        pf64 = fm._reference_sweep(d(t), d(dt), d(y), d(k1), parts64)
+        kb = flat(fm.stage_sweep_bwd(t, dt, y, k1, leaves, cts))
+        pb = flat(fm._bwd_math(t, dt, y, k1, parts, cts))
+        pb64 = flat(fm._bwd_math(d(t), d(dt), d(y), d(k1), parts64, [d(c) for c in cts]))
+        torch.cuda.synchronize()
+        errs_f = {n: (_rel(a, b), _rel(a, c), _rel(b, c))
+                  for n, a, b, c in zip(names_f, kf, pf, pf64)}
+        errs_b = {n: (_rel(a, b), _rel(a, c), _rel(b, c))
+                  for n, a, b, c in zip(names_b, kb, pb, pb64)}
+        print(f"[tuple] dt={dt_val:g} K13 rel err (kernel vs plain, kernel vs float64, "
+              "plain vs float64) " + json.dumps(errs_f))
+        print(f"[tuple] dt={dt_val:g} K14 rel err (kernel vs plain, kernel vs float64, "
+              "plain vs float64) " + json.dumps(errs_b))
+        for n, (k_p, k_64, p_64) in errs_f.items():
+            _check(k_p == k_p and k_64 == k_64, f"K13 {n}: no NaN")
+            _check(k_64 <= 3 * p_64 + 1e-7, f"K13 {n} at dt {dt_val}: {errs_f[n]}")
+            _check(k_p <= (TUPLE_ERR_BOUND if n == "err" else FWD_BOUND),
+                   f"K13 {n} at dt {dt_val}: {errs_f[n]}")
+        _check(all(torch.isfinite(o).all().item() for o in kf), "K13: finite outputs")
+        for n, (k_p, k_64, p_64) in errs_b.items():
+            _check(k_p == k_p and k_64 == k_64, f"K14 {n}: no NaN")
+            _check(k_p <= BWD_BOUND, f"K14 {n} at dt {dt_val}: {errs_b[n]}")
+            _check(k_64 <= 3 * p_64 + 1e-6, f"K14 {n} at dt {dt_val}: {errs_b[n]}")
+        again_f = fm.stage_sweep_fwd(t, dt, y, k1, leaves)
+        again_b = flat(fm.stage_sweep_bwd(t, dt, y, k1, leaves, cts))
+        _check(all(torch.equal(a, b) for a, b in zip(kf, again_f)), "K13 is deterministic")
+        _check(all(torch.equal(a, b) for a, b in zip(kb, again_b)), "K14 is deterministic")
+        abs_f = max(abs_f, max((a - b).abs().max().item() for a, b in zip(kf, pf)))
+        abs_b = max(abs_b, max((a - b).abs().max().item() for a, b in zip(kb, pb)))
+    print(f"[tuple] max abs err: K13 {abs_f!r}, K14 {abs_b!r}")
+
+    dt = torch.tensor(0.05, device=device)
+    times = {
+        "fwd_kernel": _time_ms(lambda: fm.stage_sweep_fwd(t, dt, y, k1, leaves)),
+        "fwd_plain": _time_ms(lambda: fm._reference_sweep(t, dt, y, k1, parts)),
+        "bwd_kernel": _time_ms(lambda: fm.stage_sweep_bwd(t, dt, y, k1, leaves, cts)),
+        "bwd_plain": _time_ms(lambda: fm._bwd_math(t, dt, y, k1, parts, cts)),
+    }
+    print("[tuple] median ms over %d runs at %dx%dx%d: %s"
+          % (REPS, BATCH, DIM, HIDDEN, json.dumps(times)))
+    f_ops, b_ops, leaf = _mlp_work(BATCH, DIM, HIDDEN)
+    BD = BATCH * DIM
+    # K13 reads t, dt, y, k1 and the leaves and writes five rows; K14 reads
+    # those inputs and five row cotangents and writes two rows, ct_t, ct_dt
+    # and the leaves' cotangents
+    return {
+        "mlp_tsit5_fwd": dict(
+            replaces="regneuralde_tpu/ops/pallas_mlp.py:235",
+            max_abs_err=abs_f, ms=times["fwd_kernel"], plain_ms=times["fwd_plain"],
+            **_bound(4 * (2 + 7 * BD + leaf), f_ops)),
+        "mlp_tsit5_bwd": dict(
+            replaces="regneuralde_tpu/ops/pallas_mlp.py:417",
+            max_abs_err=abs_b, ms=times["bwd_kernel"], plain_ms=times["bwd_plain"],
+            **_bound(4 * (4 + 9 * BD + 2 * leaf), b_ops)),
+    }
+
+
+def phase_tuple_step(device, batch):
+    """One forward+backward of the flagship training step at rtol=atol=1e-5
+    with the solve through ``odeint``'s generic engine (``tuple_loss``), in
+    ``mode="adjoint"`` (the replay adjoint) and ``"scan"``, on K13/K14
+    against their plain version (``plain_mlp_stage_sweep``): the same NFE
+    and accept sequence, the cross-entropy's gradient within GRAD_BOUND and
+    the regularized one within REG_GRAD_BOUND, and the scan's forward
+    bitwise the adjoint's. Reports the NFE of ``fused="step"`` from the same
+    weights. Then one forward+backward of ``NeuralODE(solver="dopri5")`` and
+    ``"bosh3"`` (``fused=False``: the generic sweep over the module under the
+    replay adjoint): success and finite gradients, and their NFE."""
+    import torch
+
+    from regneuralde_tpu_torch.ops import fused_mlp as fm
+
+    x, y = batch
+    tol = 1e-5
+    clf, gen = build_classifier(tol, False, device)
+    clf.init(x, generator=gen)
+    results = {}
+    for mode in ("adjoint", "scan"):
+        for name, sweep in (("kernel", None), ("plain", fm.plain_mlp_stage_sweep)):
+            for reg_weight in (0.0, 100.0):
+                clf.zero_grad(set_to_none=True)
+                loss, out = tuple_loss(clf, x, y, mode, sweep, reg_weight)
+                loss.backward()
+                torch.cuda.synchronize()
+                tel = out.telemetry
+                results[mode, name, reg_weight] = dict(
+                    loss=loss.item(), nfe=out.nfe, success=out.success,
+                    accepted=tel.accepted[tel.live].tolist(), eest=tel.eest.detach(),
+                    grad=torch.cat([p.grad.flatten() for p in clf.parameters()]),
+                    logits=out.logits.detach())
+    for mode in ("adjoint", "scan"):
+        for reg_weight, bound in ((0.0, GRAD_BOUND), (100.0, REG_GRAD_BOUND)):
+            k, p = results[mode, "kernel", reg_weight], results[mode, "plain", reg_weight]
+            g_err = _rel(k["grad"], p["grad"])
+            print(f"[tuple-step] mode={mode} rtol=atol={tol:g} reg_weight={reg_weight:g} "
+                  f"nfe kernel={k['nfe']} plain={p['nfe']} "
+                  f"loss kernel={k['loss']!r} plain={p['loss']!r} "
+                  f"logits rel err={_rel(k['logits'], p['logits']):.3e} "
+                  f"grad rel err={g_err:.3e} (bound {bound:g})")
+            _check(k["success"] and p["success"], "both solves reached t1")
+            _check(k["nfe"] == p["nfe"], f"NFE kernel {k['nfe']} plain {p['nfe']}")
+            _check(k["accepted"] == p["accepted"], "same accept sequence")
+            _check(tuple(k["logits"].shape) == (BATCH, 10), "logits shape")
+            _check(torch.isfinite(k["grad"]).all().item(), "finite gradients")
+            _check(g_err <= bound, f"{mode}: gradient rel err {g_err} > {bound}")
+    for name in ("kernel", "plain"):
+        a, s = results["adjoint", name, 100.0], results["scan", name, 100.0]
+        _check(torch.equal(a["logits"], s["logits"]) and torch.equal(a["eest"], s["eest"])
+               and a["nfe"] == s["nfe"], f"{name}: the scan's forward is the adjoint's")
+    print("[tuple-step] the scan's forward is bitwise the adjoint's (logits, eest), "
+          "on K13 and on its plain version")
+
+    step_clf, _ = build_classifier(tol, "step", device)
+    step_clf.init(x)
+    step_clf.load_state_dict(clf.state_dict())
+    with torch.no_grad():
+        step_nfe = step_clf(x, mode="while").nfe
+    print(f"[tuple-step] fused='step' (K1, the normed step) from the same weights: NFE "
+          f"{step_nfe}, against {results['adjoint', 'kernel', 0.0]['nfe']} on K13")
+
+    for solver in ("dopri5", "bosh3"):
+        other, _ = build_classifier(tol, False, device, max_steps=256)
+        other.init(x)
+        other.load_state_dict(clf.state_dict())
+        other.node.solver = solver
+        start = time.perf_counter()
+        loss, out = mnist_loss(other, x, y)
+        loss.backward()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - start
+        grad = torch.cat([p.grad.flatten() for p in other.parameters()])
+        print(f"[tuple-step] NeuralODE(solver={solver!r}) rtol=atol={tol:g}: nfe={out.nfe} "
+              f"trial steps={int(out.telemetry.live.sum().item())} loss={loss.item()!r} "
+              f"ms={wall * 1e3!r}")
+        _check(out.success, f"{solver}: the solve reached t1")
+        _check(torch.isfinite(loss).item() and torch.isfinite(grad).all().item(),
+               f"{solver}: finite loss and gradients")
+
+
+def phase_tuple_slice(device, batches):
+    """Three training steps of the flagship configuration (Tsit5 at
+    rtol=atol=1.4e-8, max_steps 96, batch 512, CE + 100 * error_estimate,
+    InvDecay(1e-5) then Momentum(0.1, 0.9)) with the solve through K13
+    under the replay adjoint (``tuple_loss``): K13 launched twice a trial
+    step (forward and replay), K14 once, and no other step or whole-solve
+    kernel; NFE and ms a step. Then one step on ``mode="scan"``: K13 twice
+    a trial step (the checkpoint's recompute), K14 once."""
+    import torch
+
+    from regneuralde_tpu_torch.training import (
+        create_train_state,
+        make_train_step,
+        mnist_node_optimizer,
+    )
+
+    clf, gen = build_classifier(FLAGSHIP_TOL, False, device)
+    clf.init(batches[0][0], generator=gen)
+    optimizer = mnist_node_optimizer()
+    state = create_train_state(clf, optimizer)
+    before = [p.detach().clone() for p in clf.parameters()]
+    counters = _counters()
+    walls = {}
+    for mode, n in (("adjoint", len(batches)), ("scan", 1)):
+        step = make_train_step(lambda m, x, y, mode=mode: tuple_loss(m, x, y, mode), optimizer)
+        torch.cuda.synchronize()
+        for mod in counters:  # count only this path's launches
+            mod.reset_launches()
+        trial_steps, walls[mode] = 0, []
+        for i, (x, y) in enumerate(batches[:n]):
+            start = time.perf_counter()
+            state, loss, out = step(state, x, y)
+            torch.cuda.synchronize()
+            walls[mode].append((time.perf_counter() - start) * 1e3)
+            tel = out.telemetry
+            nlive = int(tel.live.sum().item())
+            naccept = int(tel.accepted.sum().item())
+            trial_steps += nlive
+            launches = {k: v for mod in counters for k, v in mod.LAUNCHES.items()}
+            print(f"[tuple-slice] mode={mode} step {i}: loss={loss.item()!r} nfe={out.nfe} "
+                  f"naccept={naccept} nreject={nlive - naccept} success={out.success} "
+                  f"ms={walls[mode][-1]!r} launches={json.dumps(launches)}")
+            _check(torch.isfinite(loss).item(), f"finite loss, got {loss.item()}")
+            _check(out.success, "the solve reached t1")
+            _check(out.nfe == 2 + 6 * nlive, "NFE = 2 + 6 * trial steps")
+            _check(torch.isfinite(out.logits).all().item(), "finite logits")
+            want = {k: 0 for k in launches}
+            want.update(mlp_tsit5_fwd=2 * trial_steps, mlp_tsit5_bwd=trial_steps)
+            _check(launches == want, f"{mode} launches after step {i}: {launches}, "
+                   f"expected {want}")
+        if mode == "adjoint":
+            main_launches = launches
+    moved = max((p.detach() - b).abs().max().item() for p, b in zip(clf.parameters(), before))
+    print(f"[tuple-slice] ms a step: adjoint {walls['adjoint']}, scan {walls['scan']}; "
+          f"max parameter change={moved!r}")
+    _check(moved > 0.0, "the parameters moved")
+    return main_launches, walls
+
+
 def main():
     import torch
 
@@ -2191,13 +2475,25 @@ def main():
     lanes, _ = phase_per_sample_slice(device, batches)
     launches.update({k: lanes[k] for k in ("mlp_lanes_tsit5_fwd", "mlp_lanes_tsit5_bwd")})
 
+    start = time.perf_counter()
+    kernels.update(phase_tuple_kernels(device))
+    print(f"[phase 25] wall {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    phase_tuple_step(device, batches[0])
+    print(f"[phase 26] wall {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    tup, _ = phase_tuple_slice(device, batches)
+    launches.update({k: tup[k] for k in ("mlp_tsit5_fwd", "mlp_tsit5_bwd")})
+    print(f"[phase 27] wall {time.perf_counter() - start:.1f} s")
+
     sources = {"normed_tsit5_fwd": "normed_tsit5.cu", "normed_tsit5_bwd": "normed_tsit5.cu",
                "altmlp_tsit5_fwd": "altmlp_tsit5.cu", "altmlp_tsit5_bwd": "altmlp_tsit5.cu",
                "csl_tsit5_fwd": "csl_tsit5.cu", "csl_tsit5_bwd": "csl_tsit5.cu",
                "sde_whole_solve_fwd": "sde_whole_solve.cu",
                "sde_whole_solve_bwd": "sde_whole_solve.cu",
                "mlp_lanes_tsit5_fwd": "mlp_lanes_tsit5.cu",
-               "mlp_lanes_tsit5_bwd": "mlp_lanes_tsit5.cu"}
+               "mlp_lanes_tsit5_bwd": "mlp_lanes_tsit5.cu",
+               "mlp_tsit5_fwd": "mlp_tsit5.cu", "mlp_tsit5_bwd": "mlp_tsit5.cu"}
     record = {"kernels": [
         {"name": name, "route": "cuda",
          "source": "regneuralde_tpu_torch/csrc/" + sources.get(name, "whole_solve.cu"),

@@ -9,14 +9,16 @@ The port routes the JAX layer's fused options for ``MLPDynamics`` and
   tiled K5/K6, so the three options take the same route), for
   ``MLPDynamics`` and ``AlternatingMLP``, with or without ``saveat``;
   ``"tiled"`` with ``saveat`` raises ``ValueError``, as in JAX;
-* ``fused="step"``, and the whole-solve options in ``mode="while"`` (as in
-  JAX): one normed Tsit5 trial-step kernel pair per trial step under the
-  fast adjoint solve, K1/K2 for ``MLPDynamics`` (``ops.fused_mlp``), K7/K8
-  for ``AlternatingMLP`` (``ops.fused_generic``);
-* ``fused=False``: the same fast adjoint solve with no kernel: for those
-  two dynamics the kernels' plain PyTorch versions (the same trial-step
-  algebra, so the paths differ only by rounding), for any other dynamics
-  the plain normed sweep over the module with its autograd reverse.
+* ``fused="step"``, and the whole-solve options in ``mode="while"`` or
+  ``"scan"`` (as in JAX): one normed Tsit5 trial-step kernel pair per trial
+  step, K1/K2 for ``MLPDynamics`` (``ops.fused_mlp``), K7/K8 for
+  ``AlternatingMLP`` (``ops.fused_generic``), under the fast adjoint solve
+  on ``"adjoint"`` and under autograd through every step on ``"scan"``;
+* ``fused=False``: the same solves with no kernel: for those two dynamics
+  the kernels' plain PyTorch versions (the same trial-step algebra, so the
+  paths differ only by rounding); for any other dynamics, and for
+  ``solver="dopri5"`` or ``"bosh3"``, ``odeint``'s generic sweep over the
+  module (the replay adjoint on ``"adjoint"``).
 
 ``saveat`` gives the trajectory at the stamps, ``(batch, time, feat)``.
 

@@ -51,6 +51,8 @@ _SIGNATURES = {
     "regnde_sde_whole_solve_bwd": [_P] * 22 + [_I] * 5 + [_F] * 9 + [_P],
     "regnde_lanes_fwd": [_P] * 13 + [_I] * 3 + [_P],
     "regnde_lanes_bwd": [_P] * 25 + [_I] * 3 + [_P],
+    "regnde_mlp_tsit5_fwd": [_P] * 13 + [_I] * 3 + [_P],
+    "regnde_mlp_tsit5_bwd": [_P] * 25 + [_I] * 3 + [_P],
 }
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
           "-Xcompiler", "-fPIC"]

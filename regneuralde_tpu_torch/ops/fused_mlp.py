@@ -1,23 +1,28 @@
-"""Normed Tsit5 trial step of ``MLPDynamics``: plain PyTorch and CUDA kernels.
+"""Tsit5 trial step of ``MLPDynamics``: plain PyTorch and CUDA kernels.
 
-Counterpart of the normed part of ``regneuralde_tpu/ops/pallas_mlp.py``.
-One trial step runs the six Tsit5 stages of ``MLPDynamics`` and reduces the
-error and stiffness norms to three sums of squares, so only
-``(y_new, k7, err_ssq, num_ssq, den_ssq)`` leave the step:
+Counterpart of ``regneuralde_tpu/ops/pallas_mlp.py``'s scalar-time steps.
+One trial step runs the six Tsit5 stages of ``MLPDynamics``, in either of
+the solver's two sweep protocols (``ops.ode``):
 
-* ``err_ssq = sum((err / (atol + max(|y|, |y_new|) * rtol))^2)`` with the
-  embedded error ``err = dt * sum_i btilde_i (k_i - k1)``;
-* ``num_ssq = sum((k7 - k6)^2)`` and ``den_ssq = sum((y_new - g6)^2)``,
-  the stiffness estimate's two norms.
+* the tuple step (K13/K14) returns the rows ``(y_new, k7, err, k6, g6)``:
+  the new state, the last stage derivative (FSAL), the embedded error
+  ``err = dt * sum_i btilde_i (k_i - k1)``, the stage-6 derivative and the
+  stage-5 state, from which the solver takes the error and stiffness norms;
+* the normed step (K1/K2) reduces those norms to three sums of squares in
+  the kernel, so only ``(y_new, k7, err_ssq, num_ssq, den_ssq)`` leave it:
+  ``err_ssq = sum((err / (atol + max(|y|, |y_new|) * rtol))^2)``,
+  ``num_ssq = sum((k7 - k6)^2)`` and ``den_ssq = sum((y_new - g6)^2)``.
 
 The weights are the four leaves ``(W1, b1, W2, b2)`` of the two
 ``nn.Linear`` layers of ``models.basic.MLPDynamics``: ``W1`` is
 ``(H, D+1)`` and ``W2`` is ``(D, H+1)``, the time column last.
 
-Each of the two steps has a plain version (``_reference_normed_sweep``,
-and ``_normed_bwd_math``, the hand reverse chain of
-``pallas_mlp._normed_bwd_math``) and a CUDA kernel
-(``csrc/normed_tsit5.cu``). The wrappers ``normed_sweep_fwd`` and
+Each step has a plain version (``_reference_sweep`` and ``_bwd_math``, the
+hand reverse chain of ``pallas_mlp._fused_bwd_kernel``;
+``_reference_normed_sweep`` and ``_normed_bwd_math``, that of
+``pallas_mlp._normed_bwd_math``) and a CUDA kernel pair
+(``csrc/mlp_tsit5.cu``, ``csrc/normed_tsit5.cu``). The wrappers
+``stage_sweep_fwd``/``stage_sweep_bwd`` and ``normed_sweep_fwd``/
 ``normed_sweep_bwd`` take the plain version for tensors on the CPU, launch
 the kernel for tensors on a CUDA device, and raise otherwise.
 """
@@ -33,7 +38,8 @@ from regneuralde_tpu_torch.ops.math import tanh as _tanh
 from regneuralde_tpu_torch.ops.tableaus import TSIT5
 
 # Launches of each kernel, counted by its wrapper where it launches.
-LAUNCHES = {"normed_tsit5_fwd": 0, "normed_tsit5_bwd": 0}
+LAUNCHES = {"normed_tsit5_fwd": 0, "normed_tsit5_bwd": 0, "mlp_tsit5_fwd": 0,
+            "mlp_tsit5_bwd": 0}
 
 
 def reset_launches() -> None:
@@ -88,51 +94,35 @@ def _reference_normed_sweep(t, dt, y, k1, parts, rtol, atol):
             torch.sum(dg * dg))
 
 
-def _normed_bwd_math(t, dt, y, k1, parts, cts, rtol, atol):
-    """Plain version of K2: the hand reverse chain of the normed step.
-
-    Maps ``cts = (ct_y_new, ct_k7, ct_err_ssq, ct_num_ssq, ct_den_ssq)``
-    to ``(ct_t, ct_dt, ct_y, ct_k1, (cW1, cb1, cW2, cb2))``. All of the
-    ``max(|y|, |y_new|)`` subgradient goes to ``y`` on ties, as in
-    ``pallas_mlp._normed_bwd_math``; ``torch.autograd`` of the plain
-    forward would split it."""
-    tab = TSIT5
-    w1x, w1t, b1, w2h, w2t, b2 = parts
-    cyn, ck7, ct_errssq, ct_numssq, ct_denssq = cts
-
-    ks = [k1]
-    hs = []
+def _recompute(t, dt, y, k1, parts):
+    """The six stages again: the derivatives ``ks`` (k1 first) and each
+    stage's hidden activations ``hs``."""
+    ks, hs = [k1], []
     for i in range(1, 7):
         yi = y + dt * _stage_acc(i, ks)
-        k, h = _mlp_k(yi, t + tab.c[i] * dt, parts)
+        k, h = _mlp_k(yi, t + TSIT5.c[i] * dt, parts)
         ks.append(k)
         hs.append(h)
-    y_new = y + dt * _stage_acc(6, ks)
+    return ks, hs
 
-    s_comb = tab.btilde[1] * (ks[1] - ks[0])
-    for c, k in zip(tab.btilde[2:], ks[2:]):
+
+def _err_comb(ks):
+    """``sum_{j>=1} btilde_j (k_j - k1)``, the embedded error over dt."""
+    s_comb = TSIT5.btilde[1] * (ks[1] - ks[0])
+    for c, k in zip(TSIT5.btilde[2:], ks[2:]):
         s_comb = s_comb + c * (k - ks[0])
-    err = dt * s_comb
-    denom = atol + torch.maximum(torch.abs(y), torch.abs(y_new)) * rtol
-    scaled = err / denom
-    cerr = ct_errssq * 2.0 * scaled / denom
-    cdenom = ct_errssq * (-2.0) * scaled * scaled / denom
-    y_is_max = torch.abs(y) >= torch.abs(y_new)
-    zero = torch.zeros_like(y)
-    to_y = torch.where(y_is_max, cdenom * rtol * torch.sign(y), zero)
-    to_ynew = torch.where(y_is_max, zero, cdenom * rtol * torch.sign(y_new))
+    return s_comb
 
-    d_k7 = ct_numssq * 2.0 * (ks[6] - ks[5])
-    d_ynew = ct_denssq * 2.0 * (y_new - (y + dt * _stage_acc(5, ks)))
 
-    ct_ks = [tab.btilde[j] * (dt * cerr) for j in range(7)]
-    ct_ks[6] = ct_ks[6] + ck7 + d_k7
-    ct_ks[5] = ct_ks[5] - d_k7
-    seeds = {6: cyn + d_ynew + to_ynew, 5: -d_ynew}
-
-    ct_dt = torch.sum(cerr * s_comb)
+def _reverse_stages(t, dt, y, parts, ks, hs, ct_ks, seeds, ct_dt, ct_y):
+    """The reverse chain over the six stages, shared by K2's and K14's
+    plain versions: from the stage derivatives' cotangents ``ct_ks`` and
+    the stage inputs' seeds ``seeds`` (stage index -> rows) to ``(ct_t,
+    ct_dt, ct_y, ct_k1, (cW1, cb1, cW2, cb2))``; ``ct_dt`` and ``ct_y``
+    come in with the seeds' own shares."""
+    tab = TSIT5
+    w1x, w1t, b1, w2h, w2t, b2 = parts
     ct_t = torch.zeros_like(ct_dt)
-    ct_y = to_y
     cw1x = torch.zeros_like(w1x)
     cw1t = torch.zeros_like(w1t)
     cb1 = torch.zeros_like(b1)
@@ -172,6 +162,60 @@ def _normed_bwd_math(t, dt, y, k1, parts, cts, rtol, atol):
     ct_leaves = (torch.cat([cw1x, cw1t[:, None]], dim=1), cb1,
                  torch.cat([cw2h, cw2t[:, None]], dim=1), cb2)
     return ct_t, ct_dt, ct_y, ct_ks[0], ct_leaves
+
+
+def _bwd_math(t, dt, y, k1, parts, cts):
+    """Plain version of K14: the hand reverse chain of the tuple step
+    (``pallas_mlp._fused_bwd_kernel``).
+
+    Maps the row cotangents ``cts = (ct_y_new, ct_k7, ct_err, ct_k6,
+    ct_g6)`` to ``(ct_t, ct_dt, ct_y, ct_k1, (cW1, cb1, cW2, cb2))``.
+    ``err = dt * sum_j btilde_j (k_j - k1)`` seeds ``btilde_j * dt *
+    ct_err`` into every stage derivative (the k1 terms cancel, as
+    ``sum(btilde) == 0``) and ``sum(ct_err * err / dt)`` into ``ct_dt``;
+    ``ct_g6`` seeds stage 5's input, ``ct_y_new`` stage 6's."""
+    cyn, ck7, cerr, ck6, cg6 = cts
+    ks, hs = _recompute(t, dt, y, k1, parts)
+    ct_ks = [TSIT5.btilde[j] * (dt * cerr) for j in range(7)]
+    ct_ks[6] = ct_ks[6] + ck7
+    ct_ks[5] = ct_ks[5] + ck6
+    return _reverse_stages(t, dt, y, parts, ks, hs, ct_ks, {6: cyn, 5: cg6},
+                           torch.sum(cerr * _err_comb(ks)), torch.zeros_like(y))
+
+
+def _normed_bwd_math(t, dt, y, k1, parts, cts, rtol, atol):
+    """Plain version of K2: the hand reverse chain of the normed step.
+
+    Maps ``cts = (ct_y_new, ct_k7, ct_err_ssq, ct_num_ssq, ct_den_ssq)``
+    to ``(ct_t, ct_dt, ct_y, ct_k1, (cW1, cb1, cW2, cb2))``. All of the
+    ``max(|y|, |y_new|)`` subgradient goes to ``y`` on ties, as in
+    ``pallas_mlp._normed_bwd_math``; ``torch.autograd`` of the plain
+    forward would split it."""
+    tab = TSIT5
+    cyn, ck7, ct_errssq, ct_numssq, ct_denssq = cts
+    ks, hs = _recompute(t, dt, y, k1, parts)
+    y_new = y + dt * _stage_acc(6, ks)
+
+    s_comb = _err_comb(ks)
+    err = dt * s_comb
+    denom = atol + torch.maximum(torch.abs(y), torch.abs(y_new)) * rtol
+    scaled = err / denom
+    cerr = ct_errssq * 2.0 * scaled / denom
+    cdenom = ct_errssq * (-2.0) * scaled * scaled / denom
+    y_is_max = torch.abs(y) >= torch.abs(y_new)
+    zero = torch.zeros_like(y)
+    to_y = torch.where(y_is_max, cdenom * rtol * torch.sign(y), zero)
+    to_ynew = torch.where(y_is_max, zero, cdenom * rtol * torch.sign(y_new))
+
+    d_k7 = ct_numssq * 2.0 * (ks[6] - ks[5])
+    d_ynew = ct_denssq * 2.0 * (y_new - (y + dt * _stage_acc(5, ks)))
+
+    ct_ks = [tab.btilde[j] * (dt * cerr) for j in range(7)]
+    ct_ks[6] = ct_ks[6] + ck7 + d_k7
+    ct_ks[5] = ct_ks[5] - d_k7
+    seeds = {6: cyn + d_ynew + to_ynew, 5: -d_ynew}
+    return _reverse_stages(t, dt, y, parts, ks, hs, ct_ks, seeds,
+                           torch.sum(cerr * s_comb), to_y)
 
 
 # ---------------------------------------------------------------------------
@@ -267,6 +311,72 @@ def _cuda_normed_bwd(t, dt, y, k1, leaves, cts, rtol, atol):
     return ct_tdt[0], ct_tdt[1], ct_y, ct_k1, (cW1, cb1, cW2, cb2)
 
 
+def _cuda_fwd(t, dt, y, k1, leaves):
+    from regneuralde_tpu_torch.ops import _cuda
+
+    B, D, H = _check_cuda_args(y, k1, leaves)
+    t32, dt32 = _scalar_f32(t, y), _scalar_f32(dt, y)
+    outs = [torch.empty_like(y) for _ in range(5)]
+    lib = _cuda.library()
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    code = lib.regnde_mlp_tsit5_fwd(
+        _ptr(t32), _ptr(dt32), _ptr(y), _ptr(k1), *map(_ptr, leaves), *map(_ptr, outs),
+        B, D, H, ctypes.c_void_p(stream))
+    _cuda.check(code, "Tsit5 forward kernel")
+    LAUNCHES["mlp_tsit5_fwd"] += 1
+    return tuple(outs)
+
+
+def _cuda_bwd(t, dt, y, k1, leaves, cts):
+    from regneuralde_tpu_torch.ops import _cuda
+
+    names = ("ct_y_new", "ct_k7", "ct_err", "ct_k6", "ct_g6")
+    B, D, H = _check_cuda_args(
+        y, k1, leaves, {n: (c, tuple(y.shape)) for n, c in zip(names, cts)})
+    lib = _cuda.library()
+    t32, dt32 = _scalar_f32(t, y), _scalar_f32(dt, y)
+    dev = y.device
+    ct_y, ct_k1 = torch.empty_like(y), torch.empty_like(y)
+    W1, b1, W2, b2 = leaves
+    cW1, cb1 = torch.empty_like(W1), torch.empty_like(b1)
+    cW2, cb2 = torch.empty_like(W2), torch.empty_like(b2)
+    ct_tdt = torch.empty(2, device=dev)
+    rows = lib.regnde_bwd_rows()
+    partials = torch.empty(((B + rows - 1) // rows, 2), device=dev)
+    cp2 = torch.empty((6 * B, D), device=dev)
+    he = torch.empty((6 * B, H + 2), device=dev)
+    cp1 = torch.empty((6 * B, H), device=dev)
+    ye = torch.empty((6 * B, D + 2), device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    code = lib.regnde_mlp_tsit5_bwd(
+        _ptr(t32), _ptr(dt32), _ptr(y), _ptr(k1), *map(_ptr, leaves), *map(_ptr, cts),
+        _ptr(ct_y), _ptr(ct_k1), _ptr(cW1), _ptr(cb1), _ptr(cW2), _ptr(cb2), _ptr(ct_tdt),
+        _ptr(partials), _ptr(cp2), _ptr(he), _ptr(cp1), _ptr(ye), B, D, H,
+        ctypes.c_void_p(stream))
+    _cuda.check(code, "Tsit5 backward kernel")
+    LAUNCHES["mlp_tsit5_bwd"] += 1
+    return ct_tdt[0], ct_tdt[1], ct_y, ct_k1, (cW1, cb1, cW2, cb2)
+
+
+def stage_sweep_fwd(t, dt, y, k1, leaves: Sequence[torch.Tensor]):
+    """K13 or its plain version: ``(y_new, k7, err, k6, g6)``."""
+    if y.device.type == "cuda":
+        return _cuda_fwd(t, dt, y, k1, tuple(leaves))
+    if y.device.type == "cpu":
+        return _reference_sweep(t, dt, y, k1, _split_params(*leaves))
+    raise RuntimeError(f"no Tsit5 forward for device {y.device}")
+
+
+def stage_sweep_bwd(t, dt, y, k1, leaves: Sequence[torch.Tensor], cts):
+    """K14 or its plain version: ``(ct_t, ct_dt, ct_y, ct_k1, ct_leaves)``
+    from the five row cotangents."""
+    if y.device.type == "cuda":
+        return _cuda_bwd(t, dt, y, k1, tuple(leaves), tuple(cts))
+    if y.device.type == "cpu":
+        return _bwd_math(t, dt, y, k1, _split_params(*leaves), tuple(cts))
+    raise RuntimeError(f"no Tsit5 backward for device {y.device}")
+
+
 def normed_sweep_fwd(t, dt, y, k1, leaves: Sequence[torch.Tensor], rtol, atol):
     """K1 or its plain version: ``(y_new, k7, err_ssq, num_ssq, den_ssq)``."""
     if y.device.type == "cuda":
@@ -310,6 +420,44 @@ class NormedSweepFn(torch.autograd.Function):
         return (ct_t.to(t.dtype).reshape(t.shape),
                 ct_dt.to(dt.dtype).reshape(dt.shape), ct_y, ct_k1,
                 *ct_leaves, None, None)
+
+
+class StageSweepFn(torch.autograd.Function):
+    """The tuple trial step, K13 forward and K14 backward (their plain
+    versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, t, dt, y, k1, W1, b1, W2, b2):
+        ctx.save_for_backward(t, dt, y, k1, W1, b1, W2, b2)
+        return stage_sweep_fwd(t, dt, y, k1, (W1, b1, W2, b2))
+
+    @staticmethod
+    def backward(ctx, *cts):
+        t, dt, y, k1, *leaves = ctx.saved_tensors
+        cts = tuple(torch.zeros_like(y) if c is None else c.contiguous() for c in cts)
+        ct_t, ct_dt, ct_y, ct_k1, ct_leaves = stage_sweep_bwd(t, dt, y, k1, leaves, cts)
+        return (ct_t.to(t.dtype).reshape(t.shape), ct_dt.to(dt.dtype).reshape(dt.shape),
+                ct_y, ct_k1, *ct_leaves)
+
+
+def mlp_dynamics_stage_sweep(t, dt, y, k1, leaves):
+    """``stage_sweep`` for ``ops.ode.odeint`` over MLPDynamics leaves
+    ``(W1, b1, W2, b2)`` in the tuple protocol, ``(y_new, k7, err, k6,
+    g6)`` (``pallas_mlp.mlp_dynamics_stage_sweep``); differentiable through
+    ``StageSweepFn`` (K13/K14)::
+
+        sol = odeint(node._func, x, 0.0, 1.0, leaves,
+                     stage_sweep=mlp_dynamics_stage_sweep)
+    """
+    t = torch.as_tensor(t, dtype=y.dtype, device=y.device)
+    dt = torch.as_tensor(dt, dtype=y.dtype, device=y.device)
+    return StageSweepFn.apply(t, dt, y, k1, *leaves)
+
+
+def plain_mlp_stage_sweep(t, dt, y, k1, leaves):
+    """The plain version of K13 on any device, as a ``stage_sweep``: the
+    same trial-step algebra with no kernel, differentiated by autograd."""
+    return _reference_sweep(t, dt, y, k1, _split_params(*leaves))
 
 
 def mlp_dynamics_normed_sweep(t, dt, y, k1, leaves, rtol, atol):

@@ -1,39 +1,58 @@
-"""Adaptive Tsit5 integration with telemetry and a fast adjoint.
+"""Adaptive explicit Runge-Kutta integration with telemetry and its adjoints.
 
-Counterpart of ``regneuralde_tpu/ops/ode.py``, restricted to what the MNIST
-Neural-ODE and latent-ODE training steps run: Tsit5 with a *normed* stage
-sweep (the error and stiffness norms arrive as three sums of squares, see
-``NormedSweep``), the fast adjoint solve (``_make_fast_adjoint_solve``
-there, ``FastAdjointSolve`` here), a forward-only ``"while"`` mode, and
-dense output at ``saveat`` stamps by cubic Hermite interpolation on each
-accepted step (``_hermite_eval``).
+Counterpart of ``regneuralde_tpu/ops/ode.py``: the FSAL tableaus Tsit5,
+Dopri5 and Bosh3, a stage sweep in either of JAX's two protocols, the
+three modes of ``odeint``, ``dt0``, and dense output at ``saveat`` stamps
+by cubic Hermite interpolation on each accepted step (``_hermite_eval``).
 
-The adaptive loop runs on the host: each trial step reads its accept and
-done flags back, one host sync per trial step. The forward stores, per
-trial step, ``t, dt, qold``, the three norm sums and the ``y, f0`` rows, so
-the backward runs one sweep backward per step (the K2 kernel on the card)
-and no forward replay. A ``saveat`` solve also keeps each accepted step's
-``y_new, k_last`` (the Hermite primals), and the backward pulls the
-interpolation back from them (``hermite_pullback``). The scalar chain
-(controller, time update, telemetry; ``_post``) is differentiated with
-``torch.autograd.grad`` on 0-d tensors. ``post_bwd`` is its hand pullback,
-and ``adjoint_step`` the rest of one reverse step; they, the saver and the
-Hermite pullback are shared with ``ops.whole_solve``.
+A stage sweep ``sweep(t, dt, y, k1, args)`` runs one trial step and returns
+either a ``NormedSweep`` (the error and stiffness norms reduced to three
+sums of squares, as the step kernels do) or the tuple ``(y_new, k_last,
+err, k_prev, g_prev)`` of ``generic_sweep``, the default over ``func``.
+``_Stepper`` is one trial step over a carry ``(t, dt, qold, y, f0, ys)``
+(JAX's ``_make_step_fn``); accept and reject are ``torch.where``s, so that
+a recompute takes the forward's path. The adaptive loop runs on the host
+(``_run_steps``): each trial step reads its accept and done flags back,
+one host sync per trial step. The modes:
+
+* ``"scan"`` (the default, JAX's gradient oracle): autograd through every
+  trial step and its sweep, each step under ``torch.utils.checkpoint`` with
+  ``remat``. JAX scans ``max_steps`` steps with a no-op past the end; the
+  no-op is the identity in value and gradient, so the host stops issuing
+  steps at the end and the telemetry keeps ``max_steps`` rows.
+* ``"adjoint"``: with a normed sweep and its backward ``stage_sweep_bwd``,
+  the fast adjoint (``_make_fast_adjoint_solve`` there,
+  ``FastAdjointSolve`` here). The forward stores, per trial step, ``t, dt,
+  qold``, the three norm sums and the ``y, f0`` rows, so the backward runs
+  one sweep backward per step and no forward replay; a ``saveat`` solve
+  also keeps each accepted step's ``y_new, k_last`` for the Hermite
+  pullback (``hermite_pullback``). The scalar chain (``_post``) is
+  differentiated with ``torch.autograd.grad``; ``post_bwd`` is its hand
+  pullback, and ``adjoint_step`` the rest of one reverse step, shared with
+  ``ops.whole_solve``. Otherwise the replay adjoint
+  (``_make_adjoint_solve`` there, ``ReplayAdjointSolve`` here): the forward
+  stores each trial step's start carry, the backward rebuilds each step
+  from it and differentiates it.
+* ``"while"``: the same forward, nothing recorded for a backward.
 
 Every solver decision matches the JAX package: the PI controller with its
 deadband, the ``span`` clamp, the ``is_last`` step to ``t1``, telemetry
 rows ``t, dt, eest, eigen_est, accepted, live`` of length ``max_steps``,
-and ``nfe = 2 + 6 * (naccept + nreject)``.
+and ``nfe = nfe_init + (stages - 1) * (naccept + nreject)``, ``nfe_init``
+2 with Hairer's initial step and 1 with ``dt0``.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, NamedTuple, Optional, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from regneuralde_tpu_torch.ops.controller import _EEST_FLOOR, PIController, initial_step_size
-from regneuralde_tpu_torch.ops.tableaus import TSIT5
+from regneuralde_tpu_torch.ops.norms import error_ratio, hairer_norm
+from regneuralde_tpu_torch.ops.tableaus import TSIT5, ExplicitRKTableau, get_tableau
 
 
 class StepTelemetry(NamedTuple):
@@ -188,42 +207,74 @@ def plain_normed_sweep(func, t, dt, y, k1, args, rtol, atol) -> NormedSweep:
 def normed_terms(func, t, dt, y, k1, args, rtol, atol):
     """``plain_normed_sweep`` before its three sums: ``(y_new, k_last)`` and
     the per-element squares ``(err / denom)^2``, ``(k_last - k_prev)^2``,
-    ``(y_new - g_prev)^2``."""
-    tab = TSIT5
+    ``(y_new - g_prev)^2`` of Tsit5's ``generic_sweep``."""
+    y_new, k_last, err, k_prev, g_prev = generic_sweep(func, TSIT5, t, dt, y, k1, args)
+    scaled = err / (atol + torch.maximum(torch.abs(y), torch.abs(y_new)) * rtol)
+    dk = k_last - k_prev
+    dg = y_new - g_prev
+    return y_new, k_last, scaled * scaled, dk * dk, dg * dg
+
+
+# ---------------------------------------------------------------------------
+# The generic sweep over any FSAL tableau (the tuple protocol).
+# ---------------------------------------------------------------------------
+
+
+def _lincomb(y, dt, coeffs, ks):
+    """``y + dt * sum_i coeffs[i] * ks[i]`` over the nonzero coefficients,
+    the first of them first (``ops/norms.py`` ``tree_lincomb``)."""
+    nz = [(c, k) for c, k in zip(coeffs, ks) if c != 0.0]
+    if not nz:
+        return y
+    acc = nz[0][0] * nz[0][1]
+    for c, k in nz[1:]:
+        acc = acc + c * k
+    return y + dt * acc
+
+
+def generic_sweep(func, tab: ExplicitRKTableau, t, dt, y, k1, args):
+    """One trial step of ``tab`` over ``func(t, y, args)`` in the tuple
+    protocol: ``(y_new, k_last, err, k_prev, g_prev)``. FSAL: ``y_new`` is
+    the last stage's input and ``k_last`` its derivative, ``k_prev`` and
+    ``g_prev`` the stage before's (the stiffness estimate's differences).
+    The embedded error is regrouped as ``dt * sum_i btilde_i (k_i - k1)``,
+    exact since ``sum(btilde) == 0``: in float32 every summand stays O(dt)
+    instead of O(1) stage values cancelling down to the error."""
+    n = tab.num_stages
     ks = [k1]
-    y_stage = y
-    g_prev = y
-    for i in range(1, 7):
-        acc = tab.a[i - 1][0] * ks[0]
-        for c, k in zip(tab.a[i - 1][1:], ks[1:]):
-            if c != 0.0:
-                acc = acc + c * k
-        y_stage = y + dt * acc
+    y_stage = g_prev = y
+    for i in range(1, n):
+        y_stage = _lincomb(y, dt, tab.a[i - 1], ks)
         ks.append(func(t + tab.c[i] * dt, y_stage, args))
-        if i == 5:
+        if i == n - 2:  # tab.a[n - 3] over ks[:n - 2]
             g_prev = y_stage
     err = tab.btilde[1] * (ks[1] - ks[0])
     for c, k in zip(tab.btilde[2:], ks[2:]):
         err = err + c * (k - ks[0])
-    err = dt * err
-    denom = atol + torch.maximum(torch.abs(y), torch.abs(y_stage)) * rtol
-    scaled = err / denom
-    dk = ks[-1] - ks[-2]
-    dg = y_stage - g_prev
-    return y_stage, ks[-1], scaled * scaled, dk * dk, dg * dg
+    return y_stage, ks[-1], dt * err, ks[-2], g_prev
 
 
-def plain_normed_sweep_bwd(func, t, dt, y, k1, args, cts, rtol, atol):
-    """Reverse of ``plain_normed_sweep`` by autograd of a recompute:
-    ``(ct_t, ct_dt, ct_y, ct_k1, ct_args)``."""
-    inputs = [x.detach().requires_grad_(True) for x in (t, dt, y, k1, *args)]
-    with torch.enable_grad():
-        out = plain_normed_sweep(func, inputs[0], inputs[1], inputs[2],
-                                 inputs[3], tuple(inputs[4:]), rtol, atol)
-        grads = torch.autograd.grad(tuple(out), inputs, grad_outputs=cts,
-                                    allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, inputs)]
-    return grads[0], grads[1], grads[2], grads[3], tuple(grads[4:])
+def _estimates(res, y, rtol, atol, count, dtype):
+    """``(y_new, k_last, eest, eigen_est)`` of a sweep result in either
+    protocol: a ``NormedSweep``, or the tuple ``(y_new, k_last, err,
+    k_prev, g_prev)`` whose norms are taken here."""
+    if isinstance(res, NormedSweep):
+        eest, eigen = _normed_scalars(res.err_ssq.to(dtype), res.eig_num_ssq.to(dtype),
+                                      res.eig_den_ssq.to(dtype), count)
+        return res.y_new, res.k_last, eest, eigen
+    if not (isinstance(res, tuple) and len(res) == 5):
+        raise NotImplementedError(
+            "a stage sweep returns a NormedSweep or the tuple (y_new, k_last, err, k_prev, "
+            "g_prev); JAX's CompSweep and EigenSweep are not ported yet (ROADMAP.md queue 1 "
+            "item 9)")
+    y_new, k_last, err, k_prev, g_prev = res
+    eest = error_ratio(err, y, y_new, rtol, atol).to(dtype)
+    eig_num = hairer_norm(k_last - k_prev)
+    eig_den = hairer_norm(y_new - g_prev)
+    eigen = torch.where(eig_den > 0,
+                        eig_num / torch.maximum(eig_den, torch.full_like(eig_den, 1e-30)),
+                        torch.zeros_like(eig_den))
+    return y_new, k_last, eest, eigen.to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -231,17 +282,23 @@ def plain_normed_sweep_bwd(func, t, dt, y, k1, args, cts, rtol, atol):
 # ---------------------------------------------------------------------------
 
 
-def _post(ctrl, count, t, dt_eff, qold, e, n, d, t1, span, is_last):
-    """The scalar chain of one trial step after its norm sums (the
-    ``post`` of ``regneuralde_tpu/ops/pallas_solve.py``): ``(t_new,
-    dt_next, qold_next, t_end, eest, eigen_est)``."""
-    eest, eigen = _normed_scalars(e, n, d, count)
+def _advance(ctrl, t, dt_eff, qold, eest, t1, span, is_last):
+    """The controller and the time update of one trial step: ``(t_new,
+    dt_next, qold_next, t_end)``."""
     accept = eest <= 1.0
     dt_next, qold_next = ctrl.propose(dt_eff, eest, qold, accept)
     dt_next = torch.sign(dt_next) * torch.minimum(torch.abs(dt_next), span)
     t_end = torch.where(is_last, t1, t + dt_eff)
     t_new = torch.where(accept, t_end, t)
-    return t_new, dt_next, qold_next, t_end, eest, eigen
+    return t_new, dt_next, qold_next, t_end
+
+
+def _post(ctrl, count, t, dt_eff, qold, e, n, d, t1, span, is_last):
+    """The scalar chain of one trial step after its norm sums (the
+    ``post`` of ``regneuralde_tpu/ops/pallas_solve.py``): ``(t_new,
+    dt_next, qold_next, t_end, eest, eigen_est)``."""
+    eest, eigen = _normed_scalars(e, n, d, count)
+    return (*_advance(ctrl, t, dt_eff, qold, eest, t1, span, is_last), eest, eigen)
 
 
 def _max_grad(a, b, g):
@@ -536,22 +593,233 @@ class FastAdjointSolve(torch.autograd.Function):
                 ct_ys, *ct_leaves)
 
 
-def solve_prologue(func, y0, t0, t1, args, rtol, atol):
+@contextlib.contextmanager
+def _matmul_precision(precision):
+    """float32 products at ``precision`` (``torch.set_float32_matmul_precision``;
+    None keeps the caller's). Entered by every trial step and by the
+    adjoints' backwards; a backward runs outside any context the forward
+    entered, so ``odeint`` also wraps its graph in a ``_PrecisionScope``.
+    The embedded error estimate is a fifth-order cancellation, and TF32
+    products would feed it rounding noise that ~1/tol amplifies through the
+    controller into the gradients (JAX's reason,
+    ``regneuralde_tpu/ops/ode.py:669-680``)."""
+    if precision is None:
+        yield
+        return
+    old = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(precision)
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(old)
+
+
+class _PrecisionMark(torch.autograd.Function):
+    """The identity; its backward sets the scope's precision (``on``) or
+    restores the caller's."""
+
+    @staticmethod
+    def forward(ctx, scope, on, *xs):
+        ctx.scope, ctx.on = scope, on
+        return xs
+
+    @staticmethod
+    def backward(ctx, *cts):
+        (ctx.scope.set if ctx.on else ctx.scope.restore)()
+        return (None, None, *cts)
+
+
+class _PrecisionScope:
+    """``matmul_precision`` for the backward of a solve's autograd graph:
+    the scan's steps, the prologue, the adjoints' inputs. ``inputs`` marks
+    the tensors entering the solve and ``outputs`` those leaving it. In the
+    backward the outputs' mark sets the precision and the inputs' mark
+    restores the caller's, and every node of the solve runs in between: the
+    engine runs a node after every node that consumes its output, and of
+    the ready nodes the one created last. A backward that never reaches the
+    inputs' mark (gradients only of tensors the dynamics close over)
+    restores the caller's precision at its end. Nodes the engine runs on
+    another device's thread meanwhile see the solve's precision too."""
+
+    def __init__(self, precision):
+        self.precision, self.old = precision, None
+
+    def set(self):
+        self.old = torch.get_float32_matmul_precision()
+        torch.set_float32_matmul_precision(self.precision)
+        torch.autograd.Variable._execution_engine.queue_callback(self.restore)
+
+    def restore(self):
+        if self.old is not None:
+            torch.set_float32_matmul_precision(self.old)
+            self.old = None
+
+    def _mark(self, on, xs):
+        idx = [i for i, x in enumerate(xs) if isinstance(x, torch.Tensor) and x.requires_grad]
+        out = list(xs)
+        if idx:
+            for i, x in zip(idx, _PrecisionMark.apply(self, on, *(xs[i] for i in idx))):
+                out[i] = x
+        return out
+
+    def inputs(self, *xs):
+        return self._mark(False, xs)
+
+    def outputs(self, *xs):
+        return self._mark(True, xs)
+
+
+class _Stepper(NamedTuple):
+    """One trial step of a solve (JAX's ``_make_step_fn``): called on the
+    carry ``(t, dt, qold, y, f0, ys)``, then ``t0, t1``, the ``saveat``
+    stamps (or None) and the dynamics' leaves, it returns ``(carry', row,
+    accept, done)`` with the telemetry row ``(t_end, dt_eff, eest,
+    eigen_est)``. ``ys`` holds the ``saveat`` rows (an empty tensor without
+    ``saveat``); an accepted step writes the stamps in its window. Accept
+    and reject are ``torch.where``s, never a host branch, so that a
+    recompute (the checkpointed scan, the replay adjoint) takes the
+    forward's path."""
+
+    sweep: Callable
+    ctrl: PIController
+    rtol: float
+    atol: float
+    count: float
+    precision: Optional[str]
+
+    def __call__(self, t, dt, qold, y, f0, ys, t0, t1, saveat, *args):
+        with _matmul_precision(self.precision):
+            tdir = torch.sign(t1 - t0)
+            span = torch.abs(t1 - t0)
+            remaining = t1 - t
+            is_last = (dt - remaining) * tdir >= 0
+            dt_eff = torch.where(is_last, remaining, dt)
+            res = self.sweep(t, dt_eff, y, f0, args)
+            y_new, k_last, eest, eigen = _estimates(res, y, self.rtol, self.atol, self.count,
+                                                    t.dtype)
+            t_new, dt_next, qold_next, t_end = _advance(self.ctrl, t, dt_eff, qold, eest, t1,
+                                                        span, is_last)
+            accept = eest <= 1.0
+            y_out = torch.where(accept, y_new, y)
+            f0_out = torch.where(accept, k_last, f0)
+            if saveat is not None:
+                win = _save_window(saveat, t, t_end, tdir, y) & accept
+                ys = torch.where(win, _interp(saveat, t, dt_eff, y, y_new, f0, k_last), ys)
+        return ((t_new, dt_next, qold_next, y_out, f0_out, ys), (t_end, dt_eff, eest, eigen),
+                accept, accept & is_last)
+
+
+def _run_steps(step, max_steps, carry, t0, t1, saveat, args, remat=False, hist=None):
+    """The trial-step loop on the host, one sync a trial step for its
+    accept and done flags: ``(carry, rows, accepted, done)``. ``remat``
+    runs each step under ``torch.utils.checkpoint``; ``hist`` collects each
+    step's start carry ``(t, dt, qold, y, f0)``."""
+    rows, accepted = [], []
+    done = bool(torch.abs(t1 - t0) == 0)
+    while not done and len(accepted) < max_steps:
+        if hist is not None:
+            hist.append(carry[:5])
+        if remat:
+            carry, row, acc, fin = checkpoint(step, *carry, t0, t1, saveat, *args,
+                                              use_reentrant=False)
+        else:
+            carry, row, acc, fin = step(*carry, t0, t1, saveat, *args)
+        rows.append(row)
+        acc_flag, done = torch.stack((acc, fin)).tolist()
+        accepted.append(acc_flag)
+    return carry, rows, accepted, done
+
+
+class ReplayAdjointSolve(torch.autograd.Function):
+    """The replay adjoint (``ops/ode.py:_make_adjoint_solve``), for any
+    sweep: the exact discrete adjoint through every live trial step, with
+    nothing past the end.
+
+    Inputs ``t0, t1, dt_init, y0, f0_init``, the ``saveat`` rows' initial
+    values ``ys_init``, the stamps (None without ``saveat``) and the
+    leaves; outputs as ``FastAdjointSolve``'s. The forward keeps each trial
+    step's start carry ``(t, dt, qold, y, f0)`` (JAX's ``_AdjointHist``: the
+    carried FSAL derivative, not a recomputed one) and its accept flag. The
+    backward walks the steps in reverse: it rebuilds each from its stored
+    carry under autograd (one more sweep) and pulls the carried cotangents
+    of ``(t, dt, qold, y, f0, ys)`` and the step's telemetry cotangents
+    back through it, summing those of ``t0``, ``t1``, the stamps and the
+    leaves. A replayed step that decides accept otherwise than the forward
+    did would corrupt the adjoint silently; the backward raises instead.
+    Not twice differentiable (``mode="scan"`` is)."""
+
+    @staticmethod
+    def forward(ctx, step, max_steps, t0, t1, dt_init, y0, f0_init, ys_init, saveat, *args):
+        hist = []
+        carry = (t0, dt_init, torch.full_like(t0, step.ctrl.qoldinit), y0, f0_init, ys_init)
+        carry, rows, accepted, done = _run_steps(step, max_steps, carry, t0, t1, saveat, args,
+                                                 hist=hist)
+        tel = _telemetry(rows, accepted, max_steps, t0)
+        counts = torch.tensor([sum(accepted), len(accepted) - sum(accepted), int(done)])
+        ctx.mark_non_differentiable(tel.accepted, tel.live, counts)
+        ctx.step, ctx.max_steps, ctx.hist, ctx.accepted = step, max_steps, hist, accepted
+        ctx.save_for_backward(t0, t1, y0, f0_init, ys_init, saveat, *args)
+        y1, ys = carry[3], carry[5]
+        return (y1.clone() if y1 is y0 else y1, ys.clone() if ys is ys_init else ys,
+                tel.t, tel.dt, tel.eest, tel.eigen_est, tel.accepted, tel.live, counts)
+
+    @staticmethod
+    def backward(ctx, ct_y1, ct_ys, ct_tel_t, ct_tel_dt, ct_tel_e, ct_tel_g, *_):
+        t0, t1, y0, f0_init, ys_init, saveat, *args = ctx.saved_tensors
+        zero = torch.zeros_like(t0)
+        ct_tel = [zero.new_zeros(ctx.max_steps) if c is None else c
+                  for c in (ct_tel_t, ct_tel_dt, ct_tel_e, ct_tel_g)]
+        cts = [zero, zero, zero, torch.zeros_like(y0) if ct_y1 is None else ct_y1,
+               torch.zeros_like(f0_init), torch.zeros_like(ys_init) if ct_ys is None else ct_ys]
+        sums = [zero, zero] + [None if x is None else torch.zeros_like(x) for x in (saveat, *args)]
+        ys_zero = torch.zeros_like(ys_init)  # the rows' cotangent never reads their value
+        flipped = torch.zeros((), dtype=torch.bool, device=t0.device)
+        for i in range(len(ctx.hist) - 1, -1, -1):
+            prim = [x.detach().requires_grad_(True) for x in (*ctx.hist[i], ys_zero, t0, t1)]
+            rest = [None if x is None else x.detach().requires_grad_(True)
+                    for x in (saveat, *args)]
+            with torch.enable_grad(), _matmul_precision(ctx.step.precision):
+                carry, row, acc, _ = ctx.step(*prim, *rest)
+                pairs = [(o, c) for o, c in zip((*carry, *row), (*cts, *(c[i] for c in ct_tel)))
+                         if o.requires_grad]
+                inputs = prim + [x for x in rest if x is not None]
+                grads = torch.autograd.grad([o for o, _ in pairs], inputs,
+                                            grad_outputs=[c for _, c in pairs],
+                                            allow_unused=True)
+            flipped = flipped | (acc != ctx.accepted[i])
+            grads = iter(torch.zeros_like(x) if g is None else g for g, x in zip(grads, inputs))
+            cts = [next(grads) for _ in range(6)]
+            sums = [s if s is None else s + next(grads) for s in sums]
+        if flipped.item():
+            raise RuntimeError(
+                "replay adjoint: a replayed trial step decided accept otherwise than the "
+                "forward did; the stage sweep is not deterministic")
+        ctx.hist = None
+        ct_t, ct_dt, _, ct_y, ct_f0, ct_ys = cts
+        ct_t0x, ct_t1, *rest = sums
+        return (None, None, ct_t + ct_t0x, ct_t1, ct_dt, ct_y, ct_f0, ct_ys, *rest)
+
+
+def solve_prologue(func, y0, t0, t1, args, rtol, atol, order=TSIT5.order, dt0=None):
     """``odeint``'s prologue: the time scalars as tensors (float32 at
-    least), ``f(t0, y0)`` and Hairer's initial step (one more evaluation):
-    ``(t0, t1, f_init, dt_init)``."""
+    least), ``f(t0, y0)`` and the initial step: ``dt0`` towards ``t1``, or
+    Hairer's (one more evaluation) for a method of ``order``: ``(t0, t1,
+    f_init, dt_init)``."""
     time_dtype = torch.promote_types(y0.dtype, torch.float32)
     t0 = torch.as_tensor(t0, dtype=time_dtype, device=y0.device)
     t1 = torch.as_tensor(t1, dtype=time_dtype, device=y0.device)
     f_init = func(t0, y0, args)
-    dt_init, _ = initial_step_size(func, t0, y0, f_init, args, TSIT5.order,
-                                   rtol, atol, t1)
+    if dt0 is not None:
+        return t0, t1, f_init, torch.as_tensor(dt0, dtype=time_dtype,
+                                               device=y0.device) * torch.sign(t1 - t0)
+    dt_init, _ = initial_step_size(func, t0, y0, f_init, args, order, rtol, atol, t1)
     return t0, t1, f_init, dt_init.to(time_dtype)
 
 
-def solve_stats(naccept, nreject, done) -> ODEStats:
-    """NFE: the prologue's two evaluations and six per trial step."""
-    return ODEStats(nfe=2 + (TSIT5.num_stages - 1) * (naccept + nreject),
+def solve_stats(naccept, nreject, done, num_stages=TSIT5.num_stages, nfe_init=2) -> ODEStats:
+    """NFE: the prologue's evaluations (``f(t0, y0)``, and Hairer's probe
+    unless ``dt0`` was given) and ``num_stages - 1`` per trial step."""
+    return ODEStats(nfe=nfe_init + (num_stages - 1) * (naccept + nreject),
                     naccept=naccept, nreject=nreject, success=bool(done))
 
 
@@ -565,63 +833,98 @@ def odeint(
     solver: str = "tsit5",
     rtol: float = 1e-7,
     atol: float = 1e-7,
+    dt0: Optional[float] = None,
     max_steps: int = 256,
+    saveat=None,
     controller: Optional[PIController] = None,
-    mode: str = "adjoint",
+    mode: str = "scan",
+    remat: bool = True,
+    axis_name: Optional[str] = None,
+    matmul_precision: Optional[str] = "highest",
     stage_sweep: Optional[Callable] = None,
     stage_sweep_bwd: Optional[Callable] = None,
-    saveat=None,
+    compensated_eest: bool = False,
 ) -> ODESolution:
     """Integrate ``dy/dt = func(t, y, args)`` from ``t0`` to ``t1``.
 
     ``args`` is a tuple of tensors (the dynamics' leaves); gradients reach
-    them, ``y0``, ``t0`` and ``t1``. ``stage_sweep(t, dt, y, k1, args)``
-    returns a ``NormedSweep`` and ``stage_sweep_bwd(t, dt, y, k1, args,
-    cts)`` its reverse ``(ct_t, ct_dt, ct_y, ct_k1, ct_args)``; without
-    them the plain normed sweep over ``func`` and its autograd reverse run.
-    ``mode="adjoint"`` is differentiable (the fast adjoint); ``"while"``
-    runs the same forward without recording anything for a backward.
-    ``saveat``: 1-D stamps at which the solution also holds the
-    interpolated states ``ys`` (stamps at or before ``t0`` hold ``y0``).
+    them, ``y0``, ``t0``, ``t1`` and the ``saveat`` stamps. ``solver``:
+    ``"tsit5"``, ``"dopri5"`` or ``"bosh3"``. ``dt0``: the initial step
+    (``None``: Hairer's heuristic, one more evaluation). ``stage_sweep(t,
+    dt, y, k1, args)`` runs one trial step and returns a ``NormedSweep`` or
+    the tuple ``(y_new, k_last, err, k_prev, g_prev)``; without it
+    ``generic_sweep`` over ``func`` runs. ``mode``: ``"scan"`` (autograd
+    through every trial step, each under ``torch.utils.checkpoint`` with
+    ``remat``; twice differentiable through the generic sweep),
+    ``"adjoint"`` (the fast adjoint for a normed sweep given with its
+    backward ``stage_sweep_bwd(t, dt, y, k1, args, cts) -> (ct_t, ct_dt,
+    ct_y, ct_k1, ct_args)``, the replay adjoint otherwise) or ``"while"``
+    (the same forward, no backward). ``matmul_precision``: float32 product
+    precision inside the solve and its backward (``"highest"``: no TF32;
+    ``None`` keeps the caller's). ``saveat``: 1-D stamps at which the
+    solution also holds the interpolated states ``ys`` (stamps at or
+    before ``t0`` hold ``y0``). Not ported yet, each raising
+    ``NotImplementedError``: ``axis_name``, ``compensated_eest``, the stiff
+    solvers and pytree states.
     """
-    if solver != "tsit5":
-        raise NotImplementedError(
-            f"solver {solver!r} is not ported yet; the port has Tsit5 only")
-    if mode == "scan":
-        raise NotImplementedError("mode='scan' (the differentiable bounded "
-                                  "scan) is not ported yet; use 'adjoint'")
-    if mode not in ("adjoint", "while"):
-        raise ValueError(f"unknown mode {mode!r}; use 'adjoint' or 'while'")
-    if (stage_sweep is None) != (stage_sweep_bwd is None):
-        raise ValueError("stage_sweep and stage_sweep_bwd go together")
+    if not isinstance(y0, torch.Tensor):
+        raise NotImplementedError("pytree states are not ported yet (ROADMAP.md queue 1 "
+                                  "item 4); y0 must be a tensor")
+    if axis_name is not None:
+        raise NotImplementedError("axis_name (data-parallel step control) is not ported yet "
+                                  "(ROADMAP.md queue 1 item 10)")
+    if compensated_eest:
+        raise NotImplementedError("compensated_eest is not ported yet (ROADMAP.md queue 1 "
+                                  "item 9)")
+    if solver == "rosenbrock23" or solver.startswith("auto_"):
+        raise NotImplementedError(f"solver {solver!r} (the stiff solvers) is not ported yet "
+                                  "(ROADMAP.md queue 1 item 9)")
+    tab = get_tableau(solver)
+    if mode not in ("scan", "adjoint", "while"):
+        raise ValueError(f"unknown mode {mode!r}; use 'adjoint', 'scan' or 'while'")
+    if stage_sweep_bwd is not None and stage_sweep is None:
+        raise ValueError("stage_sweep_bwd needs its stage_sweep")
     if stage_sweep is None:
-        stage_sweep = lambda t, dt, y, k1, a: plain_normed_sweep(
-            func, t, dt, y, k1, a, rtol, atol)
-        stage_sweep_bwd = lambda t, dt, y, k1, a, cts: plain_normed_sweep_bwd(
-            func, t, dt, y, k1, a, cts, rtol, atol)
-    ctrl = controller or PIController.for_order(TSIT5.order)
+        stage_sweep = lambda t, dt, y, k1, a: generic_sweep(func, tab, t, dt, y, k1, a)
+    ctrl = controller or PIController.for_order(tab.order)
+    scope = None
+    if matmul_precision is not None and mode != "while" and torch.is_grad_enabled():
+        scope = _PrecisionScope(matmul_precision)
+        y0, t0, t1, saveat, *args = scope.inputs(y0, t0, t1, saveat, *args)
     args = tuple(args)
-    t0, t1, f_init, dt_init = solve_prologue(func, y0, t0, t1, args, rtol, atol)
+    with _matmul_precision(matmul_precision):
+        t0, t1, f_init, dt_init = solve_prologue(func, y0, t0, t1, args, rtol, atol,
+                                                 tab.order, dt0)
     saveat, ys_init = saveat_rows(saveat, t0, t1, y0)
+    step = _Stepper(stage_sweep, ctrl, rtol, atol, float(y0.numel()), matmul_precision)
 
-    if mode == "while":
-        saver = None
-        if saveat is not None:
-            saver = _HermiteSaver(saveat, torch.sign(t1 - t0), ys_init, keep=False)
-        with torch.no_grad():
-            y1, rows, accepted, done, _ = _solve_forward(
-                stage_sweep, ctrl, max_steps, t0, t1, dt_init, y0, f_init,
-                args, keep_history=False, on_accept=saver)
-        tel = _telemetry(rows, accepted, max_steps, t0)
-        naccept, nreject = sum(accepted), len(accepted) - sum(accepted)
-        ys = None if saver is None else saver.ys
-    else:
-        (y1, ys, tel_t, tel_dt, tel_e, tel_g, acc, live,
-         counts) = FastAdjointSolve.apply(
-            stage_sweep, stage_sweep_bwd, ctrl, max_steps, saveat, t0, t1,
-            dt_init, y0, f_init, ys_init, *args)
+    if mode == "adjoint" and stage_sweep_bwd is not None:
+        def sweep_bwd(*a):
+            with _matmul_precision(matmul_precision):
+                return stage_sweep_bwd(*a)
+
+        with _matmul_precision(matmul_precision):
+            out = FastAdjointSolve.apply(stage_sweep, sweep_bwd, ctrl, max_steps, saveat, t0,
+                                         t1, dt_init, y0, f_init, ys_init, *args)
+    elif mode == "adjoint":
+        out = ReplayAdjointSolve.apply(step, max_steps, t0, t1, dt_init, y0, f_init, ys_init,
+                                       saveat, *args)
+    if mode == "adjoint":
+        y1, ys, tel_t, tel_dt, tel_e, tel_g, acc, live, counts = out
         tel = StepTelemetry(tel_t, tel_dt, tel_e, tel_g, acc, live)
         naccept, nreject, done = counts.tolist()
-    return ODESolution(y1=y1, stats=solve_stats(naccept, nreject, done),
-                       telemetry=tel, ys=None if saveat is None else ys,
-                       ts=saveat)
+    else:
+        carry = (t0, dt_init, torch.full_like(t0, ctrl.qoldinit), y0, f_init, ys_init)
+        with contextlib.nullcontext() if mode == "scan" else torch.no_grad():
+            carry, rows, accepted, done = _run_steps(
+                step, max_steps, carry, t0, t1, saveat, args,
+                remat=mode == "scan" and remat and torch.is_grad_enabled())
+        tel = _telemetry(rows, accepted, max_steps, t0)
+        y1, ys = carry[3], carry[5]
+        naccept, nreject = sum(accepted), len(accepted) - sum(accepted)
+    if scope is not None:
+        y1, ys, *tel_f = scope.outputs(y1, ys, *tel[:4])
+        tel = StepTelemetry(*tel_f, tel.accepted, tel.live)
+    stats = solve_stats(naccept, nreject, done, tab.num_stages, 2 if dt0 is None else 1)
+    return ODESolution(y1=y1, stats=stats, telemetry=tel,
+                       ys=None if saveat is None else ys, ts=saveat)

@@ -1,8 +1,8 @@
 """The port's CUDA kernels (K1/K2 step pair, K3/K4 whole solve for
 MLPDynamics, AlternatingMLP and FFJORD's CSL dynamics, K7/K8 step pairs for
 AlternatingMLP and CSL, K9/K10 the SDE whole solve of an MLP pair, K11/K12
-the lane-wise step of the per-sample engine) against their plain PyTorch
-versions.
+the lane-wise step of the per-sample engine, K13/K14 the tuple step of
+``odeint``'s generic engine) against their plain PyTorch versions.
 
 These tests need a CUDA device and ``nvcc`` (the kernels have no CPU mode)
 and skip without one. This file imports no JAX, so it runs on a machine
@@ -77,7 +77,8 @@ def test_kernels_match_plain_versions(cuda, shape, tol):
     plain_b = fm._normed_bwd_math(t, dt, y, k1, parts, cts, tol, tol)
     for a, b in zip([*kern_b[:4], *kern_b[4]], [*plain_b[:4], *plain_b[4]]):
         assert _rel(a, b) <= 1e-3
-    assert fm.LAUNCHES == {"normed_tsit5_fwd": 1, "normed_tsit5_bwd": 1}
+    assert fm.LAUNCHES == {"normed_tsit5_fwd": 1, "normed_tsit5_bwd": 1, "mlp_tsit5_fwd": 0,
+                           "mlp_tsit5_bwd": 0}
 
 
 @pytest.mark.cuda
@@ -290,7 +291,8 @@ def test_fused_true_trains_through_the_whole_solve_kernels(cuda):
         outs[fused] = (out, grads, {**ws.LAUNCHES, **fm.LAUNCHES})
     (a, ga, la), (b, gb, _) = outs[True], outs[False]
     assert la == {"whole_solve_fwd": 1, "whole_solve_bwd": 1, "normed_tsit5_fwd": 0,
-                  "normed_tsit5_bwd": 0, "whole_solve_altmlp_fwd": 0,
+                  "normed_tsit5_bwd": 0, "mlp_tsit5_fwd": 0, "mlp_tsit5_bwd": 0,
+                  "whole_solve_altmlp_fwd": 0,
                   "whole_solve_altmlp_bwd": 0, "whole_solve_csl_fwd": 0,
                   "whole_solve_csl_bwd": 0}
     assert a.nfe == b.nfe and torch.equal(a.telemetry.accepted, b.telemetry.accepted)
@@ -1008,3 +1010,140 @@ def test_per_sample_node_trains_through_k11_k12(cuda):
     assert _rel(a.value, b.value) <= 1e-6
     for u, v in zip(ga, gb):
         assert _rel(u, v) <= 1e-3
+
+
+def _row_cts(batch, dim, device, seed=3):
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.normal(size=(batch, dim)).astype(np.float32), device=device)
+            for _ in range(5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [0.05, 0.3])
+@pytest.mark.parametrize("shape", [(13, 40, 24), (5, 8, 5), (512, 784, 100)])
+def test_tuple_kernels_match_plain_versions(cuda, shape, dt):
+    """K13/K14 against their plain versions, ragged row tiles included: the
+    rows within 1e-4 (relative, Frobenius; the error row, a cancellation,
+    within 3e-4, chip_smoke.py's TUPLE_ERR_BOUND) and within 3 times the
+    plain version's distance from float64, the backward within 1e-3; both
+    bitwise deterministic; one launch a call."""
+    y, k1, leaves, _ = _inputs(*shape, cuda)
+    cts = _row_cts(shape[0], shape[1], cuda)
+    t, dt_ = torch.tensor(0.3, device=cuda), torch.tensor(dt, device=cuda)
+    parts = fm._split_params(*leaves)
+    fm.reset_launches()
+    kern = fm.stage_sweep_fwd(t, dt_, y, k1, leaves)
+    plain = fm._reference_sweep(t, dt_, y, k1, parts)
+    d = lambda x: x.double()
+    plain64 = fm._reference_sweep(d(t), d(dt_), d(y), d(k1), [d(x) for x in parts])
+    for name, a, b, c in zip(["y_new", "k7", "err", "k6", "g6"], kern, plain, plain64):
+        assert _rel(a, c) <= 3 * _rel(b, c) + 1e-7, name
+        assert _rel(a, b) <= (3e-4 if name == "err" else 1e-4), name
+    kern_b = fm.stage_sweep_bwd(t, dt_, y, k1, leaves, cts)
+    plain_b = fm._bwd_math(t, dt_, y, k1, parts, cts)
+    flat = lambda g: [*g[:4], *g[4]]
+    for a, b in zip(flat(kern_b), flat(plain_b)):
+        assert _rel(a, b) <= 1e-3
+    assert all(torch.equal(a, b) for a, b in zip(kern, fm.stage_sweep_fwd(t, dt_, y, k1, leaves)))
+    again = fm.stage_sweep_bwd(t, dt_, y, k1, leaves, cts)
+    assert all(torch.equal(a, b) for a, b in zip(flat(kern_b), flat(again)))
+    assert fm.LAUNCHES == {"normed_tsit5_fwd": 0, "normed_tsit5_bwd": 0, "mlp_tsit5_fwd": 2,
+                           "mlp_tsit5_bwd": 2}
+
+
+@pytest.mark.cuda
+def test_tuple_wrappers_refuse_bad_inputs(cuda):
+    y, k1, leaves, _ = _inputs(8, 16, 12, cuda)
+    t, dt = torch.tensor(T, device=cuda), torch.tensor(DT, device=cuda)
+    cts = _row_cts(8, 16, cuda)
+    with pytest.raises(TypeError):
+        fm.stage_sweep_fwd(t, dt, y.double(), k1, leaves)
+    with pytest.raises(ValueError):
+        fm.stage_sweep_fwd(t, dt, y, k1.cpu(), leaves)
+    with pytest.raises(ValueError):
+        fm.stage_sweep_bwd(t, dt, y, k1, leaves, [c.t() for c in cts])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["adjoint", "scan"])
+def test_tuple_sweep_solve_matches_plain_version(cuda, mode):
+    """``odeint`` with ``mlp_dynamics_stage_sweep`` (K13/K14) against the
+    same solve with its plain version, MLPDynamics(784, 100) at batch 64 and
+    rtol=atol=1e-5 (chip_smoke.py phase 26 at a smaller batch), on the
+    replay adjoint and the checkpointed scan: the same NFE and accepts, y1
+    within 1e-5, the gradients of sum(y1^2) within 1e-3 and of sum(y1^2) +
+    100 * error_estimate within 5e-2 (relative); K13 launched twice a trial
+    step, K14 once, and no other step kernel."""
+    from regneuralde_tpu_torch import reg
+    from regneuralde_tpu_torch.models import MLPDynamics, NeuralODE
+
+    gen = torch.Generator().manual_seed(0)
+    node = NeuralODE(MLPDynamics(784, 100, device=cuda, generator=gen), rtol=1e-5, atol=1e-5,
+                     max_steps=96)
+    x = torch.rand(64, 784, generator=gen).to(cuda)
+    leaves = tuple(node.dynamics.parameters())
+    outs = {}
+    for name, sweep in (("kernel", fm.mlp_dynamics_stage_sweep),
+                        ("plain", fm.plain_mlp_stage_sweep)):
+        fm.reset_launches()
+        res = []
+        for reg_weight in (0.0, 100.0):
+            sol = ode.odeint(node._func, x, 0.0, 1.0, leaves, rtol=1e-5, atol=1e-5,
+                             max_steps=96, mode=mode, stage_sweep=sweep)
+            val = sol.y1.square().sum() + reg_weight * reg.error_estimate(sol.telemetry,
+                                                                          "mean")
+            res.append((sol, torch.autograd.grad(val, leaves)))
+        outs[name] = (res, dict(fm.LAUNCHES))
+    (ka, la), (pa, lp) = outs["kernel"], outs["plain"]
+    steps = sum(int(s.telemetry.live.sum()) for s, _ in ka)
+    assert la == {"normed_tsit5_fwd": 0, "normed_tsit5_bwd": 0, "mlp_tsit5_fwd": 2 * steps,
+                  "mlp_tsit5_bwd": steps}
+    assert not any(lp.values())
+    for (a, ga), (b, gb), bound in zip(ka, pa, (1e-3, 5e-2)):
+        assert a.stats == b.stats and a.stats.success
+        assert torch.equal(a.telemetry.accepted, b.telemetry.accepted)
+        assert _rel(a.y1, b.y1) <= 1e-5
+        for u, v in zip(ga, gb):
+            assert _rel(u, v) <= bound
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode, sweep", [("adjoint", None), ("scan", None),
+                                         ("adjoint", "k13"), ("scan", "k13")])
+def test_matmul_precision_holds_in_the_backward_on_the_card(cuda, mode, sweep):
+    """With the caller's float32 products at TF32 (``"high"``), every
+    matrix product of a card solve's backward (the engine's device thread
+    included) runs at ``odeint``'s ``matmul_precision="highest"``: the
+    replay adjoint and the scan, over the generic sweep and over K13/K14;
+    the caller's precision holds again after the backward."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from regneuralde_tpu_torch.models import MLPDynamics, NeuralODE
+
+    class Precisions(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+                self.seen.append(torch.get_float32_matmul_precision())
+            return func(*args, **(kwargs or {}))
+
+    gen = torch.Generator().manual_seed(1)
+    node = NeuralODE(MLPDynamics(40, 24, device=cuda, generator=gen), rtol=1e-4, atol=1e-4,
+                     max_steps=64)
+    x = torch.rand(13, 40, generator=gen).to(cuda).requires_grad_(True)
+    leaves = tuple(node.dynamics.parameters())
+    kw = {} if sweep is None else dict(stage_sweep=fm.mlp_dynamics_stage_sweep)
+    old = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("high")
+        sol = ode.odeint(node._func, x, 0.0, 1.0, leaves, rtol=1e-4, atol=1e-4, max_steps=64,
+                         mode=mode, saveat=[0.0, 0.5, 1.0], matmul_precision="highest", **kw)
+        with Precisions() as bwd:
+            torch.autograd.grad(sol.y1.square().sum() + sol.ys.square().sum(), (*leaves, x))
+        after = torch.get_float32_matmul_precision()
+    finally:
+        torch.set_float32_matmul_precision(old)
+    assert after == "high" and len(bwd.seen) > 0 and set(bwd.seen) == {"highest"}

@@ -634,4 +634,4 @@ def test_step_routes_take_the_altmlp_sweeps(fused, monkeypatch):
     out.value.square().sum().backward()
     n = int(out.telemetry.live.sum())
     assert calls == ({"fwd": n, "bwd": n} if fused else {"fwd": 0, "bwd": 0})
-    assert fm.LAUNCHES == {"normed_tsit5_fwd": 0, "normed_tsit5_bwd": 0}
+    assert fm.LAUNCHES == {k: 0 for k in fm.LAUNCHES} and len(fm.LAUNCHES) == 4

@@ -1,6 +1,6 @@
 """The port's solver core (regneuralde_tpu_torch.ops) against the JAX
 package's (regneuralde_tpu.ops): controller, initial step, norm scalars,
-the golden Tsit5 traces, and the fast adjoint solve.
+the golden Tsit5 traces, and the fast and replay adjoint solves.
 
 Both packages get the same numpy arrays from a seeded generator. The JAX
 solves use the normed MLP trial step as its own tests run it on the CPU:
@@ -136,7 +136,7 @@ GOLDEN_PROBLEMS = {
 @pytest.mark.parametrize("pname", sorted(GOLDEN_PROBLEMS))
 def test_golden_traces(pname, tol, controller):
     """The float64 NumPy oracle's accepted/rejected step counts exactly,
-    with the plain normed sweep over a callable; in exact mode
+    with the generic sweep over a callable; in exact mode
     (qsteady_max=1.0) also its accepted-dt sequence and final state, at
     the JAX package's own tolerances (tests/test_nfe_parity.py:100-106)."""
     f, y0, t0, t1 = GOLDEN_PROBLEMS[pname]
@@ -273,9 +273,9 @@ def _assert_same_decisions(tsol, jsol):
 def test_odeint_adjoint_matches_jax_float64(x64, seed, sweep, t1):
     """The solver itself, free of float32 noise: JAX's fast adjoint (the
     one ``ops/ode.py:_make_fast_adjoint_solve`` builds for a normed sweep)
-    against the port's, both in float64. ``generic``: the port's plain
-    normed sweep over a callable with its autograd reverse; ``mlp``: the
-    plain versions of K1/K2. Same NFE and accept sequence; y1 and telemetry
+    against the port's, both in float64. ``generic``: the port's generic
+    sweep over a callable under its replay adjoint; ``mlp``: the plain
+    versions of K1/K2 under the fast adjoint. Same NFE and accept sequence; y1 and telemetry
     at rtol=1e-5, atol=1e-7; value and gradients of sum(y1^2) + 0.3 *
     sum(eest * dt) at rtol=2e-3, atol=1e-5 (tests/test_pallas_fused.py:
     316-317). t1 < 0 integrates backwards in time."""
@@ -330,7 +330,8 @@ def test_odeint_adjoint_matches_jax_kernels(jax_kernel_solves, seed, sweep):
 def test_fast_adjoint_matches_autograd_through_the_loop(sweep):
     """The oracle without JAX: autograd straight through the trial-step
     loop (``_solve_forward`` with grad on; the sweep's own backward for
-    each step), float64. The fast adjoint must give the same gradients."""
+    each step), float64. The fast adjoint (``mlp``) and the replay adjoint
+    over the generic sweep (``generic``) must give the same gradients."""
     c = _mlp_arrays(6, 8, 5, 1)
     dtype = torch.float64
     tval, tsol, tgrads = _torch_solve(c, 1.0, sweep, dtype)
@@ -381,10 +382,17 @@ def test_odeint_reports_failure_when_steps_run_out():
 
 
 def test_odeint_rejects_unported_options():
+    """What ``odeint`` does not port yet raises naming ROADMAP: data-parallel
+    step control, the compensated error estimate, the stiff solvers and
+    pytree states; an unknown mode or solver is JAX's ``ValueError``."""
     f = lambda t, y, a: -y
-    with pytest.raises(NotImplementedError):
-        tode.odeint(f, torch.ones(3), 0.0, 1.0, solver="dopri5")
-    with pytest.raises(NotImplementedError):
-        tode.odeint(f, torch.ones(3), 0.0, 1.0, mode="scan")
+    for kw in (dict(axis_name="data"), dict(compensated_eest=True),
+               dict(solver="rosenbrock23"), dict(solver="auto_tsit5_rosenbrock23")):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tode.odeint(f, torch.ones(3), 0.0, 1.0, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tode.odeint(f, {"a": torch.ones(3)}, 0.0, 1.0)
     with pytest.raises(ValueError):
         tode.odeint(f, torch.ones(3), 0.0, 1.0, mode="bogus")
+    with pytest.raises(ValueError):
+        tode.odeint(f, torch.ones(3), 0.0, 1.0, solver="rk4")

@@ -3,7 +3,8 @@
 
     python3 tools/torch_step_profile.py [--model mnist|latent|ffjord|nsde]
                                         [--fused step|true|false] [--steps 3]
-                                        [--tol 1.4e-8] [--per-sample] [--out DIR]
+                                        [--tol 1.4e-8] [--per-sample]
+                                        [--tuple adjoint|scan] [--out DIR]
 
 ``--model mnist`` (the default) builds the flagship classifier of
 ``chip_smoke.py`` (MLPDynamics(784, 100), Tsit5, max_steps=96, batch 512),
@@ -21,8 +22,11 @@ whole-solve kernels (``--fused true``: K3/K4 or K9/K10 once per solve) or
 no kernel (``--fused false``, the plain PyTorch route). ``--per-sample``
 (MNIST only) gives the classifier's node ``per_sample="batched"``: every
 row under its own controller, on the lane-wise kernels K11/K12 (``--fused
-step`` or ``true``) or their plain versions (``false``). It runs one warm-up
-step, then:
+step`` or ``true``) or their plain versions (``false``). ``--tuple
+adjoint|scan`` (MNIST only) runs the classifier's solve through ``odeint``'s
+generic engine on the tuple trial step K13/K14 (``chip_smoke.tuple_loss``,
+as phase 27) under the replay adjoint or the checkpointed scan; ``--fused``
+does not apply. It runs one warm-up step, then:
 
 * times ``--steps`` training steps on the host clock (each ends in a
   synchronize) and reports ms per step, NFE per step and trial steps;
@@ -41,7 +45,10 @@ step, then:
   ``--per-sample``, the engine's parts: its forward iteration loop, the
   sweep (K11 or its plain version), the per-lane chain after it, the
   reverse walk, the sweep's backward (K12 or its plain version) and the
-  walk's recompute and autograd of the chain.
+  walk's recompute and autograd of the chain; with ``--tuple``, the forward's
+  trial-step loop and its sweeps (K13), and in the backward the sweeps of the
+  replay or of the checkpoint's recompute (K13), the sweep's backward (K14)
+  and the replay adjoint's autograd function.
 """
 
 import argparse
@@ -103,6 +110,37 @@ def _annotate_per_sample(record_function):
     psb._chain = labelled_chain
 
 
+def _annotate_tuple(record_function):
+    """Ranges around the generic engine's parts on the tuple step: the
+    forward's trial-step loop, and the sweep (K13) inside it or, outside
+    it, in the backward (the replay adjoint's rebuilt steps, the scan's
+    checkpoint recompute)."""
+    from regneuralde_tpu_torch.ops import fused_mlp as fm
+    from regneuralde_tpu_torch.ops import ode
+
+    in_loop = []
+    run_steps, sweep = ode._run_steps, fm.mlp_dynamics_stage_sweep
+
+    def labelled_run_steps(*args, **kwargs):
+        in_loop.append(True)
+        try:
+            with record_function("[part] forward: the trial-step loop"):
+                return run_steps(*args, **kwargs)
+        finally:
+            in_loop.pop()
+
+    def labelled_sweep(*args, **kwargs):
+        label = ("[part] forward: the sweep (K13)" if in_loop
+                 else "[part] backward: the replayed or recomputed sweep (K13)")
+        with record_function(label):
+            return sweep(*args, **kwargs)
+
+    ode._run_steps = labelled_run_steps
+    fm.mlp_dynamics_stage_sweep = labelled_sweep
+    _wrap(fm, "stage_sweep_bwd", "[part] backward: the sweep's backward (K14)",
+          record_function)
+
+
 def _print_split(events, wall_ms):
     """Host (CPU) and device time of the latent step's parts: the forward
     ranges of ``_annotate`` and, in the backward, the solve's autograd
@@ -115,7 +153,7 @@ def _print_split(events, wall_ms):
     events = [e for e in events if e.device_type == DeviceType.CPU]
     solve_bwd = ("WholeSolveFnBackward", "FastAdjointSolveBackward",
                  "SDEWholeSolveFnBackward", "SDEAdjointSolveBackward",
-                 "PerSampleAdjointSolveBackward")
+                 "PerSampleAdjointSolveBackward", "ReplayAdjointSolveBackward")
     engine = "autograd::engine::evaluate_function:"
     solves = [e.time_range for e in events
               if e.name.startswith(engine) and any(k in e.name for k in solve_bwd)]
@@ -147,10 +185,14 @@ def main():
     ap.add_argument("--tol", type=float, default=1.4e-8)
     ap.add_argument("--per-sample", action="store_true",
                     help="MNIST with per_sample='batched' (K11/K12)")
+    ap.add_argument("--tuple", choices=["adjoint", "scan"],
+                    help="MNIST with the solve through odeint on K13/K14 in this mode")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args()
-    if args.per_sample and args.model != "mnist":
-        ap.error("--per-sample applies to --model mnist")
+    if (args.per_sample or args.tuple) and args.model != "mnist":
+        ap.error("--per-sample and --tuple apply to --model mnist")
+    if args.per_sample and args.tuple:
+        ap.error("--per-sample and --tuple exclude each other")
 
     import torch
     from torch.autograd import DeviceType
@@ -205,6 +247,9 @@ def main():
         loss_fn = cs.mnist_loss
         if args.per_sample:
             _annotate_per_sample(record_function)
+        if args.tuple:
+            loss_fn = lambda m, x, y: cs.tuple_loss(m, x, y, args.tuple)
+            _annotate_tuple(record_function)
     state = create_train_state(model, optimizer)
     step = make_train_step(loss_fn, optimizer)
     counters = cs._counters()
@@ -231,7 +276,7 @@ def main():
                          launches={k: v for m in counters for k, v in m.LAUNCHES.items()}))
     for r in rows:
         print(f"[step] model={args.model} fused={fused!r} per_sample={args.per_sample} "
-              + json.dumps(r))
+              f"tuple={args.tuple} " + json.dumps(r))
 
     torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as caught:
@@ -264,10 +309,11 @@ def main():
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d} calls  {e.key[:90]}")
-    if args.model in ("latent", "ffjord", "nsde") or args.per_sample:
+    if args.model in ("latent", "ffjord", "nsde") or args.per_sample or args.tuple:
         _print_split(prof.events(), wall * 1e3)
     os.makedirs(args.out, exist_ok=True)
-    tag = "_per_sample" if args.per_sample else ""
+    tag = ("_per_sample" if args.per_sample else "") + (f"_tuple_{args.tuple}" if args.tuple
+                                                        else "")
     prof.export_chrome_trace(os.path.join(
         args.out, f"train_step_trace_{args.model}{tag}_{args.fused}.json"))
     return 0
