@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's MNIST Neural-ODE, latent-ODE, FFJORD and MNIST
-Neural-SDE training steps on one GPU, on the step kernels and on the whole
-solve, the MNIST Neural ODE with per-sample adaptive stepping, and on
-``odeint``'s generic engine with the tuple trial step.
+"""Drive the PyTorch/CUDA port's MNIST Neural-ODE, latent-ODE, FFJORD, MNIST
+Neural-SDE and toy 2-D SDE training steps on one GPU, on the step kernels
+and on the whole solve, the MNIST Neural ODE with per-sample adaptive
+stepping, and on ``odeint``'s generic engine with the tuple trial step; and
+K15, the whole-solve feature probe.
 
     python3 chip_smoke.py
 
@@ -118,11 +119,28 @@ at first use. Phases (each checks its results; any failure exits non-zero):
    under the replay adjoint: K13 launched twice a trial step (forward and
    replay), K14 once, no other kernel; NFE and ms a step; then one step on
    ``mode="scan"`` (K13 twice a trial step with the checkpoint's
-   recompute, K14 once).
+   recompute, K14 once);
+28. K15 (``csrc/spike_wholesolve.cu``): ``tools/torch_spike_wholesolve.py``
+   as its main path (one launch, checked there against the plain version),
+   then the kernel against its plain version at 32x20 (JAX's size) and
+   512x784 for t0 in {0, 0.1, 0.9, -5} (the last stops at the 16-row
+   cap): the same iteration count, y1 and tel within SPIKE_TOL, the
+   history rows bitwise, run-to-run bitwise, CUDA-event and device times;
+29. K9/K10 with the cubic tile body (``csrc/sri_cubic.cuh``) against their
+   plain versions at the toy's 100x2x50 with 30 saves, at rtol=atol=3e-1
+   and TOY_TIGHT_TOL (with rejections): as phase 19, and every stored
+   trial step teacher-forced from K9's own start row;
+30. three training steps of the toy 2-D SDE fit (``training.sde_toy``,
+   ``experiments/configs/sde_toy.yml``: 100 trajectories, 30 saves, SOSRI
+   at 3e-1, max_steps 256, AdaBelief(0.01)) on ``fused=False`` and on
+   ``fused=True`` from the same weights on the same draws: one cubic K9
+   and one cubic K10 launch a step on ``True`` and no other kernel, none
+   on ``False``; step by step the same NFE and accepts, the loss within
+   1e-5 and the gradient within GRAD_BOUND; ms a step of both.
 
 Each line of the kernels' JSON record gives the kernel's launches on its
-main path (phases 4, 7, 10, 14, 18, 21, 24 and 27), its time and its plain version's (CUDA
-events, median of 7), and its bound: the larger of its float32 operations
+main path (phases 4, 7, 10, 14, 18, 21, 24, 27, 28 and 30), its time and its plain version's
+(CUDA events, median of 7), and its bound: the larger of its float32 operations
 over the card's f32 rate and its bytes over the memory rate. The last two
 lines of standard output are the kernels' JSON record and the device
 record ``{"ok": true, "device": {...}}``.
@@ -221,9 +239,10 @@ def _counters():
     from regneuralde_tpu_torch.ops import fused_mlp as fm
     from regneuralde_tpu_torch.ops import fused_mlp_lanes as fl
     from regneuralde_tpu_torch.ops import sde_whole_solve as sw
+    from regneuralde_tpu_torch.ops import spike_wholesolve as sp
     from regneuralde_tpu_torch.ops import whole_solve as ws
 
-    return fg, fm, ws, fc, sw, fl
+    return fg, fm, ws, fc, sw, fl, sp
 
 
 def _check(ok, what):
@@ -2400,6 +2419,396 @@ def phase_tuple_slice(device, batches):
     return main_launches, walls
 
 
+# ---------------------------------------------------------------------------
+# K15, the whole-solve feature probe (phase 28), and the toy 2-D SDE fit:
+# K9/K10 with the cubic tile body (phase 29) and its training step (phase 30).
+# ---------------------------------------------------------------------------
+
+SPIKE_TOL = 1e-6  # K15's y1 and tel against its plain version (absolute)
+SPIKE_CASES = (0.0, 0.1, 0.9, -5.0)  # t0: 4, 4, 1 iterations, and the 16-row cap
+TOY_TIGHT_TOL = 3e-2  # phase 29: tens of trial steps, with rejections
+
+
+def _device_ms(fn, kernel, reps=REPS):
+    """The device time of the kernels whose name holds ``kernel``, ms a call
+    of ``fn`` over ``reps`` calls under ``torch.profiler`` (CUDA events
+    around a call also hold the wrapper's host work, which the kernel waits
+    for); None when the trace holds no such kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and kernel in e.key)
+    return us / 1e3 / reps if us > 0 else None
+
+
+def _load_tool(name):
+    """A script of ``tools/`` as a module (``tools`` is no package)."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase_spike_main(device):
+    """K15's main path: ``tools/torch_spike_wholesolve.py`` as a user runs
+    it (one launch, checked there against the plain version), with every
+    count set to 0 just before and read just after."""
+    import torch
+
+    tool = _load_tool("torch_spike_wholesolve")
+    counters = _counters()
+    torch.cuda.synchronize()
+    for mod in counters:
+        mod.reset_launches()
+    rc = tool.main()
+    torch.cuda.synchronize()
+    launches = {k: v for mod in counters for k, v in mod.LAUNCHES.items()}
+    print(f"[spike] tools/torch_spike_wholesolve.py exit {rc}; launches {json.dumps(launches)}")
+    _check(rc == 0, "tools/torch_spike_wholesolve.py passed")
+    want = {k: 0 for k in launches}
+    want.update(spike_wholesolve=1)
+    _check(launches == want, f"K15 main path launches {launches}, expected {want}")
+    return launches
+
+
+def phase_spike_kernels(device):
+    """K15 against its plain version at JAX's size (32 x 20, 16 rows) and
+    at 512 x 784, for t0 in SPIKE_CASES on a seeded state: the same
+    iteration count, y1 and tel within SPIKE_TOL, the history rows < n
+    bitwise (copies), run-to-run bitwise; CUDA-event times of both at both
+    sizes (t0 = 0), and the kernel's device time from the profiler. The
+    record's numbers are those at JAX's size, the main path's."""
+    import torch
+
+    from regneuralde_tpu_torch.ops import spike_wholesolve as sp
+
+    gen = torch.Generator().manual_seed(SEED + 41)
+    out, times = {}, {}
+    for shape in ((sp.B, sp.D), (BATCH, DIM)):
+        y0 = torch.randn(shape, generator=gen).to(device)
+        for t0 in SPIKE_CASES:
+            y1, tel, hy, n = sp.spike_wholesolve(t0, y0)
+            py1, ptel, phy, pn = sp.plain_spike_wholesolve(t0, y0)
+            again = sp.spike_wholesolve(t0, y0)
+            torch.cuda.synchronize()
+            err_y = (y1 - py1).abs().max().item()
+            err_t = (tel - ptel).abs().max().item()
+            tag = f"spike {shape[0]}x{shape[1]} t0={t0:g}"
+            print(f"[{tag}] n kernel={n} plain={pn}; max abs err y1 {err_y!r} tel {err_t!r}")
+            _check(n == pn, f"{tag}: the same iteration count")
+            _check(n == (16 if t0 < -1 else 1 if t0 > 0.75 else 4), f"{tag}: n = {n}")
+            _check(err_y <= SPIKE_TOL and err_t <= SPIKE_TOL, f"{tag}: y1, tel")
+            _check(torch.equal(hy[:n], phy[:n]), f"{tag}: the history rows are copies")
+            same = [torch.equal(a, b) for a, b in zip((again[0], again[1], again[2][:n]),
+                                                      (y1, tel, hy[:n]))]
+            _check(again[3] == n and all(same), f"{tag}: K15 is deterministic")
+            if t0 == 0.0:
+                launch = lambda: sp._cuda_spike_wholesolve(0.0, y0, sp.MAXS)
+                times[shape] = {
+                    "kernel": _time_ms(launch),
+                    "kernel_device": _device_ms(launch, "spike_wholesolve_kernel"),
+                    "plain": _time_ms(lambda: sp.plain_spike_wholesolve(0.0, y0)),
+                    "n": n, "max_abs_err": max(err_y, err_t)}
+        print(f"[spike {shape[0]}x{shape[1]}] median ms over {REPS} runs at t0 = 0: "
+              + json.dumps(times[shape]))
+    jax_size = times[(sp.B, sp.D)]
+    BD, n = sp.B * sp.D, jax_size["n"]
+    # bytes: y0 read, y1 and n history rows written, tel and the count;
+    # operations: 11 a state element an iteration (2 tanh, 9 products and
+    # sums) and the scalar 0.1 t
+    out["spike_wholesolve"] = dict(
+        replaces="tools/spike_wholesolve.py:46", max_abs_err=jax_size["max_abs_err"],
+        ms=jax_size["kernel"], plain_ms=jax_size["plain"],
+        **_bound(4 * ((2 + n) * BD + sp.MAXS + 1), n * (11 * BD + 1)))
+    return out
+
+
+def _sde_cubic_work(B, D, H, tab_name, ns):
+    """``_sde_work`` for the cubic pair: the MLP pair's operations plus the
+    cube (two products an element) of each drift evaluation; K10 three times
+    the forward."""
+    from regneuralde_tpu_torch.ops.sri import analyze, get_tableau
+
+    fwd, _, leaf = _sde_work(B, D, H, tab_name, ns)
+    fwd += ns * analyze(get_tableau(tab_name)).n_drift_evals * 2 * B * D
+    return fwd, 3 * fwd, leaf
+
+
+def _toy_inputs(device, S, gen, diffusion_scale=1.0):
+    """Cubic-pair leaves (drift 2 -> 50 -> 2 after the cube, diffusion 2 ->
+    2, LeCun's scale times diffusion_scale), 100 states near the toy's u0 =
+    [2, 0] and S rows of draws, from ``gen``."""
+    import torch
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen) * scale).to(device)
+
+    B, D, H = 100, 2, 50
+    leaves = [rnd(H, D, scale=D ** -0.5), rnd(H, scale=0.1), rnd(D, H, scale=H ** -0.5),
+              rnd(D, scale=0.1), rnd(D, D, scale=diffusion_scale * D ** -0.5),
+              rnd(D, scale=0.1)]
+    y0 = rnd(B, D, scale=0.5) + torch.tensor([[1.5, 0.0]], device=device)
+    xi = tuple(rnd(S, B, D) for _ in range(2))
+    return leaves, y0, xi
+
+
+def phase_sde_cubic_kernels(device):
+    """K9/K10 with the cubic tile body against their plain versions at the
+    toy's width (100 x 2, drift 2 -> 50 -> 2 after the cube, diffusion 2 ->
+    2, SOSRI, 30 saves) on seeded weights, states and draws, at
+    rtol=atol=3e-1 (the toy's) and TOY_TIGHT_TOL (with rejections): the
+    same accept sequence, NFE and save cursors; y1 and ys within
+    NSDE_FWD_BOUND; every stored trial step teacher-forced: the plain trial
+    step from K9's stored start row takes K9's accept decision, its sums
+    within NSDE_FWD_BOUND and its rows within NSDE_FWD_BOUND of K9's next
+    row; K10 seeded with the cotangents of y1 and ys (BWD_BOUND) and with
+    the telemetry's too (TEL_BWD_BOUND), and within 3 times the float32
+    plain version's distance from a float64 walk, plus 1e-5; both bitwise
+    deterministic; CUDA-event times at both tolerances and the kernels'
+    device time from the profiler."""
+    import numpy as np
+    import torch
+
+    from regneuralde_tpu_torch.ops import sde as sde_ops
+    from regneuralde_tpu_torch.ops import sde_whole_solve as sw
+    from regneuralde_tpu_torch.ops.controller import PIController
+    from regneuralde_tpu_torch.ops.sri import analyze, get_tableau
+    from regneuralde_tpu_torch.training import sde_toy as st
+
+    S = st.MAX_STEPS
+    # twice LeCun's diffusion, so the tight solve rejects (6 of its 55
+    # trial steps)
+    leaves, y0, xi = _toy_inputs(device, S, torch.Generator().manual_seed(SEED + 47), 2.0)
+    B, D, H = 100, 2, 50
+    tab, ctrl = get_tableau("sosri"), PIController(beta1=0.5, beta2=0.0)
+    per_trial = analyze(tab).n_drift_evals
+    t0, t1 = torch.tensor(0.0, device=device), torch.tensor(1.0, device=device)
+    dt0 = torch.tensor(0.01, device=device)
+    sa = torch.tensor(np.linspace(0.0, 1.0, 30).astype(np.float32), device=device)
+    sat, ys_init = sde_ops.save_rows_at_start(sa, t0, y0)
+    kw = dict(n_drift=2, solver="sosri", saveat=sat, ys_init=ys_init, body="cubic")
+    out, times = {}, {}
+    for tol in (st.TOL, TOY_TIGHT_TOL):
+        tag = f"sde-cubic tol={tol:g}"
+        args = (t0, t1, dt0, y0, leaves, tol, tol, ctrl, S, *xi)
+        rk = sw.sde_whole_solve_fwd(*args, **kw)
+        rp = sw.plain_sde_whole_solve_fwd(*args, **kw)
+        torch.cuda.synchronize()
+        ck, cp = rk.final[3:].tolist(), rp.final[3:].tolist()
+        ns = int(ck[0] + ck[1])
+        errs = {"y1": _rel(rk.y1, rp.y1), "ys": _rel(rk.ys, rp.ys)}
+        print(f"[{tag}] (naccept, nreject, done) kernel={ck} plain={cp}; NFE kernel="
+              f"{per_trial * ns} plain={per_trial * int(cp[0] + cp[1])}; cursors kernel="
+              f"{rk.cursors.tolist()} plain={rp.cursors.tolist()}; rel err {json.dumps(errs)}")
+        _check(ck == cp and ck[2] == 1.0, f"{tag}: K9 takes the plain version's steps to t1")
+        _check(torch.equal(rk.streams[sw.ST_ACC], rp.streams[sw.ST_ACC]),
+               f"{tag}: the same accept sequence")
+        _check(torch.equal(rk.cursors, rp.cursors), f"{tag}: the same save cursors")
+        _check(all(v <= NSDE_FWD_BOUND for v in errs.values()), f"{tag}: K9 y1, ys {errs}")
+        if tol == TOY_TIGHT_TOL:
+            _check(ck[1] > 0, f"{tag}: the tight solve has rejections")
+        # every stored trial step, teacher-forced from K9's own start row
+        st_ = rk.streams
+        worst = {"sums": 0.0, "rows": 0.0}
+        for i in range(ns):
+            t_i, dt_i, q_i, h_i = st_[sw.ST_T, i], st_[sw.ST_DT, i], st_[sw.ST_QOLD, i], st_[
+                sw.ST_H, i]
+            o = sw.plain_sde_trial_step(tab, ctrl, tol, tol, t_i, dt_i, q_i, h_i, rk.hy[i],
+                                        rk.hw[i], rk.hz[i], xi[0][i], xi[1][i], t1, t1 - t0,
+                                        leaves, 2, body="cubic")
+            _check(bool(o.accept) == bool(st_[sw.ST_ACC, i] > 0.5),
+                   f"{tag}: step {i} takes K9's decision")
+            worst["sums"] = max(worst["sums"], max(
+                abs(a.item() - b.item()) / max(abs(b.item()), 1e-30)
+                for a, b in zip(st_[sw.ST_E:sw.ST_D + 1, i], o.sums)))
+            worst["rows"] = max(worst["rows"], _rel(rk.hy[i + 1], o.y),
+                                _rel(rk.hw[i + 1], o.tail.w), _rel(rk.hz[i + 1], o.tail.z))
+        print(f"[{tag}] teacher-forced, worst rel err over {ns} trial steps: "
+              + json.dumps(worst))
+        _check(all(v <= NSDE_FWD_BOUND for v in worst.values()),
+               f"{tag}: the stored trial steps {worst}")
+        abs_f = max((a - b).abs().max().item() for a, b in ((rk.y1, rp.y1), (rk.ys, rp.ys)))
+
+        gen = torch.Generator().manual_seed(SEED + 48)
+        ct_y1 = torch.randn(B, D, generator=gen).to(device)
+        ct_tel = (0.1 * torch.randn(4, S, generator=gen)).to(device)
+        ct_ys = torch.randn(len(sa), B, D, generator=gen).to(device)
+        d = lambda x: x.double()
+        rec64 = sw.SDERecord(*map(d, rk))
+        bkw = dict(n_drift=2, solver="sosri", saveat=sat, body="cubic")
+        bkw64 = dict(bkw, saveat=d(sat))
+        names = ["ct_t0|ct_t1|ct_dt0", "ct_y0", "ct_ys_init"] + [f"c_leaf{j}" for j in range(6)]
+        groups = lambda g: [torch.stack(g[:3]), g[3], g[4]] + list(g[5:])
+        for seeds, bound in (("rows", BWD_BOUND), ("rows+telemetry", TEL_BWD_BOUND)):
+            tel = ct_tel if seeds.endswith("telemetry") else torch.zeros_like(ct_tel)
+            bargs = (ns, ct_y1, tel, t0, t1, leaves, tol, tol, ctrl, *xi)
+            gk = sw.sde_whole_solve_bwd(rk, *bargs, ct_ys=ct_ys, **bkw)
+            gp = sw.plain_sde_whole_solve_bwd(rk, *bargs, ct_ys=ct_ys, **bkw)
+            g64 = sw.plain_sde_whole_solve_bwd(
+                rec64, ns, d(ct_y1), d(tel), d(t0), d(t1), [d(x) for x in leaves], tol, tol,
+                ctrl, d(xi[0]), d(xi[1]), ct_ys=d(ct_ys), **bkw64)
+            torch.cuda.synchronize()
+            e = {n: (_rel(a, b), _rel(a, c), _rel(b, c))
+                 for n, a, b, c in zip(names, groups(gk), groups(gp), groups(g64))}
+            print(f"[{tag}] K10 cotangents of {seeds}: rel err (kernel vs plain, kernel vs "
+                  "float64, plain vs float64) " + json.dumps(e))
+            for n, (k_p, k_64, p_64) in e.items():
+                _check(k_p == k_p and k_64 == k_64, f"{tag} K10 {n}: no NaN")
+                _check(k_p <= bound, f"{tag} K10 {n} of {seeds}: {e[n]}")
+                _check(k_64 <= 3 * p_64 + 1e-5, f"{tag} K10 {n} of {seeds}: {e[n]}")
+            if seeds == "rows":
+                abs_b = max((a - b).abs().max().item() for a, b in zip(gk[3:], gp[3:]))
+            else:
+                bwd_args = bargs
+        again = sw.sde_whole_solve_bwd(rk, *bwd_args, ct_ys=ct_ys, **bkw)
+        rk2 = sw.sde_whole_solve_fwd(*args, **kw)
+        _check(all(torch.equal(a, b) for a, b in zip(gk, again)), f"{tag}: K10 is deterministic")
+        _check(all(torch.equal(getattr(rk, n), getattr(rk2, n))
+                   for n in ("y1", "streams", "final", "ys", "cursors"))
+               and all(torch.equal(getattr(rk, n)[:ns + 1], getattr(rk2, n)[:ns + 1])
+                       for n in ("hy", "hw", "hz")), f"{tag}: K9 is deterministic")
+        print(f"[{tag}] max abs err: K9 (y1, ys) {abs_f!r}, K10 (row cotangents) {abs_b!r}")
+        times[tol] = {
+            "fwd_kernel": _time_ms(lambda: sw.sde_whole_solve_fwd(*args, **kw)),
+            "fwd_plain": _time_ms(lambda: sw.plain_sde_whole_solve_fwd(*args, **kw)),
+            "bwd_kernel": _time_ms(lambda: sw.sde_whole_solve_bwd(rk, *bwd_args, ct_ys=ct_ys,
+                                                                  **bkw)),
+            "bwd_plain": _time_ms(lambda: sw.plain_sde_whole_solve_bwd(rk, *bwd_args,
+                                                                       ct_ys=ct_ys, **bkw)),
+        }
+        times[tol].update(
+            fwd_kernel_device=_device_ms(lambda: sw.sde_whole_solve_fwd(*args, **kw),
+                                         "sde_whole_solve_fwd_kernel"),
+            bwd_kernel_device=_device_ms(lambda: sw.sde_whole_solve_bwd(
+                rk, *bwd_args, ct_ys=ct_ys, **bkw), "sde_whole_solve_bwd_kernel"))
+        print("[%s] median ms over %d runs at %dx%dx%d, %d trial steps, %d saves (the "
+              "kernels' device time from the profiler as *_device): %s"
+              % (tag, REPS, B, D, H, ns, len(sa), json.dumps(times[tol])))
+        if tol == st.TOL:
+            f_ops, b_ops, leaf = _sde_cubic_work(B, D, H, "sosri", ns)
+            nbytes = _sde_bytes(B * D, leaf, ns, len(sa), S)
+            out = {
+                "sde_whole_solve_cubic_fwd": dict(
+                    replaces="regneuralde_tpu/ops/pallas_sde.py:227",
+                    max_abs_err=abs_f, ms=times[tol]["fwd_kernel"],
+                    plain_ms=times[tol]["fwd_plain"], **_bound(nbytes[0], f_ops)),
+                "sde_whole_solve_cubic_bwd": dict(
+                    replaces="regneuralde_tpu/ops/pallas_sde.py:370",
+                    max_abs_err=abs_b, ms=times[tol]["bwd_kernel"],
+                    plain_ms=times[tol]["bwd_plain"], **_bound(nbytes[1], b_ops)),
+            }
+    return out
+
+
+def toy_noise(i, device):
+    """The draws of toy training step ``i``: one pair of (256, 100, 2)
+    buffers from a generator on the card, shared by both routes."""
+    import torch
+
+    from regneuralde_tpu_torch.ops.sde import presample_noise
+    from regneuralde_tpu_torch.training import sde_toy as st
+
+    gen = torch.Generator(device=device).manual_seed(SEED + 51 + i)
+    return presample_noise(gen, (st.TRAJECTORIES, 2), st.MAX_STEPS, device=device)
+
+
+def phase_sde_toy_slice(device, steps=3):
+    """Three training steps of the toy 2-D SDE fit at its published
+    configuration (``training.sde_toy``: 100 trajectories from [2, 0], 30
+    saves, SOSRI at rtol=atol=3e-1, max_steps 256, the moments' loss + 0.2 *
+    error_estimate(sum), AdaBelief(0.01)) on ``fused=False`` (``sdeint``,
+    the experiment's route) and on ``fused=True`` (K9/K10 with the cubic
+    body), from the same weights (``torch.Generator(SEED)``) on the same
+    draws. Each route's run is its main path, its counts set to 0 just
+    before: on ``True`` one cubic K9 and one cubic K10 launch a step and no
+    other kernel, on ``False`` none. Step by step: the same NFE and
+    accepts, the loss within 1e-5 and the gradient within GRAD_BOUND
+    (relative), ``success``. Returns the launch counts of the ``True`` run
+    and the ms a step of both."""
+    import torch
+
+    from regneuralde_tpu_torch.data import make_sde_demo
+    from regneuralde_tpu_torch.training import (
+        create_train_state,
+        make_train_step,
+        sde_toy_optimizer,
+    )
+    from regneuralde_tpu_torch.training import sde_toy as st
+
+    means, vars_, tsteps, source = make_sde_demo(seed=0)
+    print(f"[sde-toy] ground truth: {source}")
+    means, vars_ = torch.from_numpy(means).to(device), torch.from_numpy(vars_).to(device)
+    u0 = st.sde_toy_u0(device=device)
+    noises = [toy_noise(i, device) for i in range(steps)]
+    counters = _counters()
+    runs, walls, main_launches = {}, {}, None
+    for fused in (False, True):
+        model = st.build_sde_toy(tsteps, fused, device=device,
+                                 generator=torch.Generator().manual_seed(SEED))
+        optimizer = sde_toy_optimizer()
+        state = create_train_state(model, optimizer)
+        step = make_train_step(st.sde_toy_loss, optimizer)
+        before = [p.detach().clone() for p in model.parameters()]
+        torch.cuda.synchronize()
+        for mod in counters:  # count only this path's launches
+            mod.reset_launches()
+        runs[fused], walls[fused] = [], []
+        for i, noise in enumerate(noises):
+            start = time.perf_counter()
+            state, loss, out = step(state, u0, means, vars_, noise)
+            torch.cuda.synchronize()
+            walls[fused].append((time.perf_counter() - start) * 1e3)
+            tel = out.telemetry
+            nlive = int(tel.live.sum().item())
+            launches = {k: v for mod in counters for k, v in mod.LAUNCHES.items()}
+            runs[fused].append(dict(
+                loss=loss.item(), nfe=(out.nfe1, out.nfe2), success=out.solution.stats.success,
+                accepted=tel.accepted[tel.live].tolist(),
+                grad=torch.cat([p.grad.flatten() for p in model.parameters()])))
+            print(f"[sde-toy] fused={fused} step {i}: loss={loss.item()!r} nfe1={out.nfe1} "
+                  f"nfe2={out.nfe2} naccept={sum(runs[fused][-1]['accepted'])} "
+                  f"nreject={nlive - sum(runs[fused][-1]['accepted'])} "
+                  f"success={out.solution.stats.success} ms={walls[fused][-1]!r} "
+                  f"launches={json.dumps(launches)}")
+            _check(torch.isfinite(loss).item(), f"finite loss, got {loss.item()}")
+            _check(out.solution.stats.success, f"the solve reached t1 within {st.MAX_STEPS}")
+            _check(tuple(out.value.shape) == (st.TRAJECTORIES, len(tsteps), 2)
+                   and torch.isfinite(out.value).all().item(), "finite (100, 30, 2) saves")
+            want = {k: 0 for k in launches}
+            if fused:
+                want.update(sde_whole_solve_cubic_fwd=i + 1, sde_whole_solve_cubic_bwd=i + 1)
+            _check(launches == want, f"toy fused={fused} launches after step {i}: {launches}, "
+                   f"expected {want}")
+        if fused:
+            main_launches = launches
+        moved = max((p.detach() - b).abs().max().item()
+                    for p, b in zip(model.parameters(), before))
+        _check(moved > 0.0, f"fused={fused}: the parameters moved")
+    for i, (k, p) in enumerate(zip(runs[True], runs[False])):
+        g_err = _rel(k["grad"], p["grad"])
+        l_err = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+        print(f"[sde-toy] step {i}: nfe kernel={k['nfe']} plain={p['nfe']} loss rel err="
+              f"{l_err:.3e} grad rel err={g_err:.3e} (bound {GRAD_BOUND:g})")
+        _check(k["nfe"] == p["nfe"], f"step {i}: NFE kernel {k['nfe']} plain {p['nfe']}")
+        _check(k["accepted"] == p["accepted"], f"step {i}: the same accept sequence")
+        _check(l_err <= 1e-5, f"step {i}: loss rel err {l_err}")
+        _check(g_err <= GRAD_BOUND, f"step {i}: gradient rel err {g_err}")
+    print(f"[sde-toy] ms a step: fused=True {walls[True]}, fused=False {walls[False]}")
+    return main_launches, walls
+
+
 def main():
     import torch
 
@@ -2486,6 +2895,20 @@ def main():
     launches.update({k: tup[k] for k in ("mlp_tsit5_fwd", "mlp_tsit5_bwd")})
     print(f"[phase 27] wall {time.perf_counter() - start:.1f} s")
 
+    start = time.perf_counter()
+    spike = phase_spike_main(device)
+    launches.update(spike_wholesolve=spike["spike_wholesolve"])
+    kernels.update(phase_spike_kernels(device))
+    print(f"[phase 28] wall {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    kernels.update(phase_sde_cubic_kernels(device))
+    print(f"[phase 29] wall {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    toy, _ = phase_sde_toy_slice(device)
+    launches.update({k: toy[k] for k in ("sde_whole_solve_cubic_fwd",
+                                         "sde_whole_solve_cubic_bwd")})
+    print(f"[phase 30] wall {time.perf_counter() - start:.1f} s")
+
     sources = {"normed_tsit5_fwd": "normed_tsit5.cu", "normed_tsit5_bwd": "normed_tsit5.cu",
                "altmlp_tsit5_fwd": "altmlp_tsit5.cu", "altmlp_tsit5_bwd": "altmlp_tsit5.cu",
                "csl_tsit5_fwd": "csl_tsit5.cu", "csl_tsit5_bwd": "csl_tsit5.cu",
@@ -2493,7 +2916,10 @@ def main():
                "sde_whole_solve_bwd": "sde_whole_solve.cu",
                "mlp_lanes_tsit5_fwd": "mlp_lanes_tsit5.cu",
                "mlp_lanes_tsit5_bwd": "mlp_lanes_tsit5.cu",
-               "mlp_tsit5_fwd": "mlp_tsit5.cu", "mlp_tsit5_bwd": "mlp_tsit5.cu"}
+               "mlp_tsit5_fwd": "mlp_tsit5.cu", "mlp_tsit5_bwd": "mlp_tsit5.cu",
+               "spike_wholesolve": "spike_wholesolve.cu",
+               "sde_whole_solve_cubic_fwd": "sde_whole_solve.cu",
+               "sde_whole_solve_cubic_bwd": "sde_whole_solve.cu"}
     record = {"kernels": [
         {"name": name, "route": "cuda",
          "source": "regneuralde_tpu_torch/csrc/" + sources.get(name, "whole_solve.cu"),
@@ -2501,8 +2927,8 @@ def main():
          "max_abs_err": info["max_abs_err"], "ms": info["ms"],
          "plain_ms": info["plain_ms"], "bound_ms": info["bound_ms"],
          "bound_by": info["bound_by"],
-         # no single PyTorch call computes a Tsit5 or SRI trial step or a
-         # whole solve
+         # no single PyTorch call computes a Tsit5 or SRI trial step, a
+         # whole solve or K15's loop
          "library_ms": None}
         for name, info in kernels.items()]}
     print(smi)

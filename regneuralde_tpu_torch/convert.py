@@ -6,7 +6,8 @@ dicts of numpy arrays and returns the ``state_dict`` of the port's model:
 the latent ODE's ``LatentTimeSeriesModel`` (``LatentGRU``, ``MLP``,
 ``AlternatingMLP`` node, ``Dense`` decoder), ``FFJORD`` over
 ``CSLDynamics`` and ``ClassifierNSDE`` (``Dense`` pre-net, ``MLP`` drift and
-diffusion, ``Dense`` post-net). Flax ``Dense`` kernels are ``(in, out)`` and become
+diffusion, ``Dense`` post-net) and the toy SDE's ``NeuralSDE`` (``CubicDrift``
+and a ``Dense`` diffusion). Flax ``Dense`` kernels are ``(in, out)`` and become
 ``nn.Linear`` weights ``(out, in)``; biases carry over as they are, and the
 time row (last row of a flax kernel) becomes the last weight column.
 """
@@ -92,4 +93,20 @@ def classifier_nsde_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Ten
     for net in ("drift", "diffusion"):
         out.update(_dense_tree(params["de"][net]["params"], f"nsde.{net}"))
     out.update(_dense(params["post"]["params"], "post"))
+    return out
+
+
+def sde_toy_state_dict(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """``{"drift", "diffusion"}`` of the JAX ``NeuralSDE`` of
+    ``experiments/sde_toy.py`` (``CubicDrift``'s flax ``Dense_0``/``Dense_1``;
+    the diffusion a bare ``Dense(2)`` or one named ``Dense_0``) ->
+    ``state_dict`` keys ``drift.dense_{0,1}.*`` and ``diffusion.dense_0.*``
+    (the port's ``NeuralSDE(CubicDrift(), MLP(2, (2,)))``)."""
+    drift = params["drift"]["params"]
+    diffusion = params["diffusion"]["params"]
+    out = {}
+    out.update(_dense(drift["Dense_0"], "drift.dense_0"))
+    out.update(_dense(drift["Dense_1"], "drift.dense_1"))
+    out.update(_dense(diffusion if "kernel" in diffusion else diffusion["Dense_0"],
+                      "diffusion.dense_0"))
     return out

@@ -1,7 +1,9 @@
 // The whole adaptive SRI solve of a diagonal-noise SDE on Hopper: one
 // persistent cooperative kernel for the forward (K9) and one for the
 // reverse walk of its history (K10), generic over the tile body of the
-// drift/diffusion pair (sri_mlp.cuh's MlpPair: the MNIST Neural SDE).
+// drift/diffusion pair: sri_mlp.cuh's MlpPair (the MNIST Neural SDE) and
+// sri_cubic.cuh's CubicPair (the toy 2-D SDE's cubic drift), each with its
+// own pair of extern "C" entry points.
 //
 // Replaces the TPU kernels
 //   K9:  regneuralde_tpu/ops/pallas_sde.py  make_sde_whole_solve.make_fwd_kernel
@@ -58,6 +60,7 @@
 #include <initializer_list>
 
 #include "coop.cuh"
+#include "sri_cubic.cuh"
 #include "sri_mlp.cuh"
 
 namespace cg = cooperative_groups;
@@ -928,9 +931,71 @@ bool pack_pair(const float* const* leaves, const int* widths, int D, MlpPair* pr
   return true;
 }
 
+// The cubic pair's networks are laid out as the MLP pair's.
+bool pack_pair(const float* const* leaves, const int* widths, int D, CubicPair* pr) {
+  MlpPair m;
+  if (!pack_pair(leaves, widths, D, &m)) return false;
+  pr->net[0] = m.net[0];
+  pr->net[1] = m.net[1];
+  return true;
+}
+
 Ctrl make_ctrl(float beta1, float beta2, float qmin, float qmax, float gamma, float qoldinit,
                float qsteady_max) {
   return Ctrl{beta1, beta2, qmin, qmax, gamma, qoldinit, qsteady_max};
+}
+
+// K9 for the tile body Pair (the arguments of regnde_sde_whole_solve_fwd).
+template <class Pair>
+int sde_fwd_entry(const float* scalars, const float* y0, const float* const* leaves,
+                  const int* widths, const float* tab_f, const int* tab_i, const float* xi_w,
+                  const float* xi_z, const float* saveat, int* cursors, float* ys, float* y1,
+                  float* hy, float* hw, float* hz, float* streams, float* final_,
+                  float* partials, int B, int D, int S, int n_save, float rtol, float atol,
+                  const Ctrl& ctrl, void* stream) {
+  SdeFwdArgs<Pair> a{};
+  if (!pack_pair(leaves, widths, D, &a.pair)) return (int)cudaErrorInvalidValue;
+  a.scalars = scalars; a.y0 = y0; a.tab = pack_tab(tab_f, tab_i);
+  a.xi_w = xi_w; a.xi_z = xi_z; a.sa = saveat; a.cursors = cursors; a.ys = ys;
+  a.n_save = n_save; a.y1 = y1; a.hy = hy; a.hw = hw; a.hz = hz; a.streams = streams;
+  a.final_ = final_; a.partials = partials; a.B = B; a.D = D; a.S = S;
+  a.rtol = rtol; a.atol = atol; a.ctrl = ctrl;
+  const size_t smem =
+      sizeof(float) * ((size_t)a.pair.padded_floats() + sde_fwd_tile_floats(a.pair, D));
+  return (int)launch_cooperative((const void*)sde_whole_solve_fwd_kernel<Pair>, &a, smem,
+                                 (B + kSdeRows - 1) / kSdeRows,
+                                 static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// K10 for the tile body Pair, then the sum of its blocks' leaf-cotangent
+// slots in block order (the arguments of regnde_sde_whole_solve_bwd).
+template <class Pair>
+int sde_bwd_entry(const float* scalars, const float* streams, const float* hy,
+                  const float* hw, const float* hz, const float* const* leaves,
+                  const int* widths, const float* tab_f, const int* tab_i, const float* xi_w,
+                  const float* xi_z, const float* saveat, const int* cursors, float* ct_ys,
+                  const float* ct_tel, float* ct_y, float* ct_tw, float* ct_tz, float* out,
+                  float* ct_scalars, float* partials, float* slots, int ns, int B, int D, int S,
+                  int n_save, float rtol, float atol, const Ctrl& ctrl, void* stream) {
+  SdeBwdArgs<Pair> a{};
+  if (!pack_pair(leaves, widths, D, &a.pair)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  a.scalars = scalars; a.streams = streams; a.hy = hy; a.hw = hw; a.hz = hz;
+  a.tab = pack_tab(tab_f, tab_i); a.xi_w = xi_w; a.xi_z = xi_z; a.sa = saveat;
+  a.cursors = cursors; a.ct_ys = ct_ys; a.n_save = n_save; a.ct_tel = ct_tel; a.ct_y = ct_y;
+  a.ct_tw = ct_tw; a.ct_tz = ct_tz; a.ct_scalars = ct_scalars; a.partials = partials;
+  a.slots = slots; a.ns = ns; a.B = B; a.D = D; a.S = S; a.rtol = rtol; a.atol = atol;
+  a.ctrl = ctrl;
+  const size_t smem = sizeof(float) * ((size_t)a.pair.padded_floats() + a.pair.leaf_floats() +
+                                       sde_bwd_tile_floats(a.pair, D));
+  int grid = 0;
+  cudaError_t e = launch_cooperative((const void*)sde_whole_solve_bwd_kernel<Pair>, &a, smem,
+                                     (B + kSdeRows - 1) / kSdeRows, s, &grid);
+  if (e != cudaSuccess) return (int)e;
+  const int width = a.pair.leaf_floats();
+  sum_slots_kernel<<<(width + kThreads - 1) / kThreads, kThreads, 0, s>>>(slots, grid, width,
+                                                                        out);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -956,19 +1021,29 @@ int regnde_sde_whole_solve_fwd(const float* scalars, const float* y0,
                                float rtol, float atol, float beta1, float beta2, float qmin,
                                float qmax, float gamma, float qoldinit, float qsteady_max,
                                void* stream) {
-  SdeFwdArgs<MlpPair> a{};
-  if (!pack_pair(leaves, widths, D, &a.pair)) return (int)cudaErrorInvalidValue;
-  a.scalars = scalars; a.y0 = y0; a.tab = pack_tab(tab_f, tab_i);
-  a.xi_w = xi_w; a.xi_z = xi_z; a.sa = saveat; a.cursors = cursors; a.ys = ys;
-  a.n_save = n_save; a.y1 = y1; a.hy = hy; a.hw = hw; a.hz = hz; a.streams = streams;
-  a.final_ = final_; a.partials = partials; a.B = B; a.D = D; a.S = S;
-  a.rtol = rtol; a.atol = atol;
-  a.ctrl = make_ctrl(beta1, beta2, qmin, qmax, gamma, qoldinit, qsteady_max);
-  const size_t smem =
-      sizeof(float) * ((size_t)a.pair.padded_floats() + sde_fwd_tile_floats(a.pair, D));
-  return (int)launch_cooperative((const void*)sde_whole_solve_fwd_kernel<MlpPair>, &a, smem,
-                                 (B + kSdeRows - 1) / kSdeRows,
-                                 static_cast<cudaStream_t>(stream), nullptr);
+  return sde_fwd_entry<MlpPair>(scalars, y0, leaves, widths, tab_f, tab_i, xi_w, xi_z, saveat,
+                                cursors, ys, y1, hy, hw, hz, streams, final_, partials, B, D, S,
+                                n_save, rtol, atol,
+                                make_ctrl(beta1, beta2, qmin, qmax, gamma, qoldinit,
+                                          qsteady_max),
+                                stream);
+}
+
+// K9 for the cubic pair: the arguments of regnde_sde_whole_solve_fwd, the
+// drift's widths those of its MLP after the cube (D -> ... -> D).
+int regnde_sde_whole_solve_cubic_fwd(
+    const float* scalars, const float* y0, const float* const* leaves, const int* widths,
+    const float* tab_f, const int* tab_i, const float* xi_w, const float* xi_z,
+    const float* saveat, int* cursors, float* ys, float* y1, float* hy, float* hw, float* hz,
+    float* streams, float* final_, float* partials, int B, int D, int S, int n_save, float rtol,
+    float atol, float beta1, float beta2, float qmin, float qmax, float gamma, float qoldinit,
+    float qsteady_max, void* stream) {
+  return sde_fwd_entry<CubicPair>(scalars, y0, leaves, widths, tab_f, tab_i, xi_w, xi_z,
+                                  saveat, cursors, ys, y1, hy, hw, hz, streams, final_,
+                                  partials, B, D, S, n_save, rtol, atol,
+                                  make_ctrl(beta1, beta2, qmin, qmax, gamma, qoldinit,
+                                            qsteady_max),
+                                  stream);
 }
 
 // K10 for the MLP pair, then the sum of its blocks' leaf-cotangent slots in
@@ -988,25 +1063,31 @@ int regnde_sde_whole_solve_bwd(const float* scalars, const float* streams, const
                                int D, int S, int n_save, float rtol, float atol, float beta1,
                                float beta2, float qmin, float qmax, float gamma,
                                float qoldinit, float qsteady_max, void* stream) {
-  SdeBwdArgs<MlpPair> a{};
-  if (!pack_pair(leaves, widths, D, &a.pair)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  a.scalars = scalars; a.streams = streams; a.hy = hy; a.hw = hw; a.hz = hz;
-  a.tab = pack_tab(tab_f, tab_i); a.xi_w = xi_w; a.xi_z = xi_z; a.sa = saveat;
-  a.cursors = cursors; a.ct_ys = ct_ys; a.n_save = n_save; a.ct_tel = ct_tel; a.ct_y = ct_y;
-  a.ct_tw = ct_tw; a.ct_tz = ct_tz; a.ct_scalars = ct_scalars; a.partials = partials;
-  a.slots = slots; a.ns = ns; a.B = B; a.D = D; a.S = S; a.rtol = rtol; a.atol = atol;
-  a.ctrl = make_ctrl(beta1, beta2, qmin, qmax, gamma, qoldinit, qsteady_max);
-  const size_t smem = sizeof(float) * ((size_t)a.pair.padded_floats() + a.pair.leaf_floats() +
-                                       sde_bwd_tile_floats(a.pair, D));
-  int grid = 0;
-  cudaError_t e = launch_cooperative((const void*)sde_whole_solve_bwd_kernel<MlpPair>, &a,
-                                     smem, (B + kSdeRows - 1) / kSdeRows, s, &grid);
-  if (e != cudaSuccess) return (int)e;
-  const int width = a.pair.leaf_floats();
-  sum_slots_kernel<<<(width + kThreads - 1) / kThreads, kThreads, 0, s>>>(slots, grid, width,
-                                                                        out);
-  return (int)cudaGetLastError();
+  return sde_bwd_entry<MlpPair>(scalars, streams, hy, hw, hz, leaves, widths, tab_f, tab_i,
+                                xi_w, xi_z, saveat, cursors, ct_ys, ct_tel, ct_y, ct_tw, ct_tz,
+                                out, ct_scalars, partials, slots, ns, B, D, S, n_save, rtol,
+                                atol,
+                                make_ctrl(beta1, beta2, qmin, qmax, gamma, qoldinit,
+                                          qsteady_max),
+                                stream);
+}
+
+// K10 for the cubic pair: the arguments of regnde_sde_whole_solve_bwd.
+int regnde_sde_whole_solve_cubic_bwd(
+    const float* scalars, const float* streams, const float* hy, const float* hw,
+    const float* hz, const float* const* leaves, const int* widths, const float* tab_f,
+    const int* tab_i, const float* xi_w, const float* xi_z, const float* saveat,
+    const int* cursors, float* ct_ys, const float* ct_tel, float* ct_y, float* ct_tw,
+    float* ct_tz, float* out, float* ct_scalars, float* partials, float* slots, int ns, int B,
+    int D, int S, int n_save, float rtol, float atol, float beta1, float beta2, float qmin,
+    float qmax, float gamma, float qoldinit, float qsteady_max, void* stream) {
+  return sde_bwd_entry<CubicPair>(scalars, streams, hy, hw, hz, leaves, widths, tab_f, tab_i,
+                                  xi_w, xi_z, saveat, cursors, ct_ys, ct_tel, ct_y, ct_tw,
+                                  ct_tz, out, ct_scalars, partials, slots, ns, B, D, S, n_save,
+                                  rtol, atol,
+                                  make_ctrl(beta1, beta2, qmin, qmax, gamma, qoldinit,
+                                            qsteady_max),
+                                  stream);
 }
 
 }  // extern "C"

@@ -1,11 +1,14 @@
-"""MNIST, physionet and MiniBooNE, file-backed when available, synthetic otherwise.
+"""MNIST, physionet, MiniBooNE and the toy SDE's ground truth, file-backed
+when available, synthetic otherwise.
 
-Counterpart of ``load_mnist``, ``load_physionet`` and ``load_miniboone`` in
-``regneuralde_tpu/data/datasets.py``, numpy route only: the files
-(``mnist.npz`` or the IDX files; ``physionet.npz``; ``miniboone.npy``) are searched in
-``data_dir``, ``$REGNDE_DATA_DIR`` and ``./data``; without them a
+Counterpart of ``load_mnist``, ``load_physionet``, ``load_miniboone`` and
+``make_sde_demo`` in ``regneuralde_tpu/data/datasets.py``, numpy route only:
+the files (``mnist.npz`` or the IDX files; ``physionet.npz`` or the
+reference's ``physionet.bson``; ``miniboone.npy``; ``sde_demo.bson``) are
+searched in ``data_dir``, ``$REGNDE_DATA_DIR`` and ``./data``; without them a
 deterministic procedural stand-in with the data's shapes is generated, the
-same arrays as the JAX package's from the same seed.
+same arrays as the JAX package's from the same seed. The BSON files are
+decoded by the port's copy of the BSON.jl codec (``data/bson.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from typing import Optional, Tuple
 
 import numpy as np
 
+from regneuralde_tpu_torch.data.bson import load_bson
 from regneuralde_tpu_torch.data.loader import DataLoader
 
 
@@ -146,8 +150,34 @@ def _synthetic_physionet(n=4096, feats=37, steps=49, seed=0):
     }
 
 
-_PHYSIONET_KEYS = ("observed_data", "observed_mask", "data_to_predict",
-                   "mask_predicted_data", "observed_tp", "tp_to_predict")
+_PHYSIONET_DATA_KEYS = ("observed_data", "observed_mask", "data_to_predict",
+                        "mask_predicted_data")
+_PHYSIONET_TP_KEYS = ("observed_tp", "tp_to_predict")
+_PHYSIONET_KEYS = _PHYSIONET_DATA_KEYS + _PHYSIONET_TP_KEYS
+
+
+def physionet_bundle_from_bson(path) -> dict:
+    """Decode the reference's ``physionet.bson`` (a BSON.jl blob holding a
+    ``data`` dict of six Julia column-major tensors; src/dataset.jl:65-77)
+    into the batch-major layout: data tensors ``(N, steps, feats)``, stamps
+    ``(N, steps)``."""
+    blob = load_bson(path)
+    raw = blob.get("data", blob)
+    missing = [k for k in _PHYSIONET_KEYS if k not in raw]
+    if missing:
+        raise KeyError(f"physionet bundle missing keys {missing}")
+    out = {}
+    for k in _PHYSIONET_DATA_KEYS:
+        arr = np.asarray(raw[k], np.float32)
+        if arr.ndim != 3:
+            raise ValueError(f"{k}: expected (feats, steps, N), got {arr.shape}")
+        out[k] = np.ascontiguousarray(arr.transpose(2, 1, 0))
+    for k in _PHYSIONET_TP_KEYS:
+        arr = np.asarray(raw[k], np.float32)
+        if arr.ndim != 2:
+            raise ValueError(f"{k}: expected (steps, N), got {arr.shape}")
+        out[k] = np.ascontiguousarray(arr.T)
+    return out
 
 
 def load_physionet(batch_size: int, path: Optional[str] = None,
@@ -159,19 +189,17 @@ def load_physionet(batch_size: int, path: Optional[str] = None,
     and dropped partial batches as the JAX package (both loaders shuffle
     and drop the last partial batch, as the reference does).
 
-    Reads the converted ``physionet.npz``; the reference's raw
-    ``physionet.bson`` is not read by the port."""
+    Reads the converted ``physionet.npz`` or the reference's raw
+    ``physionet.bson``."""
     found = _search_file([path] if path else ["physionet.npz", "physionet.bson"], None)
     if path and Path(path).exists():
         found = Path(path)
-    if found is not None and found.suffix == ".bson":
-        raise NotImplementedError(
-            f"{found}: the port reads no BSON (the reference's physionet.bson); "
-            "convert it with tools/convert_physionet.py (ROADMAP.md queue 1 "
-            "item 7, the bson route)")
     if found is not None:
-        with np.load(found) as d:
-            bundle = {k: d[k] for k in d.files}
+        if found.suffix == ".bson":
+            bundle = physionet_bundle_from_bson(found)
+        else:
+            with np.load(found) as d:
+                bundle = {k: d[k] for k in d.files}
         source = str(found)
     else:
         bundle = _synthetic_physionet(seed=seed)
@@ -220,3 +248,48 @@ def load_miniboone(batch_size: int, path: Optional[str] = None,
                        source=source)
     test = DataLoader((data[idx[n_train:]],), batch_size, shuffle=False, source=source)
     return train, test
+
+
+def make_sde_demo(seed: int = 0, datasize: int = 30):
+    """The toy SDE experiment's ground truth: per-timestep means and
+    variances ``(datasize, 2)``, the stamps and the source (reference:
+    experiments/sde_toy_problem.jl:8-15).
+
+    A findable ``sde_demo.bson`` (the reference's blob) is decoded and its
+    truth returned when ``datasize`` is 30; ``seed`` is then unused.
+    Otherwise the truth is regenerated: du = f(u) dt + g(u) dW for a damped
+    cubic drift over 512 trajectories, Euler-Maruyama at dt = 1/300, the
+    same arrays as the JAX package's from the same seed. ``source`` says
+    which path was taken (``"bson:<file>"`` or ``"synthetic"``)."""
+    found = _search_file(["sde_demo.bson"], None)
+    if found is not None and datasize == 30:
+        blob = load_bson(found)
+        if "sde_data" in blob and "sde_data_vars" in blob:
+            means = np.asarray(blob["sde_data"], np.float32).T  # (30, 2)
+            vars_ = np.asarray(blob["sde_data_vars"], np.float32).T
+            tsteps = np.linspace(0.0, 1.0, means.shape[0]).astype(np.float32)
+            return means, vars_, tsteps, f"bson:{found}"
+    rng = np.random.default_rng(seed)
+    tsteps = np.linspace(0.0, 1.0, datasize).astype(np.float32)
+    ntraj = 512
+    u = np.tile(np.array([[2.0, 0.0]], np.float32), (ntraj, 1))
+    true_A = np.array([[-0.1, 2.0], [-2.0, -0.1]], np.float32)
+    dt = 1.0 / 300.0
+    out_means, out_vars = [], []
+    t = 0.0
+    ti = 0
+    for _ in range(301):
+        while ti < datasize and tsteps[ti] <= t + 1e-9:
+            out_means.append(u.mean(0))
+            out_vars.append(u.var(0))
+            ti += 1
+        drift = (u**3) @ true_A.T
+        diff_ = 0.2 * u
+        u = u + dt * drift + np.sqrt(dt) * diff_ * rng.standard_normal(u.shape).astype(np.float32)
+        t += dt
+    while ti < datasize:
+        out_means.append(u.mean(0))
+        out_vars.append(u.var(0))
+        ti += 1
+    return (np.stack(out_means).astype(np.float32), np.stack(out_vars).astype(np.float32),
+            tsteps, "synthetic")

@@ -1,5 +1,5 @@
 """Models: the dynamics, NeuralODE, ClassifierNODE, the latent ODE, FFJORD,
-NeuralSDE and ClassifierNSDE."""
+NeuralSDE (with the toy SDE's CubicDrift) and ClassifierNSDE."""
 
 from regneuralde_tpu_torch.models.basic import (
     MLP,
@@ -17,7 +17,7 @@ from regneuralde_tpu_torch.models.classifiers import (
 )
 from regneuralde_tpu_torch.models.ffjord import FFJORD, FFJORDOutput
 from regneuralde_tpu_torch.models.neural_ode import NeuralDEOutput, NeuralODE
-from regneuralde_tpu_torch.models.neural_sde import NeuralSDE, NeuralSDEOutput
+from regneuralde_tpu_torch.models.neural_sde import CubicDrift, NeuralSDE, NeuralSDEOutput
 from regneuralde_tpu_torch.models.time_series import (
     LatentTimeSeriesModel,
     LatentTimeSeriesOutput,
@@ -25,6 +25,6 @@ from regneuralde_tpu_torch.models.time_series import (
 
 __all__ = ["MLP", "AlternatingMLP", "ClassifierNODE", "ClassifierNODEOutput", "ClassifierNSDE",
            "ClassifierNSDEOutput",
-           "ConcatSquashLinear", "CSLDynamics", "FFJORD", "FFJORDOutput", "LatentGRU",
+           "ConcatSquashLinear", "CubicDrift", "CSLDynamics", "FFJORD", "FFJORDOutput", "LatentGRU",
            "LatentTimeSeriesModel", "LatentTimeSeriesOutput", "MLPDynamics",
            "NeuralDEOutput", "NeuralODE", "NeuralSDE", "NeuralSDEOutput"]

@@ -1,15 +1,17 @@
 """NeuralSDE layer (counterpart of ``regneuralde_tpu/models/neural_sde.py``).
 
 ``du = f(u; p) dt + g(u; p) dW`` with diagonal noise, solved adaptively by
-``ops.sde.sdeint`` (``fused=False``) or, for an ``MLP`` drift and an ``MLP``
-diffusion without time input, by the whole-solve kernels K9/K10
+``ops.sde.sdeint`` (``fused=False``) or by the whole-solve kernels K9/K10
 (``ops.sde_whole_solve``; ``fused=True`` or ``"solve"`` in
-``mode="adjoint"`` with the collapse bridge). ``fused=True`` takes
-``sdeint`` for any other pair, as JAX's ``True`` does when the pair is not
-eligible; ``"solve"`` raises ``ValueError`` there. The Hopper kernels mask a
-ragged row tile and keep the history in global memory, so there is no VMEM
-gate: every batch size of an eligible pair takes the kernels (JAX sends a
-``fused=True`` solve past its VMEM estimate to ``sdeint``).
+``mode="adjoint"`` with the collapse bridge) for the pairs they have a tile
+body for, without time input: an ``MLP`` drift (body ``"mlp"``) or a
+``CubicDrift`` (body ``"cubic"``, the toy 2-D SDE's), with an ``MLP``
+diffusion. JAX's kernels take any pair; for a pair outside those two
+``fused=True`` takes ``sdeint`` and ``"solve"`` raises ``ValueError``. The
+Hopper kernels mask a ragged row tile and keep the history in global
+memory, so there is no VMEM gate: every batch size of an eligible pair
+takes the kernels (JAX sends a ``fused=True`` solve past its VMEM estimate
+to ``sdeint``).
 
 The draws are explicit (the port has no global RNG): ``noise=(xi_w,
 xi_z)``, each ``(max_steps,) + x.shape``, or a ``torch.Generator``
@@ -24,7 +26,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import nn
 
-from regneuralde_tpu_torch.models.basic import MLP
+from regneuralde_tpu_torch.models.basic import MLP, init_linear, place
 from regneuralde_tpu_torch.ops.ode import StepTelemetry
 from regneuralde_tpu_torch.ops.sde import SDESolution, sdeint
 from regneuralde_tpu_torch.ops.sde_whole_solve import MAX_LAYERS
@@ -36,6 +38,27 @@ class NeuralSDEOutput(NamedTuple):
     nfe2: int  # diffusion evaluations
     telemetry: StepTelemetry
     solution: SDESolution
+
+
+class CubicDrift(nn.Module):
+    """The toy 2-D SDE's drift (``experiments/sde_toy.py:30-37``): ``x -> x *
+    x * x -> dense_0 (dim -> hidden) -> tanh -> dense_1 (hidden -> dim)``.
+    The cube is two products, as XLA computes ``x**3``."""
+
+    n_layers = 2  # the layers of its MLP: the leaves the SDE kernels take
+
+    def __init__(self, dim: int = 2, hidden: int = 50, *, device="cuda",
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.dim, self.hidden = dim, hidden
+        self.dense_0 = nn.Linear(dim, hidden)
+        self.dense_1 = nn.Linear(hidden, dim)
+        init_linear(self.dense_0, generator)
+        init_linear(self.dense_1, generator)
+        place(self, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.dense_1(torch.tanh(self.dense_0(x * x * x)))
 
 
 def _kernel_mlp(m: nn.Module, width: int) -> bool:
@@ -105,13 +128,19 @@ class NeuralSDE(nn.Module):
     def _diffusion(self, t, y, leaves):
         return self._call(1, t, y, leaves)
 
-    def kernel_eligible(self, x: torch.Tensor) -> bool:
-        """Whether the whole-solve kernels run this pair on ``x``: MLPs
-        (``_kernel_mlp``) without time input, a 2-D float32 state."""
+    def kernel_body(self, x: torch.Tensor) -> Optional[str]:
+        """The whole-solve kernels' tile body for this pair on ``x``
+        (``"mlp"`` or ``"cubic"``), or None: no time input, a 2-D float32
+        state, an MLP diffusion (``_kernel_mlp``) and an MLP or
+        ``CubicDrift`` drift, from and to the state's width."""
         width = x.shape[-1]
-        return (not self.time_dep and x.dim() == 2 and x.dtype == torch.float32
-                and _kernel_mlp(self.drift, width) and _kernel_mlp(self.diffusion, width)
-                and all(p.dtype == torch.float32 for p in self.parameters()))
+        if (self.time_dep or x.dim() != 2 or x.dtype != torch.float32
+                or not _kernel_mlp(self.diffusion, width)
+                or any(p.dtype != torch.float32 for p in self.parameters())):
+            return None
+        if isinstance(self.drift, CubicDrift) and self.drift.dim == width:
+            return "cubic"
+        return "mlp" if _kernel_mlp(self.drift, width) else None
 
     def forward(self, x: torch.Tensor, *, noise=None, generator: Optional[torch.Generator] = None,
                 tspan: Optional[Tuple] = None, saveat=None, mode: str = "adjoint",
@@ -124,14 +153,16 @@ class NeuralSDE(nn.Module):
                   atol=self.atol, max_steps=self.max_steps, saveat=saveat)
         sol = None
         if self.fused and mode == "adjoint" and self.solver != "em" and brownian == "collapse":
-            eligible = self.kernel_eligible(x)
-            if self.fused == "solve" and not eligible:
-                raise ValueError("fused='solve' needs a 2-D float32 state and an MLP drift and "
-                                 "diffusion (tanh between layers, linear out, no time input)")
-            if eligible:
+            body = self.kernel_body(x)
+            if self.fused == "solve" and body is None:
+                raise ValueError("fused='solve' needs a 2-D float32 state, an MLP or CubicDrift "
+                                 "drift and an MLP diffusion (tanh between layers, linear out, "
+                                 "no time input)")
+            if body is not None:
                 from regneuralde_tpu_torch.ops.sde_whole_solve import whole_solve_sdeint
 
-                sol = whole_solve_sdeint(x, t0, t1, leaves, n_drift=self.drift.n_layers, **kw)
+                sol = whole_solve_sdeint(x, t0, t1, leaves, n_drift=self.drift.n_layers,
+                                         body=body, **kw)
         if sol is None:
             sol = sdeint(self._drift, self._diffusion, x, t0, t1, leaves, mode=mode,
                          brownian=brownian, **kw)

@@ -49,16 +49,19 @@ _SIGNATURES = {
     "regnde_sde_rows": [],
     "regnde_sde_whole_solve_fwd": [_P] * 18 + [_I] * 4 + [_F] * 9 + [_P],
     "regnde_sde_whole_solve_bwd": [_P] * 22 + [_I] * 5 + [_F] * 9 + [_P],
+    "regnde_sde_whole_solve_cubic_fwd": [_P] * 18 + [_I] * 4 + [_F] * 9 + [_P],
+    "regnde_sde_whole_solve_cubic_bwd": [_P] * 22 + [_I] * 5 + [_F] * 9 + [_P],
     "regnde_lanes_fwd": [_P] * 13 + [_I] * 3 + [_P],
     "regnde_lanes_bwd": [_P] * 25 + [_I] * 3 + [_P],
     "regnde_mlp_tsit5_fwd": [_P] * 13 + [_I] * 3 + [_P],
     "regnde_mlp_tsit5_bwd": [_P] * 25 + [_I] * 3 + [_P],
+    "regnde_spike_wholesolve": [_F] + [_P] * 5 + [_I] * 2 + [_P],
 }
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
           "-Xcompiler", "-fPIC"]
-# Per-source flags: the SDE whole solve rounds each multiply and add of its
-# step's algebra on its own, as the plain version's separate ATen ops do.
-_SOURCE_FLAGS = {"sde_whole_solve.cu": ["-fmad=false"]}
+# Per-source flags: the SDE whole solve and K15 round each multiply and add
+# of their algebra on its own, as the plain versions' separate ATen ops do.
+_SOURCE_FLAGS = {"sde_whole_solve.cu": ["-fmad=false"], "spike_wholesolve.cu": ["-fmad=false"]}
 
 
 def _nvcc() -> str:

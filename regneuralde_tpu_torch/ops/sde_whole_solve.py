@@ -1,11 +1,17 @@
 """The whole adaptive SRI solve: one kernel per direction (K9/K10).
 
 Counterpart of ``regneuralde_tpu/ops/pallas_sde.py``: ``whole_solve_sdeint``
-runs the whole adaptive SDE solve of an MLP drift and an MLP diffusion
-(``models.MLP``, tanh between layers, linear out, no time input; the MNIST
-Neural SDE's pair) in one forward launch (K9, ``sde_whole_solve_fwd_kernel``
-in ``csrc/sde_whole_solve.cu``) and one backward launch (K10, the reverse
-walk of K9's history). The tile body is ``csrc/sri_mlp.cuh``'s ``MlpPair``.
+runs the whole adaptive SDE solve of a drift/diffusion pair in one forward
+launch (K9, ``sde_whole_solve_fwd_kernel`` in ``csrc/sde_whole_solve.cu``)
+and one backward launch (K10, the reverse walk of K9's history). Two pairs,
+the kernels' tile bodies, chosen by ``body``:
+
+- ``"mlp"``: an MLP drift and an MLP diffusion (``models.MLP``, tanh between
+  layers, linear out, no time input; the MNIST Neural SDE's pair),
+  ``csrc/sri_mlp.cuh``'s ``MlpPair``;
+- ``"cubic"``: the drift's MLP applied to ``x * x * x`` (``models.
+  CubicDrift``, the toy 2-D SDE's ``x -> x^3 -> 50 tanh -> 2``) and an MLP
+  diffusion, ``csrc/sri_cubic.cuh``'s ``CubicPair``.
 
 The forward's record (``SDERecord``) is what the backward reads: per trial
 step its start ``t, dt, qold, tail_h``, the three sums of squares (scaled
@@ -18,8 +24,8 @@ recomputes each step's stages from its rows and draws for the row pullback
 
 Each kernel has a plain version with the same algebra and the same output
 buffers: ``plain_sde_whole_solve_fwd`` (``ops.sde``'s trial step over the
-MLP pair, the affine maps summed in float64 and rounded once, as the
-kernels do) and ``plain_sde_whole_solve_bwd`` (its reverse walk through
+pair, the affine maps summed in float64 and rounded once, as the kernels
+do) and ``plain_sde_whole_solve_bwd`` (its reverse walk through
 ``_sde_step_bwd_math``, the hand pullback of one trial step). The wrappers
 take the plain versions for CPU tensors, launch the kernels for CUDA
 tensors and raise otherwise. ``saveat`` must be sorted: the kernels consume
@@ -44,9 +50,12 @@ from regneuralde_tpu_torch.ops.sri import SRITableau, analyze, eigen_stages, get
 from regneuralde_tpu_torch.ops.whole_solve import _check_tensor, _ctrl_args, _rows_through
 from regneuralde_tpu_torch.ops.whole_solve import _opt_ptr as _ptr
 
-LAUNCHES = {"sde_whole_solve_fwd": 0, "sde_whole_solve_bwd": 0}
+# launches of K9 and K10 by tile body: the MLP pair's, then the cubic pair's
+LAUNCHES = {"sde_whole_solve_fwd": 0, "sde_whole_solve_bwd": 0,
+            "sde_whole_solve_cubic_fwd": 0, "sde_whole_solve_cubic_bwd": 0}
 
 MAX_LAYERS = 4  # per network of the pair (the kernels' limit)
+BODIES = ("mlp", "cubic")  # the kernels' tile bodies
 
 
 def reset_launches() -> None:
@@ -85,7 +94,7 @@ class SDERecord(NamedTuple):
 
 
 # ---------------------------------------------------------------------------
-# The MLP pair.
+# The pairs: MLP drift (or MLP on the cube of the state) and MLP diffusion.
 # ---------------------------------------------------------------------------
 
 
@@ -108,10 +117,22 @@ def split_pair(leaves, n_drift):
     return pairs[:n_drift], pairs[n_drift:]
 
 
-def pair_functions(n_drift):
+def _cube(x):
+    """``x * x * x``: two products, as XLA's ``integer_pow`` computes ``x**3``."""
+    return x * x * x
+
+
+def _check_body(body):
+    if body not in BODIES:
+        raise ValueError(f"body must be one of {BODIES}, got {body!r}")
+
+
+def pair_functions(n_drift, body="mlp"):
     """``(drift, diffusion)`` callables ``f(t, y, leaves)`` over the flat
-    leaves."""
-    return (lambda t, y, lv: mlp_apply(y, split_pair(lv, n_drift)[0]),
+    leaves; with ``body="cubic"`` the drift's MLP takes ``y * y * y``."""
+    _check_body(body)
+    pre = _cube if body == "cubic" else (lambda y: y)
+    return (lambda t, y, lv: mlp_apply(pre(y), split_pair(lv, n_drift)[0]),
             lambda t, y, lv: mlp_apply(y, split_pair(lv, n_drift)[1]))
 
 
@@ -121,11 +142,11 @@ def pair_functions(n_drift):
 
 
 def plain_sde_trial_step(tab, ctrl, rtol, atol, t, dt, qold, tail_h, y, tail_w, tail_z,
-                         xi_w, xi_z, t1, span, leaves, n_drift) -> sde_ops.StepOut:
-    """One SRI trial step over the MLP pair (``ops.sde.make_step``, without
+                         xi_w, xi_z, t1, span, leaves, n_drift, body="mlp") -> sde_ops.StepOut:
+    """One SRI trial step over the pair (``ops.sde.make_step``, without
     ``saveat``): the trial step of JAX's ``pallas_sde.trial_step`` on
     tensors. The controller's step is clamped as ``min(dt_next, span)``."""
-    drift, diffusion = pair_functions(n_drift)
+    drift, diffusion = pair_functions(n_drift, body)
     step = sde_ops.make_step(tab, drift, diffusion, ctrl, rtol, atol,
                              torch.promote_types(y.dtype, torch.float32))
     return step(t, dt, qold, y, sde_ops.Tail(tail_h, tail_w, tail_z), None, t1, span, None,
@@ -248,9 +269,22 @@ def _mlp_bwd(acts, layers, c_out, c_layers):
     return g
 
 
+def _drift_fwd(x, layers, body):
+    """The drift's activations (``_mlp_fwd``'s), the cubic body's MLP on
+    ``x * x * x``."""
+    return _mlp_fwd(_cube(x) if body == "cubic" else x, layers)
+
+
+def _drift_bwd(x, acts, layers, c_out, c_layers, body):
+    """Pullback of ``_drift_fwd``: the cubic body's input cotangent is
+    ``g * (3 * (x * x))``, JAX's ``integer_pow`` rule."""
+    g = _mlp_bwd(acts, layers, c_out, c_layers)
+    return g * (3.0 * (x * x)) if body == "cubic" else g
+
+
 def _sde_rows_bwd(tab, rtol, atol, dt_eff, br: sde_ops.Bridge, accept, y, tw, tz, xw, xz, layers_f,
                   layers_g, g_e, g_n, g_d, c_yout, c_two, c_tzo, c_y_save=None,
-                  c_ynew_save=None):
+                  c_ynew_save=None, body="mlp"):
     """The row part of one trial step's pullback (K10's tile body):
     recomputes the bridge's increments, the Itô coefficients and the SRI
     stages, and pulls back the outputs ``y_out, tail_w_out, tail_z_out``
@@ -282,7 +316,7 @@ def _sde_rows_bwd(tab, rtol, atol, dt_eff, br: sde_ops.Bridge, accept, y, tw, tz
                         h0 = h0 + (tab.A0[i][j] * dt_eff) * fs[j]
                     if tab.B0[i][j] != 0.0:
                         h0 = h0 + (tab.B0[i][j] * i10) * gs[j]
-                acts_f[i] = _mlp_fwd(h0, layers_f)
+                acts_f[i] = _drift_fwd(h0, layers_f, body)
                 fs[i], h0s[i] = acts_f[i][-1], h0
         if an.g_used[i]:
             if an.g_alias[i] is not None:
@@ -391,7 +425,7 @@ def _sde_rows_bwd(tab, rtol, atol, dt_eff, br: sde_ops.Bridge, accept, y, tw, tz
                 c_f[k] = c_f[k] + c_f[i]
                 c_h0[k] = c_h0[k] + c_h0[i]
             else:
-                c_x = _mlp_bwd(acts_f[i], layers_f, c_f[i], c_lf) + c_h0[i]
+                c_x = _drift_bwd(h0s[i], acts_f[i], layers_f, c_f[i], c_lf, body) + c_h0[i]
                 ct_y = ct_y + c_x
                 for j in range(i):
                     if tab.A0[i][j] != 0.0:
@@ -416,7 +450,7 @@ def _sde_rows_bwd(tab, rtol, atol, dt_eff, br: sde_ops.Bridge, accept, y, tw, tz
 
 
 def _sde_step_bwd_math(tab, ctrl, rtol, atol, prim, leaves, n_drift, accept, sums, cts,
-                       save=None):
+                       save=None, body="mlp"):
     """Hand pullback of one trial step (``plain_sde_trial_step``): what K10
     computes, in PyTorch. ``prim = (t, dt, qold, tail_h, y, tail_w, tail_z,
     xi_w, xi_z, t1, span)``; ``accept`` and ``sums = (err_ssq, num_ssq,
@@ -441,7 +475,7 @@ def _sde_step_bwd_math(tab, ctrl, rtol, atol, prim, leaves, n_drift, accept, sum
     c_ts, c_dts, c_ys, c_yns = save if save is not None else (0.0, 0.0, None, None)
     ct_y, ct_tw, ct_tz, c_lf, c_lg, (p_dteff, p_sqdt, p_frac, p_std) = _sde_rows_bwd(
         tab, rtol, atol, dt_eff, br, accept, y, tw, tz, xw, xz, layers_f, layers_g, g_e, g_n,
-        g_d, c_yout, c_two, c_tzo, c_ys, c_yns)
+        g_d, c_yout, c_two, c_tzo, c_ys, c_yns, body)
     # tail_h_out = where(accept, where(inside, h - dt_eff, 0), dt_eff)
     zero = torch.zeros_like(h)
     g_h = torch.where(br.inside, c_tho, zero) if accept else zero
@@ -464,11 +498,11 @@ def _sde_step_bwd_math(tab, ctrl, rtol, atol, prim, leaves, n_drift, accept, sum
 
 def plain_sde_whole_solve_fwd(t0, t1, dt0, y0, leaves, rtol, atol, ctrl: PIController,
                               max_steps: int, xi_w, xi_z, *, n_drift: int, solver="sosri",
-                              saveat=None, ys_init=None) -> SDERecord:
-    """Plain version of K9: the trial-step loop of ``ops.sde`` over the MLP
+                              saveat=None, ys_init=None, body="mlp") -> SDERecord:
+    """Plain version of K9: the trial-step loop of ``ops.sde`` over the
     pair, with the linear ``saveat`` writes, recording ``SDERecord``."""
     tab = get_tableau(solver)
-    drift, diffusion = pair_functions(n_drift)
+    drift, diffusion = pair_functions(n_drift, body)
     step = sde_ops.make_step(tab, drift, diffusion, ctrl, rtol, atol,
                              torch.promote_types(y0.dtype, torch.float32))
     S = max_steps
@@ -506,13 +540,14 @@ def plain_sde_whole_solve_fwd(t0, t1, dt0, y0, leaves, rtol, atol, ctrl: PIContr
 
 def plain_sde_whole_solve_bwd(rec: SDERecord, ns: int, ct_y1, ct_tel, t0, t1, leaves, rtol,
                               atol, ctrl: PIController, xi_w, xi_z, *, n_drift: int,
-                              solver="sosri", saveat=None, ct_ys=None):
+                              solver="sosri", saveat=None, ct_ys=None, body="mlp"):
     """Plain version of K10: the reverse walk over ``rec``'s ``ns`` trial
     steps through ``_sde_step_bwd_math``, with the pullback of the linear
     saves (each row's cotangent to the accepted step that wrote it). ``ct_tel``
     is ``(4, S)``, the cotangents of the telemetry streams ``t, dt, eest,
     eigen_est``. Returns ``(ct_t0, ct_t1, ct_dt0, ct_y0, ct_ys_init,
     *ct_leaves)``."""
+    _check_body(body)
     tab = get_tableau(solver)
     span = t1 - t0
     zero = torch.zeros_like(t0)
@@ -549,7 +584,7 @@ def plain_sde_whole_solve_bwd(rec: SDERecord, ns: int, ct_y1, ct_tel, t0, t1, le
                ct_tel[2, i], ct_tel[3, i])
         (ct_t, ct_dt, ct_qold, ct_th, ct_y, ct_tw, ct_tz, d_t1, d_span), d_leaves = (
             _sde_step_bwd_math(tab, ctrl, rtol, atol, prim, leaves, n_drift, acc, (e, n, d),
-                               cts, save))
+                               cts, save, body))
         ct_t1x, ct_spanx = ct_t1x + d_t1, ct_spanx + d_span
         ct_leaves = [a + b for a, b in zip(ct_leaves, d_leaves)]
     return (ct_t - ct_spanx, ct_t1x + ct_spanx, ct_dt, ct_y, ct_ys, *ct_leaves)
@@ -614,8 +649,14 @@ def _check_cuda_args(y, leaves, n_drift, xi_w, xi_z, max_steps):
     return B, D, _pair_widths(leaves, n_drift, D)
 
 
+def _kernel_name(body, direction):
+    """K9's or K10's name for the tile body (``LAUNCHES``' key)."""
+    _check_body(body)
+    return f"sde_whole_solve{'_cubic' if body == 'cubic' else ''}_{direction}"
+
+
 def _cuda_sde_fwd(t0, t1, dt0, y0, leaves, rtol, atol, ctrl, max_steps, xi_w, xi_z, n_drift,
-                  solver, saveat, ys_init):
+                  solver, saveat, ys_init, body):
     from regneuralde_tpu_torch.ops import _cuda
 
     if max_steps < 1:
@@ -643,7 +684,7 @@ def _cuda_sde_fwd(t0, t1, dt0, y0, leaves, rtol, atol, ctrl, max_steps, xi_w, xi
     partials = torch.empty((2, (B + rows - 1) // rows, 3), device=dev)
     save = (_ptr(saveat), _ptr(cursors), _ptr(ys)) if n_save else (None,) * 3
     scalars = torch.stack([_scalar_f32(x, y0) for x in (t0, t1, dt0)])
-    code = lib.regnde_sde_whole_solve_fwd(
+    code = getattr(lib, "regnde_" + _kernel_name(body, "fwd"))(
         _ptr(scalars), _ptr(y0),
         ctypes.cast(_leaf_pointers(leaves), ctypes.c_void_p), ctypes.cast(widths, ctypes.c_void_p),
         ctypes.cast(tab_f, ctypes.c_void_p), ctypes.cast(tab_i, ctypes.c_void_p), _ptr(xi_w),
@@ -651,12 +692,12 @@ def _cuda_sde_fwd(t0, t1, dt0, y0, leaves, rtol, atol, ctrl, max_steps, xi_w, xi
         _ptr(partials), B, D, max_steps, n_save, float(rtol), float(atol), *_ctrl_args(ctrl),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _cuda.check(code, "SDE whole-solve forward kernel")
-    LAUNCHES["sde_whole_solve_fwd"] += 1
+    LAUNCHES[_kernel_name(body, "fwd")] += 1
     return SDERecord(y1, hy, hw, hz, streams, final, ys, cursors)
 
 
 def _cuda_sde_bwd(rec, ns, ct_y1, ct_tel, t0, t1, leaves, rtol, atol, ctrl, xi_w, xi_z,
-                  n_drift, solver, saveat, ct_ys):
+                  n_drift, solver, saveat, ct_ys, body):
     from regneuralde_tpu_torch.ops import _cuda
 
     S = rec.streams.shape[1]
@@ -690,7 +731,7 @@ def _cuda_sde_bwd(rec, ns, ct_y1, ct_tel, t0, t1, leaves, rtol, atol, ctrl, xi_w
     slots = torch.empty((ntiles, n_leaf), device=dev)
     save = (_ptr(saveat), _ptr(rec.cursors), _ptr(ct_ys)) if n_save else (None,) * 3
     scalars = torch.stack([_scalar_f32(x, rec.y1) for x in (t0, t1)])
-    code = lib.regnde_sde_whole_solve_bwd(
+    code = getattr(lib, "regnde_" + _kernel_name(body, "bwd"))(
         _ptr(scalars), _ptr(rec.streams), _ptr(rec.hy), _ptr(rec.hw), _ptr(rec.hz), ctypes.cast(_leaf_pointers(leaves), ctypes.c_void_p),
         ctypes.cast(widths, ctypes.c_void_p), ctypes.cast(tab_f, ctypes.c_void_p),
         ctypes.cast(tab_i, ctypes.c_void_p), _ptr(xi_w), _ptr(xi_z), *save, _ptr(ct_tel),
@@ -698,7 +739,7 @@ def _cuda_sde_bwd(rec, ns, ct_y1, ct_tel, t0, t1, leaves, rtol, atol, ctrl, xi_w
         _ptr(slots), ns, B, D, S, n_save, float(rtol), float(atol), *_ctrl_args(ctrl),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _cuda.check(code, "SDE whole-solve backward kernel")
-    LAUNCHES["sde_whole_solve_bwd"] += 1
+    LAUNCHES[_kernel_name(body, "bwd")] += 1
     ct_leaves, off = [], 0
     for x in leaves:
         ct_leaves.append(out[off:off + x.numel()].view(x.shape))
@@ -708,33 +749,34 @@ def _cuda_sde_bwd(rec, ns, ct_y1, ct_tel, t0, t1, leaves, rtol, atol, ctrl, xi_w
 
 def sde_whole_solve_fwd(t0, t1, dt0, y0, leaves: Sequence[torch.Tensor], rtol, atol,
                         ctrl: PIController, max_steps: int, xi_w, xi_z, *, n_drift: int,
-                        solver="sosri", saveat=None, ys_init=None) -> SDERecord:
-    """K9 or its plain version: the whole forward solve of the MLP pair
+                        solver="sosri", saveat=None, ys_init=None, body="mlp") -> SDERecord:
+    """K9 or its plain version: the whole forward solve of the pair
     (``leaves``: the drift's ``n_drift`` layers' ``(W, b)``, then the
-    diffusion's), writing the ``saveat`` rows over ``ys_init`` (by default
-    ``y0`` at the stamps at or before ``t0``)."""
+    diffusion's; ``body`` as ``BODIES``), writing the ``saveat`` rows over
+    ``ys_init`` (by default ``y0`` at the stamps at or before ``t0``)."""
     if saveat is not None and ys_init is None:
         saveat, ys_init = sde_ops.save_rows_at_start(saveat, t0, y0)
     args = (t0, t1, dt0, y0, tuple(leaves), rtol, atol, ctrl, max_steps, xi_w, xi_z)
     if y0.device.type == "cuda":
-        return _cuda_sde_fwd(*args, n_drift, solver, saveat, ys_init)
+        return _cuda_sde_fwd(*args, n_drift, solver, saveat, ys_init, body)
     if y0.device.type == "cpu":
         return plain_sde_whole_solve_fwd(*args, n_drift=n_drift, solver=solver, saveat=saveat,
-                                         ys_init=ys_init)
+                                         ys_init=ys_init, body=body)
     raise RuntimeError(f"no SDE whole-solve forward for device {y0.device}")
 
 
 def sde_whole_solve_bwd(rec: SDERecord, ns: int, ct_y1, ct_tel, t0, t1,
                         leaves: Sequence[torch.Tensor], rtol, atol, ctrl: PIController, xi_w,
-                        xi_z, *, n_drift: int, solver="sosri", saveat=None, ct_ys=None):
+                        xi_z, *, n_drift: int, solver="sosri", saveat=None, ct_ys=None,
+                        body="mlp"):
     """K10 or its plain version: ``(ct_t0, ct_t1, ct_dt0, ct_y0, ct_ys_init,
     *ct_leaves)``."""
     args = (rec, ns, ct_y1, ct_tel, t0, t1, tuple(leaves), rtol, atol, ctrl, xi_w, xi_z)
     if ct_y1.device.type == "cuda":
-        return _cuda_sde_bwd(*args, n_drift, solver, saveat, ct_ys)
+        return _cuda_sde_bwd(*args, n_drift, solver, saveat, ct_ys, body)
     if ct_y1.device.type == "cpu":
         return plain_sde_whole_solve_bwd(*args, n_drift=n_drift, solver=solver,
-                                         saveat=saveat, ct_ys=ct_ys)
+                                         saveat=saveat, ct_ys=ct_ys, body=body)
     raise RuntimeError(f"no SDE whole-solve backward for device {ct_y1.device}")
 
 
@@ -750,13 +792,13 @@ class SDEWholeSolveFn(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, cfg, saveat, xi_w, xi_z, t0, t1, dt_init, y0, ys_init, *leaves):
-        solver, n_drift, ctrl, max_steps, rtol, atol = cfg
+        solver, n_drift, ctrl, max_steps, rtol, atol, body = cfg
         unsorted = None
         if saveat is not None:
             unsorted = (saveat[1:] < saveat[:-1]).any()
         rec = sde_whole_solve_fwd(t0, t1, dt_init, y0, leaves, rtol, atol, ctrl, max_steps,
                                   xi_w, xi_z, n_drift=n_drift, solver=solver, saveat=saveat,
-                                  ys_init=ys_init if saveat is not None else None)
+                                  ys_init=ys_init if saveat is not None else None, body=body)
         # the one host sync of the solve: the step counts size the backward
         flags = rec.final[3:]
         if unsorted is not None:
@@ -778,7 +820,7 @@ class SDEWholeSolveFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, ct_y1, ct_ys, ct_tel_t, ct_tel_dt, ct_tel_e, ct_tel_g, *_):
         t0, t1, xi_w, xi_z, *leaves = ctx.saved_tensors
-        solver, n_drift, ctrl, max_steps, rtol, atol = ctx.cfg
+        solver, n_drift, ctrl, max_steps, rtol, atol, body = ctx.cfg
         rec = ctx.rec
         S = rec.streams.shape[1]
         ct_tel = torch.stack([rec.streams.new_zeros(S) if c is None else c.to(rec.streams.dtype)
@@ -787,7 +829,7 @@ class SDEWholeSolveFn(torch.autograd.Function):
         ct_ys = torch.zeros_like(rec.ys) if ct_ys is None else ct_ys.contiguous()
         grads = sde_whole_solve_bwd(rec, ctx.ns, ct_y1, ct_tel, t0, t1, leaves, rtol, atol,
                                     ctrl, xi_w, xi_z, n_drift=n_drift, solver=solver,
-                                    saveat=ctx.saveat, ct_ys=ct_ys)
+                                    saveat=ctx.saveat, ct_ys=ct_ys, body=body)
         ctx.rec = None
         ct_t0, ct_t1, ct_dt0 = (g.to(t0.dtype).reshape(t0.shape) for g in grads[:3])
         ct_ys_init = grads[4] if ctx.saveat is not None else None
@@ -798,13 +840,15 @@ def whole_solve_sdeint(y0: torch.Tensor, t0, t1, leaves, *, n_drift: int, noise=
                        generator: Optional[torch.Generator] = None, solver: str = "sosri",
                        rtol: float = 1e-2, atol: float = 1e-2, dt0: Optional[float] = None,
                        max_steps: int = 256, saveat=None,
-                       controller: Optional[PIController] = None) -> sde_ops.SDESolution:
-    """Integrate the MLP pair's SDE (``leaves``: the drift's ``n_drift``
-    layers, then the diffusion's) from ``t0`` to ``t1`` in one forward and
-    one backward launch, with ``ops.sde.sdeint``'s prologue (the draws from
-    ``noise`` or ``generator``, ``dt0 = min(0.01, span)``): the solution,
-    its NFE, telemetry and ``saveat`` rows are those ``sdeint`` returns on
-    the same draws."""
+                       controller: Optional[PIController] = None,
+                       body: str = "mlp") -> sde_ops.SDESolution:
+    """Integrate the pair's SDE (``leaves``: the drift's ``n_drift``
+    layers, then the diffusion's; ``body`` as ``BODIES``) from ``t0`` to
+    ``t1`` in one forward and one backward launch, with ``ops.sde.sdeint``'s
+    prologue (the draws from ``noise`` or ``generator``, ``dt0 = min(0.01,
+    span)``): the solution, its NFE, telemetry and ``saveat`` rows are those
+    ``sdeint`` returns on the same draws."""
+    _check_body(body)
     sde_ops.check_options(solver, "adjoint", "collapse")
     tab = get_tableau(solver)
     ctrl = controller or PIController(beta1=0.5, beta2=0.0)
@@ -817,7 +861,7 @@ def whole_solve_sdeint(y0: torch.Tensor, t0, t1, leaves, *, n_drift: int, noise=
     else:
         ys_init = y0.new_zeros((0,) + tuple(y0.shape))
     (y1, ys, tel_t, tel_dt, tel_e, tel_g, acc, live, counts) = SDEWholeSolveFn.apply(
-        (solver, n_drift, ctrl, max_steps, float(rtol), float(atol)), saveat, xi_w, xi_z, t0,
+        (solver, n_drift, ctrl, max_steps, float(rtol), float(atol), body), saveat, xi_w, xi_z, t0,
         t1, dt_init, y0, ys_init, *leaves)
     naccept, nreject, done = counts.tolist()
     return sde_ops.SDESolution(

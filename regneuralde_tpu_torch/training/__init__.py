@@ -1,4 +1,5 @@
-"""Training harness: train state and an eager train step.
+"""Training harness: train state and an eager train step; the toy SDE fit's
+model and loss (``training.sde_toy``).
 
 Counterpart of ``regneuralde_tpu/training/__init__.py``. The JAX package
 jit-compiles the step; PyTorch runs it eagerly: forward, loss,
@@ -13,6 +14,7 @@ import torch
 from torch import nn
 
 from regneuralde_tpu_torch.training.optimizers import (
+    AdaBelief,
     AdaMax,
     Adam,
     Chain,
@@ -24,6 +26,7 @@ from regneuralde_tpu_torch.training.optimizers import (
     latent_ode_optimizer,
     mnist_node_optimizer,
     mnist_nsde_optimizer,
+    sde_toy_optimizer,
 )
 
 
@@ -56,7 +59,7 @@ def make_train_step(loss_fn: Callable, optimizer) -> Callable:
     return step
 
 
-__all__ = ["AdaMax", "Adam", "Chain", "InvDecay", "Momentum", "TrainState",
+__all__ = ["AdaBelief", "AdaMax", "Adam", "Chain", "InvDecay", "Momentum", "TrainState",
            "WeightDecay", "apply_updates", "create_train_state", "ffjord_optimizer",
            "latent_ode_optimizer", "make_train_step", "mnist_node_optimizer",
-           "mnist_nsde_optimizer"]
+           "mnist_nsde_optimizer", "sde_toy_optimizer"]

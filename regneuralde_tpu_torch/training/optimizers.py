@@ -105,6 +105,36 @@ class Adam:
         return updates, (count, mu, nu)
 
 
+class AdaBelief:
+    """optax's ``adabelief(lr)`` (the toy SDE's ``AdaBelief(0.01)``): ``mu =
+    (1 - b1) g + b1 mu``, ``nu = (1 - b2) (g - mu)^2 + b2 nu + eps_root``,
+    and the update ``-lr * mu_hat / (sqrt(nu_hat) + eps)`` with the bias
+    corrections ``mu_hat = mu / (1 - b1^n)``, ``nu_hat = nu / (1 - b2^n)``,
+    n counting steps from 1; optax's defaults ``eps = eps_root = 1e-16``."""
+
+    def __init__(self, lr: float, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-16, eps_root: float = 1e-16):
+        self.lr, self.b1, self.b2, self.eps, self.eps_root = lr, b1, b2, eps, eps_root
+
+    def init(self, params: Sequence[torch.Tensor]):
+        return (torch.zeros((), dtype=torch.int32),
+                [torch.zeros_like(p) for p in params],
+                [torch.zeros_like(p) for p in params])
+
+    def update(self, grads: Tensors, state, params=None) -> Tuple[Tensors, tuple]:
+        count, mu, nu = state
+        count = count + 1
+        mu = [(1 - self.b1) * g + self.b1 * m for g, m in zip(grads, mu)]
+        nu = [(1 - self.b2) * torch.square(g - m) + self.b2 * v + self.eps_root
+              for g, m, v in zip(grads, mu, nu)]
+        # the bias corrections in float32 as optax computes them, on the host
+        c1, c2 = ((1 - torch.tensor(b, dtype=torch.float32) ** count).item()
+                  for b in (self.b1, self.b2))
+        updates = [-self.lr * ((m / c1) / (torch.sqrt(v / c2) + self.eps))
+                   for m, v in zip(mu, nu)]
+        return updates, (count, mu, nu)
+
+
 class WeightDecay:
     """optax's ``add_decayed_weights(wd)`` (Flux's ``WeightDecay``): adds
     ``wd * p`` to the update of each parameter ``p``."""
@@ -162,3 +192,8 @@ def mnist_nsde_optimizer() -> Chain:
 def ffjord_optimizer(lr: float = 1e-2) -> Chain:
     """WeightDecay(1e-5) then ADAM(lr) (experiments/ffjord_tabular.jl:133)."""
     return Chain(WeightDecay(1e-5), Adam(lr))
+
+
+def sde_toy_optimizer() -> AdaBelief:
+    """AdaBelief(0.01) (experiments/sde_toy_problem.jl:65)."""
+    return AdaBelief(0.01)

@@ -1,8 +1,9 @@
 """The port's CUDA kernels (K1/K2 step pair, K3/K4 whole solve for
 MLPDynamics, AlternatingMLP and FFJORD's CSL dynamics, K7/K8 step pairs for
-AlternatingMLP and CSL, K9/K10 the SDE whole solve of an MLP pair, K11/K12
-the lane-wise step of the per-sample engine, K13/K14 the tuple step of
-``odeint``'s generic engine) against their plain PyTorch versions.
+AlternatingMLP and CSL, K9/K10 the SDE whole solve of an MLP pair and of the
+toy SDE's cubic pair, K11/K12 the lane-wise step of the per-sample engine,
+K13/K14 the tuple step of ``odeint``'s generic engine, K15 the whole-solve
+feature probe) against their plain PyTorch versions.
 
 These tests need a CUDA device and ``nvcc`` (the kernels have no CPU mode)
 and skip without one. This file imports no JAX, so it runs on a machine
@@ -22,6 +23,7 @@ from regneuralde_tpu_torch.ops import fused_mlp_lanes as fl
 from regneuralde_tpu_torch.ops import ode
 from regneuralde_tpu_torch.ops import sde as sde_ops
 from regneuralde_tpu_torch.ops import sde_whole_solve as sw
+from regneuralde_tpu_torch.ops import spike_wholesolve as sp
 from regneuralde_tpu_torch.ops import whole_solve as ws
 from regneuralde_tpu_torch.ops.controller import PIController
 
@@ -1147,3 +1149,132 @@ def test_matmul_precision_holds_in_the_backward_on_the_card(cuda, mode, sweep):
     finally:
         torch.set_float32_matmul_precision(old)
     assert after == "high" and len(bwd.seen) > 0 and set(bwd.seen) == {"highest"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t0", [0.0, 0.1, 0.9, -5.0])
+@pytest.mark.parametrize("shape", [(32, 20), (512, 784)])
+def test_spike_kernel_matches_plain_version(cuda, shape, t0):
+    """K15 against its plain version: the same iteration count, y1 and tel
+    within 1e-6, the history rows < n bitwise (copies), run-to-run bitwise;
+    one launch a call."""
+    y0 = torch.randn(shape, generator=torch.Generator().manual_seed(3)).to(cuda)
+    sp.reset_launches()
+    y1, tel, hy, n = sp.spike_wholesolve(t0, y0)
+    assert sp.LAUNCHES == {"spike_wholesolve": 1}
+    py1, ptel, phy, pn = sp.plain_spike_wholesolve(t0, y0)
+    assert n == pn == {0.0: 4, 0.1: 4, 0.9: 1, -5.0: 16}[t0]
+    assert (y1 - py1).abs().max().item() <= 1e-6
+    assert (tel - ptel).abs().max().item() <= 1e-6
+    assert torch.equal(hy[:n], phy[:n])
+    again = sp.spike_wholesolve(t0, y0)
+    assert torch.equal(again[0], y1) and torch.equal(again[1], tel)
+    assert torch.equal(again[2][:n], hy[:n])
+
+
+@pytest.mark.cuda
+def test_spike_wrapper_refuses_bad_inputs(cuda):
+    with pytest.raises(ValueError, match="multiple of 4"):
+        sp.spike_wholesolve(0.0, torch.zeros(3, 5, device=cuda))
+    with pytest.raises(ValueError, match="float32"):
+        sp.spike_wholesolve(0.0, torch.zeros(4, 4, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError, match="maxs"):
+        sp.spike_wholesolve(0.0, torch.zeros(4, 4, device=cuda), maxs=0)
+
+
+def _cubic_args(batch, hidden, device, tol, max_steps, saveat=None, seed=2):
+    """Seeded cubic-pair leaves (drift 2 -> hidden -> 2 after the cube,
+    diffusion 2 -> 2), y0 near the toy's u0 = [2, 0] and draws."""
+    args, kw = _sde_args(batch, 2, hidden, device, tol, max_steps, saveat, seed)
+    y0 = args[3] + torch.tensor([[1.5, 0.0]], device=device)
+    if saveat is not None:
+        kw["saveat"], kw["ys_init"] = sde_ops.save_rows_at_start(
+            torch.tensor(saveat, device=device), args[0], y0)
+    kw.update(solver="sosri", body="cubic")
+    return (*args[:3], y0, *args[4:]), kw
+
+
+CUBIC_SAVES = np.linspace(0.0, 1.0, 30).astype(np.float32).tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch, hidden, tol, saveat", [
+    (100, 50, 3e-1, CUBIC_SAVES), (100, 50, 3e-2, CUBIC_SAVES), (13, 8, 1e-2, None)])
+def test_sde_whole_solve_cubic_kernels_match_plain_versions(cuda, batch, hidden, tol, saveat):
+    """K9/K10<CubicPair> as the MLP pair's test: the same steps and save
+    cursors, y1 and the saves within 1e-5, K10 within 1e-3 of the plain
+    version and within 3 times the plain version's distance from a float64
+    walk, plus 1e-5; both bitwise deterministic."""
+    S = 256
+    args, kw = _cubic_args(batch, hidden, cuda, tol, S, saveat)
+    rk = sw.sde_whole_solve_fwd(*args, **kw)
+    rp = sw.plain_sde_whole_solve_fwd(*args, **kw)
+    assert rk.final[3:].tolist() == rp.final[3:].tolist() and rk.final[5] == 1.0
+    assert torch.equal(rk.streams[sw.ST_ACC], rp.streams[sw.ST_ACC])
+    assert torch.equal(rk.cursors, rp.cursors)
+    assert _rel(rk.y1, rp.y1) <= 1e-5
+    if saveat is not None:
+        assert _rel(rk.ys, rp.ys) <= 1e-5
+    if tol == 3e-2:
+        assert rk.final[4].item() > 0, "the case needs rejections"
+    ns = int(rk.final[3:5].sum())
+    g = torch.Generator().manual_seed(7)
+    ct_y1 = torch.randn(batch, 2, generator=g).to(cuda)
+    ct_tel = (0.1 * torch.randn(4, S, generator=g)).to(cuda)
+    ct_ys = None if saveat is None else torch.randn(len(saveat), batch, 2, generator=g).to(cuda)
+    t0, t1, _, _, leaves, _, _, ctrl = args[:8]
+    bargs = (ns, ct_y1, ct_tel, t0, t1, leaves, tol, tol, ctrl, *args[9:])
+    bkw = dict(n_drift=2, solver="sosri", saveat=kw.get("saveat"), ct_ys=ct_ys, body="cubic")
+    gk = sw.sde_whole_solve_bwd(rk, *bargs, **bkw)
+    gp = sw.plain_sde_whole_solve_bwd(rk, *bargs, **bkw)
+    d = lambda x: None if x is None else x.double()
+    g64 = sw.plain_sde_whole_solve_bwd(
+        sw.SDERecord(*map(d, rk)), ns, d(ct_y1), d(ct_tel), d(t0), d(t1), [d(x) for x in leaves],
+        tol, tol, ctrl, d(args[9]), d(args[10]), n_drift=2, solver="sosri",
+        saveat=d(kw.get("saveat")), ct_ys=d(ct_ys), body="cubic")
+    groups = lambda g: [torch.stack(g[:3]), *g[3:]]
+    for a, b, c in zip(groups(gk), groups(gp), groups(g64)):
+        if b.numel():
+            assert _rel(a, b) <= 1e-3
+            assert _rel(a, c) <= 3 * _rel(b, c) + 1e-5
+    again = sw.sde_whole_solve_bwd(rk, *bargs, **bkw)
+    assert all(torch.equal(x, y) for x, y in zip(gk, again))
+    rk2 = sw.sde_whole_solve_fwd(*args, **kw)
+    assert torch.equal(rk.y1, rk2.y1) and torch.equal(rk.streams, rk2.streams)
+
+
+@pytest.mark.cuda
+def test_sde_toy_trains_through_cubic_k9_k10(cuda):
+    """The toy SDE's training step (``training.sde_toy``, 100 trajectories,
+    30 saves) on ``fused=True`` against ``fused=False`` on the card, on the
+    same weights and draws: the same NFE and accepts, the loss within 1e-5
+    and the gradients within 1e-3 (relative); one K9 and one K10 launch, no
+    other kernel."""
+    from regneuralde_tpu_torch.data import make_sde_demo
+    from regneuralde_tpu_torch.training import sde_toy as st
+
+    means, vars_, tsteps, _ = make_sde_demo()
+    means, vars_ = torch.from_numpy(means).to(cuda), torch.from_numpy(vars_).to(cuda)
+    u0 = st.sde_toy_u0(device=cuda)
+    noise = sde_ops.presample_noise(torch.Generator(device=cuda).manual_seed(1), u0.shape,
+                                    st.MAX_STEPS)
+    outs = {}
+    for route in (True, False):
+        m = st.build_sde_toy(tsteps, route, device=cuda,
+                             generator=torch.Generator().manual_seed(0))
+        for mod in (ws, fm, fg, fc, sw, fl, sp):
+            mod.reset_launches()
+        loss, out = st.sde_toy_loss(m, u0, means, vars_, noise)
+        grads = torch.autograd.grad(loss, list(m.parameters()))
+        outs[route] = (loss, out, grads, {k: v for mod in (ws, fm, fg, fc, sw, fl, sp)
+                                          for k, v in mod.LAUNCHES.items()})
+    (la, a, ga, na), (lb, b, gb, nb) = outs[True], outs[False]
+    want = {k: 0 for k in na}
+    want.update(sde_whole_solve_cubic_fwd=1, sde_whole_solve_cubic_bwd=1)
+    assert na == want and not any(nb.values())
+    assert (a.nfe1, a.nfe2) == (b.nfe1, b.nfe2)
+    assert torch.equal(a.telemetry.accepted, b.telemetry.accepted)
+    assert a.solution.stats.success
+    assert abs(la.item() - lb.item()) <= 1e-5 * abs(lb.item())
+    for u, v in zip(ga, gb):
+        assert _rel(u, v) <= 1e-3

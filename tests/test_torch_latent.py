@@ -418,8 +418,9 @@ def test_synthetic_physionet_equals_jax_bit_for_bit(no_data_files, seed):
 
 
 def test_physionet_npz_route_and_bson_refusal(no_data_files):
-    """A ``physionet.npz`` is read like JAX reads it; a ``.bson`` path
-    raises ``NotImplementedError`` naming ROADMAP."""
+    """A ``physionet.npz`` is read like JAX reads it; the ``.bson`` route
+    (the port's BSON.jl codec) refuses a bundle without the six keys with
+    JAX's ``KeyError`` (the route itself: ``tests/test_torch_sde_toy.py``)."""
     bundle = jdata._synthetic_physionet(n=40, steps=6, feats=3, seed=1)
     np.savez(no_data_files / "physionet.npz", **bundle)
     jtr, _ = jdata.load_physionet(8, path=str(no_data_files / "physionet.npz"))
@@ -429,7 +430,9 @@ def test_physionet_npz_route_and_bson_refusal(no_data_files):
         for a, b in zip(tb, jb):
             np.testing.assert_array_equal(a, np.asarray(b))
     (no_data_files / "physionet.bson").write_bytes(b"\x05\x00\x00\x00\x00")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(KeyError, match="missing keys"):
+        jdata.load_physionet(8, path=str(no_data_files / "physionet.bson"))
+    with pytest.raises(KeyError, match="missing keys"):
         load_physionet(8, path=str(no_data_files / "physionet.bson"))
 
 

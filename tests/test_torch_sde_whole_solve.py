@@ -216,7 +216,8 @@ def test_record_layout_and_refusals():
     sw.reset_launches()
     rec = sw.sde_whole_solve_fwd(t0, t1, torch.tensor(0.01), y, leaves, 0.1, 0.1, ctrl, 16,
                                  *noise, n_drift=2, saveat=torch.tensor(SA))
-    assert sw.LAUNCHES == {"sde_whole_solve_fwd": 0, "sde_whole_solve_bwd": 0}
+    assert sw.LAUNCHES == {"sde_whole_solve_fwd": 0, "sde_whole_solve_bwd": 0,
+                           "sde_whole_solve_cubic_fwd": 0, "sde_whole_solve_cubic_bwd": 0}
     na, nr, done = rec.final[3:].tolist()
     ns = int(na + nr)
     assert done == 1.0 and rec.hy.shape == (17, 5, DIM) and rec.streams.shape == (12, 16)

@@ -9,7 +9,8 @@ archive <commit> | tar -x -C build/parent``). Each run imports that tree's
 ``chip_smoke.py``, builds its kernels into the tree's own ``build/``, runs
 the named phases' kernel checks (``altmlp``: K7/K8 and K3/K4 for
 AlternatingMLP, ``csl``: K7/K8-CSL and K3/K4-CSL, ``mlp``: K1/K2 and K3/K4
-for MLPDynamics; a phase the tree lacks is skipped) and prints, per
+for MLPDynamics, ``sde``: K9/K10 for the MLP pair; a phase the tree lacks is
+skipped) and prints, per
 kernel, the median of ``chip_smoke``'s CUDA-event times and what ``ptxas``
 reported for it (registers, stack, spills). Last it says, for every kernel
 of either library, whether the two trees' SASS (``cuobjdump -sass``) is
@@ -43,6 +44,8 @@ with contextlib.redirect_stdout(io.StringIO()):
     if "csl" in phases and hasattr(cs, "phase_csl_kernels"):
         ms.update(cs.phase_csl_kernels(dev))
         ms.update(cs.phase_whole_solve_csl_kernels(dev, cs.ffjord_batches(1, dev)[0]))
+    if "sde" in phases and hasattr(cs, "phase_sde_kernels"):
+        ms.update(cs.phase_sde_kernels(dev))
 ptxas, name = {}, None
 for line in _cuda.ptxas_report().splitlines():
     m = re.search(r"Compiling entry function '(\S+)'", line)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Profile the PyTorch/CUDA port's training steps on one GPU.
 
-    python3 tools/torch_step_profile.py [--model mnist|latent|ffjord|nsde]
+    python3 tools/torch_step_profile.py [--model mnist|latent|ffjord|nsde|toy]
                                         [--fused step|true|false] [--steps 3]
                                         [--tol 1.4e-8] [--per-sample]
                                         [--tuple adjoint|scan] [--out DIR]
@@ -16,8 +16,12 @@ Adam(1e-2)), ``--model nsde`` the MNIST Neural SDE of ``chip_smoke.py``
 (ClassifierNSDE at 784 -> 32, drift 32-64-32, diffusion 32-32, SOSRI2 at
 rtol=atol=1.4e-1, max_steps=128, batch 512, CE + 0.1 * stiffness_estimate,
 InvDecay(1e-5) then Adam(0.01), fresh draws each step; ``--tol`` does not
+apply), ``--model toy`` the toy 2-D SDE fit of ``chip_smoke.py`` phase 30
+(``training.sde_toy``: CubicDrift(2, 50) and Dense(2), 100 trajectories,
+30 saves, SOSRI at rtol=atol=3e-1, max_steps=256, the moments' loss + 0.2 *
+error_estimate, AdaBelief(0.01), fresh draws each step; ``--tol`` does not
 apply), on the step kernels (``--fused step``, the default: K1/K2, K7/K8
-or K7/K8-CSL on every trial step; the NSDE has no step route), the
+or K7/K8-CSL on every trial step; the SDEs have no step route), the
 whole-solve kernels (``--fused true``: K3/K4 or K9/K10 once per solve) or
 no kernel (``--fused false``, the plain PyTorch route). ``--per-sample``
 (MNIST only) gives the classifier's node ``per_sample="batched"``: every
@@ -35,10 +39,10 @@ does not apply. It runs one warm-up step, then:
 * traces one step with ``torch.profiler`` and prints device time by kernel,
   the device-busy share of the step's wall time, and writes the chrome trace
   to ``--out``;
-* for the latent model, FFJORD and the NSDE, splits that step's host and
+* for the latent model, FFJORD and the SDEs, splits that step's host and
   device time between its parts: ``record_function`` ranges around the encoder's
   GRU loop and MLP, the node (the solve) and the decoder (FFJORD: the
-  model's whole forward, the solve and logpz; the NSDE: the solve) in the
+  model's whole forward, the solve and logpz; the SDEs: the solve) in the
   forward, and in the
   backward the solve's autograd function against everything else (the
   GRU's, encoder's, decoder's and loss's autograd nodes); with
@@ -179,7 +183,8 @@ def _print_split(events, wall_ms):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--model", choices=["mnist", "latent", "ffjord", "nsde"], default="mnist")
+    ap.add_argument("--model", choices=["mnist", "latent", "ffjord", "nsde", "toy"],
+                    default="mnist")
     ap.add_argument("--fused", choices=["step", "true", "false"], default="step")
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--tol", type=float, default=1.4e-8)
@@ -209,13 +214,27 @@ def main():
         make_train_step,
         mnist_node_optimizer,
         mnist_nsde_optimizer,
+        sde_toy_optimizer,
     )
 
     device = torch.device("cuda", 0)
     fused = {"true": True, "false": False, "step": "step"}[args.fused]
-    if args.model == "nsde":
-        if fused == "step":
-            ap.error("the NSDE has no step route: use --fused true or false")
+    if args.model in ("nsde", "toy") and fused == "step":
+        ap.error("the SDEs have no step route: use --fused true or false")
+    if args.model == "toy":
+        from regneuralde_tpu_torch.data import make_sde_demo
+        from regneuralde_tpu_torch.training import sde_toy as st
+
+        means, vars_, tsteps, _ = make_sde_demo(seed=0)
+        means, vars_ = torch.from_numpy(means).to(device), torch.from_numpy(vars_).to(device)
+        u0 = st.sde_toy_u0(device=device)
+        batches = [(u0, means, vars_, cs.toy_noise(i, device)) for i in range(args.steps + 2)]
+        model = st.build_sde_toy(tsteps, fused, device=device,
+                                 generator=torch.Generator().manual_seed(cs.SEED))
+        optimizer = sde_toy_optimizer()
+        loss_fn = st.sde_toy_loss
+        _annotate(model, "[part] forward: the solve", record_function)
+    elif args.model == "nsde":
         xy = cs.synthetic_batches(args.steps + 2, device)
         batches = [(x, y, cs.nsde_noise(i, device)) for i, (x, y) in enumerate(xy)]
         model = cs.build_nsde("sosri2", fused, device)
@@ -265,7 +284,7 @@ def main():
         state, loss, out = step(state, *batch)
         torch.cuda.synchronize()
         wall = time.perf_counter() - start
-        nfe = out.nfe if args.model != "nsde" else [out.nfe1, out.nfe2]
+        nfe = [out.nfe1, out.nfe2] if args.model in ("nsde", "toy") else out.nfe
         extra = {}
         if args.per_sample:  # per-lane NFE; an engine iteration is a trial step of each live lane
             nfe = {k: getattr(out.nfe.double(), k)().item() for k in ("min", "mean", "max")}
@@ -309,7 +328,7 @@ def main():
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d} calls  {e.key[:90]}")
-    if args.model in ("latent", "ffjord", "nsde") or args.per_sample or args.tuple:
+    if args.model in ("latent", "ffjord", "nsde", "toy") or args.per_sample or args.tuple:
         _print_split(prof.events(), wall * 1e3)
     os.makedirs(args.out, exist_ok=True)
     tag = ("_per_sample" if args.per_sample else "") + (f"_tuple_{args.tuple}" if args.tuple
