@@ -23,8 +23,12 @@ at first use. Phases (each checks its results; any failure exits non-zero):
    InvDecay(1e-5) then Momentum(0.1, 0.9)) on ``fused="step"``, with the
    step kernels' launch counts;
 5. the whole-solve kernels K3/K4 against their plain versions at
-   512x784x100 on seeded random weights and inputs, with CUDA-event times
-   of the forward solve and the backward walk;
+   512x784x100 on seeded random weights and inputs: K3's streamed stage
+   residuals (``ks``/``hs``) of every trial step, teacher-forced, within
+   FWD_BOUND of the plain capture; K4 on the stream bitwise equal to K4
+   replaying the stages (``cache_residuals=False``), with y1's cotangent
+   alone and with the telemetry's too; CUDA-event times of the forward
+   solve and the backward walk, streamed and replaying;
 6. phase 3 for the whole solve: ``fused=True`` against ``fused=False``;
 7. phase 4 on ``fused=True``: one forward and one backward launch per step,
    no step-kernel launch;
@@ -49,7 +53,8 @@ at first use. Phases (each checks its results; any failure exits non-zero):
    version and within 3 times the plain version's distance from a
    float64 walk, bitwise determinism, CUDA-event times of both;
 12. the MLPDynamics whole solve with 5 saves against its plain version at
-   64x40x24 (the save cursor on the other instantiation);
+   64x40x24 (the save cursor on the other instantiation), and K4 on the
+   stream bitwise equal to K4 replaying the stages;
 13. phase 9 on the whole solve: ``fused=True`` against ``fused=False``;
 14. phase 10 on ``fused=True``: one launch of each whole-solve kernel per
    step and no step kernel; each step's NFE and accept sequence equal to
@@ -217,7 +222,9 @@ def _bound(nbytes, flops):
 def _mlp_work(B, D, H):
     """K1's and K2's f32 operations and the leaves' floats at B x D x H:
     six stages of two (B x D x H) products forward; backward the recompute
-    and, per stage, the two input cotangents and two weight cotangents."""
+    and, per stage, the two input cotangents and two weight cotangents.
+    K4 on the stage residuals' stream does the backward less the recompute
+    (48 B D H a trial step)."""
     leaf = H * (D + 1) + H + D * (H + 1) + D
     return 6 * 4 * B * D * H, 72 * B * D * H, leaf
 
@@ -404,9 +411,10 @@ def phase_kernels(device):
 
 def _teacher_forced_steps(rec, ns, args, parts):
     """Holds each trial step of K3's record against the plain versions on
-    the record's own inputs (its stored t, dt, y, f0 rows): the norm sums
-    and the y_new/k7 rows against K1's plain version in float32 and in
-    float64, and the stored controller updates (the next step's t, dt,
+    the record's own inputs (its stored t, dt, y, f0 rows): the norm sums,
+    the y_new/k7 rows and the streamed stage residuals ks/hs against K1's
+    plain version (its residual capture) in float32 and in float64, and
+    the stored controller updates (the next step's t, dt,
     qold; the telemetry; the accept flag) against ``ode._post`` on the
     stored sums. Returns, per quantity, the worst relative errors
     (kernel vs plain, kernel vs float64, plain vs float64); None where
@@ -434,9 +442,16 @@ def _teacher_forced_steps(rec, ns, args, parts):
         remaining = t1 - t
         is_last = (dt - remaining) * tdir >= 0
         dt_eff = torch.where(is_last, remaining, dt)
-        p32 = fm._reference_normed_sweep(t, dt_eff, rec.hy[i], rec.hf[i], parts, rtol, atol)
-        p64 = fm._reference_normed_sweep(t.double(), dt_eff.double(), rec.hy[i].double(),
-                                         rec.hf[i].double(), parts64, rtol, atol)
+        p32, r32 = fm._reference_normed_sweep_res(t, dt_eff, rec.hy[i], rec.hf[i], parts,
+                                                  rtol, atol)
+        p64, r64 = fm._reference_normed_sweep_res(t.double(), dt_eff.double(),
+                                                  rec.hy[i].double(), rec.hf[i].double(),
+                                                  parts64, rtol, atol)
+        if rec.ks.numel():  # the stage residuals K3 streamed, rejected steps too
+            for name, k, a, b in (("ks", rec.ks[i], r32[0][1:], r64[0][1:]),
+                                  ("hs", rec.hs[i], r32[1], r64[1])):
+                a, b = torch.stack(a), torch.stack(b)
+                note(name, _rel(k, a), _rel(k, b), _rel(a, b))
         for name, k, a, b in zip(["err_ssq", "num_ssq", "den_ssq"], (e, n, d),
                                  p32[2:], p64[2:]):
             note(name, _rel(k, a), _rel(k, b), _rel(a, b))
@@ -464,7 +479,8 @@ def _check_steps_teacher_forced(tag, rec, ns, args):
     """Each of K3's stored trial steps (MLPDynamics) against the plain
     versions on its own stored inputs (``_teacher_forced_steps``): the norm
     sums and rows within 3 times the float32 plain version's distance from
-    float64, plus 1e-6, and the controller within WS_CTRL_BOUND."""
+    float64, plus 1e-6, the streamed stage residuals also within FWD_BOUND
+    of the plain capture, and the controller within WS_CTRL_BOUND."""
     from regneuralde_tpu_torch.ops import fused_mlp as fm
 
     errs = _teacher_forced_steps(rec, ns, args, fm._split_params(*args[5]))
@@ -477,6 +493,9 @@ def _check_steps_teacher_forced(tag, rec, ns, args):
             _check(k_p <= WS_CTRL_BOUND, f"{tag} K3 {n}: {errs[n]}")
         else:
             _check(k_64 <= 3 * p_64 + 1e-6, f"{tag} K3 {n}: {errs[n]}")
+        if n in ("ks", "hs"):
+            _check(k_p <= FWD_BOUND, f"{tag} K3 streamed {n}: {errs[n]}")
+    _check(not rec.ks.numel() or {"ks", "hs"} <= errs.keys(), f"{tag}: K3 streamed ks, hs")
 
 
 def phase_whole_solve_kernels(device):
@@ -490,7 +509,11 @@ def phase_whole_solve_kernels(device):
     of y1 within BWD_BOUND of its plain version, with the telemetry's too
     within TEL_BWD_BOUND (every output but ct_f0), and every output,
     ct_f0 included, within 3 times the float32 plain version's distance
-    from float64, plus 1e-5. Times at the flagship tolerance."""
+    from float64, plus 1e-5. K3's streamed stage residuals of every trial
+    step within FWD_BOUND of the plain capture on the step's own stored
+    inputs, and K4 on them bitwise K4 replaying the stages, for both seed
+    sets. Times at the flagship tolerance, of the stream (the main path)
+    and of the replay (``cache_residuals=False``)."""
     import torch
 
     from regneuralde_tpu_torch.ops import fused_mlp as fm
@@ -519,36 +542,45 @@ def phase_whole_solve_kernels(device):
     rec = ws.whole_solve_fwd(*args)
     ns = int(rec.final[3:5].sum().item())
     bwd_args = (ns, ct_y1, ct_tel, t0, t1, leaves, FLAGSHIP_TOL, FLAGSHIP_TOL, ctrl)
+    replay = dict(cache_residuals=False)
+    rec0 = ws.whole_solve_fwd(*args, **replay)
     times = {
         "fwd_kernel": _time_ms(lambda: ws.whole_solve_fwd(*args)),
+        "fwd_kernel_replay": _time_ms(lambda: ws.whole_solve_fwd(*args, **replay)),
         "fwd_plain": _time_ms(lambda: ws.plain_whole_solve_fwd(*args)),
         "bwd_kernel": _time_ms(lambda: ws.whole_solve_bwd(rec, *bwd_args)),
+        "bwd_kernel_replay": _time_ms(lambda: ws.whole_solve_bwd(rec0, *bwd_args, **replay)),
         "bwd_plain": _time_ms(lambda: ws.plain_whole_solve_bwd(rec, *bwd_args)),
     }
-    print("[whole] median ms over %d runs at %dx%dx%d, tol %g, %d trial steps: %s"
+    del rec0
+    print("[whole] median ms over %d runs at %dx%dx%d, tol %g, %d trial steps (K3/K4 on the "
+          "stage residuals' stream, and replaying the stages): %s"
           % (REPS, BATCH, DIM, HIDDEN, FLAGSHIP_TOL, ns, json.dumps(times)))
     f_ops, b_ops, leaf = _mlp_work(BATCH, DIM, HIDDEN)
+    nbytes = _solve_bytes(BATCH * DIM, leaf, ns, 0, MAX_STEPS, 6 * BATCH * (DIM + HIDDEN))
     return {
         "whole_solve_fwd": dict(
             replaces="regneuralde_tpu/ops/pallas_solve.py:357",
             max_abs_err=abs_f, ms=times["fwd_kernel"], plain_ms=times["fwd_plain"],
-            **_bound(_solve_bytes(BATCH * DIM, leaf, ns, 0, MAX_STEPS)[0], ns * f_ops)),
-        "whole_solve_bwd": dict(
+            **_bound(nbytes[0], ns * f_ops)),
+        "whole_solve_bwd": dict(  # the stream spares K4 the recompute
             replaces="regneuralde_tpu/ops/pallas_solve.py:559",
             max_abs_err=abs_b, ms=times["bwd_kernel"], plain_ms=times["bwd_plain"],
-            **_bound(_solve_bytes(BATCH * DIM, leaf, ns, 0, MAX_STEPS)[1], ns * b_ops)),
+            **_bound(nbytes[1], ns * (b_ops - f_ops))),
     }
 
 
-def _solve_bytes(BD, leaf, ns, n_save, S):
+def _solve_bytes(BD, leaf, ns, n_save, S, stream=0):
     """Bytes K3 and K4 must move over a solve of ns trial steps: K3 reads
     y0, f0, the leaves and ys_init and writes y1, ys, the history (ns + 1
-    rows of y and f) and the streams; K4 reads the history, the streams,
-    the leaves and the cotangents of y1, ys and the telemetry, and writes
+    rows of y and f), the streams and ``stream`` floats a trial step of
+    stage residuals; K4 reads the history, the streams, the residuals, the
+    leaves and the cotangents of y1, ys and the telemetry, and writes
     those of y0, f0, ys_init and the leaves."""
     hist = 2 * (ns + 1) * BD
-    fwd = 3 * BD + leaf + 2 * n_save * BD + hist + 11 * S
-    bwd = hist + 11 * S + leaf + BD + 2 * n_save * BD + 4 * S + 2 * BD + leaf
+    fwd = 3 * BD + leaf + 2 * n_save * BD + hist + 11 * S + ns * stream
+    bwd = (hist + 11 * S + ns * stream + leaf + BD + 2 * n_save * BD + 4 * S + 2 * BD
+           + leaf)
     return 4 * fwd, 4 * bwd
 
 
@@ -983,6 +1015,22 @@ def _check_steps_against_k7(tag, rec, ns, args, sweep=None):
     _check(ctrl_same, f"{tag}: K3's controller equals ode._post on the card")
 
 
+def _check_streamed_is_replay(tag, seeds, streamed, replay, names, saves, n_leaf_groups):
+    """K4 on K3's stage residuals against K4 replaying the stages, on the
+    same record and cotangents: every output bitwise (the time scalars,
+    ct_y0, ct_f0, ct_ys_init and the leaves); the largest difference of
+    each output is printed."""
+    import torch
+
+    groups = [_k4_groups(g, n_leaf_groups, saves) for g in (streamed, replay)]
+    diff = {n: (a - b).abs().max().item() if a.numel() else 0.0
+            for n, a, b in zip(names, *groups)}
+    same = all(torch.equal(a, b) for a, b in zip(*groups))
+    print(f"[{tag}] K4 streamed vs replay, cotangents of {seeds}: bitwise equal {same}; "
+          f"max abs diff {json.dumps(diff)}")
+    _check(same, f"{tag} K4 streamed is K4 replaying, bitwise, for {seeds}: {diff}")
+
+
 def _whole_solve_vs_plain(tag, dynamics, leaves, y0, func, saveat, tol, max_steps, *,
                           gen, fwd_bound, n_leaf_groups, check_steps, k4_plain,
                           f0_plain=(), eest_only=False):
@@ -998,7 +1046,9 @@ def _whole_solve_vs_plain(tag, dynamics, leaves, y0, func, saveat, tol, max_step
     a float64 plain walk, seeded with a cotangent of y1, then of y1 and ys,
     then of these and the telemetry. Every output is held to 3 times the
     float32 plain version's distance from float64, plus 1e-5, and every
-    output but ct_f0 to ``k4_plain[seeds]`` of the plain version. With the
+    output but ct_f0 to ``k4_plain[seeds]`` of the plain version. For
+    MLPDynamics, K4 on K3's stage residuals is also held bitwise to K4
+    replaying the stages (``_check_streamed_is_replay``). With the
     seeds in ``f0_plain``, ct_f0 is held to BWD_BOUND of the plain version
     instead of to float64. There ct_f0 carries the error estimate's
     cotangent, the controller's pullback of the cotangent of dt that
@@ -1076,6 +1126,10 @@ def _whole_solve_vs_plain(tag, dynamics, leaves, y0, func, saveat, tol, max_step
         cys = None if not saves else (ct_ys if "ys" in seeds else torch.zeros_like(ct_ys))
         gk = ws.whole_solve_bwd(rk, ns, cy1, tel, t0, t1, leaves, tol, tol, ctrl,
                                 ct_ys=cys, **bkw)
+        if dynamics == "mlp":  # the stream against the replay of the stages
+            gr = ws.whole_solve_bwd(rk, ns, cy1, tel, t0, t1, leaves, tol, tol, ctrl,
+                                    ct_ys=cys, cache_residuals=False, **bkw)
+            _check_streamed_is_replay(tag, seeds, gk, gr, names, saves, n_leaf_groups)
         gp = ws.plain_whole_solve_bwd(rk, ns, cy1, tel, t0, t1, leaves, tol, tol, ctrl,
                                       ct_ys=cys, **bkw)
         g64 = ws.plain_whole_solve_bwd(rec64, ns, d(cy1), d(tel), d(t0), d(t1),

@@ -2,7 +2,9 @@
 // K1/K2) and the whole-solve kernels (whole_solve.cu, K3/K4): the Tsit5
 // tableau, the MLPDynamics stage, the per-tile bodies of one normed trial
 // step and of its hand reverse, and the fixed-order contraction that sums
-// the weight cotangents.
+// the weight cotangents. The whole solve's forward tile also streams the
+// trial step's stage residuals (ks, hs) out, and its reverse tile then
+// loads them instead of re-running the six stages.
 //
 // Everything sits in an anonymous namespace, so each .cu file that
 // includes it has its own copy and no relocatable device code is needed.
@@ -86,6 +88,23 @@ __device__ __forceinline__ float stage_acc(int i, const float* ks, int stride,
   return acc;
 }
 
+// Stage i's state y + dt * acc_i with its contraction pinned: acc starts
+// as the rounded first product, takes each further term by one fma, and
+// the state is fma(dt, acc, y). The whole solve builds every stage state
+// here (recompute_stages<R, true> in K3 and in K4's replay, load_stages in
+// K4 on the stream), so the same ks give the same bits on each path: left
+// to the compiler, y + dt * acc_i contracted differently in two inlined
+// copies, and K4's streamed and replayed cotangents of the stiffness norm
+// parted by ulps (H100). The step kernels (K1/K2, K13/K14) keep the
+// compiler's contraction: pinned there, it cost K2 about 35% (H100).
+__device__ __forceinline__ float stage_state(int i, const float* y_s,
+                                             const float* ks, int stride,
+                                             int idx, float dt) {
+  float acc = __fmul_rn(kA[i - 1][0], ks[idx]);
+  for (int j = 1; j < i; ++j) acc = __fmaf_rn(kA[i - 1][j], ks[j * stride + idx], acc);
+  return __fmaf_rn(dt, acc, y_s[idx]);
+}
+
 // Stage i's derivative for ROWS rows: hid = tanh(yi W1x^T + ti w1t + b1),
 // k = tanh(hid W2h^T + ti w2t + b2). yi (ROWS x D) and hid (ROWS x H) in
 // shared memory; W1 is (H, D+1) and W2 is (D, H+1), time column last.
@@ -135,7 +154,7 @@ __device__ void mlp_stage(const float* yi, float* hid, float* k_out, float ti,
 // stages. Shared layout: y | ks[0..6] | yi | g6 (each ROWS*D) | hid.
 // On return yi holds y_new (stage 6 state, FSAL) and g6 the stage-5 state.
 // hs, when given, receives each stage's hidden activations (6 x ROWS*H).
-template <int ROWS>
+template <int ROWS, bool PINNED = false>
 __device__ void recompute_stages(const float* y_g, const float* k1_g, int row0,
                                  int rows, float t, float dt, float* y_s,
                                  float* ks, float* yi, float* g6, float* hid,
@@ -152,7 +171,11 @@ __device__ void recompute_stages(const float* y_g, const float* k1_g, int row0,
   for (int i = 1; i <= 6; ++i) {
     __syncthreads();
     for (int idx = threadIdx.x; idx < n; idx += kThreads) {
-      const float v = y_s[idx] + dt * stage_acc(i, ks, n, idx);
+      float v;
+      if constexpr (PINNED)
+        v = stage_state(i, y_s, ks, n, idx, dt);
+      else
+        v = y_s[idx] + dt * stage_acc(i, ks, n, idx);
       yi[idx] = v;
       if (i == 5) g6[idx] = v;
     }
@@ -163,8 +186,47 @@ __device__ void recompute_stages(const float* y_g, const float* k1_g, int row0,
   __syncthreads();
 }
 
-size_t fwd_smem_bytes(int D, int H) {
-  return sizeof(float) * ((size_t)10 * kFwdRows * D + (size_t)kFwdRows * H + 3 * kWarps);
+// The cached reverse's prologue: loads ROWS rows of y and k1 and the six
+// stage derivatives and hidden activations the forward stored for them
+// (ks_g: 6 x B x D, hs_g: 6 x B x H, stage-major, at this trial step's
+// row of the stream) into recompute_stages' layout, zero past the batch
+// end, then rebuilds yi (the stage-6 state, y_new) and g6 (the stage-5
+// state) with stage_state. Rows past the batch end differ from the
+// replay's, but every row of the reverse chain is computed on its own and
+// only valid rows are written or summed.
+template <int ROWS>
+__device__ void load_stages(const float* y_g, const float* k1_g,
+                            const float* ks_g, const float* hs_g, int row0,
+                            int rows, int B, float dt, float* y_s, float* ks,
+                            float* yi, float* g6, float* hs, int D, int H) {
+  const int n = ROWS * D;
+  const size_t BD = (size_t)B * D;
+  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
+    const bool valid = idx < rows * D;
+    const size_t g = (size_t)row0 * D + idx;
+    y_s[idx] = valid ? __ldcg(y_g + g) : 0.0f;
+    ks[idx] = valid ? __ldcg(k1_g + g) : 0.0f;
+    for (int s = 1; s <= 6; ++s)
+      ks[s * n + idx] = valid ? __ldcs(ks_g + (size_t)(s - 1) * BD + g) : 0.0f;
+  }
+  const int m = ROWS * H;
+  for (int idx = threadIdx.x; idx < 6 * m; idx += kThreads) {
+    const int s = idx / m, e = idx - s * m;
+    hs[idx] = e < rows * H ? __ldcs(hs_g + ((size_t)s * B + row0) * H + e) : 0.0f;
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
+    yi[idx] = stage_state(6, y_s, ks, n, idx, dt);
+    g6[idx] = stage_state(5, y_s, ks, n, idx, dt);
+  }
+  __syncthreads();
+}
+
+// hid_stages: 1, or 6 where the forward tile keeps every stage's hidden
+// activations to stream them out.
+size_t fwd_smem_bytes(int D, int H, int hid_stages = 1) {
+  return sizeof(float) * ((size_t)10 * kFwdRows * D + (size_t)hid_stages * kFwdRows * H +
+                          3 * kWarps);
 }
 
 size_t bwd_smem_bytes(int D, int H) {
@@ -172,8 +234,16 @@ size_t bwd_smem_bytes(int D, int H) {
 }
 
 // K1's body for one row tile [row0, row0 + rows): writes the tile's y_new
-// and k7 rows and its three norm sums (err, num, den) to sums_out.
-// smem: fwd_smem_bytes(D, H).
+// and k7 rows and its three norm sums (err, num, den) to sums_out. With
+// STREAM (the whole solve's forward), also the tile's valid rows of the six
+// fresh stage derivatives k2..k7 and of each stage's hidden activations to
+// ks_out, hs_out (this trial step's row of the stream, 6 x B x D and 6 x B
+// x H, stage-major), with evict-first stores: the backward reads them once.
+// The stream is a template parameter, not a runtime branch, so K1's code
+// is the one without it. PINNED: stage states by stage_state (the whole
+// solve).
+// smem: fwd_smem_bytes(D, H, STREAM ? 6 : 1).
+template <bool STREAM = false, bool PINNED = false>
 __device__ void normed_fwd_tile(const float* y, const float* k1, int row0,
                                 int rows, float t, float dt,
                                 const float* __restrict__ W1,
@@ -181,17 +251,28 @@ __device__ void normed_fwd_tile(const float* y, const float* k1, int row0,
                                 const float* __restrict__ W2,
                                 const float* __restrict__ b2, float* y_new,
                                 float* k7, float* sums_out, int D, int H,
-                                float rtol, float atol, float* smem) {
+                                float rtol, float atol, float* smem,
+                                float* ks_out = nullptr, float* hs_out = nullptr,
+                                int B = 0) {
   constexpr int R = kFwdRows;
   const int n = R * D;
   float* y_s = smem;
   float* ks = y_s + n;
   float* yi = ks + 7 * n;
   float* g6 = yi + n;
-  float* hid = g6 + n;
-  float* red = hid + R * H;
-  recompute_stages<R>(y, k1, row0, rows, t, dt, y_s, ks, yi, g6, hid, nullptr,
-                      W1, b1, W2, b2, D, H);
+  float* hid = g6 + n;  // R*H, or every stage's (6 x R*H) with the stream
+  float* red = hid + (STREAM ? 6 : 1) * R * H;
+  recompute_stages<R, PINNED>(y, k1, row0, rows, t, dt, y_s, ks, yi, g6, hid,
+                              STREAM ? hid : nullptr, W1, b1, W2, b2, D, H);
+  if constexpr (STREAM) {
+    const size_t BD = (size_t)B * D, BH = (size_t)B * H;
+    for (int idx = threadIdx.x; idx < rows * D; idx += kThreads)
+      for (int s = 1; s <= 6; ++s)
+        __stcs(ks_out + (s - 1) * BD + (size_t)row0 * D + idx, ks[s * n + idx]);
+    for (int idx = threadIdx.x; idx < rows * H; idx += kThreads)
+      for (int s = 0; s < 6; ++s)
+        __stcs(hs_out + s * BH + (size_t)row0 * H + idx, hid[s * R * H + idx]);
+  }
 
   float sums[3] = {0.0f, 0.0f, 0.0f};
   for (int idx = threadIdx.x; idx < rows * D; idx += kThreads) {
@@ -221,8 +302,12 @@ __device__ void normed_fwd_tile(const float* y, const float* k1, int row0,
 // each element is read before its own write, by the same thread), the
 // tile's (ct_t, ct_dt) to part_out, and the rows of the weight-cotangent
 // contractions: cp2 (6B x D), he (6B x (H+2)) = [h, t_i, 1], cp1 (6B x H),
-// ye (6B x (D+2)) = [y_i, t_i, 1]; row = stage*B + batch row.
+// ye (6B x (D+2)) = [y_i, t_i, 1]; row = stage*B + batch row. With STREAM
+// the stages are loaded from ks_in, hs_in (the forward's stage residuals of
+// this trial step, as normed_fwd_tile<true> streams them), not recomputed;
+// PINNED as normed_fwd_tile's.
 // smem: bwd_smem_bytes(D, H).
+template <bool STREAM = false, bool PINNED = false>
 __device__ void normed_bwd_tile(const float* y, const float* k1, int row0,
                                 int rows, int B, float t, float dt,
                                 const float* __restrict__ W1,
@@ -235,7 +320,8 @@ __device__ void normed_bwd_tile(const float* y, const float* k1, int row0,
                                 float* ct_y, float* ct_k1, float* part_out,
                                 float* cp2, float* he, float* cp1, float* ye,
                                 int D, int H, float rtol, float atol,
-                                float* smem) {
+                                float* smem, const float* ks_in = nullptr,
+                                const float* hs_in = nullptr) {
   constexpr int R = kBwdRows;
   const int n = R * D;
   float* y_s = smem;
@@ -250,8 +336,11 @@ __device__ void normed_bwd_tile(const float* y, const float* k1, int row0,
   float* ctp1 = hs + 6 * R * H;
   float* red = ctp1 + R * H;
 
-  recompute_stages<R>(y, k1, row0, rows, t, dt, y_s, ks, yi, g6, nullptr, hs,
-                      W1, b1, W2, b2, D, H);
+  if constexpr (STREAM)
+    load_stages<R>(y, k1, ks_in, hs_in, row0, rows, B, dt, y_s, ks, yi, g6, hs, D, H);
+  else
+    recompute_stages<R, PINNED>(y, k1, row0, rows, t, dt, y_s, ks, yi, g6, nullptr, hs,
+                                W1, b1, W2, b2, D, H);
 
   float part[2] = {0.0f, 0.0f};  // ct_t, ct_dt
   // ---- seeds from the scalar norm cotangents ----

@@ -51,6 +51,18 @@
 //     the walk by one fixed-order contraction; AlternatingMLP's and CSL's
 //     block keeps its tiles' weight cotangents in shared memory for the
 //     whole walk, and one pass sums the blocks' slots in block order.
+//   * MLPDynamics streams its stage residuals, as the TPU's K3/K4 do with
+//     cache_residuals: each trial step of K3 stores its six fresh stage
+//     derivatives k2..k7 and each stage's hidden activations (ks: S x 6 x
+//     B x D, hs: S x 6 x B x H, rejected steps included; 10.9 MB a step at
+//     512x784x100) with evict-first stores, and K4 loads them for the same
+//     step instead of re-running the six stages (12 contractions and 12
+//     tanh's over the tile). K4 rebuilds the stage-6 and stage-5 states
+//     from the stored ks by the replay's own expression, so its outputs
+//     equal the replay's bitwise where K3's ks equal the replay's. The
+//     TPU kernel's delayed-by-one DMA and final flush are not needed: the
+//     tile stores its rows itself. AlternatingMLP and CSL replay, as on
+//     the TPU, whose hand pullback they lack.
 // No floating-point atomics, no TF32, no fast math: runs are bitwise
 // reproducible. powf is the libdevice powf, as ATen's float pow.
 
@@ -288,21 +300,29 @@ __device__ void hermite_pullback(const float* sa, const float* ct_ys, int lo,
 }
 
 // MLPDynamics: K1's and K2's tile bodies over the leaves (W1, b1, W2, b2),
-// read through L2. The backward stores each trial step's weight-cotangent
-// rows (cp2, he, cp1, ye; 6 B rows a step) for one contraction after the
-// walk.
+// read through L2. With STREAM the forward streams each trial step's stage
+// residuals to ks, hs (S x 6 x B x D and S x 6 x B x H) and the backward
+// reads them; without, both are null and the backward replays the stages.
+// The backward stores each trial step's weight-cotangent rows (cp2, he,
+// cp1, ye; 6 B rows a step) for one contraction after the walk.
+template <bool STREAM>
 struct MlpDyn {
   static constexpr int kFwdR = kFwdRows, kBwdR = kBwdRows;
   const float *W1, *b1, *W2, *b2;
+  float *ks, *hs;
   float *cp2, *he, *cp1, *ye;
   int H;
 
   __device__ void setup_fwd(float*, int) const {}
   __device__ void fwd(const float* y, const float* k1, int row0, int rows,
-                      float t, float dt, float* yn, float* kn, float* sums,
-                      int D, float rtol, float atol, float* smem) const {
-    normed_fwd_tile(y, k1, row0, rows, t, dt, W1, b1, W2, b2, yn, kn, sums, D,
-                    H, rtol, atol, smem);
+                      int i, int B, float t, float dt, float* yn, float* kn,
+                      float* sums, int D, float rtol, float atol,
+                      float* smem) const {
+    const size_t step = (size_t)i * 6 * B;  // this step's stream rows
+    normed_fwd_tile<STREAM, true>(y, k1, row0, rows, t, dt, W1, b1, W2, b2, yn, kn,
+                                  sums, D, H, rtol, atol, smem,
+                                  STREAM ? ks + step * D : nullptr,
+                                  STREAM ? hs + step * H : nullptr, B);
   }
   __device__ void setup_bwd(float*, int) const {}
   __device__ void bwd(const float* y, const float* k1, int row0, int rows,
@@ -311,12 +331,14 @@ struct MlpDyn {
                       const float* pass_k1, float c_err, float c_num,
                       float c_den, float* ct_y, float* ct_k1, float* part,
                       int D, float rtol, float atol, float* smem) const {
-    const size_t base = (size_t)i * 6 * B;  // this step's weight rows
-    normed_bwd_tile(y, k1, row0, rows, B, t, dt, W1, b1, W2, b2, ct_ynew,
-                    ct_k7, pass_y, pass_k1, c_err, c_num, c_den, ct_y, ct_k1,
-                    part, cp2 + base * D, he + base * (H + 2),
-                    cp1 + base * H, ye + base * (D + 2), D, H, rtol, atol,
-                    smem);
+    const size_t base = (size_t)i * 6 * B;  // this step's weight and stream rows
+    normed_bwd_tile<STREAM, true>(y, k1, row0, rows, B, t, dt, W1, b1, W2, b2,
+                                  ct_ynew, ct_k7, pass_y, pass_k1, c_err, c_num, c_den,
+                                  ct_y, ct_k1, part, cp2 + base * D,
+                                  he + base * (H + 2), cp1 + base * H,
+                                  ye + base * (D + 2), D, H, rtol, atol, smem,
+                                  STREAM ? ks + base * D : nullptr,
+                                  STREAM ? hs + base * H : nullptr);
   }
   __device__ void finish_bwd(float*, int) const {}
 };
@@ -334,8 +356,8 @@ struct AltDyn {
   __device__ void setup_fwd(float* smem, int D) const {
     load_weights(lv, depth, D, H, smem);
   }
-  __device__ void fwd(const float* y, const float* k1, int row0, int rows,
-                      float, float dt, float* yn, float* kn, float* sums,
+  __device__ void fwd(const float* y, const float* k1, int row0, int rows, int,
+                      int, float, float dt, float* yn, float* kn, float* sums,
                       int D, float rtol, float atol, float* smem) const {
     altmlp_fwd_tile(y, k1, row0, rows, dt, smem, depth, yn, kn, sums, D, H,
                     rtol, atol, smem + padded_weight_floats(depth, D, H));
@@ -378,8 +400,8 @@ struct CslDyn {
   int dim, H, kinetic;
 
   __device__ void setup_fwd(float* smem, int) const { csl_load_weights(lv, dim, H, smem); }
-  __device__ void fwd(const float* y, const float* k1, int row0, int rows,
-                      float t, float dt, float* yn, float* kn, float* sums,
+  __device__ void fwd(const float* y, const float* k1, int row0, int rows, int,
+                      int, float t, float dt, float* yn, float* kn, float* sums,
                       int A, float rtol, float atol, float* smem) const {
     csl_fwd_tile(y, k1, lv.p[kCslParams], row0, rows, t, dt, smem, yn, kn, sums, A,
                  dim, H, kinetic, rtol, atol, smem + csl_pad_floats(dim, H));
@@ -471,7 +493,7 @@ __global__ void __launch_bounds__(kThreads) whole_solve_fwd_kernel(FwdArgs<Dyn> 
     float* kn = a.hf + (size_t)(i + 1) * BD;
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
       const int row0 = tile * R;
-      a.dyn.fwd(yi, fi, row0, min(R, a.B - row0), t, dt_eff, yn, kn,
+      a.dyn.fwd(yi, fi, row0, min(R, a.B - row0), i, a.B, t, dt_eff, yn, kn,
                 part + 3 * tile, a.D, a.rtol, a.atol, smem);
     }
     grid.sync();
@@ -684,25 +706,39 @@ extern "C" {
 // rows at or before t0 (in), [1] the rows written (out); ys: (n_save, B, D),
 // ys_init in, the saved states out (all three null when n_save is 0). hy,
 // hf: (S+1, B, D). streams: (11, S), zeroed by the caller. final: (6,).
-// partials: (2, ceil(B/4), 3) scratch.
+// partials: (2, ceil(B/4), 3) scratch. ks: (S, 6, B, D) and hs: (S, 6, B,
+// H), the stage residuals out (both null: no stream).
 int regnde_whole_solve_fwd(const float* scalars, const float* y0,
                            const float* f0, const float* W1, const float* b1,
                            const float* W2, const float* b2,
                            const float* saveat, int* cursors, float* ys,
+                           float* ks, float* hs,
                            float* y1, float* hy, float* hf, float* streams,
                            float* final_, float* partials, int B, int D, int H,
                            int S, int n_save, float rtol, float atol,
                            float beta1, float beta2, float qmin, float qmax,
                            float gamma, float qoldinit, float qsteady_max,
                            void* stream) {
-  FwdArgs<MlpDyn> a{scalars, y0, f0,
-                    MlpDyn{W1, b1, W2, b2, nullptr, nullptr, nullptr, nullptr, H},
-                    Saves{saveat, cursors, ys, n_save}, y1, hy, hf, streams,
-                    final_, partials, B, D, S, rtol, atol,
-                    make_ctrl(beta1, beta2, qmin, qmax, gamma, qoldinit, qsteady_max)};
-  return (int)launch_cooperative((const void*)whole_solve_fwd_kernel<MlpDyn>, &a,
-                                 fwd_smem_bytes(D, H), (B + kFwdRows - 1) / kFwdRows,
-                                 static_cast<cudaStream_t>(stream), nullptr);
+  if (!ks != !hs) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Ctrl ctrl = make_ctrl(beta1, beta2, qmin, qmax, gamma, qoldinit, qsteady_max);
+  const int ntiles = (B + kFwdRows - 1) / kFwdRows;
+  if (ks) {
+    FwdArgs<MlpDyn<true>> a{scalars, y0, f0,
+                            MlpDyn<true>{W1, b1, W2, b2, ks, hs, nullptr, nullptr, nullptr,
+                                         nullptr, H},
+                            Saves{saveat, cursors, ys, n_save}, y1, hy, hf, streams,
+                            final_, partials, B, D, S, rtol, atol, ctrl};
+    return (int)launch_cooperative((const void*)whole_solve_fwd_kernel<MlpDyn<true>>, &a,
+                                   fwd_smem_bytes(D, H, 6), ntiles, s, nullptr);
+  }
+  FwdArgs<MlpDyn<false>> a{scalars, y0, f0,
+                           MlpDyn<false>{W1, b1, W2, b2, nullptr, nullptr, nullptr,
+                                         nullptr, nullptr, nullptr, H},
+                           Saves{saveat, cursors, ys, n_save}, y1, hy, hf, streams,
+                           final_, partials, B, D, S, rtol, atol, ctrl};
+  return (int)launch_cooperative((const void*)whole_solve_fwd_kernel<MlpDyn<false>>, &a,
+                                 fwd_smem_bytes(D, H), ntiles, s, nullptr);
 }
 
 // K3 for AlternatingMLP: as regnde_whole_solve_fwd with the leaves as a
@@ -735,10 +771,12 @@ int regnde_whole_solve_altmlp_fwd(const float* scalars, const float* y0,
 // in, ct_y0 out; ct_f: zeros in, ct_f0 out. ct_scalars: (3,) ct_t0, ct_t1,
 // ct_dt0 out. Weight cotangents in nn.Linear layout. Scratch: partials (2,
 // ceil(B/2), 4), hdy, hdf (B, D; null without saveat), cp2 (6 B ns, D), he
-// (6 B ns, H+2), cp1 (6 B ns, H), ye (6 B ns, D+2).
+// (6 B ns, H+2), cp1 (6 B ns, H), ye (6 B ns, D+2). ks, hs: the forward's
+// stage residuals (both null: replay the stages).
 int regnde_whole_solve_bwd(const float* scalars, const float* streams,
                            const float* hy, const float* hf, const float* W1,
                            const float* b1, const float* W2, const float* b2,
+                           const float* ks, const float* hs,
                            const float* saveat, int* cursors, float* ct_ys,
                            const float* ct_tel, float* ct_y, float* ct_f,
                            float* cW1, float* cb1, float* cW2, float* cb2,
@@ -748,15 +786,28 @@ int regnde_whole_solve_bwd(const float* scalars, const float* streams,
                            int n_save, float rtol, float atol, float beta1,
                            float beta2, float qmin, float qmax, float gamma,
                            float qoldinit, float qsteady_max, void* stream) {
+  if (!ks != !hs) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  BwdArgs<MlpDyn> a{scalars, streams, hy, hf,
-                    MlpDyn{W1, b1, W2, b2, cp2, he, cp1, ye, H},
-                    Saves{saveat, cursors, ct_ys, n_save}, ct_tel, ct_y, ct_f,
-                    ct_scalars, partials, hdy, hdf, ns, B, D, S, rtol, atol,
-                    make_ctrl(beta1, beta2, qmin, qmax, gamma, qoldinit, qsteady_max)};
-  cudaError_t e = launch_cooperative((const void*)whole_solve_bwd_kernel<MlpDyn>, &a,
-                                     bwd_smem_bytes(D, H),
-                                     (B + kBwdRows - 1) / kBwdRows, s, nullptr);
+  const Ctrl ctrl = make_ctrl(beta1, beta2, qmin, qmax, gamma, qoldinit, qsteady_max);
+  const int ntiles = (B + kBwdRows - 1) / kBwdRows;
+  cudaError_t e;
+  if (ks) {
+    BwdArgs<MlpDyn<true>> a{scalars, streams, hy, hf,
+                            MlpDyn<true>{W1, b1, W2, b2, const_cast<float*>(ks),
+                                         const_cast<float*>(hs), cp2, he, cp1, ye, H},
+                            Saves{saveat, cursors, ct_ys, n_save}, ct_tel, ct_y, ct_f,
+                            ct_scalars, partials, hdy, hdf, ns, B, D, S, rtol, atol, ctrl};
+    e = launch_cooperative((const void*)whole_solve_bwd_kernel<MlpDyn<true>>, &a,
+                           bwd_smem_bytes(D, H), ntiles, s, nullptr);
+  } else {
+    BwdArgs<MlpDyn<false>> a{scalars, streams, hy, hf,
+                             MlpDyn<false>{W1, b1, W2, b2, nullptr, nullptr, cp2, he, cp1,
+                                           ye, H},
+                             Saves{saveat, cursors, ct_ys, n_save}, ct_tel, ct_y, ct_f,
+                             ct_scalars, partials, hdy, hdf, ns, B, D, S, rtol, atol, ctrl};
+    e = launch_cooperative((const void*)whole_solve_bwd_kernel<MlpDyn<false>>, &a,
+                           bwd_smem_bytes(D, H), ntiles, s, nullptr);
+  }
   if (e != cudaSuccess) return (int)e;
   return (int)launch_weight_cotangents(cp2, he, cp1, ye, cW1, cb1, cW2, cb2,
                                        6 * B * ns, D, H, s);

@@ -33,8 +33,8 @@ _SIGNATURES = {
     "regnde_bwd_rows": [],
     "regnde_normed_fwd": [_P] * 12 + [_I, _I, _I, _F, _F, _P],
     "regnde_normed_bwd": [_P] * 23 + [_I, _I, _I, _F, _F, _P],
-    "regnde_whole_solve_fwd": [_P] * 16 + [_I] * 5 + [_F] * 9 + [_P],
-    "regnde_whole_solve_bwd": [_P] * 26 + [_I] * 6 + [_F] * 9 + [_P],
+    "regnde_whole_solve_fwd": [_P] * 18 + [_I] * 5 + [_F] * 9 + [_P],
+    "regnde_whole_solve_bwd": [_P] * 28 + [_I] * 6 + [_F] * 9 + [_P],
     "regnde_whole_solve_altmlp_fwd": [_P] * 4 + [_I] + [_P] * 9 + [_I] * 5 + [_F] * 9 + [_P],
     "regnde_whole_solve_altmlp_bwd": [_P] * 5 + [_I] + [_P] * 12 + [_I] * 6 + [_F] * 9 + [_P],
     "regnde_altmlp_rows": [],

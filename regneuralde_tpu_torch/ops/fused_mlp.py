@@ -106,6 +106,25 @@ def _recompute(t, dt, y, k1, parts):
     return ks, hs
 
 
+def _reference_normed_sweep_res(t, dt, y, k1, parts, rtol, atol):
+    """The normed trial step with its stage residuals
+    (``pallas_mlp.make_normed_algebra_fwd_res``): ``(outs, (ks, hs))``,
+    ``outs`` bitwise ``_reference_normed_sweep``'s quintuple and ``(ks,
+    hs)`` bitwise ``_recompute``'s, so ``_normed_bwd_math(res=)`` given
+    them equals the call that recomputes them."""
+    ks, hs = _recompute(t, dt, y, k1, parts)
+    y_new = y + dt * _stage_acc(6, ks)
+    g6 = y + dt * _stage_acc(5, ks)
+    err = dt * _err_comb(ks)
+    denom = atol + torch.maximum(torch.abs(y), torch.abs(y_new)) * rtol
+    scaled = err / denom
+    dk = ks[6] - ks[5]
+    dg = y_new - g6
+    outs = (y_new, ks[6], torch.sum(scaled * scaled), torch.sum(dk * dk),
+            torch.sum(dg * dg))
+    return outs, (ks, hs)
+
+
 def _err_comb(ks):
     """``sum_{j>=1} btilde_j (k_j - k1)``, the embedded error over dt."""
     s_comb = TSIT5.btilde[1] * (ks[1] - ks[0])
@@ -183,17 +202,22 @@ def _bwd_math(t, dt, y, k1, parts, cts):
                            torch.sum(cerr * _err_comb(ks)), torch.zeros_like(y))
 
 
-def _normed_bwd_math(t, dt, y, k1, parts, cts, rtol, atol):
+def _normed_bwd_math(t, dt, y, k1, parts, cts, rtol, atol, res=None):
     """Plain version of K2: the hand reverse chain of the normed step.
 
     Maps ``cts = (ct_y_new, ct_k7, ct_err_ssq, ct_num_ssq, ct_den_ssq)``
     to ``(ct_t, ct_dt, ct_y, ct_k1, (cW1, cb1, cW2, cb2))``. All of the
     ``max(|y|, |y_new|)`` subgradient goes to ``y`` on ties, as in
     ``pallas_mlp._normed_bwd_math``; ``torch.autograd`` of the plain
-    forward would split it."""
+    forward would split it. ``res``, when given, is ``(ks, hs)`` from
+    ``_reference_normed_sweep_res`` on the same inputs (``ks`` k1 first):
+    the stages are then not recomputed."""
     tab = TSIT5
     cyn, ck7, ct_errssq, ct_numssq, ct_denssq = cts
-    ks, hs = _recompute(t, dt, y, k1, parts)
+    if res is None:
+        ks, hs = _recompute(t, dt, y, k1, parts)
+    else:
+        ks, hs = list(res[0]), list(res[1])
     y_new = y + dt * _stage_acc(6, ks)
 
     s_comb = _err_comb(ks)

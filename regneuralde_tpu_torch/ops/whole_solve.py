@@ -20,6 +20,14 @@ tiled engine's choice, ``pallas_solve.py`` ``make_whole_solve_tiled``) and
 re-runs the scalar chain only to pull cotangents back through it, with the
 hand pullback ``ode.post_bwd``.
 
+For ``MLPDynamics`` the forward also streams each trial step's stage
+residuals, the six fresh stage derivatives ``ks`` and hidden activations
+``hs`` (``make_whole_solve(cache_residuals=True)``, which JAX's
+``whole_solve_odeint`` turns on for this dynamics): the backward feeds
+them to the trial step's hand pullback and never re-runs the stage sweep.
+``cache_residuals=False`` keeps the replay; it serves only to check the
+stream against it, bitwise.
+
 Each kernel has a plain version with the same algebra and the same output
 buffers, over the dynamics' plain trial-step pair (``plain_steps``):
 ``plain_whole_solve_fwd`` (the trial-step loop of ``ode._solve_forward``
@@ -46,6 +54,7 @@ from regneuralde_tpu_torch.ops import fused_mlp as fm
 from regneuralde_tpu_torch.ops.controller import PIController
 from regneuralde_tpu_torch.ops.ode import (
     AdjointCarry,
+    NormedSweep,
     ODESolution,
     StepTelemetry,
     _HermiteSaver,
@@ -94,7 +103,14 @@ class SolveRecord(NamedTuple):
     without ``saveat``) and ``cursors`` (int32) the save cursors ``(cur0,
     curf)``: rows ``[0, cur0)`` lie at or before ``t0`` and keep
     ``ys_init``, rows ``[cur0, curf)`` were written, later rows were not
-    reached and keep ``ys_init``."""
+    reached and keep ``ys_init``.
+
+    ``ks`` ``(S, 6, B, D)`` and ``hs`` ``(S, 6, B, H)`` are the stage
+    residuals of ``MLPDynamics``: row ``i`` holds trial step ``i``'s six
+    fresh stage derivatives ``k2..k7`` and each stage's hidden activations,
+    rejected steps included, as the rows of ``hy``/``hf``; rows past
+    ``ns`` are undefined. Both are empty (shape ``(0,)``) for
+    ``"altmlp"`` and ``"csl"``, and for a solve without the stream."""
 
     y1: torch.Tensor
     hy: torch.Tensor
@@ -103,6 +119,8 @@ class SolveRecord(NamedTuple):
     final: torch.Tensor
     ys: torch.Tensor
     cursors: torch.Tensor
+    ks: torch.Tensor
+    hs: torch.Tensor
 
 
 def plain_steps(dynamics: str, rtol, atol):
@@ -122,6 +140,12 @@ def plain_steps(dynamics: str, rtol, atol):
     raise ValueError(f"dynamics must be one of {DYNAMICS}, got {dynamics!r}")
 
 
+def _streams_residuals(dynamics, cache_residuals):
+    """Whether the solve streams the stage residuals: ``MLPDynamics``
+    only, the one dynamics with a hand pullback that takes them."""
+    return cache_residuals and dynamics == "mlp"
+
+
 def _rows_through(saveat, t, tdir):
     """The save times at or before ``t`` in the direction ``tdir`` (int32,
     0-d), on ``saveat``'s device."""
@@ -135,10 +159,20 @@ def _rows_through(saveat, t, tdir):
 
 def plain_whole_solve_fwd(t0, t1, dt0, y0, f0, leaves, rtol, atol,
                           ctrl: PIController, max_steps: int, *, dynamics="mlp",
-                          saveat=None, ys_init=None) -> SolveRecord:
+                          saveat=None, ys_init=None, cache_residuals=True) -> SolveRecord:
     """Plain version of K3: the trial-step loop over the dynamics' plain
-    trial step, with the Hermite writes of ``ode._HermiteSaver``."""
+    trial step, with the Hermite writes of ``ode._HermiteSaver``; for
+    ``MLPDynamics`` with ``cache_residuals``, each trial step's stage
+    residuals from ``fm._reference_normed_sweep_res``."""
     sweep, _ = plain_steps(dynamics, rtol, atol)
+    stream = _streams_residuals(dynamics, cache_residuals)
+    res_rows = []
+    if stream:
+        def sweep(t, dt, y, k1, lv):
+            outs, res = fm._reference_normed_sweep_res(
+                t, dt, y, k1, fm._split_params(*lv), float(rtol), float(atol))
+            res_rows.append(res)
+            return NormedSweep(*outs)
     k_last = {}
     saver = None
     if saveat is not None:
@@ -162,6 +196,12 @@ def plain_whole_solve_fwd(t0, t1, dt0, y0, f0, leaves, rtol, atol,
         streams[ST_ACC, i] = float(accepted[i])
         streams[TEL_T:, i] = torch.stack(rows[i])
     hy[ns] = y1
+    ks = hs = y0.new_zeros((0,))
+    if stream:
+        ks = y0.new_zeros((max_steps, 6) + tuple(y0.shape))
+        hs = y0.new_zeros((max_steps, 6, y0.shape[0], leaves[0].shape[0]))
+        for i, (k, h) in enumerate(res_rows):
+            ks[i], hs[i] = torch.stack(k[1:]), torch.stack(h)
     if ns:
         hf[ns] = k_last[ns - 1] if accepted[-1] else hf[ns - 1]
         # the loop's final (t, dt, qold): the last step's scalar chain again
@@ -185,19 +225,24 @@ def plain_whole_solve_fwd(t0, t1, dt0, y0, f0, leaves, rtol, atol,
         tdir = torch.sign(t1 - t0)
         cursors = torch.stack((_rows_through(saveat, t0, tdir),
                                _rows_through(saveat, t, tdir)))
-    return SolveRecord(y1, hy, hf, streams, final, ys, cursors.to(y0.device))
+    return SolveRecord(y1, hy, hf, streams, final, ys, cursors.to(y0.device), ks, hs)
 
 
 def plain_whole_solve_bwd(rec: SolveRecord, ns: int, ct_y1, ct_tel, t0, t1,
                           leaves, rtol, atol, ctrl: PIController, *,
-                          dynamics="mlp", saveat=None, ct_ys=None):
+                          dynamics="mlp", saveat=None, ct_ys=None, cache_residuals=True):
     """Plain version of K4: the reverse walk over ``rec``'s ``ns`` trial
     steps, ``post_bwd`` for the scalar chain, ``ode.hermite_pullback`` for
     the ``saveat`` rows (cotangent ``ct_ys``) and the dynamics' plain
-    reverse for the trial step. ``ct_tel`` is ``(4, S)``, the cotangents of
-    the telemetry streams ``t, dt, eest, eigen_est``. Returns ``(ct_t0,
-    ct_t1, ct_dt0, ct_y0, ct_f0, ct_ys_init, *ct_leaves)``."""
+    reverse for the trial step, fed ``rec``'s stage residuals for
+    ``MLPDynamics`` with ``cache_residuals`` (else it recomputes them).
+    ``ct_tel`` is ``(4, S)``, the cotangents of the telemetry streams ``t,
+    dt, eest, eigen_est``. Returns ``(ct_t0, ct_t1, ct_dt0, ct_y0, ct_f0,
+    ct_ys_init, *ct_leaves)``."""
     _, sweep_bwd = plain_steps(dynamics, rtol, atol)
+    stream = _streams_residuals(dynamics, cache_residuals)
+    if stream:
+        _check_residuals(rec, ns)
     tdir = torch.sign(t1 - t0)
     span = torch.abs(t1 - t0)
     count = float(rec.y1.numel())
@@ -222,7 +267,13 @@ def plain_whole_solve_bwd(rec: SolveRecord, ns: int, ct_y1, ct_tel, t0, t1,
             interp, ct_ys = hermite_pullback(
                 saveat, tdir, t1, is_last,
                 (t_i, dt_eff, rec.hy[i], rec.hy[i + 1], rec.hf[i], rec.hf[i + 1]), ct_ys)
-        carry = adjoint_step(sweep_bwd, leaves, (t_i, dt_eff, rec.hy[i], rec.hf[i]),
+        step_bwd = sweep_bwd
+        if stream:
+            def step_bwd(t, dt, y, k1, lv, cts, _i=i):
+                res = ([k1, *rec.ks[_i].unbind(0)], rec.hs[_i].unbind(0))
+                return fm._normed_bwd_math(t, dt, y, k1, fm._split_params(*lv), tuple(cts),
+                                           float(rtol), float(atol), res=res)
+        carry = adjoint_step(step_bwd, leaves, (t_i, dt_eff, rec.hy[i], rec.hf[i]),
                              accepted[i], is_last, dp, ct_tel[1, i], carry, interp)
     out = carry.finish(tdir)
     return (*out[:5], ct_ys, *out[5:])
@@ -255,6 +306,15 @@ def _check_dims(dynamics, y, k1, leaves):
     raise ValueError(f"dynamics must be one of {DYNAMICS}, got {dynamics!r}")
 
 
+def _check_residuals(rec, ns):
+    """A streamed backward needs the forward's stage residuals: it never
+    falls back to the replay."""
+    if rec.ks.dim() != 4 or rec.hs.dim() != 4 or rec.ks.shape[0] < ns:
+        raise ValueError("the record holds no stage residuals for its trial steps: "
+                         "run the forward with cache_residuals=True, or the backward "
+                         "with cache_residuals=False")
+
+
 def _check_tensor(name, x, shape, like, dtype=torch.float32):
     if (x.device != like.device or x.dtype != dtype or tuple(x.shape) != tuple(shape)
             or not x.is_contiguous()):
@@ -275,7 +335,7 @@ def _tile_rows(lib, dynamics, direction):
 
 
 def _cuda_whole_solve_fwd(t0, t1, dt0, y0, f0, leaves, rtol, atol, ctrl,
-                          max_steps, dynamics, saveat, ys_init):
+                          max_steps, dynamics, saveat, ys_init, cache_residuals):
     from regneuralde_tpu_torch.ops import _cuda
 
     B, D, H, depth, kinetic = _check_dims(dynamics, y0, f0, leaves)
@@ -301,6 +361,14 @@ def _cuda_whole_solve_fwd(t0, t1, dt0, y0, f0, leaves, rtol, atol, ctrl,
     hf = torch.empty_like(hy)
     streams = torch.zeros((N_STREAMS, max_steps), device=dev)
     final = torch.empty(6, device=dev)
+    # the stage residuals at max_steps rows: the step count is known only
+    # after the solve
+    ks = hs = y0.new_empty((0,))
+    res = (None, None)
+    if _streams_residuals(dynamics, cache_residuals):
+        ks = torch.empty((max_steps, 6, B, D), device=dev)
+        hs = torch.empty((max_steps, 6, B, H), device=dev)
+        res = (ks, hs)
     rows = _tile_rows(lib, dynamics, "fwd")
     partials = torch.empty((2, (B + rows - 1) // rows, 3), device=dev)
     tail = (ptr(y1), ptr(hy), ptr(hf), ptr(streams), ptr(final), ptr(partials), B, D,
@@ -308,7 +376,8 @@ def _cuda_whole_solve_fwd(t0, t1, dt0, y0, f0, leaves, rtol, atol, ctrl,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if dynamics == "mlp":
         code = lib.regnde_whole_solve_fwd(ptr(scalars), ptr(y0), ptr(f0),
-                                          *map(ptr, leaves), *save_ptrs, *tail)
+                                          *map(ptr, leaves), *save_ptrs,
+                                          *map(_opt_ptr, res), *tail)
         name = "whole_solve_fwd"
     else:
         head = (ptr(scalars), ptr(y0), ptr(f0),
@@ -320,11 +389,11 @@ def _cuda_whole_solve_fwd(t0, t1, dt0, y0, f0, leaves, rtol, atol, ctrl,
         name = f"whole_solve_{dynamics}_fwd"
     _cuda.check(code, "whole-solve forward kernel")
     LAUNCHES[name] += 1
-    return SolveRecord(y1, hy, hf, streams, final, ys, cursors)
+    return SolveRecord(y1, hy, hf, streams, final, ys, cursors, ks, hs)
 
 
 def _cuda_whole_solve_bwd(rec, ns, ct_y1, ct_tel, t0, t1, leaves, rtol, atol,
-                          ctrl, dynamics, saveat, ct_ys):
+                          ctrl, dynamics, saveat, ct_ys, cache_residuals):
     from regneuralde_tpu_torch.ops import _cuda
 
     y1 = rec.y1
@@ -337,6 +406,12 @@ def _cuda_whole_solve_bwd(rec, ns, ct_y1, ct_tel, t0, t1, leaves, rtol, atol,
         _check_tensor(name, x, shape, y1)
     if not 0 <= ns <= S:
         raise ValueError(f"ns must lie in [0, {S}], got {ns}")
+    res = (None, None)
+    if _streams_residuals(dynamics, cache_residuals):
+        _check_residuals(rec, ns)
+        _check_tensor("ks", rec.ks, (S, 6, B, D), y1)
+        _check_tensor("hs", rec.hs, (S, 6, B, H), y1)
+        res = (rec.ks, rec.hs)
     dev = y1.device
     hdy = hdf = None
     if n_save:
@@ -368,7 +443,8 @@ def _cuda_whole_solve_bwd(rec, ns, ct_y1, ct_tel, t0, t1, leaves, rtol, atol,
         K = 6 * B * ns
         wrows = [torch.empty((K, w), device=dev) for w in (D, H + 2, H, D + 2)]
         code = lib.regnde_whole_solve_bwd(
-            *head, *map(ptr, leaves), *save_ptrs, *mid, *map(ptr, ct_leaves),
+            *head, *map(ptr, leaves), *map(_opt_ptr, res), *save_ptrs, *mid,
+            *map(ptr, ct_leaves),
             ptr(ct_scalars), ptr(partials), _opt_ptr(hdy), _opt_ptr(hdf),
             *map(ptr, wrows), *tail)
         name = "whole_solve_bwd"
@@ -398,33 +474,37 @@ def _cuda_whole_solve_bwd(rec, ns, ct_y1, ct_tel, t0, t1, leaves, rtol, atol,
 
 def whole_solve_fwd(t0, t1, dt0, y0, f0, leaves: Sequence[torch.Tensor], rtol,
                     atol, ctrl: PIController, max_steps: int, *, dynamics="mlp",
-                    saveat=None, ys_init=None) -> SolveRecord:
+                    saveat=None, ys_init=None, cache_residuals=True) -> SolveRecord:
     """K3 or its plain version: the whole forward solve of ``dynamics``
     (``"mlp"``, ``"altmlp"`` or ``"csl"``), writing the ``saveat`` rows over
-    ``ys_init`` (by default ``ode.saveat_rows``'s)."""
+    ``ys_init`` (by default ``ode.saveat_rows``'s) and, for ``"mlp"`` with
+    ``cache_residuals``, the stage residuals ``ks``/``hs``."""
     if saveat is not None and ys_init is None:
         saveat, ys_init = saveat_rows(saveat, t0, t1, y0)
     args = (t0, t1, dt0, y0, f0, tuple(leaves), rtol, atol, ctrl, max_steps)
     if y0.device.type == "cuda":
-        return _cuda_whole_solve_fwd(*args, dynamics, saveat, ys_init)
+        return _cuda_whole_solve_fwd(*args, dynamics, saveat, ys_init, cache_residuals)
     if y0.device.type == "cpu":
         return plain_whole_solve_fwd(*args, dynamics=dynamics, saveat=saveat,
-                                     ys_init=ys_init)
+                                     ys_init=ys_init, cache_residuals=cache_residuals)
     raise RuntimeError(f"no whole-solve forward for device {y0.device}")
 
 
 def whole_solve_bwd(rec: SolveRecord, ns: int, ct_y1, ct_tel, t0, t1,
                     leaves: Sequence[torch.Tensor], rtol, atol,
-                    ctrl: PIController, *, dynamics="mlp", saveat=None, ct_ys=None):
+                    ctrl: PIController, *, dynamics="mlp", saveat=None, ct_ys=None,
+                    cache_residuals=True):
     """K4 or its plain version: ``(ct_t0, ct_t1, ct_dt0, ct_y0, ct_f0,
     ct_ys_init, *ct_leaves)``; ``ct_ys`` is the cotangent of the
-    ``saveat`` rows."""
+    ``saveat`` rows. For ``"mlp"`` with ``cache_residuals`` it reads
+    ``rec``'s stage residuals (and raises if the record has none);
+    without, it re-runs each trial step's stage sweep."""
     args = (rec, ns, ct_y1, ct_tel, t0, t1, tuple(leaves), rtol, atol, ctrl)
     if ct_y1.device.type == "cuda":
-        return _cuda_whole_solve_bwd(*args, dynamics, saveat, ct_ys)
+        return _cuda_whole_solve_bwd(*args, dynamics, saveat, ct_ys, cache_residuals)
     if ct_y1.device.type == "cpu":
         return plain_whole_solve_bwd(*args, dynamics=dynamics, saveat=saveat,
-                                     ct_ys=ct_ys)
+                                     ct_ys=ct_ys, cache_residuals=cache_residuals)
     raise RuntimeError(f"no whole-solve backward for device {ct_y1.device}")
 
 

@@ -251,6 +251,81 @@ def test_whole_solve_kernels_are_deterministic(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(64, 40, 24), (13, 40, 24), (512, 784, 100)])
+def test_whole_solve_stream_rows_match_plain_capture(cuda, shape):
+    """K3's streamed stage residuals, teacher-forced: row ``i`` of ``ks``
+    and ``hs`` within 1e-4 (relative Frobenius, as K1's rows) of the plain
+    capture ``fm._reference_normed_sweep_res`` on trial step ``i``'s own
+    stored inputs, rejected steps included (the first trial step tries the
+    whole span and is rejected). Batch 13 leaves a ragged tile. The
+    flagship shape runs at its tolerance, 1.4e-8, and LeCun's scale (at
+    1e-4 it takes the whole span in one step), the others at 1e-4 and
+    three times that scale."""
+    flagship = shape[0] == 512
+    args = list(_solve_args(*shape, cuda, tol=1.4e-8 if flagship else 1e-4,
+                            scale=1.0 if flagship else 3.0))
+    args[2] = args[1] - args[0]
+    rec = ws.whole_solve_fwd(*args)
+    ns = int(rec.final[3:5].sum().item())
+    st = rec.streams
+    assert st[ws.ST_ACC, 0].item() == 0.0 and rec.final[5].item() == 1.0
+    assert rec.ks.shape == (96, 6, shape[0], shape[1])
+    assert rec.hs.shape == (96, 6, shape[0], shape[2])
+    parts = fm._split_params(*args[5])
+    for i in range(ns):
+        _, (ks, hs) = fm._reference_normed_sweep_res(st[ws.ST_T, i], st[ws.TEL_DT, i],
+                                                     rec.hy[i], rec.hf[i], parts, *args[6:8])
+        assert _rel(rec.ks[i], torch.stack(ks[1:])) <= 1e-4, i
+        assert _rel(rec.hs[i], torch.stack(hs)) <= 1e-4, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("saves", [False, True])
+@pytest.mark.parametrize("shape", [(64, 40, 24), (13, 40, 24)])
+def test_whole_solve_stream_backward_is_replay(cuda, shape, saves):
+    """K4 on K3's stage residuals against K4 replaying the stages
+    (``cache_residuals=False``) on the same record and cotangents (y1, the
+    telemetry, and with 4 saves theirs): every output bitwise. Batch 13
+    leaves a ragged tile, whose rows past the batch end the stream does
+    not hold."""
+    args = _solve_args(*shape, cuda, scale=3.0)
+    kw, bkw = {}, {}
+    if saves:
+        sa, ys_init = ode.saveat_rows(torch.tensor([0.25, 0.5, 0.75, 1.0], device=cuda),
+                                      args[0], args[1], args[3])
+        kw = dict(saveat=sa, ys_init=ys_init)
+    rec = ws.whole_solve_fwd(*args, **kw)
+    ns = int(rec.final[3:5].sum().item())
+    ct_y1, ct_tel = _bwd_seeds(shape[0], shape[1], cuda)
+    if saves:
+        bkw = dict(saveat=kw["saveat"], ct_ys=_bwd_seeds(4 * shape[0], shape[1], cuda,
+                                                         seed=2)[0].view(rec.ys.shape))
+    rest = (ct_y1, ct_tel, args[0], args[1], args[5], 1e-4, 1e-4, CTRL)
+    ws.reset_launches()
+    streamed = ws.whole_solve_bwd(rec, ns, *rest, **bkw)
+    replay = ws.whole_solve_bwd(rec, ns, *rest, **bkw, cache_residuals=False)
+    assert ws.LAUNCHES["whole_solve_bwd"] == 2
+    for a, b in zip(streamed, replay):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_whole_solve_stream_is_deterministic(cuda):
+    """The streamed pair run twice: K3's record, its stage residuals
+    included, and K4's outputs on it bitwise equal, with several tiles per
+    block (batch 1040)."""
+    args = _solve_args(1040, 64, 32, cuda)
+    a, b = ws.whole_solve_fwd(*args), ws.whole_solve_fwd(*args)
+    ns = int(a.final[3:5].sum().item())
+    assert torch.equal(a.streams, b.streams) and torch.equal(a.y1, b.y1)
+    assert torch.equal(a.ks[:ns], b.ks[:ns]) and torch.equal(a.hs[:ns], b.hs[:ns])
+    ct_y1, ct_tel = _bwd_seeds(1040, 64, cuda)
+    rest = (ct_y1, ct_tel, args[0], args[1], args[5], 1e-4, 1e-4, CTRL)
+    ga, gb = ws.whole_solve_bwd(a, ns, *rest), ws.whole_solve_bwd(b, ns, *rest)
+    assert all(torch.equal(u, v) for u, v in zip(ga, gb))
+
+
+@pytest.mark.cuda
 def test_whole_solve_wrappers_refuse_bad_inputs(cuda):
     args = list(_solve_args(8, 16, 12, cuda))
     y0 = args[3]
@@ -268,6 +343,10 @@ def test_whole_solve_wrappers_refuse_bad_inputs(cuda):
         ws.whole_solve_bwd(rec, ns, ct_y1, ct_tel.cpu(), *rest)
     with pytest.raises(TypeError):
         ws.whole_solve_bwd(rec, ns, ct_y1.double(), ct_tel, *rest)
+    # the streamed backward takes no record without the stage residuals
+    bare = ws.whole_solve_fwd(*args, cache_residuals=False)
+    with pytest.raises(ValueError, match="stage residuals"):
+        ws.whole_solve_bwd(bare, ns, ct_y1, ct_tel, *rest)
 
 
 @pytest.mark.cuda

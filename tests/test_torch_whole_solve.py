@@ -269,7 +269,9 @@ def test_plain_whole_solve_edge_cases(tspan, max_steps):
 def test_plain_whole_solve_record():
     """The forward record: streams past the last trial step are zero, the
     history holds each step's start state, and ``final`` the step counts
-    and the loop's last (t, dt, qold)."""
+    and the loop's last (t, dt, qold). The stage residuals ``ks``/``hs``
+    have ``max_steps`` rows, zero past the last trial step, and row ``i``
+    holds trial step ``i``'s six stages of the plain sweep."""
     gen = torch.Generator().manual_seed(0)
     leaves = [p.detach() for p in MLPDynamics(DIM, HIDDEN, generator=gen, device="cpu").parameters()]
     y0 = torch.from_numpy(_batch(4)[0])
@@ -290,6 +292,14 @@ def test_plain_whole_solve_record():
     torch.testing.assert_close(st[ws.ST_T, 1:ns][acc], st[ws.TEL_T, :ns - 1][acc],
                                rtol=0, atol=0)
     assert dt_f > 0 and qold_f > 0
+    assert rec.ks.shape == (MAX_STEPS, 6, 4, DIM) and rec.hs.shape == (MAX_STEPS, 6, 4, HIDDEN)
+    assert not rec.ks[ns:].any() and not rec.hs[ns:].any()
+    for i in (0, ns - 1):
+        _, (ks, hs) = fm._reference_normed_sweep_res(
+            st[ws.ST_T, i], st[ws.TEL_DT, i], rec.hy[i], rec.hf[i],
+            fm._split_params(*leaves), TOL, TOL)
+        assert torch.equal(rec.ks[i], torch.stack(ks[1:]))
+        assert torch.equal(rec.hs[i], torch.stack(hs))
 
 
 # ---------------------------------------------------------------------------
