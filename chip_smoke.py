@@ -2,8 +2,9 @@
 """Drive the PyTorch/CUDA port's MNIST Neural-ODE, latent-ODE, FFJORD, MNIST
 Neural-SDE and toy 2-D SDE training steps on one GPU, on the step kernels
 and on the whole solve, the MNIST Neural ODE with per-sample adaptive
-stepping, and on ``odeint``'s generic engine with the tuple trial step; and
-K15, the whole-solve feature probe.
+stepping, and on ``odeint``'s generic engine with the tuple trial step;
+K15, the whole-solve feature probe; and the weight-cotangent contraction
+that ends K2, K4, K12 and K14.
 
     python3 chip_smoke.py
 
@@ -21,7 +22,8 @@ at first use. Phases (each checks its results; any failure exits non-zero):
 4. three training steps of the flagship configuration (Tsit5 at
    rtol=atol=1.4e-8, max_steps=96, batch 512, CE + 100 * error_estimate,
    InvDecay(1e-5) then Momentum(0.1, 0.9)) on ``fused="step"``, with the
-   step kernels' launch counts;
+   step kernels' launch counts (each K2 ends in one launch of the
+   weight-cotangent contraction, phase 31, as do K4, K12 and K14);
 5. the whole-solve kernels K3/K4 against their plain versions at
    512x784x100 on seeded random weights and inputs: K3's streamed stage
    residuals (``ks``/``hs``) of every trial step, teacher-forced, within
@@ -141,10 +143,18 @@ at first use. Phases (each checks its results; any failure exits non-zero):
    ``fused=True`` from the same weights on the same draws: one cubic K9
    and one cubic K10 launch a step on ``True`` and no other kernel, none
    on ``False``; step by step the same NFE and accepts, the loss within
-   1e-5 and the gradient within GRAD_BOUND; ms a step of both.
+   1e-5 and the gradient within GRAD_BOUND; ms a step of both;
+31. the weight-cotangent contraction (``csrc/weight_cotangents.cu``: K
+   split into chunks, the chunks summed in a fixed order) alone on seeded
+   random rows at 784x100, at K = 6 * 512 (K2's, K12's and K14's rows) and
+   6 * 512 * 33 (K4's at the flagship's 33 trial steps): within 3 times the
+   float32 ``torch.mm``'s distance from the float64 product plus 1e-7,
+   bitwise deterministic, CUDA-event times of the kernel, its plain version
+   and ``torch.mm`` (TF32 off), the record's ``library_ms``.
 
 Each line of the kernels' JSON record gives the kernel's launches on its
-main path (phases 4, 7, 10, 14, 18, 21, 24, 27, 28 and 30), its time and its plain version's
+main path (phases 4, 7, 10, 14, 18, 21, 24, 27, 28 and 30; the contraction's
+on phases 4, 7, 24 and 27), its time and its plain version's
 (CUDA events, median of 7), and its bound: the larger of its float32 operations
 over the card's f32 rate and its bytes over the memory rate. The last two
 lines of standard output are the kernels' JSON record and the device
@@ -247,9 +257,10 @@ def _counters():
     from regneuralde_tpu_torch.ops import fused_mlp_lanes as fl
     from regneuralde_tpu_torch.ops import sde_whole_solve as sw
     from regneuralde_tpu_torch.ops import spike_wholesolve as sp
+    from regneuralde_tpu_torch.ops import weight_cotangents as wc
     from regneuralde_tpu_torch.ops import whole_solve as ws
 
-    return fg, fm, ws, fc, sw, fl, sp
+    return fg, fm, ws, fc, sw, fl, sp, wc
 
 
 def _check(ok, what):
@@ -634,7 +645,8 @@ def phase_slice(device, batches, fused):
     """Three training steps of the flagship configuration on ``fused``.
     Returns the launch counts of the four kernels in those steps: each
     step kernel once per trial step on ``"step"``; each whole-solve
-    kernel once per training step on ``True``, and no step kernel."""
+    kernel once per training step on ``True``, and no step kernel; the
+    weight-cotangent contraction once per K2 or K4 launch."""
     import torch
 
     from regneuralde_tpu_torch.training import (
@@ -680,9 +692,11 @@ def phase_slice(device, batches, fused):
     _check(moved > 0.0, "the parameters moved")
     want = {k: 0 for k in launches}
     if fused == "step":
-        want.update(normed_tsit5_fwd=trial_steps, normed_tsit5_bwd=trial_steps)
+        want.update(normed_tsit5_fwd=trial_steps, normed_tsit5_bwd=trial_steps,
+                    weight_cotangents=trial_steps)
     else:
-        want.update(whole_solve_fwd=len(batches), whole_solve_bwd=len(batches))
+        want.update(whole_solve_fwd=len(batches), whole_solve_bwd=len(batches),
+                    weight_cotangents=len(batches))
     _check(launches == want, f"fused={fused!r}: launches {launches}, expected {want}")
     return launches
 
@@ -2189,7 +2203,8 @@ def phase_per_sample_slice(device, batches):
         _check(torch.equal(out.nfe, 2 + 6 * tel.live.sum(1)), "NFE = 2 + 6 * trial steps a lane")
         _check(torch.isfinite(out.logits).all().item(), "finite logits")
         want = {k: 0 for k in launches}
-        want.update(mlp_lanes_tsit5_fwd=iters, mlp_lanes_tsit5_bwd=iters)
+        want.update(mlp_lanes_tsit5_fwd=iters, mlp_lanes_tsit5_bwd=iters,
+                    weight_cotangents=iters)
         _check(launches == want, f"per-sample launches after step {i}: {launches}, "
                f"expected {want}")
     moved = max((p.detach() - b).abs().max().item()
@@ -2461,7 +2476,8 @@ def phase_tuple_slice(device, batches):
             _check(out.nfe == 2 + 6 * nlive, "NFE = 2 + 6 * trial steps")
             _check(torch.isfinite(out.logits).all().item(), "finite logits")
             want = {k: 0 for k in launches}
-            want.update(mlp_tsit5_fwd=2 * trial_steps, mlp_tsit5_bwd=trial_steps)
+            want.update(mlp_tsit5_fwd=2 * trial_steps, mlp_tsit5_bwd=trial_steps,
+                        weight_cotangents=trial_steps)
             _check(launches == want, f"{mode} launches after step {i}: {launches}, "
                    f"expected {want}")
         if mode == "adjoint":
@@ -2863,6 +2879,87 @@ def phase_sde_toy_slice(device, steps=3):
     return main_launches, walls
 
 
+# ---------------------------------------------------------------------------
+# The weight-cotangent contraction that ends K2, K4<MlpDyn>, K12 and K14
+# (phase 31).
+# ---------------------------------------------------------------------------
+
+# its rows at K2's, K12's and K14's 6 * B, and at K4's 6 * B * 33 (the
+# flagship's trial steps)
+WCOT_KS = (6 * BATCH, 6 * BATCH * 33)
+
+
+def _wcot_work(K, D, H):
+    """The contraction's f32 operations and bytes: two products over K rows
+    (2 K D (H+2) + 2 K H (D+2)), the rows read once and the four weight
+    cotangents written once."""
+    flops = 2 * K * (D * (H + 2) + H * (D + 2))
+    nbytes = 4 * (K * (2 * D + 2 * H + 4) + D * (H + 2) + H * (D + 2))
+    return flops, nbytes
+
+
+def phase_weight_cotangents(device):
+    """The contraction alone on seeded random rows at 784 x 100, at each K
+    of ``WCOT_KS``: each output within 3 times the float32 ``torch.mm``'s
+    distance from the float64 product plus 1e-7 (``torch.mm`` at
+    "highest", TF32 off), two runs bitwise equal, CUDA-event times of the
+    kernel, its plain version and the two ``torch.mm`` calls (the library
+    yardstick). The record's numbers are K4's K's."""
+    import torch
+
+    from regneuralde_tpu_torch.ops import weight_cotangents as wc
+
+    gen = torch.Generator().manual_seed(SEED + 41)
+    prev = torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for K in WCOT_KS:
+            rows = [torch.randn(K, w, generator=gen).to(device)
+                    for w in (DIM, HIDDEN + 2, HIDDEN, DIM + 2)]
+            cp2, he, cp1, ye = rows
+            got = wc.weight_cotangents(*rows)
+            again = wc.weight_cotangents(*rows)
+            plain = wc.weight_cotangents_plain(*rows)
+            torch.cuda.synchronize()
+            _check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                   f"contraction at K={K}: two runs bitwise equal")
+            errs = []
+            for a, b, main, last in ((cp2, he, got[2], got[3]), (cp1, ye, got[0], got[1])):
+                exact = torch.mm(a.double().t(), b.double())
+                mm = torch.mm(a.t(), b).double()
+                kern = torch.cat([main, last[:, None]], dim=1).double()
+                errs.append(((kern - exact).abs().max().item(),
+                             (mm - exact).abs().max().item()))
+                del exact
+            abs_err = max((a - b).abs().max().item() for a, b in zip(got, plain))
+            times = {
+                "kernel": _time_ms(lambda: wc.weight_cotangents(*rows)),
+                "plain": _time_ms(lambda: wc.weight_cotangents_plain(*rows)),
+                "torch_mm": _time_ms(lambda: (torch.mm(cp2.t(), he), torch.mm(cp1.t(), ye))),
+                # the two kernels' own time, without the wrapper's host work
+                "kernel_device": _device_ms(lambda: wc.weight_cotangents(*rows), "wcot_"),
+            }
+            flops, nbytes = _wcot_work(K, DIM, HIDDEN)
+            bound = _bound(nbytes, flops)
+            p = wc.plan(K, DIM, HIDDEN)
+            print(f"[wcot] K={K} ({p.nchunks} chunks of {p.chunk_rows} rows): distance from "
+                  f"float64 (kernel, torch.mm) cW2|cb2 {errs[0]!r}, cW1|cb1 {errs[1]!r}; "
+                  f"max abs err against the plain version {abs_err!r}; median ms over {REPS} "
+                  f"runs {json.dumps(times)}; bound {json.dumps(bound)}; "
+                  f"{flops / times['kernel'] / 1e9:.2f} TFLOP/s")
+            for d_kern, d_mm in errs:
+                _check(d_kern <= 3 * d_mm + 1e-7,
+                       f"contraction at K={K}: {d_kern} from float64, torch.mm {d_mm}")
+            del rows, cp2, he, cp1, ye, got, again, plain
+    finally:
+        torch.set_float32_matmul_precision(prev[0])
+        torch.backends.cuda.matmul.allow_tf32 = prev[1]
+    return {"weight_cotangents": dict(
+        replaces="regneuralde_tpu/ops/pallas_mlp.py:1263", max_abs_err=abs_err,
+        ms=times["kernel"], plain_ms=times["plain"], library_ms=times["torch_mm"], **bound)}
+
+
 def main():
     import torch
 
@@ -2888,9 +2985,11 @@ def main():
     kernels = phase_kernels(device)
     phase_kernel_vs_plain_step(device, batches[0], "step")
     launches = phase_slice(device, batches, "step")
+    wcot_paths = [dict(launches)]
     kernels.update(phase_whole_solve_kernels(device))
     phase_kernel_vs_plain_step(device, batches[0], True)
     whole = phase_slice(device, batches, True)
+    wcot_paths.append(whole)
     launches.update({k: whole[k] for k in ("whole_solve_fwd", "whole_solve_bwd")})
 
     kernels.update(phase_altmlp_kernels(device))
@@ -2936,6 +3035,7 @@ def main():
     kernels.update(phase_lanes_kernels(device))
     phase_per_sample_kernel_vs_plain_step(device, batches[0])
     lanes, _ = phase_per_sample_slice(device, batches)
+    wcot_paths.append(lanes)
     launches.update({k: lanes[k] for k in ("mlp_lanes_tsit5_fwd", "mlp_lanes_tsit5_bwd")})
 
     start = time.perf_counter()
@@ -2946,6 +3046,7 @@ def main():
     print(f"[phase 26] wall {time.perf_counter() - start:.1f} s")
     start = time.perf_counter()
     tup, _ = phase_tuple_slice(device, batches)
+    wcot_paths.append(tup)
     launches.update({k: tup[k] for k in ("mlp_tsit5_fwd", "mlp_tsit5_bwd")})
     print(f"[phase 27] wall {time.perf_counter() - start:.1f} s")
 
@@ -2962,6 +3063,12 @@ def main():
     launches.update({k: toy[k] for k in ("sde_whole_solve_cubic_fwd",
                                          "sde_whole_solve_cubic_bwd")})
     print(f"[phase 30] wall {time.perf_counter() - start:.1f} s")
+    start = time.perf_counter()
+    kernels.update(phase_weight_cotangents(device))
+    print(f"[phase 31] wall {time.perf_counter() - start:.1f} s")
+    # the contraction ends K2, K4<MlpDyn>, K12 and K14: its launches on
+    # their main paths (phases 4, 7, 24 and 27)
+    launches["weight_cotangents"] = sum(r["weight_cotangents"] for r in wcot_paths)
 
     sources = {"normed_tsit5_fwd": "normed_tsit5.cu", "normed_tsit5_bwd": "normed_tsit5.cu",
                "altmlp_tsit5_fwd": "altmlp_tsit5.cu", "altmlp_tsit5_bwd": "altmlp_tsit5.cu",
@@ -2973,7 +3080,8 @@ def main():
                "mlp_tsit5_fwd": "mlp_tsit5.cu", "mlp_tsit5_bwd": "mlp_tsit5.cu",
                "spike_wholesolve": "spike_wholesolve.cu",
                "sde_whole_solve_cubic_fwd": "sde_whole_solve.cu",
-               "sde_whole_solve_cubic_bwd": "sde_whole_solve.cu"}
+               "sde_whole_solve_cubic_bwd": "sde_whole_solve.cu",
+               "weight_cotangents": "weight_cotangents.cu"}
     record = {"kernels": [
         {"name": name, "route": "cuda",
          "source": "regneuralde_tpu_torch/csrc/" + sources.get(name, "whole_solve.cu"),
@@ -2982,8 +3090,8 @@ def main():
          "plain_ms": info["plain_ms"], "bound_ms": info["bound_ms"],
          "bound_by": info["bound_by"],
          # no single PyTorch call computes a Tsit5 or SRI trial step, a
-         # whole solve or K15's loop
-         "library_ms": None}
+         # whole solve or K15's loop; the contraction's is torch.mm's time
+         "library_ms": info.get("library_ms")}
         for name, info in kernels.items()]}
     print(smi)
     print(json.dumps(record))

@@ -34,7 +34,7 @@
 //     each block accumulates the weight cotangents of its rows in shared
 //     memory, each element owned by one thread, writes them to a per-block
 //     slot, and a second kernel sums the slots in block order (as
-//     atb_split_kernel sums its rows). No floating-point atomics anywhere,
+//     weight_cotangents.cu sums its chunks). No floating-point atomics anywhere,
 //     so every result is bitwise reproducible: the norm sums decide
 //     accept/reject, and a flipped accept changes NFE and the adjoint.
 // Arithmetic is IEEE (no fast math, no TF32), tanh is the accurate tanhf

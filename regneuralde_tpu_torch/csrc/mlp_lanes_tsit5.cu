@@ -37,7 +37,7 @@
 // its block (rows do not share a time); the weight cotangents, including
 // the time columns' (the per-row stage time against the pre-activation
 // cotangents), are the contractions of the stored per-stage rows that
-// atb_split_kernel sums in a fixed order. No floating-point atomics.
+// weight_cotangents.cu sums in a fixed order. No floating-point atomics.
 //
 // Making these fast (wgmma, TMA, f32 sums with the rounding checked) is
 // later work; the contractions here are plain FMA loops.
@@ -400,14 +400,15 @@ int regnde_lanes_fwd(const float* t, const float* dt, const float* y, const floa
 // K12. Cotangents of the five outputs (B, D) in; ct_y, ct_k1 (B, D), ct_t,
 // ct_dt (B,) and the weight cotangents in nn.Linear layout out: cW1
 // (H, D+1), cb1 (H), cW2 (D, H+1), cb2 (D). Scratch: cp2 (6B, D),
-// he (6B, H+2), cp1 (6B, H), ye (6B, D+2).
+// he (6B, H+2), cp1 (6B, H), ye (6B, D+2), and the contraction's wpart
+// (wpart_floats floats, chunks of chunk_rows rows; weight_cotangents.cu).
 int regnde_lanes_bwd(const float* t, const float* dt, const float* y, const float* k1,
                      const float* W1, const float* b1, const float* W2, const float* b2,
                      const float* ct_ynew, const float* ct_k7, const float* ct_err,
                      const float* ct_k6, const float* ct_g6, float* ct_y, float* ct_k1,
                      float* ct_t, float* ct_dt, float* cW1, float* cb1, float* cW2,
-                     float* cb2, float* cp2, float* he, float* cp1, float* ye, int B, int D,
-                     int H, void* stream) {
+                     float* cb2, float* cp2, float* he, float* cp1, float* ye, float* wpart,
+                     int B, int D, int H, int chunk_rows, int wpart_floats, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = lanes_bwd_smem_bytes(D, H);
   cudaError_t e = cudaFuncSetAttribute(
@@ -419,7 +420,8 @@ int regnde_lanes_bwd(const float* t, const float* dt, const float* y, const floa
       ct_dt, cp2, he, cp1, ye, B, D, H);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  return (int)launch_weight_cotangents(cp2, he, cp1, ye, cW1, cb1, cW2, cb2, 6 * B, D, H, s);
+  return (int)launch_weight_cotangents(cp2, he, cp1, ye, cW1, cb1, cW2, cb2, wpart, 6 * B, D, H,
+                                      chunk_rows, wpart_floats, s);
 }
 
 }  // extern "C"

@@ -27,7 +27,7 @@
 // sum(ct_err * err / dt) into ct_dt. The tile's (ct_t, ct_dt) go to a
 // (blocks, 2) buffer that one warp sums in block order; the weight
 // cotangents are the stored per-stage rows' contractions, summed in a fixed
-// order by atb_split_kernel. No floating-point atomics: both kernels are
+// order by weight_cotangents.cu. No floating-point atomics: both kernels are
 // bitwise deterministic, which the replay adjoint relies on (it recomputes
 // each step's accept flag from K13's rows).
 //
@@ -273,14 +273,16 @@ int regnde_mlp_tsit5_fwd(const float* t, const float* dt, const float* y, const 
 // K14. The five row cotangents (B, D) in; ct_y, ct_k1 (B, D), the weight
 // cotangents in nn.Linear layout (cW1 (H, D+1), cb1 (H), cW2 (D, H+1),
 // cb2 (D)) and ct_tdt (2,) = (ct_t, ct_dt) out. Scratch: partials
-// (ceil(B/2), 2), cp2 (6B, D), he (6B, H+2), cp1 (6B, H), ye (6B, D+2).
+// (ceil(B/2), 2), cp2 (6B, D), he (6B, H+2), cp1 (6B, H), ye (6B, D+2), and
+// the contraction's wpart (wpart_floats floats, chunks of chunk_rows rows).
 int regnde_mlp_tsit5_bwd(const float* t, const float* dt, const float* y, const float* k1,
                          const float* W1, const float* b1, const float* W2, const float* b2,
                          const float* ct_ynew, const float* ct_k7, const float* ct_err,
                          const float* ct_k6, const float* ct_g6, float* ct_y, float* ct_k1,
                          float* cW1, float* cb1, float* cW2, float* cb2, float* ct_tdt,
-                         float* partials, float* cp2, float* he, float* cp1, float* ye, int B,
-                         int D, int H, void* stream) {
+                         float* partials, float* cp2, float* he, float* cp1, float* ye,
+                         float* wpart, int B, int D, int H, int chunk_rows, int wpart_floats,
+                         void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = bwd_smem_bytes(D, H);
   cudaError_t e = cudaFuncSetAttribute(tuple_bwd_kernel,
@@ -295,7 +297,8 @@ int regnde_mlp_tsit5_bwd(const float* t, const float* dt, const float* y, const 
   tuple_reduce_kernel<<<1, 32, 0, s>>>(partials, nblocks, 2, ct_tdt);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  return (int)launch_weight_cotangents(cp2, he, cp1, ye, cW1, cb1, cW2, cb2, 6 * B, D, H, s);
+  return (int)launch_weight_cotangents(cp2, he, cp1, ye, cW1, cb1, cW2, cb2, wpart, 6 * B, D, H,
+                                      chunk_rows, wpart_floats, s);
 }
 
 }  // extern "C"

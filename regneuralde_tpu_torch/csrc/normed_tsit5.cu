@@ -29,8 +29,8 @@
 //     (blocks, q) buffer that a one-warp kernel reduces in block order;
 //   * the weight cotangents are batch reductions. The backward stores the
 //     per-stage rows they need (ct_pre2, [h, t_i, 1], ct_pre1,
-//     [y_i, t_i, 1]) and a tiled contraction kernel sums the 6*B rows in a
-//     fixed order, one output element per thread.
+//     [y_i, t_i, 1]) and weight_cotangents.cu's contraction sums the 6*B
+//     rows in chunks, and the chunks in a fixed order.
 // Every sum therefore has a fixed order and no floating-point atomics: the
 // norm sums decide accept/reject, and a flipped accept changes NFE and the
 // whole adjoint. All arithmetic is IEEE f32 on the FMA pipes (no TF32, no
@@ -126,14 +126,16 @@ int regnde_normed_fwd(const float* t, const float* dt, const float* y,
 // K2. ct_scalars: (3,) cotangents of the three sums. ct_tdt: (2,) ct_t,
 // ct_dt. Weight cotangents in nn.Linear layout: cW1 (H, D+1), cb1 (H),
 // cW2 (D, H+1), cb2 (D). Scratch: partials (ceil(B/2), 2), cp2 (6B, D),
-// he (6B, H+2), cp1 (6B, H), ye (6B, D+2).
+// he (6B, H+2), cp1 (6B, H), ye (6B, D+2), and the contraction's wpart
+// (wpart_floats floats, chunks of chunk_rows rows; weight_cotangents.cu).
 int regnde_normed_bwd(const float* t, const float* dt, const float* y,
                       const float* k1, const float* W1, const float* b1,
                       const float* W2, const float* b2, const float* ct_ynew,
                       const float* ct_k7, const float* ct_scalars, float* ct_y,
                       float* ct_k1, float* cW1, float* cb1, float* cW2,
                       float* cb2, float* ct_tdt, float* partials, float* cp2,
-                      float* he, float* cp1, float* ye, int B, int D, int H,
+                      float* he, float* cp1, float* ye, float* wpart, int B,
+                      int D, int H, int chunk_rows, int wpart_floats,
                       float rtol, float atol, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = bwd_smem_bytes(D, H);
@@ -150,7 +152,8 @@ int regnde_normed_bwd(const float* t, const float* dt, const float* y,
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return (int)launch_weight_cotangents(cp2, he, cp1, ye, cW1, cb1, cW2, cb2,
-                                      6 * B, D, H, s);
+                                      wpart, 6 * B, D, H, chunk_rows,
+                                      wpart_floats, s);
 }
 
 }  // extern "C"

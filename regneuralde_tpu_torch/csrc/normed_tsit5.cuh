@@ -1,13 +1,15 @@
 // Device code shared by the normed Tsit5 step kernels (normed_tsit5.cu,
 // K1/K2) and the whole-solve kernels (whole_solve.cu, K3/K4): the Tsit5
 // tableau, the MLPDynamics stage, the per-tile bodies of one normed trial
-// step and of its hand reverse, and the fixed-order contraction that sums
-// the weight cotangents. The whole solve's forward tile also streams the
-// trial step's stage residuals (ks, hs) out, and its reverse tile then
-// loads them instead of re-running the six stages.
+// step and of its hand reverse, and the launcher of the fixed-order
+// contraction that sums the weight cotangents (weight_cotangents.cu). The
+// whole solve's forward tile also streams the trial step's stage residuals
+// (ks, hs) out, and its reverse tile then loads them instead of re-running
+// the six stages.
 //
-// Everything sits in an anonymous namespace, so each .cu file that
-// includes it has its own copy and no relocatable device code is needed.
+// Everything but that contraction's C entry sits in an anonymous
+// namespace, so each .cu file that includes it has its own copy and no
+// relocatable device code is needed.
 //
 // Rows that a kernel writes and later reads again (the whole solve's
 // history and cotangent carries) are read with __ldcg, through L2, never
@@ -17,13 +19,19 @@
 
 #include <cuda_runtime.h>
 
+extern "C" int regnde_weight_cotangents(const float* cp2, const float* he,
+                                        const float* cp1, const float* ye,
+                                        float* cW1, float* cb1, float* cW2,
+                                        float* cb2, float* partials, int K,
+                                        int D, int H, int chunk_rows,
+                                        int partial_floats, void* stream);
+
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kFwdRows = 4;
 constexpr int kBwdRows = 2;
-constexpr int kTile = 32;
 
 // Tsit5 (regneuralde_tpu/ops/tableaus.py). Row i-1 of kA builds stage i.
 __constant__ float kA[6][6] = {
@@ -461,57 +469,20 @@ __device__ void normed_bwd_tile(const float* y, const float* k1, int row0,
   block_sum_to<2>(part, red, part_out);
 }
 
-// C[m, n] = sum_k A[k * M + m] * Bm[k * N + n] summed over k in order,
-// for m < M, n < N. Column n < N-1 goes to c_main (M x (N-1)), column
-// N-1 to c_last (M). 32 x 32 output tile per block, 4 outputs a thread.
-__global__ void __launch_bounds__(kThreads)
-atb_split_kernel(const float* __restrict__ A, const float* __restrict__ Bm,
-                 float* __restrict__ c_main, float* __restrict__ c_last,
-                 int M, int N, int K) {
-  __shared__ float As[kTile][kTile + 1];
-  __shared__ float Bs[kTile][kTile + 1];
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const int m0 = blockIdx.y * kTile, n0 = blockIdx.x * kTile;
-  float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int k0 = 0; k0 < K; k0 += kTile) {
-    for (int kk = ty; kk < kTile; kk += kWarps) {
-      const int k = k0 + kk;
-      As[kk][tx] = (k < K && m0 + tx < M) ? A[(size_t)k * M + m0 + tx] : 0.0f;
-      Bs[kk][tx] = (k < K && n0 + tx < N) ? Bm[(size_t)k * N + n0 + tx] : 0.0f;
-    }
-    __syncthreads();
-    for (int kk = 0; kk < kTile; ++kk) {
-      const float b = Bs[kk][tx];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) acc[q] += As[kk][ty + q * kWarps] * b;
-    }
-    __syncthreads();
-  }
-  const int n = n0 + tx;
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int m = m0 + ty + q * kWarps;
-    if (m >= M || n >= N) continue;
-    if (n < N - 1) c_main[(size_t)m * (N - 1) + n] = acc[q];
-    else c_last[m] = acc[q];
-  }
-}
-
 // The weight cotangents in nn.Linear layout from K rows of the stored
 // per-stage products: cW2 | cb2 = cp2^T [h, t_i, 1] and
-// cW1 | cb1 = cp1^T [y_i, t_i, 1].
-cudaError_t launch_weight_cotangents(const float* cp2, const float* he,
-                                     const float* cp1, const float* ye,
-                                     float* cW1, float* cb1, float* cW2,
-                                     float* cb2, int K, int D, int H,
-                                     cudaStream_t s) {
-  dim3 g2((H + 2 + kTile - 1) / kTile, (D + kTile - 1) / kTile);
-  atb_split_kernel<<<g2, kThreads, 0, s>>>(cp2, he, cW2, cb2, D, H + 2, K);
-  cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  dim3 g1((D + 2 + kTile - 1) / kTile, (H + kTile - 1) / kTile);
-  atb_split_kernel<<<g1, kThreads, 0, s>>>(cp1, ye, cW1, cb1, H, D + 2, K);
-  return cudaGetLastError();
+// cW1 | cb1 = cp1^T [y_i, t_i, 1], split over K into chunks of chunk_rows
+// rows summed in chunk order (weight_cotangents.cu; partials: its scratch,
+// partial_floats floats).
+inline cudaError_t launch_weight_cotangents(const float* cp2, const float* he,
+                                            const float* cp1, const float* ye,
+                                            float* cW1, float* cb1, float* cW2,
+                                            float* cb2, float* partials, int K,
+                                            int D, int H, int chunk_rows,
+                                            int partial_floats, cudaStream_t s) {
+  return static_cast<cudaError_t>(regnde_weight_cotangents(
+      cp2, he, cp1, ye, cW1, cb1, cW2, cb2, partials, K, D, H, chunk_rows,
+      partial_floats, s));
 }
 
 }  // namespace

@@ -771,8 +771,9 @@ int regnde_whole_solve_altmlp_fwd(const float* scalars, const float* y0,
 // in, ct_y0 out; ct_f: zeros in, ct_f0 out. ct_scalars: (3,) ct_t0, ct_t1,
 // ct_dt0 out. Weight cotangents in nn.Linear layout. Scratch: partials (2,
 // ceil(B/2), 4), hdy, hdf (B, D; null without saveat), cp2 (6 B ns, D), he
-// (6 B ns, H+2), cp1 (6 B ns, H), ye (6 B ns, D+2). ks, hs: the forward's
-// stage residuals (both null: replay the stages).
+// (6 B ns, H+2), cp1 (6 B ns, H), ye (6 B ns, D+2), and the contraction's
+// wpart (wpart_floats floats, chunks of chunk_rows rows; weight_cotangents.cu).
+// ks, hs: the forward's stage residuals (both null: replay the stages).
 int regnde_whole_solve_bwd(const float* scalars, const float* streams,
                            const float* hy, const float* hf, const float* W1,
                            const float* b1, const float* W2, const float* b2,
@@ -782,8 +783,9 @@ int regnde_whole_solve_bwd(const float* scalars, const float* streams,
                            float* cW1, float* cb1, float* cW2, float* cb2,
                            float* ct_scalars, float* partials, float* hdy,
                            float* hdf, float* cp2, float* he, float* cp1,
-                           float* ye, int ns, int B, int D, int H, int S,
-                           int n_save, float rtol, float atol, float beta1,
+                           float* ye, float* wpart, int ns, int B, int D, int H,
+                           int S, int n_save, int chunk_rows, int wpart_floats,
+                           float rtol, float atol, float beta1,
                            float beta2, float qmin, float qmax, float gamma,
                            float qoldinit, float qsteady_max, void* stream) {
   if (!ks != !hs) return (int)cudaErrorInvalidValue;
@@ -810,7 +812,8 @@ int regnde_whole_solve_bwd(const float* scalars, const float* streams,
   }
   if (e != cudaSuccess) return (int)e;
   return (int)launch_weight_cotangents(cp2, he, cp1, ye, cW1, cb1, cW2, cb2,
-                                       6 * B * ns, D, H, s);
+                                       wpart, 6 * B * ns, D, H, chunk_rows,
+                                       wpart_floats, s);
 }
 
 // K4 for AlternatingMLP, then the sum of its blocks' weight-cotangent

@@ -32,9 +32,9 @@ _SIGNATURES = {
     "regnde_fwd_rows": [],
     "regnde_bwd_rows": [],
     "regnde_normed_fwd": [_P] * 12 + [_I, _I, _I, _F, _F, _P],
-    "regnde_normed_bwd": [_P] * 23 + [_I, _I, _I, _F, _F, _P],
+    "regnde_normed_bwd": [_P] * 24 + [_I] * 5 + [_F, _F, _P],
     "regnde_whole_solve_fwd": [_P] * 18 + [_I] * 5 + [_F] * 9 + [_P],
-    "regnde_whole_solve_bwd": [_P] * 28 + [_I] * 6 + [_F] * 9 + [_P],
+    "regnde_whole_solve_bwd": [_P] * 29 + [_I] * 8 + [_F] * 9 + [_P],
     "regnde_whole_solve_altmlp_fwd": [_P] * 4 + [_I] + [_P] * 9 + [_I] * 5 + [_F] * 9 + [_P],
     "regnde_whole_solve_altmlp_bwd": [_P] * 5 + [_I] + [_P] * 12 + [_I] * 6 + [_F] * 9 + [_P],
     "regnde_altmlp_rows": [],
@@ -52,10 +52,11 @@ _SIGNATURES = {
     "regnde_sde_whole_solve_cubic_fwd": [_P] * 18 + [_I] * 4 + [_F] * 9 + [_P],
     "regnde_sde_whole_solve_cubic_bwd": [_P] * 22 + [_I] * 5 + [_F] * 9 + [_P],
     "regnde_lanes_fwd": [_P] * 13 + [_I] * 3 + [_P],
-    "regnde_lanes_bwd": [_P] * 25 + [_I] * 3 + [_P],
+    "regnde_lanes_bwd": [_P] * 26 + [_I] * 5 + [_P],
     "regnde_mlp_tsit5_fwd": [_P] * 13 + [_I] * 3 + [_P],
-    "regnde_mlp_tsit5_bwd": [_P] * 25 + [_I] * 3 + [_P],
+    "regnde_mlp_tsit5_bwd": [_P] * 26 + [_I] * 5 + [_P],
     "regnde_spike_wholesolve": [_F] + [_P] * 5 + [_I] * 2 + [_P],
+    "regnde_weight_cotangents": [_P] * 9 + [_I] * 5 + [_P],
 }
 _FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
           "-Xcompiler", "-fPIC"]

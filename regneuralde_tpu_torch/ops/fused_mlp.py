@@ -34,6 +34,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from regneuralde_tpu_torch.ops import weight_cotangents as wc
 from regneuralde_tpu_torch.ops.math import tanh as _tanh
 from regneuralde_tpu_torch.ops.tableaus import TSIT5
 
@@ -133,12 +134,15 @@ def _err_comb(ks):
     return s_comb
 
 
-def _reverse_stages(t, dt, y, parts, ks, hs, ct_ks, seeds, ct_dt, ct_y):
+def _reverse_stages(t, dt, y, parts, ks, hs, ct_ks, seeds, ct_dt, ct_y, rows=None):
     """The reverse chain over the six stages, shared by K2's and K14's
     plain versions: from the stage derivatives' cotangents ``ct_ks`` and
     the stage inputs' seeds ``seeds`` (stage index -> rows) to ``(ct_t,
     ct_dt, ct_y, ct_k1, (cW1, cb1, cW2, cb2))``; ``ct_dt`` and ``ct_y``
-    come in with the seeds' own shares."""
+    come in with the seeds' own shares. A list ``rows`` gets, stage by
+    stage from 6 down, ``(i, ct_pre2, h_i, ct_pre1, y_i, t_i)``: what the
+    kernels store for the weight-cotangent contraction
+    (``ops.weight_cotangents``)."""
     tab = TSIT5
     w1x, w1t, b1, w2h, w2t, b2 = parts
     ct_t = torch.zeros_like(ct_dt)
@@ -162,6 +166,8 @@ def _reverse_stages(t, dt, y, parts, ks, hs, ct_ks, seeds, ct_dt, ct_y):
         ct_ti = torch.sum(ct_pre2 * w2t)
 
         ct_pre1 = (ct_pre2 @ w2h) * (1.0 - h_i * h_i)
+        if rows is not None:
+            rows.append((i, ct_pre2, h_i, ct_pre1, yi, ti))
         cw1x = cw1x + ct_pre1.T @ yi
         rows1 = torch.sum(ct_pre1, dim=0)
         cw1t = cw1t + ti * rows1
@@ -202,7 +208,7 @@ def _bwd_math(t, dt, y, k1, parts, cts):
                            torch.sum(cerr * _err_comb(ks)), torch.zeros_like(y))
 
 
-def _normed_bwd_math(t, dt, y, k1, parts, cts, rtol, atol, res=None):
+def _normed_bwd_math(t, dt, y, k1, parts, cts, rtol, atol, res=None, rows=None):
     """Plain version of K2: the hand reverse chain of the normed step.
 
     Maps ``cts = (ct_y_new, ct_k7, ct_err_ssq, ct_num_ssq, ct_den_ssq)``
@@ -211,7 +217,7 @@ def _normed_bwd_math(t, dt, y, k1, parts, cts, rtol, atol, res=None):
     ``pallas_mlp._normed_bwd_math``; ``torch.autograd`` of the plain
     forward would split it. ``res``, when given, is ``(ks, hs)`` from
     ``_reference_normed_sweep_res`` on the same inputs (``ks`` k1 first):
-    the stages are then not recomputed."""
+    the stages are then not recomputed. ``rows``: as ``_reverse_stages``'."""
     tab = TSIT5
     cyn, ck7, ct_errssq, ct_numssq, ct_denssq = cts
     if res is None:
@@ -239,7 +245,7 @@ def _normed_bwd_math(t, dt, y, k1, parts, cts, rtol, atol, res=None):
     ct_ks[5] = ct_ks[5] - d_k7
     seeds = {6: cyn + d_ynew + to_ynew, 5: -d_ynew}
     return _reverse_stages(t, dt, y, parts, ks, hs, ct_ks, seeds,
-                           torch.sum(cerr * s_comb), to_y)
+                           torch.sum(cerr * s_comb), to_y, rows)
 
 
 # ---------------------------------------------------------------------------
@@ -323,15 +329,17 @@ def _cuda_normed_bwd(t, dt, y, k1, leaves, cts, rtol, atol):
     he = torch.empty((6 * B, H + 2), device=dev)
     cp1 = torch.empty((6 * B, H), device=dev)
     ye = torch.empty((6 * B, D + 2), device=dev)
+    wpart, chunk_rows, wfloats = wc.cuda_scratch(6 * B, D, H, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.regnde_normed_bwd(
         _ptr(t32), _ptr(dt32), _ptr(y), _ptr(k1), *map(_ptr, leaves),
         _ptr(cyn), _ptr(ck7), _ptr(ct_scalars), _ptr(ct_y), _ptr(ct_k1),
         _ptr(cW1), _ptr(cb1), _ptr(cW2), _ptr(cb2), _ptr(ct_tdt),
-        _ptr(partials), _ptr(cp2), _ptr(he), _ptr(cp1), _ptr(ye), B, D, H,
-        float(rtol), float(atol), ctypes.c_void_p(stream))
+        _ptr(partials), _ptr(cp2), _ptr(he), _ptr(cp1), _ptr(ye), _ptr(wpart), B, D, H,
+        chunk_rows, wfloats, float(rtol), float(atol), ctypes.c_void_p(stream))
     _cuda.check(code, "normed Tsit5 backward kernel")
     LAUNCHES["normed_tsit5_bwd"] += 1
+    wc.count_launch()
     return ct_tdt[0], ct_tdt[1], ct_y, ct_k1, (cW1, cb1, cW2, cb2)
 
 
@@ -371,14 +379,16 @@ def _cuda_bwd(t, dt, y, k1, leaves, cts):
     he = torch.empty((6 * B, H + 2), device=dev)
     cp1 = torch.empty((6 * B, H), device=dev)
     ye = torch.empty((6 * B, D + 2), device=dev)
+    wpart, chunk_rows, wfloats = wc.cuda_scratch(6 * B, D, H, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.regnde_mlp_tsit5_bwd(
         _ptr(t32), _ptr(dt32), _ptr(y), _ptr(k1), *map(_ptr, leaves), *map(_ptr, cts),
         _ptr(ct_y), _ptr(ct_k1), _ptr(cW1), _ptr(cb1), _ptr(cW2), _ptr(cb2), _ptr(ct_tdt),
-        _ptr(partials), _ptr(cp2), _ptr(he), _ptr(cp1), _ptr(ye), B, D, H,
-        ctypes.c_void_p(stream))
+        _ptr(partials), _ptr(cp2), _ptr(he), _ptr(cp1), _ptr(ye), _ptr(wpart), B, D, H,
+        chunk_rows, wfloats, ctypes.c_void_p(stream))
     _cuda.check(code, "Tsit5 backward kernel")
     LAUNCHES["mlp_tsit5_bwd"] += 1
+    wc.count_launch()
     return ct_tdt[0], ct_tdt[1], ct_y, ct_k1, (cW1, cb1, cW2, cb2)
 
 

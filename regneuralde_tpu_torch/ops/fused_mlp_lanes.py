@@ -25,7 +25,7 @@ Each step has a plain version (``_reference_sweep_lanes``, and
 ``_lanes_bwd_math``, the hand reverse chain of
 ``pallas_mlp._fused_bwd_kernel_lanes``) and a CUDA kernel
 (``csrc/mlp_lanes_tsit5.cu``: K11 ``lanes_fwd_kernel``, K12
-``lanes_bwd_kernel`` + ``atb_split_kernel``). The wrappers
+``lanes_bwd_kernel`` + ``csrc/weight_cotangents.cu``). The wrappers
 ``sweep_lanes_fwd`` and ``sweep_lanes_bwd`` take the plain version for
 tensors on the CPU, launch the kernel for tensors on a CUDA device, and
 raise otherwise.
@@ -38,6 +38,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from regneuralde_tpu_torch.ops import weight_cotangents as wc
 from regneuralde_tpu_torch.ops.fused_mlp import _check_cuda_args, _ptr, _split_params, _stage_acc
 from regneuralde_tpu_torch.ops.math import tanh as _tanh
 from regneuralde_tpu_torch.ops.tableaus import TSIT5
@@ -199,15 +200,17 @@ def _cuda_lanes_bwd(t, dt, y, k1, leaves, cts):
     he = torch.empty((6 * B, H + 2), device=dev)
     cp1 = torch.empty((6 * B, H), device=dev)
     ye = torch.empty((6 * B, D + 2), device=dev)
+    wpart, chunk_rows, wfloats = wc.cuda_scratch(6 * B, D, H, dev)
     lib = _cuda.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.regnde_lanes_bwd(
         _ptr(t32), _ptr(dt32), _ptr(y), _ptr(k1), *map(_ptr, leaves), *map(_ptr, cts),
         _ptr(ct_y), _ptr(ct_k1), _ptr(ct_t), _ptr(ct_dt), _ptr(cW1), _ptr(cb1),
-        _ptr(cW2), _ptr(cb2), _ptr(cp2), _ptr(he), _ptr(cp1), _ptr(ye), B, D, H,
-        ctypes.c_void_p(stream))
+        _ptr(cW2), _ptr(cb2), _ptr(cp2), _ptr(he), _ptr(cp1), _ptr(ye), _ptr(wpart), B, D, H,
+        chunk_rows, wfloats, ctypes.c_void_p(stream))
     _cuda.check(code, "lane-wise Tsit5 backward kernel")
     LAUNCHES["mlp_lanes_tsit5_bwd"] += 1
+    wc.count_launch()
     return ct_t, ct_dt, ct_y, ct_k1, (cW1, cb1, cW2, cb2)
 
 

@@ -51,6 +51,7 @@ import torch
 from regneuralde_tpu_torch.ops import fused_csl as fc
 from regneuralde_tpu_torch.ops import fused_generic as fg
 from regneuralde_tpu_torch.ops import fused_mlp as fm
+from regneuralde_tpu_torch.ops import weight_cotangents as wc
 from regneuralde_tpu_torch.ops.controller import PIController
 from regneuralde_tpu_torch.ops.ode import (
     AdjointCarry,
@@ -435,18 +436,20 @@ def _cuda_whole_solve_bwd(rec, ns, ct_y1, ct_tel, t0, t1, leaves, rtol, atol,
     partials = torch.empty((2, ntiles, 4), device=dev)
     head = (ptr(scalars), ptr(rec.streams), ptr(rec.hy), ptr(rec.hf))
     mid = (ptr(ct_tel), ptr(ct_y), ptr(ct_f))
-    tail = (ns, B, D, H, S, n_save, float(rtol), float(atol), *_ctrl_args(ctrl),
+    dims = (ns, B, D, H, S, n_save)
+    tail = (float(rtol), float(atol), *_ctrl_args(ctrl),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if dynamics == "mlp":
         ct_leaves = [torch.empty_like(x) for x in leaves]
         # the weight-cotangent rows of every trial step, summed after the walk
         K = 6 * B * ns
         wrows = [torch.empty((K, w), device=dev) for w in (D, H + 2, H, D + 2)]
+        wpart, chunk_rows, wfloats = wc.cuda_scratch(K, D, H, dev)
         code = lib.regnde_whole_solve_bwd(
             *head, *map(ptr, leaves), *map(_opt_ptr, res), *save_ptrs, *mid,
             *map(ptr, ct_leaves),
             ptr(ct_scalars), ptr(partials), _opt_ptr(hdy), _opt_ptr(hdf),
-            *map(ptr, wrows), *tail)
+            *map(ptr, wrows), ptr(wpart), *dims, chunk_rows, wfloats, *tail)
         name = "whole_solve_bwd"
     else:
         # the leaves with a cotangent: CSL's probe has none
@@ -456,7 +459,7 @@ def _cuda_whole_solve_bwd(rec, ns, ct_y1, ct_tel, t0, t1, leaves, rtol, atol,
         slots = torch.empty((ntiles, n_leaf), device=dev)
         lptrs = ctypes.cast(fg._leaf_pointers(leaves), ctypes.c_void_p)
         rest = (*save_ptrs, *mid, ptr(out), ptr(ct_scalars), ptr(partials),
-                _opt_ptr(hdy), _opt_ptr(hdf), ptr(slots), *tail)
+                _opt_ptr(hdy), _opt_ptr(hdf), ptr(slots), *dims, *tail)
         if dynamics == "altmlp":
             code = lib.regnde_whole_solve_altmlp_bwd(*head, lptrs, depth, *rest)
         else:
@@ -469,6 +472,8 @@ def _cuda_whole_solve_bwd(rec, ns, ct_y1, ct_tel, t0, t1, leaves, rtol, atol,
         name = f"whole_solve_{dynamics}_bwd"
     _cuda.check(code, "whole-solve backward kernel")
     LAUNCHES[name] += 1
+    if dynamics == "mlp":
+        wc.count_launch()
     return (ct_scalars[0], ct_scalars[1], ct_scalars[2], ct_y, ct_f, ct_ys, *ct_leaves)
 
 

@@ -3,7 +3,8 @@ MLPDynamics, AlternatingMLP and FFJORD's CSL dynamics, K7/K8 step pairs for
 AlternatingMLP and CSL, K9/K10 the SDE whole solve of an MLP pair and of the
 toy SDE's cubic pair, K11/K12 the lane-wise step of the per-sample engine,
 K13/K14 the tuple step of ``odeint``'s generic engine, K15 the whole-solve
-feature probe) against their plain PyTorch versions.
+feature probe, and the weight-cotangent contraction that ends K2, K4, K12
+and K14) against their plain PyTorch versions.
 
 These tests need a CUDA device and ``nvcc`` (the kernels have no CPU mode)
 and skip without one. This file imports no JAX, so it runs on a machine
@@ -1357,3 +1358,101 @@ def test_sde_toy_trains_through_cubic_k9_k10(cuda):
     assert abs(la.item() - lb.item()) <= 1e-5 * abs(lb.item())
     for u, v in zip(ga, gb):
         assert _rel(u, v) <= 1e-3
+
+
+def _wcot_rows(K, D, H, device, seed=0, offset=0):
+    """Seeded random rows of the weight-cotangent contraction: cp2 (K, D),
+    he (K, H+2), cp1 (K, H), ye (K, D+2). ``offset`` rows are cut from the
+    front of each, so a row array may start off a 16-byte boundary."""
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.normal(size=(K + offset, w)).astype(np.float32),
+                         device=device)[offset:]
+            for w in (D, H + 2, H, D + 2)]
+
+
+def _wcot_errors(got, rows):
+    """Per product (cW2 | cb2, cW1 | cb1): the largest distance of ``got``
+    and of the float32 ``torch.mm`` at "highest" (TF32 off) from the float64
+    product."""
+    cp2, he, cp1, ye = rows
+    prev = torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out = []
+        for a, b, main, last in ((cp2, he, got[2], got[3]), (cp1, ye, got[0], got[1])):
+            exact = torch.mm(a.double().t(), b.double())
+            mm = torch.mm(a.t(), b).double()
+            kern = torch.cat([main, last[:, None]], dim=1).double()
+            out.append(((kern - exact).abs().max().item(), (mm - exact).abs().max().item()))
+        return out
+    finally:
+        torch.set_float32_matmul_precision(prev[0])
+        torch.backends.cuda.matmul.allow_tf32 = prev[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [78, 384, 3072, 101_376])
+@pytest.mark.parametrize("D, H", [(40, 24), (784, 100), (8, 5)])
+def test_weight_cotangents_kernel_within_float64_bound(cuda, K, D, H):
+    """The split-K contraction against the float64 product: within 3 times
+    the float32 ``torch.mm``'s distance plus 1e-7, in nn.Linear layout; one
+    launch a call. 8 x 5 has odd row widths (4-byte copies)."""
+    from regneuralde_tpu_torch.ops import weight_cotangents as wc
+
+    rows = _wcot_rows(K, D, H, cuda)
+    wc.reset_launches()
+    got = wc.weight_cotangents(*rows)
+    torch.cuda.synchronize()
+    assert [tuple(x.shape) for x in got] == [(H, D + 1), (H,), (D, H + 1), (D,)]
+    assert wc.LAUNCHES == {"weight_cotangents": 1}
+    for d_kern, d_mm in _wcot_errors(got, rows):
+        assert d_kern <= 3 * d_mm + 1e-7, (d_kern, d_mm)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1])
+def test_weight_cotangents_kernel_is_deterministic(cuda, offset):
+    """Chunks summed in a fixed order, no atomics: two runs bitwise equal,
+    also on rows that start off a 16-byte boundary (narrower copies)."""
+    from regneuralde_tpu_torch.ops import weight_cotangents as wc
+
+    rows = _wcot_rows(3072 + 13, 40, 24, cuda, seed=1, offset=offset)
+    a = wc.weight_cotangents(*rows)
+    b = wc.weight_cotangents(*rows)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+    for d_kern, d_mm in _wcot_errors(a, rows):
+        assert d_kern <= 3 * d_mm + 1e-7, (d_kern, d_mm)
+    zero = wc.weight_cotangents(*(x[:0] for x in rows))
+    assert all(torch.equal(x, torch.zeros_like(x)) for x in zero)
+
+
+@pytest.mark.cuda
+def test_weight_cotangents_counted_inside_each_backward(cuda):
+    """K2, K14, K12 and K4<MlpDyn> each end in one launch of the
+    contraction, counted in its own counter and nowhere else."""
+    from regneuralde_tpu_torch.ops import weight_cotangents as wc
+
+    y, k1, leaves, cts = _inputs(13, 40, 24, cuda)
+    t, dt = torch.tensor(T, device=cuda), torch.tensor(DT, device=cuda)
+    rows = _row_cts(13, 40, cuda)
+    lane_t = torch.full((13,), T, device=cuda)
+    lane_dt = torch.full((13,), DT, device=cuda)
+    args = _solve_args(13, 40, 24, cuda, scale=3.0)
+    rec = ws.whole_solve_fwd(*args)
+    ns = int(rec.final[3:5].sum().item())
+    ct_y1, ct_tel = _bwd_seeds(13, 40, cuda)
+    calls = [lambda: fm.normed_sweep_bwd(t, dt, y, k1, leaves, cts, 1e-4, 1e-4),
+             lambda: fm.stage_sweep_bwd(t, dt, y, k1, leaves, rows),
+             lambda: fl.sweep_lanes_bwd(lane_t, lane_dt, y, k1, leaves, rows),
+             lambda: ws.whole_solve_bwd(rec, ns, ct_y1, ct_tel, args[0], args[1], args[5],
+                                        1e-4, 1e-4, CTRL)]
+    for i, call in enumerate(calls, 1):
+        if i == 1:
+            wc.reset_launches()
+        before = {**fm.LAUNCHES, **fl.LAUNCHES, **ws.LAUNCHES}
+        call()
+        after = {**fm.LAUNCHES, **fl.LAUNCHES, **ws.LAUNCHES}
+        assert wc.LAUNCHES == {"weight_cotangents": i}
+        assert sum(after.values()) - sum(before.values()) == 1
+        assert "weight_cotangents" not in after

@@ -9,8 +9,11 @@ archive <commit> | tar -x -C build/parent``). Each run imports that tree's
 ``chip_smoke.py``, builds its kernels into the tree's own ``build/``, runs
 the named phases' kernel checks (``altmlp``: K7/K8 and K3/K4 for
 AlternatingMLP, ``csl``: K7/K8-CSL and K3/K4-CSL, ``mlp``: K1/K2 and K3/K4
-for MLPDynamics, ``sde``: K9/K10 for the MLP pair; a phase the tree lacks is
-skipped) and prints, per
+for MLPDynamics, ``sde``: K9/K10 for the MLP pair, ``lanes``: K11/K12,
+``tuple``: K13/K14; a phase the tree lacks is skipped; ``wcot``: the device time, under ``torch.profiler``, of the
+weight-cotangent contraction inside K2 at 512x784x100 (K = 3072 rows) and
+inside K4<MlpDyn> over the flagship's whole solve at 1.4e-8 (K = 6 * 512 *
+its trial steps), whichever kernels the tree has for it) and prints, per
 kernel, the median of ``chip_smoke``'s CUDA-event times and what ``ptxas``
 reported for it (registers, stack, spills). Last it says, for every kernel
 of either library, whether the two trees' SASS (``cuobjdump -sass``) is
@@ -30,6 +33,54 @@ import chip_smoke as cs
 from regneuralde_tpu_torch.ops import _cuda
 
 phases = sys.argv[1].split(",")
+
+
+def wcot(dev):
+    """Device ms a call of the weight-cotangent contraction's kernels (the
+    old atb_split_kernel or wcot_chunk_kernel + wcot_sum_kernel) inside K2
+    and inside K4<MlpDyn>, both through the wrappers both trees share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from regneuralde_tpu_torch.ops import fused_mlp as fm
+    from regneuralde_tpu_torch.ops import ode
+    from regneuralde_tpu_torch.ops import whole_solve as ws
+    from regneuralde_tpu_torch.ops.controller import PIController
+
+    B, D, H, tol = cs.BATCH, cs.DIM, cs.HIDDEN, cs.FLAGSHIP_TOL
+    gen = torch.Generator().manual_seed(cs.SEED + 2)
+    rnd = lambda *shape, scale=1.0: (torch.randn(*shape, generator=gen) * scale).to(dev)
+    leaves = [rnd(H, D + 1, scale=(D + 1) ** -0.5), rnd(H, scale=0.1),
+              rnd(D, H + 1, scale=(H + 1) ** -0.5), rnd(D, scale=0.1)]
+    y0, k1 = torch.rand(B, D, generator=gen).to(dev), rnd(B, D, scale=0.3)
+    parts = fm._split_params(*leaves)
+    func = lambda t, y, _: fm._mlp_k(y, t, parts)[0]
+    ctrl = PIController.for_order(5)
+    t0, t1, f0, dt0 = ode.solve_prologue(func, y0, 0.0, 1.0, (), tol, tol)
+    rec = ws.whole_solve_fwd(t0, t1, dt0, y0, f0, leaves, tol, tol, ctrl, cs.MAX_STEPS)
+    ns = int(rec.final[3:5].sum().item())
+    ct_y1, ct_tel = rnd(B, D), torch.zeros(4, cs.MAX_STEPS, device=dev)
+    t, dt = torch.tensor(0.07, device=dev), torch.tensor(0.11, device=dev)
+    cts = [rnd(B, D), rnd(B, D), *(torch.tensor(v, device=dev) for v in (0.7, 1.3, -0.4))]
+    calls = {
+        f"wcot_in_K2_K={6 * B}": lambda: fm.normed_sweep_bwd(t, dt, y0, k1, leaves, cts,
+                                                             tol, tol),
+        f"wcot_in_K4_K={6 * B * ns}": lambda: ws.whole_solve_bwd(
+            rec, ns, ct_y1, ct_tel, t0, t1, leaves, tol, tol, ctrl),
+    }
+    names = ("atb_split_kernel", "wcot_chunk_kernel", "wcot_sum_kernel")
+    out = {}
+    for key, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(cs.REPS):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and any(n in e.key for n in names))
+        out[key] = {"ms": us / 1e3 / cs.REPS}
+    return out
+
 lib = _cuda.library()
 dev = torch.device("cuda", 0)
 ms = {}
@@ -46,6 +97,12 @@ with contextlib.redirect_stdout(io.StringIO()):
         ms.update(cs.phase_whole_solve_csl_kernels(dev, cs.ffjord_batches(1, dev)[0]))
     if "sde" in phases and hasattr(cs, "phase_sde_kernels"):
         ms.update(cs.phase_sde_kernels(dev))
+    if "lanes" in phases and hasattr(cs, "phase_lanes_kernels"):
+        ms.update(cs.phase_lanes_kernels(dev))
+    if "tuple" in phases and hasattr(cs, "phase_tuple_kernels"):
+        ms.update(cs.phase_tuple_kernels(dev))
+    if "wcot" in phases:
+        ms.update(wcot(dev))
 ptxas, name = {}, None
 for line in _cuda.ptxas_report().splitlines():
     m = re.search(r"Compiling entry function '(\S+)'", line)

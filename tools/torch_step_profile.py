@@ -37,8 +37,10 @@ does not apply. It runs one warm-up step, then:
 * counts the host synchronisations of one step (``torch.cuda`` sync debug
   mode, one warning per synchronising call);
 * traces one step with ``torch.profiler`` and prints device time by kernel,
-  the device-busy share of the step's wall time, and writes the chrome trace
-  to ``--out``;
+  the device-busy share of the step's wall time, the device time of the
+  weight-cotangent contraction's two kernels (``wcot_chunk_kernel``,
+  ``wcot_sum_kernel``) apart from the kernel that launches them, and writes
+  the chrome trace to ``--out``;
 * for the latent model, FFJORD and the SDEs, splits that step's host and
   device time between its parts: ``record_function`` ranges around the encoder's
   GRU loop and MLP, the node (the solve) and the decoder (FFJORD: the
@@ -328,6 +330,14 @@ def main():
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         print(f"[profile] {e.self_device_time_total / 1e3:9.3f} ms "
               f"{e.count:6d} calls  {e.key[:90]}")
+    # the weight-cotangent contraction that ends K2, K4<MlpDyn>, K12 and
+    # K14 (its chunk and chunk-sum kernels), named apart from the walk
+    # that launches it
+    for name in ("wcot_chunk_kernel", "wcot_sum_kernel"):
+        hits = [e for e in events if name in e.key]
+        print(f"[profile] weight-cotangent contraction, {name}: "
+              f"{sum(e.self_device_time_total for e in hits) / 1e3:.3f} ms, "
+              f"{sum(e.count for e in hits)} calls")
     if args.model in ("latent", "ffjord", "nsde", "toy") or args.per_sample or args.tuple:
         _print_split(prof.events(), wall * 1e3)
     os.makedirs(args.out, exist_ok=True)
