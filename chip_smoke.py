@@ -30,7 +30,9 @@ at first use. Phases (each checks its results; any failure exits non-zero):
    FWD_BOUND of the plain capture; K4 on the stream bitwise equal to K4
    replaying the stages (``cache_residuals=False``), with y1's cotangent
    alone and with the telemetry's too; CUDA-event times of the forward
-   solve and the backward walk, streamed and replaying;
+   solve and the backward walk, streamed and replaying; K4's device time
+   under ``torch.profiler`` (the walk, ``csrc/mlp_walk.cuh``, and the
+   contraction after it) and its ``grid.sync()`` count a walk;
 6. phase 3 for the whole solve: ``fused=True`` against ``fused=False``;
 7. phase 4 on ``fused=True``: one forward and one backward launch per step,
    no step-kernel launch;
@@ -567,6 +569,18 @@ def phase_whole_solve_kernels(device):
     print("[whole] median ms over %d runs at %dx%dx%d, tol %g, %d trial steps (K3/K4 on the "
           "stage residuals' stream, and replaying the stages): %s"
           % (REPS, BATCH, DIM, HIDDEN, FLAGSHIP_TOL, ns, json.dumps(times)))
+    # K4's device time apart from the wrapper's host work, and its barriers
+    # (ops/whole_solve.py walk_plan; mlp_walk.cuh: one after padding the
+    # weights, two a stage of each row chunk, one a trial step for its
+    # scalar slots)
+    k4 = lambda: ws.whole_solve_bwd(rec, *bwd_args)
+    plan = ws.walk_plan(BATCH, DIM, HIDDEN,
+                        torch.cuda.get_device_properties(device).multi_processor_count)
+    print("[whole] K4 device ms (torch.profiler, mean of %d calls): walk %r, contraction %r, "
+          "in a CUDA-event window of %r; tiles %dx%d, %d blocks; grid.sync() a walk %d"
+          % (REPS, _device_ms(k4, "mlp_walk_kernel"), _device_ms(k4, "wcot_"),
+             times["bwd_kernel"], plan.rows, plan.cols, plan.tiles,
+             1 + ns * (12 * plan.chunks + 1)))
     f_ops, b_ops, leaf = _mlp_work(BATCH, DIM, HIDDEN)
     nbytes = _solve_bytes(BATCH * DIM, leaf, ns, 0, MAX_STEPS, 6 * BATCH * (DIM + HIDDEN))
     return {
@@ -3081,6 +3095,7 @@ def main():
                "spike_wholesolve": "spike_wholesolve.cu",
                "sde_whole_solve_cubic_fwd": "sde_whole_solve.cu",
                "sde_whole_solve_cubic_bwd": "sde_whole_solve.cu",
+               "whole_solve_bwd": "mlp_walk.cuh",
                "weight_cotangents": "weight_cotangents.cu"}
     record = {"kernels": [
         {"name": name, "route": "cuda",

@@ -22,11 +22,10 @@ __device__ void sum_tiles(const float* part, int ntiles, float (&out)[NQ]) {
   }
 }
 
-// Launches a cooperative kernel with one block per tile, at most as many
-// blocks as fit on the card at once (grid.sync() needs them all resident).
-// The grid's size goes to *grid_out where that is given.
-cudaError_t launch_cooperative(const void* kernel, void* args, size_t smem,
-                               int ntiles, cudaStream_t s, int* grid_out) {
+// The most blocks of `kernel` (kThreads threads, smem bytes of dynamic
+// shared memory) resident on the card at once, the largest grid a
+// cooperative launch takes.
+cudaError_t cooperative_capacity(const void* kernel, size_t smem, int* blocks) {
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return e;
@@ -40,7 +39,19 @@ cudaError_t launch_cooperative(const void* kernel, void* args, size_t smem,
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
   if (e != cudaSuccess) return e;
   if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
-  const int grid = min(per_sm * sms, ntiles);
+  *blocks = per_sm * sms;
+  return cudaSuccess;
+}
+
+// Launches a cooperative kernel with one block per tile, at most as many
+// blocks as fit on the card at once (grid.sync() needs them all resident).
+// The grid's size goes to *grid_out where that is given.
+cudaError_t launch_cooperative(const void* kernel, void* args, size_t smem,
+                               int ntiles, cudaStream_t s, int* grid_out) {
+  int capacity = 0;
+  cudaError_t e = cooperative_capacity(kernel, smem, &capacity);
+  if (e != cudaSuccess) return e;
+  const int grid = min(capacity, ntiles);
   if (grid_out) *grid_out = grid;
   void* params[] = {args};
   e = cudaLaunchCooperativeKernel(kernel, grid, kThreads, params, smem, s);

@@ -4,8 +4,8 @@
 // step and of its hand reverse, and the launcher of the fixed-order
 // contraction that sums the weight cotangents (weight_cotangents.cu). The
 // whole solve's forward tile also streams the trial step's stage residuals
-// (ks, hs) out, and its reverse tile then loads them instead of re-running
-// the six stages.
+// (ks, hs) out; its reverse walk (mlp_walk.cuh) reads them instead of
+// re-running the six stages.
 //
 // Everything but that contraction's C entry sits in an anonymous
 // namespace, so each .cu file that includes it has its own copy and no
@@ -99,8 +99,8 @@ __device__ __forceinline__ float stage_acc(int i, const float* ks, int stride,
 // Stage i's state y + dt * acc_i with its contraction pinned: acc starts
 // as the rounded first product, takes each further term by one fma, and
 // the state is fma(dt, acc, y). The whole solve builds every stage state
-// here (recompute_stages<R, true> in K3 and in K4's replay, load_stages in
-// K4 on the stream), so the same ks give the same bits on each path: left
+// here (recompute_stages<R, true> in K3 and in K4's replay, and K4's seed
+// phase, mlp_walk.cuh), so the same ks give the same bits on each path: left
 // to the compiler, y + dt * acc_i contracted differently in two inlined
 // copies, and K4's streamed and replayed cotangents of the stiffness norm
 // parted by ulps (H100). The step kernels (K1/K2, K13/K14) keep the
@@ -194,42 +194,6 @@ __device__ void recompute_stages(const float* y_g, const float* k1_g, int row0,
   __syncthreads();
 }
 
-// The cached reverse's prologue: loads ROWS rows of y and k1 and the six
-// stage derivatives and hidden activations the forward stored for them
-// (ks_g: 6 x B x D, hs_g: 6 x B x H, stage-major, at this trial step's
-// row of the stream) into recompute_stages' layout, zero past the batch
-// end, then rebuilds yi (the stage-6 state, y_new) and g6 (the stage-5
-// state) with stage_state. Rows past the batch end differ from the
-// replay's, but every row of the reverse chain is computed on its own and
-// only valid rows are written or summed.
-template <int ROWS>
-__device__ void load_stages(const float* y_g, const float* k1_g,
-                            const float* ks_g, const float* hs_g, int row0,
-                            int rows, int B, float dt, float* y_s, float* ks,
-                            float* yi, float* g6, float* hs, int D, int H) {
-  const int n = ROWS * D;
-  const size_t BD = (size_t)B * D;
-  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
-    const bool valid = idx < rows * D;
-    const size_t g = (size_t)row0 * D + idx;
-    y_s[idx] = valid ? __ldcg(y_g + g) : 0.0f;
-    ks[idx] = valid ? __ldcg(k1_g + g) : 0.0f;
-    for (int s = 1; s <= 6; ++s)
-      ks[s * n + idx] = valid ? __ldcs(ks_g + (size_t)(s - 1) * BD + g) : 0.0f;
-  }
-  const int m = ROWS * H;
-  for (int idx = threadIdx.x; idx < 6 * m; idx += kThreads) {
-    const int s = idx / m, e = idx - s * m;
-    hs[idx] = e < rows * H ? __ldcs(hs_g + ((size_t)s * B + row0) * H + e) : 0.0f;
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
-    yi[idx] = stage_state(6, y_s, ks, n, idx, dt);
-    g6[idx] = stage_state(5, y_s, ks, n, idx, dt);
-  }
-  __syncthreads();
-}
-
 // hid_stages: 1, or 6 where the forward tile keeps every stage's hidden
 // activations to stream them out.
 size_t fwd_smem_bytes(int D, int H, int hid_stages = 1) {
@@ -310,12 +274,8 @@ __device__ void normed_fwd_tile(const float* y, const float* k1, int row0,
 // each element is read before its own write, by the same thread), the
 // tile's (ct_t, ct_dt) to part_out, and the rows of the weight-cotangent
 // contractions: cp2 (6B x D), he (6B x (H+2)) = [h, t_i, 1], cp1 (6B x H),
-// ye (6B x (D+2)) = [y_i, t_i, 1]; row = stage*B + batch row. With STREAM
-// the stages are loaded from ks_in, hs_in (the forward's stage residuals of
-// this trial step, as normed_fwd_tile<true> streams them), not recomputed;
-// PINNED as normed_fwd_tile's.
+// ye (6B x (D+2)) = [y_i, t_i, 1]; row = stage*B + batch row.
 // smem: bwd_smem_bytes(D, H).
-template <bool STREAM = false, bool PINNED = false>
 __device__ void normed_bwd_tile(const float* y, const float* k1, int row0,
                                 int rows, int B, float t, float dt,
                                 const float* __restrict__ W1,
@@ -328,8 +288,7 @@ __device__ void normed_bwd_tile(const float* y, const float* k1, int row0,
                                 float* ct_y, float* ct_k1, float* part_out,
                                 float* cp2, float* he, float* cp1, float* ye,
                                 int D, int H, float rtol, float atol,
-                                float* smem, const float* ks_in = nullptr,
-                                const float* hs_in = nullptr) {
+                                float* smem) {
   constexpr int R = kBwdRows;
   const int n = R * D;
   float* y_s = smem;
@@ -344,11 +303,8 @@ __device__ void normed_bwd_tile(const float* y, const float* k1, int row0,
   float* ctp1 = hs + 6 * R * H;
   float* red = ctp1 + R * H;
 
-  if constexpr (STREAM)
-    load_stages<R>(y, k1, ks_in, hs_in, row0, rows, B, dt, y_s, ks, yi, g6, hs, D, H);
-  else
-    recompute_stages<R, PINNED>(y, k1, row0, rows, t, dt, y_s, ks, yi, g6, nullptr, hs,
-                                W1, b1, W2, b2, D, H);
+  recompute_stages<R>(y, k1, row0, rows, t, dt, y_s, ks, yi, g6, nullptr, hs, W1, b1, W2,
+                      b2, D, H);
 
   float part[2] = {0.0f, 0.0f};  // ct_t, ct_dt
   // ---- seeds from the scalar norm cotangents ----

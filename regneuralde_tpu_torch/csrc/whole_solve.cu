@@ -1,8 +1,11 @@
 // The whole adaptive Tsit5 solve on Hopper: one persistent cooperative
 // kernel for the forward (K3) and one for the reverse walk (K4), generic
-// over the dynamics' per-tile trial-step body: MLPDynamics (K1's and K2's,
+// over the dynamics' per-tile trial-step body: MLPDynamics (K1's,
 // normed_tsit5.cuh), AlternatingMLP (K7's and K8's, altmlp_tsit5.cuh) or
 // FFJORD's augmented CSL dynamics (K7-CSL's and K8-CSL's, csl_tsit5.cuh).
+// MLPDynamics' reverse walk is its own kernel, mlp_walk.cuh, which splits
+// each stage's contractions over the whole grid; it shares the scalar
+// chain below (chain_begin, chain_end, chain_finish, hermite_elem).
 //
 // Replaces the TPU kernels
 //   K3: regneuralde_tpu/ops/pallas_solve.py  make_whole_solve.make_fwd_kernel
@@ -58,11 +61,11 @@
 //     512x784x100) with evict-first stores, and K4 loads them for the same
 //     step instead of re-running the six stages (12 contractions and 12
 //     tanh's over the tile). K4 rebuilds the stage-6 and stage-5 states
-//     from the stored ks by the replay's own expression, so its outputs
-//     equal the replay's bitwise where K3's ks equal the replay's. The
-//     TPU kernel's delayed-by-one DMA and final flush are not needed: the
-//     tile stores its rows itself. AlternatingMLP and CSL replay, as on
-//     the TPU, whose hand pullback they lack.
+//     from the stored ks by the replay's own expression (stage_state), so
+//     its outputs equal the replay's bitwise where K3's ks equal the
+//     replay's. The TPU kernel's delayed-by-one DMA and final flush are not
+//     needed: the tile stores its rows itself. AlternatingMLP and CSL
+//     replay, as on the TPU, whose hand pullback they lack.
 // No floating-point atomics, no TF32, no fast math: runs are bitwise
 // reproducible. powf is the libdevice powf, as ATen's float pow.
 
@@ -254,6 +257,37 @@ __device__ void hermite_rows(const Saves& sv, int lo, int hi, float t,
   }
 }
 
+// The pullback of hermite_rows at one element g of rows [lo, hi) with
+// their cotangents ct_ys: the cotangents of y_i, y_new, f0_i and k7 at g
+// (y0, y1, f0, f1 their values), and the element's shares of the
+// cotangents of t and dt_eff added to part[0], part[1]. hd is dt_eff, or 1
+// where dt_eff is 0 (h0).
+__device__ __forceinline__ void hermite_elem(const float* sa, const float* ct_ys, int lo,
+                                             int hi, float t, float dt_eff, float hd,
+                                             bool h0, float y0, float y1, float f0,
+                                             float f1, size_t g, size_t BD, float* part,
+                                             float& c_y0, float& c_y1, float& c_f0,
+                                             float& c_f1) {
+  const float dy = y1 - y0;
+  c_y0 = c_y1 = c_f0 = c_f1 = 0.0f;
+  for (int r = lo; r < hi; ++r) {
+    const float th = (sa[r] - t) / hd;
+    const float P = th * (th - 1.0f);
+    const float c = 1.0f - 2.0f * th;
+    const float gr = __ldcg(ct_ys + (size_t)r * BD + g);
+    c_y0 += gr * ((1.0f - th) - P * c);
+    c_y1 += gr * (th + P * c);
+    c_f0 += gr * (P * (th - 1.0f) * dt_eff);
+    c_f1 += gr * (P * th * dt_eff);
+    const float q = c * dy + (th - 1.0f) * dt_eff * f0 + th * dt_eff * f1;
+    const float dth = dy + (2.0f * th - 1.0f) * q + P * (dt_eff * (f0 + f1) - 2.0f * dy);
+    const float ct_th = gr * dth;
+    // theta = (sa - t) / dt_eff (over 1 where dt_eff is 0)
+    part[0] -= ct_th / hd;
+    part[1] += gr * P * ((th - 1.0f) * f0 + th * f1) - (h0 ? 0.0f : ct_th * th / hd);
+  }
+}
+
 // The pullback of hermite_rows for rows [lo, hi) with their cotangents
 // ct_ys: per element the cotangents of y_i and f0_i (written to hdy, hdf)
 // and of y_new and k7 (added to ct_y, ct_f, where the trial step's
@@ -271,26 +305,9 @@ __device__ void hermite_pullback(const float* sa, const float* ct_ys, int lo,
   float part[2] = {0.0f, 0.0f};  // ct_t, ct_dt_eff
   for (int idx = threadIdx.x; idx < rows * D; idx += kThreads) {
     const size_t g = (size_t)row0 * D + idx;
-    const float y0 = __ldcg(yi + g), y1 = __ldcg(yn + g);
-    const float f0 = __ldcg(fi + g), f1 = __ldcg(kn + g);
-    const float dy = y1 - y0;
-    float c_y0 = 0.0f, c_y1 = 0.0f, c_f0 = 0.0f, c_f1 = 0.0f;
-    for (int r = lo; r < hi; ++r) {
-      const float th = (sa[r] - t) / hd;
-      const float P = th * (th - 1.0f);
-      const float c = 1.0f - 2.0f * th;
-      const float gr = __ldcg(ct_ys + (size_t)r * BD + g);
-      c_y0 += gr * ((1.0f - th) - P * c);
-      c_y1 += gr * (th + P * c);
-      c_f0 += gr * (P * (th - 1.0f) * dt_eff);
-      c_f1 += gr * (P * th * dt_eff);
-      const float q = c * dy + (th - 1.0f) * dt_eff * f0 + th * dt_eff * f1;
-      const float dth = dy + (2.0f * th - 1.0f) * q + P * (dt_eff * (f0 + f1) - 2.0f * dy);
-      const float ct_th = gr * dth;
-      // theta = (sa - t) / dt_eff (over 1 where dt_eff is 0)
-      part[0] -= ct_th / hd;
-      part[1] += gr * P * ((th - 1.0f) * f0 + th * f1) - (h0 ? 0.0f : ct_th * th / hd);
-    }
+    float c_y0, c_y1, c_f0, c_f1;
+    hermite_elem(sa, ct_ys, lo, hi, t, dt_eff, hd, h0, __ldcg(yi + g), __ldcg(yn + g),
+                 __ldcg(fi + g), __ldcg(kn + g), g, BD, part, c_y0, c_y1, c_f0, c_f1);
     ct_y[g] = __ldcg(ct_y + g) + c_y1;
     ct_f[g] = __ldcg(ct_f + g) + c_f1;
     hdy[g] = c_y0;
@@ -299,15 +316,15 @@ __device__ void hermite_pullback(const float* sa, const float* ct_ys, int lo,
   block_sum_to<2>(part, red, part_out);
 }
 
-// MLPDynamics: K1's and K2's tile bodies over the leaves (W1, b1, W2, b2),
-// read through L2. With STREAM the forward streams each trial step's stage
-// residuals to ks, hs (S x 6 x B x D and S x 6 x B x H) and the backward
-// reads them; without, both are null and the backward replays the stages.
-// The backward stores each trial step's weight-cotangent rows (cp2, he,
-// cp1, ye; 6 B rows a step) for one contraction after the walk.
+// MLPDynamics: K1's tile body over the leaves (W1, b1, W2, b2), read
+// through L2. With STREAM the forward streams each trial step's stage
+// residuals to ks, hs (S x 6 x B x D and S x 6 x B x H) and the reverse
+// walk (mlp_walk.cuh) reads them; without, both are null and the walk
+// replays the stages. The walk stores each trial step's weight-cotangent
+// rows (cp2, he, cp1, ye; 6 B rows a step) for one contraction after it.
 template <bool STREAM>
 struct MlpDyn {
-  static constexpr int kFwdR = kFwdRows, kBwdR = kBwdRows;
+  static constexpr int kFwdR = kFwdRows;
   const float *W1, *b1, *W2, *b2;
   float *ks, *hs;
   float *cp2, *he, *cp1, *ye;
@@ -324,23 +341,6 @@ struct MlpDyn {
                                   STREAM ? ks + step * D : nullptr,
                                   STREAM ? hs + step * H : nullptr, B);
   }
-  __device__ void setup_bwd(float*, int) const {}
-  __device__ void bwd(const float* y, const float* k1, int row0, int rows,
-                      int i, int B, float t, float dt, const float* ct_ynew,
-                      const float* ct_k7, const float* pass_y,
-                      const float* pass_k1, float c_err, float c_num,
-                      float c_den, float* ct_y, float* ct_k1, float* part,
-                      int D, float rtol, float atol, float* smem) const {
-    const size_t base = (size_t)i * 6 * B;  // this step's weight and stream rows
-    normed_bwd_tile<STREAM, true>(y, k1, row0, rows, B, t, dt, W1, b1, W2, b2,
-                                  ct_ynew, ct_k7, pass_y, pass_k1, c_err, c_num, c_den,
-                                  ct_y, ct_k1, part, cp2 + base * D,
-                                  he + base * (H + 2), cp1 + base * H,
-                                  ye + base * (D + 2), D, H, rtol, atol, smem,
-                                  STREAM ? ks + base * D : nullptr,
-                                  STREAM ? hs + base * H : nullptr);
-  }
-  __device__ void finish_bwd(float*, int) const {}
 };
 
 // AlternatingMLP: K7's and K8's tile bodies, the padded leaves in shared
@@ -583,7 +583,77 @@ struct BwdArgs {
   Ctrl ctrl;
 };
 
-// K4: the reverse walk over the forward's ns trial steps.
+// The reverse walk's scalar state, in the walking kernel's shared memory:
+// the running cotangents ct_t, ct_dt, ct_qold, of t1 and of span; the
+// current trial step's pullback of the controller, start time, dt_eff,
+// is_last and accept flags and save rows [lo, hi); the reverse cursor.
+struct Chain {
+  float (&ct)[5];
+  PostGrads& g;
+  float &ti, &dteff;
+  int &last, &acc, &lo, &hi, &rcur;
+};
+
+// Thread 0, before trial step i of a reverse walk: pulls the running
+// cotangents back through the step's controller (post_bwd) and moves the
+// reverse save cursor: an accepted step owns the rows before it whose save
+// time lies after its start.
+template <class A>
+__device__ __forceinline__ void chain_begin(const A& a, const Chain& c, int i, int cur0,
+                                            float t1, float tdir, float span, float count) {
+  const int S = a.S;
+  const float* st = a.streams;
+  const float t_i = st[ST_T * S + i], dt_i = st[ST_DT * S + i];
+  const float remaining = t1 - t_i;
+  const bool is_last = (dt_i - remaining) * tdir >= 0.0f;
+  const float dt_eff = is_last ? remaining : dt_i;
+  const bool acc = st[ST_ACC * S + i] > 0.5f;
+  c.g = post_bwd(a.ctrl, count, t_i, dt_eff, st[ST_QOLD * S + i],
+                 st[ST_E * S + i], st[ST_N * S + i], st[ST_D * S + i], t1,
+                 span, is_last, acc, c.ct[0], c.ct[1], c.ct[2],
+                 a.ct_tel[0 * S + i], a.ct_tel[2 * S + i],
+                 a.ct_tel[3 * S + i]);
+  c.ti = t_i;
+  c.dteff = dt_eff;
+  c.last = is_last;
+  c.acc = acc;
+  int lo = c.rcur;
+  if (acc)
+    while (lo > cur0 && (a.sv.sa[lo - 1] - t_i) * tdir > 0.0f) --lo;
+  c.lo = lo;
+  c.hi = c.rcur;
+  c.rcur = lo;
+}
+
+// Warp 0, after every tile of trial step i wrote its slot part[4 * tile ..]
+// (the trial step's cotangents of t and dt_eff, then the Hermite
+// pullback's) and the grid synced: sums the slots in tile order and adds
+// them to the running cotangents.
+template <class A>
+__device__ __forceinline__ void chain_end(const A& a, const Chain& c, const float* part,
+                                          int ntiles, int i) {
+  float k[4];
+  sum_tiles<4>(part, ntiles, k);
+  if (threadIdx.x == 0) {
+    // dt_eff = where(is_last, t1 - t, dt)
+    const float ct_dteff = c.g.dt_eff + k[1] + k[3] + a.ct_tel[1 * a.S + i];
+    c.ct[0] = c.g.t + k[0] + k[2] + (c.last ? -ct_dteff : 0.0f);
+    c.ct[1] = c.last ? 0.0f : ct_dteff;
+    c.ct[2] = c.g.qold;
+    c.ct[3] = c.ct[3] + c.g.t1 + (c.last ? ct_dteff : 0.0f);
+    c.ct[4] = c.ct[4] + c.g.span;
+  }
+}
+
+// Block 0, thread 0, after the walk: the cotangents of t0, t1 and dt0.
+__device__ __forceinline__ void chain_finish(const Chain& c, float* ct_scalars, float tdir) {
+  ct_scalars[0] = c.ct[0] - tdir * c.ct[4];
+  ct_scalars[1] = c.ct[3] + tdir * c.ct[4];
+  ct_scalars[2] = c.ct[1];
+}
+
+// K4 for AlternatingMLP and CSL: the reverse walk over the forward's ns
+// trial steps on row tiles (MLPDynamics walks in mlp_walk.cuh).
 template <class Dyn>
 __global__ void __launch_bounds__(kThreads) whole_solve_bwd_kernel(BwdArgs<Dyn> a) {
   extern __shared__ float smem[];
@@ -593,6 +663,7 @@ __global__ void __launch_bounds__(kThreads) whole_solve_bwd_kernel(BwdArgs<Dyn> 
   __shared__ int s_last, s_acc, s_lo, s_hi, s_rcur;
   __shared__ PostGrads s_g;
   __shared__ float s_red[2 * kWarps];
+  const Chain ch{s_ct, s_g, s_ti, s_dteff, s_last, s_acc, s_lo, s_hi, s_rcur};
   cg::grid_group grid = cg::this_grid();
   constexpr int R = Dyn::kBwdR;
   const int ntiles = (a.B + R - 1) / R;
@@ -600,7 +671,6 @@ __global__ void __launch_bounds__(kThreads) whole_solve_bwd_kernel(BwdArgs<Dyn> 
   const float t0 = a.scalars[0], t1 = a.scalars[1];
   const float tdir = sign_of(t1 - t0), span = fabsf(t1 - t0);
   const float count = (float)BD;
-  const int S = a.S;
   const int cur0 = a.sv.n ? a.sv.cursors[0] : 0;
   a.dyn.setup_bwd(smem, a.D);
   if (threadIdx.x < 5) s_ct[threadIdx.x] = 0.0f;
@@ -609,31 +679,7 @@ __global__ void __launch_bounds__(kThreads) whole_solve_bwd_kernel(BwdArgs<Dyn> 
 
   for (int j = 0; j < a.ns; ++j) {
     const int i = a.ns - 1 - j;
-    if (threadIdx.x == 0) {
-      const float* st = a.streams;
-      const float t_i = st[ST_T * S + i], dt_i = st[ST_DT * S + i];
-      const float remaining = t1 - t_i;
-      const bool is_last = (dt_i - remaining) * tdir >= 0.0f;
-      const float dt_eff = is_last ? remaining : dt_i;
-      const bool acc = st[ST_ACC * S + i] > 0.5f;
-      s_g = post_bwd(a.ctrl, count, t_i, dt_eff, st[ST_QOLD * S + i],
-                     st[ST_E * S + i], st[ST_N * S + i], st[ST_D * S + i], t1,
-                     span, is_last, acc, s_ct[0], s_ct[1], s_ct[2],
-                     a.ct_tel[0 * S + i], a.ct_tel[2 * S + i],
-                     a.ct_tel[3 * S + i]);
-      s_ti = t_i;
-      s_dteff = dt_eff;
-      s_last = is_last;
-      s_acc = acc;
-      // the reverse cursor: an accepted step owns the rows before it whose
-      // save time lies after its start
-      int lo = s_rcur;
-      if (acc)
-        while (lo > cur0 && (a.sv.sa[lo - 1] - t_i) * tdir > 0.0f) --lo;
-      s_lo = lo;
-      s_hi = s_rcur;
-      s_rcur = lo;
-    }
+    if (threadIdx.x == 0) chain_begin(a, ch, i, cur0, t1, tdir, span, count);
     __syncthreads();
     const bool acc = s_acc, saves = s_hi > s_lo;
     float* part = a.partials + (size_t)(j & 1) * ntiles * 4;
@@ -659,19 +705,7 @@ __global__ void __launch_bounds__(kThreads) whole_solve_bwd_kernel(BwdArgs<Dyn> 
                 a.ct_y, a.ct_f, part + 4 * tile, a.D, a.rtol, a.atol, smem);
     }
     grid.sync();
-    if (threadIdx.x < 32) {
-      float k[4];  // the trial step's ct_t, ct_dt_eff; the pullback's
-      sum_tiles<4>(part, ntiles, k);
-      if (threadIdx.x == 0) {
-        // dt_eff = where(is_last, t1 - t, dt)
-        const float ct_dteff = s_g.dt_eff + k[1] + k[3] + a.ct_tel[1 * S + i];
-        s_ct[0] = s_g.t + k[0] + k[2] + (s_last ? -ct_dteff : 0.0f);
-        s_ct[1] = s_last ? 0.0f : ct_dteff;
-        s_ct[2] = s_g.qold;
-        s_ct[3] = s_ct[3] + s_g.t1 + (s_last ? ct_dteff : 0.0f);
-        s_ct[4] = s_ct[4] + s_g.span;
-      }
-    }
+    if (threadIdx.x < 32) chain_end(a, ch, part, ntiles, i);
     __syncthreads();
   }
   // the rows the forward wrote pass no cotangent on to ys_init
@@ -685,11 +719,7 @@ __global__ void __launch_bounds__(kThreads) whole_solve_bwd_kernel(BwdArgs<Dyn> 
     }
   }
   a.dyn.finish_bwd(smem, a.D);
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    a.ct_scalars[0] = s_ct[0] - tdir * s_ct[4];
-    a.ct_scalars[1] = s_ct[3] + tdir * s_ct[4];
-    a.ct_scalars[2] = s_ct[1];
-  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) chain_finish(ch, a.ct_scalars, tdir);
 }
 
 Ctrl make_ctrl(float beta1, float beta2, float qmin, float qmax, float gamma,
@@ -699,7 +729,33 @@ Ctrl make_ctrl(float beta1, float beta2, float qmin, float qmax, float gamma,
 
 }  // namespace
 
+#include "mlp_walk.cuh"
+
+namespace {
+
+// Launches K4's walk with one block a tile, or fails if the card cannot
+// hold every tile's block at once.
+cudaError_t launch_walk(const void* kernel, void* args, size_t smem, int tiles,
+                        cudaStream_t s) {
+  int capacity = 0;
+  cudaError_t e = cooperative_capacity(kernel, smem, &capacity);
+  if (e != cudaSuccess) return e;
+  if (capacity < tiles) return cudaErrorCooperativeLaunchTooLarge;
+  return launch_cooperative(kernel, args, smem, tiles, s, nullptr);
+}
+
+}  // namespace
+
 extern "C" {
+
+// K4's walk for MLPDynamics: the multiple its tile widths take, the most
+// elements a tile holds, and its shared memory for tiles of R x C (the
+// wrapper's plan is checked against them).
+int regnde_walk_col_align() { return kWalkTN; }
+int regnde_walk_max_tile() { return kWalkRounds * kThreads * kWalkTM; }
+int regnde_walk_smem_bytes(int R, int C, int D, int H, int replay) {
+  return (int)walk_smem_bytes(R, C, D, H, replay != 0);
+}
 
 // K3 for MLPDynamics. scalars: (3,) t0, t1, dt0. saveat: (n_save,) save
 // times, monotone in the direction of time; cursors: (2,) int, [0] the
@@ -765,15 +821,22 @@ int regnde_whole_solve_altmlp_fwd(const float* scalars, const float* y0,
                                  static_cast<cudaStream_t>(stream), nullptr);
 }
 
-// K4 for MLPDynamics, then the weight cotangents from its stored rows.
-// scalars: (2,) t0, t1. saveat, cursors: the forward's; ct_ys: (n_save, B,
-// D), the cotangent of ys in, of ys_init out. ct_tel: (4, S). ct_y: ct_y1
-// in, ct_y0 out; ct_f: zeros in, ct_f0 out. ct_scalars: (3,) ct_t0, ct_t1,
-// ct_dt0 out. Weight cotangents in nn.Linear layout. Scratch: partials (2,
-// ceil(B/2), 4), hdy, hdf (B, D; null without saveat), cp2 (6 B ns, D), he
-// (6 B ns, H+2), cp1 (6 B ns, H), ye (6 B ns, D+2), and the contraction's
-// wpart (wpart_floats floats, chunks of chunk_rows rows; weight_cotangents.cu).
-// ks, hs: the forward's stage residuals (both null: replay the stages).
+// K4 for MLPDynamics (mlp_walk.cuh), then the weight cotangents from its
+// stored rows. scalars: (2,) t0, t1. saveat, cursors: the forward's;
+// ct_ys: (n_save, B, D), the cotangent of ys in, of ys_init out. ct_tel:
+// (4, S). ct_y: ct_y1 in, ct_y0 out; ct_f: zeros in, ct_f0 out. ct_scalars:
+// (3,) ct_t0, ct_t1, ct_dt0 out. Weight cotangents in nn.Linear layout. The
+// tile plan (ops/whole_solve.py walk_plan): tiles of rows x cols,
+// row_blocks x col_blocks of them, the batch in chunks of row_blocks x
+// rows rows. Scratch: slots (2, tiles, 4), psum (tiles, rows, HPP) with HPP
+// = H+1 rounded up to 4, ctp1g (row_blocks, H, rows), the padded weights
+// w2p (col_blocks cols, HPP)
+// and w1p (H, col_blocks cols), hdy,
+// hdf (B, D; null without saveat), cp2 (6 B ns, D), he (6 B ns, H+2), cp1
+// (6 B ns, H), ye (6 B ns, D+2), and the contraction's wpart (wpart_floats
+// floats, chunks of chunk_rows rows; weight_cotangents.cu). ks, hs: the
+// forward's stage residuals; both null: replay the stages into ks_step (6,
+// B, D) and hs_step (6, B, H).
 int regnde_whole_solve_bwd(const float* scalars, const float* streams,
                            const float* hy, const float* hf, const float* W1,
                            const float* b1, const float* W2, const float* b2,
@@ -781,34 +844,43 @@ int regnde_whole_solve_bwd(const float* scalars, const float* streams,
                            const float* saveat, int* cursors, float* ct_ys,
                            const float* ct_tel, float* ct_y, float* ct_f,
                            float* cW1, float* cb1, float* cW2, float* cb2,
-                           float* ct_scalars, float* partials, float* hdy,
-                           float* hdf, float* cp2, float* he, float* cp1,
-                           float* ye, float* wpart, int ns, int B, int D, int H,
-                           int S, int n_save, int chunk_rows, int wpart_floats,
-                           float rtol, float atol, float beta1,
+                           float* ct_scalars, float* slots, float* psum, float* ctp1g,
+                           float* hdy,
+                           float* hdf, float* ks_step, float* hs_step, float* w2p,
+                           float* w1p, float* cp2,
+                           float* he, float* cp1, float* ye, float* wpart, int ns, int B,
+                           int D, int H, int S, int n_save, int rows, int cols,
+                           int row_blocks, int col_blocks, int chunks, int chunk_rows,
+                           int wpart_floats, float rtol, float atol, float beta1,
                            float beta2, float qmin, float qmax, float gamma,
                            float qoldinit, float qsteady_max, void* stream) {
-  if (!ks != !hs) return (int)cudaErrorInvalidValue;
+  if (!ks != !hs || (!ks && (!ks_step || !hs_step))) return (int)cudaErrorInvalidValue;
+  if ((rows != 16 && rows != 32) || cols < 1 || cols % kWalkTN ||
+      rows * cols > kWalkRounds * kThreads * kWalkTM || row_blocks < 1 || chunks < 1 ||
+      col_blocks != (D + cols - 1) / cols || chunks * row_blocks * rows < B)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Ctrl ctrl = make_ctrl(beta1, beta2, qmin, qmax, gamma, qoldinit, qsteady_max);
-  const int ntiles = (B + kBwdRows - 1) / kBwdRows;
+  const Walk w{ks_step,   hs_step,    psum,       ctp1g, w2p, w1p,
+               rows,      cols,       row_blocks, col_blocks, chunks};
+  const int tiles = row_blocks * col_blocks;
+  const size_t smem = walk_smem_bytes(rows, cols, D, H, !ks);
   cudaError_t e;
   if (ks) {
-    BwdArgs<MlpDyn<true>> a{scalars, streams, hy, hf,
-                            MlpDyn<true>{W1, b1, W2, b2, const_cast<float*>(ks),
-                                         const_cast<float*>(hs), cp2, he, cp1, ye, H},
-                            Saves{saveat, cursors, ct_ys, n_save}, ct_tel, ct_y, ct_f,
-                            ct_scalars, partials, hdy, hdf, ns, B, D, S, rtol, atol, ctrl};
-    e = launch_cooperative((const void*)whole_solve_bwd_kernel<MlpDyn<true>>, &a,
-                           bwd_smem_bytes(D, H), ntiles, s, nullptr);
+    WalkArgs<true> a{{scalars, streams, hy, hf,
+                      MlpDyn<true>{W1, b1, W2, b2, const_cast<float*>(ks),
+                                   const_cast<float*>(hs), cp2, he, cp1, ye, H},
+                      Saves{saveat, cursors, ct_ys, n_save}, ct_tel, ct_y, ct_f, ct_scalars,
+                      slots, hdy, hdf, ns, B, D, S, rtol, atol, ctrl},
+                     w};
+    e = launch_walk((const void*)mlp_walk_kernel<true>, &a, smem, tiles, s);
   } else {
-    BwdArgs<MlpDyn<false>> a{scalars, streams, hy, hf,
-                             MlpDyn<false>{W1, b1, W2, b2, nullptr, nullptr, cp2, he, cp1,
-                                           ye, H},
-                             Saves{saveat, cursors, ct_ys, n_save}, ct_tel, ct_y, ct_f,
-                             ct_scalars, partials, hdy, hdf, ns, B, D, S, rtol, atol, ctrl};
-    e = launch_cooperative((const void*)whole_solve_bwd_kernel<MlpDyn<false>>, &a,
-                           bwd_smem_bytes(D, H), ntiles, s, nullptr);
+    WalkArgs<false> a{{scalars, streams, hy, hf,
+                       MlpDyn<false>{W1, b1, W2, b2, nullptr, nullptr, cp2, he, cp1, ye, H},
+                       Saves{saveat, cursors, ct_ys, n_save}, ct_tel, ct_y, ct_f, ct_scalars,
+                       slots, hdy, hdf, ns, B, D, S, rtol, atol, ctrl},
+                      w};
+    e = launch_walk((const void*)mlp_walk_kernel<false>, &a, smem, tiles, s);
   }
   if (e != cudaSuccess) return (int)e;
   return (int)launch_weight_cotangents(cp2, he, cp1, ye, cW1, cb1, cW2, cb2,

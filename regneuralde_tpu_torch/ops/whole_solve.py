@@ -26,7 +26,10 @@ residuals, the six fresh stage derivatives ``ks`` and hidden activations
 ``whole_solve_odeint`` turns on for this dynamics): the backward feeds
 them to the trial step's hand pullback and never re-runs the stage sweep.
 ``cache_residuals=False`` keeps the replay; it serves only to check the
-stream against it, bitwise.
+stream against it, bitwise. Its backward (``csrc/mlp_walk.cuh``) splits
+each reverse stage's two contractions over the whole grid, one block a
+tile of the batch (``walk_plan``); ``plain_walk_step`` is one trial step
+of it in the kernel's own schedule, for the tests.
 
 Each kernel has a plain version with the same algebra and the same output
 buffers, over the dynamics' plain trial-step pair (``plain_steps``):
@@ -145,6 +148,169 @@ def _streams_residuals(dynamics, cache_residuals):
     """Whether the solve streams the stage residuals: ``MLPDynamics``
     only, the one dynamics with a hand pullback that takes them."""
     return cache_residuals and dynamics == "mlp"
+
+
+# ---------------------------------------------------------------------------
+# The tile plan of K4's walk for MLPDynamics (csrc/mlp_walk.cuh).
+# ---------------------------------------------------------------------------
+
+WALK_ROWS = (32, 16)  # tile heights (4-row groups a power of two), preferred first
+WALK_COL_ALIGN = 4  # kWalkTN: tile widths are a multiple (a register tile's columns)
+WALK_MAX_TILE = 4096  # kWalkRounds * kThreads * kWalkTM: the row passes' registers
+WALK_SLAB_ROWS, WALK_SLABS = 8, 4  # kWalkKB, kWalkStages
+WALK_STATE = 13  # kWalkState: floats of reverse state an element
+WALK_MIN_COLS = 32  # a warp of columns at least, where D allows
+SMEM_LIMIT = 232_448  # dynamic shared memory a block may use (H100)
+_WARPS = 8
+
+
+class WalkPlan(NamedTuple):
+    """Tiles of ``rows x cols`` of the batch's ``B x D`` elements,
+    ``row_blocks x col_blocks`` of them (one block each, all resident);
+    the batch walked in ``chunks`` of ``row_blocks * rows`` rows;
+    ``smem_bytes`` of dynamic shared memory a block."""
+
+    rows: int
+    cols: int
+    row_blocks: int
+    col_blocks: int
+    chunks: int
+    smem_bytes: int
+
+    @property
+    def tiles(self) -> int:
+        return self.row_blocks * self.col_blocks
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def walk_smem_bytes(R: int, C: int, D: int, H: int, replay: bool) -> int:
+    """The walk's shared memory for tiles of ``R x C`` (``walk_smem_bytes``
+    of ``csrc/mlp_walk.cuh``): the state, ct_pre2 of the tile and ct_pre1 of
+    the row block (their columns rounded to a slab), the slab ring (rows of
+    H+1 floats, rounded to ``WALK_COL_ALIGN``, or C) and the block sum's
+    scratch; with the replay at least K3's stage tile."""
+    slab = max(_round_up(H + 1, WALK_COL_ALIGN), C)
+    floats = (R * (WALK_STATE * C + _round_up(C, WALK_SLAB_ROWS)
+                   + _round_up(H, WALK_SLAB_ROWS))
+              + WALK_SLABS * WALK_SLAB_ROWS * slab + 4 * _WARPS)
+    fwd = 4 * (10 * 4 * D + 6 * 4 * H + 3 * _WARPS) if replay else 0
+    return max(4 * floats, fwd)
+
+
+def walk_plan(B: int, D: int, H: int, sms: int, replay: bool = False,
+              limit: int = SMEM_LIMIT) -> WalkPlan:
+    """The tile plan of K4's walk at ``B x D x H`` on ``sms`` multiprocessors:
+    the fewest row chunks, then the most tiles (at most one a
+    multiprocessor), then the fewest padding rows, then the taller tiles
+    (fewer reads of the weights), over tiles of 32 or 16 rows and a multiple
+    of ``WALK_COL_ALIGN`` columns, at least ``WALK_MIN_COLS`` where D allows,
+    of at most ``WALK_MAX_TILE`` elements, whose shared memory fits
+    ``limit``. 32 x 100, 128 tiles, at 512 x 784 x 100."""
+    best, best_key = None, None
+    widths = sorted({_round_up(-(-D // n), WALK_COL_ALIGN) for n in range(1, D + 1)})
+    for R in WALK_ROWS:
+        for C in widths:
+            ndb = -(-D // C)
+            if (C < WALK_MIN_COLS and ndb > 1) or R * C > WALK_MAX_TILE or ndb > sms:
+                continue
+            smem = walk_smem_bytes(R, C, D, H, replay)
+            if smem > limit:
+                continue
+            nrb = min(-(-B // R), sms // ndb)
+            chunks = -(-B // (nrb * R))
+            key = (chunks, -nrb * ndb, chunks * nrb * R - B, -R)
+            if best_key is None or key < best_key:
+                best, best_key = WalkPlan(R, C, nrb, ndb, chunks, smem), key
+    if best is None:
+        raise ValueError(f"no tile plan of K4's walk fits {limit} bytes of shared "
+                         f"memory at D={D}, H={H}")
+    return best
+
+
+def plain_walk_step(t, dt, y, k1, leaves, cts, rtol, atol, res, plan: WalkPlan,
+                    pass_y=None, pass_k1=None):
+    """One trial step of K4's walk for MLPDynamics in the kernel's own
+    schedule, on the stage residuals ``res = (ks, hs)`` (``ks`` k1 first):
+    the seed phase, where the seeds of the stage-6 and stage-5 inputs enter
+    ``cty``, ``cks`` and ``ct_dt`` as those stages' ``ct_yi`` carry them;
+    then per stage ``i = 6..1`` phase A, ``ct_h = cp2_i W2`` with W2's time
+    column, one partial per column block of ``plan``; the reduction, the
+    partials summed in block order, ``ct_pre1 = ct_h (1 - h_i^2)`` and the
+    time terms of ``ct_ti``; and phase B, ``ct_yi = ct_pre1 W1x`` and the
+    epilogue (``cty``, ``cks[j < i]``, the dt share, the ``ye`` rows,
+    ``cp2_{i-1}``). ``cts = (ct_y_new, ct_k7, ct_err_ssq, ct_num_ssq,
+    ct_den_ssq)``; the row cotangents may be None (a rejected step).
+    Returns ``(ct_t, ct_dt, pass_y + ct_y, pass_k1 + ct_k1, (cp2, he, cp1,
+    ye))``, the rows in the layout the contraction reads (stage ``i`` at
+    ``(i - 1) B``). For the tests: the kernel's arithmetic is
+    ``fm._normed_bwd_math``'s in this order."""
+    tab = TSIT5
+    W1, _, W2, _ = leaves
+    B, D = y.shape
+    H = W1.shape[0]
+    ks, hs = [k1, *res[0]], list(res[1])
+    cyn, ck7, c_err, c_num, c_den = cts
+    zero = torch.zeros_like(y)
+    cyn = zero if cyn is None else cyn
+    ck7 = zero if ck7 is None else ck7
+
+    def acc_of(i):
+        return fm._stage_acc(i, ks)
+
+    # ---- the seed phase ----
+    yn, g6 = y + dt * acc_of(6), y + dt * acc_of(5)
+    s_comb = fm._err_comb(ks)
+    denom = atol + torch.maximum(torch.abs(y), torch.abs(yn)) * rtol
+    scaled = dt * s_comb / denom
+    cerr = c_err * 2.0 * scaled / denom
+    cdenom = c_err * (-2.0) * scaled * scaled / denom
+    y_is_max = torch.abs(y) >= torch.abs(yn)
+    to_y = torch.where(y_is_max, cdenom * rtol * torch.sign(y), zero)
+    to_ynew = torch.where(y_is_max, zero, cdenom * rtol * torch.sign(yn))
+    d_k7 = c_num * 2.0 * (ks[6] - ks[5])
+    d_ynew = c_den * 2.0 * (yn - g6)
+    cks = [tab.btilde[j] * (dt * cerr) for j in range(6)]
+    cks[5] = cks[5] - d_k7
+    seeds = {6: cyn + d_ynew + to_ynew, 5: -d_ynew}
+    ct_t, ct_dt = torch.zeros_like(c_err), torch.sum(cerr * s_comb)
+    for i, seed in seeds.items():
+        ct_dt = ct_dt + torch.sum(seed * acc_of(i))
+        for j, c in enumerate(tab.a[i - 1]):
+            if c != 0.0:
+                cks[j] = cks[j] + (dt * c) * seed
+    cty = to_y + seeds[6] + seeds[5]
+    cp2 = (tab.btilde[6] * (dt * cerr) + ck7 + d_k7) * (1.0 - ks[6] * ks[6])
+    spans = [(q * plan.cols, min(D, (q + 1) * plan.cols)) for q in range(plan.col_blocks)]
+    one = torch.ones_like(y[:, :1])
+    rows = {}
+    for i in range(6, 0, -1):
+        ti = t + tab.c[i] * dt
+        # ---- phase A, a partial per column block; the reduction, in block order ----
+        ct_h = sum(cp2[:, a:b] @ W2[a:b] for a, b in spans)
+        h_i = hs[i - 1]
+        ct_pre1 = ct_h[:, :H] * (1.0 - h_i * h_i)
+        ct_ti = torch.sum(ct_h[:, H]) + torch.sum(ct_pre1 * W1[:, D])
+        # ---- phase B ----
+        ct_yi = ct_pre1 @ W1[:, :D]
+        cty = cty + ct_yi
+        acc = acc_of(i)
+        ct_dt = ct_dt + torch.sum(ct_yi * acc)
+        for j, c in enumerate(tab.a[i - 1]):
+            if c != 0.0:
+                cks[j] = cks[j] + (dt * c) * ct_yi
+        rows[i] = (cp2, torch.cat([h_i, ti * one, one], 1), ct_pre1,
+                   torch.cat([y + dt * acc, ti * one, one], 1))
+        if i > 1:  # cks[i-1] is final
+            cp2 = cks[i - 1] * (1.0 - ks[i - 1] * ks[i - 1])
+        ct_t = ct_t + ct_ti
+        ct_dt = ct_dt + tab.c[i] * ct_ti
+    ct_y = cty if pass_y is None else pass_y + cty
+    ct_k1 = cks[0] if pass_k1 is None else pass_k1 + cks[0]
+    out = tuple(torch.cat([rows[i][q] for i in range(1, 7)]) for q in range(4))
+    return ct_t, ct_dt, ct_y, ct_k1, out
 
 
 def _rows_through(saveat, t, tdir):
@@ -327,12 +493,26 @@ def _opt_ptr(x):
     return None if x is None else fm._ptr(x)
 
 
-def _tile_rows(lib, dynamics, direction):
+def _tile_rows(lib, dynamics):
+    """Rows of the tiles K3 runs on, and K4 for AlternatingMLP and CSL
+    (MLPDynamics' K4 walks by ``walk_plan``)."""
     if dynamics == "altmlp":
         return lib.regnde_altmlp_rows()
     if dynamics == "csl":
         return lib.regnde_csl_rows()
-    return lib.regnde_fwd_rows() if direction == "fwd" else lib.regnde_bwd_rows()
+    return lib.regnde_fwd_rows()
+
+
+def _cuda_walk_plan(lib, B, D, H, dev, replay):
+    """``walk_plan`` for the card, held to the kernel's own constants."""
+    plan = walk_plan(B, D, H, torch.cuda.get_device_properties(dev).multi_processor_count,
+                     replay)
+    if (lib.regnde_walk_col_align() != WALK_COL_ALIGN
+            or lib.regnde_walk_max_tile() != WALK_MAX_TILE
+            or lib.regnde_walk_smem_bytes(plan.rows, plan.cols, D, H, int(replay))
+            != plan.smem_bytes):
+        raise RuntimeError("walk_plan's sizes disagree with csrc/mlp_walk.cuh's")
+    return plan
 
 
 def _cuda_whole_solve_fwd(t0, t1, dt0, y0, f0, leaves, rtol, atol, ctrl,
@@ -370,7 +550,7 @@ def _cuda_whole_solve_fwd(t0, t1, dt0, y0, f0, leaves, rtol, atol, ctrl,
         ks = torch.empty((max_steps, 6, B, D), device=dev)
         hs = torch.empty((max_steps, 6, B, H), device=dev)
         res = (ks, hs)
-    rows = _tile_rows(lib, dynamics, "fwd")
+    rows = _tile_rows(lib, dynamics)
     partials = torch.empty((2, (B + rows - 1) // rows, 3), device=dev)
     tail = (ptr(y1), ptr(hy), ptr(hf), ptr(streams), ptr(final), ptr(partials), B, D,
             H, max_steps, n_save, float(rtol), float(atol), *_ctrl_args(ctrl),
@@ -431,15 +611,22 @@ def _cuda_whole_solve_bwd(rec, ns, ct_y1, ct_tel, t0, t1, leaves, rtol, atol,
     ct_y = ct_y1.clone()
     ct_f = torch.zeros_like(ct_y)
     ct_scalars = torch.empty(3, device=dev)
-    rows = _tile_rows(lib, dynamics, "bwd")
-    ntiles = (B + rows - 1) // rows
-    partials = torch.empty((2, ntiles, 4), device=dev)
     head = (ptr(scalars), ptr(rec.streams), ptr(rec.hy), ptr(rec.hf))
     mid = (ptr(ct_tel), ptr(ct_y), ptr(ct_f))
     dims = (ns, B, D, H, S, n_save)
     tail = (float(rtol), float(atol), *_ctrl_args(ctrl),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if dynamics == "mlp":
+        replay = res[0] is None
+        plan = _cuda_walk_plan(lib, B, D, H, dev, replay)
+        slots = torch.empty((2, plan.tiles, 4), device=dev)
+        hpp, width = _round_up(H + 1, WALK_COL_ALIGN), plan.col_blocks * plan.cols
+        psum = torch.empty((plan.tiles, plan.rows, hpp), device=dev)
+        ctp1g = torch.empty((plan.row_blocks, H, plan.rows), device=dev)
+        # the weights padded for the walk's 16-byte copies (it fills them)
+        wpad = (torch.empty((width, hpp), device=dev), torch.empty((H, width), device=dev))
+        step = ((torch.empty((6, B, D), device=dev), torch.empty((6, B, H), device=dev))
+                if replay else (None, None))
         ct_leaves = [torch.empty_like(x) for x in leaves]
         # the weight-cotangent rows of every trial step, summed after the walk
         K = 6 * B * ns
@@ -447,11 +634,17 @@ def _cuda_whole_solve_bwd(rec, ns, ct_y1, ct_tel, t0, t1, leaves, rtol, atol,
         wpart, chunk_rows, wfloats = wc.cuda_scratch(K, D, H, dev)
         code = lib.regnde_whole_solve_bwd(
             *head, *map(ptr, leaves), *map(_opt_ptr, res), *save_ptrs, *mid,
-            *map(ptr, ct_leaves),
-            ptr(ct_scalars), ptr(partials), _opt_ptr(hdy), _opt_ptr(hdf),
-            *map(ptr, wrows), ptr(wpart), *dims, chunk_rows, wfloats, *tail)
+            *map(ptr, ct_leaves), ptr(ct_scalars), ptr(slots), ptr(psum), ptr(ctp1g),
+            _opt_ptr(hdy),
+            _opt_ptr(hdf), *map(_opt_ptr, step), *map(ptr, wpad), *map(ptr, wrows), ptr(wpart),
+            *dims,
+            plan.rows, plan.cols, plan.row_blocks, plan.col_blocks, plan.chunks,
+            chunk_rows, wfloats, *tail)
         name = "whole_solve_bwd"
     else:
+        rows = _tile_rows(lib, dynamics)
+        ntiles = (B + rows - 1) // rows
+        partials = torch.empty((2, ntiles, 4), device=dev)
         # the leaves with a cotangent: CSL's probe has none
         params = leaves if dynamics == "altmlp" else leaves[:fc.N_PARAMS]
         n_leaf = sum(x.numel() for x in params)

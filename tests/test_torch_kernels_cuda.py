@@ -327,6 +327,76 @@ def test_whole_solve_stream_is_deterministic(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 13, 512])
+@pytest.mark.parametrize("dim, hidden, saves", [(40, 24, True), (784, 100, False)])
+def test_mlp_walk_matches_plain_version(cuda, batch, dim, hidden, saves):
+    """K4's walk (``csrc/mlp_walk.cuh``) against ``plain_whole_solve_bwd`` on
+    K3's record at rtol=atol=1e-4: one row (a tile of 1 live row), a ragged
+    tile (13) and the flagship's batch, at 40x24 with 4 saves (weights at
+    three times LeCun's scale, as phase 12) and at 784x100 without (LeCun's
+    scale, as phase 5). Seeded with the rows' cotangents (y1, and ys), every
+    output but ct_f0 within 1e-3 of the plain version; with the telemetry's
+    too, every output within 3 times the float32 plain version's distance
+    from a float64 walk of the same record, plus 1e-5. One launch a call,
+    bitwise the same twice."""
+    args = _solve_args(batch, dim, hidden, cuda, scale=3.0 if saves else 1.0)
+    kw, bkw = {}, {}
+    if saves:
+        sa, ys_init = ode.saveat_rows(torch.tensor([0.25, 0.5, 0.75, 1.0], device=cuda),
+                                      args[0], args[1], args[3])
+        kw = dict(saveat=sa, ys_init=ys_init)
+    rec = ws.whole_solve_fwd(*args, **kw)
+    ns = int(rec.final[3:5].sum().item())
+    assert rec.final[5].item() == 1.0 and ns >= 1
+    ct_y1, ct_tel = _bwd_seeds(batch, dim, cuda)
+    if saves:
+        bkw = dict(saveat=sa, ct_ys=_bwd_seeds(4 * batch, dim, cuda, seed=2)[0].view(
+            rec.ys.shape))
+    t0, t1, leaves = args[0], args[1], args[5]
+    d = lambda x: x.double()
+    rec64 = ws.SolveRecord(*map(d, rec))
+    bkw64 = {k: d(v) for k, v in bkw.items()}
+    for tel in (torch.zeros_like(ct_tel), ct_tel):
+        rest = (ns, ct_y1, tel, t0, t1, leaves, 1e-4, 1e-4, CTRL)
+        ws.reset_launches()
+        gk = ws.whole_solve_bwd(rec, *rest, **bkw)
+        assert ws.LAUNCHES["whole_solve_bwd"] == 1
+        assert all(torch.equal(a, b) for a, b in zip(gk, ws.whole_solve_bwd(rec, *rest, **bkw)))
+        gp = ws.plain_whole_solve_bwd(rec, *rest, **bkw)
+        g64 = ws.plain_whole_solve_bwd(rec64, ns, d(ct_y1), d(tel), d(t0), d(t1),
+                                       [d(x) for x in leaves], 1e-4, 1e-4, CTRL, **bkw64)
+        names = GROUPS + (["ct_ys_init"] if saves else [])
+        tails = [[g[5]] if saves else [] for g in (gk, gp, g64)]
+        for name, a, b, c in zip(names, *(_grad_groups(g) + t for g, t in
+                                          zip((gk, gp, g64), tails))):
+            if not tel.any() and name != "ct_f0":
+                assert _rel(a, b) <= 1e-3, (name, _rel(a, b))
+            assert _rel(a, c) <= 3 * _rel(b, c) + 1e-5, (name, _rel(a, b), _rel(a, c),
+                                                          _rel(b, c))
+
+
+@pytest.mark.cuda
+def test_mlp_walk_in_row_chunks_matches_plain_version(cuda, monkeypatch):
+    """K4's walk on the plan of a card of 4 multiprocessors: 4 tiles, the
+    batch of 256 walked in row chunks one after another. Held as
+    ``test_whole_solve_kernels_match_plain_versions`` holds it, with the
+    cotangents of y1 and then of the telemetry too."""
+    plan = ws.walk_plan
+
+    def small_card(B, D, H, sms, replay=False, limit=ws.SMEM_LIMIT):
+        return plan(B, D, H, 4, replay, limit)
+
+    monkeypatch.setattr(ws, "walk_plan", small_card)
+    assert ws.walk_plan(256, 64, 32, 132).chunks > 1
+    args = _solve_args(256, 64, 32, cuda, scale=3.0)
+    rk = ws.whole_solve_fwd(*args)
+    ns = int(rk.final[3:5].sum().item())
+    ct_y1, ct_tel = _bwd_seeds(256, 64, cuda)
+    for tel in (torch.zeros_like(ct_tel), ct_tel):
+        _assert_k4_matches(rk, ns, ct_y1, tel, args, hard_bound=not tel.any())
+
+
+@pytest.mark.cuda
 def test_whole_solve_wrappers_refuse_bad_inputs(cuda):
     args = list(_solve_args(8, 16, 12, cuda))
     y0 = args[3]

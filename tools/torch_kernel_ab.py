@@ -111,9 +111,10 @@ for line in _cuda.ptxas_report().splitlines():
     elif name and ("registers" in line or "stack frame" in line):
         ptxas.setdefault(name, []).append(line.split(":", 1)[-1].strip())
 # each kernel's SASS, hashed, under its name with the tree's anonymous-
-# namespace tag taken out; cuobjdump numbers branch labels and pads columns
-# across the whole library, so labels are numbered from 0 within the kernel
-# and runs of blanks count as one
+# namespace tags taken out (the second one hashes the translation unit, so it
+# changes with any edit of the file); cuobjdump numbers branch labels and
+# pads columns across the whole library, so labels are numbered from 0
+# within the kernel and runs of blanks count as one
 cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
 dump = subprocess.run([cuobjdump, "-sass", lib._name], capture_output=True, text=True,
                       check=True).stdout
@@ -122,6 +123,7 @@ for line in dump.splitlines():
     m = re.match(r"\s*Function : (\S+)", line)
     if m:
         name = re.sub(r"_GLOBAL__N__[0-9a-f]+_", "_GLOBAL__N__", m.group(1))
+        name = re.sub(r"_cu_[0-9a-f]{8}", "_cu_", name)
         sass[name], labels = hashlib.sha256(), {}
     elif name and line.strip().startswith(("/*", ".L_x_")):  # instructions, labels
         line = re.sub(r"\.L_x_\d+",
