@@ -2,7 +2,8 @@
 // trial steps, each reverse stage's two contractions split over the whole
 // grid. Included by whole_solve.cu only, after the scalar chain it shares
 // with the other walks (post_bwd, Chain, chain_begin/_end/_finish,
-// hermite_elem, BwdArgs, MlpDyn).
+// hermite_elem, BwdArgs, MlpDyn) and after mlp_solve.cuh, K3's, whose tile
+// toolkit it is built on and whose stages its replay runs.
 //
 // Replaces the TPU kernel
 //   K4: regneuralde_tpu/ops/pallas_solve.py make_whole_solve.make_bwd_kernel
@@ -70,10 +71,10 @@
 //     wrote its slot of the cotangents of t and dt_eff. The trial step's
 //     pointers sit in shared memory (s_step), not in registers across it.
 //   * The replay (cache_residuals=False) runs first in every trial step:
-//     the blocks recompute the step's stage residuals on 4-row tiles with
-//     K3's own stage code (recompute_stages<kFwdRows, true>) into a one-step
+//     the blocks recompute the step's stage residuals on K3's tiles with
+//     K3's own stages (solve_stages, mlp_solve.cuh) into a one-step
 //     scratch, grid.sync(), and the same walk reads it. So the streamed walk
-//     equals the replay bitwise wherever K3's stream equals the recompute.
+//     equals the replay bitwise: K3 streamed the same bits.
 //   * A batch whose state does not fit the grid's shared memory is walked
 //     in row chunks, one after another, each the whole chain of stages.
 // No atomics, no TF32, no fast math: every sum has a fixed order, so runs
@@ -83,16 +84,10 @@
 
 namespace {
 
-constexpr int kWalkTM = 4;       // rows of a thread's register tile
-constexpr int kWalkTN = 4;       // its columns; tile widths are a multiple
-constexpr int kWalkKB = 8;       // operand rows in a slab
-constexpr int kWalkStages = 4;   // slabs in flight
 constexpr int kWalkState = 13;   // floats of reverse state an element
 constexpr int kWalkRounds = 4;   // a thread's items in a row pass, in registers
 // shared-memory arrays of the state, kWalkState x (C x R)
 enum { WS_KS = 0, WS_CKS = 6, WS_CTY = 12 };
-
-__host__ __device__ inline int walk_round_up(int x, int m) { return (x + m - 1) / m * m; }
 
 // Floats of the walk's shared memory for tiles of R rows x C columns: the
 // state, ct_pre2 of the tile (C rounded to a slab, x R), ct_pre1 of the row
@@ -106,11 +101,11 @@ __host__ __device__ inline size_t walk_smem_floats(int R, int C, int H) {
          (size_t)kWalkStages * kWalkKB * slab + 4 * kWarps;
 }
 
-// The walk's dynamic shared memory; the replay's stage recompute reuses it.
-size_t walk_smem_bytes(int R, int C, int D, int H, bool replay) {
-  const size_t walk = sizeof(float) * walk_smem_floats(R, C, H);
-  const size_t rec = replay ? fwd_smem_bytes(D, H, 6) : 0;
-  return walk > rec ? walk : rec;
+// The walk's dynamic shared memory. The replay's stages (K3's, on the same
+// tiles) reuse it: solve_smem_floats is below walk_smem_floats term by term
+// (8 floats of state an element against 13, slabs of H against H+1).
+size_t walk_smem_bytes(int R, int C, int H) {
+  return sizeof(float) * walk_smem_floats(R, C, H);
 }
 
 // The tile plan and the walk's own scratch (ops/whole_solve.py walk_plan).
@@ -121,6 +116,7 @@ struct Walk {
   float* w2p;                // W2 padded: ndb C rows of HPP floats, zero past W2
   float* w1p;                // W1x padded: H rows of ndb C floats, zero past D
   int R, C, nrb, ndb, chunks;
+  Solve f;                   // the replay's: K3's tiles (the same plan) and scratch
 };
 
 template <bool STREAM>
@@ -128,23 +124,6 @@ struct WalkArgs {
   BwdArgs<MlpDyn<STREAM>> a;
   Walk w;
 };
-
-// One block's tile in one row chunk: rows [row0, row0 + rows) (rows may be
-// 0 in the last chunk) and columns [d0, d0 + cols) of the batch.
-struct WalkTile {
-  int row0, rows, d0, cols, rb, db;
-};
-
-__device__ __forceinline__ WalkTile walk_tile(const Walk& w, int B, int D, int chunk) {
-  WalkTile t;
-  t.rb = blockIdx.x / w.ndb;
-  t.db = blockIdx.x - t.rb * w.ndb;
-  t.row0 = (chunk * w.nrb + t.rb) * w.R;
-  t.rows = max(0, min(w.R, B - t.row0));
-  t.d0 = t.db * w.C;
-  t.cols = max(0, min(w.C, D - t.d0));
-  return t;
-}
 
 // One trial step's inputs and outputs as the phases see them.
 struct WalkStep {
@@ -179,28 +158,6 @@ __device__ __forceinline__ WalkSmem walk_smem(float* pool, const Walk& w, int H)
   return s;
 }
 
-// The offset of rows [4g, 4g + 4) of column c in a column-major array of R
-// rows: the 4-row groups of a column are XOR-permuted by the column, so a
-// quarter warp on 8 consecutive columns (or on the 8 groups of one column)
-// meets 8 distinct banks.
-__device__ __forceinline__ int walk_at(int c, int g, int R) {
-  return c * R + 4 * (g ^ (c & (R / 4 - 1)));
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-__device__ __forceinline__ void st4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
-__device__ __forceinline__ float4 add4(float4 a, float4 b) {  // a + b, per lane
-  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
-}
-__device__ __forceinline__ float4 axpy4(float a, float4 x, float4 y) {  // y + a x, per lane
-  return make_float4(y.x + a * x.x, y.y + a * x.y, y.z + a * x.z, y.w + a * x.w);
-}
-__device__ __forceinline__ float& comp(float4& v, int i) {
-  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
-}
-
 // stage_acc (normed_tsit5.cuh) of stage I on a float4 of 4 rows: sum_j
 // a[I-1][j] ks[j], first term first.
 template <int I>
@@ -213,49 +170,20 @@ __device__ __forceinline__ float4 walk_stage_acc(const float* st, int RC, int of
   return acc;
 }
 
-// A 16-byte copy from global to shared memory, zero-filled (nothing read)
-// where ok is false.
-__device__ __forceinline__ void walk_cp16(float* dst, const float* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(ok ? 16 : 0) : "memory");
-}
-__device__ __forceinline__ void walk_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void walk_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Slab p of phase A's weights: rows [p kWalkKB, +kWalkKB) of the tile's C
-// rows of the padded W2 (HPP floats each, contiguous), zero past the tile.
+// Slab p of phase A's weights: the tile's C rows of the padded W2 (HPP
+// floats each).
 __device__ __forceinline__ void walk_load_w2(const Walk& w, const WalkSmem& s,
                                              const WalkTile& tl, int p) {
-  float* dst = s.slab + (p % kWalkStages) * s.SS;
-  const float* src = w.w2p + ((size_t)tl.d0 + p * kWalkKB) * s.HPP;
-  const int valid = (w.C - p * kWalkKB) * s.HPP;  // floats of the tile's rows
-  for (int e = 4 * threadIdx.x; e < kWalkKB * s.HPP; e += 4 * kThreads)
-    walk_cp16(dst + e, e < valid ? src + e : w.w2p, e < valid);
+  slab_rows(s.slab + (p % kWalkStages) * s.SS, w.w2p + (size_t)tl.d0 * s.HPP, s.HPP, w.C, p);
 }
 
-// Slab p of phase B's weights: rows [p kWalkKB, +kWalkKB) of the padded W1
-// at the tile's C columns, at a row stride of C, zero past H. (kk, c4):
-// this thread's first copy, a row of the slab and a float4 of it.
+// Slab p of phase B's weights: rows of the padded W1 at the tile's C
+// columns, zero past H. (kk, c4) as slab_cols.
 __device__ __forceinline__ void walk_load_w1(const Walk& w, const WalkSmem& s,
                                              const WalkTile& tl, int H, int kk, int c4,
                                              int p) {
-  float* dst = s.slab + (p % kWalkStages) * s.SS;
-  const int quads = w.C / 4;
-  const size_t stride = (size_t)w.ndb * w.C;
-  for (int e = threadIdx.x; e < kWalkKB * quads; e += kThreads) {
-    const int h = p * kWalkKB + kk;
-    const bool ok = h < H;
-    walk_cp16(dst + 4 * e, ok ? w.w1p + h * stride + tl.d0 + 4 * c4 : w.w1p, ok);
-    c4 += kThreads % quads;  // the next copy of this thread
-    kk += kThreads / quads + (c4 >= quads);
-    if (c4 >= quads) c4 -= quads;
-  }
+  slab_cols(s.slab + (p % kWalkStages) * s.SS, w.w1p, (size_t)w.ndb * w.C, tl.d0, w.C, H, kk,
+            c4, p);
 }
 
 // The padded copies of the weights the slabs are cut from (every block a
@@ -276,46 +204,6 @@ __device__ void walk_pad_weights(const float* W1, const float* W2, const Walk& w
       w.w1p[e - n2] = d < (size_t)D ? W1[h * (D + 1) + d] : 0.0f;
     }
   }
-}
-
-// The first kWalkStages - 1 slabs of a phase, issued ahead of it.
-template <class Load>
-__device__ __forceinline__ void walk_prefetch(int nslab, Load load) {
-#pragma unroll
-  for (int p = 0; p < kWalkStages - 1; ++p) {
-    if (p < nslab) load(p);
-    walk_commit();
-  }
-}
-
-// acc[i][u] += sum_k a(k)[i] b(k)[u] over nslab slabs of kWalkKB rows k: a(k)
-// a float4 of 4 rows of the shared operand, b(slot, kk) a float4 of 4
-// columns of row kk of the slab in ring slot `slot`, in k order, one fmaf a
-// term. The first kWalkStages - 1 slabs are in flight already.
-template <class Load, class A, class Bv>
-__device__ __forceinline__ void walk_gemm(float (&acc)[kWalkTM][kWalkTN], bool live,
-                                          int nslab, Load load, A a, Bv b) {
-  for (int kt = 0; kt < nslab; ++kt) {
-    walk_wait<kWalkStages - 2>();  // slab kt has landed
-    __syncthreads();               // and every thread is done with slab kt - 1
-    if (kt + kWalkStages - 1 < nslab) load(kt + kWalkStages - 1);
-    walk_commit();
-    if (live) {
-#pragma unroll
-      for (int kk = 0; kk < kWalkKB; ++kk) {
-        const float4 av = a(kt * kWalkKB + kk);
-        const float4 bv = b(kt % kWalkStages, kk);
-        const float ar[4] = {av.x, av.y, av.z, av.w};
-        const float br[4] = {bv.x, bv.y, bv.z, bv.w};
-#pragma unroll
-        for (int i = 0; i < kWalkTM; ++i)
-#pragma unroll
-          for (int u = 0; u < kWalkTN; ++u) acc[i][u] = fmaf(ar[i], br[u], acc[i][u]);
-      }
-    }
-  }
-  walk_wait<0>();
-  __syncthreads();  // the slab ring is free again
 }
 
 // The loads of one item of the seed phase, 4 rows of a column (zero
@@ -722,33 +610,16 @@ __device__ __forceinline__ void walk_stage(const WalkArgs<STREAM>& args, cg::gri
 }
 
 // The replay: trial step i's stage residuals (k2..k7 and each stage's
-// hidden activations) into the one-step scratch, on 4-row tiles strided
-// over the grid, by K3's own stage code.
+// hidden activations) into the one-step scratch, by K3's own stages on K3's
+// tiles (w.f).
 template <bool STREAM>
 __device__ __forceinline__ void walk_replay(const BwdArgs<MlpDyn<STREAM>>& a, const Walk& w,
-                            const float* yi, const float* fi, float t, float dt,
-                            float* smem) {
-  constexpr int R = kFwdRows;
-  const MlpDyn<STREAM>& m = a.dyn;
-  const int D = a.D, H = m.H, n = R * D;
-  const size_t BD = (size_t)a.B * D, BH = (size_t)a.B * H;
-  float* y_s = smem;
-  float* ks = y_s + n;
-  float* ysn = ks + 7 * n;
-  float* g6 = ysn + n;
-  float* hid = g6 + n;  // 6 x R*H
-  for (int row0 = blockIdx.x * R; row0 < a.B; row0 += gridDim.x * R) {
-    const int rows = min(R, a.B - row0);
-    recompute_stages<R, true>(yi, fi, row0, rows, t, dt, y_s, ks, ysn, g6, hid, hid, m.W1,
-                              m.b1, m.W2, m.b2, D, H);
-    for (int idx = threadIdx.x; idx < rows * D; idx += kThreads)
-      for (int s = 1; s <= 6; ++s)
-        __stcg(w.ks_step + (s - 1) * BD + (size_t)row0 * D + idx, ks[s * n + idx]);
-    for (int idx = threadIdx.x; idx < rows * H; idx += kThreads)
-      for (int s = 0; s < 6; ++s)
-        __stcg(w.hs_step + s * BH + (size_t)row0 * H + idx, hid[s * R * H + idx]);
-    __syncthreads();
-  }
+                                            cg::grid_group& grid, const float* yi,
+                                            const float* fi, float t, float dt, float* pool) {
+  const SolveSmem s = solve_smem(pool, w.f, a.dyn.H);
+  const SolveStep ss{yi, fi, w.ks_step, w.hs_step, t, dt};
+  for (int chunk = 0; chunk < w.f.chunks; ++chunk)
+    solve_stages<true>(a.dyn, w.f, grid, ss, s, walk_tile(w.f, a.B, a.D, chunk), a.B, a.D);
 }
 
 // K4 for MLPDynamics: the reverse walk over the forward's ns trial steps,
@@ -778,6 +649,7 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_walk_kernel(WalkArgs<STREAM> 
   if (threadIdx.x < 5) s_ct[threadIdx.x] = 0.0f;
   if (threadIdx.x == 0) s_rcur = a.sv.n ? a.sv.cursors[1] : 0;
   walk_pad_weights(m.W1, m.W2, w, D, H, s.HPP);
+  if constexpr (!STREAM) solve_pad_weights(m.W1, m.W2, w.f, D, H, walk_round_up(H, kWalkTN));
   grid.sync();
 
   for (int j = 0; j < a.ns; ++j) {
@@ -787,7 +659,7 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_walk_kernel(WalkArgs<STREAM> 
     const float* yi = a.hy + (size_t)i * BD;
     const float* fi = a.hf + (size_t)i * BD;
     if constexpr (!STREAM) {
-      walk_replay(a, w, yi, fi, s_ti, s_dteff, walk_pool);
+      walk_replay(a, w, grid, yi, fi, s_ti, s_dteff, walk_pool);
       grid.sync();
     }
     if (threadIdx.x == 0) {

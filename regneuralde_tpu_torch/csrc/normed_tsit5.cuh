@@ -1,11 +1,10 @@
 // Device code shared by the normed Tsit5 step kernels (normed_tsit5.cu,
 // K1/K2) and the whole-solve kernels (whole_solve.cu, K3/K4): the Tsit5
 // tableau, the MLPDynamics stage, the per-tile bodies of one normed trial
-// step and of its hand reverse, and the launcher of the fixed-order
-// contraction that sums the weight cotangents (weight_cotangents.cu). The
-// whole solve's forward tile also streams the trial step's stage residuals
-// (ks, hs) out; its reverse walk (mlp_walk.cuh) reads them instead of
-// re-running the six stages.
+// step and of its hand reverse, the pinned stage state, and the launcher of
+// the fixed-order contraction that sums the weight cotangents
+// (weight_cotangents.cu). The MLPDynamics whole solve runs its stages on
+// tiles of its own (mlp_solve.cuh, mlp_walk.cuh).
 //
 // Everything but that contraction's C entry sits in an anonymous
 // namespace, so each .cu file that includes it has its own copy and no
@@ -98,13 +97,14 @@ __device__ __forceinline__ float stage_acc(int i, const float* ks, int stride,
 
 // Stage i's state y + dt * acc_i with its contraction pinned: acc starts
 // as the rounded first product, takes each further term by one fma, and
-// the state is fma(dt, acc, y). The whole solve builds every stage state
-// here (recompute_stages<R, true> in K3 and in K4's replay, and K4's seed
-// phase, mlp_walk.cuh), so the same ks give the same bits on each path: left
-// to the compiler, y + dt * acc_i contracted differently in two inlined
-// copies, and K4's streamed and replayed cotangents of the stiffness norm
-// parted by ulps (H100). The step kernels (K1/K2, K13/K14) keep the
-// compiler's contraction: pinned there, it cost K2 about 35% (H100).
+// the state is fma(dt, acc, y). The whole solve for MLPDynamics builds every
+// stage state here (K3's stage pass and K4's replay of it, mlp_solve.cuh,
+// and K4's seed phase, mlp_walk.cuh), so the same ks give the same bits on
+// each path: left to the compiler, y + dt * acc_i contracted differently in
+// two inlined copies, and K4's streamed and replayed cotangents of the
+// stiffness norm parted by ulps (H100). The step kernels (K1/K2, K13/K14)
+// keep the compiler's contraction: pinned there, it cost K2 about 35%
+// (H100).
 __device__ __forceinline__ float stage_state(int i, const float* y_s,
                                              const float* ks, int stride,
                                              int idx, float dt) {
@@ -162,7 +162,7 @@ __device__ void mlp_stage(const float* yi, float* hid, float* k_out, float ti,
 // stages. Shared layout: y | ks[0..6] | yi | g6 (each ROWS*D) | hid.
 // On return yi holds y_new (stage 6 state, FSAL) and g6 the stage-5 state.
 // hs, when given, receives each stage's hidden activations (6 x ROWS*H).
-template <int ROWS, bool PINNED = false>
+template <int ROWS>
 __device__ void recompute_stages(const float* y_g, const float* k1_g, int row0,
                                  int rows, float t, float dt, float* y_s,
                                  float* ks, float* yi, float* g6, float* hid,
@@ -179,11 +179,7 @@ __device__ void recompute_stages(const float* y_g, const float* k1_g, int row0,
   for (int i = 1; i <= 6; ++i) {
     __syncthreads();
     for (int idx = threadIdx.x; idx < n; idx += kThreads) {
-      float v;
-      if constexpr (PINNED)
-        v = stage_state(i, y_s, ks, n, idx, dt);
-      else
-        v = y_s[idx] + dt * stage_acc(i, ks, n, idx);
+      const float v = y_s[idx] + dt * stage_acc(i, ks, n, idx);
       yi[idx] = v;
       if (i == 5) g6[idx] = v;
     }
@@ -194,11 +190,8 @@ __device__ void recompute_stages(const float* y_g, const float* k1_g, int row0,
   __syncthreads();
 }
 
-// hid_stages: 1, or 6 where the forward tile keeps every stage's hidden
-// activations to stream them out.
-size_t fwd_smem_bytes(int D, int H, int hid_stages = 1) {
-  return sizeof(float) * ((size_t)10 * kFwdRows * D + (size_t)hid_stages * kFwdRows * H +
-                          3 * kWarps);
+size_t fwd_smem_bytes(int D, int H) {
+  return sizeof(float) * ((size_t)10 * kFwdRows * D + (size_t)kFwdRows * H + 3 * kWarps);
 }
 
 size_t bwd_smem_bytes(int D, int H) {
@@ -206,16 +199,8 @@ size_t bwd_smem_bytes(int D, int H) {
 }
 
 // K1's body for one row tile [row0, row0 + rows): writes the tile's y_new
-// and k7 rows and its three norm sums (err, num, den) to sums_out. With
-// STREAM (the whole solve's forward), also the tile's valid rows of the six
-// fresh stage derivatives k2..k7 and of each stage's hidden activations to
-// ks_out, hs_out (this trial step's row of the stream, 6 x B x D and 6 x B
-// x H, stage-major), with evict-first stores: the backward reads them once.
-// The stream is a template parameter, not a runtime branch, so K1's code
-// is the one without it. PINNED: stage states by stage_state (the whole
-// solve).
-// smem: fwd_smem_bytes(D, H, STREAM ? 6 : 1).
-template <bool STREAM = false, bool PINNED = false>
+// and k7 rows and its three norm sums (err, num, den) to sums_out.
+// smem: fwd_smem_bytes(D, H).
 __device__ void normed_fwd_tile(const float* y, const float* k1, int row0,
                                 int rows, float t, float dt,
                                 const float* __restrict__ W1,
@@ -223,28 +208,17 @@ __device__ void normed_fwd_tile(const float* y, const float* k1, int row0,
                                 const float* __restrict__ W2,
                                 const float* __restrict__ b2, float* y_new,
                                 float* k7, float* sums_out, int D, int H,
-                                float rtol, float atol, float* smem,
-                                float* ks_out = nullptr, float* hs_out = nullptr,
-                                int B = 0) {
+                                float rtol, float atol, float* smem) {
   constexpr int R = kFwdRows;
   const int n = R * D;
   float* y_s = smem;
   float* ks = y_s + n;
   float* yi = ks + 7 * n;
   float* g6 = yi + n;
-  float* hid = g6 + n;  // R*H, or every stage's (6 x R*H) with the stream
-  float* red = hid + (STREAM ? 6 : 1) * R * H;
-  recompute_stages<R, PINNED>(y, k1, row0, rows, t, dt, y_s, ks, yi, g6, hid,
-                              STREAM ? hid : nullptr, W1, b1, W2, b2, D, H);
-  if constexpr (STREAM) {
-    const size_t BD = (size_t)B * D, BH = (size_t)B * H;
-    for (int idx = threadIdx.x; idx < rows * D; idx += kThreads)
-      for (int s = 1; s <= 6; ++s)
-        __stcs(ks_out + (s - 1) * BD + (size_t)row0 * D + idx, ks[s * n + idx]);
-    for (int idx = threadIdx.x; idx < rows * H; idx += kThreads)
-      for (int s = 0; s < 6; ++s)
-        __stcs(hs_out + s * BH + (size_t)row0 * H + idx, hid[s * R * H + idx]);
-  }
+  float* hid = g6 + n;
+  float* red = hid + R * H;
+  recompute_stages<R>(y, k1, row0, rows, t, dt, y_s, ks, yi, g6, hid, nullptr, W1, b1, W2,
+                      b2, D, H);
 
   float sums[3] = {0.0f, 0.0f, 0.0f};
   for (int idx = threadIdx.x; idx < rows * D; idx += kThreads) {

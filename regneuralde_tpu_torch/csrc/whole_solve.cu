@@ -1,11 +1,12 @@
 // The whole adaptive Tsit5 solve on Hopper: one persistent cooperative
 // kernel for the forward (K3) and one for the reverse walk (K4), generic
-// over the dynamics' per-tile trial-step body: MLPDynamics (K1's,
-// normed_tsit5.cuh), AlternatingMLP (K7's and K8's, altmlp_tsit5.cuh) or
-// FFJORD's augmented CSL dynamics (K7-CSL's and K8-CSL's, csl_tsit5.cuh).
-// MLPDynamics' reverse walk is its own kernel, mlp_walk.cuh, which splits
-// each stage's contractions over the whole grid; it shares the scalar
-// chain below (chain_begin, chain_end, chain_finish, hermite_elem).
+// over the dynamics' per-tile trial-step body: AlternatingMLP (K7's and
+// K8's, altmlp_tsit5.cuh) or FFJORD's augmented CSL dynamics (K7-CSL's and
+// K8-CSL's, csl_tsit5.cuh). MLPDynamics' forward and reverse walk are
+// kernels of their own, mlp_solve.cuh and mlp_walk.cuh, which split each
+// stage's contractions over the whole grid; they share the scalar code
+// below (fwd_begin, fwd_decide, fwd_end, hermite_at, chain_begin,
+// chain_end, chain_finish, hermite_elem).
 //
 // Replaces the TPU kernels
 //   K3: regneuralde_tpu/ops/pallas_solve.py  make_whole_solve.make_fwd_kernel
@@ -27,7 +28,8 @@
 //
 // What the design does about it.
 //   * Each block owns the same row tiles (tile = blockIdx.x + k*gridDim.x)
-//     for the whole solve and runs the dynamics' per-tile body on them. The
+//     for the whole solve and runs the dynamics' per-tile body on them
+//     (MLPDynamics: one tile of the batch's rows and columns a block). The
 //     carry lives in global memory, in the history itself: hy[i], hf[i] is
 //     the state at the start of trial step i, the tile body writes its
 //     y_new, k7 into hy[i+1], hf[i+1], and a rejected step copies row i
@@ -206,6 +208,83 @@ __device__ PostGrads post_bwd(const Ctrl& c, float count, float t, float dt_eff,
   return g;
 }
 
+// The forward's scalar state, in the solving kernel's shared memory (one
+// copy a block, kept alike in every block): t, dt and qold of the next
+// trial step, the step counts, whether the solve is done, the last trial
+// step's accept flag and save rows [lo, hi), and the save cursor.
+struct FwdState {
+  float t, dt, qold;
+  int na, nr, done, acc, cur, lo, hi;
+};
+
+// Thread 0, before the first trial step.
+template <class A>
+__device__ __forceinline__ void fwd_begin(const A& a, FwdState& s, float span) {
+  s.t = a.scalars[0];
+  s.dt = a.scalars[2];
+  s.qold = a.ctrl.qoldinit;
+  s.na = s.nr = 0;
+  s.done = span == 0.0f;
+  s.cur = a.sv.n ? a.sv.cursors[0] : 0;
+  s.lo = s.hi = 0;
+}
+
+// Warp 0 of every block, after every tile of trial step i wrote its norm
+// sums to its slot part[3 * tile ..] and the grid synced: sums the slots in
+// tile order and runs the controller (thread 0); block 0 records the step
+// in the streams.
+template <class A>
+__device__ __forceinline__ void fwd_decide(const A& a, FwdState& s, const float* part,
+                                           int ntiles, int i, float t, float dt,
+                                           float dt_eff, bool is_last, float t1, float tdir,
+                                           float span, float count) {
+  float sums[3];
+  sum_tiles<3>(part, ntiles, sums);
+  if (threadIdx.x != 0) return;
+  const Post p = post_fwd(a.ctrl, count, t, dt_eff, s.qold, sums[0], sums[1], sums[2], t1,
+                          span, is_last);
+  if (blockIdx.x == 0) {
+    float* st = a.streams;
+    const int S = a.S;
+    st[ST_T * S + i] = t;
+    st[ST_DT * S + i] = dt;
+    st[ST_QOLD * S + i] = s.qold;
+    st[ST_E * S + i] = sums[0];
+    st[ST_N * S + i] = sums[1];
+    st[ST_D * S + i] = sums[2];
+    st[ST_ACC * S + i] = p.accept ? 1.0f : 0.0f;
+    st[TEL_T * S + i] = p.t_end;
+    st[TEL_DT * S + i] = dt_eff;
+    st[TEL_EEST * S + i] = p.eest;
+    st[TEL_EIGEN * S + i] = p.eigen;
+  }
+  // the save cursor consumes every save time in (t, t_end]
+  int hi = s.cur;
+  if (p.accept)
+    while (hi < a.sv.n && (a.sv.sa[hi] - p.t_end) * tdir <= 0.0f) ++hi;
+  s.lo = s.cur;
+  s.hi = hi;
+  s.cur = hi;
+  s.acc = p.accept;
+  s.t = p.t_new;
+  s.dt = p.dt_next;
+  s.qold = p.qold_next;
+  if (p.accept) ++s.na; else ++s.nr;
+  s.done = p.accept && is_last;
+}
+
+// Block 0, thread 0, after the solve: the final scalars and save cursor.
+template <class A>
+__device__ __forceinline__ void fwd_end(const A& a, const FwdState& s) {
+  a.final_[0] = s.t;
+  a.final_[1] = s.dt;
+  a.final_[2] = s.qold;
+  a.final_[3] = (float)s.na;
+  a.final_[4] = (float)s.nr;
+  a.final_[5] = (float)s.done;
+  if (a.sv.n) a.sv.cursors[1] = s.cur;
+}
+
 // Copies rows [row0, row0 + rows) of src to dst (B x D row-major).
 __device__ void copy_rows(const float* src, float* dst, int row0, int rows,
                           int D) {
@@ -226,33 +305,50 @@ struct Saves {
   int n;
 };
 
-// The rows [lo, hi) of ys for batch rows [row0, row0 + rows): cubic
-// Hermite interpolation on the accepted step from (t, yi, fi) over dt_eff
-// to (yn, kn), each multiply and add rounded as the ATen ops of
-// ops/ode.py _interp and _hermite_eval (the step route's writer).
+// Cubic Hermite interpolation on an accepted step from (t, y0, f0) over
+// dt_eff to (y1, f1) at one save time, each multiply and add rounded as the
+// ATen ops of ops/ode.py _interp and _hermite_eval (the step route's
+// writer): the save time's coefficients (hermite_at), then one element's
+// value (hermite_value).
+struct HermiteAt {
+  float th, a0, P, c, thm1_h, th_h;
+};
+
+__device__ __forceinline__ HermiteAt hermite_at(float sa, float t, float dt_eff) {
+  const float hd = dt_eff == 0.0f ? 1.0f : dt_eff;
+  HermiteAt h;
+  h.th = __fdiv_rn(__fsub_rn(sa, t), hd);
+  h.a0 = __fsub_rn(1.0f, h.th);
+  const float thm1 = __fsub_rn(h.th, 1.0f);
+  h.P = __fmul_rn(h.th, thm1);
+  h.c = __fsub_rn(1.0f, __fmul_rn(2.0f, h.th));
+  h.thm1_h = __fmul_rn(thm1, dt_eff);
+  h.th_h = __fmul_rn(h.th, dt_eff);
+  return h;
+}
+
+__device__ __forceinline__ float hermite_value(const HermiteAt& h, float y0, float y1,
+                                               float f0, float f1) {
+  const float dy = __fsub_rn(y1, y0);
+  const float lin = __fadd_rn(__fmul_rn(h.a0, y0), __fmul_rn(h.th, y1));
+  const float q = __fadd_rn(__fadd_rn(__fmul_rn(h.c, dy), __fmul_rn(h.thm1_h, f0)),
+                            __fmul_rn(h.th_h, f1));
+  return __fadd_rn(lin, __fmul_rn(h.P, q));
+}
+
+// The rows [lo, hi) of ys for batch rows [row0, row0 + rows), from the
+// accepted step (t, yi, fi) -> (yn, kn).
 __device__ void hermite_rows(const Saves& sv, int lo, int hi, float t,
                              float dt_eff, const float* yi, const float* fi,
                              const float* yn, const float* kn, int row0,
                              int rows, int D, size_t BD) {
-  const float hd = dt_eff == 0.0f ? 1.0f : dt_eff;
   for (int r = lo; r < hi; ++r) {
-    const float th = __fdiv_rn(__fsub_rn(sv.sa[r], t), hd);
-    const float a0 = __fsub_rn(1.0f, th);
-    const float thm1 = __fsub_rn(th, 1.0f);
-    const float P = __fmul_rn(th, thm1);
-    const float c = __fsub_rn(1.0f, __fmul_rn(2.0f, th));
-    const float thm1_h = __fmul_rn(thm1, dt_eff);
-    const float th_h = __fmul_rn(th, dt_eff);
+    const HermiteAt h = hermite_at(sv.sa[r], t, dt_eff);
     float* out = sv.ys + (size_t)r * BD;
     for (int idx = threadIdx.x; idx < rows * D; idx += kThreads) {
       const size_t g = (size_t)row0 * D + idx;
-      const float y0 = __ldcg(yi + g), y1 = __ldcg(yn + g);
-      const float f0 = __ldcg(fi + g), f1 = __ldcg(kn + g);
-      const float dy = __fsub_rn(y1, y0);
-      const float lin = __fadd_rn(__fmul_rn(a0, y0), __fmul_rn(th, y1));
-      const float q = __fadd_rn(__fadd_rn(__fmul_rn(c, dy), __fmul_rn(thm1_h, f0)),
-                                __fmul_rn(th_h, f1));
-      out[g] = __fadd_rn(lin, __fmul_rn(P, q));
+      out[g] = hermite_value(h, __ldcg(yi + g), __ldcg(yn + g), __ldcg(fi + g),
+                             __ldcg(kn + g));
     }
   }
 }
@@ -316,31 +412,19 @@ __device__ void hermite_pullback(const float* sa, const float* ct_ys, int lo,
   block_sum_to<2>(part, red, part_out);
 }
 
-// MLPDynamics: K1's tile body over the leaves (W1, b1, W2, b2), read
-// through L2. With STREAM the forward streams each trial step's stage
-// residuals to ks, hs (S x 6 x B x D and S x 6 x B x H) and the reverse
-// walk (mlp_walk.cuh) reads them; without, both are null and the walk
-// replays the stages. The walk stores each trial step's weight-cotangent
-// rows (cp2, he, cp1, ye; 6 B rows a step) for one contraction after it.
+// MLPDynamics' leaves (W1, b1, W2, b2) and its whole solve's rows, for
+// its own forward (mlp_solve.cuh) and reverse walk (mlp_walk.cuh). With
+// STREAM the forward streams each trial step's stage residuals to ks, hs
+// (S x 6 x B x D and S x 6 x B x H) and the walk reads them; without, both
+// are null and the walk replays the stages. The walk stores each trial
+// step's weight-cotangent rows (cp2, he, cp1, ye; 6 B rows a step) for one
+// contraction after it.
 template <bool STREAM>
 struct MlpDyn {
-  static constexpr int kFwdR = kFwdRows;
   const float *W1, *b1, *W2, *b2;
   float *ks, *hs;
   float *cp2, *he, *cp1, *ye;
   int H;
-
-  __device__ void setup_fwd(float*, int) const {}
-  __device__ void fwd(const float* y, const float* k1, int row0, int rows,
-                      int i, int B, float t, float dt, float* yn, float* kn,
-                      float* sums, int D, float rtol, float atol,
-                      float* smem) const {
-    const size_t step = (size_t)i * 6 * B;  // this step's stream rows
-    normed_fwd_tile<STREAM, true>(y, k1, row0, rows, t, dt, W1, b1, W2, b2, yn, kn,
-                                  sums, D, H, rtol, atol, smem,
-                                  STREAM ? ks + step * D : nullptr,
-                                  STREAM ? hs + step * H : nullptr, B);
-  }
 };
 
 // AlternatingMLP: K7's and K8's tile bodies, the padded leaves in shared
@@ -449,12 +533,12 @@ struct FwdArgs {
   Ctrl ctrl;
 };
 
-// K3: the whole forward solve.
+// K3 for AlternatingMLP and CSL: the whole forward solve on row tiles
+// (MLPDynamics solves in mlp_solve.cuh).
 template <class Dyn>
 __global__ void __launch_bounds__(kThreads) whole_solve_fwd_kernel(FwdArgs<Dyn> a) {
   extern __shared__ float smem[];
-  __shared__ float s_t, s_dt, s_qold;
-  __shared__ int s_na, s_nr, s_done, s_acc, s_cur, s_lo, s_hi;
+  __shared__ FwdState s;
   cg::grid_group grid = cg::this_grid();
   constexpr int R = Dyn::kFwdR;
   const int ntiles = (a.B + R - 1) / R;
@@ -469,20 +553,12 @@ __global__ void __launch_bounds__(kThreads) whole_solve_fwd_kernel(FwdArgs<Dyn> 
     copy_rows(a.y0, a.hy, row0, rows, a.D);
     copy_rows(a.f0, a.hf, row0, rows, a.D);
   }
-  if (threadIdx.x == 0) {
-    s_t = t0;
-    s_dt = a.scalars[2];
-    s_qold = a.ctrl.qoldinit;
-    s_na = s_nr = 0;
-    s_done = span == 0.0f;
-    s_cur = a.sv.n ? a.sv.cursors[0] : 0;
-    s_lo = s_hi = 0;
-  }
+  if (threadIdx.x == 0) fwd_begin(a, s, span);
   __syncthreads();
 
   int i = 0;
-  for (; i < a.S && !s_done; ++i) {
-    const float t = s_t, dt = s_dt;
+  for (; i < a.S && !s.done; ++i) {
+    const float t = s.t, dt = s.dt;
     const float remaining = t1 - t;
     const bool is_last = (dt - remaining) * tdir >= 0.0f;
     const float dt_eff = is_last ? remaining : dt;
@@ -497,50 +573,16 @@ __global__ void __launch_bounds__(kThreads) whole_solve_fwd_kernel(FwdArgs<Dyn> 
                 part + 3 * tile, a.D, a.rtol, a.atol, smem);
     }
     grid.sync();
-    if (threadIdx.x < 32) {
-      float sums[3];
-      sum_tiles<3>(part, ntiles, sums);
-      if (threadIdx.x == 0) {
-        const Post p = post_fwd(a.ctrl, count, t, dt_eff, s_qold, sums[0],
-                                sums[1], sums[2], t1, span, is_last);
-        if (blockIdx.x == 0) {
-          float* st = a.streams;
-          const int S = a.S;
-          st[ST_T * S + i] = t;
-          st[ST_DT * S + i] = dt;
-          st[ST_QOLD * S + i] = s_qold;
-          st[ST_E * S + i] = sums[0];
-          st[ST_N * S + i] = sums[1];
-          st[ST_D * S + i] = sums[2];
-          st[ST_ACC * S + i] = p.accept ? 1.0f : 0.0f;
-          st[TEL_T * S + i] = p.t_end;
-          st[TEL_DT * S + i] = dt_eff;
-          st[TEL_EEST * S + i] = p.eest;
-          st[TEL_EIGEN * S + i] = p.eigen;
-        }
-        // the save cursor consumes every save time in (t, t_end]
-        int hi = s_cur;
-        if (p.accept)
-          while (hi < a.sv.n && (a.sv.sa[hi] - p.t_end) * tdir <= 0.0f) ++hi;
-        s_lo = s_cur;
-        s_hi = hi;
-        s_cur = hi;
-        s_acc = p.accept;
-        s_t = p.t_new;
-        s_dt = p.dt_next;
-        s_qold = p.qold_next;
-        if (p.accept) ++s_na; else ++s_nr;
-        s_done = p.accept && is_last;
-      }
-    }
+    if (threadIdx.x < 32)
+      fwd_decide(a, s, part, ntiles, i, t, dt, dt_eff, is_last, t1, tdir, span, count);
     __syncthreads();
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
       const int row0 = tile * R, rows = min(R, a.B - row0);
-      if (!s_acc) {  // a rejected step keeps its start state
+      if (!s.acc) {  // a rejected step keeps its start state
         copy_rows(yi, yn, row0, rows, a.D);
         copy_rows(fi, kn, row0, rows, a.D);
       } else {
-        hermite_rows(a.sv, s_lo, s_hi, t, dt_eff, yi, fi, yn, kn, row0, rows,
+        hermite_rows(a.sv, s.lo, s.hi, t, dt_eff, yi, fi, yn, kn, row0, rows,
                      a.D, BD);
       }
     }
@@ -552,15 +594,7 @@ __global__ void __launch_bounds__(kThreads) whole_solve_fwd_kernel(FwdArgs<Dyn> 
     const int row0 = tile * R;
     copy_rows(y_end, a.y1, row0, min(R, a.B - row0), a.D);
   }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    a.final_[0] = s_t;
-    a.final_[1] = s_dt;
-    a.final_[2] = s_qold;
-    a.final_[3] = (float)s_na;
-    a.final_[4] = (float)s_nr;
-    a.final_[5] = (float)s_done;
-    if (a.sv.n) a.sv.cursors[1] = s_cur;
-  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) fwd_end(a, s);
 }
 
 template <class Dyn>
@@ -729,12 +763,13 @@ Ctrl make_ctrl(float beta1, float beta2, float qmin, float qmax, float gamma,
 
 }  // namespace
 
+#include "mlp_solve.cuh"
 #include "mlp_walk.cuh"
 
 namespace {
 
-// Launches K4's walk with one block a tile, or fails if the card cannot
-// hold every tile's block at once.
+// Launches MLPDynamics' K3 or K4 with one block a tile, or fails if the
+// card cannot hold every tile's block at once.
 cudaError_t launch_walk(const void* kernel, void* args, size_t smem, int tiles,
                         cudaStream_t s) {
   int capacity = 0;
@@ -744,57 +779,76 @@ cudaError_t launch_walk(const void* kernel, void* args, size_t smem, int tiles,
   return launch_cooperative(kernel, args, smem, tiles, s, nullptr);
 }
 
+// Whether a tile plan (ops/whole_solve.py walk_plan) is one K3 and K4 take
+// at B x D: tiles of 16 or 32 rows and a multiple of kWalkTN columns, at
+// most the row passes' elements, covering the batch.
+bool plan_ok(int rows, int cols, int row_blocks, int col_blocks, int chunks, int B, int D) {
+  return (rows == 16 || rows == 32) && cols >= 1 && cols % kWalkTN == 0 &&
+         rows * cols <= kWalkRounds * kThreads * kWalkTM && row_blocks >= 1 && chunks >= 1 &&
+         col_blocks == (D + cols - 1) / cols && chunks * row_blocks * rows >= B;
+}
+
 }  // namespace
 
 extern "C" {
 
-// K4's walk for MLPDynamics: the multiple its tile widths take, the most
-// elements a tile holds, and its shared memory for tiles of R x C (the
-// wrapper's plan is checked against them).
+// MLPDynamics' K3 and K4 on one tile plan: the multiple its tile widths
+// take, the most elements a tile holds, K4's and K3's shared memory for
+// tiles of R x C, and K3's scratch (the wrapper's plan is checked against
+// them, and sizes K3's scratch by the last).
 int regnde_walk_col_align() { return kWalkTN; }
 int regnde_walk_max_tile() { return kWalkRounds * kThreads * kWalkTM; }
-int regnde_walk_smem_bytes(int R, int C, int D, int H, int replay) {
-  return (int)walk_smem_bytes(R, C, D, H, replay != 0);
+int regnde_walk_smem_bytes(int R, int C, int H) { return (int)walk_smem_bytes(R, C, H); }
+int regnde_solve_smem_bytes(int R, int C, int H) {
+  return (int)(sizeof(float) * solve_smem_floats(R, C, H));
+}
+int regnde_solve_scratch_floats(int R, int C, int row_blocks, int col_blocks, int H) {
+  return (int)solve_scratch_floats(R, C, row_blocks, col_blocks, H);
 }
 
-// K3 for MLPDynamics. scalars: (3,) t0, t1, dt0. saveat: (n_save,) save
-// times, monotone in the direction of time; cursors: (2,) int, [0] the
-// rows at or before t0 (in), [1] the rows written (out); ys: (n_save, B, D),
-// ys_init in, the saved states out (all three null when n_save is 0). hy,
-// hf: (S+1, B, D). streams: (11, S), zeroed by the caller. final: (6,).
-// partials: (2, ceil(B/4), 3) scratch. ks: (S, 6, B, D) and hs: (S, 6, B,
-// H), the stage residuals out (both null: no stream).
+// K3 for MLPDynamics (mlp_solve.cuh). scalars: (3,) t0, t1, dt0. saveat:
+// (n_save,) save times, monotone in the direction of time; cursors: (2,)
+// int, [0] the rows at or before t0 (in), [1] the rows written (out); ys:
+// (n_save, B, D), ys_init in, the saved states out (all three null when
+// n_save is 0). ks: (S, 6, B, D) and hs: (S, 6, B, H), the stage residuals
+// out (both null: no stream). hy, hf: (S+1, B, D). streams: (11, S), zeroed
+// by the caller. final: (6,). scratch: regnde_solve_scratch_floats floats.
+// The tile plan as regnde_whole_solve_bwd's.
 int regnde_whole_solve_fwd(const float* scalars, const float* y0,
                            const float* f0, const float* W1, const float* b1,
                            const float* W2, const float* b2,
                            const float* saveat, int* cursors, float* ys,
                            float* ks, float* hs,
                            float* y1, float* hy, float* hf, float* streams,
-                           float* final_, float* partials, int B, int D, int H,
-                           int S, int n_save, float rtol, float atol,
+                           float* final_, float* scratch, int B, int D, int H,
+                           int S, int n_save, int rows, int cols, int row_blocks,
+                           int col_blocks, int chunks, float rtol, float atol,
                            float beta1, float beta2, float qmin, float qmax,
                            float gamma, float qoldinit, float qsteady_max,
                            void* stream) {
-  if (!ks != !hs) return (int)cudaErrorInvalidValue;
+  if (!ks != !hs || !plan_ok(rows, cols, row_blocks, col_blocks, chunks, B, D))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Ctrl ctrl = make_ctrl(beta1, beta2, qmin, qmax, gamma, qoldinit, qsteady_max);
-  const int ntiles = (B + kFwdRows - 1) / kFwdRows;
+  const Solve f = solve_carve(scratch, rows, cols, row_blocks, col_blocks, chunks, H);
+  const size_t smem = sizeof(float) * solve_smem_floats(rows, cols, H);
+  const int tiles = row_blocks * col_blocks;
   if (ks) {
-    FwdArgs<MlpDyn<true>> a{scalars, y0, f0,
-                            MlpDyn<true>{W1, b1, W2, b2, ks, hs, nullptr, nullptr, nullptr,
-                                         nullptr, H},
-                            Saves{saveat, cursors, ys, n_save}, y1, hy, hf, streams,
-                            final_, partials, B, D, S, rtol, atol, ctrl};
-    return (int)launch_cooperative((const void*)whole_solve_fwd_kernel<MlpDyn<true>>, &a,
-                                   fwd_smem_bytes(D, H, 6), ntiles, s, nullptr);
+    SolveArgs<true> a{{scalars, y0, f0,
+                       MlpDyn<true>{W1, b1, W2, b2, ks, hs, nullptr, nullptr, nullptr,
+                                    nullptr, H},
+                       Saves{saveat, cursors, ys, n_save}, y1, hy, hf, streams,
+                       final_, nullptr, B, D, S, rtol, atol, ctrl},
+                      f};
+    return (int)launch_walk((const void*)mlp_solve_kernel<true>, &a, smem, tiles, s);
   }
-  FwdArgs<MlpDyn<false>> a{scalars, y0, f0,
-                           MlpDyn<false>{W1, b1, W2, b2, nullptr, nullptr, nullptr,
-                                         nullptr, nullptr, nullptr, H},
-                           Saves{saveat, cursors, ys, n_save}, y1, hy, hf, streams,
-                           final_, partials, B, D, S, rtol, atol, ctrl};
-  return (int)launch_cooperative((const void*)whole_solve_fwd_kernel<MlpDyn<false>>, &a,
-                                 fwd_smem_bytes(D, H), ntiles, s, nullptr);
+  SolveArgs<false> a{{scalars, y0, f0,
+                      MlpDyn<false>{W1, b1, W2, b2, nullptr, nullptr, nullptr,
+                                    nullptr, nullptr, nullptr, H},
+                      Saves{saveat, cursors, ys, n_save}, y1, hy, hf, streams,
+                      final_, nullptr, B, D, S, rtol, atol, ctrl},
+                     f};
+  return (int)launch_walk((const void*)mlp_solve_kernel<false>, &a, smem, tiles, s);
 }
 
 // K3 for AlternatingMLP: as regnde_whole_solve_fwd with the leaves as a
@@ -836,7 +890,8 @@ int regnde_whole_solve_altmlp_fwd(const float* scalars, const float* y0,
 // (6 B ns, H), ye (6 B ns, D+2), and the contraction's wpart (wpart_floats
 // floats, chunks of chunk_rows rows; weight_cotangents.cu). ks, hs: the
 // forward's stage residuals; both null: replay the stages into ks_step (6,
-// B, D) and hs_step (6, B, H).
+// B, D) and hs_step (6, B, H), with K3's scratch fscratch (as
+// regnde_whole_solve_fwd's; null when streaming).
 int regnde_whole_solve_bwd(const float* scalars, const float* streams,
                            const float* hy, const float* hf, const float* W1,
                            const float* b1, const float* W2, const float* b2,
@@ -846,25 +901,25 @@ int regnde_whole_solve_bwd(const float* scalars, const float* streams,
                            float* cW1, float* cb1, float* cW2, float* cb2,
                            float* ct_scalars, float* slots, float* psum, float* ctp1g,
                            float* hdy,
-                           float* hdf, float* ks_step, float* hs_step, float* w2p,
-                           float* w1p, float* cp2,
+                           float* hdf, float* ks_step, float* hs_step, float* fscratch,
+                           float* w2p, float* w1p, float* cp2,
                            float* he, float* cp1, float* ye, float* wpart, int ns, int B,
                            int D, int H, int S, int n_save, int rows, int cols,
                            int row_blocks, int col_blocks, int chunks, int chunk_rows,
                            int wpart_floats, float rtol, float atol, float beta1,
                            float beta2, float qmin, float qmax, float gamma,
                            float qoldinit, float qsteady_max, void* stream) {
-  if (!ks != !hs || (!ks && (!ks_step || !hs_step))) return (int)cudaErrorInvalidValue;
-  if ((rows != 16 && rows != 32) || cols < 1 || cols % kWalkTN ||
-      rows * cols > kWalkRounds * kThreads * kWalkTM || row_blocks < 1 || chunks < 1 ||
-      col_blocks != (D + cols - 1) / cols || chunks * row_blocks * rows < B)
+  if (!ks != !hs || (!ks && (!ks_step || !hs_step || !fscratch)) ||
+      !plan_ok(rows, cols, row_blocks, col_blocks, chunks, B, D))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Ctrl ctrl = make_ctrl(beta1, beta2, qmin, qmax, gamma, qoldinit, qsteady_max);
   const Walk w{ks_step,   hs_step,    psum,       ctp1g, w2p, w1p,
-               rows,      cols,       row_blocks, col_blocks, chunks};
+               rows,      cols,       row_blocks, col_blocks, chunks,
+               ks ? Solve{} : solve_carve(fscratch, rows, cols, row_blocks, col_blocks,
+                                          chunks, H)};
   const int tiles = row_blocks * col_blocks;
-  const size_t smem = walk_smem_bytes(rows, cols, D, H, !ks);
+  const size_t smem = walk_smem_bytes(rows, cols, H);
   cudaError_t e;
   if (ks) {
     WalkArgs<true> a{{scalars, streams, hy, hf,

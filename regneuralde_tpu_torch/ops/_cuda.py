@@ -33,11 +33,13 @@ _SIGNATURES = {
     "regnde_bwd_rows": [],
     "regnde_normed_fwd": [_P] * 12 + [_I, _I, _I, _F, _F, _P],
     "regnde_normed_bwd": [_P] * 24 + [_I] * 5 + [_F, _F, _P],
-    "regnde_whole_solve_fwd": [_P] * 18 + [_I] * 5 + [_F] * 9 + [_P],
-    "regnde_whole_solve_bwd": [_P] * 35 + [_I] * 13 + [_F] * 9 + [_P],
+    "regnde_whole_solve_fwd": [_P] * 18 + [_I] * 10 + [_F] * 9 + [_P],
+    "regnde_whole_solve_bwd": [_P] * 36 + [_I] * 13 + [_F] * 9 + [_P],
     "regnde_walk_col_align": [],
     "regnde_walk_max_tile": [],
-    "regnde_walk_smem_bytes": [_I] * 5,
+    "regnde_walk_smem_bytes": [_I] * 3,
+    "regnde_solve_smem_bytes": [_I] * 3,
+    "regnde_solve_scratch_floats": [_I] * 5,
     "regnde_whole_solve_altmlp_fwd": [_P] * 4 + [_I] + [_P] * 9 + [_I] * 5 + [_F] * 9 + [_P],
     "regnde_whole_solve_altmlp_bwd": [_P] * 5 + [_I] + [_P] * 12 + [_I] * 6 + [_F] * 9 + [_P],
     "regnde_altmlp_rows": [],

@@ -114,6 +114,12 @@ def _reference_normed_sweep_res(t, dt, y, k1, parts, rtol, atol):
     hs)`` bitwise ``_recompute``'s, so ``_normed_bwd_math(res=)`` given
     them equals the call that recomputes them."""
     ks, hs = _recompute(t, dt, y, k1, parts)
+    return _normed_outs(dt, y, ks, rtol, atol), (ks, hs)
+
+
+def _normed_outs(dt, y, ks, rtol, atol):
+    """The normed quintuple ``(y_new, k7, err_ssq, num_ssq, den_ssq)`` of a
+    trial step from its stage derivatives ``ks`` (k1 first)."""
     y_new = y + dt * _stage_acc(6, ks)
     g6 = y + dt * _stage_acc(5, ks)
     err = dt * _err_comb(ks)
@@ -121,9 +127,8 @@ def _reference_normed_sweep_res(t, dt, y, k1, parts, rtol, atol):
     scaled = err / denom
     dk = ks[6] - ks[5]
     dg = y_new - g6
-    outs = (y_new, ks[6], torch.sum(scaled * scaled), torch.sum(dk * dk),
+    return (y_new, ks[6], torch.sum(scaled * scaled), torch.sum(dk * dk),
             torch.sum(dg * dg))
-    return outs, (ks, hs)
 
 
 def _err_comb(ks):

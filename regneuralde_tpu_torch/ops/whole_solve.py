@@ -26,10 +26,11 @@ residuals, the six fresh stage derivatives ``ks`` and hidden activations
 ``whole_solve_odeint`` turns on for this dynamics): the backward feeds
 them to the trial step's hand pullback and never re-runs the stage sweep.
 ``cache_residuals=False`` keeps the replay; it serves only to check the
-stream against it, bitwise. Its backward (``csrc/mlp_walk.cuh``) splits
-each reverse stage's two contractions over the whole grid, one block a
-tile of the batch (``walk_plan``); ``plain_walk_step`` is one trial step
-of it in the kernel's own schedule, for the tests.
+stream against it, bitwise. Its forward (``csrc/mlp_solve.cuh``) and its
+backward (``csrc/mlp_walk.cuh``) split each stage's two contractions over
+the whole grid, one block a tile of the batch, on one tile plan
+(``walk_plan``); ``plain_solve_step`` and ``plain_walk_step`` are one trial
+step of each in the kernel's own schedule, for the tests.
 
 Each kernel has a plain version with the same algebra and the same output
 buffers, over the dynamics' plain trial-step pair (``plain_steps``):
@@ -151,7 +152,8 @@ def _streams_residuals(dynamics, cache_residuals):
 
 
 # ---------------------------------------------------------------------------
-# The tile plan of K4's walk for MLPDynamics (csrc/mlp_walk.cuh).
+# The tile plan of K3 and K4's walk for MLPDynamics (csrc/mlp_solve.cuh,
+# csrc/mlp_walk.cuh).
 # ---------------------------------------------------------------------------
 
 WALK_ROWS = (32, 16)  # tile heights (4-row groups a power of two), preferred first
@@ -159,6 +161,7 @@ WALK_COL_ALIGN = 4  # kWalkTN: tile widths are a multiple (a register tile's col
 WALK_MAX_TILE = 4096  # kWalkRounds * kThreads * kWalkTM: the row passes' registers
 WALK_SLAB_ROWS, WALK_SLABS = 8, 4  # kWalkKB, kWalkStages
 WALK_STATE = 13  # kWalkState: floats of reverse state an element
+SOLVE_STATE = 9  # kSolveState: floats of K3's state an element
 WALK_MIN_COLS = 32  # a warp of columns at least, where D allows
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may use (H100)
 _WARPS = 8
@@ -186,23 +189,37 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def walk_smem_bytes(R: int, C: int, D: int, H: int, replay: bool) -> int:
+def solve_smem_bytes(R: int, C: int, H: int) -> int:
+    """K3's shared memory for tiles of ``R x C`` (``solve_smem_floats`` of
+    ``csrc/mlp_solve.cuh``): the state (y, k1..k7), the stage input (its
+    columns rounded to a slab), the row block's hidden rows (H rounded to a
+    slab), the slab ring (rows of H rounded to ``WALK_COL_ALIGN``, or C) and
+    the block sum's scratch."""
+    slab = max(_round_up(H, WALK_COL_ALIGN), C)
+    floats = (R * ((SOLVE_STATE - 1) * C + _round_up(C, WALK_SLAB_ROWS)
+                   + _round_up(H, WALK_SLAB_ROWS))
+              + WALK_SLABS * WALK_SLAB_ROWS * slab + 3 * _WARPS)
+    return 4 * floats
+
+
+def walk_smem_bytes(R: int, C: int, H: int) -> int:
     """The walk's shared memory for tiles of ``R x C`` (``walk_smem_bytes``
     of ``csrc/mlp_walk.cuh``): the state, ct_pre2 of the tile and ct_pre1 of
     the row block (their columns rounded to a slab), the slab ring (rows of
     H+1 floats, rounded to ``WALK_COL_ALIGN``, or C) and the block sum's
-    scratch; with the replay at least K3's stage tile."""
+    scratch. The replay's stages reuse it: K3's (``solve_smem_bytes``) is
+    below it term by term."""
     slab = max(_round_up(H + 1, WALK_COL_ALIGN), C)
     floats = (R * (WALK_STATE * C + _round_up(C, WALK_SLAB_ROWS)
                    + _round_up(H, WALK_SLAB_ROWS))
               + WALK_SLABS * WALK_SLAB_ROWS * slab + 4 * _WARPS)
-    fwd = 4 * (10 * 4 * D + 6 * 4 * H + 3 * _WARPS) if replay else 0
-    return max(4 * floats, fwd)
+    return 4 * floats
 
 
-def walk_plan(B: int, D: int, H: int, sms: int, replay: bool = False,
-              limit: int = SMEM_LIMIT) -> WalkPlan:
-    """The tile plan of K4's walk at ``B x D x H`` on ``sms`` multiprocessors:
+def walk_plan(B: int, D: int, H: int, sms: int, limit: int = SMEM_LIMIT) -> WalkPlan:
+    """The tile plan of K3 and K4's walk at ``B x D x H`` on ``sms``
+    multiprocessors (K3 streams each trial step on the tiles K4's replay
+    recomputes it on):
     the fewest row chunks, then the most tiles (at most one a
     multiprocessor), then the fewest padding rows, then the taller tiles
     (fewer reads of the weights), over tiles of 32 or 16 rows and a multiple
@@ -216,7 +233,7 @@ def walk_plan(B: int, D: int, H: int, sms: int, replay: bool = False,
             ndb = -(-D // C)
             if (C < WALK_MIN_COLS and ndb > 1) or R * C > WALK_MAX_TILE or ndb > sms:
                 continue
-            smem = walk_smem_bytes(R, C, D, H, replay)
+            smem = walk_smem_bytes(R, C, H)
             if smem > limit:
                 continue
             nrb = min(-(-B // R), sms // ndb)
@@ -228,6 +245,28 @@ def walk_plan(B: int, D: int, H: int, sms: int, replay: bool = False,
         raise ValueError(f"no tile plan of K4's walk fits {limit} bytes of shared "
                          f"memory at D={D}, H={H}")
     return best
+
+
+def plain_solve_step(t, dt, y, k1, leaves, rtol, atol, plan: WalkPlan):
+    """One trial step of K3 for MLPDynamics in the kernel's own schedule:
+    per stage ``i = 1..6`` the stage input ``y_i = y + dt acc_i``; phase A,
+    ``y_i W1x^T``, one partial per column block of ``plan``; the reduction,
+    the partials summed in block order, ``t_i w1t + b1`` added and tanh
+    taken (``h_i``); phase B, ``k_i = tanh(h_i W2h^T + t_i w2t + b2)``;
+    then the norm sums. Returns ``fm._reference_normed_sweep_res``'s
+    ``(outs, (ks, hs))``. For the tests: the kernel's arithmetic in this
+    order."""
+    w1x, w1t, b1, w2h, w2t, b2 = fm._split_params(*leaves)
+    D = y.shape[1]
+    spans = [(q * plan.cols, min(D, (q + 1) * plan.cols)) for q in range(plan.col_blocks)]
+    ks, hs = [k1], []
+    for i in range(1, 7):
+        yi = y + dt * fm._stage_acc(i, ks)
+        ti = t + TSIT5.c[i] * dt
+        h = fm._tanh(sum(yi[:, a:b] @ w1x[:, a:b].T for a, b in spans) + ti * w1t + b1)
+        ks.append(fm._tanh(h @ w2h.T + ti * w2t + b2))
+        hs.append(h)
+    return fm._normed_outs(dt, y, ks, rtol, atol), (ks, hs)
 
 
 def plain_walk_step(t, dt, y, k1, leaves, cts, rtol, atol, res, plan: WalkPlan,
@@ -494,25 +533,31 @@ def _opt_ptr(x):
 
 
 def _tile_rows(lib, dynamics):
-    """Rows of the tiles K3 runs on, and K4 for AlternatingMLP and CSL
-    (MLPDynamics' K4 walks by ``walk_plan``)."""
+    """Rows of the tiles K3 and K4 for AlternatingMLP and CSL run on
+    (MLPDynamics' run on ``walk_plan``'s)."""
     if dynamics == "altmlp":
         return lib.regnde_altmlp_rows()
-    if dynamics == "csl":
-        return lib.regnde_csl_rows()
-    return lib.regnde_fwd_rows()
+    return lib.regnde_csl_rows()
 
 
-def _cuda_walk_plan(lib, B, D, H, dev, replay):
-    """``walk_plan`` for the card, held to the kernel's own constants."""
-    plan = walk_plan(B, D, H, torch.cuda.get_device_properties(dev).multi_processor_count,
-                     replay)
+def _cuda_walk_plan(lib, B, D, H, dev):
+    """``walk_plan`` for the card, held to the kernels' own constants."""
+    plan = walk_plan(B, D, H, torch.cuda.get_device_properties(dev).multi_processor_count)
     if (lib.regnde_walk_col_align() != WALK_COL_ALIGN
             or lib.regnde_walk_max_tile() != WALK_MAX_TILE
-            or lib.regnde_walk_smem_bytes(plan.rows, plan.cols, D, H, int(replay))
-            != plan.smem_bytes):
-        raise RuntimeError("walk_plan's sizes disagree with csrc/mlp_walk.cuh's")
+            or lib.regnde_walk_smem_bytes(plan.rows, plan.cols, H) != plan.smem_bytes
+            or lib.regnde_solve_smem_bytes(plan.rows, plan.cols, H)
+            != solve_smem_bytes(plan.rows, plan.cols, H)):
+        raise RuntimeError("walk_plan's sizes disagree with csrc/mlp_walk.cuh's or "
+                           "csrc/mlp_solve.cuh's")
     return plan
+
+
+def _cuda_solve_scratch(lib, plan, H, dev):
+    """K3's scratch for ``plan`` (partials, hidden rows, padded weights,
+    slots), sized by the kernel."""
+    return torch.empty(lib.regnde_solve_scratch_floats(
+        plan.rows, plan.cols, plan.row_blocks, plan.col_blocks, H), device=dev)
 
 
 def _cuda_whole_solve_fwd(t0, t1, dt0, y0, f0, leaves, rtol, atol, ctrl,
@@ -550,23 +595,27 @@ def _cuda_whole_solve_fwd(t0, t1, dt0, y0, f0, leaves, rtol, atol, ctrl,
         ks = torch.empty((max_steps, 6, B, D), device=dev)
         hs = torch.empty((max_steps, 6, B, H), device=dev)
         res = (ks, hs)
-    rows = _tile_rows(lib, dynamics)
-    partials = torch.empty((2, (B + rows - 1) // rows, 3), device=dev)
-    tail = (ptr(y1), ptr(hy), ptr(hf), ptr(streams), ptr(final), ptr(partials), B, D,
-            H, max_steps, n_save, float(rtol), float(atol), *_ctrl_args(ctrl),
+    rows = (ptr(y1), ptr(hy), ptr(hf), ptr(streams), ptr(final))
+    tail = (float(rtol), float(atol), *_ctrl_args(ctrl),
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if dynamics == "mlp":
-        code = lib.regnde_whole_solve_fwd(ptr(scalars), ptr(y0), ptr(f0),
-                                          *map(ptr, leaves), *save_ptrs,
-                                          *map(_opt_ptr, res), *tail)
+        plan = _cuda_walk_plan(lib, B, D, H, dev)
+        scratch = _cuda_solve_scratch(lib, plan, H, dev)
+        code = lib.regnde_whole_solve_fwd(
+            ptr(scalars), ptr(y0), ptr(f0), *map(ptr, leaves), *save_ptrs,
+            *map(_opt_ptr, res), *rows, ptr(scratch), B, D, H, max_steps, n_save,
+            plan.rows, plan.cols, plan.row_blocks, plan.col_blocks, plan.chunks, *tail)
         name = "whole_solve_fwd"
     else:
+        tile = _tile_rows(lib, dynamics)
+        partials = torch.empty((2, (B + tile - 1) // tile, 3), device=dev)
         head = (ptr(scalars), ptr(y0), ptr(f0),
                 ctypes.cast(fg._leaf_pointers(leaves), ctypes.c_void_p))
+        rest = (*save_ptrs, *rows, ptr(partials), B, D, H, max_steps, n_save, *tail)
         if dynamics == "altmlp":
-            code = lib.regnde_whole_solve_altmlp_fwd(*head, depth, *save_ptrs, *tail)
+            code = lib.regnde_whole_solve_altmlp_fwd(*head, depth, *rest)
         else:
-            code = lib.regnde_whole_solve_csl_fwd(*head, kinetic, *save_ptrs, *tail)
+            code = lib.regnde_whole_solve_csl_fwd(*head, kinetic, *rest)
         name = f"whole_solve_{dynamics}_fwd"
     _cuda.check(code, "whole-solve forward kernel")
     LAUNCHES[name] += 1
@@ -618,15 +667,17 @@ def _cuda_whole_solve_bwd(rec, ns, ct_y1, ct_tel, t0, t1, leaves, rtol, atol,
             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if dynamics == "mlp":
         replay = res[0] is None
-        plan = _cuda_walk_plan(lib, B, D, H, dev, replay)
+        plan = _cuda_walk_plan(lib, B, D, H, dev)
         slots = torch.empty((2, plan.tiles, 4), device=dev)
         hpp, width = _round_up(H + 1, WALK_COL_ALIGN), plan.col_blocks * plan.cols
         psum = torch.empty((plan.tiles, plan.rows, hpp), device=dev)
         ctp1g = torch.empty((plan.row_blocks, H, plan.rows), device=dev)
         # the weights padded for the walk's 16-byte copies (it fills them)
         wpad = (torch.empty((width, hpp), device=dev), torch.empty((H, width), device=dev))
-        step = ((torch.empty((6, B, D), device=dev), torch.empty((6, B, H), device=dev))
-                if replay else (None, None))
+        # the replay's stage residuals of one trial step, and K3's scratch
+        step = ((torch.empty((6, B, D), device=dev), torch.empty((6, B, H), device=dev),
+                 _cuda_solve_scratch(lib, plan, H, dev))
+                if replay else (None, None, None))
         ct_leaves = [torch.empty_like(x) for x in leaves]
         # the weight-cotangent rows of every trial step, summed after the walk
         K = 6 * B * ns

@@ -182,15 +182,15 @@ def _covers_once(plan, B, D, H):
     return (elems == 1).all() and (hidden == 1).all()
 
 
-@pytest.mark.parametrize("replay", [False, True])
+@pytest.mark.parametrize("sms", [132, 33])
 @pytest.mark.parametrize("shape", PLAN_SHAPES)
-def test_walk_plan_covers_every_element_once_within_shared_memory(shape, replay):
+def test_walk_plan_covers_every_element_once_within_shared_memory(shape, sms):
     B, D, H = shape
-    plan = ws.walk_plan(B, D, H, 132, replay)
+    plan = ws.walk_plan(B, D, H, sms)
     assert _covers_once(plan, B, D, H)
     assert plan.rows in ws.WALK_ROWS and plan.cols % ws.WALK_COL_ALIGN == 0
-    assert plan.rows * plan.cols <= ws.WALK_MAX_TILE and plan.tiles <= 132
-    assert plan.smem_bytes == ws.walk_smem_bytes(plan.rows, plan.cols, D, H, replay)
+    assert plan.rows * plan.cols <= ws.WALK_MAX_TILE and plan.tiles <= sms
+    assert plan.smem_bytes == ws.walk_smem_bytes(plan.rows, plan.cols, H)
     assert plan.smem_bytes <= ws.SMEM_LIMIT == 232_448
 
 
@@ -208,7 +208,7 @@ def test_walk_plan_at_the_flagship():
     one a multiprocessor of 132, in 206,464 bytes: W1 and W2 read by 16 row
     blocks a stage."""
     assert ws.walk_plan(512, 784, 100, 132) == ws.WalkPlan(32, 100, 16, 8, 1, 206_464)
-    assert ws.walk_plan(512, 784, 100, 132, replay=True).smem_bytes == 206_464
+    assert ws.solve_smem_bytes(32, 100, 100) < 206_464  # the replay runs K3's stages in it
 
 
 def test_walk_plan_refuses_what_no_tile_fits():

@@ -383,8 +383,8 @@ def test_mlp_walk_in_row_chunks_matches_plain_version(cuda, monkeypatch):
     cotangents of y1 and then of the telemetry too."""
     plan = ws.walk_plan
 
-    def small_card(B, D, H, sms, replay=False, limit=ws.SMEM_LIMIT):
-        return plan(B, D, H, 4, replay, limit)
+    def small_card(B, D, H, sms, limit=ws.SMEM_LIMIT):
+        return plan(B, D, H, 4, limit)
 
     monkeypatch.setattr(ws, "walk_plan", small_card)
     assert ws.walk_plan(256, 64, 32, 132).chunks > 1
@@ -394,6 +394,69 @@ def test_mlp_walk_in_row_chunks_matches_plain_version(cuda, monkeypatch):
     ct_y1, ct_tel = _bwd_seeds(256, 64, cuda)
     for tel in (torch.zeros_like(ct_tel), ct_tel):
         _assert_k4_matches(rk, ns, ct_y1, tel, args, hard_bound=not tel.any())
+
+
+def _assert_k3_matches(rk, rp, args):
+    """K3 for MLPDynamics against its plain version on the same inputs: the
+    same step counts and accept sequence, the solve done, y1 within 1e-4;
+    every stored trial step's streamed stage residuals within 1e-4 of the
+    plain capture on the step's own stored inputs (teacher-forced)."""
+    assert rk.final[3:].tolist() == rp.final[3:].tolist() and rk.final[5].item() == 1.0
+    assert torch.equal(rk.streams[ws.ST_ACC], rp.streams[ws.ST_ACC])
+    assert _rel(rk.y1, rp.y1) <= 1e-4
+    st, parts = rk.streams, fm._split_params(*args[5])
+    for i in range(int(rk.final[3:5].sum().item())):
+        _, (ks, hs) = fm._reference_normed_sweep_res(st[ws.ST_T, i], st[ws.TEL_DT, i],
+                                                     rk.hy[i], rk.hf[i], parts, *args[6:8])
+        assert _rel(rk.ks[i], torch.stack(ks[1:])) <= 1e-4, i
+        assert _rel(rk.hs[i], torch.stack(hs)) <= 1e-4, i
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(512, 784, 100), (96, 200, 48)])
+def test_mlp_solve_matches_plain_version(cuda, shape):
+    """K3 for MLPDynamics (``csrc/mlp_solve.cuh``) on ``walk_plan``'s tiles,
+    several column blocks at each shape (8 of 100 columns at the flagship,
+    7 of 32 at 96x200x48), against ``plain_whole_solve_fwd`` at
+    rtol=atol=1e-4 (``_assert_k3_matches``); one launch, bitwise the same
+    twice. The reduced shape draws its weights at three times LeCun's scale,
+    so it takes several trial steps."""
+    args = _solve_args(*shape, cuda, scale=1.0 if shape[0] == 512 else 3.0)
+    plan = ws.walk_plan(*shape, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert plan.col_blocks > 1 and plan.chunks == 1
+    ws.reset_launches()
+    rk = ws.whole_solve_fwd(*args)
+    assert ws.LAUNCHES["whole_solve_fwd"] == 1
+    _assert_k3_matches(rk, ws.plain_whole_solve_fwd(*args), args)
+    again = ws.whole_solve_fwd(*args)
+    ns = int(rk.final[3:5].sum().item())
+    assert torch.equal(rk.streams, again.streams) and torch.equal(rk.hy[:ns + 1],
+                                                                  again.hy[:ns + 1])
+    assert torch.equal(rk.ks[:ns], again.ks[:ns]) and torch.equal(rk.hs[:ns], again.hs[:ns])
+
+
+@pytest.mark.cuda
+def test_mlp_solve_in_row_chunks_matches_plain_version(cuda, monkeypatch):
+    """K3 on the plan of a card of 4 multiprocessors: 4 tiles, each trial
+    step solved in row chunks one after another. Held to its plain version
+    as ``test_mlp_solve_matches_plain_version`` holds it, and K4 on its
+    stream bitwise K4 replaying the stages on the same chunks."""
+    plan = ws.walk_plan
+
+    def small_card(B, D, H, sms, limit=ws.SMEM_LIMIT):
+        return plan(B, D, H, 4, limit)
+
+    monkeypatch.setattr(ws, "walk_plan", small_card)
+    assert ws.walk_plan(256, 64, 32, 132).chunks > 1
+    args = _solve_args(256, 64, 32, cuda, scale=3.0)
+    rk = ws.whole_solve_fwd(*args)
+    _assert_k3_matches(rk, ws.plain_whole_solve_fwd(*args), args)
+    ns = int(rk.final[3:5].sum().item())
+    ct_y1, ct_tel = _bwd_seeds(256, 64, cuda)
+    rest = (ct_y1, ct_tel, args[0], args[1], args[5], 1e-4, 1e-4, CTRL)
+    streamed = ws.whole_solve_bwd(rk, ns, *rest)
+    replay = ws.whole_solve_bwd(rk, ns, *rest, cache_residuals=False)
+    assert all(torch.equal(a, b) for a, b in zip(streamed, replay))
 
 
 @pytest.mark.cuda

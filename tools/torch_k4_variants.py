@@ -29,15 +29,16 @@ import argparse
 import ctypes
 import re
 import shutil
-import statistics
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tools"))
 
-CSRC = ROOT / "regneuralde_tpu_torch" / "csrc"
+import torch_variants as tv  # noqa: E402
+
 OUT = ROOT / "build" / "k4_variants"
 B, D, H = 512, 784, 100
 HPP = -(-(H + 1) // 4) * 4  # a partial's rows of ct_h, H+1 rounded to 4
@@ -124,7 +125,7 @@ extern "C" int probe_phase(const float* y, const float* k1, const float* ks, con
                       w};
   const WalkStep ws{y, k1, y, k1, ks, hs, cp2, he, cp1, ye, ct_y, ct_f, nullptr, nullptr,
                     0.1f, 0.05f, 0.7f, 1.3f, -0.4f, 0, 0};
-  const size_t smem = walk_smem_bytes(R, C, D_, H_, false);
+  const size_t smem = walk_smem_bytes(R, C, H_);
   const void* k = (const void*)probe_phase_kernel;
   cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
@@ -137,47 +138,13 @@ extern "C" int probe_phase(const float* y, const float* k1, const float* ks, con
 
 
 def build(names):
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    walk = (CSRC / "mlp_walk.cuh").read_text()
     probes = PROBES.replace("B_", str(B)).replace("D_", str(D)).replace("H_", str(H))
-    procs = {}
-    for name in names:
-        src = OUT / name
-        if src.exists():
-            shutil.rmtree(src)
-        shutil.copytree(CSRC, src)
-        text = walk
-        for a, b in VARIANTS[name]:
-            if a not in text:
-                raise SystemExit(f"variant {name}: {a!r} is not in mlp_walk.cuh")
-            text = text.replace(a, b)
-        (src / "mlp_walk.cuh").write_text(text)
-        (src / "whole_solve.cu").write_text((CSRC / "whole_solve.cu").read_text() + probes)
-        procs[name] = subprocess.Popen(
-            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-             "-Xcompiler", "-fPIC", "-shared", "-Xptxas", "-v", "-o", str(OUT / f"{name}.so"),
-             str(src / "whole_solve.cu"), str(src / "weight_cotangents.cu")],
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-    libs = {}
-    for name, proc in procs.items():
-        _, err = proc.communicate()
-        if proc.returncode != 0:
-            raise SystemExit(f"nvcc failed on {name}:\n{err[-4000:]}")
-        kernel = None
-        for line in err.splitlines():
-            m = re.search(r"Compiling entry function '(\S+)'", line)
-            if m:
-                kernel = m.group(1)
-            elif kernel and ("mlp_walk" in kernel or "probe" in kernel) and (
-                    "registers" in line or "spill" in line):
-                print(f"[ptxas] {name} {kernel[:60]}: {line.split(':', 1)[-1].strip()}")
+    libs = tv.build("mlp_walk.cuh", VARIANTS, names, probes, OUT, ("mlp_walk", "probe"))
+    P, I = ctypes.c_void_p, ctypes.c_int
+    for name, lib in libs.items():
         sass_counts(name, OUT / f"{name}.so")
-        lib = ctypes.CDLL(str(OUT / f"{name}.so"))
-        P, I = ctypes.c_void_p, ctypes.c_int
         lib.probe_sync.argtypes = [I, I, I, P]
         lib.probe_phase.argtypes = [P] * 19 + [I] * 6 + [P]
-        lib.regnde_walk_smem_bytes.argtypes = [I] * 5
-        libs[name] = lib
     return libs
 
 
@@ -207,24 +174,6 @@ def sass_counts(name, so):
     for kernel, c in counts.items():
         print(f"[sass] {name} {kernel[-40:]}: " + ", ".join(f"{k} {v}" for k, v in sorted(c.items())))
     (OUT / f"{name}_probe.sass").write_text("\n".join(probe))
-
-
-def per_iteration_ms(launch, n1=2, n2=22):
-    """Device ms of one iteration: CUDA events around launches of n1 and
-    n2 iterations, the difference over n2 - n1, median of 5."""
-    import torch
-
-    def one(n):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        launch(n)
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end)
-
-    launch(n1)
-    torch.cuda.synchronize()
-    return statistics.median((one(n2) - one(n1)) / (n2 - n1) for _ in range(5))
 
 
 def main():
@@ -257,7 +206,7 @@ def main():
     ptr = lambda x: ctypes.c_void_p(x.data_ptr())
     for name, lib in libs.items():
         for p in plans:
-            smem = lib.regnde_walk_smem_bytes(p.rows, p.cols, D, H, 0)
+            smem = lib.regnde_walk_smem_bytes(p.rows, p.cols, H)
             psum = torch.zeros(p.tiles * p.rows * HPP, device=dev)
             ctp1g = torch.zeros(p.row_blocks * H * p.rows, device=dev)
             wpad = (torch.empty(p.col_blocks * p.cols * HPP, device=dev),
@@ -280,17 +229,16 @@ def main():
             if smem > ws.SMEM_LIMIT:
                 print(f"[k4-variants] {name} {p.rows}x{p.cols}: {smem} bytes, does not fit")
                 continue
-            ms = {"grid_sync_us": 1e3 * per_iteration_ms(sync, 10, 1010),
-                  "phase_a_us": 1e3 * per_iteration_ms(lambda n: phase(0, n)),
-                  "reduce_us": 1e3 * per_iteration_ms(lambda n: phase(1, n)),
-                  "phase_b_us": 1e3 * per_iteration_ms(lambda n: phase(2, n))}
+            ms = {"grid_sync_us": 1e3 * tv.per_iteration_ms(sync, 10, 1010),
+                  "phase_a_us": 1e3 * tv.per_iteration_ms(lambda n: phase(0, n)),
+                  "reduce_us": 1e3 * tv.per_iteration_ms(lambda n: phase(1, n)),
+                  "phase_b_us": 1e3 * tv.per_iteration_ms(lambda n: phase(2, n))}
             print(f"[k4-variants] {name} {p.rows}x{p.cols} ({p.tiles} tiles, {smem} bytes): "
                   + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
 
     # the whole K4 under each plan, with the package's library, and under
     # the shipped plan with each variant's library
     import chip_smoke as cs
-    from regneuralde_tpu_torch.ops import _cuda
     from regneuralde_tpu_torch.ops import fused_mlp as fm
     from regneuralde_tpu_torch.ops import ode
     from regneuralde_tpu_torch.ops.controller import PIController
@@ -304,38 +252,23 @@ def main():
     rec = ws.whole_solve_fwd(t0, t1, dt0, y0, f0, leaves, tol, tol, ctrl, cs.MAX_STEPS)
     ns = int(rec.final[3:5].sum().item())
     ct_tel = torch.zeros(4, cs.MAX_STEPS, device=dev)
-    shipped = ws.walk_plan
-    try:
-        for p in plans:
-            forced = p._replace(smem_bytes=ws.walk_smem_bytes(p.rows, p.cols, D, H, False))
-            if forced.smem_bytes > ws.SMEM_LIMIT:
-                continue
-            ws.walk_plan = lambda *_a, _p=forced, **_k: _p
-            call = lambda: ws.whole_solve_bwd(rec, ns, ct_y, ct_tel, t0, t1, leaves, tol, tol,
-                                              ctrl)
+    call = lambda: ws.whole_solve_bwd(rec, ns, ct_y, ct_tel, t0, t1, leaves, tol, tol, ctrl)
+    for p in plans:
+        forced = p._replace(smem_bytes=ws.walk_smem_bytes(p.rows, p.cols, H))
+        if forced.smem_bytes > ws.SMEM_LIMIT:
+            continue
+        with tv.forced(plan=forced):
             walk = cs._device_ms(call, "mlp_walk_kernel")
             wcot = cs._device_ms(call, "wcot_")
-            print(f"[k4-variants] K4 at {p.rows}x{p.cols}, {ns} trial steps: device ms "
-                  f"walk {walk!r}, the contraction {wcot!r}")
-        package = _cuda.library()
-        for name, lib in libs.items():
-            for fn, argtypes in _cuda._SIGNATURES.items():
-                if hasattr(lib, fn):
-                    getattr(lib, fn).argtypes = argtypes
-                    getattr(lib, fn).restype = ctypes.c_int
-            own = shipped(B, D, H, torch.cuda.get_device_properties(dev).multi_processor_count)
-            own = own._replace(smem_bytes=lib.regnde_walk_smem_bytes(own.rows, own.cols, D, H, 0))
-            if own.smem_bytes > ws.SMEM_LIMIT:
-                continue
-            ws.walk_plan = lambda *_a, _p=own, **_k: _p
-            _cuda._lib = lib
-            call = lambda: ws.whole_solve_bwd(rec, ns, ct_y, ct_tel, t0, t1, leaves, tol, tol,
-                                              ctrl)
-            print(f"[k4-variants] {name}: the walk at the shipped plan, device ms "
-                  f"{cs._device_ms(call, 'mlp_walk_kernel')!r}")
-            _cuda._lib = package
-    finally:
-        ws.walk_plan = shipped
+        print(f"[k4-variants] K4 at {p.rows}x{p.cols}, {ns} trial steps: device ms "
+              f"walk {walk!r}, the contraction {wcot!r}")
+    own = ws.walk_plan(B, D, H, torch.cuda.get_device_properties(dev).multi_processor_count)
+    for name, lib in libs.items():
+        if lib.regnde_walk_smem_bytes(own.rows, own.cols, H) > ws.SMEM_LIMIT:
+            continue
+        with tv.forced(plan=own, lib=lib):
+            ms = cs._device_ms(call, "mlp_walk_kernel")
+        print(f"[k4-variants] {name}: the walk at the shipped plan, device ms {ms!r}")
     return 0
 
 

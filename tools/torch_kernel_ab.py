@@ -13,7 +13,10 @@ for MLPDynamics, ``sde``: K9/K10 for the MLP pair, ``lanes``: K11/K12,
 ``tuple``: K13/K14; a phase the tree lacks is skipped; ``wcot``: the device time, under ``torch.profiler``, of the
 weight-cotangent contraction inside K2 at 512x784x100 (K = 3072 rows) and
 inside K4<MlpDyn> over the flagship's whole solve at 1.4e-8 (K = 6 * 512 *
-its trial steps), whichever kernels the tree has for it) and prints, per
+its trial steps), whichever kernels the tree has for it; ``k3``: K3 for
+MLPDynamics alone over that solve, CUDA-event and device ms, whichever
+kernel the tree has for it; ``fwd``: the device ms a launch of K3 for
+AlternatingMLP and for CSL over their whole-solve phases) and prints, per
 kernel, the median of ``chip_smoke``'s CUDA-event times and what ``ptxas``
 reported for it (registers, stack, spills). Last it says, for every kernel
 of either library, whether the two trees' SASS (``cuobjdump -sass``) is
@@ -35,12 +38,27 @@ from regneuralde_tpu_torch.ops import _cuda
 phases = sys.argv[1].split(",")
 
 
-def wcot(dev):
-    """Device ms a call of the weight-cotangent contraction's kernels (the
-    old atb_split_kernel or wcot_chunk_kernel + wcot_sum_kernel) inside K2
-    and inside K4<MlpDyn>, both through the wrappers both trees share."""
+def device_ms(fn, names):
+    """Device ms a call of fn of the kernels whose names hold one of names,
+    under torch.profiler over cs.REPS calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(cs.REPS):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and any(n in e.key for n in names))
+    return us / 1e3 / cs.REPS
+
+
+def flagship(dev):
+    """Phase 5's seeded leaves and y0, the prologue at the flagship's
+    tolerance, and K3's record of the solve (through the wrapper both trees
+    share): (leaves, K3's arguments, the record, its trial steps)."""
     from regneuralde_tpu_torch.ops import fused_mlp as fm
     from regneuralde_tpu_torch.ops import ode
     from regneuralde_tpu_torch.ops import whole_solve as ws
@@ -51,13 +69,78 @@ def wcot(dev):
     rnd = lambda *shape, scale=1.0: (torch.randn(*shape, generator=gen) * scale).to(dev)
     leaves = [rnd(H, D + 1, scale=(D + 1) ** -0.5), rnd(H, scale=0.1),
               rnd(D, H + 1, scale=(H + 1) ** -0.5), rnd(D, scale=0.1)]
-    y0, k1 = torch.rand(B, D, generator=gen).to(dev), rnd(B, D, scale=0.3)
+    y0 = torch.rand(B, D, generator=gen).to(dev)
     parts = fm._split_params(*leaves)
     func = lambda t, y, _: fm._mlp_k(y, t, parts)[0]
-    ctrl = PIController.for_order(5)
     t0, t1, f0, dt0 = ode.solve_prologue(func, y0, 0.0, 1.0, (), tol, tol)
-    rec = ws.whole_solve_fwd(t0, t1, dt0, y0, f0, leaves, tol, tol, ctrl, cs.MAX_STEPS)
-    ns = int(rec.final[3:5].sum().item())
+    args = (t0, t1, dt0, y0, f0, leaves, tol, tol, PIController.for_order(5), cs.MAX_STEPS)
+    rec = ws.whole_solve_fwd(*args)
+    return leaves, args, rec, int(rec.final[3:5].sum().item())
+
+
+def k3(dev):
+    """K3 for MLPDynamics over the flagship's solve: CUDA-event ms a call
+    (median of cs.REPS) and the device ms of its kernel (the old
+    whole_solve_fwd_kernel<MlpDyn> or mlp_solve_kernel)."""
+    from regneuralde_tpu_torch.ops import whole_solve as ws
+
+    _, args, _, ns = flagship(dev)
+    call = lambda: ws.whole_solve_fwd(*args)
+    return {f"K3_events_ns={ns}": {"ms": cs._time_ms(call)},
+            f"K3_device_ns={ns}": {"ms": device_ms(call, ("whole_solve_fwd_kernel",
+                                                          "mlp_solve_kernel"))}}
+
+
+def fwd(dev):
+    """Device ms a launch of K3 for AlternatingMLP and for CSL
+    (whole_solve_fwd_kernel<AltDyn|CslDyn>), averaged over every launch of
+    their whole-solve phases (the same solves in either tree): each such
+    call of the wrapper under its own torch.profiler, the rest of the
+    phases unprofiled."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from regneuralde_tpu_torch.ops import whole_solve as ws
+
+    inner, sums = ws.whole_solve_fwd, {}
+
+    def profiled(*a, **k):
+        if k.get("dynamics") not in ("altmlp", "csl"):
+            return inner(*a, **k)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            out = inner(*a, **k)
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and "whole_solve_fwd_kernel" in e.key:
+                us, n = sums.get(k["dynamics"], (0.0, 0))
+                sums[k["dynamics"]] = (us + e.self_device_time_total, n + e.count)
+        return out
+
+    _, saveat = cs.latent_batches(1, dev)
+    batch = cs.ffjord_batches(1, dev)[0]
+    ws.whole_solve_fwd = profiled
+    try:
+        cs.phase_whole_solve_altmlp_kernels(dev, saveat)
+        cs.phase_whole_solve_csl_kernels(dev, batch)
+    finally:
+        ws.whole_solve_fwd = inner
+    return {f"K3_{dyn}_device_a_launch": {"ms": us / n / 1e3} for dyn, (us, n) in sums.items()}
+
+
+def wcot(dev):
+    """Device ms a call of the weight-cotangent contraction's kernels (the
+    old atb_split_kernel or wcot_chunk_kernel + wcot_sum_kernel) inside K2
+    and inside K4<MlpDyn>, both through the wrappers both trees share."""
+    from regneuralde_tpu_torch.ops import fused_mlp as fm
+    from regneuralde_tpu_torch.ops import whole_solve as ws
+
+    B, D, tol = cs.BATCH, cs.DIM, cs.FLAGSHIP_TOL
+    leaves, args, rec, ns = flagship(dev)
+    t0, t1, y0, ctrl = args[0], args[1], args[3], args[8]
+    gen = torch.Generator().manual_seed(cs.SEED + 3)
+    rnd = lambda *shape, scale=1.0: (torch.randn(*shape, generator=gen) * scale).to(dev)
+    k1 = rnd(B, D, scale=0.3)
     ct_y1, ct_tel = rnd(B, D), torch.zeros(4, cs.MAX_STEPS, device=dev)
     t, dt = torch.tensor(0.07, device=dev), torch.tensor(0.11, device=dev)
     cts = [rnd(B, D), rnd(B, D), *(torch.tensor(v, device=dev) for v in (0.7, 1.3, -0.4))]
@@ -68,18 +151,7 @@ def wcot(dev):
             rec, ns, ct_y1, ct_tel, t0, t1, leaves, tol, tol, ctrl),
     }
     names = ("atb_split_kernel", "wcot_chunk_kernel", "wcot_sum_kernel")
-    out = {}
-    for key, fn in calls.items():
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(cs.REPS):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and any(n in e.key for n in names))
-        out[key] = {"ms": us / 1e3 / cs.REPS}
-    return out
+    return {key: {"ms": device_ms(fn, names)} for key, fn in calls.items()}
 
 lib = _cuda.library()
 dev = torch.device("cuda", 0)
@@ -103,6 +175,10 @@ with contextlib.redirect_stdout(io.StringIO()):
         ms.update(cs.phase_tuple_kernels(dev))
     if "wcot" in phases:
         ms.update(wcot(dev))
+    if "k3" in phases:
+        ms.update(k3(dev))
+    if "fwd" in phases:
+        ms.update(fwd(dev))
 ptxas, name = {}, None
 for line in _cuda.ptxas_report().splitlines():
     m = re.search(r"Compiling entry function '(\S+)'", line)
