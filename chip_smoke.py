@@ -113,10 +113,13 @@ at first use. Phases (each checks its results; any failure exits non-zero):
    lanes whose NFE or accepts differ between ``fused=True`` and ``False``
    in a forward from the trained weights (reported);
 25. K13 and K14 (the tuple Tsit5 step of ``odeint``'s generic engine,
-   ``csrc/mlp_tsit5.cu``) against their plain versions at 512x784x100, t =
-   0.3 and dt in {0.05, 0.3}: K13's rows within FWD_BOUND (the error row,
-   a cancellation, within TUPLE_ERR_BOUND) and K14 within BWD_BOUND, both
-   also against a float64 walk, bitwise determinism, CUDA-event times;
+   ``csrc/mlp_tsit5.cu``; K14 one trial step of the MLPDynamics reverse
+   walk, ``csrc/mlp_tuple_walk.cuh``) against their plain versions at
+   512x784x100, t = 0.3 and dt in {0.05, 0.3}: K13's rows within FWD_BOUND
+   (the error row, a cancellation, within TUPLE_ERR_BOUND) and K14 within
+   BWD_BOUND, both also against a float64 walk, bitwise determinism,
+   CUDA-event times; K14's device time (its kernel and the contraction,
+   ``torch.profiler``), tile plan and ``grid.sync()`` count a launch;
 26. one forward+backward of the flagship step at rtol=atol=1e-5 with the
    solve through ``odeint(clf.node._func, x, 0, 1, leaves,
    stage_sweep=mlp_dynamics_stage_sweep)``, in ``mode="adjoint"`` (the
@@ -2316,10 +2319,15 @@ def phase_tuple_kernels(device):
     distance from a float64 walk, plus 1e-7; K14 within BWD_BOUND of its
     plain version and within 3 times the plain version's distance from a
     float64 walk, plus 1e-6; both bitwise deterministic; CUDA-event times of
-    both and of their plain versions."""
+    both and of their plain versions; K14's device time under
+    ``torch.profiler`` (``mlp_tuple_walk_kernel`` and the weight-cotangent
+    contraction after it), its tile plan and its ``grid.sync()`` count a
+    launch: the pad, the replay's two a stage, the replay's end, the
+    reverse's two a stage (each per row chunk) and the slots'."""
     import torch
 
     from regneuralde_tpu_torch.ops import fused_mlp as fm
+    from regneuralde_tpu_torch.ops import whole_solve as ws
 
     gen = torch.Generator().manual_seed(SEED + 41)
 
@@ -2382,6 +2390,18 @@ def phase_tuple_kernels(device):
     }
     print("[tuple] median ms over %d runs at %dx%dx%d: %s"
           % (REPS, BATCH, DIM, HIDDEN, json.dumps(times)))
+    bwd = lambda: fm.stage_sweep_bwd(t, dt, y, k1, leaves, cts)
+    dev_walk = _device_ms(bwd, "mlp_tuple_walk_kernel")
+    dev_wcot = _device_ms(bwd, "wcot_")
+    _check(dev_walk is not None and dev_wcot is not None,
+           "K14's kernel and its contraction in the trace")
+    plan = ws.walk_plan(BATCH, DIM, HIDDEN,
+                        torch.cuda.get_device_properties(device).multi_processor_count)
+    syncs = 1 + 12 * plan.chunks + 1 + 12 * plan.chunks + 1
+    print(f"[tuple] K14 device ms a launch (torch.profiler, {REPS} launches): kernel "
+          f"{dev_walk!r} + contraction {dev_wcot!r} = {dev_walk + dev_wcot!r}; tiles "
+          f"{plan.rows}x{plan.cols}, {plan.tiles} blocks, {plan.chunks} row chunks; "
+          f"grid.sync() a launch {syncs}")
     f_ops, b_ops, leaf = _mlp_work(BATCH, DIM, HIDDEN)
     BD = BATCH * DIM
     # K13 reads t, dt, y, k1 and the leaves and writes five rows; K14 reads
@@ -3129,7 +3149,7 @@ def main():
                "sde_whole_solve_bwd": "sde_whole_solve.cu",
                "mlp_lanes_tsit5_fwd": "mlp_lanes_tsit5.cu",
                "mlp_lanes_tsit5_bwd": "mlp_lanes_tsit5.cu",
-               "mlp_tsit5_fwd": "mlp_tsit5.cu", "mlp_tsit5_bwd": "mlp_tsit5.cu",
+               "mlp_tsit5_fwd": "mlp_tsit5.cu", "mlp_tsit5_bwd": "mlp_tuple_walk.cuh",
                "spike_wholesolve": "spike_wholesolve.cu",
                "sde_whole_solve_cubic_fwd": "sde_whole_solve.cu",
                "sde_whole_solve_cubic_bwd": "sde_whole_solve.cu",

@@ -3,7 +3,9 @@
 // grid. Included by whole_solve.cu only, after the scalar chain it shares
 // with the other walks (post_bwd, Chain, chain_begin/_end/_finish,
 // hermite_elem, BwdArgs, MlpDyn) and after mlp_solve.cuh, K3's, whose tile
-// toolkit it is built on and whose stages its replay runs.
+// toolkit it is built on and whose stages its replay runs. K14
+// (mlp_tuple_walk.cuh) runs one trial step of this walk with seeds of its
+// own (a seed policy of walk_seed).
 //
 // Replaces the TPU kernel
 //   K4: regneuralde_tpu/ops/pallas_solve.py make_whole_solve.make_bwd_kernel
@@ -234,6 +236,51 @@ __device__ __forceinline__ void seed_load(const BwdArgs<MlpDyn<STREAM>>& a,
   }
 }
 
+// The seeds of the stage-6 and stage-5 inputs applied to row i of an
+// item (k: its k1..k7; ck: its cotangents of k1..k6 so far, ck6 of k7),
+// as those stages' ct_yi carry them, into cty (from cty0), the dt partial
+// (after cerr * s_comb, the error row's share) and the cotangents of the
+// ks; then the row's state and ct_pre2 of stage 6 into lane i of the
+// item's float4s. Shared by K4's seed and K14's (mlp_tuple_walk.cuh).
+__device__ __forceinline__ void seed_row(const float* k, float (&ck)[6], float ck6, float cerr,
+                                         float s_comb, float seed6, float seed5, float cty0,
+                                         float dt, float& part1, int i, float4 (&ks)[6],
+                                         float4 (&cks)[6], float4& cty, float4& cp) {
+  float acc6 = kA[5][0] * k[0], acc5 = kA[4][0] * k[0];
+#pragma unroll
+  for (int j = 1; j < 6; ++j) acc6 += kA[5][j] * k[j];
+#pragma unroll
+  for (int j = 1; j < 5; ++j) acc5 += kA[4][j] * k[j];
+  part1 += cerr * s_comb;
+  part1 += seed6 * acc6;
+  part1 += seed5 * acc5;
+#pragma unroll
+  for (int j = 0; j < 6; ++j) ck[j] += (dt * kA[5][j]) * seed6;
+#pragma unroll
+  for (int j = 0; j < 5; ++j) ck[j] += (dt * kA[4][j]) * seed5;
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    comp(ks[j], i) = k[j];
+    comp(cks[j], i) = ck[j];
+  }
+  comp(cty, i) = cty0 + seed6 + seed5;
+  comp(cp, i) = ck6 * (1.0f - k[6] * k[6]);
+}
+
+// An item's seeded state into the tile's shared arrays (walk_at).
+__device__ __forceinline__ void seed_store(const WalkSmem& s, int R, int c, int g,
+                                           const float4 (&ks)[6], const float4 (&cks)[6],
+                                           float4 cty, float4 cp) {
+  const int off = walk_at(c, g, R);
+#pragma unroll
+  for (int j = 0; j < 6; ++j) {
+    st4(s.st + (WS_KS + j) * s.RC + off, ks[j]);
+    st4(s.st + (WS_CKS + j) * s.RC + off, cks[j]);
+  }
+  st4(s.st + WS_CTY * s.RC + off, cty);
+  st4(s.cp2 + off, cp);
+}
+
 // normed_bwd_tile's seed block on one item, element by element, after the
 // Hermite pullback of the saved rows, with the seeds of the stage-6 and
 // stage-5 inputs applied: the state's initial values and ct_pre2 of stage 6. Zero inputs (outside the tile) give zero state.
@@ -287,46 +334,40 @@ __device__ __forceinline__ void seed_compute(const BwdArgs<MlpDyn<STREAM>>& a,
     for (int j = 0; j < 6; ++j) ck[j] = kBt[j] * (dt * cerr);
     ck[5] = kBt[5] * (dt * cerr) - d_k7;
     const float ck6 = kBt[6] * (dt * cerr) + ck7 + d_k7;
-    // the seeds of the stage-6 and stage-5 inputs, as those stages' ct_yi
-    // carry them: into cty, the dt partial and the cotangents of the ks
-    const float seed6 = cyn + d_ynew + to_ynew, seed5 = -d_ynew;
-    float acc6 = kA[5][0] * k[0], acc5 = kA[4][0] * k[0];
-#pragma unroll
-    for (int j = 1; j < 6; ++j) acc6 += kA[5][j] * k[j];
-#pragma unroll
-    for (int j = 1; j < 5; ++j) acc5 += kA[4][j] * k[j];
-    part[1] += cerr * s_comb;
-    part[1] += seed6 * acc6;
-    part[1] += seed5 * acc5;
-#pragma unroll
-    for (int j = 0; j < 6; ++j) ck[j] += (dt * kA[5][j]) * seed6;
-#pragma unroll
-    for (int j = 0; j < 5; ++j) ck[j] += (dt * kA[4][j]) * seed5;
-#pragma unroll
-    for (int j = 0; j < 6; ++j) {
-      comp(ks[j], i) = k[j];
-      comp(cks[j], i) = ck[j];
-    }
-    comp(cty, i) = to_y + seed6 + seed5;
-    comp(cp, i) = ck6 * (1.0f - k[6] * k[6]);
+    // the seeds of the stage-6 and stage-5 inputs
+    seed_row(k, ck, ck6, cerr, s_comb, cyn + d_ynew + to_ynew, -d_ynew, to_y, dt, part[1], i,
+             ks, cks, cty, cp);
   }
-  const int off = walk_at(c, g, R);
-#pragma unroll
-  for (int j = 0; j < 6; ++j) {
-    st4(s.st + (WS_KS + j) * s.RC + off, ks[j]);
-    st4(s.st + (WS_CKS + j) * s.RC + off, cks[j]);
-  }
-  st4(s.st + WS_CTY * s.RC + off, cty);
-  st4(s.cp2 + off, cp);
+  seed_store(s, R, c, g, ks, cks, cty, cp);
 }
 
+// K4's seeds (the walk's trial step): the rows' cotangents of y_new and k7
+// (with the Hermite pullback of the saved rows) and the norm sums' (c_err,
+// c_num, c_den), in normed_bwd_tile's algebra. A seed policy of walk_seed:
+// In, the loads of one item; load; compute.
+struct NormedSeed {
+  using In = SeedIn;
+  template <bool STREAM>
+  __device__ __forceinline__ void load(const BwdArgs<MlpDyn<STREAM>>& a, const WalkStep& ws,
+                                       const WalkTile& tl, int c, int g, In& in) const {
+    seed_load(a, ws, tl, c, g, in);
+  }
+  template <bool STREAM>
+  __device__ __forceinline__ void compute(const BwdArgs<MlpDyn<STREAM>>& a, const WalkStep& ws,
+                                          const WalkSmem& s, const WalkTile& tl, int R, int c,
+                                          int g, const In& in, float (&part)[4]) const {
+    seed_compute(a, ws, s, tl, R, c, g, in, part);
+  }
+};
+
 // The seed phase of one tile (items: 4 rows of a column, consecutive
-// threads on consecutive columns), two items' loads in flight at once.
-// Phase A(6)'s first slabs are issued first.
-template <bool STREAM>
+// threads on consecutive columns), two items' loads in flight at once, by
+// the seed policy (NormedSeed: K4's; TupleSeed: K14's). Phase A(6)'s first
+// slabs are issued first.
+template <bool STREAM, class Seed = NormedSeed>
 __device__ __forceinline__ void walk_seed(const BwdArgs<MlpDyn<STREAM>>& a, const Walk& w,
                           const WalkStep& ws, const WalkSmem& s, const WalkTile& tl,
-                          float (&part)[4]) {
+                          float (&part)[4], const Seed& seed = Seed{}) {
   const int C = w.C, n = C * (w.R / 4), H = a.dyn.H;
   walk_prefetch((tl.cols + kWalkKB - 1) / kWalkKB,
                 [&](int p) { walk_load_w2(w, s, tl, p); });
@@ -344,16 +385,16 @@ __device__ __forceinline__ void walk_seed(const BwdArgs<MlpDyn<STREAM>>& a, cons
   for (int e = C * w.R + threadIdx.x; e < walk_round_up(C, kWalkKB) * w.R; e += kThreads)
     s.cp2[e] = 0.0f;
   for (int e0 = threadIdx.x; e0 < n; e0 += 2 * kThreads) {
-    SeedIn in[2];
+    typename Seed::In in[2];
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       const int e = e0 + u * kThreads;
-      if (e < n) seed_load(a, ws, tl, e % C, e / C, in[u]);
+      if (e < n) seed.load(a, ws, tl, e % C, e / C, in[u]);
     }
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       const int e = e0 + u * kThreads;
-      if (e < n) seed_compute(a, ws, s, tl, w.R, e % C, e / C, in[u], part);
+      if (e < n) seed.compute(a, ws, s, tl, w.R, e % C, e / C, in[u], part);
     }
   }
 }

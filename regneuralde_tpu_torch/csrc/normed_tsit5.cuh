@@ -102,7 +102,7 @@ __device__ __forceinline__ float stage_acc(int i, const float* ks, int stride,
 // and K4's seed phase, mlp_walk.cuh), so the same ks give the same bits on
 // each path: left to the compiler, y + dt * acc_i contracted differently in
 // two inlined copies, and K4's streamed and replayed cotangents of the
-// stiffness norm parted by ulps (H100). The step kernels (K1/K2, K13/K14)
+// stiffness norm parted by ulps (H100). The step kernels (K1/K2, K13)
 // keep the compiler's contraction: pinned there, it cost K2 about 35%
 // (H100).
 __device__ __forceinline__ float stage_state(int i, const float* y_s,

@@ -6,7 +6,9 @@
 // kernels of their own, mlp_solve.cuh and mlp_walk.cuh, which split each
 // stage's contractions over the whole grid; they share the scalar code
 // below (fwd_begin, fwd_decide, fwd_end, hermite_at, chain_begin,
-// chain_end, chain_finish, hermite_elem).
+// chain_end, chain_finish, hermite_elem). K14, the tuple Tsit5 step's
+// backward (odeint's generic engine), is one trial step of that walk
+// (mlp_tuple_walk.cuh), so it is built here too.
 //
 // Replaces the TPU kernels
 //   K3: regneuralde_tpu/ops/pallas_solve.py  make_whole_solve.make_fwd_kernel
@@ -765,11 +767,12 @@ Ctrl make_ctrl(float beta1, float beta2, float qmin, float qmax, float gamma,
 
 #include "mlp_solve.cuh"
 #include "mlp_walk.cuh"
+#include "mlp_tuple_walk.cuh"
 
 namespace {
 
-// Launches MLPDynamics' K3 or K4 with one block a tile, or fails if the
-// card cannot hold every tile's block at once.
+// Launches MLPDynamics' K3, K4 or K14 with one block a tile, or fails if
+// the card cannot hold every tile's block at once.
 cudaError_t launch_walk(const void* kernel, void* args, size_t smem, int tiles,
                         cudaStream_t s) {
   int capacity = 0;
@@ -779,8 +782,8 @@ cudaError_t launch_walk(const void* kernel, void* args, size_t smem, int tiles,
   return launch_cooperative(kernel, args, smem, tiles, s, nullptr);
 }
 
-// Whether a tile plan (ops/whole_solve.py walk_plan) is one K3 and K4 take
-// at B x D: tiles of 16 or 32 rows and a multiple of kWalkTN columns, at
+// Whether a tile plan (ops/whole_solve.py walk_plan) is one K3, K4 and K14
+// take at B x D: tiles of 16 or 32 rows and a multiple of kWalkTN columns, at
 // most the row passes' elements, covering the batch.
 bool plan_ok(int rows, int cols, int row_blocks, int col_blocks, int chunks, int B, int D) {
   return (rows == 16 || rows == 32) && cols >= 1 && cols % kWalkTN == 0 &&
@@ -941,6 +944,47 @@ int regnde_whole_solve_bwd(const float* scalars, const float* streams,
   return (int)launch_weight_cotangents(cp2, he, cp1, ye, cW1, cb1, cW2, cb2,
                                        wpart, 6 * B * ns, D, H, chunk_rows,
                                        wpart_floats, s);
+}
+
+// K14 (mlp_tuple_walk.cuh), the tuple Tsit5 step's backward, then the
+// weight cotangents from its rows. t, dt: scalars on the device; y, k1 and
+// the row cotangents of (y_new, k7, err, k6, g6) (B, D) in; ct_y, ct_k1
+// (B, D), the weight cotangents in nn.Linear layout (cW1 (H, D+1), cb1 (H),
+// cW2 (D, H+1), cb2 (D)) and ct_tdt (2,) = (ct_t, ct_dt) out. The tile plan
+// as regnde_whole_solve_bwd's. Scratch: slots (tiles, 2); psum, ctp1g, w2p,
+// w1p, ks_step, hs_step and fscratch as regnde_whole_solve_bwd's when it
+// replays; cp2 (6B, D), he (6B, H+2), cp1 (6B, H), ye (6B, D+2), and the
+// contraction's wpart (wpart_floats floats, chunks of chunk_rows rows).
+int regnde_mlp_tsit5_bwd(const float* t, const float* dt, const float* y, const float* k1,
+                         const float* W1, const float* b1, const float* W2, const float* b2,
+                         const float* ct_ynew, const float* ct_k7, const float* ct_err,
+                         const float* ct_k6, const float* ct_g6, float* ct_y, float* ct_k1,
+                         float* cW1, float* cb1, float* cW2, float* cb2, float* ct_tdt,
+                         float* slots, float* psum, float* ctp1g, float* w2p, float* w1p,
+                         float* ks_step, float* hs_step, float* fscratch, float* cp2,
+                         float* he, float* cp1, float* ye, float* wpart, int B, int D, int H,
+                         int rows, int cols, int row_blocks, int col_blocks, int chunks,
+                         int chunk_rows, int wpart_floats, void* stream) {
+  if (!plan_ok(rows, cols, row_blocks, col_blocks, chunks, B, D))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Walk w{ks_step, hs_step,    psum,       ctp1g,  w2p,
+               w1p,     rows,       cols,       row_blocks, col_blocks,
+               chunks,  solve_carve(fscratch, rows, cols, row_blocks, col_blocks, chunks, H)};
+  BwdArgs<MlpDyn<false>> a{};
+  a.dyn = MlpDyn<false>{W1, b1, W2, b2, nullptr, nullptr, cp2, he, cp1, ye, H};
+  a.ct_y = ct_y;
+  a.ct_f = ct_k1;
+  a.ns = 1;
+  a.B = B;
+  a.D = D;
+  TupleWalkArgs args{{a, w}, t, dt, y, k1, ct_ynew, ct_k7, TupleSeed{ct_err, ct_k6, ct_g6},
+                     slots, ct_tdt};
+  const cudaError_t e = launch_walk((const void*)mlp_tuple_walk_kernel, &args,
+                                    walk_smem_bytes(rows, cols, H), row_blocks * col_blocks, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_weight_cotangents(cp2, he, cp1, ye, cW1, cb1, cW2, cb2, wpart, 6 * B, D,
+                                       H, chunk_rows, wpart_floats, s);
 }
 
 // K4 for AlternatingMLP, then the sum of its blocks' weight-cotangent

@@ -59,7 +59,7 @@ _SIGNATURES = {
     "regnde_lanes_fwd": [_P] * 13 + [_I] * 3 + [_P],
     "regnde_lanes_bwd": [_P] * 26 + [_I] * 5 + [_P],
     "regnde_mlp_tsit5_fwd": [_P] * 13 + [_I] * 3 + [_P],
-    "regnde_mlp_tsit5_bwd": [_P] * 26 + [_I] * 5 + [_P],
+    "regnde_mlp_tsit5_bwd": [_P] * 33 + [_I] * 10 + [_P],
     "regnde_spike_wholesolve": [_F] + [_P] * 5 + [_I] * 2 + [_P],
     "regnde_weight_cotangents": [_P] * 9 + [_I] * 5 + [_P],
 }

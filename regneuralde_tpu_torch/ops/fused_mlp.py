@@ -21,7 +21,9 @@ Each step has a plain version (``_reference_sweep`` and ``_bwd_math``, the
 hand reverse chain of ``pallas_mlp._fused_bwd_kernel``;
 ``_reference_normed_sweep`` and ``_normed_bwd_math``, that of
 ``pallas_mlp._normed_bwd_math``) and a CUDA kernel pair
-(``csrc/mlp_tsit5.cu``, ``csrc/normed_tsit5.cu``). The wrappers
+(``csrc/mlp_tsit5.cu`` with ``csrc/mlp_tuple_walk.cuh``, K14 being one
+trial step of the whole solve's reverse walk on its tile plan;
+``csrc/normed_tsit5.cu``). The wrappers
 ``stage_sweep_fwd``/``stage_sweep_bwd`` and ``normed_sweep_fwd``/
 ``normed_sweep_bwd`` take the plain version for tensors on the CPU, launch
 the kernel for tensors on a CUDA device, and raise otherwise.
@@ -365,7 +367,11 @@ def _cuda_fwd(t, dt, y, k1, leaves):
 
 
 def _cuda_bwd(t, dt, y, k1, leaves, cts):
+    """K14: one cooperative launch of ``csrc/mlp_tuple_walk.cuh`` on the
+    whole solve's tile plan (``whole_solve.walk_plan``), then the
+    weight-cotangent contraction."""
     from regneuralde_tpu_torch.ops import _cuda
+    from regneuralde_tpu_torch.ops import whole_solve as ws
 
     names = ("ct_y_new", "ct_k7", "ct_err", "ct_k6", "ct_g6")
     B, D, H = _check_cuda_args(
@@ -378,8 +384,9 @@ def _cuda_bwd(t, dt, y, k1, leaves, cts):
     cW1, cb1 = torch.empty_like(W1), torch.empty_like(b1)
     cW2, cb2 = torch.empty_like(W2), torch.empty_like(b2)
     ct_tdt = torch.empty(2, device=dev)
-    rows = lib.regnde_bwd_rows()
-    partials = torch.empty(((B + rows - 1) // rows, 2), device=dev)
+    plan = ws._cuda_walk_plan(lib, B, D, H, dev)
+    slots = torch.empty((plan.tiles, 2), device=dev)
+    walk, step = ws._cuda_walk_scratch(lib, plan, B, D, H, dev, replay=True)
     cp2 = torch.empty((6 * B, D), device=dev)
     he = torch.empty((6 * B, H + 2), device=dev)
     cp1 = torch.empty((6 * B, H), device=dev)
@@ -389,8 +396,9 @@ def _cuda_bwd(t, dt, y, k1, leaves, cts):
     code = lib.regnde_mlp_tsit5_bwd(
         _ptr(t32), _ptr(dt32), _ptr(y), _ptr(k1), *map(_ptr, leaves), *map(_ptr, cts),
         _ptr(ct_y), _ptr(ct_k1), _ptr(cW1), _ptr(cb1), _ptr(cW2), _ptr(cb2), _ptr(ct_tdt),
-        _ptr(partials), _ptr(cp2), _ptr(he), _ptr(cp1), _ptr(ye), _ptr(wpart), B, D, H,
-        chunk_rows, wfloats, ctypes.c_void_p(stream))
+        _ptr(slots), *map(_ptr, walk), *map(_ptr, step), _ptr(cp2), _ptr(he), _ptr(cp1),
+        _ptr(ye), _ptr(wpart), B, D, H, plan.rows, plan.cols, plan.row_blocks,
+        plan.col_blocks, plan.chunks, chunk_rows, wfloats, ctypes.c_void_p(stream))
     _cuda.check(code, "Tsit5 backward kernel")
     LAUNCHES["mlp_tsit5_bwd"] += 1
     wc.count_launch()

@@ -30,7 +30,9 @@ stream against it, bitwise. Its forward (``csrc/mlp_solve.cuh``) and its
 backward (``csrc/mlp_walk.cuh``) split each stage's two contractions over
 the whole grid, one block a tile of the batch, on one tile plan
 (``walk_plan``); ``plain_solve_step`` and ``plain_walk_step`` are one trial
-step of each in the kernel's own schedule, for the tests.
+step of each in the kernel's own schedule, for the tests. K14, the tuple
+step's backward (``fused_mlp.stage_sweep_bwd``), is one trial step of that
+walk on its own seeds and plan (``plain_tuple_walk_step``).
 
 Each kernel has a plain version with the same algebra and the same output
 buffers, over the dynamics' plain trial-step pair (``plain_steps``):
@@ -48,6 +50,7 @@ consume it with a cursor (``pallas_solve.py``'s), not a window mask.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
@@ -216,6 +219,7 @@ def walk_smem_bytes(R: int, C: int, H: int) -> int:
     return 4 * floats
 
 
+@functools.lru_cache(maxsize=64)
 def walk_plan(B: int, D: int, H: int, sms: int, limit: int = SMEM_LIMIT) -> WalkPlan:
     """The tile plan of K3 and K4's walk at ``B x D x H`` on ``sms``
     multiprocessors (K3 streams each trial step on the tiles K4's replay
@@ -225,7 +229,8 @@ def walk_plan(B: int, D: int, H: int, sms: int, limit: int = SMEM_LIMIT) -> Walk
     (fewer reads of the weights), over tiles of 32 or 16 rows and a multiple
     of ``WALK_COL_ALIGN`` columns, at least ``WALK_MIN_COLS`` where D allows,
     of at most ``WALK_MAX_TILE`` elements, whose shared memory fits
-    ``limit``. 32 x 100, 128 tiles, at 512 x 784 x 100."""
+    ``limit``. 32 x 100, 128 tiles, at 512 x 784 x 100. Cached: K14 asks for
+    it every trial step, and the search takes about 0.25 ms."""
     best, best_key = None, None
     widths = sorted({_round_up(-(-D // n), WALK_COL_ALIGN) for n in range(1, D + 1)})
     for R in WALK_ROWS:
@@ -256,9 +261,20 @@ def plain_solve_step(t, dt, y, k1, leaves, rtol, atol, plan: WalkPlan):
     then the norm sums. Returns ``fm._reference_normed_sweep_res``'s
     ``(outs, (ks, hs))``. For the tests: the kernel's arithmetic in this
     order."""
+    ks, hs = _solve_stages(t, dt, y, k1, leaves, plan)
+    return fm._normed_outs(dt, y, ks, rtol, atol), (ks, hs)
+
+
+def _spans(D, plan: WalkPlan):
+    """The column blocks of ``plan`` over D columns, as ``(start, end)``."""
+    return [(q * plan.cols, min(D, (q + 1) * plan.cols)) for q in range(plan.col_blocks)]
+
+
+def _solve_stages(t, dt, y, k1, leaves, plan: WalkPlan):
+    """K3's six stages in its schedule (``plain_solve_step``): the stage
+    derivatives ``ks`` (k1 first) and each stage's hidden layer ``hs``."""
     w1x, w1t, b1, w2h, w2t, b2 = fm._split_params(*leaves)
-    D = y.shape[1]
-    spans = [(q * plan.cols, min(D, (q + 1) * plan.cols)) for q in range(plan.col_blocks)]
+    spans = _spans(y.shape[1], plan)
     ks, hs = [k1], []
     for i in range(1, 7):
         yi = y + dt * fm._stage_acc(i, ks)
@@ -266,7 +282,7 @@ def plain_solve_step(t, dt, y, k1, leaves, rtol, atol, plan: WalkPlan):
         h = fm._tanh(sum(yi[:, a:b] @ w1x[:, a:b].T for a, b in spans) + ti * w1t + b1)
         ks.append(fm._tanh(h @ w2h.T + ti * w2t + b2))
         hs.append(h)
-    return fm._normed_outs(dt, y, ks, rtol, atol), (ks, hs)
+    return ks, hs
 
 
 def plain_walk_step(t, dt, y, k1, leaves, cts, rtol, atol, res, plan: WalkPlan,
@@ -275,32 +291,21 @@ def plain_walk_step(t, dt, y, k1, leaves, cts, rtol, atol, res, plan: WalkPlan,
     schedule, on the stage residuals ``res = (ks, hs)`` (``ks`` k1 first):
     the seed phase, where the seeds of the stage-6 and stage-5 inputs enter
     ``cty``, ``cks`` and ``ct_dt`` as those stages' ``ct_yi`` carry them;
-    then per stage ``i = 6..1`` phase A, ``ct_h = cp2_i W2`` with W2's time
-    column, one partial per column block of ``plan``; the reduction, the
-    partials summed in block order, ``ct_pre1 = ct_h (1 - h_i^2)`` and the
-    time terms of ``ct_ti``; and phase B, ``ct_yi = ct_pre1 W1x`` and the
-    epilogue (``cty``, ``cks[j < i]``, the dt share, the ``ye`` rows,
-    ``cp2_{i-1}``). ``cts = (ct_y_new, ct_k7, ct_err_ssq, ct_num_ssq,
-    ct_den_ssq)``; the row cotangents may be None (a rejected step).
-    Returns ``(ct_t, ct_dt, pass_y + ct_y, pass_k1 + ct_k1, (cp2, he, cp1,
-    ye))``, the rows in the layout the contraction reads (stage ``i`` at
-    ``(i - 1) B``). For the tests: the kernel's arithmetic is
-    ``fm._normed_bwd_math``'s in this order."""
+    then the six reverse stages (``_walk_stages``). ``cts = (ct_y_new,
+    ct_k7, ct_err_ssq, ct_num_ssq, ct_den_ssq)``; the row cotangents may be
+    None (a rejected step). Returns ``(ct_t, ct_dt, pass_y + ct_y, pass_k1 +
+    ct_k1, (cp2, he, cp1, ye))``, the rows in the layout the contraction
+    reads (stage ``i`` at ``(i - 1) B``). For the tests: the kernel's
+    arithmetic is ``fm._normed_bwd_math``'s in this order."""
     tab = TSIT5
-    W1, _, W2, _ = leaves
-    B, D = y.shape
-    H = W1.shape[0]
     ks, hs = [k1, *res[0]], list(res[1])
     cyn, ck7, c_err, c_num, c_den = cts
     zero = torch.zeros_like(y)
     cyn = zero if cyn is None else cyn
     ck7 = zero if ck7 is None else ck7
 
-    def acc_of(i):
-        return fm._stage_acc(i, ks)
-
     # ---- the seed phase ----
-    yn, g6 = y + dt * acc_of(6), y + dt * acc_of(5)
+    yn, g6 = y + dt * fm._stage_acc(6, ks), y + dt * fm._stage_acc(5, ks)
     s_comb = fm._err_comb(ks)
     denom = atol + torch.maximum(torch.abs(y), torch.abs(yn)) * rtol
     scaled = dt * s_comb / denom
@@ -313,16 +318,61 @@ def plain_walk_step(t, dt, y, k1, leaves, cts, rtol, atol, res, plan: WalkPlan,
     d_ynew = c_den * 2.0 * (yn - g6)
     cks = [tab.btilde[j] * (dt * cerr) for j in range(6)]
     cks[5] = cks[5] - d_k7
-    seeds = {6: cyn + d_ynew + to_ynew, 5: -d_ynew}
-    ct_t, ct_dt = torch.zeros_like(c_err), torch.sum(cerr * s_comb)
+    cp2 = (tab.btilde[6] * (dt * cerr) + ck7 + d_k7) * (1.0 - ks[6] * ks[6])
+    ct_t, ct_dt, cty, ct_k1, rows = _walk_stages(
+        t, dt, y, leaves, ks, hs, cks, cp2, to_y, torch.sum(cerr * s_comb),
+        {6: cyn + d_ynew + to_ynew, 5: -d_ynew}, plan)
+    ct_y = cty if pass_y is None else pass_y + cty
+    ct_k1 = ct_k1 if pass_k1 is None else pass_k1 + ct_k1
+    return ct_t, ct_dt, ct_y, ct_k1, rows
+
+
+def plain_tuple_walk_step(t, dt, y, k1, leaves, cts, plan: WalkPlan):
+    """One launch of K14 (``csrc/mlp_tuple_walk.cuh``), the tuple step's
+    backward, in the kernel's own schedule: the replay, K3's six stages on
+    ``plan`` (``_solve_stages``); the seed phase, where the row cotangents
+    ``cts = (ct_y_new, ct_k7, ct_err, ct_k6, ct_g6)`` enter as
+    ``fm._bwd_math`` seeds them (``btilde_j dt ct_err`` into every stage
+    derivative's cotangent, ``ct_k7`` and ``ct_k6`` into k7's and k6's,
+    ``ct_y_new`` and ``ct_g6`` as stage 6's and stage 5's input seeds,
+    carried into ``cty``, ``cks`` and ``ct_dt`` as those stages' ``ct_yi``
+    carry them); then the walk's six reverse stages (``_walk_stages``).
+    Returns ``(ct_t, ct_dt, ct_y, ct_k1, (cp2, he, cp1, ye))`` as
+    ``plain_walk_step``. For the tests: the kernel's arithmetic is
+    ``fm._bwd_math``'s in this order."""
+    tab = TSIT5
+    cyn, ck7, cerr, ck6, cg6 = cts
+    ks, hs = _solve_stages(t, dt, y, k1, leaves, plan)
+    cks = [tab.btilde[j] * (dt * cerr) for j in range(6)]
+    cks[5] = cks[5] + ck6
+    cp2 = (tab.btilde[6] * (dt * cerr) + ck7) * (1.0 - ks[6] * ks[6])
+    return _walk_stages(t, dt, y, leaves, ks, hs, cks, cp2, torch.zeros_like(y),
+                        torch.sum(cerr * fm._err_comb(ks)), {6: cyn, 5: cg6}, plan)
+
+
+def _walk_stages(t, dt, y, leaves, ks, hs, cks, cp2, cty, ct_dt, seeds, plan: WalkPlan):
+    """The seeds of the stage inputs ``seeds`` (stage -> rows) carried into
+    ``cty``, ``cks`` and ``ct_dt`` as those stages' ``ct_yi`` carry them,
+    then per stage ``i = 6..1`` of the walk: phase A, ``ct_h = cp2_i W2``
+    with W2's time column, one partial per column block of ``plan``; the
+    reduction, the partials summed in block order, ``ct_pre1 = ct_h (1 -
+    h_i^2)`` and the time terms of ``ct_ti``; and phase B, ``ct_yi =
+    ct_pre1 W1x`` and the epilogue (``cty``, ``cks[j < i]``, the dt share,
+    the ``ye`` rows, ``cp2_{i-1}``). ``cks``: the cotangents of k1..k6,
+    ``cp2``: ct_pre2 of stage 6. Returns ``(ct_t, ct_dt, ct_y, ct_k1, (cp2,
+    he, cp1, ye))``."""
+    tab = TSIT5
+    W1, _, W2, _ = leaves
+    D = y.shape[1]
+    H = W1.shape[0]
     for i, seed in seeds.items():
-        ct_dt = ct_dt + torch.sum(seed * acc_of(i))
+        ct_dt = ct_dt + torch.sum(seed * fm._stage_acc(i, ks))
         for j, c in enumerate(tab.a[i - 1]):
             if c != 0.0:
                 cks[j] = cks[j] + (dt * c) * seed
-    cty = to_y + seeds[6] + seeds[5]
-    cp2 = (tab.btilde[6] * (dt * cerr) + ck7 + d_k7) * (1.0 - ks[6] * ks[6])
-    spans = [(q * plan.cols, min(D, (q + 1) * plan.cols)) for q in range(plan.col_blocks)]
+    cty = cty + seeds[6] + seeds[5]
+    ct_t = torch.zeros_like(ct_dt)
+    spans = _spans(D, plan)
     one = torch.ones_like(y[:, :1])
     rows = {}
     for i in range(6, 0, -1):
@@ -335,7 +385,7 @@ def plain_walk_step(t, dt, y, k1, leaves, cts, rtol, atol, res, plan: WalkPlan,
         # ---- phase B ----
         ct_yi = ct_pre1 @ W1[:, :D]
         cty = cty + ct_yi
-        acc = acc_of(i)
+        acc = fm._stage_acc(i, ks)
         ct_dt = ct_dt + torch.sum(ct_yi * acc)
         for j, c in enumerate(tab.a[i - 1]):
             if c != 0.0:
@@ -346,10 +396,8 @@ def plain_walk_step(t, dt, y, k1, leaves, cts, rtol, atol, res, plan: WalkPlan,
             cp2 = cks[i - 1] * (1.0 - ks[i - 1] * ks[i - 1])
         ct_t = ct_t + ct_ti
         ct_dt = ct_dt + tab.c[i] * ct_ti
-    ct_y = cty if pass_y is None else pass_y + cty
-    ct_k1 = cks[0] if pass_k1 is None else pass_k1 + cks[0]
     out = tuple(torch.cat([rows[i][q] for i in range(1, 7)]) for q in range(4))
-    return ct_t, ct_dt, ct_y, ct_k1, out
+    return ct_t, ct_dt, cty, cks[0], out
 
 
 def _rows_through(saveat, t, tdir):
@@ -560,6 +608,22 @@ def _cuda_solve_scratch(lib, plan, H, dev):
         plan.rows, plan.cols, plan.row_blocks, plan.col_blocks, H), device=dev)
 
 
+def _cuda_walk_scratch(lib, plan, B, D, H, dev, replay):
+    """The walk's scratch for ``plan`` (K4<MlpDyn> and K14): phase A's
+    partials ``psum``, the row blocks' ct_pre1 ``ctp1g``, the weights padded
+    for its 16-byte copies ``w2p`` and ``w1p`` (the kernel fills them), and
+    with ``replay`` the replay's stage residuals of one trial step and K3's
+    scratch (else three None)."""
+    hpp, width = _round_up(H + 1, WALK_COL_ALIGN), plan.col_blocks * plan.cols
+    walk = (torch.empty((plan.tiles, plan.rows, hpp), device=dev),
+            torch.empty((plan.row_blocks, H, plan.rows), device=dev),
+            torch.empty((width, hpp), device=dev), torch.empty((H, width), device=dev))
+    step = ((torch.empty((6, B, D), device=dev), torch.empty((6, B, H), device=dev),
+             _cuda_solve_scratch(lib, plan, H, dev))
+            if replay else (None, None, None))
+    return walk, step
+
+
 def _cuda_whole_solve_fwd(t0, t1, dt0, y0, f0, leaves, rtol, atol, ctrl,
                           max_steps, dynamics, saveat, ys_init, cache_residuals):
     from regneuralde_tpu_torch.ops import _cuda
@@ -669,15 +733,7 @@ def _cuda_whole_solve_bwd(rec, ns, ct_y1, ct_tel, t0, t1, leaves, rtol, atol,
         replay = res[0] is None
         plan = _cuda_walk_plan(lib, B, D, H, dev)
         slots = torch.empty((2, plan.tiles, 4), device=dev)
-        hpp, width = _round_up(H + 1, WALK_COL_ALIGN), plan.col_blocks * plan.cols
-        psum = torch.empty((plan.tiles, plan.rows, hpp), device=dev)
-        ctp1g = torch.empty((plan.row_blocks, H, plan.rows), device=dev)
-        # the weights padded for the walk's 16-byte copies (it fills them)
-        wpad = (torch.empty((width, hpp), device=dev), torch.empty((H, width), device=dev))
-        # the replay's stage residuals of one trial step, and K3's scratch
-        step = ((torch.empty((6, B, D), device=dev), torch.empty((6, B, H), device=dev),
-                 _cuda_solve_scratch(lib, plan, H, dev))
-                if replay else (None, None, None))
+        (psum, ctp1g, *wpad), step = _cuda_walk_scratch(lib, plan, B, D, H, dev, replay)
         ct_leaves = [torch.empty_like(x) for x in leaves]
         # the weight-cotangent rows of every trial step, summed after the walk
         K = 6 * B * ns

@@ -25,6 +25,7 @@ from regneuralde_tpu_torch.ops import ode
 from regneuralde_tpu_torch.ops import sde as sde_ops
 from regneuralde_tpu_torch.ops import sde_whole_solve as sw
 from regneuralde_tpu_torch.ops import spike_wholesolve as sp
+from regneuralde_tpu_torch.ops import weight_cotangents as wc
 from regneuralde_tpu_torch.ops import whole_solve as ws
 from regneuralde_tpu_torch.ops.controller import PIController
 
@@ -1235,13 +1236,15 @@ def _row_cts(batch, dim, device, seed=3):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dt", [0.05, 0.3])
-@pytest.mark.parametrize("shape", [(13, 40, 24), (5, 8, 5), (512, 784, 100)])
+@pytest.mark.parametrize("shape", [(13, 40, 24), (5, 8, 5), (512, 784, 100),
+                                   (1024, 784, 100)])
 def test_tuple_kernels_match_plain_versions(cuda, shape, dt):
-    """K13/K14 against their plain versions, ragged row tiles included: the
-    rows within 1e-4 (relative, Frobenius; the error row, a cancellation,
-    within 3e-4, chip_smoke.py's TUPLE_ERR_BOUND) and within 3 times the
-    plain version's distance from float64, the backward within 1e-3; both
-    bitwise deterministic; one launch a call."""
+    """K13/K14 against their plain versions, ragged row tiles included and,
+    at 1024x784x100, K14 walking the batch in two row chunks on 132
+    multiprocessors: the rows within 1e-4 (relative, Frobenius; the error
+    row, a cancellation, within 3e-4, chip_smoke.py's TUPLE_ERR_BOUND) and
+    within 3 times the plain version's distance from float64, the backward
+    within 1e-3; both bitwise deterministic; one launch a call."""
     y, k1, leaves, _ = _inputs(*shape, cuda)
     cts = _row_cts(shape[0], shape[1], cuda)
     t, dt_ = torch.tensor(0.3, device=cuda), torch.tensor(dt, device=cuda)
@@ -1264,6 +1267,55 @@ def test_tuple_kernels_match_plain_versions(cuda, shape, dt):
     assert all(torch.equal(a, b) for a, b in zip(flat(kern_b), flat(again)))
     assert fm.LAUNCHES == {"normed_tsit5_fwd": 0, "normed_tsit5_bwd": 0, "mlp_tsit5_fwd": 2,
                            "mlp_tsit5_bwd": 2}
+
+
+def _assert_k14_matches_schedule(cuda, shape, dt):
+    """K14 against its schedule (``plain_tuple_walk_step`` on the card's
+    plan) at the walk's bounds: every output within 1e-3 of the float32
+    schedule and within 3 times its distance from the float64 schedule,
+    plus 1e-5."""
+    y, k1, leaves, _ = _inputs(*shape, cuda)
+    cts = _row_cts(shape[0], shape[1], cuda)
+    t, dt_ = torch.tensor(0.3, device=cuda), torch.tensor(dt, device=cuda)
+    plan = ws.walk_plan(*shape, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    d = lambda x: x.double()
+    flat = lambda g: [*g[:4], *g[4]]
+    rows = lambda g: [*g[:4], *wc.weight_cotangents_plain(*g[4])]
+    kern = flat(fm.stage_sweep_bwd(t, dt_, y, k1, leaves, cts))
+    plain = rows(ws.plain_tuple_walk_step(t, dt_, y, k1, leaves, cts, plan))
+    plain64 = rows(ws.plain_tuple_walk_step(d(t), d(dt_), d(y), d(k1), [d(x) for x in leaves],
+                                            [d(c) for c in cts], plan))
+    for name, a, b, c in zip(["ct_t", "ct_dt", "ct_y", "ct_k1", "cW1", "cb1", "cW2", "cb2"],
+                             kern, plain, plain64):
+        assert _rel(a, b) <= 1e-3, (name, _rel(a, b))
+        assert _rel(a, c) <= 3 * _rel(b, c) + 1e-5, (name, _rel(a, c), _rel(b, c))
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", [0.05, 0.3])
+@pytest.mark.parametrize("shape", [(13, 40, 24), (5, 8, 5), (96, 200, 48), (512, 784, 100),
+                                   (1024, 784, 100)])
+def test_tuple_walk_matches_its_schedule(cuda, shape, dt):
+    """K14 (``csrc/mlp_tuple_walk.cuh``) against ``plain_tuple_walk_step``,
+    the same walk in the kernel's order of summation, on the card's plan:
+    one column block (13x40x24, 5x8x5), seven of 32 columns (96x200x48),
+    the flagship's 8 of 100, and two row chunks (1024x784x100)."""
+    plan = _assert_k14_matches_schedule(cuda, shape, dt)
+    assert plan.chunks == (2 if shape[0] == 1024 else 1)
+
+
+@pytest.mark.cuda
+def test_tuple_walk_in_row_chunks_matches_its_schedule(cuda, monkeypatch):
+    """K14 on the plan of a card of 4 multiprocessors: 4 tiles, the batch of
+    256 walked in row chunks one after another."""
+    plan = ws.walk_plan
+
+    def small_card(B, D, H, sms, limit=ws.SMEM_LIMIT):
+        return plan(B, D, H, 4, limit)
+
+    monkeypatch.setattr(ws, "walk_plan", small_card)
+    assert _assert_k14_matches_schedule(cuda, (256, 64, 32), 0.3).chunks > 1
 
 
 @pytest.mark.cuda

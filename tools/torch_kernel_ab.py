@@ -10,12 +10,16 @@ archive <commit> | tar -x -C build/parent``). Each run imports that tree's
 the named phases' kernel checks (``altmlp``: K7/K8 and K3/K4 for
 AlternatingMLP, ``csl``: K7/K8-CSL and K3/K4-CSL, ``mlp``: K1/K2 and K3/K4
 for MLPDynamics, ``sde``: K9/K10 for the MLP pair, ``lanes``: K11/K12,
-``tuple``: K13/K14; a phase the tree lacks is skipped; ``wcot``: the device time, under ``torch.profiler``, of the
+``tuple``: K13/K14, and their device time under ``torch.profiler`` at
+phase 25's inputs, K14's kernels and its contraction apart, whichever
+kernels the tree has for them; a phase the tree lacks is skipped;
+``wcot``: the device time, under ``torch.profiler``, of the
 weight-cotangent contraction inside K2 at 512x784x100 (K = 3072 rows) and
 inside K4<MlpDyn> over the flagship's whole solve at 1.4e-8 (K = 6 * 512 *
-its trial steps), whichever kernels the tree has for it; ``k3``: K3 for
-MLPDynamics alone over that solve, CUDA-event and device ms, whichever
-kernel the tree has for it; ``fwd``: the device ms a launch of K3 for
+its trial steps), whichever kernels the tree has for it, and of that
+call's walk, on the stage residuals' stream and replaying them; ``k3``: K3 for MLPDynamics alone over that solve, CUDA-event
+and device ms, whichever kernel the tree has for it; ``fwd``: the device
+ms a launch of K3 for
 AlternatingMLP and for CSL over their whole-solve phases) and prints, per
 kernel, the median of ``chip_smoke``'s CUDA-event times and what ``ptxas``
 reported for it (registers, stack, spills). Last it says, for every kernel
@@ -128,6 +132,31 @@ def fwd(dev):
     return {f"K3_{dyn}_device_a_launch": {"ms": us / n / 1e3} for dyn, (us, n) in sums.items()}
 
 
+def tuple_device(dev):
+    """Device ms a launch of K13 and of K14 at phase 25's inputs (dt 0.05):
+    K14's own kernels (the old tuple_bwd_kernel + tuple_reduce_kernel or
+    mlp_tuple_walk_kernel) and the weight-cotangent contraction after them
+    apart."""
+    from regneuralde_tpu_torch.ops import fused_mlp as fm
+
+    B, D, H = cs.BATCH, cs.DIM, cs.HIDDEN
+    gen = torch.Generator().manual_seed(cs.SEED + 41)
+    rnd = lambda *shape, scale=1.0: (torch.randn(*shape, generator=gen) * scale).to(dev)
+    leaves = [rnd(H, D + 1, scale=(D + 1) ** -0.5), rnd(H, scale=0.1),
+              rnd(D, H + 1, scale=(H + 1) ** -0.5), rnd(D, scale=0.1)]
+    y, k1 = rnd(B, D, scale=0.5), rnd(B, D, scale=0.3)
+    cts = [rnd(B, D) for _ in range(5)]
+    t, dt = torch.tensor(0.3, device=dev), torch.tensor(0.05, device=dev)
+    bwd = lambda: fm.stage_sweep_bwd(t, dt, y, k1, leaves, cts)
+    return {
+        "K13_device": {"ms": device_ms(lambda: fm.stage_sweep_fwd(t, dt, y, k1, leaves),
+                                       ("tuple_fwd_kernel",))},
+        "K14_device_kernel": {"ms": device_ms(bwd, ("tuple_bwd_kernel", "tuple_reduce_kernel",
+                                                    "mlp_tuple_walk_kernel"))},
+        "K14_device_wcot": {"ms": device_ms(bwd, ("wcot_chunk_kernel", "wcot_sum_kernel"))},
+    }
+
+
 def wcot(dev):
     """Device ms a call of the weight-cotangent contraction's kernels (the
     old atb_split_kernel or wcot_chunk_kernel + wcot_sum_kernel) inside K2
@@ -151,7 +180,17 @@ def wcot(dev):
             rec, ns, ct_y1, ct_tel, t0, t1, leaves, tol, tol, ctrl),
     }
     names = ("atb_split_kernel", "wcot_chunk_kernel", "wcot_sum_kernel")
-    return {key: {"ms": device_ms(fn, names)} for key, fn in calls.items()}
+    out = {key: {"ms": device_ms(fn, names)} for key, fn in calls.items()}
+    # the walk itself on the same call (mlp_walk_kernel<true>, or the old
+    # whole_solve_bwd_kernel<MlpDyn>), and replaying the stages
+    # (mlp_walk_kernel<false>)
+    walks = ("mlp_walk_kernel", "whole_solve_bwd_kernel")
+    out[f"K4_walk_device_ns={ns}"] = {"ms": device_ms(calls[f"wcot_in_K4_K={6 * B * ns}"],
+                                                      walks)}
+    out[f"K4_replay_walk_device_ns={ns}"] = {"ms": device_ms(
+        lambda: ws.whole_solve_bwd(rec, ns, ct_y1, ct_tel, t0, t1, leaves, tol, tol, ctrl,
+                                   cache_residuals=False), walks)}
+    return out
 
 lib = _cuda.library()
 dev = torch.device("cuda", 0)
@@ -173,6 +212,7 @@ with contextlib.redirect_stdout(io.StringIO()):
         ms.update(cs.phase_lanes_kernels(dev))
     if "tuple" in phases and hasattr(cs, "phase_tuple_kernels"):
         ms.update(cs.phase_tuple_kernels(dev))
+        ms.update(tuple_device(dev))
     if "wcot" in phases:
         ms.update(wcot(dev))
     if "k3" in phases:
@@ -190,7 +230,10 @@ for line in _cuda.ptxas_report().splitlines():
 # namespace tags taken out (the second one hashes the translation unit, so it
 # changes with any edit of the file); cuobjdump numbers branch labels and
 # pads columns across the whole library, so labels are numbered from 0
-# within the kernel and runs of blanks count as one
+# within the kernel and runs of blanks count as one; the compiler numbers
+# its internal functions (the division slow path a kernel calls,
+# $__internal_<n>_...) across the translation unit, so a kernel added to it
+# renumbers them: the number is taken out of the calls
 cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
 dump = subprocess.run([cuobjdump, "-sass", lib._name], capture_output=True, text=True,
                       check=True).stdout
@@ -204,6 +247,7 @@ for line in dump.splitlines():
     elif name and line.strip().startswith(("/*", ".L_x_")):  # instructions, labels
         line = re.sub(r"\.L_x_\d+",
                       lambda l: "L%d" % labels.setdefault(l.group(0), len(labels)), line)
+        line = re.sub(r"\$__internal_\d+_", "$__internal_", line)
         sass[name].update(" ".join(line.split()).encode())
 print(json.dumps({"ms": {k: v["ms"] for k, v in ms.items()}, "ptxas": ptxas,
                   "sass": {k: h.hexdigest() for k, h in sass.items()}}))
