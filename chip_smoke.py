@@ -13,12 +13,17 @@ kernels are built from ``regneuralde_tpu_torch/csrc`` into ``build/kernels/``
 at first use. Phases (each checks its results; any failure exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit), versions, kernel build;
-2. K1 and K2 (the normed Tsit5 step kernels) against their plain PyTorch
-   versions at B=512, D=784, H=100, at rtol=atol=1e-4 and 1.4e-8, with
-   CUDA-event times of both;
+2. K1 and K2 (the normed Tsit5 step kernels; K2 one trial step of the
+   MLPDynamics reverse walk, ``csrc/mlp_step_walk.cuh``) against their plain
+   PyTorch versions at B=512, D=784, H=100, at rtol=atol=1e-4 and 1.4e-8,
+   K2 also within 3 times the plain version's distance from a float64 walk
+   and bitwise deterministic, with CUDA-event times of both; K2's device
+   time (its kernel and the contraction, ``torch.profiler``), tile plan and
+   ``grid.sync()`` count a launch;
 3. one forward+backward of the training step at full width (rtol=atol=1e-5),
    step kernels (``fused="step"``) against the plain path (``fused=False``):
-   identical NFE and accept sequence, relative gradient error <= 1e-3;
+   identical NFE and accept sequence, relative gradient error <= 1e-3, and
+   the step kernels' launches;
 4. three training steps of the flagship configuration (Tsit5 at
    rtol=atol=1.4e-8, max_steps=96, batch 512, CE + 100 * error_estimate,
    InvDecay(1e-5) then Momentum(0.1, 0.9)) on ``fused="step"``, with the
@@ -114,7 +119,7 @@ at first use. Phases (each checks its results; any failure exits non-zero):
    in a forward from the trained weights (reported);
 25. K13 and K14 (the tuple Tsit5 step of ``odeint``'s generic engine,
    ``csrc/mlp_tsit5.cu``; K14 one trial step of the MLPDynamics reverse
-   walk, ``csrc/mlp_tuple_walk.cuh``) against their plain versions at
+   walk, ``csrc/mlp_step_walk.cuh``) against their plain versions at
    512x784x100, t = 0.3 and dt in {0.05, 0.3}: K13's rows within FWD_BOUND
    (the error row, a cancellation, within TUPLE_ERR_BOUND) and K14 within
    BWD_BOUND, both also against a float64 walk, bitwise determinism,
@@ -354,10 +359,19 @@ def phase_kernels(device):
     """K1/K2 against their plain versions on random inputs from a seed.
 
     Random k1 (not f(t, y)) keeps the embedded error far above float32
-    rounding, so the three norm sums are compared, not rounding noise."""
+    rounding, so the three norm sums are compared, not rounding noise. K2
+    (``csrc/mlp_step_walk.cuh`` with the normed seeds) is also held, at both
+    tolerances, within 3 times the plain version's distance from the float64
+    plain version, plus 1e-6: ct_t, whose terms cancel, with float32's unit
+    roundoff times its terms' magnitudes (the stages' ``ct_pre2 w2t`` and
+    ``ct_pre1 w1t``) as its slack; checked bitwise deterministic; and its
+    device time under ``torch.profiler`` (the kernel and the weight-cotangent
+    contraction after it), its tile plan and its ``grid.sync()`` count a
+    launch are printed."""
     import torch
 
     from regneuralde_tpu_torch.ops import fused_mlp as fm
+    from regneuralde_tpu_torch.ops import whole_solve as ws
 
     gen = torch.Generator().manual_seed(SEED + 1)
 
@@ -374,21 +388,41 @@ def phase_kernels(device):
     names_f = ["y_new", "k7", "err_ssq", "num_ssq", "den_ssq"]
     names_b = ["ct_t", "ct_dt", "ct_y", "ct_k1", "cW1", "cb1", "cW2", "cb2"]
     parts = fm._split_params(*leaves)
+    d = lambda x: x.double()
+    parts64 = [d(x) for x in parts]
+    flat = lambda g: [*g[:4], *g[4]]
     for tol in (1e-4, FLAGSHIP_TOL):
         kf = fm.normed_sweep_fwd(t, dt, y, k1, leaves, tol, tol)
         pf = fm._reference_normed_sweep(t, dt, y, k1, parts, tol, tol)
-        kb = fm.normed_sweep_bwd(t, dt, y, k1, leaves, cts, tol, tol)
-        pb = fm._normed_bwd_math(t, dt, y, k1, parts, cts, tol, tol)
+        kb = flat(fm.normed_sweep_bwd(t, dt, y, k1, leaves, cts, tol, tol))
+        pb = flat(fm._normed_bwd_math(t, dt, y, k1, parts, cts, tol, tol))
+        rows64 = []
+        pb64 = flat(fm._normed_bwd_math(d(t), d(dt), d(y), d(k1), parts64,
+                                        [d(c) for c in cts], tol, tol, rows=rows64))
+        # the magnitudes of ct_t's terms (ops/fused_mlp.py _reverse_stages)
+        t_terms = sum(((cp2.abs() @ parts64[4].abs()).sum()
+                       + (cp1.abs() @ parts64[1].abs()).sum()).item()
+                      for _, cp2, _, cp1, _, _ in rows64)
         torch.cuda.synchronize()
         errs_f = {n: _rel(a, b) for n, a, b in zip(names_f, kf, pf)}
-        errs_b = {n: _rel(a, b) for n, a, b in zip(
-            names_b, [*kb[:4], *kb[4]], [*pb[:4], *pb[4]])}
+        errs_b = {n: _rel(a, b) for n, a, b in zip(names_b, kb, pb)}
+        errs_64 = {n: (_rel(a, c), _rel(b, c)) for n, a, b, c in zip(names_b, kb, pb, pb64)}
         print(f"[kernels] tol={tol:g} fwd rel err " + json.dumps(errs_f))
         print(f"[kernels] tol={tol:g} bwd rel err " + json.dumps(errs_b))
+        print(f"[kernels] tol={tol:g} bwd rel err from float64 (kernel, plain) "
+              + json.dumps(errs_64) + f"; ct_t's terms {t_terms!r} against |ct_t| "
+              f"{abs(pb64[0].item())!r}")
         for n, v in {**errs_f, **errs_b}.items():
             _check(v == v, f"{n}: NaN relative error at tol {tol}")
         _check(max(errs_f.values()) <= FWD_BOUND, f"K1 at tol {tol}: {errs_f}")
         _check(max(errs_b.values()) <= BWD_BOUND, f"K2 at tol {tol}: {errs_b}")
+        dist = lambda u: abs(u.double() - pb64[0]).item()
+        _check(dist(kb[0]) <= 3 * dist(pb[0]) + 2.0 ** -24 * t_terms,
+               f"K2 ct_t from float64 at tol {tol}: {dist(kb[0])!r}, plain {dist(pb[0])!r}")
+        for n, (k_64, p_64) in list(errs_64.items())[1:]:
+            _check(k_64 <= 3 * p_64 + 1e-6, f"K2 {n} from float64 at tol {tol}: {errs_64[n]}")
+        again = flat(fm.normed_sweep_bwd(t, dt, y, k1, leaves, cts, tol, tol))
+        _check(all(torch.equal(a, b) for a, b in zip(kb, again)), "K2 is deterministic")
 
     # max_abs_err of the record, at the flagship tolerance: K1 over its row
     # outputs (y_new, k7); K2 with only the row cotangents seeded (the norm
@@ -420,6 +454,18 @@ def phase_kernels(device):
     }
     print("[kernels] median ms over %d runs at %dx%dx%d: %s"
           % (REPS, BATCH, DIM, HIDDEN, json.dumps(times)))
+    bwd = lambda: fm.normed_sweep_bwd(t, dt, y, k1, leaves, cts, tol, tol)
+    dev_walk = _device_ms(bwd, "mlp_step_walk_kernel")
+    dev_wcot = _device_ms(bwd, "wcot_")
+    _check(dev_walk is not None and dev_wcot is not None,
+           "K2's kernel and its contraction in the trace")
+    plan = ws.walk_plan(BATCH, DIM, HIDDEN,
+                        torch.cuda.get_device_properties(device).multi_processor_count)
+    syncs = 1 + 12 * plan.chunks + 1 + 12 * plan.chunks + 1
+    print(f"[kernels] K2 device ms a launch (torch.profiler, {REPS} launches): kernel "
+          f"{dev_walk!r} + contraction {dev_wcot!r} = {dev_walk + dev_wcot!r}; tiles "
+          f"{plan.rows}x{plan.cols}, {plan.tiles} blocks, {plan.chunks} row chunks; "
+          f"grid.sync() a launch {syncs}")
     f_ops, b_ops, leaf = _mlp_work(BATCH, DIM, HIDDEN)
     BD = BATCH * DIM
     return {
@@ -665,6 +711,9 @@ def phase_kernel_vs_plain_step(device, batch, fused):
     plain.init(x)
     plain.load_state_dict(kern.state_dict())
     results = {}
+    counters = _counters()
+    for mod in counters:
+        mod.reset_launches()
     for name, clf in (("kernel", kern), ("plain", plain)):
         for reg_weight in (0.0, 100.0):
             clf.zero_grad(set_to_none=True)
@@ -677,6 +726,8 @@ def phase_kernel_vs_plain_step(device, batch, fused):
                 accepted=tel.accepted[tel.live].tolist(),
                 grad=torch.cat([p.grad.flatten() for p in clf.parameters()]),
                 logits=out.logits.detach())
+    launches = {k: v for mod in counters for k, v in mod.LAUNCHES.items() if v}
+    print(f"[step] fused={fused!r} launches over both kernel steps {json.dumps(launches)}")
     for reg_weight, bound in ((0.0, GRAD_BOUND), (100.0, REG_GRAD_BOUND)):
         k, p = results["kernel", reg_weight], results["plain", reg_weight]
         g_err = _rel(k["grad"], p["grad"])
@@ -2320,7 +2371,7 @@ def phase_tuple_kernels(device):
     plain version and within 3 times the plain version's distance from a
     float64 walk, plus 1e-6; both bitwise deterministic; CUDA-event times of
     both and of their plain versions; K14's device time under
-    ``torch.profiler`` (``mlp_tuple_walk_kernel`` and the weight-cotangent
+    ``torch.profiler`` (``mlp_step_walk_kernel`` and the weight-cotangent
     contraction after it), its tile plan and its ``grid.sync()`` count a
     launch: the pad, the replay's two a stage, the replay's end, the
     reverse's two a stage (each per row chunk) and the slots'."""
@@ -2391,7 +2442,7 @@ def phase_tuple_kernels(device):
     print("[tuple] median ms over %d runs at %dx%dx%d: %s"
           % (REPS, BATCH, DIM, HIDDEN, json.dumps(times)))
     bwd = lambda: fm.stage_sweep_bwd(t, dt, y, k1, leaves, cts)
-    dev_walk = _device_ms(bwd, "mlp_tuple_walk_kernel")
+    dev_walk = _device_ms(bwd, "mlp_step_walk_kernel")
     dev_wcot = _device_ms(bwd, "wcot_")
     _check(dev_walk is not None and dev_wcot is not None,
            "K14's kernel and its contraction in the trace")
@@ -3142,14 +3193,14 @@ def main():
     # their main paths (phases 4, 7, 24 and 27)
     launches["weight_cotangents"] = sum(r["weight_cotangents"] for r in wcot_paths)
 
-    sources = {"normed_tsit5_fwd": "normed_tsit5.cu", "normed_tsit5_bwd": "normed_tsit5.cu",
+    sources = {"normed_tsit5_fwd": "normed_tsit5.cu", "normed_tsit5_bwd": "mlp_step_walk.cuh",
                "altmlp_tsit5_fwd": "altmlp_tsit5.cu", "altmlp_tsit5_bwd": "altmlp_tsit5.cu",
                "csl_tsit5_fwd": "csl_tsit5.cu", "csl_tsit5_bwd": "csl_tsit5.cu",
                "sde_whole_solve_fwd": "sde_whole_solve.cu",
                "sde_whole_solve_bwd": "sde_whole_solve.cu",
                "mlp_lanes_tsit5_fwd": "mlp_lanes_tsit5.cu",
                "mlp_lanes_tsit5_bwd": "mlp_lanes_tsit5.cu",
-               "mlp_tsit5_fwd": "mlp_tsit5.cu", "mlp_tsit5_bwd": "mlp_tuple_walk.cuh",
+               "mlp_tsit5_fwd": "mlp_tsit5.cu", "mlp_tsit5_bwd": "mlp_step_walk.cuh",
                "spike_wholesolve": "spike_wholesolve.cu",
                "sde_whole_solve_cubic_fwd": "sde_whole_solve.cu",
                "sde_whole_solve_cubic_bwd": "sde_whole_solve.cu",

@@ -16,7 +16,7 @@
 // bandwidth: the bound is latency, six dependent stages of a contraction, a
 // tanh and a lincomb, a block barrier between them.
 //
-// What the design does about it. K1/K2's layout (normed_tsit5.cuh): one
+// What the design does about it. K1's layout (normed_tsit5.cuh): one
 // block owns a small row tile (4 rows forward, 2 backward) and runs all six
 // stages with the state, the seven stage derivatives and the hidden
 // activations in shared memory (sized from both D and H); the weights are
@@ -32,9 +32,10 @@
 //     on its own (__fmul_rn/__fadd_rn, no contraction), in PyTorch's order;
 //   * tanh is 2 / (1 + expf(-2x)) - 1 op by op, as ops/math.py's
 //     2 * sigmoid(2x) - 1 on ATen's sigmoid.
-// The backward (K12) recomputes the stages the same way, then runs K2's
-// reverse chain with per-row (ct_t, ct_dt), reduced over each row inside
-// its block (rows do not share a time); the weight cotangents, including
+// The backward (K12) recomputes the stages the same way, then runs the
+// normed step's reverse chain (_normed_bwd_math) with per-row (ct_t,
+// ct_dt), reduced over each row inside its block (rows do not share a
+// time); the weight cotangents, including
 // the time columns' (the per-row stage time against the pre-activation
 // cotangents), are the contractions of the stored per-stage rows that
 // weight_cotangents.cu sums in a fixed order. No floating-point atomics.

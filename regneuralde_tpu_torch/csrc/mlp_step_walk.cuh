@@ -1,14 +1,20 @@
-// K14 on Hopper: the backward of the tuple Tsit5 trial step of MLPDynamics
-// (odeint's generic engine, ops/fused_mlp.py stage_sweep_bwd), as one trial
-// step of K4's reverse walk. Included by whole_solve.cu only, after
-// mlp_walk.cuh, whose phases it runs unchanged.
+// K2 and K14 on Hopper: the backwards of the normed and of the tuple Tsit5
+// trial step of MLPDynamics (ops/fused_mlp.py normed_sweep_bwd, the fast
+// adjoint solve's; stage_sweep_bwd, odeint's generic engine's), each as one
+// trial step of K4's reverse walk. One kernel, mlp_step_walk_kernel<Seed>,
+// over the seed policy: NormedSeed (K2: the rows' cotangents of y_new and k7
+// and the three norm sums', K4's own seeds) or TupleSeed (K14: the five row
+// cotangents). Included by whole_solve.cu only, after mlp_walk.cuh, whose
+// phases it runs unchanged.
 //
-// Replaces the TPU kernel
+// Replaces the TPU kernels
+//   K2: regneuralde_tpu/ops/pallas_mlp.py _normed_pallas_bwd
+//       (_make_normed_kernels.bwd_kernel, math in _normed_bwd_math)
 //   K14: regneuralde_tpu/ops/pallas_mlp.py _pallas_bwd (_fused_bwd_kernel)
-// and, on this card, its port over 2-row tiles (tuple_bwd_kernel, 256
-// blocks at 512x784x100, each recomputing the six stages and walking them
-// back) that read all of W1 and W2 from L2 twelve times a tile: ~1.9 GB a
-// launch, 1.7-1.9 ms with its weight cotangents (H100 80GB HBM3 at 700 W).
+// and, on this card, their ports over 2-row tiles (256 blocks at
+// 512x784x100, each recomputing the six stages and walking them back) that
+// read all of W1 and W2 from L2 twelve times a tile: ~1.9 GB a launch,
+// 1.2-1.9 ms with the weight cotangents (H100 80GB HBM3 at 700 W).
 //
 // What bounds it on this card. The forward's six stages again (12
 // contractions of B x D x H) and the reverse's twelve input-cotangent
@@ -24,12 +30,17 @@
 //   * the replay: K3's own stages (solve_stages, mlp_solve.cuh) on the same
 //     tiles write k2..k7 and each stage's hidden rows into a one-step
 //     scratch (walk_replay, as K4 without the residual stream), grid.sync();
-//   * the seed phase (walk_seed with TupleSeed): the five row cotangents
-//     enter as the walk's norm seeds do: btilde_j dt ct_err into every
-//     stage derivative's cotangent, ct_k7 and ct_k6 into k7's and k6's,
-//     ct_y_new as stage 6's input seed and ct_g6 as stage 5's, carried into
-//     cty, the cotangents of the ks and the dt partial (with sum ct_err
-//     s_comb) as those stages' ct_yi carry them;
+//   * the seed phase (walk_seed with the step's policy). NormedSeed: as in
+//     K4's walk, the norm sums' cotangents (read by thread 0 from the
+//     device, with t and dt) seed every stage derivative's cotangent through
+//     the scaled error, k6's and k7's through the stiffness numerator, the
+//     stage-6 and stage-5 inputs through its denominator and the error
+//     norm's max(|y|, |y_new|); no saved rows, so no Hermite pullback.
+//     TupleSeed: btilde_j dt ct_err into every stage derivative's cotangent,
+//     ct_k7 and ct_k6 into k7's and k6's, ct_y_new as stage 6's input seed
+//     and ct_g6 as stage 5's. Either way the input seeds are carried into
+//     cty, the cotangents of the ks and the dt partial as those stages'
+//     ct_yi carry them;
 //   * the walk's six reverse stages (walk_stage<6..1>), each phase A, the
 //     reduction and phase B split over the whole grid with two grid.sync(),
 //     writing the weight-cotangent rows; the final pass writes ct_y, ct_k1;
@@ -37,13 +48,16 @@
 //     the slots in tile order;
 //   * then the weight-cotangent contraction (weight_cotangents.cu).
 // So W1 and W2 are read once per row block a stage, not once per 2-row
-// tile. The stages round as K3's (sums over D in column blocks), not as
-// K13's: the replay adjoint takes its accept flags from K13's forward rows
-// only, so K14's rounding moves gradients, never a decision.
+// tile. The stages round as K3's (sums over D in column blocks), not as the
+// step forwards' (K1, K13): the fast adjoint solve and the replay adjoint
+// take their accept flags from the forward only, so the backward's rounding
+// moves gradients, never a decision.
 // IEEE f32 FMAs, no TF32, no fast math, no atomics: every sum has a fixed
 // order, so runs are bitwise reproducible.
 
 #pragma once
+
+#include <type_traits>
 
 namespace {
 
@@ -100,21 +114,26 @@ struct TupleSeed {
   }
 };
 
-// K14's arguments: the walk's (a: the leaves and their weight-cotangent
-// rows, B, D, and ct_y, ct_f: the outputs ct_y, ct_k1; w: the plan and its
-// scratch, the replay's included), the step's inputs and row cotangents,
-// the per-tile (ct_t, ct_dt) slots and the output ct_tdt.
-struct TupleWalkArgs {
+// The arguments of K2 and K14: the walk's (a: the leaves and their
+// weight-cotangent rows, B, D, rtol, atol, and ct_y, ct_f: the outputs ct_y,
+// ct_k1; w: the plan and its scratch, the replay's included), the step's
+// inputs and row cotangents, the seed policy, the per-tile (ct_t, ct_dt)
+// slots, the output ct_tdt and the norm sums' cotangents (K2's).
+template <class Seed>
+struct StepWalkArgs {
   WalkArgs<false> wa;
   const float *t, *dt;  // scalars on the device
   const float *y, *k1, *ct_ynew, *ct_k7;
-  TupleSeed seed;
-  float* slots;   // tiles x 2
-  float* ct_tdt;  // (2,): ct_t, ct_dt
+  Seed seed;
+  float* slots;           // tiles x 2
+  float* ct_tdt;          // (2,): ct_t, ct_dt
+  const float* ct_norms;  // (3,) on the device: of err_ssq, num_ssq, den_ssq (NormedSeed)
 };
 
-// K14: one block a tile (gridDim.x == nrb * ndb, all resident).
-__global__ void __launch_bounds__(kThreads, 1) mlp_tuple_walk_kernel(TupleWalkArgs args) {
+// K2 (NormedSeed) and K14 (TupleSeed): one block a tile (gridDim.x == nrb *
+// ndb, all resident).
+template <class Seed>
+__global__ void __launch_bounds__(kThreads, 1) mlp_step_walk_kernel(StepWalkArgs<Seed> args) {
   extern __shared__ __align__(16) float walk_pool[];
   __shared__ WalkStep s_step;  // in shared memory: no registers held across the phases
   cg::grid_group grid = cg::this_grid();
@@ -125,11 +144,18 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_tuple_walk_kernel(TupleWalkAr
   const WalkSmem s = walk_smem(walk_pool, w, H);
   walk_pad_weights(m.W1, m.W2, w, a.D, H, s.HPP);
   solve_pad_weights(m.W1, m.W2, w.f, a.D, H, walk_round_up(H, kWalkTN));
-  if (threadIdx.x == 0)
+  if (threadIdx.x == 0) {
+    float c_err = 0.0f, c_num = 0.0f, c_den = 0.0f;
+    if constexpr (std::is_same_v<Seed, NormedSeed>) {
+      c_err = args.ct_norms[0];
+      c_num = args.ct_norms[1];
+      c_den = args.ct_norms[2];
+    }
     s_step = WalkStep{args.y,  args.k1,    nullptr, nullptr, w.ks_step, w.hs_step,
                       m.cp2,   m.he,       m.cp1,   m.ye,    args.ct_ynew, args.ct_k7,
-                      nullptr, nullptr,    *args.t, *args.dt, 0.0f,     0.0f,
-                      0.0f,    0,          0};
+                      nullptr, nullptr,    *args.t, *args.dt, c_err,    c_num,
+                      c_den,   0,          0};
+  }
   grid.sync();
   const WalkStep& ws = s_step;
   walk_replay(a, w, grid, ws.yi, ws.fi, ws.t, ws.dt, walk_pool);

@@ -3,7 +3,7 @@
 // odeint's generic engine with regneuralde_tpu_torch/ops/fused_mlp.py
 // mlp_dynamics_stage_sweep. Its hand-written backward (K14), which maps the
 // rows' five cotangents to those of t, dt, y, k1 and the weights, is one
-// trial step of the MLPDynamics reverse walk (mlp_tuple_walk.cuh, built in
+// trial step of the MLPDynamics reverse walk (mlp_step_walk.cuh, built in
 // whole_solve.cu; C entry regnde_mlp_tsit5_bwd).
 //
 // Replaces the TPU kernel
@@ -45,8 +45,8 @@ __device__ void tuple_fwd_tile(const float* y, const float* k1, int row0, int ro
   float* yi = ks + 7 * n;
   float* g6 = yi + n;
   float* hid = g6 + n;
-  recompute_stages<R>(y, k1, row0, rows, t, dt, y_s, ks, yi, g6, hid, nullptr, W1, b1, W2,
-                      b2, D, H);
+  recompute_stages<R>(y, k1, row0, rows, t, dt, y_s, ks, yi, g6, hid, W1, b1, W2, b2, D,
+                      H);
   for (int idx = threadIdx.x; idx < rows * D; idx += kThreads) {
     // the error row rounds each op as the plain version's (no contraction):
     // it is a cancellation, so an fma here moves it by its own rounding

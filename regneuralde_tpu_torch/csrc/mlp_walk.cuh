@@ -3,18 +3,18 @@
 // grid. Included by whole_solve.cu only, after the scalar chain it shares
 // with the other walks (post_bwd, Chain, chain_begin/_end/_finish,
 // hermite_elem, BwdArgs, MlpDyn) and after mlp_solve.cuh, K3's, whose tile
-// toolkit it is built on and whose stages its replay runs. K14
-// (mlp_tuple_walk.cuh) runs one trial step of this walk with seeds of its
-// own (a seed policy of walk_seed).
+// toolkit it is built on and whose stages its replay runs. K2 and K14
+// (mlp_step_walk.cuh) run one trial step of this walk, K2 with K4's seeds
+// and K14 with seeds of its own (seed policies of walk_seed).
 //
 // Replaces the TPU kernel
 //   K4: regneuralde_tpu/ops/pallas_solve.py make_whole_solve.make_bwd_kernel
 //       for MLPDynamics, whose trial step is ops/pallas_mlp.py
 //       _normed_bwd_math on the streamed stage residuals (cache_residuals)
 // and, on this card, the walk over 2-row tiles (whole_solve_bwd_kernel
-// with normed_bwd_tile, 256 tiles at 512x784x100) that read all of W1 and
-// W2 from L2 once per tile per stage: ~970 MB a trial step, 19.7 ms a
-// walk, 21x its bound (H100 80GB HBM3 at 700 W).
+// with the step backward's tile body, 256 tiles at 512x784x100) that read
+// all of W1 and W2 from L2 once per tile per stage: ~970 MB a trial step,
+// 19.7 ms a walk, 21x its bound (H100 80GB HBM3 at 700 W).
 //
 // What bounds it on this card. A trial step's reverse is 12 contractions
 // of B x D x H (the stages' input cotangents, 24 B D H f32 operations; the
@@ -241,7 +241,7 @@ __device__ __forceinline__ void seed_load(const BwdArgs<MlpDyn<STREAM>>& a,
 // as those stages' ct_yi carry them, into cty (from cty0), the dt partial
 // (after cerr * s_comb, the error row's share) and the cotangents of the
 // ks; then the row's state and ct_pre2 of stage 6 into lane i of the
-// item's float4s. Shared by K4's seed and K14's (mlp_tuple_walk.cuh).
+// item's float4s. Shared by K4's and K2's seed and K14's (mlp_step_walk.cuh).
 __device__ __forceinline__ void seed_row(const float* k, float (&ck)[6], float ck6, float cerr,
                                          float s_comb, float seed6, float seed5, float cty0,
                                          float dt, float& part1, int i, float4 (&ks)[6],
@@ -281,9 +281,11 @@ __device__ __forceinline__ void seed_store(const WalkSmem& s, int R, int c, int 
   st4(s.cp2 + off, cp);
 }
 
-// normed_bwd_tile's seed block on one item, element by element, after the
-// Hermite pullback of the saved rows, with the seeds of the stage-6 and
-// stage-5 inputs applied: the state's initial values and ct_pre2 of stage 6. Zero inputs (outside the tile) give zero state.
+// The normed seed block (ops/fused_mlp.py _normed_bwd_math) on one item,
+// element by element, after the Hermite pullback of the saved rows, with
+// the seeds of the stage-6 and stage-5 inputs applied: the state's initial
+// values and ct_pre2 of stage 6. Zero inputs (outside the tile) give zero
+// state.
 // part: this thread's (ct_t, ct_dt, Hermite ct_t, Hermite ct_dt).
 template <bool STREAM>
 __device__ __forceinline__ void seed_compute(const BwdArgs<MlpDyn<STREAM>>& a,
@@ -343,8 +345,9 @@ __device__ __forceinline__ void seed_compute(const BwdArgs<MlpDyn<STREAM>>& a,
 
 // K4's seeds (the walk's trial step): the rows' cotangents of y_new and k7
 // (with the Hermite pullback of the saved rows) and the norm sums' (c_err,
-// c_num, c_den), in normed_bwd_tile's algebra. A seed policy of walk_seed:
-// In, the loads of one item; load; compute.
+// c_num, c_den), in _normed_bwd_math's algebra; K2's too, with no saved
+// rows (hi == lo). A seed policy of walk_seed: In, the loads of one item;
+// load; compute.
 struct NormedSeed {
   using In = SeedIn;
   template <bool STREAM>
@@ -362,7 +365,7 @@ struct NormedSeed {
 
 // The seed phase of one tile (items: 4 rows of a column, consecutive
 // threads on consecutive columns), two items' loads in flight at once, by
-// the seed policy (NormedSeed: K4's; TupleSeed: K14's). Phase A(6)'s first
+// the seed policy (NormedSeed: K4's and K2's; TupleSeed: K14's). Phase A(6)'s first
 // slabs are issued first.
 template <bool STREAM, class Seed = NormedSeed>
 __device__ __forceinline__ void walk_seed(const BwdArgs<MlpDyn<STREAM>>& a, const Walk& w,

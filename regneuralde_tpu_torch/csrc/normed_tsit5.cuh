@@ -1,10 +1,11 @@
-// Device code shared by the normed Tsit5 step kernels (normed_tsit5.cu,
-// K1/K2) and the whole-solve kernels (whole_solve.cu, K3/K4): the Tsit5
-// tableau, the MLPDynamics stage, the per-tile bodies of one normed trial
-// step and of its hand reverse, the pinned stage state, and the launcher of
-// the fixed-order contraction that sums the weight cotangents
-// (weight_cotangents.cu). The MLPDynamics whole solve runs its stages on
-// tiles of its own (mlp_solve.cuh, mlp_walk.cuh).
+// Device code shared by the Tsit5 step kernels of MLPDynamics (K1,
+// normed_tsit5.cu; K13, mlp_tsit5.cu; K11/K12, mlp_lanes_tsit5.cu) and the
+// whole-solve kernels (whole_solve.cu, K3/K4): the Tsit5 tableau, the
+// MLPDynamics stage, the per-tile body of one normed trial step, the pinned
+// stage state, and the launcher of the fixed-order contraction that sums
+// the weight cotangents (weight_cotangents.cu). The MLPDynamics whole solve
+// and the step backwards K2 and K14 run their stages on tiles of their own
+// (mlp_solve.cuh, mlp_walk.cuh, mlp_step_walk.cuh).
 //
 // Everything but that contraction's C entry sits in an anonymous
 // namespace, so each .cu file that includes it has its own copy and no
@@ -30,7 +31,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kFwdRows = 4;
-constexpr int kBwdRows = 2;
 
 // Tsit5 (regneuralde_tpu/ops/tableaus.py). Row i-1 of kA builds stage i.
 __constant__ float kA[6][6] = {
@@ -102,9 +102,9 @@ __device__ __forceinline__ float stage_acc(int i, const float* ks, int stride,
 // and K4's seed phase, mlp_walk.cuh), so the same ks give the same bits on
 // each path: left to the compiler, y + dt * acc_i contracted differently in
 // two inlined copies, and K4's streamed and replayed cotangents of the
-// stiffness norm parted by ulps (H100). The step kernels (K1/K2, K13)
-// keep the compiler's contraction: pinned there, it cost K2 about 35%
-// (H100).
+// stiffness norm parted by ulps (H100). The step forwards (K1, K13) keep
+// the compiler's contraction: pinned in the step backward's recompute, it
+// cost that kernel about 35% (H100).
 __device__ __forceinline__ float stage_state(int i, const float* y_s,
                                              const float* ks, int stride,
                                              int idx, float dt) {
@@ -161,12 +161,11 @@ __device__ void mlp_stage(const float* yi, float* hid, float* k_out, float ti,
 // Loads ROWS rows of y and k1 (zero past the batch end) and runs the six
 // stages. Shared layout: y | ks[0..6] | yi | g6 (each ROWS*D) | hid.
 // On return yi holds y_new (stage 6 state, FSAL) and g6 the stage-5 state.
-// hs, when given, receives each stage's hidden activations (6 x ROWS*H).
 template <int ROWS>
 __device__ void recompute_stages(const float* y_g, const float* k1_g, int row0,
                                  int rows, float t, float dt, float* y_s,
                                  float* ks, float* yi, float* g6, float* hid,
-                                 float* hs, const float* __restrict__ W1,
+                                 const float* __restrict__ W1,
                                  const float* __restrict__ b1,
                                  const float* __restrict__ W2,
                                  const float* __restrict__ b2, int D, int H) {
@@ -184,18 +183,13 @@ __device__ void recompute_stages(const float* y_g, const float* k1_g, int row0,
       if (i == 5) g6[idx] = v;
     }
     __syncthreads();
-    float* h_out = hs ? hs + (i - 1) * ROWS * H : hid;
-    mlp_stage<ROWS>(yi, h_out, ks + i * n, t + kC[i] * dt, W1, b1, W2, b2, D, H);
+    mlp_stage<ROWS>(yi, hid, ks + i * n, t + kC[i] * dt, W1, b1, W2, b2, D, H);
   }
   __syncthreads();
 }
 
 size_t fwd_smem_bytes(int D, int H) {
   return sizeof(float) * ((size_t)10 * kFwdRows * D + (size_t)kFwdRows * H + 3 * kWarps);
-}
-
-size_t bwd_smem_bytes(int D, int H) {
-  return sizeof(float) * ((size_t)20 * kBwdRows * D + (size_t)7 * kBwdRows * H + 2 * kWarps);
 }
 
 // K1's body for one row tile [row0, row0 + rows): writes the tile's y_new
@@ -217,8 +211,8 @@ __device__ void normed_fwd_tile(const float* y, const float* k1, int row0,
   float* g6 = yi + n;
   float* hid = g6 + n;
   float* red = hid + R * H;
-  recompute_stages<R>(y, k1, row0, rows, t, dt, y_s, ks, yi, g6, hid, nullptr, W1, b1, W2,
-                      b2, D, H);
+  recompute_stages<R>(y, k1, row0, rows, t, dt, y_s, ks, yi, g6, hid, W1, b1, W2, b2, D,
+                      H);
 
   float sums[3] = {0.0f, 0.0f, 0.0f};
   for (int idx = threadIdx.x; idx < rows * D; idx += kThreads) {
@@ -238,165 +232,6 @@ __device__ void normed_fwd_tile(const float* y, const float* k1, int row0,
     k7[(size_t)row0 * D + idx] = ks[6 * n + idx];
   }
   block_sum_to<3>(sums, red, sums_out);
-}
-
-// K2's body for one row tile (math of ops/pallas_mlp.py _normed_bwd_math),
-// seeded with the row cotangents ct_ynew, ct_k7 (null: zero) and the
-// norm sums' cotangents c_err, c_num, c_den. Writes
-//   ct_y = pass_y + (the tile's ct_y), ct_k1 = pass_k1 + (its ct_k1)
-// (pass_*: null for zero; they may alias ct_ynew/ct_k7 and the outputs:
-// each element is read before its own write, by the same thread), the
-// tile's (ct_t, ct_dt) to part_out, and the rows of the weight-cotangent
-// contractions: cp2 (6B x D), he (6B x (H+2)) = [h, t_i, 1], cp1 (6B x H),
-// ye (6B x (D+2)) = [y_i, t_i, 1]; row = stage*B + batch row.
-// smem: bwd_smem_bytes(D, H).
-__device__ void normed_bwd_tile(const float* y, const float* k1, int row0,
-                                int rows, int B, float t, float dt,
-                                const float* __restrict__ W1,
-                                const float* __restrict__ b1,
-                                const float* __restrict__ W2,
-                                const float* __restrict__ b2,
-                                const float* ct_ynew, const float* ct_k7,
-                                const float* pass_y, const float* pass_k1,
-                                float c_err, float c_num, float c_den,
-                                float* ct_y, float* ct_k1, float* part_out,
-                                float* cp2, float* he, float* cp1, float* ye,
-                                int D, int H, float rtol, float atol,
-                                float* smem) {
-  constexpr int R = kBwdRows;
-  const int n = R * D;
-  float* y_s = smem;
-  float* ks = y_s + n;        // 7 x n
-  float* cks = ks + 7 * n;    // 7 x n
-  float* yi = cks + 7 * n;
-  float* g6 = yi + n;         // stage-5 state, then d_ynew
-  float* seed6 = g6 + n;
-  float* cty = seed6 + n;
-  float* accb = cty + n;
-  float* hs = accb + n;       // 6 x R*H
-  float* ctp1 = hs + 6 * R * H;
-  float* red = ctp1 + R * H;
-
-  recompute_stages<R>(y, k1, row0, rows, t, dt, y_s, ks, yi, g6, nullptr, hs, W1, b1, W2,
-                      b2, D, H);
-
-  float part[2] = {0.0f, 0.0f};  // ct_t, ct_dt
-  // ---- seeds from the scalar norm cotangents ----
-  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
-    const bool valid = idx < rows * D;
-    const float k0 = ks[idx];
-    float s_comb = kBt[1] * (ks[n + idx] - k0);
-    for (int j = 2; j <= 6; ++j) s_comb += kBt[j] * (ks[j * n + idx] - k0);
-    const float err = dt * s_comb;
-    const float yv = y_s[idx], yn = yi[idx];
-    const float denom = atol + fmaxf(fabsf(yv), fabsf(yn)) * rtol;
-    const float scaled = err / denom;
-    const float cerr = c_err * 2.0f * scaled / denom;
-    const float cdenom = c_err * (-2.0f) * scaled * scaled / denom;
-    // all of the max subgradient goes to y on ties (pallas_mlp.py:1000-1002)
-    const bool y_is_max = fabsf(yv) >= fabsf(yn);
-    const float to_y = y_is_max ? cdenom * rtol * sign_of(yv) : 0.0f;
-    const float to_ynew = y_is_max ? 0.0f : cdenom * rtol * sign_of(yn);
-    const float d_k7 = c_num * 2.0f * (ks[6 * n + idx] - ks[5 * n + idx]);
-    const float d_ynew = c_den * 2.0f * (yn - g6[idx]);
-    const size_t g = (size_t)row0 * D + idx;
-    const float cyn = (valid && ct_ynew) ? __ldcg(ct_ynew + g) : 0.0f;
-    const float ck7 = (valid && ct_k7) ? __ldcg(ct_k7 + g) : 0.0f;
-    for (int j = 0; j < 7; ++j) cks[j * n + idx] = kBt[j] * (dt * cerr);
-    cks[6 * n + idx] = cks[6 * n + idx] + ck7 + d_k7;
-    cks[5 * n + idx] = cks[5 * n + idx] - d_k7;
-    seed6[idx] = cyn + d_ynew + to_ynew;
-    g6[idx] = -d_ynew;
-    cty[idx] = to_y;
-    if (valid) part[1] += cerr * s_comb;
-  }
-
-  // ---- reverse over the stages ----
-  for (int i = 6; i >= 1; --i) {
-    const float ti = t + kC[i] * dt;
-    const float* k_i = ks + i * n;
-    float* cp2_s = cks + i * n;  // ct_pre2 overwrites ct_ks[i]
-    const float* h_i = hs + (i - 1) * R * H;
-    const size_t srow = (size_t)(i - 1) * B + row0;
-    float ct_ti = 0.0f;
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < n; idx += kThreads) {
-      const float acc = stage_acc(i, ks, n, idx);
-      accb[idx] = acc;
-      const float kv = k_i[idx];
-      const float cp = cp2_s[idx] * (1.0f - kv * kv);
-      cp2_s[idx] = cp;
-      if (idx < rows * D) {
-        const int r = idx / D, d = idx - r * D;
-        cp2[(srow + r) * D + d] = cp;
-        ye[(srow + r) * (D + 2) + d] = y_s[idx] + dt * acc;
-        ct_ti += cp * W2[(size_t)d * (H + 1) + H];
-      }
-    }
-    for (int r = threadIdx.x; r < rows; r += kThreads) {
-      ye[(srow + r) * (D + 2) + D] = ti;
-      ye[(srow + r) * (D + 2) + D + 1] = 1.0f;
-      he[(srow + r) * (H + 2) + H] = ti;
-      he[(srow + r) * (H + 2) + H + 1] = 1.0f;
-    }
-    __syncthreads();
-    // ct_h = ct_pre2 W2h; ct_pre1 = ct_h (1 - h^2)
-    {
-      const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-      for (int h = warp; h < H; h += kWarps) {
-        float s[R];
-#pragma unroll
-        for (int r = 0; r < R; ++r) s[r] = 0.0f;
-        for (int d = lane; d < D; d += 32) {
-          const float w = W2[(size_t)d * (H + 1) + h];
-#pragma unroll
-          for (int r = 0; r < R; ++r) s[r] += cp2_s[r * D + d] * w;
-        }
-#pragma unroll
-        for (int r = 0; r < R; ++r) s[r] = warp_sum(s[r]);
-        if (lane == 0) {
-          const float w1t = W1[(size_t)h * (D + 1) + D];
-          for (int r = 0; r < R; ++r) {
-            const float hv = h_i[r * H + h];
-            const float c1 = s[r] * (1.0f - hv * hv);
-            ctp1[r * H + h] = c1;
-            if (r < rows) {
-              cp1[(srow + r) * H + h] = c1;
-              he[(srow + r) * (H + 2) + h] = hv;
-              ct_ti += c1 * w1t;
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-    // ct_yi = seed_i + ct_pre1 W1x, then the lincomb transposes
-    for (int idx = threadIdx.x; idx < n; idx += kThreads) {
-      const int r = idx / D, d = idx - r * D;
-      float s = 0.0f;
-      for (int h = 0; h < H; ++h) s += ctp1[r * H + h] * W1[(size_t)h * (D + 1) + d];
-      float ct_yi = s;
-      if (i == 6) ct_yi = seed6[idx] + s;
-      if (i == 5) ct_yi = g6[idx] + s;
-      cty[idx] += ct_yi;
-      if (idx < rows * D) part[1] += ct_yi * accb[idx];
-      for (int j = 0; j < i; ++j) {
-        const float c = kA[i - 1][j];
-        if (c != 0.0f) cks[j * n + idx] += (dt * c) * ct_yi;
-      }
-    }
-    part[0] += ct_ti;
-    part[1] += kC[i] * ct_ti;
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < rows * D; idx += kThreads) {
-    const size_t g = (size_t)row0 * D + idx;
-    const float py = pass_y ? __ldcg(pass_y + g) : 0.0f;
-    const float pk = pass_k1 ? __ldcg(pass_k1 + g) : 0.0f;
-    ct_y[g] = py + cty[idx];
-    ct_k1[g] = pk + cks[idx];
-  }
-  block_sum_to<2>(part, red, part_out);
 }
 
 // The weight cotangents in nn.Linear layout from K rows of the stored

@@ -6,9 +6,10 @@
 // kernels of their own, mlp_solve.cuh and mlp_walk.cuh, which split each
 // stage's contractions over the whole grid; they share the scalar code
 // below (fwd_begin, fwd_decide, fwd_end, hermite_at, chain_begin,
-// chain_end, chain_finish, hermite_elem). K14, the tuple Tsit5 step's
-// backward (odeint's generic engine), is one trial step of that walk
-// (mlp_tuple_walk.cuh), so it is built here too.
+// chain_end, chain_finish, hermite_elem). K2 and K14, the backwards of the
+// normed and of the tuple Tsit5 step (the fast adjoint solve's and odeint's
+// generic engine's), are one trial step of that walk (mlp_step_walk.cuh),
+// so they are built here too.
 //
 // Replaces the TPU kernels
 //   K3: regneuralde_tpu/ops/pallas_solve.py  make_whole_solve.make_fwd_kernel
@@ -767,11 +768,11 @@ Ctrl make_ctrl(float beta1, float beta2, float qmin, float qmax, float gamma,
 
 #include "mlp_solve.cuh"
 #include "mlp_walk.cuh"
-#include "mlp_tuple_walk.cuh"
+#include "mlp_step_walk.cuh"
 
 namespace {
 
-// Launches MLPDynamics' K3, K4 or K14 with one block a tile, or fails if
+// Launches MLPDynamics' K3, K4, K2 or K14 with one block a tile, or fails if
 // the card cannot hold every tile's block at once.
 cudaError_t launch_walk(const void* kernel, void* args, size_t smem, int tiles,
                         cudaStream_t s) {
@@ -782,13 +783,53 @@ cudaError_t launch_walk(const void* kernel, void* args, size_t smem, int tiles,
   return launch_cooperative(kernel, args, smem, tiles, s, nullptr);
 }
 
-// Whether a tile plan (ops/whole_solve.py walk_plan) is one K3, K4 and K14
+// Whether a tile plan (ops/whole_solve.py walk_plan) is one K3, K4, K2 and K14
 // take at B x D: tiles of 16 or 32 rows and a multiple of kWalkTN columns, at
 // most the row passes' elements, covering the batch.
 bool plan_ok(int rows, int cols, int row_blocks, int col_blocks, int chunks, int B, int D) {
   return (rows == 16 || rows == 32) && cols >= 1 && cols % kWalkTN == 0 &&
          rows * cols <= kWalkRounds * kThreads * kWalkTM && row_blocks >= 1 && chunks >= 1 &&
          col_blocks == (D + cols - 1) / cols && chunks * row_blocks * rows >= B;
+}
+
+// The walk of one trial step (K2, K14) on a checked plan, replaying the
+// step's stages: the leaves, the weight-cotangent rows, the outputs ct_y,
+// ct_k1 and the norms' tolerances in the walk's arguments.
+WalkArgs<false> step_walk(const float* W1, const float* b1, const float* W2, const float* b2,
+                          float* ct_y, float* ct_k1, float* psum, float* ctp1g, float* w2p,
+                          float* w1p, float* ks_step, float* hs_step, float* fscratch,
+                          float* cp2, float* he, float* cp1, float* ye, int B, int D, int H,
+                          int rows, int cols, int row_blocks, int col_blocks, int chunks,
+                          float rtol, float atol) {
+  WalkArgs<false> wa{};
+  wa.a.dyn = MlpDyn<false>{W1, b1, W2, b2, nullptr, nullptr, cp2, he, cp1, ye, H};
+  wa.a.ct_y = ct_y;
+  wa.a.ct_f = ct_k1;
+  wa.a.ns = 1;
+  wa.a.B = B;
+  wa.a.D = D;
+  wa.a.rtol = rtol;
+  wa.a.atol = atol;
+  wa.w = Walk{ks_step, hs_step,    psum,       ctp1g,      w2p,
+              w1p,     rows,       cols,       row_blocks, col_blocks,
+              chunks,  solve_carve(fscratch, rows, cols, row_blocks, col_blocks, chunks, H)};
+  return wa;
+}
+
+// K2 or K14 (mlp_step_walk_kernel<Seed>), one cooperative launch on the
+// walk's plan, then the weight-cotangent contraction of its 6B rows.
+template <class Seed>
+int launch_step_walk(StepWalkArgs<Seed> args, float* cW1, float* cb1, float* cW2, float* cb2,
+                     float* wpart, int chunk_rows, int wpart_floats, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Walk& w = args.wa.w;
+  const MlpDyn<false>& m = args.wa.a.dyn;
+  const cudaError_t e = launch_walk((const void*)mlp_step_walk_kernel<Seed>, &args,
+                                    walk_smem_bytes(w.R, w.C, m.H), w.nrb * w.ndb, s);
+  if (e != cudaSuccess) return (int)e;
+  return (int)launch_weight_cotangents(m.cp2, m.he, m.cp1, m.ye, cW1, cb1, cW2, cb2, wpart,
+                                       6 * args.wa.a.B, args.wa.a.D, m.H, chunk_rows,
+                                       wpart_floats, s);
 }
 
 }  // namespace
@@ -946,15 +987,39 @@ int regnde_whole_solve_bwd(const float* scalars, const float* streams,
                                        wpart_floats, s);
 }
 
-// K14 (mlp_tuple_walk.cuh), the tuple Tsit5 step's backward, then the
-// weight cotangents from its rows. t, dt: scalars on the device; y, k1 and
-// the row cotangents of (y_new, k7, err, k6, g6) (B, D) in; ct_y, ct_k1
-// (B, D), the weight cotangents in nn.Linear layout (cW1 (H, D+1), cb1 (H),
-// cW2 (D, H+1), cb2 (D)) and ct_tdt (2,) = (ct_t, ct_dt) out. The tile plan
-// as regnde_whole_solve_bwd's. Scratch: slots (tiles, 2); psum, ctp1g, w2p,
+// K2 (mlp_step_walk.cuh), the normed Tsit5 step's backward, then the weight
+// cotangents from its rows. t, dt: scalars on the device; y, k1 and the row
+// cotangents of y_new and k7 (B, D) in, and ct_norms (3,) on the device, the
+// cotangents of err_ssq, num_ssq, den_ssq; ct_y, ct_k1 (B, D), the weight
+// cotangents in nn.Linear layout (cW1 (H, D+1), cb1 (H), cW2 (D, H+1), cb2
+// (D)) and ct_tdt (2,) = (ct_t, ct_dt) out. The tile plan as
+// regnde_whole_solve_bwd's. Scratch: slots (tiles, 2); psum, ctp1g, w2p,
 // w1p, ks_step, hs_step and fscratch as regnde_whole_solve_bwd's when it
 // replays; cp2 (6B, D), he (6B, H+2), cp1 (6B, H), ye (6B, D+2), and the
 // contraction's wpart (wpart_floats floats, chunks of chunk_rows rows).
+int regnde_normed_bwd(const float* t, const float* dt, const float* y, const float* k1,
+                      const float* W1, const float* b1, const float* W2, const float* b2,
+                      const float* ct_ynew, const float* ct_k7, const float* ct_norms,
+                      float* ct_y, float* ct_k1, float* cW1, float* cb1, float* cW2, float* cb2,
+                      float* ct_tdt, float* slots, float* psum, float* ctp1g, float* w2p,
+                      float* w1p, float* ks_step, float* hs_step, float* fscratch, float* cp2,
+                      float* he, float* cp1, float* ye, float* wpart, int B, int D, int H,
+                      int rows, int cols, int row_blocks, int col_blocks, int chunks,
+                      int chunk_rows, int wpart_floats, float rtol, float atol, void* stream) {
+  if (!plan_ok(rows, cols, row_blocks, col_blocks, chunks, B, D))
+    return (int)cudaErrorInvalidValue;
+  const StepWalkArgs<NormedSeed> args{
+      step_walk(W1, b1, W2, b2, ct_y, ct_k1, psum, ctp1g, w2p, w1p, ks_step, hs_step, fscratch,
+                cp2, he, cp1, ye, B, D, H, rows, cols, row_blocks, col_blocks, chunks, rtol,
+                atol),
+      t, dt, y, k1, ct_ynew, ct_k7, NormedSeed{}, slots, ct_tdt, ct_norms};
+  return launch_step_walk(args, cW1, cb1, cW2, cb2, wpart, chunk_rows, wpart_floats, stream);
+}
+
+// K14 (mlp_step_walk.cuh), the tuple Tsit5 step's backward, then the
+// weight cotangents from its rows: as regnde_normed_bwd, with the row
+// cotangents of (y_new, k7, err, k6, g6) (B, D) in place of those of y_new,
+// k7 and the norm sums.
 int regnde_mlp_tsit5_bwd(const float* t, const float* dt, const float* y, const float* k1,
                          const float* W1, const float* b1, const float* W2, const float* b2,
                          const float* ct_ynew, const float* ct_k7, const float* ct_err,
@@ -967,24 +1032,12 @@ int regnde_mlp_tsit5_bwd(const float* t, const float* dt, const float* y, const 
                          int chunk_rows, int wpart_floats, void* stream) {
   if (!plan_ok(rows, cols, row_blocks, col_blocks, chunks, B, D))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const Walk w{ks_step, hs_step,    psum,       ctp1g,  w2p,
-               w1p,     rows,       cols,       row_blocks, col_blocks,
-               chunks,  solve_carve(fscratch, rows, cols, row_blocks, col_blocks, chunks, H)};
-  BwdArgs<MlpDyn<false>> a{};
-  a.dyn = MlpDyn<false>{W1, b1, W2, b2, nullptr, nullptr, cp2, he, cp1, ye, H};
-  a.ct_y = ct_y;
-  a.ct_f = ct_k1;
-  a.ns = 1;
-  a.B = B;
-  a.D = D;
-  TupleWalkArgs args{{a, w}, t, dt, y, k1, ct_ynew, ct_k7, TupleSeed{ct_err, ct_k6, ct_g6},
-                     slots, ct_tdt};
-  const cudaError_t e = launch_walk((const void*)mlp_tuple_walk_kernel, &args,
-                                    walk_smem_bytes(rows, cols, H), row_blocks * col_blocks, s);
-  if (e != cudaSuccess) return (int)e;
-  return (int)launch_weight_cotangents(cp2, he, cp1, ye, cW1, cb1, cW2, cb2, wpart, 6 * B, D,
-                                       H, chunk_rows, wpart_floats, s);
+  const StepWalkArgs<TupleSeed> args{
+      step_walk(W1, b1, W2, b2, ct_y, ct_k1, psum, ctp1g, w2p, w1p, ks_step, hs_step, fscratch,
+                cp2, he, cp1, ye, B, D, H, rows, cols, row_blocks, col_blocks, chunks, 0.0f,
+                0.0f),
+      t, dt, y, k1, ct_ynew, ct_k7, TupleSeed{ct_err, ct_k6, ct_g6}, slots, ct_tdt, nullptr};
+  return launch_step_walk(args, cW1, cb1, cW2, cb2, wpart, chunk_rows, wpart_floats, stream);
 }
 
 // K4 for AlternatingMLP, then the sum of its blocks' weight-cotangent

@@ -20,10 +20,11 @@ The weights are the four leaves ``(W1, b1, W2, b2)`` of the two
 Each step has a plain version (``_reference_sweep`` and ``_bwd_math``, the
 hand reverse chain of ``pallas_mlp._fused_bwd_kernel``;
 ``_reference_normed_sweep`` and ``_normed_bwd_math``, that of
-``pallas_mlp._normed_bwd_math``) and a CUDA kernel pair
-(``csrc/mlp_tsit5.cu`` with ``csrc/mlp_tuple_walk.cuh``, K14 being one
-trial step of the whole solve's reverse walk on its tile plan;
-``csrc/normed_tsit5.cu``). The wrappers
+``pallas_mlp._normed_bwd_math``) and a CUDA kernel pair (K13,
+``csrc/mlp_tsit5.cu``; K1, ``csrc/normed_tsit5.cu``; their backwards K14
+and K2 are one kernel, ``csrc/mlp_step_walk.cuh``, one trial step of the
+whole solve's reverse walk on its tile plan, with the tuple's or the normed
+step's seeds). The wrappers
 ``stage_sweep_fwd``/``stage_sweep_bwd`` and ``normed_sweep_fwd``/
 ``normed_sweep_bwd`` take the plain version for tensors on the CPU, launch
 the kernel for tensors on a CUDA device, and raise otherwise.
@@ -313,41 +314,57 @@ def _cuda_normed_fwd(t, dt, y, k1, leaves, rtol, atol):
     return y_new, k7, sums[0], sums[1], sums[2]
 
 
+def _step_walk_buffers(lib, y, leaves):
+    """The outputs and scratch of K2 and K14 (``csrc/mlp_step_walk.cuh``),
+    one trial step of the whole solve's walk on its tile plan
+    (``whole_solve.walk_plan``): ``(outs, bufs, sizes)``, ``outs = (ct_t,
+    ct_dt, ct_y, ct_k1, (cW1, cb1, cW2, cb2))``, and the C entries' shared
+    arguments from ``ct_y`` on: the tensors ``bufs`` (the outputs, the slots,
+    the walk's and the replay's scratch, the weight-cotangent rows and the
+    contraction's scratch; the caller holds them until the launch) and the
+    ints ``sizes`` (B, D, H, the plan, the contraction's chunks)."""
+    from regneuralde_tpu_torch.ops import whole_solve as ws
+
+    (B, D), dev = y.shape, y.device
+    H = leaves[0].shape[0]
+    ct_y, ct_k1 = torch.empty_like(y), torch.empty_like(y)
+    ct_leaves = tuple(torch.empty_like(x) for x in leaves)
+    ct_tdt = torch.empty(2, device=dev)
+    plan = ws._cuda_walk_plan(lib, B, D, H, dev)
+    slots = torch.empty((plan.tiles, 2), device=dev)
+    walk, step = ws._cuda_walk_scratch(lib, plan, B, D, H, dev, replay=True)
+    rows = (torch.empty((6 * B, D), device=dev), torch.empty((6 * B, H + 2), device=dev),
+            torch.empty((6 * B, H), device=dev), torch.empty((6 * B, D + 2), device=dev))
+    wpart, chunk_rows, wfloats = wc.cuda_scratch(6 * B, D, H, dev)
+    bufs = (ct_y, ct_k1, *ct_leaves, ct_tdt, slots, *walk, *step, *rows, wpart)
+    sizes = (B, D, H, plan.rows, plan.cols, plan.row_blocks, plan.col_blocks, plan.chunks,
+             chunk_rows, wfloats)
+    return (ct_tdt[0], ct_tdt[1], ct_y, ct_k1, ct_leaves), bufs, sizes
+
+
 def _cuda_normed_bwd(t, dt, y, k1, leaves, cts, rtol, atol):
+    """K2: one cooperative launch of ``csrc/mlp_step_walk.cuh`` with the
+    normed step's seeds on the whole solve's tile plan, then the
+    weight-cotangent contraction. The norm sums' cotangents reach the
+    kernel as a device array: no host sync."""
     from regneuralde_tpu_torch.ops import _cuda
 
     cyn, ck7 = cts[0], cts[1]
-    B, D, H = _check_cuda_args(
-        y, k1, leaves, {"ct_y_new": (cyn, tuple(y.shape)),
-                        "ct_k7": (ck7, tuple(y.shape))})
+    _check_cuda_args(y, k1, leaves, {"ct_y_new": (cyn, tuple(y.shape)),
+                                     "ct_k7": (ck7, tuple(y.shape))})
     lib = _cuda.library()
     t32, dt32 = _scalar_f32(t, y), _scalar_f32(dt, y)
-    ct_scalars = torch.stack([_scalar_f32(c, y) for c in cts[2:]]).contiguous()
-    dev = y.device
-    ct_y = torch.empty_like(y)
-    ct_k1 = torch.empty_like(y)
-    W1, b1, W2, b2 = leaves
-    cW1, cb1 = torch.empty_like(W1), torch.empty_like(b1)
-    cW2, cb2 = torch.empty_like(W2), torch.empty_like(b2)
-    ct_tdt = torch.empty(2, device=dev)
-    rows = lib.regnde_bwd_rows()
-    partials = torch.empty(((B + rows - 1) // rows, 2), device=dev)
-    cp2 = torch.empty((6 * B, D), device=dev)
-    he = torch.empty((6 * B, H + 2), device=dev)
-    cp1 = torch.empty((6 * B, H), device=dev)
-    ye = torch.empty((6 * B, D + 2), device=dev)
-    wpart, chunk_rows, wfloats = wc.cuda_scratch(6 * B, D, H, dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    ct_norms = torch.stack([_scalar_f32(c, y) for c in cts[2:]])
+    outs, bufs, sizes = _step_walk_buffers(lib, y, leaves)
+    stream = torch.cuda.current_stream(y.device).cuda_stream
     code = lib.regnde_normed_bwd(
-        _ptr(t32), _ptr(dt32), _ptr(y), _ptr(k1), *map(_ptr, leaves),
-        _ptr(cyn), _ptr(ck7), _ptr(ct_scalars), _ptr(ct_y), _ptr(ct_k1),
-        _ptr(cW1), _ptr(cb1), _ptr(cW2), _ptr(cb2), _ptr(ct_tdt),
-        _ptr(partials), _ptr(cp2), _ptr(he), _ptr(cp1), _ptr(ye), _ptr(wpart), B, D, H,
-        chunk_rows, wfloats, float(rtol), float(atol), ctypes.c_void_p(stream))
+        _ptr(t32), _ptr(dt32), _ptr(y), _ptr(k1), *map(_ptr, leaves), _ptr(cyn), _ptr(ck7),
+        _ptr(ct_norms), *map(_ptr, bufs), *sizes, float(rtol), float(atol),
+        ctypes.c_void_p(stream))
     _cuda.check(code, "normed Tsit5 backward kernel")
     LAUNCHES["normed_tsit5_bwd"] += 1
     wc.count_launch()
-    return ct_tdt[0], ct_tdt[1], ct_y, ct_k1, (cW1, cb1, cW2, cb2)
+    return outs
 
 
 def _cuda_fwd(t, dt, y, k1, leaves):
@@ -367,42 +384,24 @@ def _cuda_fwd(t, dt, y, k1, leaves):
 
 
 def _cuda_bwd(t, dt, y, k1, leaves, cts):
-    """K14: one cooperative launch of ``csrc/mlp_tuple_walk.cuh`` on the
-    whole solve's tile plan (``whole_solve.walk_plan``), then the
+    """K14: one cooperative launch of ``csrc/mlp_step_walk.cuh`` with the
+    tuple's five row seeds on the whole solve's tile plan, then the
     weight-cotangent contraction."""
     from regneuralde_tpu_torch.ops import _cuda
-    from regneuralde_tpu_torch.ops import whole_solve as ws
 
     names = ("ct_y_new", "ct_k7", "ct_err", "ct_k6", "ct_g6")
-    B, D, H = _check_cuda_args(
-        y, k1, leaves, {n: (c, tuple(y.shape)) for n, c in zip(names, cts)})
+    _check_cuda_args(y, k1, leaves, {n: (c, tuple(y.shape)) for n, c in zip(names, cts)})
     lib = _cuda.library()
     t32, dt32 = _scalar_f32(t, y), _scalar_f32(dt, y)
-    dev = y.device
-    ct_y, ct_k1 = torch.empty_like(y), torch.empty_like(y)
-    W1, b1, W2, b2 = leaves
-    cW1, cb1 = torch.empty_like(W1), torch.empty_like(b1)
-    cW2, cb2 = torch.empty_like(W2), torch.empty_like(b2)
-    ct_tdt = torch.empty(2, device=dev)
-    plan = ws._cuda_walk_plan(lib, B, D, H, dev)
-    slots = torch.empty((plan.tiles, 2), device=dev)
-    walk, step = ws._cuda_walk_scratch(lib, plan, B, D, H, dev, replay=True)
-    cp2 = torch.empty((6 * B, D), device=dev)
-    he = torch.empty((6 * B, H + 2), device=dev)
-    cp1 = torch.empty((6 * B, H), device=dev)
-    ye = torch.empty((6 * B, D + 2), device=dev)
-    wpart, chunk_rows, wfloats = wc.cuda_scratch(6 * B, D, H, dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    outs, bufs, sizes = _step_walk_buffers(lib, y, leaves)
+    stream = torch.cuda.current_stream(y.device).cuda_stream
     code = lib.regnde_mlp_tsit5_bwd(
         _ptr(t32), _ptr(dt32), _ptr(y), _ptr(k1), *map(_ptr, leaves), *map(_ptr, cts),
-        _ptr(ct_y), _ptr(ct_k1), _ptr(cW1), _ptr(cb1), _ptr(cW2), _ptr(cb2), _ptr(ct_tdt),
-        _ptr(slots), *map(_ptr, walk), *map(_ptr, step), _ptr(cp2), _ptr(he), _ptr(cp1),
-        _ptr(ye), _ptr(wpart), B, D, H, plan.rows, plan.cols, plan.row_blocks,
-        plan.col_blocks, plan.chunks, chunk_rows, wfloats, ctypes.c_void_p(stream))
+        *map(_ptr, bufs), *sizes, ctypes.c_void_p(stream))
     _cuda.check(code, "Tsit5 backward kernel")
     LAUNCHES["mlp_tsit5_bwd"] += 1
     wc.count_launch()
-    return ct_tdt[0], ct_tdt[1], ct_y, ct_k1, (cW1, cb1, cW2, cb2)
+    return outs
 
 
 def stage_sweep_fwd(t, dt, y, k1, leaves: Sequence[torch.Tensor]):

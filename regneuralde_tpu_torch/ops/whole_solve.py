@@ -30,9 +30,11 @@ stream against it, bitwise. Its forward (``csrc/mlp_solve.cuh``) and its
 backward (``csrc/mlp_walk.cuh``) split each stage's two contractions over
 the whole grid, one block a tile of the batch, on one tile plan
 (``walk_plan``); ``plain_solve_step`` and ``plain_walk_step`` are one trial
-step of each in the kernel's own schedule, for the tests. K14, the tuple
-step's backward (``fused_mlp.stage_sweep_bwd``), is one trial step of that
-walk on its own seeds and plan (``plain_tuple_walk_step``).
+step of each in the kernel's own schedule, for the tests. K2 and K14, the
+normed and the tuple step's backwards (``fused_mlp.normed_sweep_bwd``,
+``fused_mlp.stage_sweep_bwd``), are one trial step of that walk on the plan,
+with the walk's own seeds and with the tuple's (``plain_normed_walk_step``,
+``plain_tuple_walk_step``).
 
 Each kernel has a plain version with the same algebra and the same output
 buffers, over the dynamics' plain trial-step pair (``plain_steps``):
@@ -229,8 +231,8 @@ def walk_plan(B: int, D: int, H: int, sms: int, limit: int = SMEM_LIMIT) -> Walk
     (fewer reads of the weights), over tiles of 32 or 16 rows and a multiple
     of ``WALK_COL_ALIGN`` columns, at least ``WALK_MIN_COLS`` where D allows,
     of at most ``WALK_MAX_TILE`` elements, whose shared memory fits
-    ``limit``. 32 x 100, 128 tiles, at 512 x 784 x 100. Cached: K14 asks for
-    it every trial step, and the search takes about 0.25 ms."""
+    ``limit``. 32 x 100, 128 tiles, at 512 x 784 x 100. Cached: K2 and K14
+    ask for it every trial step, and the search takes about 0.25 ms."""
     best, best_key = None, None
     widths = sorted({_round_up(-(-D // n), WALK_COL_ALIGN) for n in range(1, D + 1)})
     for R in WALK_ROWS:
@@ -327,8 +329,21 @@ def plain_walk_step(t, dt, y, k1, leaves, cts, rtol, atol, res, plan: WalkPlan,
     return ct_t, ct_dt, ct_y, ct_k1, rows
 
 
+def plain_normed_walk_step(t, dt, y, k1, leaves, cts, rtol, atol, plan: WalkPlan):
+    """One launch of K2 (``csrc/mlp_step_walk.cuh``), the normed step's
+    backward, in the kernel's own schedule: the replay, K3's six stages on
+    ``plan`` (``_solve_stages``), then K4's trial step on them
+    (``plain_walk_step``, the seeds of ``cts = (ct_y_new, ct_k7, ct_err_ssq,
+    ct_num_ssq, ct_den_ssq)`` and the six reverse stages, nothing passed
+    through). Returns ``(ct_t, ct_dt, ct_y, ct_k1, (cp2, he, cp1, ye))`` as
+    ``plain_walk_step``. For the tests: the kernel's arithmetic is
+    ``fm._normed_bwd_math``'s in this order."""
+    ks, hs = _solve_stages(t, dt, y, k1, leaves, plan)
+    return plain_walk_step(t, dt, y, k1, leaves, cts, rtol, atol, (ks[1:], hs), plan)
+
+
 def plain_tuple_walk_step(t, dt, y, k1, leaves, cts, plan: WalkPlan):
-    """One launch of K14 (``csrc/mlp_tuple_walk.cuh``), the tuple step's
+    """One launch of K14 (``csrc/mlp_step_walk.cuh``), the tuple step's
     backward, in the kernel's own schedule: the replay, K3's six stages on
     ``plan`` (``_solve_stages``); the seed phase, where the row cotangents
     ``cts = (ct_y_new, ct_k7, ct_err, ct_k6, ct_g6)`` enter as
@@ -609,7 +624,7 @@ def _cuda_solve_scratch(lib, plan, H, dev):
 
 
 def _cuda_walk_scratch(lib, plan, B, D, H, dev, replay):
-    """The walk's scratch for ``plan`` (K4<MlpDyn> and K14): phase A's
+    """The walk's scratch for ``plan`` (K4<MlpDyn>, K2 and K14): phase A's
     partials ``psum``, the row blocks' ct_pre1 ``ctp1g``, the weights padded
     for its 16-byte copies ``w2p`` and ``w1p`` (the kernel fills them), and
     with ``replay`` the replay's stage residuals of one trial step and K3's

@@ -1,4 +1,4 @@
-"""K14, the tuple Tsit5 step's backward (``csrc/mlp_tuple_walk.cuh``), on the
+"""K14, the tuple Tsit5 step's backward (``csrc/mlp_step_walk.cuh``), on the
 CPU: one launch in the kernel's own schedule
 (``whole_solve.plain_tuple_walk_step``: the replay of the six stages in K3's
 schedule, the seed phase with the five row cotangents, then the walk's six

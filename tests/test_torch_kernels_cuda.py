@@ -1297,7 +1297,7 @@ def _assert_k14_matches_schedule(cuda, shape, dt):
 @pytest.mark.parametrize("shape", [(13, 40, 24), (5, 8, 5), (96, 200, 48), (512, 784, 100),
                                    (1024, 784, 100)])
 def test_tuple_walk_matches_its_schedule(cuda, shape, dt):
-    """K14 (``csrc/mlp_tuple_walk.cuh``) against ``plain_tuple_walk_step``,
+    """K14 (``csrc/mlp_step_walk.cuh``) against ``plain_tuple_walk_step``,
     the same walk in the kernel's order of summation, on the card's plan:
     one column block (13x40x24, 5x8x5), seven of 32 columns (96x200x48),
     the flagship's 8 of 100, and two row chunks (1024x784x100)."""
@@ -1316,6 +1316,84 @@ def test_tuple_walk_in_row_chunks_matches_its_schedule(cuda, monkeypatch):
 
     monkeypatch.setattr(ws, "walk_plan", small_card)
     assert _assert_k14_matches_schedule(cuda, (256, 64, 32), 0.3).chunks > 1
+
+
+def _assert_k2_matches_schedule(cuda, shape, dt, tol):
+    """K2 against its schedule (``plain_normed_walk_step`` on the card's
+    plan) at the walk's bounds: every output within 1e-3 of the float32
+    schedule and within 3 times its distance from the float64 schedule, plus
+    1e-5 (ct_t, whose terms cancel, plus float32's unit roundoff times its
+    terms' magnitudes); bitwise deterministic."""
+    y, k1, leaves, cts = _inputs(*shape, cuda)
+    t, dt_ = torch.tensor(0.3, device=cuda), torch.tensor(dt, device=cuda)
+    plan = ws.walk_plan(*shape, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    d = lambda x: x.double()
+    flat = lambda g: [*g[:4], *g[4]]
+    kern = flat(fm.normed_sweep_bwd(t, dt_, y, k1, leaves, cts, tol, tol))
+    plain = ws.plain_normed_walk_step(t, dt_, y, k1, leaves, cts, tol, tol, plan)
+    plain64 = ws.plain_normed_walk_step(d(t), d(dt_), d(y), d(k1), [d(x) for x in leaves],
+                                        [d(c) for c in cts], tol, tol, plan)
+    cp2, _, cp1, _ = plain64[4]
+    t_terms = ((cp2.abs() @ d(leaves[2])[:, -1].abs()).sum()
+               + (cp1.abs() @ d(leaves[0])[:, -1].abs()).sum()).item()
+    plain, plain64 = ([*g[:4], *wc.weight_cotangents_plain(*g[4])] for g in (plain, plain64))
+    dist = lambda u: abs(u.double() - plain64[0]).item()
+    assert dist(kern[0]) <= 3 * dist(plain[0]) + 2.0 ** -24 * t_terms
+    for name, a, b, c in zip(["ct_t", "ct_dt", "ct_y", "ct_k1", "cW1", "cb1", "cW2", "cb2"],
+                             kern, plain, plain64):
+        assert _rel(a, b) <= 1e-3, (name, _rel(a, b))
+        if name != "ct_t":
+            assert _rel(a, c) <= 3 * _rel(b, c) + 1e-5, (name, _rel(a, c), _rel(b, c))
+    again = flat(fm.normed_sweep_bwd(t, dt_, y, k1, leaves, cts, tol, tol))
+    assert all(torch.equal(a, b) for a, b in zip(kern, again))
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tol", [1e-4, 1.4e-8])
+@pytest.mark.parametrize("dt", [0.05, 0.3])
+@pytest.mark.parametrize("shape", [(13, 40, 24), (5, 8, 5), (96, 200, 48), (512, 784, 100),
+                                   (1024, 784, 100)])
+def test_normed_walk_matches_its_schedule(cuda, shape, dt, tol):
+    """K2 (``csrc/mlp_step_walk.cuh`` with the normed seeds) against
+    ``plain_normed_walk_step``, the same walk in the kernel's order of
+    summation, on the card's plan: one column block (13x40x24, 5x8x5), seven
+    of 32 columns (96x200x48), the flagship's 8 of 100, and two row chunks
+    (1024x784x100); one launch a call."""
+    fm.reset_launches()
+    plan = _assert_k2_matches_schedule(cuda, shape, dt, tol)
+    assert plan.chunks == (2 if shape[0] == 1024 else 1)
+    assert fm.LAUNCHES["normed_tsit5_bwd"] == 2
+
+
+@pytest.mark.cuda
+def test_normed_walk_in_row_chunks_matches_its_schedule(cuda, monkeypatch):
+    """K2 on the plan of a card of 4 multiprocessors: 4 tiles, the batch of
+    256 walked in row chunks one after another."""
+    plan = ws.walk_plan
+
+    def small_card(B, D, H, sms, limit=ws.SMEM_LIMIT):
+        return plan(B, D, H, 4, limit)
+
+    monkeypatch.setattr(ws, "walk_plan", small_card)
+    assert _assert_k2_matches_schedule(cuda, (256, 64, 32), 0.3, 1e-4).chunks > 1
+
+
+@pytest.mark.cuda
+def test_normed_walk_refuses_bad_inputs(cuda):
+    """K2's wrapper refuses what the kernel does not take, and a shape no
+    tile plan fits raises walk_plan's ValueError (no fallback)."""
+    y, k1, leaves, cts = _inputs(8, 16, 12, cuda)
+    t, dt = torch.tensor(T, device=cuda), torch.tensor(DT, device=cuda)
+    with pytest.raises(TypeError):
+        fm.normed_sweep_bwd(t, dt, y, k1, leaves, [cts[0].double(), *cts[1:]], 1e-4, 1e-4)
+    with pytest.raises(ValueError):
+        fm.normed_sweep_bwd(t, dt, y, k1, leaves, [cts[0].t(), *cts[1:]], 1e-4, 1e-4)
+    with pytest.raises(ValueError):
+        fm.normed_sweep_bwd(t, dt, y, k1, leaves, [cts[0], cts[1][:4], *cts[2:]], 1e-4, 1e-4)
+    y, k1, leaves, cts = _inputs(8, 8, 20_000, cuda)
+    with pytest.raises(ValueError, match="no tile plan"):
+        fm.normed_sweep_bwd(t, dt, y, k1, leaves, cts, 1e-4, 1e-4)
 
 
 @pytest.mark.cuda

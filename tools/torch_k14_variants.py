@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
 """Size K14, the tuple Tsit5 step's backward (``regneuralde_tpu_torch/csrc/
-mlp_tuple_walk.cuh``), on one GPU: its device time with parts of the launch
-taken out, against K3's trial step and K4's replay, at 512 x 784 x 100.
+mlp_step_walk.cuh`` with the tuple's seeds, the kernel K2 runs with the
+normed seeds), on one GPU: its device time with parts of the launch taken
+out, against K3's trial step and K4's replay, at 512 x 784 x 100.
 
     python3 tools/torch_k14_variants.py [--variants shipped,noreplay,...]
 
 Each variant is the source with the substitutions of ``VARIANTS`` made in
-``mlp_tuple_walk.cuh``, compiled by ``nvcc`` (as ``ops/_cuda.py`` compiles,
+``mlp_step_walk.cuh``, compiled by ``nvcc`` (as ``ops/_cuda.py`` compiles,
 ``-Xptxas -v``) with ``weight_cotangents.cu`` into a library of its own under
 ``build/k14_variants/``; it prints what ``ptxas`` reported for the kernel.
 Every variant but ``shipped`` is wrong by design: it shows what the part it
-leaves out costs. On chip_smoke.py phase 25's seeded inputs (dt 0.05) it
-prints the device time of ``mlp_tuple_walk_kernel`` a launch under each
+leaves out costs (in K2's instantiation as in K14's). On chip_smoke.py
+phase 25's seeded inputs (dt 0.05) it prints the device time of K14's
+``mlp_step_walk_kernel`` a launch under each
 variant's library (``torch.profiler``, through the package's wrapper) and
 the largest relative distance of its outputs from the plain version. Then,
 on the flagship's solve at 1.4e-8 (``tools/torch_kernel_ab.py``'s), the
@@ -36,7 +38,7 @@ _REVERSE = [(f"    walk_stage<{i}>(args.wa, grid, ws, s, tl, part);\n", "")
             for i in range(6, 0, -1)]
 _PADS = ("  walk_pad_weights(m.W1, m.W2, w, a.D, H, s.HPP);\n"
          "  solve_pad_weights(m.W1, m.W2, w.f, a.D, H, walk_round_up(H, kWalkTN));\n")
-# name -> substitutions in mlp_tuple_walk.cuh (each must occur in it)
+# name -> substitutions in mlp_step_walk.cuh (each must occur in it)
 VARIANTS = {
     "shipped": [],
     # the reverse on whatever the one-step scratch holds: the replay's cost
@@ -66,8 +68,8 @@ def main():
         raise SystemExit("needs a CUDA device")
     dev = torch.device("cuda", 0)
     B, D, H = cs.BATCH, cs.DIM, cs.HIDDEN
-    libs = tv.build("mlp_tuple_walk.cuh", VARIANTS, args.variants.split(","), "", OUT,
-                    ("mlp_tuple_walk",))
+    libs = tv.build("mlp_step_walk.cuh", VARIANTS, args.variants.split(","), "", OUT,
+                    ("mlp_step_walk",))
 
     # phase 25's inputs (chip_smoke.phase_tuple_kernels)
     gen = torch.Generator().manual_seed(cs.SEED + 41)
@@ -82,9 +84,9 @@ def main():
     want = flat(fm._bwd_math(t, dt, y, k1, fm._split_params(*leaves), cts))
     for name, lib in libs.items():
         with tv.forced(lib=lib):
-            ms = cs._device_ms(bwd, "mlp_tuple_walk_kernel")
+            ms = cs._device_ms(bwd, "mlp_step_walk_kernel")
             err = max(cs._rel(a, b) for a, b in zip(flat(bwd()), want))
-        print(f"[k14-variants] {name}: mlp_tuple_walk_kernel device ms a launch {ms!r}; "
+        print(f"[k14-variants] {name}: mlp_step_walk_kernel device ms a launch {ms!r}; "
               f"largest relative distance of an output from the plain version {err!r}")
 
     # K3 and K4's walk a trial step on the flagship's solve

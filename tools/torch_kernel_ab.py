@@ -9,7 +9,9 @@ archive <commit> | tar -x -C build/parent``). Each run imports that tree's
 ``chip_smoke.py``, builds its kernels into the tree's own ``build/``, runs
 the named phases' kernel checks (``altmlp``: K7/K8 and K3/K4 for
 AlternatingMLP, ``csl``: K7/K8-CSL and K3/K4-CSL, ``mlp``: K1/K2 and K3/K4
-for MLPDynamics, ``sde``: K9/K10 for the MLP pair, ``lanes``: K11/K12,
+for MLPDynamics, with K1's and K2's device time under ``torch.profiler`` at
+phase 2's inputs, K2's kernels and its contraction apart, whichever kernels
+the tree has for them, ``sde``: K9/K10 for the MLP pair, ``lanes``: K11/K12,
 ``tuple``: K13/K14, and their device time under ``torch.profiler`` at
 phase 25's inputs, K14's kernels and its contraction apart, whichever
 kernels the tree has for them; a phase the tree lacks is skipped;
@@ -24,7 +26,9 @@ AlternatingMLP and for CSL over their whole-solve phases) and prints, per
 kernel, the median of ``chip_smoke``'s CUDA-event times and what ``ptxas``
 reported for it (registers, stack, spills). Last it says, for every kernel
 of either library, whether the two trees' SASS (``cuobjdump -sass``) is
-the same instruction for instruction.
+the same instruction for instruction; a kernel of one tree only is named
+beside the kernel of the other tree whose SASS it equals, if any (a kernel
+renamed, or made an instance of a template).
 """
 
 import argparse
@@ -132,11 +136,37 @@ def fwd(dev):
     return {f"K3_{dyn}_device_a_launch": {"ms": us / n / 1e3} for dyn, (us, n) in sums.items()}
 
 
+def normed_device(dev):
+    """Device ms a launch of K1 and of K2 at phase 2's inputs (rtol=atol=
+    1.4e-8): K1's kernels (normed_fwd_kernel + reduce_partials_kernel), K2's
+    own (the old normed_bwd_kernel + reduce_partials_kernel or
+    mlp_step_walk_kernel<NormedSeed>) and the weight-cotangent contraction
+    after them apart."""
+    from regneuralde_tpu_torch.ops import fused_mlp as fm
+
+    B, D, H, tol = cs.BATCH, cs.DIM, cs.HIDDEN, cs.FLAGSHIP_TOL
+    gen = torch.Generator().manual_seed(cs.SEED + 1)
+    rnd = lambda *shape, scale=1.0: (torch.randn(*shape, generator=gen) * scale).to(dev)
+    leaves = [rnd(H, D + 1, scale=(D + 1) ** -0.5), rnd(H, scale=0.1),
+              rnd(D, H + 1, scale=(H + 1) ** -0.5), rnd(D, scale=0.1)]
+    y, k1 = rnd(B, D, scale=0.5), rnd(B, D, scale=0.3)
+    t, dt = torch.tensor(0.07, device=dev), torch.tensor(0.11, device=dev)
+    cts = [rnd(B, D), rnd(B, D), *(torch.tensor(v, device=dev) for v in (0.7, 1.3, -0.4))]
+    bwd = lambda: fm.normed_sweep_bwd(t, dt, y, k1, leaves, cts, tol, tol)
+    return {
+        "K1_device": {"ms": device_ms(lambda: fm.normed_sweep_fwd(t, dt, y, k1, leaves, tol, tol),
+                                      ("normed_fwd_kernel", "reduce_partials_kernel"))},
+        "K2_device_kernel": {"ms": device_ms(bwd, ("normed_bwd_kernel", "reduce_partials_kernel",
+                                                   "mlp_step_walk_kernel"))},
+        "K2_device_wcot": {"ms": device_ms(bwd, ("wcot_chunk_kernel", "wcot_sum_kernel"))},
+    }
+
+
 def tuple_device(dev):
     """Device ms a launch of K13 and of K14 at phase 25's inputs (dt 0.05):
     K14's own kernels (the old tuple_bwd_kernel + tuple_reduce_kernel or
-    mlp_tuple_walk_kernel) and the weight-cotangent contraction after them
-    apart."""
+    mlp_tuple_walk_kernel, now mlp_step_walk_kernel<TupleSeed>) and the
+    weight-cotangent contraction after them apart."""
     from regneuralde_tpu_torch.ops import fused_mlp as fm
 
     B, D, H = cs.BATCH, cs.DIM, cs.HIDDEN
@@ -152,7 +182,8 @@ def tuple_device(dev):
         "K13_device": {"ms": device_ms(lambda: fm.stage_sweep_fwd(t, dt, y, k1, leaves),
                                        ("tuple_fwd_kernel",))},
         "K14_device_kernel": {"ms": device_ms(bwd, ("tuple_bwd_kernel", "tuple_reduce_kernel",
-                                                    "mlp_tuple_walk_kernel"))},
+                                                    "mlp_tuple_walk_kernel",
+                                                    "mlp_step_walk_kernel"))},
         "K14_device_wcot": {"ms": device_ms(bwd, ("wcot_chunk_kernel", "wcot_sum_kernel"))},
     }
 
@@ -198,6 +229,7 @@ ms = {}
 with contextlib.redirect_stdout(io.StringIO()):
     if "mlp" in phases:
         ms.update(cs.phase_kernels(dev))
+        ms.update(normed_device(dev))
         ms.update(cs.phase_whole_solve_kernels(dev))
     if "altmlp" in phases:
         ms.update(cs.phase_altmlp_kernels(dev))
@@ -279,8 +311,14 @@ def main():
     sass_b = next(r["sass"] for t, r in results if t == "B")
     for name in sorted(set(sass_a) | set(sass_b)):
         a, b = sass_a.get(name), sass_b.get(name)
-        verdict = ("same" if a == b else "differs") if a and b else (
-            "only in A" if a else "only in B")
+        if a and b:
+            verdict = "same" if a == b else "differs"
+        else:
+            other = sass_b if a else sass_a
+            twin = next((n for n in other if n not in (sass_a if a else sass_b)
+                         and other[n] == (a or b)), None)
+            verdict = ("only in A" if a else "only in B") + (
+                f", the same as {twin[:90]}" if twin else ", no kernel of the other the same")
         print(f"[sass] {name[:90]}: {verdict}")
     return 0
 
