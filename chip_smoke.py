@@ -106,8 +106,10 @@ at first use. Phases (each checks its results; any failure exits non-zero):
 22. K11 and K12 (the lane-wise Tsit5 step of the per-sample engine) against
    their plain versions at 512x784x100 with per-lane (t, dt) and finished
    lanes: K11 within FWD_BOUND (bitwise where it rounds as its plain
-   version), K12 within BWD_BOUND and against a float64 walk, bitwise
-   determinism, CUDA-event times;
+   version), K12 (one trial step of the whole solve's walk at per-row
+   times) within BWD_BOUND, against a float64 walk and against its
+   schedule, bitwise determinism, CUDA-event times, K12's device time, plan
+   and ``grid.sync()`` count;
 23. one forward+backward of the per-sample flagship step
    (``per_sample="batched"``) at rtol=atol=1e-5, ``fused=True`` against
    ``fused=False``, with a scalar t1 and with a per-lane STEER t1: identical
@@ -2137,13 +2139,22 @@ def phase_lanes_kernels(device):
     """K11/K12 (the lane-wise Tsit5 step) against their plain versions at
     512x784x100 with per-lane (t, dt) and finished lanes: K11's five outputs
     within FWD_BOUND (and how many bitwise), the finished lanes' y_new equal
-    to y and err exactly zero; K12 within BWD_BOUND of its plain version and
-    within 3 times the plain version's distance from a float64 walk, plus
-    1e-6; both bitwise deterministic; CUDA-event times."""
+    to y and err exactly zero; K12 (``csrc/mlp_step_walk.cuh`` with
+    ``LaneSeed``) within BWD_BOUND of its plain version and within 3 times
+    the plain version's distance from a float64 walk, plus 1e-6, and within
+    BWD_BOUND of its schedule (``whole_solve.plain_lanes_walk_step`` on its
+    plan); both bitwise deterministic; CUDA-event times; K12's device time
+    under ``torch.profiler`` (``mlp_step_walk_kernel`` and the
+    weight-cotangent contraction after it), its tile plan and its
+    ``grid.sync()`` count a launch: the pad, the replay's two a stage, the
+    replay's end, the reverse's two a stage (each per row chunk) and the
+    per-row sums'."""
     import torch
 
     from regneuralde_tpu_torch.ops import fused_mlp as fm
     from regneuralde_tpu_torch.ops import fused_mlp_lanes as fl
+    from regneuralde_tpu_torch.ops import weight_cotangents as wc
+    from regneuralde_tpu_torch.ops import whole_solve as ws
 
     leaves, y, k1, t, dt, cts = _lane_inputs(device)
     parts = fm._split_params(*leaves)
@@ -2175,6 +2186,17 @@ def phase_lanes_kernels(device):
         _check(k_p == k_p and k_64 == k_64, f"K12 {n}: no NaN")
         _check(k_p <= BWD_BOUND, f"K12 {n}: {errs_b[n]}")
         _check(k_64 <= 3 * p_64 + 1e-6, f"K12 {n}: {errs_b[n]}")
+    plan = ws.walk_plan(BATCH, DIM, HIDDEN,
+                        torch.cuda.get_device_properties(device).multi_processor_count,
+                        state=ws.LANE_STATE)
+    sched = ws.plain_lanes_walk_step(t, dt, y, k1, leaves, cts, plan)
+    sched = [*sched[:4], *wc.weight_cotangents_plain(*sched[4])]
+    torch.cuda.synchronize()
+    errs_s = {n: _rel(a, b) for n, a, b in zip(names_b, kb, sched)}
+    print("[lanes] K12 rel err against its schedule " + json.dumps(errs_s))
+    _check(all(v == v and v <= BWD_BOUND for v in errs_s.values()),
+           f"K12 against its schedule: {errs_s}")
+    _check(all(torch.isfinite(x).all().item() for x in kb), "K12: finite outputs")
     again_f = fl.sweep_lanes_fwd(t, dt, y, k1, leaves)
     again_b = flat(fl.sweep_lanes_bwd(t, dt, y, k1, leaves, cts))
     _check(all(torch.equal(a, b) for a, b in zip(kf, again_f)), "K11 is deterministic")
@@ -2193,6 +2215,16 @@ def phase_lanes_kernels(device):
     }
     print("[lanes] median ms over %d runs at %dx%dx%d: %s"
           % (REPS, BATCH, DIM, HIDDEN, json.dumps(times)))
+    bwd = lambda: fl.sweep_lanes_bwd(t, dt, y, k1, leaves, cts)
+    dev_walk = _device_ms(bwd, "mlp_step_walk_kernel")
+    dev_wcot = _device_ms(bwd, "wcot_")
+    _check(dev_walk is not None and dev_wcot is not None,
+           "K12's kernel and its contraction in the trace")
+    syncs = 1 + 12 * plan.chunks + 1 + 12 * plan.chunks + 1
+    print(f"[lanes] K12 device ms a launch (torch.profiler, {REPS} launches): kernel "
+          f"{dev_walk!r} + contraction {dev_wcot!r} = {dev_walk + dev_wcot!r}; tiles "
+          f"{plan.rows}x{plan.cols}, {plan.tiles} blocks, {plan.chunks} row chunks, "
+          f"{plan.smem_bytes} bytes of shared memory; grid.sync() a launch {syncs}")
     f_ops, b_ops, leaf = _mlp_work(BATCH, DIM, HIDDEN)
     BD = BATCH * DIM
     # K11 reads t, dt, y, k1 and the leaves and writes five rows; K12 reads
@@ -3199,7 +3231,7 @@ def main():
                "sde_whole_solve_fwd": "sde_whole_solve.cu",
                "sde_whole_solve_bwd": "sde_whole_solve.cu",
                "mlp_lanes_tsit5_fwd": "mlp_lanes_tsit5.cu",
-               "mlp_lanes_tsit5_bwd": "mlp_lanes_tsit5.cu",
+               "mlp_lanes_tsit5_bwd": "mlp_step_walk.cuh",
                "mlp_tsit5_fwd": "mlp_tsit5.cu", "mlp_tsit5_bwd": "mlp_step_walk.cuh",
                "spike_wholesolve": "spike_wholesolve.cu",
                "sde_whole_solve_cubic_fwd": "sde_whole_solve.cu",

@@ -1,30 +1,29 @@
 // Lane-wise Tsit5 trial step of MLPDynamics on Hopper: every row of the
-// batch at its own (t_i, dt_i). Forward (K11) and its hand-written backward
-// (K12), the step of the per-sample batched engine
-// (regneuralde_tpu_torch/ops/per_sample_batched.py).
+// batch at its own (t_i, dt_i). The forward (K11), the step of the
+// per-sample batched engine (regneuralde_tpu_torch/ops/per_sample_batched.py).
+// Its backward, K12, is one trial step of the whole solve's walk at per-row
+// times (mlp_step_walk.cuh, LaneSeed; C entry regnde_lanes_bwd in
+// whole_solve.cu).
 //
-// Replaces the TPU kernels
+// Replaces the TPU kernel
 //   K11: regneuralde_tpu/ops/pallas_mlp.py  _pallas_sweep_lanes
 //        (_fused_step_kernel_lanes)
-//   K12: regneuralde_tpu/ops/pallas_mlp.py  _pallas_bwd_lanes
-//        (_fused_bwd_kernel_lanes)
 //
 // What bounds it on this card. At the flagship shape (B=512, D=784, H=100)
-// one trial step is 12 contractions of 2*B*D*H = 80 MFLOP, about 1 GFLOP
-// forward and 3 GFLOP backward, over 0.6 MB of weights and 5 (forward) or
-// 11 (backward) row arrays of 1.6 MB. Far below the card's f32 rate and its
-// bandwidth: the bound is latency, six dependent stages of a contraction, a
-// tanh and a lincomb, a block barrier between them.
+// one trial step is 12 contractions of 2*B*D*H = 80 MFLOP, about 1 GFLOP,
+// over 0.6 MB of weights and 5 row arrays of 1.6 MB. Far below the card's
+// f32 rate and its bandwidth: the bound is latency, six dependent stages of
+// a contraction, a tanh and a lincomb, a block barrier between them.
 //
 // What the design does about it. K1's layout (normed_tsit5.cuh): one
-// block owns a small row tile (4 rows forward, 2 backward) and runs all six
-// stages with the state, the seven stage derivatives and the hidden
-// activations in shared memory (sized from both D and H); the weights are
-// read from L2 in nn.Linear's layout. The Pallas kernels' per-lane (t, dt)
-// columns are per-row values in shared memory. Rounding: the forward
-// reproduces its plain version (ops/fused_mlp_lanes.py
-// _reference_sweep_lanes) bitwise, because each of the 512 lanes decides
-// accept or reject on its own error norm at the tolerance's float32 floor:
+// block owns a 4-row tile and runs all six stages with the state, the seven
+// stage derivatives and the hidden activations in shared memory (sized from
+// both D and H); the weights are read from L2 in nn.Linear's layout. The
+// Pallas kernel's per-lane (t, dt) columns are per-row values in shared
+// memory. Rounding: the forward reproduces its plain version
+// (ops/fused_mlp_lanes.py _reference_sweep_lanes) bitwise, because each of
+// the 512 lanes decides accept or reject on its own error norm at the
+// tolerance's float32 floor:
 //   * each affine map x W^T + t_i w_t + b is summed in f64 (explicit fma)
 //     and rounded once to f32, as the plain version's f64 addmm;
 //   * the stage lincombs y + dt_i * sum_j a_ij k_j, the stage times
@@ -32,23 +31,18 @@
 //     on its own (__fmul_rn/__fadd_rn, no contraction), in PyTorch's order;
 //   * tanh is 2 / (1 + expf(-2x)) - 1 op by op, as ops/math.py's
 //     2 * sigmoid(2x) - 1 on ATen's sigmoid.
-// The backward (K12) recomputes the stages the same way, then runs the
-// normed step's reverse chain (_normed_bwd_math) with per-row (ct_t,
-// ct_dt), reduced over each row inside its block (rows do not share a
-// time); the weight cotangents, including
-// the time columns' (the per-row stage time against the pre-activation
-// cotangents), are the contractions of the stored per-stage rows that
-// weight_cotangents.cu sums in a fixed order. No floating-point atomics.
+// The per-sample engine takes its accept flags from this forward, so its
+// backward (K12) rounds as K3's stages do and moves gradients only.
+// No floating-point atomics.
 //
-// Making these fast (wgmma, TMA, f32 sums with the rounding checked) is
-// later work; the contractions here are plain FMA loops.
+// Making it fast (the whole solve's grid-split stages, with the rounding
+// checked) is later work; the contractions here are plain FMA loops.
 
 #include "normed_tsit5.cuh"
 
 namespace {
 
 constexpr int kLanesFwdRows = 4;
-constexpr int kLanesBwdRows = 2;
 
 __device__ __forceinline__ double warp_sum_d(double v) {
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
@@ -132,12 +126,11 @@ __device__ void lanes_stage(const float* yi, float* hid, float* k_out, const flo
 // Loads ROWS rows of y, k1 and their (t, dt) (zero past the batch end) and
 // runs the six stages. Shared layout: y | ks[0..6] | yi | g6 (each ROWS*D),
 // then hid (ROWS*H), then tc | dtc | ti (ROWS each). On return yi holds
-// y_new (the stage-6 state, FSAL) and g6 the stage-5 state; hs, when given,
-// each stage's hidden activations (6 x ROWS*H).
+// y_new (the stage-6 state, FSAL) and g6 the stage-5 state.
 template <int ROWS>
 __device__ void lanes_recompute(const float* y_g, const float* k1_g, const float* t_g,
                                 const float* dt_g, int row0, int rows, float* y_s,
-                                float* ks, float* yi, float* g6, float* hid, float* hs,
+                                float* ks, float* yi, float* g6, float* hid,
                                 float* tc, float* dtc, float* ti,
                                 const float* __restrict__ W1, const float* __restrict__ b1,
                                 const float* __restrict__ W2, const float* __restrict__ b2,
@@ -162,19 +155,13 @@ __device__ void lanes_recompute(const float* y_g, const float* k1_g, const float
     }
     for (int r = threadIdx.x; r < ROWS; r += kThreads) ti[r] = stage_time(i, tc, dtc, r);
     __syncthreads();
-    lanes_stage<ROWS>(yi, hs ? hs + (i - 1) * ROWS * H : hid, ks + i * n, ti, W1, b1, W2,
-                      b2, D, H);
+    lanes_stage<ROWS>(yi, hid, ks + i * n, ti, W1, b1, W2, b2, D, H);
   }
 }
 
 size_t lanes_fwd_smem_bytes(int D, int H) {
   return sizeof(float) * ((size_t)10 * kLanesFwdRows * D + (size_t)kLanesFwdRows * H +
                           3 * kLanesFwdRows);
-}
-
-size_t lanes_bwd_smem_bytes(int D, int H) {
-  return sizeof(float) * ((size_t)20 * kLanesBwdRows * D + (size_t)7 * kLanesBwdRows * H +
-                          3 * kLanesBwdRows + 2 * kLanesBwdRows * (kWarps + 1));
 }
 
 // K11: one lane-wise Tsit5 trial step per row tile; writes y_new, k7, err,
@@ -199,8 +186,8 @@ lanes_fwd_kernel(const float* __restrict__ t, const float* __restrict__ dt,
   float* tc = hid + R * H;
   float* dtc = tc + R;
   float* ti = dtc + R;
-  lanes_recompute<R>(y, k1, t, dt, row0, rows, y_s, ks, yi, g6, hid, nullptr, tc, dtc, ti,
-                     W1, b1, W2, b2, D, H);
+  lanes_recompute<R>(y, k1, t, dt, row0, rows, y_s, ks, yi, g6, hid, tc, dtc, ti, W1, b1, W2,
+                     b2, D, H);
   for (int idx = threadIdx.x; idx < rows * D; idx += kThreads) {
     const size_t g = (size_t)row0 * D + idx;
     y_new[g] = yi[idx];
@@ -208,173 +195,6 @@ lanes_fwd_kernel(const float* __restrict__ t, const float* __restrict__ dt,
     err[g] = __fmul_rn(dtc[idx / D], lanes_err_comb(ks, n, idx));
     k6[g] = ks[5 * n + idx];
     g6_out[g] = g6[idx];
-  }
-}
-
-// K12: the hand reverse chain of K11 per row tile (the math of
-// pallas_mlp.py _fused_bwd_kernel_lanes), seeded with the cotangents of
-// y_new, k7, err, k6 and g6. Writes the tile's ct_y, ct_k1 rows, its rows'
-// ct_t and ct_dt, and the rows of the weight-cotangent contractions: cp2
-// (6B x D), he (6B x (H+2)) = [h, t_i, 1], cp1 (6B x H), ye (6B x (D+2)) =
-// [y_i, t_i, 1]; row = stage * B + batch row.
-__global__ void __launch_bounds__(kThreads)
-lanes_bwd_kernel(const float* __restrict__ t, const float* __restrict__ dt,
-                 const float* __restrict__ y, const float* __restrict__ k1,
-                 const float* __restrict__ W1, const float* __restrict__ b1,
-                 const float* __restrict__ W2, const float* __restrict__ b2,
-                 const float* __restrict__ ct_ynew, const float* __restrict__ ct_k7,
-                 const float* __restrict__ ct_err, const float* __restrict__ ct_k6,
-                 const float* __restrict__ ct_g6, float* __restrict__ ct_y,
-                 float* __restrict__ ct_k1, float* __restrict__ ct_t,
-                 float* __restrict__ ct_dt, float* __restrict__ cp2, float* __restrict__ he,
-                 float* __restrict__ cp1, float* __restrict__ ye, int B, int D, int H) {
-  extern __shared__ float smem[];
-  constexpr int R = kLanesBwdRows;
-  const int n = R * D;
-  const int row0 = blockIdx.x * R;
-  const int rows = min(R, B - row0);
-  float* y_s = smem;
-  float* ks = y_s + n;        // 7 x n
-  float* cks = ks + 7 * n;    // 7 x n, the stage derivatives' cotangents
-  float* yi = cks + 7 * n;    // y_new after the recompute
-  float* seed5 = yi + n;      // the stage-5 state, then ct_g6
-  float* seed6 = seed5 + n;
-  float* cty = seed6 + n;
-  float* accb = cty + n;
-  float* hs = accb + n;       // 6 x R*H
-  float* ctp1 = hs + 6 * R * H;
-  float* tc = ctp1 + R * H;
-  float* dtc = tc + R;
-  float* ti = dtc + R;
-  float* red = ti + R;        // 2R x kWarps
-  float* sums = red + 2 * R * kWarps;  // 2R
-
-  lanes_recompute<R>(y, k1, t, dt, row0, rows, y_s, ks, yi, seed5, nullptr, hs, tc, dtc, ti,
-                     W1, b1, W2, b2, D, H);
-
-  float part[2 * R];  // per row: ct_t, then ct_dt
-#pragma unroll
-  for (int q = 0; q < 2 * R; ++q) part[q] = 0.0f;
-  // ---- seeds; rows past the batch end get none ----
-#pragma unroll
-  for (int r = 0; r < R; ++r) {
-    for (int d = threadIdx.x; d < D; d += kThreads) {
-      const int idx = r * D + d;
-      const bool valid = r < rows;
-      const size_t g = (size_t)(row0 + r) * D + d;
-      const float ce = valid ? ct_err[g] : 0.0f;
-      const float s_comb = lanes_err_comb(ks, n, idx);
-      for (int j = 0; j < 7; ++j) cks[j * n + idx] = kBt[j] * (dtc[r] * ce);
-      cks[6 * n + idx] += valid ? ct_k7[g] : 0.0f;
-      cks[5 * n + idx] += valid ? ct_k6[g] : 0.0f;
-      seed6[idx] = valid ? ct_ynew[g] : 0.0f;
-      seed5[idx] = valid ? ct_g6[g] : 0.0f;
-      cty[idx] = 0.0f;
-      part[R + r] += ce * s_comb;
-    }
-  }
-
-  // ---- reverse over the stages ----
-  for (int i = 6; i >= 1; --i) {
-    const float* k_i = ks + i * n;
-    float* cp2_s = cks + i * n;  // ct_pre2 overwrites ct_ks[i]
-    const float* h_i = hs + (i - 1) * R * H;
-    const size_t srow = (size_t)(i - 1) * B + row0;
-    float ct_ti[R];
-#pragma unroll
-    for (int r = 0; r < R; ++r) ct_ti[r] = 0.0f;
-    __syncthreads();
-    for (int r = threadIdx.x; r < R; r += kThreads) ti[r] = stage_time(i, tc, dtc, r);
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      for (int d = threadIdx.x; d < D; d += kThreads) {
-        const int idx = r * D + d;
-        const float acc = lanes_acc(i, ks, n, idx);
-        accb[idx] = acc;
-        const float kv = k_i[idx];
-        const float cp = cp2_s[idx] * (1.0f - kv * kv);
-        cp2_s[idx] = cp;
-        if (r < rows) {
-          cp2[(srow + r) * D + d] = cp;
-          ye[(srow + r) * (D + 2) + d] = __fadd_rn(y_s[idx], __fmul_rn(dtc[r], acc));
-          ct_ti[r] += cp * W2[(size_t)d * (H + 1) + H];
-        }
-      }
-    }
-    __syncthreads();
-    for (int r = threadIdx.x; r < rows; r += kThreads) {
-      ye[(srow + r) * (D + 2) + D] = ti[r];
-      ye[(srow + r) * (D + 2) + D + 1] = 1.0f;
-      he[(srow + r) * (H + 2) + H] = ti[r];
-      he[(srow + r) * (H + 2) + H + 1] = 1.0f;
-    }
-    // ct_h = ct_pre2 W2h; ct_pre1 = ct_h (1 - h^2)
-    {
-      const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-      for (int h = warp; h < H; h += kWarps) {
-        float s[R];
-#pragma unroll
-        for (int r = 0; r < R; ++r) s[r] = 0.0f;
-        for (int d = lane; d < D; d += 32) {
-          const float w = W2[(size_t)d * (H + 1) + h];
-#pragma unroll
-          for (int r = 0; r < R; ++r) s[r] += cp2_s[r * D + d] * w;
-        }
-#pragma unroll
-        for (int r = 0; r < R; ++r) s[r] = warp_sum(s[r]);
-        if (lane == 0) {
-          const float w1t = W1[(size_t)h * (D + 1) + D];
-#pragma unroll
-          for (int r = 0; r < R; ++r) {
-            const float hv = h_i[r * H + h];
-            const float c1 = s[r] * (1.0f - hv * hv);
-            ctp1[r * H + h] = c1;
-            if (r < rows) {
-              cp1[(srow + r) * H + h] = c1;
-              he[(srow + r) * (H + 2) + h] = hv;
-              ct_ti[r] += c1 * w1t;
-            }
-          }
-        }
-      }
-    }
-    __syncthreads();
-    // ct_yi = seed_i + ct_pre1 W1x, then the lincomb transposes
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      for (int d = threadIdx.x; d < D; d += kThreads) {
-        const int idx = r * D + d;
-        float s = 0.0f;
-        for (int h = 0; h < H; ++h) s += ctp1[r * H + h] * W1[(size_t)h * (D + 1) + d];
-        float ct_yi = s;
-        if (i == 6) ct_yi = seed6[idx] + s;
-        if (i == 5) ct_yi = seed5[idx] + s;
-        cty[idx] += ct_yi;
-        if (r < rows) part[R + r] += ct_yi * accb[idx];
-        for (int j = 0; j < i; ++j) {
-          const float c = kA[i - 1][j];
-          if (c != 0.0f) cks[j * n + idx] += (dtc[r] * c) * ct_yi;
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      part[r] += ct_ti[r];
-      part[R + r] += kC[i] * ct_ti[r];
-    }
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < rows * D; idx += kThreads) {
-    const size_t g = (size_t)row0 * D + idx;
-    ct_y[g] = cty[idx];
-    ct_k1[g] = cks[idx];
-  }
-  block_sum_to<2 * R>(part, red, sums);
-  if (threadIdx.x == 0) {
-    for (int r = 0; r < rows; ++r) {
-      ct_t[row0 + r] = sums[r];
-      ct_dt[row0 + r] = sums[R + r];
-    }
   }
 }
 
@@ -396,33 +216,6 @@ int regnde_lanes_fwd(const float* t, const float* dt, const float* y, const floa
   lanes_fwd_kernel<<<nblocks, kThreads, smem, s>>>(t, dt, y, k1, W1, b1, W2, b2, y_new, k7,
                                                    err, k6, g6, B, D, H);
   return (int)cudaGetLastError();
-}
-
-// K12. Cotangents of the five outputs (B, D) in; ct_y, ct_k1 (B, D), ct_t,
-// ct_dt (B,) and the weight cotangents in nn.Linear layout out: cW1
-// (H, D+1), cb1 (H), cW2 (D, H+1), cb2 (D). Scratch: cp2 (6B, D),
-// he (6B, H+2), cp1 (6B, H), ye (6B, D+2), and the contraction's wpart
-// (wpart_floats floats, chunks of chunk_rows rows; weight_cotangents.cu).
-int regnde_lanes_bwd(const float* t, const float* dt, const float* y, const float* k1,
-                     const float* W1, const float* b1, const float* W2, const float* b2,
-                     const float* ct_ynew, const float* ct_k7, const float* ct_err,
-                     const float* ct_k6, const float* ct_g6, float* ct_y, float* ct_k1,
-                     float* ct_t, float* ct_dt, float* cW1, float* cb1, float* cW2,
-                     float* cb2, float* cp2, float* he, float* cp1, float* ye, float* wpart,
-                     int B, int D, int H, int chunk_rows, int wpart_floats, void* stream) {
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t smem = lanes_bwd_smem_bytes(D, H);
-  cudaError_t e = cudaFuncSetAttribute(
-      lanes_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  const int nblocks = (B + kLanesBwdRows - 1) / kLanesBwdRows;
-  lanes_bwd_kernel<<<nblocks, kThreads, smem, s>>>(
-      t, dt, y, k1, W1, b1, W2, b2, ct_ynew, ct_k7, ct_err, ct_k6, ct_g6, ct_y, ct_k1, ct_t,
-      ct_dt, cp2, he, cp1, ye, B, D, H);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  return (int)launch_weight_cotangents(cp2, he, cp1, ye, cW1, cb1, cW2, cb2, wpart, 6 * B, D, H,
-                                      chunk_rows, wpart_floats, s);
 }
 
 }  // extern "C"

@@ -58,6 +58,10 @@
 //     redundantly (fwd_decide, as whole_solve_fwd_kernel); then each block
 //     writes its tiles' copy of a rejected step or Hermite rows.
 //   * The stage residuals go out with evict-first stores: K4 reads them once.
+//   * The stage phases are templates over a time policy (below) and read
+//     times only through it, a row or a 4-row group at a time: the solve's
+//     and K4's, K2's and K14's replays give every row the step's t and dt,
+//     K12's replay each row its own.
 // IEEE f32 FMAs, no TF32, no fast math, no atomics: every sum has a fixed
 // order, so runs are bitwise reproducible. The stage's arithmetic outside
 // the contractions' fmaf chains is pinned (explicit roundings), so K4's
@@ -116,6 +120,9 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {  // a + b, per lane
 }
 __device__ __forceinline__ float4 axpy4(float a, float4 x, float4 y) {  // y + a x, per lane
   return make_float4(y.x + a * x.x, y.y + a * x.y, y.z + a * x.z, y.w + a * x.w);
+}
+__device__ __forceinline__ float4 axpy4(float4 a, float4 x, float4 y) {  // y + a x, per lane
+  return make_float4(y.x + a.x * x.x, y.y + a.y * x.y, y.z + a.z * x.z, y.w + a.w * x.w);
 }
 __device__ __forceinline__ float& comp(float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
@@ -211,6 +218,77 @@ __device__ __forceinline__ void for_tile(const WalkTile& tl, int D, F f) {
     const int r = e / tl.cols, c = e - r * tl.cols;
     f((size_t)(tl.row0 + r) * D + tl.d0 + c);
   }
+}
+
+// ---------------------------------------------------------------------------
+// The time policies of a trial step's phases: how a row's t and dt are read
+// (t_row, dt_row; dtv, a 4-row group's dt). StepTime (K3, K4, K2, K14):
+// every row at the step's t and dt, and dtv a float. LaneTime (K12, the
+// per-sample engine's step): row r of the batch at t[r] and dt[r], device
+// arrays of B floats; load stages the current tile's rows in the block's
+// LaneRows (in the walk's dynamic shared memory, mlp_walk.cuh walk_smem)
+// before its stages and before its walk, and dtv is a float4. Where the
+// walk sums the time terms of (ct_t, ct_dt) it asks the policy too
+// (mlp_walk.cuh).
+// ---------------------------------------------------------------------------
+
+constexpr int kLaneRows = 32;  // the most rows a tile has (ops/whole_solve.py WALK_ROWS)
+
+// The shared rows of a LaneTime step: the tile's times and, for the rows
+// this block reduces in the walk (rows db + k ndb), a stage's time-column
+// term of ct_ti, the row's ct_t and the time terms of its ct_dt.
+struct __align__(16) LaneRows {
+  float t[kLaneRows], dt[kLaneRows], vt[kLaneRows], ct[kLaneRows], cdt[kLaneRows];
+};
+
+// Stage I's time, each operation rounded on its own.
+template <int I>
+__device__ __forceinline__ float stage_ti(float t, float dt) {
+  return __fadd_rn(t, __fmul_rn(kC[I], dt));
+}
+
+struct StepTime {
+  static constexpr bool kLanes = false;
+  float t, dt;
+  __device__ __forceinline__ void load(const WalkTile&) const {}
+  __device__ __forceinline__ float dtv(int) const { return dt; }
+  __device__ __forceinline__ float t_row(int) const { return t; }
+  __device__ __forceinline__ float dt_row(int) const { return dt; }
+};
+
+struct LaneTime {
+  static constexpr bool kLanes = true;
+  const float *t, *dt;  // B floats each, on the device
+  LaneRows* rows;       // the block's, in its shared memory
+  // the tile's rows' times (zero past the batch) into rows, and the reduced
+  // rows' sums to zero, between two block barriers
+  __device__ __forceinline__ void load(const WalkTile& tl) const {
+    __syncthreads();  // every read of the last tile's rows is done
+    if (threadIdx.x < kLaneRows) {
+      const int r = threadIdx.x;
+      const bool ok = r < tl.rows;
+      rows->t[r] = ok ? __ldg(t + tl.row0 + r) : 0.0f;
+      rows->dt[r] = ok ? __ldg(dt + tl.row0 + r) : 0.0f;
+      rows->ct[r] = 0.0f;
+      rows->cdt[r] = 0.0f;
+    }
+    __syncthreads();
+  }
+  __device__ __forceinline__ float4 dtv(int g) const { return ld4(rows->dt + 4 * g); }
+  __device__ __forceinline__ float t_row(int r) const { return rows->t[r]; }
+  __device__ __forceinline__ float dt_row(int r) const { return rows->dt[r]; }
+};
+
+// dtv times a constant, per lane.
+__device__ __forceinline__ float times(float a, float b) { return a * b; }
+__device__ __forceinline__ float4 times(float4 a, float b) {
+  return make_float4(a.x * b, a.y * b, a.z * b, a.w * b);
+}
+
+// Lane q of a 4-row group's value: the value itself when all rows share it.
+__device__ __forceinline__ float lane_of(float v, int) { return v; }
+__device__ __forceinline__ float lane_of(float4 v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
 }
 
 // ---------------------------------------------------------------------------
@@ -310,19 +388,14 @@ __device__ void solve_pad_weights(const float* W1, const float* W2, const Solve&
 }
 
 // One trial step as the phases see it: its start rows (hy[i], hf[i]), its
-// rows of the stage residuals (6 x B x D, 6 x B x H; null without OUT), t
-// and dt_eff.
+// rows of the stage residuals (6 x B x D, 6 x B x H; null without OUT), and
+// its time policy (K3's: t and dt_eff).
+template <class Time>
 struct SolveStep {
   const float *y, *k1;
   float *ks, *hs;
-  float t, dt;
+  Time tm;
 };
-
-// Stage I's time, each operation rounded on its own.
-template <int I>
-__device__ __forceinline__ float solve_ti(const SolveStep& ss) {
-  return __fadd_rn(ss.t, __fmul_rn(kC[I], ss.dt));
-}
 
 // Slab p of phase A's weights: the tile's C rows of w1p.
 __device__ __forceinline__ void solve_load_w1(const Solve& f, const SolveSmem& s,
@@ -340,10 +413,10 @@ __device__ __forceinline__ void solve_load_w2(const Solve& f, const SolveSmem& s
 }
 
 // Stage I's input at 4 rows of one column (offset off of the state): y +
-// dt sum_j a_Ij k_j, k_0..k_{I-2} from the state and k_{I-1} given (kl).
-template <int I>
-__device__ __forceinline__ float4 solve_input(const SolveSmem& s, int off, float4 kl,
-                                              float dt) {
+// dt sum_j a_Ij k_j, k_0..k_{I-2} from the state and k_{I-1} given (kl); dt
+// the rows' (a float4) or the step's (a float).
+template <int I, class DT>
+__device__ __forceinline__ float4 solve_input(const SolveSmem& s, int off, float4 kl, DT dt) {
   float4 kv[I];
 #pragma unroll
   for (int j = 0; j + 1 < I; ++j) kv[j] = ld4(s.st + (1 + j) * s.RC + off);
@@ -355,7 +428,7 @@ __device__ __forceinline__ float4 solve_input(const SolveSmem& s, int off, float
     float k[I];
 #pragma unroll
     for (int j = 0; j < I; ++j) k[j] = comp(kv[j], q);
-    comp(yi, q) = stage_state(I, &y, k, 1, 0, dt);
+    comp(yi, q) = stage_state(I, &y, k, 1, 0, lane_of(dt, q));
   }
   return yi;
 }
@@ -363,7 +436,8 @@ __device__ __forceinline__ float4 solve_input(const SolveSmem& s, int off, float
 // The load of the tile (items: 4 rows of a column, consecutive threads on
 // consecutive columns): y and k1 (zero outside the tile) into the state,
 // stage 1's input into s.yi.
-__device__ __forceinline__ void solve_load(const SolveStep& ss, const SolveSmem& s,
+template <class Time>
+__device__ __forceinline__ void solve_load(const SolveStep<Time>& ss, const SolveSmem& s,
                                            const WalkTile& tl, int R, int C, int D) {
   const int n = C * (R / 4);
   for (int e = threadIdx.x; e < n; e += kThreads) {
@@ -379,7 +453,7 @@ __device__ __forceinline__ void solve_load(const SolveStep& ss, const SolveSmem&
     }
     st4(s.st + off, yv);
     st4(s.st + s.RC + off, kv);
-    st4(s.yi + off, solve_input<1>(s, off, kv, ss.dt));
+    st4(s.yi + off, solve_input<1>(s, off, kv, ss.tm.dtv(g)));
   }
 }
 
@@ -422,12 +496,13 @@ __device__ __forceinline__ void solve_phase_a(const Solve& f, const SolveSmem& s
 // they are summed (an add waiting on each load made them ndb round trips to
 // L2 one after another). Every block reducing all of its row block's rows,
 // one barrier a stage, took K3 from 5.65 to 8.05 ms (512x784x100, H100).
-template <int I, bool OUT, class M>
-__device__ __forceinline__ void solve_reduce(const M& m, const Solve& f, const SolveStep& ss,
+template <int I, bool OUT, class M, class Time>
+__device__ __forceinline__ void solve_reduce(const M& m, const Solve& f,
+                                             const SolveStep<Time>& ss,
                                              const WalkTile& tl, const float* psum, float* hidg,
                                              int HP4, int B, int D) {
   const int H = m.H, R = f.R;
-  const float ti = solve_ti<I>(ss);
+  const Time tm = ss.tm;
   const size_t PT = (size_t)R * HP4;  // floats of one tile's partial
   const int n = (R - tl.db + f.ndb - 1) / f.ndb * H;
   constexpr int U = 2, Q = 8;
@@ -455,6 +530,7 @@ __device__ __forceinline__ void solve_reduce(const M& m, const Solve& f, const S
       const int e = e0 + u * kThreads, k = e / H, h = e - k * H, r = tl.db + k * f.ndb;
       if (e >= n) continue;
       const float w1t = __ldg(m.W1 + (size_t)h * (D + 1) + D);
+      const float ti = stage_ti<I>(tm.t_row(r), tm.dt_row(r));
       const float hv = accurate_tanh(__fadd_rn(__fadd_rn(v[u], __fmul_rn(ti, w1t)),
                                                __ldg(m.b1 + h)));
       hidg[(size_t)h * R + r] = hv;
@@ -468,8 +544,9 @@ __device__ __forceinline__ void solve_reduce(const M& m, const Solve& f, const S
 // columns into the state and, with OUT, its rows to the ks stream; below
 // stage 6 the next phase A's first slabs, and the next stage's input
 // (solve_input) of the elements each thread computed.
-template <int I, bool OUT, class M>
-__device__ __forceinline__ void solve_phase_b(const M& m, const Solve& f, const SolveStep& ss,
+template <int I, bool OUT, class M, class Time>
+__device__ __forceinline__ void solve_phase_b(const M& m, const Solve& f,
+                                              const SolveStep<Time>& ss,
                                               const SolveSmem& s, const WalkTile& tl,
                                               const float* hidg, int B, int D) {
   const int H = m.H, R = f.R, C = f.C, G4 = R / 4;
@@ -481,7 +558,7 @@ __device__ __forceinline__ void solve_phase_b(const M& m, const Solve& f, const 
     s.hid[e] = 0.0f;
   __syncthreads();
 
-  const float ti = solve_ti<I>(ss);
+  const Time tm = ss.tm;
   const int items = G4 * (C / 4);
   const int nslab = (H + kWalkKB - 1) / kWalkKB;
   const int kk0 = threadIdx.x / (C / 4), c40 = threadIdx.x % (C / 4);
@@ -498,17 +575,22 @@ __device__ __forceinline__ void solve_phase_b(const M& m, const Solve& f, const 
       walk_prefetch((tl.cols + kWalkKB - 1) / kWalkKB,
                     [&](int p) { solve_load_w1(f, s, tl, p); });
     if (item >= items) continue;
+    float4 ti;  // t_I of the item's rows
+#pragma unroll
+    for (int i = 0; i < kWalkTM; ++i)
+      comp(ti, i) = stage_ti<I>(tm.t_row(4 * g + i), tm.dt_row(4 * g + i));
 #pragma unroll
     for (int u = 0; u < kWalkTN; ++u) {
       const int c = 4 * cg + u;
       const bool in = c < tl.cols;
       const size_t d = (size_t)tl.d0 + c;
-      const float tw = in ? __fmul_rn(ti, __ldg(m.W2 + d * (H + 1) + H)) : 0.0f;
+      const float w2t = in ? __ldg(m.W2 + d * (H + 1) + H) : 0.0f;
       const float b = in ? __ldg(m.b2 + d) : 0.0f;
       float4 k;
 #pragma unroll
       for (int i = 0; i < kWalkTM; ++i)
-        comp(k, i) = accurate_tanh(__fadd_rn(__fadd_rn(acc[i][u], tw), b));
+        comp(k, i) =
+            accurate_tanh(__fadd_rn(__fadd_rn(acc[i][u], __fmul_rn(comp(ti, i), w2t)), b));
       const int off = walk_at(c, g, R);
       st4(s.st + (1 + I) * s.RC + off, k);  // ks[I] = k_{I+1}
       if constexpr (OUT) {
@@ -517,7 +599,7 @@ __device__ __forceinline__ void solve_phase_b(const M& m, const Solve& f, const 
           if (4 * g + i < tl.rows && in)
             __stcs(ss.ks + ((size_t)(I - 1) * B + tl.row0 + 4 * g + i) * D + d, comp(k, i));
       }
-      if constexpr (I < 6) st4(s.yi + off, solve_input<I + 1>(s, off, k, ss.dt));
+      if constexpr (I < 6) st4(s.yi + off, solve_input<I + 1>(s, off, k, tm.dtv(g)));
     }
   }
 }
@@ -525,9 +607,9 @@ __device__ __forceinline__ void solve_phase_b(const M& m, const Solve& f, const 
 // One stage: phase A, the barrier, the reduction, the barrier, phase B.
 // Each block's next phase A comes after the second barrier, so every
 // partial it overwrites has been read.
-template <int I, bool OUT, class M>
+template <int I, bool OUT, class M, class Time>
 __device__ __forceinline__ void solve_stage(const M& m, const Solve& f, cg::grid_group& grid,
-                                            const SolveStep& ss, const SolveSmem& s,
+                                            const SolveStep<Time>& ss, const SolveSmem& s,
                                             const WalkTile& tl, int B, int D) {
   const size_t pstride = (size_t)s.HP4 * f.R;
   float* hidg = f.hid + (size_t)tl.rb * m.H * f.R;
@@ -543,15 +625,16 @@ __device__ __forceinline__ void solve_stage(const M& m, const Solve& f, cg::grid
 // The six stages of one trial step on one tile: y, k1..k7 and the stage-6
 // input (y_new) in shared memory after it; with OUT the rows of k2..k7 and
 // of every stage's hidden layer streamed.
-template <bool OUT, class M>
+template <bool OUT, class M, class Time>
 __device__ __forceinline__ void solve_stages(const M& m, const Solve& f, cg::grid_group& grid,
-                                             const SolveStep& ss, const SolveSmem& s,
+                                             const SolveStep<Time>& ss, const SolveSmem& s,
                                              const WalkTile& tl, int B, int D) {
   // the stage input's padding columns stay zero: phase A sums whole slabs
   for (int e = f.C * f.R + threadIdx.x; e < walk_round_up(f.C, kWalkKB) * f.R; e += kThreads)
     s.yi[e] = 0.0f;
   walk_prefetch((tl.cols + kWalkKB - 1) / kWalkKB,
                 [&](int p) { solve_load_w1(f, s, tl, p); });
+  ss.tm.load(tl);
   __syncthreads();  // the last reads of the state (the caller's) are done
   solve_load(ss, s, tl, f.R, f.C, D);
   solve_stage<1, OUT>(m, f, grid, ss, s, tl, B, D);
@@ -566,7 +649,7 @@ __device__ __forceinline__ void solve_stages(const M& m, const Solve& f, cg::gri
 // After the stages: the tile's norm sums added to sums (err, num, den;
 // normed_fwd_tile's algebra, the stage-5 state rebuilt by stage_state) and
 // its rows of y_new and k7 to yn, kn.
-__device__ __forceinline__ void solve_finish(const SolveStep& ss, const SolveSmem& s,
+__device__ __forceinline__ void solve_finish(const SolveStep<StepTime>& ss, const SolveSmem& s,
                                              const WalkTile& tl, int R, int C, int D,
                                              float rtol, float atol, float* yn, float* kn,
                                              float (&sums)[3]) {
@@ -586,11 +669,11 @@ __device__ __forceinline__ void solve_finish(const SolveStep& ss, const SolveSme
 #pragma unroll
       for (int j = 0; j < 7; ++j) k[j] = comp(kv[j], q);
       const float y = comp(yv, q), ynew = comp(ynv, q);
-      const float g6 = stage_state(5, &y, k, 1, 0, ss.dt);
+      const float g6 = stage_state(5, &y, k, 1, 0, ss.tm.dt);
       float s_comb = kBt[1] * (k[1] - k[0]);
 #pragma unroll
       for (int j = 2; j <= 6; ++j) s_comb += kBt[j] * (k[j] - k[0]);
-      const float err = ss.dt * s_comb;
+      const float err = ss.tm.dt * s_comb;
       const float denom = atol + fmaxf(fabsf(y), fabsf(ynew)) * rtol;
       const float sc = err / denom;
       sums[0] += sc * sc;
@@ -647,8 +730,8 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_solve_kernel(SolveArgs<STREAM
     const float* fi = a.hf + (size_t)i * BD;
     float* yn = a.hy + (size_t)(i + 1) * BD;
     float* kn = a.hf + (size_t)(i + 1) * BD;
-    const SolveStep ss{yi, fi, STREAM ? m.ks + (size_t)i * 6 * BD : nullptr,
-                       STREAM ? m.hs + (size_t)i * 6 * B * H : nullptr, t, dt_eff};
+    const SolveStep<StepTime> ss{yi, fi, STREAM ? m.ks + (size_t)i * 6 * BD : nullptr,
+                                 STREAM ? m.hs + (size_t)i * 6 * B * H : nullptr, t, dt_eff};
     float sums[3] = {0.0f, 0.0f, 0.0f};
     for (int chunk = 0; chunk < f.chunks; ++chunk) {
       const WalkTile tl = walk_tile(f, B, D, chunk);

@@ -79,6 +79,12 @@
 //     equals the replay bitwise: K3 streamed the same bits.
 //   * A batch whose state does not fit the grid's shared memory is walked
 //     in row chunks, one after another, each the whole chain of stages.
+//   * The phases are templates over the step's time policy (mlp_solve.cuh)
+//     and read times only through it: StepTime here and in K2 and K14,
+//     K12's LaneTime (mlp_step_walk.cuh), whose rows each take their own t
+//     and dt. Only where the time terms of (ct_t, ct_dt) are summed do the
+//     two differ (ti_term, ti_sum, dt_term): the thread's sums, or each
+//     row's own.
 // No atomics, no TF32, no fast math: every sum has a fixed order, so runs
 // are bitwise reproducible.
 
@@ -87,27 +93,34 @@
 namespace {
 
 constexpr int kWalkState = 13;   // floats of reverse state an element
+constexpr int kLaneState = 14;   // K12's: and each element's share of its row's ct_dt
+constexpr int kLaneRowFloats = sizeof(LaneRows) / sizeof(float);  // K12's: after the state
 constexpr int kWalkRounds = 4;   // a thread's items in a row pass, in registers
 // shared-memory arrays of the state, kWalkState x (C x R)
 enum { WS_KS = 0, WS_CKS = 6, WS_CTY = 12 };
 
 // Floats of the walk's shared memory for tiles of R rows x C columns: the
-// state, ct_pre2 of the tile (C rounded to a slab, x R), ct_pre1 of the row
-// block (H rounded to a slab, x R), the slab ring (rows of H+1 or C floats,
-// rounded to kWalkTN) and the block sum's scratch.
-__host__ __device__ inline size_t walk_smem_floats(int R, int C, int H) {
+// state (state floats an element: kWalkState, or kLaneState with K12's
+// per-element ct_dt shares, which lie after the block sum's scratch),
+// ct_pre2 of the tile (C rounded to a slab, x R), ct_pre1 of the row block
+// (H rounded to a slab, x R), the slab ring (rows of H+1 or C floats,
+// rounded to kWalkTN), the block sum's scratch and, with kLaneState, K12's
+// LaneRows last.
+__host__ __device__ inline size_t walk_smem_floats(int R, int C, int H,
+                                                   int state = kWalkState) {
   const int HPP = walk_round_up(H + 1, kWalkTN);
   const int slab = HPP > C ? HPP : C;
-  return (size_t)R * ((size_t)kWalkState * C + walk_round_up(C, kWalkKB) +
+  return (size_t)R * ((size_t)state * C + walk_round_up(C, kWalkKB) +
                       walk_round_up(H, kWalkKB)) +
-         (size_t)kWalkStages * kWalkKB * slab + 4 * kWarps;
+         (size_t)kWalkStages * kWalkKB * slab + 4 * kWarps +
+         (state == kLaneState ? kLaneRowFloats : 0);
 }
 
 // The walk's dynamic shared memory. The replay's stages (K3's, on the same
 // tiles) reuse it: solve_smem_floats is below walk_smem_floats term by term
 // (8 floats of state an element against 13, slabs of H against H+1).
-size_t walk_smem_bytes(int R, int C, int H) {
-  return sizeof(float) * walk_smem_floats(R, C, H);
+size_t walk_smem_bytes(int R, int C, int H, int state = kWalkState) {
+  return sizeof(float) * walk_smem_floats(R, C, H, state);
 }
 
 // The tile plan and the walk's own scratch (ops/whole_solve.py walk_plan).
@@ -127,16 +140,20 @@ struct WalkArgs {
   Walk w;
 };
 
-// One trial step's inputs and outputs as the phases see them.
-struct WalkStep {
+// One trial step's inputs and outputs as the phases see them, over its
+// time policy (mlp_solve.cuh: StepTime, or K12's LaneTime).
+template <class Time>
+struct WalkStepT {
   const float *yi, *fi, *yn, *kn;  // hy[i], hf[i], hy[i+1], hf[i+1]
   const float *ksi, *hsi;          // its stage residuals: 6 x B x D, 6 x B x H
   float *cp2, *he, *cp1, *ye;      // its weight-cotangent rows (stage s at (s-1) B)
   const float *ct_ynew, *ct_k7;    // the seeds' row cotangents (null: zero)
   const float *pass_y, *pass_k1;   // added to ct_y0, ct_f0 (null: zero)
-  float t, dt, c_err, c_num, c_den;
+  Time tm;
+  float c_err, c_num, c_den;
   int lo, hi;                      // saveat rows to pull back
 };
+using WalkStep = WalkStepT<StepTime>;
 
 struct WalkSmem {
   float* st;    // kWalkState x C x R, column-major, groups permuted (walk_at)
@@ -144,6 +161,8 @@ struct WalkSmem {
   float* ctp1;  // (H rounded to a slab) x R: the row block's ct_pre1, [h][r]
   float* slab;  // kWalkStages slabs of SS floats
   float* red;   // 4 x kWarps
+  float* pdt;   // K12's (kLaneState): C x R, as st, each element's share of ct_dt
+  LaneRows* lanes;  // K12's: the tile's rows (LaneTime), after pdt
   int RC, SS, HPP;
 };
 
@@ -157,6 +176,8 @@ __device__ __forceinline__ WalkSmem walk_smem(float* pool, const Walk& w, int H)
   s.ctp1 = s.cp2 + (size_t)walk_round_up(w.C, kWalkKB) * w.R;
   s.slab = s.ctp1 + (size_t)walk_round_up(H, kWalkKB) * w.R;
   s.red = s.slab + (size_t)kWalkStages * s.SS;
+  s.pdt = s.red + 4 * kWarps;
+  s.lanes = reinterpret_cast<LaneRows*>(s.pdt + s.RC);  // 16-byte aligned: R is a multiple of 4
   return s;
 }
 
@@ -214,9 +235,9 @@ struct SeedIn {
   float y[4], k[4][7], cyn[4], ck7[4];
 };
 
-template <bool STREAM>
+template <bool STREAM, class Time>
 __device__ __forceinline__ void seed_load(const BwdArgs<MlpDyn<STREAM>>& a,
-                                          const WalkStep& ws, const WalkTile& tl, int c,
+                                          const WalkStepT<Time>& ws, const WalkTile& tl, int c,
                                           int g, SeedIn& in) {
   const size_t BD = (size_t)a.B * a.D;
 #pragma unroll
@@ -241,7 +262,8 @@ __device__ __forceinline__ void seed_load(const BwdArgs<MlpDyn<STREAM>>& a,
 // as those stages' ct_yi carry them, into cty (from cty0), the dt partial
 // (after cerr * s_comb, the error row's share) and the cotangents of the
 // ks; then the row's state and ct_pre2 of stage 6 into lane i of the
-// item's float4s. Shared by K4's and K2's seed and K14's (mlp_step_walk.cuh).
+// item's float4s. Shared by K4's and K2's seed and K14's and K12's
+// (mlp_step_walk.cuh).
 __device__ __forceinline__ void seed_row(const float* k, float (&ck)[6], float ck6, float cerr,
                                          float s_comb, float seed6, float seed5, float cty0,
                                          float dt, float& part1, int i, float4 (&ks)[6],
@@ -293,7 +315,7 @@ __device__ __forceinline__ void seed_compute(const BwdArgs<MlpDyn<STREAM>>& a,
                                              const WalkTile& tl, int R, int c, int g,
                                              const SeedIn& in, float (&part)[4]) {
   const size_t BD = (size_t)a.B * a.D;
-  const float dt = ws.dt;
+  const float dt = ws.tm.dt;
   const bool h0 = dt == 0.0f;
   const float hd = h0 ? 1.0f : dt;
   float4 ks[6], cks[6], cty, cp;
@@ -309,7 +331,7 @@ __device__ __forceinline__ void seed_compute(const BwdArgs<MlpDyn<STREAM>>& a,
     if (ws.ct_ynew && ws.hi > ws.lo && r < tl.rows && c < tl.cols) {
       const size_t gi = (size_t)(tl.row0 + r) * a.D + tl.d0 + c;
       float c_y0, c_y1, c_f0, c_f1;
-      hermite_elem(a.sv.sa, a.sv.ys, ws.lo, ws.hi, ws.t, dt, hd, h0, yv,
+      hermite_elem(a.sv.sa, a.sv.ys, ws.lo, ws.hi, ws.tm.t, dt, hd, h0, yv,
                    __ldcg(ws.yn + gi), k[0], __ldcg(ws.kn + gi), gi, BD, part + 2, c_y0,
                    c_y1, c_f0, c_f1);
       cyn = cyn + c_y1;
@@ -349,6 +371,7 @@ __device__ __forceinline__ void seed_compute(const BwdArgs<MlpDyn<STREAM>>& a,
 // rows (hi == lo). A seed policy of walk_seed: In, the loads of one item;
 // load; compute.
 struct NormedSeed {
+  using Time = StepTime;
   using In = SeedIn;
   template <bool STREAM>
   __device__ __forceinline__ void load(const BwdArgs<MlpDyn<STREAM>>& a, const WalkStep& ws,
@@ -365,11 +388,11 @@ struct NormedSeed {
 
 // The seed phase of one tile (items: 4 rows of a column, consecutive
 // threads on consecutive columns), two items' loads in flight at once, by
-// the seed policy (NormedSeed: K4's and K2's; TupleSeed: K14's). Phase A(6)'s first
-// slabs are issued first.
-template <bool STREAM, class Seed = NormedSeed>
+// the seed policy (NormedSeed: K4's and K2's; TupleSeed: K14's; LaneSeed:
+// K12's). Phase A(6)'s first slabs are issued first.
+template <bool STREAM, class Time, class Seed = NormedSeed>
 __device__ __forceinline__ void walk_seed(const BwdArgs<MlpDyn<STREAM>>& a, const Walk& w,
-                          const WalkStep& ws, const WalkSmem& s, const WalkTile& tl,
+                          const WalkStepT<Time>& ws, const WalkSmem& s, const WalkTile& tl,
                           float (&part)[4], const Seed& seed = Seed{}) {
   const int C = w.C, n = C * (w.R / 4), H = a.dyn.H;
   walk_prefetch((tl.cols + kWalkKB - 1) / kWalkKB,
@@ -435,6 +458,63 @@ __device__ __forceinline__ void walk_phase_a(const BwdArgs<MlpDyn<STREAM>>& a, c
                 [&](int p) { walk_load_w1(w, s, tl, H, kk0, c40, p); });
 }
 
+// The time terms of (ct_t, ct_dt), by the step's time policy: ti_term and
+// ti_sum, stage I's ct_ti in walk_reduce (its terms ct_pre1 w1t, h < H, and
+// cp2_I against W2's time column, h == H; ct_t += ct_ti, ct_dt += c_I
+// ct_ti); dt_term, ct_yi . acc_i in phase B. StepTime: the thread's sums
+// (part[0], part[1]), summed over the grid after the walk. LaneTime: each
+// row's own. Row k of the rows this block reduces (rows db + k ndb of the
+// tile) keeps its terms (ct_pre1 w1t in s.ctp1, [k][h], free until phase B;
+// the time column's in rows->vt), and ti_sum adds them over h in a fixed
+// order (lane-strided, then the warp's tree), then the time column's, to
+// rows->ct and, times c_I, rows->cdt; ct_yi . acc_i stays with its element
+// (s.pdt), summed per row after the walk (mlp_step_walk.cuh lane_rows_out).
+__device__ __forceinline__ void ti_term(const StepTime&, const WalkSmem&, int, int, int,
+                                        float v, float& ct_ti) {
+  ct_ti += v;
+}
+__device__ __forceinline__ void ti_term(const LaneTime& tm, const WalkSmem& s, int k, int h,
+                                        int H, float v, float&) {
+  if (h < H) s.ctp1[k * H + h] = v;
+  else tm.rows->vt[k] = v;
+}
+template <int I>
+__device__ __forceinline__ void ti_sum(const StepTime&, const WalkSmem&, const Walk&,
+                                       const WalkTile&, int, float ct_ti, float (&part)[4]) {
+  part[0] += ct_ti;
+  part[1] += kC[I] * ct_ti;
+}
+template <int I>
+__device__ __forceinline__ void ti_sum(const LaneTime& tm, const WalkSmem& s, const Walk& w,
+                                       const WalkTile& tl, int H, float, float (&)[4]) {
+  LaneRows& lr = *tm.rows;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  __syncthreads();  // every term is in
+  for (int k = warp; tl.db + k * w.ndb < tl.rows; k += kWarps) {
+    float v = 0.0f;
+    for (int h = lane; h < H; h += 32) v += s.ctp1[k * H + h];
+    v = warp_sum(v);
+    if (lane == 0) {
+      const float ct = lr.vt[k] + v;
+      lr.ct[k] += ct;
+      lr.cdt[k] += kC[I] * ct;
+    }
+  }
+}
+__device__ __forceinline__ void dt_term(const StepTime&, float*, float4 ct, float4 acc,
+                                        float (&part)[4]) {
+  part[1] += ct.x * acc.x;
+  part[1] += ct.y * acc.y;
+  part[1] += ct.z * acc.z;
+  part[1] += ct.w * acc.w;
+}
+__device__ __forceinline__ void dt_term(const LaneTime&, float* pdt, float4 ct, float4 acc,
+                                        float (&)[4]) {
+  const float4 p = ld4(pdt);
+  st4(pdt, make_float4(p.x + ct.x * acc.x, p.y + ct.y * acc.y, p.z + ct.z * acc.z,
+                       p.w + ct.w * acc.w));
+}
+
 // The reduction of stage I: ct_h of this block's share of its row
 // block's rows (r = db, db + ndb, ...) from the column blocks' partials
 // (psum: the row block's ndb partials, [R][HPP] each), summed in
@@ -443,14 +523,14 @@ __device__ __forceinline__ void walk_phase_a(const BwdArgs<MlpDyn<STREAM>>& a, c
 // the time terms of ct_ti. Items (row, h), consecutive threads on
 // consecutive h, four in flight a thread. Then the row pass, whose loads of
 // y go first: cp2_I's rows and, below stage 6, ye of stage I+1.
-template <int I, bool STREAM>
+template <int I, bool STREAM, class Time>
 __device__ __forceinline__ void walk_reduce(const BwdArgs<MlpDyn<STREAM>>& a, const Walk& w,
-                                            const WalkStep& ws, const WalkSmem& s,
+                                            const WalkStepT<Time>& ws, const WalkSmem& s,
                                             const WalkTile& tl, const float* psum,
                                             float* ctp1g, float (&part)[4]) {
   const MlpDyn<STREAM>& m = a.dyn;
   const int H = m.H, HP = H + 1, R = w.R, B = a.B, D = a.D;
-  const float ti = ws.t + kC[I] * ws.dt;
+  const Time tm = ws.tm;
   const size_t srow = (size_t)(I - 1) * B;  // stage I's weight-cotangent rows
   const float* hsi = ws.hsi + srow * H;
   const size_t PT = (size_t)R * s.HPP;     // floats of one tile's partial
@@ -468,7 +548,7 @@ __device__ __forceinline__ void walk_reduce(const BwdArgs<MlpDyn<STREAM>>& a, co
       yp[q][i] = ok ? __ldcg(ws.yi + (size_t)(tl.row0 + r) * D + tl.d0 + c) : 0.0f;
     }
   }
-  float ct_ti = 0.0f;
+  float ct_ti = 0.0f;  // StepTime's: the thread's terms
   constexpr int U = 4;
   for (int e0 = threadIdx.x; e0 < n; e0 += U * kThreads) {
     float v[U] = {}, hv[U], w1t[U];
@@ -498,10 +578,11 @@ __device__ __forceinline__ void walk_reduce(const BwdArgs<MlpDyn<STREAM>>& a, co
         if (valid) {
           __stcs(ws.cp1 + (srow + row) * H + h, c1);
           __stcs(ws.he + (srow + row) * (H + 2) + h, hv[u]);
-          ct_ti += c1 * w1t[u];
+          ti_term(tm, s, k, h, H, c1 * w1t[u], ct_ti);
         }
       } else if (valid) {
-        ct_ti += v[u];  // cp2_I against W2's time column
+        const float ti = tm.t_row(r) + kC[I] * tm.dt_row(r);
+        ti_term(tm, s, k, H, H, v[u], ct_ti);  // cp2_I against W2's time column
         __stcs(ws.he + (srow + row) * (H + 2) + H, ti);
         __stcs(ws.he + (srow + row) * (H + 2) + H + 1, 1.0f);
         __stcs(ws.ye + (srow + row) * (D + 2) + D, ti);
@@ -509,8 +590,7 @@ __device__ __forceinline__ void walk_reduce(const BwdArgs<MlpDyn<STREAM>>& a, co
       }
     }
   }
-  part[0] += ct_ti;
-  part[1] += kC[I] * ct_ti;
+  ti_sum<I>(tm, s, w, tl, H, ct_ti, part);
   // the row pass: cp2_I's rows (still in shared memory) and, below stage 6,
   // ye of stage I+1
 #pragma unroll
@@ -528,7 +608,8 @@ __device__ __forceinline__ void walk_reduce(const BwdArgs<MlpDyn<STREAM>>& a, co
       const size_t row = (size_t)tl.row0 + r, d = (size_t)tl.d0 + c;
       __stcs(ws.cp2 + ((size_t)(I - 1) * B + row) * D + d, comp(cp, i));
       if (I < 6)
-        __stcs(ws.ye + ((size_t)I * B + row) * (D + 2) + d, yp[q][i] + ws.dt * comp(accv, i));
+        __stcs(ws.ye + ((size_t)I * B + row) * (D + 2) + d,
+               yp[q][i] + tm.dt_row(r) * comp(accv, i));
     }
   }
 }
@@ -536,14 +617,17 @@ __device__ __forceinline__ void walk_reduce(const BwdArgs<MlpDyn<STREAM>>& a, co
 // Phase B of stage I: the row block's ct_pre1 (ctp1g, [H][R]) into shared
 // memory, then this tile's ct_yi = ct_pre1 W1x and its epilogue (see the
 // header note), and above stage 1 the next phase A's first slabs.
-template <int I, bool STREAM>
+template <int I, bool STREAM, class Time>
 __device__ __forceinline__ void walk_phase_b(const BwdArgs<MlpDyn<STREAM>>& a, const Walk& w,
-                             const WalkStep& ws, const WalkSmem& s, const WalkTile& tl,
+                             const WalkStepT<Time>& ws, const WalkSmem& s, const WalkTile& tl,
                              const float* ctp1g, float (&part)[4]) {
   const MlpDyn<STREAM>& m = a.dyn;
   const int H = m.H, R = w.R, C = w.C, G4 = R / 4;
   const int RC = s.RC;
-  const float dt = ws.dt;
+  // the policy read from the step where it is used: a copy in registers
+  // held across the contraction gave K4's walk 73 local loads, not 17
+  // (tools/torch_k4_variants.py, tmcopy_b)
+  const Time& tm = ws.tm;
   for (int e = threadIdx.x; e < H * R / 4; e += kThreads)
     st4(s.ctp1 + 4 * e, __ldcg(reinterpret_cast<const float4*>(ctp1g) + e));
   for (int e = H * R + threadIdx.x; e < walk_round_up(H, kWalkKB) * R; e += kThreads)
@@ -567,22 +651,19 @@ __device__ __forceinline__ void walk_phase_b(const BwdArgs<MlpDyn<STREAM>>& a, c
       walk_prefetch((tl.cols + kWalkKB - 1) / kWalkKB,
                     [&](int p) { walk_load_w2(w, s, tl, p); });
     if (item >= items) continue;
+    const auto dtv = tm.dtv(g);
 #pragma unroll
     for (int u = 0; u < kWalkTN; ++u) {
       const int off = walk_at(4 * cg + u, g, R);
       const float4 ct = make_float4(acc[0][u], acc[1][u], acc[2][u], acc[3][u]);
       float* cty = s.st + WS_CTY * RC + off;
       st4(cty, add4(ld4(cty), ct));
-      const float4 accv = walk_stage_acc<I>(s.st, RC, off);
-      part[1] += ct.x * accv.x;
-      part[1] += ct.y * accv.y;
-      part[1] += ct.z * accv.z;
-      part[1] += ct.w * accv.w;
+      dt_term(tm, s.pdt + off, ct, walk_stage_acc<I>(s.st, RC, off), part);
 #pragma unroll
       for (int j = 0; j < I; ++j) {
         const float cf = kA[I - 1][j];
         float* ck = s.st + (WS_CKS + j) * RC + off;
-        if (cf != 0.0f) st4(ck, axpy4(dt * cf, ct, ld4(ck)));
+        if (cf != 0.0f) st4(ck, axpy4(times(dtv, cf), ct, ld4(ck)));
       }
       if (I > 1) {  // cks[I-1] is final: ct_pre2 of stage I-1
         const float4 kv = ld4(s.st + (WS_KS + I - 1) * RC + off);
@@ -596,9 +677,9 @@ __device__ __forceinline__ void walk_phase_b(const BwdArgs<MlpDyn<STREAM>>& a, c
 
 // After stage 1: the row pass of ye of stage 1 and the tile's final ct_y0 =
 // pass_y + cty, ct_f0 = pass_k1 + cks[0], every load first.
-template <bool STREAM>
+template <bool STREAM, class Time>
 __device__ __forceinline__ void walk_final(const BwdArgs<MlpDyn<STREAM>>& a, const Walk& w,
-                           const WalkStep& ws, const WalkSmem& s, const WalkTile& tl) {
+                           const WalkStepT<Time>& ws, const WalkSmem& s, const WalkTile& tl) {
   const int R = w.R, C = w.C, D = a.D, nrow = C * (R / 4);
   float yp[kWalkRounds][4], py[kWalkRounds][4], pk[kWalkRounds][4];
 #pragma unroll
@@ -628,7 +709,7 @@ __device__ __forceinline__ void walk_final(const BwdArgs<MlpDyn<STREAM>>& a, con
       const int r = 4 * g + i;
       if (r >= tl.rows || c >= tl.cols) continue;
       const size_t row = (size_t)tl.row0 + r, gi = row * D + tl.d0 + c;
-      __stcs(ws.ye + row * (D + 2) + tl.d0 + c, yp[q][i] + ws.dt * comp(accv, i));
+      __stcs(ws.ye + row * (D + 2) + tl.d0 + c, yp[q][i] + ws.tm.dt_row(r) * comp(accv, i));
       a.ct_y[gi] = py[q][i] + comp(cty, i);
       a.ct_f[gi] = pk[q][i] + comp(ck0, i);
     }
@@ -638,9 +719,9 @@ __device__ __forceinline__ void walk_final(const BwdArgs<MlpDyn<STREAM>>& a, con
 // One reverse stage: phase A, the barrier, the reduction, the barrier,
 // phase B. Each block's next phase A comes after the second barrier, so
 // every partial and ct_pre1 it overwrites has been read.
-template <int I, bool STREAM>
+template <int I, bool STREAM, class Time>
 __device__ __forceinline__ void walk_stage(const WalkArgs<STREAM>& args, cg::grid_group& grid,
-                                           const WalkStep& ws, const WalkSmem& s,
+                                           const WalkStepT<Time>& ws, const WalkSmem& s,
                                            const WalkTile& tl, float (&part)[4]) {
   const Walk& w = args.w;
   const size_t pstride = (size_t)s.HPP * w.R;
@@ -655,13 +736,13 @@ __device__ __forceinline__ void walk_stage(const WalkArgs<STREAM>& args, cg::gri
 
 // The replay: trial step i's stage residuals (k2..k7 and each stage's
 // hidden activations) into the one-step scratch, by K3's own stages on K3's
-// tiles (w.f).
-template <bool STREAM>
+// tiles (w.f), at the step's times (tm).
+template <bool STREAM, class Time>
 __device__ __forceinline__ void walk_replay(const BwdArgs<MlpDyn<STREAM>>& a, const Walk& w,
                                             cg::grid_group& grid, const float* yi,
-                                            const float* fi, float t, float dt, float* pool) {
+                                            const float* fi, const Time& tm, float* pool) {
   const SolveSmem s = solve_smem(pool, w.f, a.dyn.H);
-  const SolveStep ss{yi, fi, w.ks_step, w.hs_step, t, dt};
+  const SolveStep<Time> ss{yi, fi, w.ks_step, w.hs_step, tm};
   for (int chunk = 0; chunk < w.f.chunks; ++chunk)
     solve_stages<true>(a.dyn, w.f, grid, ss, s, walk_tile(w.f, a.B, a.D, chunk), a.B, a.D);
 }
@@ -703,7 +784,7 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_walk_kernel(WalkArgs<STREAM> 
     const float* yi = a.hy + (size_t)i * BD;
     const float* fi = a.hf + (size_t)i * BD;
     if constexpr (!STREAM) {
-      walk_replay(a, w, grid, yi, fi, s_ti, s_dteff, walk_pool);
+      walk_replay(a, w, grid, yi, fi, StepTime{s_ti, s_dteff}, walk_pool);
       grid.sync();
     }
     if (threadIdx.x == 0) {

@@ -6,10 +6,10 @@
 // kernels of their own, mlp_solve.cuh and mlp_walk.cuh, which split each
 // stage's contractions over the whole grid; they share the scalar code
 // below (fwd_begin, fwd_decide, fwd_end, hermite_at, chain_begin,
-// chain_end, chain_finish, hermite_elem). K2 and K14, the backwards of the
-// normed and of the tuple Tsit5 step (the fast adjoint solve's and odeint's
-// generic engine's), are one trial step of that walk (mlp_step_walk.cuh),
-// so they are built here too.
+// chain_end, chain_finish, hermite_elem). K2, K14 and K12, the backwards
+// of the normed, the tuple and the lane-wise Tsit5 step (the fast adjoint
+// solve's, odeint's generic engine's and the per-sample engine's), are one
+// trial step of that walk (mlp_step_walk.cuh), so they are built here too.
 //
 // Replaces the TPU kernels
 //   K3: regneuralde_tpu/ops/pallas_solve.py  make_whole_solve.make_fwd_kernel
@@ -772,7 +772,7 @@ Ctrl make_ctrl(float beta1, float beta2, float qmin, float qmax, float gamma,
 
 namespace {
 
-// Launches MLPDynamics' K3, K4, K2 or K14 with one block a tile, or fails if
+// Launches MLPDynamics' K3, K4, K2, K14 or K12 with one block a tile, or fails if
 // the card cannot hold every tile's block at once.
 cudaError_t launch_walk(const void* kernel, void* args, size_t smem, int tiles,
                         cudaStream_t s) {
@@ -783,8 +783,8 @@ cudaError_t launch_walk(const void* kernel, void* args, size_t smem, int tiles,
   return launch_cooperative(kernel, args, smem, tiles, s, nullptr);
 }
 
-// Whether a tile plan (ops/whole_solve.py walk_plan) is one K3, K4, K2 and K14
-// take at B x D: tiles of 16 or 32 rows and a multiple of kWalkTN columns, at
+// Whether a tile plan (ops/whole_solve.py walk_plan) is one K3, K4, K2, K14
+// and K12 take at B x D: tiles of 16 or 32 rows and a multiple of kWalkTN columns, at
 // most the row passes' elements, covering the batch.
 bool plan_ok(int rows, int cols, int row_blocks, int col_blocks, int chunks, int B, int D) {
   return (rows == 16 || rows == 32) && cols >= 1 && cols % kWalkTN == 0 &&
@@ -792,7 +792,7 @@ bool plan_ok(int rows, int cols, int row_blocks, int col_blocks, int chunks, int
          col_blocks == (D + cols - 1) / cols && chunks * row_blocks * rows >= B;
 }
 
-// The walk of one trial step (K2, K14) on a checked plan, replaying the
+// The walk of one trial step (K2, K14, K12) on a checked plan, replaying the
 // step's stages: the leaves, the weight-cotangent rows, the outputs ct_y,
 // ct_k1 and the norms' tolerances in the walk's arguments.
 WalkArgs<false> step_walk(const float* W1, const float* b1, const float* W2, const float* b2,
@@ -816,16 +816,17 @@ WalkArgs<false> step_walk(const float* W1, const float* b1, const float* W2, con
   return wa;
 }
 
-// K2 or K14 (mlp_step_walk_kernel<Seed>), one cooperative launch on the
-// walk's plan, then the weight-cotangent contraction of its 6B rows.
+// K2, K14 or K12 (mlp_step_walk_kernel<Seed>), one cooperative launch on
+// the walk's plan, then the weight-cotangent contraction of its 6B rows.
 template <class Seed>
 int launch_step_walk(StepWalkArgs<Seed> args, float* cW1, float* cb1, float* cW2, float* cb2,
                      float* wpart, int chunk_rows, int wpart_floats, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Walk& w = args.wa.w;
   const MlpDyn<false>& m = args.wa.a.dyn;
+  const int state = Seed::Time::kLanes ? kLaneState : kWalkState;
   const cudaError_t e = launch_walk((const void*)mlp_step_walk_kernel<Seed>, &args,
-                                    walk_smem_bytes(w.R, w.C, m.H), w.nrb * w.ndb, s);
+                                    walk_smem_bytes(w.R, w.C, m.H, state), w.nrb * w.ndb, s);
   if (e != cudaSuccess) return (int)e;
   return (int)launch_weight_cotangents(m.cp2, m.he, m.cp1, m.ye, cW1, cb1, cW2, cb2, wpart,
                                        6 * args.wa.a.B, args.wa.a.D, m.H, chunk_rows,
@@ -837,12 +838,15 @@ int launch_step_walk(StepWalkArgs<Seed> args, float* cW1, float* cb1, float* cW2
 extern "C" {
 
 // MLPDynamics' K3 and K4 on one tile plan: the multiple its tile widths
-// take, the most elements a tile holds, K4's and K3's shared memory for
-// tiles of R x C, and K3's scratch (the wrapper's plan is checked against
-// them, and sizes K3's scratch by the last).
+// take, the most elements a tile holds, K4's, K12's and K3's shared memory
+// for tiles of R x C, and K3's scratch (the wrapper's plan is checked
+// against them, and sizes K3's scratch by the last).
 int regnde_walk_col_align() { return kWalkTN; }
 int regnde_walk_max_tile() { return kWalkRounds * kThreads * kWalkTM; }
 int regnde_walk_smem_bytes(int R, int C, int H) { return (int)walk_smem_bytes(R, C, H); }
+int regnde_lanes_walk_smem_bytes(int R, int C, int H) {
+  return (int)walk_smem_bytes(R, C, H, kLaneState);
+}
 int regnde_solve_smem_bytes(int R, int C, int H) {
   return (int)(sizeof(float) * solve_smem_floats(R, C, H));
 }
@@ -1036,7 +1040,32 @@ int regnde_mlp_tsit5_bwd(const float* t, const float* dt, const float* y, const 
       step_walk(W1, b1, W2, b2, ct_y, ct_k1, psum, ctp1g, w2p, w1p, ks_step, hs_step, fscratch,
                 cp2, he, cp1, ye, B, D, H, rows, cols, row_blocks, col_blocks, chunks, 0.0f,
                 0.0f),
-      t, dt, y, k1, ct_ynew, ct_k7, TupleSeed{ct_err, ct_k6, ct_g6}, slots, ct_tdt, nullptr};
+      t, dt, y, k1, ct_ynew, ct_k7, TupleSeed{{ct_err, ct_k6, ct_g6}}, slots, ct_tdt, nullptr};
+  return launch_step_walk(args, cW1, cb1, cW2, cb2, wpart, chunk_rows, wpart_floats, stream);
+}
+
+// K12 (mlp_step_walk.cuh with LaneSeed), the lane-wise Tsit5 step's
+// backward, then the weight cotangents from its rows: as regnde_mlp_tsit5_bwd
+// with t and dt (B,) on the device, every row at its own; ct_tdt (2, B): the
+// rows' ct_t, then their ct_dt; slots (chunks * row_blocks * rows,
+// col_blocks); the shared memory of regnde_lanes_walk_smem_bytes.
+int regnde_lanes_bwd(const float* t, const float* dt, const float* y, const float* k1,
+                     const float* W1, const float* b1, const float* W2, const float* b2,
+                     const float* ct_ynew, const float* ct_k7, const float* ct_err,
+                     const float* ct_k6, const float* ct_g6, float* ct_y, float* ct_k1,
+                     float* cW1, float* cb1, float* cW2, float* cb2, float* ct_tdt,
+                     float* slots, float* psum, float* ctp1g, float* w2p, float* w1p,
+                     float* ks_step, float* hs_step, float* fscratch, float* cp2, float* he,
+                     float* cp1, float* ye, float* wpart, int B, int D, int H, int rows,
+                     int cols, int row_blocks, int col_blocks, int chunks, int chunk_rows,
+                     int wpart_floats, void* stream) {
+  if (!plan_ok(rows, cols, row_blocks, col_blocks, chunks, B, D))
+    return (int)cudaErrorInvalidValue;
+  const StepWalkArgs<LaneSeed> args{
+      step_walk(W1, b1, W2, b2, ct_y, ct_k1, psum, ctp1g, w2p, w1p, ks_step, hs_step, fscratch,
+                cp2, he, cp1, ye, B, D, H, rows, cols, row_blocks, col_blocks, chunks, 0.0f,
+                0.0f),
+      t, dt, y, k1, ct_ynew, ct_k7, LaneSeed{{ct_err, ct_k6, ct_g6}}, slots, ct_tdt, nullptr};
   return launch_step_walk(args, cW1, cb1, cW2, cb2, wpart, chunk_rows, wpart_floats, stream);
 }
 

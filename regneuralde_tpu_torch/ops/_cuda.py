@@ -37,6 +37,7 @@ _SIGNATURES = {
     "regnde_walk_col_align": [],
     "regnde_walk_max_tile": [],
     "regnde_walk_smem_bytes": [_I] * 3,
+    "regnde_lanes_walk_smem_bytes": [_I] * 3,
     "regnde_solve_smem_bytes": [_I] * 3,
     "regnde_solve_scratch_floats": [_I] * 5,
     "regnde_whole_solve_altmlp_fwd": [_P] * 4 + [_I] + [_P] * 9 + [_I] * 5 + [_F] * 9 + [_P],
@@ -56,7 +57,7 @@ _SIGNATURES = {
     "regnde_sde_whole_solve_cubic_fwd": [_P] * 18 + [_I] * 4 + [_F] * 9 + [_P],
     "regnde_sde_whole_solve_cubic_bwd": [_P] * 22 + [_I] * 5 + [_F] * 9 + [_P],
     "regnde_lanes_fwd": [_P] * 13 + [_I] * 3 + [_P],
-    "regnde_lanes_bwd": [_P] * 26 + [_I] * 5 + [_P],
+    "regnde_lanes_bwd": [_P] * 33 + [_I] * 10 + [_P],
     "regnde_mlp_tsit5_fwd": [_P] * 13 + [_I] * 3 + [_P],
     "regnde_mlp_tsit5_bwd": [_P] * 33 + [_I] * 10 + [_P],
     "regnde_spike_wholesolve": [_F] + [_P] * 5 + [_I] * 2 + [_P],

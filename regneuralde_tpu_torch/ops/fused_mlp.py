@@ -33,6 +33,7 @@ the kernel for tensors on a CUDA device, and raise otherwise.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Sequence, Tuple
 
 import torch
@@ -314,31 +315,50 @@ def _cuda_normed_fwd(t, dt, y, k1, leaves, rtol, atol):
     return y_new, k7, sums[0], sums[1], sums[2]
 
 
-def _step_walk_buffers(lib, y, leaves):
-    """The outputs and scratch of K2 and K14 (``csrc/mlp_step_walk.cuh``),
-    one trial step of the whole solve's walk on its tile plan
-    (``whole_solve.walk_plan``): ``(outs, bufs, sizes)``, ``outs = (ct_t,
-    ct_dt, ct_y, ct_k1, (cW1, cb1, cW2, cb2))``, and the C entries' shared
-    arguments from ``ct_y`` on: the tensors ``bufs`` (the outputs, the slots,
-    the walk's and the replay's scratch, the weight-cotangent rows and the
-    contraction's scratch; the caller holds them until the launch) and the
-    ints ``sizes`` (B, D, H, the plan, the contraction's chunks)."""
+@functools.lru_cache(maxsize=8)
+def _step_walk_scratch(lib, plan, B, D, H, dev, lanes, stream):
+    """The scratch of K2, K14 and, with ``lanes``, K12 at ``B x D x H`` on
+    ``plan`` and ``stream``: ``(tensors, sizes)``, the slots, the walk's and
+    the replay's scratch, the weight-cotangent rows and the contraction's
+    scratch, and the ints from B on. Nothing of it outlives a launch, and
+    launches on one stream run in order, so it is made once and reused:
+    what a launch allocates is its outputs."""
     from regneuralde_tpu_torch.ops import whole_solve as ws
 
-    (B, D), dev = y.shape, y.device
-    H = leaves[0].shape[0]
-    ct_y, ct_k1 = torch.empty_like(y), torch.empty_like(y)
-    ct_leaves = tuple(torch.empty_like(x) for x in leaves)
-    ct_tdt = torch.empty(2, device=dev)
-    plan = ws._cuda_walk_plan(lib, B, D, H, dev)
-    slots = torch.empty((plan.tiles, 2), device=dev)
+    if lanes:
+        slots = torch.empty((plan.chunks * plan.row_blocks * plan.rows, plan.col_blocks),
+                            device=dev)
+    else:
+        slots = torch.empty((plan.tiles, 2), device=dev)
     walk, step = ws._cuda_walk_scratch(lib, plan, B, D, H, dev, replay=True)
     rows = (torch.empty((6 * B, D), device=dev), torch.empty((6 * B, H + 2), device=dev),
             torch.empty((6 * B, H), device=dev), torch.empty((6 * B, D + 2), device=dev))
     wpart, chunk_rows, wfloats = wc.cuda_scratch(6 * B, D, H, dev)
-    bufs = (ct_y, ct_k1, *ct_leaves, ct_tdt, slots, *walk, *step, *rows, wpart)
     sizes = (B, D, H, plan.rows, plan.cols, plan.row_blocks, plan.col_blocks, plan.chunks,
              chunk_rows, wfloats)
+    return (slots, *walk, *step, *rows, wpart), sizes
+
+
+def _step_walk_buffers(lib, y, leaves, lanes=False):
+    """The outputs and scratch of K2, K14 and, with ``lanes``, K12
+    (``csrc/mlp_step_walk.cuh``), one trial step of the whole solve's walk on
+    its tile plan (``whole_solve.walk_plan``): ``(outs, bufs, sizes)``,
+    ``outs = (ct_t, ct_dt, ct_y, ct_k1, (cW1, cb1, cW2, cb2))``, and the C
+    entries' shared arguments from ``ct_y`` on: the tensors ``bufs`` (the
+    outputs, then ``_step_walk_scratch``'s) and the ints ``sizes`` (B, D,
+    H, the plan, the contraction's chunks). K12's ``ct_t`` and ``ct_dt``
+    are ``(B,)`` and its slots one a (row, column block)."""
+    from regneuralde_tpu_torch.ops import whole_solve as ws
+
+    (B, D), dev = y.shape, y.device
+    H = leaves[0].shape[0]
+    plan = ws._cuda_walk_plan(lib, B, D, H, dev, lanes)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scratch, sizes = _step_walk_scratch(lib, plan, B, D, H, dev, lanes, stream)
+    ct_y, ct_k1 = torch.empty_like(y), torch.empty_like(y)
+    ct_leaves = tuple(torch.empty_like(x) for x in leaves)
+    ct_tdt = torch.empty((2, B) if lanes else 2, device=dev)
+    bufs = (ct_y, ct_k1, *ct_leaves, ct_tdt, *scratch)
     return (ct_tdt[0], ct_tdt[1], ct_y, ct_k1, ct_leaves), bufs, sizes
 
 

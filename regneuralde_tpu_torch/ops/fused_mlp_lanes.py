@@ -23,11 +23,15 @@ on both (512 lanes each decide on their own norm).
 
 Each step has a plain version (``_reference_sweep_lanes``, and
 ``_lanes_bwd_math``, the hand reverse chain of
-``pallas_mlp._fused_bwd_kernel_lanes``) and a CUDA kernel
-(``csrc/mlp_lanes_tsit5.cu``: K11 ``lanes_fwd_kernel``, K12
-``lanes_bwd_kernel`` + ``csrc/weight_cotangents.cu``). The wrappers
-``sweep_lanes_fwd`` and ``sweep_lanes_bwd`` take the plain version for
-tensors on the CPU, launch the kernel for tensors on a CUDA device, and
+``pallas_mlp._fused_bwd_kernel_lanes``) and a CUDA kernel: K11
+``lanes_fwd_kernel`` (``csrc/mlp_lanes_tsit5.cu``); K12 one trial step of
+the whole solve's walk at per-row times, ``mlp_step_walk_kernel<LaneSeed>``
+(``csrc/mlp_step_walk.cuh``; its schedule ``whole_solve.plain_lanes_walk_step``)
++ ``csrc/weight_cotangents.cu``. K12's stages round as the whole solve's
+(sums over D in column blocks), not as K11's: the engine takes its accept
+flags from the forward, so K12's rounding moves gradients only. The
+wrappers ``sweep_lanes_fwd`` and ``sweep_lanes_bwd`` take the plain version
+for tensors on the CPU, launch the kernel for tensors on a CUDA device, and
 raise otherwise.
 """
 
@@ -38,6 +42,7 @@ from typing import Sequence, Tuple
 
 import torch
 
+from regneuralde_tpu_torch.ops import fused_mlp as fm
 from regneuralde_tpu_torch.ops import weight_cotangents as wc
 from regneuralde_tpu_torch.ops.fused_mlp import _check_cuda_args, _ptr, _split_params, _stage_acc
 from regneuralde_tpu_torch.ops.math import tanh as _tanh
@@ -184,34 +189,25 @@ def _cuda_lanes_fwd(t, dt, y, k1, leaves):
 
 
 def _cuda_lanes_bwd(t, dt, y, k1, leaves, cts):
+    """K12: one cooperative launch of ``csrc/mlp_step_walk.cuh`` with the
+    tuple's five row seeds at every row's own ``(t, dt)`` on the whole
+    solve's tile plan, then the weight-cotangent contraction; no host
+    sync."""
     from regneuralde_tpu_torch.ops import _cuda
 
     names = ("ct_y_new", "ct_k7", "ct_err", "ct_k6", "ct_g6")
-    B, D, H = _check_cuda_args(
-        y, k1, leaves, {n: (c, tuple(y.shape)) for n, c in zip(names, cts)})
+    _check_cuda_args(y, k1, leaves, {n: (c, tuple(y.shape)) for n, c in zip(names, cts)})
     t32, dt32 = _lane_f32(t, y, "t"), _lane_f32(dt, y, "dt")
-    dev = y.device
-    ct_y, ct_k1 = torch.empty_like(y), torch.empty_like(y)
-    ct_t, ct_dt = torch.empty(B, device=dev), torch.empty(B, device=dev)
-    W1, b1, W2, b2 = leaves
-    cW1, cb1 = torch.empty_like(W1), torch.empty_like(b1)
-    cW2, cb2 = torch.empty_like(W2), torch.empty_like(b2)
-    cp2 = torch.empty((6 * B, D), device=dev)
-    he = torch.empty((6 * B, H + 2), device=dev)
-    cp1 = torch.empty((6 * B, H), device=dev)
-    ye = torch.empty((6 * B, D + 2), device=dev)
-    wpart, chunk_rows, wfloats = wc.cuda_scratch(6 * B, D, H, dev)
     lib = _cuda.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    outs, bufs, sizes = fm._step_walk_buffers(lib, y, leaves, lanes=True)
+    stream = torch.cuda.current_stream(y.device).cuda_stream
     code = lib.regnde_lanes_bwd(
         _ptr(t32), _ptr(dt32), _ptr(y), _ptr(k1), *map(_ptr, leaves), *map(_ptr, cts),
-        _ptr(ct_y), _ptr(ct_k1), _ptr(ct_t), _ptr(ct_dt), _ptr(cW1), _ptr(cb1),
-        _ptr(cW2), _ptr(cb2), _ptr(cp2), _ptr(he), _ptr(cp1), _ptr(ye), _ptr(wpart), B, D, H,
-        chunk_rows, wfloats, ctypes.c_void_p(stream))
+        *map(_ptr, bufs), *sizes, ctypes.c_void_p(stream))
     _cuda.check(code, "lane-wise Tsit5 backward kernel")
     LAUNCHES["mlp_lanes_tsit5_bwd"] += 1
     wc.count_launch()
-    return ct_t, ct_dt, ct_y, ct_k1, (cW1, cb1, cW2, cb2)
+    return outs
 
 
 def sweep_lanes_fwd(t, dt, y, k1, leaves: Sequence[torch.Tensor]):

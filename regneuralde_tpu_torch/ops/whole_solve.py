@@ -30,11 +30,13 @@ stream against it, bitwise. Its forward (``csrc/mlp_solve.cuh``) and its
 backward (``csrc/mlp_walk.cuh``) split each stage's two contractions over
 the whole grid, one block a tile of the batch, on one tile plan
 (``walk_plan``); ``plain_solve_step`` and ``plain_walk_step`` are one trial
-step of each in the kernel's own schedule, for the tests. K2 and K14, the
-normed and the tuple step's backwards (``fused_mlp.normed_sweep_bwd``,
-``fused_mlp.stage_sweep_bwd``), are one trial step of that walk on the plan,
-with the walk's own seeds and with the tuple's (``plain_normed_walk_step``,
-``plain_tuple_walk_step``).
+step of each in the kernel's own schedule, for the tests. K2, K14 and K12,
+the normed, the tuple and the lane-wise step's backwards
+(``fused_mlp.normed_sweep_bwd``, ``fused_mlp.stage_sweep_bwd``,
+``fused_mlp_lanes.sweep_lanes_bwd``), are one trial step of that walk on the
+plan, with the walk's own seeds, with the tuple's, and with the tuple's at
+every row's own time (``plain_normed_walk_step``, ``plain_tuple_walk_step``,
+``plain_lanes_walk_step``).
 
 Each kernel has a plain version with the same algebra and the same output
 buffers, over the dynamics' plain trial-step pair (``plain_steps``):
@@ -166,6 +168,8 @@ WALK_COL_ALIGN = 4  # kWalkTN: tile widths are a multiple (a register tile's col
 WALK_MAX_TILE = 4096  # kWalkRounds * kThreads * kWalkTM: the row passes' registers
 WALK_SLAB_ROWS, WALK_SLABS = 8, 4  # kWalkKB, kWalkStages
 WALK_STATE = 13  # kWalkState: floats of reverse state an element
+LANE_STATE = 14  # kLaneState: K12's, with each element's share of its row's ct_dt
+LANE_ROW_FLOATS = 5 * 32  # kLaneRowFloats: K12's LaneRows, five floats of each of a tile's rows
 SOLVE_STATE = 9  # kSolveState: floats of K3's state an element
 WALK_MIN_COLS = 32  # a warp of columns at least, where D allows
 SMEM_LIMIT = 232_448  # dynamic shared memory a block may use (H100)
@@ -207,22 +211,26 @@ def solve_smem_bytes(R: int, C: int, H: int) -> int:
     return 4 * floats
 
 
-def walk_smem_bytes(R: int, C: int, H: int) -> int:
+def walk_smem_bytes(R: int, C: int, H: int, state: int = WALK_STATE) -> int:
     """The walk's shared memory for tiles of ``R x C`` (``walk_smem_bytes``
-    of ``csrc/mlp_walk.cuh``): the state, ct_pre2 of the tile and ct_pre1 of
-    the row block (their columns rounded to a slab), the slab ring (rows of
-    H+1 floats, rounded to ``WALK_COL_ALIGN``, or C) and the block sum's
-    scratch. The replay's stages reuse it: K3's (``solve_smem_bytes``) is
-    below it term by term."""
+    of ``csrc/mlp_walk.cuh``): the state (``state`` floats an element:
+    ``WALK_STATE``, or K12's ``LANE_STATE``), ct_pre2 of the tile and
+    ct_pre1 of the row block (their columns rounded to a slab), the slab
+    ring (rows of H+1 floats, rounded to ``WALK_COL_ALIGN``, or C), the
+    block sum's scratch and, with ``LANE_STATE``, K12's rows of the tile
+    (their times and sums). The replay's stages reuse it: K3's
+    (``solve_smem_bytes``) is below it term by term."""
     slab = max(_round_up(H + 1, WALK_COL_ALIGN), C)
-    floats = (R * (WALK_STATE * C + _round_up(C, WALK_SLAB_ROWS)
+    floats = (R * (state * C + _round_up(C, WALK_SLAB_ROWS)
                    + _round_up(H, WALK_SLAB_ROWS))
-              + WALK_SLABS * WALK_SLAB_ROWS * slab + 4 * _WARPS)
+              + WALK_SLABS * WALK_SLAB_ROWS * slab + 4 * _WARPS
+              + (LANE_ROW_FLOATS if state == LANE_STATE else 0))
     return 4 * floats
 
 
 @functools.lru_cache(maxsize=64)
-def walk_plan(B: int, D: int, H: int, sms: int, limit: int = SMEM_LIMIT) -> WalkPlan:
+def walk_plan(B: int, D: int, H: int, sms: int, limit: int = SMEM_LIMIT,
+              state: int = WALK_STATE) -> WalkPlan:
     """The tile plan of K3 and K4's walk at ``B x D x H`` on ``sms``
     multiprocessors (K3 streams each trial step on the tiles K4's replay
     recomputes it on):
@@ -231,8 +239,10 @@ def walk_plan(B: int, D: int, H: int, sms: int, limit: int = SMEM_LIMIT) -> Walk
     (fewer reads of the weights), over tiles of 32 or 16 rows and a multiple
     of ``WALK_COL_ALIGN`` columns, at least ``WALK_MIN_COLS`` where D allows,
     of at most ``WALK_MAX_TILE`` elements, whose shared memory fits
-    ``limit``. 32 x 100, 128 tiles, at 512 x 784 x 100. Cached: K2 and K14
-    ask for it every trial step, and the search takes about 0.25 ms."""
+    ``limit`` with ``state`` floats of state an element (K12's plan takes
+    ``LANE_STATE``). 32 x 100, 128 tiles, at 512 x 784 x 100. Cached: K2,
+    K14 and K12 ask for it every trial step, and the search takes about
+    0.25 ms."""
     best, best_key = None, None
     widths = sorted({_round_up(-(-D // n), WALK_COL_ALIGN) for n in range(1, D + 1)})
     for R in WALK_ROWS:
@@ -240,7 +250,7 @@ def walk_plan(B: int, D: int, H: int, sms: int, limit: int = SMEM_LIMIT) -> Walk
             ndb = -(-D // C)
             if (C < WALK_MIN_COLS and ndb > 1) or R * C > WALK_MAX_TILE or ndb > sms:
                 continue
-            smem = walk_smem_bytes(R, C, H)
+            smem = walk_smem_bytes(R, C, H, state)
             if smem > limit:
                 continue
             nrb = min(-(-B // R), sms // ndb)
@@ -274,7 +284,9 @@ def _spans(D, plan: WalkPlan):
 
 def _solve_stages(t, dt, y, k1, leaves, plan: WalkPlan):
     """K3's six stages in its schedule (``plain_solve_step``): the stage
-    derivatives ``ks`` (k1 first) and each stage's hidden layer ``hs``."""
+    derivatives ``ks`` (k1 first) and each stage's hidden layer ``hs``.
+    ``t`` and ``dt`` are the step's scalars or, for K12, ``(B, 1)``
+    columns: every row at its own time."""
     w1x, w1t, b1, w2h, w2t, b2 = fm._split_params(*leaves)
     spans = _spans(y.shape[1], plan)
     ks, hs = [k1], []
@@ -354,7 +366,9 @@ def plain_tuple_walk_step(t, dt, y, k1, leaves, cts, plan: WalkPlan):
     carry them); then the walk's six reverse stages (``_walk_stages``).
     Returns ``(ct_t, ct_dt, ct_y, ct_k1, (cp2, he, cp1, ye))`` as
     ``plain_walk_step``. For the tests: the kernel's arithmetic is
-    ``fm._bwd_math``'s in this order."""
+    ``fm._bwd_math``'s in this order. At ``(B, 1)`` time columns ``t`` and
+    ``dt`` it is K12's (``plain_lanes_walk_step``), ``ct_t`` and ``ct_dt``
+    ``(B, 1)``."""
     tab = TSIT5
     cyn, ck7, cerr, ck6, cg6 = cts
     ks, hs = _solve_stages(t, dt, y, k1, leaves, plan)
@@ -362,7 +376,28 @@ def plain_tuple_walk_step(t, dt, y, k1, leaves, cts, plan: WalkPlan):
     cks[5] = cks[5] + ck6
     cp2 = (tab.btilde[6] * (dt * cerr) + ck7) * (1.0 - ks[6] * ks[6])
     return _walk_stages(t, dt, y, leaves, ks, hs, cks, cp2, torch.zeros_like(y),
-                        torch.sum(cerr * fm._err_comb(ks)), {6: cyn, 5: cg6}, plan)
+                        _sum_for(dt)(cerr * fm._err_comb(ks)), {6: cyn, 5: cg6}, plan)
+
+
+def plain_lanes_walk_step(t, dt, y, k1, leaves, cts, plan: WalkPlan):
+    """One launch of K12 (``csrc/mlp_step_walk.cuh`` with ``LaneSeed``),
+    the lane-wise step's backward, in the kernel's own schedule:
+    ``plain_tuple_walk_step`` with every row at its own time, ``t`` and
+    ``dt`` ``(B,)``; each row's ``ct_t`` and ``ct_dt`` summed over its own
+    terms. Returns ``(ct_t, ct_dt, ct_y, ct_k1, (cp2, he, cp1, ye))``,
+    ``ct_t`` and ``ct_dt`` ``(B,)``. For the tests: the kernel's arithmetic
+    is ``fused_mlp_lanes._lanes_bwd_math``'s in this order."""
+    ct_t, ct_dt, *rest = plain_tuple_walk_step(t[:, None], dt[:, None], y, k1, leaves, cts,
+                                               plan)
+    return (ct_t[:, 0], ct_dt[:, 0], *rest)
+
+
+def _sum_for(dt):
+    """How the walk sums its ct_t and ct_dt terms: over everything for a
+    scalar ``dt``, per row (``dim=1``) for a ``(B, 1)`` column."""
+    if dt.dim() == 2:
+        return lambda x: torch.sum(x, dim=1, keepdim=True)
+    return torch.sum
 
 
 def _walk_stages(t, dt, y, leaves, ks, hs, cks, cp2, cty, ct_dt, seeds, plan: WalkPlan):
@@ -375,13 +410,15 @@ def _walk_stages(t, dt, y, leaves, ks, hs, cks, cp2, cty, ct_dt, seeds, plan: Wa
     ct_pre1 W1x`` and the epilogue (``cty``, ``cks[j < i]``, the dt share,
     the ``ye`` rows, ``cp2_{i-1}``). ``cks``: the cotangents of k1..k6,
     ``cp2``: ct_pre2 of stage 6. Returns ``(ct_t, ct_dt, ct_y, ct_k1, (cp2,
-    he, cp1, ye))``."""
+    he, cp1, ye))``; at ``(B, 1)`` time columns ``ct_t`` and ``ct_dt`` are
+    per row (``_sum_for``)."""
     tab = TSIT5
     W1, _, W2, _ = leaves
     D = y.shape[1]
     H = W1.shape[0]
+    total = _sum_for(dt)
     for i, seed in seeds.items():
-        ct_dt = ct_dt + torch.sum(seed * fm._stage_acc(i, ks))
+        ct_dt = ct_dt + total(seed * fm._stage_acc(i, ks))
         for j, c in enumerate(tab.a[i - 1]):
             if c != 0.0:
                 cks[j] = cks[j] + (dt * c) * seed
@@ -396,12 +433,12 @@ def _walk_stages(t, dt, y, leaves, ks, hs, cks, cp2, cty, ct_dt, seeds, plan: Wa
         ct_h = sum(cp2[:, a:b] @ W2[a:b] for a, b in spans)
         h_i = hs[i - 1]
         ct_pre1 = ct_h[:, :H] * (1.0 - h_i * h_i)
-        ct_ti = torch.sum(ct_h[:, H]) + torch.sum(ct_pre1 * W1[:, D])
+        ct_ti = total(ct_h[:, H:]) + total(ct_pre1 * W1[:, D])
         # ---- phase B ----
         ct_yi = ct_pre1 @ W1[:, :D]
         cty = cty + ct_yi
         acc = fm._stage_acc(i, ks)
-        ct_dt = ct_dt + torch.sum(ct_yi * acc)
+        ct_dt = ct_dt + total(ct_yi * acc)
         for j, c in enumerate(tab.a[i - 1]):
             if c != 0.0:
                 cks[j] = cks[j] + (dt * c) * ct_yi
@@ -603,17 +640,27 @@ def _tile_rows(lib, dynamics):
     return lib.regnde_csl_rows()
 
 
-def _cuda_walk_plan(lib, B, D, H, dev):
-    """``walk_plan`` for the card, held to the kernels' own constants."""
-    plan = walk_plan(B, D, H, torch.cuda.get_device_properties(dev).multi_processor_count)
+def _cuda_walk_plan(lib, B, D, H, dev, lanes=False):
+    """``walk_plan`` for the card (K12's with ``lanes``), held to the
+    kernels' own constants."""
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    plan = walk_plan(B, D, H, sms, state=LANE_STATE) if lanes else walk_plan(B, D, H, sms)
+    _check_walk_sizes(lib, plan, H, lanes)
+    return plan
+
+
+@functools.lru_cache(maxsize=64)
+def _check_walk_sizes(lib, plan, H, lanes):
+    """Raises unless ``plan``'s sizes are the library's (once a plan: a
+    check that passed is not made again)."""
+    smem = lib.regnde_lanes_walk_smem_bytes if lanes else lib.regnde_walk_smem_bytes
     if (lib.regnde_walk_col_align() != WALK_COL_ALIGN
             or lib.regnde_walk_max_tile() != WALK_MAX_TILE
-            or lib.regnde_walk_smem_bytes(plan.rows, plan.cols, H) != plan.smem_bytes
+            or smem(plan.rows, plan.cols, H) != plan.smem_bytes
             or lib.regnde_solve_smem_bytes(plan.rows, plan.cols, H)
             != solve_smem_bytes(plan.rows, plan.cols, H)):
         raise RuntimeError("walk_plan's sizes disagree with csrc/mlp_walk.cuh's or "
                            "csrc/mlp_solve.cuh's")
-    return plan
 
 
 def _cuda_solve_scratch(lib, plan, H, dev):
@@ -624,7 +671,7 @@ def _cuda_solve_scratch(lib, plan, H, dev):
 
 
 def _cuda_walk_scratch(lib, plan, B, D, H, dev, replay):
-    """The walk's scratch for ``plan`` (K4<MlpDyn>, K2 and K14): phase A's
+    """The walk's scratch for ``plan`` (K4<MlpDyn>, K2, K14 and K12): phase A's
     partials ``psum``, the row blocks' ct_pre1 ``ctp1g``, the weights padded
     for its 16-byte copies ``w2p`` and ``w1p`` (the kernel fills them), and
     with ``replay`` the replay's stage residuals of one trial step and K3's

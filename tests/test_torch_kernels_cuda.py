@@ -1396,6 +1396,92 @@ def test_normed_walk_refuses_bad_inputs(cuda):
         fm.normed_sweep_bwd(t, dt, y, k1, leaves, cts, 1e-4, 1e-4)
 
 
+def _assert_k12_matches_schedule(cuda, shape):
+    """K12 against its schedule (``plain_lanes_walk_step`` on the card's
+    plan with K12's state) at the walk's bounds, per-lane (t, dt) with
+    finished lanes: every output within 1e-3 of the float32 schedule and
+    within 3 times its distance from the float64 schedule, plus 1e-5 (ct_t,
+    whose rows' terms cancel, plus float32's unit roundoff times its terms'
+    magnitudes, the norm over the rows); the finished lanes' rows finite;
+    bitwise deterministic."""
+    y, k1, leaves, _ = _inputs(*shape, cuda)
+    t, dt = _lane_times(shape[0], cuda)
+    cts = _row_cts(shape[0], shape[1], cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = ws.walk_plan(*shape, sms, state=ws.LANE_STATE)
+    d = lambda x: x.double()
+    flat = lambda g: [*g[:4], *g[4]]
+    kern = flat(fl.sweep_lanes_bwd(t, dt, y, k1, leaves, cts))
+    plain = ws.plain_lanes_walk_step(t, dt, y, k1, leaves, cts, plan)
+    plain64 = ws.plain_lanes_walk_step(d(t), d(dt), d(y), d(k1), [d(x) for x in leaves],
+                                       [d(c) for c in cts], plan)
+    B = shape[0]
+    cp2, _, cp1, _ = plain64[4]
+    t_terms = ((cp2.abs() @ d(leaves[2])[:, -1].abs()).reshape(6, B).sum(0)
+               + (cp1.abs() @ d(leaves[0])[:, -1].abs()).reshape(6, B).sum(0))
+    plain, plain64 = ([*g[:4], *wc.weight_cotangents_plain(*g[4])] for g in (plain, plain64))
+    dist = lambda u: torch.linalg.vector_norm(u.double() - plain64[0]).item()
+    assert dist(kern[0]) <= (3 * dist(plain[0])
+                             + 2.0 ** -24 * torch.linalg.vector_norm(t_terms).item())
+    for name, a, b, c in zip(["ct_t", "ct_dt", "ct_y", "ct_k1", "cW1", "cb1", "cW2", "cb2"],
+                             kern, plain, plain64):
+        assert a.shape == b.shape and torch.isfinite(a).all(), name
+        assert _rel(a, b) <= 1e-3, (name, _rel(a, b))
+        if name != "ct_t":
+            assert _rel(a, c) <= 3 * _rel(b, c) + 1e-5, (name, _rel(a, c), _rel(b, c))
+    again = flat(fl.sweep_lanes_bwd(t, dt, y, k1, leaves, cts))
+    assert all(torch.equal(a, b) for a, b in zip(kern, again))
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(13, 40, 24), (5, 8, 5), (96, 200, 48), (512, 784, 100),
+                                   (1024, 784, 100)])
+def test_lanes_walk_matches_its_schedule(cuda, shape):
+    """K12 (``csrc/mlp_step_walk.cuh`` with ``LaneSeed``) against
+    ``plain_lanes_walk_step``, the same walk in the kernel's order of
+    summation, on the card's plan: one column block (13x40x24, 5x8x5), seven
+    of 32 columns (96x200x48), the flagship's 8 of 100, and two row chunks
+    (1024x784x100); one launch a call."""
+    fl.reset_launches()
+    plan = _assert_k12_matches_schedule(cuda, shape)
+    assert plan.chunks == (2 if shape[0] == 1024 else 1)
+    assert fl.LAUNCHES == {"mlp_lanes_tsit5_fwd": 0, "mlp_lanes_tsit5_bwd": 2}
+
+
+@pytest.mark.cuda
+def test_lanes_walk_in_row_chunks_matches_its_schedule(cuda, monkeypatch):
+    """K12 on the plan of a card of 4 multiprocessors: 4 tiles, the batch of
+    256 walked in row chunks one after another."""
+    plan = ws.walk_plan
+
+    def small_card(B, D, H, sms, limit=ws.SMEM_LIMIT, state=ws.WALK_STATE):
+        return plan(B, D, H, 4, limit, state)
+
+    monkeypatch.setattr(ws, "walk_plan", small_card)
+    assert _assert_k12_matches_schedule(cuda, (256, 64, 32)).chunks > 1
+
+
+@pytest.mark.cuda
+def test_lanes_walk_refuses_bad_inputs(cuda):
+    """K12's wrapper refuses what the kernel does not take, and a shape no
+    tile plan fits raises walk_plan's ValueError (no fallback)."""
+    y, k1, leaves, _ = _inputs(8, 16, 12, cuda)
+    t, dt = _lane_times(8, cuda)
+    cts = _row_cts(8, 16, cuda)
+    with pytest.raises(TypeError):
+        fl.sweep_lanes_bwd(t, dt, y, k1, leaves, [cts[0].double(), *cts[1:]])
+    with pytest.raises(TypeError):
+        fl.sweep_lanes_bwd(t, dt.double(), y, k1, leaves, cts)
+    with pytest.raises(ValueError):
+        fl.sweep_lanes_bwd(t, dt, y, k1, leaves, [cts[0].t(), *cts[1:]])
+    with pytest.raises(ValueError):
+        fl.sweep_lanes_bwd(t[:4], dt, y, k1, leaves, cts)
+    y, k1, leaves, _ = _inputs(8, 8, 20_000, cuda)
+    with pytest.raises(ValueError, match="no tile plan"):
+        fl.sweep_lanes_bwd(t, dt, y, k1, leaves, _row_cts(8, 8, cuda))
+
+
 @pytest.mark.cuda
 def test_tuple_wrappers_refuse_bad_inputs(cuda):
     y, k1, leaves, _ = _inputs(8, 16, 12, cuda)

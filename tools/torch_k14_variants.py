@@ -33,7 +33,7 @@ sys.path.insert(0, str(ROOT / "tools"))
 import torch_variants as tv  # noqa: E402
 
 OUT = ROOT / "build" / "k14_variants"
-_REPLAY = "  walk_replay(a, w, grid, ws.yi, ws.fi, ws.t, ws.dt, walk_pool);\n  grid.sync();\n"
+_REPLAY = "  walk_replay(a, w, grid, ws.yi, ws.fi, ws.tm, walk_pool);\n  grid.sync();\n"
 _REVERSE = [(f"    walk_stage<{i}>(args.wa, grid, ws, s, tl, part);\n", "")
             for i in range(6, 0, -1)]
 _PADS = ("  walk_pad_weights(m.W1, m.W2, w, a.D, H, s.HPP);\n"

@@ -115,7 +115,7 @@ __global__ void __launch_bounds__(kThreads) probe_sync_kernel(int n) {
 // phase B (3) of stage 3 on every tile of the first row chunk, n times over
 // after one load of the tile.
 __global__ void __launch_bounds__(kThreads, 1)
-    probe_phase_kernel(SolveArgs<true> args, SolveStep ss, int which, int n) {
+    probe_phase_kernel(SolveArgs<true> args, SolveStep<StepTime> ss, int which, int n) {
   extern __shared__ __align__(16) float solve_pool[];
   const FwdArgs<MlpDyn<true>>& a = args.a;
   const Solve& f = args.f;
@@ -181,7 +181,7 @@ extern "C" int probe_phase(const float* y, const float* k1, float* ks, float* hs
                         Saves{nullptr, nullptr, nullptr, 0}, nullptr, nullptr, nullptr,
                         nullptr, nullptr, nullptr, B_, D_, 1, 1e-6f, 1e-6f, Ctrl{}},
                        solve_carve(scratch, R, C, nrb, ndb, 1, H_)};
-  const SolveStep ss{y, k1, ks, hs, 0.1f, 0.05f};
+  const SolveStep<StepTime> ss{y, k1, ks, hs, 0.1f, 0.05f};
   const size_t smem = sizeof(float) * solve_smem_floats(R, C, H_);
   const void* k = (const void*)probe_phase_kernel;
   cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -59,6 +59,11 @@ VARIANTS = {
     # the two barriers a stage cost, waiting on the slowest block included
     "nosync": [("  grid.sync();\n  walk_reduce<I>", "  walk_reduce<I>"),
                ("  grid.sync();\n  walk_phase_b<I>", "  walk_phase_b<I>")],
+    # the step's time policy copied into registers in phase B, not read from
+    # the step where it is used; and read where used in the reduction too
+    "tmcopy_b": [("  const Time& tm = ws.tm;\n", "  const Time tm = ws.tm;\n")],
+    "tmref_reduce": [("D = a.D;\n  const Time tm = ws.tm;\n",
+                      "D = a.D;\n  const Time& tm = ws.tm;\n")],
 }
 PROBES = r'''
 namespace {

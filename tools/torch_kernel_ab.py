@@ -12,6 +12,8 @@ AlternatingMLP, ``csl``: K7/K8-CSL and K3/K4-CSL, ``mlp``: K1/K2 and K3/K4
 for MLPDynamics, with K1's and K2's device time under ``torch.profiler`` at
 phase 2's inputs, K2's kernels and its contraction apart, whichever kernels
 the tree has for them, ``sde``: K9/K10 for the MLP pair, ``lanes``: K11/K12,
+and their device time under ``torch.profiler`` at phase 22's inputs, K12's
+kernels and its contraction apart, whichever kernels the tree has for them,
 ``tuple``: K13/K14, and their device time under ``torch.profiler`` at
 phase 25's inputs, K14's kernels and its contraction apart, whichever
 kernels the tree has for them; a phase the tree lacks is skipped;
@@ -188,6 +190,23 @@ def tuple_device(dev):
     }
 
 
+def lanes_device(dev):
+    """Device ms a launch of K11 and of K12 at phase 22's inputs: K12's own
+    kernel (the old lanes_bwd_kernel, or mlp_step_walk_kernel<LaneSeed>) and
+    the weight-cotangent contraction after it apart."""
+    from regneuralde_tpu_torch.ops import fused_mlp_lanes as fl
+
+    leaves, y, k1, t, dt, cts = cs._lane_inputs(dev)
+    bwd = lambda: fl.sweep_lanes_bwd(t, dt, y, k1, leaves, cts)
+    return {
+        "K11_device": {"ms": device_ms(lambda: fl.sweep_lanes_fwd(t, dt, y, k1, leaves),
+                                       ("lanes_fwd_kernel",))},
+        "K12_device_kernel": {"ms": device_ms(bwd, ("lanes_bwd_kernel",
+                                                    "mlp_step_walk_kernel"))},
+        "K12_device_wcot": {"ms": device_ms(bwd, ("wcot_chunk_kernel", "wcot_sum_kernel"))},
+    }
+
+
 def wcot(dev):
     """Device ms a call of the weight-cotangent contraction's kernels (the
     old atb_split_kernel or wcot_chunk_kernel + wcot_sum_kernel) inside K2
@@ -242,6 +261,7 @@ with contextlib.redirect_stdout(io.StringIO()):
         ms.update(cs.phase_sde_kernels(dev))
     if "lanes" in phases and hasattr(cs, "phase_lanes_kernels"):
         ms.update(cs.phase_lanes_kernels(dev))
+        ms.update(lanes_device(dev))
     if "tuple" in phases and hasattr(cs, "phase_tuple_kernels"):
         ms.update(cs.phase_tuple_kernels(dev))
         ms.update(tuple_device(dev))

@@ -4,7 +4,7 @@
     python3 tools/torch_step_profile.py [--model mnist|latent|ffjord|nsde|toy]
                                         [--fused step|true|false] [--steps 3]
                                         [--tol 1.4e-8] [--per-sample]
-                                        [--tuple adjoint|scan] [--out DIR]
+                                        [--tuple adjoint|scan] [--pin] [--out DIR]
 
 ``--model mnist`` (the default) builds the flagship classifier of
 ``chip_smoke.py`` (MLPDynamics(784, 100), Tsit5, max_steps=96, batch 512),
@@ -30,7 +30,11 @@ step`` or ``true``) or their plain versions (``false``). ``--tuple
 adjoint|scan`` (MNIST only) runs the classifier's solve through ``odeint``'s
 generic engine on the tuple trial step K13/K14 (``chip_smoke.tuple_loss``,
 as phase 27) under the replay adjoint or the checkpointed scan; ``--fused``
-does not apply. It runs one warm-up step, then:
+does not apply. ``--pin`` starts every step (the warm-up, the timed, the
+counted and the traced steps) from the same parameters and optimizer
+state, those before the warm-up: two source trees whose gradients differ
+in rounding then run the same forward solves, so their step times compare
+without the lanes' trial steps parting. It runs one warm-up step, then:
 
 * times ``--steps`` training steps on the host clock (each ends in a
   synchronize) and reports ms per step, NFE per step and trial steps;
@@ -194,6 +198,8 @@ def main():
                     help="MNIST with per_sample='batched' (K11/K12)")
     ap.add_argument("--tuple", choices=["adjoint", "scan"],
                     help="MNIST with the solve through odeint on K13/K14 in this mode")
+    ap.add_argument("--pin", action="store_true",
+                    help="every step from the parameters and optimizer state before the warm-up")
     ap.add_argument("--out", default="build/profile")
     args = ap.parse_args()
     if (args.per_sample or args.tuple) and args.model != "mnist":
@@ -272,7 +278,17 @@ def main():
             loss_fn = lambda m, x, y: cs.tuple_loss(m, x, y, args.tuple)
             _annotate_tuple(record_function)
     state = create_train_state(model, optimizer)
-    step = make_train_step(loss_fn, optimizer)
+    train_step = make_train_step(loss_fn, optimizer)
+    state0, params0 = state, [p.detach().clone() for p in model.parameters()]
+
+    def step(state, *batch):
+        if args.pin:  # the optimizers are functional: only the parameters change in place
+            with torch.no_grad():
+                for p, p0 in zip(model.parameters(), params0):
+                    p.copy_(p0)
+            state = state0
+        return train_step(state, *batch)
+
     counters = cs._counters()
 
     state, _, _ = step(state, *batches[0])  # warm-up (allocator, build)
