@@ -119,14 +119,16 @@ at first use. Phases (each checks its results; any failure exits non-zero):
    other kernel; per-lane NFE, success fraction and ms a step; then the
    lanes whose NFE or accepts differ between ``fused=True`` and ``False``
    in a forward from the trained weights (reported);
-25. K13 and K14 (the tuple Tsit5 step of ``odeint``'s generic engine,
-   ``csrc/mlp_tsit5.cu``; K14 one trial step of the MLPDynamics reverse
-   walk, ``csrc/mlp_step_walk.cuh``) against their plain versions at
+25. K13 and K14 (the tuple Tsit5 step of ``odeint``'s generic engine: K13
+   one trial step of the MLPDynamics whole solve's stages,
+   ``csrc/mlp_step_solve.cuh``; K14 one trial step of its reverse walk,
+   ``csrc/mlp_step_walk.cuh``) against their plain versions at
    512x784x100, t = 0.3 and dt in {0.05, 0.3}: K13's rows within FWD_BOUND
    (the error row, a cancellation, within TUPLE_ERR_BOUND) and K14 within
    BWD_BOUND, both also against a float64 walk, bitwise determinism,
-   CUDA-event times; K14's device time (its kernel and the contraction,
-   ``torch.profiler``), tile plan and ``grid.sync()`` count a launch;
+   CUDA-event times; K13's and K14's device time (K14's kernel and the
+   contraction apart, ``torch.profiler``), their tile plan and
+   ``grid.sync()`` count a launch;
 26. one forward+backward of the flagship step at rtol=atol=1e-5 with the
    solve through ``odeint(clf.node._func, x, 0, 1, leaves,
    stage_sweep=mlp_dynamics_stage_sweep)``, in ``mode="adjoint"`` (the
@@ -2402,11 +2404,13 @@ def phase_tuple_kernels(device):
     distance from a float64 walk, plus 1e-7; K14 within BWD_BOUND of its
     plain version and within 3 times the plain version's distance from a
     float64 walk, plus 1e-6; both bitwise deterministic; CUDA-event times of
-    both and of their plain versions; K14's device time under
-    ``torch.profiler`` (``mlp_step_walk_kernel`` and the weight-cotangent
-    contraction after it), its tile plan and its ``grid.sync()`` count a
-    launch: the pad, the replay's two a stage, the replay's end, the
-    reverse's two a stage (each per row chunk) and the slots'."""
+    both and of their plain versions; their device time under
+    ``torch.profiler`` (K13's ``mlp_step_solve_kernel``; K14's
+    ``mlp_step_walk_kernel`` and the weight-cotangent contraction after it),
+    their tile plan (one, ``walk_plan``'s) and their ``grid.sync()`` count a
+    launch: K13's the pad and two a stage per row chunk; K14's the pad, the
+    replay's two a stage, the replay's end, the reverse's two a stage (each
+    per row chunk) and the slots'."""
     import torch
 
     from regneuralde_tpu_torch.ops import fused_mlp as fm
@@ -2473,13 +2477,20 @@ def phase_tuple_kernels(device):
     }
     print("[tuple] median ms over %d runs at %dx%dx%d: %s"
           % (REPS, BATCH, DIM, HIDDEN, json.dumps(times)))
+    dev_fwd = _device_ms(lambda: fm.stage_sweep_fwd(t, dt, y, k1, leaves),
+                         "mlp_step_solve_kernel")
     bwd = lambda: fm.stage_sweep_bwd(t, dt, y, k1, leaves, cts)
     dev_walk = _device_ms(bwd, "mlp_step_walk_kernel")
     dev_wcot = _device_ms(bwd, "wcot_")
+    _check(dev_fwd is not None, "K13's kernel in the trace")
     _check(dev_walk is not None and dev_wcot is not None,
            "K14's kernel and its contraction in the trace")
     plan = ws.walk_plan(BATCH, DIM, HIDDEN,
                         torch.cuda.get_device_properties(device).multi_processor_count)
+    print(f"[tuple] K13 device ms a launch (torch.profiler, {REPS} launches): {dev_fwd!r}; "
+          f"tiles {plan.rows}x{plan.cols}, {plan.tiles} blocks, {plan.chunks} row chunks, "
+          f"{ws.solve_smem_bytes(plan.rows, plan.cols, HIDDEN)} bytes of shared memory; "
+          f"grid.sync() a launch {1 + 12 * plan.chunks}")
     syncs = 1 + 12 * plan.chunks + 1 + 12 * plan.chunks + 1
     print(f"[tuple] K14 device ms a launch (torch.profiler, {REPS} launches): kernel "
           f"{dev_walk!r} + contraction {dev_wcot!r} = {dev_walk + dev_wcot!r}; tiles "
@@ -2655,10 +2666,13 @@ TOY_TIGHT_TOL = 3e-2  # phase 29: tens of trial steps, with rejections
 
 
 def _device_ms(fn, kernel, reps=REPS):
-    """The device time of the kernels whose name holds ``kernel``, ms a call
-    of ``fn`` over ``reps`` calls under ``torch.profiler`` (CUDA events
-    around a call also hold the wrapper's host work, which the kernel waits
-    for); None when the trace holds no such kernel."""
+    """The device time of the kernels whose name holds ``kernel`` (each
+    launched once a call), ms a call of ``fn`` over ``reps`` calls under
+    ``torch.profiler`` (CUDA events around a call also hold the wrapper's
+    host work, which the kernel waits for): each kernel's time over the
+    launches of it the trace holds, which late in this script's process may
+    be fewer than were made (said when so); None when the trace holds no
+    such kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2669,9 +2683,13 @@ def _device_ms(fn, kernel, reps=REPS):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA and kernel in e.key)
-    return us / 1e3 / reps if us > 0 else None
+    hits = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and kernel in e.key and e.count]
+    for e in hits:
+        if e.count != reps:
+            print(f"[profile] the trace holds {e.count} of {reps} launches of {e.key[:80]}")
+    us = sum(e.self_device_time_total / e.count for e in hits)
+    return us / 1e3 if us > 0 else None
 
 
 def _load_tool(name):
@@ -3232,7 +3250,7 @@ def main():
                "sde_whole_solve_bwd": "sde_whole_solve.cu",
                "mlp_lanes_tsit5_fwd": "mlp_lanes_tsit5.cu",
                "mlp_lanes_tsit5_bwd": "mlp_step_walk.cuh",
-               "mlp_tsit5_fwd": "mlp_tsit5.cu", "mlp_tsit5_bwd": "mlp_step_walk.cuh",
+               "mlp_tsit5_fwd": "mlp_step_solve.cuh", "mlp_tsit5_bwd": "mlp_step_walk.cuh",
                "spike_wholesolve": "spike_wholesolve.cu",
                "sde_whole_solve_cubic_fwd": "sde_whole_solve.cu",
                "sde_whole_solve_cubic_bwd": "sde_whole_solve.cu",

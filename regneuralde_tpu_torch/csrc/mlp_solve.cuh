@@ -59,9 +59,9 @@
 //     writes its tiles' copy of a rejected step or Hermite rows.
 //   * The stage residuals go out with evict-first stores: K4 reads them once.
 //   * The stage phases are templates over a time policy (below) and read
-//     times only through it, a row or a 4-row group at a time: the solve's
-//     and K4's, K2's and K14's replays give every row the step's t and dt,
-//     K12's replay each row its own.
+//     times only through it, a row or a 4-row group at a time: the solve's,
+//     K13's, and K4's, K2's and K14's replays give every row the step's t
+//     and dt, K12's replay each row its own.
 // IEEE f32 FMAs, no TF32, no fast math, no atomics: every sum has a fixed
 // order, so runs are bitwise reproducible. The stage's arithmetic outside
 // the contractions' fmaf chains is pinned (explicit roundings), so K4's
@@ -222,7 +222,7 @@ __device__ __forceinline__ void for_tile(const WalkTile& tl, int D, F f) {
 
 // ---------------------------------------------------------------------------
 // The time policies of a trial step's phases: how a row's t and dt are read
-// (t_row, dt_row; dtv, a 4-row group's dt). StepTime (K3, K4, K2, K14):
+// (t_row, dt_row; dtv, a 4-row group's dt). StepTime (K3, K4, K13, K2, K14):
 // every row at the step's t and dt, and dtv a float. LaneTime (K12, the
 // per-sample engine's step): row r of the batch at t[r] and dt[r], device
 // arrays of B floats; load stages the current tile's rows in the block's

@@ -1,0 +1,123 @@
+// K13 on Hopper: the tuple Tsit5 trial step of MLPDynamics (ops/fused_mlp.py
+// stage_sweep_fwd, odeint's generic engine's step with
+// mlp_dynamics_stage_sweep) as one trial step of K3's grid-split stages on
+// the walk's tiles. One kernel, mlp_step_solve_kernel<End>, over the policy
+// of what each tile writes after its stages: TupleEnd (K13: the rows y_new,
+// k7, err, k6, g6). Included by whole_solve.cu only, after mlp_solve.cuh,
+// whose stages it runs; its backward, K14, is mlp_step_walk.cuh.
+//
+// Replaces the TPU kernel
+//   K13: regneuralde_tpu/ops/pallas_mlp.py  _pallas_sweep (_fused_step_kernel)
+// and, on this card, its port over 4-row tiles (tuple_fwd_kernel, 128
+// blocks at 512x784x100, each running the six stages with plain FMA loops)
+// that read all of W1 and W2 from L2 once per tile per stage: ~485 MB a
+// launch, 0.351 ms with the wrapper (H100 80GB HBM3 at 700 W).
+//
+// What bounds it on this card. One trial step is 12 contractions of B x D x
+// H (24 B D H f32 operations, 0.96 GFLOP at 512x784x100: 14 us at the 67
+// TFLOP/s f32 rate) in a chain of six stages, each of which needs every
+// column of its rows before its hidden layer: against that stand each
+// stage's grid-wide barriers and the latency of each phase's round trips
+// to L2.
+//
+// What the design does about it. One cooperative launch on the walk's tile
+// plan (ops/whole_solve.py walk_plan: 32 x 100 tiles, 128 at the flagship;
+// row chunks when the batch does not fit the grid):
+//   * every block pads W1 and W2 for K3's slabs (solve_pad_weights),
+//     grid.sync();
+//   * per row chunk, K3's own stages (solve_stages, mlp_solve.cuh) with no
+//     residual stream: per stage phase A, the reduction and phase B split
+//     over the whole grid, two grid.sync() a stage, the tile's y, k1..k7 and
+//     stage input in shared memory; the step's t and dt read once from the
+//     device (StepTime);
+//   * then the policy's tile end on that state (TupleEnd: the five rows).
+// So W1 and W2 are read once per row block a stage (~40 MB a launch at the
+// flagship), not once per 4-row tile; 1 + 12 x chunks grid.sync() a launch.
+// The stages are bitwise K3's and K14's replay of them: the replay adjoint
+// takes its accept flags from K13 alone and launches it twice a trial step
+// (forward and replay), and K14 differentiates the very stages K13 ran.
+// IEEE f32 FMAs, no TF32, no fast math, no atomics: every sum has a fixed
+// order, so runs are bitwise reproducible.
+
+#pragma once
+
+namespace {
+
+// TupleEnd (K13): each tile's rows of the tuple (y_new, k7, err, k6, g6),
+// from the state solve_stages leaves (y, k1..k7 in s.st, the stage-6 input
+// y_new in s.yi). g6, the stage-5 input, is rebuilt by stage_state, the
+// pinned form the stages used (as solve_finish does); err = dt sum_j
+// btilde_j (k_j - k1) rounds each op on its own, as the plain version's
+// ATen ops: it is a cancellation, so a contraction moves it by its own
+// rounding. An end policy of mlp_step_solve_kernel: K1 (the norm sums) and
+// K11 (per-row times) would be others.
+struct TupleEnd {
+  float *y_new, *k7, *err, *k6, *g6;  // (B, D) each
+
+  __device__ __forceinline__ void tile(const SolveStep<StepTime>& ss, const SolveSmem& s,
+                                       const WalkTile& tl, int R, int C, int D) const {
+    const float dt = ss.tm.dt;
+    const int n = C * (R / 4);
+    for (int e = threadIdx.x; e < n; e += kThreads) {
+      const int c = e % C, g = e / C, off = walk_at(c, g, R);
+      float4 kv[7];
+#pragma unroll
+      for (int j = 0; j < 7; ++j) kv[j] = ld4(s.st + (1 + j) * s.RC + off);
+      const float4 yv = ld4(s.st + off), ynv = ld4(s.yi + off);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int r = 4 * g + q;
+        if (r >= tl.rows || c >= tl.cols) continue;
+        const size_t gi = (size_t)(tl.row0 + r) * D + tl.d0 + c;
+        float k[7];
+#pragma unroll
+        for (int j = 0; j < 7; ++j) k[j] = lane_of(kv[j], q);
+        const float y = lane_of(yv, q);
+        float s_comb = __fmul_rn(kBt[1], __fsub_rn(k[1], k[0]));
+#pragma unroll
+        for (int j = 2; j <= 6; ++j)
+          s_comb = __fadd_rn(s_comb, __fmul_rn(kBt[j], __fsub_rn(k[j], k[0])));
+        y_new[gi] = lane_of(ynv, q);
+        k7[gi] = k[6];
+        err[gi] = __fmul_rn(dt, s_comb);
+        k6[gi] = k[5];
+        g6[gi] = stage_state(5, &y, k, 1, 0, dt);
+      }
+    }
+  }
+};
+
+// The arguments of K13: the leaves (no stream, no weight-cotangent rows),
+// the plan and K3's scratch, the step's inputs and the end policy.
+template <class End>
+struct StepSolveArgs {
+  MlpDyn<false> m;
+  Solve f;
+  const float *t, *dt;  // scalars on the device
+  const float *y, *k1;  // (B, D)
+  End end;
+  int B, D;
+};
+
+// K13 (TupleEnd): one trial step, one block a tile (gridDim.x == nrb * ndb,
+// all resident).
+template <class End>
+__global__ void __launch_bounds__(kThreads, 1) mlp_step_solve_kernel(StepSolveArgs<End> args) {
+  extern __shared__ __align__(16) float solve_pool[];
+  cg::grid_group grid = cg::this_grid();
+  const MlpDyn<false>& m = args.m;
+  const Solve& f = args.f;
+  const int B = args.B, D = args.D;
+  const SolveSmem s = solve_smem(solve_pool, f, m.H);
+  solve_pad_weights(m.W1, m.W2, f, D, m.H, s.HP4);
+  const SolveStep<StepTime> ss{args.y, args.k1, nullptr, nullptr,
+                               StepTime{__ldg(args.t), __ldg(args.dt)}};
+  grid.sync();
+  for (int chunk = 0; chunk < f.chunks; ++chunk) {
+    const WalkTile tl = walk_tile(f, B, D, chunk);
+    solve_stages<false>(m, f, grid, ss, s, tl, B, D);
+    args.end.tile(ss, s, tl, f.R, f.C, D);
+  }
+}
+
+}  // namespace

@@ -59,10 +59,11 @@
 //     order;
 //   * then the weight-cotangent contraction (weight_cotangents.cu).
 // So W1 and W2 are read once per row block a stage, not once per 2-row
-// tile. The stages round as K3's (sums over D in column blocks), not as the
-// step forwards' (K1, K13): the fast adjoint solve and the replay adjoint
-// take their accept flags from the forward only, so the backward's rounding
-// moves gradients, never a decision.
+// tile. The stages round as K3's (sums over D in column blocks): K14's
+// replay is bitwise K13's forward (mlp_step_solve.cuh), K2's and K12's are
+// not their forwards' (K1, K11), but the fast adjoint solve and the
+// per-sample engine take their accept flags from the forward only, so the
+// backward's rounding moves gradients, never a decision.
 // IEEE f32 FMAs, no TF32, no fast math, no atomics: every sum has a fixed
 // order, so runs are bitwise reproducible.
 

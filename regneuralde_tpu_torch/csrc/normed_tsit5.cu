@@ -1,9 +1,9 @@
 // Normed Tsit5 trial step of MLPDynamics on Hopper: the forward (K1), with
 // the small reduction it launches after it. Its per-tile body lives in
-// normed_tsit5.cuh, shared with the step kernels of mlp_tsit5.cu and
-// mlp_lanes_tsit5.cu. Its hand-written backward (K2) is one trial step of
-// the MLPDynamics reverse walk (mlp_step_walk.cuh, built in whole_solve.cu;
-// C entry regnde_normed_bwd).
+// normed_tsit5.cuh, shared with the step kernel of mlp_lanes_tsit5.cu. Its
+// hand-written backward (K2) is one trial step of the MLPDynamics reverse
+// walk (mlp_step_walk.cuh, built in whole_solve.cu; C entry
+// regnde_normed_bwd).
 //
 // Replaces the TPU kernel
 //   K1: regneuralde_tpu/ops/pallas_mlp.py  _normed_pallas_fwd

@@ -1,11 +1,12 @@
 // Device code shared by the Tsit5 step kernels of MLPDynamics (K1,
-// normed_tsit5.cu; K13, mlp_tsit5.cu; K11/K12, mlp_lanes_tsit5.cu) and the
-// whole-solve kernels (whole_solve.cu, K3/K4): the Tsit5 tableau, the
-// MLPDynamics stage, the per-tile body of one normed trial step, the pinned
-// stage state, and the launcher of the fixed-order contraction that sums
-// the weight cotangents (weight_cotangents.cu). The MLPDynamics whole solve
-// and the step backwards K2 and K14 run their stages on tiles of their own
-// (mlp_solve.cuh, mlp_walk.cuh, mlp_step_walk.cuh).
+// normed_tsit5.cu; K11, mlp_lanes_tsit5.cu) and the whole-solve kernels
+// (whole_solve.cu, K3/K4): the Tsit5 tableau, the MLPDynamics stage, the
+// per-tile body of one normed trial step (K1's), the pinned stage state,
+// and the launcher of the fixed-order contraction that sums the weight
+// cotangents (weight_cotangents.cu). The MLPDynamics whole solve, the tuple
+// step K13 and the step backwards K2, K14 and K12 run their stages on tiles
+// of their own (mlp_solve.cuh, mlp_walk.cuh, mlp_step_solve.cuh,
+// mlp_step_walk.cuh).
 //
 // Everything but that contraction's C entry sits in an anonymous
 // namespace, so each .cu file that includes it has its own copy and no
@@ -99,12 +100,13 @@ __device__ __forceinline__ float stage_acc(int i, const float* ks, int stride,
 // as the rounded first product, takes each further term by one fma, and
 // the state is fma(dt, acc, y). The whole solve for MLPDynamics builds every
 // stage state here (K3's stage pass and K4's replay of it, mlp_solve.cuh,
-// and K4's seed phase, mlp_walk.cuh), so the same ks give the same bits on
-// each path: left to the compiler, y + dt * acc_i contracted differently in
-// two inlined copies, and K4's streamed and replayed cotangents of the
-// stiffness norm parted by ulps (H100). The step forwards (K1, K13) keep
-// the compiler's contraction: pinned in the step backward's recompute, it
-// cost that kernel about 35% (H100).
+// and K4's seed phase, mlp_walk.cuh; K13's stages and its g6 row,
+// mlp_step_solve.cuh), so the same ks give the same bits on each path: left
+// to the compiler, y + dt * acc_i contracted differently in two inlined
+// copies, and K4's streamed and replayed cotangents of the stiffness norm
+// parted by ulps (H100). K1's 4-row tiles keep the compiler's contraction:
+// pinned in a 4-row step backward's recompute, it cost that kernel about
+// 35% (H100).
 __device__ __forceinline__ float stage_state(int i, const float* y_s,
                                              const float* ks, int stride,
                                              int idx, float dt) {

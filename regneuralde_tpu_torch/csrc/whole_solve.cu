@@ -9,7 +9,9 @@
 // chain_end, chain_finish, hermite_elem). K2, K14 and K12, the backwards
 // of the normed, the tuple and the lane-wise Tsit5 step (the fast adjoint
 // solve's, odeint's generic engine's and the per-sample engine's), are one
-// trial step of that walk (mlp_step_walk.cuh), so they are built here too.
+// trial step of that walk (mlp_step_walk.cuh), and K13, the tuple step
+// itself, one trial step of K3's stages (mlp_step_solve.cuh), so they are
+// built here too.
 //
 // Replaces the TPU kernels
 //   K3: regneuralde_tpu/ops/pallas_solve.py  make_whole_solve.make_fwd_kernel
@@ -769,10 +771,11 @@ Ctrl make_ctrl(float beta1, float beta2, float qmin, float qmax, float gamma,
 #include "mlp_solve.cuh"
 #include "mlp_walk.cuh"
 #include "mlp_step_walk.cuh"
+#include "mlp_step_solve.cuh"
 
 namespace {
 
-// Launches MLPDynamics' K3, K4, K2, K14 or K12 with one block a tile, or fails if
+// Launches MLPDynamics' K3, K4, K13, K2, K14 or K12 with one block a tile, or fails if
 // the card cannot hold every tile's block at once.
 cudaError_t launch_walk(const void* kernel, void* args, size_t smem, int tiles,
                         cudaStream_t s) {
@@ -783,8 +786,8 @@ cudaError_t launch_walk(const void* kernel, void* args, size_t smem, int tiles,
   return launch_cooperative(kernel, args, smem, tiles, s, nullptr);
 }
 
-// Whether a tile plan (ops/whole_solve.py walk_plan) is one K3, K4, K2, K14
-// and K12 take at B x D: tiles of 16 or 32 rows and a multiple of kWalkTN columns, at
+// Whether a tile plan (ops/whole_solve.py walk_plan) is one K3, K4, K13, K2,
+// K14 and K12 take at B x D: tiles of 16 or 32 rows and a multiple of kWalkTN columns, at
 // most the row passes' elements, covering the batch.
 bool plan_ok(int rows, int cols, int row_blocks, int col_blocks, int chunks, int B, int D) {
   return (rows == 16 || rows == 32) && cols >= 1 && cols % kWalkTN == 0 &&
@@ -1018,6 +1021,26 @@ int regnde_normed_bwd(const float* t, const float* dt, const float* y, const flo
                 atol),
       t, dt, y, k1, ct_ynew, ct_k7, NormedSeed{}, slots, ct_tdt, ct_norms};
   return launch_step_walk(args, cW1, cb1, cW2, cb2, wpart, chunk_rows, wpart_floats, stream);
+}
+
+// K13 (mlp_step_solve.cuh), the tuple Tsit5 step: t, dt scalars on the
+// device; y, k1 (B, D) in; the rows y_new, k7, err, k6, g6 (B, D) out. The
+// tile plan as regnde_whole_solve_bwd's; scratch: K3's
+// (regnde_solve_scratch_floats floats).
+int regnde_mlp_tsit5_fwd(const float* t, const float* dt, const float* y, const float* k1,
+                         const float* W1, const float* b1, const float* W2, const float* b2,
+                         float* y_new, float* k7, float* err, float* k6, float* g6,
+                         float* scratch, int B, int D, int H, int rows, int cols,
+                         int row_blocks, int col_blocks, int chunks, void* stream) {
+  if (!plan_ok(rows, cols, row_blocks, col_blocks, chunks, B, D))
+    return (int)cudaErrorInvalidValue;
+  StepSolveArgs<TupleEnd> a{
+      MlpDyn<false>{W1, b1, W2, b2, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, H},
+      solve_carve(scratch, rows, cols, row_blocks, col_blocks, chunks, H), t, dt, y, k1,
+      TupleEnd{y_new, k7, err, k6, g6}, B, D};
+  return (int)launch_walk((const void*)mlp_step_solve_kernel<TupleEnd>, &a,
+                          sizeof(float) * solve_smem_floats(rows, cols, H),
+                          row_blocks * col_blocks, static_cast<cudaStream_t>(stream));
 }
 
 // K14 (mlp_step_walk.cuh), the tuple Tsit5 step's backward, then the

@@ -58,7 +58,7 @@ _SIGNATURES = {
     "regnde_sde_whole_solve_cubic_bwd": [_P] * 22 + [_I] * 5 + [_F] * 9 + [_P],
     "regnde_lanes_fwd": [_P] * 13 + [_I] * 3 + [_P],
     "regnde_lanes_bwd": [_P] * 33 + [_I] * 10 + [_P],
-    "regnde_mlp_tsit5_fwd": [_P] * 13 + [_I] * 3 + [_P],
+    "regnde_mlp_tsit5_fwd": [_P] * 14 + [_I] * 8 + [_P],
     "regnde_mlp_tsit5_bwd": [_P] * 33 + [_I] * 10 + [_P],
     "regnde_spike_wholesolve": [_F] + [_P] * 5 + [_I] * 2 + [_P],
     "regnde_weight_cotangents": [_P] * 9 + [_I] * 5 + [_P],

@@ -21,10 +21,11 @@ Each step has a plain version (``_reference_sweep`` and ``_bwd_math``, the
 hand reverse chain of ``pallas_mlp._fused_bwd_kernel``;
 ``_reference_normed_sweep`` and ``_normed_bwd_math``, that of
 ``pallas_mlp._normed_bwd_math``) and a CUDA kernel pair (K13,
-``csrc/mlp_tsit5.cu``; K1, ``csrc/normed_tsit5.cu``; their backwards K14
+``csrc/mlp_step_solve.cuh``, one trial step of the whole solve's forward
+stages on its tile plan; K1, ``csrc/normed_tsit5.cu``; their backwards K14
 and K2 are one kernel, ``csrc/mlp_step_walk.cuh``, one trial step of the
-whole solve's reverse walk on its tile plan, with the tuple's or the normed
-step's seeds). The wrappers
+whole solve's reverse walk on the same plan, with the tuple's or the
+normed step's seeds). The wrappers
 ``stage_sweep_fwd``/``stage_sweep_bwd`` and ``normed_sweep_fwd``/
 ``normed_sweep_bwd`` take the plain version for tensors on the CPU, launch
 the kernel for tensors on a CUDA device, and raise otherwise.
@@ -387,17 +388,33 @@ def _cuda_normed_bwd(t, dt, y, k1, leaves, cts, rtol, atol):
     return outs
 
 
+@functools.lru_cache(maxsize=8)
+def _step_solve_scratch(lib, plan, H, dev, stream):
+    """K13's scratch on ``plan`` and ``stream``: K3's (partials, hidden
+    rows, padded weights, slots). Made once and reused, as
+    ``_step_walk_scratch``: what a launch allocates is its outputs."""
+    from regneuralde_tpu_torch.ops import whole_solve as ws
+
+    return ws._cuda_solve_scratch(lib, plan, H, dev)
+
+
 def _cuda_fwd(t, dt, y, k1, leaves):
+    """K13: one cooperative launch of ``csrc/mlp_step_solve.cuh``, K3's six
+    stages on the whole solve's tile plan, then each tile's five rows."""
     from regneuralde_tpu_torch.ops import _cuda
+    from regneuralde_tpu_torch.ops import whole_solve as ws
 
     B, D, H = _check_cuda_args(y, k1, leaves)
     t32, dt32 = _scalar_f32(t, y), _scalar_f32(dt, y)
-    outs = [torch.empty_like(y) for _ in range(5)]
     lib = _cuda.library()
+    plan = ws._cuda_walk_plan(lib, B, D, H, y.device)
     stream = torch.cuda.current_stream(y.device).cuda_stream
+    scratch = _step_solve_scratch(lib, plan, H, y.device, stream)
+    outs = [torch.empty_like(y) for _ in range(5)]
     code = lib.regnde_mlp_tsit5_fwd(
         _ptr(t32), _ptr(dt32), _ptr(y), _ptr(k1), *map(_ptr, leaves), *map(_ptr, outs),
-        B, D, H, ctypes.c_void_p(stream))
+        _ptr(scratch), B, D, H, plan.rows, plan.cols, plan.row_blocks, plan.col_blocks,
+        plan.chunks, ctypes.c_void_p(stream))
     _cuda.check(code, "Tsit5 forward kernel")
     LAUNCHES["mlp_tsit5_fwd"] += 1
     return tuple(outs)

@@ -36,7 +36,9 @@ the normed, the tuple and the lane-wise step's backwards
 ``fused_mlp_lanes.sweep_lanes_bwd``), are one trial step of that walk on the
 plan, with the walk's own seeds, with the tuple's, and with the tuple's at
 every row's own time (``plain_normed_walk_step``, ``plain_tuple_walk_step``,
-``plain_lanes_walk_step``).
+``plain_lanes_walk_step``). K13, the tuple step itself
+(``fused_mlp.stage_sweep_fwd``), is one trial step of the forward's stages on
+the plan (``plain_tuple_solve_step``).
 
 Each kernel has a plain version with the same algebra and the same output
 buffers, over the dynamics' plain trial-step pair (``plain_steps``):
@@ -240,8 +242,8 @@ def walk_plan(B: int, D: int, H: int, sms: int, limit: int = SMEM_LIMIT,
     of ``WALK_COL_ALIGN`` columns, at least ``WALK_MIN_COLS`` where D allows,
     of at most ``WALK_MAX_TILE`` elements, whose shared memory fits
     ``limit`` with ``state`` floats of state an element (K12's plan takes
-    ``LANE_STATE``). 32 x 100, 128 tiles, at 512 x 784 x 100. Cached: K2,
-    K14 and K12 ask for it every trial step, and the search takes about
+    ``LANE_STATE``). 32 x 100, 128 tiles, at 512 x 784 x 100. Cached: K13,
+    K2, K14 and K12 ask for it every trial step, and the search takes about
     0.25 ms."""
     best, best_key = None, None
     widths = sorted({_round_up(-(-D // n), WALK_COL_ALIGN) for n in range(1, D + 1)})
@@ -377,6 +379,19 @@ def plain_tuple_walk_step(t, dt, y, k1, leaves, cts, plan: WalkPlan):
     cp2 = (tab.btilde[6] * (dt * cerr) + ck7) * (1.0 - ks[6] * ks[6])
     return _walk_stages(t, dt, y, leaves, ks, hs, cks, cp2, torch.zeros_like(y),
                         _sum_for(dt)(cerr * fm._err_comb(ks)), {6: cyn, 5: cg6}, plan)
+
+
+def plain_tuple_solve_step(t, dt, y, k1, leaves, plan: WalkPlan):
+    """One launch of K13 (``csrc/mlp_step_solve.cuh``), the tuple step, in
+    the kernel's own schedule: K3's six stages on ``plan``
+    (``_solve_stages``), then each tile's rows as ``fm._reference_sweep``
+    forms them, ``(y_new, k7, err, k6, g6)``: the stage-6 input, k7, dt
+    times the btilde combination of ``k_j - k1`` summed from j = 1 up, k6
+    and the stage-5 input. For the tests: the kernel's arithmetic in this
+    order."""
+    ks, _ = _solve_stages(t, dt, y, k1, leaves, plan)
+    return (y + dt * fm._stage_acc(6, ks), ks[6], dt * fm._err_comb(ks), ks[5],
+            y + dt * fm._stage_acc(5, ks))
 
 
 def plain_lanes_walk_step(t, dt, y, k1, leaves, cts, plan: WalkPlan):
@@ -664,8 +679,8 @@ def _check_walk_sizes(lib, plan, H, lanes):
 
 
 def _cuda_solve_scratch(lib, plan, H, dev):
-    """K3's scratch for ``plan`` (partials, hidden rows, padded weights,
-    slots), sized by the kernel."""
+    """K3's and K13's scratch for ``plan`` (partials, hidden rows, padded
+    weights, slots), sized by the kernel."""
     return torch.empty(lib.regnde_solve_scratch_floats(
         plan.rows, plan.cols, plan.row_blocks, plan.col_blocks, H), device=dev)
 

@@ -1228,6 +1228,68 @@ def test_per_sample_node_trains_through_k11_k12(cuda):
         assert _rel(u, v) <= 1e-3
 
 
+def _assert_k13_matches(kern, t, dt, y, k1, leaves):
+    """K13's rows ``kern`` against the plain step and against its schedule
+    (``plain_tuple_solve_step`` on the card's plan): within 1e-4 of each
+    (the error row within 3e-4) and within 3 times its distance from its
+    float64 twin, plus 1e-7. Returns the plan."""
+    plan = ws.walk_plan(*y.shape, leaves[0].shape[0],
+                        torch.cuda.get_device_properties(y.device).multi_processor_count)
+    d = lambda x: x.double()
+    parts = fm._split_params(*leaves)
+    refs = {"plain": (fm._reference_sweep(t, dt, y, k1, parts),
+                      fm._reference_sweep(d(t), d(dt), d(y), d(k1), [d(x) for x in parts])),
+            "schedule": (ws.plain_tuple_solve_step(t, dt, y, k1, leaves, plan),
+                         ws.plain_tuple_solve_step(d(t), d(dt), d(y), d(k1),
+                                                   [d(x) for x in leaves], plan))}
+    for ref, (plain, plain64) in refs.items():
+        for name, a, b, c in zip(["y_new", "k7", "err", "k6", "g6"], kern, plain, plain64):
+            assert _rel(a, c) <= 3 * _rel(b, c) + 1e-7, (ref, name, _rel(a, c), _rel(b, c))
+            assert _rel(a, b) <= (3e-4 if name == "err" else 1e-4), (ref, name, _rel(a, b))
+    return plan
+
+
+@pytest.mark.cuda
+def test_tuple_step_in_row_chunks_matches_its_schedule(cuda, monkeypatch):
+    """K13 on the plan of a card of 4 multiprocessors: 4 tiles, the batch of
+    256 in row chunks one after another; bitwise deterministic."""
+    plan = ws.walk_plan
+
+    def small_card(B, D, H, sms, limit=ws.SMEM_LIMIT):
+        return plan(B, D, H, 4, limit)
+
+    monkeypatch.setattr(ws, "walk_plan", small_card)
+    y, k1, leaves, _ = _inputs(256, 64, 32, cuda)
+    t, dt = torch.tensor(0.3, device=cuda), torch.tensor(0.3, device=cuda)
+    kern = fm.stage_sweep_fwd(t, dt, y, k1, leaves)
+    assert _assert_k13_matches(kern, t, dt, y, k1, leaves).chunks > 1
+    again = fm.stage_sweep_fwd(t, dt, y, k1, leaves)
+    assert all(torch.equal(a, b) for a, b in zip(kern, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, tol", [((13, 40, 24), 1e-4), ((512, 784, 100), 1.4e-8)])
+def test_tuple_step_is_one_trial_step_of_k3(cuda, shape, tol):
+    """K13 at each trial step of a streamed K3 record (``whole_solve_fwd``
+    for MLPDynamics), at that step's own t, dt_eff, y and k1: its k6 and k7
+    rows equal K3's streamed ``ks[i, 4]`` and ``ks[i, 5]`` bitwise, and its
+    y_new equals ``hy[i + 1]`` bitwise where the step was accepted. K13 is
+    one trial step of K3's stages on the same plan."""
+    args = _solve_args(*shape, cuda, tol=tol)
+    rec = ws.whole_solve_fwd(*args)
+    ns = int(rec.final[3:5].sum().item())
+    st = rec.streams
+    accepted = 0
+    for i in range(ns):
+        y_new, k7, _, k6, _ = fm.stage_sweep_fwd(st[ws.ST_T, i], st[ws.TEL_DT, i], rec.hy[i],
+                                                 rec.hf[i], args[5])
+        assert torch.equal(k6, rec.ks[i, 4]) and torch.equal(k7, rec.ks[i, 5]), i
+        if st[ws.ST_ACC, i].item() == 1.0:
+            assert torch.equal(y_new, rec.hy[i + 1]), i
+            accepted += 1
+    assert ns > 1 and accepted >= 1
+
+
 def _row_cts(batch, dim, device, seed=3):
     rng = np.random.default_rng(seed)
     return [torch.tensor(rng.normal(size=(batch, dim)).astype(np.float32), device=device)
@@ -1240,23 +1302,19 @@ def _row_cts(batch, dim, device, seed=3):
                                    (1024, 784, 100)])
 def test_tuple_kernels_match_plain_versions(cuda, shape, dt):
     """K13/K14 against their plain versions, ragged row tiles included and,
-    at 1024x784x100, K14 walking the batch in two row chunks on 132
-    multiprocessors: the rows within 1e-4 (relative, Frobenius; the error
-    row, a cancellation, within 3e-4, chip_smoke.py's TUPLE_ERR_BOUND) and
-    within 3 times the plain version's distance from float64, the backward
-    within 1e-3; both bitwise deterministic; one launch a call."""
+    at 1024x784x100, both on the batch in two row chunks on 132
+    multiprocessors: K13's rows within 1e-4 (relative, Frobenius; the error
+    row, a cancellation, within 3e-4, chip_smoke.py's TUPLE_ERR_BOUND) of
+    the plain step and of its schedule (``plain_tuple_solve_step`` on the
+    card's plan), and within 3 times their distance from float64, the
+    backward within 1e-3; both bitwise deterministic; one launch a call."""
     y, k1, leaves, _ = _inputs(*shape, cuda)
     cts = _row_cts(shape[0], shape[1], cuda)
     t, dt_ = torch.tensor(0.3, device=cuda), torch.tensor(dt, device=cuda)
     parts = fm._split_params(*leaves)
     fm.reset_launches()
     kern = fm.stage_sweep_fwd(t, dt_, y, k1, leaves)
-    plain = fm._reference_sweep(t, dt_, y, k1, parts)
-    d = lambda x: x.double()
-    plain64 = fm._reference_sweep(d(t), d(dt_), d(y), d(k1), [d(x) for x in parts])
-    for name, a, b, c in zip(["y_new", "k7", "err", "k6", "g6"], kern, plain, plain64):
-        assert _rel(a, c) <= 3 * _rel(b, c) + 1e-7, name
-        assert _rel(a, b) <= (3e-4 if name == "err" else 1e-4), name
+    _assert_k13_matches(kern, t, dt_, y, k1, leaves)
     kern_b = fm.stage_sweep_bwd(t, dt_, y, k1, leaves, cts)
     plain_b = fm._bwd_math(t, dt_, y, k1, parts, cts)
     flat = lambda g: [*g[:4], *g[4]]

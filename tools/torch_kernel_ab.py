@@ -15,8 +15,8 @@ the tree has for them, ``sde``: K9/K10 for the MLP pair, ``lanes``: K11/K12,
 and their device time under ``torch.profiler`` at phase 22's inputs, K12's
 kernels and its contraction apart, whichever kernels the tree has for them,
 ``tuple``: K13/K14, and their device time under ``torch.profiler`` at
-phase 25's inputs, K14's kernels and its contraction apart, whichever
-kernels the tree has for them; a phase the tree lacks is skipped;
+phase 25's inputs, K13's kernel, K14's kernels and its contraction apart,
+whichever kernels the tree has for them; a phase the tree lacks is skipped;
 ``wcot``: the device time, under ``torch.profiler``, of the
 weight-cotangent contraction inside K2 at 512x784x100 (K = 3072 rows) and
 inside K4<MlpDyn> over the flagship's whole solve at 1.4e-8 (K = 6 * 512 *
@@ -166,6 +166,7 @@ def normed_device(dev):
 
 def tuple_device(dev):
     """Device ms a launch of K13 and of K14 at phase 25's inputs (dt 0.05):
+    K13's kernel (the old tuple_fwd_kernel, or mlp_step_solve_kernel<TupleEnd>),
     K14's own kernels (the old tuple_bwd_kernel + tuple_reduce_kernel or
     mlp_tuple_walk_kernel, now mlp_step_walk_kernel<TupleSeed>) and the
     weight-cotangent contraction after them apart."""
@@ -182,7 +183,7 @@ def tuple_device(dev):
     bwd = lambda: fm.stage_sweep_bwd(t, dt, y, k1, leaves, cts)
     return {
         "K13_device": {"ms": device_ms(lambda: fm.stage_sweep_fwd(t, dt, y, k1, leaves),
-                                       ("tuple_fwd_kernel",))},
+                                       ("tuple_fwd_kernel", "mlp_step_solve_kernel"))},
         "K14_device_kernel": {"ms": device_ms(bwd, ("tuple_bwd_kernel", "tuple_reduce_kernel",
                                                     "mlp_tuple_walk_kernel",
                                                     "mlp_step_walk_kernel"))},
