@@ -73,12 +73,14 @@ at first use. Phases (each checks its results; any failure exits non-zero):
    versions at 1024x44x100 (and 1024x46 with the kinetic terms), at
    rtol=atol=1e-5 and 1.4e-8: K7-CSL's rows bitwise equal and its norm sums
    bitwise equal to the plain terms summed in the kernel's order, K8-CSL
-   within BWD_BOUND, bitwise determinism, CUDA-event times;
+   within BWD_BOUND, bitwise determinism, CUDA-event times; K8-CSL's
+   grid (8-row tiles, one wave) and device time, its kernel and its slot
+   sum apart;
 16. K3/K4 with the CSL tile bodies against their plain versions on a
    MiniBooNE batch and its probe, as phase 11 (every stored trial step
    bitwise K7-CSL's, K4 against the plain version and a float64 walk), at
    1e-1 (with the eest telemetry's cotangent alone seeded too), 1e-5 and
-   1.4e-8;
+   1.4e-8; K4-CSL's device time a solve at 1.4e-8;
 17. one forward+backward of FFJORD's training step at rtol=atol=1e-5 on
    ``fused="step"`` and on ``fused=True``, each against ``fused=False``;
 18. three training steps of FFJORD's tabular configuration
@@ -1561,6 +1563,16 @@ def phase_csl_kernels(device):
     }
     print("[csl] median ms over %d runs at %dx%dx%d: %s"
           % (REPS, B, D + 1, H, json.dumps(times)))
+    # K8-CSL's device time, its kernel and its slot sum apart, and its grid
+    from regneuralde_tpu_torch.ops import _cuda
+
+    rows = _cuda.library().regnde_csl_bwd_rows()
+    blocks, sms = (B + rows - 1) // rows, torch.cuda.get_device_properties(0).multi_processor_count
+    bwd = lambda: fc.csl_normed_sweep_bwd(t, dt, y, k1, leaves, cts, tol, tol)
+    dev_k, dev_s = _device_ms(bwd, "csl_bwd_kernel"), _device_ms(bwd, "sum_slots_kernel")
+    print(f"[csl] K8-CSL: {blocks} blocks of {rows} rows a launch on {sms} SMs; device ms "
+          f"a launch: csl_bwd_kernel {dev_k!r}, sum_slots_kernel {dev_s!r}")
+    _check(blocks <= sms, f"K8-CSL runs in one wave: {blocks} blocks on {sms} SMs")
     f_ops, b_ops, leaf = _csl_work(B, D, H)
     BA, BD = B * (D + 1), B * D
     return {
@@ -1668,6 +1680,10 @@ def phase_whole_solve_csl_kernels(device, batch):
     }
     print("[whole-csl] median ms over %d runs at %dx%dx%d, tol %g, %d trial steps: %s"
           % (REPS, B, D + 1, H, FLAGSHIP_TOL, ns, json.dumps(times)))
+    dev = _device_ms(lambda: ws.whole_solve_bwd(*bwd, dynamics="csl"),
+                     "whole_solve_bwd_kernel")
+    print(f"[whole-csl] K4-CSL device ms a solve of {ns} trial steps: "
+          f"whole_solve_bwd_kernel {dev!r}")
     f_ops, b_ops, leaf = _csl_work(B, D, H)
     # the probe is read like a leaf
     nbytes = _solve_bytes(B * (D + 1), leaf + B * D, ns, 0, FFJORD_MAX_STEPS)

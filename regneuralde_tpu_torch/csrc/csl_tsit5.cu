@@ -24,18 +24,22 @@
 // What the design does about it. Widths of 43 and 100 are far below a
 // tensor-core tile, so every product is FMA work on values in shared
 // memory:
-//   * one block owns a tile of kCslRows rows and runs the whole step; the
-//     parameters (19,572 floats) are loaded into shared memory once per
-//     launch, each weight row padded to an odd stride;
-//   * the three norm sums leave each block as a per-tile slot, summed in
-//     tile order by a second small kernel (as K7);
-//   * K8-CSL keeps each stage's activations from its recompute (6 x 686
-//     floats a row), walks the stages in reverse, accumulates its rows'
-//     parameter cotangents in shared memory (one owner an element), writes
-//     them to a per-block slot, and a second kernel sums the slots in block
-//     order; the time cotangent of each stage reaches t and dt through the
-//     per-tile (ct_t, ct_dt) sums. No floating-point atomics: every result
-//     is bitwise reproducible (the norm sums decide accept/reject).
+//   * K7-CSL: one block owns a tile of kCslRows = 2 rows and runs the
+//     whole step; the parameters (19,572 floats) are loaded into shared
+//     memory once per launch, each weight row padded to an odd stride; the
+//     three norm sums leave each block as a per-tile slot, summed in tile
+//     order by a second small kernel;
+//   * K8-CSL: one block a tile of kCslBwdRows = 8 rows (128 blocks at
+//     B = 1024, one wave on 132 SMs), csl_reverse_tile: the recompute
+//     writes each stage's activations to device memory (they do not fit
+//     beside the parameters), the reverse reads them back a stage at a
+//     time; every product runs four rows a thread, a weight loaded once for
+//     four chains; the weights' cotangents are held in registers (4 x 4
+//     tiles a thread) and written once per tile to a per-block slot, which
+//     a second kernel sums in block order; the time cotangent of each stage
+//     reaches t and dt through the per-tile (ct_t, ct_dt) sums. No
+//     floating-point atomics: every result is bitwise reproducible (the
+//     norm sums decide accept/reject).
 // The forward reproduces its plain version bitwise (see csl_tsit5.cuh), so
 // that kernel and plain solves take the same steps where the error estimate
 // sits at its f32 rounding floor.
@@ -61,31 +65,31 @@ csl_fwd_kernel(const float* __restrict__ t_p, const float* __restrict__ dt_p,
                rtol, atol, wsm + csl_pad_floats(D, H));
 }
 
-// K8-CSL: the hand reverse chain of K7-CSL per row tile, seeded with the
-// row cotangents ct_ynew, ct_k7 and the norm sums' cotangents. Writes the
-// tile's ct_y and ct_k1 rows, and to slots[tile] its parameter cotangents
-// (csl_leaf_floats, the leaves' layout) followed by its (ct_t, ct_dt).
+// K8-CSL: the hand reverse chain of K7-CSL per row tile of kCslBwdRows
+// rows (csl_reverse_tile), seeded with the row cotangents ct_ynew, ct_k7
+// and the norm sums' cotangents. Writes the tile's ct_y and ct_k1 rows, and
+// to slots[tile] its parameter cotangents (csl_leaf_floats, the leaves'
+// layout) followed by its (ct_t, ct_dt); recs: the tiles' activation
+// records (csl_reverse_records floats each).
 __global__ void __launch_bounds__(kThreads)
 csl_bwd_kernel(const float* __restrict__ t_p, const float* __restrict__ dt_p,
                const float* __restrict__ y, const float* __restrict__ k1,
                const CslLeaves leaves, int kinetic,
                const float* __restrict__ ct_ynew, const float* __restrict__ ct_k7,
                const float* __restrict__ ct_scalars, float* __restrict__ ct_y,
-               float* __restrict__ ct_k1, float* __restrict__ slots, int B, int A,
-               int D, int H, float rtol, float atol) {
+               float* __restrict__ ct_k1, float* __restrict__ slots,
+               float* __restrict__ recs, int B, int A, int D, int H, float rtol,
+               float atol) {
   extern __shared__ float smem[];
-  const int row0 = blockIdx.x * kCslRows;
+  const int row0 = blockIdx.x * kCslBwdRows;
   const int nleaf = csl_leaf_floats(D, H);
-  float* wsm = smem;
-  float* cw = wsm + csl_pad_floats(D, H);  // parameter cotangents
-  csl_load_weights(leaves, D, H, wsm);
-  for (int e = threadIdx.x; e < nleaf; e += kThreads) cw[e] = 0.0f;
   float* slot = slots + (size_t)blockIdx.x * (nleaf + 2);
-  csl_bwd_tile(y, k1, leaves.p[kCslParams], row0, min(kCslRows, B - row0), *t_p,
-               *dt_p, wsm, cw, ct_ynew, ct_k7, nullptr, nullptr, ct_scalars[0],
-               ct_scalars[1], ct_scalars[2], ct_y, ct_k1, slot + nleaf, A, D, H,
-               kinetic, rtol, atol, cw + nleaf);
-  for (int e = threadIdx.x; e < nleaf; e += kThreads) slot[e] = cw[e];
+  csl_load_weights(leaves, D, H, smem);
+  csl_reverse_tile(y, k1, leaves.p[kCslParams], row0, min(kCslBwdRows, B - row0), *t_p,
+                   *dt_p, smem, recs + (size_t)blockIdx.x * csl_reverse_records(D, H), slot,
+                   false, ct_ynew, ct_k7, nullptr, nullptr, ct_scalars[0], ct_scalars[1],
+                   ct_scalars[2], ct_y, ct_k1, slot + nleaf, A, D, H, kinetic, rtol, atol,
+                   smem + csl_pad_floats(D, H));
 }
 
 }  // namespace
@@ -118,25 +122,32 @@ int regnde_csl_fwd(const float* t, const float* dt, const float* y, const float*
   return (int)cudaGetLastError();
 }
 
+// The backward's tile rows, its shared memory at A x D x H and the most
+// 4 x 4 weight-cotangent tiles it holds (csl_cw_tiles must not exceed it).
+int regnde_csl_bwd_rows() { return kCslBwdRows; }
+int regnde_csl_bwd_smem_bytes(int A, int D, int H) { return (int)csl_bwd_smem_bytes(A, D, H); }
+int regnde_csl_bwd_max_tiles() { return kCslCwTiles * kThreads; }
+
 // K8-CSL. ct_scalars: (3,) cotangents of the three sums. out:
 // (csl_leaf_floats + 2,) the parameters' cotangents in order (the leaves'
-// layout), then ct_t and ct_dt. slots: (ceil(B/R), csl_leaf_floats + 2)
-// scratch.
+// layout), then ct_t and ct_dt. slots: (ceil(B/8), csl_leaf_floats + 2) and
+// recs: (ceil(B/8), csl_reverse_records) scratch.
 int regnde_csl_bwd(const float* t, const float* dt, const float* y, const float* k1,
                    const float* const* leaves, int kinetic, const float* ct_ynew,
                    const float* ct_k7, const float* ct_scalars, float* ct_y,
-                   float* ct_k1, float* slots, float* out, int B, int A, int H,
-                   float rtol, float atol, void* stream) {
+                   float* ct_k1, float* slots, float* recs, float* out, int B, int A,
+                   int H, float rtol, float atol, void* stream) {
   const int D = A - 1 - 2 * kinetic;
+  if (csl_cw_tiles(D, H) > kCslCwTiles * kThreads) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t smem = csl_bwd_smem_bytes(A, D, H);
   cudaError_t e = cudaFuncSetAttribute(
       csl_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const int nblocks = (B + kCslRows - 1) / kCslRows;
+  const int nblocks = (B + kCslBwdRows - 1) / kCslBwdRows;
   csl_bwd_kernel<<<nblocks, kThreads, smem, s>>>(
       t, dt, y, k1, pack_csl_leaves(leaves), kinetic, ct_ynew, ct_k7, ct_scalars,
-      ct_y, ct_k1, slots, B, A, D, H, rtol, atol);
+      ct_y, ct_k1, slots, recs, B, A, D, H, rtol, atol);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int width = csl_leaf_floats(D, H) + 2;

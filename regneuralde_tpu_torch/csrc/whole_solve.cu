@@ -476,16 +476,19 @@ struct AltDyn {
   }
 };
 
-// FFJORD's CSL dynamics: K7-CSL's and K8-CSL's tile bodies, the padded
-// parameters in shared memory for the whole solve (the probe e is read by
-// row). The backward accumulates its tiles' parameter cotangents in shared
-// memory over the whole walk and writes them to slots[blockIdx.x] at the
-// end. The template's row width is the augmented state's, A = dim + 1 or
-// dim + 3 (kinetic).
+// FFJORD's CSL dynamics: K7-CSL's tile body forward (2-row tiles) and
+// K8-CSL's reverse body backward (csl_reverse_tile, 8-row tiles), the
+// padded parameters in shared memory for the whole solve (the probe e is
+// read by row). The backward's slots hold one slot a block (csl_leaf_floats)
+// that its tiles add their parameter cotangents to, zeroed first and
+// summed over the blocks after the walk, then, from float pad4(grid *
+// csl_leaf_floats) on, each block's activation records
+// (csl_reverse_records). The template's row width is the augmented state's,
+// A = dim + 1 or dim + 3 (kinetic).
 struct CslDyn {
-  static constexpr int kFwdR = kCslRows, kBwdR = kCslRows;
+  static constexpr int kFwdR = kCslRows, kBwdR = kCslBwdRows;
   CslLeaves lv;
-  float* slots;  // (grid, csl_leaf_floats)
+  float* slots;
   int dim, H, kinetic;
 
   __device__ void setup_fwd(float* smem, int) const { csl_load_weights(lv, dim, H, smem); }
@@ -497,8 +500,9 @@ struct CslDyn {
   }
   __device__ void setup_bwd(float* smem, int) const {
     csl_load_weights(lv, dim, H, smem);
-    float* cw = smem + csl_pad_floats(dim, H);
-    for (int e = threadIdx.x; e < csl_leaf_floats(dim, H); e += kThreads) cw[e] = 0.0f;
+    const int nleaf = csl_leaf_floats(dim, H);
+    float* slot = slots + (size_t)blockIdx.x * nleaf;
+    for (int e = threadIdx.x; e < nleaf; e += kThreads) slot[e] = 0.0f;
   }
   __device__ void bwd(const float* y, const float* k1, int row0, int rows, int,
                       int, float t, float dt, const float* ct_ynew,
@@ -506,18 +510,15 @@ struct CslDyn {
                       const float* pass_k1, float c_err, float c_num,
                       float c_den, float* ct_y, float* ct_k1, float* part,
                       int A, float rtol, float atol, float* smem) const {
-    float* cw = smem + csl_pad_floats(dim, H);
-    csl_bwd_tile(y, k1, lv.p[kCslParams], row0, rows, t, dt, smem, cw, ct_ynew,
-                 ct_k7, pass_y, pass_k1, c_err, c_num, c_den, ct_y, ct_k1, part, A,
-                 dim, H, kinetic, rtol, atol, cw + csl_leaf_floats(dim, H));
-  }
-  __device__ void finish_bwd(float* smem, int) const {
     const int nleaf = csl_leaf_floats(dim, H);
-    const float* cw = smem + csl_pad_floats(dim, H);
-    float* slot = slots + (size_t)blockIdx.x * nleaf;
-    __syncthreads();
-    for (int e = threadIdx.x; e < nleaf; e += kThreads) slot[e] = cw[e];
+    float* recs = slots + csl_pad4((int)gridDim.x * nleaf) +
+                  (size_t)blockIdx.x * csl_reverse_records(dim, H);
+    csl_reverse_tile(y, k1, lv.p[kCslParams], row0, rows, t, dt, smem, recs,
+                     slots + (size_t)blockIdx.x * nleaf, true, ct_ynew, ct_k7, pass_y,
+                     pass_k1, c_err, c_num, c_den, ct_y, ct_k1, part, A, dim, H, kinetic,
+                     rtol, atol, smem + csl_pad_floats(dim, H));
   }
+  __device__ void finish_bwd(float*, int) const {}
 };
 
 template <class Dyn>
@@ -1151,11 +1152,13 @@ int regnde_whole_solve_csl_fwd(const float* scalars, const float* y0,
                                  static_cast<cudaStream_t>(stream), nullptr);
 }
 
-// K4 for FFJORD's CSL dynamics, then the sum of its blocks' parameter-
-// cotangent slots in block order. Arguments as regnde_whole_solve_altmlp_bwd
-// with the leaves and kinetic flag of regnde_whole_solve_csl_fwd; out:
-// (csl_leaf_floats,) the parameters' cotangents in order (the probe has
-// none); slots: (ceil(B/2), csl_leaf_floats) scratch.
+// K4 for FFJORD's CSL dynamics on 8-row tiles (one a block at B <= 8 x the
+// grid), then the sum of its blocks' parameter-cotangent slots in block
+// order. Arguments as regnde_whole_solve_altmlp_bwd with the leaves and
+// kinetic flag of regnde_whole_solve_csl_fwd; partials: (2, ceil(B/8), 4);
+// out: (csl_leaf_floats,) the parameters' cotangents in order (the probe
+// has none); slots: pad4(ceil(B/8) x csl_leaf_floats) + ceil(B/8) x
+// csl_reverse_records floats of scratch (CslDyn).
 int regnde_whole_solve_csl_bwd(const float* scalars, const float* streams,
                                const float* hy, const float* hf,
                                const float* const* leaves, int kinetic,
@@ -1168,6 +1171,7 @@ int regnde_whole_solve_csl_bwd(const float* scalars, const float* streams,
                                float qmax, float gamma, float qoldinit,
                                float qsteady_max, void* stream) {
   const int dim = A - 1 - 2 * kinetic;
+  if (csl_cw_tiles(dim, H) > kCslCwTiles * kThreads) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   BwdArgs<CslDyn> a{scalars, streams, hy, hf,
                     CslDyn{pack_csl_leaves(leaves), slots, dim, H, kinetic},
@@ -1177,7 +1181,7 @@ int regnde_whole_solve_csl_bwd(const float* scalars, const float* streams,
   int grid = 0;
   cudaError_t e = launch_cooperative((const void*)whole_solve_bwd_kernel<CslDyn>, &a,
                                      csl_bwd_smem_bytes(A, dim, H),
-                                     (B + kCslRows - 1) / kCslRows, s, &grid);
+                                     (B + kCslBwdRows - 1) / kCslBwdRows, s, &grid);
   if (e != cudaSuccess) return (int)e;
   const int width = csl_leaf_floats(dim, H);
   sum_slots_kernel<<<(width + kThreads - 1) / kThreads, kThreads, 0, s>>>(

@@ -42,7 +42,8 @@ error estimate sits near its float32 rounding floor.
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, Sequence, Tuple
+import functools
+from typing import Callable, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -58,6 +59,15 @@ LAUNCHES = {"csl_tsit5_fwd": 0, "csl_tsit5_bwd": 0}
 N_PARAMS = 15  # 3 layers x (W, b, w_g, w_b, b_b)
 LEAF_NAMES = [f"csl{i}.{p}" for i in (1, 2, 3) for p in
               ("layer.weight", "layer.bias", "gate.weight", "bias.weight", "bias.bias")]
+
+
+# K8-CSL's and K4-CSL's reverse tile body (csrc/csl_tsit5.cuh
+# csl_reverse_tile): rows a tile (kCslBwdRows), the most 4 x 4
+# weight-cotangent tiles it holds in registers (kCslCwTiles x kThreads), and
+# the shared memory a block may take on the H100.
+CSL_BWD_ROWS = 8
+CSL_BWD_MAX_TILES = 5 * 256
+SMEM_LIMIT = 232_448
 
 
 def reset_launches() -> None:
@@ -181,10 +191,13 @@ def plain_csl_normed_sweep(t, dt, y, k1, leaves, rtol, atol) -> NormedSweep:
                               float(rtol), float(atol))
 
 
-def _apply_bwd(ti, z, acts, mz, eJ, ct_k, params, e, kinetic):
+def _apply_bwd_rows(ti, z, acts, mz, eJ, ct_k, params, e, kinetic):
     """The pullback of one evaluation of the augmented dynamics from the
-    cotangent ``ct_k`` of its output: ``(ct_z, ct_ti, ct_params)``. The
-    probe gets none."""
+    cotangent ``ct_k`` of its output, row by row: ``(ct_z, layers)``, per
+    layer ``(ct_o, ct_a, h, ug, c_out, a, uq, g)`` (each ``(rows, width)``
+    but ``g``): weight ``l``'s cotangent is ``ct_a^T h + ug^T c_out``, its
+    bias's ``sum ct_a``, the gate's and time bias's from ``ct_o``, ``a``,
+    ``uq = u q`` and ``g``. The probe gets none."""
     D = e.shape[1]
     a1, g1, o1, a2, g2, o2, a3, g3, v3, v2 = acts
     W1, W2, W3 = params[0], params[5], params[10]
@@ -204,40 +217,75 @@ def _apply_bwd(ti, z, acts, mz, eJ, ct_k, params, e, kinetic):
     ct_v3 = g2 * q2 * s2
     ct_o2 = g2 * q2 * v3 * (s2 * (1.0 - s2))
     q3 = ct_v3 @ W3.T
-    ct_g = [(u1 * q1).sum(0), (u2 * q2).sum(0), (e * q3).sum(0)]
-    ct_W = [(u1 * g1).T @ ct_eJ, (u2 * g2).T @ ct_v2, (e * g3).T @ ct_v3]
+    uq = [u1 * q1, u2 * q2, e * q3]
+    ug = [u1 * g1, u2 * g2, e * g3]
+    c_out = [ct_eJ, ct_v2, ct_v3]
 
-    ct_ti = torch.zeros_like(ti)
-    ct_params = [None] * N_PARAMS
     h = [z, softplus(o1), softplus(o2)]
     a, g, ct_o = [a1, a2, a3], [g1, g2, g3], [None, None, ct_o3]
+    layers = [None] * 3
     for l in (2, 1, 0):
-        W, _, wg, wb, _ = params[5 * l:5 * l + 5]
         if l == 1:
             ct_o[1] = ct_o2 + ct_x * s2
         elif l == 0:
             ct_o[0] = ct_o1 + ct_x * s1
-        co = ct_o[l]
-        ct_a = co * g[l]
+        ct_a = ct_o[l] * g[l]
+        layers[l] = (ct_o[l], ct_a, h[l], ug[l], c_out[l], a[l], uq[l], g[l])
+        ct_x = ct_a @ params[5 * l]
+    return ct_x, layers
+
+
+def _batch_params(acc, ti, params, layers):
+    """Adds one stage's parameter cotangents, summed over the batch, to
+    ``acc`` (the parameters' order); returns the stage's ct_ti."""
+    ct_ti = torch.zeros_like(ti)
+    ct_p = [None] * N_PARAMS
+    for l in (2, 1, 0):
+        co, ct_a, h, ug, c_out, a, uq, g = layers[l]
+        wg, wb = params[5 * l + 2], params[5 * l + 3]
         co_sum = co.sum(0)
-        dg = (ct_g[l] + (co * a[l]).sum(0)) * (g[l] * (1.0 - g[l]))
+        dg = (uq.sum(0) + (co * a).sum(0)) * (g * (1.0 - g))
         ct_ti = ct_ti + (co_sum * wb.reshape(-1)).sum() + (dg * wg.reshape(-1)).sum()
-        ct_params[5 * l:5 * l + 5] = [ct_W[l] + ct_a.T @ h[l], ct_a.sum(0),
-                                     (dg * ti).reshape(wg.shape),
-                                     (co_sum * ti).reshape(wb.shape), co_sum]
-        ct_x = ct_a @ W
-    return ct_x, ct_ti, ct_params
+        ct_p[5 * l:5 * l + 5] = [ug.T @ c_out + ct_a.T @ h, ct_a.sum(0),
+                                (dg * ti).reshape(wg.shape),
+                                (co_sum * ti).reshape(wb.shape), co_sum]
+    acc[:] = [x + d for x, d in zip(acc, ct_p)]
+    return ct_ti
 
 
-def _csl_bwd_math(t, dt, y, k1, leaves, cts, rtol, atol):
-    """Plain version of K8-CSL: the hand reverse chain of the normed step.
+def _tile_params(acc, ti, params, layers):
+    """``_batch_params`` in the order of K8-CSL's tile body
+    (``csl_reverse_tile``): each weight element gets ``ct_a[r, o] h[r, k]``
+    then ``ug[r, o] c_out[r, k]`` row after row; each output's vector sums
+    (ct_o, ct_a, ct_o a + u q) run over the rows in order before they reach
+    ``acc``."""
+    ct_ti = torch.zeros_like(ti)
+    for l in (0, 1, 2):
+        co, ct_a, h, ug, c_out, a, uq, g = layers[l]
+        iw, ib, ig, iwb, ibb = range(5 * l, 5 * l + 5)
+        co_sum, ca_sum, cg = (torch.zeros_like(co[0]) for _ in range(3))
+        for r in range(co.shape[0]):
+            acc[iw] = acc[iw] + ct_a[r, :, None] * h[r, None, :]
+            acc[iw] = acc[iw] + ug[r, :, None] * c_out[r, None, :]
+            co_sum = co_sum + co[r]
+            ca_sum = ca_sum + ct_a[r]
+            cg = cg + (co[r] * a[r] + uq[r])
+        dg = cg * (g * (1.0 - g))
+        acc[ib] = acc[ib] + ca_sum
+        acc[ig] = acc[ig] + (dg * ti).reshape(acc[ig].shape)
+        acc[iwb] = acc[iwb] + (co_sum * ti).reshape(acc[iwb].shape)
+        acc[ibb] = acc[ibb] + co_sum
+        ct_ti = ct_ti + (co_sum * params[iwb].reshape(-1) + dg * params[ig].reshape(-1)).sum()
+    return ct_ti
 
-    Maps ``cts = (ct_y_new, ct_k7, ct_err_ssq, ct_num_ssq, ct_den_ssq)`` to
-    ``(ct_t, ct_dt, ct_y, ct_k1, ct_leaves)``, the probe's cotangent zero.
-    The same chain as ``csrc/csl_tsit5.cuh`` ``csl_bwd_tile``: the stage
-    recompute keeps each stage's activations, then the stages are walked
-    in reverse, each through ``_apply_bwd``; stage ``i`` runs at ``t +
-    c_i dt``, so its time cotangent reaches both ``t`` and ``dt``."""
+
+def _csl_reverse(t, dt, y, k1, leaves, cts, rtol, atol, add_params):
+    """The hand reverse chain of the normed step: the stage recompute keeps
+    each stage's activations, then the stages are walked in reverse, each
+    through ``_apply_bwd_rows``, and ``add_params(acc, ti, params, layers)``
+    adds the stage's parameter cotangents to ``acc`` and returns its ct_ti;
+    stage ``i`` runs at ``t + c_i dt``, so its time cotangent reaches both
+    ``t`` and ``dt``. Returns ``(ct_t, ct_dt, ct_y, ct_k1, ct_leaves)``."""
     tab = TSIT5
     leaves = tuple(leaves)
     params, e = leaves[:N_PARAMS], leaves[N_PARAMS]
@@ -279,8 +327,8 @@ def _csl_bwd_math(t, dt, y, k1, leaves, cts, rtol, atol):
     ct_params = [torch.zeros_like(x) for x in params]
     for i in range(6, 0, -1):
         ti, z, acts, mz, eJ = recs[i - 1]
-        ct_z, ct_ti, ct_p = _apply_bwd(ti, z, acts, mz, eJ, ct_ks[i], params, e, kinetic)
-        ct_params = [a + b for a, b in zip(ct_params, ct_p)]
+        ct_z, layers = _apply_bwd_rows(ti, z, acts, mz, eJ, ct_ks[i], params, e, kinetic)
+        ct_ti = add_params(ct_params, ti, params, layers)
         ct_yi = torch.cat([ct_z, torch.zeros_like(y[:, D:])], dim=-1)
         if i in seeds:
             ct_yi = ct_yi + seeds[i]
@@ -291,6 +339,43 @@ def _csl_bwd_math(t, dt, y, k1, leaves, cts, rtol, atol):
             if c != 0.0:
                 ct_ks[j] = ct_ks[j] + (dt * c) * ct_yi
     return ct_t, ct_dt, ct_y, ct_ks[0], (*ct_params, torch.zeros_like(e))
+
+
+def _csl_bwd_math(t, dt, y, k1, leaves, cts, rtol, atol):
+    """Plain version of K8-CSL: the hand reverse chain of the normed step
+    (``_csl_reverse``), each stage's parameter cotangents summed over the
+    batch.
+
+    Maps ``cts = (ct_y_new, ct_k7, ct_err_ssq, ct_num_ssq, ct_den_ssq)`` to
+    ``(ct_t, ct_dt, ct_y, ct_k1, ct_leaves)``, the probe's cotangent zero.
+    The kernel's chain (``csrc/csl_tsit5.cuh`` ``csl_reverse_tile``) in
+    its order of sums is ``plain_csl_bwd_tiles``."""
+    return _csl_reverse(t, dt, y, k1, leaves, cts, rtol, atol, _batch_params)
+
+
+def plain_csl_bwd_tiles(t, dt, y, k1, leaves, cts, rtol, atol, rows=None):
+    """``_csl_bwd_math`` with the parameter cotangents and ``(ct_t, ct_dt)``
+    summed in K8-CSL's order: per tile of ``rows`` rows (the kernel's,
+    ``CSL_BWD_ROWS``, by default) the chain on the tile's rows, its stages
+    6 to 1 each adding the tile's rows in order (``_tile_params``), then
+    the tiles' sums in tile order (the slot sum). ct_y and ct_k1 are per
+    row. For the tests: the CPU path of ``csl_normed_sweep_bwd`` is
+    ``_csl_bwd_math``."""
+    rows = CSL_BWD_ROWS if rows is None else rows
+    leaves = tuple(leaves)
+    cyn, ck7, *scalars = cts
+    out, ct_y, ct_k1 = None, [], []
+    for r0 in range(0, y.shape[0], rows):
+        tile = slice(r0, r0 + rows)
+        ct_t, ct_dt, cy, ck, ct_leaves = _csl_reverse(
+            t, dt, y[tile], k1[tile], (*leaves[:N_PARAMS], leaves[N_PARAMS][tile]),
+            (cyn[tile], ck7[tile], *scalars), rtol, atol, _tile_params)
+        sums = (ct_t, ct_dt, *ct_leaves[:N_PARAMS])
+        out = sums if out is None else tuple(a + b for a, b in zip(out, sums))
+        ct_y.append(cy)
+        ct_k1.append(ck)
+    return (out[0], out[1], torch.cat(ct_y), torch.cat(ct_k1),
+            (*out[2:], torch.zeros_like(leaves[N_PARAMS])))
 
 
 # ---------------------------------------------------------------------------
@@ -357,12 +442,75 @@ def _unpack_cts(out, leaves):
     return (*ct, torch.zeros_like(leaves[N_PARAMS]))
 
 
+class CslBwdPlan(NamedTuple):
+    """The reverse tile body at a batch and widths: ``rows`` a tile,
+    ``tiles`` (K8-CSL's blocks), ``cw_tiles`` (4 x 4 weight-cotangent
+    tiles over the three weights), ``smem_bytes`` a block, and
+    ``record_floats`` of activation records a block in device memory."""
+    rows: int
+    tiles: int
+    cw_tiles: int
+    smem_bytes: int
+    record_floats: int
+
+
+def _pad4(n):
+    return (n + 3) // 4 * 4
+
+
+def csl_bwd_plan(B, D, H, kinetic) -> CslBwdPlan:
+    """``csrc/csl_tsit5.cuh``'s sizes of the reverse body (``csl_reverse_
+    floats``, ``csl_bwd_smem_bytes``, ``csl_cw_tiles``) at ``B x D x H``;
+    raises ``ValueError`` for layers it does not hold (more weight tiles
+    than ``CSL_BWD_MAX_TILES`` or more shared memory than ``SMEM_LIMIT``)."""
+    R, A = CSL_BWD_ROWS, D + (3 if kinetic else 1)
+    dims = ((D, H), (H, H), (H, D))  # (in, out) by layer
+    rec_row = 6 * H + 2 * D
+    n, pd, ph = R * A, R * _pad4(D), R * _pad4(H)
+    parts = ([n, 7 * n, 7 * n, n, n, n, n, pd, 2 * pd, 2 * H + D, 4 * (2 * H + D), R * rec_row]
+             + [2 * max(pd, ph)] * 2 + [pd] * 7 + [ph] * 12 + [16])
+    params = sum(o * (i + 5) for i, o in dims)
+    smem = 4 * (params + 4 + sum(_pad4(x) for x in parts))
+    cw = sum(((o + 3) // 4) * ((i + 3) // 4) for i, o in dims)
+    if cw > CSL_BWD_MAX_TILES or smem > SMEM_LIMIT:
+        raise ValueError(
+            f"K8-CSL's tile body holds at most {CSL_BWD_MAX_TILES} weight tiles and "
+            f"{SMEM_LIMIT} bytes of shared memory; dim {D}, hidden {H} need {cw} and {smem}")
+    return CslBwdPlan(R, (B + R - 1) // R, cw, smem, 6 * R * rec_row)
+
+
+@functools.lru_cache(maxsize=16)
+def check_bwd_plan(lib, A, D, H, kinetic) -> CslBwdPlan:
+    """``csl_bwd_plan`` held to the library's constants (once a shape)."""
+    plan = csl_bwd_plan(0, D, H, kinetic)
+    if (lib.regnde_csl_bwd_rows() != CSL_BWD_ROWS
+            or lib.regnde_csl_bwd_max_tiles() != CSL_BWD_MAX_TILES
+            or lib.regnde_csl_bwd_smem_bytes(A, D, H) != plan.smem_bytes):
+        raise RuntimeError("csl_bwd_plan disagrees with csrc/csl_tsit5.cuh's sizes")
+    return plan
+
+
+@functools.lru_cache(maxsize=8)
+def _csl_bwd_scratch(lib, B, A, D, H, kinetic, dev, stream):
+    """K8-CSL's scratch at ``B x A x H`` on ``stream``: the per-tile slots
+    (parameter cotangents, then ct_t and ct_dt) and activation records.
+    Nothing of it outlives a launch, and launches on one stream run in
+    order, so it is made once and reused."""
+    plan = check_bwd_plan(lib, A, D, H, kinetic)
+    n_leaf = D * H + H * H + H * D + 4 * (2 * H + D)
+    tiles = (B + plan.rows - 1) // plan.rows
+    return (torch.empty((tiles, n_leaf + 2), device=dev),
+            torch.empty((tiles, plan.record_floats), device=dev))
+
+
 def _cuda_csl_bwd(t, dt, y, k1, leaves, cts, rtol, atol):
     from regneuralde_tpu_torch.ops import _cuda
 
     cyn, ck7 = cts[0], cts[1]
     B, A, H, kinetic = _check_cuda_args(
         y, k1, leaves, {"ct_y_new": (cyn, tuple(y.shape)), "ct_k7": (ck7, tuple(y.shape))})
+    D = A - 1 - 2 * kinetic
+    csl_bwd_plan(B, D, H, kinetic)
     lib = _cuda.library()
     t32, dt32 = _scalar_f32(t, y), _scalar_f32(dt, y)
     ct_scalars = torch.stack([_scalar_f32(c, y) for c in cts[2:]]).contiguous()
@@ -371,14 +519,14 @@ def _cuda_csl_bwd(t, dt, y, k1, leaves, cts, rtol, atol):
     ct_k1 = torch.empty_like(y)
     n_leaf = sum(x.numel() for x in leaves[:N_PARAMS])
     out = torch.empty(n_leaf + 2, device=dev)
-    rows = lib.regnde_csl_rows()
-    slots = torch.empty(((B + rows - 1) // rows, n_leaf + 2), device=dev)
-    ptrs = _leaf_pointers(leaves)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    slots, recs = _csl_bwd_scratch(lib, B, A, D, H, kinetic, dev, stream)
+    ptrs = _leaf_pointers(leaves)
     code = lib.regnde_csl_bwd(
         _ptr(t32), _ptr(dt32), _ptr(y), _ptr(k1), ctypes.cast(ptrs, ctypes.c_void_p),
         kinetic, _ptr(cyn), _ptr(ck7), _ptr(ct_scalars), _ptr(ct_y), _ptr(ct_k1),
-        _ptr(slots), _ptr(out), B, A, H, float(rtol), float(atol), ctypes.c_void_p(stream))
+        _ptr(slots), _ptr(recs), _ptr(out), B, A, H, float(rtol), float(atol),
+        ctypes.c_void_p(stream))
     _cuda.check(code, "CSL Tsit5 backward kernel")
     LAUNCHES["csl_tsit5_bwd"] += 1
     return out[n_leaf], out[n_leaf + 1], ct_y, ct_k1, _unpack_cts(out, leaves)

@@ -647,12 +647,13 @@ def _opt_ptr(x):
     return None if x is None else fm._ptr(x)
 
 
-def _tile_rows(lib, dynamics):
-    """Rows of the tiles K3 and K4 for AlternatingMLP and CSL run on
-    (MLPDynamics' run on ``walk_plan``'s)."""
+def _tile_rows(lib, dynamics, bwd=False):
+    """Rows of the tiles K3 and, with ``bwd``, K4 for AlternatingMLP and CSL
+    run on (MLPDynamics' run on ``walk_plan``'s; K4-CSL on K8-CSL's tile
+    body, 8 rows)."""
     if dynamics == "altmlp":
         return lib.regnde_altmlp_rows()
-    return lib.regnde_csl_rows()
+    return lib.regnde_csl_bwd_rows() if bwd else lib.regnde_csl_rows()
 
 
 def _cuda_walk_plan(lib, B, D, H, dev, lanes=False):
@@ -826,14 +827,19 @@ def _cuda_whole_solve_bwd(rec, ns, ct_y1, ct_tel, t0, t1, leaves, rtol, atol,
             chunk_rows, wfloats, *tail)
         name = "whole_solve_bwd"
     else:
-        rows = _tile_rows(lib, dynamics)
+        rows = _tile_rows(lib, dynamics, bwd=True)
         ntiles = (B + rows - 1) // rows
         partials = torch.empty((2, ntiles, 4), device=dev)
         # the leaves with a cotangent: CSL's probe has none
         params = leaves if dynamics == "altmlp" else leaves[:fc.N_PARAMS]
         n_leaf = sum(x.numel() for x in params)
         out = torch.empty(n_leaf, device=dev)
-        slots = torch.empty((ntiles, n_leaf), device=dev)
+        if dynamics == "altmlp":
+            slots = torch.empty((ntiles, n_leaf), device=dev)
+        else:  # a slot a block, then each block's activation records (CslDyn)
+            plan = fc.check_bwd_plan(lib, D, D - 1 - 2 * kinetic, H, kinetic)
+            slots = torch.empty(fc._pad4(ntiles * n_leaf) + ntiles * plan.record_floats,
+                                device=dev)
         lptrs = ctypes.cast(fg._leaf_pointers(leaves), ctypes.c_void_p)
         rest = (*save_ptrs, *mid, ptr(out), ptr(ct_scalars), ptr(partials),
                 _opt_ptr(hdy), _opt_ptr(hdf), ptr(slots), *dims, *tail)

@@ -867,6 +867,66 @@ def test_csl_kernels_are_deterministic(cuda):
     assert all(torch.equal(u, v) for u, v in zip([*ga[:4], *ga[4]], [*gb[:4], *gb[4]]))
 
 
+def _csl_bwd_groups(g):
+    """(ct_t, ct_dt), ct_y, ct_k1 and the parameters' cotangents as one
+    vector."""
+    return [torch.stack(g[:2]), g[2], g[3], torch.cat([x.flatten() for x in g[4][:fc.N_PARAMS]])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tol", [1e-5, 1.4e-8])
+@pytest.mark.parametrize("kinetic", [False, True])
+@pytest.mark.parametrize("shape", [(1024, 43, 100), (13, 5, 8), (7, 3, 6)])
+def test_csl_bwd_matches_its_schedule(cuda, shape, kinetic, tol):
+    """K8-CSL (8-row tiles, the weights' cotangents in registers) against
+    its order of sums in plain PyTorch (``fc.plain_csl_bwd_tiles``) at the
+    shapes of ``test_csl_kernels_match_plain_versions``: every group within
+    3 times the plain version's distance from the float64 chain, plus
+    1e-6."""
+    y, k1, leaves, cts = _csl_inputs(*shape, kinetic, cuda)
+    t, dt = torch.tensor(T, device=cuda), torch.tensor(DT, device=cuda)
+    d = lambda x: x.double()
+    kern = _csl_bwd_groups(fc.csl_normed_sweep_bwd(t, dt, y, k1, leaves, cts, tol, tol))
+    sched = _csl_bwd_groups(fc.plain_csl_bwd_tiles(t, dt, y, k1, leaves, cts, tol, tol))
+    plain = _csl_bwd_groups(fc._csl_bwd_math(t, dt, y, k1, leaves, cts, tol, tol))
+    ref = _csl_bwd_groups(fc._csl_bwd_math(d(t), d(dt), d(y), d(k1), [d(x) for x in leaves],
+                                           [d(c) for c in cts], tol, tol))
+    for j, (a, b, p, r) in enumerate(zip(kern, sched, plain, ref)):
+        assert _rel(a, b) <= 3 * _rel(p, r) + 1e-6, (j, _rel(a, b), _rel(p, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kinetic", [False, True])
+@pytest.mark.parametrize("shape", [(1024, 43, 100), (13, 5, 8)])
+def test_csl_bwd_is_bitwise_deterministic(cuda, shape, kinetic):
+    """K8-CSL's sums run in a fixed order (no atomics): three launches on
+    the same inputs are bitwise equal, a ragged batch's too."""
+    y, k1, leaves, cts = _csl_inputs(*shape, kinetic, cuda, seed=2)
+    t, dt = torch.tensor(T, device=cuda), torch.tensor(DT, device=cuda)
+    runs = [fc.csl_normed_sweep_bwd(t, dt, y, k1, leaves, cts, 1.4e-8, 1.4e-8) for _ in range(3)]
+    first = [*runs[0][:4], *runs[0][4]]
+    for g in runs[1:]:
+        assert all(torch.equal(u, v) for u, v in zip(first, [*g[:4], *g[4]]))
+
+
+@pytest.mark.cuda
+def test_csl_bwd_plan_is_the_librarys(cuda):
+    """``fc.csl_bwd_plan``'s rows, tile cap and shared memory are the
+    library's at every width the card tests run, and the wrapper refuses
+    layers the body does not hold with a ValueError."""
+    from regneuralde_tpu_torch.ops import _cuda
+
+    lib = _cuda.library()
+    for D, H in ((43, 100), (5, 16), (5, 8), (3, 6)):
+        for kinetic in (False, True):
+            plan = fc.check_bwd_plan(lib, D + (3 if kinetic else 1), D, H, kinetic)
+            assert plan.rows == 8 and plan.smem_bytes <= fc.SMEM_LIMIT
+    y, k1, leaves, cts = _csl_inputs(16, 43, 110, False, cuda)
+    t, dt = torch.tensor(T, device=cuda), torch.tensor(DT, device=cuda)
+    with pytest.raises(ValueError, match="tile body holds at most"):
+        fc.csl_normed_sweep_bwd(t, dt, y, k1, leaves, cts, 1e-5, 1e-5)
+
+
 @pytest.mark.cuda
 def test_csl_wrappers_refuse_bad_inputs(cuda):
     y, k1, leaves, cts = _csl_inputs(8, 5, 8, False, cuda)

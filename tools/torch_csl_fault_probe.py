@@ -6,6 +6,7 @@ reverse (``csrc/csl_tsit5.cuh``): the readings that ``chip_smoke.py``'s
 
     python3 tools/torch_csl_fault_probe.py [--tols 1e-3,1e-2,1e-1]
                                            [--faults no_ynew_max,no_err_dt]
+                                           [--seeds 0,1,2]
 
 Needs one GPU and ``nvcc``. The copies are made in a temporary directory and
 removed at the end; their kernels are built there, all at once. The faults:
@@ -16,7 +17,10 @@ ct_dt. For each tree it prints the lines of phase 16's K4 comparison and
 the checks that failed. ``--tols`` runs phase 16 at these tolerances
 instead of ``chip_smoke.CSL_K4_CASES``' (with no limit on K4 against its
 plain version; those of 1e-3 and above also with the eest telemetry's
-cotangent alone seeded), ``--faults`` plants only these faults.
+cotangent alone seeded), ``--faults`` plants only these faults, ``--seeds``
+reruns phase 16 in each tree once a seed (``chip_smoke.SEED`` moved by
+1000 x the seed: other weights, probes and cotangents; 0 is the script's
+own draw).
 """
 import argparse, shutil, subprocess, sys, tempfile
 from pathlib import Path
@@ -38,23 +42,30 @@ cs._check = lambda ok, msg: ok or fails.append(msg)
 cs._time_ms = lambda fn: 0.0
 if TOLS:
     cs.CSL_K4_CASES = {t: float("inf") for t in TOLS}
+cs._device_ms = lambda *a, **k: None
 dev = torch.device("cuda", 0)
-buf = io.StringIO()
-with contextlib.redirect_stdout(buf):
-    cs.phase_whole_solve_csl_kernels(dev, cs.ffjord_batches(1, dev)[0])
-for line in buf.getvalue().splitlines():
-    if "K4 cotangents" in line or "(naccept" in line or "max abs" in line:
-        print(line[:1400])
-print("FAILED CHECKS:", fails)
+seed0 = cs.SEED
+for seed in SEEDS:
+    cs.SEED = seed0 + 1000 * seed
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cs.phase_whole_solve_csl_kernels(dev, cs.ffjord_batches(1, dev)[0])
+    for line in buf.getvalue().splitlines():
+        if "K4 cotangents" in line or "(naccept" in line or "max abs" in line:
+            print(f"[seed {seed}] " + line[:1400])
+    print(f"[seed {seed}] FAILED CHECKS:", fails)
+    fails.clear()
 '''
 BUILD = ("import sys; sys.path.insert(0, '.'); from regneuralde_tpu_torch.ops import _cuda; "
          "_cuda.library()")
 ap = argparse.ArgumentParser()
 ap.add_argument("--tols", default="")
 ap.add_argument("--faults", default="")
+ap.add_argument("--seeds", default="0")
 cli = ap.parse_args()
 tols = [float(t) for t in cli.tols.split(",") if t]
-RUN = f"TOLS = {tols!r}\n" + RUN
+seeds = [int(x) for x in cli.seeds.split(",") if x]
+RUN = f"TOLS = {tols!r}\nSEEDS = {seeds!r}\n" + RUN
 if cli.faults:
     keep = set(cli.faults.split(","))
     MUTANTS = {n: m for n, m in MUTANTS.items() if m is None or n in keep}

@@ -8,7 +8,9 @@ GPU, in the order A, B, B, A (``--rounds`` times), one process each.
 archive <commit> | tar -x -C build/parent``). Each run imports that tree's
 ``chip_smoke.py``, builds its kernels into the tree's own ``build/``, runs
 the named phases' kernel checks (``altmlp``: K7/K8 and K3/K4 for
-AlternatingMLP, ``csl``: K7/K8-CSL and K3/K4-CSL, ``mlp``: K1/K2 and K3/K4
+AlternatingMLP, ``csl``: K7/K8-CSL and K3/K4-CSL, with K8-CSL's device
+time under ``torch.profiler`` at phase 15's inputs (its kernel and its slot
+sum apart) and K4-CSL's over phase 16's solves (by tolerance), ``mlp``: K1/K2 and K3/K4
 for MLPDynamics, with K1's and K2's device time under ``torch.profiler`` at
 phase 2's inputs, K2's kernels and its contraction apart, whichever kernels
 the tree has for them, ``sde``: K9/K10 for the MLP pair, ``lanes``: K11/K12,
@@ -138,6 +140,55 @@ def fwd(dev):
     return {f"K3_{dyn}_device_a_launch": {"ms": us / n / 1e3} for dyn, (us, n) in sums.items()}
 
 
+def csl_device(dev):
+    """Device ms a launch of K8-CSL at phase 15's inputs (1.4e-8, without
+    the kinetic terms), its kernel (csl_bwd_kernel) and its slot sum
+    (sum_slots_kernel) apart, and of K4-CSL (whole_solve_bwd_kernel<CslDyn>)
+    over phase 16's solves, each call of its wrapper under its own
+    torch.profiler, by tolerance and trial steps (the same names in either
+    tree). Phase 16's own device-time reading is left out (one profiler at a
+    time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from regneuralde_tpu_torch.ops import fused_csl as fc
+    from regneuralde_tpu_torch.ops import whole_solve as ws
+
+    B, D, H, tol = cs.FFJORD_BATCH, cs.FFJORD_DIM, cs.FFJORD_HIDDEN, cs.FLAGSHIP_TOL
+    gen = torch.Generator().manual_seed(cs.SEED + 12)
+    leaves, y, k1 = cs._csl_inputs(gen, B, D, H, False, dev)
+    cts = [torch.randn(y.shape, generator=gen).to(dev), torch.randn(y.shape, generator=gen).to(dev),
+           *(torch.tensor(v, device=dev) for v in (0.7, 1.3, -0.4))]
+    t, dt = torch.tensor(0.07, device=dev), torch.tensor(0.11, device=dev)
+    bwd = lambda: fc.csl_normed_sweep_bwd(t, dt, y, k1, leaves, cts, tol, tol)
+    out = {"K8_csl_device_kernel": {"ms": device_ms(bwd, ("csl_bwd_kernel",))},
+           "K8_csl_device_slot_sum": {"ms": device_ms(bwd, ("sum_slots_kernel",))}}
+    inner, sums = ws.whole_solve_bwd, {}
+
+    def profiled(*a, **k):
+        if k.get("dynamics") != "csl":
+            return inner(*a, **k)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            res = inner(*a, **k)
+            torch.cuda.synchronize()
+        key = f"K4_csl_device_tol={a[7]:g}_ns={a[1]}"
+        for e in prof.key_averages():
+            if e.device_type == DeviceType.CUDA and "whole_solve_bwd_kernel" in e.key:
+                us, n = sums.get(key, (0.0, 0))
+                sums[key] = (us + e.self_device_time_total, n + e.count)
+        return res
+
+    device_ms_of_phase = getattr(cs, "_device_ms", None)
+    ws.whole_solve_bwd, cs._device_ms = profiled, lambda *a, **k: None
+    try:
+        cs.phase_whole_solve_csl_kernels(dev, cs.ffjord_batches(1, dev)[0])
+    finally:
+        ws.whole_solve_bwd, cs._device_ms = inner, device_ms_of_phase
+    out.update({key: {"ms": us / n / 1e3} for key, (us, n) in sums.items()})
+    return out
+
+
 def normed_device(dev):
     """Device ms a launch of K1 and of K2 at phase 2's inputs (rtol=atol=
     1.4e-8): K1's kernels (normed_fwd_kernel + reduce_partials_kernel), K2's
@@ -258,6 +309,7 @@ with contextlib.redirect_stdout(io.StringIO()):
     if "csl" in phases and hasattr(cs, "phase_csl_kernels"):
         ms.update(cs.phase_csl_kernels(dev))
         ms.update(cs.phase_whole_solve_csl_kernels(dev, cs.ffjord_batches(1, dev)[0]))
+        ms.update(csl_device(dev))
     if "sde" in phases and hasattr(cs, "phase_sde_kernels"):
         ms.update(cs.phase_sde_kernels(dev))
     if "lanes" in phases and hasattr(cs, "phase_lanes_kernels"):
