@@ -13,13 +13,16 @@ kernels are built from ``regneuralde_tpu_torch/csrc`` into ``build/kernels/``
 at first use. Phases (each checks its results; any failure exits non-zero):
 
 1. the card (``nvidia-smi`` name and power limit), versions, kernel build;
-2. K1 and K2 (the normed Tsit5 step kernels; K2 one trial step of the
-   MLPDynamics reverse walk, ``csrc/mlp_step_walk.cuh``) against their plain
-   PyTorch versions at B=512, D=784, H=100, at rtol=atol=1e-4 and 1.4e-8,
-   K2 also within 3 times the plain version's distance from a float64 walk
-   and bitwise deterministic, with CUDA-event times of both; K2's device
-   time (its kernel and the contraction, ``torch.profiler``), tile plan and
-   ``grid.sync()`` count a launch;
+2. K1 and K2 (the normed Tsit5 step kernels; K1 one trial step of the
+   MLPDynamics whole solve's stages, ``csrc/mlp_step_solve.cuh`` with the
+   norm sums as its end; K2 one trial step of its reverse walk,
+   ``csrc/mlp_step_walk.cuh``) against their plain PyTorch versions at
+   B=512, D=784, H=100, at rtol=atol=1e-4 and 1.4e-8, both bitwise
+   deterministic, K1's y_new and k7 bitwise K13's on the same inputs, K2
+   also within 3 times the plain version's distance from a float64 walk,
+   with CUDA-event times of both; their device time (K1's kernel, K2's and
+   the contraction, ``torch.profiler``), tile plan and ``grid.sync()``
+   count a launch;
 3. one forward+backward of the training step at full width (rtol=atol=1e-5),
    step kernels (``fused="step"``) against the plain path (``fused=False``):
    identical NFE and accept sequence, relative gradient error <= 1e-3, and
@@ -28,7 +31,10 @@ at first use. Phases (each checks its results; any failure exits non-zero):
    rtol=atol=1.4e-8, max_steps=96, batch 512, CE + 100 * error_estimate,
    InvDecay(1e-5) then Momentum(0.1, 0.9)) on ``fused="step"``, with the
    step kernels' launch counts (each K2 ends in one launch of the
-   weight-cotangent contraction, phase 31, as do K4, K12 and K14);
+   weight-cotangent contraction, phase 31, as do K4, K12 and K14), and the
+   NFE and accepts of the same three steps on ``fused=False`` beside them
+   (printed, not compared: at 1.4e-8 the error estimate sits at its float32
+   floor, where the routes' trial steps follow their rounding);
 5. the whole-solve kernels K3/K4 against their plain versions at
    512x784x100 on seeded random weights and inputs: K3's streamed stage
    residuals (``ks``/``hs``) of every trial step, teacher-forced, within
@@ -365,14 +371,19 @@ def phase_kernels(device):
     """K1/K2 against their plain versions on random inputs from a seed.
 
     Random k1 (not f(t, y)) keeps the embedded error far above float32
-    rounding, so the three norm sums are compared, not rounding noise. K2
-    (``csrc/mlp_step_walk.cuh`` with the normed seeds) is also held, at both
-    tolerances, within 3 times the plain version's distance from the float64
-    plain version, plus 1e-6: ct_t, whose terms cancel, with float32's unit
-    roundoff times its terms' magnitudes (the stages' ``ct_pre2 w2t`` and
-    ``ct_pre1 w1t``) as its slack; checked bitwise deterministic; and its
-    device time under ``torch.profiler`` (the kernel and the weight-cotangent
-    contraction after it), its tile plan and its ``grid.sync()`` count a
+    rounding, so the three norm sums are compared, not rounding noise. K1
+    (``csrc/mlp_step_solve.cuh`` with the norm sums as its end) is held to
+    FWD_BOUND, its distance from the float64 plain version printed beside
+    the plain version's; checked bitwise deterministic, and its y_new and k7
+    bitwise K13's on the same inputs (K2 replays K13's stages, so it
+    differentiates K1's). K2 (``csrc/mlp_step_walk.cuh`` with the normed
+    seeds) is also held, at both tolerances, within 3 times the plain
+    version's distance from the float64 plain version, plus 1e-6: ct_t,
+    whose terms cancel, with float32's unit roundoff times its terms'
+    magnitudes (the stages' ``ct_pre2 w2t`` and ``ct_pre1 w1t``) as its
+    slack; checked bitwise deterministic. Their device time under
+    ``torch.profiler`` (K1's kernel; K2's and the weight-cotangent
+    contraction after it), their tile plan and their ``grid.sync()`` count a
     launch are printed."""
     import torch
 
@@ -400,6 +411,7 @@ def phase_kernels(device):
     for tol in (1e-4, FLAGSHIP_TOL):
         kf = fm.normed_sweep_fwd(t, dt, y, k1, leaves, tol, tol)
         pf = fm._reference_normed_sweep(t, dt, y, k1, parts, tol, tol)
+        pf64 = fm._reference_normed_sweep(d(t), d(dt), d(y), d(k1), parts64, tol, tol)
         kb = flat(fm.normed_sweep_bwd(t, dt, y, k1, leaves, cts, tol, tol))
         pb = flat(fm._normed_bwd_math(t, dt, y, k1, parts, cts, tol, tol))
         rows64 = []
@@ -413,7 +425,10 @@ def phase_kernels(device):
         errs_f = {n: _rel(a, b) for n, a, b in zip(names_f, kf, pf)}
         errs_b = {n: _rel(a, b) for n, a, b in zip(names_b, kb, pb)}
         errs_64 = {n: (_rel(a, c), _rel(b, c)) for n, a, b, c in zip(names_b, kb, pb, pb64)}
+        errs_f64 = {n: (_rel(a, c), _rel(b, c)) for n, a, b, c in zip(names_f, kf, pf, pf64)}
         print(f"[kernels] tol={tol:g} fwd rel err " + json.dumps(errs_f))
+        print(f"[kernels] tol={tol:g} fwd rel err from float64 (kernel, plain) "
+              + json.dumps(errs_f64))
         print(f"[kernels] tol={tol:g} bwd rel err " + json.dumps(errs_b))
         print(f"[kernels] tol={tol:g} bwd rel err from float64 (kernel, plain) "
               + json.dumps(errs_64) + f"; ct_t's terms {t_terms!r} against |ct_t| "
@@ -429,6 +444,13 @@ def phase_kernels(device):
             _check(k_64 <= 3 * p_64 + 1e-6, f"K2 {n} from float64 at tol {tol}: {errs_64[n]}")
         again = flat(fm.normed_sweep_bwd(t, dt, y, k1, leaves, cts, tol, tol))
         _check(all(torch.equal(a, b) for a, b in zip(kb, again)), "K2 is deterministic")
+        again = fm.normed_sweep_fwd(t, dt, y, k1, leaves, tol, tol)
+        _check(all(torch.equal(a, b) for a, b in zip(kf, again)), "K1 is deterministic")
+        tup = fm.stage_sweep_fwd(t, dt, y, k1, leaves)
+        _check(torch.equal(kf[0], tup[0]) and torch.equal(kf[1], tup[1]),
+               "K1's y_new and k7 are K13's bitwise")
+    print("[kernels] K1 and K2 are bitwise deterministic; K1's y_new and k7 are K13's "
+          "bitwise at both tolerances")
 
     # max_abs_err of the record, at the flagship tolerance: K1 over its row
     # outputs (y_new, k7); K2 with only the row cotangents seeded (the norm
@@ -460,13 +482,20 @@ def phase_kernels(device):
     }
     print("[kernels] median ms over %d runs at %dx%dx%d: %s"
           % (REPS, BATCH, DIM, HIDDEN, json.dumps(times)))
+    dev_fwd = _device_ms(lambda: fm.normed_sweep_fwd(t, dt, y, k1, leaves, tol, tol),
+                         "NormedEnd")
     bwd = lambda: fm.normed_sweep_bwd(t, dt, y, k1, leaves, cts, tol, tol)
     dev_walk = _device_ms(bwd, "mlp_step_walk_kernel")
     dev_wcot = _device_ms(bwd, "wcot_")
+    _check(dev_fwd is not None, "K1's kernel in the trace")
     _check(dev_walk is not None and dev_wcot is not None,
            "K2's kernel and its contraction in the trace")
     plan = ws.walk_plan(BATCH, DIM, HIDDEN,
                         torch.cuda.get_device_properties(device).multi_processor_count)
+    print(f"[kernels] K1 device ms a launch (torch.profiler, {REPS} launches): {dev_fwd!r}; "
+          f"tiles {plan.rows}x{plan.cols}, {plan.tiles} blocks, {plan.chunks} row chunks, "
+          f"{ws.solve_smem_bytes(plan.rows, plan.cols, HIDDEN)} bytes of shared memory; "
+          f"grid.sync() a launch {1 + 12 * plan.chunks + 1}")
     syncs = 1 + 12 * plan.chunks + 1 + 12 * plan.chunks + 1
     print(f"[kernels] K2 device ms a launch (torch.profiler, {REPS} launches): kernel "
           f"{dev_walk!r} + contraction {dev_wcot!r} = {dev_walk + dev_wcot!r}; tiles "
@@ -738,7 +767,9 @@ def phase_kernel_vs_plain_step(device, batch, fused):
         k, p = results["kernel", reg_weight], results["plain", reg_weight]
         g_err = _rel(k["grad"], p["grad"])
         print(f"[step] fused={fused!r} rtol=atol={tol:g} reg_weight={reg_weight:g} "
-              f"nfe kernel={k['nfe']} plain={p['nfe']} "
+              f"nfe kernel={k['nfe']} plain={p['nfe']} accepts of trial steps "
+              f"kernel={sum(k['accepted'])}/{len(k['accepted'])} "
+              f"plain={sum(p['accepted'])}/{len(p['accepted'])} "
               f"loss kernel={k['loss']!r} plain={p['loss']!r} "
               f"logits rel err={_rel(k['logits'], p['logits']):.3e} "
               f"grad rel err={g_err:.3e} (bound {bound:g})")
@@ -807,7 +838,38 @@ def phase_slice(device, batches, fused):
         want.update(whole_solve_fwd=len(batches), whole_solve_bwd=len(batches),
                     weight_cotangents=len(batches))
     _check(launches == want, f"fused={fused!r}: launches {launches}, expected {want}")
+    if fused == "step":
+        _plain_route_steps(device, batches)
     return launches
+
+
+def _plain_route_steps(device, batches):
+    """The three training steps of phase 4 on ``fused=False`` from the same
+    weights: each step's NFE and accepts printed beside the kernel route's,
+    not compared (at 1.4e-8 the error estimate sits at its float32 floor,
+    where each route's trial steps follow its own rounding); each solve
+    reaches t1 with a finite loss."""
+    import torch
+
+    from regneuralde_tpu_torch.training import (
+        create_train_state,
+        make_train_step,
+        mnist_node_optimizer,
+    )
+
+    clf, gen = build_classifier(FLAGSHIP_TOL, False, device)
+    clf.init(batches[0][0], generator=gen)
+    optimizer = mnist_node_optimizer()
+    state = create_train_state(clf, optimizer)
+    step = make_train_step(lambda m, x, y: mnist_loss(m, x, y), optimizer)
+    for i, (x, y) in enumerate(batches):
+        state, loss, out = step(state, x, y)
+        sol = out.telemetry
+        naccept = int(sol.accepted.sum().item())
+        nlive = int(sol.live.sum().item())
+        print(f"[slice] fused=False step {i}: loss={loss.item()!r} nfe={out.nfe} "
+              f"naccept={naccept} nreject={nlive - naccept} success={out.success}")
+        _check(torch.isfinite(loss).item() and out.success, "the plain route's step")
 
 
 # ---------------------------------------------------------------------------
@@ -3259,7 +3321,8 @@ def main():
     # their main paths (phases 4, 7, 24 and 27)
     launches["weight_cotangents"] = sum(r["weight_cotangents"] for r in wcot_paths)
 
-    sources = {"normed_tsit5_fwd": "normed_tsit5.cu", "normed_tsit5_bwd": "mlp_step_walk.cuh",
+    sources = {"normed_tsit5_fwd": "mlp_step_solve.cuh",
+               "normed_tsit5_bwd": "mlp_step_walk.cuh",
                "altmlp_tsit5_fwd": "altmlp_tsit5.cu", "altmlp_tsit5_bwd": "altmlp_tsit5.cu",
                "csl_tsit5_fwd": "csl_tsit5.cu", "csl_tsit5_bwd": "csl_tsit5.cu",
                "sde_whole_solve_fwd": "sde_whole_solve.cu",

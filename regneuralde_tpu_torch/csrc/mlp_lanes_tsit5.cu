@@ -15,15 +15,16 @@
 // f32 rate and its bandwidth: the bound is latency, six dependent stages of
 // a contraction, a tanh and a lincomb, a block barrier between them.
 //
-// What the design does about it. K1's layout (normed_tsit5.cuh): one
-// block owns a 4-row tile and runs all six stages with the state, the seven
-// stage derivatives and the hidden activations in shared memory (sized from
-// both D and H); the weights are read from L2 in nn.Linear's layout. The
-// Pallas kernel's per-lane (t, dt) columns are per-row values in shared
-// memory. Rounding: the forward reproduces its plain version
-// (ops/fused_mlp_lanes.py _reference_sweep_lanes) bitwise, because each of
-// the 512 lanes decides accept or reject on its own error norm at the
-// tolerance's float32 floor:
+// What the design does about it. The 4-row layout K1 and K13 had before
+// they became end policies of K3's grid-split stages (mlp_step_solve.cuh):
+// one block owns a 4-row tile and runs all six stages with the state, the
+// seven stage derivatives and the hidden activations in shared memory
+// (sized from both D and H); the weights are read from L2 in nn.Linear's
+// layout, by every tile in every stage. The Pallas kernel's per-lane (t,
+// dt) columns are per-row values in shared memory. Rounding: the forward
+// reproduces its plain version (ops/fused_mlp_lanes.py
+// _reference_sweep_lanes) bitwise, because each of the 512 lanes decides
+// accept or reject on its own error norm at the tolerance's float32 floor:
 //   * each affine map x W^T + t_i w_t + b is summed in f64 (explicit fma)
 //     and rounded once to f32, as the plain version's f64 addmm;
 //   * the stage lincombs y + dt_i * sum_j a_ij k_j, the stage times

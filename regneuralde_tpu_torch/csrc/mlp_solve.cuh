@@ -646,9 +646,10 @@ __device__ __forceinline__ void solve_stages(const M& m, const Solve& f, cg::gri
   __syncthreads();  // the last phase B's state is complete
 }
 
-// After the stages: the tile's norm sums added to sums (err, num, den;
-// normed_fwd_tile's algebra, the stage-5 state rebuilt by stage_state) and
-// its rows of y_new and k7 to yn, kn.
+// After the stages: the tile's norm sums added to sums (err, num, den; the
+// algebra of ops/fused_mlp.py _normed_outs, the stage-5 state rebuilt by
+// stage_state) and its rows of y_new and k7 to yn, kn. K3's trial step and
+// K1's tile end (mlp_step_solve.cuh NormedEnd).
 __device__ __forceinline__ void solve_finish(const SolveStep<StepTime>& ss, const SolveSmem& s,
                                              const WalkTile& tl, int R, int C, int D,
                                              float rtol, float atol, float* yn, float* kn,

@@ -1,17 +1,24 @@
-// K13 on Hopper: the tuple Tsit5 trial step of MLPDynamics (ops/fused_mlp.py
-// stage_sweep_fwd, odeint's generic engine's step with
-// mlp_dynamics_stage_sweep) as one trial step of K3's grid-split stages on
-// the walk's tiles. One kernel, mlp_step_solve_kernel<End>, over the policy
-// of what each tile writes after its stages: TupleEnd (K13: the rows y_new,
-// k7, err, k6, g6). Included by whole_solve.cu only, after mlp_solve.cuh,
-// whose stages it runs; its backward, K14, is mlp_step_walk.cuh.
+// K13 and K1 on Hopper: the tuple and the normed Tsit5 trial step of
+// MLPDynamics (ops/fused_mlp.py stage_sweep_fwd, odeint's generic engine's
+// step with mlp_dynamics_stage_sweep; normed_sweep_fwd, the fast adjoint's
+// step on fused="step") as one trial step of K3's grid-split stages on the
+// walk's tiles. One kernel, mlp_step_solve_kernel<End>, over the policy of
+// what each tile writes after its stages and of what the kernel does after
+// its last row chunk: TupleEnd (K13: the rows y_new, k7, err, k6, g6) and
+// NormedEnd (K1: the rows y_new and k7, and the three norm sums, summed over
+// the tiles in tile order). Included by whole_solve.cu only, after
+// mlp_solve.cuh, whose stages it runs; their backwards, K14 and K2, are
+// mlp_step_walk.cuh.
 //
-// Replaces the TPU kernel
+// Replaces the TPU kernels
 //   K13: regneuralde_tpu/ops/pallas_mlp.py  _pallas_sweep (_fused_step_kernel)
-// and, on this card, its port over 4-row tiles (tuple_fwd_kernel, 128
-// blocks at 512x784x100, each running the six stages with plain FMA loops)
-// that read all of W1 and W2 from L2 once per tile per stage: ~485 MB a
-// launch, 0.351 ms with the wrapper (H100 80GB HBM3 at 700 W).
+//   K1:  regneuralde_tpu/ops/pallas_mlp.py  _normed_pallas_fwd
+//        (_make_normed_kernels.fwd_kernel)
+// and, on this card, their ports over 4-row tiles (tuple_fwd_kernel and
+// normed_fwd_kernel, 128 blocks at 512x784x100, each running the six
+// stages with plain FMA loops; K1's norm sums in a second launch) that read
+// all of W1 and W2 from L2 once per tile per stage: ~485 MB a launch, K13
+// 0.351 ms and K1 0.405 ms with the wrapper (H100 80GB HBM3 at 700 W).
 //
 // What bounds it on this card. One trial step is 12 contractions of B x D x
 // H (24 B D H f32 operations, 0.96 GFLOP at 512x784x100: 14 us at the 67
@@ -30,12 +37,20 @@
 //     over the whole grid, two grid.sync() a stage, the tile's y, k1..k7 and
 //     stage input in shared memory; the step's t and dt read once from the
 //     device (StepTime);
-//   * then the policy's tile end on that state (TupleEnd: the five rows).
+//   * then the policy's tile end on that state (TupleEnd: the five rows;
+//     NormedEnd: K3's solve_finish, the two rows and the tile's norm sums
+//     added to the thread's);
+//   * after the last chunk the policy's finish (NormedEnd: each block's
+//     sums to its slot, one grid.sync(), block 0 sums the slots in tile
+//     order as K3's controller does; TupleEnd: nothing).
 // So W1 and W2 are read once per row block a stage (~40 MB a launch at the
-// flagship), not once per 4-row tile; 1 + 12 x chunks grid.sync() a launch.
-// The stages are bitwise K3's and K14's replay of them: the replay adjoint
-// takes its accept flags from K13 alone and launches it twice a trial step
-// (forward and replay), and K14 differentiates the very stages K13 ran.
+// flagship), not once per 4-row tile; 1 + 12 x chunks grid.sync() a launch
+// for K13, one more for K1, whose norm sums need no second launch.
+// The stages are bitwise K3's and K14's and K2's replay of them: the replay
+// adjoint takes its accept flags from K13 alone and launches it twice a
+// trial step (forward and replay), and K14 and K2 differentiate the very
+// stages K13 and K1 ran. K1's norm sums are K3's for the same trial step:
+// the same per-tile algebra, block sums and tile order.
 // IEEE f32 FMAs, no TF32, no fast math, no atomics: every sum has a fixed
 // order, so runs are bitwise reproducible.
 
@@ -49,13 +64,14 @@ namespace {
 // pinned form the stages used (as solve_finish does); err = dt sum_j
 // btilde_j (k_j - k1) rounds each op on its own, as the plain version's
 // ATen ops: it is a cancellation, so a contraction moves it by its own
-// rounding. An end policy of mlp_step_solve_kernel: K1 (the norm sums) and
-// K11 (per-row times) would be others.
+// rounding. It has no sums and no finish. K11 (per-row times) could be
+// another end policy.
 struct TupleEnd {
   float *y_new, *k7, *err, *k6, *g6;  // (B, D) each
 
   __device__ __forceinline__ void tile(const SolveStep<StepTime>& ss, const SolveSmem& s,
-                                       const WalkTile& tl, int R, int C, int D) const {
+                                       const WalkTile& tl, int R, int C, int D,
+                                       float (&)[3]) const {
     const float dt = ss.tm.dt;
     const int n = C * (R / 4);
     for (int e = threadIdx.x; e < n; e += kThreads) {
@@ -85,10 +101,45 @@ struct TupleEnd {
       }
     }
   }
+
+  __device__ __forceinline__ void finish(cg::grid_group&, const Solve&, const SolveSmem&,
+                                         const float (&)[3]) const {}
 };
 
-// The arguments of K13: the leaves (no stream, no weight-cotangent rows),
-// the plan and K3's scratch, the step's inputs and the end policy.
+// NormedEnd (K1): each tile's rows of y_new and k7 and its norm sums (err,
+// num, den) added to the thread's part, by K3's solve_finish; after the last
+// row chunk every block's sums to its slot (block_sum_to), one grid.sync(),
+// and warp 0 of block 0 sums the slots in tile order (sum_tiles, the order
+// of K3's fwd_decide) into sums. No atomics.
+struct NormedEnd {
+  float *y_new, *k7;  // (B, D) each
+  float* sums;        // (3,): err_ssq, num_ssq, den_ssq
+  float rtol, atol;
+
+  __device__ __forceinline__ void tile(const SolveStep<StepTime>& ss, const SolveSmem& s,
+                                       const WalkTile& tl, int R, int C, int D,
+                                       float (&part)[3]) const {
+    solve_finish(ss, s, tl, R, C, D, rtol, atol, y_new, k7, part);
+  }
+
+  __device__ __forceinline__ void finish(cg::grid_group& grid, const Solve& f,
+                                         const SolveSmem& s, const float (&part)[3]) const {
+    block_sum_to<3>(part, s.red, f.slots + 3 * blockIdx.x);
+    grid.sync();
+    if (blockIdx.x == 0 && threadIdx.x < 32) {
+      float out[3];
+      sum_tiles<3>(f.slots, gridDim.x, out);
+      if (threadIdx.x == 0) {
+        sums[0] = out[0];
+        sums[1] = out[1];
+        sums[2] = out[2];
+      }
+    }
+  }
+};
+
+// The arguments of K13 and K1: the leaves (no stream, no weight-cotangent
+// rows), the plan and K3's scratch, the step's inputs and the end policy.
 template <class End>
 struct StepSolveArgs {
   MlpDyn<false> m;
@@ -99,8 +150,8 @@ struct StepSolveArgs {
   int B, D;
 };
 
-// K13 (TupleEnd): one trial step, one block a tile (gridDim.x == nrb * ndb,
-// all resident).
+// K13 (TupleEnd) and K1 (NormedEnd): one trial step, one block a tile
+// (gridDim.x == nrb * ndb, all resident).
 template <class End>
 __global__ void __launch_bounds__(kThreads, 1) mlp_step_solve_kernel(StepSolveArgs<End> args) {
   extern __shared__ __align__(16) float solve_pool[];
@@ -113,11 +164,13 @@ __global__ void __launch_bounds__(kThreads, 1) mlp_step_solve_kernel(StepSolveAr
   const SolveStep<StepTime> ss{args.y, args.k1, nullptr, nullptr,
                                StepTime{__ldg(args.t), __ldg(args.dt)}};
   grid.sync();
+  float part[3] = {0.0f, 0.0f, 0.0f};  // the thread's norm sums (NormedEnd)
   for (int chunk = 0; chunk < f.chunks; ++chunk) {
     const WalkTile tl = walk_tile(f, B, D, chunk);
     solve_stages<false>(m, f, grid, ss, s, tl, B, D);
-    args.end.tile(ss, s, tl, f.R, f.C, D);
+    args.end.tile(ss, s, tl, f.R, f.C, D, part);
   }
+  args.end.finish(grid, f, s, part);
 }
 
 }  // namespace

@@ -181,8 +181,8 @@ __device__ __forceinline__ WalkSmem walk_smem(float* pool, const Walk& w, int H)
   return s;
 }
 
-// stage_acc (normed_tsit5.cuh) of stage I on a float4 of 4 rows: sum_j
-// a[I-1][j] ks[j], first term first.
+// acc_I (ops/fused_mlp.py _stage_acc) of stage I on a float4 of 4 rows:
+// sum_j a[I-1][j] ks[j], first term first.
 template <int I>
 __device__ __forceinline__ float4 walk_stage_acc(const float* st, int RC, int off) {
   const float4 k0 = ld4(st + WS_KS * RC + off);

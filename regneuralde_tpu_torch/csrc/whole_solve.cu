@@ -9,9 +9,9 @@
 // chain_end, chain_finish, hermite_elem). K2, K14 and K12, the backwards
 // of the normed, the tuple and the lane-wise Tsit5 step (the fast adjoint
 // solve's, odeint's generic engine's and the per-sample engine's), are one
-// trial step of that walk (mlp_step_walk.cuh), and K13, the tuple step
-// itself, one trial step of K3's stages (mlp_step_solve.cuh), so they are
-// built here too.
+// trial step of that walk (mlp_step_walk.cuh), and K13 and K1, the tuple
+// and the normed step themselves, one trial step of K3's stages
+// (mlp_step_solve.cuh), so they are built here too.
 //
 // Replaces the TPU kernels
 //   K3: regneuralde_tpu/ops/pallas_solve.py  make_whole_solve.make_fwd_kernel
@@ -25,7 +25,7 @@
 //
 // What bounds it on this card. Each trial step is the step kernel's
 // (forward) or its reverse's (backward) work, latency-bound (see
-// normed_tsit5.cu and altmlp_tsit5.cu), plus one grid-wide decision: the
+// mlp_step_solve.cuh and altmlp_tsit5.cu), plus one grid-wide decision: the
 // accept flag and the next dt hang on three norm sums over the whole
 // batch. What the solve saves against one launch per trial step is the
 // host: no launch, no flag read back, no scalar chain and no Hermite
@@ -776,7 +776,7 @@ Ctrl make_ctrl(float beta1, float beta2, float qmin, float qmax, float gamma,
 
 namespace {
 
-// Launches MLPDynamics' K3, K4, K13, K2, K14 or K12 with one block a tile, or fails if
+// Launches MLPDynamics' K3, K4, K13, K1, K2, K14 or K12 with one block a tile, or fails if
 // the card cannot hold every tile's block at once.
 cudaError_t launch_walk(const void* kernel, void* args, size_t smem, int tiles,
                         cudaStream_t s) {
@@ -787,8 +787,8 @@ cudaError_t launch_walk(const void* kernel, void* args, size_t smem, int tiles,
   return launch_cooperative(kernel, args, smem, tiles, s, nullptr);
 }
 
-// Whether a tile plan (ops/whole_solve.py walk_plan) is one K3, K4, K13, K2,
-// K14 and K12 take at B x D: tiles of 16 or 32 rows and a multiple of kWalkTN columns, at
+// Whether a tile plan (ops/whole_solve.py walk_plan) is one K3, K4, K13, K1,
+// K2, K14 and K12 take at B x D: tiles of 16 or 32 rows and a multiple of kWalkTN columns, at
 // most the row passes' elements, covering the batch.
 bool plan_ok(int rows, int cols, int row_blocks, int col_blocks, int chunks, int B, int D) {
   return (rows == 16 || rows == 32) && cols >= 1 && cols % kWalkTN == 0 &&
@@ -835,6 +835,24 @@ int launch_step_walk(StepWalkArgs<Seed> args, float* cW1, float* cb1, float* cW2
   return (int)launch_weight_cotangents(m.cp2, m.he, m.cp1, m.ye, cW1, cb1, cW2, cb2, wpart,
                                        6 * args.wa.a.B, args.wa.a.D, m.H, chunk_rows,
                                        wpart_floats, s);
+}
+
+// K13 or K1 (mlp_step_solve_kernel<End>), one cooperative launch on a
+// checked plan with K3's shared memory and scratch.
+template <class End>
+int launch_step_solve(const float* t, const float* dt, const float* y, const float* k1,
+                      const float* W1, const float* b1, const float* W2, const float* b2,
+                      End end, float* scratch, int B, int D, int H, int rows, int cols,
+                      int row_blocks, int col_blocks, int chunks, void* stream) {
+  if (!plan_ok(rows, cols, row_blocks, col_blocks, chunks, B, D))
+    return (int)cudaErrorInvalidValue;
+  StepSolveArgs<End> a{
+      MlpDyn<false>{W1, b1, W2, b2, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, H},
+      solve_carve(scratch, rows, cols, row_blocks, col_blocks, chunks, H), t, dt, y, k1, end,
+      B, D};
+  return (int)launch_walk((const void*)mlp_step_solve_kernel<End>, &a,
+                          sizeof(float) * solve_smem_floats(rows, cols, H),
+                          row_blocks * col_blocks, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -1033,15 +1051,23 @@ int regnde_mlp_tsit5_fwd(const float* t, const float* dt, const float* y, const 
                          float* y_new, float* k7, float* err, float* k6, float* g6,
                          float* scratch, int B, int D, int H, int rows, int cols,
                          int row_blocks, int col_blocks, int chunks, void* stream) {
-  if (!plan_ok(rows, cols, row_blocks, col_blocks, chunks, B, D))
-    return (int)cudaErrorInvalidValue;
-  StepSolveArgs<TupleEnd> a{
-      MlpDyn<false>{W1, b1, W2, b2, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, H},
-      solve_carve(scratch, rows, cols, row_blocks, col_blocks, chunks, H), t, dt, y, k1,
-      TupleEnd{y_new, k7, err, k6, g6}, B, D};
-  return (int)launch_walk((const void*)mlp_step_solve_kernel<TupleEnd>, &a,
-                          sizeof(float) * solve_smem_floats(rows, cols, H),
-                          row_blocks * col_blocks, static_cast<cudaStream_t>(stream));
+  return launch_step_solve(t, dt, y, k1, W1, b1, W2, b2, TupleEnd{y_new, k7, err, k6, g6},
+                           scratch, B, D, H, rows, cols, row_blocks, col_blocks, chunks,
+                           stream);
+}
+
+// K1 (mlp_step_solve.cuh), the normed Tsit5 step: as regnde_mlp_tsit5_fwd,
+// with the rows y_new, k7 (B, D) and sums (3,) = (err_ssq, num_ssq,
+// den_ssq) out at the norms' tolerances rtol, atol; the per-tile slots of
+// the sums in the scratch.
+int regnde_normed_fwd(const float* t, const float* dt, const float* y, const float* k1,
+                      const float* W1, const float* b1, const float* W2, const float* b2,
+                      float* y_new, float* k7, float* sums, float* scratch, int B, int D,
+                      int H, int rows, int cols, int row_blocks, int col_blocks, int chunks,
+                      float rtol, float atol, void* stream) {
+  return launch_step_solve(t, dt, y, k1, W1, b1, W2, b2,
+                           NormedEnd{y_new, k7, sums, rtol, atol}, scratch, B, D, H, rows,
+                           cols, row_blocks, col_blocks, chunks, stream);
 }
 
 // K14 (mlp_step_walk.cuh), the tuple Tsit5 step's backward, then the

@@ -29,8 +29,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "regnde_fwd_rows": [],
-    "regnde_normed_fwd": [_P] * 12 + [_I, _I, _I, _F, _F, _P],
+    "regnde_normed_fwd": [_P] * 12 + [_I] * 8 + [_F, _F, _P],
     "regnde_normed_bwd": [_P] * 31 + [_I] * 10 + [_F, _F, _P],
     "regnde_whole_solve_fwd": [_P] * 18 + [_I] * 10 + [_F] * 9 + [_P],
     "regnde_whole_solve_bwd": [_P] * 36 + [_I] * 13 + [_F] * 9 + [_P],

@@ -20,12 +20,13 @@ The weights are the four leaves ``(W1, b1, W2, b2)`` of the two
 Each step has a plain version (``_reference_sweep`` and ``_bwd_math``, the
 hand reverse chain of ``pallas_mlp._fused_bwd_kernel``;
 ``_reference_normed_sweep`` and ``_normed_bwd_math``, that of
-``pallas_mlp._normed_bwd_math``) and a CUDA kernel pair (K13,
-``csrc/mlp_step_solve.cuh``, one trial step of the whole solve's forward
-stages on its tile plan; K1, ``csrc/normed_tsit5.cu``; their backwards K14
-and K2 are one kernel, ``csrc/mlp_step_walk.cuh``, one trial step of the
-whole solve's reverse walk on the same plan, with the tuple's or the
-normed step's seeds). The wrappers
+``pallas_mlp._normed_bwd_math``) and a CUDA kernel pair. K13 and K1 are
+one kernel, ``csrc/mlp_step_solve.cuh``, one trial step of the whole
+solve's forward stages on its tile plan, with the tuple's rows or the
+normed step's rows and norm sums at its end; their backwards K14 and K2
+are one kernel, ``csrc/mlp_step_walk.cuh``, one trial step of the whole
+solve's reverse walk on the same plan, with the tuple's or the normed
+step's seeds. The wrappers
 ``stage_sweep_fwd``/``stage_sweep_bwd`` and ``normed_sweep_fwd``/
 ``normed_sweep_bwd`` take the plain version for tensors on the CPU, launch
 the kernel for tensors on a CUDA device, and raise otherwise.
@@ -295,27 +296,6 @@ def _ptr(x):
     return ctypes.c_void_p(x.data_ptr())
 
 
-def _cuda_normed_fwd(t, dt, y, k1, leaves, rtol, atol):
-    from regneuralde_tpu_torch.ops import _cuda
-
-    B, D, H = _check_cuda_args(y, k1, leaves)
-    lib = _cuda.library()
-    t32, dt32 = _scalar_f32(t, y), _scalar_f32(dt, y)
-    y_new = torch.empty_like(y)
-    k7 = torch.empty_like(y)
-    rows = lib.regnde_fwd_rows()
-    partials = torch.empty(((B + rows - 1) // rows, 3), device=y.device)
-    sums = torch.empty(3, device=y.device)
-    stream = torch.cuda.current_stream(y.device).cuda_stream
-    code = lib.regnde_normed_fwd(
-        _ptr(t32), _ptr(dt32), _ptr(y), _ptr(k1), *map(_ptr, leaves),
-        _ptr(y_new), _ptr(k7), _ptr(partials), _ptr(sums), B, D, H,
-        float(rtol), float(atol), ctypes.c_void_p(stream))
-    _cuda.check(code, "normed Tsit5 forward kernel")
-    LAUNCHES["normed_tsit5_fwd"] += 1
-    return y_new, k7, sums[0], sums[1], sums[2]
-
-
 @functools.lru_cache(maxsize=8)
 def _step_walk_scratch(lib, plan, B, D, H, dev, lanes, stream):
     """The scratch of K2, K14 and, with ``lanes``, K12 at ``B x D x H`` on
@@ -390,12 +370,38 @@ def _cuda_normed_bwd(t, dt, y, k1, leaves, cts, rtol, atol):
 
 @functools.lru_cache(maxsize=8)
 def _step_solve_scratch(lib, plan, H, dev, stream):
-    """K13's scratch on ``plan`` and ``stream``: K3's (partials, hidden
-    rows, padded weights, slots). Made once and reused, as
+    """The scratch of K13 and K1 on ``plan`` and ``stream``: K3's (partials,
+    hidden rows, padded weights, slots). Made once and reused, as
     ``_step_walk_scratch``: what a launch allocates is its outputs."""
     from regneuralde_tpu_torch.ops import whole_solve as ws
 
     return ws._cuda_solve_scratch(lib, plan, H, dev)
+
+
+def _cuda_normed_fwd(t, dt, y, k1, leaves, rtol, atol):
+    """K1: one cooperative launch of ``csrc/mlp_step_solve.cuh`` with the
+    normed end, K3's six stages on the whole solve's tile plan, then each
+    tile's y_new and k7 rows and its norm sums, summed over the tiles in
+    tile order in the same launch. t and dt stay on the device: no host
+    sync."""
+    from regneuralde_tpu_torch.ops import _cuda
+    from regneuralde_tpu_torch.ops import whole_solve as ws
+
+    B, D, H = _check_cuda_args(y, k1, leaves)
+    t32, dt32 = _scalar_f32(t, y), _scalar_f32(dt, y)
+    lib = _cuda.library()
+    plan = ws._cuda_walk_plan(lib, B, D, H, y.device)
+    stream = torch.cuda.current_stream(y.device).cuda_stream
+    scratch = _step_solve_scratch(lib, plan, H, y.device, stream)
+    y_new, k7 = torch.empty_like(y), torch.empty_like(y)
+    sums = torch.empty(3, device=y.device)
+    code = lib.regnde_normed_fwd(
+        _ptr(t32), _ptr(dt32), _ptr(y), _ptr(k1), *map(_ptr, leaves), _ptr(y_new), _ptr(k7),
+        _ptr(sums), _ptr(scratch), B, D, H, plan.rows, plan.cols, plan.row_blocks,
+        plan.col_blocks, plan.chunks, float(rtol), float(atol), ctypes.c_void_p(stream))
+    _cuda.check(code, "normed Tsit5 forward kernel")
+    LAUNCHES["normed_tsit5_fwd"] += 1
+    return y_new, k7, sums[0], sums[1], sums[2]
 
 
 def _cuda_fwd(t, dt, y, k1, leaves):

@@ -394,6 +394,69 @@ def plain_tuple_solve_step(t, dt, y, k1, leaves, plan: WalkPlan):
             y + dt * fm._stage_acc(5, ks))
 
 
+def plain_normed_solve_step(t, dt, y, k1, leaves, plan: WalkPlan, rtol, atol):
+    """One launch of K1 (``csrc/mlp_step_solve.cuh`` with ``NormedEnd``), the
+    normed step, in the kernel's own schedule: K3's six stages on ``plan``
+    (``_solve_stages``), each element's three norm terms as
+    ``fm._normed_outs`` forms them, and their sums in the kernel's order
+    (``_kernel_order_sums``). Returns ``(y_new, k7, err_ssq, num_ssq,
+    den_ssq)``. For the tests: the kernel's arithmetic in this order."""
+    ks, _ = _solve_stages(t, dt, y, k1, leaves, plan)
+    y_new, g6 = y + dt * fm._stage_acc(6, ks), y + dt * fm._stage_acc(5, ks)
+    denom = atol + torch.maximum(torch.abs(y), torch.abs(y_new)) * rtol
+    scaled = dt * fm._err_comb(ks) / denom
+    dk, dg = ks[6] - ks[5], y_new - g6
+    sums = _kernel_order_sums(torch.stack([scaled * scaled, dk * dk, dg * dg]), plan)
+    return (y_new, ks[6], *sums)
+
+
+def _warp_sum(v):
+    """``warp_sum`` (``csrc/normed_tsit5.cuh``) over the last axis, 32 lanes:
+    the xor shuffle tree, every lane adding its partner's value at offsets
+    16, 8, 4, 2, 1; lane 0's result."""
+    lanes = torch.arange(32, device=v.device)
+    for off in (16, 8, 4, 2, 1):
+        v = v + v[..., lanes ^ off]
+    return v[..., 0]
+
+
+def _kernel_order_sums(terms, plan: WalkPlan):
+    """The sums over the batch of ``terms`` ``(Q, B, D)`` in the order K1
+    takes them: each thread of each tile adds its terms one by one (its
+    items ``e = thread + 256 k`` over the tile's 4-row groups of a column,
+    ``c = e % C``, ``g = e // C``, the group's four rows, row chunk after
+    row chunk; ``solve_finish``), the block sums them by a shuffle tree a
+    warp and the warps in order into its slot (``block_sum_to``), and the
+    slots are summed by lanes strided over the tiles and a shuffle tree
+    (``sum_tiles``). Returns the ``Q`` sums."""
+    Q, B, D = terms.shape
+    R, C, threads = plan.rows, plan.cols, 32 * _WARPS
+    items = C * (R // 4)
+    ix = functools.partial(torch.arange, device=terms.device)
+    blk = ix(plan.tiles).reshape(-1, 1, 1, 1, 1)
+    e = (ix(threads).reshape(1, -1, 1, 1, 1)
+         + threads * ix(-(-items // threads)).reshape(1, 1, 1, -1, 1))
+    chunk = ix(plan.chunks).reshape(1, 1, -1, 1, 1)
+    q = ix(4).reshape(1, 1, 1, 1, -1)
+    row = (chunk * plan.row_blocks + blk // plan.col_blocks) * R + 4 * (e // C) + q
+    col = (blk % plan.col_blocks) * C + e % C
+    flat = torch.where((e < items) & (row < B) & (col < D), row * D + col, B * D)
+    padded = torch.cat([terms.reshape(Q, B * D), terms.new_zeros(Q, 1)], 1)
+    seq = padded[:, flat.reshape(plan.tiles, threads, -1)]
+    acc = terms.new_zeros(seq.shape[:-1])
+    for j in range(seq.shape[-1]):
+        acc = acc + seq[..., j]
+    warps = _warp_sum(acc.reshape(Q, plan.tiles, _WARPS, 32))
+    slots = terms.new_zeros(Q, plan.tiles)
+    for w in range(_WARPS):
+        slots = slots + warps[..., w]
+    lanes = terms.new_zeros(Q, 32)
+    for part in torch.cat([slots, slots.new_zeros(Q, -plan.tiles % 32)], 1).reshape(
+            Q, -1, 32).unbind(1):
+        lanes = lanes + part
+    return tuple(_warp_sum(lanes))
+
+
 def plain_lanes_walk_step(t, dt, y, k1, leaves, cts, plan: WalkPlan):
     """One launch of K12 (``csrc/mlp_step_walk.cuh`` with ``LaneSeed``),
     the lane-wise step's backward, in the kernel's own schedule:
@@ -680,8 +743,8 @@ def _check_walk_sizes(lib, plan, H, lanes):
 
 
 def _cuda_solve_scratch(lib, plan, H, dev):
-    """K3's and K13's scratch for ``plan`` (partials, hidden rows, padded
-    weights, slots), sized by the kernel."""
+    """K3's, K13's and K1's scratch for ``plan`` (partials, hidden rows,
+    padded weights, slots), sized by the kernel."""
     return torch.empty(lib.regnde_solve_scratch_floats(
         plan.rows, plan.cols, plan.row_blocks, plan.col_blocks, H), device=dev)
 

@@ -1514,6 +1514,105 @@ def test_normed_walk_refuses_bad_inputs(cuda):
         fm.normed_sweep_bwd(t, dt, y, k1, leaves, cts, 1e-4, 1e-4)
 
 
+def _assert_k1_matches_schedule(cuda, shape, dt, tol):
+    """K1 (``csrc/mlp_step_solve.cuh`` with ``NormedEnd``) against its
+    schedule (``plain_normed_solve_step`` on the card's plan) and the plain
+    step: its rows within 1e-4 of each and within 3 times the float32
+    schedule's distance from the float64 schedule, plus 1e-7; its three norm
+    sums within 1e-4 of each (``chip_smoke.py``'s FWD_BOUND); y_new and k7
+    bitwise K13's on the same inputs (one kernel, the same stages); bitwise
+    deterministic. Returns the plan."""
+    y, k1, leaves, _ = _inputs(*shape, cuda)
+    t, dt_ = torch.tensor(0.3, device=cuda), torch.tensor(dt, device=cuda)
+    plan = ws.walk_plan(*shape, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    d = lambda x: x.double()
+    kern = fm.normed_sweep_fwd(t, dt_, y, k1, leaves, tol, tol)
+    sched = ws.plain_normed_solve_step(t, dt_, y, k1, leaves, plan, tol, tol)
+    sched64 = ws.plain_normed_solve_step(d(t), d(dt_), d(y), d(k1), [d(x) for x in leaves],
+                                         plan, tol, tol)
+    plain = fm._reference_normed_sweep(t, dt_, y, k1, fm._split_params(*leaves), tol, tol)
+    for name, a, b, c, p in zip(["y_new", "k7", "err_ssq", "num_ssq", "den_ssq"], kern, sched,
+                                sched64, plain):
+        assert torch.isfinite(a).all(), name
+        assert _rel(a, b) <= 1e-4 and _rel(a, p) <= 1e-4, (name, _rel(a, b), _rel(a, p))
+        if a.dim():
+            assert _rel(a, c) <= 3 * _rel(b, c) + 1e-7, (name, _rel(a, c), _rel(b, c))
+    tup = fm.stage_sweep_fwd(t, dt_, y, k1, leaves)
+    assert torch.equal(kern[0], tup[0]) and torch.equal(kern[1], tup[1])
+    again = fm.normed_sweep_fwd(t, dt_, y, k1, leaves, tol, tol)
+    assert all(torch.equal(a, b) for a, b in zip(kern, again))
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tol", [1e-4, 1.4e-8])
+@pytest.mark.parametrize("dt", [0.05, 0.3])
+@pytest.mark.parametrize("shape", [(13, 40, 24), (5, 8, 5), (96, 200, 48), (512, 784, 100),
+                                   (1024, 784, 100)])
+def test_normed_step_matches_its_schedule(cuda, shape, dt, tol):
+    """K1 against ``plain_normed_solve_step``, the same step in the kernel's
+    order of summation, on the card's plan: one column block (13x40x24,
+    5x8x5), seven of 32 columns (96x200x48), the flagship's 8 of 100, and two
+    row chunks (1024x784x100); one launch a call."""
+    fm.reset_launches()
+    plan = _assert_k1_matches_schedule(cuda, shape, dt, tol)
+    assert plan.chunks == (2 if shape[0] == 1024 else 1)
+    assert fm.LAUNCHES["normed_tsit5_fwd"] == 2
+
+
+@pytest.mark.cuda
+def test_normed_step_in_row_chunks_matches_its_schedule(cuda, monkeypatch):
+    """K1 on the plan of a card of 4 multiprocessors: 4 tiles, the batch of
+    256 in row chunks one after another, each tile's norm sums carried over
+    the chunks before the slots are summed."""
+    plan = ws.walk_plan
+
+    def small_card(B, D, H, sms, limit=ws.SMEM_LIMIT):
+        return plan(B, D, H, 4, limit)
+
+    monkeypatch.setattr(ws, "walk_plan", small_card)
+    assert _assert_k1_matches_schedule(cuda, (256, 64, 32), 0.3, 1e-4).chunks > 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, tol", [((13, 40, 24), 1e-4), ((512, 784, 100), 1.4e-8)])
+def test_normed_step_sums_are_k3s(cuda, shape, tol):
+    """K1 at each trial step of a streamed K3 record (``whole_solve_fwd``
+    for MLPDynamics), at that step's own t, dt_eff, y and k1: its three norm
+    sums equal the ones K3 recorded for the step bitwise (the same stages,
+    the same per-tile algebra, block sums and tile order), and its k7 equals
+    K3's streamed ``ks[i, 5]``."""
+    args = _solve_args(*shape, cuda, tol=tol)
+    rec = ws.whole_solve_fwd(*args)
+    ns = int(rec.final[3:5].sum().item())
+    st = rec.streams
+    for i in range(ns):
+        _, k7, *sums = fm.normed_sweep_fwd(st[ws.ST_T, i], st[ws.TEL_DT, i], rec.hy[i],
+                                           rec.hf[i], args[5], tol, tol)
+        assert torch.equal(k7, rec.ks[i, 5]), i
+        assert torch.equal(torch.stack(sums), st[[ws.ST_E, ws.ST_N, ws.ST_D], i]), i
+    assert ns > 1
+
+
+@pytest.mark.cuda
+def test_normed_step_refuses_bad_inputs(cuda):
+    """K1's wrapper refuses what the kernel does not take, and a shape no
+    tile plan fits raises walk_plan's ValueError (no fallback)."""
+    y, k1, leaves, _ = _inputs(8, 16, 12, cuda)
+    t, dt = torch.tensor(T, device=cuda), torch.tensor(DT, device=cuda)
+    with pytest.raises(TypeError):
+        fm.normed_sweep_fwd(t, dt, y, k1.double(), leaves, 1e-4, 1e-4)
+    with pytest.raises(ValueError):
+        fm.normed_sweep_fwd(t, dt, y, k1.t(), leaves, 1e-4, 1e-4)
+    with pytest.raises(ValueError):
+        fm.normed_sweep_fwd(t, dt, y, k1[:4], leaves, 1e-4, 1e-4)
+    with pytest.raises(ValueError):
+        fm.normed_sweep_fwd(t, dt, y, k1, [leaves[0][:, :-1], *leaves[1:]], 1e-4, 1e-4)
+    y, k1, leaves, _ = _inputs(8, 8, 20_000, cuda)
+    with pytest.raises(ValueError, match="no tile plan"):
+        fm.normed_sweep_fwd(t, dt, y, k1, leaves, 1e-4, 1e-4)
+
+
 def _assert_k12_matches_schedule(cuda, shape):
     """K12 against its schedule (``plain_lanes_walk_step`` on the card's
     plan with K12's state) at the walk's bounds, per-lane (t, dt) with

@@ -32,7 +32,11 @@ reported for it (registers, stack, spills). Last it says, for every kernel
 of either library, whether the two trees' SASS (``cuobjdump -sass``) is
 the same instruction for instruction; a kernel of one tree only is named
 beside the kernel of the other tree whose SASS it equals, if any (a kernel
-renamed, or made an instance of a template).
+renamed, or made an instance of a template). Two compiles of one source
+can give different SASS for ``whole_solve.cu``'s 255-register kernels
+(``ptxas`` is not deterministic there, more so in a loaded build), so a
+``differs`` is evidence of a change only when two compiles of each tree
+agree.
 """
 
 import argparse
@@ -191,10 +195,10 @@ def csl_device(dev):
 
 def normed_device(dev):
     """Device ms a launch of K1 and of K2 at phase 2's inputs (rtol=atol=
-    1.4e-8): K1's kernels (normed_fwd_kernel + reduce_partials_kernel), K2's
-    own (the old normed_bwd_kernel + reduce_partials_kernel or
-    mlp_step_walk_kernel<NormedSeed>) and the weight-cotangent contraction
-    after them apart."""
+    1.4e-8): K1's kernels (the old normed_fwd_kernel + reduce_partials_kernel,
+    or mlp_step_solve_kernel<NormedEnd>), K2's own (the old normed_bwd_kernel
+    + reduce_partials_kernel or mlp_step_walk_kernel<NormedSeed>) and the
+    weight-cotangent contraction after them apart."""
     from regneuralde_tpu_torch.ops import fused_mlp as fm
 
     B, D, H, tol = cs.BATCH, cs.DIM, cs.HIDDEN, cs.FLAGSHIP_TOL
@@ -208,7 +212,8 @@ def normed_device(dev):
     bwd = lambda: fm.normed_sweep_bwd(t, dt, y, k1, leaves, cts, tol, tol)
     return {
         "K1_device": {"ms": device_ms(lambda: fm.normed_sweep_fwd(t, dt, y, k1, leaves, tol, tol),
-                                      ("normed_fwd_kernel", "reduce_partials_kernel"))},
+                                      ("normed_fwd_kernel", "reduce_partials_kernel",
+                                       "NormedEnd"))},
         "K2_device_kernel": {"ms": device_ms(bwd, ("normed_bwd_kernel", "reduce_partials_kernel",
                                                    "mlp_step_walk_kernel"))},
         "K2_device_wcot": {"ms": device_ms(bwd, ("wcot_chunk_kernel", "wcot_sum_kernel"))},
