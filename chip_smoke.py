@@ -111,13 +111,15 @@ at first use. Phases (each checks its results; any failure exits non-zero):
    max_steps 128, CE + 0.1 * stiffness_estimate, InvDecay(1e-5) then
    Adam(0.01)) on ``fused=True``: one K9 and one K10 launch a step and no
    other kernel, NFE, accepts and ms a step;
-22. K11 and K12 (the lane-wise Tsit5 step of the per-sample engine) against
-   their plain versions at 512x784x100 with per-lane (t, dt) and finished
-   lanes: K11 within FWD_BOUND (bitwise where it rounds as its plain
-   version), K12 (one trial step of the whole solve's walk at per-row
-   times) within BWD_BOUND, against a float64 walk and against its
-   schedule, bitwise determinism, CUDA-event times, K12's device time, plan
-   and ``grid.sync()`` count;
+22. K11 and K12 (the lane-wise Tsit5 step of the per-sample engine: K11
+   one trial step of the MLPDynamics whole solve's stages at per-row times,
+   rounded as its plain version, ``csrc/mlp_step_solve.cuh`` with the lane
+   end; K12 one trial step of its reverse walk, ``csrc/mlp_step_walk.cuh``)
+   against their plain versions at 512x784x100 with per-lane (t, dt) and
+   finished lanes: K11 within FWD_BOUND (and which outputs are bitwise the
+   plain version's), K12 within BWD_BOUND, against a float64 walk and
+   against its schedule, bitwise determinism, CUDA-event times, both
+   kernels' device time, their plan and ``grid.sync()`` count;
 23. one forward+backward of the per-sample flagship step
    (``per_sample="batched"``) at rtol=atol=1e-5, ``fused=True`` against
    ``fused=False``, with a scalar t1 and with a per-lane STEER t1: identical
@@ -2217,9 +2219,12 @@ def _lane_inputs(device, B=BATCH, D=DIM, H=HIDDEN, seed=SEED + 31):
 
 def phase_lanes_kernels(device):
     """K11/K12 (the lane-wise Tsit5 step) against their plain versions at
-    512x784x100 with per-lane (t, dt) and finished lanes: K11's five outputs
-    within FWD_BOUND (and how many bitwise), the finished lanes' y_new equal
-    to y and err exactly zero; K12 (``csrc/mlp_step_walk.cuh`` with
+    512x784x100 with per-lane (t, dt) and finished lanes: K11
+    (``csrc/mlp_step_solve.cuh`` with ``LaneEnd``) within FWD_BOUND on each
+    of its five outputs (and which equal the plain version's bitwise), the
+    finished lanes' y_new equal to y and err exactly zero, its device time,
+    its tile plan (K12's) and its ``grid.sync()`` count a launch (the pad and
+    two a stage per row chunk); K12 (``csrc/mlp_step_walk.cuh`` with
     ``LaneSeed``) within BWD_BOUND of its plain version and within 3 times
     the plain version's distance from a float64 walk, plus 1e-6, and within
     BWD_BOUND of its schedule (``whole_solve.plain_lanes_walk_step`` on its
@@ -2300,6 +2305,12 @@ def phase_lanes_kernels(device):
     dev_wcot = _device_ms(bwd, "wcot_")
     _check(dev_walk is not None and dev_wcot is not None,
            "K12's kernel and its contraction in the trace")
+    dev_fwd = _device_ms(lambda: fl.sweep_lanes_fwd(t, dt, y, k1, leaves), "LaneEnd")
+    _check(dev_fwd is not None, "K11's kernel in the trace")
+    print(f"[lanes] K11 device ms a launch (torch.profiler, {REPS} launches): {dev_fwd!r}; "
+          f"tiles {plan.rows}x{plan.cols}, {plan.tiles} blocks, {plan.chunks} row chunks, "
+          f"{ws.solve_smem_bytes(plan.rows, plan.cols, HIDDEN, lanes=True)} bytes of shared "
+          f"memory; grid.sync() a launch {1 + 12 * plan.chunks}")
     syncs = 1 + 12 * plan.chunks + 1 + 12 * plan.chunks + 1
     print(f"[lanes] K12 device ms a launch (torch.profiler, {REPS} launches): kernel "
           f"{dev_walk!r} + contraction {dev_wcot!r} = {dev_walk + dev_wcot!r}; tiles "
@@ -3327,7 +3338,7 @@ def main():
                "csl_tsit5_fwd": "csl_tsit5.cu", "csl_tsit5_bwd": "csl_tsit5.cu",
                "sde_whole_solve_fwd": "sde_whole_solve.cu",
                "sde_whole_solve_bwd": "sde_whole_solve.cu",
-               "mlp_lanes_tsit5_fwd": "mlp_lanes_tsit5.cu",
+               "mlp_lanes_tsit5_fwd": "mlp_step_solve.cuh",
                "mlp_lanes_tsit5_bwd": "mlp_step_walk.cuh",
                "mlp_tsit5_fwd": "mlp_step_solve.cuh", "mlp_tsit5_bwd": "mlp_step_walk.cuh",
                "spike_wholesolve": "spike_wholesolve.cu",

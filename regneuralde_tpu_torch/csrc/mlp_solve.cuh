@@ -60,11 +60,16 @@
 //   * The stage residuals go out with evict-first stores: K4 reads them once.
 //   * The stage phases are templates over a time policy (below) and read
 //     times only through it, a row or a 4-row group at a time: the solve's,
-//     K13's, and K4's, K2's and K14's replays give every row the step's t
-//     and dt, K12's replay each row its own.
-// IEEE f32 FMAs, no TF32, no fast math, no atomics: every sum has a fixed
+//     K13's, K1's, and K4's, K2's and K14's replays give every row the
+//     step's t and dt, K11's stages and K12's replay each row its own.
+//   * And over a rounding policy (below): F32, the contractions as f32
+//     fmaf chains (every instance but one), or F64, K11's, whose plain
+//     version decides each lane's accept: the two contractions in f64 on
+//     operands converted once, each affine map rounded once to f32, the
+//     stage inputs formed op by op as the plain version's ATen ops.
+// IEEE FMAs, no TF32, no fast math, no atomics: every sum has a fixed
 // order, so runs are bitwise reproducible. The stage's arithmetic outside
-// the contractions' fmaf chains is pinned (explicit roundings), so K4's
+// the contractions' fma chains is pinned (explicit roundings), so K4's
 // replay of it, another kernel, gives the same bits.
 
 #pragma once
@@ -128,6 +133,36 @@ __device__ __forceinline__ float& comp(float4& v, int i) {
   return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
 }
 
+// Four doubles (the F64 rounding policy's operands), moved as two 16-byte
+// halves; st4 of a float4 to doubles widens each lane.
+struct Dbl4 {
+  double x, y, z, w;
+};
+__device__ __forceinline__ Dbl4 ld4(const double* p) {
+  const double2 a = *reinterpret_cast<const double2*>(p);
+  const double2 b = *reinterpret_cast<const double2*>(p + 2);
+  return {a.x, a.y, b.x, b.y};
+}
+__device__ __forceinline__ void st4(double* p, float4 v) {
+  *reinterpret_cast<double2*>(p) = make_double2(v.x, v.y);
+  *reinterpret_cast<double2*>(p + 2) = make_double2(v.z, v.w);
+}
+
+// Four values of a register tile's row to p through L2.
+__device__ __forceinline__ void stcg4(float* p, const float (&v)[4]) {
+  __stcg(reinterpret_cast<float4*>(p), make_float4(v[0], v[1], v[2], v[3]));
+}
+__device__ __forceinline__ void stcg4(double* p, const double (&v)[4]) {
+  __stcg(reinterpret_cast<double2*>(p), make_double2(v[0], v[1]));
+  __stcg(reinterpret_cast<double2*>(p + 2), make_double2(v[2], v[3]));
+}
+
+__device__ __forceinline__ float fma_of(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_of(double a, double b, double c) { return fma(a, b, c); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+
+
 // A 16-byte copy from global to shared memory, zero-filled (nothing read)
 // where ok is false.
 __device__ __forceinline__ void walk_cp16(float* dst, const float* src, bool ok) {
@@ -181,12 +216,13 @@ __device__ __forceinline__ void walk_prefetch(int nslab, Load load) {
 }
 
 // acc[i][u] += sum_k a(k)[i] b(k)[u] over nslab slabs of kWalkKB rows k: a(k)
-// a float4 of 4 rows of the shared operand, b(slot, kk) a float4 of 4
-// columns of row kk of the slab in ring slot `slot`, in k order, one fmaf a
-// term. The first kWalkStages - 1 slabs are in flight already.
-template <class Load, class A, class Bv>
-__device__ __forceinline__ void walk_gemm(float (&acc)[kWalkTM][kWalkTN], bool live,
-                                          int nslab, Load load, A a, Bv b) {
+// 4 rows of the shared operand, b(slot, kk) 4 columns of row kk of the slab
+// in ring slot `slot` (a float4, or a Dbl4 where acc holds doubles), in k
+// order, one fma a term in acc's type. The first kWalkStages - 1 slabs are
+// in flight already.
+template <class T, class Load, class A, class Bv>
+__device__ __forceinline__ void walk_gemm(T (&acc)[kWalkTM][kWalkTN], bool live, int nslab,
+                                          Load load, A a, Bv b) {
   for (int kt = 0; kt < nslab; ++kt) {
     walk_wait<kWalkStages - 2>();  // slab kt has landed
     __syncthreads();               // and every thread is done with slab kt - 1
@@ -195,14 +231,14 @@ __device__ __forceinline__ void walk_gemm(float (&acc)[kWalkTM][kWalkTN], bool l
     if (live) {
 #pragma unroll
       for (int kk = 0; kk < kWalkKB; ++kk) {
-        const float4 av = a(kt * kWalkKB + kk);
-        const float4 bv = b(kt % kWalkStages, kk);
-        const float ar[4] = {av.x, av.y, av.z, av.w};
-        const float br[4] = {bv.x, bv.y, bv.z, bv.w};
+        const auto av = a(kt * kWalkKB + kk);
+        const auto bv = b(kt % kWalkStages, kk);
+        const T ar[4] = {av.x, av.y, av.z, av.w};
+        const T br[4] = {bv.x, bv.y, bv.z, bv.w};
 #pragma unroll
         for (int i = 0; i < kWalkTM; ++i)
 #pragma unroll
-          for (int u = 0; u < kWalkTN; ++u) acc[i][u] = fmaf(ar[i], br[u], acc[i][u]);
+          for (int u = 0; u < kWalkTN; ++u) acc[i][u] = fma_of(ar[i], br[u], acc[i][u]);
       }
     }
   }
@@ -240,6 +276,7 @@ constexpr int kLaneRows = 32;  // the most rows a tile has (ops/whole_solve.py W
 struct __align__(16) LaneRows {
   float t[kLaneRows], dt[kLaneRows], vt[kLaneRows], ct[kLaneRows], cdt[kLaneRows];
 };
+constexpr int kLaneRowFloats = sizeof(LaneRows) / sizeof(float);
 
 // Stage I's time, each operation rounded on its own.
 template <int I>
@@ -290,6 +327,70 @@ __device__ __forceinline__ float lane_of(float v, int) { return v; }
 __device__ __forceinline__ float lane_of(float4 v, int q) {
   return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
 }
+__device__ __forceinline__ double lane_of(Dbl4 v, int q) {
+  return q == 0 ? v.x : q == 1 ? v.y : q == 2 ? v.z : v.w;
+}
+
+// ---------------------------------------------------------------------------
+// The rounding policies of a trial step's stages: T, the type of the two
+// contractions' operands and sums (the stage input, the hidden rows, the
+// padded weights, the slab ring and phase A's partials); act, an affine
+// map's sum, time and bias terms to its activation; input, stage I's input
+// y + dt acc_I of one element.
+//   F32 (K3, K13, K1, and the replays of the stages in K4, K2, K14 and K12):
+//     f32 fmaf chains, the time and bias terms added by rounded ops, the
+//     input by stage_state's pinned fma chain.
+//   F64 (K11, the per-sample engine's step, whose plain version
+//     ops/fused_mlp_lanes.py _reference_sweep_lanes decides each lane's
+//     accept at its error norm's float32 floor): the contractions in f64,
+//     their operands converted once (the stage input when it is formed, the
+//     hidden rows when they are reduced, the weights when they are padded),
+//     and sum + fma(t_i, w_t, b) in f64 rounded once to f32: the product of
+//     two floats is exact in f64, so this is the plain version's f64 addmm
+//     up to the order of an f64 sum; the input with every multiply and add
+//     rounded on its own, in fused_mlp._stage_acc's order, as ATen's ops.
+// ---------------------------------------------------------------------------
+
+// A bias given as its value, or as a function that reads it where act adds
+// it: the reduction passes the read, so F32's PTX keeps the bias's address
+// and load after the time term, where K3's expression has always had them.
+__device__ __forceinline__ float bias_of(float b) { return b; }
+template <class F>
+__device__ __forceinline__ float bias_of(F read) {
+  return read();
+}
+
+struct F32 {
+  using T = float;
+  template <class B>
+  static __device__ __forceinline__ float act(float v, float ti, float wt, B b) {
+    return accurate_tanh(__fadd_rn(__fadd_rn(v, __fmul_rn(ti, wt)), bias_of(b)));
+  }
+  template <int I>
+  static __device__ __forceinline__ float input(float y, const float* k, float dt) {
+    return stage_state(I, &y, k, 1, 0, dt);
+  }
+};
+
+struct F64 {
+  using T = double;
+  template <class B>
+  static __device__ __forceinline__ float act(double v, float ti, float wt, B b) {
+    return accurate_tanh(__double2float_rn(
+        __dadd_rn(v, __fma_rn((double)ti, (double)wt, (double)bias_of(b)))));
+  }
+  template <int I>
+  static __device__ __forceinline__ float input(float y, const float* k, float dt) {
+    float acc = __fmul_rn(kA[I - 1][0], k[0]);
+#pragma unroll
+    for (int j = 1; j < I; ++j) acc = __fadd_rn(acc, __fmul_rn(kA[I - 1][j], k[j]));
+    return __fadd_rn(y, __fmul_rn(dt, acc));
+  }
+};
+
+// Floats of one element of a policy's T.
+template <class Rnd>
+constexpr int rnd_floats = sizeof(typename Rnd::T) / sizeof(float);
 
 // ---------------------------------------------------------------------------
 // K3's stages.
@@ -300,33 +401,40 @@ constexpr int kSolveState = 9;  // floats of state an element: y, k1..k7, the st
 // The forward's tiles (walk_plan's) and its scratch: phase A's partials
 // (tiles x R x HP4, HP4 = H rounded to kWalkTN), the row blocks' hidden
 // rows (nrb x H x R), the padded transposed
-// weights w1p (ndb C rows of HP4 floats: W1x^T, zero past D and H) and w2p
-// (H rows of ndb C floats: W2h^T, zero past D), and the per-tile slots of
-// the norm sums (2 x tiles x 3, by trial-step parity).
-struct Solve {
-  float *psum, *hid, *w1p, *w2p, *slots;
+// weights w1p (ndb C rows of HP4: W1x^T, zero past D and H) and w2p
+// (H rows of ndb C: W2h^T, zero past D), all in the rounding policy's T,
+// and the per-tile slots of the norm sums (2 x tiles x 3 floats, by
+// trial-step parity).
+template <class Rnd>
+struct SolveT {
+  typename Rnd::T *psum, *hid, *w1p, *w2p;
+  float* slots;
   int R, C, nrb, ndb, chunks;
 };
+using Solve = SolveT<F32>;
 
+template <class Rnd = F32>
 __host__ __device__ inline size_t solve_scratch_floats(int R, int C, int nrb, int ndb, int H) {
   const size_t tiles = (size_t)nrb * ndb, HP4 = walk_round_up(H, kWalkTN);
   const size_t width = (size_t)ndb * C;
-  return tiles * R * HP4 + (size_t)nrb * H * R + width * HP4 + (size_t)H * width +
+  return rnd_floats<Rnd> * (tiles * R * HP4 + (size_t)nrb * H * R + width * HP4 +
+                            (size_t)H * width) +
          2 * tiles * 3;
 }
 
-// The plan's Solve over a scratch of solve_scratch_floats floats (each part
-// a multiple of 4 floats, so every part stays 16-byte aligned).
-__host__ __device__ inline Solve solve_carve(float* scratch, int R, int C, int nrb, int ndb,
-                                             int chunks, int H) {
+// The plan's Solve over a scratch of solve_scratch_floats<Rnd> floats (each
+// part a multiple of 4 floats, so every part stays 16-byte aligned).
+template <class Rnd = F32>
+__host__ __device__ inline SolveT<Rnd> solve_carve(float* scratch, int R, int C, int nrb,
+                                                   int ndb, int chunks, int H) {
   const size_t tiles = (size_t)nrb * ndb, HP4 = walk_round_up(H, kWalkTN);
   const size_t width = (size_t)ndb * C;
-  Solve f;
-  f.psum = scratch;
+  SolveT<Rnd> f;
+  f.psum = reinterpret_cast<typename Rnd::T*>(scratch);
   f.hid = f.psum + tiles * R * HP4;
   f.w1p = f.hid + (size_t)nrb * H * R;
   f.w2p = f.w1p + width * HP4;
-  f.slots = f.w2p + (size_t)H * width;
+  f.slots = reinterpret_cast<float*>(f.w2p + (size_t)H * width);
   f.R = R;
   f.C = C;
   f.nrb = nrb;
@@ -337,52 +445,68 @@ __host__ __device__ inline Solve solve_carve(float* scratch, int R, int C, int n
 
 // Floats of K3's shared memory for tiles of R x C: the state (y, k1..k7),
 // the stage input (C rounded to a slab, x R), the row block's hidden rows
-// (H rounded to a slab, x R), the slab ring (rows of HP4 or C floats) and
-// the block sum's scratch.
-__host__ __device__ inline size_t solve_smem_floats(int R, int C, int H) {
+// (H rounded to a slab, x R), the slab ring (rows of HP4 or C), the last
+// three in the rounding policy's T, the block sum's scratch and, for a
+// LaneTime step (lanes), the tile's LaneRows.
+template <class Rnd = F32>
+__host__ __device__ inline size_t solve_smem_floats(int R, int C, int H, bool lanes = false) {
   const int HP4 = walk_round_up(H, kWalkTN);
   const int slab = HP4 > C ? HP4 : C;
-  return (size_t)R * ((size_t)(kSolveState - 1) * C + walk_round_up(C, kWalkKB) +
-                      walk_round_up(H, kWalkKB)) +
-         (size_t)kWalkStages * kWalkKB * slab + 3 * kWarps;
+  constexpr int w = rnd_floats<Rnd>;
+  return (size_t)R * ((size_t)(kSolveState - 1) * C + w * walk_round_up(C, kWalkKB) +
+                      w * walk_round_up(H, kWalkKB)) +
+         (size_t)w * kWalkStages * kWalkKB * slab + 3 * kWarps + (lanes ? kLaneRowFloats : 0);
 }
 
-struct SolveSmem {
-  float* st;    // y, k1..k7: 8 x C x R, column-major, groups permuted (walk_at)
-  float* yi;    // (C rounded to a slab) x R: the stage input, as st; zero past C
-  float* hid;   // (H rounded to a slab) x R: the row block's hidden rows, [h][r]
-  float* slab;  // kWalkStages slabs of SS floats
-  float* red;   // 3 x kWarps
+template <class Rnd>
+struct SolveSmemT {
+  float* st;              // y, k1..k7: 8 x C x R, column-major, groups permuted (walk_at)
+  typename Rnd::T* yi;    // (C rounded to a slab) x R: the stage input, as st; zero past C
+  typename Rnd::T* hid;   // (H rounded to a slab) x R: the row block's hidden rows, [h][r]
+  typename Rnd::T* slab;  // kWalkStages slabs of SS
+  float* red;             // 3 x kWarps
   int RC, SS, HP4;
 };
+using SolveSmem = SolveSmemT<F32>;
 
-__device__ __forceinline__ SolveSmem solve_smem(float* pool, const Solve& f, int H) {
-  SolveSmem s;
+template <class Rnd>
+__device__ __forceinline__ SolveSmemT<Rnd> solve_smem(float* pool, const SolveT<Rnd>& f,
+                                                      int H) {
+  SolveSmemT<Rnd> s;
   s.RC = f.R * f.C;
   s.HP4 = walk_round_up(H, kWalkTN);
   s.SS = kWalkKB * (s.HP4 > f.C ? s.HP4 : f.C);
   s.st = pool;
-  s.yi = s.st + (size_t)(kSolveState - 1) * s.RC;
+  s.yi = reinterpret_cast<typename Rnd::T*>(s.st + (size_t)(kSolveState - 1) * s.RC);
   s.hid = s.yi + (size_t)walk_round_up(f.C, kWalkKB) * f.R;
   s.slab = s.hid + (size_t)walk_round_up(H, kWalkKB) * f.R;
-  s.red = s.slab + (size_t)kWalkStages * s.SS;
+  s.red = reinterpret_cast<float*>(s.slab + (size_t)kWalkStages * s.SS);
   return s;
 }
 
-// The padded transposed copies of the weights the slabs are cut from (every
-// block a share; the caller syncs the grid).
-__device__ void solve_pad_weights(const float* W1, const float* W2, const Solve& f, int D,
-                                  int H, int HP4) {
+// A LaneTime step's rows in K3's pool: after the block sum's scratch, 16-byte
+// aligned (every part before is a multiple of 4 floats, the scratch 24).
+template <class Rnd>
+__device__ __forceinline__ LaneRows* solve_lane_rows(const SolveSmemT<Rnd>& s) {
+  return reinterpret_cast<LaneRows*>(s.red + 3 * kWarps);
+}
+
+// The padded transposed copies of the weights the slabs are cut from, in
+// the policy's T (every block a share; the caller syncs the grid).
+template <class Rnd>
+__device__ void solve_pad_weights(const float* W1, const float* W2, const SolveT<Rnd>& f,
+                                  int D, int H, int HP4) {
+  using T = typename Rnd::T;
   const size_t width = (size_t)f.ndb * f.C;
   const size_t n1 = width * HP4, n2 = (size_t)H * width;
   for (size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x; e < n1 + n2;
        e += (size_t)gridDim.x * kThreads) {
     if (e < n1) {
       const size_t d = e / HP4, h = e - d * HP4;
-      f.w1p[e] = d < (size_t)D && h < (size_t)H ? W1[h * (D + 1) + d] : 0.0f;
+      f.w1p[e] = d < (size_t)D && h < (size_t)H ? (T)W1[h * (D + 1) + d] : T(0);
     } else {
       const size_t h = (e - n1) / width, d = (e - n1) - h * width;
-      f.w2p[e - n1] = d < (size_t)D ? W2[d * (H + 1) + h] : 0.0f;
+      f.w2p[e - n1] = d < (size_t)D ? (T)W2[d * (H + 1) + h] : T(0);
     }
   }
 }
@@ -398,25 +522,33 @@ struct SolveStep {
 };
 
 // Slab p of phase A's weights: the tile's C rows of w1p.
-__device__ __forceinline__ void solve_load_w1(const Solve& f, const SolveSmem& s,
+template <class Rnd>
+__device__ __forceinline__ void solve_load_w1(const SolveT<Rnd>& f, const SolveSmemT<Rnd>& s,
                                               const WalkTile& tl, int p) {
-  slab_rows(s.slab + (p % kWalkStages) * s.SS, f.w1p + (size_t)tl.d0 * s.HP4, s.HP4, f.C, p);
+  slab_rows(reinterpret_cast<float*>(s.slab + (p % kWalkStages) * s.SS),
+            reinterpret_cast<const float*>(f.w1p + (size_t)tl.d0 * s.HP4),
+            rnd_floats<Rnd> * s.HP4, f.C, p);
 }
 
 // Slab p of phase B's weights: rows of w2p at the tile's C columns. (kk, c4)
-// as slab_cols.
-__device__ __forceinline__ void solve_load_w2(const Solve& f, const SolveSmem& s,
+// as slab_cols, over rows of rnd_floats<Rnd> C floats.
+template <class Rnd>
+__device__ __forceinline__ void solve_load_w2(const SolveT<Rnd>& f, const SolveSmemT<Rnd>& s,
                                               const WalkTile& tl, int H, int kk, int c4,
                                               int p) {
-  slab_cols(s.slab + (p % kWalkStages) * s.SS, f.w2p, (size_t)f.ndb * f.C, tl.d0, f.C, H, kk,
-            c4, p);
+  constexpr int w = rnd_floats<Rnd>;
+  slab_cols(reinterpret_cast<float*>(s.slab + (p % kWalkStages) * s.SS),
+            reinterpret_cast<const float*>(f.w2p), w * (size_t)f.ndb * f.C, w * tl.d0, w * f.C,
+            H, kk, c4, p);
 }
 
+
 // Stage I's input at 4 rows of one column (offset off of the state): y +
-// dt sum_j a_Ij k_j, k_0..k_{I-2} from the state and k_{I-1} given (kl); dt
-// the rows' (a float4) or the step's (a float).
-template <int I, class DT>
-__device__ __forceinline__ float4 solve_input(const SolveSmem& s, int off, float4 kl, DT dt) {
+// dt sum_j a_Ij k_j by the rounding policy, k_0..k_{I-2} from the state and
+// k_{I-1} given (kl); dt the rows' (a float4) or the step's (a float).
+template <int I, class Rnd, class DT>
+__device__ __forceinline__ float4 solve_input(const SolveSmemT<Rnd>& s, int off, float4 kl,
+                                              DT dt) {
   float4 kv[I];
 #pragma unroll
   for (int j = 0; j + 1 < I; ++j) kv[j] = ld4(s.st + (1 + j) * s.RC + off);
@@ -428,7 +560,7 @@ __device__ __forceinline__ float4 solve_input(const SolveSmem& s, int off, float
     float k[I];
 #pragma unroll
     for (int j = 0; j < I; ++j) k[j] = comp(kv[j], q);
-    comp(yi, q) = stage_state(I, &y, k, 1, 0, lane_of(dt, q));
+    comp(yi, q) = Rnd::template input<I>(y, k, lane_of(dt, q));
   }
   return yi;
 }
@@ -436,8 +568,8 @@ __device__ __forceinline__ float4 solve_input(const SolveSmem& s, int off, float
 // The load of the tile (items: 4 rows of a column, consecutive threads on
 // consecutive columns): y and k1 (zero outside the tile) into the state,
 // stage 1's input into s.yi.
-template <class Time>
-__device__ __forceinline__ void solve_load(const SolveStep<Time>& ss, const SolveSmem& s,
+template <class Time, class Rnd>
+__device__ __forceinline__ void solve_load(const SolveStep<Time>& ss, const SolveSmemT<Rnd>& s,
                                            const WalkTile& tl, int R, int C, int D) {
   const int n = C * (R / 4);
   for (int e = threadIdx.x; e < n; e += kThreads) {
@@ -459,8 +591,10 @@ __device__ __forceinline__ void solve_load(const SolveStep<Time>& ss, const Solv
 
 // Phase A: this tile's partial of y_I W1x^T over its columns, R x HP4, to
 // out ([R][HP4], through L2); then phase B's first slabs, behind the barrier.
-__device__ __forceinline__ void solve_phase_a(const Solve& f, const SolveSmem& s,
-                                              const WalkTile& tl, int H, float* out) {
+template <class Rnd>
+__device__ __forceinline__ void solve_phase_a(const SolveT<Rnd>& f, const SolveSmemT<Rnd>& s,
+                                              const WalkTile& tl, int H,
+                                              typename Rnd::T* out) {
   const int R = f.R, C = f.C, G4 = R / 4;
   const int items = G4 * (s.HP4 / 4);
   const int nslab = (tl.cols + kWalkKB - 1) / kWalkKB;
@@ -468,7 +602,7 @@ __device__ __forceinline__ void solve_phase_a(const Solve& f, const SolveSmem& s
   for (int base = 0; base < items; base += kThreads) {
     const int item = base + threadIdx.x;
     const int g = item % G4, hg = item / G4;
-    float acc[kWalkTM][kWalkTN] = {};
+    typename Rnd::T acc[kWalkTM][kWalkTN] = {};
     if (base > 0) walk_prefetch(nslab, load);
     walk_gemm(acc, item < items, nslab, load,
               [&](int k) { return ld4(s.yi + walk_at(k, g, R)); },
@@ -478,38 +612,40 @@ __device__ __forceinline__ void solve_phase_a(const Solve& f, const SolveSmem& s
     if (item < items) {
 #pragma unroll
       for (int i = 0; i < kWalkTM; ++i)
-        __stcg(reinterpret_cast<float4*>(out + (size_t)(4 * g + i) * s.HP4 + 4 * hg),
-               make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]));
+        stcg4(out + (size_t)(4 * g + i) * s.HP4 + 4 * hg, acc[i]);
     }
   }
-  const int kk0 = threadIdx.x / (C / 4), c40 = threadIdx.x % (C / 4);
+  const int quads = rnd_floats<Rnd> * C / 4;
+  const int kk0 = threadIdx.x / quads, c40 = threadIdx.x % quads;
   walk_prefetch((H + kWalkKB - 1) / kWalkKB,
                 [&](int p) { solve_load_w2(f, s, tl, H, kk0, c40, p); });
 }
 
-// The reduction of stage I: the hidden rows hid = tanh(sum_q psum_q + t_I
-// w1t + b1) of this block's share of its row block's rows (r = db, db +
+// The reduction of stage I: the hidden rows hid = act(sum_q psum_q, t_I,
+// w1t, b1) of this block's share of its row block's rows (r = db, db +
 // ndb, ...), the row block's partials (psum, [R][HP4] each) summed in
-// column-block order; to hidg ([h][r], the row block's hidden rows, through
-// L2) and, with OUT, to the hs stream. Items (row, h), consecutive threads
-// on consecutive h, two a thread, the partials loaded Q at a time before
-// they are summed (an add waiting on each load made them ndb round trips to
-// L2 one after another). Every block reducing all of its row block's rows,
-// one barrier a stage, took K3 from 5.65 to 8.05 ms (512x784x100, H100).
-template <int I, bool OUT, class M, class Time>
-__device__ __forceinline__ void solve_reduce(const M& m, const Solve& f,
-                                             const SolveStep<Time>& ss,
-                                             const WalkTile& tl, const float* psum, float* hidg,
-                                             int HP4, int B, int D) {
+// column-block order in the policy's T; to hidg ([h][r], the row block's
+// hidden rows, through L2) and, with OUT, to the hs stream. Items (row, h),
+// consecutive threads on consecutive h, two a thread, the partials loaded Q
+// at a time before they are summed (an add waiting on each load made them
+// ndb round trips to L2 one after another). Every block reducing all of its
+// row block's rows, one barrier a stage, took K3 from 5.65 to 8.05 ms
+// (512x784x100, H100).
+template <int I, bool OUT, class M, class Time, class Rnd>
+__device__ __forceinline__ void solve_reduce(const M& m, const SolveT<Rnd>& f,
+                                             const SolveStep<Time>& ss, const WalkTile& tl,
+                                             const typename Rnd::T* psum,
+                                             typename Rnd::T* hidg, int HP4, int B, int D) {
+  using T = typename Rnd::T;
   const int H = m.H, R = f.R;
   const Time tm = ss.tm;
-  const size_t PT = (size_t)R * HP4;  // floats of one tile's partial
+  const size_t PT = (size_t)R * HP4;  // elements of one tile's partial
   const int n = (R - tl.db + f.ndb - 1) / f.ndb * H;
   constexpr int U = 2, Q = 8;
   for (int e0 = threadIdx.x; e0 < n; e0 += U * kThreads) {
-    float v[U] = {};
+    T v[U] = {};
     for (int q0 = 0; q0 < f.ndb; q0 += Q) {
-      float p[Q][U];
+      T p[Q][U];
 #pragma unroll
       for (int j = 0; j < Q; ++j)
 #pragma unroll
@@ -517,13 +653,13 @@ __device__ __forceinline__ void solve_reduce(const M& m, const Solve& f,
           const int e = e0 + u * kThreads, k = e / H, h = e - k * H;
           p[j][u] = e < n && q0 + j < f.ndb
                         ? __ldcg(psum + (q0 + j) * PT + (size_t)(tl.db + k * f.ndb) * HP4 + h)
-                        : 0.0f;
+                        : T(0);
         }
 #pragma unroll
       for (int j = 0; j < Q; ++j)
 #pragma unroll
         for (int u = 0; u < U; ++u)
-          if (q0 + j < f.ndb) v[u] = __fadd_rn(v[u], p[j][u]);
+          if (q0 + j < f.ndb) v[u] = add_rn(v[u], p[j][u]);
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
@@ -531,8 +667,7 @@ __device__ __forceinline__ void solve_reduce(const M& m, const Solve& f,
       if (e >= n) continue;
       const float w1t = __ldg(m.W1 + (size_t)h * (D + 1) + D);
       const float ti = stage_ti<I>(tm.t_row(r), tm.dt_row(r));
-      const float hv = accurate_tanh(__fadd_rn(__fadd_rn(v[u], __fmul_rn(ti, w1t)),
-                                               __ldg(m.b1 + h)));
+      const float hv = Rnd::act(v[u], ti, w1t, [&] { return __ldg(m.b1 + h); });
       hidg[(size_t)h * R + r] = hv;
       if (OUT && r < tl.rows) __stcs(ss.hs + ((size_t)(I - 1) * B + tl.row0 + r) * H + h, hv);
     }
@@ -540,33 +675,36 @@ __device__ __forceinline__ void solve_reduce(const M& m, const Solve& f,
 }
 
 // Phase B of stage I: the row block's hidden rows (hidg, [H][R]) into shared
-// memory, then k_I = tanh(hid W2h^T + t_I w2t + b2) over this tile's
-// columns into the state and, with OUT, its rows to the ks stream; below
-// stage 6 the next phase A's first slabs, and the next stage's input
-// (solve_input) of the elements each thread computed.
-template <int I, bool OUT, class M, class Time>
-__device__ __forceinline__ void solve_phase_b(const M& m, const Solve& f,
+// memory, then k_I = act(hid W2h^T, t_I, w2t, b2) over this tile's columns
+// into the state and, with OUT, its rows to the ks stream; below stage 6
+// the next phase A's first slabs, and the next stage's input (solve_input)
+// of the elements each thread computed.
+template <int I, bool OUT, class M, class Time, class Rnd>
+__device__ __forceinline__ void solve_phase_b(const M& m, const SolveT<Rnd>& f,
                                               const SolveStep<Time>& ss,
-                                              const SolveSmem& s, const WalkTile& tl,
-                                              const float* hidg, int B, int D) {
+                                              const SolveSmemT<Rnd>& s, const WalkTile& tl,
+                                              const typename Rnd::T* hidg, int B, int D) {
   const int H = m.H, R = f.R, C = f.C, G4 = R / 4;
-  for (int e = 4 * threadIdx.x; e < H * R; e += 4 * kThreads)  // all in flight at once
-    walk_cp16(s.hid + e, hidg + e, true);
+  // all in flight at once
+  for (int e = 4 * threadIdx.x; e < rnd_floats<Rnd> * H * R; e += 4 * kThreads)
+    walk_cp16(reinterpret_cast<float*>(s.hid) + e, reinterpret_cast<const float*>(hidg) + e,
+              true);
   walk_commit();
   walk_wait<0>();  // and every slab issued before
   for (int e = H * R + threadIdx.x; e < walk_round_up(H, kWalkKB) * R; e += kThreads)
-    s.hid[e] = 0.0f;
+    s.hid[e] = 0;
   __syncthreads();
 
   const Time tm = ss.tm;
   const int items = G4 * (C / 4);
   const int nslab = (H + kWalkKB - 1) / kWalkKB;
-  const int kk0 = threadIdx.x / (C / 4), c40 = threadIdx.x % (C / 4);
+  const int quads = rnd_floats<Rnd> * C / 4;
+  const int kk0 = threadIdx.x / quads, c40 = threadIdx.x % quads;
   auto load = [&](int p) { solve_load_w2(f, s, tl, H, kk0, c40, p); };
   for (int base = 0; base < items; base += kThreads) {
     const int item = base + threadIdx.x;
     const int g = item % G4, cg = item / G4;
-    float acc[kWalkTM][kWalkTN] = {};
+    typename Rnd::T acc[kWalkTM][kWalkTN] = {};
     if (base > 0) walk_prefetch(nslab, load);
     walk_gemm(acc, item < items, nslab, load,
               [&](int k) { return ld4(s.hid + k * R + 4 * g); },
@@ -588,9 +726,7 @@ __device__ __forceinline__ void solve_phase_b(const M& m, const Solve& f,
       const float b = in ? __ldg(m.b2 + d) : 0.0f;
       float4 k;
 #pragma unroll
-      for (int i = 0; i < kWalkTM; ++i)
-        comp(k, i) =
-            accurate_tanh(__fadd_rn(__fadd_rn(acc[i][u], __fmul_rn(comp(ti, i), w2t)), b));
+      for (int i = 0; i < kWalkTM; ++i) comp(k, i) = Rnd::act(acc[i][u], comp(ti, i), w2t, b);
       const int off = walk_at(c, g, R);
       st4(s.st + (1 + I) * s.RC + off, k);  // ks[I] = k_{I+1}
       if constexpr (OUT) {
@@ -607,12 +743,13 @@ __device__ __forceinline__ void solve_phase_b(const M& m, const Solve& f,
 // One stage: phase A, the barrier, the reduction, the barrier, phase B.
 // Each block's next phase A comes after the second barrier, so every
 // partial it overwrites has been read.
-template <int I, bool OUT, class M, class Time>
-__device__ __forceinline__ void solve_stage(const M& m, const Solve& f, cg::grid_group& grid,
-                                            const SolveStep<Time>& ss, const SolveSmem& s,
-                                            const WalkTile& tl, int B, int D) {
+template <int I, bool OUT, class M, class Time, class Rnd>
+__device__ __forceinline__ void solve_stage(const M& m, const SolveT<Rnd>& f,
+                                            cg::grid_group& grid, const SolveStep<Time>& ss,
+                                            const SolveSmemT<Rnd>& s, const WalkTile& tl, int B,
+                                            int D) {
   const size_t pstride = (size_t)s.HP4 * f.R;
-  float* hidg = f.hid + (size_t)tl.rb * m.H * f.R;
+  typename Rnd::T* hidg = f.hid + (size_t)tl.rb * m.H * f.R;
   __syncthreads();  // the stage input is complete
   solve_phase_a(f, s, tl, m.H, f.psum + blockIdx.x * pstride);
   grid.sync();
@@ -625,13 +762,14 @@ __device__ __forceinline__ void solve_stage(const M& m, const Solve& f, cg::grid
 // The six stages of one trial step on one tile: y, k1..k7 and the stage-6
 // input (y_new) in shared memory after it; with OUT the rows of k2..k7 and
 // of every stage's hidden layer streamed.
-template <bool OUT, class M, class Time>
-__device__ __forceinline__ void solve_stages(const M& m, const Solve& f, cg::grid_group& grid,
-                                             const SolveStep<Time>& ss, const SolveSmem& s,
-                                             const WalkTile& tl, int B, int D) {
+template <bool OUT, class M, class Time, class Rnd>
+__device__ __forceinline__ void solve_stages(const M& m, const SolveT<Rnd>& f,
+                                             cg::grid_group& grid, const SolveStep<Time>& ss,
+                                             const SolveSmemT<Rnd>& s, const WalkTile& tl,
+                                             int B, int D) {
   // the stage input's padding columns stay zero: phase A sums whole slabs
   for (int e = f.C * f.R + threadIdx.x; e < walk_round_up(f.C, kWalkKB) * f.R; e += kThreads)
-    s.yi[e] = 0.0f;
+    s.yi[e] = 0;
   walk_prefetch((tl.cols + kWalkKB - 1) / kWalkKB,
                 [&](int p) { solve_load_w1(f, s, tl, p); });
   ss.tm.load(tl);

@@ -94,7 +94,6 @@ namespace {
 
 constexpr int kWalkState = 13;   // floats of reverse state an element
 constexpr int kLaneState = 14;   // K12's: and each element's share of its row's ct_dt
-constexpr int kLaneRowFloats = sizeof(LaneRows) / sizeof(float);  // K12's: after the state
 constexpr int kWalkRounds = 4;   // a thread's items in a row pass, in registers
 // shared-memory arrays of the state, kWalkState x (C x R)
 enum { WS_KS = 0, WS_CKS = 6, WS_CTY = 12 };
@@ -117,7 +116,7 @@ __host__ __device__ inline size_t walk_smem_floats(int R, int C, int H,
 }
 
 // The walk's dynamic shared memory. The replay's stages (K3's, on the same
-// tiles) reuse it: solve_smem_floats is below walk_smem_floats term by term
+// tiles) reuse it: solve_smem_floats<F32> is below walk_smem_floats term by term
 // (8 floats of state an element against 13, slabs of H against H+1).
 size_t walk_smem_bytes(int R, int C, int H, int state = kWalkState) {
   return sizeof(float) * walk_smem_floats(R, C, H, state);

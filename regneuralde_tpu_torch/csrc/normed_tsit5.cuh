@@ -1,10 +1,10 @@
-// Device code shared by the Tsit5 step kernel K11 (mlp_lanes_tsit5.cu),
-// the whole-solve kernels (whole_solve.cu: K3/K4 for every dynamics, and the
-// MLPDynamics step kernels K13, K1, K2, K14 and K12 built there), the SDE
-// whole solve (sde_whole_solve.cu) and the AlternatingMLP and CSL step
-// kernels: the Tsit5 tableau, the accurate tanh, the fixed-order block sum,
-// the pinned stage state, and the launcher of the fixed-order contraction
-// that sums the weight cotangents (weight_cotangents.cu). The MLPDynamics
+// Device code shared by the whole-solve kernels (whole_solve.cu: K3/K4 for
+// every dynamics, and the MLPDynamics step kernels K13, K1, K11, K2, K14 and
+// K12 built there), the SDE whole solve (sde_whole_solve.cu) and the
+// AlternatingMLP and CSL step kernels: the Tsit5 tableau, the accurate tanh,
+// the fixed-order block sum, the pinned stage state, and the launcher of the
+// fixed-order contraction that sums the weight cotangents
+// (weight_cotangents.cu). The MLPDynamics
 // whole solve and its step kernels run their stages on tiles of their own
 // (mlp_solve.cuh, mlp_walk.cuh, mlp_step_solve.cuh, mlp_step_walk.cuh).
 //

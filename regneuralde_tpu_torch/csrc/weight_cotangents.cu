@@ -1,6 +1,6 @@
 // The weight-cotangent contraction that ends the MLPDynamics backward
-// kernels K2 and K14 (mlp_step_walk.cuh), K12 (mlp_lanes_tsit5.cu) and
-// K4<MlpDyn> (mlp_walk.cuh). Each of them stores,
+// kernels K2, K14 and K12 (mlp_step_walk.cuh) and K4<MlpDyn>
+// (mlp_walk.cuh). Each of them stores,
 // for every stage of every row it reverses, the rows
 //   cp2 (K, D) = ct_pre2,  he (K, H+2) = [h, t_i, 1],
 //   cp1 (K, H) = ct_pre1,  ye (K, D+2) = [y_i, t_i, 1],

@@ -9,9 +9,9 @@
 // chain_end, chain_finish, hermite_elem). K2, K14 and K12, the backwards
 // of the normed, the tuple and the lane-wise Tsit5 step (the fast adjoint
 // solve's, odeint's generic engine's and the per-sample engine's), are one
-// trial step of that walk (mlp_step_walk.cuh), and K13 and K1, the tuple
-// and the normed step themselves, one trial step of K3's stages
-// (mlp_step_solve.cuh), so they are built here too.
+// trial step of that walk (mlp_step_walk.cuh), and K13, K1 and K11, the
+// tuple, the normed and the lane-wise step themselves, one trial step of
+// K3's stages (mlp_step_solve.cuh), so they are built here too.
 //
 // Replaces the TPU kernels
 //   K3: regneuralde_tpu/ops/pallas_solve.py  make_whole_solve.make_fwd_kernel
@@ -837,22 +837,25 @@ int launch_step_walk(StepWalkArgs<Seed> args, float* cW1, float* cb1, float* cW2
                                        wpart_floats, s);
 }
 
-// K13 or K1 (mlp_step_solve_kernel<End>), one cooperative launch on a
-// checked plan with K3's shared memory and scratch.
+// K13, K1 or K11 (mlp_step_solve_kernel<End>), one cooperative launch on a
+// checked plan with K3's shared memory and scratch in the end's rounding
+// policy (and, for K11, the tile's LaneRows).
 template <class End>
 int launch_step_solve(const float* t, const float* dt, const float* y, const float* k1,
                       const float* W1, const float* b1, const float* W2, const float* b2,
                       End end, float* scratch, int B, int D, int H, int rows, int cols,
                       int row_blocks, int col_blocks, int chunks, void* stream) {
+  using Rnd = typename End::Rnd;
   if (!plan_ok(rows, cols, row_blocks, col_blocks, chunks, B, D))
     return (int)cudaErrorInvalidValue;
   StepSolveArgs<End> a{
       MlpDyn<false>{W1, b1, W2, b2, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, H},
-      solve_carve(scratch, rows, cols, row_blocks, col_blocks, chunks, H), t, dt, y, k1, end,
-      B, D};
-  return (int)launch_walk((const void*)mlp_step_solve_kernel<End>, &a,
-                          sizeof(float) * solve_smem_floats(rows, cols, H),
-                          row_blocks * col_blocks, static_cast<cudaStream_t>(stream));
+      solve_carve<Rnd>(scratch, rows, cols, row_blocks, col_blocks, chunks, H), t, dt, y, k1,
+      end, B, D};
+  return (int)launch_walk(
+      (const void*)mlp_step_solve_kernel<End>, &a,
+      sizeof(float) * solve_smem_floats<Rnd>(rows, cols, H, End::Time::kLanes),
+      row_blocks * col_blocks, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -860,9 +863,9 @@ int launch_step_solve(const float* t, const float* dt, const float* y, const flo
 extern "C" {
 
 // MLPDynamics' K3 and K4 on one tile plan: the multiple its tile widths
-// take, the most elements a tile holds, K4's, K12's and K3's shared memory
-// for tiles of R x C, and K3's scratch (the wrapper's plan is checked
-// against them, and sizes K3's scratch by the last).
+// take, the most elements a tile holds, K4's, K12's, K3's and K11's shared
+// memory for tiles of R x C, and K3's and K11's scratch (the wrapper's plan
+// is checked against them, and sizes the scratch by the last two).
 int regnde_walk_col_align() { return kWalkTN; }
 int regnde_walk_max_tile() { return kWalkRounds * kThreads * kWalkTM; }
 int regnde_walk_smem_bytes(int R, int C, int H) { return (int)walk_smem_bytes(R, C, H); }
@@ -874,6 +877,12 @@ int regnde_solve_smem_bytes(int R, int C, int H) {
 }
 int regnde_solve_scratch_floats(int R, int C, int row_blocks, int col_blocks, int H) {
   return (int)solve_scratch_floats(R, C, row_blocks, col_blocks, H);
+}
+int regnde_lanes_solve_smem_bytes(int R, int C, int H) {
+  return (int)(sizeof(float) * solve_smem_floats<F64>(R, C, H, true));
+}
+int regnde_lanes_solve_scratch_floats(int R, int C, int row_blocks, int col_blocks, int H) {
+  return (int)solve_scratch_floats<F64>(R, C, row_blocks, col_blocks, H);
 }
 
 // K3 for MLPDynamics (mlp_solve.cuh). scalars: (3,) t0, t1, dt0. saveat:
@@ -1068,6 +1077,20 @@ int regnde_normed_fwd(const float* t, const float* dt, const float* y, const flo
   return launch_step_solve(t, dt, y, k1, W1, b1, W2, b2,
                            NormedEnd{y_new, k7, sums, rtol, atol}, scratch, B, D, H, rows,
                            cols, row_blocks, col_blocks, chunks, stream);
+}
+
+// K11 (mlp_step_solve.cuh with LaneEnd), the lane-wise Tsit5 step: as
+// regnde_mlp_tsit5_fwd with t and dt (B,) on the device, every row at its
+// own, on K12's tile plan; scratch: regnde_lanes_solve_scratch_floats
+// floats; the shared memory of regnde_lanes_solve_smem_bytes.
+int regnde_lanes_fwd(const float* t, const float* dt, const float* y, const float* k1,
+                     const float* W1, const float* b1, const float* W2, const float* b2,
+                     float* y_new, float* k7, float* err, float* k6, float* g6, float* scratch,
+                     int B, int D, int H, int rows, int cols, int row_blocks, int col_blocks,
+                     int chunks, void* stream) {
+  return launch_step_solve(t, dt, y, k1, W1, b1, W2, b2, LaneEnd{{y_new, k7, err, k6, g6}},
+                           scratch, B, D, H, rows, cols, row_blocks, col_blocks, chunks,
+                           stream);
 }
 
 // K14 (mlp_step_walk.cuh), the tuple Tsit5 step's backward, then the

@@ -58,7 +58,9 @@ _SIGNATURES = {
     "regnde_sde_whole_solve_bwd": [_P] * 22 + [_I] * 5 + [_F] * 9 + [_P],
     "regnde_sde_whole_solve_cubic_fwd": [_P] * 18 + [_I] * 4 + [_F] * 9 + [_P],
     "regnde_sde_whole_solve_cubic_bwd": [_P] * 22 + [_I] * 5 + [_F] * 9 + [_P],
-    "regnde_lanes_fwd": [_P] * 13 + [_I] * 3 + [_P],
+    "regnde_lanes_fwd": [_P] * 14 + [_I] * 8 + [_P],
+    "regnde_lanes_solve_smem_bytes": [_I] * 3,
+    "regnde_lanes_solve_scratch_floats": [_I] * 5,
     "regnde_lanes_bwd": [_P] * 33 + [_I] * 10 + [_P],
     "regnde_mlp_tsit5_fwd": [_P] * 14 + [_I] * 8 + [_P],
     "regnde_mlp_tsit5_bwd": [_P] * 33 + [_I] * 10 + [_P],

@@ -369,13 +369,14 @@ def _cuda_normed_bwd(t, dt, y, k1, leaves, cts, rtol, atol):
 
 
 @functools.lru_cache(maxsize=8)
-def _step_solve_scratch(lib, plan, H, dev, stream):
+def _step_solve_scratch(lib, plan, H, dev, stream, lanes=False):
     """The scratch of K13 and K1 on ``plan`` and ``stream``: K3's (partials,
-    hidden rows, padded weights, slots). Made once and reused, as
-    ``_step_walk_scratch``: what a launch allocates is its outputs."""
+    hidden rows, padded weights, slots); with ``lanes`` K11's, the same in
+    doubles. Made once and reused, as ``_step_walk_scratch``: what a launch
+    allocates is its outputs."""
     from regneuralde_tpu_torch.ops import whole_solve as ws
 
-    return ws._cuda_solve_scratch(lib, plan, H, dev)
+    return ws._cuda_solve_scratch(lib, plan, H, dev, lanes)
 
 
 def _cuda_normed_fwd(t, dt, y, k1, leaves, rtol, atol):

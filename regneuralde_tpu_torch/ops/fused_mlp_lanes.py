@@ -15,23 +15,28 @@ The weights are the four leaves ``(W1, b1, W2, b2)`` of
 ``models.basic.MLPDynamics`` (``nn.Linear`` layout, time column last).
 
 Each affine map is summed in float64 and rounded once to float32, in the
-plain version (``_mlp_k_lanes``) and in the kernels alike, and the stage and
-error lincombs round each multiply and add as PyTorch's separate ops do: the
+plain version (``_mlp_k_lanes``) and in K11 alike, and the stage and error
+lincombs round each multiply and add as PyTorch's separate ops do: the
 forward kernel K11 reproduces its plain version rounding for rounding, so a
 per-lane accept decision at the error estimate's float32 floor is the same
 on both (512 lanes each decide on their own norm).
 
 Each step has a plain version (``_reference_sweep_lanes``, and
 ``_lanes_bwd_math``, the hand reverse chain of
-``pallas_mlp._fused_bwd_kernel_lanes``) and a CUDA kernel: K11
-``lanes_fwd_kernel`` (``csrc/mlp_lanes_tsit5.cu``); K12 one trial step of
-the whole solve's walk at per-row times, ``mlp_step_walk_kernel<LaneSeed>``
-(``csrc/mlp_step_walk.cuh``; its schedule ``whole_solve.plain_lanes_walk_step``)
-+ ``csrc/weight_cotangents.cu``. K12's stages round as the whole solve's
-(sums over D in column blocks), not as K11's: the engine takes its accept
-flags from the forward, so K12's rounding moves gradients only. The
-wrappers ``sweep_lanes_fwd`` and ``sweep_lanes_bwd`` take the plain version
-for tensors on the CPU, launch the kernel for tensors on a CUDA device, and
+``pallas_mlp._fused_bwd_kernel_lanes``) and a CUDA kernel. K11 is one trial
+step of the whole solve's grid-split stages at per-row times,
+``mlp_step_solve_kernel<LaneEnd>`` (``csrc/mlp_step_solve.cuh``, the stages'
+``F64`` rounding policy in ``csrc/mlp_solve.cuh``: both contractions in
+float64, each affine map rounded once; its schedule
+``whole_solve.plain_lanes_solve_step``), on K12's tile plan. K12 is one
+trial step of the whole solve's walk at per-row times,
+``mlp_step_walk_kernel<LaneSeed>`` (``csrc/mlp_step_walk.cuh``; its schedule
+``whole_solve.plain_lanes_walk_step``) + ``csrc/weight_cotangents.cu``.
+K12's replay rounds the stages as the whole solve's (``F32``: sums over D
+in float32 column blocks), not as K11's: the engine takes its accept flags
+from the forward, so K12's rounding moves gradients only. The wrappers
+``sweep_lanes_fwd`` and ``sweep_lanes_bwd`` take the plain version for
+tensors on the CPU, launch the kernel for tensors on a CUDA device, and
 raise otherwise.
 """
 
@@ -173,16 +178,24 @@ def _lane_f32(x, y, name):
 
 
 def _cuda_lanes_fwd(t, dt, y, k1, leaves):
+    """K11: one cooperative launch of ``csrc/mlp_step_solve.cuh`` with the
+    lane end, K3's six stages at every row's own ``(t, dt)`` rounded as the
+    plain version (``F64``) on K12's tile plan, then each tile's five rows;
+    no host sync."""
     from regneuralde_tpu_torch.ops import _cuda
+    from regneuralde_tpu_torch.ops import whole_solve as ws
 
     B, D, H = _check_cuda_args(y, k1, leaves)
     t32, dt32 = _lane_f32(t, y, "t"), _lane_f32(dt, y, "dt")
-    outs = [torch.empty_like(y) for _ in range(5)]
     lib = _cuda.library()
+    plan = ws._cuda_walk_plan(lib, B, D, H, y.device, lanes=True)
     stream = torch.cuda.current_stream(y.device).cuda_stream
+    scratch = fm._step_solve_scratch(lib, plan, H, y.device, stream, lanes=True)
+    outs = [torch.empty_like(y) for _ in range(5)]
     code = lib.regnde_lanes_fwd(
         _ptr(t32), _ptr(dt32), _ptr(y), _ptr(k1), *map(_ptr, leaves), *map(_ptr, outs),
-        B, D, H, ctypes.c_void_p(stream))
+        _ptr(scratch), B, D, H, plan.rows, plan.cols, plan.row_blocks, plan.col_blocks,
+        plan.chunks, ctypes.c_void_p(stream))
     _cuda.check(code, "lane-wise Tsit5 forward kernel")
     LAUNCHES["mlp_lanes_tsit5_fwd"] += 1
     return tuple(outs)

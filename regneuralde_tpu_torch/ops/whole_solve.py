@@ -36,9 +36,12 @@ the normed, the tuple and the lane-wise step's backwards
 ``fused_mlp_lanes.sweep_lanes_bwd``), are one trial step of that walk on the
 plan, with the walk's own seeds, with the tuple's, and with the tuple's at
 every row's own time (``plain_normed_walk_step``, ``plain_tuple_walk_step``,
-``plain_lanes_walk_step``). K13, the tuple step itself
-(``fused_mlp.stage_sweep_fwd``), is one trial step of the forward's stages on
-the plan (``plain_tuple_solve_step``).
+``plain_lanes_walk_step``). K13, K1 and K11, the tuple, the normed and
+the lane-wise step themselves (``fused_mlp.stage_sweep_fwd``,
+``fused_mlp.normed_sweep_fwd``, ``fused_mlp_lanes.sweep_lanes_fwd``), are one
+trial step of the forward's stages on the plan (``plain_tuple_solve_step``,
+``plain_normed_solve_step``; ``plain_lanes_solve_step``, whose stages sum
+their affine maps in float64 as K11's plain version does).
 
 Each kernel has a plain version with the same algebra and the same output
 buffers, over the dynamics' plain trial-step pair (``plain_steps``):
@@ -200,16 +203,20 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def solve_smem_bytes(R: int, C: int, H: int) -> int:
+def solve_smem_bytes(R: int, C: int, H: int, lanes: bool = False) -> int:
     """K3's shared memory for tiles of ``R x C`` (``solve_smem_floats`` of
     ``csrc/mlp_solve.cuh``): the state (y, k1..k7), the stage input (its
     columns rounded to a slab), the row block's hidden rows (H rounded to a
     slab), the slab ring (rows of H rounded to ``WALK_COL_ALIGN``, or C) and
-    the block sum's scratch."""
+    the block sum's scratch. With ``lanes``, K11's (``F64``, the tile's
+    ``LaneRows``): the stage input, the hidden rows and the slab ring in
+    doubles, the tile's rows last."""
     slab = max(_round_up(H, WALK_COL_ALIGN), C)
-    floats = (R * ((SOLVE_STATE - 1) * C + _round_up(C, WALK_SLAB_ROWS)
-                   + _round_up(H, WALK_SLAB_ROWS))
-              + WALK_SLABS * WALK_SLAB_ROWS * slab + 3 * _WARPS)
+    w = 2 if lanes else 1  # floats of the contractions' operands
+    floats = (R * ((SOLVE_STATE - 1) * C + w * _round_up(C, WALK_SLAB_ROWS)
+                   + w * _round_up(H, WALK_SLAB_ROWS))
+              + w * WALK_SLABS * WALK_SLAB_ROWS * slab + 3 * _WARPS
+              + (LANE_ROW_FLOATS if lanes else 0))
     return 4 * floats
 
 
@@ -242,9 +249,10 @@ def walk_plan(B: int, D: int, H: int, sms: int, limit: int = SMEM_LIMIT,
     of ``WALK_COL_ALIGN`` columns, at least ``WALK_MIN_COLS`` where D allows,
     of at most ``WALK_MAX_TILE`` elements, whose shared memory fits
     ``limit`` with ``state`` floats of state an element (K12's plan takes
-    ``LANE_STATE``). 32 x 100, 128 tiles, at 512 x 784 x 100. Cached: K13,
-    K2, K14 and K12 ask for it every trial step, and the search takes about
-    0.25 ms."""
+    ``LANE_STATE``, and K11's shared memory fits it too, K11 running on
+    K12's tiles). 32 x 100, 128 tiles, at 512 x 784 x 100. Cached: K13,
+    K1, K11, K2, K14 and K12 ask for it every trial step, and the search
+    takes about 0.25 ms."""
     best, best_key = None, None
     widths = sorted({_round_up(-(-D // n), WALK_COL_ALIGN) for n in range(1, D + 1)})
     for R in WALK_ROWS:
@@ -253,7 +261,8 @@ def walk_plan(B: int, D: int, H: int, sms: int, limit: int = SMEM_LIMIT,
             if (C < WALK_MIN_COLS and ndb > 1) or R * C > WALK_MAX_TILE or ndb > sms:
                 continue
             smem = walk_smem_bytes(R, C, H, state)
-            if smem > limit:
+            if smem > limit or (state == LANE_STATE
+                                and solve_smem_bytes(R, C, H, lanes=True) > limit):
                 continue
             nrb = min(-(-B // R), sms // ndb)
             chunks = -(-B // (nrb * R))
@@ -392,6 +401,34 @@ def plain_tuple_solve_step(t, dt, y, k1, leaves, plan: WalkPlan):
     ks, _ = _solve_stages(t, dt, y, k1, leaves, plan)
     return (y + dt * fm._stage_acc(6, ks), ks[6], dt * fm._err_comb(ks), ks[5],
             y + dt * fm._stage_acc(5, ks))
+
+
+def plain_lanes_solve_step(t, dt, y, k1, leaves, plan: WalkPlan):
+    """One launch of K11 (``csrc/mlp_step_solve.cuh`` with ``LaneEnd``), the
+    lane-wise step, in the kernel's own schedule, every row at its own time
+    (``t`` and ``dt`` ``(B,)``): per stage ``i = 1..6`` the stage input
+    ``y + dt acc_i``, each multiply and add rounded (``fm._stage_acc``'s
+    order); phase A, ``y_i W1x^T`` in float64 (at least), one partial per
+    column block of ``plan``, summed in block order, then ``t_i w1t + b1``
+    added in float64, rounded once to y's type, tanh; phase B likewise over
+    all of H; then the five rows as ``plain_tuple_solve_step`` forms them.
+    For the tests: the kernel's arithmetic (the ``F64`` rounding policy) in
+    this order, which ``fused_mlp_lanes._reference_sweep_lanes`` takes in
+    one float64 ``addmm`` a map."""
+    w1x, w1t, b1, w2h, w2t, b2 = fm._split_params(*leaves)
+    tc, dtc = t[:, None], dt[:, None]
+    wide = torch.promote_types(y.dtype, torch.float64)
+    w = lambda x: x.to(wide)
+    spans = _spans(y.shape[1], plan)
+    ks = [k1]
+    for i in range(1, 7):
+        yi = y + dtc * fm._stage_acc(i, ks)
+        ti = w(tc + TSIT5.c[i] * dtc)
+        part = sum(w(yi[:, a:b]) @ w(w1x[:, a:b]).T for a, b in spans)
+        h = fm._tanh((part + (ti * w(w1t) + w(b1))).to(y.dtype))
+        ks.append(fm._tanh((w(h) @ w(w2h).T + (ti * w(w2t) + w(b2))).to(y.dtype)))
+    return (y + dtc * fm._stage_acc(6, ks), ks[6], dtc * fm._err_comb(ks), ks[5],
+            y + dtc * fm._stage_acc(5, ks))
 
 
 def plain_normed_solve_step(t, dt, y, k1, leaves, plan: WalkPlan, rtol, atol):
@@ -731,22 +768,25 @@ def _cuda_walk_plan(lib, B, D, H, dev, lanes=False):
 @functools.lru_cache(maxsize=64)
 def _check_walk_sizes(lib, plan, H, lanes):
     """Raises unless ``plan``'s sizes are the library's (once a plan: a
-    check that passed is not made again)."""
+    check that passed is not made again); with ``lanes`` K12's and K11's."""
     smem = lib.regnde_lanes_walk_smem_bytes if lanes else lib.regnde_walk_smem_bytes
+    solve = lib.regnde_lanes_solve_smem_bytes if lanes else lib.regnde_solve_smem_bytes
     if (lib.regnde_walk_col_align() != WALK_COL_ALIGN
             or lib.regnde_walk_max_tile() != WALK_MAX_TILE
             or smem(plan.rows, plan.cols, H) != plan.smem_bytes
-            or lib.regnde_solve_smem_bytes(plan.rows, plan.cols, H)
-            != solve_smem_bytes(plan.rows, plan.cols, H)):
+            or solve(plan.rows, plan.cols, H)
+            != solve_smem_bytes(plan.rows, plan.cols, H, lanes)):
         raise RuntimeError("walk_plan's sizes disagree with csrc/mlp_walk.cuh's or "
                            "csrc/mlp_solve.cuh's")
 
 
-def _cuda_solve_scratch(lib, plan, H, dev):
+def _cuda_solve_scratch(lib, plan, H, dev, lanes=False):
     """K3's, K13's and K1's scratch for ``plan`` (partials, hidden rows,
-    padded weights, slots), sized by the kernel."""
-    return torch.empty(lib.regnde_solve_scratch_floats(
-        plan.rows, plan.cols, plan.row_blocks, plan.col_blocks, H), device=dev)
+    padded weights, slots), or with ``lanes`` K11's (the same in doubles),
+    sized by the kernel."""
+    floats = lib.regnde_lanes_solve_scratch_floats if lanes else lib.regnde_solve_scratch_floats
+    return torch.empty(floats(plan.rows, plan.cols, plan.row_blocks, plan.col_blocks, H),
+                       device=dev)
 
 
 def _cuda_walk_scratch(lib, plan, B, D, H, dev, replay):

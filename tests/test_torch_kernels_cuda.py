@@ -1679,6 +1679,59 @@ def test_lanes_walk_in_row_chunks_matches_its_schedule(cuda, monkeypatch):
     assert _assert_k12_matches_schedule(cuda, (256, 64, 32)).chunks > 1
 
 
+def _assert_k11_matches_schedule(cuda, shape):
+    """K11 (``csrc/mlp_step_solve.cuh`` with ``LaneEnd``) against its
+    schedule (``plain_lanes_solve_step`` on the card's plan with K12's
+    state) and against its plain version ``_reference_sweep_lanes``, per-lane
+    (t, dt) with finished lanes: all five rows bitwise equal to both (each
+    affine map summed in float64 and rounded once, every other op as ATen's);
+    the finished lanes keep y and have zero error; bitwise deterministic.
+    Returns the plan."""
+    y, k1, leaves, _ = _inputs(*shape, cuda)
+    t, dt = _lane_times(shape[0], cuda)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = ws.walk_plan(*shape, sms, state=ws.LANE_STATE)
+    kern = fl.sweep_lanes_fwd(t, dt, y, k1, leaves)
+    sched = ws.plain_lanes_solve_step(t, dt, y, k1, leaves, plan)
+    plain = fl._reference_sweep_lanes(t[:, None], dt[:, None], y, k1,
+                                      fm._split_params(*leaves))
+    for name, a, b, c in zip(["y_new", "k7", "err", "k6", "g6"], kern, sched, plain):
+        assert torch.equal(a, b), (name, int((a != b).sum()))
+        assert torch.equal(a, c), (name, int((a != c).sum()))
+    done = dt == 0
+    assert torch.equal(kern[0][done], y[done]) and not kern[2][done].any()
+    again = fl.sweep_lanes_fwd(t, dt, y, k1, leaves)
+    assert all(torch.equal(a, b) for a, b in zip(kern, again))
+    return plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(13, 40, 24), (5, 8, 5), (96, 200, 48), (512, 784, 100),
+                                   (1024, 784, 100)])
+def test_lanes_step_matches_its_schedule(cuda, shape):
+    """K11 against ``plain_lanes_solve_step`` and its plain version on the
+    card's plan: one column block (13x40x24, 5x8x5), seven of 32 columns
+    (96x200x48), the flagship's 8 of 100, and two row chunks
+    (1024x784x100); one launch a call."""
+    fl.reset_launches()
+    plan = _assert_k11_matches_schedule(cuda, shape)
+    assert plan.chunks == (2 if shape[0] == 1024 else 1)
+    assert fl.LAUNCHES == {"mlp_lanes_tsit5_fwd": 2, "mlp_lanes_tsit5_bwd": 0}
+
+
+@pytest.mark.cuda
+def test_lanes_step_in_row_chunks_matches_its_schedule(cuda, monkeypatch):
+    """K11 on the plan of a card of 4 multiprocessors: 4 tiles, the batch of
+    256 solved in row chunks one after another."""
+    plan = ws.walk_plan
+
+    def small_card(B, D, H, sms, limit=ws.SMEM_LIMIT, state=ws.WALK_STATE):
+        return plan(B, D, H, 4, limit, state)
+
+    monkeypatch.setattr(ws, "walk_plan", small_card)
+    assert _assert_k11_matches_schedule(cuda, (256, 64, 32)).chunks > 1
+
+
 @pytest.mark.cuda
 def test_lanes_walk_refuses_bad_inputs(cuda):
     """K12's wrapper refuses what the kernel does not take, and a shape no

@@ -248,16 +248,18 @@ def tuple_device(dev):
 
 
 def lanes_device(dev):
-    """Device ms a launch of K11 and of K12 at phase 22's inputs: K12's own
-    kernel (the old lanes_bwd_kernel, or mlp_step_walk_kernel<LaneSeed>) and
-    the weight-cotangent contraction after it apart."""
+    """Device ms a launch of K11 and of K12 at phase 22's inputs: K11's
+    kernel (the old lanes_fwd_kernel, or mlp_step_solve_kernel<LaneEnd>),
+    K12's own kernel (the old lanes_bwd_kernel, or
+    mlp_step_walk_kernel<LaneSeed>) and the weight-cotangent contraction
+    after it apart."""
     from regneuralde_tpu_torch.ops import fused_mlp_lanes as fl
 
     leaves, y, k1, t, dt, cts = cs._lane_inputs(dev)
     bwd = lambda: fl.sweep_lanes_bwd(t, dt, y, k1, leaves, cts)
     return {
         "K11_device": {"ms": device_ms(lambda: fl.sweep_lanes_fwd(t, dt, y, k1, leaves),
-                                       ("lanes_fwd_kernel",))},
+                                       ("lanes_fwd_kernel", "LaneEnd"))},
         "K12_device_kernel": {"ms": device_ms(bwd, ("lanes_bwd_kernel",
                                                     "mlp_step_walk_kernel"))},
         "K12_device_wcot": {"ms": device_ms(bwd, ("wcot_chunk_kernel", "wcot_sum_kernel"))},
