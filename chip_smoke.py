@@ -1490,44 +1490,6 @@ def _csl_work(B, D, H):
     return fwd, 3 * fwd, 2 * D * H + H * H + 4 * (2 * H + D)
 
 
-def _kernel_order_sums(terms, rows):
-    """The three norm sums of per-element terms (each ``(B, A)``) in the
-    order of the step kernels: per tile of ``rows`` rows one thread an
-    element, a shuffle butterfly in each warp, the warps in order, then
-    the tiles lane-strided over one warp and a butterfly
-    (``normed_tile_out``, ``sum_slots_warp_kernel``). float32 throughout,
-    so the sums equal the kernel's bitwise when the terms do."""
-    import torch
-
-    def butterfly(v):  # over the last axis (32 lanes)
-        for off in (16, 8, 4, 2, 1):
-            v = v + v[..., torch.arange(32, device=v.device) ^ off]
-        return v[..., 0]
-
-    out = []
-    for x in terms:
-        B, A = x.shape
-        ntiles = (B + rows - 1) // rows
-        per = torch.zeros(ntiles * rows * A, dtype=x.dtype, device=x.device)
-        per[:B * A] = x.reshape(-1)
-        per = per.reshape(ntiles, rows * A)
-        lanes = torch.zeros((ntiles, 256), dtype=x.dtype, device=x.device)
-        lanes[:, :rows * A] = per  # one element a thread (rows * A <= 256)
-        warps = butterfly(lanes.reshape(ntiles, 8, 32))
-        tile = torch.zeros(ntiles, dtype=x.dtype, device=x.device)
-        for w in range(8):
-            tile = tile + warps[:, w]
-        npad = (ntiles + 31) // 32 * 32
-        strided = torch.zeros(npad, dtype=x.dtype, device=x.device)
-        strided[:ntiles] = tile
-        strided = strided.reshape(-1, 32)
-        lane_sums = torch.zeros(32, dtype=x.dtype, device=x.device)
-        for j in range(strided.shape[0]):
-            lane_sums = lane_sums + strided[j]
-        out.append(butterfly(lane_sums))
-    return out
-
-
 def _csl_inputs(gen, B, D, H, kinetic, device):
     """Seeded CSL leaves (LeCun-scaled weights, biases and time weights at
     0.1 to 1), the probe, and a state ``y`` and random ``k1`` of width D + 1
@@ -1552,9 +1514,11 @@ def phase_csl_kernels(device):
     inputs (random k1 keeps the embedded error far above float32 rounding),
     at rtol=atol=1e-5 and 1.4e-8: K7-CSL's rows bitwise equal to its plain
     version's and its sums bitwise equal to the plain version's terms summed
-    in the kernel's order (``_kernel_order_sums``); K8-CSL within BWD_BOUND;
-    both bitwise deterministic; CUDA-event times at 1.4e-8, without the
-    kinetic terms (the main path's shape)."""
+    in the kernel's order (``fc.csl_slot_order_sums``, one slot a 2-row
+    sub-tile of its 8-row tiles); K8-CSL within BWD_BOUND; both bitwise
+    deterministic; CUDA-event times at 1.4e-8, without the kinetic terms
+    (the main path's shape); K7-CSL's and K8-CSL's device time, kernel and
+    slot sum apart, and their blocks a launch, one wave."""
     import torch
 
     from regneuralde_tpu_torch.ops import fused_csl as fc
@@ -1577,7 +1541,7 @@ def phase_csl_kernels(device):
             kf = fc.csl_normed_sweep(t, dt, y, k1, leaves, tol, tol)
             terms = ode.normed_terms(fc.csl_aug_apply(D, kinetic), t, dt, y, k1,
                                      tuple(leaves), tol, tol)
-            want_sums = _kernel_order_sums(terms[2:], 2)
+            want_sums = fc.csl_slot_order_sums(terms[2:])
             kb = fc.csl_normed_sweep_bwd(t, dt, y, k1, leaves, cts, tol, tol)
             pb = fc._csl_bwd_math(t, dt, y, k1, leaves, cts, tol, tol)
             torch.cuda.synchronize()
@@ -1627,11 +1591,23 @@ def phase_csl_kernels(device):
     }
     print("[csl] median ms over %d runs at %dx%dx%d: %s"
           % (REPS, B, D + 1, H, json.dumps(times)))
-    # K8-CSL's device time, its kernel and its slot sum apart, and its grid
+    # K7-CSL's and K8-CSL's device time, each kernel and its slot sum apart,
+    # and their grids
     from regneuralde_tpu_torch.ops import _cuda
 
-    rows = _cuda.library().regnde_csl_bwd_rows()
-    blocks, sms = (B + rows - 1) // rows, torch.cuda.get_device_properties(0).multi_processor_count
+    lib, sms = _cuda.library(), torch.cuda.get_device_properties(0).multi_processor_count
+    fc.check_fwd_plan(lib, D + 1, D, H, False)
+    fplan = fc.csl_fwd_plan(B, D, H, False)
+    fblocks = fplan.tiles
+    fwd = lambda: fc.csl_normed_sweep(t, dt, y, k1, leaves, tol, tol)
+    dev_fk, dev_fs = _device_ms(fwd, "csl_fwd_kernel"), _device_ms(fwd, "sum_slots_warp_kernel")
+    print(f"[csl] K7-CSL: {fblocks} blocks of {fplan.rows} rows a launch on {sms} SMs, "
+          f"{fplan.smem_bytes} bytes of shared memory a block, {fplan.slots} norm-sum "
+          f"slots; device ms a launch: csl_fwd_kernel {dev_fk!r}, sum_slots_warp_kernel "
+          f"{dev_fs!r}")
+    _check(fblocks <= sms, f"K7-CSL runs in one wave: {fblocks} blocks on {sms} SMs")
+    rows = lib.regnde_csl_bwd_rows()
+    blocks = (B + rows - 1) // rows
     bwd = lambda: fc.csl_normed_sweep_bwd(t, dt, y, k1, leaves, cts, tol, tol)
     dev_k, dev_s = _device_ms(bwd, "csl_bwd_kernel"), _device_ms(bwd, "sum_slots_kernel")
     print(f"[csl] K8-CSL: {blocks} blocks of {rows} rows a launch on {sms} SMs; device ms "
@@ -1713,7 +1689,9 @@ def phase_whole_solve_csl_kernels(device, batch):
     cotangent alone, within CSL_LOOSE_BWD_BOUND. (ct_f0 with y1's cotangent alone is rounding in
     any float32 walk, as in phase 11: at 1.4e-8 K4 lay 1.8e-3 from its
     plain version and 1.2e-3 from float64, the plain version 6.4e-4, on
-    the H100.) Bitwise determinism; CUDA-event times at 1.4e-8."""
+    the H100.) Bitwise determinism; CUDA-event times at 1.4e-8; K3-CSL's
+    cooperative grid (one block a tile) and its and K4-CSL's device time a
+    solve."""
     import torch
 
     from regneuralde_tpu_torch.ops import fused_csl as fc
@@ -1744,6 +1722,15 @@ def phase_whole_solve_csl_kernels(device, batch):
     }
     print("[whole-csl] median ms over %d runs at %dx%dx%d, tol %g, %d trial steps: %s"
           % (REPS, B, D + 1, H, FLAGSHIP_TOL, ns, json.dumps(times)))
+    from regneuralde_tpu_torch.ops import _cuda
+
+    tiles = (B + fc.CSL_FWD_ROWS - 1) // fc.CSL_FWD_ROWS
+    grid = _cuda.library().regnde_whole_solve_csl_fwd_grid(B, D + 1, H, 0)
+    dev_f = _device_ms(lambda: ws.whole_solve_fwd(*args, **kw), "whole_solve_fwd_kernel")
+    print(f"[whole-csl] K3-CSL: a cooperative grid of {grid} blocks for {tiles} tiles of "
+          f"{fc.CSL_FWD_ROWS} rows; device ms a solve of {ns} trial steps: "
+          f"whole_solve_fwd_kernel {dev_f!r}")
+    _check(grid == tiles, f"K3-CSL runs one tile a block: a grid of {grid} for {tiles} tiles")
     dev = _device_ms(lambda: ws.whole_solve_bwd(*bwd, dynamics="csl"),
                      "whole_solve_bwd_kernel")
     print(f"[whole-csl] K4-CSL device ms a solve of {ns} trial steps: "

@@ -21,25 +21,30 @@
 // array. The f32 rate bounds it at about 7 us; the kernels are latency
 // bound, six dependent products a stage each ending in a block barrier.
 //
-// What the design does about it. Widths of 43 and 100 are far below a
-// tensor-core tile, so every product is FMA work on values in shared
-// memory:
-//   * K7-CSL: one block owns a tile of kCslRows = 2 rows and runs the
-//     whole step; the parameters (19,572 floats) are loaded into shared
-//     memory once per launch, each weight row padded to an odd stride; the
-//     three norm sums leave each block as a per-tile slot, summed in tile
-//     order by a second small kernel;
-//   * K8-CSL: one block a tile of kCslBwdRows = 8 rows (128 blocks at
-//     B = 1024, one wave on 132 SMs), csl_reverse_tile: the recompute
-//     writes each stage's activations to device memory (they do not fit
-//     beside the parameters), the reverse reads them back a stage at a
-//     time; every product runs four rows a thread, a weight loaded once for
-//     four chains; the weights' cotangents are held in registers (4 x 4
-//     tiles a thread) and written once per tile to a per-block slot, which
-//     a second kernel sums in block order; the time cotangent of each stage
-//     reaches t and dt through the per-tile (ct_t, ct_dt) sums. No
-//     floating-point atomics: every result is bitwise reproducible (the
-//     norm sums decide accept/reject).
+// What the design does about it. Both kernels run one block a tile of
+// kCslBwdRows = 8 rows (128 blocks at B = 1024, one wave on 132 SMs); the
+// parameters (19,572 floats) are loaded into shared memory once per
+// launch, each weight row padded to an odd stride.
+//   * K7-CSL, csl_forward_tile: every product on the FP64 tensor cores
+//     (mma.sync m16n8k8 f64, the tile's 8 rows the instruction's N), each
+//     output an f64 sum rounded once; the stage's activations stay in
+//     shared memory; the three norm sums leave each block as one slot a
+//     2-row sub-tile (kCslSlotRows), each reduced as a block of its own
+//     would reduce two rows (ops/fused_csl.py csl_slot_order_sums), and a
+//     second small kernel sums the ceil(B/2) slots in order: FFJORD's
+//     error estimate sits at its f32 floor, where the order of these sums
+//     decides accepts;
+//   * K8-CSL, csl_reverse_tile: every product is FMA work on values in
+//     shared memory, four rows a thread, a weight loaded once for four
+//     chains; the recompute writes each stage's activations to device
+//     memory (they do not fit beside the parameters), the reverse reads
+//     them back a stage at a time; the weights' cotangents are held in
+//     registers (4 x 4 tiles a thread) and written once per tile to a
+//     per-block slot, which a second kernel sums in block order; the time
+//     cotangent of each stage reaches t and dt through the per-tile
+//     (ct_t, ct_dt) sums.
+// No floating-point atomics: every result is bitwise reproducible (the
+// norm sums decide accept/reject).
 // The forward reproduces its plain version bitwise (see csl_tsit5.cuh), so
 // that kernel and plain solves take the same steps where the error estimate
 // sits at its f32 rounding floor.
@@ -48,8 +53,9 @@
 
 namespace {
 
-// K7-CSL: one normed Tsit5 trial step per row tile. Writes the tile's y_new
-// and k7 rows and its three norm sums to partials[tile].
+// K7-CSL: one normed Tsit5 trial step per row tile of kCslBwdRows rows
+// (csl_forward_tile). Writes the tile's y_new and k7 rows and its slots'
+// three norm sums to partials[slot] (kCslSlots slots a tile).
 __global__ void __launch_bounds__(kThreads)
 csl_fwd_kernel(const float* __restrict__ t_p, const float* __restrict__ dt_p,
                const float* __restrict__ y, const float* __restrict__ k1,
@@ -57,12 +63,11 @@ csl_fwd_kernel(const float* __restrict__ t_p, const float* __restrict__ dt_p,
                float* __restrict__ k7, float* __restrict__ partials, int B, int A,
                int D, int H, float rtol, float atol) {
   extern __shared__ float smem[];
-  const int row0 = blockIdx.x * kCslRows;
-  float* wsm = smem;
-  csl_load_weights(leaves, D, H, wsm);
-  csl_fwd_tile(y, k1, leaves.p[kCslParams], row0, min(kCslRows, B - row0), *t_p,
-               *dt_p, wsm, y_new, k7, partials + 3 * blockIdx.x, A, D, H, kinetic,
-               rtol, atol, wsm + csl_pad_floats(D, H));
+  const int row0 = blockIdx.x * kCslBwdRows;
+  csl_load_params(leaves, D, H, smem);
+  csl_forward_tile(y, k1, leaves.p[kCslParams], row0, min(kCslBwdRows, B - row0), *t_p,
+                   *dt_p, smem, y_new, k7, partials + 3 * kCslSlots * blockIdx.x, A, D, H,
+                   kinetic, rtol, atol, smem + csl_pad_floats(D, H));
 }
 
 // K8-CSL: the hand reverse chain of K7-CSL per row tile of kCslBwdRows
@@ -96,12 +101,17 @@ csl_bwd_kernel(const float* __restrict__ t_p, const float* __restrict__ dt_p,
 
 extern "C" {
 
-int regnde_csl_rows() { return kCslRows; }
+// The forward's tile rows, the rows of one of its norm-sum slots, and its
+// shared memory at A x D x H.
+int regnde_csl_rows() { return kCslBwdRows; }
+int regnde_csl_slot_rows() { return kCslSlotRows; }
+int regnde_csl_fwd_smem_bytes(int A, int D, int H) { return (int)csl_fwd_smem_bytes(A, D, H); }
 
 // K7-CSL. leaves: host array of 16 device pointers (the 15 parameters of
 // CSLDynamics in parameters() order, then the probe e, B x D). A: the
-// augmented state's width, D + 1 or D + 3 (kinetic). partials: (ceil(B/R),
-// 3) scratch; sums: (3,) err_ssq, num_ssq, den_ssq.
+// augmented state's width, D + 1 or D + 3 (kinetic). partials: (ceil(B/2),
+// 3) scratch, a slot a 2-row sub-tile; sums: (3,) err_ssq, num_ssq,
+// den_ssq.
 int regnde_csl_fwd(const float* t, const float* dt, const float* y, const float* k1,
                    const float* const* leaves, int kinetic, float* y_new, float* k7,
                    float* partials, float* sums, int B, int A, int H, float rtol,
@@ -112,13 +122,14 @@ int regnde_csl_fwd(const float* t, const float* dt, const float* y, const float*
   cudaError_t e = cudaFuncSetAttribute(
       csl_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const int nblocks = (B + kCslRows - 1) / kCslRows;
+  const int nblocks = (B + kCslBwdRows - 1) / kCslBwdRows;
   csl_fwd_kernel<<<nblocks, kThreads, smem, s>>>(t, dt, y, k1, pack_csl_leaves(leaves),
                                                  kinetic, y_new, k7, partials, B, A, D,
                                                  H, rtol, atol);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  sum_slots_warp_kernel<<<1, 3 * 32, 0, s>>>(partials, nblocks, 3, sums);
+  const int nslots = (B + kCslSlotRows - 1) / kCslSlotRows;
+  sum_slots_warp_kernel<<<1, 3 * 32, 0, s>>>(partials, nslots, 3, sums);
   return (int)cudaGetLastError();
 }
 

@@ -1,8 +1,8 @@
 // Device code of FFJORD's augmented CSL dynamics in the normed Tsit5 trial
 // step, shared by the step kernels (csl_tsit5.cu, K7/K8-CSL) and the
-// whole-solve kernels (whole_solve.cu, K3/K4 with CslDyn): the stage, the
-// six-stage recompute, and the per-tile bodies of one trial step and of
-// its hand reverse.
+// whole-solve kernels (whole_solve.cu, K3/K4 with CslDyn): the per-tile
+// bodies of one trial step (csl_forward_tile) and of its hand reverse
+// (csl_reverse_tile), and the products over a tile's rows they run.
 //
 //   o_l = (h W_l^T + b_l) * g_l + (t w_b,l + b_b,l),  g_l = sigmoid(t w_g,l)
 //   h_1 = softplus(o_1), h_2 = softplus(o_2), mz = o_3      (CSLDynamics)
@@ -12,13 +12,12 @@
 //
 // The leaves are W_l (nn.Linear layout, out x in), b_l, w_g,l, w_b,l, b_b,l
 // for l = 1, 2, 3 (dim -> hidden -> hidden -> dim), then the Hutchinson
-// probe e (batch x dim), read by row like y. A forward tile is kCslRows rows
-// of the batch, a reverse tile kCslBwdRows (csl_reverse_tile, below), each
-// run by one block of kThreads; the parameters live in shared memory
-// (csl_load_weights), each weight row padded to an odd stride so that
-// neither the products over inputs (threads over outputs) nor those over
-// outputs (threads over inputs) have bank conflicts. The gates are computed
-// once per stage per block.
+// probe e (batch x dim), read by row like y. A tile is kCslBwdRows = 8 rows
+// of the batch, forward and reverse, run by one block of kThreads; the
+// parameters live in shared memory (csl_load_weights), each weight row
+// padded to an odd stride so that neither the products over inputs (threads
+// over outputs) nor those over outputs (threads over inputs) have bank
+// conflicts. The gates are computed once per stage per block.
 //
 // Rounding. The forward reproduces its plain version (ops/fused_csl.py
 // plain_csl_normed_sweep) rounding for rounding: each affine map, each hop
@@ -35,7 +34,6 @@
 
 namespace {
 
-constexpr int kCslRows = 2;     // rows of the batch per forward tile
 constexpr int kCslParams = 15;  // 3 layers x (W, b, w_g, w_b, b_b)
 
 struct CslLeaves {
@@ -63,42 +61,6 @@ __host__ __device__ inline int csl_leaf_floats(int D, int H) {
 // One stage's activations of a row: a1, o1, a2, o2, v3, v2 (H each), a3,
 // eJ (D each).
 __host__ __device__ inline int csl_rec_row(int D, int H) { return 6 * H + 2 * D; }
-
-// Shared memory of one forward tile, after the padded parameters.
-__host__ __device__ inline int csl_fwd_tile_floats(int A, int D, int H) {
-  return 10 * kCslRows * A + kCslRows * D + (2 * H + D) +
-         kCslRows * csl_rec_row(D, H) + 2 * kCslRows * H + 3 * kWarps;
-}
-size_t csl_fwd_smem_bytes(int A, int D, int H) {
-  return sizeof(float) * ((size_t)csl_pad_floats(D, H) + csl_fwd_tile_floats(A, D, H));
-}
-
-// The end of a forward tile body: the tile's y_new and k7 rows (its first
-// `valid` elements, from element g0 of the global rows) and its three norm
-// sums (err, num, den) to sums_out, from the recomputed y_s, ks, ystage
-// (y_new) and g6 (the stage-5 state), n elements each. The same algebra as
-// the end of altmlp_fwd_tile.
-__device__ __forceinline__ void normed_tile_out(const float* y_s, const float* ks,
-                                                const float* ystage, const float* g6,
-                                                int n, int valid, size_t g0, float dt,
-                                                float rtol, float atol, float* y_new,
-                                                float* k7, float* red, float* sums_out) {
-  float sums[3] = {0.0f, 0.0f, 0.0f};
-  for (int idx = threadIdx.x; idx < valid; idx += kThreads) {
-    const float err = __fmul_rn(dt, err_comb_rn(ks, n, idx));
-    const float yv = y_s[idx], yn = ystage[idx];
-    const float denom = __fadd_rn(atol, __fmul_rn(fmaxf(fabsf(yv), fabsf(yn)), rtol));
-    const float sc = __fdiv_rn(err, denom);
-    sums[0] += sc * sc;
-    const float dk = ks[6 * n + idx] - ks[5 * n + idx];
-    sums[1] += dk * dk;
-    const float dg = yn - g6[idx];
-    sums[2] += dg * dg;
-    y_new[g0 + idx] = yn;
-    k7[g0 + idx] = ks[6 * n + idx];
-  }
-  block_sum_to<3>(sums, red, sums_out);
-}
 
 // The seeds of a backward tile body from the outputs' cotangents: the
 // stage derivatives' cotangents cks (7 x n), the stage-6 seed seed6, the
@@ -222,153 +184,6 @@ __device__ void csl_load_weights(const CslLeaves& lv, int D, int H, float* wsm) 
       vec[idx] = lv.p[5 * l + 1 + j][idx - j * L.n_out];
     }
   }
-}
-
-// The three layers' gates sigmoid(ti w_g) at gbuf (layer l at l * H).
-// Ends synchronised.
-__device__ void csl_gates(const float* wsm, float ti, float* gbuf, int D, int H) {
-  for (int idx = threadIdx.x; idx < 2 * H + D; idx += kThreads) {
-    const int l = idx < H ? 0 : (idx < 2 * H ? 1 : 2);
-    gbuf[idx] = csl_sigmoid(__fmul_rn(ti, csl_layer(wsm, l, D, H).wg[idx - l * H]));
-  }
-  __syncthreads();
-}
-
-// o = (x W^T + b) * g + (ti w_b + b_b) for the tile's rows (x with row
-// stride xs): a and o to a_out, o_out (row strides as, os), softplus(o) to
-// h_out (row stride n_out) where given. Ends synchronised.
-__device__ void csl_affine(const CslLayer& L, const float* x, int xs,
-                           const float* g, float ti, float* a_out, int as,
-                           float* o_out, int os, float* h_out) {
-  for (int idx = threadIdx.x; idx < kCslRows * L.n_out; idx += kThreads) {
-    const int r = idx / L.n_out, o = idx - r * L.n_out;
-    const float* xr = x + r * xs;
-    const float* w = L.W + o * (L.n_in + 1);
-    double s = (double)L.b[o];
-    for (int k = 0; k < L.n_in; ++k) s = fma((double)xr[k], (double)w[k], s);
-    const float a = (float)s;
-    const float ov = __fadd_rn(__fmul_rn(a, g[o]), __fadd_rn(__fmul_rn(ti, L.wb[o]), L.bb[o]));
-    a_out[r * as + o] = a;
-    o_out[r * os + o] = ov;
-    if (h_out) h_out[idx] = csl_softplus(ov);
-  }
-  __syncthreads();
-}
-
-// out[r, k] = sum_{o < n_out} v[r, o] (W[o, k] * g[o]) for k < n_in: a hop
-// of the e^T J chain (v with row stride vs, out with row stride os). Ends
-// synchronised.
-__device__ void csl_hop(const CslLayer& L, const float* v, int vs, const float* g,
-                        float* out, int os) {
-  for (int idx = threadIdx.x; idx < kCslRows * L.n_in; idx += kThreads) {
-    const int r = idx / L.n_in, k = idx - r * L.n_in;
-    const float* vr = v + r * vs;
-    double s = 0.0;
-    for (int o = 0; o < L.n_out; ++o)
-      s = fma((double)vr[o], (double)__fmul_rn(L.W[o * (L.n_in + 1) + k], g[o]), s);
-    out[r * os + k] = (float)s;
-  }
-  __syncthreads();
-}
-
-// One evaluation of the augmented dynamics for the tile's rows at time ti:
-// k (row stride A) from the state x (row stride A) and the probe rows e_s
-// (row stride D). rec receives the rows' activations (csl_rec_row floats a
-// row); gbuf the gates; hA, hB kCslRows x H of scratch. Ends synchronised.
-__device__ void csl_stage(const float* x, float* k, float ti, const float* e_s,
-                          float* gbuf, float* rec, float* hA, float* hB,
-                          const float* wsm, int A, int D, int H, bool kinetic) {
-  const int RF = csl_rec_row(D, H);
-  float *a1 = rec, *o1 = rec + H, *a2 = rec + 2 * H, *o2 = rec + 3 * H;
-  float *v3 = rec + 4 * H, *v2 = rec + 5 * H, *a3 = rec + 6 * H, *eJ = rec + 6 * H + D;
-  const CslLayer L1 = csl_layer(wsm, 0, D, H), L2 = csl_layer(wsm, 1, D, H),
-                 L3 = csl_layer(wsm, 2, D, H);
-  const float *g1 = gbuf, *g2 = gbuf + H, *g3 = gbuf + 2 * H;
-  csl_gates(wsm, ti, gbuf, D, H);
-  csl_affine(L1, x, A, g1, ti, a1, RF, o1, RF, hA);        // h1 in hA
-  csl_affine(L2, hA, H, g2, ti, a2, RF, o2, RF, hB);       // h2 in hB
-  csl_affine(L3, hB, H, g3, ti, a3, RF, k, A, nullptr);    // mz into k
-  csl_hop(L3, e_s, D, g3, v3, RF);
-  for (int idx = threadIdx.x; idx < kCslRows * H; idx += kThreads) {
-    const int r = idx / H, o = idx - r * H;
-    hA[idx] = __fmul_rn(v3[r * RF + o], csl_sigmoid(o2[r * RF + o]));
-  }
-  __syncthreads();
-  csl_hop(L2, hA, H, g2, v2, RF);
-  for (int idx = threadIdx.x; idx < kCslRows * H; idx += kThreads) {
-    const int r = idx / H, o = idx - r * H;
-    hA[idx] = __fmul_rn(v2[r * RF + o], csl_sigmoid(o1[r * RF + o]));
-  }
-  __syncthreads();
-  csl_hop(L1, hA, H, g1, eJ, RF);
-  // the row sums: -sum(eJ e), and with the kinetic terms sum mz^2, sum eJ^2
-  for (int q = threadIdx.x; q < kCslRows * (kinetic ? 3 : 1); q += kThreads) {
-    const int r = q % kCslRows, which = q / kCslRows;
-    const float* u = which == 1 ? k + r * A : eJ + r * RF;
-    const float* w = which == 0 ? e_s + r * D : u;
-    double s = 0.0;
-    for (int c = 0; c < D; ++c) s = fma((double)u[c], (double)w[c], s);
-    k[r * A + D + which] = which == 0 ? -(float)s : (float)s;
-  }
-  __syncthreads();
-}
-
-// Loads the tile's y, k1 and probe rows (zero past the batch end) and runs
-// the six stages at t_i = t + c_i dt: ks[i] = f(t_i, y + dt * acc_i). On
-// return ystage holds y_new (the stage-6 state) and g6 the stage-5 state;
-// stage i's activations are at recs + (i - 1) * rec_step (rec_step 0: one
-// record, overwritten).
-__device__ void csl_recompute(const float* y_g, const float* k1_g, const float* e_g,
-                              int row0, int rows, float t, float dt, float* y_s,
-                              float* ks, float* ystage, float* g6, float* e_s,
-                              float* gbuf, float* recs, int rec_step, float* hA,
-                              float* hB, const float* wsm, int A, int D, int H,
-                              bool kinetic) {
-  const int n = kCslRows * A;
-  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
-    const bool valid = idx < rows * A;
-    y_s[idx] = valid ? __ldcg(y_g + (size_t)row0 * A + idx) : 0.0f;
-    ks[idx] = valid ? __ldcg(k1_g + (size_t)row0 * A + idx) : 0.0f;
-  }
-  for (int idx = threadIdx.x; idx < kCslRows * D; idx += kThreads)
-    e_s[idx] = idx < rows * D ? e_g[(size_t)row0 * D + idx] : 0.0f;
-  for (int i = 1; i <= 6; ++i) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < n; idx += kThreads) {
-      const float v = __fadd_rn(y_s[idx], __fmul_rn(dt, stage_acc_rn(i, ks, n, idx)));
-      ystage[idx] = v;
-      if (i == 5) g6[idx] = v;
-    }
-    __syncthreads();
-    const float ti = __fadd_rn(t, __fmul_rn(kC[i], dt));
-    csl_stage(ystage, ks + i * n, ti, e_s, gbuf, recs + (i - 1) * rec_step, hA, hB,
-              wsm, A, D, H, kinetic);
-  }
-}
-
-// K7-CSL's body for one tile [row0, row0 + rows): writes the tile's y_new
-// and k7 rows and its three norm sums (err, num, den) to sums_out. wsm
-// holds the padded parameters; smem csl_fwd_tile_floats of scratch.
-__device__ void csl_fwd_tile(const float* y, const float* k1, const float* e,
-                             int row0, int rows, float t, float dt,
-                             const float* wsm, float* y_new, float* k7,
-                             float* sums_out, int A, int D, int H, bool kinetic,
-                             float rtol, float atol, float* smem) {
-  const int n = kCslRows * A;
-  float* y_s = smem;
-  float* ks = y_s + n;  // 7 x n
-  float* ystage = ks + 7 * n;
-  float* g6 = ystage + n;
-  float* e_s = g6 + n;
-  float* gbuf = e_s + kCslRows * D;
-  float* rec = gbuf + 2 * H + D;
-  float* hA = rec + kCslRows * csl_rec_row(D, H);
-  float* hB = hA + kCslRows * H;
-  float* red = hB + kCslRows * H;
-  csl_recompute(y, k1, e, row0, rows, t, dt, y_s, ks, ystage, g6, e_s, gbuf, rec,
-                0, hA, hB, wsm, A, D, H, kinetic);
-  normed_tile_out(y_s, ks, ystage, g6, n, rows * A, (size_t)row0 * A, dt, rtol,
-                  atol, y_new, k7, red, sums_out);
 }
 
 // ---------------------------------------------------------------------------
@@ -978,6 +793,356 @@ __device__ void csl_reverse_tile(const float* y, const float* k1, const float* e
   csl_cw_store(acc, s.cv, slot, add, D, H);
   const float part[2] = {ct_t, ct_dt};
   block_sum_to<2>(part, s.red, part_out);
+}
+
+// ---------------------------------------------------------------------------
+// The forward tile body of K7-CSL and K3-CSL (CslDyn in whole_solve.cu).
+//
+// A tile is the reverse's kCslBwdRows = 8 rows, one block of kThreads: at
+// FFJORD's batch of 1024 that is 128 tiles, one wave on the card's 132 SMs,
+// and K3-CSL's cooperative grid holds one tile a block. The block loads the
+// parameters into shared memory once (per launch in K7-CSL, per solve in
+// K3-CSL; csl_load_params). Each stage's six products run over the tile's
+// rows on the FP64 tensor cores (csl_mma_rows): the tile's 8 rows are an
+// m16n8k8 instruction's N, the rows are read as their exact f64 copies,
+// each weight is converted once a product, and every output is an f64 sum
+// from its start value rounded once to f32, as the plain version's f64
+// products are; the reverse's recompute (csl_reverse_stage_fwd) sums the
+// same products as f64 chains, in another order of the f64 additions.
+// The reverse's comments call its stages csl_recompute's and csl_stage's,
+// and its products' sums csl_affine's and csl_hop's: the names of the 2-row
+// forward body this one replaced, which summed the same chains one row a
+// thread. The activations the hops need (o1, o2) and eJ stay in shared
+// memory; nothing is recorded in device memory.
+//
+// The norm sums. FFJORD's error estimate sits at its float32 floor at
+// 1.4e-8, and an order of sums moves accepts there, so the tile writes one
+// slot of (err, num, den) a kCslSlotRows = 2-row sub-tile, each reduced as
+// a block of its own reduces two rows (csl_slot_sums), and the ceil(B / 2)
+// slots are summed in order (sum_slots_warp_kernel in K7-CSL, sum_tiles in
+// K3-CSL's fwd_decide).
+// ---------------------------------------------------------------------------
+
+constexpr int kCslSlotRows = 2;  // rows of the batch per norm-sum slot
+constexpr int kCslSlots = kCslBwdRows / kCslSlotRows;
+
+// The forward tile's shared memory: the stage state (y_s, ks, ystage, g6,
+// row-major at A floats a row), the probe (f32 and its f64 copy), the
+// gates, two f64 product inputs, o1 and o2 (the hops' sigmoids read them),
+// eJ (the row sums read it; row-major at pad4 of the layers' widths) and
+// the slot sums' warp partials.
+struct CslForwardSmem {
+  float *y_s, *ks, *ystage, *g6, *e, *gbuf, *o1, *o2, *ej, *red;
+  double *e64, *xa, *xb;
+};
+
+// Floats of the forward tile (each part a multiple of 4, from a 16-byte
+// aligned base); with a base, its parts' addresses to *s.
+__host__ __device__ inline int csl_forward_floats(int A, int D, int H, float* base = nullptr,
+                                                  CslForwardSmem* s = nullptr) {
+  constexpr int R = kCslBwdRows;
+  const int n = R * A, pd = R * csl_pad4(D), ph = R * csl_pad4(H);
+  const int pw = pd > ph ? pd : ph;
+  int off = 0;
+  auto take = [&](int floats) {
+    float* p = base ? base + off : nullptr;
+    off += csl_pad4(floats);
+    return p;
+  };
+  auto take64 = [&](int doubles) { return reinterpret_cast<double*>(take(2 * doubles)); };
+  CslForwardSmem t;
+  t.y_s = take(n);
+  t.ks = take(7 * n);
+  t.ystage = take(n);
+  t.g6 = take(n);
+  t.e = take(pd);
+  t.e64 = take64(pd);
+  t.gbuf = take(2 * H + D);
+  t.xa = take64(pw);
+  t.xb = take64(pw);
+  t.o1 = take(ph);
+  t.o2 = take(ph);
+  t.ej = take(pd);
+  t.red = take(3 * kCslSlots * kWarps);
+  if (s) *s = t;
+  return off;
+}
+
+// Bytes of shared memory of a block that holds the padded parameters and
+// runs forward tiles (4 floats of slack to align the tile).
+size_t csl_fwd_smem_bytes(int A, int D, int H) {
+  return sizeof(float) *
+         ((size_t)csl_pad_floats(D, H) + 4 + csl_forward_floats(A, D, H));
+}
+
+// The padded parameters into shared memory in csl_load_weights' layout,
+// kCslLoadsInFlight loads a thread issued before their stores: K7-CSL loads
+// them once a launch, and one load at a time waits out the memory's latency
+// some 80 times a thread.
+constexpr int kCslLoadsInFlight = 16;
+
+__device__ void csl_load_params(const CslLeaves& lv, int D, int H, float* wsm) {
+  constexpr int U = kCslLoadsInFlight;
+  for (int l = 0; l < 3; ++l) {
+    const CslLayer L = csl_layer(wsm, l, D, H);
+    float* W = const_cast<float*>(L.W);
+    float* vec = const_cast<float*>(L.b);
+    const int nw = L.n_out * L.n_in, nall = nw + 4 * L.n_out;
+    for (int base = threadIdx.x; base < nall; base += U * kThreads) {
+      float v[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int idx = base + u * kThreads, j = (idx - nw) / L.n_out;
+        v[u] = idx < nw ? lv.p[5 * l][idx]
+                        : (idx < nall ? lv.p[5 * l + 1 + j][idx - nw - j * L.n_out] : 0.0f);
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int idx = base + u * kThreads;
+        if (idx < nw)
+          W[idx + idx / L.n_in] = v[u];  // row o at o (n_in + 1)
+        else if (idx < nall)
+          vec[idx - nw] = v[u];
+      }
+    }
+  }
+}
+
+// The forward's products on the FP64 tensor cores, transposed: out^T
+// (outputs x rows) = w (outputs x I) x^T on mma.sync m16n8k8 f64, so M is
+// 16 outputs (one m-tile a warp at a time), N the tile's 8 rows, and each
+// instruction takes kCslMmaK of the reduction. A is the f32 weight (for a
+// hop the f32 product W * g) converted in a register, B the rows' f64
+// copies. The sum starts at the same value and runs over the reduction in
+// f64, rounded once to f32; only the order of the f64 additions is the
+// instruction's. On the H100 this ran 1.76 times as fast as the reverse's
+// f64 chains (csl_affine_rows, csl_hop_rows) and faster than m16n8k4,
+// m16n8k16 or m8n8k4 (tools/torch_csl_variants.py builds them).
+constexpr int kCslMmaK = 8;
+
+__device__ __forceinline__ void csl_dmma(double (&d)[4], const double* a, const double* b) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// out[r, j] = c[j] + sum_{i < I} x[r, i] w(j, i) for j < J over the tile's
+// rows (x: f64 copies, row stride px; c null: from 0), w(j, i) the f32
+// weight; epi(r, j, value). Fragments (lane = 4 g + q): A's element e at
+// output row g + 8 (e % 2), reduction column q + 4 (e / 2); B's element e
+// at reduction row q + 4 e of the tile's row g; D's d0, d1 at output g,
+// rows 2 q, 2 q + 1, and d2, d3 at output g + 8.
+template <class Wt, class Epi>
+__device__ __forceinline__ void csl_mma_rows(const double* x, int px, int I, int J,
+                                             const float* c, Wt w, Epi epi) {
+  constexpr int KS = kCslMmaK, NA = KS / 2, NB = KS / 4;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const double* xr = x + (size_t)g * px;
+  for (int m0 = 16 * warp; m0 < J; m0 += 16 * kWarps) {
+    const int ja = m0 + g, jb = ja + 8;  // this lane's outputs
+    double d[4];
+    d[0] = d[1] = c && ja < J ? (double)c[ja] : 0.0;
+    d[2] = d[3] = c && jb < J ? (double)c[jb] : 0.0;
+    for (int i0 = 0; i0 < I; i0 += KS) {
+      double a[NA], b[NB];
+#pragma unroll
+      for (int e = 0; e < NA; ++e) {
+        const int j = e % 2 ? jb : ja, i = i0 + q + 4 * (e / 2);
+        a[e] = j < J && i < I ? (double)w(j, i) : 0.0;
+      }
+#pragma unroll
+      for (int e = 0; e < NB; ++e) {
+        const int i = i0 + q + 4 * e;
+        b[e] = i < I ? xr[i] : 0.0;
+      }
+      csl_dmma(d, a, b);
+    }
+    if (ja < J) {
+      epi(2 * q, ja, (float)d[0]);
+      epi(2 * q + 1, ja, (float)d[1]);
+    }
+    if (jb < J) {
+      epi(2 * q, jb, (float)d[2]);
+      epi(2 * q + 1, jb, (float)d[3]);
+    }
+  }
+}
+
+// The forward's affine map (x W^T + b) and hop of the e^T J chain (v (W *
+// g)) over the tile's rows, on csl_mma_rows.
+template <class Epi>
+__device__ __forceinline__ void csl_fwd_affine(const CslLayer& L, const double* x, int px,
+                                               Epi epi) {
+  const int stride = L.n_in + 1;
+  csl_mma_rows(x, px, L.n_in, L.n_out, L.b, [&](int o, int k) { return L.W[o * stride + k]; },
+               epi);
+}
+template <class Epi>
+__device__ __forceinline__ void csl_fwd_hop(const CslLayer& L, const double* v, int pv,
+                                            const float* g, Epi epi) {
+  const int stride = L.n_in + 1;
+  csl_mma_rows(v, pv, L.n_out, L.n_in, nullptr,
+               [&](int k, int o) { return __fmul_rn(L.W[o * stride + k], g[o]); }, epi);
+}
+
+// One evaluation of the augmented dynamics for the tile's rows at time ti,
+// from the f64 copy of the stage state's z in s.xa (row stride pad4(D)) and
+// the gates in s.gbuf: the stage derivative to k (row stride A).
+__device__ void csl_forward_stage(const CslForwardSmem& s, float* k, float ti,
+                                  const float* wsm, int A, int D, int H, bool kinetic) {
+  constexpr int R = kCslBwdRows;
+  const int pd = csl_pad4(D), ph = csl_pad4(H);
+  const CslLayer L1 = csl_layer(wsm, 0, D, H), L2 = csl_layer(wsm, 1, D, H),
+                 L3 = csl_layer(wsm, 2, D, H);
+  const float *g1 = s.gbuf, *g2 = s.gbuf + H, *g3 = s.gbuf + 2 * H;
+  auto out = [&](const CslLayer& L, const float* g, int o, float a) {
+    return __fadd_rn(__fmul_rn(a, g[o]), __fadd_rn(__fmul_rn(ti, L.wb[o]), L.bb[o]));
+  };
+  // h1 = softplus(o1) into xb, h2 into xa, mz into k
+  csl_fwd_affine(L1, s.xa, pd, [&](int r, int o, float a) {
+    const float ov = out(L1, g1, o, a);
+    s.o1[r * ph + o] = ov;
+    s.xb[r * ph + o] = csl_softplus(ov);
+  });
+  __syncthreads();
+  csl_fwd_affine(L2, s.xb, ph, [&](int r, int o, float a) {
+    const float ov = out(L2, g2, o, a);
+    s.o2[r * ph + o] = ov;
+    s.xa[r * ph + o] = csl_softplus(ov);
+  });
+  __syncthreads();
+  csl_fwd_affine(L3, s.xa, ph, [&](int r, int o, float a) { k[r * A + o] = out(L3, g3, o, a); });
+  // v3 = e (W3 g3) (it reads nothing of layer 3's map); u2 = v3 s2 into xb
+  csl_fwd_hop(L3, s.e64, pd, g3, [&](int r, int o, float v) {
+    s.xb[r * ph + o] = __fmul_rn(v, csl_sigmoid(s.o2[r * ph + o]));
+  });
+  __syncthreads();
+  // v2 = u2 (W2 g2); u1 = v2 s1 into xa; eJ = u1 (W1 g1)
+  csl_fwd_hop(L2, s.xb, ph, g2, [&](int r, int o, float v) {
+    s.xa[r * ph + o] = __fmul_rn(v, csl_sigmoid(s.o1[r * ph + o]));
+  });
+  __syncthreads();
+  csl_fwd_hop(L1, s.xa, ph, g1, [&](int r, int o, float v) { s.ej[r * pd + o] = v; });
+  __syncthreads();
+  // the row sums: -sum(eJ e), and with the kinetic terms sum mz^2, sum eJ^2
+  // (each an f64 chain over the columns in order, four columns' loads ahead)
+  for (int q = threadIdx.x; q < (kinetic ? 3 : 1) * R; q += kThreads) {
+    const int r = q % R, which = q / R;
+    const float* u = which == 1 ? k + r * A : s.ej + r * pd;
+    const float* w = which == 0 ? s.e + r * pd : u;
+    double sum = 0.0;
+    int c = 0;
+    for (; c + 4 <= D; c += 4) {
+      float uc[4], wc[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uc[j] = u[c + j];
+        wc[j] = w[c + j];
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) sum = fma((double)uc[j], (double)wc[j], sum);
+    }
+    for (; c < D; ++c) sum = fma((double)u[c], (double)w[c], sum);
+    k[r * A + D + which] = which == 0 ? -(float)sum : (float)sum;
+  }
+}
+
+// The end of a forward tile [row0, row0 + rows): its y_new and k7 rows and,
+// per 2-row slot that holds a row, the three norm sums (err, num, den) to
+// slots_out[3 * slot ..]. Each slot is reduced as a block of its own
+// reduces a tile of two rows: element j of the slot (of its 2 A) is taken
+// by the thread j % kThreads, which adds its elements' squares in order of
+// j, each square rounded; a shuffle tree a warp (warp_sum); the warps added
+// in order (block_sum_to's).
+__device__ void csl_slot_sums(const CslForwardSmem& s, int A, int rows, size_t g0, float dt,
+                              float rtol, float atol, float* y_new, float* k7,
+                              float* slots_out) {
+  const int n = kCslBwdRows * A, sn = kCslSlotRows * A;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float acc[3 * kCslSlots];
+#pragma unroll
+  for (int q = 0; q < 3 * kCslSlots; ++q) acc[q] = 0.0f;
+  __syncthreads();  // the last stage's row sums
+#pragma unroll
+  for (int sl = 0; sl < kCslSlots; ++sl) {
+    const int valid = min(max(rows - sl * kCslSlotRows, 0), kCslSlotRows) * A;
+    for (int j = threadIdx.x; j < valid; j += kThreads) {
+      const int idx = sl * sn + j;
+      const float err = __fmul_rn(dt, err_comb_rn(s.ks, n, idx));
+      const float yv = s.y_s[idx], yn = s.ystage[idx];
+      const float denom = __fadd_rn(atol, __fmul_rn(fmaxf(fabsf(yv), fabsf(yn)), rtol));
+      const float sc = __fdiv_rn(err, denom);
+      const float dk = __fsub_rn(s.ks[6 * n + idx], s.ks[5 * n + idx]);
+      const float dg = __fsub_rn(yn, s.g6[idx]);
+      acc[3 * sl] = __fadd_rn(acc[3 * sl], __fmul_rn(sc, sc));
+      acc[3 * sl + 1] = __fadd_rn(acc[3 * sl + 1], __fmul_rn(dk, dk));
+      acc[3 * sl + 2] = __fadd_rn(acc[3 * sl + 2], __fmul_rn(dg, dg));
+      y_new[g0 + idx] = yn;
+      k7[g0 + idx] = s.ks[6 * n + idx];
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < 3 * kCslSlots; ++q) {
+    const float v = warp_sum(acc[q]);
+    if (lane == 0) s.red[q * kWarps + warp] = v;
+  }
+  __syncthreads();
+  const int q = threadIdx.x;
+  if (q < 3 * ((rows + kCslSlotRows - 1) / kCslSlotRows)) {
+    float sum = 0.0f;
+    for (int w = 0; w < kWarps; ++w) sum += s.red[q * kWarps + w];
+    slots_out[q] = sum;
+  }
+}
+
+// K7-CSL's and K3-CSL's body for one tile [row0, row0 + rows) of at most
+// kCslBwdRows rows: loads the tile's y, k1 and probe rows (zero past the
+// batch end), runs the six stages at t_i = t + c_i dt (ks[i] = f(t_i, y +
+// dt * acc_i)), then writes the tile's y_new and k7 rows and its slots'
+// norm sums (csl_slot_sums). wsm holds the padded parameters, smem
+// csl_forward_floats + 4 floats.
+__device__ void csl_forward_tile(const float* y, const float* k1, const float* e, int row0,
+                                 int rows, float t, float dt, const float* wsm, float* y_new,
+                                 float* k7, float* slots_out, int A, int D, int H,
+                                 bool kinetic, float rtol, float atol, float* smem) {
+  constexpr int R = kCslBwdRows, kStages = 6;
+  const int n = R * A, pd = csl_pad4(D), nv = 2 * H + D;
+  const size_t g0 = (size_t)row0 * A;
+  float* base = reinterpret_cast<float*>((reinterpret_cast<size_t>(smem) + 15) & ~size_t(15));
+  CslForwardSmem s;
+  csl_forward_floats(A, D, H, base, &s);
+  __syncthreads();  // the parameters; the previous tile's last reads
+  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
+    const bool valid = idx < rows * A;
+    s.y_s[idx] = valid ? __ldcg(y + g0 + idx) : 0.0f;
+    s.ks[idx] = valid ? __ldcg(k1 + g0 + idx) : 0.0f;
+  }
+  for (int idx = threadIdx.x; idx < R * D; idx += kThreads) {
+    const int r = idx / D, c = idx - r * D;
+    const float v = r < rows ? e[(size_t)(row0 + r) * D + c] : 0.0f;
+    s.e[r * pd + c] = v;
+    s.e64[r * pd + c] = v;
+  }
+  for (int i = 1; i <= kStages; ++i) {
+    __syncthreads();
+    const float ti = __fadd_rn(t, __fmul_rn(kC[i], dt));
+    for (int idx = threadIdx.x; idx < n; idx += kThreads) {
+      const float v = __fadd_rn(s.y_s[idx], __fmul_rn(dt, stage_acc_rn(i, s.ks, n, idx)));
+      s.ystage[idx] = v;
+      if (i == 5) s.g6[idx] = v;
+      const int r = idx / A, c = idx - r * A;
+      if (c < D) s.xa[r * pd + c] = v;
+    }
+    for (int idx = threadIdx.x; idx < nv; idx += kThreads) {
+      const int l = idx < H ? 0 : (idx < 2 * H ? 1 : 2);
+      s.gbuf[idx] = csl_sigmoid(__fmul_rn(ti, csl_layer(wsm, l, D, H).wg[idx - l * H]));
+    }
+    __syncthreads();
+    csl_forward_stage(s, s.ks + i * n, ti, wsm, A, D, H, kinetic);
+  }
+  csl_slot_sums(s, A, rows, g0, dt, rtol, atol, y_new, k7, slots_out);
 }
 
 CslLeaves pack_csl_leaves(const float* const* leaves) {

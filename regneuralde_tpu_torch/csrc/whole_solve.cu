@@ -39,8 +39,9 @@
 //     the state at the start of trial step i, the tile body writes its
 //     y_new, k7 into hy[i+1], hf[i+1], and a rejected step copies row i
 //     over them. Only a tile's owner touches its rows.
-//   * Per trial step each tile writes its partial sums to a per-tile slot,
-//     then grid.sync(). Every block then sums the slots in tile order (one
+//   * Per trial step each tile writes its partial sums to a per-tile slot
+//     (K3-CSL's 8-row tiles one a 2-row sub-tile, the slots of K7-CSL),
+//     then grid.sync(). Every block then sums the slots in order (one
 //     warp, lane-strided, shuffle tree: the order of the step kernels'
 //     sum_slots_warp_kernel, so the sums equal the step route's bitwise)
 //     and runs the controller in one thread, redundantly: every block
@@ -235,9 +236,9 @@ __device__ __forceinline__ void fwd_begin(const A& a, FwdState& s, float span) {
 }
 
 // Warp 0 of every block, after every tile of trial step i wrote its norm
-// sums to its slot part[3 * tile ..] and the grid synced: sums the slots in
-// tile order and runs the controller (thread 0); block 0 records the step
-// in the streams.
+// sums to its slots (part[3 * k ..] for k < ntiles, the slots) and the grid
+// synced: sums the slots in order and runs the controller (thread 0); block
+// 0 records the step in the streams.
 template <class A>
 __device__ __forceinline__ void fwd_decide(const A& a, FwdState& s, const float* part,
                                            int ntiles, int i, float t, float dt,
@@ -437,7 +438,7 @@ struct MlpDyn {
 // cotangents in shared memory over the whole walk and writes them to
 // slots[blockIdx.x] at the end.
 struct AltDyn {
-  static constexpr int kFwdR = kAltRows, kBwdR = kAltRows;
+  static constexpr int kFwdR = kAltRows, kBwdR = kAltRows, kSlotR = kAltRows;
   AltLeaves lv;
   float* slots;  // (grid, leaf_floats)
   int depth, H;
@@ -476,27 +477,28 @@ struct AltDyn {
   }
 };
 
-// FFJORD's CSL dynamics: K7-CSL's tile body forward (2-row tiles) and
-// K8-CSL's reverse body backward (csl_reverse_tile, 8-row tiles), the
-// padded parameters in shared memory for the whole solve (the probe e is
-// read by row). The backward's slots hold one slot a block (csl_leaf_floats)
+// FFJORD's CSL dynamics: K7-CSL's tile body forward (csl_forward_tile,
+// 8-row tiles, each writing one norm-sum slot a 2-row sub-tile) and K8-CSL's
+// reverse body backward (csl_reverse_tile, 8-row tiles), the padded
+// parameters in shared memory for the whole solve (the probe e is read by
+// row). The backward's slots hold one slot a block (csl_leaf_floats)
 // that its tiles add their parameter cotangents to, zeroed first and
 // summed over the blocks after the walk, then, from float pad4(grid *
 // csl_leaf_floats) on, each block's activation records
 // (csl_reverse_records). The template's row width is the augmented state's,
 // A = dim + 1 or dim + 3 (kinetic).
 struct CslDyn {
-  static constexpr int kFwdR = kCslRows, kBwdR = kCslBwdRows;
+  static constexpr int kFwdR = kCslBwdRows, kBwdR = kCslBwdRows, kSlotR = kCslSlotRows;
   CslLeaves lv;
   float* slots;
   int dim, H, kinetic;
 
-  __device__ void setup_fwd(float* smem, int) const { csl_load_weights(lv, dim, H, smem); }
+  __device__ void setup_fwd(float* smem, int) const { csl_load_params(lv, dim, H, smem); }
   __device__ void fwd(const float* y, const float* k1, int row0, int rows, int,
                       int, float t, float dt, float* yn, float* kn, float* sums,
                       int A, float rtol, float atol, float* smem) const {
-    csl_fwd_tile(y, k1, lv.p[kCslParams], row0, rows, t, dt, smem, yn, kn, sums, A,
-                 dim, H, kinetic, rtol, atol, smem + csl_pad_floats(dim, H));
+    csl_forward_tile(y, k1, lv.p[kCslParams], row0, rows, t, dt, smem, yn, kn, sums, A,
+                     dim, H, kinetic, rtol, atol, smem + csl_pad_floats(dim, H));
   }
   __device__ void setup_bwd(float* smem, int) const {
     csl_load_weights(lv, dim, H, smem);
@@ -533,21 +535,22 @@ struct FwdArgs {
   float* hf;
   float* streams;  // (11, S), zero on entry
   float* final_;   // t, dt, qold, naccept, nreject, done
-  float* partials;  // (2, ntiles, 3)
+  float* partials;  // (2, nslots, 3): a slot Dyn::kSlotR rows
   int B, D, S;
   float rtol, atol;
   Ctrl ctrl;
 };
 
-// K3 for AlternatingMLP and CSL: the whole forward solve on row tiles
+// K3 for AlternatingMLP and CSL: the whole forward solve on row tiles of
+// Dyn::kFwdR rows, each writing its norm sums as R / kSlotR slots
 // (MLPDynamics solves in mlp_solve.cuh).
 template <class Dyn>
 __global__ void __launch_bounds__(kThreads) whole_solve_fwd_kernel(FwdArgs<Dyn> a) {
   extern __shared__ float smem[];
   __shared__ FwdState s;
   cg::grid_group grid = cg::this_grid();
-  constexpr int R = Dyn::kFwdR;
-  const int ntiles = (a.B + R - 1) / R;
+  constexpr int R = Dyn::kFwdR, SR = Dyn::kSlotR;
+  const int ntiles = (a.B + R - 1) / R, nslots = (a.B + SR - 1) / SR;
   const size_t BD = (size_t)a.B * a.D;
   const float t0 = a.scalars[0], t1 = a.scalars[1];
   const float tdir = sign_of(t1 - t0), span = fabsf(t1 - t0);
@@ -568,7 +571,7 @@ __global__ void __launch_bounds__(kThreads) whole_solve_fwd_kernel(FwdArgs<Dyn> 
     const float remaining = t1 - t;
     const bool is_last = (dt - remaining) * tdir >= 0.0f;
     const float dt_eff = is_last ? remaining : dt;
-    float* part = a.partials + (size_t)(i & 1) * ntiles * 3;
+    float* part = a.partials + (size_t)(i & 1) * nslots * 3;
     const float* yi = a.hy + (size_t)i * BD;
     const float* fi = a.hf + (size_t)i * BD;
     float* yn = a.hy + (size_t)(i + 1) * BD;
@@ -576,11 +579,11 @@ __global__ void __launch_bounds__(kThreads) whole_solve_fwd_kernel(FwdArgs<Dyn> 
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
       const int row0 = tile * R;
       a.dyn.fwd(yi, fi, row0, min(R, a.B - row0), i, a.B, t, dt_eff, yn, kn,
-                part + 3 * tile, a.D, a.rtol, a.atol, smem);
+                part + 3 * (R / SR) * tile, a.D, a.rtol, a.atol, smem);
     }
     grid.sync();
     if (threadIdx.x < 32)
-      fwd_decide(a, s, part, ntiles, i, t, dt, dt_eff, is_last, t1, tdir, span, count);
+      fwd_decide(a, s, part, nslots, i, t, dt, dt_eff, is_last, t1, tdir, span, count);
     __syncthreads();
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
       const int row0 = tile * R, rows = min(R, a.B - row0);
@@ -1180,7 +1183,9 @@ int regnde_whole_solve_altmlp_bwd(const float* scalars, const float* streams,
 // K3 for FFJORD's CSL dynamics: as regnde_whole_solve_altmlp_fwd with the
 // leaves as a host array of 16 device pointers (the 15 parameters of
 // CSLDynamics, then the probe e, B x dim) and the kinetic flag; A is the
-// augmented state's width, dim + 1 or dim + 3. partials: (2, ceil(B/2), 3).
+// augmented state's width, dim + 1 or dim + 3. One block an 8-row tile
+// (the grid is ceil(B/8) where the card holds it); partials: (2, ceil(B/2),
+// 3), a slot a 2-row sub-tile.
 int regnde_whole_solve_csl_fwd(const float* scalars, const float* y0,
                                const float* f0, const float* const* leaves,
                                int kinetic, const float* saveat, int* cursors,
@@ -1197,8 +1202,20 @@ int regnde_whole_solve_csl_fwd(const float* scalars, const float* y0,
                     make_ctrl(beta1, beta2, qmin, qmax, gamma, qoldinit, qsteady_max)};
   return (int)launch_cooperative((const void*)whole_solve_fwd_kernel<CslDyn>, &a,
                                  csl_fwd_smem_bytes(A, dim, H),
-                                 (B + kCslRows - 1) / kCslRows,
+                                 (B + kCslBwdRows - 1) / kCslBwdRows,
                                  static_cast<cudaStream_t>(stream), nullptr);
+}
+
+// K3-CSL's cooperative grid at B x A x H (kinetic as above): one block a
+// tile where the card holds them all, else as many as it holds; minus the
+// CUDA error code if the card cannot say.
+int regnde_whole_solve_csl_fwd_grid(int B, int A, int H, int kinetic) {
+  const int dim = A - 1 - 2 * kinetic;
+  int capacity = 0;
+  const cudaError_t e = cooperative_capacity((const void*)whole_solve_fwd_kernel<CslDyn>,
+                                             csl_fwd_smem_bytes(A, dim, H), &capacity);
+  if (e != cudaSuccess) return -(int)e;
+  return min(capacity, (B + kCslBwdRows - 1) / kCslBwdRows);
 }
 
 // K4 for FFJORD's CSL dynamics on 8-row tiles (one a block at B <= 8 x the

@@ -46,11 +46,14 @@ _SIGNATURES = {
     "regnde_altmlp_fwd": [_P] * 5 + [_I] + [_P] * 4 + [_I] * 3 + [_F] * 2 + [_P],
     "regnde_altmlp_bwd": [_P] * 4 + [_I] + [_P] * 7 + [_I] * 3 + [_F] * 2 + [_P],
     "regnde_csl_rows": [],
+    "regnde_csl_slot_rows": [],
+    "regnde_csl_fwd_smem_bytes": [_I] * 3,
     "regnde_csl_fwd": [_P] * 5 + [_I] + [_P] * 4 + [_I] * 3 + [_F] * 2 + [_P],
     "regnde_csl_bwd": [_P] * 5 + [_I] + [_P] * 8 + [_I] * 3 + [_F] * 2 + [_P],
     "regnde_csl_bwd_rows": [],
     "regnde_csl_bwd_smem_bytes": [_I] * 3,
     "regnde_csl_bwd_max_tiles": [],
+    "regnde_whole_solve_csl_fwd_grid": [_I] * 4,
     "regnde_whole_solve_csl_fwd": [_P] * 4 + [_I] + [_P] * 9 + [_I] * 5 + [_F] * 9 + [_P],
     "regnde_whole_solve_csl_bwd": [_P] * 5 + [_I] + [_P] * 12 + [_I] * 6 + [_F] * 9 + [_P],
     "regnde_sde_rows": [],

@@ -50,7 +50,8 @@ import torch
 from regneuralde_tpu_torch.ops.fused_generic import _leaf_pointers
 from regneuralde_tpu_torch.ops.fused_mlp import _ptr, _scalar_f32, _stage_acc
 from regneuralde_tpu_torch.ops.math import sigmoid, softplus
-from regneuralde_tpu_torch.ops.ode import NormedSweep, _max_grad, plain_normed_sweep
+from regneuralde_tpu_torch.ops.ode import (NormedSweep, _max_grad, normed_terms,
+                                          plain_normed_sweep)
 from regneuralde_tpu_torch.ops.tableaus import TSIT5
 
 # Launches of each kernel, counted by its wrapper where it launches.
@@ -68,6 +69,11 @@ LEAF_NAMES = [f"csl{i}.{p}" for i in (1, 2, 3) for p in
 CSL_BWD_ROWS = 8
 CSL_BWD_MAX_TILES = 5 * 256
 SMEM_LIMIT = 232_448
+# K7-CSL's and K3-CSL's forward tile body (csl_forward_tile): rows a tile
+# (the reverse's), rows a norm-sum slot (kCslSlotRows), threads a block.
+CSL_FWD_ROWS = 8
+CSL_SLOT_ROWS = 2
+_THREADS = 256
 
 
 def reset_launches() -> None:
@@ -185,10 +191,61 @@ def csl_aug_apply(dim: int, kinetic: bool) -> Callable:
 
 def plain_csl_normed_sweep(t, dt, y, k1, leaves, rtol, atol) -> NormedSweep:
     """Plain version of K7-CSL: ``(y_new, k7, err_ssq, num_ssq, den_ssq)``,
-    the algebra of ``pallas_generic._stage_algebra`` over ``csl_aug_apply``."""
+    the algebra of ``pallas_generic._stage_algebra`` over ``csl_aug_apply``.
+    The kernel's order of sums is ``plain_csl_fwd_tiles``."""
     D, _, kinetic = csl_dims(y, leaves)
     return plain_normed_sweep(csl_aug_apply(D, kinetic), t, dt, y, k1, tuple(leaves),
                               float(rtol), float(atol))
+
+
+def csl_slot_order_sums(terms, slot_rows=CSL_SLOT_ROWS):
+    """The sums over the batch of each of ``terms`` (each ``(B, A)``) in
+    the order K7-CSL and K3-CSL take them (``csrc/csl_tsit5.cuh``
+    ``csl_slot_sums``): per slot of ``slot_rows`` rows, element ``j`` of
+    the slot's row-major elements is taken by thread ``j % 256``, which adds
+    its elements in order of ``j``; a shuffle tree a warp; the warps added
+    in order; then the slots, lane ``k % 32`` adding slot ``k`` in order of
+    ``k``, and a shuffle tree (``sum_slots_warp_kernel``, ``sum_tiles``).
+    Rows past the batch add zeros, which leave a sum of squares as it is.
+    In float32 the sums equal the kernels' bitwise when the terms do."""
+    from regneuralde_tpu_torch.ops.whole_solve import _warp_sum  # it imports this module
+
+    out = []
+    for x in terms:
+        B, A = x.shape
+        slots = -(-B // slot_rows)
+        per = x.new_zeros(slots * slot_rows * A)
+        per[:B * A] = x.reshape(-1)
+        n = slot_rows * A
+        laps = -(-n // _THREADS)
+        lanes = x.new_zeros((slots, laps * _THREADS))
+        lanes[:, :n] = per.reshape(slots, n)
+        lanes = lanes.reshape(slots, laps, _THREADS)
+        acc = x.new_zeros((slots, _THREADS))
+        for lap in range(laps):
+            acc = acc + lanes[:, lap]
+        warps = _warp_sum(acc.reshape(slots, _THREADS // 32, 32))
+        slot = x.new_zeros(slots)
+        for w in range(_THREADS // 32):
+            slot = slot + warps[:, w]
+        strided = torch.cat([slot, slot.new_zeros(-slots % 32)]).reshape(-1, 32)
+        lane_sums = x.new_zeros(32)
+        for row in strided:
+            lane_sums = lane_sums + row
+        out.append(_warp_sum(lane_sums))
+    return tuple(out)
+
+
+def plain_csl_fwd_tiles(t, dt, y, k1, leaves, rtol, atol) -> NormedSweep:
+    """K7-CSL in its own order of sums: the plain version's rows and
+    per-element terms (``ode.normed_terms`` over ``csl_aug_apply``), the
+    three sums taken as the kernel takes them (``csl_slot_order_sums``).
+    For the tests: on the card the kernel's rows and sums equal these
+    bitwise."""
+    D, _, kinetic = csl_dims(y, leaves)
+    y_new, k7, *terms = normed_terms(csl_aug_apply(D, kinetic), t, dt, y, k1, tuple(leaves),
+                                     float(rtol), float(atol))
+    return NormedSweep(y_new, k7, *csl_slot_order_sums(terms))
 
 
 def _apply_bwd_rows(ti, z, acts, mz, eJ, ct_k, params, e, kinetic):
@@ -410,16 +467,62 @@ def _check_cuda_args(y, k1, leaves, extra=()):
     return B, A, H, int(kinetic)
 
 
+def _pad4(n):
+    return (n + 3) // 4 * 4
+
+
+class CslFwdPlan(NamedTuple):
+    """The forward tile body at a batch and widths: ``rows`` a tile,
+    ``slot_rows`` a norm-sum slot, ``tiles`` (K7-CSL's blocks, K3-CSL's
+    grid where the card holds them), ``slots`` and ``smem_bytes`` a
+    block."""
+    rows: int
+    slot_rows: int
+    tiles: int
+    slots: int
+    smem_bytes: int
+
+
+def csl_fwd_plan(B, D, H, kinetic) -> CslFwdPlan:
+    """``csrc/csl_tsit5.cuh``'s sizes of the forward body
+    (``csl_forward_floats``, ``csl_fwd_smem_bytes``) at ``B x D x H``;
+    raises ``ValueError`` for layers whose parameters and tile need more
+    shared memory than ``SMEM_LIMIT``."""
+    R, S, A = CSL_FWD_ROWS, CSL_SLOT_ROWS, D + (3 if kinetic else 1)
+    n, pd, ph = R * A, R * _pad4(D), R * _pad4(H)
+    parts = ([n, 7 * n, n, n, pd, 2 * pd, 2 * H + D] + [2 * max(pd, ph)] * 2
+             + [ph, ph, pd, 3 * (R // S) * (_THREADS // 32)])
+    params = sum(o * (i + 5) for i, o in ((D, H), (H, H), (H, D)))
+    smem = 4 * (params + 4 + sum(_pad4(x) for x in parts))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"K7-CSL's tile body holds at most {SMEM_LIMIT} bytes of shared "
+                         f"memory; dim {D}, hidden {H} need {smem}")
+    return CslFwdPlan(R, S, -(-B // R), -(-B // S), smem)
+
+
+@functools.lru_cache(maxsize=16)
+def check_fwd_plan(lib, A, D, H, kinetic) -> CslFwdPlan:
+    """``csl_fwd_plan`` held to the library's constants (once a shape)."""
+    plan = csl_fwd_plan(0, D, H, kinetic)
+    if (lib.regnde_csl_rows() != CSL_FWD_ROWS
+            or lib.regnde_csl_slot_rows() != CSL_SLOT_ROWS
+            or lib.regnde_csl_fwd_smem_bytes(A, D, H) != plan.smem_bytes):
+        raise RuntimeError("csl_fwd_plan disagrees with csrc/csl_tsit5.cuh's sizes")
+    return plan
+
+
 def _cuda_csl_fwd(t, dt, y, k1, leaves, rtol, atol):
     from regneuralde_tpu_torch.ops import _cuda
 
     B, A, H, kinetic = _check_cuda_args(y, k1, leaves)
+    D = A - 1 - 2 * kinetic
+    plan = csl_fwd_plan(B, D, H, kinetic)
     lib = _cuda.library()
+    check_fwd_plan(lib, A, D, H, kinetic)
     t32, dt32 = _scalar_f32(t, y), _scalar_f32(dt, y)
     y_new = torch.empty_like(y)
     k7 = torch.empty_like(y)
-    rows = lib.regnde_csl_rows()
-    partials = torch.empty(((B + rows - 1) // rows, 3), device=y.device)
+    partials = torch.empty((plan.slots, 3), device=y.device)
     sums = torch.empty(3, device=y.device)
     ptrs = _leaf_pointers(leaves)
     stream = torch.cuda.current_stream(y.device).cuda_stream
@@ -452,10 +555,6 @@ class CslBwdPlan(NamedTuple):
     cw_tiles: int
     smem_bytes: int
     record_floats: int
-
-
-def _pad4(n):
-    return (n + 3) // 4 * 4
 
 
 def csl_bwd_plan(B, D, H, kinetic) -> CslBwdPlan:

@@ -747,13 +747,16 @@ def _opt_ptr(x):
     return None if x is None else fm._ptr(x)
 
 
-def _tile_rows(lib, dynamics, bwd=False):
-    """Rows of the tiles K3 and, with ``bwd``, K4 for AlternatingMLP and CSL
-    run on (MLPDynamics' run on ``walk_plan``'s; K4-CSL on K8-CSL's tile
-    body, 8 rows)."""
+def _slot_rows(lib, dynamics, bwd=False):
+    """Rows of one slot of the per-trial-step partials of K3 (the norm sums)
+    and, with ``bwd``, of K4 ((ct_t, ct_dt)) for AlternatingMLP and CSL
+    (MLPDynamics' kernels run on ``walk_plan``'s tiles). A slot is a tile:
+    AlternatingMLP's (K7's and K8's tile body), K4-CSL's (K8-CSL's, 8 rows);
+    but K3-CSL's 8-row tiles (K7-CSL's body) write one slot a 2-row
+    sub-tile."""
     if dynamics == "altmlp":
         return lib.regnde_altmlp_rows()
-    return lib.regnde_csl_bwd_rows() if bwd else lib.regnde_csl_rows()
+    return lib.regnde_csl_bwd_rows() if bwd else lib.regnde_csl_slot_rows()
 
 
 def _cuda_walk_plan(lib, B, D, H, dev, lanes=False):
@@ -852,8 +855,10 @@ def _cuda_whole_solve_fwd(t0, t1, dt0, y0, f0, leaves, rtol, atol, ctrl,
             plan.rows, plan.cols, plan.row_blocks, plan.col_blocks, plan.chunks, *tail)
         name = "whole_solve_fwd"
     else:
-        tile = _tile_rows(lib, dynamics)
-        partials = torch.empty((2, (B + tile - 1) // tile, 3), device=dev)
+        if dynamics == "csl":
+            fc.check_fwd_plan(lib, D, D - 1 - 2 * kinetic, H, kinetic)
+        slot = _slot_rows(lib, dynamics)
+        partials = torch.empty((2, (B + slot - 1) // slot, 3), device=dev)
         head = (ptr(scalars), ptr(y0), ptr(f0),
                 ctypes.cast(fg._leaf_pointers(leaves), ctypes.c_void_p))
         rest = (*save_ptrs, *rows, ptr(partials), B, D, H, max_steps, n_save, *tail)
@@ -930,7 +935,7 @@ def _cuda_whole_solve_bwd(rec, ns, ct_y1, ct_tel, t0, t1, leaves, rtol, atol,
             chunk_rows, wfloats, *tail)
         name = "whole_solve_bwd"
     else:
-        rows = _tile_rows(lib, dynamics, bwd=True)
+        rows = _slot_rows(lib, dynamics, bwd=True)
         ntiles = (B + rows - 1) // rows
         partials = torch.empty((2, ntiles, 4), device=dev)
         # the leaves with a cotangent: CSL's probe has none

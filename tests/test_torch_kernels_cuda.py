@@ -1030,6 +1030,102 @@ def test_whole_solve_csl_kernels_are_deterministic(cuda):
     assert all(torch.equal(u, v) for u, v in zip(ga, gb))
 
 
+# (batch, dim, hidden, kinetic): FFJORD's width with and without the
+# kinetic terms, ragged batches (a last 8-row tile of 5 rows, its last 2-row
+# slot of one), small widths
+CSL_FWD_SHAPES = [(1024, 43, 100, False), (1024, 43, 100, True), (1021, 43, 100, False),
+                  (13, 5, 8, True), (7, 3, 6, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tol", [1e-5, 1.4e-8])
+@pytest.mark.parametrize("shape", CSL_FWD_SHAPES)
+def test_csl_fwd_matches_its_schedule(cuda, shape, tol):
+    """K7-CSL (8-row tiles, one norm-sum slot a 2-row sub-tile) bitwise:
+    y_new and k7 equal the plain version's, the three sums its schedule's
+    (``fc.plain_csl_fwd_tiles``: the plain terms summed slot by slot as
+    the kernel sums them); ceil(B/8) blocks, one launch."""
+    batch, dim, hidden, kinetic = shape
+    y, k1, leaves, _ = _csl_inputs(batch, dim, hidden, kinetic, cuda, seed=batch)
+    t, dt = torch.tensor(T, device=cuda), torch.tensor(DT, device=cuda)
+    fc.reset_launches()
+    kern = fc.csl_normed_sweep(t, dt, y, k1, leaves, tol, tol)
+    plain = fc.plain_csl_normed_sweep(t, dt, y, k1, leaves, tol, tol)
+    sched = fc.plain_csl_fwd_tiles(t, dt, y, k1, leaves, tol, tol)
+    assert torch.equal(kern.y_new, plain.y_new) and torch.equal(kern.k_last, plain.k_last)
+    assert torch.equal(sched.y_new, plain.y_new) and torch.equal(sched.k_last, plain.k_last)
+    for a, b in zip(kern[2:], sched[2:]):
+        assert torch.equal(a, b), (a.item(), b.item())
+    assert fc.LAUNCHES == {"csl_tsit5_fwd": 1, "csl_tsit5_bwd": 0}
+    assert fc.csl_fwd_plan(batch, dim, hidden, kinetic).tiles == -(-batch // 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch, kinetic, tol", [(1024, False, 1.4e-8), (1021, True, 1e-5),
+                                                 (13, True, 1.4e-8)])
+def test_csl_whole_solve_steps_are_k7s(cuda, batch, kinetic, tol):
+    """K3-CSL runs K7-CSL's tile body, one 8-row tile a block of its
+    cooperative grid: every stored trial step (rows and norm sums) equals a
+    K7-CSL launch on its inputs bitwise, at FFJORD's width, a ragged batch
+    and a small one."""
+    from regneuralde_tpu_torch.ops import _cuda
+
+    args, kw = _csl_solve_args(batch, 43, 100, kinetic, cuda, tol=tol, seed=batch)
+    A = args[3].shape[1]
+    grid = _cuda.library().regnde_whole_solve_csl_fwd_grid(batch, A, 100, int(kinetic))
+    assert grid == -(-batch // 8)
+    rk = ws.whole_solve_fwd(*args, **kw)
+    ns = int(rk.final[3:5].sum().item())
+    assert rk.final[5].item() == 1.0 and ns > 2
+    t1, leaves = args[1], args[5]
+    for i in range(ns):
+        t, dt = rk.streams[ws.ST_T, i], rk.streams[ws.ST_DT, i]
+        dt_eff = torch.where(dt - (t1 - t) >= 0, t1 - t, dt)
+        res = fc.csl_normed_sweep(t, dt_eff, rk.hy[i], rk.hf[i], leaves, tol, tol)
+        assert torch.equal(torch.stack(res[2:]), rk.streams[ws.ST_E:ws.ST_ACC, i]), i
+        if rk.streams[ws.ST_ACC, i] == 1:
+            assert torch.equal(res.y_new, rk.hy[i + 1]) and torch.equal(res.k_last, rk.hf[i + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch, kinetic", [(1024, True), (1021, False)])
+def test_csl_fwd_is_bitwise_deterministic(cuda, batch, kinetic):
+    """K7-CSL's slots and K3-CSL's are summed in a fixed order (no atomics):
+    three K7-CSL launches, and two K3-CSL solves, are bitwise equal."""
+    y, k1, leaves, _ = _csl_inputs(batch, 43, 100, kinetic, cuda, seed=5)
+    t, dt = torch.tensor(T, device=cuda), torch.tensor(DT, device=cuda)
+    runs = [fc.csl_normed_sweep(t, dt, y, k1, leaves, 1.4e-8, 1.4e-8) for _ in range(3)]
+    for r in runs[1:]:
+        assert all(torch.equal(u, v) for u, v in zip(runs[0], r))
+    args, kw = _csl_solve_args(batch, 43, 100, kinetic, cuda, tol=1.4e-8, seed=5)
+    a, b = ws.whole_solve_fwd(*args, **kw), ws.whole_solve_fwd(*args, **kw)
+    ns = int(a.final[3:5].sum().item())
+    for x, z in ((a.final, b.final), (a.streams, b.streams), (a.y1, b.y1),
+                 (a.hy[:ns + 1], b.hy[:ns + 1]), (a.hf[:ns + 1], b.hf[:ns + 1])):
+        assert torch.equal(x, z)
+
+
+@pytest.mark.cuda
+def test_csl_fwd_plan_is_the_librarys(cuda):
+    """``fc.csl_fwd_plan``'s rows, slot rows and shared memory are the
+    library's at every width the card tests run, and both forward wrappers
+    refuse layers the body does not hold with a ValueError."""
+    from regneuralde_tpu_torch.ops import _cuda
+
+    lib = _cuda.library()
+    for D, H in ((43, 100), (5, 16), (5, 8), (3, 6)):
+        for kinetic in (False, True):
+            plan = fc.check_fwd_plan(lib, D + (3 if kinetic else 1), D, H, kinetic)
+            assert (plan.rows, plan.slot_rows) == (8, 2) and plan.smem_bytes <= fc.SMEM_LIMIT
+    y, k1, leaves, _ = _csl_inputs(16, 43, 170, False, cuda)
+    t, dt = torch.tensor(T, device=cuda), torch.tensor(DT, device=cuda)
+    with pytest.raises(ValueError, match="tile body holds at most"):
+        fc.csl_normed_sweep(t, dt, y, k1, leaves, 1e-5, 1e-5)
+    args, kw = _csl_solve_args(16, 43, 170, False, cuda)
+    with pytest.raises(ValueError, match="tile body holds at most"):
+        ws.whole_solve_fwd(*args, **kw)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("fused", ["step", True])
 def test_ffjord_trains_through_the_csl_kernels(cuda, fused):

@@ -10,7 +10,8 @@ archive <commit> | tar -x -C build/parent``). Each run imports that tree's
 the named phases' kernel checks (``altmlp``: K7/K8 and K3/K4 for
 AlternatingMLP, ``csl``: K7/K8-CSL and K3/K4-CSL, with K8-CSL's device
 time under ``torch.profiler`` at phase 15's inputs (its kernel and its slot
-sum apart) and K4-CSL's over phase 16's solves (by tolerance), ``mlp``: K1/K2 and K3/K4
+sum apart) and K4-CSL's over phase 16's solves (by tolerance), and K7-CSL's
+and K3-CSL's likewise, ``mlp``: K1/K2 and K3/K4
 for MLPDynamics, with K1's and K2's device time under ``torch.profiler`` at
 phase 2's inputs, K2's kernels and its contraction apart, whichever kernels
 the tree has for them, ``sde``: K9/K10 for the MLP pair, ``lanes``: K11/K12,
@@ -145,13 +146,15 @@ def fwd(dev):
 
 
 def csl_device(dev):
-    """Device ms a launch of K8-CSL at phase 15's inputs (1.4e-8, without
-    the kinetic terms), its kernel (csl_bwd_kernel) and its slot sum
-    (sum_slots_kernel) apart, and of K4-CSL (whole_solve_bwd_kernel<CslDyn>)
-    over phase 16's solves, each call of its wrapper under its own
+    """Device ms a launch of K7-CSL and of K8-CSL at phase 15's inputs
+    (1.4e-8, without the kinetic terms), each kernel (csl_fwd_kernel,
+    csl_bwd_kernel) and its slot sum (sum_slots_warp_kernel,
+    sum_slots_kernel) apart, and of K3-CSL and K4-CSL
+    (whole_solve_fwd_kernel<CslDyn>, whole_solve_bwd_kernel<CslDyn>) over
+    phase 16's solves, each call of their wrappers under its own
     torch.profiler, by tolerance and trial steps (the same names in either
-    tree). Phase 16's own device-time reading is left out (one profiler at a
-    time)."""
+    tree). Phase 16's own device-time readings are left out (one profiler
+    at a time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -164,31 +167,43 @@ def csl_device(dev):
     cts = [torch.randn(y.shape, generator=gen).to(dev), torch.randn(y.shape, generator=gen).to(dev),
            *(torch.tensor(v, device=dev) for v in (0.7, 1.3, -0.4))]
     t, dt = torch.tensor(0.07, device=dev), torch.tensor(0.11, device=dev)
+    fwd = lambda: fc.csl_normed_sweep(t, dt, y, k1, leaves, tol, tol)
     bwd = lambda: fc.csl_normed_sweep_bwd(t, dt, y, k1, leaves, cts, tol, tol)
-    out = {"K8_csl_device_kernel": {"ms": device_ms(bwd, ("csl_bwd_kernel",))},
+    out = {"K7_csl_device_kernel": {"ms": device_ms(fwd, ("csl_fwd_kernel",))},
+           "K7_csl_device_slot_sum": {"ms": device_ms(fwd, ("sum_slots_warp_kernel",))},
+           "K8_csl_device_kernel": {"ms": device_ms(bwd, ("csl_bwd_kernel",))},
            "K8_csl_device_slot_sum": {"ms": device_ms(bwd, ("sum_slots_kernel",))}}
-    inner, sums = ws.whole_solve_bwd, {}
+    sums = {}
 
-    def profiled(*a, **k):
-        if k.get("dynamics") != "csl":
-            return inner(*a, **k)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            res = inner(*a, **k)
+    def profiled(inner, tag, kernel, key):
+        def call(*a, **k):
+            if k.get("dynamics") != "csl":
+                return inner(*a, **k)
             torch.cuda.synchronize()
-        key = f"K4_csl_device_tol={a[7]:g}_ns={a[1]}"
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CUDA and "whole_solve_bwd_kernel" in e.key:
-                us, n = sums.get(key, (0.0, 0))
-                sums[key] = (us + e.self_device_time_total, n + e.count)
-        return res
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                res = inner(*a, **k)
+                torch.cuda.synchronize()
+            name = f"{tag}_csl_device_{key(a, res)}"
+            for e in prof.key_averages():
+                if e.device_type == DeviceType.CUDA and kernel in e.key:
+                    us, n = sums.get(name, (0.0, 0))
+                    sums[name] = (us + e.self_device_time_total, n + e.count)
+            return res
+        return call
 
+    inner_f, inner_b = ws.whole_solve_fwd, ws.whole_solve_bwd
+    ns_of = lambda rec: int(rec.final[3:5].sum().item())
     device_ms_of_phase = getattr(cs, "_device_ms", None)
-    ws.whole_solve_bwd, cs._device_ms = profiled, lambda *a, **k: None
+    ws.whole_solve_fwd = profiled(inner_f, "K3", "whole_solve_fwd_kernel",
+                                  lambda a, res: f"tol={a[6]:g}_ns={ns_of(res)}")
+    ws.whole_solve_bwd = profiled(inner_b, "K4", "whole_solve_bwd_kernel",
+                                  lambda a, res: f"tol={a[7]:g}_ns={a[1]}")
+    cs._device_ms = lambda *a, **k: None
     try:
         cs.phase_whole_solve_csl_kernels(dev, cs.ffjord_batches(1, dev)[0])
     finally:
-        ws.whole_solve_bwd, cs._device_ms = inner, device_ms_of_phase
+        ws.whole_solve_fwd, ws.whole_solve_bwd = inner_f, inner_b
+        cs._device_ms = device_ms_of_phase
     out.update({key: {"ms": us / n / 1e3} for key, (us, n) in sums.items()})
     return out
 
