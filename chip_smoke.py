@@ -50,7 +50,8 @@ at first use. Phases (each checks its results; any failure exits non-zero):
    no step-kernel launch;
 8. K7 and K8 (the AlternatingMLP trial-step kernels) against their plain
    versions at B=256, D=20, H=50, depth 4, at rtol=atol=1e-4 and 1.4e-8,
-   bitwise determinism, and CUDA-event times of both;
+   bitwise determinism, and CUDA-event times of both; K8's grid (2-row
+   tiles, one wave) and device time, its kernel and its slot sum apart;
 9. one forward+backward of the latent-ODE training step at full width
    (rtol=atol=1e-5), ``fused="step"`` against ``fused=False``: identical NFE
    and accept sequence, gradient bounds as in phase 3;
@@ -67,7 +68,8 @@ at first use. Phases (each checks its results; any failure exits non-zero):
    its controller bitwise equal to ``ode._post`` on the card, K4 within
    BWD_BOUND (TEL_BWD_BOUND with the telemetry's cotangents) of its plain
    version and within 3 times the plain version's distance from a
-   float64 walk, bitwise determinism, CUDA-event times of both;
+   float64 walk, bitwise determinism, CUDA-event times of both; K4's
+   device time a solve at 1.4e-8;
 12. the MLPDynamics whole solve with 5 saves against its plain version at
    64x40x24 (the save cursor on the other instantiation), and K4 on the
    stream bitwise equal to K4 replaying the stages;
@@ -952,7 +954,9 @@ def latent_batches(n, device):
 def phase_altmlp_kernels(device):
     """K7/K8 against their plain versions on seeded random inputs at the
     latent shape (random k1 keeps the embedded error far above float32
-    rounding), at rtol=atol=1e-4 and 1.4e-8; bitwise determinism; times."""
+    rounding), at rtol=atol=1e-4 and 1.4e-8; bitwise determinism; times;
+    K8's blocks a launch (one wave) and device time, its kernel and its
+    slot sum apart."""
     import torch
 
     from regneuralde_tpu_torch.ops import fused_generic as fg
@@ -1018,6 +1022,18 @@ def phase_altmlp_kernels(device):
     }
     print("[altmlp] median ms over %d runs at %dx%dx%dx%d: %s"
           % (REPS, B, D, H, LATENT_DEPTH, json.dumps(times)))
+    # K8's grid and device time, its kernel and its slot sum apart
+    from regneuralde_tpu_torch.ops import _cuda
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = fg.check_bwd_plan(_cuda.library(), D, H, LATENT_DEPTH)
+    blocks = fg.altmlp_bwd_plan(B, D, H, LATENT_DEPTH).tiles
+    bwd = lambda: fg.altmlp_normed_sweep_bwd(t, dt, y, k1, leaves, cts, tol, tol)
+    dev_k, dev_s = _device_ms(bwd, "altmlp_bwd_kernel"), _device_ms(bwd, "sum_slots_kernel")
+    print(f"[altmlp] K8: {blocks} blocks of {plan.rows} rows a launch on {sms} SMs, "
+          f"{plan.smem_bytes} bytes of shared memory a block; device ms a launch: "
+          f"altmlp_bwd_kernel {dev_k!r}, sum_slots_kernel {dev_s!r}")
+    _check(blocks <= sms, f"K8 runs in one wave: {blocks} blocks on {sms} SMs")
     f_ops, b_ops, leaf = _altmlp_work(B, D, H, LATENT_DEPTH)
     return {
         "altmlp_tsit5_fwd": dict(
@@ -1366,7 +1382,8 @@ def phase_whole_solve_altmlp_kernels(device, saveat):
     BWD_BOUND of its plain version with the rows' cotangents and within
     TEL_BWD_BOUND with the telemetry's (every output but ct_f0); ct_f0
     with the cotangent of y1 alone within BWD_BOUND of the plain version.
-    CUDA-event times of both kernels at 1.4e-8."""
+    CUDA-event times of both kernels at 1.4e-8, and K4's device time a
+    solve there."""
     import torch
 
     from regneuralde_tpu_torch.ops import fused_generic as fg
@@ -1404,6 +1421,9 @@ def phase_whole_solve_altmlp_kernels(device, saveat):
     print("[whole-altmlp] median ms over %d runs at %dx%dx%dx%d, %d saves, tol %g, "
           "%d trial steps: %s" % (REPS, B, D, H, LATENT_DEPTH, sa.shape[0], FLAGSHIP_TOL,
                                   ns, json.dumps(times)))
+    dev = _device_ms(lambda: ws.whole_solve_bwd(*bwd, **bkw), "whole_solve_bwd_kernel")
+    print(f"[whole-altmlp] K4 device ms a solve of {ns} trial steps: "
+          f"whole_solve_bwd_kernel {dev!r}")
     f_ops, b_ops, leaf = _altmlp_work(B, D, H, LATENT_DEPTH)
     nbytes = _solve_bytes(B * D, leaf, ns, sa.shape[0], LATENT_MAX_STEPS)
     return {

@@ -16,27 +16,29 @@
 // depth 4) one trial step is 6 stages x 8 layers of (rows x 20 x 50)
 // products: 25 MFLOP forward, about 75 MFLOP backward, over 33 KB of
 // weights and 20 KB a row array. Nothing here approaches the card's f32
-// rate or bandwidth: the bound is latency, 6 x 8 dependent layers each
-// ending in a block barrier, plus the launches themselves.
+// rate or bandwidth: the bound is latency, 6 x 8 dependent layers (12 x 8
+// in the backward) and the block barriers between them, plus the launches
+// themselves.
 //
 // What the design does about it. Widths of 20 and 50 are far below a
 // tensor-core tile, so every product is FMA work on values in shared
-// memory:
-//   * one block owns a tile of kAltRows rows and runs the whole step; all
-//     leaves (8,280 floats) are loaded into shared memory once per launch,
-//     each weight row padded to an odd stride so that neither the forward
-//     (threads over outputs) nor the backward (threads over inputs) has
-//     bank conflicts;
-//   * the three norm sums leave each block as a per-tile slot, summed in
-//     tile order by a second small kernel (as K1);
-//   * K8 stores the nine activations of each stage during its stage
-//     recompute (6 x 300 floats a row) and walks the stages in reverse;
-//     each block accumulates the weight cotangents of its rows in shared
-//     memory, each element owned by one thread, writes them to a per-block
-//     slot, and a second kernel sums the slots in block order (as
-//     weight_cotangents.cu sums its chunks). No floating-point atomics anywhere,
-//     so every result is bitwise reproducible: the norm sums decide
-//     accept/reject, and a flipped accept changes NFE and the adjoint.
+// memory; all leaves (8,280 floats) are loaded into shared memory once per
+// launch, each weight row padded to an odd stride. No floating-point atomics
+// anywhere, so every result is bitwise reproducible: the norm sums decide
+// accept/reject, and a flipped accept changes NFE and the adjoint.
+//   * K7: one block owns a tile of kAltRows = 2 rows and runs the whole
+//     step; the three norm sums leave each block as a per-tile slot, summed
+//     in tile order by a second small kernel (as K1).
+//   * K8: one block owns a tile of kAltBwdRows rows and runs the reverse
+//     body altmlp_reverse_tile (altmlp_tsit5.cuh): each layer of the stage
+//     recompute and of the reverse is one phase between two block barriers
+//     in which every thread takes a share of the products (a product's sum
+//     split over lanes of a warp, added by a shuffle butterfly); the weight
+//     and bias cotangents stay in their owner threads' registers for the
+//     launch and reach the block's slot once; a second kernel sums the
+//     slots in block order (as weight_cotangents.cu sums its chunks). The
+//     records of stages 1-4 go through a per-block scratch in device memory
+//     (recs).
 // Arithmetic is IEEE (no fast math, no TF32), tanh is the accurate tanhf
 // (the counterpart of jnp.tanh; no tanh.approx.f32): the embedded error
 // estimate is a fifth-order cancellation. The forward reproduces its plain
@@ -47,7 +49,8 @@
 // no contraction into an FMA). At the latent ODE's width the error
 // estimate of a smooth solve sits at its f32 rounding floor, where any
 // other rounding moves the step sizes and with them NFE; bitwise stage
-// values keep kernel and plain solves on the same steps.
+// values keep kernel and plain solves on the same steps. K8's recompute
+// sums the same f64 terms in another order before its one rounding.
 
 #include "altmlp_tsit5.cuh"
 
@@ -71,11 +74,12 @@ altmlp_fwd_kernel(const float* __restrict__ t_p, const float* __restrict__ dt_p,
                   wsm + padded_weight_floats(depth, D, H));
 }
 
-// K8: the hand reverse chain of K7 per row tile, seeded with the row
-// cotangents ct_ynew, ct_k7 and the norm sums' cotangents. Writes the
-// tile's ct_y and ct_k1 rows, and to slots[tile] its weight cotangents
-// (leaf_floats, nn.Linear layout, leaves in order) followed by its
-// (ct_t, ct_dt). ct_t is exactly zero: the dynamics ignore t.
+// K8: the hand reverse chain of K7 per row tile of kAltBwdRows rows,
+// seeded with the row cotangents ct_ynew, ct_k7 and the norm sums'
+// cotangents. Writes the tile's ct_y and ct_k1 rows, and to slots[tile]
+// its weight cotangents (leaf_floats, nn.Linear layout, leaves in order)
+// followed by its (ct_t, ct_dt). ct_t is exactly zero: the dynamics ignore
+// t. recs: alt_reverse_records floats a block.
 __global__ void __launch_bounds__(kThreads)
 altmlp_bwd_kernel(const float* __restrict__ dt_p, const float* __restrict__ y,
                   const float* __restrict__ k1, const AltLeaves leaves,
@@ -83,21 +87,22 @@ altmlp_bwd_kernel(const float* __restrict__ dt_p, const float* __restrict__ y,
                   const float* __restrict__ ct_k7,
                   const float* __restrict__ ct_scalars,
                   float* __restrict__ ct_y, float* __restrict__ ct_k1,
-                  float* __restrict__ slots, int B, int D, int H, float rtol,
-                  float atol) {
+                  float* __restrict__ slots, float* __restrict__ recs, int B, int D, int H,
+                  float rtol, float atol) {
   extern __shared__ float smem[];
-  const int row0 = blockIdx.x * kAltRows;
+  const int row0 = blockIdx.x * kAltBwdRows;
   const int nleaf = leaf_floats(depth, D, H);
   float* wsm = smem;
-  float* cw = wsm + padded_weight_floats(depth, D, H);  // weight cotangents
+  float* tile = wsm + padded_weight_floats(depth, D, H);
   load_weights(leaves, depth, D, H, wsm);
-  for (int e = threadIdx.x; e < nleaf; e += kThreads) cw[e] = 0.0f;
+  AltCw cw;
+  alt_reverse_begin(cw, tile, depth, D, H);
   float* slot = slots + (size_t)blockIdx.x * (nleaf + 2);
-  altmlp_bwd_tile(y, k1, row0, min(kAltRows, B - row0), *dt_p, wsm, depth, cw,
-                  ct_ynew, ct_k7, nullptr, nullptr, ct_scalars[0],
-                  ct_scalars[1], ct_scalars[2], ct_y, ct_k1, slot + nleaf, D,
-                  H, rtol, atol, cw + nleaf);
-  for (int e = threadIdx.x; e < nleaf; e += kThreads) slot[e] = cw[e];
+  altmlp_reverse_tile(y, k1, row0, min(kAltBwdRows, B - row0), *dt_p, wsm, depth, cw,
+                      recs + (size_t)blockIdx.x * alt_reverse_records(depth, D, H), ct_ynew,
+                      ct_k7, nullptr, nullptr, ct_scalars[0], ct_scalars[1], ct_scalars[2],
+                      ct_y, ct_k1, slot + nleaf, D, H, rtol, atol, tile);
+  alt_cw_store(cw, tile, slot, depth, D, H);
 }
 
 }  // namespace
@@ -106,6 +111,11 @@ extern "C" {
 
 int regnde_altmlp_rows() { return kAltRows; }
 int regnde_altmlp_max_depth() { return kMaxLeaves / 4; }
+// K8's and K4's reverse tile: its rows, and its block's shared memory.
+int regnde_altmlp_bwd_rows() { return kAltBwdRows; }
+int regnde_altmlp_bwd_smem_bytes(int depth, int D, int H) {
+  return (int)altmlp_bwd_smem_bytes(depth, D, H);
+}
 
 // K7. leaves: host array of 4 * depth device pointers (up_0.weight,
 // up_0.bias, down_0.weight, down_0.bias, ...). partials: (ceil(B/R), 3)
@@ -132,12 +142,13 @@ int regnde_altmlp_fwd(const float* t, const float* dt, const float* y,
 
 // K8. ct_scalars: (3,) cotangents of the three sums. out: (leaf_floats +
 // 2,) the leaves' cotangents in order (nn.Linear layout), then ct_t and
-// ct_dt. slots: (ceil(B/R), leaf_floats + 2) scratch.
+// ct_dt. slots: (ceil(B/R), leaf_floats + 2) and recs: (ceil(B/R),
+// alt_reverse_records) scratch, R = kAltBwdRows.
 int regnde_altmlp_bwd(const float* dt, const float* y, const float* k1,
                       const float* const* leaves, int depth,
                       const float* ct_ynew, const float* ct_k7,
                       const float* ct_scalars, float* ct_y, float* ct_k1,
-                      float* slots, float* out, int B, int D, int H, float rtol,
+                      float* slots, float* recs, float* out, int B, int D, int H, float rtol,
                       float atol, void* stream) {
   if (depth < 1 || 4 * depth > kMaxLeaves) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -145,10 +156,10 @@ int regnde_altmlp_bwd(const float* dt, const float* y, const float* k1,
   cudaError_t e = cudaFuncSetAttribute(
       altmlp_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const int nblocks = (B + kAltRows - 1) / kAltRows;
+  const int nblocks = (B + kAltBwdRows - 1) / kAltBwdRows;
   altmlp_bwd_kernel<<<nblocks, kThreads, smem, s>>>(
       dt, y, k1, pack_leaves(leaves, depth), depth, ct_ynew, ct_k7, ct_scalars,
-      ct_y, ct_k1, slots, B, D, H, rtol, atol);
+      ct_y, ct_k1, slots, recs, B, D, H, rtol, atol);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int width = leaf_floats(depth, D, H) + 2;

@@ -62,86 +62,6 @@ __host__ __device__ inline int csl_leaf_floats(int D, int H) {
 // eJ (D each).
 __host__ __device__ inline int csl_rec_row(int D, int H) { return 6 * H + 2 * D; }
 
-// The seeds of a backward tile body from the outputs' cotangents: the
-// stage derivatives' cotangents cks (7 x n), the stage-6 seed seed6, the
-// stage-5 seed (into g6, which held the stage-5 state) and cty, the
-// direct cotangent of y. Elements past `valid` (rows past the batch end)
-// get none, so they add nothing to the parameter cotangents. Returns this
-// thread's share of ct_dt. The same algebra as altmlp_bwd_tile's seeds.
-__device__ __forceinline__ float normed_seeds(const float* y_s, const float* ks,
-                                              const float* ystage, float* cks, float* g6,
-                                              float* seed6, float* cty, int n, int valid,
-                                              size_t g0, const float* ct_ynew,
-                                              const float* ct_k7, float dt, float c_err,
-                                              float c_num, float c_den, float rtol,
-                                              float atol) {
-  float ct_dt = 0.0f;
-  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
-    if (idx >= valid) {
-      for (int j = 0; j < 7; ++j) cks[j * n + idx] = 0.0f;
-      seed6[idx] = g6[idx] = cty[idx] = 0.0f;
-      continue;
-    }
-    const float s_comb = err_comb_rn(ks, n, idx);
-    const float err = __fmul_rn(dt, s_comb);
-    const float yv = y_s[idx], yn = ystage[idx];
-    const float ay = fabsf(yv), an = fabsf(yn);
-    const float denom = __fadd_rn(atol, __fmul_rn(fmaxf(ay, an), rtol));
-    const float scaled = __fdiv_rn(err, denom);
-    const float cerr = c_err * 2.0f * scaled / denom;
-    const float cm = c_err * (-2.0f) * scaled * scaled / denom * rtol;
-    // max(|y|, |y_new|): a tie splits the cotangent in half (as autograd
-    // and jax.vjp do)
-    const float to_y = ay > an ? cm : (ay == an ? 0.5f * cm : 0.0f);
-    const float to_yn = an > ay ? cm : (ay == an ? 0.5f * cm : 0.0f);
-    const float d_k7 = c_num * 2.0f * (ks[6 * n + idx] - ks[5 * n + idx]);
-    const float d_ynew = c_den * 2.0f * (yn - g6[idx]);
-    const size_t g = g0 + idx;
-    const float cyn = ct_ynew ? __ldcg(ct_ynew + g) : 0.0f;
-    const float ck7 = ct_k7 ? __ldcg(ct_k7 + g) : 0.0f;
-    for (int j = 0; j < 7; ++j) cks[j * n + idx] = kBt[j] * (dt * cerr);
-    cks[6 * n + idx] += ck7 + d_k7;
-    cks[5 * n + idx] -= d_k7;
-    seed6[idx] = cyn + d_ynew + to_yn * sign_of(yn);
-    g6[idx] = -d_ynew;
-    cty[idx] = to_y * sign_of(yv);
-    ct_dt += cerr * s_comb;
-  }
-  return ct_dt;
-}
-
-// Element idx of stage i's state cotangent, ct_yi from the dynamics'
-// pullback: adds the seeds, then pulls y_i = y + dt * acc_i back into cty,
-// ct_dt (valid elements only) and the earlier stages' cks.
-__device__ __forceinline__ void stage_reverse(int i, int idx, float ct_yi,
-                                              bool valid, const float* ks,
-                                              float* cks, const float* seed6,
-                                              const float* g6, float* cty,
-                                              int n, float dt, float& ct_dt) {
-  if (i == 6) ct_yi += seed6[idx];
-  if (i == 5) ct_yi += g6[idx];
-  cty[idx] += ct_yi;
-  if (valid) ct_dt += ct_yi * stage_acc_rn(i, ks, n, idx);
-  for (int j = 0; j < i; ++j) {
-    const float c = kA[i - 1][j];
-    if (c != 0.0f) cks[j * n + idx] += (dt * c) * ct_yi;
-  }
-}
-
-// The end of a backward tile body: its first `valid` elements of ct_y and
-// ct_k1 (from element g0 of the global rows), each the pass-through
-// (null: zero) plus the tile's cty, cks[0].
-__device__ __forceinline__ void normed_tile_cts(const float* cty, const float* cks,
-                                                int valid, size_t g0, const float* pass_y,
-                                                const float* pass_k1, float* ct_y,
-                                                float* ct_k1) {
-  for (int idx = threadIdx.x; idx < valid; idx += kThreads) {
-    const size_t g = g0 + idx;
-    ct_y[g] = pass_y ? __ldcg(pass_y + g) + cty[idx] : cty[idx];
-    ct_k1[g] = pass_k1 ? __ldcg(pass_k1 + g) + cks[idx] : cks[idx];
-  }
-}
-
 __device__ __forceinline__ float csl_sigmoid(float x) {
   return __frcp_rn(__fadd_rn(1.0f, expf(-x)));
 }

@@ -59,9 +59,10 @@
 //     pullback of ops/ode.py post_bwd. Scalar cotangents are per-tile slots
 //     summed in tile order. MLPDynamics' weight-cotangent rows of each trial
 //     step are stored (about 22 MB a step at 512x784x100) and summed after
-//     the walk by one fixed-order contraction; AlternatingMLP's and CSL's
-//     block keeps its tiles' weight cotangents in shared memory for the
-//     whole walk, and one pass sums the blocks' slots in block order.
+//     the walk by one fixed-order contraction; AlternatingMLP's block keeps
+//     its tiles' weight cotangents with their owner threads for the whole
+//     walk (in registers where they fit) and CSL's adds them to its slot
+//     every trial step, and one pass sums the blocks' slots in block order.
 //   * MLPDynamics streams its stage residuals, as the TPU's K3/K4 do with
 //     cache_residuals: each trial step of K3 stores its six fresh stage
 //     derivatives k2..k7 and each stage's hidden activations (ks: S x 6 x
@@ -433,14 +434,19 @@ struct MlpDyn {
   int H;
 };
 
-// AlternatingMLP: K7's and K8's tile bodies, the padded leaves in shared
-// memory for the whole solve. The backward accumulates its tiles' weight
-// cotangents in shared memory over the whole walk and writes them to
-// slots[blockIdx.x] at the end.
+// AlternatingMLP: K7's tile body forward (2-row tiles) and K8's reverse
+// body backward (altmlp_reverse_tile, kAltBwdRows-row tiles), the padded
+// leaves in shared memory for the whole solve. The backward's weight and
+// bias cotangents stay with their owner threads for the whole walk (Regs:
+// in registers, the rest in the walk's shared memory) and reach
+// slots[blockIdx.x] (leaf_floats) once, at the end; from float pad4(grid *
+// leaf_floats) on, slots holds each block's activation records
+// (alt_reverse_records).
 struct AltDyn {
-  static constexpr int kFwdR = kAltRows, kBwdR = kAltRows, kSlotR = kAltRows;
+  static constexpr int kFwdR = kAltRows, kBwdR = kAltBwdRows, kSlotR = kAltRows;
+  using Regs = AltCw;
   AltLeaves lv;
-  float* slots;  // (grid, leaf_floats)
+  float* slots;
   int depth, H;
 
   __device__ void setup_fwd(float* smem, int D) const {
@@ -452,28 +458,25 @@ struct AltDyn {
     altmlp_fwd_tile(y, k1, row0, rows, dt, smem, depth, yn, kn, sums, D, H,
                     rtol, atol, smem + padded_weight_floats(depth, D, H));
   }
-  __device__ void setup_bwd(float* smem, int D) const {
+  __device__ void setup_bwd(float* smem, int D, AltCw& cw) const {
     load_weights(lv, depth, D, H, smem);
-    float* cw = smem + padded_weight_floats(depth, D, H);
-    for (int e = threadIdx.x; e < leaf_floats(depth, D, H); e += kThreads) cw[e] = 0.0f;
+    alt_reverse_begin(cw, smem + padded_weight_floats(depth, D, H), depth, D, H);
   }
   __device__ void bwd(const float* y, const float* k1, int row0, int rows, int,
                       int, float, float dt, const float* ct_ynew,
                       const float* ct_k7, const float* pass_y,
                       const float* pass_k1, float c_err, float c_num,
                       float c_den, float* ct_y, float* ct_k1, float* part,
-                      int D, float rtol, float atol, float* smem) const {
-    float* cw = smem + padded_weight_floats(depth, D, H);
-    altmlp_bwd_tile(y, k1, row0, rows, dt, smem, depth, cw, ct_ynew, ct_k7,
-                    pass_y, pass_k1, c_err, c_num, c_den, ct_y, ct_k1, part, D,
-                    H, rtol, atol, cw + leaf_floats(depth, D, H));
+                      int D, float rtol, float atol, float* smem, AltCw& cw) const {
+    float* recs = slots + alt_pad4((int)gridDim.x * leaf_floats(depth, D, H)) +
+                  (size_t)blockIdx.x * alt_reverse_records(depth, D, H);
+    altmlp_reverse_tile(y, k1, row0, rows, dt, smem, depth, cw, recs, ct_ynew, ct_k7, pass_y,
+                        pass_k1, c_err, c_num, c_den, ct_y, ct_k1, part, D, H, rtol, atol,
+                        smem + padded_weight_floats(depth, D, H));
   }
-  __device__ void finish_bwd(float* smem, int D) const {
-    const int nleaf = leaf_floats(depth, D, H);
-    const float* cw = smem + padded_weight_floats(depth, D, H);
-    float* slot = slots + (size_t)blockIdx.x * nleaf;
-    __syncthreads();
-    for (int e = threadIdx.x; e < nleaf; e += kThreads) slot[e] = cw[e];
+  __device__ void finish_bwd(float* smem, int D, const AltCw& cw) const {
+    alt_cw_store(cw, smem + padded_weight_floats(depth, D, H),
+                 slots + (size_t)blockIdx.x * leaf_floats(depth, D, H), depth, D, H);
   }
 };
 
@@ -489,6 +492,7 @@ struct AltDyn {
 // A = dim + 1 or dim + 3 (kinetic).
 struct CslDyn {
   static constexpr int kFwdR = kCslBwdRows, kBwdR = kCslBwdRows, kSlotR = kCslSlotRows;
+  struct Regs {};  // its cotangents live in the slots
   CslLeaves lv;
   float* slots;
   int dim, H, kinetic;
@@ -500,7 +504,7 @@ struct CslDyn {
     csl_forward_tile(y, k1, lv.p[kCslParams], row0, rows, t, dt, smem, yn, kn, sums, A,
                      dim, H, kinetic, rtol, atol, smem + csl_pad_floats(dim, H));
   }
-  __device__ void setup_bwd(float* smem, int) const {
+  __device__ void setup_bwd(float* smem, int, Regs&) const {
     csl_load_weights(lv, dim, H, smem);
     const int nleaf = csl_leaf_floats(dim, H);
     float* slot = slots + (size_t)blockIdx.x * nleaf;
@@ -511,7 +515,7 @@ struct CslDyn {
                       const float* ct_k7, const float* pass_y,
                       const float* pass_k1, float c_err, float c_num,
                       float c_den, float* ct_y, float* ct_k1, float* part,
-                      int A, float rtol, float atol, float* smem) const {
+                      int A, float rtol, float atol, float* smem, Regs&) const {
     const int nleaf = csl_leaf_floats(dim, H);
     float* recs = slots + csl_pad4((int)gridDim.x * nleaf) +
                   (size_t)blockIdx.x * csl_reverse_records(dim, H);
@@ -520,7 +524,7 @@ struct CslDyn {
                      pass_k1, c_err, c_num, c_den, ct_y, ct_k1, part, A, dim, H, kinetic,
                      rtol, atol, smem + csl_pad_floats(dim, H));
   }
-  __device__ void finish_bwd(float*, int) const {}
+  __device__ void finish_bwd(float*, int, const Regs&) const {}
 };
 
 template <class Dyn>
@@ -715,7 +719,8 @@ __global__ void __launch_bounds__(kThreads) whole_solve_bwd_kernel(BwdArgs<Dyn> 
   const float tdir = sign_of(t1 - t0), span = fabsf(t1 - t0);
   const float count = (float)BD;
   const int cur0 = a.sv.n ? a.sv.cursors[0] : 0;
-  a.dyn.setup_bwd(smem, a.D);
+  typename Dyn::Regs regs;  // the dynamics' state a thread holds over the walk
+  a.dyn.setup_bwd(smem, a.D, regs);
   if (threadIdx.x < 5) s_ct[threadIdx.x] = 0.0f;
   if (threadIdx.x == 0) s_rcur = a.sv.n ? a.sv.cursors[1] : 0;
   __syncthreads();
@@ -745,7 +750,7 @@ __global__ void __launch_bounds__(kThreads) whole_solve_bwd_kernel(BwdArgs<Dyn> 
                 acc ? a.ct_y : nullptr, acc ? a.ct_f : nullptr,
                 acc ? (saves ? a.hdy : nullptr) : a.ct_y,
                 acc ? (saves ? a.hdf : nullptr) : a.ct_f, s_g.e, s_g.n, s_g.d,
-                a.ct_y, a.ct_f, part + 4 * tile, a.D, a.rtol, a.atol, smem);
+                a.ct_y, a.ct_f, part + 4 * tile, a.D, a.rtol, a.atol, smem, regs);
     }
     grid.sync();
     if (threadIdx.x < 32) chain_end(a, ch, part, ntiles, i);
@@ -761,7 +766,7 @@ __global__ void __launch_bounds__(kThreads) whole_solve_bwd_kernel(BwdArgs<Dyn> 
           a.sv.ys[(size_t)r * BD + (size_t)row0 * a.D + idx] = 0.0f;
     }
   }
-  a.dyn.finish_bwd(smem, a.D);
+  a.dyn.finish_bwd(smem, a.D, regs);
   if (blockIdx.x == 0 && threadIdx.x == 0) chain_finish(ch, a.ct_scalars, tdir);
 }
 
@@ -1145,10 +1150,13 @@ int regnde_lanes_bwd(const float* t, const float* dt, const float* y, const floa
   return launch_step_walk(args, cW1, cb1, cW2, cb2, wpart, chunk_rows, wpart_floats, stream);
 }
 
-// K4 for AlternatingMLP, then the sum of its blocks' weight-cotangent
-// slots in block order. Arguments as regnde_whole_solve_bwd; out:
-// (leaf_floats,) the leaves' cotangents in order (nn.Linear layout);
-// slots: (ceil(B/2), leaf_floats) scratch.
+// K4 for AlternatingMLP on kAltBwdRows-row tiles (one a block at B <=
+// kAltBwdRows x the grid), then the sum of its blocks' weight-cotangent
+// slots in block order. Arguments as regnde_whole_solve_bwd; partials: (2,
+// ceil(B/R), 4), R = kAltBwdRows; out: (leaf_floats,) the leaves'
+// cotangents in order (nn.Linear layout); slots: pad4(ceil(B/R) x
+// leaf_floats) + ceil(B/R) x alt_reverse_records floats of scratch
+// (AltDyn).
 int regnde_whole_solve_altmlp_bwd(const float* scalars, const float* streams,
                                   const float* hy, const float* hf,
                                   const float* const* leaves, int depth,
@@ -1172,7 +1180,7 @@ int regnde_whole_solve_altmlp_bwd(const float* scalars, const float* streams,
   int grid = 0;
   cudaError_t e = launch_cooperative((const void*)whole_solve_bwd_kernel<AltDyn>, &a,
                                      altmlp_bwd_smem_bytes(depth, D, H),
-                                     (B + kAltRows - 1) / kAltRows, s, &grid);
+                                     (B + kAltBwdRows - 1) / kAltBwdRows, s, &grid);
   if (e != cudaSuccess) return (int)e;
   const int width = leaf_floats(depth, D, H);
   sum_slots_kernel<<<(width + kThreads - 1) / kThreads, kThreads, 0, s>>>(

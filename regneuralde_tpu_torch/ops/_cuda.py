@@ -44,7 +44,9 @@ _SIGNATURES = {
     "regnde_altmlp_rows": [],
     "regnde_altmlp_max_depth": [],
     "regnde_altmlp_fwd": [_P] * 5 + [_I] + [_P] * 4 + [_I] * 3 + [_F] * 2 + [_P],
-    "regnde_altmlp_bwd": [_P] * 4 + [_I] + [_P] * 7 + [_I] * 3 + [_F] * 2 + [_P],
+    "regnde_altmlp_bwd": [_P] * 4 + [_I] + [_P] * 8 + [_I] * 3 + [_F] * 2 + [_P],
+    "regnde_altmlp_bwd_rows": [],
+    "regnde_altmlp_bwd_smem_bytes": [_I] * 3,
     "regnde_csl_rows": [],
     "regnde_csl_slot_rows": [],
     "regnde_csl_fwd_smem_bytes": [_I] * 3,

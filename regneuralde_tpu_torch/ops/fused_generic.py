@@ -18,12 +18,16 @@ Each direction has a plain version and a CUDA kernel
 kernel traces ``jax.vjp`` instead). The wrappers ``altmlp_normed_sweep``
 and ``altmlp_normed_sweep_bwd`` take the plain version for tensors on the
 CPU, launch the kernel for tensors on a CUDA device, and raise otherwise.
+K8 and K4 for AlternatingMLP run one reverse tile body
+(``csrc/altmlp_tsit5.cuh`` ``altmlp_reverse_tile``): its sizes are
+``altmlp_bwd_plan``, its order of sums on the CPU ``plain_altmlp_bwd_tiles``.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Callable, List, Sequence, Tuple
+import functools
+from typing import Callable, List, NamedTuple, Sequence, Tuple
 
 import torch
 
@@ -33,6 +37,16 @@ from regneuralde_tpu_torch.ops.tableaus import TSIT5
 
 # Launches of each kernel, counted by its wrapper where it launches.
 LAUNCHES = {"altmlp_tsit5_fwd": 0, "altmlp_tsit5_bwd": 0}
+
+# The reverse tile body's constants (``csrc/altmlp_tsit5.cuh``): rows a
+# tile, the most terms of one lane's share of a sum, the layers whose
+# cotangents a thread holds in registers; a block's threads and the shared
+# memory it may take on the H100.
+ALT_BWD_ROWS = 2
+ALT_CHAIN = 7
+ALT_REG_LAYERS = 8
+_THREADS = 256
+SMEM_LIMIT = 232_448
 
 
 def reset_launches() -> None:
@@ -114,18 +128,39 @@ def _activations(y_i, leaves):
     return acts
 
 
-def _altmlp_bwd_math(t, dt, y, k1, leaves, cts, rtol, atol):
-    """Plain version of K8: the hand reverse chain of the normed step.
+def _split(n):
+    """Lanes of the kernel that share one sum of ``n`` terms
+    (``1 << alt_split_lg(n)``)."""
+    s = 1
+    while s < 32 and -(-n // s) > ALT_CHAIN:
+        s *= 2
+    return s
 
-    Maps ``cts = (ct_y_new, ct_k7, ct_err_ssq, ct_num_ssq, ct_den_ssq)`` to
-    ``(ct_t, ct_dt, ct_y, ct_k1, ct_leaves)``; ``ct_t`` is zero (the
-    dynamics ignore ``t``). The same chain as ``csrc/altmlp_tsit5.cu``
-    ``altmlp_bwd_kernel``: the stage recompute keeps every stage's
-    activations, then the stages are walked in reverse through each
-    layer's ``tanh' = 1 - tanh^2``."""
+
+def _split_matmul(v, W):
+    """``v @ W`` with the sum over ``v``'s columns split as the reverse body
+    splits it: lane ``s`` of ``S`` sums the terms ``s, s + S, ...``, and a
+    butterfly adds the lanes' partials pairwise."""
+    S = _split(v.shape[1])
+    parts = [v[:, s::S] @ W[s::S] for s in range(S)]
+    while len(parts) > 1:
+        parts = [parts[j] + parts[j + 1] for j in range(0, len(parts), 2)]
+    return parts[0]
+
+
+def _altmlp_reverse(dt, y, k1, leaves, cts, rtol, atol, tiled):
+    """The hand reverse chain of the normed step over ``y``'s rows: the
+    stage recompute keeps every stage's activations, then the stages are
+    walked in reverse through each layer's ``tanh' = 1 - tanh^2``. Returns
+    ``(ct_dt, ct_y, ct_k1, ct_leaves)``. With ``tiled``, in the order of the
+    reverse tile body on one tile: each weight and bias cotangent takes the
+    rows one by one, stage after stage (6 to 1); each input cotangent's sum
+    is split as ``_split_matmul`` splits it; ct_dt's terms (each rounded to
+    ``y``'s type) are summed in float64."""
     tab = TSIT5
     leaves = tuple(leaves)
     cyn, ck7, c_err, c_num, c_den = cts
+    total = (lambda x: torch.sum(x.double())) if tiled else torch.sum
 
     ks, acts = [k1], []
     for i in range(1, 7):
@@ -156,7 +191,7 @@ def _altmlp_bwd_math(t, dt, y, k1, leaves, cts, rtol, atol):
     ct_ks[5] = ct_ks[5] - d_k7
     seeds = {6: cyn + d_ynew + to_ynew, 5: -d_ynew}
 
-    ct_dt = torch.sum(cerr * s_comb)
+    ct_dt = total(cerr * s_comb)
     ct_y = to_y
     ct_leaves = [torch.zeros_like(x) for x in leaves]
     for i in range(6, 0, -1):
@@ -164,18 +199,63 @@ def _altmlp_bwd_math(t, dt, y, k1, leaves, cts, rtol, atol):
         ct_h = ct_ks[i]
         for j in range(len(leaves) // 2 - 1, -1, -1):
             ct_pre = ct_h * (1.0 - a[j + 1] * a[j + 1])
-            ct_leaves[2 * j] = ct_leaves[2 * j] + ct_pre.T @ a[j]
-            ct_leaves[2 * j + 1] = ct_leaves[2 * j + 1] + torch.sum(ct_pre, dim=0)
-            ct_h = ct_pre @ leaves[2 * j]
+            if tiled:
+                for r in range(ct_pre.shape[0]):
+                    ct_leaves[2 * j] = ct_leaves[2 * j] + ct_pre[r, :, None] * a[j][r, None, :]
+                    ct_leaves[2 * j + 1] = ct_leaves[2 * j + 1] + ct_pre[r]
+                ct_h = _split_matmul(ct_pre, leaves[2 * j])
+            else:
+                ct_leaves[2 * j] = ct_leaves[2 * j] + ct_pre.T @ a[j]
+                ct_leaves[2 * j + 1] = ct_leaves[2 * j + 1] + torch.sum(ct_pre, dim=0)
+                ct_h = ct_pre @ leaves[2 * j]
         ct_yi = ct_h * (1.0 - a[0] * a[0])
         if i in seeds:
             ct_yi = ct_yi + seeds[i]
         ct_y = ct_y + ct_yi
-        ct_dt = ct_dt + torch.sum(ct_yi * _stage_acc(i, ks))
+        ct_dt = ct_dt + total(ct_yi * _stage_acc(i, ks))
         for j, c in enumerate(tab.a[i - 1]):
             if c != 0.0:
                 ct_ks[j] = ct_ks[j] + (dt * c) * ct_yi
-    return torch.zeros_like(ct_dt), ct_dt, ct_y, ct_ks[0], tuple(ct_leaves)
+    return ct_dt, ct_y, ct_ks[0], ct_leaves
+
+
+def _altmlp_bwd_math(t, dt, y, k1, leaves, cts, rtol, atol):
+    """Plain version of K8: the hand reverse chain of the normed step
+    (``_altmlp_reverse`` over the whole batch).
+
+    Maps ``cts = (ct_y_new, ct_k7, ct_err_ssq, ct_num_ssq, ct_den_ssq)`` to
+    ``(ct_t, ct_dt, ct_y, ct_k1, ct_leaves)``; ``ct_t`` is zero (the
+    dynamics ignore ``t``). The kernel's chain (``csrc/altmlp_tsit5.cuh``
+    ``altmlp_reverse_tile``) in its order of sums is
+    ``plain_altmlp_bwd_tiles``."""
+    ct_dt, ct_y, ct_k1, ct_leaves = _altmlp_reverse(dt, y, k1, leaves, cts, rtol, atol, False)
+    return torch.zeros_like(ct_dt), ct_dt, ct_y, ct_k1, tuple(ct_leaves)
+
+
+def plain_altmlp_bwd_tiles(t, dt, y, k1, leaves, cts, rtol, atol, rows=None):
+    """``_altmlp_bwd_math`` in the order of sums of K8 (the reverse tile
+    body): per tile of ``rows`` rows (the kernel's ``ALT_BWD_ROWS`` by
+    default) the chain on the tile's rows (``_altmlp_reverse`` with
+    ``tiled``: each cotangent element over the rows in order, stage after
+    stage, the input cotangents' sums split over lanes, ct_dt summed in
+    float64 and rounded once), then the tiles' sums in tile order (the slot
+    sum). ct_y and ct_k1 are per row. For the tests: the CPU path of
+    ``altmlp_normed_sweep_bwd`` is ``_altmlp_bwd_math``."""
+    rows = ALT_BWD_ROWS if rows is None else rows
+    leaves = tuple(leaves)
+    cyn, ck7, *scalars = cts
+    ct_dt, ct_leaves, ct_y, ct_k1 = None, None, [], []
+    for r0 in range(0, y.shape[0], rows):
+        tile = slice(r0, r0 + rows)
+        d, cy, ck, cl = _altmlp_reverse(dt, y[tile], k1[tile], leaves,
+                                        (cyn[tile], ck7[tile], *scalars), rtol, atol, True)
+        d = d.to(y.dtype)
+        ct_dt = d if ct_dt is None else ct_dt + d
+        ct_leaves = cl if ct_leaves is None else [a + b for a, b in zip(ct_leaves, cl)]
+        ct_y.append(cy)
+        ct_k1.append(ck)
+    return (torch.zeros_like(ct_dt), ct_dt, torch.cat(ct_y), torch.cat(ct_k1),
+            tuple(ct_leaves))
 
 
 # ---------------------------------------------------------------------------
@@ -246,6 +326,82 @@ def _cuda_altmlp_fwd(t, dt, y, k1, leaves, rtol, atol):
     return NormedSweep(y_new, k7, sums[0], sums[1], sums[2])
 
 
+def _pad4(n):
+    return (n + 3) // 4 * 4
+
+
+class AltBwdPlan(NamedTuple):
+    """The reverse tile body at a batch and widths: ``rows`` a tile,
+    ``tiles`` (K8's blocks), ``smem_bytes`` a block, ``record_floats`` of
+    activation records a block in device memory (stages 1 to 4), and
+    whether some weight or bias cotangent is held in shared memory rather
+    than in registers (``cw_in_smem``: past ``ALT_REG_LAYERS`` layers, or a
+    layer of more 2 x 2 tiles or outputs than a block has threads)."""
+    rows: int
+    tiles: int
+    smem_bytes: int
+    record_floats: int
+    cw_in_smem: bool
+
+
+def altmlp_bwd_plan(B, D, H, depth) -> AltBwdPlan:
+    """``csrc/altmlp_tsit5.cuh``'s sizes of the reverse body
+    (``alt_reverse_floats``, ``altmlp_bwd_smem_bytes``,
+    ``alt_reverse_records``) at ``B x D x H x depth``; raises ``ValueError``
+    for widths whose weights and tile need more shared memory than
+    ``SMEM_LIMIT``."""
+    R = ALT_BWD_ROWS
+    n, pw = R * D, R * max(_pad4(D), _pad4(H))
+    rec = R * depth * (_pad4(D) + _pad4(H))
+    in_smem = (2 * depth > ALT_REG_LAYERS or ((D + 1) // 2) * ((H + 1) // 2) > _THREADS
+               or max(D, H) > _THREADS)
+    leaf = depth * (2 * H * D + H + D)
+    parts = [n, 7 * n, 7 * n, n, n, n, n, rec, rec, rec, rec, 2 * pw, 2 * pw,
+             2 * (_THREADS // 32)]
+    padded = depth * (H * (D + 1) + H + D * (H + 1) + D)
+    smem = 4 * (padded + 4 + sum(_pad4(x) for x in parts) + (_pad4(leaf) if in_smem else 0))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"K8's reverse tile body holds at most {SMEM_LIMIT} bytes of shared "
+                         f"memory; dim {D}, hidden {H}, depth {depth} need {smem}")
+    return AltBwdPlan(R, -(-B // R), smem, 4 * rec, in_smem)
+
+
+@functools.lru_cache(maxsize=16)
+def check_bwd_plan(lib, D, H, depth) -> AltBwdPlan:
+    """``altmlp_bwd_plan`` held to the library's constants (once a shape)."""
+    plan = altmlp_bwd_plan(0, D, H, depth)
+    if (lib.regnde_altmlp_bwd_rows() != ALT_BWD_ROWS
+            or lib.regnde_altmlp_bwd_smem_bytes(depth, D, H) != plan.smem_bytes):
+        raise RuntimeError("altmlp_bwd_plan disagrees with csrc/altmlp_tsit5.cuh's sizes")
+    return plan
+
+
+@functools.lru_cache(maxsize=8)
+def _altmlp_bwd_scratch(lib, B, D, H, depth, dev, stream):
+    """K8's scratch at ``B x D x H x depth`` on ``stream``: the per-tile
+    slots (the leaves' cotangents, then ct_t and ct_dt), the blocks'
+    activation records, and the norm sums' three cotangents. Nothing of it
+    outlives a launch, and launches on one stream run in order, so it is
+    made once and reused."""
+    plan = check_bwd_plan(lib, D, H, depth)
+    tiles = -(-B // plan.rows)
+    n_leaf = depth * (2 * H * D + H + D)
+    return (torch.empty((tiles, n_leaf + 2), device=dev),
+            torch.empty((tiles, plan.record_floats), device=dev), torch.empty(3, device=dev))
+
+
+@functools.lru_cache(maxsize=8)
+def _altmlp_walk_scratch(lib, B, D, H, depth, dev, stream):
+    """K4's scratch for AlternatingMLP at ``B x D x H x depth`` on
+    ``stream`` (``AltDyn`` in ``csrc/whole_solve.cu``): a weight-cotangent
+    slot a block, then from float ``pad4(tiles * leaf floats)`` on each
+    block's activation records; made once, as ``_altmlp_bwd_scratch``."""
+    plan = check_bwd_plan(lib, D, H, depth)
+    tiles = -(-B // plan.rows)
+    n_leaf = depth * (2 * H * D + H + D)
+    return torch.empty(_pad4(tiles * n_leaf) + tiles * plan.record_floats, device=dev)
+
+
 def _cuda_altmlp_bwd(t, dt, y, k1, leaves, cts, rtol, atol):
     from regneuralde_tpu_torch.ops import _cuda
 
@@ -253,22 +409,22 @@ def _cuda_altmlp_bwd(t, dt, y, k1, leaves, cts, rtol, atol):
     B, D, H, depth = _check_cuda_args(
         y, k1, leaves, {"ct_y_new": (cyn, tuple(y.shape)),
                         "ct_k7": (ck7, tuple(y.shape))})
+    altmlp_bwd_plan(B, D, H, depth)
     lib = _library(depth)
     dt32 = _scalar_f32(dt, y)
-    ct_scalars = torch.stack([_scalar_f32(c, y) for c in cts[2:]]).contiguous()
     dev = y.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    slots, recs, ct_scalars = _altmlp_bwd_scratch(lib, B, D, H, depth, dev, stream)
+    torch.stack([_scalar_f32(c, y) for c in cts[2:]], out=ct_scalars)
     ct_y = torch.empty_like(y)
     ct_k1 = torch.empty_like(y)
     n_leaf = sum(x.numel() for x in leaves)
     out = torch.empty(n_leaf + 2, device=dev)
-    rows = lib.regnde_altmlp_rows()
-    slots = torch.empty(((B + rows - 1) // rows, n_leaf + 2), device=dev)
     ptrs = _leaf_pointers(leaves)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     code = lib.regnde_altmlp_bwd(
         _ptr(dt32), _ptr(y), _ptr(k1), ctypes.cast(ptrs, ctypes.c_void_p), depth,
         _ptr(cyn), _ptr(ck7), _ptr(ct_scalars), _ptr(ct_y), _ptr(ct_k1),
-        _ptr(slots), _ptr(out), B, D, H, float(rtol), float(atol),
+        _ptr(slots), _ptr(recs), _ptr(out), B, D, H, float(rtol), float(atol),
         ctypes.c_void_p(stream))
     _cuda.check(code, "AlternatingMLP Tsit5 backward kernel")
     LAUNCHES["altmlp_tsit5_bwd"] += 1

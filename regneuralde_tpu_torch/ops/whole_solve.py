@@ -751,11 +751,12 @@ def _slot_rows(lib, dynamics, bwd=False):
     """Rows of one slot of the per-trial-step partials of K3 (the norm sums)
     and, with ``bwd``, of K4 ((ct_t, ct_dt)) for AlternatingMLP and CSL
     (MLPDynamics' kernels run on ``walk_plan``'s tiles). A slot is a tile:
-    AlternatingMLP's (K7's and K8's tile body), K4-CSL's (K8-CSL's, 8 rows);
+    K3's for AlternatingMLP (K7's body, ``regnde_altmlp_rows``), K4's (K8's
+    reverse body, ``regnde_altmlp_bwd_rows``), K4-CSL's (K8-CSL's, 8 rows);
     but K3-CSL's 8-row tiles (K7-CSL's body) write one slot a 2-row
     sub-tile."""
     if dynamics == "altmlp":
-        return lib.regnde_altmlp_rows()
+        return lib.regnde_altmlp_bwd_rows() if bwd else lib.regnde_altmlp_rows()
     return lib.regnde_csl_bwd_rows() if bwd else lib.regnde_csl_slot_rows()
 
 
@@ -942,8 +943,10 @@ def _cuda_whole_solve_bwd(rec, ns, ct_y1, ct_tel, t0, t1, leaves, rtol, atol,
         params = leaves if dynamics == "altmlp" else leaves[:fc.N_PARAMS]
         n_leaf = sum(x.numel() for x in params)
         out = torch.empty(n_leaf, device=dev)
-        if dynamics == "altmlp":
-            slots = torch.empty((ntiles, n_leaf), device=dev)
+        if dynamics == "altmlp":  # a slot a block, then each block's records (AltDyn)
+            fg.altmlp_bwd_plan(B, D, H, depth)
+            slots = fg._altmlp_walk_scratch(lib, B, D, H, depth, dev,
+                                            torch.cuda.current_stream(dev).cuda_stream)
         else:  # a slot a block, then each block's activation records (CslDyn)
             plan = fc.check_bwd_plan(lib, D, D - 1 - 2 * kinetic, H, kinetic)
             slots = torch.empty(fc._pad4(ntiles * n_leaf) + ntiles * plan.record_floats,

@@ -741,6 +741,122 @@ def test_whole_solve_altmlp_wrappers_refuse_bad_inputs(cuda):
             ws.whole_solve_bwd(rec, ns, *rest, dynamics="altmlp", saveat=sa, ct_ys=bad)
 
 
+def _alt_bwd_groups(g):
+    """(ct_t, ct_dt), ct_y, ct_k1 and the leaves' cotangents as one vector."""
+    return [torch.stack(g[:2]), g[2], g[3], torch.cat([x.flatten() for x in g[4]])]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tol", [1e-5, 1.4e-8])
+@pytest.mark.parametrize("shape", [(256, 20, 50, 4), (13, 20, 50, 4), (7, 6, 10, 2),
+                                   (40, 20, 50, 1), (40, 20, 50, 8)])
+def test_altmlp_bwd_matches_its_schedule(cuda, shape, tol):
+    """K8 (the reverse tile body, 2-row tiles, the cotangents in registers
+    to depth 4 and in shared memory past it) against its order of sums in
+    plain PyTorch (``fg.plain_altmlp_bwd_tiles``): every group within 3
+    times the plain version's distance from the float64 chain, plus 1e-6;
+    ct_t exactly zero."""
+    y, k1, leaves, cts = _alt_inputs(*shape, cuda)
+    t, dt = torch.tensor(T, device=cuda), torch.tensor(DT, device=cuda)
+    d = lambda x: x.double()
+    got = fg.altmlp_normed_sweep_bwd(t, dt, y, k1, leaves, cts, tol, tol)
+    assert got[0].item() == 0.0
+    kern = _alt_bwd_groups(got)
+    sched = _alt_bwd_groups(fg.plain_altmlp_bwd_tiles(t, dt, y, k1, leaves, cts, tol, tol))
+    plain = _alt_bwd_groups(fg._altmlp_bwd_math(t, dt, y, k1, leaves, cts, tol, tol))
+    ref = _alt_bwd_groups(fg._altmlp_bwd_math(d(t), d(dt), d(y), d(k1), [d(x) for x in leaves],
+                                              [d(c) for c in cts], tol, tol))
+    for j, (a, b, p, r) in enumerate(zip(kern, sched, plain, ref)):
+        assert _rel(a, b) <= 3 * _rel(p, r) + 1e-6, (j, _rel(a, b), _rel(p, r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", range(1, 9))
+def test_altmlp_bwd_takes_every_depth(cuda, depth):
+    """Every depth K8 takes (1 to 8) runs at the latent width, within 1e-3
+    of the plain version (the bound of ``test_altmlp_kernels_match_plain_
+    versions``): past depth 4 the deeper layers' cotangents are held in
+    shared memory."""
+    y, k1, leaves, cts = _alt_inputs(64, 20, 50, depth, cuda, seed=depth)
+    t, dt = torch.tensor(T, device=cuda), torch.tensor(DT, device=cuda)
+    kern = fg.altmlp_normed_sweep_bwd(t, dt, y, k1, leaves, cts, 1e-5, 1e-5)
+    plain = fg._altmlp_bwd_math(t, dt, y, k1, leaves, cts, 1e-5, 1e-5)
+    assert kern[0].item() == 0.0
+    for a, b in zip([*kern[1:4], *kern[4]], [*plain[1:4], *plain[4]]):
+        assert _rel(a, b) <= 1e-3
+    assert fg.altmlp_bwd_plan(64, 20, 50, depth).cw_in_smem == (depth > 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 20, 50, 4), (13, 20, 50, 4), (40, 20, 50, 6)])
+def test_altmlp_bwd_is_bitwise_deterministic(cuda, shape):
+    """K8's sums run in a fixed order (no atomics): three launches on the
+    same inputs are bitwise equal, a ragged batch's and a deep network's
+    too."""
+    y, k1, leaves, cts = _alt_inputs(*shape, cuda, seed=2)
+    t, dt = torch.tensor(T, device=cuda), torch.tensor(DT, device=cuda)
+    runs = [fg.altmlp_normed_sweep_bwd(t, dt, y, k1, leaves, cts, 1.4e-8, 1.4e-8)
+            for _ in range(3)]
+    first = [*runs[0][:4], *runs[0][4]]
+    for g in runs[1:]:
+        assert all(torch.equal(u, v) for u, v in zip(first, [*g[:4], *g[4]]))
+
+
+@pytest.mark.cuda
+def test_altmlp_bwd_plan_is_the_librarys(cuda):
+    """``fg.altmlp_bwd_plan``'s rows and shared memory are the library's at
+    every width and depth the card tests run, K4's partials take its rows
+    (``ws._slot_rows``), and the wrapper refuses widths the body does not
+    hold with a ValueError."""
+    from regneuralde_tpu_torch.ops import _cuda
+
+    lib = _cuda.library()
+    for D, H, depth in [(20, 50, d) for d in range(1, 9)] + [(6, 10, 2), (20, 300, 1)]:
+        plan = fg.check_bwd_plan(lib, D, H, depth)
+        assert plan.rows == fg.ALT_BWD_ROWS == 2 and plan.smem_bytes <= fg.SMEM_LIMIT
+    assert ws._slot_rows(lib, "altmlp", bwd=True) == 2 == ws._slot_rows(lib, "altmlp")
+    y, k1, leaves, cts = _alt_inputs(16, 20, 1000, 4, cuda)
+    t, dt = torch.tensor(T, device=cuda), torch.tensor(DT, device=cuda)
+    with pytest.raises(ValueError, match="reverse tile body holds at most"):
+        fg.altmlp_normed_sweep_bwd(t, dt, y, k1, leaves, cts, 1e-5, 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth, batch", [(1, 40), (4, 21), (8, 40)])
+def test_whole_solve_altmlp_walk_at_every_depth(cuda, depth, batch):
+    """K4 for AlternatingMLP over a short walk (rtol=atol=1e-3, no saves)
+    at depths 1, 4 (a ragged batch) and 8 (the deeper layers' cotangents in
+    the walk's shared memory) against its plain walk: K3 takes the plain
+    version's steps; seeded with y1's cotangent, K4 within 1e-3 of the plain
+    walk on every output but ct_f0 and every output but ct_f0 within 3 times
+    the plain walk's distance from float64, plus 1e-5 (as
+    ``test_whole_solve_altmlp_kernels_match_plain_versions``)."""
+    y0, _, leaves, _ = _alt_inputs(batch, 20, 50, depth, cuda, seed=depth)
+    func = fg.alternating_mlp_apply(depth)
+    t0, t1, f0, dt0 = ode.solve_prologue(func, y0, 0.0, 1.0, tuple(leaves), 1e-3, 1e-3)
+    args = (t0, t1, dt0, y0, f0, leaves, 1e-3, 1e-3, CTRL, 64)
+    rk = ws.whole_solve_fwd(*args, dynamics="altmlp")
+    rp = ws.plain_whole_solve_fwd(*args, dynamics="altmlp")
+    assert rk.final[3:].tolist() == rp.final[3:].tolist() and rk.final[5].item() == 1.0
+    ns = int(rk.final[3:5].sum().item())
+    ct_y1 = torch.tensor(np.random.default_rng(depth).normal(size=(batch, 20)),
+                         dtype=torch.float32, device=cuda)
+    tel = torch.zeros(4, 64, device=cuda)
+    d = lambda x: x.double()
+    gk = ws.whole_solve_bwd(rk, ns, ct_y1, tel, t0, t1, leaves, 1e-3, 1e-3, CTRL,
+                            dynamics="altmlp")
+    gp = ws.plain_whole_solve_bwd(rk, ns, ct_y1, tel, t0, t1, leaves, 1e-3, 1e-3, CTRL,
+                                  dynamics="altmlp")
+    g64 = ws.plain_whole_solve_bwd(ws.SolveRecord(*map(d, rk)), ns, d(ct_y1), d(tel), d(t0),
+                                   d(t1), [d(x) for x in leaves], 1e-3, 1e-3, CTRL,
+                                   dynamics="altmlp")
+    group = lambda g: [torch.stack(g[:3]), g[3], torch.cat([x.flatten() for x in g[6:]])]
+    for name, a, b, c in zip(["ct_t0|ct_t1|ct_dt0", "ct_y0", "leaves"], group(gk), group(gp),
+                             group(g64)):
+        assert _rel(a, b) <= 1e-3, (name, _rel(a, b))
+        assert _rel(a, c) <= 3 * _rel(b, c) + 1e-5, (name, _rel(a, c), _rel(b, c))
+
+
 @pytest.mark.cuda
 def test_whole_solve_mlp_with_saveat_matches_plain_versions(cuda):
     """The save cursor on the MLPDynamics instantiation (64x40x24, five

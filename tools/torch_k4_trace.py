@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Where K4's ct_f0 leaves float64: trace the whole solve's reverse walk.
 
-    python3 tools/torch_k4_trace.py
+    python3 tools/torch_k4_trace.py [--tol 1e-5] [--no-mlp]
 
 Needs one CUDA device (the kernels are built as ``chip_smoke.py`` builds
 them). Two parts:
 
 * ``chip_smoke.py`` phase 11's solve (AlternatingMLP 256x20x50x4, the 49
-  saves, rtol=atol=1e-5), seeded with a cotangent of y1 alone. Four reverse
+  saves, rtol=atol=``--tol``, phase 11's 1e-5 or 1.4e-8), seeded with a
+  cotangent of y1 alone. Four reverse
   walks over K3's record: K4, its float32 plain version, the plain walk
   with K8 (the kernel's trial-step pullback) in place of the plain one, and
   a float64 plain walk. It prints each walk's distance from the others on
@@ -18,7 +19,7 @@ them). Two parts:
 * ``tests/test_torch_kernels_cuda.py``'s MLPDynamics solve at 1040x64x32,
   rtol=atol=1e-4, with the weights at LeCun's scale and at three times it:
   the same four walks' distances, with the cotangent of y1 alone and with
-  the telemetry's too.
+  the telemetry's too (left out with ``--no-mlp``).
 """
 
 import json
@@ -95,7 +96,7 @@ def _walks(tag, rec, ns, ct_y1, ct_tel, t0, t1, leaves, tol, ctrl, dynamics, sav
             print(f"[{tag}] step {ns - 1 - j}: plain {json.dumps(p)}; with K8 {json.dumps(pk)}")
 
 
-def altmlp_walks(device):
+def altmlp_walks(device, tol):
     import torch
 
     import chip_smoke as cs
@@ -106,7 +107,7 @@ def altmlp_walks(device):
 
     gen = torch.Generator().manual_seed(cs.SEED + 4)
     rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=gen) * scale).to(device)
-    B, D, H, depth, tol = 256, 20, 50, 4, 1e-5
+    B, D, H, depth = 256, 20, 50, 4
     leaves = []
     for _ in range(depth):
         leaves += [rnd(H, D, scale=D ** -0.5), rnd(H, scale=0.1), rnd(D, H, scale=H ** -0.5),
@@ -123,7 +124,7 @@ def altmlp_walks(device):
     cgen = torch.Generator().manual_seed(cs.SEED + 5)
     ct_y1 = torch.randn(B, D, generator=cgen).to(device)
     tel = torch.zeros(4, cs.LATENT_MAX_STEPS, device=device)
-    _walks("altmlp 256x20x50x4 tol 1e-5, cotangent of y1", rec, ns, ct_y1, tel, t0, t1,
+    _walks(f"altmlp 256x20x50x4 tol {tol:g}, cotangent of y1", rec, ns, ct_y1, tel, t0, t1,
            leaves, tol, ctrl, "altmlp", sa, torch.zeros_like(rec.ys), trace=True)
 
 
@@ -149,9 +150,15 @@ def mlp_walks(device):
 
 
 def main():
+    import argparse
     import subprocess
 
     import torch
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tol", type=float, default=1e-5, help="the AlternatingMLP solve's rtol=atol")
+    ap.add_argument("--no-mlp", action="store_true", help="leave out the MLPDynamics part")
+    args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("torch_k4_trace: no CUDA device", file=sys.stderr)
@@ -160,8 +167,9 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip())
     device = torch.device("cuda", 0)
-    altmlp_walks(device)
-    mlp_walks(device)
+    altmlp_walks(device, args.tol)
+    if not args.no_mlp:
+        mlp_walks(device)
     return 0
 
 

@@ -8,7 +8,9 @@ GPU, in the order A, B, B, A (``--rounds`` times), one process each.
 archive <commit> | tar -x -C build/parent``). Each run imports that tree's
 ``chip_smoke.py``, builds its kernels into the tree's own ``build/``, runs
 the named phases' kernel checks (``altmlp``: K7/K8 and K3/K4 for
-AlternatingMLP, ``csl``: K7/K8-CSL and K3/K4-CSL, with K8-CSL's device
+AlternatingMLP, with K8's and K7's device time under ``torch.profiler`` at
+phase 8's inputs (each kernel and its slot sum apart) and K4's and K3's
+over phase 11's solves (by tolerance and trial steps), ``csl``: K7/K8-CSL and K3/K4-CSL, with K8-CSL's device
 time under ``torch.profiler`` at phase 15's inputs (its kernel and its slot
 sum apart) and K4-CSL's over phase 16's solves (by tolerance), and K7-CSL's
 and K3-CSL's likewise, ``mlp``: K1/K2 and K3/K4
@@ -145,45 +147,29 @@ def fwd(dev):
     return {f"K3_{dyn}_device_a_launch": {"ms": us / n / 1e3} for dyn, (us, n) in sums.items()}
 
 
-def csl_device(dev):
-    """Device ms a launch of K7-CSL and of K8-CSL at phase 15's inputs
-    (1.4e-8, without the kinetic terms), each kernel (csl_fwd_kernel,
-    csl_bwd_kernel) and its slot sum (sum_slots_warp_kernel,
-    sum_slots_kernel) apart, and of K3-CSL and K4-CSL
-    (whole_solve_fwd_kernel<CslDyn>, whole_solve_bwd_kernel<CslDyn>) over
-    phase 16's solves, each call of their wrappers under its own
+def solve_device(dynamics, run_phase):
+    """Device ms a launch of K3 and K4 for ``dynamics``
+    (whole_solve_fwd_kernel<...>, whole_solve_bwd_kernel<...>) over the
+    solves of ``run_phase()``, each call of their wrappers under its own
     torch.profiler, by tolerance and trial steps (the same names in either
-    tree). Phase 16's own device-time readings are left out (one profiler
+    tree). The phase's own device-time readings are left out (one profiler
     at a time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from regneuralde_tpu_torch.ops import fused_csl as fc
     from regneuralde_tpu_torch.ops import whole_solve as ws
 
-    B, D, H, tol = cs.FFJORD_BATCH, cs.FFJORD_DIM, cs.FFJORD_HIDDEN, cs.FLAGSHIP_TOL
-    gen = torch.Generator().manual_seed(cs.SEED + 12)
-    leaves, y, k1 = cs._csl_inputs(gen, B, D, H, False, dev)
-    cts = [torch.randn(y.shape, generator=gen).to(dev), torch.randn(y.shape, generator=gen).to(dev),
-           *(torch.tensor(v, device=dev) for v in (0.7, 1.3, -0.4))]
-    t, dt = torch.tensor(0.07, device=dev), torch.tensor(0.11, device=dev)
-    fwd = lambda: fc.csl_normed_sweep(t, dt, y, k1, leaves, tol, tol)
-    bwd = lambda: fc.csl_normed_sweep_bwd(t, dt, y, k1, leaves, cts, tol, tol)
-    out = {"K7_csl_device_kernel": {"ms": device_ms(fwd, ("csl_fwd_kernel",))},
-           "K7_csl_device_slot_sum": {"ms": device_ms(fwd, ("sum_slots_warp_kernel",))},
-           "K8_csl_device_kernel": {"ms": device_ms(bwd, ("csl_bwd_kernel",))},
-           "K8_csl_device_slot_sum": {"ms": device_ms(bwd, ("sum_slots_kernel",))}}
     sums = {}
 
     def profiled(inner, tag, kernel, key):
         def call(*a, **k):
-            if k.get("dynamics") != "csl":
+            if k.get("dynamics") != dynamics:
                 return inner(*a, **k)
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 res = inner(*a, **k)
                 torch.cuda.synchronize()
-            name = f"{tag}_csl_device_{key(a, res)}"
+            name = f"{tag}_{dynamics}_device_{key(a, res)}"
             for e in prof.key_averages():
                 if e.device_type == DeviceType.CUDA and kernel in e.key:
                     us, n = sums.get(name, (0.0, 0))
@@ -200,11 +186,64 @@ def csl_device(dev):
                                   lambda a, res: f"tol={a[7]:g}_ns={a[1]}")
     cs._device_ms = lambda *a, **k: None
     try:
-        cs.phase_whole_solve_csl_kernels(dev, cs.ffjord_batches(1, dev)[0])
+        run_phase()
     finally:
         ws.whole_solve_fwd, ws.whole_solve_bwd = inner_f, inner_b
         cs._device_ms = device_ms_of_phase
-    out.update({key: {"ms": us / n / 1e3} for key, (us, n) in sums.items()})
+    return {key: {"ms": us / n / 1e3} for key, (us, n) in sums.items()}
+
+
+def csl_device(dev):
+    """Device ms a launch of K7-CSL and of K8-CSL at phase 15's inputs
+    (1.4e-8, without the kinetic terms), each kernel (csl_fwd_kernel,
+    csl_bwd_kernel) and its slot sum (sum_slots_warp_kernel,
+    sum_slots_kernel) apart, and of K3-CSL and K4-CSL over phase 16's solves
+    (``solve_device``)."""
+    from regneuralde_tpu_torch.ops import fused_csl as fc
+
+    B, D, H, tol = cs.FFJORD_BATCH, cs.FFJORD_DIM, cs.FFJORD_HIDDEN, cs.FLAGSHIP_TOL
+    gen = torch.Generator().manual_seed(cs.SEED + 12)
+    leaves, y, k1 = cs._csl_inputs(gen, B, D, H, False, dev)
+    cts = [torch.randn(y.shape, generator=gen).to(dev), torch.randn(y.shape, generator=gen).to(dev),
+           *(torch.tensor(v, device=dev) for v in (0.7, 1.3, -0.4))]
+    t, dt = torch.tensor(0.07, device=dev), torch.tensor(0.11, device=dev)
+    fwd = lambda: fc.csl_normed_sweep(t, dt, y, k1, leaves, tol, tol)
+    bwd = lambda: fc.csl_normed_sweep_bwd(t, dt, y, k1, leaves, cts, tol, tol)
+    out = {"K7_csl_device_kernel": {"ms": device_ms(fwd, ("csl_fwd_kernel",))},
+           "K7_csl_device_slot_sum": {"ms": device_ms(fwd, ("sum_slots_warp_kernel",))},
+           "K8_csl_device_kernel": {"ms": device_ms(bwd, ("csl_bwd_kernel",))},
+           "K8_csl_device_slot_sum": {"ms": device_ms(bwd, ("sum_slots_kernel",))}}
+    out.update(solve_device("csl", lambda: cs.phase_whole_solve_csl_kernels(
+        dev, cs.ffjord_batches(1, dev)[0])))
+    return out
+
+
+def altmlp_device(dev):
+    """Device ms a launch of K7 and of K8 at phase 8's inputs (1.4e-8),
+    each kernel (altmlp_fwd_kernel, altmlp_bwd_kernel) and its slot sum
+    (sum_slots_warp_kernel, sum_slots_kernel) apart, and of K3 and K4 for
+    AlternatingMLP over phase 11's solves (``solve_device``): K8 and K4 run
+    the reverse body, K7 and K3 are the control."""
+    from regneuralde_tpu_torch.ops import fused_generic as fg
+
+    B, D, H, tol = cs.LATENT_BATCH, cs.LATENT_DIM, cs.LATENT_HIDDEN, cs.FLAGSHIP_TOL
+    gen = torch.Generator().manual_seed(cs.SEED + 3)
+    rnd = lambda *shape, scale=1.0: (torch.randn(*shape, generator=gen) * scale).to(dev)
+    leaves = []
+    for _ in range(cs.LATENT_DEPTH):
+        leaves += [rnd(H, D, scale=D ** -0.5), rnd(H, scale=0.1),
+                   rnd(D, H, scale=H ** -0.5), rnd(D, scale=0.1)]
+    y, k1 = rnd(B, D, scale=0.5), rnd(B, D, scale=0.3)
+    t, dt = torch.tensor(0.07, device=dev), torch.tensor(0.11, device=dev)
+    cts = [rnd(B, D), rnd(B, D), *(torch.tensor(v, device=dev) for v in (0.7, 1.3, -0.4))]
+    fwd = lambda: fg.altmlp_normed_sweep(t, dt, y, k1, leaves, tol, tol)
+    bwd = lambda: fg.altmlp_normed_sweep_bwd(t, dt, y, k1, leaves, cts, tol, tol)
+    out = {"K7_device_kernel": {"ms": device_ms(fwd, ("altmlp_fwd_kernel",))},
+           "K7_device_slot_sum": {"ms": device_ms(fwd, ("sum_slots_warp_kernel",))},
+           "K8_device_kernel": {"ms": device_ms(bwd, ("altmlp_bwd_kernel",))},
+           "K8_device_slot_sum": {"ms": device_ms(bwd, ("sum_slots_kernel",))}}
+    _, saveat = cs.latent_batches(1, dev)
+    out.update(solve_device("altmlp", lambda: cs.phase_whole_solve_altmlp_kernels(dev, saveat)))
     return out
 
 
@@ -328,6 +367,7 @@ with contextlib.redirect_stdout(io.StringIO()):
         ms.update(cs.phase_altmlp_kernels(dev))
         _, saveat = cs.latent_batches(1, dev)
         ms.update(cs.phase_whole_solve_altmlp_kernels(dev, saveat))
+        ms.update(altmlp_device(dev))
     if "csl" in phases and hasattr(cs, "phase_csl_kernels"):
         ms.update(cs.phase_csl_kernels(dev))
         ms.update(cs.phase_whole_solve_csl_kernels(dev, cs.ffjord_batches(1, dev)[0]))
