@@ -954,9 +954,10 @@ def latent_batches(n, device):
 def phase_altmlp_kernels(device):
     """K7/K8 against their plain versions on seeded random inputs at the
     latent shape (random k1 keeps the embedded error far above float32
-    rounding), at rtol=atol=1e-4 and 1.4e-8; bitwise determinism; times;
-    K8's blocks a launch (one wave) and device time, its kernel and its
-    slot sum apart."""
+    rounding), at rtol=atol=1e-4 and 1.4e-8, K7 also bitwise against its
+    schedule (``fg.plain_altmlp_fwd_tiles``); bitwise determinism; times;
+    K7's and K8's blocks a launch (one wave) and device time, each kernel
+    and its slot sum apart."""
     import torch
 
     from regneuralde_tpu_torch.ops import fused_generic as fg
@@ -992,6 +993,18 @@ def phase_altmlp_kernels(device):
         for n, v in {**errs_f, **errs_b}.items():
             _check(v == v, f"{n}: NaN relative error at tol {tol}")
         _check(max(errs_f.values()) <= FWD_BOUND, f"K7 at tol {tol}: {errs_f}")
+        sched = fg.plain_altmlp_fwd_tiles(t, dt, y, k1, leaves, tol, tol)
+        for name, a, b in zip(names_f[:2], kf[:2], pf[:2]):
+            bad = (a != b).nonzero()
+            if len(bad):
+                r, c = bad[0].tolist()
+                print(f"[altmlp] tol={tol:g} K7's {name} differs from the plain version's at "
+                      f"{len(bad)} elements, first ({r}, {c}): {a[r, c].item()!r} against "
+                      f"{b[r, c].item()!r}; y[{r}] {y[r].tolist()}, k1[{r}] {k1[r].tolist()}")
+        _check(all(torch.equal(a, b) for a, b in zip(kf[:2], pf[:2])),
+               f"K7's rows are the plain version's bitwise at tol {tol}")
+        _check(all(torch.equal(a, b) for a, b in zip(kf, sched)),
+               f"K7's rows and sums are its schedule's bitwise at tol {tol}")
         _check(max(errs_b.values()) <= BWD_BOUND, f"K8 at tol {tol}: {errs_b}")
         _check(kb[0].item() == 0.0, "K8: ct_t is exactly zero")
 
@@ -1022,10 +1035,19 @@ def phase_altmlp_kernels(device):
     }
     print("[altmlp] median ms over %d runs at %dx%dx%dx%d: %s"
           % (REPS, B, D, H, LATENT_DEPTH, json.dumps(times)))
-    # K8's grid and device time, its kernel and its slot sum apart
+    # K7's and K8's grids and device times, each kernel and its slot sum apart
     from regneuralde_tpu_torch.ops import _cuda
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fplan = fg.check_fwd_plan(_cuda.library(), D, H, LATENT_DEPTH)
+    fblocks = fg.altmlp_fwd_plan(B, D, H, LATENT_DEPTH).tiles
+    fwd = lambda: fg.altmlp_normed_sweep(t, dt, y, k1, leaves, tol, tol)
+    fdev_k = _device_ms(fwd, "altmlp_fwd_kernel")
+    fdev_s = _device_ms(fwd, "sum_slots_warp_kernel")
+    print(f"[altmlp] K7: {fblocks} blocks of {fplan.rows} rows a launch on {sms} SMs, "
+          f"{fplan.smem_bytes} bytes of shared memory a block; device ms a launch: "
+          f"altmlp_fwd_kernel {fdev_k!r}, sum_slots_warp_kernel {fdev_s!r}")
+    _check(fblocks <= sms, f"K7 runs in one wave: {fblocks} blocks on {sms} SMs")
     plan = fg.check_bwd_plan(_cuda.library(), D, H, LATENT_DEPTH)
     blocks = fg.altmlp_bwd_plan(B, D, H, LATENT_DEPTH).tiles
     bwd = lambda: fg.altmlp_normed_sweep_bwd(t, dt, y, k1, leaves, cts, tol, tol)
@@ -1382,8 +1404,8 @@ def phase_whole_solve_altmlp_kernels(device, saveat):
     BWD_BOUND of its plain version with the rows' cotangents and within
     TEL_BWD_BOUND with the telemetry's (every output but ct_f0); ct_f0
     with the cotangent of y1 alone within BWD_BOUND of the plain version.
-    CUDA-event times of both kernels at 1.4e-8, and K4's device time a
-    solve there."""
+    CUDA-event times of both kernels at 1.4e-8, and K3's and K4's device
+    time a solve there."""
     import torch
 
     from regneuralde_tpu_torch.ops import fused_generic as fg
@@ -1421,9 +1443,10 @@ def phase_whole_solve_altmlp_kernels(device, saveat):
     print("[whole-altmlp] median ms over %d runs at %dx%dx%dx%d, %d saves, tol %g, "
           "%d trial steps: %s" % (REPS, B, D, H, LATENT_DEPTH, sa.shape[0], FLAGSHIP_TOL,
                                   ns, json.dumps(times)))
+    dev_f = _device_ms(lambda: ws.whole_solve_fwd(*args, **kw), "whole_solve_fwd_kernel")
     dev = _device_ms(lambda: ws.whole_solve_bwd(*bwd, **bkw), "whole_solve_bwd_kernel")
-    print(f"[whole-altmlp] K4 device ms a solve of {ns} trial steps: "
-          f"whole_solve_bwd_kernel {dev!r}")
+    print(f"[whole-altmlp] device ms a solve of {ns} trial steps: K3 "
+          f"whole_solve_fwd_kernel {dev_f!r}; K4 whole_solve_bwd_kernel {dev!r}")
     f_ops, b_ops, leaf = _altmlp_work(B, D, H, LATENT_DEPTH)
     nbytes = _solve_bytes(B * D, leaf, ns, sa.shape[0], LATENT_MAX_STEPS)
     return {

@@ -23,12 +23,19 @@
 // What the design does about it. Widths of 20 and 50 are far below a
 // tensor-core tile, so every product is FMA work on values in shared
 // memory; all leaves (8,280 floats) are loaded into shared memory once per
-// launch, each weight row padded to an odd stride. No floating-point atomics
-// anywhere, so every result is bitwise reproducible: the norm sums decide
-// accept/reject, and a flipped accept changes NFE and the adjoint.
-//   * K7: one block owns a tile of kAltRows = 2 rows and runs the whole
-//     step; the three norm sums leave each block as a per-tile slot, summed
-//     in tile order by a second small kernel (as K1).
+// launch (K8 pads each weight row to an odd stride; K7 copies them as they
+// are, 16 bytes a thread). No floating-point atomics anywhere, so every
+// result is bitwise reproducible: the norm sums decide accept/reject, and a
+// flipped accept changes NFE and the adjoint.
+//   * K7: one block owns a tile of kAltRows = 2 rows and runs the forward
+//     body altmlp_forward_tile (altmlp_tsit5.cuh): the leaves copied into
+//     shared memory by cp.async, all in flight at once; each layer of the
+//     six stages one phase between two block barriers in which every
+//     thread takes a share of the products (each sum split over lanes of a
+//     warp, added by a shuffle butterfly), the latent widths compiled as
+//     constants; the last layer's phase builds the next stage's input. The
+//     three norm sums leave each block as a slot a 2-row sub-tile, summed
+//     in slot order by a second small kernel (as K1).
 //   * K8: one block owns a tile of kAltBwdRows rows and runs the reverse
 //     body altmlp_reverse_tile (altmlp_tsit5.cuh): each layer of the stage
 //     recompute and of the reverse is one phase between two block barriers
@@ -50,14 +57,16 @@
 // estimate of a smooth solve sits at its f32 rounding floor, where any
 // other rounding moves the step sizes and with them NFE; bitwise stage
 // values keep kernel and plain solves on the same steps. K8's recompute
-// sums the same f64 terms in another order before its one rounding.
+// sums the same f64 terms in the same order (alt_affine_rows); its order
+// on the CPU is ops/fused_generic.py plain_altmlp_fwd_tiles.
 
 #include "altmlp_tsit5.cuh"
 
 namespace {
 
 // K7: one normed Tsit5 trial step of AlternatingMLP per row tile. Writes
-// the tile's y_new and k7 rows and its three norm sums to partials[tile].
+// the tile's y_new and k7 rows and the three norm sums of each of its slots
+// to partials[slot] (kAltSlots slots a tile).
 __global__ void __launch_bounds__(kThreads)
 altmlp_fwd_kernel(const float* __restrict__ t_p, const float* __restrict__ dt_p,
                   const float* __restrict__ y, const float* __restrict__ k1,
@@ -68,10 +77,10 @@ altmlp_fwd_kernel(const float* __restrict__ t_p, const float* __restrict__ dt_p,
   const int row0 = blockIdx.x * kAltRows;
   (void)t_p;  // the dynamics take no time input
   float* wsm = smem;
-  load_weights(leaves, depth, D, H, wsm);
-  altmlp_fwd_tile(y, k1, row0, min(kAltRows, B - row0), *dt_p, wsm, depth,
-                  y_new, k7, partials + 3 * blockIdx.x, D, H, rtol, atol,
-                  wsm + padded_weight_floats(depth, D, H));
+  alt_fwd_load_weights(leaves, depth, D, H, wsm);
+  altmlp_forward_tile(y, k1, row0, min(kAltRows, B - row0), *dt_p, wsm, depth, y_new, k7,
+                      partials + 3 * kAltSlots * blockIdx.x, D, H, rtol, atol,
+                      wsm + alt_fwd_weight_floats(depth, D, H));
 }
 
 // K8: the hand reverse chain of K7 per row tile of kAltBwdRows rows,
@@ -109,7 +118,13 @@ altmlp_bwd_kernel(const float* __restrict__ dt_p, const float* __restrict__ y,
 
 extern "C" {
 
+// K7's and K3's forward tile: its rows, its norm-sum slots' rows, and its
+// block's shared memory.
 int regnde_altmlp_rows() { return kAltRows; }
+int regnde_altmlp_slot_rows() { return kAltSlotRows; }
+int regnde_altmlp_fwd_smem_bytes(int depth, int D, int H) {
+  return (int)altmlp_fwd_smem_bytes(depth, D, H);
+}
 int regnde_altmlp_max_depth() { return kMaxLeaves / 4; }
 // K8's and K4's reverse tile: its rows, and its block's shared memory.
 int regnde_altmlp_bwd_rows() { return kAltBwdRows; }
@@ -118,8 +133,8 @@ int regnde_altmlp_bwd_smem_bytes(int depth, int D, int H) {
 }
 
 // K7. leaves: host array of 4 * depth device pointers (up_0.weight,
-// up_0.bias, down_0.weight, down_0.bias, ...). partials: (ceil(B/R), 3)
-// scratch; sums: (3,) err_ssq, num_ssq, den_ssq.
+// up_0.bias, down_0.weight, down_0.bias, ...). partials: (ceil(B/R) *
+// kAltSlots, 3) scratch, R = kAltRows; sums: (3,) err_ssq, num_ssq, den_ssq.
 int regnde_altmlp_fwd(const float* t, const float* dt, const float* y,
                       const float* k1, const float* const* leaves, int depth,
                       float* y_new, float* k7, float* partials, float* sums,
@@ -136,7 +151,8 @@ int regnde_altmlp_fwd(const float* t, const float* dt, const float* y,
       D, H, rtol, atol);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  sum_slots_warp_kernel<<<1, 3 * 32, 0, s>>>(partials, nblocks, 3, sums);
+  const int nslots = (B + kAltSlotRows - 1) / kAltSlotRows;
+  sum_slots_warp_kernel<<<1, 3 * 32, 0, s>>>(partials, nslots, 3, sums);
   return (int)cudaGetLastError();
 }
 

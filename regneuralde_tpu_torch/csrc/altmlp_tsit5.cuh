@@ -1,23 +1,24 @@
 // Device code of AlternatingMLP's normed Tsit5 trial step, shared by the
 // step kernels (altmlp_tsit5.cu, K7/K8) and the whole-solve kernels
-// (whole_solve.cu, K3/K4): the stage, the six-stage recompute and the
-// per-tile body of one trial step (2-row tiles, kAltRows), the reverse tile
-// body (altmlp_reverse_tile, 2-row tiles, kAltBwdRows), and the seeds
-// algebra of a normed step's reverse, which FFJORD's reverse body
-// (csl_tsit5.cuh) runs too.
+// (whole_solve.cu, K3/K4): the forward tile body (altmlp_forward_tile,
+// 2-row tiles, kAltRows), the reverse tile body (altmlp_reverse_tile, 2-row
+// tiles, kAltBwdRows), and the seeds algebra of a normed step's reverse,
+// which FFJORD's reverse body (csl_tsit5.cuh) runs too.
 //
 //   f(y) = tanh(... tanh(down_0(tanh(up_0(tanh(y))))) ...), depth x (up, down),
 //   up_i: nn.Linear(D, H), down_i: nn.Linear(H, D), no time input.
 //
-// The leaves live in shared memory (load_weights), each weight row padded
-// to an odd stride so that neither the products over inputs (threads over
-// outputs) nor those over outputs (threads over inputs) have bank
-// conflicts. Arithmetic is IEEE (no fast math, no TF32), tanh the accurate
-// tanhf. The forward reproduces its plain version (ops/fused_generic.py
-// plain_altmlp_normed_sweep) rounding for rounding: each affine map is
-// summed in f64 and rounded once to f32 (as the plain version's f64 addmm),
-// and the stage and error lincombs round each multiply and add as PyTorch's
-// separate ops do (__fmul_rn/__fadd_rn, no contraction into an FMA).
+// The leaves live in shared memory: the reverse body's copy (load_weights)
+// with each weight row padded to an odd stride so that neither the products
+// over inputs (threads over outputs) nor those over outputs (threads over
+// inputs) have bank conflicts, the forward's (alt_fwd_load_weights) in the
+// leaves' own layout. Arithmetic is IEEE (no fast math, no TF32), tanh the
+// accurate tanhf. The forward reproduces its plain version
+// (ops/fused_generic.py plain_altmlp_normed_sweep) rounding for rounding:
+// each affine map is summed in f64 and rounded once to f32 (as the plain
+// version's f64 addmm), and the stage and error lincombs round each multiply
+// and add as PyTorch's separate ops do (__fmul_rn/__fadd_rn, no contraction
+// into an FMA).
 //
 // Rows the whole solve writes and later reads again are read with __ldcg,
 // through L2 (see normed_tsit5.cuh).
@@ -28,7 +29,7 @@
 
 namespace {
 
-constexpr int kAltRows = 2;      // rows of the batch per tile
+constexpr int kAltRows = 2;      // rows of the batch per forward tile
 constexpr int kMaxLeaves = 32;   // 4 leaves a depth level: depth <= 8
 
 struct AltLeaves {
@@ -148,24 +149,6 @@ __host__ __device__ inline int leaf_floats(int depth, int D, int H) {
   return depth * (H * D + H + D * H + D);
 }
 
-// Floats of one stage's nine activations for kAltRows rows.
-__host__ __device__ inline int act_floats(int depth, int D, int H) {
-  return kAltRows * (D + depth * (H + D));
-}
-
-// Shared memory of one forward tile, after the padded weights.
-__host__ __device__ inline int alt_fwd_tile_floats(int D, int H) {
-  const int W = D > H ? D : H;
-  return 10 * kAltRows * D + 2 * kAltRows * W + 3 * kWarps;
-}
-
-// Bytes of shared memory of a kernel that holds the padded weights and
-// runs forward tiles.
-size_t altmlp_fwd_smem_bytes(int depth, int D, int H) {
-  return sizeof(float) * ((size_t)padded_weight_floats(depth, D, H) +
-                          alt_fwd_tile_floats(D, H));
-}
-
 __device__ void load_weights(const AltLeaves& lv, int depth, int D, int H,
                              float* wsm) {
   int off = 0;
@@ -181,108 +164,6 @@ __device__ void load_weights(const AltLeaves& lv, int depth, int D, int H,
       wsm[off + n_out * (n_in + 1) + o] = b[o];
     off += n_out * (n_in + 1) + n_out;
   }
-}
-
-// One AlternatingMLP evaluation for kAltRows rows: k = f(x). x and k are
-// (R x D) in shared memory. With acts, the nine activations [h0 = tanh(x),
-// h1 (R x H), h2 (R x D), ..., h_2depth = k] are stored there back to
-// back; without, two (R x max(D, H)) buffers ping-pong. Ends synchronised.
-__device__ void altmlp_stage(const float* x, float* k_out, float* bufa,
-                             float* bufb, float* acts, const float* wsm,
-                             int depth, int D, int H) {
-  constexpr int R = kAltRows;
-  float* cur = acts ? acts : bufa;
-  for (int idx = threadIdx.x; idx < R * D; idx += kThreads) cur[idx] = tanhf(x[idx]);
-  __syncthreads();
-  int off = 0;
-  const int nl = 2 * depth;
-  for (int l = 0; l < nl; ++l) {
-    const int n_in = layer_in(l, D, H), n_out = layer_out(l, D, H);
-    const float* W = wsm + off;
-    const float* b = W + n_out * (n_in + 1);
-    const bool last = l == nl - 1;
-    float* nxt = acts ? cur + R * n_in : (last ? k_out : (cur == bufa ? bufb : bufa));
-    for (int idx = threadIdx.x; idx < R * n_out; idx += kThreads) {
-      const int r = idx / n_out, o = idx - r * n_out;
-      const float* a = cur + r * n_in;
-      const float* w = W + o * (n_in + 1);
-      double s = (double)b[o];
-      for (int k = 0; k < n_in; ++k) s = fma((double)a[k], (double)w[k], s);
-      const float h = tanhf((float)s);
-      nxt[idx] = h;
-      if (last && acts) k_out[idx] = h;
-    }
-    __syncthreads();
-    cur = nxt;
-    off += n_out * (n_in + 1) + n_out;
-  }
-}
-
-// Loads the tile's y and k1 (zero past the batch end) and runs the six
-// stages: ks[i] = f(y + dt * acc_i). On return ystage holds y_new (the
-// stage-6 state) and g6 the stage-5 state; acts (null in every caller since
-// the reverse body records its own) the activations of every stage, stage i
-// at acts + (i - 1) * act_floats.
-__device__ void altmlp_recompute(const float* y_g, const float* k1_g, int row0,
-                                 int rows, float dt, float* y_s, float* ks,
-                                 float* ystage, float* g6, float* bufa,
-                                 float* bufb, float* acts, const float* wsm,
-                                 int depth, int D, int H) {
-  const int n = kAltRows * D;
-  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
-    const bool valid = idx < rows * D;
-    y_s[idx] = valid ? __ldcg(y_g + (size_t)row0 * D + idx) : 0.0f;
-    ks[idx] = valid ? __ldcg(k1_g + (size_t)row0 * D + idx) : 0.0f;
-  }
-  const int na = act_floats(depth, D, H);
-  for (int i = 1; i <= 6; ++i) {
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < n; idx += kThreads) {
-      const float v = __fadd_rn(y_s[idx], __fmul_rn(dt, stage_acc_rn(i, ks, n, idx)));
-      ystage[idx] = v;
-      if (i == 5) g6[idx] = v;
-    }
-    __syncthreads();
-    altmlp_stage(ystage, ks + i * n, bufa, bufb, acts ? acts + (i - 1) * na : nullptr,
-                 wsm, depth, D, H);
-  }
-}
-
-// K7's body for one tile [row0, row0 + rows): writes the tile's y_new and
-// k7 rows and its three norm sums (err, num, den) to sums_out. wsm holds
-// the padded weights; smem alt_fwd_tile_floats(D, H) floats of scratch.
-__device__ void altmlp_fwd_tile(const float* y, const float* k1, int row0,
-                                int rows, float dt, const float* wsm, int depth,
-                                float* y_new, float* k7, float* sums_out, int D,
-                                int H, float rtol, float atol, float* smem) {
-  constexpr int R = kAltRows;
-  const int n = R * D;
-  const int W = D > H ? D : H;
-  float* y_s = smem;
-  float* ks = y_s + n;          // 7 x n
-  float* ystage = ks + 7 * n;
-  float* g6 = ystage + n;
-  float* bufa = g6 + n;
-  float* bufb = bufa + R * W;
-  float* red = bufb + R * W;
-  altmlp_recompute(y, k1, row0, rows, dt, y_s, ks, ystage, g6, bufa, bufb,
-                   nullptr, wsm, depth, D, H);
-
-  float sums[3] = {0.0f, 0.0f, 0.0f};
-  for (int idx = threadIdx.x; idx < rows * D; idx += kThreads) {
-    const float err = __fmul_rn(dt, err_comb_rn(ks, n, idx));
-    const float yv = y_s[idx], yn = ystage[idx];
-    const float denom = __fadd_rn(atol, __fmul_rn(fmaxf(fabsf(yv), fabsf(yn)), rtol));
-    const float sc = __fdiv_rn(err, denom);
-    sums[0] += sc * sc;
-    const float dk = ks[6 * n + idx] - ks[5 * n + idx];
-    sums[1] += dk * dk;
-    const float dg = yn - g6[idx];
-    sums[2] += dg * dg;
-    y_new[(size_t)row0 * D + idx] = yn;
-    k7[(size_t)row0 * D + idx] = ks[6 * n + idx];
-  }
-  block_sum_to<3>(sums, red, sums_out);
 }
 
 // ---------------------------------------------------------------------------
@@ -839,6 +720,344 @@ __device__ void altmlp_reverse_tile(const float* y, const float* k1, int row0, i
     part_out[0] = 0.0f;
     part_out[1] = (float)sum;
   }
+}
+
+// ---------------------------------------------------------------------------
+// The forward tile body of K7 and K3 (AltDyn in whole_solve.cu).
+//
+// A tile is kAltRows = 2 rows of the batch, one block of kThreads: at the
+// latent ODE's batch of 256 that is 128 tiles, one wave, and K3's
+// cooperative grid holds one tile a block. The block copies the leaves into
+// shared memory once (a launch in K7, a solve in K3) with every copy in
+// flight at once (alt_fwd_load_weights). Per trial step the body runs the
+// six stages, each layer one phase between two block barriers with the
+// block's threads at work on the tile's rows, as the reverse body's
+// recompute runs them:
+//   * a product item is one output and the tile's rows; 2^alt_fwd_split_lg(K)
+//     lanes of a warp share each sum of K terms, lane s taking the terms s,
+//     s + S, ... (at most kAltFwdChain, their loads issued before their
+//     FMAs), and a butterfly of shuffles adds the partials in a fixed order;
+//   * each affine map is an f64 sum (from the bias, of the rows' exact f64
+//     copies times the f32 weights) rounded once to f32: the plain version's
+//     rows (its f64 addmm) except where an f64 sum lies within its own
+//     rounding error of an f32 tie. With kAltFwdChain equal to the reverse's
+//     kAltChain the sums run in alt_affine_rows' order, so K8's recompute
+//     reproduces these stages bitwise;
+//   * the last layer's phase also builds stage i + 1's input, element by
+//     element: its state y + dt acc_{i+1} (the plain version's order and
+//     roundings, __fmul_rn/__fadd_rn), its tanh and that tanh's f64 copy;
+//   * at the latent widths (kAltLatentD x kAltLatentH) the widths are
+//     compile-time constants: every index, split and trip count of a phase
+//     is known to the compiler and a lane's terms are one unrolled run;
+//     other widths take the generic instance.
+// The norm sums are the parent body's, element for element: one slot of
+// (err, num, den) a kAltSlotRows = 2-row sub-tile, element j of the slot
+// taken by thread j % kThreads in order of j, a shuffle tree a warp, the
+// warps added in order (block_sum_to's order), then the ceil(B / 2) slots
+// summed lane-strided by one warp (sum_slots_warp_kernel in K7, sum_tiles
+// in K3's fwd_decide). So every accept, NFE and dt of a latent solve is
+// what the one-output-a-thread body before it gave.
+// ---------------------------------------------------------------------------
+
+constexpr int kAltSlotRows = 2;   // rows of the batch per norm-sum slot
+constexpr int kAltSlots = kAltRows / kAltSlotRows;
+constexpr int kAltFwdChain = 7;   // most terms of one lane's share of a forward sum
+constexpr int kAltLatentD = 20, kAltLatentH = 50;  // widths compiled as constants
+static_assert(kAltRows % kAltSlotRows == 0 && kAltRows <= 4, "a product item is all rows");
+
+// log2 of the lanes that share one forward sum of n terms: the fewest (a
+// power of two, at most 32) that leave each lane at most kAltFwdChain.
+__host__ __device__ constexpr int alt_fwd_split_lg(int n) {
+  int lg = 0;
+  while (lg < 5 && ((n + (1 << lg) - 1) >> lg) > kAltFwdChain) ++lg;
+  return lg;
+}
+
+// The forward tile's shared memory: the stage state (y_s, ks 7 of them,
+// ystage, g6; R x D each), two f64 row copies (a layer's input, its
+// output) at the widest layer's width rounded up to 4, and the slot sums'
+// warp partials.
+struct AltForwardSmem {
+  float *y_s, *ks, *ystage, *g6, *red;
+  double *xa, *xb;
+};
+
+// Floats of the forward tile (each part a multiple of 4, from a 16-byte
+// aligned base); with a base, its parts' addresses to *s.
+__host__ __device__ inline int alt_forward_floats(int D, int H, float* base = nullptr,
+                                                  AltForwardSmem* s = nullptr) {
+  constexpr int R = kAltRows;
+  const int n = R * D, pw = R * (D > H ? alt_pad4(D) : alt_pad4(H));
+  int off = 0;
+  auto take = [&](int floats) {
+    float* p = base ? base + off : nullptr;
+    off += alt_pad4(floats);
+    return p;
+  };
+  auto take64 = [&](int doubles) { return reinterpret_cast<double*>(take(2 * doubles)); };
+  AltForwardSmem t;
+  t.y_s = take(n);
+  t.ks = take(7 * n);
+  t.ystage = take(n);
+  t.g6 = take(n);
+  t.xa = take64(pw);
+  t.xb = take64(pw);
+  t.red = take(3 * kAltSlots * kWarps);
+  if (s) *s = t;
+  return off;
+}
+
+// The forward's copy of the leaves in shared memory: the leaves in their
+// own layout (nn.Linear's, rows unpadded), each from a 4-float boundary.
+// Floats of layer l's weight, of layer l, of all layers, and the offset of
+// layer l.
+__host__ __device__ inline int alt_fwd_w_floats(int n_in, int n_out) {
+  return alt_pad4(n_out * n_in);
+}
+__host__ __device__ inline int alt_fwd_layer_floats(int l, int D, int H) {
+  return alt_fwd_w_floats(layer_in(l, D, H), layer_out(l, D, H)) + alt_pad4(layer_out(l, D, H));
+}
+__host__ __device__ inline int alt_fwd_weight_floats(int depth, int D, int H) {
+  return depth * (alt_fwd_layer_floats(0, D, H) + alt_fwd_layer_floats(1, D, H));
+}
+__host__ __device__ inline int alt_fwd_layer_at(int l, int D, int H) {
+  return (l >> 1) * (alt_fwd_layer_floats(0, D, H) + alt_fwd_layer_floats(1, D, H)) +
+         ((l & 1) ? alt_fwd_layer_floats(0, D, H) : 0);
+}
+
+// Bytes of shared memory of a block that holds the forward's leaves and
+// runs forward tiles (4 floats of slack to align the tile).
+size_t altmlp_fwd_smem_bytes(int depth, int D, int H) {
+  return sizeof(float) *
+         ((size_t)alt_fwd_weight_floats(depth, D, H) + 4 + alt_forward_floats(D, H));
+}
+
+// The forward tile's parts in the shared memory after the forward's leaves,
+// aligned as alt_reverse_smem aligns the reverse's.
+__device__ __forceinline__ AltForwardSmem alt_forward_smem(float* smem, int D, int H) {
+  const int pad = (4 - ((int)__cvta_generic_to_shared(smem) >> 2 & 3)) & 3;
+  AltForwardSmem s;
+  alt_forward_floats(D, H, smem + pad, &s);
+  return s;
+}
+
+__device__ __forceinline__ void alt_cp4(float* dst, const float* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+// n floats, contiguous in device memory at src, to dst: a cp.async of 16
+// bytes a thread where both ends are 16-byte aligned, else of 4.
+__device__ __forceinline__ void alt_fwd_copy(float* dst, const float* src, int n) {
+  const bool wide =
+      (((size_t)__cvta_generic_to_shared(dst) | reinterpret_cast<size_t>(src)) & 15) == 0;
+  const int n4 = wide ? n & ~3 : 0;
+  for (int e = 4 * (int)threadIdx.x; e < n4; e += 4 * kThreads) alt_cp16(dst + e, src + e);
+  for (int e = n4 + (int)threadIdx.x; e < n; e += kThreads) alt_cp4(dst + e, src + e);
+}
+
+// The leaves into shared memory in the forward's layout, each leaf one
+// contiguous copy by cp.async, 16 bytes a thread, all of a thread's copies
+// in flight at once (rows padded by a float and copied 4 bytes a lane took
+// 1.27x the kernel's time on the H100; load_weights' loop, a load and its
+// store at a time, was no faster than that). Returns with this thread's
+// copies done; a block barrier makes them visible.
+__device__ void alt_fwd_load_weights(const AltLeaves& lv, int depth, int D, int H, float* wsm) {
+  for (int l = 0; l < 2 * depth; ++l) {
+    const int n_in = layer_in(l, D, H), n_out = layer_out(l, D, H);
+    float* dst = wsm + alt_fwd_layer_at(l, D, H);
+    alt_fwd_copy(dst, lv.p[2 * l], n_out * n_in);
+    alt_fwd_copy(dst + alt_fwd_w_floats(n_in, n_out), lv.p[2 * l + 1], n_out);
+  }
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// out[r, o] = b[o] + sum_{k < K} x[r, k] W[o, k] for the tile's rows and o <
+// N, x the rows' f64 copies (row stride px), W rows of K: each sum in f64
+// from the bias, rounded once; lane s of the S =
+// 2^alt_fwd_split_lg(K) sharing it takes k = s, s + S, ... in that order and
+// hands rows j = s, s + S, ... to epi(r, o, value), one inlined copy of epi
+// picking the row at run time. KC, NC > 0: K and N known to the compiler,
+// each lane's terms one unrolled run with every load first; else four terms
+// a trip, their loads first (alt_affine_rows' loop).
+template <int KC, int NC, class Epi>
+__device__ __forceinline__ void alt_fwd_rows(const float* W, const float* b, int K_, int N_,
+                                             const double* x, int px, Epi epi) {
+  constexpr int R = kAltRows;
+  const int K = KC > 0 ? KC : K_, N = NC > 0 ? NC : N_;
+  const int lg = alt_fwd_split_lg(K), S = 1 << lg, items = N << lg;
+  for (int base = 0; base < items; base += kThreads) {  // the same trips in every lane
+    const int item = base + threadIdx.x, s = item & (S - 1);
+    const bool live = item < items;
+    const int o = live ? item >> lg : 0;
+    const float* w = W + o * K;
+    double acc[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) acc[j] = s == 0 ? (double)b[o] : 0.0;
+    if constexpr (KC > 0) {
+      constexpr int SC = 1 << alt_fwd_split_lg(KC), T = (KC + SC - 1) / SC;
+      double wk[T], xv[T][R];
+#pragma unroll
+      for (int q = 0; q < T; ++q) {
+        const int k = s + q * SC;
+        const bool in = q < T - 1 || k < KC;  // only a lane's last term may run past K
+        wk[q] = in ? (double)w[k] : 0.0;
+#pragma unroll
+        for (int j = 0; j < R; ++j) xv[q][j] = in ? x[j * px + k] : 0.0;
+      }
+#pragma unroll
+      for (int q = 0; q < T; ++q)
+        if (q < T - 1 || s + q * SC < KC)
+#pragma unroll
+          for (int j = 0; j < R; ++j) acc[j] = fma(xv[q][j], wk[q], acc[j]);
+    } else {
+      int k = s;
+      for (; k + 3 * S < K; k += 4 * S) {
+        double wk[4], xv[4][R];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          wk[q] = w[k + q * S];
+#pragma unroll
+          for (int j = 0; j < R; ++j) xv[q][j] = x[j * px + k + q * S];
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+#pragma unroll
+          for (int j = 0; j < R; ++j) acc[j] = fma(xv[q][j], wk[q], acc[j]);
+      }
+      for (; k < K; k += S) {
+        const double wk = w[k];
+#pragma unroll
+        for (int j = 0; j < R; ++j) acc[j] = fma(x[j * px + k], wk, acc[j]);
+      }
+    }
+    for (int m = 1; m < S; m <<= 1)
+#pragma unroll
+      for (int j = 0; j < R; ++j) acc[j] += __shfl_xor_sync(0xffffffffu, acc[j], m);
+    if (live)
+      for (int j = s; j < R; j += S) {
+        double v = acc[0];
+#pragma unroll
+        for (int q = 1; q < R; ++q)
+          if (q == j) v = acc[q];
+        epi(j, o, (float)v);
+      }
+  }
+}
+
+// K7's and K3's body for one tile [row0, row0 + rows) of at most kAltRows
+// rows at widths DC x HC (0 x 0: D x H at run time): loads the tile's y and
+// k1 (zero past the batch end), runs the six stages (ks[i] = f(y + dt *
+// acc_i)), then writes the tile's y_new and k7 rows and, for each of its
+// slots that holds a row of the batch, the slot's three norm sums (err,
+// num, den) to sums_out[3 * slot ..]. wsm holds the forward's leaves
+// (alt_fwd_load_weights), smem alt_forward_floats + 4 floats.
+template <int DC, int HC>
+__device__ __forceinline__ void altmlp_forward_tile_at(const float* y, const float* k1, int row0,
+                                                       int rows, float dt, const float* wsm,
+                                                       int depth, float* y_new, float* k7,
+                                                       float* sums_out, int D_, int H_,
+                                                       float rtol, float atol, float* smem) {
+  constexpr int R = kAltRows, SR = kAltSlotRows;
+  const int D = DC > 0 ? DC : D_, H = HC > 0 ? HC : H_;
+  const int n = R * D, pw = D > H ? alt_pad4(D) : alt_pad4(H);
+  const size_t g0 = (size_t)row0 * D;
+  const AltForwardSmem s = alt_forward_smem(smem, D, H);
+
+  // Stage i's state y + dt acc_i of element (r, c), its tanh's f64 copy to
+  // xa (layer 0's input); ystage ends as the stage-6 state (y_new), g6 holds
+  // the stage-5 state.
+  auto stage_in = [&](int i, int r, int c) {
+    const int idx = r * D + c;
+    const float v = __fadd_rn(s.y_s[idx], __fmul_rn(dt, stage_acc_rn(i, s.ks, n, idx)));
+    s.ystage[idx] = v;
+    if (i == 5) s.g6[idx] = v;
+    s.xa[r * pw + c] = tanhf(v);
+  };
+
+  __syncthreads();  // the weights' copies; the previous tile's last reads
+  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
+    const bool valid = idx < rows * D;
+    s.y_s[idx] = valid ? __ldcg(y + g0 + idx) : 0.0f;
+    s.ks[idx] = valid ? __ldcg(k1 + g0 + idx) : 0.0f;
+    stage_in(1, idx / D, idx % D);
+  }
+
+  // ks[i] = f(y + dt acc_i); the last layer's phase starts stage i + 1
+  for (int i = 1; i <= 6; ++i) {
+    const float* W = wsm;
+    for (int p = 0; p < depth; ++p) {
+      const float* bu = W + alt_fwd_w_floats(D, H);
+      __syncthreads();
+      alt_fwd_rows<DC, HC>(W, bu, D, H, s.xa, pw,
+                           [&](int r, int o, float a) { s.xb[r * pw + o] = tanhf(a); });
+      W = bu + alt_pad4(H);
+      const float* bd = W + alt_fwd_w_floats(H, D);
+      const bool last = p == depth - 1;
+      __syncthreads();
+      alt_fwd_rows<HC, DC>(W, bd, H, D, s.xb, pw, [&](int r, int o, float a) {
+        const float h = tanhf(a);
+        if (!last) {
+          s.xa[r * pw + o] = h;
+          return;
+        }
+        s.ks[i * n + r * D + o] = h;
+        if (i < 6) stage_in(i + 1, r, o);
+      });
+      W = bd + alt_pad4(D);
+    }
+  }
+  __syncthreads();
+
+  // the norm sums (the parent body's loop, a slot at a time) and the rows
+  float sums[3 * kAltSlots];
+#pragma unroll
+  for (int q = 0; q < 3 * kAltSlots; ++q) sums[q] = 0.0f;
+#pragma unroll
+  for (int sl = 0; sl < kAltSlots; ++sl) {
+    const int valid = min(max(rows - sl * SR, 0), SR) * D;
+    for (int j = threadIdx.x; j < valid; j += kThreads) {
+      const int idx = sl * SR * D + j;
+      const float err = __fmul_rn(dt, err_comb_rn(s.ks, n, idx));
+      const float yv = s.y_s[idx], yn = s.ystage[idx];
+      const float denom = __fadd_rn(atol, __fmul_rn(fmaxf(fabsf(yv), fabsf(yn)), rtol));
+      const float sc = __fdiv_rn(err, denom);
+      sums[3 * sl] += sc * sc;
+      const float dk = s.ks[6 * n + idx] - s.ks[5 * n + idx];
+      sums[3 * sl + 1] += dk * dk;
+      const float dg = yn - s.g6[idx];
+      sums[3 * sl + 2] += dg * dg;
+      y_new[g0 + idx] = yn;
+      k7[g0 + idx] = s.ks[6 * n + idx];
+    }
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int q = 0; q < 3 * kAltSlots; ++q) {
+    const float v = warp_sum(sums[q]);
+    if (lane == 0) s.red[q * kWarps + warp] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < 3 * ((rows + SR - 1) / SR)) {
+    const int q = threadIdx.x;
+    float v = 0.0f;
+    for (int w = 0; w < kWarps; ++w) v += s.red[q * kWarps + w];
+    sums_out[q] = v;
+  }
+}
+
+// The forward tile body at the tile's widths: the latent widths as
+// constants, any other at run time.
+__device__ void altmlp_forward_tile(const float* y, const float* k1, int row0, int rows, float dt,
+                                    const float* wsm, int depth, float* y_new, float* k7,
+                                    float* sums_out, int D, int H, float rtol, float atol,
+                                    float* smem) {
+  if (D == kAltLatentD && H == kAltLatentH)
+    altmlp_forward_tile_at<kAltLatentD, kAltLatentH>(y, k1, row0, rows, dt, wsm, depth, y_new,
+                                                     k7, sums_out, D, H, rtol, atol, smem);
+  else
+    altmlp_forward_tile_at<0, 0>(y, k1, row0, rows, dt, wsm, depth, y_new, k7, sums_out, D, H,
+                                 rtol, atol, smem);
 }
 
 // out[c] = sum over slots s (in order of s) of slots[s * width + c], one

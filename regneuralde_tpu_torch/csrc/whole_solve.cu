@@ -434,7 +434,8 @@ struct MlpDyn {
   int H;
 };
 
-// AlternatingMLP: K7's tile body forward (2-row tiles) and K8's reverse
+// AlternatingMLP: K7's forward body (altmlp_forward_tile, kAltRows-row
+// tiles, one norm-sum slot a kAltSlotRows-row sub-tile) and K8's reverse
 // body backward (altmlp_reverse_tile, kAltBwdRows-row tiles), the padded
 // leaves in shared memory for the whole solve. The backward's weight and
 // bias cotangents stay with their owner threads for the whole walk (Regs:
@@ -443,20 +444,20 @@ struct MlpDyn {
 // leaf_floats) on, slots holds each block's activation records
 // (alt_reverse_records).
 struct AltDyn {
-  static constexpr int kFwdR = kAltRows, kBwdR = kAltBwdRows, kSlotR = kAltRows;
+  static constexpr int kFwdR = kAltRows, kBwdR = kAltBwdRows, kSlotR = kAltSlotRows;
   using Regs = AltCw;
   AltLeaves lv;
   float* slots;
   int depth, H;
 
   __device__ void setup_fwd(float* smem, int D) const {
-    load_weights(lv, depth, D, H, smem);
+    alt_fwd_load_weights(lv, depth, D, H, smem);
   }
   __device__ void fwd(const float* y, const float* k1, int row0, int rows, int,
                       int, float, float dt, float* yn, float* kn, float* sums,
                       int D, float rtol, float atol, float* smem) const {
-    altmlp_fwd_tile(y, k1, row0, rows, dt, smem, depth, yn, kn, sums, D, H,
-                    rtol, atol, smem + padded_weight_floats(depth, D, H));
+    altmlp_forward_tile(y, k1, row0, rows, dt, smem, depth, yn, kn, sums, D, H,
+                        rtol, atol, smem + alt_fwd_weight_floats(depth, D, H));
   }
   __device__ void setup_bwd(float* smem, int D, AltCw& cw) const {
     load_weights(lv, depth, D, H, smem);
@@ -940,7 +941,7 @@ int regnde_whole_solve_fwd(const float* scalars, const float* y0,
 
 // K3 for AlternatingMLP: as regnde_whole_solve_fwd with the leaves as a
 // host array of 4 * depth device pointers (up_0.weight, up_0.bias,
-// down_0.weight, down_0.bias, ...). partials: (2, ceil(B/2), 3).
+// down_0.weight, down_0.bias, ...). partials: (2, ceil(B/kAltSlotRows), 3).
 int regnde_whole_solve_altmlp_fwd(const float* scalars, const float* y0,
                                   const float* f0, const float* const* leaves,
                                   int depth, const float* saveat, int* cursors,

@@ -42,6 +42,8 @@ _SIGNATURES = {
     "regnde_whole_solve_altmlp_fwd": [_P] * 4 + [_I] + [_P] * 9 + [_I] * 5 + [_F] * 9 + [_P],
     "regnde_whole_solve_altmlp_bwd": [_P] * 5 + [_I] + [_P] * 12 + [_I] * 6 + [_F] * 9 + [_P],
     "regnde_altmlp_rows": [],
+    "regnde_altmlp_slot_rows": [],
+    "regnde_altmlp_fwd_smem_bytes": [_I] * 3,
     "regnde_altmlp_max_depth": [],
     "regnde_altmlp_fwd": [_P] * 5 + [_I] + [_P] * 4 + [_I] * 3 + [_F] * 2 + [_P],
     "regnde_altmlp_bwd": [_P] * 4 + [_I] + [_P] * 8 + [_I] * 3 + [_F] * 2 + [_P],

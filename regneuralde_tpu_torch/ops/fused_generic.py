@@ -18,8 +18,10 @@ Each direction has a plain version and a CUDA kernel
 kernel traces ``jax.vjp`` instead). The wrappers ``altmlp_normed_sweep``
 and ``altmlp_normed_sweep_bwd`` take the plain version for tensors on the
 CPU, launch the kernel for tensors on a CUDA device, and raise otherwise.
-K8 and K4 for AlternatingMLP run one reverse tile body
-(``csrc/altmlp_tsit5.cuh`` ``altmlp_reverse_tile``): its sizes are
+K7 and K3 for AlternatingMLP run one forward tile body
+(``csrc/altmlp_tsit5.cuh`` ``altmlp_forward_tile``): its sizes are
+``altmlp_fwd_plan``, its order of sums on the CPU ``plain_altmlp_fwd_tiles``.
+K8 and K4 run one reverse tile body (``altmlp_reverse_tile``): its sizes are
 ``altmlp_bwd_plan``, its order of sums on the CPU ``plain_altmlp_bwd_tiles``.
 """
 
@@ -32,16 +34,20 @@ from typing import Callable, List, NamedTuple, Sequence, Tuple
 import torch
 
 from regneuralde_tpu_torch.ops.fused_mlp import _ptr, _scalar_f32, _stage_acc
-from regneuralde_tpu_torch.ops.ode import NormedSweep, _max_grad, plain_normed_sweep
+from regneuralde_tpu_torch.ops.ode import NormedSweep, _max_grad, normed_terms, plain_normed_sweep
 from regneuralde_tpu_torch.ops.tableaus import TSIT5
 
 # Launches of each kernel, counted by its wrapper where it launches.
 LAUNCHES = {"altmlp_tsit5_fwd": 0, "altmlp_tsit5_bwd": 0}
 
-# The reverse tile body's constants (``csrc/altmlp_tsit5.cuh``): rows a
-# tile, the most terms of one lane's share of a sum, the layers whose
-# cotangents a thread holds in registers; a block's threads and the shared
-# memory it may take on the H100.
+# The forward tile body's constants (``csrc/altmlp_tsit5.cuh``): rows a
+# tile, rows a norm-sum slot, the most terms of one lane's share of a sum.
+ALT_FWD_ROWS = 2
+ALT_SLOT_ROWS = 2
+ALT_FWD_CHAIN = 7
+# The reverse tile body's: rows a tile, the most terms of one lane's share
+# of a sum, the layers whose cotangents a thread holds in registers; a
+# block's threads and the shared memory it may take on the H100.
 ALT_BWD_ROWS = 2
 ALT_CHAIN = 7
 ALT_REG_LAYERS = 8
@@ -128,11 +134,12 @@ def _activations(y_i, leaves):
     return acts
 
 
-def _split(n):
-    """Lanes of the kernel that share one sum of ``n`` terms
-    (``1 << alt_split_lg(n)``)."""
+def _split(n, chain=ALT_CHAIN):
+    """Lanes of the kernel that share one sum of ``n`` terms, at most
+    ``chain`` a lane (``1 << alt_split_lg(n)``; the forward's
+    ``alt_fwd_split_lg`` with ``ALT_FWD_CHAIN``)."""
     s = 1
-    while s < 32 and -(-n // s) > ALT_CHAIN:
+    while s < 32 and -(-n // s) > chain:
         s *= 2
     return s
 
@@ -146,6 +153,60 @@ def _split_matmul(v, W):
     while len(parts) > 1:
         parts = [parts[j] + parts[j + 1] for j in range(0, len(parts), 2)]
     return parts[0]
+
+
+def _split_dense_tanh(h, W, b):
+    """``_dense_tanh`` in the forward body's order of sums
+    (``alt_fwd_rows``): lane ``s`` of the ``S`` sharing an output's sum
+    adds, in float64 from the bias (lane 0) or zero, ``h[:, k] W[o, k]``
+    for ``k = s, s + S, ...`` in that order; a butterfly adds the lanes'
+    partials pairwise; the sum is rounded once to ``h``'s type. In float32
+    each product is exact in float64 (24-bit by 24-bit mantissas), so each
+    addition is the kernel's FMA."""
+    x, w = h.to(torch.float64), W.to(torch.float64)
+    K = x.shape[1]
+    S = _split(K, ALT_FWD_CHAIN)
+    parts = []
+    for s in range(S):
+        acc = b.to(torch.float64).expand(x.shape[0], -1) if s == 0 else x.new_zeros(
+            x.shape[0], w.shape[0])
+        for k in range(s, K, S):
+            acc = acc + x[:, k, None] * w[None, :, k]
+        parts.append(acc)
+    while len(parts) > 1:
+        parts = [parts[j] + parts[j + 1] for j in range(0, len(parts), 2)]
+    return torch.tanh(parts[0].to(h.dtype))
+
+
+def _split_apply(depth: int) -> Callable:
+    """``alternating_mlp_apply`` with each affine map in the forward body's
+    order of sums (``_split_dense_tanh``)."""
+
+    def apply_fn(t, y, leaves):
+        h = torch.tanh(y)
+        for j in range(2 * depth):
+            h = _split_dense_tanh(h, leaves[2 * j], leaves[2 * j + 1])
+        return h
+
+    return apply_fn
+
+
+def plain_altmlp_fwd_tiles(t, dt, y, k1, leaves, rtol, atol) -> NormedSweep:
+    """K7 (the forward tile body) in its own order of sums: the rows through
+    the kernel's split float64 sums (``_split_apply``; the plain version's
+    rows bitwise but where a float64 sum lies within its rounding error of
+    a float32 tie), the per-element terms as ``ode.normed_terms`` forms
+    them, and the three sums slot by slot of ``ALT_SLOT_ROWS`` rows, then
+    over the slots, as the kernel sums them (``fused_csl.csl_slot_order_
+    sums``; where a thread takes more than one element of a slot, 2 D >
+    256, the kernel contracts its running sum's update into an FMA, which
+    this does not mirror). For the tests: on the card K7's rows and sums
+    equal these bitwise."""
+    from regneuralde_tpu_torch.ops.fused_csl import csl_slot_order_sums
+
+    y_new, k7, *terms = normed_terms(_split_apply(_depth(leaves)), t, dt, y, k1, tuple(leaves),
+                                     float(rtol), float(atol))
+    return NormedSweep(y_new, k7, *csl_slot_order_sums(terms, ALT_SLOT_ROWS))
 
 
 def _altmlp_reverse(dt, y, k1, leaves, cts, rtol, atol, tiled):
@@ -304,16 +365,60 @@ def _library(depth):
     return lib
 
 
+def _pad4(n):
+    return (n + 3) // 4 * 4
+
+
+class AltFwdPlan(NamedTuple):
+    """The forward tile body at a batch and widths: ``rows`` a tile,
+    ``slot_rows`` a norm-sum slot, ``tiles`` (K7's blocks, K3's grid where
+    the card holds them), ``slots`` (the slots holding a row of the batch)
+    and ``smem_bytes`` a block."""
+    rows: int
+    slot_rows: int
+    tiles: int
+    slots: int
+    smem_bytes: int
+
+
+def altmlp_fwd_plan(B, D, H, depth) -> AltFwdPlan:
+    """``csrc/altmlp_tsit5.cuh``'s sizes of the forward body
+    (``alt_forward_floats``, ``altmlp_fwd_smem_bytes``) at ``B x D x H x
+    depth``; raises ``ValueError`` for widths whose weights and tile need
+    more shared memory than ``SMEM_LIMIT``."""
+    R, S = ALT_FWD_ROWS, ALT_SLOT_ROWS
+    n, pw = R * D, R * max(_pad4(D), _pad4(H))
+    parts = [n, 7 * n, n, n, 2 * pw, 2 * pw, 3 * (R // S) * (_THREADS // 32)]
+    leaves = depth * (2 * _pad4(H * D) + _pad4(H) + _pad4(D))  # each leaf from 16 bytes
+    smem = 4 * (leaves + 4 + sum(_pad4(x) for x in parts))
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"K7's forward tile body holds at most {SMEM_LIMIT} bytes of shared "
+                         f"memory; dim {D}, hidden {H}, depth {depth} need {smem}")
+    return AltFwdPlan(R, S, -(-B // R), -(-B // S), smem)
+
+
+@functools.lru_cache(maxsize=16)
+def check_fwd_plan(lib, D, H, depth) -> AltFwdPlan:
+    """``altmlp_fwd_plan`` held to the library's constants (once a shape)."""
+    plan = altmlp_fwd_plan(0, D, H, depth)
+    if (lib.regnde_altmlp_rows() != ALT_FWD_ROWS
+            or lib.regnde_altmlp_slot_rows() != ALT_SLOT_ROWS
+            or lib.regnde_altmlp_fwd_smem_bytes(depth, D, H) != plan.smem_bytes):
+        raise RuntimeError("altmlp_fwd_plan disagrees with csrc/altmlp_tsit5.cuh's sizes")
+    return plan
+
+
 def _cuda_altmlp_fwd(t, dt, y, k1, leaves, rtol, atol):
     from regneuralde_tpu_torch.ops import _cuda
 
     B, D, H, depth = _check_cuda_args(y, k1, leaves)
+    plan = altmlp_fwd_plan(B, D, H, depth)
     lib = _library(depth)
+    check_fwd_plan(lib, D, H, depth)
     t32, dt32 = _scalar_f32(t, y), _scalar_f32(dt, y)
     y_new = torch.empty_like(y)
     k7 = torch.empty_like(y)
-    rows = lib.regnde_altmlp_rows()
-    partials = torch.empty(((B + rows - 1) // rows, 3), device=y.device)
+    partials = torch.empty((plan.tiles * (plan.rows // plan.slot_rows), 3), device=y.device)
     sums = torch.empty(3, device=y.device)
     ptrs = _leaf_pointers(leaves)
     stream = torch.cuda.current_stream(y.device).cuda_stream
@@ -324,10 +429,6 @@ def _cuda_altmlp_fwd(t, dt, y, k1, leaves, rtol, atol):
     _cuda.check(code, "AlternatingMLP Tsit5 forward kernel")
     LAUNCHES["altmlp_tsit5_fwd"] += 1
     return NormedSweep(y_new, k7, sums[0], sums[1], sums[2])
-
-
-def _pad4(n):
-    return (n + 3) // 4 * 4
 
 
 class AltBwdPlan(NamedTuple):

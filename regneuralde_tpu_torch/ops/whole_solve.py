@@ -750,13 +750,13 @@ def _opt_ptr(x):
 def _slot_rows(lib, dynamics, bwd=False):
     """Rows of one slot of the per-trial-step partials of K3 (the norm sums)
     and, with ``bwd``, of K4 ((ct_t, ct_dt)) for AlternatingMLP and CSL
-    (MLPDynamics' kernels run on ``walk_plan``'s tiles). A slot is a tile:
-    K3's for AlternatingMLP (K7's body, ``regnde_altmlp_rows``), K4's (K8's
-    reverse body, ``regnde_altmlp_bwd_rows``), K4-CSL's (K8-CSL's, 8 rows);
-    but K3-CSL's 8-row tiles (K7-CSL's body) write one slot a 2-row
-    sub-tile."""
+    (MLPDynamics' kernels run on ``walk_plan``'s tiles). A backward slot is
+    a tile: K4's for AlternatingMLP (K8's reverse body,
+    ``regnde_altmlp_bwd_rows``), K4-CSL's (K8-CSL's, 8 rows); the forwards'
+    tiles write one slot a 2-row sub-tile: K3's for AlternatingMLP (K7's
+    forward body, ``regnde_altmlp_slot_rows``) and K3-CSL's (K7-CSL's)."""
     if dynamics == "altmlp":
-        return lib.regnde_altmlp_bwd_rows() if bwd else lib.regnde_altmlp_rows()
+        return lib.regnde_altmlp_bwd_rows() if bwd else lib.regnde_altmlp_slot_rows()
     return lib.regnde_csl_bwd_rows() if bwd else lib.regnde_csl_slot_rows()
 
 
@@ -858,6 +858,8 @@ def _cuda_whole_solve_fwd(t0, t1, dt0, y0, f0, leaves, rtol, atol, ctrl,
     else:
         if dynamics == "csl":
             fc.check_fwd_plan(lib, D, D - 1 - 2 * kinetic, H, kinetic)
+        else:
+            fg.check_fwd_plan(lib, D, H, depth)
         slot = _slot_rows(lib, dynamics)
         partials = torch.empty((2, (B + slot - 1) // slot, 3), device=dev)
         head = (ptr(scalars), ptr(y0), ptr(f0),

@@ -741,6 +741,107 @@ def test_whole_solve_altmlp_wrappers_refuse_bad_inputs(cuda):
             ws.whole_solve_bwd(rec, ns, *rest, dynamics="altmlp", saveat=sa, ct_ys=bad)
 
 
+# the latent shape, ragged batches (a last tile of one row), small widths
+# (the generic instance) and depths 1 and 8
+ALT_FWD_SHAPES = [(256, 20, 50, 4), (13, 20, 50, 4), (7, 6, 10, 2), (37, 5, 7, 3),
+                  (40, 20, 50, 1), (40, 20, 50, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tol", [1e-5, 1.4e-8])
+@pytest.mark.parametrize("shape", ALT_FWD_SHAPES)
+def test_altmlp_fwd_matches_its_schedule(cuda, shape, tol):
+    """K7 (the forward tile body, 2-row tiles, the latent widths compiled
+    as constants, any other at run time) bitwise: y_new and k7 equal the
+    plain version's and its schedule's (``fg.plain_altmlp_fwd_tiles``: the
+    kernel's split float64 sums), the three sums the schedule's; ceil(B/2)
+    blocks, one launch."""
+    batch, dim, hidden, depth = shape
+    y, k1, leaves, _ = _alt_inputs(*shape, cuda, seed=batch + depth)
+    t, dt = torch.tensor(T, device=cuda), torch.tensor(DT, device=cuda)
+    fg.reset_launches()
+    kern = fg.altmlp_normed_sweep(t, dt, y, k1, leaves, tol, tol)
+    plain = fg.plain_altmlp_normed_sweep(t, dt, y, k1, leaves, tol, tol)
+    sched = fg.plain_altmlp_fwd_tiles(t, dt, y, k1, leaves, tol, tol)
+    assert torch.equal(kern.y_new, plain.y_new) and torch.equal(kern.k_last, plain.k_last)
+    for a, b in zip(kern, sched):
+        assert torch.equal(a, b), (a.flatten()[:4], b.flatten()[:4])
+    assert fg.LAUNCHES == {"altmlp_tsit5_fwd": 1, "altmlp_tsit5_bwd": 0}
+    assert fg.altmlp_fwd_plan(batch, dim, hidden, depth).tiles == -(-batch // 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("depth", range(1, 9))
+def test_altmlp_fwd_takes_every_depth(cuda, depth):
+    """Every depth K7 takes (1 to 8) runs at the latent width, its rows and
+    sums bitwise its schedule's."""
+    y, k1, leaves, _ = _alt_inputs(64, 20, 50, depth, cuda, seed=depth)
+    t, dt = torch.tensor(T, device=cuda), torch.tensor(DT, device=cuda)
+    kern = fg.altmlp_normed_sweep(t, dt, y, k1, leaves, 1e-5, 1e-5)
+    sched = fg.plain_altmlp_fwd_tiles(t, dt, y, k1, leaves, 1e-5, 1e-5)
+    assert all(torch.equal(a, b) for a, b in zip(kern, sched))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 20, 50, 4), (13, 20, 50, 4), (37, 5, 7, 3)])
+def test_altmlp_fwd_is_bitwise_deterministic(cuda, shape):
+    """K7's slots are summed in a fixed order (no atomics): three launches
+    on the same inputs are bitwise equal, a ragged batch's and the generic
+    instance's too."""
+    y, k1, leaves, _ = _alt_inputs(*shape, cuda, seed=3)
+    t, dt = torch.tensor(T, device=cuda), torch.tensor(DT, device=cuda)
+    runs = [fg.altmlp_normed_sweep(t, dt, y, k1, leaves, 1.4e-8, 1.4e-8) for _ in range(3)]
+    for r in runs[1:]:
+        assert all(torch.equal(u, v) for u, v in zip(runs[0], r))
+
+
+@pytest.mark.cuda
+def test_altmlp_fwd_plan_is_the_librarys(cuda):
+    """``fg.altmlp_fwd_plan``'s rows, slot rows and shared memory are the
+    library's at every width and depth the card tests run, K3's partials
+    take its slot rows (``ws._slot_rows``), and both forward wrappers (K7's
+    and K3's) refuse widths the body does not hold with a ValueError."""
+    from regneuralde_tpu_torch.ops import _cuda
+
+    lib = _cuda.library()
+    for D, H, depth in [(20, 50, d) for d in range(1, 9)] + [(6, 10, 2), (5, 7, 3),
+                                                             (20, 300, 4)]:
+        plan = fg.check_fwd_plan(lib, D, H, depth)
+        assert (plan.rows, plan.slot_rows) == (2, 2) and plan.smem_bytes <= fg.SMEM_LIMIT
+    assert ws._slot_rows(lib, "altmlp") == 2
+    y, k1, leaves, _ = _alt_inputs(16, 20, 1000, 4, cuda)
+    t, dt = torch.tensor(T, device=cuda), torch.tensor(DT, device=cuda)
+    with pytest.raises(ValueError, match="forward tile body holds at most"):
+        fg.altmlp_normed_sweep(t, dt, y, k1, leaves, 1e-5, 1e-5)
+    with pytest.raises(ValueError, match="forward tile body holds at most"):
+        ws.whole_solve_fwd(torch.tensor(0.0, device=cuda), torch.tensor(1.0, device=cuda),
+                           torch.tensor(0.01, device=cuda), y, k1, leaves, 1e-5, 1e-5, CTRL,
+                           8, dynamics="altmlp")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch, saves, tol", [(256, True, 1.4e-8), (256, False, 1e-5),
+                                               (13, True, 1e-5)])
+def test_whole_solve_altmlp_steps_are_k7s(cuda, batch, saves, tol):
+    """K3 for AlternatingMLP runs K7's forward body, one 2-row tile a block
+    of its cooperative grid: every stored trial step (rows and norm sums)
+    equals a K7 launch on its inputs bitwise, with and without saves."""
+    args, kw = _alt_solve_args(batch, cuda, tol=tol, seed=batch)
+    if not saves:
+        kw = dict(dynamics="altmlp")
+    rk = ws.whole_solve_fwd(*args, **kw)
+    ns = int(rk.final[3:5].sum().item())
+    assert rk.final[5].item() == 1.0 and ns > 2
+    t1, leaves = args[1], args[5]
+    for i in range(ns):
+        t, dt = rk.streams[ws.ST_T, i], rk.streams[ws.ST_DT, i]
+        dt_eff = torch.where(dt - (t1 - t) >= 0, t1 - t, dt)
+        res = fg.altmlp_normed_sweep(t, dt_eff, rk.hy[i], rk.hf[i], leaves, tol, tol)
+        assert torch.equal(torch.stack(res[2:]), rk.streams[ws.ST_E:ws.ST_ACC, i]), i
+        if rk.streams[ws.ST_ACC, i] == 1:
+            assert torch.equal(res.y_new, rk.hy[i + 1]) and torch.equal(res.k_last, rk.hf[i + 1])
+
+
 def _alt_bwd_groups(g):
     """(ct_t, ct_dt), ct_y, ct_k1 and the leaves' cotangents as one vector."""
     return [torch.stack(g[:2]), g[2], g[3], torch.cat([x.flatten() for x in g[4]])]

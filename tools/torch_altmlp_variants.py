@@ -1,10 +1,13 @@
 #!/usr/bin/env python3
-"""K8's reverse tile body in variants of ``csrc/altmlp_tsit5.cuh``: each
-built from ``altmlp_tsit5.cu`` alone into a library of its own, swapped in
-under the package's wrappers, and timed at phase 8's inputs (256 x 20 x 50
-x 4, 1.4e-8): device ms a launch of ``altmlp_bwd_kernel`` under
-``torch.profiler``, what ``ptxas`` reported for it, and the distance of its
-outputs from the plain version's.
+"""K7's forward and K8's reverse tile body in variants of
+``csrc/altmlp_tsit5.cuh``: each built from ``altmlp_tsit5.cu`` alone into a
+library of its own, swapped in under the package's wrappers, and timed at
+phase 8's inputs (256 x 20 x 50 x 4, 1.4e-8): device ms a launch of
+``altmlp_fwd_kernel`` and its slot sum and of ``altmlp_bwd_kernel`` under
+``torch.profiler``, what ``ptxas`` reported for both, whether K7's rows are
+the plain version's and its rows and sums its schedule's
+(``fg.plain_altmlp_fwd_tiles``) bitwise, and the distance of K8's outputs
+from the plain version's.
 
     python3 tools/torch_altmlp_variants.py [--variants shipped,r8,r8,shipped] [--f0]
 
@@ -22,6 +25,11 @@ only), ``nocw`` (no weight or bias cotangent), ``stage1`` (one stage each
 way), ``nostages`` (none: the launch, the loads, the seeds and the stores),
 ``noprod`` (the products' sums skipped), ``noepi`` (the products'
 epilogues skipped), ``nobar`` (no barrier between the layers' phases).
+The forward's: ``fr4`` (4-row tiles, two norm-sum slots a tile),
+``fchain4``, ``fchain13`` (at most 4 or 13 terms a lane's share of a
+sum), ``fgeneric`` (the latent widths not compiled as constants); wrong by
+design:
+``fnoload`` (no leaves loaded), ``fstage1`` (one stage).
 ``a+b`` makes both variants' changes, and a name given twice is timed
 twice, so ``shipped,r8,r8,shipped`` is an A B B A in one process. With ``--f0``, each variant's K8 also walks
 phase 11's record at 1.4e-8 (the plain forward's, 49 saves) as every trial
@@ -98,6 +106,14 @@ CW = "        alt_cw_stage(cw, s.cw, gps, rec, depth, D, H);\n"
 
 ROWS = "constexpr int kAltBwdRows = 2;"
 CHAIN = "constexpr int kAltChain = 7;"
+# the forward body's
+FROWS = "constexpr int kAltRows = 2;"
+FCHAIN = "constexpr int kAltFwdChain = 7;"
+FWIDTHS = "  if (D == kAltLatentD && H == kAltLatentH)\n"
+FSTAGES = "  for (int i = 1; i <= 6; ++i) {\n    const float* W = wsm;"
+FLOAD = ("altmlp_tsit5.cu", "  alt_fwd_load_weights(leaves, depth, D, H, wsm);\n")
+# the forward's lanes a sum under each chain variant (fg.ALT_FWD_CHAIN)
+FWD_CHAINS = {"fchain4": 4, "fchain13": 13}
 
 VARIANTS = {
     "shipped": [],
@@ -126,6 +142,12 @@ VARIANTS = {
                "        if ((j & (S - 1)) == s && acc[j] == 12345.0) epi(g * G + j, o, (float)acc[j]);"),
               ("        if ((j & (S - 1)) == s) epi(g * G + j, k, acc[j]);",
                "        if ((j & (S - 1)) == s && acc[j] == 12345.0f) epi(g * G + j, k, acc[j]);")],
+    "fr4": [(FROWS, FROWS.replace("2;", "4;"))],
+    "fchain4": [(FCHAIN, FCHAIN.replace("7;", "4;"))],
+    "fchain13": [(FCHAIN, FCHAIN.replace("7;", "13;"))],
+    "fgeneric": [(FWIDTHS, "  if (false)\n")],
+    "fnoload": [(*FLOAD[:2], "")],
+    "fstage1": [(FSTAGES, FSTAGES.replace("i <= 6", "i <= 1"))],
     "nobar": [("      __syncthreads();\n      if (l < nl - 1) {", "      if (l < nl - 1) {"),
               ("      __syncthreads();\n      if (fetch && l == nl - 1)", "      if (fetch && l == nl - 1)")],
 }
@@ -167,9 +189,10 @@ def build(names, out):
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 kernel = m.group(1)
-            elif kernel and "altmlp_bwd_kernel" in kernel and ("registers" in line
-                                                              or "spill" in line):
-                print(f"[ptxas] {name}: {line.split(':', 1)[-1].strip()}")
+            elif kernel and ("registers" in line or "spill" in line):
+                for k in ("altmlp_fwd_kernel", "altmlp_bwd_kernel"):
+                    if k in kernel:
+                        print(f"[ptxas] {name} {k}: {line.split(':', 1)[-1].strip()}")
         libs[name] = str(out / f"{name}.so")
     return libs
 
@@ -267,8 +290,10 @@ def main():
     t, dt = torch.tensor(0.07, device=dev), torch.tensor(0.11, device=dev)
     cts = [rnd(B, D), rnd(B, D), *(torch.tensor(v, device=dev) for v in (0.7, 1.3, -0.4))]
     plain = fg._altmlp_bwd_math(t, dt, y, k1, leaves, cts, tol, tol)
+    plain_f = fg.plain_altmlp_normed_sweep(t, dt, y, k1, leaves, tol, tol)
     groups = lambda g: [torch.stack(g[:2]), g[2], g[3], torch.cat([x.flatten() for x in g[4]])]
     rows_shipped, check_shipped = fg.ALT_BWD_ROWS, fg.check_bwd_plan
+    frows_shipped, chain_shipped = fg.ALT_FWD_ROWS, fg.ALT_FWD_CHAIN
 
     def check_variant(lib, D, H, depth):
         """The variant's plan, as its library sizes it."""
@@ -276,8 +301,14 @@ def main():
         return fg.AltBwdPlan(rows, 0, lib.regnde_altmlp_bwd_smem_bytes(depth, D, H),
                              4 * rows * depth * (fg._pad4(D) + fg._pad4(H)), False)
 
+    def check_fwd_variant(lib, D, H, depth):
+        """The forward's plan, as the variant's library sizes it."""
+        return fg.AltFwdPlan(lib.regnde_altmlp_rows(), lib.regnde_altmlp_slot_rows(), 0, 0,
+                             lib.regnde_altmlp_fwd_smem_bytes(depth, D, H))
+
     f0_walk = _f0_walks(dev) if args.f0 else None
-    fg.check_bwd_plan = check_variant
+    fcheck_shipped = fg.check_fwd_plan
+    fg.check_bwd_plan, fg.check_fwd_plan = check_variant, check_fwd_variant
     try:
         for name in (n for n in names if n in libs):
             lib = ctypes.CDLL(libs[name])
@@ -289,6 +320,20 @@ def main():
             # the variant's rows and shared memory are the library's
             fg.ALT_BWD_ROWS = lib.regnde_altmlp_bwd_rows()
             fg._altmlp_bwd_scratch.cache_clear()
+            fg.ALT_FWD_ROWS = lib.regnde_altmlp_rows()
+            fg.ALT_FWD_CHAIN = next((c for p, c in FWD_CHAINS.items() if p in name.split("+")),
+                                    chain_shipped)
+            fwd = lambda: fg.altmlp_normed_sweep(t, dt, y, k1, leaves, tol, tol)
+            got = fwd()
+            sched = fg.plain_altmlp_fwd_tiles(t, dt, y, k1, leaves, tol, tol)
+            torch.cuda.synchronize()
+            rows = all(torch.equal(a, b) for a, b in zip(got[:2], plain_f[:2]))
+            same = all(torch.equal(a, b) for a, b in zip(got, sched))
+            print(f"[variant] {name}: altmlp_fwd_kernel device ms "
+                  f"{cs._device_ms(fwd, 'altmlp_fwd_kernel')!r}, sum_slots_warp_kernel "
+                  f"{cs._device_ms(fwd, 'sum_slots_warp_kernel')!r} ({fg.ALT_FWD_ROWS}-row "
+                  f"tiles); rows bitwise the plain version's {rows}; rows and sums bitwise "
+                  f"its schedule's {same}", flush=True)
             bwd = lambda: fg.altmlp_normed_sweep_bwd(t, dt, y, k1, leaves, cts, tol, tol)
             got = bwd()
             torch.cuda.synchronize()
@@ -302,6 +347,8 @@ def main():
                       flush=True)
     finally:
         fg.ALT_BWD_ROWS, fg.check_bwd_plan = rows_shipped, check_shipped
+        fg.ALT_FWD_ROWS, fg.ALT_FWD_CHAIN = frows_shipped, chain_shipped
+        fg.check_fwd_plan = fcheck_shipped
     shutil.rmtree(out)
 
 

@@ -10,8 +10,10 @@ archive <commit> | tar -x -C build/parent``). Each run imports that tree's
 the named phases' kernel checks (``altmlp``: K7/K8 and K3/K4 for
 AlternatingMLP, with K8's and K7's device time under ``torch.profiler`` at
 phase 8's inputs (each kernel and its slot sum apart) and K4's and K3's
-over phase 11's solves (by tolerance and trial steps), ``csl``: K7/K8-CSL and K3/K4-CSL, with K8-CSL's device
-time under ``torch.profiler`` at phase 15's inputs (its kernel and its slot
+over phase 11's solves (by tolerance and trial steps), and a hash of each
+one's outputs on fixed inputs (K4's over the plain forward's record), so
+that equal hashes in the two trees say the same bits, ``csl``: K7/K8-CSL
+and K3/K4-CSL, with K8-CSL's device time under ``torch.profiler`` at phase 15's inputs (its kernel and its slot
 sum apart) and K4-CSL's over phase 16's solves (by tolerance), and K7-CSL's
 and K3-CSL's likewise, ``mlp``: K1/K2 and K3/K4
 for MLPDynamics, with K1's and K2's device time under ``torch.profiler`` at
@@ -55,6 +57,7 @@ import chip_smoke as cs
 from regneuralde_tpu_torch.ops import _cuda
 
 phases = sys.argv[1].split(",")
+DIGESTS = {}  # hashes of kernels' outputs on fixed inputs, by kernel
 
 
 def device_ms(fn, names):
@@ -244,7 +247,65 @@ def altmlp_device(dev):
            "K8_device_slot_sum": {"ms": device_ms(bwd, ("sum_slots_kernel",))}}
     _, saveat = cs.latent_batches(1, dev)
     out.update(solve_device("altmlp", lambda: cs.phase_whole_solve_altmlp_kernels(dev, saveat)))
+    DIGESTS["K7"] = digest(fwd())
+    DIGESTS["K8"] = digest(bwd())
+    DIGESTS.update(altmlp_solve_digests(dev))
     return out
+
+
+def digest(outs):
+    """A hash of the bytes of every tensor in outs (nested sequences
+    flattened): two trees' kernels gave the same bits where it is the same."""
+    h = hashlib.sha256()
+
+    def add(x):
+        if isinstance(x, torch.Tensor):
+            h.update(x.detach().contiguous().cpu().numpy().tobytes())
+        elif x is not None:
+            for v in x:
+                add(v)
+
+    add(outs)
+    return h.hexdigest()[:16]
+
+
+def altmlp_solve_digests(dev):
+    """Hashes of K3's record for AlternatingMLP on phase 11's inputs at
+    1.4e-8 (49 saves) and of K4's cotangents over the plain forward's
+    record of the same solve, y1's cotangent seeded (K4's input is then
+    independent of K3)."""
+    from regneuralde_tpu_torch.ops import fused_generic as fg
+    from regneuralde_tpu_torch.ops import ode
+    from regneuralde_tpu_torch.ops import whole_solve as ws
+    from regneuralde_tpu_torch.ops.controller import PIController
+
+    gen = torch.Generator().manual_seed(cs.SEED + 4)
+    rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=gen) * scale).to(dev)
+    B, D, H, depth, tol = (cs.LATENT_BATCH, cs.LATENT_DIM, cs.LATENT_HIDDEN, cs.LATENT_DEPTH,
+                           cs.FLAGSHIP_TOL)
+    leaves = []
+    for _ in range(depth):
+        leaves += [rnd(H, D, scale=D ** -0.5), rnd(H, scale=0.1), rnd(D, H, scale=H ** -0.5),
+                   rnd(D, scale=0.1)]
+    y0 = rnd(B, D, scale=0.8)
+    _, saveat = cs.latent_batches(1, dev)
+    ctrl = PIController.for_order(5)
+    t0, t1, f0, dt0 = ode.solve_prologue(fg.alternating_mlp_apply(depth), y0, 0.0, 1.0,
+                                         tuple(leaves), tol, tol)
+    sa, ys_init = ode.saveat_rows(saveat, t0, t1, y0)
+    args = (t0, t1, dt0, y0, f0, leaves, tol, tol, ctrl, cs.LATENT_MAX_STEPS)
+    kw = dict(dynamics="altmlp", saveat=sa, ys_init=ys_init)
+    rk = ws.whole_solve_fwd(*args, **kw)
+    nk = int(rk.final[3:5].sum().item())
+    rec = ws.plain_whole_solve_fwd(*args, **kw)
+    ns = int(rec.final[3:5].sum().item())
+    ct_y1 = torch.randn(B, D, generator=torch.Generator().manual_seed(cs.SEED + 5)).to(dev)
+    tel = torch.zeros(4, cs.LATENT_MAX_STEPS, device=dev)
+    g = ws.whole_solve_bwd(rec, ns, ct_y1, tel, t0, t1, leaves, tol, tol, ctrl,
+                           dynamics="altmlp", saveat=sa, ct_ys=torch.zeros_like(rec.ys))
+    return {"K3": digest([rk.final, rk.streams[:, :nk], rk.hy[:nk + 1], rk.hf[:nk + 1],
+                          rk.y1, rk.ys]),
+            "K4": digest(g)}
 
 
 def normed_device(dev):
@@ -417,7 +478,7 @@ for line in dump.splitlines():
         line = re.sub(r"\$__internal_\d+_", "$__internal_", line)
         sass[name].update(" ".join(line.split()).encode())
 print(json.dumps({"ms": {k: v["ms"] for k, v in ms.items()}, "ptxas": ptxas,
-                  "sass": {k: h.hexdigest() for k, h in sass.items()}}))
+                  "sass": {k: h.hexdigest() for k, h in sass.items()}, "digests": DIGESTS}))
 '''
 
 
@@ -438,6 +499,8 @@ def main():
         res = json.loads(out.stdout.strip().splitlines()[-1])
         results.append((tag, res))
         print(f"[ab] {tag} ({tree}) ms " + json.dumps(res["ms"]))
+        if res.get("digests"):
+            print(f"[ab] {tag} ({tree}) output hashes " + json.dumps(res["digests"]))
     for tag, tree in (("A", args.a), ("B", args.b)):
         ptxas = next(r["ptxas"] for t, r in results if t == tag)
         for name, lines in sorted(ptxas.items()):
