@@ -189,6 +189,7 @@ record ``{"ok": true, "device": {...}}``.
 """
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -1950,6 +1951,63 @@ def _sde_bytes(BD, leaf, ns, n_save, S):
     return 4 * fwd, 4 * bwd
 
 
+def _report_bwd_schedule(tag, gk, rk, bwd_args, ct_ys, bkw):
+    """K10's outputs (seeded with the rows' and the telemetry's cotangents)
+    against its order of sums in plain PyTorch on the card
+    (``sw.plain_sde_bwd_tiles``; ``test_sde_bwd_matches_its_schedule``
+    holds them bitwise): the largest difference by output."""
+    from regneuralde_tpu_torch.ops import sde_whole_solve as sw
+
+    want = sw.plain_sde_bwd_tiles(rk, *bwd_args, ct_ys=ct_ys, **bkw)
+    diff = [(a - b).abs().max().item() if a.numel() else 0.0 for a, b in zip(gk, want)]
+    print(f"[{tag}] K10 against its schedule, max abs difference by output: {diff}")
+
+
+def _ptxas_of(*parts):
+    """What ``ptxas -v`` reported (registers, stack) for the first kernel
+    whose mangled name holds every one of ``parts``."""
+    from regneuralde_tpu_torch.ops import _cuda
+
+    out, name = [], None
+    for line in _cuda.ptxas_report().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            if out:
+                break
+            name = m.group(1)
+        elif name and all(p in name for p in parts) and (
+                "registers" in line or "stack frame" in line):
+            out.append(line.split(":", 1)[-1].strip())
+    return "; ".join(out) or "not reported"
+
+
+def _sde_kernel_report(tag, B, widths, body, fwd, bwd):
+    """K9's and K10's blocks, shared memory, registers and stack (the
+    instance the pair runs on), and device ms a solve, K10's kernel and its
+    slot sum apart; checks the plan against the library."""
+    import torch
+
+    from regneuralde_tpu_torch.ops import _cuda
+    from regneuralde_tpu_torch.ops import sde_whole_solve as sw
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan = sw.check_sde_plan(_cuda.library(), tuple(widths), body)
+    blocks = sw.sde_tile_plan(B, sw._net_widths(widths), body).tiles
+    inst = ("CubicPair" if body == "cubic" else "MlpPair",
+            "FixedWidths" if plan.fixed_instance else "DynWidths")
+    dev = {"K9": _device_ms(fwd, "sde_whole_solve_fwd_kernel"),
+           "K10": _device_ms(bwd, "sde_whole_solve_bwd_kernel"),
+           "K10_slot_sum": _device_ms(bwd, "sum_slots_kernel")}
+    for k, kern, smem in (("K9", "sde_whole_solve_fwd_kernel", plan.fwd_smem_bytes),
+                          ("K10", "sde_whole_solve_bwd_kernel", plan.bwd_smem_bytes)):
+        print(f"[{tag}] {k} ({inst[0]}, {inst[1]}): {blocks} blocks of {plan.rows} rows on "
+              f"{sms} SMs, {smem} bytes of shared memory a block; ptxas: "
+              f"{_ptxas_of(kern, *inst)}")
+    print(f"[{tag}] device ms a solve: " + json.dumps(dev))
+    _check(blocks <= sms, f"{tag}: K9 and K10 hold one tile a block ({blocks} on {sms} SMs)")
+    return dev
+
+
 def phase_sde_kernels(device):
     """K9/K10 against their plain versions at the MNIST NSDE width (512 x
     32, drift 32-64-32, diffusion 32-32, SOSRI2) on seeded random weights,
@@ -1959,8 +2017,13 @@ def phase_sde_kernels(device):
     NSDE_FWD_BOUND; K10 against its plain version within BWD_BOUND seeded
     with the rows' cotangents, TEL_BWD_BOUND with the telemetry's too, and
     every output within 3 times the float32 plain version's distance from a
-    float64 walk, plus 1e-5; both kernels bitwise deterministic; CUDA-event
-    times of both kernels and plain versions at both tolerances."""
+    float64 walk, plus 1e-5, and its distance from its order of sums in
+    plain PyTorch (``sw.plain_sde_bwd_tiles``) printed; both kernels
+    bitwise deterministic;
+    CUDA-event times of both kernels and plain versions at both
+    tolerances; both
+    kernels' blocks, shared memory, registers and stack, and their device
+    time under the profiler, K10's slot sum apart (as phase 8's)."""
     import torch
 
     from regneuralde_tpu_torch.ops import sde as sde_ops
@@ -2047,6 +2110,7 @@ def phase_sde_kernels(device):
                    for n in ("y1", "streams", "final", "ys", "cursors"))
                and all(torch.equal(getattr(rk, n)[:ns + 1], getattr(rk2, n)[:ns + 1])
                        for n in ("hy", "hw", "hz")), f"{tag}: K9 is deterministic")
+        _report_bwd_schedule(tag, gk, rk, bwd_args, ct_ys, bkw)
         print(f"[{tag}] max abs err: K9 (y1, ys) {abs_f!r}, K10 (row cotangents) {abs_b!r}")
         times[tol] = {
             "fwd_kernel": _time_ms(lambda: sw.sde_whole_solve_fwd(*args, **kw)),
@@ -2058,6 +2122,9 @@ def phase_sde_kernels(device):
         }
         print("[%s] median ms over %d runs at %dx%dx%d, %d trial steps, %d saves: %s"
               % (tag, REPS, B, D, H, ns, len(sa) if saves else 0, json.dumps(times[tol])))
+        _sde_kernel_report(tag, B, sw._pair_widths(leaves, 2, D), "mlp",
+                           lambda: sw.sde_whole_solve_fwd(*args, **kw),
+                           lambda: sw.sde_whole_solve_bwd(rk, *bwd_args, ct_ys=ct_ys, **bkw))
         if tol == NSDE_TOL:
             f_ops, b_ops, leaf = _sde_work(B, D, H, "sosri2", ns)
             nbytes = _sde_bytes(B * D, leaf, ns, 0, S)
@@ -2937,9 +3004,12 @@ def phase_sde_cubic_kernels(device):
     within NSDE_FWD_BOUND and its rows within NSDE_FWD_BOUND of K9's next
     row; K10 seeded with the cotangents of y1 and ys (BWD_BOUND) and with
     the telemetry's too (TEL_BWD_BOUND), and within 3 times the float32
-    plain version's distance from a float64 walk, plus 1e-5; both bitwise
-    deterministic; CUDA-event times at both tolerances and the kernels'
-    device time from the profiler."""
+    plain version's distance from a float64 walk, plus 1e-5, and its
+    distance from its schedule (``sw.plain_sde_bwd_tiles``) printed; both
+    bitwise deterministic;
+    CUDA-event times at both tolerances and the kernels'
+    blocks, shared memory, registers, stack and device time (K10's slot sum
+    apart), as phase 19's."""
     import numpy as np
     import torch
 
@@ -3041,6 +3111,7 @@ def phase_sde_cubic_kernels(device):
                    for n in ("y1", "streams", "final", "ys", "cursors"))
                and all(torch.equal(getattr(rk, n)[:ns + 1], getattr(rk2, n)[:ns + 1])
                        for n in ("hy", "hw", "hz")), f"{tag}: K9 is deterministic")
+        _report_bwd_schedule(tag, gk, rk, bwd_args, ct_ys, bkw)
         print(f"[{tag}] max abs err: K9 (y1, ys) {abs_f!r}, K10 (row cotangents) {abs_b!r}")
         times[tol] = {
             "fwd_kernel": _time_ms(lambda: sw.sde_whole_solve_fwd(*args, **kw)),
@@ -3050,14 +3121,11 @@ def phase_sde_cubic_kernels(device):
             "bwd_plain": _time_ms(lambda: sw.plain_sde_whole_solve_bwd(rk, *bwd_args,
                                                                        ct_ys=ct_ys, **bkw)),
         }
-        times[tol].update(
-            fwd_kernel_device=_device_ms(lambda: sw.sde_whole_solve_fwd(*args, **kw),
-                                         "sde_whole_solve_fwd_kernel"),
-            bwd_kernel_device=_device_ms(lambda: sw.sde_whole_solve_bwd(
-                rk, *bwd_args, ct_ys=ct_ys, **bkw), "sde_whole_solve_bwd_kernel"))
-        print("[%s] median ms over %d runs at %dx%dx%d, %d trial steps, %d saves (the "
-              "kernels' device time from the profiler as *_device): %s"
+        print("[%s] median ms over %d runs at %dx%dx%d, %d trial steps, %d saves: %s"
               % (tag, REPS, B, D, H, ns, len(sa), json.dumps(times[tol])))
+        _sde_kernel_report(tag, B, sw._pair_widths(leaves, 2, D), "cubic",
+                           lambda: sw.sde_whole_solve_fwd(*args, **kw),
+                           lambda: sw.sde_whole_solve_bwd(rk, *bwd_args, ct_ys=ct_ys, **bkw))
         if tol == st.TOL:
             f_ops, b_ops, leaf = _sde_cubic_work(B, D, H, "sosri", ns)
             nbytes = _sde_bytes(B * D, leaf, ns, len(sa), S)

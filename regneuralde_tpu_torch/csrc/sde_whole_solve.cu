@@ -1,9 +1,9 @@
 // The whole adaptive SRI solve of a diagonal-noise SDE on Hopper: one
 // persistent cooperative kernel for the forward (K9) and one for the
-// reverse walk of its history (K10), generic over the tile body of the
-// drift/diffusion pair: sri_mlp.cuh's MlpPair (the MNIST Neural SDE) and
-// sri_cubic.cuh's CubicPair (the toy 2-D SDE's cubic drift), each with its
-// own pair of extern "C" entry points.
+// reverse walk of its history (K10), over one forward and one reverse tile
+// body generic over the drift/diffusion pair (sri_mlp.cuh's MlpPair, the
+// MNIST Neural SDE's; sri_cubic.cuh's CubicPair, the toy 2-D SDE's cubic
+// drift), each pair with its own extern "C" entry points.
 //
 // Replaces the TPU kernels
 //   K9:  regneuralde_tpu/ops/pallas_sde.py  make_sde_whole_solve.make_fwd_kernel
@@ -16,41 +16,69 @@
 // D = 32, drift 32 -> 64 -> 32, diffusion 32 -> 32, SOSRI2: four drift and
 // four diffusion evaluations a trial step) a forward trial step is about 21
 // MFLOP over 21 KB of leaves, a few microseconds of the card's f32 rate;
-// the bound is latency: about a dozen dependent layers a trial step, each
+// the bound is latency: a chain of dependent phases a trial step, each
 // ending in a block barrier, and one grid-wide decision (accept and the
-// next dt hang on three sums over the whole batch). What the kernel saves
-// against a host-driven loop is the host: no launch, no flag read back and
-// no scalar chain on the host between trial steps.
+// next dt hang on three sums over the whole batch). A phase costs about a
+// microsecond at run-time widths and a third of one with the widths known
+// to the compiler, so the design counts phases.
 //
-// What the design does about it (K3/K4's design, whole_solve.cu).
+// What the design does about it.
 //   * Each block owns the same row tiles of kSdeRows rows for the whole
-//     solve. The carry lives in global memory, in the history: hy, hw, hz
-//     row i hold the state and the Brownian tail at the start of trial step
-//     i. Each tile reads its rows of the presampled draws xi_w[i], xi_z[i],
-//     runs the collapse bridge, the SRI stages, y_new and the natural-
-//     embedding error, writes y_new, dW, dZ into row i + 1 and its three
-//     partial sums (the scaled error's squares, |f_b - f_a|^2, |H0_b -
-//     H0_a|^2) to a per-tile slot double-buffered by step parity, then
-//     grid.sync(). Every block sums the slots in tile order and runs the
-//     scalar chain (norms, PI controller, time and tail update) in one
-//     thread, redundantly; then each tile fixes its rows up: an accepted
-//     step turns dW, dZ into the tail's remainder and writes the saveat rows
-//     in its window (the linear save cursor, every block's own copy in
-//     shared memory), a rejected one copies its start state forward.
+//     solve. The carry lives in the history: hy, hw, hz row i hold the
+//     state and the Brownian tail at the start of trial step i (keeping it
+//     in the tile's shared memory measured no faster,
+//     tools/torch_sde_variants.py). Each tile reads its rows of
+//     the presampled draws xi_w[i], xi_z[i], runs the collapse bridge, the
+//     SRI stages, y_new and the natural-embedding error, writes y_new, dW,
+//     dZ into row i + 1 and its three partial sums (the scaled error's
+//     squares, |f_b - f_a|^2, |H0_b - H0_a|^2) to a per-tile slot
+//     double-buffered by step parity, then grid.sync(). Every block sums
+//     the slots in tile order and runs the scalar chain (norms, PI
+//     controller, time and tail update) in one thread, redundantly; then
+//     each tile fixes its rows up: an accepted step turns dW, dZ into the
+//     tail's remainder and writes the saveat rows in its window (the linear
+//     save cursor, every block's own copy in shared memory), a rejected one
+//     copies its start state forward.
+//   * The forward tile body (sde_load, sde_stages): the Itô coefficients and
+//     stage 0's states in the load phase; each layer one phase, a stage's
+//     drift and diffusion layers side by side (sri_mlp.cuh sde_layer_items:
+//     every f64 sum split over lanes, every thread at work); the next
+//     stage's states H0, H1 built op by op in the epilogue of the phase that
+//     completes the values they read; the stage loops unrolled, so the
+//     tableau (SriTab, a kernel parameter) is read at indices the compiler
+//     knows and the stages' rows are offsets, never an indexed array of
+//     pointers. SOSRI2 at the MNIST widths: a load phase, two phases a
+//     stage, the combine (the parent body's element-to-thread assignment and
+//     block_sum_to, so every sum, accept, NFE, dt and save cursor is the
+//     one before this design gave; each affine map is an f64 sum rounded
+//     once, as the plain version's f64 addmm, so the rows differ only where
+//     an f64 sum lies within its rounding error of an f32 tie).
+//   * Each pair's widths are a compile-time instance (Pair::Fixed: the
+//     MNIST NSDE's 32 -> 64 -> 32 and 32 -> 32, the toy's cubic 2 -> 50 -> 2
+//     and 2 -> 2); every other pair the wrappers accept runs the generic one
+//     (DynWidths).
 //   * K10 walks the trial steps in reverse. Per step every block pulls the
 //     scalar chain back in one thread (post_bwd, from the stored sums and
-//     accept flag), each tile recomputes its stages from (y_i, tail_i,
-//     xi_i) and runs the row pullback; the per-row contributions to the
-//     scalar cotangents (of t from the saves, of dt_eff, of sqrt(dt_eff),
-//     of the bridge's frac and std) are per-tile slots summed in tile order
-//     after a grid.sync(). The leaves' cotangents accumulate in each
-//     block's shared memory over the whole walk (one owner an element) and
-//     one sum_slots_kernel pass adds the blocks in block order.
+//     accept flag); each tile recomputes its stages with K9's body (the
+//     same bits) and runs the reverse tile body (sde_bwd_tile): the seeds
+//     element by element, then each stage's layers in reverse, one phase a
+//     layer, the drift's and the diffusion's side by side, the input
+//     cotangents' f64 sums split over lanes, each network's input cotangent
+//     pulled through its stage's lincomb in the epilogue that completes it;
+//     the Itô coefficients and the bridge last. The per-row contributions to
+//     the scalar cotangents (of t from the saves, of dt_eff, of
+//     sqrt(dt_eff), of the bridge's frac and std) are per-tile slots summed
+//     in tile order after a grid.sync(). The leaves' cotangents stay in the
+//     block's shared memory over the whole walk (one owner an element in a
+//     layer's phase; in registers they ran slower,
+//     tools/torch_sde_variants.py) and one sum_slots_kernel pass adds the
+//     blocks in block order. Its order of sums on the CPU is
+//     ops/sde_whole_solve.py plain_sde_bwd_tiles.
 // No floating-point atomics, no TF32, no fast math: runs are bitwise
 // reproducible. This file is compiled with -fmad=false (ops/_cuda.py), so
 // every multiply and add of the step's algebra rounds on its own, as the
 // separate ATen ops of the plain version do on the card; the only fused
-// multiply-adds are the explicit fma/fmaf of the products. The scalar chain
+// multiply-adds are the explicit fma of the f64 sums. The scalar chain
 // rounds as ATen runs ops/sde.py sde_post on 0-d CUDA tensors: a tensor
 // divided by a Python float is multiplied by the float reciprocal, pow by
 // 0.5 is sqrt and pow by 0 is 1.
@@ -260,373 +288,724 @@ struct StepScalars {
   float dt_eff, frac, std, sqdt;
 };
 
-// Shared memory of one tile (floats, after the body's leaves and, in the
-// backward, their cotangents). n = kSdeRows * D.
-//   forward:  15 row arrays (y, tw, tz, xw, xz, dw, dz, i11, i10, i111, H1,
-//             and F, G, H0 per stage: 12 more), 2 network buffers, 3 * kWarps
-//   backward: the forward's, the stages' hidden activations, 14 more row
-//             arrays of cotangents and 5 * kWarps
-template <class Pair>
-__host__ __device__ int sde_fwd_tile_floats(const Pair& pr, int D) {
-  const int n = kSdeRows * D;
-  return (11 + 3 * kStages) * n + 2 * kSdeRows * pr.max_width() + 3 * kWarps;
-}
-
-template <class Pair>
-__host__ __device__ int sde_bwd_tile_floats(const Pair& pr, int D) {
-  const int n = kSdeRows * D;
-  return (11 + 4 * kStages) * n + kStages * (pr.hidden_floats(0) + pr.hidden_floats(1)) +
-         (14 + 3 * kStages) * n + 2 * kSdeRows * pr.max_width() + 5 * kWarps;
-}
-
-// The forward recompute of one trial step on a tile: loads the rows (zero
-// past the batch end) and runs the Itô coefficients and the stages. With
-// acts (K10) each evaluated stage keeps its hidden activations there (stage
-// i's drift at acts + i * hf, its diffusion at acts + kStages * hf + i *
-// hg). Ends synchronised.
-struct TileFwd {
-  float *y, *tw, *tz, *xw, *xz, *dw, *dz, *i11, *i10, *i111, *h1;
-  float *F[kStages], *G[kStages], *H0[kStages], *H1[kStages];
-  float *bufa, *bufb;
+// The tile's shared memory (rows of R = kSdeRows, n = R * D floats; the f64
+// row buffers of a network's input or output at row stride sde_ld0(D), of
+// network k's hidden layers at sde_ldh(wd, k), widths rounded up to 4).
+// Forward (K9, and K10's recompute): the carry y, tw, tz, the draws xw, xz,
+// the increments dw, dz, the Itô coefficients i11, i10, i111; per
+// stage (stage i at + i * n) the drift values F, the diffusion values G and
+// their states H0, H1; per stage the networks' hidden activations (actf,
+// actg); the layers' f64 input rows: layer 0's by stage parity (x0), the
+// hidden layers' by layer parity (xh); the warp partials of the block sums.
+// Reverse (K10): the row cotangents (cy, cyn, cerr, cwi of dW's
+// coefficient, ci11, ci10, ci111, cdw, cdz, ctw, ctz), the per-element
+// shares of the scalar cotangents (ep0 of t, ep1 of dt_eff, ep2 of
+// sqrt(dt_eff)), a network's input cotangent held for a lincomb phase (cxf,
+// cxg), per stage cF, cG, cH0, the f64 copies of a stage's output
+// cotangents by stage parity (cod) and the hidden layers' pre-activation
+// cotangents by layer parity, f64 (gh) and f32 (ghf); they take the place of
+// the recompute's f64 rows, done with before the seeds. Each buffer of a
+// pair (network f or g, parity 0 or 1) is a field of its own, picked by a
+// select (an indexed pair would put the struct in local memory).
+struct SdeTile {
+  double *x0f0, *x0f1, *x0g0, *x0g1, *xhf0, *xhf1, *xhg0, *xhg1;
+  double *codf0, *codf1, *codg0, *codg1, *ghf0, *ghf1, *ghg0, *ghg1;
+  float *gff0, *gff1, *gfg0, *gfg1;
+  float *y, *tw, *tz, *xw, *xz, *dw, *dz, *i11, *i10, *i111;
+  float *F, *G, *H0, *H1, *actf, *actg, *red;
+  float *cy, *cyn, *cerr, *cwi, *ci11, *ci10, *ci111, *cdw, *cdz, *ctw, *ctz, *ep0, *ep1, *ep2,
+      *cxf, *cxg, *cF, *cG, *cH0;
+  // network k's buffer of parity i
+  __device__ double* x0(int k, int i) const {
+    return k ? ((i & 1) ? x0g1 : x0g0) : ((i & 1) ? x0f1 : x0f0);
+  }
+  __device__ double* xh(int k, int i) const {
+    return k ? ((i & 1) ? xhg1 : xhg0) : ((i & 1) ? xhf1 : xhf0);
+  }
+  __device__ double* cod(int k, int i) const {
+    return k ? ((i & 1) ? codg1 : codg0) : ((i & 1) ? codf1 : codf0);
+  }
+  __device__ double* gh(int k, int i) const {
+    return k ? ((i & 1) ? ghg1 : ghg0) : ((i & 1) ? ghf1 : ghf0);
+  }
+  __device__ float* ghf(int k, int i) const {
+    return k ? ((i & 1) ? gfg1 : gfg0) : ((i & 1) ? gff1 : gff0);
+  }
 };
 
+// Hands out consecutive parts of a buffer, each a multiple of 4 floats (at
+// least 4) from a 16-byte aligned base; with no base, only counts.
+struct SdeCarve {
+  float* base;
+  int off;
+  __host__ __device__ float* f(int floats) {
+    float* p = base ? base + off : nullptr;
+    off += floats > 0 ? (floats + 3) & ~3 : 4;
+    return p;
+  }
+  __host__ __device__ double* d(int doubles) { return reinterpret_cast<double*>(f(2 * doubles)); }
+};
+
+// Floats of the tile (bwd: K10's), with a base its parts' addresses to *t.
+template <class Wd>
+__host__ __device__ int sde_tile_floats(const Wd& wd, int D, bool bwd, float* base = nullptr,
+                                        SdeTile* t = nullptr) {
+  constexpr int R = kSdeRows;
+  const int n = R * D, p0 = R * sde_ld0(D), pf = R * sde_ldh(wd, 0), pg = R * sde_ldh(wd, 1);
+  SdeCarve c{base, 0};
+  SdeTile s{};
+  s.x0f0 = c.d(p0);
+  s.x0f1 = c.d(p0);
+  s.x0g0 = c.d(p0);
+  s.x0g1 = c.d(p0);
+  s.xhf0 = c.d(pf);
+  s.xhf1 = c.d(pf);
+  s.xhg0 = c.d(pg);
+  s.xhg1 = c.d(pg);
+  if (bwd) {
+    const int fwd_end = c.off;
+    c.off = 0;
+    s.codf0 = c.d(p0);
+    s.codf1 = c.d(p0);
+    s.codg0 = c.d(p0);
+    s.codg1 = c.d(p0);
+    s.ghf0 = c.d(pf);
+    s.ghf1 = c.d(pf);
+    s.ghg0 = c.d(pg);
+    s.ghg1 = c.d(pg);
+    s.gff0 = c.f(pf);
+    s.gff1 = c.f(pf);
+    s.gfg0 = c.f(pg);
+    s.gfg1 = c.f(pg);
+    c.off = c.off > fwd_end ? c.off : fwd_end;
+  }
+  s.y = c.f(n);
+  s.tw = c.f(n);
+  s.tz = c.f(n);
+  s.xw = c.f(n);
+  s.xz = c.f(n);
+  s.dw = c.f(n);
+  s.dz = c.f(n);
+  s.i11 = c.f(n);
+  s.i10 = c.f(n);
+  s.i111 = c.f(n);
+  s.F = c.f(kStages * n);
+  s.G = c.f(kStages * n);
+  s.H0 = c.f(kStages * n);
+  s.H1 = c.f(kStages * n);
+  s.actf = c.f(kStages * sde_hidden_floats(wd, 0));
+  s.actg = c.f(kStages * sde_hidden_floats(wd, 1));
+  s.red = c.f(5 * kWarps);
+  if (bwd) {
+    s.cy = c.f(n);
+    s.cyn = c.f(n);
+    s.cerr = c.f(n);
+    s.cwi = c.f(n);
+    s.ci11 = c.f(n);
+    s.ci10 = c.f(n);
+    s.ci111 = c.f(n);
+    s.cdw = c.f(n);
+    s.cdz = c.f(n);
+    s.ctw = c.f(n);
+    s.ctz = c.f(n);
+    s.ep0 = c.f(n);
+    s.ep1 = c.f(n);
+    s.ep2 = c.f(n);
+    s.cxf = c.f(n);
+    s.cxg = c.f(n);
+    s.cF = c.f(kStages * n);
+    s.cG = c.f(kStages * n);
+    s.cH0 = c.f(kStages * n);
+  }
+  if (t) *t = s;
+  return c.off;
+}
+
+// Floats of K9's and K10's dynamic shared memory: the leaves (padded rows),
+// 4 of slack to align the tile, K10's leaf cotangents (the leaf layout),
+// the tile.
+template <class Wd>
+__host__ __device__ int sde_cs_floats(const Wd& wd) {
+  return (sde_leaf_floats(wd, 0) + sde_leaf_floats(wd, 1) + 3) & ~3;
+}
+template <class Wd>
+__host__ __device__ int sde_smem_floats(const Wd& wd, int D, bool bwd) {
+  return sde_weight_floats(wd) + 4 + (bwd ? sde_cs_floats(wd) : 0) + sde_tile_floats(wd, D, bwd);
+}
+
+// The tile's parts after the leaves (and K10's cotangents), aligned to 16
+// bytes by an offset from the shared base, not by a cast through an integer
+// (after such a cast every access was a generic one, LD.E for LDS).
+template <class Wd>
+__device__ __forceinline__ SdeTile sde_tile(const Wd& wd, float* smem, int D, bool bwd) {
+  float* p = smem + sde_weight_floats(wd) + (bwd ? sde_cs_floats(wd) : 0);
+  const int pad = (4 - ((int)__cvta_generic_to_shared(p) >> 2 & 3)) & 3;
+  SdeTile s;
+  sde_tile_floats(wd, D, bwd, p + pad, &s);
+  return s;
+}
+
+// Stage k's states of element idx = (r, c), op by op as ops/sri.py sri_step
+// builds them (H0_k from the drift values and i10, H1_k from them and
+// sqrt(dt)), each network's with its f64 input row (the cubic pair's drift
+// takes the cube, x * x * x as (x * x) * x), for the networks stage k
+// evaluates.
 template <class Pair>
-__device__ void sri_stages(const Pair& pr, const SriTab& tb, const float* wsm, TileFwd& w,
-                           const float* y_g, const float* tw_g, const float* tz_g,
-                           const float* xw_g, const float* xz_g, int row0, int rows, int D,
-                           const StepScalars& sc, float* acts) {
-  const int n = kSdeRows * D;
+__device__ __forceinline__ void sde_build(const SriTab& tb, const SdeTile& s, int k, int idx,
+                                          int r, int c, int n, int ld0, float dt, float sqdt) {
+  const float y = s.y[idx];
+  if (tb.f_src[k] == k) {
+    float h = y;
+#pragma unroll
+    for (int j = 0; j < kStages; ++j) {
+      if (j >= k) break;
+      if (tb.A0[k][j] != 0.0f) h = h + (tb.A0[k][j] * dt) * s.F[tb.f_src[j] * n + idx];
+      if (tb.B0[k][j] != 0.0f) h = h + (tb.B0[k][j] * s.i10[idx]) * s.G[tb.g_src[j] * n + idx];
+    }
+    s.H0[k * n + idx] = h;
+    s.x0(0, k)[r * ld0 + c] = (double)(Pair::kCube ? h * h * h : h);
+  }
+  if (tb.g_src[k] == k) {
+    float h = y;
+#pragma unroll
+    for (int j = 0; j < kStages; ++j) {
+      if (j >= k) break;
+      if (tb.A1[k][j] != 0.0f) h = h + (tb.A1[k][j] * dt) * s.F[tb.f_src[j] * n + idx];
+      if (tb.B1[k][j] != 0.0f) h = h + (tb.B1[k][j] * sqdt) * s.G[tb.g_src[j] * n + idx];
+    }
+    s.H1[k * n + idx] = h;
+    s.x0(1, k)[r * ld0 + c] = (double)h;
+  }
+}
+
+// The load phase of a trial step on a tile: the carry (from the history,
+// zero past the batch end), the draws, the increments and the Itô coefficients (ops/sri.py
+// ito_coefficients op by op; dz / sqrt(3) is ATen's multiply by the float
+// reciprocal on the card), and stage 0's states.
+template <class Pair, class Wd>
+__device__ __forceinline__ void sde_load(const Wd& wd, const SriTab& tb, const SdeTile& s,
+                                         const float* y_g, const float* tw_g,
+                                         const float* tz_g, const float* xw_g,
+                                         const float* xz_g, int row0, int rows, int D,
+                                         const StepScalars& sc) {
+  constexpr int R = kSdeRows;
+  const int n = R * D, ld0 = sde_ld0(D);
   const float dt = sc.dt_eff;
+  const float inv_sqrt3 = 1.0f / 1.7320508075688772f;
+  const float dt3 = 3.0f * dt, dt6 = 6.0f * dt;
+  __syncthreads();  // the previous trial step's (or tile's) last reads
   for (int idx = threadIdx.x; idx < n; idx += kThreads) {
     const bool valid = idx < rows * D;
     const size_t g = (size_t)row0 * D + idx;
-    w.y[idx] = valid ? __ldcg(y_g + g) : 0.0f;
-    w.tw[idx] = valid ? __ldcg(tw_g + g) : 0.0f;
-    w.tz[idx] = valid ? __ldcg(tz_g + g) : 0.0f;
-    w.xw[idx] = valid ? xw_g[g] : 0.0f;
-    w.xz[idx] = valid ? xz_g[g] : 0.0f;
+    s.y[idx] = valid ? __ldcg(y_g + g) : 0.0f;
+    const float tw = valid ? __ldcg(tw_g + g) : 0.0f, tz = valid ? __ldcg(tz_g + g) : 0.0f;
+    s.tw[idx] = tw;
+    s.tz[idx] = tz;
+    const float xw = valid ? xw_g[g] : 0.0f, xz = valid ? xz_g[g] : 0.0f;
+    s.xw[idx] = xw;
+    s.xz[idx] = xz;
+    const float dw = sc.frac * tw + sc.std * xw;
+    const float dz = sc.frac * tz + sc.std * xz;
+    s.dw[idx] = dw;
+    s.dz[idx] = dz;
+    s.i11[idx] = 0.5f * (dw * dw - dt) / sc.sqdt;
+    s.i10[idx] = 0.5f * (dw + dz * inv_sqrt3);
+    s.i111[idx] = (dw * dw * dw - dt3 * dw) / dt6;
+    const int r = idx / D;
+    sde_build<Pair>(tb, s, 0, idx, r, idx - r * D, n, ld0, dt, sc.sqdt);
   }
-  __syncthreads();
-  // ops/sri.py ito_coefficients, op by op; dz / sqrt(3) is ATen's
-  // multiply by the float reciprocal on the card
-  const float inv_sqrt3 = 1.0f / 1.7320508075688772f;
-  const float dt3 = 3.0f * dt, dt6 = 6.0f * dt;
-  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
-    const float dw = sc.frac * w.tw[idx] + sc.std * w.xw[idx];
-    const float dz = sc.frac * w.tz[idx] + sc.std * w.xz[idx];
-    w.dw[idx] = dw;
-    w.dz[idx] = dz;
-    w.i11[idx] = 0.5f * (dw * dw - dt) / sc.sqdt;
-    w.i10[idx] = 0.5f * (dw + dz * inv_sqrt3);
-    w.i111[idx] = (dw * dw * dw - dt3 * dw) / dt6;
+}
+
+// Runs phase(p) for the p < np layer phases of a stage: unrolled where the
+// widths are constants (every index of a phase then folds), one rolled loop
+// where they are not (a copy for each of kMaxNetLayers layer slots would
+// quadruple the stages' code).
+template <class Wd, class Phase>
+__device__ __forceinline__ void sde_phases(int np, Phase phase) {
+  if constexpr (Wd::kFixed) {
+#pragma unroll
+    for (int p = 0; p < kMaxNetLayers; ++p)
+      if (p < np) phase(p);
+  } else {
+#pragma unroll 1
+    for (int p = 0; p < np; ++p) phase(p);
   }
-  __syncthreads();
-  const int hf = pr.hidden_floats(0), hg = pr.hidden_floats(1);
+}
+
+// The stages of a trial step on the tile, after the load phase (K9's, and
+// K10's recompute; both keep every stage's values, states and hidden
+// activations). Each layer is one phase between two block barriers, a
+// stage's drift and diffusion layers side by side (sde_layer_items): stage
+// i's phase p runs layer p of each network it evaluates. A hidden layer's
+// epilogue keeps tanh of its sums (f32) and their f64 copy; a network's
+// last layer's writes F_i or G_i; where one network finishes last, that
+// epilogue also builds stage i + 1's states (sde_build) element by element,
+// else (both finish in one phase, or stage i evaluates nothing) a phase of
+// its own builds them. Ends with the last stage's phase (no barrier).
+template <class Pair, class Wd>
+__device__ __forceinline__ void sde_stages(const Wd& wd, const SriTab& tb, const float* wsm,
+                                           const SdeTile& s, int D, const StepScalars& sc) {
+  constexpr int R = kSdeRows;
+  const int n = R * D, ld0 = sde_ld0(D), ldf = sde_ldh(wd, 0), ldg = sde_ldh(wd, 1);
+  const int hf = sde_hidden_floats(wd, 0), hg = sde_hidden_floats(wd, 1);
+  bool built = true;  // stage 0's states, by the load phase
+#pragma unroll
   for (int i = 0; i < kStages; ++i) {
-    if (tb.f_src[i] == i) {
-      for (int idx = threadIdx.x; idx < n; idx += kThreads) {
-        float h = w.y[idx];
-        for (int j = 0; j < i; ++j) {
-          if (tb.A0[i][j] != 0.0f) h = h + (tb.A0[i][j] * dt) * w.F[tb.f_src[j]][idx];
-          if (tb.B0[i][j] != 0.0f) h = h + (tb.B0[i][j] * w.i10[idx]) * w.G[tb.g_src[j]][idx];
-        }
-        w.H0[i][idx] = h;
-      }
-      __syncthreads();
-      pr.eval(0, wsm, w.H0[i], w.F[i], acts ? acts + i * hf : nullptr, w.bufa, w.bufb);
+    const bool ef = tb.f_src[i] == i, eg = tb.g_src[i] == i;
+    if (!ef && !eg) {
+      built = false;
+      continue;
     }
-    if (tb.g_src[i] == i) {
-      float* h1 = w.H1[i] ? w.H1[i] : w.h1;
-      for (int idx = threadIdx.x; idx < n; idx += kThreads) {
-        float h = w.y[idx];
-        for (int j = 0; j < i; ++j) {
-          if (tb.A1[i][j] != 0.0f) h = h + (tb.A1[i][j] * dt) * w.F[tb.f_src[j]][idx];
-          if (tb.B1[i][j] != 0.0f) h = h + (tb.B1[i][j] * sc.sqdt) * w.G[tb.g_src[j]][idx];
-        }
-        h1[idx] = h;
-      }
+    if (!built) {
       __syncthreads();
-      pr.eval(1, wsm, h1, w.G[i], acts ? acts + kStages * hf + i * hg : nullptr, w.bufa,
-              w.bufb);
+      for (int idx = threadIdx.x; idx < n; idx += kThreads) {
+        const int r = idx / D;
+        sde_build<Pair>(tb, s, i, idx, r, idx - r * D, n, ld0, sc.dt_eff, sc.sqdt);
+      }
     }
+    const int nf = ef ? wd.L(0) : 0, ng = eg ? wd.L(1) : 0, np = nf > ng ? nf : ng;
+    const bool next = i + 1 < kStages && nf != ng;
+    sde_phases<Wd>(np, [&](int p) {
+      __syncthreads();
+      const SdeLayer a = sde_layer(wsm, sde_layer_at(wd, 0, p), wd.in(0, p), wd.out(0, p),
+                                   p == 0 ? s.x0(0, i) : s.xh(0, p - 1),
+                                   p == 0 ? ld0 : ldf, wd.in(0, p));
+      const SdeLayer b = sde_layer(wsm, sde_layer_at(wd, 1, p), wd.in(1, p), wd.out(1, p),
+                                   p == 0 ? s.x0(1, i) : s.xh(1, p - 1),
+                                   p == 0 ? ld0 : ldg, wd.in(1, p));
+      int hoff = 0;  // layer p's hidden activations in a stage's record
+#pragma unroll
+      for (int m = 0; m < kMaxNetLayers; ++m)
+        if (m < p) hoff += R * ((wd.out(0, m) + 3) & ~3);
+      int goff = 0;
+#pragma unroll
+      for (int m = 0; m < kMaxNetLayers; ++m)
+        if (m < p) goff += R * ((wd.out(1, m) + 3) & ~3);
+      // a network's last layer writes F_i or G_i; where it finishes the
+      // stage last, its epilogue builds stage i + 1's states
+      auto last = [&](float* out, int r, int o, float v) {
+        const int idx = r * D + o;
+        out[i * n + idx] = v;
+        if (next && p == np - 1)
+          sde_build<Pair>(tb, s, i + 1, idx, r, o, n, ld0, sc.dt_eff, sc.sqdt);
+      };
+      if (p < nf)
+        sde_layer_items<true>(a, 0, [&](int r, int o, float v) {
+          if (p + 1 < wd.L(0)) {  // a hidden layer: tanh, its record and f64 copy
+            const float h = tanhf(v);
+            s.actf[i * hf + hoff + r * ((wd.out(0, p) + 3) & ~3) + o] = h;
+            s.xh(0, p)[r * ldf + o] = (double)h;
+            return;
+          }
+          last(s.F, r, o, v);
+        });
+      if (p < ng)
+        sde_layer_items<true>(b, sde_items_after<true>(p < nf, a), [&](int r, int o, float v) {
+          if (p + 1 < wd.L(1)) {
+            const float h = tanhf(v);
+            s.actg[i * hg + goff + r * ((wd.out(1, p) + 3) & ~3) + o] = h;
+            s.xh(1, p)[r * ldg + o] = (double)h;
+            return;
+          }
+          last(s.G, r, o, v);
+        });
+    });
+    built = next;
   }
 }
 
 // y_new and the natural-embedding error of element idx, op by op as
 // ops/sri.py sri_step.
-__device__ __forceinline__ void sri_combine(const SriTab& tb, const TileFwd& w, int idx,
+__device__ __forceinline__ void sri_combine(const SriTab& tb, const SdeTile& s, int idx, int n,
                                             float dt, float* y_new, float* err) {
-  float v = w.y[idx];
+  float v = s.y[idx];
+#pragma unroll
   for (int i = 0; i < kStages; ++i)
-    if (tb.alpha[i] != 0.0f) v = v + (tb.alpha[i] * dt) * w.F[tb.f_src[i]][idx];
+    if (tb.alpha[i] != 0.0f) v = v + (tb.alpha[i] * dt) * s.F[tb.f_src[i] * n + idx];
+#pragma unroll
   for (int i = 0; i < kStages; ++i) {
     if (!tb.coef[i]) continue;
-    const float* b = tb.beta[i];
-    const float c = b[0] * w.dw[idx] + b[1] * w.i11[idx] + b[2] * w.i10[idx] +
-                    b[3] * w.i111[idx];
-    v = v + c * w.G[tb.g_src[i]][idx];
+    const float c = tb.beta[i][0] * s.dw[idx] + tb.beta[i][1] * s.i11[idx] +
+                    tb.beta[i][2] * s.i10[idx] + tb.beta[i][3] * s.i111[idx];
+    v = v + c * s.G[tb.g_src[i] * n + idx];
   }
   float e = 0.0f;
+#pragma unroll
   for (int i = 0; i < kStages; ++i)
-    if (tb.dE[i] != 0.0f) e = e + (tb.dE[i] * dt) * w.F[tb.f_src[i]][idx];
+    if (tb.dE[i] != 0.0f) e = e + (tb.dE[i] * dt) * s.F[tb.f_src[i] * n + idx];
+#pragma unroll
   for (int i = 0; i < kStages; ++i)
-    if (tb.en[i] != 0.0f) e = e + (tb.en[i] * w.i10[idx]) * w.G[tb.g_src[i]][idx];
+    if (tb.en[i] != 0.0f) e = e + (tb.en[i] * s.i10[idx]) * s.G[tb.g_src[i] * n + idx];
   *y_new = v;
   *err = e;
 }
 
-// Carves the tile's row arrays out of shared memory.
-__device__ float* carve_fwd(TileFwd& w, float* p, int n, int W, bool keep_h1) {
-  float** rows[] = {&w.y, &w.tw, &w.tz, &w.xw, &w.xz, &w.dw, &w.dz, &w.i11, &w.i10, &w.i111,
-                    &w.h1};
-  for (float** r : rows) { *r = p; p += n; }
-  for (int i = 0; i < kStages; ++i) { w.F[i] = p; p += n; }
-  for (int i = 0; i < kStages; ++i) { w.G[i] = p; p += n; }
-  for (int i = 0; i < kStages; ++i) { w.H0[i] = p; p += n; }
-  for (int i = 0; i < kStages; ++i) {
-    if (keep_h1) { w.H1[i] = p; p += n; } else { w.H1[i] = nullptr; }
-  }
-  w.bufa = p; p += kSdeRows * W;
-  w.bufb = p; p += kSdeRows * W;
-  return p;
-}
-
 // K9's body for one tile: the trial step's rows y_new, dW, dZ (to the
-// history's row i + 1) and the three sums of squares to sums_out.
-template <class Pair>
-__device__ void sde_fwd_tile(const Pair& pr, const SriTab& tb, const float* wsm, float* smem,
-                             const float* y_g, const float* tw_g, const float* tz_g,
-                             const float* xw_g, const float* xz_g, float* yn_g, float* dw_g,
-                             float* dz_g, int row0, int rows, int D, const StepScalars& sc,
-                             float rtol, float atol, float* sums_out) {
+// history's row i + 1) and the three sums of
+// squares to sums_out, each element by thread idx % kThreads and the
+// threads' partials by block_sum_to, the order of the body before this one.
+template <class Pair, class Wd>
+__device__ __forceinline__ void sde_fwd_tile(const Wd& wd, const SriTab& tb, const float* wsm,
+                                             const SdeTile& s, const float* y_g,
+                                             const float* tw_g, const float* tz_g,
+                                             const float* xw_g, const float* xz_g, float* yn_g,
+                                             float* dw_g, float* dz_g, int row0, int rows, int D,
+                                             const StepScalars& sc, float rtol, float atol,
+                                             float* sums_out) {
   const int n = kSdeRows * D;
-  TileFwd w;
-  float* red = carve_fwd(w, smem, n, pr.max_width(), false);
-  sri_stages(pr, tb, wsm, w, y_g, tw_g, tz_g, xw_g, xz_g, row0, rows, D, sc, nullptr);
+  sde_load<Pair>(wd, tb, s, y_g, tw_g, tz_g, xw_g, xz_g, row0, rows, D, sc);
+  sde_stages<Pair>(wd, tb, wsm, s, D, sc);
+  __syncthreads();
   float sums[3] = {0.0f, 0.0f, 0.0f};
   const bool eig = tb.ia != tb.ib;
   for (int idx = threadIdx.x; idx < rows * D; idx += kThreads) {
     float yn, er;
-    sri_combine(tb, w, idx, sc.dt_eff, &yn, &er);
-    const float yv = w.y[idx];
+    sri_combine(tb, s, idx, n, sc.dt_eff, &yn, &er);
+    const float yv = s.y[idx];
     const float denom = atol + fmaxf(fabsf(yv), fabsf(yn)) * rtol;
-    const float s = er / denom;
-    sums[0] += s * s;
+    const float sv = er / denom;
+    sums[0] += sv * sv;
     if (eig) {
-      const float df = w.F[tb.ib][idx] - w.F[tb.ia][idx];
-      const float dh = w.H0[tb.ib][idx] - w.H0[tb.ia][idx];
+      const float df = s.F[tb.ib * n + idx] - s.F[tb.ia * n + idx];
+      const float dh = s.H0[tb.ib * n + idx] - s.H0[tb.ia * n + idx];
       sums[1] += df * df;
       sums[2] += dh * dh;
     }
     const size_t g = (size_t)row0 * D + idx;
     yn_g[g] = yn;
-    dw_g[g] = w.dw[idx];
-    dz_g[g] = w.dz[idx];
+    dw_g[g] = s.dw[idx];
+    dz_g[g] = s.dz[idx];
   }
-  block_sum_to<3>(sums, red, sums_out);
+  block_sum_to<3>(sums, s.red, sums_out);
 }
 
-// The cotangents K10's tile body carries, in shared memory.
-struct TileBwd {
-  float *cy, *cyn, *cerr, *cw, *ci11, *ci10, *ci111, *cdw, *cdz, *ctw, *ctz, *cx, *den, *sc;
-  float *cF[kStages], *cG[kStages], *cH0[kStages];
-};
-
-// The pullback of one stage's network k (output cotangent c_out) and of
-// the stage state's lincomb (coefficient rows A, B against the earlier
-// stages' F and G, scaled by dt and by brow: i10 for the drift's H0,
-// sqrt(dt) for the diffusion's H1). Adds to the carried cotangents and to
-// the per-thread partials *p_dt (of dt_eff) and *p_sq (of sqrt(dt_eff)).
-template <class Pair>
-__device__ void stage_pullback(const Pair& pr, const SriTab& tb, const float* wsm, float* cwsm,
-                               const TileFwd& w, TileBwd& c, int k, int i, const float* x,
-                               const float* acts, const float* c_out, const float* extra,
-                               int n, float dt, float sqdt, float* p_dt, float* p_sq) {
-  pr.pullback(k, wsm, cwsm, x, acts, c_out, c.cx, w.bufa, w.bufb);
-  const float(*A)[kStages] = k ? tb.A1 : tb.A0;
-  const float(*B)[kStages] = k ? tb.B1 : tb.B0;
-  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
-    const float cx = extra ? c.cx[idx] + extra[idx] : c.cx[idx];
-    c.cy[idx] = c.cy[idx] + cx;
-    for (int j = 0; j < i; ++j) {
-      if (A[i][j] != 0.0f) {
-        float* cf = c.cF[tb.f_src[j]];
-        cf[idx] = cf[idx] + (A[i][j] * dt) * cx;
-        *p_dt += A[i][j] * (w.F[tb.f_src[j]][idx] * cx);
-      }
-      if (B[i][j] != 0.0f) {
-        float* cg = c.cG[tb.g_src[j]];
-        const float gj = w.G[tb.g_src[j]][idx];
-        if (k) {
-          cg[idx] = cg[idx] + (B[i][j] * sqdt) * cx;
-          *p_sq += B[i][j] * (gj * cx);
-        } else {
-          cg[idx] = cg[idx] + (B[i][j] * w.i10[idx]) * cx;
-          c.ci10[idx] = c.ci10[idx] + B[i][j] * (gj * cx);
-        }
-      }
+// Stage i's lincomb pullbacks of element idx (the algebra of
+// ops/sde_whole_solve.py _sde_rows_bwd): the diffusion's state H1_i (input
+// cotangent cx) and the drift's H0_i (cx with the eigen seed cH0 added),
+// each into cy, the earlier stages' cF, cG and the per-element shares of
+// the scalar cotangents, j in order, the A term before the B term.
+__device__ __forceinline__ void sde_lincomb_g(const SriTab& tb, const SdeTile& s, int i, int idx,
+                                              int n, float cx, float dt, float sqdt) {
+  s.cy[idx] = s.cy[idx] + cx;
+#pragma unroll
+  for (int j = 0; j < kStages; ++j) {
+    if (j >= i) break;
+    if (tb.A1[i][j] != 0.0f) {
+      float* cf = s.cF + tb.f_src[j] * n + idx;
+      *cf = *cf + (tb.A1[i][j] * dt) * cx;
+      s.ep1[idx] = s.ep1[idx] + tb.A1[i][j] * (s.F[tb.f_src[j] * n + idx] * cx);
+    }
+    if (tb.B1[i][j] != 0.0f) {
+      float* cg = s.cG + tb.g_src[j] * n + idx;
+      *cg = *cg + (tb.B1[i][j] * sqdt) * cx;
+      s.ep2[idx] = s.ep2[idx] + tb.B1[i][j] * (s.G[tb.g_src[j] * n + idx] * cx);
     }
   }
-  __syncthreads();
+}
+
+__device__ __forceinline__ void sde_lincomb_f(const SriTab& tb, const SdeTile& s, int i, int idx,
+                                              int n, float cx, float dt) {
+  s.cy[idx] = s.cy[idx] + cx;
+#pragma unroll
+  for (int j = 0; j < kStages; ++j) {
+    if (j >= i) break;
+    if (tb.A0[i][j] != 0.0f) {
+      float* cf = s.cF + tb.f_src[j] * n + idx;
+      *cf = *cf + (tb.A0[i][j] * dt) * cx;
+      s.ep1[idx] = s.ep1[idx] + tb.A0[i][j] * (s.F[tb.f_src[j] * n + idx] * cx);
+    }
+    if (tb.B0[i][j] != 0.0f) {
+      float* cg = s.cG + tb.g_src[j] * n + idx;
+      *cg = *cg + (tb.B0[i][j] * s.i10[idx]) * cx;
+      s.ci10[idx] = s.ci10[idx] + tb.B0[i][j] * (s.G[tb.g_src[j] * n + idx] * cx);
+    }
+  }
+}
+
+// The f64 copies of stage k's output cotangents (cF_k, cG_k, final once
+// the stages after k are pulled back) of element idx = (r, c), for the
+// networks stage k evaluates.
+__device__ __forceinline__ void sde_cod(const SriTab& tb, const SdeTile& s, int k, int idx, int r,
+                                        int c, int n, int ld0) {
+  if (tb.f_src[k] == k) s.cod(0, k)[r * ld0 + c] = (double)s.cF[k * n + idx];
+  if (tb.g_src[k] == k) s.cod(1, k)[r * ld0 + c] = (double)s.cG[k * n + idx];
 }
 
 // K10's body for one tile: the pullback of one trial step (the algebra of
-// ops/sde_whole_solve.py _sde_rows_bwd). Seeds: the cotangents of y_out,
-// tail_w_out, tail_z_out (ct_y, ct_tw, ct_tz, rows in global memory,
-// replaced by those of y, tail_w, tail_z), of the three sums (g_e, g_n,
-// g_d), and the saves': rows [lo, hi) of ct_ys, interpolated from (t,
-// dt_eff) between y and y_new = hy_next. Adds the leaves' cotangents to
-// cwsm and writes the tile's partials (ct_t from the saves, ct_dt_eff,
-// ct_sqrt(dt_eff), ct_frac, ct_std) to part_out.
-template <class Pair>
-__device__ void sde_bwd_tile(const Pair& pr, const SriTab& tb, const float* wsm, float* cwsm,
-                             float* smem, const float* y_g, const float* tw_g,
-                             const float* tz_g, const float* xw_g, const float* xz_g,
-                             const float* hy_next, const float* sa, const float* ct_ys, int lo,
-                             int hi, float t, size_t BD, float* ct_y, float* ct_tw,
-                             float* ct_tz, int row0, int rows, int D, const StepScalars& sc,
-                             bool acc, bool inside, float g_e, float g_n, float g_d,
-                             float rtol, float atol, float* part_out) {
-  const int n = kSdeRows * D;
-  const float dt = sc.dt_eff;
-  TileFwd w;
-  float* p = carve_fwd(w, smem, n, pr.max_width(), true);
-  float* acts = p;
-  p += kStages * (pr.hidden_floats(0) + pr.hidden_floats(1));
-  TileBwd c;
-  float** rows_c[] = {&c.cy, &c.cyn, &c.cerr, &c.cw, &c.ci11, &c.ci10, &c.ci111, &c.cdw,
-                      &c.cdz, &c.ctw, &c.ctz, &c.cx, &c.den, &c.sc};
-  for (float** r : rows_c) { *r = p; p += n; }
-  for (int i = 0; i < kStages; ++i) { c.cF[i] = p; p += n; }
-  for (int i = 0; i < kStages; ++i) { c.cG[i] = p; p += n; }
-  for (int i = 0; i < kStages; ++i) { c.cH0[i] = p; p += n; }
-  float* red = p;
+// ops/sde_whole_solve.py _sde_rows_bwd; its order of sums on the CPU is
+// plain_sde_bwd_tiles). Recomputes the step with K9's load and stages
+// (the same bits), then: one phase of seeds (each element by thread idx %
+// kThreads: the cotangents of y_out, tail_w_out, tail_z_out (ct_y, ct_tw,
+// ct_tz, rows in global memory), of the three sums (g_e, g_n, g_d) and the
+// saves' (rows [lo, hi) of ct_ys, interpolated from (t, dt_eff) between y
+// and y_new = hy_next), then y_new's and the error's stage weights); the
+// stages in reverse, each layer one phase, a stage's drift and diffusion
+// layers side by side (sde_layer_items): the input cotangents' f64 sums
+// split over lanes, a hidden layer's multiplied by tanh' in its epilogue
+// (the next layer's pre-activation cotangent), the weight and bias
+// cotangents added to the block's (shared memory, sde_cw_layer), and a
+// network's input cotangent pulled through the stage's lincomb in the
+// epilogue that completes it (the diffusion's, then the drift's; a phase of
+// its own where both finish together); last, the
+// Itô coefficients and the bridge, each element by thread idx % kThreads.
+// Replaces the rows ct_y, ct_tw, ct_tz with the cotangents of y, tail_w,
+// tail_z and writes the tile's partials (ct_t from the saves, ct_dt_eff,
+// ct_sqrt(dt_eff), ct_frac, ct_std; block_sum_to over the threads' sums of
+// their elements' shares) to part_out.
+template <class Pair, class Wd>
+__device__ __forceinline__ void sde_bwd_tile(
+    const Wd& wd, const SriTab& tb, const float* wsm, float* cw, const SdeTile& s,
+    const float* y_g, const float* tw_g, const float* tz_g, const float* xw_g, const float* xz_g,
+    const float* hy_next, const float* sa, const float* ct_ys, int lo, int hi,
+    float t, size_t BD, float* ct_y, float* ct_tw, float* ct_tz, int row0, int rows, int D,
+    const StepScalars& sc, bool acc, bool inside, float g_e, float g_n, float g_d, float rtol,
+    float atol, float* part_out) {
+  constexpr int R = kSdeRows;
+  const int n = R * D, ld0 = sde_ld0(D), ldf = sde_ldh(wd, 0), ldg = sde_ldh(wd, 1);
+  const int hf = sde_hidden_floats(wd, 0), hg = sde_hidden_floats(wd, 1);
+  const float dt = sc.dt_eff, sqdt = sc.sqdt;
+  sde_load<Pair>(wd, tb, s, y_g, tw_g, tz_g, xw_g, xz_g, row0, rows, D, sc);
+  sde_stages<Pair>(wd, tb, wsm, s, D, sc);
+  __syncthreads();
 
-  sri_stages(pr, tb, wsm, w, y_g, tw_g, tz_g, xw_g, xz_g, row0, rows, D, sc, acts);
-  float part[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};  // t, dt_eff, sqrt(dt_eff), frac, std
+  // ---- seeds, then y_new's and the error's stage weights ----
   const float hd = dt == 0.0f ? 1.0f : dt;
   const bool eig = tb.ia != tb.ib;
-  // ---- seeds ----
   for (int idx = threadIdx.x; idx < n; idx += kThreads) {
-    for (int i = 0; i < kStages; ++i) c.cF[i][idx] = c.cG[i][idx] = c.cH0[i][idx] = 0.0f;
-    c.cw[idx] = c.ci11[idx] = c.ci10[idx] = c.ci111[idx] = 0.0f;
-    if (idx >= rows * D) {  // past the batch end: no seed, so no cotangent
-      c.cy[idx] = c.cyn[idx] = c.cerr[idx] = c.cdw[idx] = c.cdz[idx] = c.ctw[idx] =
-          c.ctz[idx] = 0.0f;
+    for (int k = 0; k < kStages; ++k)
+      s.cF[k * n + idx] = s.cG[k * n + idx] = s.cH0[k * n + idx] = 0.0f;
+    float cwi = 0.0f, c11 = 0.0f, c10 = 0.0f, c111 = 0.0f, e0 = 0.0f, e1 = 0.0f;
+    float cy = 0.0f, cyn = 0.0f, cerr = 0.0f, cdw = 0.0f, cdz = 0.0f, ctw = 0.0f, ctz = 0.0f;
+    if (idx < rows * D) {
+      const size_t g = (size_t)row0 * D + idx;
+      const float cyo = __ldcg(ct_y + g), cwo = __ldcg(ct_tw + g), czo = __ldcg(ct_tz + g);
+      cy = acc ? 0.0f : cyo;
+      cyn = acc ? cyo : 0.0f;
+      // tail_out = where(accept, where(inside, tail - d, 0), d)
+      cdw = acc ? (inside ? -cwo : 0.0f) : cwo;
+      cdz = acc ? (inside ? -czo : 0.0f) : czo;
+      ctw = acc && inside ? cwo : 0.0f;
+      ctz = acc && inside ? czo : 0.0f;
+      const float yv = s.y[idx];
+      if (hi > lo) {  // the saves: row = (1 - th) y + th y_new
+        const float ynv = __ldcg(hy_next + g);
+        for (int r = lo; r < hi; ++r) {
+          const float th = (sa[r] - t) / hd;
+          const float gr = __ldcg(ct_ys + (size_t)r * BD + g);
+          cy += (1.0f - th) * gr;
+          cyn += th * gr;
+          const float c_th = gr * (ynv - yv);
+          e0 -= c_th / hd;
+          e1 += dt == 0.0f ? 0.0f : -c_th * th / hd;
+        }
+      }
+      float yn, er;
+      sri_combine(tb, s, idx, n, dt, &yn, &er);
+      const float ay = fabsf(yv), an = fabsf(yn);
+      const float denom = atol + fmaxf(ay, an) * rtol;
+      const float sv = er / denom;
+      const float csv = g_e * 2.0f * sv;
+      const float cm = -csv * sv / denom * rtol;
+      cy += (ay > an ? cm : (ay == an ? 0.5f * cm : 0.0f)) * sign_of(yv);
+      cyn += (an > ay ? cm : (ay == an ? 0.5f * cm : 0.0f)) * sign_of(yn);
+      cerr = csv / denom;
+      cy = cy + cyn;  // y_new = y + ...
+      if (eig) {
+        const float df = g_n * 2.0f * (s.F[tb.ib * n + idx] - s.F[tb.ia * n + idx]);
+        const float dh = g_d * 2.0f * (s.H0[tb.ib * n + idx] - s.H0[tb.ia * n + idx]);
+        s.cF[tb.ib * n + idx] = df;
+        s.cF[tb.ia * n + idx] = -df;
+        s.cH0[tb.ib * n + idx] = dh;
+        s.cH0[tb.ia * n + idx] = -dh;
+      }
+      const float dwv = s.dw[idx], i11 = s.i11[idx], i10 = s.i10[idx], i111 = s.i111[idx];
+#pragma unroll
+      for (int i = 0; i < kStages; ++i) {
+        if (tb.alpha[i] != 0.0f) {
+          float* cf = s.cF + tb.f_src[i] * n + idx;
+          *cf = *cf + (tb.alpha[i] * dt) * cyn;
+          e1 += tb.alpha[i] * (s.F[tb.f_src[i] * n + idx] * cyn);
+        }
+        if (tb.dE[i] != 0.0f) {
+          float* cf = s.cF + tb.f_src[i] * n + idx;
+          *cf = *cf + (tb.dE[i] * dt) * cerr;
+          e1 += tb.dE[i] * (s.F[tb.f_src[i] * n + idx] * cerr);
+        }
+        const float gi = tb.g_src[i] >= 0 ? s.G[tb.g_src[i] * n + idx] : 0.0f;
+        if (tb.coef[i]) {
+          const float co = tb.beta[i][0] * dwv + tb.beta[i][1] * i11 + tb.beta[i][2] * i10 +
+                           tb.beta[i][3] * i111;
+          float* cg = s.cG + tb.g_src[i] * n + idx;
+          *cg = *cg + co * cyn;
+          const float cc = gi * cyn;
+          cwi += tb.beta[i][0] * cc;
+          c11 += tb.beta[i][1] * cc;
+          c10 += tb.beta[i][2] * cc;
+          c111 += tb.beta[i][3] * cc;
+        }
+        if (tb.en[i] != 0.0f) {
+          float* cg = s.cG + tb.g_src[i] * n + idx;
+          *cg = *cg + (tb.en[i] * i10) * cerr;
+          c10 += tb.en[i] * (gi * cerr);
+        }
+      }
+    }
+    s.cy[idx] = cy;
+    s.cyn[idx] = cyn;
+    s.cerr[idx] = cerr;
+    s.cdw[idx] = cdw;
+    s.cdz[idx] = cdz;
+    s.ctw[idx] = ctw;
+    s.ctz[idx] = ctz;
+    s.cwi[idx] = cwi;
+    s.ci11[idx] = c11;
+    s.ci10[idx] = c10;
+    s.ci111[idx] = c111;
+    s.ep0[idx] = e0;
+    s.ep1[idx] = e1;
+    s.ep2[idx] = 0.0f;
+    const int r = idx / D;
+    sde_cod(tb, s, kStages - 1, idx, r, idx - r * D, n, ld0);
+  }
+
+  // ---- reverse over the stages ----
+  bool built = true;  // the last stage's output cotangents' f64 copies, by the seeds
+#pragma unroll
+  for (int ii = 0; ii < kStages; ++ii) {
+    const int i = kStages - 1 - ii;
+    const bool ef = tb.f_src[i] == i, eg = tb.g_src[i] == i;
+    if (!ef && !eg) {
+      built = false;
       continue;
     }
-    const size_t g = (size_t)row0 * D + idx;
-    const float cyo = __ldcg(ct_y + g), cwo = __ldcg(ct_tw + g), czo = __ldcg(ct_tz + g);
-    float cy = acc ? 0.0f : cyo, cyn = acc ? cyo : 0.0f;
-    // tail_out = where(accept, where(inside, tail - d, 0), d)
-    c.cdw[idx] = acc ? (inside ? -cwo : 0.0f) : cwo;
-    c.cdz[idx] = acc ? (inside ? -czo : 0.0f) : czo;
-    c.ctw[idx] = acc && inside ? cwo : 0.0f;
-    c.ctz[idx] = acc && inside ? czo : 0.0f;
-    if (hi > lo) {  // the saves: row = (1 - th) y + th y_new
-      const float yv = w.y[idx], ynv = __ldcg(hy_next + g);
-      for (int r = lo; r < hi; ++r) {
-        const float th = (sa[r] - t) / hd;
-        const float gr = __ldcg(ct_ys + (size_t)r * BD + g);
-        cy += (1.0f - th) * gr;
-        cyn += th * gr;
-        const float c_th = gr * (ynv - yv);
-        part[0] -= c_th / hd;
-        part[1] += dt == 0.0f ? 0.0f : -c_th * th / hd;
+    if (!built) {
+      __syncthreads();
+      for (int idx = threadIdx.x; idx < n; idx += kThreads) {
+        const int r = idx / D;
+        sde_cod(tb, s, i, idx, r, idx - r * D, n, ld0);
       }
     }
-    float yn, er;
-    sri_combine(tb, w, idx, dt, &yn, &er);
-    const float yv = w.y[idx];
-    const float ay = fabsf(yv), an = fabsf(yn);
-    const float denom = atol + fmaxf(ay, an) * rtol;
-    const float s = er / denom;
-    const float cs = g_e * 2.0f * s;
-    const float cm = -cs * s / denom * rtol;
-    cy += (ay > an ? cm : (ay == an ? 0.5f * cm : 0.0f)) * sign_of(yv);
-    cyn += (an > ay ? cm : (ay == an ? 0.5f * cm : 0.0f)) * sign_of(yn);
-    c.cerr[idx] = cs / denom;
-    c.cyn[idx] = cyn;
-    c.cy[idx] = cy + cyn;  // y_new = y + ...
-    if (eig) {
-      const float df = g_n * 2.0f * (w.F[tb.ib][idx] - w.F[tb.ia][idx]);
-      const float dh = g_d * 2.0f * (w.H0[tb.ib][idx] - w.H0[tb.ia][idx]);
-      c.cF[tb.ib][idx] = df;
-      c.cF[tb.ia][idx] = -df;
-      c.cH0[tb.ib][idx] = dh;
-      c.cH0[tb.ia][idx] = -dh;
+    const int nf = ef ? wd.L(0) : 0, ng = eg ? wd.L(1) : 0, np = nf > ng ? nf : ng;
+    // both lincombs in a phase of their own where the diffusion's input
+    // cotangent is not done a phase before the drift's
+    const bool tail = ef && eg && ng >= nf;
+    const bool last_f = ef && (!eg || nf > ng);  // whose epilogue ends the stage
+    sde_phases<Wd>(np, [&](int p) {
+      __syncthreads();
+      // the layers this phase pulls back
+      const int lf = wd.L(0) - 1 - p, lg = wd.L(1) - 1 - p;
+      const bool rf = ef && lf >= 0, rg = eg && lg >= 0;
+      const int lfc = lf >= 0 ? lf : 0, lgc = lg >= 0 ? lg : 0;
+      const int Kf = wd.in(0, lfc), Nf = wd.out(0, lfc), Kg = wd.in(1, lgc), Ng = wd.out(1, lgc);
+      // the layers' output cotangents (f32 and f64 rows) and inputs (f32 rows)
+      const bool topf = lfc == wd.L(0) - 1, topg = lgc == wd.L(1) - 1;
+      int hoff_f = 0, hoff_g = 0;  // layer l - 1's activations in a stage's record
+#pragma unroll
+      for (int m = 0; m < kMaxNetLayers; ++m) {
+        if (m + 1 < lfc) hoff_f += R * ((wd.out(0, m) + 3) & ~3);
+        if (m + 1 < lgc) hoff_g += R * ((wd.out(1, m) + 3) & ~3);
+      }
+      const float* gf = topf ? s.cF + i * n : s.ghf(0, lfc);
+      const float* gg = topg ? s.cG + i * n : s.ghf(1, lgc);
+      const int ldgf = topf ? D : ldf, ldgg = topg ? D : ldg;
+      const float* xf = lfc == 0 ? s.H0 + i * n : s.actf + i * hf + hoff_f;
+      const float* xg = lgc == 0 ? s.H1 + i * n : s.actg + i * hg + hoff_g;
+      const int ldxf = lfc == 0 ? D : ((wd.out(0, lfc - 1) + 3) & ~3);
+      const int ldxg = lgc == 0 ? D : ((wd.out(1, lgc - 1) + 3) & ~3);
+      if (rf)
+        sde_cw_layer(cw, sde_leaf_at(wd, 0, lfc), Kf, Nf, gf, ldgf, xf, ldxf,
+                     Pair::kCube && lfc == 0);
+      if (rg) sde_cw_layer(cw, sde_leaf_at(wd, 1, lgc), Kg, Ng, gg, ldgg, xg, ldxg, false);
+      const SdeLayer a = sde_layer(wsm, sde_layer_at(wd, 0, lfc), Kf, Nf,
+                                   topf ? s.cod(0, i) : s.gh(0, lfc),
+                                   topf ? ld0 : ldf, Nf);
+      const SdeLayer b = sde_layer(wsm, sde_layer_at(wd, 1, lgc), Kg, Ng,
+                                   topg ? s.cod(1, i) : s.gh(1, lgc),
+                                   topg ? ld0 : ldg, Ng);
+      if (rf)
+        sde_layer_items<false>(a, 0, [&](int r, int c, float v) {
+          if (lfc > 0) {  // the layer below's pre-activation cotangent: times tanh'
+            const float h = xf[r * ldxf + c];
+            const float gv = v * (1.0f - h * h);
+            s.ghf(0, lfc - 1)[r * ldf + c] = gv;
+            s.gh(0, lfc - 1)[r * ldf + c] = (double)gv;
+            return;
+          }
+          const int idx = r * D + c;
+          float cx = v;
+          if (Pair::kCube) {
+            const float x = s.H0[i * n + idx];
+            cx = cx * (3.0f * (x * x));
+          }
+          cx = cx + s.cH0[i * n + idx];
+          if (tail) {
+            s.cxf[idx] = cx;
+            return;
+          }
+          sde_lincomb_f(tb, s, i, idx, n, cx, dt);
+          if (last_f && i > 0) sde_cod(tb, s, i - 1, idx, r, c, n, ld0);
+        });
+      if (rg)
+        sde_layer_items<false>(b, sde_items_after<false>(rf, a), [&](int r, int c, float v) {
+          if (lgc > 0) {
+            const float h = xg[r * ldxg + c];
+            const float gv = v * (1.0f - h * h);
+            s.ghf(1, lgc - 1)[r * ldg + c] = gv;
+            s.gh(1, lgc - 1)[r * ldg + c] = (double)gv;
+            return;
+          }
+          const int idx = r * D + c;
+          if (tail) {
+            s.cxg[idx] = v;
+            return;
+          }
+          sde_lincomb_g(tb, s, i, idx, n, v, dt, sqdt);
+          if (!last_f && i > 0) sde_cod(tb, s, i - 1, idx, r, c, n, ld0);
+        });
+    });
+    if (tail) {
+      __syncthreads();
+      for (int idx = threadIdx.x; idx < n; idx += kThreads) {
+        sde_lincomb_g(tb, s, i, idx, n, s.cxg[idx], dt, sqdt);
+        sde_lincomb_f(tb, s, i, idx, n, s.cxf[idx], dt);
+        const int r = idx / D;
+        if (i > 0) sde_cod(tb, s, i - 1, idx, r, idx - r * D, n, ld0);
+      }
     }
-  }
-  // ---- y_new's and the error's stage weights (each element by its owner) ----
-  for (int idx = threadIdx.x; idx < n; idx += kThreads) {
-    const float cyn = c.cyn[idx], cerr = c.cerr[idx];
-    for (int i = 0; i < kStages; ++i) {
-      if (tb.alpha[i] != 0.0f) {
-        float* cf = c.cF[tb.f_src[i]];
-        cf[idx] = cf[idx] + (tb.alpha[i] * dt) * cyn;
-        part[1] += tb.alpha[i] * (w.F[tb.f_src[i]][idx] * cyn);
-      }
-      if (tb.dE[i] != 0.0f) {
-        float* cf = c.cF[tb.f_src[i]];
-        cf[idx] = cf[idx] + (tb.dE[i] * dt) * cerr;
-        part[1] += tb.dE[i] * (w.F[tb.f_src[i]][idx] * cerr);
-      }
-      const float gi = tb.g_src[i] >= 0 ? w.G[tb.g_src[i]][idx] : 0.0f;
-      if (tb.coef[i]) {
-        const float* b = tb.beta[i];
-        const float co = b[0] * w.dw[idx] + b[1] * w.i11[idx] + b[2] * w.i10[idx] +
-                         b[3] * w.i111[idx];
-        float* cg = c.cG[tb.g_src[i]];
-        cg[idx] = cg[idx] + co * cyn;
-        const float cc = gi * cyn;
-        c.cw[idx] += b[0] * cc;
-        c.ci11[idx] += b[1] * cc;
-        c.ci10[idx] += b[2] * cc;
-        c.ci111[idx] += b[3] * cc;
-      }
-      if (tb.en[i] != 0.0f) {
-        float* cg = c.cG[tb.g_src[i]];
-        cg[idx] = cg[idx] + (tb.en[i] * w.i10[idx]) * cerr;
-        c.ci10[idx] += tb.en[i] * (gi * cerr);
-      }
-    }
+    built = true;
   }
   __syncthreads();
-  // ---- reverse over the stages ----
-  const int hf = pr.hidden_floats(0), hg = pr.hidden_floats(1);
-  for (int i = kStages - 1; i >= 0; --i) {
-    if (tb.g_src[i] == i)
-      stage_pullback(pr, tb, wsm, cwsm, w, c, 1, i, w.H1[i], acts + kStages * hf + i * hg,
-                     c.cG[i], nullptr, n, dt, sc.sqdt, &part[1], &part[2]);
-    if (tb.f_src[i] == i)
-      stage_pullback(pr, tb, wsm, cwsm, w, c, 0, i, w.H0[i], acts + i * hf, c.cF[i],
-                     c.cH0[i], n, dt, sc.sqdt, &part[1], &part[2]);
-  }
+
   // ---- the Itô coefficients and the bridge ----
   const float inv_sqrt3 = 1.0f / 1.7320508075688772f;
+  float part[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};  // t, dt_eff, sqrt(dt_eff), frac, std
   for (int idx = threadIdx.x; idx < rows * D; idx += kThreads) {
-    const float dw = w.dw[idx], i11 = w.i11[idx], i111 = w.i111[idx];
-    const float c11 = c.ci11[idx], c111 = c.ci111[idx], c10 = c.ci10[idx];
-    const float cdw = c.cdw[idx] + c.cw[idx] + c11 * (dw / sc.sqdt) + 0.5f * c10 +
+    part[0] += s.ep0[idx];
+    part[1] += s.ep1[idx];
+    part[2] += s.ep2[idx];
+    const float dw = s.dw[idx], i11 = s.i11[idx], i111 = s.i111[idx];
+    const float c11 = s.ci11[idx], c111 = s.ci111[idx], c10 = s.ci10[idx];
+    const float cdw = s.cdw[idx] + s.cwi[idx] + c11 * (dw / sqdt) + 0.5f * c10 +
                       c111 * ((3.0f * dw * dw - 3.0f * dt) / (6.0f * dt));
-    const float cdz = c.cdz[idx] + (0.5f * inv_sqrt3) * c10;
-    part[1] += -c11 * (0.5f / sc.sqdt) + c111 * (-3.0f * dw / (6.0f * dt) - i111 / dt);
-    part[2] += -c11 * i11 / sc.sqdt;
-    part[3] += w.tw[idx] * cdw + w.tz[idx] * cdz;
-    part[4] += w.xw[idx] * cdw + w.xz[idx] * cdz;
+    const float cdz = s.cdz[idx] + (0.5f * inv_sqrt3) * c10;
+    part[1] += -c11 * (0.5f / sqdt) + c111 * (-3.0f * dw / (6.0f * dt) - i111 / dt);
+    part[2] += -c11 * i11 / sqdt;
+    part[3] += s.tw[idx] * cdw + s.tz[idx] * cdz;
+    part[4] += s.xw[idx] * cdw + s.xz[idx] * cdz;
     const size_t g = (size_t)row0 * D + idx;
-    ct_y[g] = c.cy[idx];
-    ct_tw[g] = c.ctw[idx] + sc.frac * cdw;
-    ct_tz[g] = c.ctz[idx] + sc.frac * cdz;
+    ct_y[g] = s.cy[idx];
+    ct_tw[g] = s.ctw[idx] + sc.frac * cdw;
+    ct_tz[g] = s.ctz[idx] + sc.frac * cdz;
   }
-  block_sum_to<5>(part, red, part_out);
+  block_sum_to<5>(part, s.red, part_out);
 }
 
-template <class Pair>
+template <class Pair, class Wd>
 struct SdeFwdArgs {
   const float* scalars;  // t0, t1, dt0
   const float* y0;
   Pair pair;
+  Wd wd;
   SriTab tab;
   const float* xi_w;  // (S, B, D)
   const float* xi_z;
@@ -647,22 +1026,23 @@ struct SdeFwdArgs {
 };
 
 // K9: the whole forward solve.
-template <class Pair>
-__global__ void __launch_bounds__(kThreads) sde_whole_solve_fwd_kernel(SdeFwdArgs<Pair> a) {
-  extern __shared__ float smem[];
+template <class Pair, class Wd>
+__global__ void __launch_bounds__(kThreads, 1) sde_whole_solve_fwd_kernel(SdeFwdArgs<Pair, Wd> a) {
+  extern __shared__ __align__(16) float smem[];
   __shared__ float s_t, s_dt, s_qold, s_h;
   __shared__ int s_na, s_nr, s_done, s_acc, s_inside, s_cur, s_lo, s_hi;
   cg::grid_group grid = cg::this_grid();
   constexpr int R = kSdeRows;
+  const Wd& wd = a.wd;
   const int ntiles = (a.B + R - 1) / R;
   const size_t BD = (size_t)a.B * a.D;
   const float t0 = a.scalars[0], t1 = a.scalars[1];
   const float span = t1 - t0;
   const float count = (float)BD;
-  float* wsm = smem;
-  float* tsm = smem + a.pair.padded_floats();
+  const float* wsm = smem;
+  const SdeTile s = sde_tile(wd, smem, a.D, false);
 
-  a.pair.load(wsm);
+  sde_load_leaves(a.pair.net, wd, smem);
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const int row0 = tile * R, n = min(R, a.B - row0) * a.D;
     for (int idx = threadIdx.x; idx < n; idx += kThreads) {
@@ -696,9 +1076,9 @@ __global__ void __launch_bounds__(kThreads) sde_whole_solve_fwd_kernel(SdeFwdArg
     const size_t cur = (size_t)i * BD, nxt = cur + BD;
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
       const int row0 = tile * R;
-      sde_fwd_tile(a.pair, a.tab, wsm, tsm, a.hy + cur, a.hw + cur, a.hz + cur, a.xi_w + cur,
-                   a.xi_z + cur, a.hy + nxt, a.hw + nxt, a.hz + nxt, row0,
-                   min(R, a.B - row0), a.D, sc, a.rtol, a.atol, part + 3 * tile);
+      sde_fwd_tile<Pair>(wd, a.tab, wsm, s, a.hy + cur, a.hw + cur, a.hz + cur,
+                         a.xi_w + cur, a.xi_z + cur, a.hy + nxt, a.hw + nxt, a.hz + nxt, row0,
+                         min(R, a.B - row0), a.D, sc, a.rtol, a.atol, part + 3 * tile);
     }
     grid.sync();
     if (threadIdx.x < 32) {
@@ -733,16 +1113,18 @@ __global__ void __launch_bounds__(kThreads) sde_whole_solve_fwd_kernel(SdeFwdArg
       }
     }
     __syncthreads();
+    // the fix-up: a rejected step keeps its state and takes dW, dZ as its
+    // new tail; an accepted one keeps the tail's remainder inside it (else
+    // none) and writes the saveat rows in its window
     const float hd = dt_eff == 0.0f ? 1.0f : dt_eff;
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
       const int row0 = tile * R, n = min(R, a.B - row0) * a.D;
       for (int idx = threadIdx.x; idx < n; idx += kThreads) {
         const size_t g = (size_t)row0 * a.D + idx;
-        if (!s_acc) {  // a rejected step keeps its state; dW, dZ are the new tail
+        if (!s_acc) {
           a.hy[nxt + g] = __ldcg(a.hy + cur + g);
           continue;
         }
-        // the accepted step's tail: the remainder inside it, else none
         a.hw[nxt + g] = s_inside ? __ldcg(a.hw + cur + g) - __ldcg(a.hw + nxt + g) : 0.0f;
         a.hz[nxt + g] = s_inside ? __ldcg(a.hz + cur + g) - __ldcg(a.hz + nxt + g) : 0.0f;
         const float y0v = __ldcg(a.hy + cur + g), y1v = __ldcg(a.hy + nxt + g);
@@ -769,7 +1151,7 @@ __global__ void __launch_bounds__(kThreads) sde_whole_solve_fwd_kernel(SdeFwdArg
   }
 }
 
-template <class Pair>
+template <class Pair, class Wd>
 struct SdeBwdArgs {
   const float* scalars;  // t0, t1
   const float* streams;  // (12, S), the forward's
@@ -777,6 +1159,7 @@ struct SdeBwdArgs {
   const float* hw;
   const float* hz;
   Pair pair;
+  Wd wd;
   SriTab tab;
   const float* xi_w;
   const float* xi_z;
@@ -796,10 +1179,12 @@ struct SdeBwdArgs {
   Ctrl ctrl;
 };
 
-// K10: the reverse walk over K9's ns trial steps.
-template <class Pair>
-__global__ void __launch_bounds__(kThreads) sde_whole_solve_bwd_kernel(SdeBwdArgs<Pair> a) {
-  extern __shared__ float smem[];
+// K10: the reverse walk over K9's ns trial steps. The leaves' cotangents
+// stay in the block's shared memory for the whole walk and reach its slot
+// once.
+template <class Pair, class Wd>
+__global__ void __launch_bounds__(kThreads, 1) sde_whole_solve_bwd_kernel(SdeBwdArgs<Pair, Wd> a) {
+  extern __shared__ __align__(16) float smem[];
   // running cotangents of t, dt, qold, tail_h, and the sums of those of t1, span
   __shared__ float s_ct[6];
   __shared__ PostGrads s_g;
@@ -808,6 +1193,7 @@ __global__ void __launch_bounds__(kThreads) sde_whole_solve_bwd_kernel(SdeBwdArg
   __shared__ int s_last, s_acc, s_lo, s_hi, s_rcur;
   cg::grid_group grid = cg::this_grid();
   constexpr int R = kSdeRows;
+  const Wd& wd = a.wd;
   const int ntiles = (a.B + R - 1) / R;
   const size_t BD = (size_t)a.B * a.D;
   const float t0 = a.scalars[0], t1 = a.scalars[1];
@@ -815,12 +1201,12 @@ __global__ void __launch_bounds__(kThreads) sde_whole_solve_bwd_kernel(SdeBwdArg
   const float count = (float)BD;
   const int S = a.S;
   const int cur0 = a.n_save ? a.cursors[0] : 0;
-  const int nleaf = a.pair.leaf_floats();
-  float* wsm = smem;
-  float* cwsm = smem + a.pair.padded_floats();
-  float* tsm = cwsm + nleaf;
-  a.pair.load(wsm);
-  for (int e = threadIdx.x; e < nleaf; e += kThreads) cwsm[e] = 0.0f;
+  const int nleaf = sde_leaf_floats(wd, 0) + sde_leaf_floats(wd, 1);
+  const float* wsm = smem;
+  float* cw = smem + sde_weight_floats(wd);
+  const SdeTile s = sde_tile(wd, smem, a.D, true);
+  sde_load_leaves(a.pair.net, wd, smem);
+  for (int e = threadIdx.x; e < nleaf; e += kThreads) cw[e] = 0.0f;
   if (threadIdx.x < 6) s_ct[threadIdx.x] = 0.0f;
   if (threadIdx.x == 0) s_rcur = a.n_save ? a.cursors[1] : 0;
   __syncthreads();
@@ -859,10 +1245,11 @@ __global__ void __launch_bounds__(kThreads) sde_whole_solve_bwd_kernel(SdeBwdArg
     const size_t cur = (size_t)i * BD;
     for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
       const int row0 = tile * R;
-      sde_bwd_tile(a.pair, a.tab, wsm, cwsm, tsm, a.hy + cur, a.hw + cur, a.hz + cur,
-                   a.xi_w + cur, a.xi_z + cur, a.hy + cur + BD, a.sa, a.ct_ys, s_lo, s_hi,
-                   s_ti, BD, a.ct_y, a.ct_tw, a.ct_tz, row0, min(R, a.B - row0), a.D, sc,
-                   s_acc, s_br.inside, s_g.e, s_g.n, s_g.d, a.rtol, a.atol, part + 5 * tile);
+      sde_bwd_tile<Pair>(wd, a.tab, wsm, cw, s, a.hy + cur, a.hw + cur, a.hz + cur,
+                         a.xi_w + cur, a.xi_z + cur, a.hy + cur + BD, a.sa, a.ct_ys, s_lo, s_hi,
+                         s_ti, BD, a.ct_y, a.ct_tw, a.ct_tz, row0, min(R, a.B - row0), a.D, sc,
+                         s_acc, s_br.inside, s_g.e, s_g.n, s_g.d, a.rtol, a.atol,
+                         part + 5 * tile);
     }
     grid.sync();
     if (threadIdx.x < 32) {
@@ -905,7 +1292,7 @@ __global__ void __launch_bounds__(kThreads) sde_whole_solve_bwd_kernel(SdeBwdArg
   }
   __syncthreads();
   float* slot = a.slots + (size_t)blockIdx.x * nleaf;
-  for (int e = threadIdx.x; e < nleaf; e += kThreads) slot[e] = cwsm[e];
+  for (int e = threadIdx.x; e < nleaf; e += kThreads) slot[e] = cw[e];
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     // span = t1 - t0
     a.ct_scalars[0] = s_ct[0] - s_ct[5];
@@ -917,32 +1304,40 @@ __global__ void __launch_bounds__(kThreads) sde_whole_solve_bwd_kernel(SdeBwdArg
 // The pair from a host array of leaf pointers and the widths [nf, ng, drift
 // widths (nf + 1), diffusion widths (ng + 1)]; false if a network has no
 // layer or more than kMaxNetLayers, or its ends are not D wide.
-bool pack_pair(const float* const* leaves, const int* widths, int D, MlpPair* pr) {
+bool pack_nets(const float* const* leaves, const int* widths, int D, MlpNet (&net)[2]) {
   const int L[2] = {widths[0], widths[1]};
   int w = 2, p = 0;
   for (int k = 0; k < 2; ++k) {
     if (L[k] < 1 || L[k] > kMaxNetLayers) return false;
-    MlpNet& n = pr->net[k];
+    MlpNet& n = net[k];
+    n = MlpNet{};
     n.L = L[k];
     for (int l = 0; l <= L[k]; ++l) n.w[l] = widths[w++];
     if (n.w[0] != D || n.w[L[k]] != D) return false;
-    for (int q = 0; q < 2 * L[k]; ++q) n.p[q] = leaves[p++];
+    for (int q = 0; q < 2 * L[k]; ++q) n.p[q] = leaves ? leaves[p++] : nullptr;
   }
   return true;
 }
 
-// The cubic pair's networks are laid out as the MLP pair's.
-bool pack_pair(const float* const* leaves, const int* widths, int D, CubicPair* pr) {
-  MlpPair m;
-  if (!pack_pair(leaves, widths, D, &m)) return false;
-  pr->net[0] = m.net[0];
-  pr->net[1] = m.net[1];
-  return true;
+// Whether the pair's compile-time instance (Pair::Fixed, its widths as
+// constants) runs these networks: drift D -> H -> D, diffusion D -> D at
+// that instance's D and H.
+template <class Pair>
+bool fixed_instance(const MlpNet (&net)[2], int D) {
+  using F = typename Pair::Fixed;
+  return D == F::kD && net[0].L == 2 && net[0].w[1] == F::kH && net[1].L == 1;
 }
 
 Ctrl make_ctrl(float beta1, float beta2, float qmin, float qmax, float gamma, float qoldinit,
                float qsteady_max) {
   return Ctrl{beta1, beta2, qmin, qmax, gamma, qoldinit, qsteady_max};
+}
+
+template <class Pair, class Wd>
+int sde_fwd_launch(SdeFwdArgs<Pair, Wd>& a, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (size_t)sde_smem_floats(a.wd, a.D, false);
+  return (int)launch_cooperative((const void*)sde_whole_solve_fwd_kernel<Pair, Wd>, &a, smem,
+                                 (a.B + kSdeRows - 1) / kSdeRows, stream, nullptr);
 }
 
 // K9 for the tile body Pair (the arguments of regnde_sde_whole_solve_fwd).
@@ -953,18 +1348,38 @@ int sde_fwd_entry(const float* scalars, const float* y0, const float* const* lea
                   float* hy, float* hw, float* hz, float* streams, float* final_,
                   float* partials, int B, int D, int S, int n_save, float rtol, float atol,
                   const Ctrl& ctrl, void* stream) {
-  SdeFwdArgs<Pair> a{};
-  if (!pack_pair(leaves, widths, D, &a.pair)) return (int)cudaErrorInvalidValue;
-  a.scalars = scalars; a.y0 = y0; a.tab = pack_tab(tab_f, tab_i);
-  a.xi_w = xi_w; a.xi_z = xi_z; a.sa = saveat; a.cursors = cursors; a.ys = ys;
-  a.n_save = n_save; a.y1 = y1; a.hy = hy; a.hw = hw; a.hz = hz; a.streams = streams;
-  a.final_ = final_; a.partials = partials; a.B = B; a.D = D; a.S = S;
-  a.rtol = rtol; a.atol = atol; a.ctrl = ctrl;
-  const size_t smem =
-      sizeof(float) * ((size_t)a.pair.padded_floats() + sde_fwd_tile_floats(a.pair, D));
-  return (int)launch_cooperative((const void*)sde_whole_solve_fwd_kernel<Pair>, &a, smem,
-                                 (B + kSdeRows - 1) / kSdeRows,
-                                 static_cast<cudaStream_t>(stream), nullptr);
+  Pair pair{};
+  if (!pack_nets(leaves, widths, D, pair.net)) return (int)cudaErrorInvalidValue;
+  auto fill = [&](auto& a) {
+    a.scalars = scalars; a.y0 = y0; a.pair = pair; a.tab = pack_tab(tab_f, tab_i);
+    a.xi_w = xi_w; a.xi_z = xi_z; a.sa = saveat; a.cursors = cursors; a.ys = ys;
+    a.n_save = n_save; a.y1 = y1; a.hy = hy; a.hw = hw; a.hz = hz; a.streams = streams;
+    a.final_ = final_; a.partials = partials; a.B = B; a.D = D; a.S = S;
+    a.rtol = rtol; a.atol = atol; a.ctrl = ctrl;
+  };
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (fixed_instance<Pair>(pair.net, D)) {
+    SdeFwdArgs<Pair, typename Pair::Fixed> a{};
+    fill(a);
+    return sde_fwd_launch(a, s);
+  }
+  SdeFwdArgs<Pair, DynWidths> a{};
+  fill(a);
+  a.wd = dyn_widths(pair.net);
+  return sde_fwd_launch(a, s);
+}
+
+template <class Pair, class Wd>
+int sde_bwd_launch(SdeBwdArgs<Pair, Wd>& a, float* out, cudaStream_t stream) {
+  const size_t smem = sizeof(float) * (size_t)sde_smem_floats(a.wd, a.D, true);
+  int grid = 0;
+  cudaError_t e = launch_cooperative((const void*)sde_whole_solve_bwd_kernel<Pair, Wd>, &a, smem,
+                                     (a.B + kSdeRows - 1) / kSdeRows, stream, &grid);
+  if (e != cudaSuccess) return (int)e;
+  const int width = sde_leaf_floats(a.wd, 0) + sde_leaf_floats(a.wd, 1);
+  sum_slots_kernel<<<(width + kThreads - 1) / kThreads, kThreads, 0, stream>>>(a.slots, grid,
+                                                                             width, out);
+  return (int)cudaGetLastError();
 }
 
 // K10 for the tile body Pair, then the sum of its blocks' leaf-cotangent
@@ -977,25 +1392,26 @@ int sde_bwd_entry(const float* scalars, const float* streams, const float* hy,
                   const float* ct_tel, float* ct_y, float* ct_tw, float* ct_tz, float* out,
                   float* ct_scalars, float* partials, float* slots, int ns, int B, int D, int S,
                   int n_save, float rtol, float atol, const Ctrl& ctrl, void* stream) {
-  SdeBwdArgs<Pair> a{};
-  if (!pack_pair(leaves, widths, D, &a.pair)) return (int)cudaErrorInvalidValue;
+  Pair pair{};
+  if (!pack_nets(leaves, widths, D, pair.net)) return (int)cudaErrorInvalidValue;
+  auto fill = [&](auto& a) {
+    a.scalars = scalars; a.streams = streams; a.hy = hy; a.hw = hw; a.hz = hz; a.pair = pair;
+    a.tab = pack_tab(tab_f, tab_i); a.xi_w = xi_w; a.xi_z = xi_z; a.sa = saveat;
+    a.cursors = cursors; a.ct_ys = ct_ys; a.n_save = n_save; a.ct_tel = ct_tel; a.ct_y = ct_y;
+    a.ct_tw = ct_tw; a.ct_tz = ct_tz; a.ct_scalars = ct_scalars; a.partials = partials;
+    a.slots = slots; a.ns = ns; a.B = B; a.D = D; a.S = S; a.rtol = rtol; a.atol = atol;
+    a.ctrl = ctrl;
+  };
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  a.scalars = scalars; a.streams = streams; a.hy = hy; a.hw = hw; a.hz = hz;
-  a.tab = pack_tab(tab_f, tab_i); a.xi_w = xi_w; a.xi_z = xi_z; a.sa = saveat;
-  a.cursors = cursors; a.ct_ys = ct_ys; a.n_save = n_save; a.ct_tel = ct_tel; a.ct_y = ct_y;
-  a.ct_tw = ct_tw; a.ct_tz = ct_tz; a.ct_scalars = ct_scalars; a.partials = partials;
-  a.slots = slots; a.ns = ns; a.B = B; a.D = D; a.S = S; a.rtol = rtol; a.atol = atol;
-  a.ctrl = ctrl;
-  const size_t smem = sizeof(float) * ((size_t)a.pair.padded_floats() + a.pair.leaf_floats() +
-                                       sde_bwd_tile_floats(a.pair, D));
-  int grid = 0;
-  cudaError_t e = launch_cooperative((const void*)sde_whole_solve_bwd_kernel<Pair>, &a, smem,
-                                     (B + kSdeRows - 1) / kSdeRows, s, &grid);
-  if (e != cudaSuccess) return (int)e;
-  const int width = a.pair.leaf_floats();
-  sum_slots_kernel<<<(width + kThreads - 1) / kThreads, kThreads, 0, s>>>(slots, grid, width,
-                                                                        out);
-  return (int)cudaGetLastError();
+  if (fixed_instance<Pair>(pair.net, D)) {
+    SdeBwdArgs<Pair, typename Pair::Fixed> a{};
+    fill(a);
+    return sde_bwd_launch(a, out, s);
+  }
+  SdeBwdArgs<Pair, DynWidths> a{};
+  fill(a);
+  a.wd = dyn_widths(pair.net);
+  return sde_bwd_launch(a, out, s);
 }
 
 }  // namespace
@@ -1003,6 +1419,26 @@ int sde_bwd_entry(const float* scalars, const float* streams, const float* hy,
 extern "C" {
 
 int regnde_sde_rows() { return kSdeRows; }
+int regnde_sde_chain() { return kSdeChain; }
+int regnde_sde_threads() { return kThreads; }
+
+// Whether K9 and K10 run the pair of these widths ([nf, ng, drift widths,
+// diffusion widths], as regnde_sde_whole_solve_fwd takes them; the cubic
+// pair where cubic) on its compile-time instance, its widths as constants
+// (1), or on the generic one (0); -1 for widths the kernels refuse.
+int regnde_sde_fixed_instance(const int* widths, int D, int cubic) {
+  MlpNet net[2];
+  if (!pack_nets(nullptr, widths, D, net)) return -1;
+  return (cubic ? fixed_instance<CubicPair>(net, D) : fixed_instance<MlpPair>(net, D)) ? 1 : 0;
+}
+
+// Bytes of dynamic shared memory of a K9 (bwd 0) or K10 (bwd 1) block at
+// these widths; -1 for widths the kernels refuse.
+int regnde_sde_smem_bytes(const int* widths, int D, int bwd) {
+  MlpNet net[2];
+  if (!pack_nets(nullptr, widths, D, net)) return -1;
+  return (int)sizeof(float) * sde_smem_floats(dyn_widths(net), D, bwd != 0);
+}
 
 // K9 for the MLP pair. scalars: (3,) t0, t1, dt0 (float32). leaves: host
 // array of device pointers, the drift's (W, b) per layer then the

@@ -61,6 +61,10 @@ _SIGNATURES = {
     "regnde_whole_solve_csl_fwd": [_P] * 4 + [_I] + [_P] * 9 + [_I] * 5 + [_F] * 9 + [_P],
     "regnde_whole_solve_csl_bwd": [_P] * 5 + [_I] + [_P] * 12 + [_I] * 6 + [_F] * 9 + [_P],
     "regnde_sde_rows": [],
+    "regnde_sde_chain": [],
+    "regnde_sde_threads": [],
+    "regnde_sde_fixed_instance": [_P, _I, _I],
+    "regnde_sde_smem_bytes": [_P, _I, _I],
     "regnde_sde_whole_solve_fwd": [_P] * 18 + [_I] * 4 + [_F] * 9 + [_P],
     "regnde_sde_whole_solve_bwd": [_P] * 22 + [_I] * 5 + [_F] * 9 + [_P],
     "regnde_sde_whole_solve_cubic_fwd": [_P] * 18 + [_I] * 4 + [_F] * 9 + [_P],

@@ -4,7 +4,7 @@ Counterpart of ``regneuralde_tpu/ops/pallas_sde.py``: ``whole_solve_sdeint``
 runs the whole adaptive SDE solve of a drift/diffusion pair in one forward
 launch (K9, ``sde_whole_solve_fwd_kernel`` in ``csrc/sde_whole_solve.cu``)
 and one backward launch (K10, the reverse walk of K9's history). Two pairs,
-the kernels' tile bodies, chosen by ``body``:
+chosen by ``body``:
 
 - ``"mlp"``: an MLP drift and an MLP diffusion (``models.MLP``, tanh between
   layers, linear out, no time input; the MNIST Neural SDE's pair),
@@ -12,6 +12,17 @@ the kernels' tile bodies, chosen by ``body``:
 - ``"cubic"``: the drift's MLP applied to ``x * x * x`` (``models.
   CubicDrift``, the toy 2-D SDE's ``x -> x^3 -> 50 tanh -> 2``) and an MLP
   diffusion, ``csrc/sri_cubic.cuh``'s ``CubicPair``.
+
+Both pairs run one forward tile body (K9's, and K10's recompute) and one
+reverse tile body (K10's) on tiles of ``SDE_ROWS`` rows: each layer one
+phase, a stage's drift and diffusion layers side by side, each f64 sum split
+over lanes (``sde_lanes``); each pair's own widths (``FIXED_WIDTHS``: the
+MNIST NSDE's and the toy's) are a compile-time instance, every other pair
+the generic one. ``sde_tile_plan``
+mirrors the kernels' sizes (``check_sde_plan`` holds it to the library's);
+the wrappers size their launches from it. ``plain_sde_bwd_tiles`` is K10's
+order of sums in plain PyTorch (tests only: on the card K10's outputs are
+its bitwise).
 
 The forward's record (``SDERecord``) is what the backward reads: per trial
 step its start ``t, dt, qold, tail_h``, the three sums of squares (scaled
@@ -36,8 +47,9 @@ a ragged row tile.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
-from typing import NamedTuple, Optional, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -591,6 +603,560 @@ def plain_sde_whole_solve_bwd(rec: SDERecord, ns: int, ct_y1, ct_tel, t0, t1, le
 
 
 # ---------------------------------------------------------------------------
+# The kernels' tile plan and K10's order of sums.
+# ---------------------------------------------------------------------------
+
+SDE_ROWS = 4       # csrc/sri_mlp.cuh kSdeRows: rows of the batch a tile
+SDE_CHAIN = 8      # kSdeChain: most terms of one lane's share of a sum
+SDE_THREADS = 256  # threads a block
+SMEM_LIMIT = 232448  # bytes of shared memory a block can use on the H100
+# the widths each pair's compile-time instance runs (csrc Pair::Fixed)
+FIXED_WIDTHS = {"mlp": ((32, 64, 32), (32, 32)), "cubic": ((2, 50, 2), (2, 2))}
+
+
+def _pad4(n):
+    return -(-n // 4) * 4
+
+
+def sde_lanes(n):
+    """Lanes of a warp that share one sum of ``n`` terms in the kernels
+    (``1 << sde_split_lg(n)``): the fewest, a power of two up to 32, that
+    leave each lane at most ``SDE_CHAIN`` terms."""
+    s = 1
+    while s < 32 and -(-n // s) > SDE_CHAIN:
+        s *= 2
+    return s
+
+
+class SDEPlan(NamedTuple):
+    """K9's and K10's tile bodies at a batch and a pair's widths: ``rows`` a
+    tile, ``tiles`` (the blocks, one tile each where the card holds them),
+    per network and layer the lanes that share an output's sum forward
+    (``fwd_lanes``) and an input cotangent's in the reverse
+    (``bwd_lanes``), at most ``terms`` a lane (up to 32 lanes), each
+    kernel's shared memory a block, the floats of K10's leaf cotangents
+    held in it (``cw_smem``), and whether the pair's compile-time instance
+    (``FIXED_WIDTHS``, its widths as constants) runs it."""
+    rows: int
+    tiles: int
+    fwd_lanes: Tuple
+    bwd_lanes: Tuple
+    terms: int
+    fwd_smem_bytes: int
+    bwd_smem_bytes: int
+    cw_smem: int
+    fixed_instance: bool
+
+
+def _net_widths(widths) -> Tuple:
+    """``((drift widths), (diffusion widths))`` from ``_pair_widths``'
+    ``[nf, ng, drift widths, diffusion widths]``."""
+    w = [int(x) for x in widths]
+    nf, ng = w[0], w[1]
+    return tuple(w[2:3 + nf]), tuple(w[3 + nf:4 + nf + ng])
+
+
+def sde_tile_plan(B, widths, body="mlp") -> SDEPlan:
+    """``csrc/sde_whole_solve.cu``'s sizes (``sde_smem_floats``,
+    ``sde_tile_floats``) at batch ``B`` for the pair of ``widths =
+    (drift widths, diffusion widths)``; raises ``ValueError`` for a network
+    of no layer or more than ``MAX_LAYERS``, ends other than the state's
+    width, or shared memory past ``SMEM_LIMIT``."""
+    _check_body(body)
+    nets = tuple(tuple(int(x) for x in w) for w in widths)
+    for w in nets:
+        if not 1 <= len(w) - 1 <= MAX_LAYERS:
+            raise ValueError(f"each network takes 1 to {MAX_LAYERS} layers")
+    D = nets[0][0]
+    if any(w[0] != D or w[-1] != D for w in nets):
+        raise ValueError(f"each network must end at the state's width {D}")
+    R = SDE_ROWS
+    layers = [(w[l], w[l + 1]) for w in nets for l in range(len(w) - 1)]
+    weights = sum(n_out * (_pad4(n_in) + 4) + _pad4(n_out) for n_in, n_out in layers)
+    part = lambda floats: _pad4(floats) if floats > 0 else 4  # csrc SdeCarve's share
+    n, p0 = R * D, R * _pad4(D)
+    ph = [R * _pad4(max(w[1:-1], default=0)) for w in nets]  # the widest hidden layer
+    hidden = [sum(R * _pad4(w[l + 1]) for l in range(len(w) - 2)) for w in nets]
+    # f64 rows: layer inputs by parity; the reverse's output and hidden
+    # cotangents (f64, and f32 copies) take the recompute's place
+    rows64 = 4 * part(2 * p0) + sum(2 * part(2 * h) for h in ph)
+    rows_bwd = rows64 + sum(2 * part(h) for h in ph)
+    rest = (26 * n + part(4 * hidden[0]) + part(4 * hidden[1])
+            + part(5 * SDE_THREADS // 32))
+    fwd_tile = rows64 + rest
+    bwd_tile = max(rows64, rows_bwd) + rest + 28 * n
+    nleaf = sum(n_out * n_in + n_out for n_in, n_out in layers)
+    fwd = 4 * (weights + 4 + fwd_tile)
+    bwd = 4 * (weights + 4 + _pad4(nleaf) + bwd_tile)
+    if max(fwd, bwd) > SMEM_LIMIT:
+        raise ValueError(f"the SDE kernels' tile bodies hold at most {SMEM_LIMIT} bytes of "
+                         f"shared memory; widths {nets} need {max(fwd, bwd)}")
+    lanes = lambda at: tuple(tuple(sde_lanes(w[l + at]) for l in range(len(w) - 1))
+                             for w in nets)
+    return SDEPlan(R, -(-B // R), lanes(0), lanes(1), SDE_CHAIN, fwd, bwd, nleaf,
+                   nets == FIXED_WIDTHS[body])
+
+
+@functools.lru_cache(maxsize=16)
+def check_sde_plan(lib, widths: Tuple, body="mlp") -> SDEPlan:
+    """``sde_tile_plan`` held to the library's constants and sizes (once a
+    pair of widths)."""
+    plan = sde_tile_plan(0, _net_widths(widths), body)
+    w = (ctypes.c_int * len(widths))(*widths)
+    D, cubic = widths[2], int(body == "cubic")
+    if (lib.regnde_sde_rows() != SDE_ROWS or lib.regnde_sde_chain() != SDE_CHAIN
+            or lib.regnde_sde_threads() != SDE_THREADS
+            or lib.regnde_sde_smem_bytes(w, D, 0) != plan.fwd_smem_bytes
+            or lib.regnde_sde_smem_bytes(w, D, 1) != plan.bwd_smem_bytes
+            or lib.regnde_sde_fixed_instance(w, D, cubic) != int(plan.fixed_instance)):
+        raise RuntimeError("sde_tile_plan disagrees with csrc/sde_whole_solve.cu's sizes")
+    return plan
+
+
+def _split_sum(x, w, lanes, bias=None):
+    """``x @ w.T (+ bias)`` in the kernels' order of sums: lane ``s`` of
+    ``lanes`` adds, in float64 from the bias (lane 0) or zero, ``x[:, k]
+    w[:, k]`` for ``k = s, s + lanes, ...`` in that order (each product of
+    two float32 values exact in float64, so each addition is the kernel's
+    FMA), a butterfly adds the lanes' partials pairwise, and the sum is
+    rounded once to ``x``'s type."""
+    xd, wd = x.double(), w.double()
+    parts = []
+    for s in range(lanes):
+        acc = (bias.double().expand(xd.shape[0], -1) if bias is not None and s == 0
+               else xd.new_zeros(xd.shape[0], wd.shape[0]))
+        for k in range(s, xd.shape[1], lanes):
+            acc = acc + xd[:, k, None] * wd[None, :, k]
+        parts.append(acc)
+    while len(parts) > 1:
+        parts = [parts[j] + parts[j + 1] for j in range(0, len(parts), 2)]
+    return parts[0].to(x.dtype)
+
+
+def _mlp_tiles(x, layers):
+    """``_mlp_fwd`` in the kernels' order of sums: the hidden activations
+    and the output."""
+    h, hidden = x, []
+    for l, (W, b) in enumerate(layers):
+        v = _split_sum(h, W, sde_lanes(W.shape[1]), b)
+        if l == len(layers) - 1:
+            return hidden, v
+        h = torch.tanh(v)
+        hidden.append(h)
+
+
+def _sign_of(x):
+    """The kernels' ``sign_of``: 1, -1, or 0 (also for -0)."""
+    one = torch.ones_like(x)
+    return torch.where(x > 0, one, torch.where(x < 0, -one, torch.zeros_like(x)))
+
+
+def _warp_sum(v):
+    """A warp's sum of ``v[..., :32]`` as the kernels' xor butterfly adds it
+    (every lane ends with lane 0's bits)."""
+    for off in (16, 8, 4, 2, 1):
+        v = v[..., :off] + v[..., off:2 * off]
+    return v[..., 0]
+
+
+class _Consts:
+    """The scalars K10's thread 0 and its rows take, as 0-d tensors of the
+    working type (so every operation is a tensor-tensor one: ATen
+    multiplies by the reciprocal of a Python divisor)."""
+
+    def __init__(self, tab, ctrl, rtol, atol, dtype, dev):
+        c = lambda x: torch.tensor(float(x), dtype=dtype, device=dev)
+        self.c = c
+        self.zero, self.one, self.half, self.two = c(0), c(1), c(0.5), c(2)
+        self.three, self.six = c(3), c(6)
+        self.tiny, self.floor = c(1e-30), c(_EEST_FLOOR)
+        self.inv_sqrt3 = self.one / c(math.sqrt(3.0))
+        self.rtol, self.atol = c(rtol), c(atol)
+        self.beta1, self.beta2, self.qmin, self.qmax, self.gamma = (
+            c(ctrl.beta1), c(ctrl.beta2), c(ctrl.qmin), c(ctrl.qmax), c(ctrl.gamma))
+        self.qoldinit, self.qsteady = c(ctrl.qoldinit), c(ctrl.qsteady_max)
+        self.qsteady_on = float(self.qsteady) > 1.0
+        m = lambda rows: [[c(x) for x in r] for r in rows]
+        self.A0, self.A1, self.B0, self.B1 = m(tab.A0), m(tab.A1), m(tab.B0), m(tab.B1)
+        self.alpha = [c(x) for x in tab.alpha]
+        self.beta = [[c(b[i]) for b in (tab.beta1, tab.beta2, tab.beta3, tab.beta4)]
+                     for i in range(tab.stages)]
+        self.dE = [c(tab.delta * e) for e in tab.e_drift]
+        self.en = [c(e) for e in tab.e_noise]
+
+
+def _mg(a, b, g, k, less=False):
+    """Autograd's pullback of ``maximum(a, b)`` (``minimum`` where
+    ``less``) to ``a``, as the kernels' ``max_grad``/``min_grad``."""
+    win = bool(a < b) if less else bool(a > b)
+    return g if win else (g / k.two if bool(a == b) else k.zero)
+
+
+def _k_post_bwd(k, count, dt_eff, qold, e, n, d, span, is_last, accept, c_tnew, c_dtn, c_qn,
+                c_tend, c_eest, c_eig):
+    """``csrc/sde_whole_solve.cu`` ``sde_post_bwd`` op by op:
+    ``(t, dt_eff, qold, e, n, d, t1, span)`` cotangents."""
+    z = k.zero
+    pe, pn, pd = bool(e > 0), bool(n > 0), bool(d > 0)
+    eest = torch.sqrt(e / count) if pe else z
+    num = torch.sqrt(n / count) if pn else z
+    den = torch.sqrt(d / count) if pd else z
+    mden = torch.maximum(den, k.tiny)
+    es = torch.maximum(eest, k.floor)
+    q11 = torch.pow(es, k.beta1)
+    qb = torch.pow(qold, k.beta2)
+    q = q11 / qb
+    qg = q / k.gamma
+    lo, hi = k.one / k.qmax, k.one / k.qmin
+    mx = torch.maximum(qg, lo)
+    qa0 = torch.minimum(mx, hi)
+    in_band = k.qsteady_on and bool(qa0 >= 1.0) and bool(qa0 <= k.qsteady)
+    qa = k.one if in_band else qa0
+    r = q11 / k.gamma
+    q_rej = torch.minimum(hi, r)
+    dt0 = dt_eff / qa if accept else dt_eff / q_rej
+    g_tend = c_tend + (c_tnew if accept else z)
+    g_t = z if accept else c_tnew
+    g_t1 = g_tend if is_last else z
+    g_lin = z if is_last else g_tend
+    g_t = g_t + g_lin
+    g_dteff = g_lin
+    g_dt0 = _mg(dt0, span, c_dtn, k, less=True)
+    g_span = _mg(span, dt0, c_dtn, k, less=True)
+    g_qold = z if accept else c_qn
+    g_eest = c_eest + _mg(eest, k.qoldinit, c_qn if accept else z, k)
+    g_acc = g_dt0 if accept else z
+    g_rej = z if accept else g_dt0
+    g_dteff = g_dteff + g_acc / qa + g_rej / q_rej
+    g_qa = -g_acc * ((dt_eff / qa) / qa)
+    g_qrej = -g_rej * ((dt_eff / q_rej) / q_rej)
+    g_q11 = _mg(r, hi, g_qrej, k, less=True) / k.gamma
+    g_qa0 = z if in_band else g_qa
+    g_q = _mg(qg, lo, _mg(mx, hi, g_qa0, k, less=True), k) / k.gamma
+    g_q11 = g_q11 + g_q / qb
+    g_qb = -g_q * ((q11 / qb) / qb)
+    g_qold = g_qold + g_qb * (k.beta2 * torch.pow(qold, k.beta2 - k.one))
+    g_es = g_q11 * (k.beta1 * torch.pow(es, k.beta1 - k.one))
+    g_eest = g_eest + _mg(eest, k.floor, g_es, k)
+    g_ratio = c_eig if bool(den > 0) else z
+    g_num = g_ratio / mden
+    g_den = _mg(den, k.tiny, -g_ratio * ((num / mden) / mden), k)
+    g_e = (g_eest / (k.two * eest)) / count if pe else z
+    g_n = (g_num / (k.two * num)) / count if pn else z
+    g_d = (g_den / (k.two * den)) / count if pd else z
+    return g_t, g_dteff, g_qold, g_e, g_n, g_d, g_t1, g_span
+
+
+def _k_bridge(k, dt_eff, h):
+    """``bridge_of``: ``(inside, safe_h, frac, var0, var, std)``."""
+    safe_h = torch.maximum(h, k.tiny)
+    inside = bool(dt_eff < h)
+    frac = dt_eff / safe_h if inside else k.one
+    var0 = dt_eff * (h - dt_eff) / safe_h if inside else torch.maximum(dt_eff - h, k.zero)
+    var = torch.maximum(var0, k.zero)
+    std = torch.sqrt(var) if bool(var > 0) else k.zero
+    return inside, safe_h, frac, var0, var, std
+
+
+def _k_bridge_bwd(k, br, dt_eff, h, g_frac, g_std, g_dteff, g_h):
+    """``bridge_bwd``: the updated ``(g_dteff, g_h)``."""
+    inside, safe_h, _, var0, var, std = br
+    z = k.zero
+    gd = g_frac / safe_h if inside else z
+    g_safe = -g_frac * ((dt_eff / safe_h) / safe_h) if inside else z
+    g_var = g_std / (k.two * std) if bool(var > 0) else z
+    g_var0 = _mg(var0, z, g_var, k)
+    g_p = g_var0 / safe_h if inside else z
+    p = dt_eff * (h - dt_eff)
+    g_safe = g_safe - (g_var0 * ((p / safe_h) / safe_h) if inside else z)
+    gd = gd + g_p * (h - dt_eff) - g_p * dt_eff
+    gh = g_p * dt_eff
+    g_m = _mg(dt_eff - h, z, z if inside else g_var0, k)
+    return g_dteff + (gd + g_m), g_h + (gh - g_m + _mg(h, k.tiny, g_safe, k))
+
+
+def plain_sde_bwd_tiles(rec: SDERecord, ns: int, ct_y1, ct_tel, t0, t1, leaves, rtol, atol,
+                        ctrl: PIController, xi_w, xi_z, *, n_drift: int, solver="sosri",
+                        saveat=None, ct_ys=None, body="mlp", blocks=None):
+    """K10 (``csrc/sde_whole_solve.cu`` ``sde_bwd_tile`` and its kernel) in
+    its own order of sums, in plain PyTorch: the reverse walk of
+    ``plain_sde_whole_solve_bwd`` with the row pullback on tiles of
+    ``SDE_ROWS`` rows as the kernel runs it: the recompute's affine maps and
+    the input cotangents' sums split over lanes in float64
+    (``_split_sum``), every row operation as the kernel orders it, each
+    leaf cotangent over a tile's rows in order, stage after stage, trial
+    step after trial step, in one slot a block (``blocks``, one tile each
+    by default) and the slots summed in block order, the scalar partials
+    over the kernel's threads, warps and tiles, and thread 0's scalar
+    chain op by op. Same arguments and outputs as
+    ``plain_sde_whole_solve_bwd``. For the tests: on the card K10's outputs
+    equal these bitwise (the card's ATen ops round as the kernel's; on the
+    CPU, ``pow`` and ``tanh`` may round otherwise)."""
+    _check_body(body)
+    tab = get_tableau(solver)
+    an = analyze(tab)
+    s_ = tab.stages
+    dev, dt_ = ct_y1.device, ct_y1.dtype
+    k = _Consts(tab, ctrl, rtol, atol, dt_, dev)
+    f_src = [(-1 if not an.f_used[i] else (i if an.f_alias[i] is None else an.f_alias[i]))
+             for i in range(s_)]
+    g_src = [(-1 if not an.g_used[i] else (i if an.g_alias[i] is None else an.g_alias[i]))
+             for i in range(s_)]
+    coef = [an.g_used[i] and any(b[i] != 0.0 for b in (tab.beta1, tab.beta2, tab.beta3,
+                                                        tab.beta4)) for i in range(s_)]
+    ia, ib = eigen_stages(tab)
+    R = SDE_ROWS
+    B, D = ct_y1.shape
+    ntiles = -(-B // R)
+    Bp = ntiles * R
+    grid = ntiles if blocks is None else blocks
+    pad = lambda x: torch.cat([x, x.new_zeros((Bp - B,) + tuple(x.shape[1:]))]) if Bp > B else x
+    valid = (torch.arange(Bp, device=dev) < B)[:, None].expand(Bp, D)
+    mask = lambda x: torch.where(valid, x, torch.zeros_like(x))
+    nets = split_pair(leaves, n_drift)
+    cw = [[[torch.zeros((grid,) + tuple(x.shape), dtype=dt_, device=dev) for x in layer]
+           for layer in net] for net in nets]
+    rounds = -(-ntiles // grid)
+
+    def add_cw(c, g, x):
+        """Each block's weight (c[0]) and bias (c[1]) cotangents over its
+        tiles' rows in order: c + g x and c + g, each rounded."""
+        gt, xt = g.reshape(ntiles, R, -1), x.reshape(ntiles, R, -1)
+        for m in range(rounds):
+            tiles = torch.arange(m * grid, min((m + 1) * grid, ntiles), device=dev)
+            nb = len(tiles)
+            for r in range(R):
+                c[0][:nb] = c[0][:nb] + gt[tiles, r, :, None] * xt[tiles, r, None, :]
+                c[1][:nb] = c[1][:nb] + gt[tiles, r, :]
+
+    def net_bwd(q, c_out, hidden, x):
+        """Network q's pullback from its output cotangent: the leaves'
+        cotangents into cw[q], the input's (x: the network's input)."""
+        layers = nets[q]
+        g = c_out
+        for l in range(len(layers) - 1, -1, -1):
+            W = layers[l][0]
+            add_cw(cw[q][l], g, x if l == 0 else hidden[l - 1])
+            cin = _split_sum(g, W.t(), sde_lanes(W.shape[0]))
+            if l == 0:
+                return cin
+            h = hidden[l - 1]
+            g = cin * (k.one - h * h)
+
+    t0, t1 = t0.to(dt_), t1.to(dt_)
+    span = t1 - t0
+    count = k.c(B * D)
+    z = k.zero
+    ct = [z] * 6  # t, dt, qold, tail_h; the sums of the cotangents of t1, span
+    ct_y, ct_tw, ct_tz = pad(ct_y1), pad(torch.zeros_like(ct_y1)), pad(torch.zeros_like(ct_y1))
+    n_save = 0 if saveat is None else saveat.shape[0]
+    ct_ys = rec.ys.new_zeros((0, B, D)) if not n_save else ct_ys.clone()
+    cur0, curf = (int(v) for v in rec.cursors.tolist()) if n_save else (0, 0)
+    rcur = curf
+    st = rec.streams
+    for j in range(ns):
+        i = ns - 1 - j
+        # ---- thread 0: the scalar chain's pullback and the step's scalars ----
+        t_i, dt_i, h_i = st[ST_T, i], st[ST_DT, i], st[ST_H, i]
+        is_last = bool(dt_i >= t1 - t_i)
+        dt = t1 - t_i if is_last else dt_i
+        acc = bool(st[ST_ACC, i] > 0.5)
+        g = _k_post_bwd(k, count, dt, st[ST_QOLD, i], st[ST_E, i], st[ST_N, i], st[ST_D, i],
+                        span, is_last, acc, ct[0], ct[1], ct[2], ct_tel[0, i], ct_tel[2, i],
+                        ct_tel[3, i])
+        br = _k_bridge(k, dt, h_i)
+        inside, frac, std = br[0], br[2], br[5]
+        sqdt = torch.sqrt(dt)
+        lo = rcur
+        if acc:
+            while lo > cur0 and bool(saveat[lo - 1] - t_i > 0):
+                lo -= 1
+        hi, rcur = rcur, lo
+        # ---- the rows: K9's load and stages ----
+        y, tw, tz = pad(rec.hy[i]), pad(rec.hw[i]), pad(rec.hz[i])
+        xw, xz = pad(xi_w[i]), pad(xi_z[i])
+        dw, dz = frac * tw + std * xw, frac * tz + std * xz
+        i11 = k.half * (dw * dw - dt) / sqdt
+        i10 = k.half * (dw + dz * k.inv_sqrt3)
+        i111 = (dw * dw * dw - (k.three * dt) * dw) / (k.six * dt)
+        F, G, H0, H1, hf, hg = ([None] * s_ for _ in range(6))
+        for q in range(s_):
+            if f_src[q] == q:
+                h = y
+                for jj in range(q):
+                    if tab.A0[q][jj] != 0.0:
+                        h = h + (k.A0[q][jj] * dt) * F[f_src[jj]]
+                    if tab.B0[q][jj] != 0.0:
+                        h = h + (k.B0[q][jj] * i10) * G[g_src[jj]]
+                H0[q] = h
+                hf[q], F[q] = _mlp_tiles(h * h * h if body == "cubic" else h, nets[0])
+            if g_src[q] == q:
+                h = y
+                for jj in range(q):
+                    if tab.A1[q][jj] != 0.0:
+                        h = h + (k.A1[q][jj] * dt) * F[f_src[jj]]
+                    if tab.B1[q][jj] != 0.0:
+                        h = h + (k.B1[q][jj] * sqdt) * G[g_src[jj]]
+                H1[q] = h
+                hg[q], G[q] = _mlp_tiles(h, nets[1])
+        # ---- seeds, then y_new's and the error's stage weights ----
+        cy = z.expand(Bp, D) if acc else ct_y
+        cyn = ct_y if acc else z.expand(Bp, D)
+        cdw = (-ct_tw if inside else z.expand(Bp, D)) if acc else ct_tw
+        cdz = (-ct_tz if inside else z.expand(Bp, D)) if acc else ct_tz
+        ctw = ct_tw if acc and inside else z.expand(Bp, D)
+        ctz = ct_tz if acc and inside else z.expand(Bp, D)
+        e0 = e1 = z.expand(Bp, D)
+        if hi > lo:
+            ynv = pad(rec.hy[i + 1])
+            hd = k.one if bool(dt == 0) else dt
+            for r in range(lo, hi):
+                th = (saveat[r].to(dt_) - t_i) / hd
+                gr = pad(ct_ys[r])
+                cy = cy + (k.one - th) * gr
+                cyn = cyn + th * gr
+                c_th = gr * (ynv - y)
+                e0 = e0 - c_th / hd
+                e1 = e1 + (z if bool(dt == 0) else -c_th * th / hd)
+        yn = y
+        for q in range(s_):
+            if tab.alpha[q] != 0.0:
+                yn = yn + (k.alpha[q] * dt) * F[f_src[q]]
+        for q in range(s_):
+            if coef[q]:
+                b = k.beta[q]
+                yn = yn + (b[0] * dw + b[1] * i11 + b[2] * i10 + b[3] * i111) * G[g_src[q]]
+        er = z.expand(Bp, D)
+        for q in range(s_):
+            if k.dE[q] != 0.0:
+                er = er + (k.dE[q] * dt) * F[f_src[q]]
+        for q in range(s_):
+            if tab.e_noise[q] != 0.0:
+                er = er + (k.en[q] * i10) * G[g_src[q]]
+        ay, an_ = torch.abs(y), torch.abs(yn)
+        denom = k.atol + torch.maximum(ay, an_) * k.rtol
+        sv = er / denom
+        csv = g[3] * k.two * sv
+        cm = -csv * sv / denom * k.rtol
+        half_cm = k.half * cm
+        cy = cy + torch.where(ay > an_, cm, torch.where(ay == an_, half_cm, z)) * _sign_of(y)
+        cyn = cyn + torch.where(an_ > ay, cm, torch.where(ay == an_, half_cm, z)) * _sign_of(yn)
+        cerr = csv / denom
+        cy = cy + cyn
+        cF = [z.expand(Bp, D)] * s_
+        cG, cH0 = list(cF), list(cF)
+        if ia != ib:
+            df = g[4] * k.two * (F[ib] - F[ia])
+            dh = g[5] * k.two * (H0[ib] - H0[ia])
+            cF[ib], cF[ia], cH0[ib], cH0[ia] = df, -df, dh, -dh
+        cwi = c11 = c10 = c111 = z.expand(Bp, D)
+        for q in range(s_):
+            if tab.alpha[q] != 0.0:
+                cF[f_src[q]] = cF[f_src[q]] + (k.alpha[q] * dt) * cyn
+                e1 = e1 + k.alpha[q] * (F[f_src[q]] * cyn)
+            if k.dE[q] != 0.0:
+                cF[f_src[q]] = cF[f_src[q]] + (k.dE[q] * dt) * cerr
+                e1 = e1 + k.dE[q] * (F[f_src[q]] * cerr)
+            gi = G[g_src[q]] if g_src[q] >= 0 else z.expand(Bp, D)
+            if coef[q]:
+                b = k.beta[q]
+                co = b[0] * dw + b[1] * i11 + b[2] * i10 + b[3] * i111
+                cG[g_src[q]] = cG[g_src[q]] + co * cyn
+                cc = gi * cyn
+                cwi, c11 = cwi + b[0] * cc, c11 + b[1] * cc
+                c10, c111 = c10 + b[2] * cc, c111 + b[3] * cc
+            if tab.e_noise[q] != 0.0:
+                cG[g_src[q]] = cG[g_src[q]] + (k.en[q] * i10) * cerr
+                c10 = c10 + k.en[q] * (gi * cerr)
+        # past the batch end: no seed
+        cy, cyn, cerr, cdw, cdz, ctw, ctz, cwi, c11, c10, c111, e0, e1 = map(
+            mask, (cy, cyn, cerr, cdw, cdz, ctw, ctz, cwi, c11, c10, c111, e0, e1))
+        cF, cG, cH0 = ([mask(x) for x in xs] for xs in (cF, cG, cH0))
+        e2 = z.expand(Bp, D)
+        # ---- reverse over the stages: the diffusion's lincomb, then the drift's ----
+        for q in range(s_ - 1, -1, -1):
+            cxg = net_bwd(1, cG[q], hg[q], H1[q]) if g_src[q] == q else None
+            cxf = None
+            if f_src[q] == q:
+                cxf = net_bwd(0, cF[q], hf[q], H0[q] * H0[q] * H0[q] if body == "cubic"
+                              else H0[q])
+                if body == "cubic":
+                    cxf = cxf * (k.three * (H0[q] * H0[q]))
+                cxf = cxf + cH0[q]
+            if cxg is not None:
+                cy = cy + cxg
+                for jj in range(q):
+                    if tab.A1[q][jj] != 0.0:
+                        cF[f_src[jj]] = cF[f_src[jj]] + (k.A1[q][jj] * dt) * cxg
+                        e1 = e1 + k.A1[q][jj] * (F[f_src[jj]] * cxg)
+                    if tab.B1[q][jj] != 0.0:
+                        cG[g_src[jj]] = cG[g_src[jj]] + (k.B1[q][jj] * sqdt) * cxg
+                        e2 = e2 + k.B1[q][jj] * (G[g_src[jj]] * cxg)
+            if cxf is not None:
+                cy = cy + cxf
+                for jj in range(q):
+                    if tab.A0[q][jj] != 0.0:
+                        cF[f_src[jj]] = cF[f_src[jj]] + (k.A0[q][jj] * dt) * cxf
+                        e1 = e1 + k.A0[q][jj] * (F[f_src[jj]] * cxf)
+                    if tab.B0[q][jj] != 0.0:
+                        cG[g_src[jj]] = cG[g_src[jj]] + (k.B0[q][jj] * i10) * cxf
+                        c10 = c10 + k.B0[q][jj] * (G[g_src[jj]] * cxf)
+        # ---- the Itô coefficients and the bridge ----
+        cdw = (cdw + cwi + c11 * (dw / sqdt) + k.half * c10
+               + c111 * ((k.three * dw * dw - k.three * dt) / (k.six * dt)))
+        cdz = cdz + (k.half * k.inv_sqrt3) * c10
+        terms = (e0, e1, e2,
+                 -c11 * (k.half / sqdt) + c111 * (-k.three * dw / (k.six * dt) - i111 / dt),
+                 -c11 * i11 / sqdt, tw * cdw + tz * cdz, xw * cdw + xz * cdz)
+        # each thread's partials over its elements (idx = thread, thread +
+        # 256, ... of the tile's valid ones), then block_sum_to's warps
+        n = R * D
+        flat = [x.reshape(ntiles, n) for x in terms]
+        ok = valid.reshape(ntiles, n)
+        part = z.expand(ntiles, 5, SDE_THREADS).clone()
+        for r0 in range(0, n, SDE_THREADS):
+            w_ = min(SDE_THREADS, n - r0)
+            m_ = ok[:, r0:r0 + w_]
+            for qq, src in ((0, 0), (1, 1), (2, 2), (1, 3), (2, 4), (3, 5), (4, 6)):
+                cur = part[:, qq, :w_]
+                part[:, qq, :w_] = torch.where(m_, cur + flat[src][:, r0:r0 + w_], cur)
+        tile_part = z.expand(ntiles, 5)
+        for w in range(SDE_THREADS // 32):
+            tile_part = tile_part + _warp_sum(part[:, :, 32 * w:32 * w + 32])
+        lanes = z.expand(5, 32).clone()
+        for t in range(ntiles):
+            lanes[:, t % 32] = lanes[:, t % 32] + tile_part[t]
+        ks = _warp_sum(lanes)
+        ct_y = cy
+        ct_tw, ct_tz = ctw + frac * cdw, ctz + frac * cdz
+        # ---- thread 0: the tile sums' pullback ----
+        g_t, g_dt, g_q, _, _, _, g_t1, g_sp = g
+        c_th = ct[3]
+        g_dteff = g_dt + ct_tel[1, i] + ks[1] + ks[2] / (k.two * sqdt)
+        g_h = z
+        if acc:
+            if inside:
+                g_h = g_h + c_th
+                g_dteff = g_dteff - c_th
+        else:
+            g_dteff = g_dteff + c_th
+        g_dteff, g_h = _k_bridge_bwd(k, br, dt, h_i, ks[3], ks[4], g_dteff, g_h)
+        ct = [g_t + ks[0] + (-g_dteff if is_last else z), z if is_last else g_dteff, g_q, g_h,
+              ct[4] + g_t1 + (g_dteff if is_last else z), ct[5] + g_sp]
+    if n_save:
+        ct_ys[cur0:curf] = 0
+    ct_leaves = []
+    for net in cw:
+        for layer in net:
+            for slots in layer:
+                tot = torch.zeros_like(slots[0])
+                for b in range(grid):
+                    tot = tot + slots[b]
+                ct_leaves.append(tot)
+    return (ct[0] - ct[5], ct[4] + ct[5], ct[1], ct_y[:B], ct_ys, *ct_leaves)
+
+
+# ---------------------------------------------------------------------------
 # Wrappers: plain version for CPU tensors, kernel for CUDA tensors.
 # ---------------------------------------------------------------------------
 
@@ -674,14 +1240,15 @@ def _cuda_sde_fwd(t0, t1, dt0, y0, leaves, rtol, atol, ctrl, max_steps, xi_w, xi
     else:
         ys = y0.new_zeros((0, B, D))
         cursors = torch.zeros(2, dtype=torch.int32, device=dev)
+    plan = sde_tile_plan(B, _net_widths(widths), body)
     lib = _cuda.library()
+    check_sde_plan(lib, tuple(widths), body)
     y1 = torch.empty_like(y0)
     hy = torch.empty((max_steps + 1, B, D), device=dev)
     hw, hz = torch.empty_like(hy), torch.empty_like(hy)
     streams = torch.zeros((N_STREAMS, max_steps), device=dev)
     final = torch.empty(6, device=dev)
-    rows = lib.regnde_sde_rows()
-    partials = torch.empty((2, (B + rows - 1) // rows, 3), device=dev)
+    partials = torch.empty((2, plan.tiles, 3), device=dev)
     save = (_ptr(saveat), _ptr(cursors), _ptr(ys)) if n_save else (None,) * 3
     scalars = torch.stack([_scalar_f32(x, y0) for x in (t0, t1, dt0)])
     code = getattr(lib, "regnde_" + _kernel_name(body, "fwd"))(
@@ -719,16 +1286,16 @@ def _cuda_sde_bwd(rec, ns, ct_y1, ct_tel, t0, t1, leaves, rtol, atol, ctrl, xi_w
         ct_ys = ct_ys.clone()
     else:
         ct_ys = rec.y1.new_zeros((0, B, D))
+    plan = sde_tile_plan(B, _net_widths(widths), body)
     lib = _cuda.library()
+    check_sde_plan(lib, tuple(widths), body)
     ct_y = ct_y1.clone()
     ct_tw, ct_tz = torch.zeros_like(ct_y), torch.zeros_like(ct_y)
     ct_scalars = torch.empty(3, device=dev)
-    rows = lib.regnde_sde_rows()
-    ntiles = (B + rows - 1) // rows
-    partials = torch.empty((2, ntiles, 5), device=dev)
+    partials = torch.empty((2, plan.tiles, 5), device=dev)
     n_leaf = sum(x.numel() for x in leaves)
     out = torch.empty(n_leaf, device=dev)
-    slots = torch.empty((ntiles, n_leaf), device=dev)
+    slots = torch.empty((plan.tiles, n_leaf), device=dev)
     save = (_ptr(saveat), _ptr(rec.cursors), _ptr(ct_ys)) if n_save else (None,) * 3
     scalars = torch.stack([_scalar_f32(x, rec.y1) for x in (t0, t1)])
     code = getattr(lib, "regnde_" + _kernel_name(body, "bwd"))(

@@ -2388,3 +2388,159 @@ def test_weight_cotangents_counted_inside_each_backward(cuda):
         assert wc.LAUNCHES == {"weight_cotangents": i}
         assert sum(after.values()) - sum(before.values()) == 1
         assert "weight_cotangents" not in after
+
+
+def _phase19_args(device, tol):
+    """Phase 19's inputs (``chip_smoke.phase_sde_kernels``): the MNIST NSDE
+    pair at 512 x 32 (drift 32 -> 64 -> 32, diffusion 32 -> 32), SOSRI2, at
+    1.4e-1 (max_steps 128) or 1.4e-2 (256, 5 saves)."""
+    gen = torch.Generator().manual_seed(21)
+    rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=gen) * scale).to(device)
+    B, D, H = 512, 32, 64
+    leaves = [rnd(H, D, scale=D ** -0.5), rnd(H, scale=0.1), rnd(D, H, scale=H ** -0.5),
+              rnd(D, scale=0.1), rnd(D, D, scale=D ** -0.5), rnd(D, scale=0.1)]
+    y0 = rnd(B, D, scale=0.5)
+    S, sa = (128, None) if tol > 1e-1 else (256, [0.0, 0.25, 0.5, 0.75, 1.0])
+    xi = sde_ops.presample_noise(torch.Generator(device=device).manual_seed(22), (B, D), S)
+    t0, t1 = torch.tensor(0.0, device=device), torch.tensor(1.0, device=device)
+    kw = dict(n_drift=2, solver="sosri2")
+    if sa is not None:
+        kw["saveat"], kw["ys_init"] = sde_ops.save_rows_at_start(
+            torch.tensor(sa, device=device), t0, y0)
+    return (t0, t1, torch.tensor(0.01, device=device), y0, leaves, tol, tol,
+            PIController(beta1=0.5, beta2=0.0), S, *xi), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair,batch,tol,saves", [
+    ("mlp", 512, 1.4e-2, True), ("mlp", 13, 1e-2, True), ("mlp", 7, 1e-2, False),
+    ("cubic", 100, 3e-2, True), ("cubic", 13, 1e-2, False)])
+def test_sde_bwd_matches_its_schedule(cuda, pair, batch, tol, saves):
+    """K10 (the reverse tile body) against its order of sums in plain
+    PyTorch on the card (``sw.plain_sde_bwd_tiles``): every output bitwise,
+    seeded with the cotangents of y1, the saves and the telemetry, on the
+    MLP pair (512 x 32 x 64: the compile-time instance; 13 and 7 rows of 5 x
+    8: the generic one, ragged tiles) and the cubic pair."""
+    S = 256
+    if pair == "mlp":
+        D, H = (32, 64) if batch == 512 else (5, 8)
+        sa = [0.0, 0.25, 0.5, 0.75, 1.0] if saves else None
+        args, kw = _sde_args(batch, D, H, cuda, tol, S, sa)
+    else:
+        D = 2
+        args, kw = _cubic_args(batch, 50 if batch == 100 else 8, cuda, tol, S,
+                               CUBIC_SAVES if saves else None)
+    rk = sw.sde_whole_solve_fwd(*args, **kw)
+    ns = int(rk.final[3:5].sum())
+    g = torch.Generator().manual_seed(7)
+    ct_y1 = torch.randn(batch, D, generator=g).to(cuda)
+    ct_tel = (0.1 * torch.randn(4, S, generator=g)).to(cuda)
+    ct_ys = torch.randn(rk.ys.shape[0], batch, D, generator=g).to(cuda) if saves else None
+    t0, t1, _, _, leaves, _, _, ctrl = args[:8]
+    bargs = (rk, ns, ct_y1, ct_tel, t0, t1, leaves, tol, tol, ctrl, *args[9:])
+    bkw = {k: v for k, v in kw.items() if k != "ys_init"}
+    got = sw.sde_whole_solve_bwd(*bargs, ct_ys=ct_ys, **bkw)
+    want = sw.plain_sde_bwd_tiles(*bargs, ct_ys=ct_ys, **bkw)
+    for j, (a, b) in enumerate(zip(got, want)):
+        assert torch.equal(a, b), (j, (a - b).abs().max().item())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tol", [1.4e-1, 1.4e-2])
+def test_sde_fwd_rows_are_the_plain_versions(cuda, tol):
+    """K9 at phase 19's inputs, every stored trial step teacher-forced: the
+    plain trial step from K9's own start row, tail and scalars takes K9's
+    decision, and its rows (the state after the step, the tail's rows) are
+    K9's history bitwise (each affine map an f64 sum rounded once, each
+    lincomb op by op, accurate tanhf); an element where they differ is named
+    with its step and both values (an f64 sum within its rounding error of
+    an f32 tie rounds either way). The three sums, reduced in another order
+    than ``torch.sum``'s, within 1e-5; the solve takes the plain version's
+    steps and save cursors."""
+    from regneuralde_tpu_torch.ops.sri import get_tableau
+
+    args, kw = _phase19_args(cuda, tol)
+    rk = sw.sde_whole_solve_fwd(*args, **kw)
+    rp = sw.plain_sde_whole_solve_fwd(*args, **kw)
+    assert rk.final[3:].tolist() == rp.final[3:].tolist() and rk.final[5] == 1.0
+    assert torch.equal(rk.cursors, rp.cursors)
+    ns = int(rk.final[3:5].sum())
+    t0, t1, _, _, leaves, rtol, atol, ctrl = args[:8]
+    st = rk.streams
+    for i in range(ns):
+        o = sw.plain_sde_trial_step(get_tableau("sosri2"), ctrl, rtol, atol, st[sw.ST_T, i],
+                                    st[sw.ST_DT, i], st[sw.ST_QOLD, i], st[sw.ST_H, i],
+                                    rk.hy[i], rk.hw[i], rk.hz[i], args[9][i], args[10][i], t1,
+                                    t1 - t0, leaves, 2)
+        assert bool(o.accept) == bool(st[sw.ST_ACC, i] > 0.5), i
+        for name, a, b in (("y", rk.hy[i + 1], o.y), ("tail_w", rk.hw[i + 1], o.tail.w),
+                           ("tail_z", rk.hz[i + 1], o.tail.z)):
+            bad = (a != b).nonzero()
+            assert not bad.numel(), (i, name, bad[:4].tolist(), a[tuple(bad[0])].item(),
+                                     b[tuple(bad[0])].item())
+        for q, v in zip((sw.ST_E, sw.ST_N, sw.ST_D), o.sums):
+            assert abs(st[q, i].item() - v.item()) <= 1e-5 * abs(v.item()), (i, q)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["sriw1", "sosri", "sosri2"])
+@pytest.mark.parametrize("pair", ["nsde", "mlp", "cubic"])
+def test_sde_whole_solve_takes_every_tableau(cuda, solver, pair):
+    """K9/K10 on each SRI tableau (SRIW1's aliased and unused drift stages
+    among them), on the compile-time instance (the NSDE widths) and the
+    generic one: the plain version's steps, y1 and saves within 1e-5, K10
+    within 3 times the plain walk's distance from a float64 walk plus 1e-5
+    and bitwise its schedule."""
+    S = 256
+    if pair == "cubic":
+        args, kw = _cubic_args(16, 8, cuda, 1e-2, S, [0.0, 0.5, 1.0])
+    else:
+        D, H = (32, 64) if pair == "nsde" else (6, 10)
+        args, kw = _sde_args(64, D, H, cuda, 1e-2, S, [0.0, 0.5, 1.0])
+    kw["solver"] = solver
+    rk = sw.sde_whole_solve_fwd(*args, **kw)
+    rp = sw.plain_sde_whole_solve_fwd(*args, **kw)
+    assert rk.final[3:].tolist() == rp.final[3:].tolist() and rk.final[5] == 1.0
+    assert torch.equal(rk.streams[sw.ST_ACC], rp.streams[sw.ST_ACC])
+    assert _rel(rk.y1, rp.y1) <= 1e-5 and _rel(rk.ys, rp.ys) <= 1e-5
+    ns = int(rk.final[3:5].sum())
+    B, D = rk.y1.shape
+    g = torch.Generator().manual_seed(7)
+    ct_y1, ct_ys = torch.randn(B, D, generator=g).to(cuda), torch.randn(
+        3, B, D, generator=g).to(cuda)
+    ct_tel = (0.1 * torch.randn(4, S, generator=g)).to(cuda)
+    t0, t1, _, _, leaves, _, _, ctrl = args[:8]
+    bargs = (rk, ns, ct_y1, ct_tel, t0, t1, leaves, 1e-2, 1e-2, ctrl, *args[9:])
+    bkw = {k: v for k, v in kw.items() if k != "ys_init"}
+    gk = sw.sde_whole_solve_bwd(*bargs, ct_ys=ct_ys, **bkw)
+    gp = sw.plain_sde_whole_solve_bwd(*bargs, ct_ys=ct_ys, **bkw)
+    gs = sw.plain_sde_bwd_tiles(*bargs, ct_ys=ct_ys, **bkw)
+    d = lambda x: x.double()
+    g64 = sw.plain_sde_whole_solve_bwd(
+        sw.SDERecord(*map(d, rk)), ns, d(ct_y1), d(ct_tel), d(t0), d(t1),
+        [d(x) for x in leaves], 1e-2, 1e-2, ctrl, d(args[9]), d(args[10]), ct_ys=d(ct_ys),
+        **dict(bkw, saveat=d(bkw["saveat"])))
+    groups = lambda g: [torch.stack(g[:3]), *g[3:]]
+    for a, b, c in zip(groups(gk), groups(gp), groups(g64)):
+        if b.numel():
+            assert _rel(a, c) <= 3 * _rel(b, c) + 1e-5
+    assert all(torch.equal(a, b) for a, b in zip(gk, gs))
+
+
+@pytest.mark.cuda
+def test_sde_plan_is_the_librarys(cuda):
+    """``sde_tile_plan``'s sizes are the library's (``check_sde_plan``) for
+    the NSDE pair, the toy's cubic pair, a generic MLP pair, a deep one and
+    one whose leaf cotangents outgrow the registers."""
+    from regneuralde_tpu_torch.ops import _cuda
+
+    lib = _cuda.library()
+    cases = [(((32, 64, 32), (32, 32)), "mlp", True), (((2, 50, 2), (2, 2)), "cubic", True),
+             (((32, 64, 32), (32, 32)), "cubic", False), (((2, 50, 2), (2, 2)), "mlp", False),
+             (((5, 8, 5), (5, 5)), "mlp", False),
+             (((4, 8, 8, 8, 4), (4, 6, 4)), "mlp", False),
+             (((32, 256, 32), (32, 32)), "mlp", False)]
+    for nets, body, inst in cases:
+        widths = (len(nets[0]) - 1, len(nets[1]) - 1, *nets[0], *nets[1])
+        plan = sw.check_sde_plan(lib, widths, body)
+        assert plan == sw.sde_tile_plan(0, nets, body) and plan.fixed_instance == inst

@@ -18,7 +18,11 @@ sum apart) and K4-CSL's over phase 16's solves (by tolerance), and K7-CSL's
 and K3-CSL's likewise, ``mlp``: K1/K2 and K3/K4
 for MLPDynamics, with K1's and K2's device time under ``torch.profiler`` at
 phase 2's inputs, K2's kernels and its contraction apart, whichever kernels
-the tree has for them, ``sde``: K9/K10 for the MLP pair, ``lanes``: K11/K12,
+the tree has for them, ``sde``: K9/K10 for the MLP pair, with their
+device time under ``torch.profiler`` over phase 19's solves (K10's kernel
+and its slot sum apart, by tolerance and trial steps) and hashes of their
+outputs, ``sdecubic``: the same for the cubic pair over phase 29's solves,
+``lanes``: K11/K12,
 and their device time under ``torch.profiler`` at phase 22's inputs, K12's
 kernels and its contraction apart, whichever kernels the tree has for them,
 ``tuple``: K13/K14, and their device time under ``torch.profiler`` at
@@ -381,6 +385,70 @@ def lanes_device(dev):
     }
 
 
+def sde_device(dev, body):
+    """K9's and K10's device ms a solve under the profiler at phase 19's
+    inputs (body "mlp": 512 x 32, drift 32-64-32, SOSRI2, at 1.4e-1 and at
+    1.4e-2 with 5 saves) or phase 29's ("cubic": 100 x 2, drift 2-50-2 after
+    the cube, SOSRI, 30 saves, at 3e-1 and 3e-2), K10's kernel and its slot
+    sum apart, by tolerance and trial steps; and hashes of both kernels'
+    outputs."""
+    import numpy as np
+    from regneuralde_tpu_torch.ops import sde as sde_ops
+    from regneuralde_tpu_torch.ops import sde_whole_solve as sw
+    from regneuralde_tpu_torch.ops.controller import PIController
+    from regneuralde_tpu_torch.training import sde_toy as st
+
+    ctrl = PIController(beta1=0.5, beta2=0.0)
+    t0, t1 = torch.tensor(0.0, device=dev), torch.tensor(1.0, device=dev)
+    dt0 = torch.tensor(0.01, device=dev)
+    if body == "mlp":
+        gen = torch.Generator().manual_seed(cs.SEED + 21)
+        rnd = lambda *s, scale=1.0: (torch.randn(*s, generator=gen) * scale).to(dev)
+        B, D, H = cs.NSDE_BATCH, cs.NSDE_DIM, cs.NSDE_HIDDEN
+        leaves = [rnd(H, D, scale=D ** -0.5), rnd(H, scale=0.1), rnd(D, H, scale=H ** -0.5),
+                  rnd(D, scale=0.1), rnd(D, D, scale=D ** -0.5), rnd(D, scale=0.1)]
+        y0 = rnd(B, D, scale=0.5)
+        cases = [(cs.NSDE_TOL, cs.NSDE_MAX_STEPS, None),
+                 (cs.NSDE_TIGHT_TOL, 256, [0.0, 0.25, 0.5, 0.75, 1.0])]
+        kw0 = dict(n_drift=2, solver="sosri2")
+    else:
+        S = st.MAX_STEPS
+        leaves, y0, xi = cs._toy_inputs(dev, S, torch.Generator().manual_seed(cs.SEED + 47),
+                                        2.0)
+        B, D = y0.shape
+        sa = np.linspace(0.0, 1.0, 30).astype(np.float32).tolist()
+        cases = [(st.TOL, S, sa), (cs.TOY_TIGHT_TOL, S, sa)]
+        kw0 = dict(n_drift=2, solver="sosri", body="cubic")
+    out = {}
+    for tol, S, sa in cases:
+        if body == "mlp":
+            xi = sde_ops.presample_noise(torch.Generator(device=dev).manual_seed(cs.SEED + 22),
+                                         (B, D), S)
+        kw = dict(kw0)
+        if sa is not None:
+            kw["saveat"], kw["ys_init"] = sde_ops.save_rows_at_start(
+                torch.tensor(sa, device=dev), t0, y0)
+        args = (t0, t1, dt0, y0, leaves, tol, tol, ctrl, S, *xi)
+        rec = sw.sde_whole_solve_fwd(*args, **kw)
+        ns = int(rec.final[3:5].sum().item())
+        g = torch.Generator().manual_seed(7)
+        ct_y1 = torch.randn(B, D, generator=g).to(dev)
+        ct_tel = (0.1 * torch.randn(4, S, generator=g)).to(dev)
+        ct_ys = None if sa is None else torch.randn(len(sa), B, D, generator=g).to(dev)
+        bkw = {k: v for k, v in kw.items() if k != "ys_init"}
+        bwd = lambda: sw.sde_whole_solve_bwd(rec, ns, ct_y1, ct_tel, t0, t1, leaves, tol, tol,
+                                             ctrl, *xi, ct_ys=ct_ys, **bkw)
+        fwd = lambda: sw.sde_whole_solve_fwd(*args, **kw)
+        tag = f"{body}_tol={tol:g}_ns={ns}"
+        out[f"K9_{tag}_device"] = {"ms": device_ms(fwd, ("sde_whole_solve_fwd_kernel",))}
+        out[f"K10_{tag}_device"] = {"ms": device_ms(bwd, ("sde_whole_solve_bwd_kernel",))}
+        out[f"K10_slot_sum_{tag}_device"] = {"ms": device_ms(bwd, ("sum_slots_kernel",))}
+        DIGESTS[f"K9_{tag}"] = digest([rec.y1, rec.ys, rec.hy[:ns + 1], rec.hw[:ns + 1],
+                                       rec.hz[:ns + 1], rec.streams, rec.final, rec.cursors])
+        DIGESTS[f"K10_{tag}"] = digest(list(bwd()))
+    return out
+
+
 def wcot(dev):
     """Device ms a call of the weight-cotangent contraction's kernels (the
     old atb_split_kernel or wcot_chunk_kernel + wcot_sum_kernel) inside K2
@@ -435,6 +503,10 @@ with contextlib.redirect_stdout(io.StringIO()):
         ms.update(csl_device(dev))
     if "sde" in phases and hasattr(cs, "phase_sde_kernels"):
         ms.update(cs.phase_sde_kernels(dev))
+        ms.update(sde_device(dev, "mlp"))
+    if "sdecubic" in phases and hasattr(cs, "phase_sde_cubic_kernels"):
+        ms.update(cs.phase_sde_cubic_kernels(dev))
+        ms.update(sde_device(dev, "cubic"))
     if "lanes" in phases and hasattr(cs, "phase_lanes_kernels"):
         ms.update(cs.phase_lanes_kernels(dev))
         ms.update(lanes_device(dev))
